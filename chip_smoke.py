@@ -5,17 +5,28 @@
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile the hand-written kernels from planarslam_tpu_torch/csrc;
+  2. build: compile the hand-written kernels from planarslam_tpu_torch/csrc
+     (one nvcc per source, in parallel);
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes the 640x480 tracking path gives it (inputs from frame 0 of
-     the synthetic sequence, or from a numpy seed), with both timings
-     (median of 25 launches, CUDA events);
-  4. slice: System(SystemConfig(), enable_local_mapping=False,
-     enable_loop_closing=False) tracks the 640x480 synthetic sequence with
-     frames quantized to uint8 gray / uint16 depth; ATE against ground
-     truth, 0 lost frames, and every kernel launched on this run.
-The line before the last is a JSON object with one entry per kernel; the
-last line is the device JSON object.
+     the shapes the 640x480 paths give it (inputs from frame 0 of the
+     synthetic sequence, or from a numpy seed with planted structure), with
+     both timings (median of 25 calls, CUDA events);
+  4. path 1, tracking only: System(SystemConfig(), enable_local_mapping=
+     False, enable_loop_closing=False) tracks the 640x480 synthetic room
+     with frames quantized to uint8 gray / uint16 depth; ATE against ground
+     truth, 0 lost frames;
+  5. path 2, local mapping: System(SystemConfig(), enable_loop_closing=
+     False) on the same frames; ATE, 0 lost, a mapping step per keyframe
+     after the first;
+  6. path 3, relocalization: the same System with a keyframe every 4
+     frames tracks until the map holds more than 5 keyframes, loses
+     tracking on noise frames, relocalizes on a revisited frame (Horn
+     branch), then loses again and revisits a frame without depth (PnP
+     branch).
+Each path runs with the launch counts set to 0 just before it and read just
+after; every kernel must have launched on the paths. The line before the
+last is a JSON object with one entry per kernel; the last line is the
+device JSON object.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ import numpy as np
 
 ATE_LIMIT_M = 0.010
 TIMING_REPS = 25
+TRACKING_FRAMES = 48  # path 1 (tracking alone): cut to keep the run short
 
 
 def _fail(msg: str) -> None:
@@ -193,53 +205,307 @@ def kernel_parity(seq, cfg, dev) -> list:
     return out
 
 
-def run_slice(seq, cfg, dev, n_frames: int) -> dict:
-    """The tracking path end to end; returns its metrics and launch counts."""
+def _planted_se3(rng, scale: float = 0.3) -> np.ndarray:
+    """A random rigid transform (numpy)."""
+    w = rng.normal(0, scale, 3)
+    th = np.linalg.norm(w)
+    k = w / th
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    T = np.eye(4)
+    T[:3, :3] = np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+    T[:3, 3] = rng.normal(0, scale, 3)
+    return T.astype(np.float32)
+
+
+def backend_kernel_parity(cfg, dev) -> list:
+    """K5-K7 against their plain versions on the card, on numpy-seeded
+    inputs with planted structure, at the shapes of the 640x480 paths."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import pnp, sim3_solver, triangulation
+
+    out = []
+    cam = cfg.camera
+    K = (cam.fx, cam.fy, cam.cx, cam.cy)
+    Kp = cfg.orb.max_keypoints
+
+    def t(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    def project(T, X):
+        pc = X @ T[:3, :3].T + T[:3, 3]
+        return np.stack([cam.fx * pc[:, 0] / pc[:, 2] + cam.cx,
+                         cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], -1)
+
+    # K5: points seen from the own pose and 5 neighbours 0.1-0.5 m away,
+    # 0.5 px noise, 10% outlier matches
+    rng = np.random.default_rng(5)
+    NB = 5
+    X = np.stack([rng.uniform(-2.0, 2.0, Kp), rng.uniform(-1.5, 1.5, Kp),
+                  rng.uniform(2.0, 6.0, Kp)], -1)
+    own_T = np.eye(4, dtype=np.float32)
+    nb_T = np.stack([_planted_se3(rng, 0.05) for _ in range(NB)])
+    for i in range(NB):
+        d = rng.normal(0, 1, 3)
+        nb_T[i, :3, 3] = (0.1 + 0.4 * rng.random()) * d / np.linalg.norm(d)
+    own_uv = project(own_T, X) + rng.normal(0, 0.5, (Kp, 2))
+    uv2 = np.stack([project(nb_T[i], X) for i in range(NB)])
+    uv2 += rng.normal(0, 0.5, uv2.shape)
+    outl = rng.random((NB, Kp)) < 0.1
+    uv2[outl] = rng.uniform(0, [cam.width, cam.height], (int(outl.sum()), 2))
+    own_level = rng.integers(0, cfg.orb.n_levels, Kp)
+    args5 = (t(own_uv, np.float32), t(own_level, np.int32),
+             t(uv2, np.float32),
+             t(np.broadcast_to(own_level, (NB, Kp)), np.int32),
+             t(rng.random((NB, Kp)) < 0.9), t(own_T), t(nb_T, np.float32),
+             K, cfg.orb.scale_factor)
+    Xk, gk = triangulation.triangulate_two_view(*args5)
+    Xp, gp = triangulation.triangulate_two_view_plain(*args5)
+    torch.cuda.synchronize()
+    both = (gk > 0) & (gp > 0)
+    n_good = int(gp.sum())
+    mismatch = int((gk != gp).sum())
+    _check(n_good > 500, f"triangulate_two_view: only {n_good} good pairs")
+    rel = float(((Xk - Xp).norm(dim=-1) / Xp.norm(dim=-1).clamp(min=1e-9))
+                [both].max())
+    _check(mismatch <= 0.005 * NB * Kp,
+           f"triangulate_two_view: good differs on {mismatch} pairs")
+    _check(rel <= 1e-3, f"triangulate_two_view: X relative error {rel}")
+    out.append({"name": "triangulate_two_view", "route": "cuda",
+                "source": "planarslam_tpu_torch/csrc/triangulate.cu",
+                "replaces": "planarslam_tpu/slam/device_mapper.py:125",
+                "max_abs_err": float((Xk - Xp)[both].abs().max()),
+                "tolerance": "good mismatch <= 0.5%, X rel <= 1e-3",
+                "good_pairs": n_good, "good_mismatch": mismatch,
+                "ms": _time_ms(lambda: triangulation.triangulate_two_view(
+                    *args5)),
+                "plain_ms": _time_ms(
+                    lambda: triangulation.triangulate_two_view_plain(*args5))})
+
+    # K6: 1024 correspondences, 60% inliers of a known SE3 (1 cm noise),
+    # the 64 one-hot hypothesis rows of the RANSAC (default_rng(7) picks)
+    rng = np.random.default_rng(6)
+    n = 1024
+    src = rng.uniform([-3, -2, 1], [3, 2, 7], (n, 3)).astype(np.float32)
+    Tg = _planted_se3(rng)
+    dst = src @ Tg[:3, :3].T + Tg[:3, 3] + rng.normal(0, 0.01, (n, 3))
+    bad = rng.random(n) >= 0.6
+    dst[bad] = rng.uniform([-3, -2, 1], [3, 2, 7], (int(bad.sum()), 3))
+    s_p, d_p, v_p, picks = sim3_solver._pad_pair(src, dst, 64)
+    w = np.zeros((64, len(s_p)), np.float32)
+    np.put_along_axis(w, picks.astype(np.int64), 1.0, axis=1)
+    w = w * v_p[None] + np.float32(1e-9)
+    args6 = (t(s_p), t(d_p), t(v_p), t(w), 0.08)
+    k6 = sim3_solver.horn_align_batch(*args6)
+    p6 = sim3_solver.horn_align_batch_plain(*args6)
+    torch.cuda.synchronize()
+    err6 = max(float((k6[0] - p6[0]).abs().max()),
+               float((k6[1] - p6[1]).abs().max()))
+    _check(bool((k6[2] == p6[2]).all()),
+           "horn_align_batch: inlier counts differ from plain")
+    _check(err6 <= 1e-4, f"horn_align_batch: R, t error {err6} > 1e-4")
+    best = int(p6[2].max())
+    _check(best > 0.5 * n, f"horn_align_batch: best hypothesis has {best} "
+           f"inliers of {n} (planted 60%)")
+    out.append({"name": "horn_align_batch", "route": "cuda",
+                "source": "planarslam_tpu_torch/csrc/horn_align.cu",
+                "replaces": "planarslam_tpu/solvers/sim3_solver.py:23",
+                "max_abs_err": err6, "tolerance": "n_inl equal, R t 1e-4",
+                "best_inliers": best,
+                "ms": _time_ms(lambda: sim3_solver.horn_align_batch(*args6)),
+                "plain_ms": _time_ms(
+                    lambda: sim3_solver.horn_align_batch_plain(*args6))})
+
+    # K7: 256 correspondences, 80% inliers (0.5 px), the 128 DLT hypotheses
+    # of the RANSAC (default_rng(11) picks)
+    rng = np.random.default_rng(7)
+    n = 256
+    xw = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                   rng.uniform(2, 6, n)], -1).astype(np.float32)
+    Tg = _planted_se3(rng, 0.1)
+    uv = project(Tg, xw) + rng.normal(0, 0.5, (n, 2))
+    bad = rng.random(n) >= 0.8
+    uv[bad] += rng.uniform(20, 60, (int(bad.sum()), 2))
+    uv_n = np.stack([(uv[:, 0] - cam.cx) / cam.fx,
+                     (uv[:, 1] - cam.cy) / cam.fy], -1).astype(np.float32)
+    picks = np.random.default_rng(11).integers(0, n, (128, 6)).astype(
+        np.int32)
+    inv_s2 = np.full(n, np.float32(cam.fx * cam.fy), np.float32)
+    args7 = (t(xw), t(uv_n), t(inv_s2), t(np.ones(n, bool)), t(picks), 5.991)
+    sk, Tk = pnp.pnp_dlt_hypotheses(*args7)
+    sp, Tp = pnp.pnp_dlt_hypotheses_plain(*args7)
+    torch.cuda.synchronize()
+    close = float(((sk - sp).abs() <= 2).to(torch.float32).mean())
+    Tbk, Tbp = Tk[int(torch.argmax(sk))], Tp[int(torch.argmax(sp))]
+    err_R = float((Tbk[:3, :3] - Tbp[:3, :3]).abs().max())
+    err_t = float((Tbk[:3, 3] - Tbp[:3, 3]).abs().max())
+    _check(close >= 0.95, f"pnp_dlt_hypotheses: scores within 2 on only "
+           f"{close:.3f} of hypotheses")
+    _check(err_R <= 0.01 and err_t <= 0.05,
+           f"pnp_dlt_hypotheses: best T differs by {err_R} (R), {err_t} (t)")
+    _check(int(sp.max()) > 0.6 * n, f"pnp_dlt_hypotheses: best hypothesis "
+           f"has {int(sp.max())} inliers of {n} (planted 80%)")
+    out.append({"name": "pnp_dlt_hypotheses", "route": "cuda",
+                "source": "planarslam_tpu_torch/csrc/pnp_dlt.cu",
+                "replaces": "planarslam_tpu/solvers/pnp.py:25",
+                "max_abs_err": max(err_R, err_t),
+                "tolerance": "scores +-2 on >= 95%, best T 0.01 / 0.05",
+                "scores_within_2": close,
+                "max_score_diff": int((sk - sp).abs().max()),
+                "ms": _time_ms(lambda: pnp.pnp_dlt_hypotheses(*args7)),
+                "plain_ms": _time_ms(
+                    lambda: pnp.pnp_dlt_hypotheses_plain(*args7))})
+    for k in out:
+        print(f"kernel {k['name']}: max_abs_err={k['max_abs_err']} "
+              f"(tolerance {k.pop('tolerance')}) ms={k['ms']:.4f} "
+              f"plain_ms={k['plain_ms']:.4f}", flush=True)
+    return out
+
+
+def _drive(slam, frames, timestamps) -> list:
+    """Track the frames; per-frame host ms."""
+    times = []
+    for i, (g, d) in enumerate(frames):
+        t0 = time.perf_counter()
+        slam.track_rgbd(g, d, timestamps[i])
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def run_tracking_path(name, seq, frames, cfg, dev, local_mapping: bool
+                      ) -> dict:
+    """Path 1 (tracking only) or path 2 (with local mapping) end to end;
+    returns its metrics and launch counts."""
     import torch
 
     from planarslam_tpu_torch import kernels
     from planarslam_tpu_torch.evaluation.ate import ate_rmse
-    from planarslam_tpu_torch.io.frames import quantize_frame
     from planarslam_tpu_torch.slam.system import System
 
-    frames = [quantize_frame(*seq.render(i), cfg.camera.depth_map_factor)
-              for i in range(n_frames)]
-    slam = System(config=cfg, enable_local_mapping=False,
+    n_frames = len(frames)
+    slam = System(config=cfg, enable_local_mapping=local_mapping,
                   enable_loop_closing=False, device=dev)
     torch.cuda.synchronize()
     kernels.reset_launches()
-    times = []
     t_all = time.perf_counter()
-    for i, (g8, d16) in enumerate(frames):
-        t0 = time.perf_counter()
-        slam.track_rgbd(g8, d16, seq.timestamps[i])
-        times.append(time.perf_counter() - t0)
+    times = _drive(slam, frames, seq.timestamps)
     slam.shutdown()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
     launches = dict(kernels.LAUNCHES)
     poses = slam.frame_poses_wc()
     _check(poses.shape == (n_frames, 4, 4),
-           f"trajectory shape {poses.shape} != ({n_frames}, 4, 4)")
-    _check(bool(np.all(np.isfinite(poses))), "non-finite poses")
+           f"{name}: trajectory shape {poses.shape} != ({n_frames}, 4, 4)")
+    _check(bool(np.all(np.isfinite(poses))), f"{name}: non-finite poses")
     ate = ate_rmse(poses[:, :3, 3], seq.poses_wc[:n_frames, :3, 3])
-    t_ms = np.asarray(times[1:]) * 1e3
+    t_ms = np.asarray(times[1:])
+    m = slam.map
     st = slam.tracker.stats
     res = {"ate_rmse_m": ate, "frames": n_frames,
-           "keyframes": int(slam.map.n_kf),
-           "map_points": int(slam.map.pt_valid.sum()),
+           "keyframes": int(m.n_kf),
+           "valid_keyframes": int(len(m.valid_kf_ids())),
+           "map_points": int(m.pt_valid.sum()),
+           "map_lines": int(m.ln_valid.sum()),
            "lost": int(st["lost"]),
            "manhattan_success": int(st["manhattan_success"]),
            "median_ms_per_frame": float(np.median(t_ms)),
            "p95_ms_per_frame": float(np.percentile(t_ms, 95)),
            "wall_s": wall, "launches": launches}
-    print("slice " + json.dumps(res), flush=True)
+    if slam.local_mapper is not None:
+        res["mapping"] = dict(slam.local_mapper.stats)
+    print(f"{name} " + json.dumps(res), flush=True)
+    _check(ate < ATE_LIMIT_M, f"{name}: ATE {ate:.5f} m >= {ATE_LIMIT_M} m")
+    _check(res["lost"] == 0, f"{name}: {res['lost']} lost frames")
+    if slam.local_mapper is not None:
+        steps = res["mapping"]["mapping_steps"]
+        _check(steps >= m.n_kf - 1, f"{name}: {steps} mapping steps for "
+               f"{m.n_kf} keyframes")
+    return res
+
+
+def run_reloc_path(seq, cfg, dev) -> dict:
+    """Path 3: lose tracking with a mature map and relocalize, first on a
+    revisited frame with depth (Horn branch), then on one without (PnP
+    branch)."""
+    import dataclasses
+
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.slam.system import System
+    from planarslam_tpu_torch.slam.tracking import TrackingState
+
+    cfg = cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, max_frames_between_kf=4))
+    dmf = cfg.camera.depth_map_factor
+    slam = System(config=cfg, enable_loop_closing=False, device=dev)
+    # keyframe culling out of the way: relocalization is the subject
+    slam.local_mapper._cull_keyframes = lambda kf: None
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t_all = time.perf_counter()
+    i = 0
+    while i < len(seq) and (i < 12 or len(slam.map.valid_kf_ids()) <= 5):
+        slam.track_rgbd(*quantize_frame(*seq.render(i), dmf),
+                        seq.timestamps[i])
+        i += 1
+    tracked = i
+    n_kf = int(len(slam.map.valid_kf_ids()))
+    _check(slam.get_tracking_state() == TrackingState.OK and n_kf > 5,
+           f"reloc: {n_kf} keyframes after {tracked} frames, state "
+           f"{slam.get_tracking_state()}")
+    rng = np.random.default_rng(0)
+    H, W = cfg.camera.height, cfg.camera.width
+
+    def kill(t0):
+        for j in range(4):
+            noise = rng.uniform(0, 255, (H, W)).astype(np.uint8)
+            slam.track_rgbd(noise, np.zeros((H, W), np.uint16), t0 + j)
+        _check(slam.get_tracking_state() == TrackingState.LOST,
+               "reloc: noise frames did not lose tracking")
+
+    def revisit(k, t, with_depth):
+        g8, d16 = quantize_frame(*seq.render(k), dmf)
+        if not with_depth:
+            d16 = np.zeros_like(d16)
+        t0 = time.perf_counter()
+        pose = slam.track_rgbd(g8, d16, t)
+        ms = (time.perf_counter() - t0) * 1e3
+        err = float(np.linalg.norm(
+            pose[:3, 3] - np.linalg.inv(seq.poses_wc[k])[:3, 3]))
+        return slam.get_tracking_state() == TrackingState.OK, err, ms
+
+    kill(50.0)
+    n_horn0 = kernels.LAUNCHES["horn_align_batch"]
+    ok, err, ms = revisit(3, 60.0, True)
+    relocs = int(slam.tracker.stats.get("relocalizations", 0))
+    _check(ok and relocs >= 1, f"reloc: revisit of frame 3 not relocalized "
+           f"(ok={ok}, relocalizations={relocs})")
+    _check(err < 0.05, f"reloc: position error {err} m >= 0.05 m")
+    _check(kernels.LAUNCHES["horn_align_batch"] > n_horn0,
+           "reloc: the Horn branch did not launch horn_align_batch")
+    kill(70.0)
+    n_pnp0 = kernels.LAUNCHES["pnp_dlt_hypotheses"]
+    ok2, err2, ms2 = revisit(5, 80.0, False)
+    torch.cuda.synchronize()
+    res = {"frames_tracked": tracked, "keyframes": n_kf,
+           "horn": {"ok": ok, "position_error_m": err, "ms": ms},
+           "pnp": {"ok": ok2, "position_error_m": err2, "ms": ms2,
+                   "pnp_launches": kernels.LAUNCHES["pnp_dlt_hypotheses"]
+                   - n_pnp0},
+           "relocalizations": int(slam.tracker.stats.get(
+               "relocalizations", 0)),
+           "wall_s": time.perf_counter() - t_all,
+           "launches": dict(kernels.LAUNCHES)}
+    print("path3_reloc " + json.dumps(res), flush=True)
     return res
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--frames", type=int, default=96)
+    ap.add_argument("--frames", type=int, default=96,
+                    help="frames of path 2 (local mapping)")
     args = ap.parse_args(argv)
 
     import torch
@@ -250,6 +516,7 @@ def main(argv=None) -> int:
     from planarslam_tpu_torch import kernels
     from planarslam_tpu_torch.config import SystemConfig
     from planarslam_tpu_torch.io import synthetic
+    from planarslam_tpu_torch.io.frames import quantize_frame
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -266,18 +533,23 @@ def main(argv=None) -> int:
     print(f"build {time.perf_counter() - t0:.1f}s -> {path}", flush=True)
 
     cfg = SystemConfig()
-    seq = synthetic.make_sequence(args.frames, width=cfg.camera.width,
+    n = max(args.frames, TRACKING_FRAMES)
+    seq = synthetic.make_sequence(n, width=cfg.camera.width,
                                   height=cfg.camera.height)
-    report = kernel_parity(seq, cfg, dev)
-    res = run_slice(seq, cfg, dev, args.frames)
-
-    _check(res["ate_rmse_m"] < ATE_LIMIT_M,
-           f"ATE {res['ate_rmse_m']:.5f} m >= {ATE_LIMIT_M} m")
-    _check(res["lost"] == 0, f"{res['lost']} lost frames")
+    report = kernel_parity(seq, cfg, dev) + backend_kernel_parity(cfg, dev)
+    frames = [quantize_frame(*seq.render(i), cfg.camera.depth_map_factor)
+              for i in range(n)]
+    paths = [
+        run_tracking_path("path1_tracking", seq,
+                          frames[:TRACKING_FRAMES], cfg, dev, False),
+        run_tracking_path("path2_mapping", seq, frames[:args.frames], cfg,
+                          dev, True),
+        run_reloc_path(seq, cfg, dev),
+    ]
     for k in report:
-        k["launches"] = res["launches"][k["name"]]
+        k["launches"] = sum(p["launches"][k["name"]] for p in paths)
         _check(k["launches"] > 0,
-               f"kernel {k['name']} was not launched by the tracking path")
+               f"kernel {k['name']} was not launched by the paths")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,15 +29,17 @@ from typing import Dict, Optional
 import torch
 
 KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
-                "plane_block_moments")
+                "plane_block_moments", "triangulate_two_view",
+                "horn_align_batch", "pnp_dlt_hypotheses")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build", "planarslam_tpu_torch")
-CUDA_SOURCES = ("fast_score.cu", "orb_describe.cu", "hamming_top2.cu")
+CUDA_SOURCES = ("fast_score.cu", "orb_describe.cu", "hamming_top2.cu",
+                "triangulate.cu", "horn_align.cu", "pnp_dlt.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -46,6 +48,7 @@ BUILD_SECONDS: Optional[float] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # img, out, h, w, stream
     "psl_fast_score": [_P, _P, _I, _I, _P],
@@ -56,6 +59,15 @@ _SIGNATURES = {
     # best_idx, stream
     "psl_gated_hamming_top2": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P,
                                _P, _P, _P, _I, _P, _P, _P, _P],
+    # own_uv, own_level, uv2, level2, has, own_T, nb_T, nb, k, fx, fy, cx,
+    # cy, scale_factor, X, good, stream
+    "psl_triangulate_two_view": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
+                                 _F, _F, _F, _P, _P, _P],
+    # src, dst, valid, weights, h, n, threshold, R, t, n_inl, inl, stream
+    "psl_horn_align_batch": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
+    # xw, uv_n, inv_sigma2, valid, picks, n, n_hyp, chi2_gate, scores, T,
+    # stream
+    "psl_pnp_dlt_hypotheses": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P],
 }
 
 
@@ -86,23 +98,44 @@ def library_path() -> str:
 
 
 def build(verbose: bool = False) -> str:
-    """Compile csrc/*.cu into the shared library (once per source hash)."""
+    """Compile csrc/*.cu into the shared library (once per source hash):
+    one nvcc per source, all started together, then one link."""
     global BUILD_SECONDS
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += [os.path.join(CSRC, s) for s in CUDA_SOURCES]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr, flush=True)
+    objs, procs = [], []
+    for src in CUDA_SOURCES:
+        obj = os.path.join(BUILD_DIR, f"{src}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj]
+        if verbose:
+            cmd += ["-Xptxas", "-v"]
+        cmd.append(os.path.join(CSRC, src))
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE,
+                                            text=True)))
+    failed = []
+    for src, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode}):\n{err}")
+        elif verbose and err:
+            print(err, flush=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = f"{path}.{tag}"
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                          capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stderr}")
     os.replace(tmp, path)
     BUILD_SECONDS = time.perf_counter() - t0
     return path

@@ -680,3 +680,20 @@ def state_from_numpy(last, win_flat: np.ndarray, device="cpu"
     and become int32 bit patterns."""
     state = _convert(LastState, last, device)
     return state, _tensor_from(np.asarray(win_flat, np.float32), device)
+
+
+def map_from_numpy(src, cfg: SystemConfig):
+    """A port SlamMap holding copies of another map's arrays and counters
+    (any object with SlamMap's attributes, such as the JAX package's map):
+    slam/map.py stays a verbatim copy, so the conversion lives here."""
+    import copy
+
+    from planarslam_tpu_torch.slam.map import SlamMap
+
+    out = SlamMap(cfg)
+    for name, value in vars(src).items():
+        if name == "cfg":
+            continue
+        setattr(out, name, value.copy() if isinstance(value, np.ndarray)
+                else copy.deepcopy(value))
+    return out

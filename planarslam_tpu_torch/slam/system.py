@@ -1,9 +1,14 @@
 """System facade — the public API.
 
-Port of ``planarslam_tpu/slam/system.py`` for the tracking front end: feed
-frames with ``track_rgbd``, drain with ``shutdown``, read the trajectory.
-The keyframe backend (local mapping with BA, loop closing) is not ported
+Port of ``planarslam_tpu/slam/system.py``: feed frames with ``track_rgbd``,
+drain with ``shutdown``, read the trajectory. Local mapping runs as a
+deterministic stage per keyframe: its mapping step is dispatched when the
+keyframe materializes and joined a fixed number of frames later (at once
+while the map holds fewer than 8 keyframes). Loop closing is not ported
 yet; asking for it raises ``NotImplementedError`` rather than running less.
+
+The device defaults to ``"cuda"``, and a System asked for a card where
+there is none raises: a CPU run names ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -15,16 +20,27 @@ import numpy as np
 import torch
 
 from planarslam_tpu_torch.config import SystemConfig, load_yaml_config
+from planarslam_tpu_torch.slam.local_mapping import LocalMapping
 from planarslam_tpu_torch.slam.map import SlamMap
 from planarslam_tpu_torch.slam.retrieval import KeyFrameDatabase
 from planarslam_tpu_torch.slam.tracking import Tracking, TrackingState
 
-BACKEND_TODO = ("{} is not ported to planarslam_tpu_torch yet (ROADMAP.md, "
-                "queue B: {}); pass {}=False")
+LOOP_TODO = ("loop closing is not ported to planarslam_tpu_torch yet "
+             "(ROADMAP.md, slice 3: loop closing and BA); pass "
+             "enable_loop_closing=False")
+BACKEND_LAG_FRAMES = 3  # frames from a keyframe to its mapping join
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def resolve_device(device="cuda") -> torch.device:
+    """The device a System runs on (None means "cuda"); a CUDA device
+    without a card raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"System(device={str(device)!r}): CUDA is not available. "
+            "planarslam_tpu_torch runs on an NVIDIA GPU; pass device='cpu' "
+            "for a CPU run")
+    return dev
 
 
 class System:
@@ -32,19 +48,14 @@ class System:
                  config: Optional[SystemConfig] = None,
                  enable_local_mapping: bool = True,
                  enable_loop_closing: bool = True,
-                 device=None):
-        if enable_local_mapping:
-            raise NotImplementedError(BACKEND_TODO.format(
-                "local mapping", "local mapping and BA",
-                "enable_local_mapping"))
+                 device="cuda"):
         if enable_loop_closing:
-            raise NotImplementedError(BACKEND_TODO.format(
-                "loop closing", "loop closing", "enable_loop_closing"))
+            raise NotImplementedError(LOOP_TODO)
         if config is None:
             config = load_yaml_config(settings) if settings else SystemConfig()
         self.cfg = config
-        self.device = torch.device(device) if device is not None \
-            else default_device()
+        self.device = resolve_device(device)
+        self.enable_local_mapping = enable_local_mapping
         self.localization_only = False
         self.timings: List[float] = []
         self.compactions = 0
@@ -55,7 +66,14 @@ class System:
         self.kf_db = KeyFrameDatabase(self.cfg)
         self.tracker = Tracking(self.cfg, self.map, kf_db=self.kf_db,
                                 device=self.device)
+        self.local_mapper = LocalMapping(self.cfg, self.map,
+                                         device=self.device) \
+            if self.enable_local_mapping else None
+        # first KF id whose backend has not started; the KF whose mapping
+        # join is pending, and the frame at which it matures
         self._next_backend_kf = 0
+        self._backend_kf: Optional[int] = None
+        self._backend_due = 0
 
     # ------------------------------------------------------------- main API
     def track_rgbd(self, gray: np.ndarray, depth: np.ndarray,
@@ -78,28 +96,78 @@ class System:
     TrackRGBD = track_rgbd
 
     def _post_track(self, n_kf_before: int) -> None:
-        """Keyframe retrieval database, slot compaction, auto-reset when
-        lost with a young map."""
+        """Backend stages after one tracked frame: retrieval DB, local
+        mapping, slot compaction, auto-reset when lost with a young map."""
         if self.map.n_kf > n_kf_before:
-            self._add_new_keyframes()
+            self._run_backend()
             self._maybe_compact_keyframes()
+        elif (self._backend_kf is not None
+              and self.tracker.frame_id >= self._backend_due):
+            # the deferred mapping join matures a fixed number of frames
+            # after its keyframe (deterministic)
+            self._finish_backend_kf()
         if self.tracker.needs_reset and not self.localization_only:
             self.reset()
 
-    def _add_new_keyframes(self) -> None:
+    def _run_backend(self, drain: bool = False) -> None:
+        """Start the backend of every keyframe that materialized since the
+        last call, finishing the previous keyframe's deferred work first.
+        Per KF: retrieval-DB add and local-mapping begin (culls, step
+        dispatch); the join and apply run BACKEND_LAG_FRAMES frames later,
+        at the next keyframe or at drain."""
         while self._next_backend_kf < self.map.n_kf:
-            self.kf_db.add(self.map, self._next_backend_kf)
+            kf = self._next_backend_kf
             self._next_backend_kf += 1
+            self.kf_db.add(self.map, kf)
+            if self.localization_only:
+                continue
+            self._finish_backend_kf()
+            if self.local_mapper is not None and self.map.kf_valid[kf]:
+                self.local_mapper.begin_keyframe(kf)
+            self._backend_kf = kf
+            self._backend_due = self.tracker.frame_id + BACKEND_LAG_FRAMES
+            if self.map.n_kf < 8:
+                # young map: finish at once, pairing the tracker's
+                # synchronous young-map keyframes (the keyframe policy
+                # reads pt_nobs that the fuse fills)
+                self._finish_backend_kf()
+        if drain:
+            self._finish_backend_kf()
+
+    def _finish_backend_kf(self) -> None:
+        """Apply the previous keyframe's deferred local mapping."""
+        if self._backend_kf is None:
+            return
+        self._backend_kf = None
+        if self.local_mapper is not None:
+            self.local_mapper.finish_keyframe()
 
     def _maybe_compact_keyframes(self) -> None:
         """Reclaim culled keyframe slots when nearing capacity, remapping
-        the trajectory records and the tracker's reference keyframe."""
+        every external holder of keyframe ids: trajectory records, the
+        tracker's reference keyframe and the local mapper's probation birth
+        stamps."""
         m = self.map
         if m.n_kf < m.n_kf_slots - 4:
             return
+        # pending mapping work is applied by keyframe id: drain first
+        self._run_backend(drain=True)
         tr = self.tracker
-        rec_res = [m.resolve_kf(int(r.ref_kf)) for r in tr.records]
-        trk_anchor, _ = m.resolve_kf(int(tr.ref_kf))
+        cache: dict = {}
+
+        def res(k: int):
+            k = int(k)
+            if k not in cache:
+                cache[k] = m.resolve_kf(k)
+            return cache[k]
+
+        rec_res = [res(r.ref_kf) for r in tr.records]
+        trk_anchor, _ = res(tr.ref_kf)
+        lm = self.local_mapper
+        births = []
+        if lm is not None:
+            for d in (lm._recent_pts, lm._recent_lns, lm._recent_pls):
+                births.append({lid: res(born)[0] for lid, born in d.items()})
         remap = m.compact_keyframes()
         if remap is None:
             print(f"[planarslam] WARNING: keyframe capacity "
@@ -115,6 +183,11 @@ class System:
                 rec.ref_kf = new_id
         tr.ref_kf = int(remap[trk_anchor]) if trk_anchor >= 0 else 0
         tr._window_dirty = True
+        if lm is not None:
+            for d, born in zip((lm._recent_pts, lm._recent_lns,
+                                lm._recent_pls), births):
+                for lid, a in born.items():
+                    d[lid] = int(remap[a]) if a >= 0 and remap[a] >= 0 else 0
 
     def activate_localization_mode(self):
         self.localization_only = True
@@ -125,14 +198,14 @@ class System:
         self.tracker.only_tracking = False
 
     def reset(self):
-        """Clear the map, keyframe database and tracker state."""
+        """Clear the map, keyframe database, tracker and local mapper."""
         self._new_tracker()
         self.timings.clear()
 
     def shutdown(self):
-        """Drain the tracking pipeline."""
+        """Drain the tracking pipeline and the deferred backend."""
         self.tracker.flush_pending()
-        self._add_new_keyframes()
+        self._run_backend(drain=True)
 
     def get_tracking_state(self) -> TrackingState:
         return self.tracker.state

@@ -15,32 +15,33 @@ The bundle and the keyframe features come back through pinned host buffers
 copied with ``non_blocking=True`` behind a CUDA event, so the frame loop
 only waits for a result that is ``pipeline_depth`` frames old.
 
-Not ported here: the chunked throughput mode and relocalization. Tracking
-loss with a young map (<= 5 keyframes) flags a reset as the JAX tracker
-does; loss with an older map raises ``NotImplementedError``.
+After a loss the modular path takes over (``_track_frame``): with more
+than 5 keyframes it relocalizes against retrieval candidates (descriptor
+seeds, Horn RANSAC with depth or PnP RANSAC without, guided rematches,
+local-map tracking) and rebuilds the device state; with a younger map it
+flags a reset, as the JAX tracker does. The chunked throughput mode is not
+ported.
 """
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from planarslam_tpu_torch.config import SystemConfig
 from planarslam_tpu_torch.geometry import plane as plane_geo
 from planarslam_tpu_torch.ops import manhattan as manhattan_ops
+from planarslam_tpu_torch.ops import matching
 from planarslam_tpu_torch.slam import device_tracker as dt
 from planarslam_tpu_torch.slam.frame import (FrameFeatures, extract_frame,
                                              unproject_points)
 from planarslam_tpu_torch.slam.map import SlamMap
 from planarslam_tpu_torch.solvers import pose_opt
-
-RELOC_TODO = ("relocalization after tracking loss with more than 5 "
-              "keyframes is not ported yet (ROADMAP.md, queue B: "
-              "relocalization)")
 
 
 class TrackingState(enum.Enum):
@@ -48,6 +49,15 @@ class TrackingState(enum.Enum):
     NOT_INITIALIZED = 1
     OK = 2
     LOST = 3
+
+
+@dataclass
+class LastFrame:
+    feats: FrameFeatures    # device features
+    T_cw: np.ndarray
+    pt3d_w: np.ndarray      # (K, 3) world points for features with depth
+    map_pt: np.ndarray      # (K,) map point id per feature or -1
+    map_ln: np.ndarray      # (L,) map line id per line or -1
 
 
 @dataclass
@@ -101,6 +111,7 @@ class Tracking:
         self.T_cw = np.eye(4, dtype=np.float32)
         self.velocity = np.eye(4, dtype=np.float32)
         self.R_wm: Optional[np.ndarray] = None  # world-from-Manhattan
+        self.last: Optional[LastFrame] = None
         self.ref_kf = -1
         self.frame_id = -1
         self.last_kf_frame_id = -1
@@ -111,6 +122,11 @@ class Tracking:
         self.manhattan_ok = False
         self.n_inliers = 0
         self._pose_weights = pose_opt.PoseOptWeights.from_config(cfg.planes)
+        # per-level inverse sigma^2
+        s2 = cfg.orb.scale_factor ** (2 * np.arange(cfg.orb.n_levels))
+        self.inv_level_sigma2 = (1.0 / s2).astype(np.float32)
+        self.K = (cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy)
+        self.wh = (float(cfg.camera.width), float(cfg.camera.height))
         self._layout = dt.BundleLayout(cfg)
         self._feats_layout = dt.FeatsHostLayout(cfg)
         self._fused_state: Optional[dt.LastState] = None
@@ -155,7 +171,19 @@ class Tracking:
             return self.T_cw.copy()
 
         if self.state == TrackingState.LOST or self._fused_state is None:
-            raise NotImplementedError(RELOC_TODO)
+            self.flush_pending()
+            feats = self._extract(gray, depth)
+            ok = self._track_frame(feats, timestamp)
+            if ok:
+                self._rebuild_fused_state(feats)
+            self.last_track_time = _time.perf_counter() - t1
+            if not ok:
+                self.stats["lost"] += 1
+                self.state = TrackingState.LOST
+                self._flag_reset_if_young()
+            self._append_record(timestamp,
+                                lost=self.state == TrackingState.LOST)
+            return self.T_cw.copy()
 
         ok = self._track_frame_fused(gray, depth, timestamp)
         self.last_track_time = _time.perf_counter() - t1
@@ -234,9 +262,7 @@ class Tracking:
             min_support=self.cfg.manhattan.min_axis_support)
         if bool(seed_ok) and bool(res.success):
             self.R_wm = res.R_cm.cpu().numpy()
-        self._host_last_map_pt = self.map.kf_pt_idx[kf].copy()
-        self._host_last_map_pt_gen = self.map.pt_gen[
-            np.clip(self._host_last_map_pt, 0, None)].copy()
+        self._set_last(feats_dev, feats)
         self.state = TrackingState.OK
         self.records.append(FrameRecord(timestamp,
                                         np.eye(4, dtype=np.float32), kf,
@@ -247,8 +273,25 @@ class Tracking:
         self._window_dirty = True
         self._pending = []
 
+    def _set_last(self, feats: FrameFeatures, feats_np: FrameFeatures,
+                  map_pt: Optional[np.ndarray] = None,
+                  map_ln: Optional[np.ndarray] = None) -> None:
+        T_wc = np.linalg.inv(self.T_cw)
+        pt3d = unproject_points(feats_np.points, self.cfg, T_wc)
+        if map_pt is None:
+            map_pt = self.map.kf_pt_idx[self.ref_kf].copy()
+        if map_ln is None:
+            map_ln = np.full(self.cfg.lines.max_lines, -1, np.int32)
+        self.last = LastFrame(feats=feats, T_cw=self.T_cw.copy(),
+                              pt3d_w=pt3d, map_pt=map_pt, map_ln=map_ln)
+        self._host_last_map_pt = np.asarray(map_pt, np.int32).copy()
+        self._host_last_map_pt_gen = self.map.pt_gen[
+            np.clip(self._host_last_map_pt, 0, None)].copy()
+
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """numpy -> tensor on the tracker's device (uint32 descriptors as
+        int32 bit patterns)."""
+        return dt._tensor_from(a, self.device)
 
     # ----------------------------------------------------- fused device path
     def _refresh_window(self) -> None:
@@ -497,6 +540,538 @@ class Tracking:
         n_map = int((cur_map_pt >= 0).sum())
         weak = n_map < 0.75 * max(ref_obs, 1)
         return (weak or need_close) and n_map > 15 and frames_since >= 1
+
+    # ------------------------------------------------------- modular path
+    def _search_frame(self, pts_w, descs, valid_pts, T_cw, feats, radius,
+                      max_dist, level_window, view_normals=None,
+                      dist_range=None) -> np.ndarray:
+        """Projection search of landmarks (numpy, host order) into the
+        frame's device features; returns the (M,) feature index or -1."""
+        cam = self.cfg.camera
+        pts = feats.points
+        res = matching.search_by_projection(
+            self._dev(pts_w), self._dev(descs), self._dev(valid_pts),
+            self._dev(np.asarray(T_cw, np.float32)), pts.uv, pts.desc,
+            pts.level, pts.valid, pts.u_right, K=self.K, image_wh=self.wh,
+            bf=cam.bf, scale_factor=self.cfg.orb.scale_factor, radius=radius,
+            max_dist=max_dist,
+            view_normals=None if view_normals is None
+            else self._dev(view_normals),
+            dist_range=None if dist_range is None
+            else tuple(self._dev(d) for d in dist_range),
+            level_window=level_window)
+        return res.idx.cpu().numpy()
+
+    def _rotation_filter(self, angle_src: np.ndarray, idx: np.ndarray,
+                         feats_np: FrameFeatures) -> np.ndarray:
+        """idx with the matches outside the rotation histogram's main
+        bins set to -1."""
+        ang_tgt = feats_np.points.angle[np.clip(idx, 0, None)]
+        keep = matching.rotation_histogram_filter(
+            self._dev(angle_src), self._dev(ang_tgt), self._dev(idx >= 0))
+        return np.where(keep.cpu().numpy(), idx, -1)
+
+    def _point_obs_from_matches(self, feats_np: FrameFeatures,
+                                pts_w: np.ndarray, match_idx: np.ndarray
+                                ) -> pose_opt.PointObs:
+        """The padded PointObs block for pose optimization. pts_w: (M, 3)
+        landmark world positions; match_idx: (M,) feature index or -1."""
+        kp = self.cfg.orb.max_keypoints
+        pts = feats_np.points
+        xw = np.zeros((kp, 3), np.float32)
+        uv_o = np.zeros((kp, 2), np.float32)
+        ur_o = np.full(kp, -1.0, np.float32)
+        valid = np.zeros(kp, bool)
+        inv_s2 = np.ones(kp, np.float32)
+        ok = match_idx >= 0
+        fi = match_idx[ok]
+        xw[fi] = pts_w[ok]
+        uv_o[fi] = pts.uv[fi]
+        ur_o[fi] = pts.u_right[fi]
+        valid[fi] = True
+        inv_s2[fi] = self.inv_level_sigma2[pts.level[fi]]
+        return pose_opt.PointObs(xw=self._dev(xw), uv=self._dev(uv_o),
+                                 u_right=self._dev(ur_o),
+                                 inv_sigma2=self._dev(inv_s2),
+                                 valid=self._dev(valid))
+
+    def _run_pose_opt(self, T_init, points=None, lines=None, planes=None,
+                      par=None, ver=None, rotation_fixed=False):
+        return pose_opt.pose_optimize(
+            self._dev(np.asarray(T_init, np.float32)), self.K,
+            self.cfg.camera.bf, points=points, lines=lines, planes=planes,
+            par_planes=par, ver_planes=ver, weights=self._pose_weights,
+            rotation_fixed=rotation_fixed)
+
+    def _manh_obs(self, feats: FrameFeatures):
+        """Surface normals and line directions for Manhattan tracking."""
+        ln = feats.lines
+        ln_vec = ln.p3d_e - ln.p3d_s
+        ln_len = torch.linalg.norm(ln_vec, dim=-1, keepdim=True)
+        dirs = ln_vec / torch.clamp(ln_len, min=1e-9)
+        ok = ln.has_3d & ln.valid & (ln_len[:, 0] > 0.1)
+        return (torch.cat([feats.normals, dirs], dim=0),
+                torch.cat([feats.normals_valid, ok], dim=0))
+
+    def _rebuild_fused_state(self, feats: FrameFeatures) -> None:
+        """Device state for the fused path from the frame just tracked on
+        the modular path."""
+        self._fused_state = dt._state_from(
+            feats, self._dev(self.T_cw), self._dev(self.velocity), self.cfg)
+        self._window_dirty = True
+        self._pending = []
+
+    def _track_frame(self, feats: FrameFeatures, timestamp: float) -> bool:
+        """The modular (non-fused) step: relocalization when LOST, else
+        Manhattan rotation, frame-to-frame matching and pose optimization,
+        then local-map tracking and the keyframe policy."""
+        cfg = self.cfg
+        feats_np = dt.feats_to_numpy(feats)
+        if self.state == TrackingState.LOST:
+            reloc = self._relocalize(feats, feats_np)
+            if reloc is None:
+                return False
+            self.velocity = np.eye(4, dtype=np.float32)
+            ok_local, cur_map_pt, cur_map_ln, _ = self._track_local_map(
+                feats, feats_np, reloc)
+            if not ok_local:
+                return False
+            self._set_last(feats, feats_np, cur_map_pt, cur_map_ln)
+            self.state = TrackingState.OK
+            return True
+        T_pred = (self.velocity @ self.T_cw).astype(np.float32)
+
+        # 1. Manhattan rotation tracking
+        R_manh = None
+        if self.R_wm is not None:
+            R_cm_pred = (T_pred[:3, :3] @ self.R_wm).astype(np.float32)
+            mn, mv = self._manh_obs(feats)
+            res = manhattan_ops.track_manhattan_frame(
+                self._dev(R_cm_pred), mn, mv,
+                cone_sin=cfg.manhattan.cone_sin_track,
+                kernel=cfg.manhattan.mean_shift_kernel,
+                min_support=cfg.manhattan.min_axis_support)
+            if bool(res.success):
+                R_manh = res.R_cm.cpu().numpy() @ self.R_wm.T
+                self.stats["manhattan_success"] += 1
+        self.manhattan_ok = R_manh is not None
+
+        # 2. translation estimation against the last frame
+        T_init = T_pred.copy()
+        if R_manh is not None:
+            T_init[:3, :3] = R_manh
+        last = self.last
+        last_pts = dt.feats_to_numpy(last.feats).points
+        has3d = (last_pts.depth > 0) & last_pts.valid
+        idx = self._search_frame(last.pt3d_w, last_pts.desc, has3d, T_init,
+                                 feats, radius=15.0,
+                                 max_dist=cfg.matcher.th_high,
+                                 level_window=cfg.orb.n_levels)
+        if int((idx >= 0).sum()) < 20:
+            # brute-force fallback
+            idx = matching.match_descriptors(
+                last.feats.points.desc, feats.points.desc,
+                self._dev(has3d), feats.points.valid,
+                max_dist=cfg.matcher.th_low, ratio=0.9).idx.cpu().numpy()
+        idx = self._rotation_filter(last_pts.angle, idx, feats_np)
+        if int((idx >= 0).sum()) >= cfg.tracking.min_matches_track:
+            obs = self._point_obs_from_matches(feats_np, last.pt3d_w, idx)
+            rot_fixed = R_manh is not None
+            result = self._run_pose_opt(T_init, points=obs,
+                                        rotation_fixed=rot_fixed)
+            if rot_fixed:
+                self.stats["translation_only"] += 1
+            else:
+                self.stats["full_pose"] += 1
+            if int(result.n_point_inliers) >= cfg.tracking.min_matches_track:
+                self.T_cw = result.T_cw.cpu().numpy()
+            else:
+                self.T_cw = T_init  # rollback
+        else:
+            self.T_cw = T_init
+
+        # carry map-point associations from the last frame
+        cur_map_pt = np.full(cfg.orb.max_keypoints, -1, np.int32)
+        ok = idx >= 0
+        cur_map_pt[idx[ok]] = last.map_pt[ok]
+
+        # 3. track the local map
+        ok_local, cur_map_pt, cur_map_ln, plane_matches = \
+            self._track_local_map(feats, feats_np, cur_map_pt)
+        if not ok_local:
+            return False
+        self.velocity = (self.T_cw @ np.linalg.inv(last.T_cw)).astype(
+            np.float32)
+
+        # 4. keyframe policy
+        if self._need_new_keyframe(feats_np, cur_map_pt):
+            kf = self._create_keyframe(feats_np, timestamp, cur_map_pt,
+                                       cur_map_ln, plane_matches)
+            self.ref_kf = kf
+            self.last_kf_frame_id = self.frame_id
+            self.stats["kfs"] += 1
+
+        self._set_last(feats, feats_np, cur_map_pt, cur_map_ln)
+        self.state = TrackingState.OK
+        return True
+
+    def _need_new_keyframe(self, feats_np: FrameFeatures,
+                           cur_map_pt: np.ndarray) -> bool:
+        """Keyframe policy of the modular path (the fused path reads the
+        same statistics from the device bundle)."""
+        cfg = self.cfg
+        if self.only_tracking:
+            return False
+        if self.map.n_kf >= self.map.n_kf_slots - 1:
+            return False
+        frames_since = self.frame_id - self.last_kf_frame_id
+        if frames_since >= cfg.tracking.max_frames_between_kf:
+            return True
+        if self.new_plane_flag:
+            return True
+        depth = feats_np.points.depth
+        close = (depth > 0) & (depth < cfg.camera.depth_threshold)
+        tracked_close = int((close & (cur_map_pt >= 0)).sum())
+        nontracked_close = int((close & (cur_map_pt < 0)).sum())
+        need_close = tracked_close < 100 and nontracked_close > 70
+        min_obs = 3 if self.map.n_kf > 2 else 2
+        ref_row = self.map.kf_pt_idx[self.ref_kf]
+        ref_pts = ref_row[ref_row >= 0]
+        ref_pts = ref_pts[self.map.pt_valid[ref_pts]]
+        ref_obs = int((self.map.pt_nobs[ref_pts] >= min_obs).sum())
+        n_tracked = int((cur_map_pt >= 0).sum())
+        weak = n_tracked < 0.75 * max(ref_obs, 1)
+        return (weak or need_close) and n_tracked > 15 and frames_since >= 1
+
+    # ------------------------------------------------------- relocalization
+    def _reloc_guided_pass(self, feats: FrameFeatures,
+                           feats_np: FrameFeatures, kf_c: int,
+                           T_est: np.ndarray, cur_map_pt: np.ndarray,
+                           radius: float, max_dist: int):
+        """One guided rematch of relocalization: project all of the
+        candidate keyframe's landmarks through the pose estimate,
+        window-match (radius scaled by the image width / 640), keep matches
+        whose frame depth agrees with the landmark in 3D, merge with the
+        existing associations and re-optimize. Returns (T, cur_map_pt,
+        n_inliers)."""
+        cfg = self.cfg
+        m = self.map
+        cam = cfg.camera
+        Kp = cfg.orb.max_keypoints
+        row = m.kf_pt_idx[kf_c]
+        lm = np.unique(row[row >= 0])
+        lm = lm[m.pt_valid[lm]][:Kp]
+        if len(lm) == 0:
+            return T_est, cur_map_pt, 0
+        pad_ids = np.zeros(Kp, np.int64)
+        pad_ids[:len(lm)] = lm
+        pad_valid = np.zeros(Kp, bool)
+        pad_valid[:len(lm)] = True
+        idx = self._search_frame(m.pt_xyz[pad_ids], m.pt_desc[pad_ids],
+                                 pad_valid, T_est, feats,
+                                 radius=radius * cam.width / 640.0,
+                                 max_dist=max_dist,
+                                 level_window=cfg.orb.n_levels)
+        ok = idx >= 0
+        # 3D-consistency gate: the landmark in the estimated camera frame
+        # against the feature's own backprojection
+        depth_f = feats_np.points.depth
+        uv_f = feats_np.points.uv
+        pc_lm = m.pt_xyz[pad_ids] @ T_est[:3, :3].T + T_est[:3, 3]
+        fi = np.clip(idx, 0, Kp - 1)
+        z_f = depth_f[fi]
+        xb = (uv_f[fi, 0] - cam.cx) / cam.fx * z_f
+        yb = (uv_f[fi, 1] - cam.cy) / cam.fy * z_f
+        p_f = np.stack([xb, yb, z_f], -1)
+        d3 = np.linalg.norm(pc_lm - p_f, axis=-1)
+        ok = ok & ((z_f <= 0) | (d3 < np.maximum(0.08, 0.05 * z_f)))
+        merged = cur_map_pt.copy()
+        # new matches fill features left unassociated; landmarks already
+        # associated elsewhere are not assigned twice
+        taken = set(int(p) for p in merged[merged >= 0])
+        for s in np.flatnonzero(ok):
+            f = int(idx[s])
+            p = int(pad_ids[s])
+            if merged[f] < 0 and p not in taken:
+                merged[f] = p
+                taken.add(p)
+        obs = self._point_obs_from_matches(
+            feats_np, m.pt_xyz[np.clip(merged, 0, None)],
+            np.where(merged >= 0, np.arange(Kp), -1))
+        result = self._run_pose_opt(T_est, points=obs)
+        inl = result.point_inlier.cpu().numpy()
+        merged = np.where(inl | (merged < 0), merged, -1)
+        return (result.T_cw.cpu().numpy(), merged,
+                int(result.n_point_inliers))
+
+    @record_function("tracking.relocalize")
+    def _relocalize(self, feats: FrameFeatures, feats_np: FrameFeatures
+                    ) -> Optional[np.ndarray]:
+        """Retrieval candidates -> descriptor seeds against each
+        candidate's landmarks -> Horn RANSAC (>= 8 seeds with depth) or PnP
+        RANSAC -> coarse, then fine, guided rematch -> acceptance on the
+        inlier count and the coverage of the landmarks findable at the
+        pose. Returns the feature -> map-point association or None."""
+        from planarslam_tpu_torch.solvers.pnp import pnp_ransac
+        from planarslam_tpu_torch.solvers.sim3_solver import horn_ransac_se3
+
+        cfg = self.cfg
+        m = self.map
+        cam = cfg.camera
+        pts = feats_np.points
+        cands = self.kf_db.reloc_candidates(m, pts.desc, pts.valid)
+        for c in cands:
+            if not m.kf_valid[c]:
+                continue
+            row = m.kf_pt_idx[c]
+            has_pt = (row >= 0) & m.pt_valid[np.clip(row, 0, None)]
+            idx = matching.match_descriptors(
+                self._dev(m.kf_desc[c]), feats.points.desc,
+                self._dev(has_pt), feats.points.valid,
+                max_dist=cfg.matcher.th_low, ratio=0.9).idx.cpu().numpy()
+            # rotation consistency on the seed matches
+            idx = self._rotation_filter(m.kf_angle[c], idx, feats_np)
+            ok = idx >= 0
+            if ok.sum() < 8:
+                continue
+            pt_ids = row[ok]
+            feat_ids = idx[ok]
+            z = pts.depth[feat_ids]
+            has_z = z > 0
+            accept = cfg.tracking.reloc_min_inliers
+            if has_z.sum() >= 8:
+                # 3D-3D Horn RANSAC on the frame's own depth; its consensus
+                # seeds the associations, and the guided pass below widens
+                # them before the first reprojection solve
+                x = (pts.uv[feat_ids, 0] - cam.cx) / cam.fx * z
+                y = (pts.uv[feat_ids, 1] - cam.cy) / cam.fy * z
+                pc = np.stack([x, y, z], -1).astype(np.float32)[has_z]
+                T, n_inl, horn_inl = horn_ransac_se3(
+                    m.pt_xyz[pt_ids][has_z], pc, threshold=0.08,
+                    device=self.device)
+                if n_inl < 8:
+                    continue
+                keep = np.zeros(len(feat_ids), bool)
+                keep[np.flatnonzero(has_z)[np.asarray(horn_inl, bool)]] = True
+                T_est = np.asarray(T, np.float32)
+                cur = np.full(cfg.orb.max_keypoints, -1, np.int32)
+                cur[feat_ids[keep]] = pt_ids[keep]
+            else:
+                T, _, n_inl = pnp_ransac(
+                    m.pt_xyz[pt_ids], pts.uv[feat_ids],
+                    np.ones(len(pt_ids), bool), self.K,
+                    inv_sigma2=self.inv_level_sigma2[pts.level[feat_ids]],
+                    device=self.device)
+                if n_inl < 8:
+                    continue
+                # refine over all matches (chi2 gating re-classifies)
+                cur_map_pt = np.full(cfg.orb.max_keypoints, -1, np.int32)
+                cur_map_pt[feat_ids] = pt_ids
+                obs = self._point_obs_from_matches(
+                    feats_np, m.pt_xyz[np.clip(cur_map_pt, 0, None)],
+                    np.where(cur_map_pt >= 0,
+                             np.arange(cfg.orb.max_keypoints), -1))
+                result = self._run_pose_opt(T, points=obs)
+                if int(result.n_point_inliers) < 10:
+                    continue
+                T_est = result.T_cw.cpu().numpy()
+                inlier_mask = result.point_inlier.cpu().numpy()
+                cur = np.where(inlier_mask | (cur_map_pt < 0), cur_map_pt,
+                               -1)
+            # coarse guided rematch: wide window, permissive threshold
+            T_est, cur, n_good = self._reloc_guided_pass(
+                feats, feats_np, c, T_est, cur, radius=10.0,
+                max_dist=cfg.matcher.th_high)
+            if n_good < 10:
+                continue
+            if accept // 2 <= n_good < accept:
+                # narrow re-search around the improved pose
+                T_est, cur, n_good = self._reloc_guided_pass(
+                    feats, feats_np, c, T_est, cur, radius=3.0, max_dist=64)
+            # coverage: at a correct pose the matches cover a large share
+            # of the candidate's landmarks findable in the frame
+            n_vis = self._n_frustum_landmarks(c, T_est, feats_np)
+            if n_good >= accept and n_good >= 0.25 * max(n_vis, 1):
+                self.T_cw = T_est
+                self.ref_kf = c
+                self.stats["relocalizations"] = \
+                    self.stats.get("relocalizations", 0) + 1
+                return cur
+        return None
+
+    def _n_frustum_landmarks(self, kf_c: int, T_est: np.ndarray,
+                             feats_np: FrameFeatures) -> int:
+        """How many of a keyframe's landmarks are findable at the pose: in
+        the image, inside the scale range and viewing cone, and with a
+        detected feature within the coarse guided window."""
+        m = self.map
+        cam = self.cfg.camera
+        row = m.kf_pt_idx[kf_c]
+        lm = np.unique(row[row >= 0])
+        lm = lm[m.pt_valid[lm]]
+        if len(lm) == 0:
+            return 0
+        pc = m.pt_xyz[lm] @ T_est[:3, :3].T + T_est[:3, 3]
+        z = np.maximum(pc[:, 2], 1e-6)
+        u = cam.fx * pc[:, 0] / z + cam.cx
+        v = cam.fy * pc[:, 1] / z + cam.cy
+        cam_center = -T_est[:3, :3].T @ T_est[:3, 3]
+        vec = m.pt_xyz[lm] - cam_center
+        dist = np.maximum(np.linalg.norm(vec, axis=1), 1e-6)
+        in_range = ((dist >= 0.8 * m.pt_min_dist[lm])
+                    & (dist <= 1.2 * m.pt_max_dist[lm]))
+        cosv = (vec * m.pt_normal[lm]).sum(axis=1) / dist
+        ok = ((pc[:, 2] > 0.05) & (u >= 0) & (u < cam.width)
+              & (v >= 0) & (v < cam.height) & in_range & (cosv > 0.5))
+        if not ok.any():
+            return 0
+        f_uv = feats_np.points.uv[feats_np.points.valid]
+        if len(f_uv) == 0:
+            return 0
+        radius = 10.0 * cam.width / 640.0
+        proj = np.stack([u[ok], v[ok]], -1)
+        d2 = ((proj[:, None, :] - f_uv[None, :, :]) ** 2).sum(-1)
+        return int((d2.min(axis=1) <= radius * radius).sum())
+
+    # ------------------------------------------------------ local map tracking
+    def _track_local_map(self, feats: FrameFeatures, feats_np: FrameFeatures,
+                         cur_map_pt: np.ndarray
+                         ) -> Tuple[bool, np.ndarray, np.ndarray, dict]:
+        """Match the covisibility-local points and lines, associate planes
+        and optimize the pose over every residual type."""
+        from planarslam_tpu_torch.ops.lines import search_lines_by_projection
+
+        cfg = self.cfg
+        m = self.map
+
+        # local KFs: voters for the matched points and their best covisibles
+        matched = cur_map_pt[cur_map_pt >= 0]
+        kf_ids = set()
+        best_voter = -1
+        if len(matched) > 0:
+            obs_mask = np.isin(m.kf_pt_idx[:m.n_kf], matched) \
+                & m.kf_valid[:m.n_kf, None]
+            votes = obs_mask.sum(axis=1)
+            voters = np.argsort(-votes)[:10]
+            for k in voters:
+                if votes[k] > 0:
+                    kf_ids.add(int(k))
+                    for c in m.covisible_kfs(int(k))[:5]:
+                        kf_ids.add(int(c))
+            if votes[voters[0]] > 0:
+                best_voter = int(voters[0])
+        if not kf_ids:
+            kf_ids = {self.ref_kf}
+        kf_ids = np.asarray(sorted(kf_ids), np.int32)
+        if best_voter >= 0:
+            self.ref_kf = best_voter
+
+        # local points
+        pt_ids = m.local_map_points(kf_ids, cap=4096)
+        if len(pt_ids) == 0:
+            return False, cur_map_pt, np.full(cfg.lines.max_lines, -1,
+                                              np.int32), {}
+        ids_p = np.pad(pt_ids, (0, 4096 - len(pt_ids)), constant_values=0)
+        valid_p = np.zeros(4096, bool)
+        valid_p[:len(pt_ids)] = True
+        idx = self._search_frame(
+            m.pt_xyz[ids_p], m.pt_desc[ids_p], valid_p, self.T_cw, feats,
+            radius=4.0, max_dist=cfg.matcher.th_high, level_window=1,
+            view_normals=m.pt_normal[ids_p],
+            dist_range=(m.pt_min_dist[ids_p], m.pt_max_dist[ids_p]))
+        found = idx >= 0
+        m.point_stats_update(pt_ids, found[:len(pt_ids)])
+        new_map_pt = cur_map_pt.copy()
+        new_map_pt[idx[found]] = ids_p[found]
+
+        # local lines: guided projection search at the current pose
+        ln_ids = m.local_map_lines(kf_ids, cap=cfg.map.max_lines)
+        cur_map_ln = np.full(cfg.lines.max_lines, -1, np.int32)
+        line_obs = None
+        if len(ln_ids) > 0:
+            cam = cfg.camera
+            lcap = cfg.map.max_lines
+            ids_l = np.pad(ln_ids, (0, lcap - len(ln_ids)), constant_values=0)
+            valid_l = np.zeros(lcap, bool)
+            valid_l[:len(ln_ids)] = True
+            ln = feats.lines
+            midx, _ = search_lines_by_projection(
+                self._dev(m.ln_sw[ids_l]), self._dev(m.ln_ew[ids_l]),
+                self._dev(m.ln_desc[ids_l]), self._dev(valid_l),
+                self._dev(self.T_cw), ln.uv_s, ln.uv_e, ln.angle, ln.desc,
+                ln.valid, K=self.K, image_wh=self.wh)
+            midx = midx.cpu().numpy()
+            mok = midx >= 0
+            cur_map_ln[midx[mok]] = ids_l[mok]
+            T_wc = np.linalg.inv(self.T_cw)
+            # frustum-gated visible and found statistics, the rule of the
+            # fused path's _process_bundle
+            mid_l = 0.5 * (m.ln_sw[ids_l] + m.ln_ew[ids_l])
+            pc_l = mid_l @ self.T_cw[:3, :3].T + self.T_cw[:3, 3]
+            zl = np.maximum(pc_l[:, 2], 1e-6)
+            u_l = cam.fx * pc_l[:, 0] / zl + cam.cx
+            v_l = cam.fy * pc_l[:, 1] / zl + cam.cy
+            vis_l = (valid_l & (pc_l[:, 2] > 0.05) & (u_l >= 0)
+                     & (u_l < cam.width) & (v_l >= 0)
+                     & (v_l < cam.height)) | mok
+            vis_l &= valid_l
+            if vis_l.any():
+                m.line_stats_update(ids_l[vis_l], mok[vis_l],
+                                    cam_center_w=T_wc[:3, 3])
+            if mok.any():
+                L = cfg.lines.max_lines
+                xw_s = np.zeros((L, 3), np.float32)
+                xw_e = np.zeros((L, 3), np.float32)
+                l2d = np.zeros((L, 3), np.float32)
+                lval = np.zeros(L, bool)
+                f = midx[mok]
+                xw_s[f] = m.ln_sw[ids_l[mok]]
+                xw_e[f] = m.ln_ew[ids_l[mok]]
+                l2d[f] = feats_np.lines.line2d[f]
+                lval[f] = True
+                line_obs = pose_opt.LineObs(
+                    xw_s=self._dev(xw_s), xw_e=self._dev(xw_e),
+                    line2d=self._dev(l2d),
+                    inv_sigma2=self._dev(np.ones(L, np.float32)),
+                    valid=self._dev(lval))
+
+        # plane association, then the full pose optimization
+        plane_matches = self._associate_planes(feats_np)
+        plane_obs, par_obs, ver_obs = self._plane_obs(feats_np, plane_matches)
+        obs = self._point_obs_from_matches(
+            feats_np, m.pt_xyz[np.clip(new_map_pt, 0, None)],
+            np.where(new_map_pt >= 0, np.arange(cfg.orb.max_keypoints), -1))
+        result = self._run_pose_opt(self.T_cw, points=obs, lines=line_obs,
+                                    planes=plane_obs, par=par_obs,
+                                    ver=ver_obs)
+        n_in = int(result.n_point_inliers)
+        self.n_inliers = n_in
+        if n_in < cfg.tracking.min_matches_local_map // 2:
+            return False, new_map_pt, cur_map_ln, plane_matches
+        self.T_cw = result.T_cw.cpu().numpy()
+        # drop the associations the optimization rejected
+        inl = result.point_inlier.cpu().numpy()
+        new_map_pt = np.where(inl | (new_map_pt < 0), new_map_pt, -1)
+        return True, new_map_pt, cur_map_ln, plane_matches
+
+    def _plane_obs(self, feats_np: FrameFeatures, matches: dict):
+        """Direct, parallel and vertical PlaneObs blocks from the
+        frame-plane -> map-plane association."""
+        m = self.map
+        coeffs_c = feats_np.planes.coeffs
+
+        def block(ids):
+            val = ids >= 0
+            j = np.clip(ids, 0, None)
+            pi_w = np.where(val[:, None], m.pl_coeffs[j], 0.0)
+            pi_o = np.where(val[:, None], coeffs_c, 0.0)
+            return pose_opt.PlaneObs(
+                pi_w=self._dev(pi_w.astype(np.float32)),
+                pi_obs=self._dev(pi_o.astype(np.float32)),
+                valid=self._dev(val))
+
+        return block(matches["direct"]), block(matches["par"]), \
+            block(matches["ver"])
 
     # ------------------------------------------------------ plane association
     def _associate_planes(self, feats: FrameFeatures,

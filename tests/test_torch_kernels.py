@@ -1,4 +1,4 @@
-"""The hand-written Hopper kernels (K1-K4) against their plain PyTorch
+"""The hand-written Hopper kernels (K1-K7) against their plain PyTorch
 versions on the card. These need a GPU: without one every test skips.
 
     python -m pytest tests/test_torch_kernels.py -q     # on the GPU machine
@@ -105,3 +105,106 @@ def test_plane_block_moments(frame):
     for g, w in ((got.s1, want.s1), (got.s2, want.s2)):
         torch.testing.assert_close(g, w, rtol=0,
                                    atol=1e-5 * float(w.abs().max()))
+
+
+def _project(K, T, X):
+    pc = X @ T[:3, :3].T + T[:3, 3]
+    return np.stack([K[0] * pc[:, 0] / pc[:, 2] + K[2],
+                     K[1] * pc[:, 1] / pc[:, 2] + K[3]], -1)
+
+
+def _pose(rng, rot=0.05, trans=0.3):
+    from scipy.spatial.transform import Rotation
+
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = Rotation.from_rotvec(rng.normal(0, rot, 3)).as_matrix()
+    T[:3, 3] = rng.normal(0, trans, 3)
+    return T
+
+
+def test_triangulate_two_view(dev):
+    """K5: good equal on >= 99.5% of pairs, X relative error <= 1e-3 where
+    good in both (both solve in float64; the gates are float32)."""
+    from planarslam_tpu_torch.solvers import triangulation
+
+    cfg = SystemConfig()
+    cam = cfg.camera
+    K = (cam.fx, cam.fy, cam.cx, cam.cy)
+    rng = np.random.default_rng(5)
+    NB, Kp = 5, 1024
+    X = np.stack([rng.uniform(-2, 2, Kp), rng.uniform(-1.5, 1.5, Kp),
+                  rng.uniform(2, 6, Kp)], -1)
+    nb_T = np.stack([_pose(rng) for _ in range(NB)])
+    uv1 = _project(K, np.eye(4), X) + rng.normal(0, 0.5, (Kp, 2))
+    uv2 = np.stack([_project(K, T, X) for T in nb_T])
+    uv2 += rng.normal(0, 0.5, uv2.shape)
+    lvl = rng.integers(0, 8, Kp).astype(np.int32)
+
+    def t(a, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    args = (t(uv1), t(lvl, np.int32), t(uv2), t(np.tile(lvl, (NB, 1)),
+                                                  np.int32),
+            t(rng.random((NB, Kp)) < 0.9, bool), t(np.eye(4)), t(nb_T), K,
+            cfg.orb.scale_factor)
+    n0 = kernels.LAUNCHES["triangulate_two_view"]
+    Xk, gk = triangulation.triangulate_two_view(*args)
+    assert kernels.LAUNCHES["triangulate_two_view"] == n0 + 1
+    Xp, gp = triangulation.triangulate_two_view_plain(*args)
+    assert int(gp.sum()) > 500
+    assert float((gk == gp).float().mean()) >= 0.995
+    both = (gk > 0) & (gp > 0)
+    rel = (Xk - Xp).norm(dim=-1) / Xp.norm(dim=-1)
+    assert float(rel[both].max()) <= 1e-3
+
+
+@pytest.mark.parametrize("n", [64, 1024, 4096])
+def test_horn_align_batch(dev, n):
+    """K6 on the 64 one-hot hypothesis rows and the refit row: inlier
+    counts equal, R and t atol 1e-4."""
+    from planarslam_tpu_torch.solvers import sim3_solver
+
+    rng = np.random.default_rng(n)
+    src = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    T = _pose(rng, 0.3, 0.5)
+    dst = src @ T[:3, :3].T + T[:3, 3] + rng.normal(0, 0.01, (n, 3))
+    bad = rng.random(n) >= 0.6
+    dst[bad] = rng.uniform(-3, 3, (int(bad.sum()), 3))
+    s, d, v, picks = sim3_solver._pad_pair(src, dst, 64)
+    w = np.zeros((64, len(s)), np.float32)
+    np.put_along_axis(w, picks.astype(np.int64), 1.0, axis=1)
+    w = w * v[None] + np.float32(1e-9)
+    args = [torch.from_numpy(a).to(dev) for a in (s, d, v, w)]
+    for rows in (args[3], args[3][:1].contiguous()):
+        got = sim3_solver.horn_align_batch(*args[:3], rows, 0.08)
+        want = sim3_solver.horn_align_batch_plain(*args[:3], rows, 0.08)
+        torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+        for g, w_ in zip(got[:2], want[:2]):
+            torch.testing.assert_close(g, w_, rtol=0, atol=1e-4)
+
+
+def test_pnp_dlt_hypotheses(dev):
+    """K7 on 128 hypotheses over 256 correspondences (80% inliers): scores
+    within 2 on >= 95% of hypotheses, best T atol 0.01 (R) / 0.05 (t)."""
+    from planarslam_tpu_torch.solvers import pnp
+
+    rng = np.random.default_rng(7)
+    K = (535.4, 539.2, 319.5, 239.5)
+    n = 256
+    xw = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                   rng.uniform(2, 6, n)], -1).astype(np.float32)
+    uv = _project(K, _pose(rng, 0.1, 0.1), xw) + rng.normal(0, 0.5, (n, 2))
+    bad = rng.random(n) >= 0.8
+    uv[bad] += rng.uniform(20, 60, (int(bad.sum()), 2))
+    uv_n = np.stack([(uv[:, 0] - K[2]) / K[0], (uv[:, 1] - K[3]) / K[1]],
+                    -1).astype(np.float32)
+    picks = np.random.default_rng(11).integers(0, n, (128, 6)).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (
+        xw, uv_n, np.full(n, K[0] * K[1], np.float32), np.ones(n, bool),
+        picks)]
+    sk, Tk = pnp.pnp_dlt_hypotheses(*args, 5.991)
+    sp, Tp = pnp.pnp_dlt_hypotheses_plain(*args, 5.991)
+    assert float(((sk - sp).abs() <= 2).float().mean()) >= 0.95
+    bk, bp = Tk[int(torch.argmax(sk))], Tp[int(torch.argmax(sp))]
+    torch.testing.assert_close(bk[:3, :3], bp[:3, :3], rtol=0, atol=0.01)
+    torch.testing.assert_close(bk[:3, 3], bp[:3, 3], rtol=0, atol=0.05)

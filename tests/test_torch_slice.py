@@ -116,10 +116,26 @@ def test_system_tiny_sequence(run):
 
 
 def test_system_refuses_backend():
-    """Local mapping and loop closing are not ported: asking for them
-    raises instead of running less."""
+    """Loop closing and local BA are not ported: asking for either raises
+    instead of running less; local mapping without local BA constructs."""
+    from planarslam_tpu_torch.slam.local_mapping import LocalMapping
+    from planarslam_tpu_torch.slam.map import SlamMap
+
     cfg = tconfig.SystemConfig.tiny()
-    with pytest.raises(NotImplementedError, match="local mapping"):
-        TSystem(config=cfg)
     with pytest.raises(NotImplementedError, match="loop closing"):
-        TSystem(config=cfg, enable_local_mapping=False)
+        TSystem(config=cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="local bundle adjustment"):
+        LocalMapping(cfg, SlamMap(cfg), enable_local_ba=True)
+    slam = TSystem(config=cfg, enable_loop_closing=False, device="cpu")
+    assert slam.local_mapper is not None
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"device": None}, {"device": "cuda"}],
+                         ids=["default", "None", "cuda"])
+def test_system_without_card_raises(monkeypatch, kwargs):
+    """Without a card, a System asked for the default device (or for None
+    or "cuda") raises instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tconfig.SystemConfig.tiny()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TSystem(config=cfg, enable_loop_closing=False, **kwargs)

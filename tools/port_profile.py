@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch/CUDA port's tracking path, on a GPU.
+"""Where the time goes in the PyTorch/CUDA port, on a GPU.
 
-    python3 tools/port_profile.py [--frames 40] [--warmup 20] [--out DIR]
+    python3 tools/port_profile.py [--frames 40] [--warmup 20]
+                                  [--tracking-only] [--out DIR]
 
 Tracks the 640x480 synthetic sequence with
-System(SystemConfig(), enable_local_mapping=False, enable_loop_closing=False)
-and wraps frames warmup..frames-1 in torch.profiler (CPU + CUDA). Prints,
-for each stage span (the record_function names of the port's stage
-functions), the host time and the device time of its kernels, the busy
-share of the device over the window, the device time of the four
+System(SystemConfig(), enable_loop_closing=False) (local mapping on; with
+--tracking-only also enable_local_mapping=False) and wraps frames
+warmup..frames-1 in torch.profiler (CPU + CUDA). Prints, for each stage
+span (the record_function names of the port's stage functions, among them
+device_mapper.mapping_step, local_mapping.finish_keyframe and
+tracking.relocalize), the host time and the device time of its kernels,
+the busy share of the device over the window, the device time of the
 hand-written kernels, and the top kernels by device time.
 Writes the chrome trace to DIR/port_trace.json when --out is given.
 """
@@ -24,15 +27,25 @@ import time
 
 import numpy as np
 
+# the repository root, so that the port imports when run as a script
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 # modules whose stage functions carry record_function("<module>.<function>")
 SPAN_MODULES = ("frontend", "lines", "planes", "manhattan", "matching",
-                "pose_opt", "device_tracker")
+                "pose_opt", "device_tracker", "device_mapper",
+                "local_mapping", "tracking")
+# entry names of the hand-written kernels in the trace
+PORT_KERNELS = ("fast_score_kernel", "orb_describe_kernel",
+                "hamming_top2_kernel", "_plane_block_moments_kernel",
+                "triangulate_kernel", "horn_align_kernel", "pnp_dlt_kernel")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=40)
     ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--tracking-only", action="store_true",
+                    help="local mapping off (the tracking path alone)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -58,11 +71,12 @@ def main(argv=None) -> int:
                                   height=cfg.camera.height)
     frames = [quantize_frame(*seq.render(i), cfg.camera.depth_map_factor)
               for i in range(args.frames)]
-    slam = System(config=cfg, enable_local_mapping=False,
+    slam = System(config=cfg, enable_local_mapping=not args.tracking_only,
                   enable_loop_closing=False, device="cuda")
     for i in range(args.warmup):
         slam.track_rgbd(*frames[i], seq.timestamps[i])
     torch.cuda.synchronize()
+    n_kf0 = slam.map.n_kf
     n = args.frames - args.warmup
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -102,10 +116,10 @@ def main(argv=None) -> int:
     n_kernels = sum(k[2] for k in kern)
     # device time of the hand-written kernels, found by their entry names
     port_kernels = {name: sum(k[0] for k in kern if name in k[1]) / n / 1e3
-                    for name in ("fast_score_kernel", "orb_describe_kernel",
-                                 "hamming_top2_kernel",
-                                 "_plane_block_moments_kernel")}
-    out = {"frames": n, "wall_ms_per_frame": wall / n * 1e3,
+                    for name in PORT_KERNELS}
+    out = {"frames": n, "local_mapping": not args.tracking_only,
+           "keyframes_in_window": int(slam.map.n_kf - n_kf0),
+           "wall_ms_per_frame": wall / n * 1e3,
            "device_busy_ms_per_frame": busy_ms / n,
            "device_busy_share": busy_ms / (wall * 1e3),
            "kernel_launches_per_frame": n_kernels / n,
