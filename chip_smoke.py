@@ -22,11 +22,24 @@ Phases, each fatal on failure:
      frames tracks until the map holds more than 5 keyframes, loses
      tracking on noise frames, relocalizes on a revisited frame (Horn
      branch), then loses again and revisits a frame without depth (PnP
-     branch).
+     branch);
+  7. path 4a, loop closing: the default System(cfg) (loop closing on, with
+     loop.min_kf_gap=3 and loop.consistency_threshold=2) over the 96-frame
+     640x480 loop sequence; ATE, 0 lost, loops closed, and K3 and K6
+     launched inside every loop verification;
+  8. path 4b, a constructed loop: a map tracked over the room's first 48
+     frames gets a copy of keyframe 0 with a drifted pose and cloned
+     landmarks; verification, the pose graph (K10), the fuse and global BA
+     (K8, K9) must pull the drift back and merge the clones;
+  9. path 4c, BA at scale: ba_solve on a 96-keyframe perturbed orbit and
+     ba_solve_pcg on a 256-keyframe one, to the convergence limits of
+     tests/test_ba_full.py.
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel must have launched on the paths. The line before the
-last is a JSON object with one entry per kernel; the last line is the
-device JSON object.
+last is a JSON object with one entry per kernel (its time and its plain
+version's, the least time the card could take for the same bytes and
+operations, and a PyTorch call's time where one computes the same
+function); the last line is the device JSON object.
 """
 
 from __future__ import annotations
@@ -42,6 +55,13 @@ import numpy as np
 ATE_LIMIT_M = 0.010
 TIMING_REPS = 25
 TRACKING_FRAMES = 48  # path 1 (tracking alone): cut to keep the run short
+LOOP_FRAMES = 96      # path 4a
+CONSTRUCTED_FRAMES = 48  # path 4b
+# one NVIDIA H100 SXM at its 700 W limit (NVIDIA data sheet): HBM
+# bytes/s, and float32 operations/s outside the tensor cores, the rate used
+# for every kernel's operations (integer and float64 work included)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def _fail(msg: str) -> None:
@@ -72,6 +92,37 @@ def _time_ms(fn, reps: int = TIMING_REPS) -> float:
     return float(np.median(times))
 
 
+def _nbytes(*objs) -> int:
+    """Bytes of the tensors in objs (tuples and named tuples walked)."""
+    import torch
+
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            total += _nbytes(*o)
+    return total
+
+
+def _bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the float32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(n_bytes), "operations": float(n_ops)}
+
+
+def _print_kernels(out: list) -> None:
+    for k in out:
+        print(f"kernel {k['name']}: max_abs_err={k['max_abs_err']} "
+              f"(tolerance {k.pop('tolerance')}) ms={k['ms']:.4f} "
+              f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.5f} "
+              f"({k['bound_by']})", flush=True)
+
+
 def kernel_parity(seq, cfg, dev) -> list:
     """K1-K4 against their plain versions on the card."""
     import torch
@@ -93,10 +144,14 @@ def kernel_parity(seq, cfg, dev) -> list:
                           cfg.orb.scale_factor)
 
     # K1: FAST score over all pyramid levels (exact: min/max/sub only)
-    err = max(float((fast.fast_score(l) - fast.fast_score_plain(l))
-                    .abs().max()) for l in levels)
+    scores = [fast.fast_score(l) for l in levels]
+    err = max(float((sk - fast.fast_score_plain(l)).abs().max())
+              for sk, l in zip(scores, levels))
     _check(err == 0.0, f"fast_score differs from plain by {err}")
-    out.append({"name": "fast_score", "route": "cuda",
+    n_px = sum(l.numel() for l in levels)
+    out.append({"name": "fast_score", "route": "cuda", "library_ms": None,
+                # per pixel: 16 circle reads, compares, two arc scans
+                **_bound(_nbytes(levels, scores), 64 * n_px),
                 "source": "planarslam_tpu_torch/csrc/fast_score.cu",
                 "replaces": "planarslam_tpu/ops/fast.py:41",
                 "max_abs_err": err, "tolerance": 0.0,
@@ -120,9 +175,13 @@ def kernel_parity(seq, cfg, dev) -> list:
         bits_bad += int(((d_k != d_p).any(dim=1) & valid).sum())
         n_valid += int(valid.sum())
     _check(ang_err <= 1e-4, f"orb_describe angle error {ang_err} > 1e-4")
+    k2_out = [orb.orb_describe(*k) for k in kps]
     _check(bits_bad <= 0.01 * n_valid,
            f"orb_describe: {bits_bad}/{n_valid} descriptors differ (> 1%)")
-    out.append({"name": "orb_describe", "route": "cuda",
+    out.append({"name": "orb_describe", "route": "cuda", "library_ms": None,
+                # per keypoint: the 31 x 31 intensity moments, 256 rotated
+                # pair comparisons
+                **_bound(_nbytes(kps, k2_out), 5000 * n_valid),
                 "source": "planarslam_tpu_torch/csrc/orb_describe.cu",
                 "replaces": "planarslam_tpu/ops/orb.py:57",
                 "max_abs_err": ang_err, "tolerance": 1e-4,
@@ -172,6 +231,10 @@ def kernel_parity(seq, cfg, dev) -> list:
     _check(int((k3[0] <= cfg.matcher.th_high).sum()) > 100,
            "gated_hamming_top2 parity input holds too few matches")
     out.append({"name": "gated_hamming_top2", "route": "cuda",
+                "library_ms": None,
+                # per pair: 8 xor + 8 popcount + 8 adds, the window gate
+                **_bound(_nbytes(a_desc, b_desc, a_ok, b_ok, gate, k3),
+                         34.0 * M * N),
                 "source": "planarslam_tpu_torch/csrc/hamming_top2.cu",
                 "replaces": "planarslam_tpu/ops/matching.py:169",
                 "max_abs_err": float(err), "tolerance": 0.0,
@@ -192,16 +255,16 @@ def kernel_parity(seq, cfg, dev) -> list:
     _check(err <= 1e-5 * scale,
            f"plane_block_moments error {err} > 1e-5 x {scale}")
     out.append({"name": "plane_block_moments", "route": "triton",
+                "library_ms": None,
+                # per pixel: back-projection, noise gate, 1 + 3 + 6 sums
+                **_bound(_nbytes(depth, alpha, k4), 40 * depth.numel()),
                 "source": "planarslam_tpu_torch/csrc/plane_moments_triton.py",
                 "replaces": "planarslam_tpu/ops/planes.py:223",
                 "max_abs_err": err, "tolerance": 1e-5 * scale,
                 "ms": _time_ms(lambda: planes.plane_block_moments(*args)),
                 "plain_ms": _time_ms(
                     lambda: planes.plane_block_moments_plain(*args))})
-    for k in out:
-        print(f"kernel {k['name']}: max_abs_err={k['max_abs_err']} "
-              f"(tolerance {k.pop('tolerance')}) ms={k['ms']:.4f} "
-              f"plain_ms={k['plain_ms']:.4f}", flush=True)
+    _print_kernels(out)
     return out
 
 
@@ -272,6 +335,9 @@ def backend_kernel_parity(cfg, dev) -> list:
            f"triangulate_two_view: good differs on {mismatch} pairs")
     _check(rel <= 1e-3, f"triangulate_two_view: X relative error {rel}")
     out.append({"name": "triangulate_two_view", "route": "cuda",
+                "library_ms": None,
+                # per pair: the 4 x 4 DLT and its Jacobi SVD (float64), gates
+                **_bound(_nbytes(args5[:7], Xk, gk), 3000.0 * NB * Kp),
                 "source": "planarslam_tpu_torch/csrc/triangulate.cu",
                 "replaces": "planarslam_tpu/slam/device_mapper.py:125",
                 "max_abs_err": float((Xk - Xp)[both].abs().max()),
@@ -308,6 +374,9 @@ def backend_kernel_parity(cfg, dev) -> list:
     _check(best > 0.5 * n, f"horn_align_batch: best hypothesis has {best} "
            f"inliers of {n} (planted 60%)")
     out.append({"name": "horn_align_batch", "route": "cuda",
+                "library_ms": None,
+                # per row and point: weighted sums, covariance, inlier test
+                **_bound(_nbytes(args6[:4], k6), 40.0 * w.size),
                 "source": "planarslam_tpu_torch/csrc/horn_align.cu",
                 "replaces": "planarslam_tpu/solvers/sim3_solver.py:23",
                 "max_abs_err": err6, "tolerance": "n_inl equal, R t 1e-4",
@@ -346,6 +415,11 @@ def backend_kernel_parity(cfg, dev) -> list:
     _check(int(sp.max()) > 0.6 * n, f"pnp_dlt_hypotheses: best hypothesis "
            f"has {int(sp.max())} inliers of {n} (planted 80%)")
     out.append({"name": "pnp_dlt_hypotheses", "route": "cuda",
+                "library_ms": None,
+                # per hypothesis: the 12 x 12 Jacobi SVD (float64, ~10
+                # sweeps) and the reprojection score of every point
+                **_bound(_nbytes(args7[:5], sk, Tk),
+                         128 * (95000.0 + 30.0 * n)),
                 "source": "planarslam_tpu_torch/csrc/pnp_dlt.cu",
                 "replaces": "planarslam_tpu/solvers/pnp.py:25",
                 "max_abs_err": max(err_R, err_t),
@@ -355,11 +429,460 @@ def backend_kernel_parity(cfg, dev) -> list:
                 "ms": _time_ms(lambda: pnp.pnp_dlt_hypotheses(*args7)),
                 "plain_ms": _time_ms(
                     lambda: pnp.pnp_dlt_hypotheses_plain(*args7))})
-    for k in out:
-        print(f"kernel {k['name']}: max_abs_err={k['max_abs_err']} "
-              f"(tolerance {k.pop('tolerance')}) ms={k['ms']:.4f} "
-              f"plain_ms={k['plain_ms']:.4f}", flush=True)
+    _print_kernels(out)
     return out
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    scale = max(float(want.abs().max()), 1e-30)
+    return float((got - want).abs().max()) / scale
+
+
+def _ba_problem(dev, Kt: int, F: int, L2: int, P: int, seed: int):
+    """Seeded K8 inputs at the shape of a BA window: Kt keyframes 0-0.3 m
+    apart viewing points 2-6 m away, F point slots per keyframe (15% empty,
+    half the points mono, 0.5 px noise and 5% gross outliers so the Huber
+    weights act, one (keyframe, landmark) pair observed twice) and L2
+    line-endpoint slots in the line range of the landmark array."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import ba_core
+
+    rng = np.random.default_rng(seed)
+    K = (535.4, 539.2, 320.1, 247.6)
+    n_pts = P - 512 if P > 1024 else P - L2
+    pts = np.stack([rng.uniform(-3, 3, P), rng.uniform(-2, 2, P),
+                    rng.uniform(2, 6, P)], -1).astype(np.float32)
+    poses = np.stack([_planted_se3(rng, 0.05) for _ in range(Kt)])
+    poses[:, :3, 3] = rng.uniform(-0.3, 0.3, (Kt, 3))
+    slot = rng.integers(0, n_pts, (Kt, F)).astype(np.int32)
+    slot[rng.random((Kt, F)) < 0.15] = -1
+    slot[0, 1] = slot[0, 0] = max(int(slot[0, 0]), 0)
+    pc = np.einsum("kij,kfj->kfi", poses[:, :3, :3], pts[slot.clip(0)]) \
+        + poses[:, None, :3, 3]
+    uv = np.stack([K[0] * pc[..., 0] / pc[..., 2] + K[2],
+                   K[1] * pc[..., 1] / pc[..., 2] + K[3]], -1)
+    uv += rng.normal(0, 0.5, uv.shape)
+    uv[rng.random((Kt, F)) < 0.05] += 30.0
+    ur = np.where(rng.random((Kt, F)) < 0.5,
+                  uv[..., 0] - 40.0 / pc[..., 2], -1.0)
+    ln_slot = rng.integers(n_pts, P, (Kt, L2)).astype(np.int32)
+    ln_slot[rng.random((Kt, L2)) < 0.3] = -1
+    l2d = rng.normal(0, 1, (Kt, L2, 3))
+    l2d[..., :2] /= np.linalg.norm(l2d[..., :2], axis=-1, keepdims=True)
+    l2d[..., 2] = rng.uniform(-400, 400, (Kt, L2))
+
+    def t(a, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    pt = ba_core.PointTables(t(slot.clip(0), np.int32), t(uv), t(ur),
+                             t(np.ones((Kt, F))), t(slot >= 0))
+    ln = ba_core.LineTables(t(ln_slot.clip(0), np.int32), t(l2d),
+                            t(np.ones((Kt, L2))), t(ln_slot >= 0))
+    return t(poses), t(pts), pt, ln, K
+
+
+def ba_kernel_parity(dev) -> list:
+    """K8-K10 against their plain versions on the card, K8 and K9 at the
+    GBA shape (Kt=128, M=12864) and the LBA shape (Kt=16, M=2336), K10 at
+    N=96 keyframes. Times are at the GBA shape."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import ba_core, pose_graph
+
+    out = []
+    errs8, errs9 = [], []
+    timed = None
+    for name, Kt, F, L2, P, Q in (("lba", 16, 1000, 64, 2304, 32),
+                                  ("gba", 128, 1000, 64, 12800, 64)):
+        poses, pts, pt, ln, K = _ba_problem(dev, Kt, F, L2, P, seed=Kt)
+        M = P + Q
+        plan = ba_core.obs_plan(pt.slot, pt.mask, ln.slot, ln.mask, M)
+        args8 = (poses, pts, pt, ln, M, K, 40.0, True, True)
+        k8 = ba_core.ba_normal_eqs(*args8, plan=plan)
+        p8 = ba_core.ba_normal_eqs_plain(*args8)
+        torch.cuda.synchronize()
+        err8 = max(_rel_err(a, b) for a, b in zip(k8, p8))
+        _check(err8 <= 1e-4, f"ba_normal_eqs ({name}) relative error {err8}")
+        errs8.append(err8)
+        Hcc, bc, Hpp, bp, Hcp = p8[:5]
+        Hpp = Hpp.clone()
+        Hpp[P:] = torch.eye(3, device=dev) * 10.0  # plane rows
+        lam = torch.tensor(1e-3, device=dev)
+        mu_p = ba_core._mu_p(Hpp)
+        dxc = torch.from_numpy(np.random.default_rng(9).normal(
+            0, 1e-3, (Kt, 6)).astype(np.float32)).to(dev)
+        args9 = (Hpp, bp, Hcp, bc, lam, mu_p)
+
+        def k9():
+            r = ba_core.ba_schur_eliminate(*args9)
+            return r + (ba_core.ba_schur_backsub(r[0], bp, Hcp, dxc),)
+
+        def p9():
+            r = ba_core.ba_schur_eliminate_plain(*args9)
+            return r + (ba_core.ba_schur_backsub_plain(r[0], bp, Hcp, dxc),)
+
+        got9, want9 = k9(), p9()
+        torch.cuda.synchronize()
+        err9 = max(_rel_err(a, b) for a, b in zip(got9, want9))
+        _check(err9 <= 1e-4, f"ba_schur_eliminate ({name}) relative error "
+               f"{err9}")
+        errs9.append(err9)
+        print(f"ba kernels at the {name} shape Kt={Kt} M={M}: K8 rel err "
+              f"{err8}, K9 rel err {err9}", flush=True)
+        timed = (args8, plan, k8, k9, p9, args9, got9, dxc)
+    args8, plan, k8, k9, p9, args9, got9, dxc = timed
+    Kt, M = args8[0].shape[0], args8[4]
+    n_obs = Kt * (args8[2].slot.shape[1] + args8[3].slot.shape[1])
+    out.append({"name": "ba_normal_eqs", "route": "cuda",
+                "source": "planarslam_tpu_torch/csrc/ba_normal_eqs.cu",
+                "replaces": "planarslam_tpu/solvers/ba_core.py:361",
+                "max_abs_err": max(errs8),
+                "tolerance": "relative 1e-4 of each output's largest value",
+                "shapes": {"Kt": Kt, "M": M, "observations": n_obs},
+                "library_ms": None,
+                # per observation: projection, Jacobians, 54 product terms
+                **_bound(_nbytes(args8[:4], k8), 600.0 * n_obs),
+                "ms": _time_ms(lambda: ba_core.ba_normal_eqs(*args8,
+                                                             plan=plan)),
+                "plain_ms": _time_ms(lambda: ba_core.ba_normal_eqs_plain(
+                    *args8))})
+    Hpp_inv = got9[0]
+    out.append({"name": "ba_schur_eliminate", "route": "cuda",
+                "source": "planarslam_tpu_torch/csrc/ba_schur.cu",
+                "replaces": "planarslam_tpu/solvers/ba_core.py:463",
+                "max_abs_err": max(errs9),
+                "tolerance": "relative 1e-4 of each output's largest value",
+                "shapes": {"Kt": Kt, "M": M},
+                "library_ms": None,
+                # elimination (reads Hcp, writes HcpHinv) and the
+                # back-substitution (reads Hcp again)
+                **_bound(_nbytes(args9[:4], got9[:3], dxc, got9[3])
+                         + _nbytes(args9[2], Hpp_inv, args9[1]),
+                         M * Kt * 6 * 3 * (5 + 2 + 2)),
+                "ms": _time_ms(k9), "plain_ms": _time_ms(p9)})
+
+    # K10: a 96-keyframe chain with covisibility and loop edges
+    rng = np.random.default_rng(10)
+    N = 96
+    Tw = [np.eye(4, dtype=np.float32)]
+    for _ in range(N - 1):
+        step = _planted_se3(rng, 0.05)
+        step[:3, 3] = rng.normal(0, 0.1, 3)
+        Tw.append((step @ Tw[-1]).astype(np.float32))
+    Tw = np.stack(Tw)
+    ij = [(i, i - 1) for i in range(1, N)]
+    ij += [(i, i + d) for i in range(N) for d in (2, 3, 5) if i + d < N]
+    ij += [(N - 1, 0), (N - 2, 1), (N - 1, 0)]   # loops, one repeated
+    ij = np.asarray(ij, np.int32)
+    meas = np.stack([_planted_se3(rng, 0.01) @ Tw[i] @ np.linalg.inv(Tw[j])
+                     for i, j in ij]).astype(np.float32)
+    w = np.where(np.arange(len(ij)) >= len(ij) - 3, 5.0, 1.0).astype(
+        np.float32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    args10 = (t(Tw), t(ij), t(np.linalg.inv(meas).astype(np.float32)), t(w),
+              pose_graph.edge_plan(ij, N, device=dev))
+    H_k, g_k = pose_graph.pose_graph_normal_eqs(*args10)
+    H_p, g_p = pose_graph.pose_graph_normal_eqs_plain(*args10)
+    torch.cuda.synchronize()
+    err10 = max(_rel_err(H_k, H_p), _rel_err(g_k, g_p))
+    _check(err10 <= 1e-5, f"pose_graph_normal_eqs relative error {err10}")
+    out.append({"name": "pose_graph_normal_eqs", "route": "cuda",
+                "source": "planarslam_tpu_torch/csrc/pose_graph.cu",
+                "replaces": "planarslam_tpu/solvers/pose_graph.py:44",
+                "max_abs_err": err10,
+                "tolerance": "relative 1e-5 of H's and g's largest value",
+                "shapes": {"N": N, "E": int(len(ij))},
+                "library_ms": None,
+                # per edge: log, Jr^-1, Ad, two 6x6 products, four 6x6 blocks
+                **_bound(_nbytes(args10[:4], H_k, g_k), 24000.0 * len(ij)),
+                "ms": _time_ms(lambda: pose_graph.pose_graph_normal_eqs(
+                    *args10)),
+                "plain_ms": _time_ms(
+                    lambda: pose_graph.pose_graph_normal_eqs_plain(*args10))})
+    _print_kernels(out)
+    return out
+
+
+def construct_loop(m, src: int = 0):
+    """The constructed loop of tests/test_reloc_loop.py::
+    test_loop_verify_and_correct_constructed on a port map: a new keyframe
+    copies keyframe `src`'s snapshot with its pose drifted by
+    (0.08, -0.04, 0.06) m and observes clones of src's landmarks. Returns
+    (kf, number of clones, drifted pose)."""
+    kf = m.alloc_keyframe()
+    m.kf_valid[kf] = True
+    drift = np.eye(4, dtype=np.float32)
+    drift[:3, 3] = [0.08, -0.04, 0.06]
+    m.kf_pose[kf] = (drift @ m.kf_pose[src]).astype(np.float32)
+    for arr in ("kf_uv", "kf_ur", "kf_depth", "kf_level", "kf_angle",
+                "kf_desc", "kf_feat_valid", "kf_pt_idx", "kf_bow"):
+        getattr(m, arr)[kf] = getattr(m, arr)[src]
+    m.kf_parent[kf] = m.n_kf - 2
+    sel = np.flatnonzero((m.kf_pt_idx[src] >= 0)
+                         & m.pt_valid[np.clip(m.kf_pt_idx[src], 0, None)])
+    orig = m.kf_pt_idx[src][sel]
+    clones = m.alloc_points(len(sel))
+    for arr in ("pt_xyz", "pt_desc", "pt_normal", "pt_min_dist",
+                "pt_max_dist"):
+        getattr(m, arr)[clones] = getattr(m, arr)[orig]
+    m.pt_valid[clones] = True
+    m.pt_nobs[clones] = 1
+    m.pt_found[clones] = 1
+    m.pt_visible[clones] = 1
+    m.pt_first_kf[clones] = kf
+    m.kf_pt_idx[kf, sel] = clones
+    m.update_covisibility(kf)
+    return kf, len(clones), m.kf_pose[kf].copy()
+
+
+def _count_verifications(lc) -> dict:
+    """Wrap a loop closer's verification: count the calls and the K3 and K6
+    launches made inside them."""
+    from planarslam_tpu_torch import kernels
+
+    inside = {"verifications": 0, "gated_hamming_top2": 0,
+              "horn_align_batch": 0}
+    orig = lc._verify_and_correct
+
+    def counted(kf, c):
+        before = dict(kernels.LAUNCHES)
+        try:
+            return orig(kf, c)
+        finally:
+            inside["verifications"] += 1
+            for name in ("gated_hamming_top2", "horn_align_batch"):
+                inside[name] += kernels.LAUNCHES[name] - before[name]
+
+    lc._verify_and_correct = counted
+    return inside
+
+
+def run_loop_path(seq, cfg, dev) -> dict:
+    """Path 4a: the default System (loop closing on) over the loop
+    sequence."""
+    import dataclasses
+
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.evaluation.ate import ate_rmse
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.slam.system import System
+
+    cfg = cfg.replace(loop=dataclasses.replace(
+        cfg.loop, min_kf_gap=3, consistency_threshold=2))
+    frames = [quantize_frame(*seq.render(i), cfg.camera.depth_map_factor)
+              for i in range(len(seq))]
+    slam = System(config=cfg, device=dev)
+    inside = _count_verifications(slam.loop_closer)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t_all = time.perf_counter()
+    times = _drive(slam, frames, seq.timestamps)
+    poses = slam.frame_poses_wc()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    launches = dict(kernels.LAUNCHES)
+    _check(poses.shape == (len(seq), 4, 4) and bool(np.isfinite(poses).all()),
+           "path4a: bad trajectory")
+    ate = ate_rmse(poses[:, :3, 3], seq.poses_wc[:len(seq), :3, 3])
+    lc = slam.loop_closer
+    t_ms = np.asarray(times[1:])
+    res = {"ate_rmse_m": ate, "frames": len(seq),
+           "keyframes": int(slam.map.n_kf),
+           "valid_keyframes": int(len(slam.map.valid_kf_ids())),
+           "lost": int(slam.tracker.stats["lost"]),
+           "loops_closed": int(lc.loops_closed),
+           "verifications": inside["verifications"],
+           "k3_in_verification": inside["gated_hamming_top2"],
+           "k6_in_verification": inside["horn_align_batch"],
+           "pose_graph_calls": lc.stats["pose_graphs"],
+           "gba_calls": lc.stats["gba_calls"],
+           "median_ms_per_frame": float(np.median(t_ms)),
+           "p95_ms_per_frame": float(np.percentile(t_ms, 95)),
+           "wall_s": wall, "launches": launches}
+    print("path4a_loop " + json.dumps(res), flush=True)
+    _check(ate < ATE_LIMIT_M, f"path4a: ATE {ate:.5f} m >= {ATE_LIMIT_M} m")
+    _check(res["lost"] == 0, f"path4a: {res['lost']} lost frames")
+    if inside["verifications"]:
+        _check(inside["gated_hamming_top2"] > 0
+               and inside["horn_align_batch"] > 0,
+               "path4a: loop verification ran without K3 and K6 on the card")
+    return res
+
+
+def run_constructed_loop_path(seq, cfg, dev) -> dict:
+    """Path 4b: verification and correction of a constructed loop on a
+    640x480 map, global BA on."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.slam.system import System
+    from planarslam_tpu_torch.solvers import global_ba
+
+    slam = System(config=cfg, device=dev)
+    for i in range(CONSTRUCTED_FRAMES):
+        slam.track_rgbd(*quantize_frame(*seq.render(i),
+                                        cfg.camera.depth_map_factor),
+                        seq.timestamps[i])
+    slam.shutdown()
+    m = slam.map
+    kf, n_clones, pose_before = construct_loop(m)
+    n_valid = int(m.pt_valid.sum())
+    lc = slam.loop_closer
+    lc.run_gba = True
+    inside = _count_verifications(lc)
+    after_pg = {}
+    orig_gba = global_ba.global_bundle_adjustment
+
+    def gba_after_pose_graph(slam_map, c, **kw):
+        after_pg["pose"] = slam_map.kf_pose[kf].copy()
+        t0 = time.perf_counter()
+        orig_gba(slam_map, c, **kw)
+        torch.cuda.synchronize()
+        after_pg["gba_s"] = time.perf_counter() - t0
+
+    global_ba.global_bundle_adjustment = gba_after_pose_graph
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        ok = lc._verify_and_correct(kf, 0)
+    finally:
+        global_ba.global_bundle_adjustment = orig_gba
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    drift = float(np.linalg.norm(pose_before[:3, 3] - m.kf_pose[0][:3, 3]))
+    delta_pg = float(np.linalg.norm(after_pg.get("pose", pose_before)[:3, 3]
+                                    - m.kf_pose[0][:3, 3]))
+    delta_gba = float(np.linalg.norm(m.kf_pose[kf][:3, 3]
+                                     - m.kf_pose[0][:3, 3]))
+    fused = n_valid - int(m.pt_valid.sum())
+    res = {"keyframes": int(len(m.valid_kf_ids())), "verified": bool(ok),
+           "drift_m": drift, "offset_after_pose_graph_m": delta_pg,
+           "offset_after_gba_m": delta_gba, "clones": n_clones,
+           "fused": fused, "last_fuse_count": lc.last_fuse_count,
+           "k3_in_verification": inside["gated_hamming_top2"],
+           "k6_in_verification": inside["horn_align_batch"],
+           "gba_s": after_pg.get("gba_s"), "wall_s": wall,
+           "launches": launches}
+    print("path4b_constructed_loop " + json.dumps(res), flush=True)
+    _check(ok, "path4b: the constructed loop was not verified")
+    _check("pose" in after_pg, "path4b: global BA did not run")
+    _check(delta_pg < 0.4 * drift, f"path4b: the pose graph left "
+           f"{delta_pg:.4f} m of the {drift:.4f} m drift")
+    _check(fused >= 0.3 * n_clones,
+           f"path4b: only {fused} of {n_clones} cloned points fused")
+    _check(np.isfinite(m.kf_pose[:m.n_kf]).all(), "path4b: non-finite poses")
+    for name in ("ba_normal_eqs", "ba_schur_eliminate",
+                 "pose_graph_normal_eqs", "gated_hamming_top2",
+                 "horn_align_batch"):
+        _check(launches[name] > 0, f"path4b: {name} not launched")
+    return res
+
+
+def _orbit_problem(rng, Kt: int, P: int, F: int, dev):
+    """tests/test_ba_full.py::_orbit_problem in numpy and the port: cameras
+    on a radius-6 circle around a landmark cloud, perfect observations,
+    accumulated pose drift; returns port tables on `dev`."""
+    import torch
+
+    from planarslam_tpu_torch.config import PlaneConfig
+    from planarslam_tpu_torch.geometry import se3
+    from planarslam_tpu_torch.solvers import ba_core
+
+    K, bf = (300.0, 310.0, 160.0, 120.0), 24.0
+    pts_gt = rng.normal(0, 1.5, (P, 3)).astype(np.float32)
+    poses_gt = []
+    for k in range(Kt):
+        ang = 2 * np.pi * k / Kt
+        c = np.array([6 * np.sin(ang), 0.3 * np.sin(3 * ang),
+                      -6 * np.cos(ang)], np.float32)
+        fwd = -c / np.linalg.norm(c)
+        right = np.cross(np.array([0, 1, 0], np.float32), fwd)
+        right /= np.linalg.norm(right)
+        T_wc = np.eye(4, dtype=np.float32)
+        T_wc[:3, :3] = np.stack([right, np.cross(fwd, right), fwd], axis=1)
+        T_wc[:3, 3] = c
+        poses_gt.append(np.linalg.inv(T_wc).astype(np.float32))
+    poses_gt = np.stack(poses_gt)
+    slot = np.full((Kt, F), -1, np.int32)
+    uv = np.zeros((Kt, F, 2), np.float32)
+    ur = np.full((Kt, F), -1.0, np.float32)
+    for k in range(Kt):
+        for f, p in enumerate(rng.choice(P, F, replace=False)):
+            pc = poses_gt[k, :3, :3] @ pts_gt[p] + poses_gt[k, :3, 3]
+            u = K[0] * pc[0] / pc[2] + K[2]
+            v = K[1] * pc[1] / pc[2] + K[3]
+            if pc[2] < 0.5 or not (0 <= u < 320 and 0 <= v < 240):
+                continue
+            slot[k, f], uv[k, f], ur[k, f] = p, (u, v), u - bf / pc[2]
+    poses0 = poses_gt.copy()
+    drift = np.eye(4, dtype=np.float32)
+    for k in range(1, Kt):
+        xi = np.r_[rng.normal(0, 0.0006, 3), rng.normal(0, 0.002, 3)]
+        drift = se3.se3_exp(torch.from_numpy(xi.astype(np.float32))
+                            ).numpy() @ drift
+        poses0[k] = drift @ poses0[k]
+    pts0 = pts_gt + rng.normal(0, 0.02, (P, 3)).astype(np.float32)
+    fixed = np.zeros(Kt, np.float32)
+    fixed[0] = 1.0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    pt = ba_core.PointTables(t(slot), t(uv), t(ur),
+                             t(np.ones((Kt, F), np.float32)),
+                             t((slot >= 0).astype(np.float32)))
+    empty = ba_core.empty_plane_tables(Kt, dev)
+    args = (t(poses0), t(fixed), t(pts0), torch.zeros((0, 4), device=dev),
+            pt, ba_core.empty_line_tables(Kt, dev), empty, empty, empty, K,
+            bf, ba_core.BAWeights.from_config(PlaneConfig()))
+    return poses_gt, poses0, args, slot
+
+
+def run_ba_scale_path(dev) -> dict:
+    """Path 4c: ba_solve on the 96-keyframe orbit and ba_solve_pcg on the
+    256-keyframe one, held to tests/test_ba_full.py's limits."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.solvers.ba_core import ba_solve
+    from planarslam_tpu_torch.solvers.ba_pcg import ba_solve_pcg
+
+    rng = np.random.default_rng(42)
+    res = {}
+    kernels.reset_launches()
+    for name, solver, Kt, F, lim_mean, lim_max in (
+            ("dense", ba_solve, 96, 48, 0.15, 0.3),
+            ("pcg", ba_solve_pcg, 256, 24, 0.2, 0.4)):
+        poses_gt, poses0, args, slot = _orbit_problem(rng, Kt, 1024, F, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses1, _, _, chis = solver(*args, n_iters=12)
+        poses1 = poses1.cpu().numpy()
+        wall = time.perf_counter() - t0
+        err0 = np.linalg.norm(poses0[:, :3, 3] - poses_gt[:, :3, 3], axis=1)
+        err1 = np.linalg.norm(poses1[:, :3, 3] - poses_gt[:, :3, 3], axis=1)
+        med_chi = float(np.median(chis["pt"].cpu().numpy()[slot >= 0]))
+        res[name] = {"keyframes": Kt, "err0_mean": float(err0.mean()),
+                     "err1_mean": float(err1.mean()),
+                     "err0_max": float(err0.max()),
+                     "err1_max": float(err1.max()),
+                     "median_chi2": med_chi, "wall_s": wall}
+        _check(err1.mean() < lim_mean * err0.mean()
+               and err1.max() < lim_max * err0.max() and med_chi < 0.5,
+               f"path4c: {name} orbit did not converge: {res[name]}")
+    res["launches"] = dict(kernels.LAUNCHES)
+    print("path4c_ba_scale " + json.dumps(res), flush=True)
+    return res
 
 
 def _drive(slam, frames, timestamps) -> list:
@@ -526,7 +1049,7 @@ def main(argv=None) -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     path = kernels.build(verbose=True)
     kernels.cuda_lib()
     kernels.triton_module()
@@ -536,7 +1059,8 @@ def main(argv=None) -> int:
     n = max(args.frames, TRACKING_FRAMES)
     seq = synthetic.make_sequence(n, width=cfg.camera.width,
                                   height=cfg.camera.height)
-    report = kernel_parity(seq, cfg, dev) + backend_kernel_parity(cfg, dev)
+    report = (kernel_parity(seq, cfg, dev) + backend_kernel_parity(cfg, dev)
+              + ba_kernel_parity(dev))
     frames = [quantize_frame(*seq.render(i), cfg.camera.depth_map_factor)
               for i in range(n)]
     paths = [
@@ -545,11 +1069,18 @@ def main(argv=None) -> int:
         run_tracking_path("path2_mapping", seq, frames[:args.frames], cfg,
                           dev, True),
         run_reloc_path(seq, cfg, dev),
+        run_loop_path(synthetic.make_sequence(
+            LOOP_FRAMES, kind="loop", width=cfg.camera.width,
+            height=cfg.camera.height), cfg, dev),
+        run_constructed_loop_path(seq, cfg, dev),
+        run_ba_scale_path(dev),
     ]
     for k in report:
         k["launches"] = sum(p["launches"][k["name"]] for p in paths)
         _check(k["launches"] > 0,
                f"kernel {k['name']} was not launched by the paths")
+    print(f"chip_smoke total {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,11 @@ _EPS = 1e-9
 
 
 def _safe_norm(v, dim=-1):
-    """Norm with a well-defined gradient at v = 0."""
-    return torch.sqrt(torch.sum(v * v, dim=dim) + _EPS)
+    """Norm with a well-defined gradient at v = 0. The epsilon is a tensor
+    of v's dtype: a Python float added to a 0-d sum makes torch.func's
+    forward mode carry a float64 tangent."""
+    eps = torch.tensor(_EPS, dtype=v.dtype, device=v.device)
+    return torch.sqrt(torch.sum(v * v, dim=dim) + eps)
 
 
 def normalize(coeffs):

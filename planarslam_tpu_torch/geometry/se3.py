@@ -102,6 +102,59 @@ def se3_log(T):
     return torch.cat([rho, phi], dim=-1)
 
 
+def adjoint(T):
+    """6x6 adjoint of T in the [rho, phi] order: exp(Ad(T) xi) =
+    T exp(xi) T^-1, Ad(T) = [[R, hat(t) R], [0, R]]."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    top = torch.cat([R, hat(t) @ R], dim=-1)
+    bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def _so3_left_jacobian_inv(phi):
+    theta2 = torch.sum(phi * phi, dim=-1, keepdim=True)[..., None]
+    t2 = theta2.clamp(min=1e-12)
+    theta = torch.sqrt(t2)
+    K = hat(phi)
+    c = 1.0 / t2 - (1.0 + torch.cos(theta)) / (2.0 * theta * torch.sin(theta))
+    c = torch.where(theta2 < 1e-4, 1.0 / 12.0 + theta2 / 720.0, c)
+    return _eye3(phi) - 0.5 * K + c * (K @ K)
+
+
+def se3_left_jacobian_inv(xi):
+    """Inverse left Jacobian of SE(3) at xi = [rho, phi]:
+    [[Jl^-1, -Jl^-1 Q Jl^-1], [0, Jl^-1]] with Barfoot's Q(rho, phi).
+    Taylor series below |phi| = 0.01; the closed forms cancel, so call it
+    in float64."""
+    rho, phi = xi[..., :3], xi[..., 3:6]
+    theta2 = torch.sum(phi * phi, dim=-1)[..., None, None]
+    t2 = theta2.clamp(min=1e-12)
+    theta = torch.sqrt(t2)
+    small = theta2 < 1e-4
+    s, c = torch.sin(theta), torch.cos(theta)
+    a1 = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                     (theta - s) / (t2 * theta))
+    a2 = torch.where(small, 1.0 / 24.0 - theta2 / 720.0,
+                     (theta2 + 2.0 * c - 2.0) / (2.0 * t2 * t2))
+    a3 = torch.where(small, 1.0 / 120.0 - theta2 / 2520.0,
+                     (2.0 * theta - 3.0 * s + theta * c)
+                     / (2.0 * t2 * t2 * theta))
+    P, Rh = hat(phi), hat(rho)
+    PR, RP = P @ Rh, Rh @ P
+    PRP = PR @ P
+    Q = (0.5 * Rh + a1 * (PR + RP + PRP) + a2 * (P @ PR + RP @ P - 3.0 * PRP)
+         + a3 * (PRP @ P + P @ PRP))
+    Ji = _so3_left_jacobian_inv(phi)
+    top = torch.cat([Ji, -(Ji @ Q @ Ji)], dim=-1)
+    bottom = torch.cat([torch.zeros_like(Ji), Ji], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_right_jacobian_inv(xi):
+    """Inverse right Jacobian: log(exp(xi) exp(d)) ~ xi + Jr^-1(xi) d."""
+    return se3_left_jacobian_inv(-xi)
+
+
 def rt_to_T(R, t):
     top = torch.cat([R, t[..., :, None]], dim=-1)  # (..., 3, 4)
     bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)

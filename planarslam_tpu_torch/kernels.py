@@ -30,14 +30,16 @@ import torch
 
 KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
                 "plane_block_moments", "triangulate_two_view",
-                "horn_align_batch", "pnp_dlt_hypotheses")
+                "horn_align_batch", "pnp_dlt_hypotheses", "ba_normal_eqs",
+                "ba_schur_eliminate", "pose_graph_normal_eqs")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build", "planarslam_tpu_torch")
 CUDA_SOURCES = ("fast_score.cu", "orb_describe.cu", "hamming_top2.cu",
-                "triangulate.cu", "horn_align.cu", "pnp_dlt.cu")
+                "triangulate.cu", "horn_align.cu", "pnp_dlt.cu",
+                "ba_normal_eqs.cu", "ba_schur.cu", "pose_graph.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -68,6 +70,21 @@ _SIGNATURES = {
     # xw, uv_n, inv_sigma2, valid, picks, n, n_hyp, chi2_gate, scores, T,
     # stream
     "psl_pnp_dlt_hypotheses": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P],
+    # poses, pts, pt_slot, pt_uv, pt_ur, pt_inv_s2, pt_mask, ln_slot,
+    # ln_line2d, ln_inv_s2, ln_mask, Kt, F, L2, M, fx, fy, cx, cy, bf,
+    # huber, lm_order, lm_start, kf_order, kf_start, kf_slot, scratch, Hcc,
+    # bc, Hpp, bp, Hcp (or NULL), chi_pt, chi_ln, stream
+    "psl_ba_normal_eqs": [_P] * 11 + [_I] * 4 + [_F] * 5 + [_I]
+                         + [_P] * 14,
+    # Hpp, bp, Hcp, bc, lam, mu_p, Kt, M, Hpp_inv, HcpHinv, rhs, partial,
+    # stream
+    "psl_ba_schur_eliminate": [_P] * 6 + [_I, _I] + [_P] * 5,
+    # Hpp_inv, bp, Hcp, dxc, Kt, M, ks, partial, dxp, stream
+    "psl_ba_schur_backsub": [_P] * 4 + [_I] * 3 + [_P] * 3,
+    # poses, edges_ij, meas_inv, w, E, N, order, seg_start, seg_key, S,
+    # scratch, H, g, stream
+    "psl_pose_graph_normal_eqs": [_P] * 4 + [_I, _I] + [_P] * 3 + [_I]
+                                 + [_P] * 4,
 }
 
 

@@ -697,3 +697,23 @@ def map_from_numpy(src, cfg: SystemConfig):
         setattr(out, name, value.copy() if isinstance(value, np.ndarray)
                 else copy.deepcopy(value))
     return out
+
+
+def loop_closer_from_numpy(src, cfg: SystemConfig, slam_map, device="cpu"):
+    """A port LoopClosing over `slam_map` carrying another loop closer's
+    state (any object with LoopClosing's attributes, such as the JAX
+    package's): the consistency streaks, loop count, last loop keyframe,
+    last fuse count and run_gba; its keyframe database's sampled bit
+    positions come along (the sketches live in the map)."""
+    from planarslam_tpu_torch.slam.loop_closing import LoopClosing
+    from planarslam_tpu_torch.slam.retrieval import KeyFrameDatabase
+
+    db = KeyFrameDatabase(cfg)
+    db.bit_positions = np.array(src.db.bit_positions)
+    out = LoopClosing(cfg, slam_map, kf_db=db, run_gba=bool(src.run_gba),
+                      device=device)
+    out._consistency = {int(k): int(v) for k, v in src._consistency.items()}
+    out.loops_closed = int(src.loops_closed)
+    out.last_loop_kf = int(src.last_loop_kf)
+    out.last_fuse_count = int(src.last_fuse_count)
+    return out

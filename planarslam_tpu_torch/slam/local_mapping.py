@@ -9,10 +9,10 @@ dense work is the keyframe's mapping step on the device
     observations shortly after creation), and the coplanar plane merge;
   - begin_keyframe dispatches the mapping step; finish_keyframe joins it
     and applies the point and line triangulations and the fuse, fuses
-    lines, re-elects landmark descriptors and culls redundant keyframes.
-
-Local bundle adjustment is not ported yet (it needs the BA solvers of
-loop closing); ``enable_local_ba=True`` raises ``NotImplementedError``.
+    lines, re-elects landmark descriptors and culls redundant keyframes;
+  - with ``enable_local_ba`` (off by default, as in the JAX package and
+    the reference's shipped state), local bundle adjustment of the
+    keyframe's covisibility window follows (``solvers/local_ba.py``).
 """
 
 from __future__ import annotations
@@ -26,11 +26,6 @@ from torch.profiler import record_function
 from planarslam_tpu_torch.config import SystemConfig
 from planarslam_tpu_torch.slam.device_tracker import _tensor_from
 from planarslam_tpu_torch.slam.map import SlamMap
-
-LOCAL_BA_TODO = ("local bundle adjustment is not ported to "
-                 "planarslam_tpu_torch yet (ROADMAP.md, slice 3: loop "
-                 "closing and BA); pass enable_local_ba=False")
-
 
 def _observation_groups(obs_idx, lm_valid, obs_desc, kf: int, neigh: list):
     """The observations, in the keyframes `neigh`, of the valid landmarks
@@ -69,9 +64,8 @@ def _observation_groups(obs_idx, lm_valid, obs_desc, kf: int, neigh: list):
 class LocalMapping:
     def __init__(self, cfg: SystemConfig, slam_map: SlamMap,
                  enable_local_ba: bool = False, device="cpu"):
-        if enable_local_ba:
-            raise NotImplementedError(LOCAL_BA_TODO)
         self.cfg = cfg
+        self.enable_local_ba = enable_local_ba
         self.map = slam_map
         self.device = torch.device(device)
         # recently created landmarks awaiting the culling probation window
@@ -81,7 +75,7 @@ class LocalMapping:
         # what the mapping steps did, for reports
         self.stats = {"mapping_steps": 0, "triangulated_points": 0,
                       "triangulated_lines": 0, "fused_points": 0,
-                      "culled_kfs": 0}
+                      "culled_kfs": 0, "local_ba": 0}
         # begin_keyframe dispatches the mapping step and parks its pull
         # here; finish_keyframe joins and applies it
         self._pending: Optional[dict] = None
@@ -116,9 +110,10 @@ class LocalMapping:
             self._pending = {"kf": kf, "no_dispatch": True}
 
     def finish_keyframe(self) -> None:
-        """Join the pending mapping step, apply it, then cull keyframes.
-        No-op when nothing is pending. Must run before anything that moves
-        keyframe rows (slot compaction): results are applied by id."""
+        """Join the pending mapping step, apply it, cull keyframes, then
+        run local BA when enabled. No-op when nothing is pending. Must run
+        before anything that moves keyframe rows (slot compaction): results
+        are applied by id."""
         from planarslam_tpu_torch.slam.device_mapper import join_mapping_step
 
         pending = self._pending
@@ -138,6 +133,12 @@ class LocalMapping:
                 self._fuse_lines(kf)
                 self._update_distinctive_descriptors(kf)
             self._cull_keyframes(kf)
+        if self.enable_local_ba and m.n_kf >= 3:
+            from planarslam_tpu_torch.solvers.local_ba import \
+                local_bundle_adjustment
+
+            local_bundle_adjustment(m, kf, self.cfg, device=self.device)
+            self.stats["local_ba"] += 1
 
     # ----------------------------------------------------- point creation
     def _apply_triangulation(self, kf: int, res: dict) -> None:

@@ -1,11 +1,12 @@
 """System facade — the public API.
 
 Port of ``planarslam_tpu/slam/system.py``: feed frames with ``track_rgbd``,
-drain with ``shutdown``, read the trajectory. Local mapping runs as a
-deterministic stage per keyframe: its mapping step is dispatched when the
-keyframe materializes and joined a fixed number of frames later (at once
-while the map holds fewer than 8 keyframes). Loop closing is not ported
-yet; asking for it raises ``NotImplementedError`` rather than running less.
+drain with ``shutdown``, read the trajectory. Local mapping and loop
+closing run as deterministic stages per keyframe: the mapping step is
+dispatched when the keyframe materializes and joined a fixed number of
+frames later (at once while the map holds fewer than 8 keyframes); loop
+detection follows the join, and a closed loop re-bases the tracker on the
+corrected map.
 
 The device defaults to ``"cuda"``, and a System asked for a card where
 there is none raises: a CPU run names ``device="cpu"``.
@@ -21,13 +22,11 @@ import torch
 
 from planarslam_tpu_torch.config import SystemConfig, load_yaml_config
 from planarslam_tpu_torch.slam.local_mapping import LocalMapping
+from planarslam_tpu_torch.slam.loop_closing import LoopClosing
 from planarslam_tpu_torch.slam.map import SlamMap
 from planarslam_tpu_torch.slam.retrieval import KeyFrameDatabase
 from planarslam_tpu_torch.slam.tracking import Tracking, TrackingState
 
-LOOP_TODO = ("loop closing is not ported to planarslam_tpu_torch yet "
-             "(ROADMAP.md, slice 3: loop closing and BA); pass "
-             "enable_loop_closing=False")
 BACKEND_LAG_FRAMES = 3  # frames from a keyframe to its mapping join
 
 
@@ -49,13 +48,12 @@ class System:
                  enable_local_mapping: bool = True,
                  enable_loop_closing: bool = True,
                  device="cuda"):
-        if enable_loop_closing:
-            raise NotImplementedError(LOOP_TODO)
         if config is None:
             config = load_yaml_config(settings) if settings else SystemConfig()
         self.cfg = config
         self.device = resolve_device(device)
         self.enable_local_mapping = enable_local_mapping
+        self.enable_loop_closing = enable_loop_closing
         self.localization_only = False
         self.timings: List[float] = []
         self.compactions = 0
@@ -69,6 +67,9 @@ class System:
         self.local_mapper = LocalMapping(self.cfg, self.map,
                                          device=self.device) \
             if self.enable_local_mapping else None
+        self.loop_closer = LoopClosing(self.cfg, self.map, kf_db=self.kf_db,
+                                       device=self.device) \
+            if self.enable_loop_closing else None
         # first KF id whose backend has not started; the KF whose mapping
         # join is pending, and the frame at which it matures
         self._next_backend_kf = 0
@@ -135,18 +136,26 @@ class System:
             self._finish_backend_kf()
 
     def _finish_backend_kf(self) -> None:
-        """Apply the previous keyframe's deferred local mapping."""
-        if self._backend_kf is None:
+        """Apply the previous keyframe's deferred local mapping, then loop
+        detection (the LocalMapping -> LoopClosing queue order)."""
+        kf = self._backend_kf
+        if kf is None:
             return
         self._backend_kf = None
         if self.local_mapper is not None:
             self.local_mapper.finish_keyframe()
+        if self.loop_closer is not None and self.map.kf_valid[kf]:
+            T_old = self.map.kf_pose[kf].copy()
+            if self.loop_closer.process_keyframe(kf) is not None:
+                # re-base the pipelined tracker onto the corrected map
+                self.tracker.apply_map_correction(
+                    T_old, self.map.kf_pose[kf].copy())
 
     def _maybe_compact_keyframes(self) -> None:
         """Reclaim culled keyframe slots when nearing capacity, remapping
         every external holder of keyframe ids: trajectory records, the
-        tracker's reference keyframe and the local mapper's probation birth
-        stamps."""
+        tracker's reference keyframe, the loop-consistency streaks and the
+        local mapper's probation birth stamps."""
         m = self.map
         if m.n_kf < m.n_kf_slots - 4:
             return
@@ -163,6 +172,12 @@ class System:
 
         rec_res = [res(r.ref_kf) for r in tr.records]
         trk_anchor, _ = res(tr.ref_kf)
+        streaks: dict = {}
+        if self.loop_closer is not None:
+            for c, n in self.loop_closer._consistency.items():
+                a, _ = res(c)
+                if a >= 0:
+                    streaks[a] = max(streaks.get(a, 0), n)
         lm = self.local_mapper
         births = []
         if lm is not None:
@@ -183,6 +198,9 @@ class System:
                 rec.ref_kf = new_id
         tr.ref_kf = int(remap[trk_anchor]) if trk_anchor >= 0 else 0
         tr._window_dirty = True
+        if self.loop_closer is not None:
+            self.loop_closer._consistency = {
+                int(remap[a]): n for a, n in streaks.items() if remap[a] >= 0}
         if lm is not None:
             for d, born in zip((lm._recent_pts, lm._recent_lns,
                                 lm._recent_pls), births):
@@ -198,7 +216,8 @@ class System:
         self.tracker.only_tracking = False
 
     def reset(self):
-        """Clear the map, keyframe database, tracker and local mapper."""
+        """Clear the map, keyframe database, tracker, local mapper and loop
+        closer (its consistency streaks with it)."""
         self._new_tracker()
         self.timings.clear()
 

@@ -144,6 +144,10 @@ class Tracking:
         self.pipeline_depth = cfg.tracking.pipeline_depth
         self._pending: list = []
         self._dev_consts = None  # (eye4, False, R_wm, manh_enabled)
+        # a loop correction re-bases the device step once (pose override)
+        # and right-multiplies the poses of the frames in flight
+        self._pose_override: Optional[np.ndarray] = None
+        self._bundle_correction: Optional[Tuple[np.ndarray, int]] = None
         self.stats = {"manhattan_success": 0, "translation_only": 0,
                       "full_pose": 0, "frames": 0, "kfs": 0, "lost": 0}
         self._last_depth = np.zeros((1, 1), np.float32)
@@ -272,6 +276,8 @@ class Tracking:
             self.cfg)
         self._window_dirty = True
         self._pending = []
+        self._pose_override = None
+        self._bundle_correction = None
 
     def _set_last(self, feats: FrameFeatures, feats_np: FrameFeatures,
                   map_pt: Optional[np.ndarray] = None,
@@ -318,8 +324,7 @@ class Tracking:
         if self._window_dirty or self._window is None:
             self._refresh_window()
         if self._dev_consts is None:
-            # no pose override (loop correction is not ported); R_wm is
-            # fixed at initialization
+            # R_wm is fixed at initialization
             manh = self.R_wm is not None
             R = self.R_wm if manh else np.eye(3, dtype=np.float32)
             self._dev_consts = (
@@ -327,8 +332,15 @@ class Tracking:
                 torch.tensor(False, device=self.device),
                 self._dev(R.astype(np.float32)),
                 torch.tensor(manh, device=self.device))
-        tail = self._dev_consts + (self._fused_state, self._window,
-                                   self._pose_weights)
+        head = self._dev_consts[:2]
+        if self._pose_override is not None:
+            # the first step after a map correction starts from the
+            # re-based pose with zero velocity
+            head = (self._dev(self._pose_override.astype(np.float32)),
+                    torch.tensor(True, device=self.device))
+            self._pose_override = None
+        tail = head + self._dev_consts[2:] + (self._fused_state, self._window,
+                                             self._pose_weights)
         if depth is None:
             return (_upload(gray, self.device),) + tail
         return (_upload(gray, self.device), _upload(depth, self.device)) + tail
@@ -388,7 +400,14 @@ class Tracking:
             return False
 
         T_before = self.T_cw.copy()
-        self.T_cw = bundle["T_out"].astype(np.float32)
+        T_out = bundle["T_out"].astype(np.float32)
+        if self._bundle_correction is not None:
+            # this frame was computed before a loop correction landed
+            corr, remaining = self._bundle_correction
+            T_out = (T_out @ corr).astype(np.float32)
+            self._bundle_correction = (corr, remaining - 1) \
+                if remaining > 1 else None
+        self.T_cw = T_out
         self.velocity = (self.T_cw @ np.linalg.inv(T_before)).astype(
             np.float32)
 
@@ -620,6 +639,24 @@ class Tracking:
             feats, self._dev(self.T_cw), self._dev(self.velocity), self.cfg)
         self._window_dirty = True
         self._pending = []
+        self._pose_override = None
+        self._bundle_correction = None
+
+    def apply_map_correction(self, T_kf_old: np.ndarray,
+                             T_kf_new: np.ndarray) -> None:
+        """Re-base tracking after a loop correction: the camera keeps its
+        pose relative to the corrected keyframe. The deferred keyframe's
+        snapshot and the frames in flight were computed before it, and the
+        next device step starts from the re-based pose."""
+        corr = (np.linalg.inv(T_kf_old) @ T_kf_new).astype(np.float32)
+        self.T_cw = (self.T_cw @ corr).astype(np.float32)
+        if self._pending_kf is not None:
+            self._pending_kf["T_cw"] = (
+                self._pending_kf["T_cw"] @ corr).astype(np.float32)
+        if self._pending:
+            self._bundle_correction = (corr, len(self._pending))
+        self._pose_override = self.T_cw.copy()
+        self._window_dirty = True
 
     def _track_frame(self, feats: FrameFeatures, timestamp: float) -> bool:
         """The modular (non-fused) step: relocalization when LOST, else

@@ -1,10 +1,10 @@
 """Closed-form rigid alignment (Horn) inside a fixed-hypothesis RANSAC.
 
-Port of the RGB-D relocalization half of
-``planarslam_tpu/solvers/sim3_solver.py`` (``horn_align``,
-``_ransac_align``, ``_pad_bucket``, ``_pad_pair``, ``horn_ransac_se3``).
-Scale is fixed to 1, as the RGB-D path of the JAX module uses it; the
-similarity variant and ``refine_relative_se3`` belong to loop closing.
+Port of the RGB-D half of ``planarslam_tpu/solvers/sim3_solver.py``
+(``horn_align``, ``_ransac_align``, ``_pad_bucket``, ``_pad_pair``,
+``horn_ransac_se3``, ``_refine_relative``, ``refine_relative_se3``).
+Scale is fixed to 1, as the RGB-D paths of the JAX module use it; the
+similarity variant ``horn_ransac_sim3`` is on no path and is not ported.
 
 Kernel K6 ``horn_align_batch`` (``csrc/horn_align.cu``) aligns one weight
 row per block and counts that row's inliers; ``horn_align_batch_plain`` is
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from planarslam_tpu_torch import kernels
+from planarslam_tpu_torch.geometry import se3
 
 
 def horn_align(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor
@@ -147,3 +148,70 @@ def horn_ransac_se3(src: np.ndarray, dst: np.ndarray,
     T[:3, :3] = R.cpu().numpy()
     T[:3, 3] = t.cpu().numpy()
     return T, int(n_inl), inl.cpu().numpy()[:n]
+
+
+def _refine_relative(T12_init, s_init, pts1_c, pts2_c, uv1, uv2, valid, K,
+                     fix_scale: bool = True, n_iters: int = 8,
+                     huber_chi2: float = 10.0):
+    """Gauss-Newton refinement of the relative transform between two
+    cameras: bidirectional reprojection (camera 2's points into camera 1
+    through S12 = (s R12, t12), camera 1's into camera 2 through S12^-1)
+    with Huber weights on each correspondence's chi2. 7-dof tangent
+    [rho, phi, sigma], sigma frozen when fix_scale. The Jacobian is
+    torch.func.jacfwd of the residual, as JAX's jax.jacfwd; the problem is
+    small, so it stays plain torch. Runs without a host sync."""
+    from torch.func import jacfwd
+
+    fx, fy, cx, cy = K
+
+    def project(p):
+        z = torch.clamp(p[..., 2], min=1e-6)
+        return torch.stack([fx * p[..., 0] / z + cx,
+                            fy * p[..., 1] / z + cy], dim=-1)
+
+    def residuals(xi, T, s):
+        T_new = se3.se3_exp(xi[:6]) @ T
+        s_new = s * torch.exp(xi[6] * (0.0 if fix_scale else 1.0))
+        R12 = T_new[:3, :3]
+        t12 = T_new[:3, 3]
+        r1 = (uv1 - project(s_new * (pts2_c @ R12.T) + t12)) * valid[:, None]
+        p1_in_2 = (pts1_c - t12) @ R12 / torch.clamp(s_new, min=1e-9)
+        r2 = (uv2 - project(p1_in_2)) * valid[:, None]
+        return torch.cat([r1.reshape(-1), r2.reshape(-1)])
+
+    eye7 = torch.eye(7, dtype=torch.float32, device=T12_init.device)
+    xi0 = torch.zeros(7, dtype=torch.float32, device=T12_init.device)
+    T, s = T12_init, s_init
+    for _ in range(n_iters):
+        r0 = residuals(xi0, T, s)
+        chi2 = torch.sum(r0.reshape(2, -1, 2) ** 2, dim=-1)
+        w = torch.where(chi2 > huber_chi2,
+                        torch.sqrt(huber_chi2 / torch.clamp(chi2, min=1e-9)),
+                        1.0)
+        J = jacfwd(residuals)(xi0, T, s)
+        Jw = J * torch.repeat_interleave(w.reshape(-1), 2)[:, None]
+        dx = -torch.linalg.solve_ex(Jw.T @ J + 1e-6 * eye7, Jw.T @ r0,
+                                    check_errors=False)[0]
+        ok = torch.all(torch.isfinite(dx))
+        T_new = se3.se3_exp(dx[:6]) @ T
+        s_new = s * torch.exp(dx[6] * (0.0 if fix_scale else 1.0))
+        T = torch.where(ok, T_new, T)
+        s = torch.where(ok, s_new, s)
+    return T, s
+
+
+def refine_relative_se3(T12_init: np.ndarray, pts1_c: np.ndarray,
+                        pts2_c: np.ndarray, uv1: np.ndarray, uv2: np.ndarray,
+                        valid: np.ndarray,
+                        K: Tuple[float, float, float, float],
+                        fix_scale: bool = True, device="cpu"):
+    """Host wrapper of the refinement on `device`. Returns (T12, s)."""
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            device)
+
+    T, s = _refine_relative(
+        put(T12_init), torch.tensor(1.0, device=device), put(pts1_c),
+        put(pts2_c), put(uv1), put(uv2), put(valid),
+        tuple(float(v) for v in K), fix_scale=fix_scale)
+    return T.cpu().numpy(), float(s)

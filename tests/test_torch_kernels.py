@@ -1,4 +1,4 @@
-"""The hand-written Hopper kernels (K1-K7) against their plain PyTorch
+"""The hand-written Hopper kernels (K1-K10) against their plain PyTorch
 versions on the card. These need a GPU: without one every test skips.
 
     python -m pytest tests/test_torch_kernels.py -q     # on the GPU machine
@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import _ba_problem
 from planarslam_tpu_torch import kernels
 from planarslam_tpu_torch.config import SystemConfig
 from planarslam_tpu_torch.io import synthetic
@@ -208,3 +209,83 @@ def test_pnp_dlt_hypotheses(dev):
     bk, bp = Tk[int(torch.argmax(sk))], Tp[int(torch.argmax(sp))]
     torch.testing.assert_close(bk[:3, :3], bp[:3, :3], rtol=0, atol=0.01)
     torch.testing.assert_close(bk[:3, 3], bp[:3, 3], rtol=0, atol=0.05)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+@pytest.mark.parametrize("want_hcp", [True, False])
+def test_ba_normal_eqs(dev, want_hcp):
+    """K8 at the LBA shape (Kt=16, 1000 point and 64 endpoint slots,
+    M=2336; chip_smoke.py's seeded tables): every output within 1e-4 of its
+    largest value (float32 sums in another order); two launches give
+    identical bits (no atomics)."""
+    from planarslam_tpu_torch.solvers import ba_core
+
+    poses, pts, pt, ln, K = _ba_problem(dev, 16, 1000, 64, 2304, seed=1)
+    M = 2336
+    plan = ba_core.obs_plan(pt.slot, pt.mask, ln.slot, ln.mask, M)
+    args = (poses, pts, pt, ln, M, K, 40.0, True, want_hcp)
+    n0 = kernels.LAUNCHES["ba_normal_eqs"]
+    got = ba_core.ba_normal_eqs(*args, plan=plan)
+    again = ba_core.ba_normal_eqs(*args, plan=plan)
+    assert kernels.LAUNCHES["ba_normal_eqs"] == n0 + 2
+    want = ba_core.ba_normal_eqs_plain(*args)
+    for g, a, w in zip(got, again, want):
+        if w is None:
+            assert g is None
+            continue
+        assert _rel(g, w) <= 1e-4
+        assert torch.equal(g, a)
+
+
+def test_ba_schur_eliminate(dev):
+    """K9's two entries against their plain versions at the LBA shape:
+    Hpp_inv, HcpHinv, rhs and dxp within 1e-4 of their largest values."""
+    from planarslam_tpu_torch.solvers import ba_core
+
+    poses, pts, pt, ln, K = _ba_problem(dev, 16, 1000, 64, 2304, seed=2)
+    M = 2336
+    Hcc, bc, Hpp, bp, Hcp, _, _ = ba_core.ba_normal_eqs_plain(
+        poses, pts, pt, ln, M, K, 40.0)
+    Hpp[2304:] = torch.eye(3, device=dev)
+    lam = torch.tensor(1e-3, device=dev)
+    mu = ba_core._mu_p(Hpp)
+    dxc = torch.from_numpy(np.random.default_rng(3).normal(
+        0, 1e-3, (16, 6)).astype(np.float32)).to(dev)
+    got = ba_core.ba_schur_eliminate(Hpp, bp, Hcp, bc, lam, mu)
+    want = ba_core.ba_schur_eliminate_plain(Hpp, bp, Hcp, bc, lam, mu)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-4
+    assert _rel(ba_core.ba_schur_backsub(got[0], bp, Hcp, dxc),
+                ba_core.ba_schur_backsub_plain(want[0], bp, Hcp, dxc)) <= 1e-4
+
+
+def test_pose_graph_normal_eqs(dev):
+    """K10 on a 96-keyframe chain with skip edges and a repeated loop edge:
+    H and g within 1e-5 of their largest values (both float64 inside)."""
+    from planarslam_tpu_torch.solvers import pose_graph
+
+    rng = np.random.default_rng(4)
+    N = 96
+    Tw = [np.eye(4, dtype=np.float32)]
+    for _ in range(N - 1):
+        Tw.append((_pose(rng, 0.05, 0.1) @ Tw[-1]).astype(np.float32))
+    Tw = np.stack(Tw)
+    ij = [(i, i - 1) for i in range(1, N)] + [(i, i + 3) for i in
+                                              range(N - 3)]
+    ij = np.asarray(ij + [(N - 1, 0), (N - 1, 0)], np.int32)
+    meas = np.stack([_pose(rng, 0.01, 0.01) @ Tw[i] @ np.linalg.inv(Tw[j])
+                     for i, j in ij]).astype(np.float32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    args = (t(Tw), t(ij), t(np.linalg.inv(meas).astype(np.float32)),
+            t(rng.uniform(1, 5, len(ij)).astype(np.float32)),
+            pose_graph.edge_plan(ij, N, device=dev))
+    H, g = pose_graph.pose_graph_normal_eqs(*args)
+    Hp, gp = pose_graph.pose_graph_normal_eqs_plain(*args)
+    assert _rel(H, Hp) <= 1e-5 and _rel(g, gp) <= 1e-5

@@ -116,18 +116,25 @@ def test_system_tiny_sequence(run):
 
 
 def test_system_refuses_backend():
-    """Loop closing and local BA are not ported: asking for either raises
-    instead of running less; local mapping without local BA constructs."""
+    """The backend is ported: the default System builds a loop closer on
+    its device (the retrieval database shared with the tracker), and
+    LocalMapping(enable_local_ba=True) constructs; asking for neither
+    leaves both out."""
     from planarslam_tpu_torch.slam.local_mapping import LocalMapping
+    from planarslam_tpu_torch.slam.loop_closing import LoopClosing
     from planarslam_tpu_torch.slam.map import SlamMap
 
     cfg = tconfig.SystemConfig.tiny()
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        TSystem(config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="local bundle adjustment"):
-        LocalMapping(cfg, SlamMap(cfg), enable_local_ba=True)
-    slam = TSystem(config=cfg, enable_loop_closing=False, device="cpu")
+    slam = TSystem(config=cfg, device="cpu")
+    assert isinstance(slam.loop_closer, LoopClosing)
+    assert slam.loop_closer.device == torch.device("cpu")
+    assert slam.loop_closer.db is slam.kf_db
     assert slam.local_mapper is not None
+    lm = LocalMapping(cfg, SlamMap(cfg), enable_local_ba=True)
+    assert lm.enable_local_ba
+    slam = TSystem(config=cfg, enable_local_mapping=False,
+                   enable_loop_closing=False, device="cpu")
+    assert slam.loop_closer is None and slam.local_mapper is None
 
 
 @pytest.mark.parametrize("kwargs", [{}, {"device": None}, {"device": "cuda"}],

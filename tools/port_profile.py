@@ -2,17 +2,24 @@
 """Where the time goes in the PyTorch/CUDA port, on a GPU.
 
     python3 tools/port_profile.py [--frames 40] [--warmup 20]
-                                  [--tracking-only] [--out DIR]
+                                  [--tracking-only | --loop-correction]
+                                  [--out DIR]
 
 Tracks the 640x480 synthetic sequence with
 System(SystemConfig(), enable_loop_closing=False) (local mapping on; with
 --tracking-only also enable_local_mapping=False) and wraps frames
-warmup..frames-1 in torch.profiler (CPU + CUDA). Prints, for each stage
-span (the record_function names of the port's stage functions, among them
-device_mapper.mapping_step, local_mapping.finish_keyframe and
-tracking.relocalize), the host time and the device time of its kernels,
-the busy share of the device over the window, the device time of the
-hand-written kernels, and the top kernels by device time.
+warmup..frames-1 in torch.profiler (CPU + CUDA). With --loop-correction the
+default System (loop closing on) tracks the first `warmup` frames, the
+constructed loop of chip_smoke.py's path 4b is added to its map, and the
+window is that loop's verification and correction (pose graph, fuse,
+global BA), counted as one "frame". Prints, for each stage span (the
+record_function names of the port's stage functions, among them
+device_mapper.mapping_step, local_mapping.finish_keyframe,
+tracking.relocalize, loop_closing.process_keyframe, pose_graph.optimize,
+global_ba.global_bundle_adjustment and local_ba.local_bundle_adjustment),
+the host time and the device time of its kernels, the busy share of the
+device over the window, the device time of the hand-written kernels, and
+the top kernels by device time.
 Writes the chrome trace to DIR/port_trace.json when --out is given.
 """
 
@@ -33,11 +40,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # modules whose stage functions carry record_function("<module>.<function>")
 SPAN_MODULES = ("frontend", "lines", "planes", "manhattan", "matching",
                 "pose_opt", "device_tracker", "device_mapper",
-                "local_mapping", "tracking")
+                "local_mapping", "tracking", "loop_closing", "pose_graph",
+                "global_ba", "local_ba")
 # entry names of the hand-written kernels in the trace
 PORT_KERNELS = ("fast_score_kernel", "orb_describe_kernel",
                 "hamming_top2_kernel", "_plane_block_moments_kernel",
-                "triangulate_kernel", "horn_align_kernel", "pnp_dlt_kernel")
+                "triangulate_kernel", "horn_align_kernel", "pnp_dlt_kernel",
+                "normal_eqs_", "schur_", "pose_graph_")
 
 
 def main(argv=None) -> int:
@@ -46,6 +55,9 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--tracking-only", action="store_true",
                     help="local mapping off (the tracking path alone)")
+    ap.add_argument("--loop-correction", action="store_true",
+                    help="profile one constructed loop's verification and "
+                    "correction after `warmup` tracked frames")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -72,17 +84,25 @@ def main(argv=None) -> int:
     frames = [quantize_frame(*seq.render(i), cfg.camera.depth_map_factor)
               for i in range(args.frames)]
     slam = System(config=cfg, enable_local_mapping=not args.tracking_only,
-                  enable_loop_closing=False, device="cuda")
+                  enable_loop_closing=args.loop_correction, device="cuda")
     for i in range(args.warmup):
         slam.track_rgbd(*frames[i], seq.timestamps[i])
+    if args.loop_correction:
+        from chip_smoke import construct_loop
+
+        slam.shutdown()
+        loop_kf, _, _ = construct_loop(slam.map)
     torch.cuda.synchronize()
     n_kf0 = slam.map.n_kf
-    n = args.frames - args.warmup
+    n = 1 if args.loop_correction else args.frames - args.warmup
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(args.warmup, args.frames):
-            slam.track_rgbd(*frames[i], seq.timestamps[i])
+        if args.loop_correction:
+            slam.loop_closer._verify_and_correct(loop_kf, 0)
+        else:
+            for i in range(args.warmup, args.frames):
+                slam.track_rgbd(*frames[i], seq.timestamps[i])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -118,6 +138,7 @@ def main(argv=None) -> int:
     port_kernels = {name: sum(k[0] for k in kern if name in k[1]) / n / 1e3
                     for name in PORT_KERNELS}
     out = {"frames": n, "local_mapping": not args.tracking_only,
+           "loop_correction": args.loop_correction,
            "keyframes_in_window": int(slam.map.n_kf - n_kf0),
            "wall_ms_per_frame": wall / n * 1e3,
            "device_busy_ms_per_frame": busy_ms / n,
