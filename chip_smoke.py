@@ -10,11 +10,12 @@ Phases, each fatal on failure:
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the 640x480 paths give it (inputs from frame 0 of the
      synthetic sequence, or from a numpy seed with planted structure), with
-     both timings (median of 25 calls, CUDA events);
+     both timings (median of 25 calls, CUDA events); K11 (pose_optimize)
+     also on the inputs of one tracked frame of path 1, after that path;
   4. path 1, tracking only: System(SystemConfig(), enable_local_mapping=
-     False, enable_loop_closing=False) tracks the 640x480 synthetic room
-     with frames quantized to uint8 gray / uint16 depth; ATE against ground
-     truth, 0 lost frames;
+     False, enable_loop_closing=False) tracks 96 frames of the 640x480
+     synthetic room, quantized to uint8 gray / uint16 depth; ATE against
+     ground truth, 0 lost frames;
   5. path 2, local mapping: System(SystemConfig(), enable_loop_closing=
      False) on the same frames; ATE, 0 lost, a mapping step per keyframe
      after the first;
@@ -35,7 +36,8 @@ Phases, each fatal on failure:
      ba_solve_pcg on a 256-keyframe one, to the convergence limits of
      tests/test_ba_full.py.
 Each path runs with the launch counts set to 0 just before it and read just
-after; every kernel must have launched on the paths. The line before the
+after; every kernel must have launched on the paths, and on every path K11
+must have launched once per pose_optimize call. The line before the
 last is a JSON object with one entry per kernel (its time and its plain
 version's, the least time the card could take for the same bytes and
 operations, and a PyTorch call's time where one computes the same
@@ -45,6 +47,7 @@ function); the last line is the device JSON object.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -54,7 +57,7 @@ import numpy as np
 
 ATE_LIMIT_M = 0.010
 TIMING_REPS = 25
-TRACKING_FRAMES = 48  # path 1 (tracking alone): cut to keep the run short
+TRACKING_FRAMES = 96  # path 1 (tracking alone)
 LOOP_FRAMES = 96      # path 4a
 CONSTRUCTED_FRAMES = 48  # path 4b
 # one NVIDIA H100 SXM at its 700 W limit (NVIDIA data sheet): HBM
@@ -280,6 +283,74 @@ def _planted_se3(rng, scale: float = 0.3) -> np.ndarray:
     return T.astype(np.float32)
 
 
+def _rotvec_pose(rotvec, t) -> np.ndarray:
+    """A 4x4 float32 pose from a rotation vector and a translation."""
+    from scipy.spatial.transform import Rotation
+
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = Rotation.from_rotvec(rotvec).as_matrix()
+    T[:3, 3] = t
+    return T
+
+
+def _pose_problem(K, bf, seed=0, n=120, n_lines=8, n_planes=4):
+    """A seeded pose_optimize problem observed from a known pose (numpy):
+    n points 1.5-4 m away (0.5 px noise, the first n // 10 gross outliers,
+    60% pseudo-stereo, 5% invalid), n_lines lines (one in eight invalid),
+    and n_planes planes per block from the three axis families of a room,
+    observed with 0.005 noise, some invalid; parallel observations pair a
+    plane with another of its family, vertical ones with a neighbour of
+    another family. The initial pose is a few cm and degrees off. Returns
+    (T_init, points, lines, planes, par, ver) as lists of the fields of
+    PointObs, LineObs and PlaneObs."""
+    rng = np.random.default_rng(seed)
+    T_true = _rotvec_pose([0.05, -0.08, 0.03], [0.1, -0.05, 0.2])
+    pc = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1, 1, n),
+                   rng.uniform(1.5, 4.0, n)], -1)
+    Tinv = np.linalg.inv(T_true)
+    xw = (pc @ Tinv[:3, :3].T + Tinv[:3, 3]).astype(np.float32)
+    uv = np.stack([K[0] * pc[:, 0] / pc[:, 2] + K[2],
+                   K[1] * pc[:, 1] / pc[:, 2] + K[3]], -1)
+    uv = uv + rng.normal(0, 0.5, uv.shape)
+    n_out = n // 10
+    uv[:n_out] += rng.uniform(-20, 20, (n_out, 2))  # outliers
+    ur = np.where(rng.random(n) < 0.6, uv[:, 0] - bf / pc[:, 2], -1.0)
+    points = [xw, uv.astype(np.float32), ur.astype(np.float32),
+              (1.2 ** (-2.0 * rng.integers(0, 4, n))).astype(np.float32),
+              rng.random(n) < 0.95]
+    L = n_lines
+    s_c = np.stack([rng.uniform(-1, 1, L), rng.uniform(-1, 1, L),
+                    rng.uniform(2, 3, L)], -1)
+    e_c = s_c + rng.normal(0, 0.5, (L, 3)) * [1, 1, 0.1]
+
+    def proj(p):
+        return np.stack([K[0] * p[:, 0] / p[:, 2] + K[2],
+                         K[1] * p[:, 1] / p[:, 2] + K[3], np.ones(len(p))],
+                        -1)
+
+    l2d = np.cross(proj(s_c), proj(e_c))
+    l2d /= np.linalg.norm(l2d[:, :2], axis=1, keepdims=True)
+    lines = [(s_c @ Tinv[:3, :3].T + Tinv[:3, 3]).astype(np.float32),
+             (e_c @ Tinv[:3, :3].T + Tinv[:3, 3]).astype(np.float32),
+             l2d.astype(np.float32), np.ones(L, np.float32),
+             np.arange(L) % 8 < 7]
+    P = n_planes
+    k = np.arange(P)
+    n_c = np.array([[0, 0, -1.0], [1.0, 0, 0], [0, -1.0, 0]])[k % 3]
+    d_c = np.resize([3.5, 1.2, 0.9, 5.0], P) + 0.3 * (k // 4)
+    pi_c = np.concatenate([n_c, d_c[:, None]], 1)
+    # world planes: the camera planes moved by T_true^-1
+    nw = n_c @ Tinv[:3, :3].T
+    dw = d_c - nw @ Tinv[:3, 3]
+    pi_w = np.concatenate([nw, dw[:, None]], 1).astype(np.float32)
+    pi_obs = (pi_c + rng.normal(0, 0.005, pi_c.shape)).astype(np.float32)
+    planes = [pi_w, pi_obs, k % 4 != 3]
+    par = [pi_w[(k + 3) % P], pi_obs, k % 4 == 0]
+    ver = [pi_w[k ^ 1], pi_obs, k % 4 < 2]
+    T_init = _rotvec_pose([0.06, -0.07, 0.035], [0.13, -0.07, 0.17])
+    return T_init, points, lines, planes, par, ver
+
+
 def backend_kernel_parity(cfg, dev) -> list:
     """K5-K7 against their plain versions on the card, on numpy-seeded
     inputs with planted structure, at the shapes of the 640x480 paths."""
@@ -431,6 +502,190 @@ def backend_kernel_parity(cfg, dev) -> list:
                     lambda: pnp.pnp_dlt_hypotheses_plain(*args7))})
     _print_kernels(out)
     return out
+
+
+POSE_BLOCKS = ("points", "lines", "planes", "par_planes", "ver_planes")
+POSE_MASKS = ("point_inlier", "line_inlier", "plane_inlier", "par_inlier",
+              "ver_inlier")
+
+
+def _pose_rows(kw) -> int:
+    """Residual rows of a pose_optimize call: 3 per point, 2 per line, 3
+    per plane, 2 per parallel or vertical plane."""
+    per = dict(points=3, lines=2, planes=3, par_planes=2, ver_planes=2)
+    return sum(per[k] * kw[k].valid.shape[0] for k in POSE_BLOCKS
+               if kw.get(k) is not None)
+
+
+def _pose_bound(args, kw, out) -> dict:
+    """K11's bound: its inputs read and outputs written once; per residual
+    row, ~110 operations in each LM step's first pass (residual, Jacobian,
+    weight, the 28 sums of J^T W J, J^T W r and chi2), ~25 in its second
+    (residual and weighted chi2 at T_new) and ~25 in each round's gates."""
+    rows = _pose_rows(kw)
+    n_rounds, n_iters = kw.get("n_rounds", 4), kw.get("n_iters", 10)
+    ops = rows * ((110 + 25) * n_rounds * n_iters + 25 * n_rounds)
+    return _bound(_nbytes(args, [kw[k] for k in POSE_BLOCKS
+                                 if kw.get(k) is not None], out), ops)
+
+
+def _pose_compare(args, kw, exact_masks: bool) -> dict:
+    """K11 against its plain version on the same inputs: the pose error,
+    the inlier-flag mismatches, and how many of those lie within 1e-4
+    relative of their chi2 gate (at the kernel's or the plain version's
+    pose). With exact_masks no mismatch is allowed."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import pose_opt
+
+    got = pose_opt.pose_optimize(*args, **kw)
+    want = pose_opt._pose_optimize_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got.T_cw - want.T_cw).abs().max())
+    flips = {m: (getattr(got, m) != getattr(want, m)) for m in POSE_MASKS}
+    n_flips = int(sum(int(f.sum()) for f in flips.values()))
+    near = 0
+    if n_flips:
+        w = kw.get("weights") or pose_opt._default_weights()
+        T0, K, bf = args
+        dev = T0.device
+        empty = (pose_opt._empty_points, pose_opt._empty_lines,
+                 *[pose_opt._empty_planes] * 3)
+        full = [kw.get(k) or e(dev) for k, e in zip(POSE_BLOCKS, empty)]
+        K = tuple(float(np.float32(v)) for v in K)
+        bf = float(np.float32(bf))
+        gates = (torch.where(full[0].u_right >= 0, pose_opt.CHI2_STEREO,
+                             pose_opt.CHI2_MONO),
+                 2.0 * pose_opt.CHI2_MONO, w.plane_chi, w.vp_chi, w.vp_chi)
+        chis = []
+        for T in (got.T_cw, want.T_cw):
+            res = pose_opt._block_residuals(T, K, bf, *full)
+            c = list(pose_opt._chi2_blocks(res, full[0], full[1], w))
+            chis.append(c)
+        for i, m in enumerate(POSE_MASKS):
+            lo = torch.minimum(chis[0][i], chis[1][i])
+            hi = torch.maximum(chis[0][i], chis[1][i])
+            g = torch.as_tensor(gates[i], device=dev)
+            at_gate = (lo <= g * (1 + 1e-4)) & (hi >= g * (1 - 1e-4))
+            if at_gate.dim() > 1:  # lines: either endpoint
+                at_gate = at_gate.any(dim=-1)
+            near += int((flips[m] & at_gate).sum())
+    res = {"pose_err": err, "mask_flips": n_flips, "flips_at_gate": near,
+           "n_inliers": int(got.n_point_inliers),
+           "n_inliers_plain": int(want.n_point_inliers),
+           "chi2": float(got.chi2), "chi2_plain": float(want.chi2)}
+    _check(err <= 1e-4, f"pose_optimize: pose error {err} > 1e-4 ({res})")
+    _check(n_flips == 0 if exact_masks else near == n_flips,
+           f"pose_optimize: inlier flags differ away from their gates "
+           f"({res})")
+    return res
+
+
+def pose_kernel_parity(cfg, dev) -> list:
+    """K11 against its plain version on the card on the seeded problem at
+    the main path's width (N = max_keypoints, L = max_lines, P = 16 per
+    plane block; tests/test_torch_matching_poseopt.py's full-width case),
+    with rotation_fixed False and True; timed with it False."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import pose_opt
+
+    cam = cfg.camera
+    K = (cam.fx, cam.fy, cam.cx, cam.cy)
+    T0, pts, lns, pls, par, ver = _pose_problem(
+        K, cam.bf, n=cfg.orb.max_keypoints, n_lines=cfg.lines.max_lines,
+        n_planes=16)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    kw = dict(points=pose_opt.PointObs(*map(t, pts)),
+              lines=pose_opt.LineObs(*map(t, lns)),
+              planes=pose_opt.PlaneObs(*map(t, pls)),
+              par_planes=pose_opt.PlaneObs(*map(t, par)),
+              ver_planes=pose_opt.PlaneObs(*map(t, ver)),
+              weights=pose_opt.PoseOptWeights.from_config(cfg.planes))
+    args = (t(T0), K, cam.bf)
+    cases = {}
+    for rf in (False, True):
+        kw["rotation_fixed"] = torch.tensor(rf, device=dev)
+        cases[f"rotation_fixed={rf}"] = _pose_compare(args, kw, True)
+    print(f"pose_optimize seeded problem: {json.dumps(cases)}", flush=True)
+    kw["rotation_fixed"] = torch.tensor(False, device=dev)
+    out_k = pose_opt.pose_optimize(*args, **kw)
+    ms = _time_ms(lambda: pose_opt.pose_optimize(*args, **kw))
+    steps = 4 * 10
+    entry = {"name": "pose_optimize", "route": "cuda", "library_ms": None,
+             **_pose_bound(args, kw, out_k),
+             "source": "planarslam_tpu_torch/csrc/pose_opt.cu",
+             "replaces": "planarslam_tpu/solvers/pose_opt.py:163",
+             "max_abs_err": max(c["pose_err"] for c in cases.values()),
+             "tolerance": "pose 1e-4, masks exact",
+             "rows": _pose_rows(kw), "seeded": cases,
+             "ms": ms, "ms_per_lm_step": ms / steps,
+             "plain_ms": _time_ms(
+                 lambda: pose_opt._pose_optimize_plain(*args, **kw))}
+    _print_kernels([entry])
+    return [entry]
+
+
+def pose_frame_parity(entry: dict, captured: list) -> None:
+    """K11 against its plain version on the inputs of the two calls of one
+    tracked frame of path 1 (obs1 and obs2, captured at the call); the
+    results join K11's report entry."""
+    frame = {}
+    for name, (args, kw) in zip(("obs1", "obs2"), captured):
+        frame[name] = _pose_compare(args, kw, False)
+        frame[name]["rows"] = _pose_rows(kw)
+    print(f"pose_optimize tracked frame: {json.dumps(frame)}", flush=True)
+    entry["tracked_frame"] = frame
+    entry["max_abs_err"] = max(entry["max_abs_err"],
+                               *(c["pose_err"] for c in frame.values()))
+
+
+def _clone(obj):
+    """A copy of the tensors in obj (tuples, named tuples and dicts
+    walked)."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*[_clone(x) for x in obj])
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_clone(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _clone(v) for k, v in obj.items()}
+    return obj
+
+
+@contextlib.contextmanager
+def _pose_calls(capture=()):
+    """Count the pose_opt.pose_optimize calls made inside the block (the
+    tracker calls it through its module) and keep the inputs of the calls
+    numbered in `capture` (from 1)."""
+    from planarslam_tpu_torch.solvers import pose_opt
+
+    rec = {"calls": 0, "inputs": []}
+    orig = pose_opt.pose_optimize
+
+    def counted(*args, **kw):
+        rec["calls"] += 1
+        if rec["calls"] in capture:
+            rec["inputs"].append(_clone((args, kw)))
+        return orig(*args, **kw)
+
+    pose_opt.pose_optimize = counted
+    try:
+        yield rec
+    finally:
+        pose_opt.pose_optimize = orig
+
+
+def _check_pose_launches(name: str, launches: dict, calls: int) -> None:
+    _check(launches["pose_optimize"] == calls,
+           f"{name}: {launches['pose_optimize']} pose_optimize launches for "
+           f"{calls} calls")
 
 
 def _rel_err(got, want) -> float:
@@ -683,7 +938,8 @@ def run_loop_path(seq, cfg, dev) -> dict:
     torch.cuda.synchronize()
     kernels.reset_launches()
     t_all = time.perf_counter()
-    times = _drive(slam, frames, seq.timestamps)
+    with _pose_calls() as pc:
+        times = _drive(slam, frames, seq.timestamps)
     poses = slam.frame_poses_wc()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
@@ -705,8 +961,10 @@ def run_loop_path(seq, cfg, dev) -> dict:
            "gba_calls": lc.stats["gba_calls"],
            "median_ms_per_frame": float(np.median(t_ms)),
            "p95_ms_per_frame": float(np.percentile(t_ms, 95)),
+           "pose_optimize_calls": pc["calls"],
            "wall_s": wall, "launches": launches}
     print("path4a_loop " + json.dumps(res), flush=True)
+    _check_pose_launches("path4a", launches, pc["calls"])
     _check(ate < ATE_LIMIT_M, f"path4a: ATE {ate:.5f} m >= {ATE_LIMIT_M} m")
     _check(res["lost"] == 0, f"path4a: {res['lost']} lost frames")
     if inside["verifications"]:
@@ -753,7 +1011,8 @@ def run_constructed_loop_path(seq, cfg, dev) -> dict:
     kernels.reset_launches()
     t0 = time.perf_counter()
     try:
-        ok = lc._verify_and_correct(kf, 0)
+        with _pose_calls() as pc:
+            ok = lc._verify_and_correct(kf, 0)
     finally:
         global_ba.global_bundle_adjustment = orig_gba
     torch.cuda.synchronize()
@@ -772,8 +1031,9 @@ def run_constructed_loop_path(seq, cfg, dev) -> dict:
            "k3_in_verification": inside["gated_hamming_top2"],
            "k6_in_verification": inside["horn_align_batch"],
            "gba_s": after_pg.get("gba_s"), "wall_s": wall,
-           "launches": launches}
+           "pose_optimize_calls": pc["calls"], "launches": launches}
     print("path4b_constructed_loop " + json.dumps(res), flush=True)
+    _check_pose_launches("path4b", launches, pc["calls"])
     _check(ok, "path4b: the constructed loop was not verified")
     _check("pose" in after_pg, "path4b: global BA did not run")
     _check(delta_pg < 0.4 * drift, f"path4b: the pose graph left "
@@ -882,6 +1142,7 @@ def run_ba_scale_path(dev) -> dict:
                f"path4c: {name} orbit did not converge: {res[name]}")
     res["launches"] = dict(kernels.LAUNCHES)
     print("path4c_ba_scale " + json.dumps(res), flush=True)
+    _check_pose_launches("path4c (BA alone)", res["launches"], 0)
     return res
 
 
@@ -895,10 +1156,11 @@ def _drive(slam, frames, timestamps) -> list:
     return times
 
 
-def run_tracking_path(name, seq, frames, cfg, dev, local_mapping: bool
-                      ) -> dict:
+def run_tracking_path(name, seq, frames, cfg, dev, local_mapping: bool,
+                      capture=()) -> dict:
     """Path 1 (tracking only) or path 2 (with local mapping) end to end;
-    returns its metrics and launch counts."""
+    returns its metrics and launch counts, and under "captured" the inputs
+    of the pose_optimize calls numbered in `capture`."""
     import torch
 
     from planarslam_tpu_torch import kernels
@@ -911,8 +1173,9 @@ def run_tracking_path(name, seq, frames, cfg, dev, local_mapping: bool
     torch.cuda.synchronize()
     kernels.reset_launches()
     t_all = time.perf_counter()
-    times = _drive(slam, frames, seq.timestamps)
-    slam.shutdown()
+    with _pose_calls(capture) as pc:
+        times = _drive(slam, frames, seq.timestamps)
+        slam.shutdown()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
     launches = dict(kernels.LAUNCHES)
@@ -933,10 +1196,13 @@ def run_tracking_path(name, seq, frames, cfg, dev, local_mapping: bool
            "manhattan_success": int(st["manhattan_success"]),
            "median_ms_per_frame": float(np.median(t_ms)),
            "p95_ms_per_frame": float(np.percentile(t_ms, 95)),
+           "pose_optimize_calls": pc["calls"],
            "wall_s": wall, "launches": launches}
     if slam.local_mapper is not None:
         res["mapping"] = dict(slam.local_mapper.stats)
     print(f"{name} " + json.dumps(res), flush=True)
+    _check_pose_launches(name, launches, pc["calls"])
+    res["captured"] = pc["inputs"]
     _check(ate < ATE_LIMIT_M, f"{name}: ATE {ate:.5f} m >= {ATE_LIMIT_M} m")
     _check(res["lost"] == 0, f"{name}: {res['lost']} lost frames")
     if slam.local_mapper is not None:
@@ -955,19 +1221,35 @@ def run_reloc_path(seq, cfg, dev) -> dict:
     import torch
 
     from planarslam_tpu_torch import kernels
-    from planarslam_tpu_torch.io.frames import quantize_frame
     from planarslam_tpu_torch.slam.system import System
-    from planarslam_tpu_torch.slam.tracking import TrackingState
 
     cfg = cfg.replace(tracking=dataclasses.replace(
         cfg.tracking, max_frames_between_kf=4))
-    dmf = cfg.camera.depth_map_factor
     slam = System(config=cfg, enable_loop_closing=False, device=dev)
     # keyframe culling out of the way: relocalization is the subject
     slam.local_mapper._cull_keyframes = lambda kf: None
     torch.cuda.synchronize()
     kernels.reset_launches()
     t_all = time.perf_counter()
+    with _pose_calls() as pc:
+        res = _reloc_run(slam, seq, cfg)
+    torch.cuda.synchronize()
+    res.update(wall_s=time.perf_counter() - t_all,
+               pose_optimize_calls=pc["calls"],
+               launches=dict(kernels.LAUNCHES))
+    print("path3_reloc " + json.dumps(res), flush=True)
+    _check_pose_launches("path3", res["launches"], pc["calls"])
+    return res
+
+
+def _reloc_run(slam, seq, cfg) -> dict:
+    """Path 3's frames: track to a mature map, lose tracking, relocalize
+    by Horn with depth, lose again, relocalize without depth (PnP)."""
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.slam.tracking import TrackingState
+
+    dmf = cfg.camera.depth_map_factor
     i = 0
     while i < len(seq) and (i < 12 or len(slam.map.valid_kf_ids()) <= 5):
         slam.track_rgbd(*quantize_frame(*seq.render(i), dmf),
@@ -1011,18 +1293,13 @@ def run_reloc_path(seq, cfg, dev) -> dict:
     kill(70.0)
     n_pnp0 = kernels.LAUNCHES["pnp_dlt_hypotheses"]
     ok2, err2, ms2 = revisit(5, 80.0, False)
-    torch.cuda.synchronize()
-    res = {"frames_tracked": tracked, "keyframes": n_kf,
-           "horn": {"ok": ok, "position_error_m": err, "ms": ms},
-           "pnp": {"ok": ok2, "position_error_m": err2, "ms": ms2,
-                   "pnp_launches": kernels.LAUNCHES["pnp_dlt_hypotheses"]
-                   - n_pnp0},
-           "relocalizations": int(slam.tracker.stats.get(
-               "relocalizations", 0)),
-           "wall_s": time.perf_counter() - t_all,
-           "launches": dict(kernels.LAUNCHES)}
-    print("path3_reloc " + json.dumps(res), flush=True)
-    return res
+    return {"frames_tracked": tracked, "keyframes": n_kf,
+            "horn": {"ok": ok, "position_error_m": err, "ms": ms},
+            "pnp": {"ok": ok2, "position_error_m": err2, "ms": ms2,
+                    "pnp_launches": kernels.LAUNCHES["pnp_dlt_hypotheses"]
+                    - n_pnp0},
+            "relocalizations": int(slam.tracker.stats.get(
+                "relocalizations", 0))}
 
 
 def main(argv=None) -> int:
@@ -1059,13 +1336,21 @@ def main(argv=None) -> int:
     n = max(args.frames, TRACKING_FRAMES)
     seq = synthetic.make_sequence(n, width=cfg.camera.width,
                                   height=cfg.camera.height)
+    k11 = pose_kernel_parity(cfg, dev)
     report = (kernel_parity(seq, cfg, dev) + backend_kernel_parity(cfg, dev)
-              + ba_kernel_parity(dev))
+              + ba_kernel_parity(dev) + k11)
     frames = [quantize_frame(*seq.render(i), cfg.camera.depth_map_factor)
               for i in range(n)]
+    # the two calls (obs1, obs2) of path 1's 21st fused frame
+    path1 = run_tracking_path("path1_tracking", seq,
+                              frames[:TRACKING_FRAMES], cfg, dev, False,
+                              capture=(41, 42))
+    _check(len(path1["captured"]) == 2,
+           "path1: the pose_optimize inputs of a tracked frame were not "
+           "captured")
+    pose_frame_parity(k11[0], path1.pop("captured"))
     paths = [
-        run_tracking_path("path1_tracking", seq,
-                          frames[:TRACKING_FRAMES], cfg, dev, False),
+        path1,
         run_tracking_path("path2_mapping", seq, frames[:args.frames], cfg,
                           dev, True),
         run_reloc_path(seq, cfg, dev),

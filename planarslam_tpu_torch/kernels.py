@@ -31,7 +31,8 @@ import torch
 KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
                 "plane_block_moments", "triangulate_two_view",
                 "horn_align_batch", "pnp_dlt_hypotheses", "ba_normal_eqs",
-                "ba_schur_eliminate", "pose_graph_normal_eqs")
+                "ba_schur_eliminate", "pose_graph_normal_eqs",
+                "pose_optimize")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -39,7 +40,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build", "planarslam_tpu_torch")
 CUDA_SOURCES = ("fast_score.cu", "orb_describe.cu", "hamming_top2.cu",
                 "triangulate.cu", "horn_align.cu", "pnp_dlt.cu",
-                "ba_normal_eqs.cu", "ba_schur.cu", "pose_graph.cu")
+                "ba_normal_eqs.cu", "ba_schur.cu", "pose_graph.cu",
+                "pose_opt.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -85,6 +87,14 @@ _SIGNATURES = {
     # scratch, H, g, stream
     "psl_pose_graph_normal_eqs": [_P] * 4 + [_I, _I] + [_P] * 3 + [_I]
                                  + [_P] * 4,
+    # T_init; points xw, uv, u_right, inv_sigma2, valid, N; lines xw_s,
+    # xw_e, line2d, inv_sigma2, valid, L; planes, parallel and vertical
+    # planes pi_w, pi_obs, valid, P; rotation flag (device) or NULL and the
+    # host flag; fx, fy, cx, cy, bf; the six PoseOptWeights; n_rounds,
+    # n_iters; scratch; T_out, the five inlier masks, n_in, chi2; stream
+    "psl_pose_optimize": [_P] * 6 + [_I] + [_P] * 5 + [_I]
+                         + ([_P] * 3 + [_I]) * 3 + [_P, _I] + [_F] * 11
+                         + [_I, _I] + [_P] * 10,
 }
 
 

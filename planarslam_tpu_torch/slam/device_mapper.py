@@ -34,6 +34,7 @@ import torch
 from torch.profiler import record_function
 
 from planarslam_tpu_torch.config import SystemConfig
+from planarslam_tpu_torch.device import resolve_device
 from planarslam_tpu_torch.ops import matching
 from planarslam_tpu_torch.slam.device_tracker import _f32_bits, _tensor_from
 from planarslam_tpu_torch.slam.tracking import _HostPull, _upload
@@ -271,10 +272,11 @@ def _fuse_set_impl(lm_xyz, lm_desc, lm_valid, nb_T, nb_uv, nb_desc, nb_level,
 
 
 def run_fuse_set(slam_map, lm_ids: np.ndarray, target_kfs, cfg: SystemConfig,
-                 radius: float = 4.0, device="cpu") -> dict:
+                 radius: float = 4.0, device="cuda") -> dict:
     """Host wrapper: gather the landmark set and the target keyframes
     (the real targets only; at most N_NEIGHBORS), run the fuse search on
     `device`, pull the result."""
+    device = resolve_device(device)
     m = slam_map
     C = cfg.orb.max_keypoints
     ids = np.full(C, 0, np.int64)
@@ -307,7 +309,7 @@ def run_fuse_set(slam_map, lm_ids: np.ndarray, target_kfs, cfg: SystemConfig,
 
 
 def run_mapping_step(slam_map, kf: int, cfg: SystemConfig,
-                     device="cpu") -> dict:
+                     device="cuda") -> dict:
     """Gather inputs from the host map, run the mapping step, unpack.
     Synchronous convenience wrapper over dispatch + join."""
     return join_mapping_step(dispatch_mapping_step(slam_map, kf, cfg,
@@ -377,11 +379,12 @@ def mapping_inputs(slam_map, kf: int, cfg: SystemConfig):
 
 
 def dispatch_mapping_step(slam_map, kf: int, cfg: SystemConfig,
-                          device="cpu") -> dict:
+                          device="cuda") -> dict:
     """Upload keyframe kf's mapping inputs (one packed buffer), issue the
     step on the current stream, and start its pull; join_mapping_step
     waits for it later. The upload is a snapshot: later host map mutations
     cannot reach the step in flight."""
+    device = resolve_device(device)
     flat, meta = mapping_inputs(slam_map, kf, cfg)
     packed = mapping_step_packed(_upload(flat, device), cfg)
     meta.update(pull=_HostPull(packed), layout=MappingLayout(cfg))

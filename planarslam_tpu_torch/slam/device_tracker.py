@@ -32,6 +32,7 @@ import torch
 from torch.profiler import record_function
 
 from planarslam_tpu_torch.config import SystemConfig
+from planarslam_tpu_torch.device import resolve_device
 from planarslam_tpu_torch.geometry import plane as plane_geo
 from planarslam_tpu_torch.geometry import se3
 from planarslam_tpu_torch.ops import manhattan as manhattan_ops
@@ -672,12 +673,13 @@ def _convert(cls, src, device):
     return cls(**vals)
 
 
-def state_from_numpy(last, win_flat: np.ndarray, device="cpu"
+def state_from_numpy(last, win_flat: np.ndarray, device="cuda"
                      ) -> Tuple[LastState, torch.Tensor]:
     """A JAX ``LastState`` (any object or dict with the same field names,
     holding numpy arrays) and the packed window of ``build_window`` (numpy)
     -> the port's LastState and window tensor. Descriptors arrive as uint32
     and become int32 bit patterns."""
+    device = resolve_device(device)
     state = _convert(LastState, last, device)
     return state, _tensor_from(np.asarray(win_flat, np.float32), device)
 
@@ -699,7 +701,8 @@ def map_from_numpy(src, cfg: SystemConfig):
     return out
 
 
-def loop_closer_from_numpy(src, cfg: SystemConfig, slam_map, device="cpu"):
+def loop_closer_from_numpy(src, cfg: SystemConfig, slam_map,
+                           device="cuda"):
     """A port LoopClosing over `slam_map` carrying another loop closer's
     state (any object with LoopClosing's attributes, such as the JAX
     package's): the consistency streaks, loop count, last loop keyframe,

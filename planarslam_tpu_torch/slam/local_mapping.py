@@ -24,6 +24,7 @@ import torch
 from torch.profiler import record_function
 
 from planarslam_tpu_torch.config import SystemConfig
+from planarslam_tpu_torch.device import resolve_device
 from planarslam_tpu_torch.slam.device_tracker import _tensor_from
 from planarslam_tpu_torch.slam.map import SlamMap
 
@@ -63,11 +64,11 @@ def _observation_groups(obs_idx, lm_valid, obs_desc, kf: int, neigh: list):
 
 class LocalMapping:
     def __init__(self, cfg: SystemConfig, slam_map: SlamMap,
-                 enable_local_ba: bool = False, device="cpu"):
+                 enable_local_ba: bool = False, device="cuda"):
         self.cfg = cfg
         self.enable_local_ba = enable_local_ba
         self.map = slam_map
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # recently created landmarks awaiting the culling probation window
         self._recent_pts: dict[int, int] = {}  # point id -> created-at KF
         self._recent_lns: dict[int, int] = {}

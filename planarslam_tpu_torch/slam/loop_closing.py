@@ -25,6 +25,7 @@ import torch
 from torch.profiler import record_function
 
 from planarslam_tpu_torch.config import SystemConfig
+from planarslam_tpu_torch.device import resolve_device
 from planarslam_tpu_torch.slam.map import SlamMap
 from planarslam_tpu_torch.slam.retrieval import KeyFrameDatabase
 
@@ -32,11 +33,11 @@ from planarslam_tpu_torch.slam.retrieval import KeyFrameDatabase
 class LoopClosing:
     def __init__(self, cfg: SystemConfig, slam_map: SlamMap,
                  kf_db: Optional[KeyFrameDatabase] = None,
-                 run_gba: bool = True, device="cpu"):
+                 run_gba: bool = True, device="cuda"):
         self.cfg = cfg
         self.map = slam_map
         self.db = kf_db or KeyFrameDatabase(cfg)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._consistency: dict[int, int] = {}  # candidate kf -> streak
         self.loops_closed = 0
         self.last_fuse_count = 0

@@ -9,7 +9,8 @@ detection follows the join, and a closed loop re-bases the tracker on the
 corrected map.
 
 The device defaults to ``"cuda"``, and a System asked for a card where
-there is none raises: a CPU run names ``device="cpu"``.
+there is none raises (``planarslam_tpu_torch.device.resolve_device``): a
+CPU run names ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -18,9 +19,9 @@ import time
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from planarslam_tpu_torch.config import SystemConfig, load_yaml_config
+from planarslam_tpu_torch.device import resolve_device
 from planarslam_tpu_torch.slam.local_mapping import LocalMapping
 from planarslam_tpu_torch.slam.loop_closing import LoopClosing
 from planarslam_tpu_torch.slam.map import SlamMap
@@ -28,18 +29,6 @@ from planarslam_tpu_torch.slam.retrieval import KeyFrameDatabase
 from planarslam_tpu_torch.slam.tracking import Tracking, TrackingState
 
 BACKEND_LAG_FRAMES = 3  # frames from a keyframe to its mapping join
-
-
-def resolve_device(device="cuda") -> torch.device:
-    """The device a System runs on (None means "cuda"); a CUDA device
-    without a card raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"System(device={str(device)!r}): CUDA is not available. "
-            "planarslam_tpu_torch runs on an NVIDIA GPU; pass device='cpu' "
-            "for a CPU run")
-    return dev
 
 
 class System:

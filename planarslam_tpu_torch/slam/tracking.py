@@ -34,6 +34,7 @@ import torch
 from torch.profiler import record_function
 
 from planarslam_tpu_torch.config import SystemConfig
+from planarslam_tpu_torch.device import resolve_device
 from planarslam_tpu_torch.geometry import plane as plane_geo
 from planarslam_tpu_torch.ops import manhattan as manhattan_ops
 from planarslam_tpu_torch.ops import matching
@@ -100,11 +101,11 @@ def _upload(a: np.ndarray, device) -> torch.Tensor:
 
 class Tracking:
     def __init__(self, cfg: SystemConfig, slam_map: SlamMap, kf_db=None,
-                 device="cpu"):
+                 device="cuda"):
         from planarslam_tpu_torch.slam.retrieval import KeyFrameDatabase
 
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.map = slam_map
         self.kf_db = kf_db or KeyFrameDatabase(cfg)
         self.state = TrackingState.NO_IMAGES_YET

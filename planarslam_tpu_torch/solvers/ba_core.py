@@ -93,7 +93,7 @@ class BAWeights(NamedTuple):
             vp_chi=float(f(planes_cfg.vp_chi)))
 
 
-def empty_line_tables(Kt: int, device="cpu") -> LineTables:
+def empty_line_tables(Kt: int, device) -> LineTables:
     return LineTables(
         torch.full((Kt, 0), -1, dtype=torch.int32, device=device),
         torch.zeros((Kt, 0, 3), device=device),
@@ -101,7 +101,7 @@ def empty_line_tables(Kt: int, device="cpu") -> LineTables:
         torch.zeros((Kt, 0), device=device))
 
 
-def empty_plane_tables(Kt: int, device="cpu") -> PlaneTables:
+def empty_plane_tables(Kt: int, device) -> PlaneTables:
     return PlaneTables(
         torch.full((Kt, 0), -1, dtype=torch.int32, device=device),
         torch.zeros((Kt, 0, 4), device=device),

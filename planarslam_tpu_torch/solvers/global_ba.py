@@ -15,6 +15,7 @@ import numpy as np
 from torch.profiler import record_function
 
 from planarslam_tpu_torch.config import SystemConfig
+from planarslam_tpu_torch.device import resolve_device
 from planarslam_tpu_torch.solvers.ba_core import BAWeights, ba_solve
 from planarslam_tpu_torch.solvers.local_ba import (_put, build_line_tables,
                                                    build_plane_tables,
@@ -32,7 +33,8 @@ MAX_GBA_KF_PCG = 512
 
 @record_function("global_ba.global_bundle_adjustment")
 def global_bundle_adjustment(slam_map, cfg: SystemConfig, n_iters: int = 12,
-                             device="cpu") -> None:
+                             device="cuda") -> None:
+    device = resolve_device(device)
     m = slam_map
     K = (cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy)
     bf = cfg.camera.bf

@@ -18,6 +18,7 @@ import torch
 from torch.profiler import record_function
 
 from planarslam_tpu_torch.config import PlaneConfig, SystemConfig
+from planarslam_tpu_torch.device import resolve_device
 from planarslam_tpu_torch.solvers import ba_core
 from planarslam_tpu_torch.solvers.ba_core import (CHI2_MONO, CHI2_STEREO,
                                                   BAWeights, LineTables,
@@ -36,7 +37,7 @@ def _put(a, device) -> torch.Tensor:
 
 
 def build_point_tables(m, all_kfs: List[int], Kt: int, pt_ids: np.ndarray,
-                       cfg: SystemConfig, device="cpu"
+                       cfg: SystemConfig, device
                        ) -> Tuple[PointTables, np.ndarray]:
     """Vectorized observation-table gather (no per-feature Python loops)."""
     slot_lut = np.full(m.pt_xyz.shape[0], -1, np.int32)
@@ -65,7 +66,7 @@ def build_point_tables(m, all_kfs: List[int], Kt: int, pt_ids: np.ndarray,
 
 
 def build_line_tables(m, all_kfs: List[int], Kt: int, ln_ids: np.ndarray,
-                      n_xyz_pts: int, cfg: SystemConfig, device="cpu"
+                      n_xyz_pts: int, cfg: SystemConfig, device
                       ) -> Tuple[LineTables, np.ndarray]:
     """Line-endpoint tables: line id -> two xyz landmark slots after the
     points (start = n_pts + 2i, end = n_pts + 2i + 1)."""
@@ -94,7 +95,7 @@ def build_line_tables(m, all_kfs: List[int], Kt: int, ln_ids: np.ndarray,
 
 
 def build_plane_tables(m, all_kfs: List[int], Kt: int, pl_ids: np.ndarray,
-                       cfg: SystemConfig, device="cpu"):
+                       cfg: SystemConfig, device):
     """Direct, parallel and vertical plane observation tables from the
     keyframes' stored per-frame plane detections (kf_pl_coeffs)."""
     Pp = cfg.planes.max_planes
@@ -146,10 +147,11 @@ def purge_masks(chis: dict, pt_ur: np.ndarray, Kt: int, w: BAWeights):
 
 @record_function("local_ba.local_bundle_adjustment")
 def local_bundle_adjustment(slam_map, kf: int, cfg: SystemConfig,
-                            device="cpu") -> None:
+                            device="cuda") -> None:
     """Gather the local window from the map, run the two-stage schedule on
     `device`, write back poses, points, lines and planes and erase the
     outlier point observations."""
+    device = resolve_device(device)
     m = slam_map
     K = (cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy)
     bf = cfg.camera.bf

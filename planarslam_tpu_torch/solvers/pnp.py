@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from planarslam_tpu_torch import kernels
+from planarslam_tpu_torch.device import resolve_device
 from planarslam_tpu_torch.solvers.sim3_solver import _pad_bucket
 
 
@@ -120,12 +121,13 @@ def pnp_ransac(
     inv_sigma2: Optional[np.ndarray] = None,
     chi2_gate: float = 5.991,
     n_hyp: int = 128,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[np.ndarray, np.ndarray, int]:
     """RANSAC PnP on `device`. Returns (T_cw, inlier mask, n_inliers).
 
     chi2 is evaluated in normalized coordinates scaled back to pixels by
     fx * fy inside inv_sigma2 (pass per-level 1/sigma^2)."""
+    device = resolve_device(device)
     fx, fy, cx, cy = K
     n = len(pts_w)
     if n < 6 or valid.sum() < 6:

@@ -30,6 +30,7 @@ from torch.profiler import record_function
 
 from planarslam_tpu_torch import kernels
 from planarslam_tpu_torch.config import SystemConfig
+from planarslam_tpu_torch.device import resolve_device
 from planarslam_tpu_torch.geometry import se3
 
 
@@ -45,7 +46,7 @@ class EdgePlan(NamedTuple):
     seg_key: torch.Tensor    # (S,) int32
 
 
-def edge_plan(edges_ij: np.ndarray, n: int, device="cpu") -> EdgePlan:
+def edge_plan(edges_ij: np.ndarray, n: int, device) -> EdgePlan:
     """Build K10's assembly order from the (E, 2) host edge list."""
     e = np.asarray(edges_ij, np.int64).reshape(-1, 2)
     ii, jj = e[:, 0], e[:, 1]
@@ -155,11 +156,12 @@ def _optimize(poses0: torch.Tensor, edges_ij: torch.Tensor,
 
 def optimize_pose_graph(slam_map, kf_corrected: int, T_corrected: np.ndarray,
                         loop_kf: int, cfg: SystemConfig,
-                        min_covis_weight: int = 100, device="cpu"
+                        min_covis_weight: int = 100, device="cuda"
                         ) -> np.ndarray:
     """Build edges from the map (host numpy) and run the GN pose graph on
     `device`. Returns (n_kf_slots, 4, 4) corrected T_cw (rows of invalid
     keyframes unchanged)."""
+    device = resolve_device(device)
     m = slam_map
     ids = m.valid_kf_ids()
     if len(ids) < 2:

@@ -19,6 +19,14 @@ solve always keeps 6 dof and zeroes the rotation columns of the Jacobian
 where the flag is set: the rotation step is then exactly 0 and
 se3_exp([rho, 0]) @ T adds rho to the translation as the 3-dof update
 does, so the caller needs no host-side branch.
+
+Kernel K11 ``pose_optimize`` (``csrc/pose_opt.cu``) runs the whole call,
+every round and LM step, in one launch of one thread block, reading the
+flag on the device; ``_pose_optimize_plain`` is its plain version and the
+CPU route. The kernel sums the normal equations across threads in float64
+and solves them in float64 (LU with partial pivoting, as the plain
+version's float32 ``solve_ex``), so the pose agrees to a tolerance and an
+inlier flag can differ only where an observation's chi2 lies at its gate.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from planarslam_tpu_torch import kernels
 from planarslam_tpu_torch.geometry import plane as plane_geo
 from planarslam_tpu_torch.geometry import se3
 
@@ -253,8 +262,13 @@ def _flat(blocks):
     return torch.cat([x.reshape(-1) for x in blocks])
 
 
-@record_function("pose_opt.pose_optimize")
-def pose_optimize(
+def _default_weights() -> PoseOptWeights:
+    from planarslam_tpu_torch.config import PlaneConfig
+
+    return PoseOptWeights.from_config(PlaneConfig())
+
+
+def _pose_optimize_plain(
     T_cw_init: torch.Tensor,
     K: Tuple[float, float, float, float],
     bf: float,
@@ -268,17 +282,14 @@ def pose_optimize(
     n_rounds: int = 4,
     n_iters: int = 10,
 ) -> PoseOptResult:
-    """Robust pose-only optimization. See module docstring for semantics."""
+    """Plain version of K11, with the arguments of ``pose_optimize``."""
     dev = T_cw_init.device
     points = points if points is not None else _empty_points(dev)
     lines = lines if lines is not None else _empty_lines(dev)
     planes = planes if planes is not None else _empty_planes(dev)
     par_planes = par_planes if par_planes is not None else _empty_planes(dev)
     ver_planes = ver_planes if ver_planes is not None else _empty_planes(dev)
-    if weights is None:
-        from planarslam_tpu_torch.config import PlaneConfig
-
-        weights = PoseOptWeights.from_config(PlaneConfig())
+    weights = weights if weights is not None else _default_weights()
     K = tuple(float(np.float32(v)) for v in K)
     bf = float(np.float32(bf))
 
@@ -368,3 +379,95 @@ def pose_optimize(
     return PoseOptResult(T, points.valid & in_pt, lines.valid & in_ln,
                          planes.valid & in_pl, par_planes.valid & in_par,
                          ver_planes.valid & in_ver, n_in, chi_total)
+
+
+_BLOCK_DIMS = {PointObs: (3, 2, None, None, None),
+               LineObs: (3, 3, 3, None, None),
+               PlaneObs: (4, 4, None)}
+
+
+def _block_args(block, cls, dev):
+    """K11's view of one residual block: its pointers and count, the
+    tensors behind them, and the inlier mask the kernel fills. An absent
+    block is empty (NULL pointers, count 0)."""
+    dims = _BLOCK_DIMS[cls]
+    if block is None:
+        mask = torch.zeros((0,), dtype=torch.bool, device=dev)
+        return [None] * len(dims) + [0], [], mask
+    n = block.valid.shape[0]
+    held = []
+    for field, d, t in zip(cls._fields, dims, block):
+        dtype = torch.bool if field == "valid" else torch.float32
+        t = t.to(dtype).contiguous()
+        kernels.check(t, f"{cls.__name__}.{field}", dtype,
+                      (n,) if d is None else (n, d))
+        held.append(t)
+    mask = torch.empty((n,), dtype=torch.bool, device=dev)
+    return [kernels.ptr(t) for t in held] + [n], held, mask
+
+
+def _pose_optimize_kernel(T_cw_init, K, bf, blocks, weights, rotation_fixed,
+                          n_rounds, n_iters) -> PoseOptResult:
+    """Launch K11 (csrc/pose_opt.cu) once for the whole solve."""
+    dev = T_cw_init.device
+    T0 = T_cw_init.to(torch.float32).contiguous()
+    kernels.check(T0, "T_cw_init", torch.float32, (4, 4))
+    args, held, masks = [kernels.ptr(T0)], [T0], []
+    for block, cls in zip(blocks, (PointObs, LineObs, PlaneObs, PlaneObs,
+                                   PlaneObs)):
+        a, h, mask = _block_args(block, cls, dev)
+        args += a
+        held += h
+        masks.append(mask)
+    if isinstance(rotation_fixed, torch.Tensor):
+        flag = rotation_fixed.to(torch.bool).contiguous()
+        kernels.check(flag, "rotation_fixed", torch.bool, ())
+        held.append(flag)
+        args += [kernels.ptr(flag), 0]
+    else:
+        args += [None, int(bool(rotation_fixed))]
+    n_items = sum(m.shape[0] for m in masks)
+    scratch = torch.empty((3 * max(n_items, 1),), dtype=torch.float32,
+                          device=dev)
+    T_out = torch.empty((4, 4), dtype=torch.float32, device=dev)
+    n_in = torch.empty((), dtype=torch.int64, device=dev)
+    chi2 = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch("psl_pose_optimize", *args, *K, bf, *weights,
+                       n_rounds, n_iters, kernels.ptr(scratch),
+                       kernels.ptr(T_out), *[kernels.ptr(m) for m in masks],
+                       kernels.ptr(n_in), kernels.ptr(chi2))
+    kernels.LAUNCHES["pose_optimize"] += 1
+    return PoseOptResult(T_out, *masks, n_in, chi2)
+
+
+@record_function("pose_opt.pose_optimize")
+def pose_optimize(
+    T_cw_init: torch.Tensor,
+    K: Tuple[float, float, float, float],
+    bf: float,
+    points: Optional[PointObs] = None,
+    lines: Optional[LineObs] = None,
+    planes: Optional[PlaneObs] = None,
+    par_planes: Optional[PlaneObs] = None,
+    ver_planes: Optional[PlaneObs] = None,
+    weights: Optional[PoseOptWeights] = None,
+    rotation_fixed: Union[bool, torch.Tensor] = False,
+    n_rounds: int = 4,
+    n_iters: int = 10,
+) -> PoseOptResult:
+    """Robust pose-only optimization (module docstring). K11 wrapper: CPU
+    tensors take ``_pose_optimize_plain``; CUDA tensors launch the kernel
+    once per call, or raise."""
+    blocks = (points, lines, planes, par_planes, ver_planes)
+    tensors = [t for b in blocks if b is not None for t in b]
+    if isinstance(rotation_fixed, torch.Tensor):
+        tensors.append(rotation_fixed)
+    if kernels.on_cpu(T_cw_init, *tensors):
+        return _pose_optimize_plain(T_cw_init, K, bf, *blocks, weights,
+                                    rotation_fixed, n_rounds, n_iters)
+    return _pose_optimize_kernel(
+        T_cw_init, tuple(float(np.float32(v)) for v in K),
+        float(np.float32(bf)), blocks,
+        weights if weights is not None else _default_weights(),
+        rotation_fixed, n_rounds, n_iters)

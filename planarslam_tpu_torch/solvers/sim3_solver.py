@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from planarslam_tpu_torch import kernels
+from planarslam_tpu_torch.device import resolve_device
 from planarslam_tpu_torch.geometry import se3
 
 
@@ -130,10 +131,11 @@ def _pad_pair(src, dst, n_hyp, seed=7):
 
 
 def horn_ransac_se3(src: np.ndarray, dst: np.ndarray,
-                    threshold: float = 0.10, n_hyp: int = 64, device="cpu"
-                    ) -> Tuple[np.ndarray, int, np.ndarray]:
+                    threshold: float = 0.10, n_hyp: int = 64,
+                    device="cuda") -> Tuple[np.ndarray, int, np.ndarray]:
     """RANSAC rigid alignment dst ~ T src on `device`. Returns (T (4, 4),
     n_inliers, inlier mask)."""
+    device = resolve_device(device)
     n = len(src)
     if n < 3:
         return np.eye(4, dtype=np.float32), 0, np.zeros(n, bool)
@@ -204,8 +206,9 @@ def refine_relative_se3(T12_init: np.ndarray, pts1_c: np.ndarray,
                         pts2_c: np.ndarray, uv1: np.ndarray, uv2: np.ndarray,
                         valid: np.ndarray,
                         K: Tuple[float, float, float, float],
-                        fix_scale: bool = True, device="cpu"):
+                        fix_scale: bool = True, device="cuda"):
     """Host wrapper of the refinement on `device`. Returns (T12, s)."""
+    device = resolve_device(device)
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
             device)

@@ -126,7 +126,8 @@ def _tables(r, lib):
     if lib is jnp:
         return pt, ln, pl, jba.empty_plane_tables(Kt), \
             jba.empty_plane_tables(Kt)
-    return pt, ln, pl, tba.empty_plane_tables(Kt), tba.empty_plane_tables(Kt)
+    return (pt, ln, pl, tba.empty_plane_tables(Kt, "cpu"),
+            tba.empty_plane_tables(Kt, "cpu"))
 
 
 def _jax_normal_eqs(poses, pts, r, M):
@@ -314,7 +315,7 @@ def test_local_ba_on_map_matches_jax(tracked_map):
     kf = jmap.n_kf - 1
     before = jmap.kf_pose.copy()
     jlba.local_bundle_adjustment(jmap, kf, jcfg)
-    tlba.local_bundle_adjustment(tmap, kf, tcfg)
+    tlba.local_bundle_adjustment(tmap, kf, tcfg, device="cpu")
     assert np.abs(jmap.kf_pose - before).max() > 0  # BA moved something
     _compare_maps(tmap, jmap, 1e-3)
 
@@ -335,6 +336,7 @@ def test_global_ba_on_map_matches_jax(tracked_map, monkeypatch):
     jmap = copy.deepcopy(tracked_map)
     tmap = map_from_numpy(jmap, tconfig.SystemConfig.tiny())
     jgba.global_bundle_adjustment(jmap, jconfig.SystemConfig.tiny())
-    tgba.global_bundle_adjustment(tmap, tconfig.SystemConfig.tiny())
+    tgba.global_bundle_adjustment(tmap, tconfig.SystemConfig.tiny(),
+                                  device="cpu")
     assert np.isfinite(tmap.kf_pose[:tmap.n_kf]).all()
     _compare_maps(tmap, jmap, 5e-3)

@@ -1,4 +1,4 @@
-"""The hand-written Hopper kernels (K1-K10) against their plain PyTorch
+"""The hand-written Hopper kernels (K1-K11) against their plain PyTorch
 versions on the card. These need a GPU: without one every test skips.
 
     python -m pytest tests/test_torch_kernels.py -q     # on the GPU machine
@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _ba_problem
+from chip_smoke import _ba_problem, _pose_problem
 from planarslam_tpu_torch import kernels
 from planarslam_tpu_torch.config import SystemConfig
 from planarslam_tpu_torch.io import synthetic
@@ -289,3 +289,57 @@ def test_pose_graph_normal_eqs(dev):
     H, g = pose_graph.pose_graph_normal_eqs(*args)
     Hp, gp = pose_graph.pose_graph_normal_eqs_plain(*args)
     assert _rel(H, Hp) <= 1e-5 and _rel(g, gp) <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["False", "True", "points_only",
+                                  "planes_only", "all_invalid"])
+def test_pose_optimize(dev, case):
+    """K11 on the seeded problem at the main path's width (N = 1024, L =
+    64, P = 16 per plane block; chip_smoke.py's) with rotation_fixed False
+    and True (a device flag), and False (a Python bool) with points only
+    (the modular path's call; the other blocks absent), planes only, and
+    every observation invalid: pose atol 1e-4 against the plain version,
+    every inlier mask and the inlier count equal, chi2 within 1e-4
+    relative; one launch per call, and two launches give identical bits
+    (fixed-order sums, no atomics)."""
+    from planarslam_tpu_torch.solvers import pose_opt
+
+    cam = SystemConfig().camera
+    K = (cam.fx, cam.fy, cam.cx, cam.cy)
+    T0, pts, lns, pls, par, ver = _pose_problem(K, cam.bf, n=1024,
+                                                n_lines=64, n_planes=16)
+    if case == "all_invalid":
+        for block in (pts, lns, pls, par, ver):
+            block[-1] = np.zeros_like(block[-1])
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    obs = dict(points=pose_opt.PointObs(*map(t, pts)),
+               lines=pose_opt.LineObs(*map(t, lns)),
+               planes=pose_opt.PlaneObs(*map(t, pls)),
+               par_planes=pose_opt.PlaneObs(*map(t, par)),
+               ver_planes=pose_opt.PlaneObs(*map(t, ver)))
+    if case == "points_only":
+        obs = dict(points=obs["points"], rotation_fixed=False)
+    elif case == "planes_only":
+        del obs["points"], obs["lines"]
+    else:
+        obs["rotation_fixed"] = torch.tensor(case == "True", device=dev)
+    n0 = kernels.LAUNCHES["pose_optimize"]
+    got = pose_opt.pose_optimize(t(T0), K, cam.bf, **obs)
+    again = pose_opt.pose_optimize(t(T0), K, cam.bf, **obs)
+    assert kernels.LAUNCHES["pose_optimize"] == n0 + 2
+    want = pose_opt._pose_optimize_plain(t(T0), K, cam.bf, **obs)
+    torch.testing.assert_close(got.T_cw, want.T_cw, rtol=0, atol=1e-4)
+    for name in ("point_inlier", "line_inlier", "plane_inlier", "par_inlier",
+                 "ver_inlier", "n_point_inliers"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert abs(float(got.chi2) - float(want.chi2)) <= 1e-4 * float(want.chi2)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    if case == "True":
+        assert torch.equal(got.T_cw[:3, :3], t(T0)[:3, :3])
+    if case == "all_invalid":
+        assert torch.equal(got.T_cw, t(T0))
+        assert float(got.chi2) == 0.0 and int(got.n_point_inliers) == 0

@@ -92,7 +92,7 @@ def test_pose_graph_normal_eqs_plain_matches_jacfwd(kind):
     assert np.all(np.abs(Jj.numpy() - np.asarray(jJj)) <= 2e-3 * ww)
 
     H, g = tpg.pose_graph_normal_eqs(t(poses), t(ij), t(m_inv), t(w),
-                                     tpg.edge_plan(ij, n))
+                                     tpg.edge_plan(ij, n, device="cpu"))
     Hb = np.zeros((n, n, 6, 6))
     gb = np.zeros((n, 6))
     Ji64, Jj64, r64 = (x.numpy() for x in (Ji, Jj, r))
@@ -169,12 +169,13 @@ def test_loop_edges_persist_matches_jax():
     tm = map_from_numpy(jm, tcfg)
     drift = _se3([0.0, 0.0, 0.0, 0.12, -0.08, 0.1])
     for (a, b), then_drift in (((8, 0), True), ((9, 1), False)):
-        for m, opt, c in ((jm, jpg.optimize_pose_graph, cfg),
-                          (tm, tpg.optimize_pose_graph, tcfg)):
+        for m, opt, c, kw in ((jm, jpg.optimize_pose_graph, cfg, {}),
+                              (tm, tpg.optimize_pose_graph, tcfg,
+                               {"device": "cpu"})):
             m.add_loop_edge(a, b, rel_gt(a, b))
             m.kf_pose[:n] = opt(m, kf_corrected=a,
                                 T_corrected=rel_gt(a, b) @ m.kf_pose[b],
-                                loop_kf=b, cfg=c)[:n]
+                                loop_kf=b, cfg=c, **kw)[:n]
             if then_drift:
                 for k in range(5, n):
                     m.kf_pose[k] = (drift @ m.kf_pose[k]).astype(np.float32)
@@ -207,7 +208,7 @@ def test_refine_relative_se3_matches_jax():
     T0 = _se3(rng.normal(0, 0.01, 6)) @ T
     v = np.ones(n, np.float32)
     Tj, _ = j_refine(T0.astype(np.float32), p1, p2, uv1, uv2, v, K)
-    Tt, s = t_refine(T0, p1, p2, uv1, uv2, v, K)
+    Tt, s = t_refine(T0, p1, p2, uv1, uv2, v, K, device="cpu")
     np.testing.assert_allclose(Tt, np.asarray(Tj), atol=1e-5)
     assert s == 1.0
     assert np.abs(Tt - T).max() < np.abs(T0 - T).max()
@@ -249,7 +250,8 @@ def test_verify_and_correct_matches_jax(constructed_loop, run_gba,
     tm = map_from_numpy(jm, tconfig.SystemConfig.tiny())
     jlc = copy.copy(src_lc)
     jlc.map, jlc.run_gba = jm, run_gba
-    tlc = loop_closer_from_numpy(jlc, tconfig.SystemConfig.tiny(), tm)
+    tlc = loop_closer_from_numpy(jlc, tconfig.SystemConfig.tiny(), tm,
+                                 device="cpu")
     pose_before = jm.kf_pose[kf].copy()
     n_valid = int(jm.pt_valid.sum())
     assert jlc._verify_and_correct(kf, src)

@@ -8,6 +8,7 @@ import pytest
 import torch
 from scipy.spatial.transform import Rotation
 
+from chip_smoke import _pose_problem
 from planarslam_tpu import config as jconfig
 from planarslam_tpu.io import synthetic
 from planarslam_tpu.ops import matching as jmatch
@@ -163,81 +164,69 @@ def test_rotation_filter_and_duplicates():
     np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
 
 
-def _pose_problem(seed=0):
-    """Points (with outliers, stereo and mono), lines, planes, parallel and
-    vertical planes observed from a known pose."""
-    rng = np.random.default_rng(seed)
-    T_true = _pose([0.05, -0.08, 0.03], [0.1, -0.05, 0.2])
-    n = 120
-    pc = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1, 1, n),
-                   rng.uniform(1.5, 4.0, n)], -1)
-    Tinv = np.linalg.inv(T_true)
-    xw = (pc @ Tinv[:3, :3].T + Tinv[:3, 3]).astype(np.float32)
-    uv = np.stack([K[0] * pc[:, 0] / pc[:, 2] + K[2],
-                   K[1] * pc[:, 1] / pc[:, 2] + K[3]], -1)
-    uv = uv + rng.normal(0, 0.5, uv.shape)
-    uv[:12] += rng.uniform(-20, 20, (12, 2))  # outliers
-    ur = np.where(rng.random(n) < 0.6, uv[:, 0] - CAM.bf / pc[:, 2], -1.0)
-    points = [xw, uv.astype(np.float32), ur.astype(np.float32),
-              (1.2 ** (-2.0 * rng.integers(0, 4, n))).astype(np.float32),
-              rng.random(n) < 0.95]
-    L = 8
-    s_c = np.stack([rng.uniform(-1, 1, L), rng.uniform(-1, 1, L),
-                    rng.uniform(2, 3, L)], -1)
-    e_c = s_c + rng.normal(0, 0.5, (L, 3)) * [1, 1, 0.1]
-
-    def proj(p):
-        return np.stack([K[0] * p[:, 0] / p[:, 2] + K[2],
-                         K[1] * p[:, 1] / p[:, 2] + K[3], np.ones(len(p))],
-                        -1)
-
-    l2d = np.cross(proj(s_c), proj(e_c))
-    l2d /= np.linalg.norm(l2d[:, :2], axis=1, keepdims=True)
-    lines = [(s_c @ Tinv[:3, :3].T + Tinv[:3, 3]).astype(np.float32),
-             (e_c @ Tinv[:3, :3].T + Tinv[:3, 3]).astype(np.float32),
-             l2d.astype(np.float32), np.ones(L, np.float32),
-             np.arange(L) < 7]
-    P = 4
-    n_c = np.array([[0, 0, -1.0], [1.0, 0, 0], [0, -1.0, 0], [0, 0, -1.0]])
-    d_c = np.array([3.5, 1.2, 0.9, 5.0])
-    pi_c = np.concatenate([n_c, d_c[:, None]], 1)
-    # world planes: pi_w = T^T-style transform of the camera planes
-    nw = n_c @ Tinv[:3, :3].T
-    dw = d_c - nw @ Tinv[:3, 3]
-    pi_w = np.concatenate([nw, dw[:, None]], 1).astype(np.float32)
-    pi_obs = (pi_c + rng.normal(0, 0.005, pi_c.shape)).astype(np.float32)
-    planes = [pi_w, pi_obs, np.array([True, True, True, False])]
-    par = [pi_w[[3, 0, 2, 1]], pi_obs, np.array([True, False, False, False])]
-    ver = [pi_w[[1, 0, 0, 0]], pi_obs, np.array([True, True, False, False])]
-    T_init = _pose([0.06, -0.07, 0.035], [0.13, -0.07, 0.17])
-    return T_init, points, lines, planes, par, ver
+# the cases of test_pose_optimize_parity: the problem's size and camera
+# (the tiny one, or the default 640x480 one at the main path's widths:
+# N = max_keypoints, L = max_lines, P = 16 per plane block) and the blocks
+# that take part; "False" and "True" keep their original ids
+_FULL = dict(n=1024, n_lines=64, n_planes=16)
+_POSE_CASES = {
+    "False": (False, {}, "tiny", "all"),
+    "True": (True, {}, "tiny", "all"),
+    "full-False": (False, _FULL, "full", "all"),
+    "full-True": (True, _FULL, "full", "all"),
+    "points_only": (False, _FULL, "full", "points"),
+    "planes_only": (False, _FULL, "full", "planes"),
+    "all_invalid": (False, _FULL, "full", "invalid"),
+}
 
 
-@pytest.mark.parametrize("rotation_fixed", [False, True])
-def test_pose_optimize_parity(rotation_fixed):
-    """pose_optimize with points, lines, planes, parallel and vertical
-    planes: pose atol 1e-4, every inlier mask exact, inlier count exact."""
+def _pose_case(case):
+    """The problem of a case as numpy inputs: (rotation_fixed, K, bf, T0,
+    blocks) with blocks a dict of pose_optimize's keyword lists (absent
+    blocks left out)."""
+    rotation_fixed, size, cam_name, which = _POSE_CASES[case]
+    cam = CAM if cam_name == "tiny" else jconfig.SystemConfig().camera
+    K_c = (cam.fx, cam.fy, cam.cx, cam.cy)
+    T0, pts, lns, pls, par, ver = _pose_problem(K_c, cam.bf, **size)
+    blocks = dict(points=pts, lines=lns, planes=pls, par_planes=par,
+                  ver_planes=ver)
+    if which == "points":
+        blocks = dict(points=pts)
+    elif which == "planes":
+        blocks = dict(planes=pls, par_planes=par, ver_planes=ver)
+    elif which == "invalid":
+        for b in blocks.values():
+            b[-1] = np.zeros_like(b[-1])
+    return rotation_fixed, K_c, cam.bf, T0, blocks
+
+
+@pytest.mark.parametrize("case", list(_POSE_CASES))
+def test_pose_optimize_parity(case):
+    """pose_optimize of the port (its plain version, the CPU route of K11)
+    against the JAX function: pose atol 1e-4, every inlier mask exact,
+    inlier count exact. Cases: the small problem and the main path's full
+    width (N = 1024 with 10% outliers, stereo and mono, L = 64, P = 16 per
+    plane block), each with rotation_fixed False and True; the modular
+    path's points-only call; a planes-only call (plane weights of 2500 to
+    328280 against a 1e-9 regulariser); and an all-invalid call, which
+    keeps T at T_init with chi2 0 and no inliers in both packages."""
     from planarslam_tpu.config import PlaneConfig as JPC
     from planarslam_tpu_torch.config import PlaneConfig as TPC
 
-    T0, pts, lns, pls, par, ver = _pose_problem()
+    rotation_fixed, K_c, bf, T0, blocks = _pose_case(case)
+    jcls = dict(points=jpo.PointObs, lines=jpo.LineObs)
+    tcls = dict(points=tpo.PointObs, lines=tpo.LineObs)
     rj = jpo.pose_optimize(
-        jnp.asarray(T0), K, CAM.bf,
-        points=jpo.PointObs(*[jnp.asarray(a) for a in pts]),
-        lines=jpo.LineObs(*[jnp.asarray(a) for a in lns]),
-        planes=jpo.PlaneObs(*[jnp.asarray(a) for a in pls]),
-        par_planes=jpo.PlaneObs(*[jnp.asarray(a) for a in par]),
-        ver_planes=jpo.PlaneObs(*[jnp.asarray(a) for a in ver]),
+        jnp.asarray(T0), K_c, bf,
         weights=jpo.PoseOptWeights.from_config(JPC()),
-        rotation_fixed=rotation_fixed)
-    obs = dict(points=tpo.PointObs(*[_t(a) for a in pts]),
-               lines=tpo.LineObs(*[_t(a) for a in lns]),
-               planes=tpo.PlaneObs(*[_t(a) for a in pls]),
-               par_planes=tpo.PlaneObs(*[_t(a) for a in par]),
-               ver_planes=tpo.PlaneObs(*[_t(a) for a in ver]),
-               weights=tpo.PoseOptWeights.from_config(TPC()))
+        rotation_fixed=rotation_fixed,
+        **{k: jcls.get(k, jpo.PlaneObs)(*[jnp.asarray(a) for a in v])
+           for k, v in blocks.items()})
+    obs = {k: tcls.get(k, tpo.PlaneObs)(*[_t(a) for a in v])
+           for k, v in blocks.items()}
     # the flag as the device tracker passes it: a bool tensor
-    rt = tpo.pose_optimize(_t(T0), K, CAM.bf,
+    rt = tpo.pose_optimize(_t(T0), K_c, bf,
+                           weights=tpo.PoseOptWeights.from_config(TPC()),
                            rotation_fixed=torch.tensor(rotation_fixed), **obs)
     np.testing.assert_allclose(rt.T_cw.numpy(), np.asarray(rj.T_cw),
                                atol=1e-4)
@@ -246,10 +235,19 @@ def test_pose_optimize_parity(rotation_fixed):
         np.testing.assert_array_equal(getattr(rt, name).numpy(),
                                       np.asarray(getattr(rj, name)),
                                       err_msg=name)
-    assert not bool(np.asarray(rj.point_inlier)[:12].all())
+    if "points" in blocks and case != "all_invalid":
+        n_out = len(blocks["points"][0]) // 10
+        assert not bool(np.asarray(rj.point_inlier)[:n_out].all())
+        assert int(rt.n_point_inliers) > 0.5 * len(blocks["points"][0])
+    if case == "all_invalid":
+        np.testing.assert_array_equal(rt.T_cw.numpy(), T0)
+        np.testing.assert_array_equal(np.asarray(rj.T_cw), T0)
+        assert float(rt.chi2) == 0.0 and float(rj.chi2) == 0.0
+        assert int(rt.n_point_inliers) == 0
     if rotation_fixed:
         np.testing.assert_array_equal(rt.T_cw.numpy()[:3, :3], T0[:3, :3])
     # a Python bool selects the same solve
-    rb = tpo.pose_optimize(_t(T0), K, CAM.bf, rotation_fixed=rotation_fixed,
-                           **obs)
+    rb = tpo.pose_optimize(_t(T0), K_c, bf,
+                           weights=tpo.PoseOptWeights.from_config(TPC()),
+                           rotation_fixed=rotation_fixed, **obs)
     np.testing.assert_array_equal(rb.T_cw.numpy(), rt.T_cw.numpy())

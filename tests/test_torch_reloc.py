@@ -40,7 +40,8 @@ def test_horn_ransac_se3_matches_jax(n):
     bad = rng.random(n) < 0.4
     dst[bad] = rng.uniform(-3, 3, (int(bad.sum()), 3))
     Tj, nj, ij = jsim3.horn_ransac_se3(src, dst, threshold=0.08)
-    Tt, nt, it = tsim3.horn_ransac_se3(src, dst, threshold=0.08)
+    Tt, nt, it = tsim3.horn_ransac_se3(src, dst, threshold=0.08,
+                                       device="cpu")
     assert nt == nj and nt > 0.5 * n
     np.testing.assert_array_equal(it, ij)
     np.testing.assert_allclose(Tt, Tj, atol=1e-4)
@@ -64,7 +65,8 @@ def test_pnp_ransac_matches_jax(rng):
     uv[out] += rng.uniform(20, 60, (16, 2))
     uv = uv.astype(np.float32)
     _, _, n_j = jpnp.pnp_ransac(pts, uv, np.ones(n, bool), K)
-    T_est, inl, n_t = tpnp.pnp_ransac(pts, uv, np.ones(n, bool), K)
+    T_est, inl, n_t = tpnp.pnp_ransac(pts, uv, np.ones(n, bool), K,
+                                      device="cpu")
     assert n_t >= 55 and n_t == int(inl.sum())
     assert abs(n_t - n_j) <= 2
     np.testing.assert_allclose(T_est[:3, :3], T[:3, :3], atol=0.01)

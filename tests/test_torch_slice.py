@@ -59,7 +59,7 @@ def test_fused_step_from_identical_state(run):
     flags equal; the new carried state's landmarks atol 1e-4 m."""
     cfg = tconfig.SystemConfig.tiny()
     frame_u8, T_ovr, use_ovr, R_wm, manh, state, win = run["step"]["args"]
-    t_state, t_win = tdt.state_from_numpy(state, win)
+    t_state, t_win = tdt.state_from_numpy(state, win, device="cpu")
     res = tdt.fused_track_step_packed(
         torch.from_numpy(frame_u8), torch.from_numpy(T_ovr),
         torch.tensor(bool(use_ovr)), torch.from_numpy(R_wm),
@@ -83,7 +83,8 @@ def test_state_roundtrip_types(run):
     """state_from_numpy keeps every leaf's shape; uint32 descriptors become
     int32 bit patterns."""
     state = run["step"]["args"][5]
-    t_state, _ = tdt.state_from_numpy(state, run["step"]["args"][6])
+    t_state, _ = tdt.state_from_numpy(state, run["step"]["args"][6],
+                                      device="cpu")
     assert t_state.feats.points.desc.dtype == torch.int32
     np.testing.assert_array_equal(
         t_state.feats.points.desc.numpy().view(np.uint32),
@@ -130,7 +131,7 @@ def test_system_refuses_backend():
     assert slam.loop_closer.device == torch.device("cpu")
     assert slam.loop_closer.db is slam.kf_db
     assert slam.local_mapper is not None
-    lm = LocalMapping(cfg, SlamMap(cfg), enable_local_ba=True)
+    lm = LocalMapping(cfg, SlamMap(cfg), enable_local_ba=True, device="cpu")
     assert lm.enable_local_ba
     slam = TSystem(config=cfg, enable_local_mapping=False,
                    enable_loop_closing=False, device="cpu")
@@ -146,3 +147,64 @@ def test_system_without_card_raises(monkeypatch, kwargs):
     cfg = tconfig.SystemConfig.tiny()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TSystem(config=cfg, enable_loop_closing=False, **kwargs)
+
+
+def _entry_points():
+    """Each public entry point of the port, called with minimal arguments
+    and the given device keywords."""
+    from planarslam_tpu_torch.slam import device_mapper as tdm
+    from planarslam_tpu_torch.slam.local_mapping import LocalMapping
+    from planarslam_tpu_torch.slam.loop_closing import LoopClosing
+    from planarslam_tpu_torch.slam.map import SlamMap
+    from planarslam_tpu_torch.slam.tracking import Tracking
+    from planarslam_tpu_torch.solvers import (global_ba, local_ba, pnp,
+                                              pose_graph, sim3_solver)
+
+    cfg = tconfig.SystemConfig.tiny()
+    K = (cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy)
+    p3, p2 = np.zeros((8, 3), np.float32), np.zeros((8, 2), np.float32)
+    ok, eye = np.ones(8, bool), np.eye(4, dtype=np.float32)
+
+    def m():
+        return SlamMap(cfg)
+
+    return {
+        "Tracking": lambda **kw: Tracking(cfg, m(), **kw),
+        "LocalMapping": lambda **kw: LocalMapping(cfg, m(), **kw),
+        "LoopClosing": lambda **kw: LoopClosing(cfg, m(), **kw),
+        "local_bundle_adjustment": lambda **kw:
+            local_ba.local_bundle_adjustment(m(), 0, cfg, **kw),
+        "global_bundle_adjustment": lambda **kw:
+            global_ba.global_bundle_adjustment(m(), cfg, **kw),
+        "optimize_pose_graph": lambda **kw:
+            pose_graph.optimize_pose_graph(m(), 1, eye, 0, cfg, **kw),
+        "horn_ransac_se3": lambda **kw:
+            sim3_solver.horn_ransac_se3(p3, p3, **kw),
+        "refine_relative_se3": lambda **kw:
+            sim3_solver.refine_relative_se3(eye, p3, p3, p2, p2, ok, K,
+                                            **kw),
+        "pnp_ransac": lambda **kw: pnp.pnp_ransac(p3, p2, ok, K, **kw),
+        "run_fuse_set": lambda **kw:
+            tdm.run_fuse_set(m(), np.zeros(0, np.int64), [], cfg, **kw),
+        "run_mapping_step": lambda **kw:
+            tdm.run_mapping_step(m(), 0, cfg, **kw),
+        "dispatch_mapping_step": lambda **kw:
+            tdm.dispatch_mapping_step(m(), 0, cfg, **kw),
+        "state_from_numpy": lambda **kw:
+            tdt.state_from_numpy({}, np.zeros(0, np.float32), **kw),
+        "loop_closer_from_numpy": lambda **kw: tdt.loop_closer_from_numpy(
+            LoopClosing(cfg, m(), device="cpu"), cfg, m(), **kw),
+    }
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"device": "cuda"}],
+                         ids=["default", "cuda"])
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_point_without_card_raises(monkeypatch, name, kwargs):
+    """Every public entry point of the port defaults to the card: without
+    one, called with the default device or with "cuda", it raises the
+    resolve_device error instead of running on the CPU."""
+    call = _entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call(**kwargs)

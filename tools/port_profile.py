@@ -46,7 +46,7 @@ SPAN_MODULES = ("frontend", "lines", "planes", "manhattan", "matching",
 PORT_KERNELS = ("fast_score_kernel", "orb_describe_kernel",
                 "hamming_top2_kernel", "_plane_block_moments_kernel",
                 "triangulate_kernel", "horn_align_kernel", "pnp_dlt_kernel",
-                "normal_eqs_", "schur_", "pose_graph_")
+                "normal_eqs_", "schur_", "pose_graph_", "pose_opt_kernel")
 
 
 def main(argv=None) -> int:
@@ -147,7 +147,7 @@ def main(argv=None) -> int:
            "port_kernels_ms_per_frame": port_kernels,
            "spans": spans,
            "top_kernels": [{"name": k[1][:80], "ms_per_frame": k[0] / n / 1e3,
-                            "calls_per_frame": k[2] / n} for k in kern[:15]]}
+                            "calls_per_frame": k[2] / n} for k in kern[:25]]}
     print(json.dumps(out, indent=1), flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
