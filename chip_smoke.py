@@ -12,6 +12,10 @@ Phases, each fatal on failure:
      synthetic sequence, or from a numpy seed with planted structure), with
      both timings (median of 25 calls, CUDA events); K11 (pose_optimize)
      also on the inputs of one tracked frame of path 1, after that path;
+     K12-K14 (plane segmentation) on frame 0's quantized depth and on the
+     same depth with Kinect noise, also against the plain version run in
+     float64; K15 (Manhattan mean shift) on frame 0's normals and line
+     directions;
   4. path 1, tracking only: System(SystemConfig(), enable_local_mapping=
      False, enable_loop_closing=False) tracks 96 frames of the 640x480
      synthetic room, quantized to uint8 gray / uint16 depth; ATE against
@@ -37,7 +41,9 @@ Phases, each fatal on failure:
      tests/test_ba_full.py.
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel must have launched on the paths, and on every path K11
-must have launched once per pose_optimize call. The line before the
+must have launched once per pose_optimize call, K12 and K14 once and K13
+1 + refine_rounds times per extract_planes call, and K15 once per
+track_manhattan_frame call. The line before the
 last is a JSON object with one entry per kernel (its time and its plain
 version's, the least time the card could take for the same bytes and
 operations, and a PyTorch call's time where one computes the same
@@ -643,6 +649,405 @@ def pose_frame_parity(entry: dict, captured: list) -> None:
                                *(c["pose_err"] for c in frame.values()))
 
 
+def _max_err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max())
+
+
+# float32 evaluation noise of the moment fit allowed on top of the plain
+# version's own distance from the float64 run: cov = s2 / n - mean mean^T
+# cancels terms of size z^2 <= 16 m^2 (an ulp there is 1.9e-6) down to the
+# mse, and the normal, d and the centroid inherit that over the eigen-gap
+REFIT_EPS = {"normal": 5e-5, "d": 5e-5, "mse": 4e-6, "mean": 5e-5}
+
+
+# The same allowance for K12's candidate fits: a thin component (a strip of
+# blocks) has an eigen-gap of ~1e-3 m^2, so the 1e-6 rounding of its float32
+# covariance tilts its normal by up to ~1e-3 whatever the sums' accuracy;
+# kernel and plain version then both sit 2-5e-4 from the float64 refit.
+CANDIDATE_EPS = 5e-4
+# A float32 covariance is rounded at ~2e-6 m^2 (an ulp of z^2 <= 16), which
+# tilts the normal by about that over the gap between the two smallest
+# eigenvalues: under 4e-3 m^2 (a strip narrower than 0.22 m) the fit is not
+# defined to the 2e-3 the comparison asks for.
+MIN_EIGEN_GAP = 4e-3
+
+
+def plane_refit_compare(args, planes, fit, area: float):
+    """One K13 round on the card against its plain version and against the
+    plain version run in float64 on the same inputs. The float32 plain
+    version and the kernel round their moment sums differently and the mse
+    they feed cancels, so the kernel is not held to the plain version's
+    bits: each fitted output must lie no further from the float64 run than
+    the plain version does plus REFIT_EPS, the support within two
+    subsampled pixels more, the alive masks equal and the labels equal on
+    >= 99.5% of the pixels. Returns (the kernel's PlaneRefit, the errors)."""
+    import torch
+
+    from planarslam_tpu_torch.ops import planes as P
+
+    depth, alpha, cam, pc = args
+    got = P.plane_assign_refit(*args, *planes, fit)
+    again = P.plane_assign_refit(*args, *planes, fit)
+    want = P.plane_assign_refit_plain(*args, *planes, fit)
+
+    def dbl(ts):
+        return tuple(t.double() if t.is_floating_point() else t for t in ts)
+
+    ref = P.plane_assign_refit_plain(
+        depth.double(), alpha.double(), cam, pc, *dbl(planes),
+        None if fit is None else dbl(fit))
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(got, again)),
+           "plane_assign_refit: two launches on equal inputs differ")
+    _check(torch.equal(got.alive, want.alive) and torch.equal(got.alive,
+                                                              ref.alive),
+           "plane_assign_refit: alive masks differ")
+    m = ref.alive & (ref.n > 3)
+    res = {"planes": int(m.sum()),
+           "labels_equal": float((got.label_sub == want.label_sub)
+                                 .float().mean()),
+           "labels_equal_f64": float((got.label_sub == ref.label_sub)
+                                     .float().mean())}
+    _check(res["planes"] > 0, "plane_assign_refit: no plane in the input")
+    _check(res["labels_equal"] >= 0.995,
+           f"plane_assign_refit: labels equal on {res['labels_equal']}")
+    for name in ("normal", "d", "mse", "mean", "n"):
+        ek = _max_err(getattr(got, name)[m], getattr(ref, name)[m])
+        ep = _max_err(getattr(want, name)[m], getattr(ref, name)[m])
+        eps = 2.0 * area if name == "n" else REFIT_EPS[name]
+        res[name] = {"kernel_vs_f64": ek, "plain_vs_f64": ep}
+        _check(ek <= ep + eps, f"plane_assign_refit: {name} is {ek} from "
+               f"the float64 run, the plain version {ep} (+ {eps})")
+    res["max_abs_err"] = max(_max_err(got.normal[m], want.normal[m]),
+                             _max_err(got.d[m], want.d[m]),
+                             _max_err(got.mean[m], want.mean[m]))
+    return got, res
+
+
+def _component_fits_f64(stats, cand, p_cap: int):
+    """The per-component refit of plane_components_plain in float64 over
+    the components of `cand` (its labels and block validity): (normal, d,
+    eigen-gap of the covariance above its smallest eigenvalue) of the
+    top-P components, in the plain version's order."""
+    import torch
+
+    from planarslam_tpu_torch.ops import planes as P
+    from planarslam_tpu_torch.ops.lax_compat import segment_sum, top_k
+
+    nb = cand.labels.numel()
+    bv = cand.block_valid.double()
+    seg = torch.where(cand.block_valid, cand.labels.long(), nb)
+    s1 = segment_sum(stats.s1.double() * bv[:, None], seg, nb + 1)
+    s2 = segment_sum(stats.s2.double() * bv[:, None, None], seg, nb + 1)
+    n = segment_sum(stats.n.double() * bv, seg, nb + 1)
+    top_n, top_idx = top_k(n[:nb], p_cap)
+    s1, s2, top_n = s1[top_idx], s2[top_idx], torch.clamp(top_n, min=1.0)
+    mean = s1 / top_n[:, None]
+    cov = s2 / top_n[:, None, None] - mean[:, :, None] * mean[:, None, :]
+    ev = torch.linalg.eigvalsh(cov)
+    return P._plane_from_moments(s1, s2, top_n)[:2] + (ev[:, 1] - ev[:, 0],)
+
+
+def plane_segment_compare(depth, cfg, exact: bool) -> dict:
+    """K12, the 1 + refine_rounds rounds of K13 and K14 against their plain
+    versions on one depth map on the card, each stage on the kernel's own
+    earlier outputs. K12: block validity, labels and candidate validity
+    equal on clean depth (`exact`); on noisy depth a block fit can sit on
+    its mse gate, so block validity and labels may differ on <= 0.5% of
+    the blocks while candidate validity stays equal. The candidate fits
+    come from sums over up to thousands of blocks whose covariance
+    cancels, which the kernel takes in float64 and the plain version in
+    float32 one block after the other: each candidate must lie no further
+    from the plain version's refit taken in float64 over the same
+    components than the float32 plain version does plus CANDIDATE_EPS, and
+    within 2e-3 + CANDIDATE_EPS of the plain version. A strip one block
+    wide (a wall's edge) has no well-defined normal (there the float32
+    plain version itself lands up to 0.12 m from the float64 refit):
+    candidates whose covariance has an eigen-gap under MIN_EIGEN_GAP are
+    reported and not held.
+    K13: plane_refit_compare. K14:
+    validity and counts equal, coefficients within 1e-5, pixel labels
+    equal on >= 99.9% of the pixels."""
+    import torch
+
+    from planarslam_tpu_torch.ops import planes as P
+
+    pc, cam = cfg.planes, cfg.camera
+    h, w = depth.shape
+    hb, wb = h // pc.block, w // pc.block
+    alpha = P._noise_alpha(depth, pc.max_distance)
+    stats = P.plane_block_moments(depth, alpha, cam, P._geo_tol(w),
+                                  pc.max_distance, pc.block)
+    res = {"alpha": float(alpha)}
+
+    got = P.plane_components(stats, hb, wb, pc)
+    again = P.plane_components(stats, hb, wb, pc)
+    want = P.plane_components_plain(stats, hb, wb, pc)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(got, again)),
+           "plane_components: two launches on equal inputs differ")
+    nb = hb * wb
+    k12 = {"block_valid_differ": int((got.block_valid != want.block_valid)
+                                     .sum()),
+           "labels_differ": int((got.labels != want.labels).sum()),
+           "cand_valid_differ": int((got.valid != want.valid).sum()),
+           "candidates": int(want.valid.sum()),
+           "valid_blocks": int(want.block_valid.sum())}
+    v = want.valid
+    ref = _component_fits_f64(stats, want, pc.max_planes)
+
+    def per_plane(a, b):  # (P,) largest |normal| or |d| difference
+        return torch.maximum(
+            (a.normal.double() - b[0]).abs().amax(dim=-1),
+            (a.d.double() - b[1]).abs())
+
+    ek, ep = per_plane(got, ref), per_plane(want, ref)
+    well = v & (ref[2] >= MIN_EIGEN_GAP)
+    k12.update(
+        well_conditioned=int(well.sum()),
+        max_abs_err=float(per_plane(got, (want.normal, want.d))[well].max()),
+        kernel_vs_f64=ek[v].tolist(), plain_vs_f64=ep[v].tolist())
+    res["plane_components"] = k12
+    _check(k12["well_conditioned"] > 0,
+           "plane_components: no well-conditioned candidate")
+    lim = 0 if exact else 0.005 * nb
+    _check(k12["cand_valid_differ"] == 0
+           and k12["block_valid_differ"] <= lim
+           and k12["labels_differ"] <= lim
+           and k12["max_abs_err"] <= 2e-3 + CANDIDATE_EPS
+           and bool((ek[well] <= ep[well] + CANDIDATE_EPS).all()),
+           f"plane_components differs from plain: {k12}")
+
+    args = (depth, alpha, cam, pc)
+    area = float(max(1, pc.refine_stride) ** 2)
+    rounds = []
+    fit, r = plane_refit_compare(args, (got.normal, got.d, got.valid), None,
+                                 area)
+    rounds.append(r)
+    for _ in range(pc.refine_rounds):
+        fit, r = plane_refit_compare(args, (fit.normal, fit.d, fit.alive),
+                                     (fit.mse, fit.mean, fit.n), area)
+        rounds.append(r)
+    res["plane_assign_refit"] = rounds
+
+    out = P.plane_label_pixels(*args, fit)
+    out2 = P.plane_label_pixels(*args, fit)
+    ref = P.plane_label_pixels_plain(*args, fit)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(out, out2)),
+           "plane_label_pixels: two launches on equal inputs differ")
+    k14 = {"valid_differ": int((out.valid != ref.valid).sum()),
+           "count_differ": int((out.count != ref.count).sum()),
+           "planes": int(ref.valid.sum()),
+           "max_abs_err": _max_err(out.coeffs, ref.coeffs),
+           "labels_equal": float((out.pixel_label == ref.pixel_label)
+                                 .float().mean()),
+           "labeled": float((ref.pixel_label >= 0).float().mean())}
+    res["plane_label_pixels"] = k14
+    _check(k14["planes"] > 0, "plane_label_pixels: no valid plane")
+    _check(k14["valid_differ"] == 0 and k14["count_differ"] == 0
+           and k14["max_abs_err"] <= 1e-5 and k14["labels_equal"] >= 0.999,
+           f"plane_label_pixels differs from plain: {k14}")
+    res["inputs"] = (stats, hb, wb, got, fit, args)
+    return res
+
+
+def noisy_depth(depth_m: np.ndarray, factor: float, seed: int = 0):
+    """A quantized depth map (metres) with the Kinect noise model of
+    io/synthetic.py added and quantized again."""
+    from planarslam_tpu_torch.io import synthetic
+
+    rng = np.random.default_rng(seed)
+    sigma = synthetic.kinect_depth_std(depth_m)
+    noisy = depth_m + rng.normal(0.0, 1.0, depth_m.shape) * sigma
+    noisy = np.where(depth_m > 0, np.clip(noisy, 0.0, None), 0.0)
+    return (np.round(noisy * factor) / factor).astype(np.float32)
+
+
+def plane_kernel_parity(seq, cfg, dev) -> list:
+    """K12-K14 against their plain versions on the card at the main path's
+    sizes, on frame 0's quantized depth and on the same depth with Kinect
+    noise; timed on the clean depth."""
+    import torch
+
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import planes as P
+
+    factor = cfg.camera.depth_map_factor
+    _, d16 = quantize_frame(*seq.render(0), factor)
+    clean = d16.astype(np.float32) / np.float32(factor)
+    cases = {}
+    for name, d in (("noisy", noisy_depth(clean, factor)), ("clean", clean)):
+        cases[name] = plane_segment_compare(torch.from_numpy(d).to(dev), cfg,
+                                            name == "clean")
+    stats, hb, wb, cand, fit, args = cases["clean"].pop("inputs")
+    cases["noisy"].pop("inputs")
+    print(f"plane kernels: {json.dumps(cases)}", flush=True)
+    depth, alpha, cam, pc = args
+    nb, p_cap = hb * wb, pc.max_planes
+    n_sub = fit.label_sub.numel()
+    planes2 = (fit.normal, fit.d, fit.alive)
+    fit2 = (fit.mse, fit.mean, fit.n)
+    n_alive = int(fit.alive.sum())
+    out14 = P.plane_label_pixels(*args, fit)
+    n_valid = int(out14.valid.sum())
+    src = "planarslam_tpu_torch/csrc/plane_segment.cu"
+
+    def worst(name):
+        return max(c[name]["max_abs_err"] for c in cases.values())
+
+    out = [
+        {"name": "plane_components", "route": "cuda", "library_ms": None,
+         # per block: the moment fit (~300), two edges, merge_rounds pulls
+         # and jumps, P arg-max passes; the top components' sums
+         **_bound(_nbytes(stats, cand),
+                  nb * (340.0 + 12 * pc.merge_rounds + 2 * p_cap)
+                  + 24.0 * cases["clean"]["plane_components"]["valid_blocks"]),
+         "source": src, "replaces": "planarslam_tpu/ops/planes.py:265",
+         "max_abs_err": worst("plane_components"),
+         "tolerance": "validity and labels exact (clean), <= 0.5% of "
+                      "blocks (Kinect noise); fits no further from the "
+                      "float64 refit than the float32 plain run plus "
+                      f"{CANDIDATE_EPS}",
+         "cases": {k: c["plane_components"] for k, c in cases.items()},
+         "ms": _time_ms(lambda: P.plane_components(stats, hb, wb, pc)),
+         "plain_ms": _time_ms(
+             lambda: P.plane_components_plain(stats, hb, wb, pc))},
+        {"name": "plane_assign_refit", "route": "cuda", "library_ms": None,
+         # per subsampled pixel: gate and back-projection (~30), a distance
+         # to each alive plane (8), the 10 moment terms and their tree
+         **_bound(_nbytes(depth, alpha, planes2, fit2, fit),
+                  n_sub * (60.0 + 8 * n_alive)),
+         "source": src, "replaces": "planarslam_tpu/ops/planes.py:363",
+         "max_abs_err": max(r["max_abs_err"] for c in cases.values()
+                            for r in c["plane_assign_refit"]),
+         "tolerance": "no further from the float64 plain run than the "
+                      f"float32 plain run plus {REFIT_EPS}; labels >= 99.5%",
+         "cases": {k: c["plane_assign_refit"] for k, c in cases.items()},
+         "ms": _time_ms(lambda: P.plane_assign_refit(*args, *planes2, fit2)),
+         "plain_ms": _time_ms(
+             lambda: P.plane_assign_refit_plain(*args, *planes2, fit2))},
+        {"name": "plane_label_pixels", "route": "cuda", "library_ms": None,
+         # per pixel: gate and back-projection, a distance per valid plane
+         **_bound(_nbytes(depth, alpha, planes2, fit2, out14),
+                  depth.numel() * (30.0 + 8 * n_valid)),
+         "source": src, "replaces": "planarslam_tpu/ops/planes.py:439",
+         "max_abs_err": worst("plane_label_pixels"),
+         "tolerance": "validity and counts exact, coefficients 1e-5, "
+                      "labels >= 99.9%",
+         "cases": {k: c["plane_label_pixels"] for k, c in cases.items()},
+         "ms": _time_ms(lambda: P.plane_label_pixels(*args, fit)),
+         "plain_ms": _time_ms(
+             lambda: P.plane_label_pixels_plain(*args, fit))},
+    ]
+    _print_kernels(out)
+    return out
+
+
+def manhattan_compare(R0, normals, valid, kw, want_success=None) -> dict:
+    """K15 against its plain version on the card: support counts, the axis
+    count and success equal, R_cm within 1e-5 (the kernel sums the
+    mean-shift weights in float64, the plain version in float32 in another
+    order; the weights feed a ratio); two launches give equal bits."""
+    import torch
+
+    from planarslam_tpu_torch.ops import manhattan as M
+
+    got = M.track_manhattan_frame(R0, normals, valid, **kw)
+    again = M.track_manhattan_frame(R0, normals, valid, **kw)
+    want = M.track_manhattan_frame_plain(R0, normals, valid, **kw)
+    torch.cuda.synchronize()
+    res = {"support": got.axis_support.tolist(),
+           "support_plain": want.axis_support.tolist(),
+           "n_axes": int(got.n_axes), "success": bool(got.success),
+           "max_abs_err": _max_err(got.R_cm, want.R_cm)}
+    _check(all(torch.equal(a, b) for a, b in zip(got, again)),
+           "manhattan_mean_shift: two launches on equal inputs differ")
+    _check(res["support"] == res["support_plain"]
+           and res["n_axes"] == int(want.n_axes)
+           and res["success"] == bool(want.success)
+           and res["max_abs_err"] <= 1e-5,
+           f"manhattan_mean_shift differs from plain: {res}")
+    if want_success is not None:
+        _check(res["success"] == want_success,
+               f"manhattan_mean_shift: success {res['success']}, expected "
+               f"{want_success}: {res}")
+    if not res["success"]:
+        _check(torch.equal(got.R_cm, R0),
+               "manhattan_mean_shift: R_cm changed without success")
+    return res
+
+
+def manhattan_kernel_parity(seq, cfg, dev) -> list:
+    """K15 against its plain version on the card on frame 0's surface
+    normals and line directions (N = max_normals + max_lines) with a
+    perturbed seed rotation, at both cone sines, with one axis's normals
+    invalidated (the cross-product completion) and with two (no success)."""
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import manhattan as M
+    from planarslam_tpu_torch.slam.frame import extract_frame
+
+    g8, d16 = quantize_frame(*seq.render(0), cfg.camera.depth_map_factor)
+    gray = torch.from_numpy(g8.astype(np.float32)).to(dev)
+    depth = torch.from_numpy(
+        d16.astype(np.float32) / np.float32(cfg.camera.depth_map_factor)
+    ).to(dev)
+    f = extract_frame(gray, depth, cfg)
+    vec = f.lines.p3d_e - f.lines.p3d_s
+    ln_len = torch.linalg.norm(vec, dim=-1, keepdim=True)
+    dirs = vec / torch.clamp(ln_len, min=1e-9)
+    ln_ok = f.lines.has_3d & f.lines.valid & (ln_len[:, 0] > 0.1)
+    R_seed, seed_ok = M.seed_from_plane_normals(
+        torch.cat([f.planes.coeffs[:, :3], dirs]),
+        torch.cat([f.planes.count, f.lines.response.to(torch.int32)]),
+        torch.cat([f.planes.valid, ln_ok]))
+    _check(bool(seed_ok), "manhattan parity: no seed frame in frame 0")
+    normals = torch.cat([f.normals, dirs]).contiguous()
+    valid = torch.cat([f.normals_valid, ln_ok]).contiguous()
+    twist = torch.from_numpy(Rotation.from_rotvec(
+        [0.03, -0.02, 0.01]).as_matrix().astype(np.float32)).to(dev)
+    R0 = (R_seed @ twist).contiguous()
+    mc = cfg.manhattan
+    kw = dict(cone_sin=mc.cone_sin_track, kernel=mc.mean_shift_kernel,
+              min_support=mc.min_axis_support)
+    cases = {"track": manhattan_compare(R0, normals, valid, kw, True),
+             "project": manhattan_compare(
+                 R0, normals, valid, dict(kw, cone_sin=mc.cone_sin_project),
+                 True)}
+    # drop the normals of the weakest found axis, then of the two weakest
+    axis = torch.argmax(torch.abs(normals @ R0), dim=-1)
+    order = np.argsort(cases["track"]["support"])
+    one = valid & (axis != int(order[0]))
+    two = one & (axis != int(order[1]))
+    cases["axis_missing"] = manhattan_compare(R0, normals, one, kw, True)
+    _check(cases["axis_missing"]["n_axes"] == 2,
+           f"manhattan parity: expected 2 axes: {cases['axis_missing']}")
+    cases["two_missing"] = manhattan_compare(R0, normals, two, kw, False)
+    print(f"manhattan kernel: {json.dumps(cases)}", flush=True)
+    got = M.track_manhattan_frame(R0, normals, valid, **kw)
+    n = normals.shape[0]
+    steps = 3 * (1 + 4)
+    out = [{"name": "manhattan_mean_shift", "route": "cuda",
+            "library_ms": None,
+            # per normal and pass: the rotation (15), the cone test, the
+            # tangent coordinates, one exp and three weighted sums (~45)
+            **_bound(_nbytes(R0, normals, valid, got), 45.0 * n * steps),
+            "source": "planarslam_tpu_torch/csrc/manhattan.cu",
+            "replaces": "planarslam_tpu/ops/manhattan.py:38",
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "tolerance": "R_cm 1e-5, support, axis count and success exact",
+            "shapes": {"N": n}, "cases": cases,
+            "ms": _time_ms(lambda: M.track_manhattan_frame(
+                R0, normals, valid, **kw)),
+            "plain_ms": _time_ms(lambda: M.track_manhattan_frame_plain(
+                R0, normals, valid, **kw))}]
+    _print_kernels(out)
+    return out
+
+
 def _clone(obj):
     """A copy of the tensors in obj (tuples, named tuples and dicts
     walked)."""
@@ -661,31 +1066,70 @@ def _clone(obj):
 
 @contextlib.contextmanager
 def _pose_calls(capture=()):
-    """Count the pose_opt.pose_optimize calls made inside the block (the
-    tracker calls it through its module) and keep the inputs of the calls
-    numbered in `capture` (from 1)."""
+    """Count the pose_opt.pose_optimize, planes.extract_planes and
+    manhattan.track_manhattan_frame calls made inside the block (their
+    callers reach them through their modules) and keep the inputs of the
+    pose_optimize calls numbered in `capture` (from 1)."""
+    from planarslam_tpu_torch.ops import manhattan, planes
     from planarslam_tpu_torch.solvers import pose_opt
 
-    rec = {"calls": 0, "inputs": []}
-    orig = pose_opt.pose_optimize
+    rec = {"calls": 0, "inputs": [], "plane_calls": 0, "manhattan_calls": 0}
+    orig = (pose_opt.pose_optimize, planes.extract_planes,
+            manhattan.track_manhattan_frame)
 
     def counted(*args, **kw):
         rec["calls"] += 1
         if rec["calls"] in capture:
             rec["inputs"].append(_clone((args, kw)))
-        return orig(*args, **kw)
+        return orig[0](*args, **kw)
+
+    def counted_planes(*args, **kw):
+        rec["plane_calls"] += 1
+        return orig[1](*args, **kw)
+
+    def counted_manhattan(*args, **kw):
+        rec["manhattan_calls"] += 1
+        return orig[2](*args, **kw)
 
     pose_opt.pose_optimize = counted
+    planes.extract_planes = counted_planes
+    manhattan.track_manhattan_frame = counted_manhattan
     try:
         yield rec
     finally:
-        pose_opt.pose_optimize = orig
+        (pose_opt.pose_optimize, planes.extract_planes,
+         manhattan.track_manhattan_frame) = orig
 
 
-def _check_pose_launches(name: str, launches: dict, calls: int) -> None:
-    _check(launches["pose_optimize"] == calls,
-           f"{name}: {launches['pose_optimize']} pose_optimize launches for "
-           f"{calls} calls")
+def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
+                         frames=None) -> None:
+    """One K11 launch per pose_optimize call; per extract_planes call one
+    K4, one K12, 1 + refine_rounds K13 and one K14 launch; one K15 launch
+    per track_manhattan_frame call; with `frames`, one extract_planes call
+    per frame."""
+    rounds = 1 + (cfg.planes.refine_rounds if cfg is not None else 0)
+    want = {"pose_optimize": rec["calls"],
+            "plane_block_moments": rec["plane_calls"],
+            "plane_components": rec["plane_calls"],
+            "plane_assign_refit": rounds * rec["plane_calls"],
+            "plane_label_pixels": rec["plane_calls"],
+            "manhattan_mean_shift": rec["manhattan_calls"]}
+    for kernel, n in want.items():
+        _check(launches[kernel] == n, f"{name}: {launches[kernel]} {kernel} "
+               f"launches, expected {n} ({rec['calls']} pose_optimize, "
+               f"{rec['plane_calls']} extract_planes, "
+               f"{rec['manhattan_calls']} track_manhattan_frame calls)")
+    if frames is not None:
+        _check(rec["plane_calls"] == frames and rec["manhattan_calls"] > 0,
+               f"{name}: {rec['plane_calls']} extract_planes and "
+               f"{rec['manhattan_calls']} track_manhattan_frame calls for "
+               f"{frames} frames")
+
+
+def _call_counts(rec: dict) -> dict:
+    return {"pose_optimize_calls": rec["calls"],
+            "extract_planes_calls": rec["plane_calls"],
+            "track_manhattan_frame_calls": rec["manhattan_calls"]}
 
 
 def _rel_err(got, want) -> float:
@@ -961,10 +1405,9 @@ def run_loop_path(seq, cfg, dev) -> dict:
            "gba_calls": lc.stats["gba_calls"],
            "median_ms_per_frame": float(np.median(t_ms)),
            "p95_ms_per_frame": float(np.percentile(t_ms, 95)),
-           "pose_optimize_calls": pc["calls"],
-           "wall_s": wall, "launches": launches}
+           **_call_counts(pc), "wall_s": wall, "launches": launches}
     print("path4a_loop " + json.dumps(res), flush=True)
-    _check_pose_launches("path4a", launches, pc["calls"])
+    _check_pose_launches("path4a", launches, pc, cfg, len(seq))
     _check(ate < ATE_LIMIT_M, f"path4a: ATE {ate:.5f} m >= {ATE_LIMIT_M} m")
     _check(res["lost"] == 0, f"path4a: {res['lost']} lost frames")
     if inside["verifications"]:
@@ -985,11 +1428,16 @@ def run_constructed_loop_path(seq, cfg, dev) -> dict:
     from planarslam_tpu_torch.solvers import global_ba
 
     slam = System(config=cfg, device=dev)
-    for i in range(CONSTRUCTED_FRAMES):
-        slam.track_rgbd(*quantize_frame(*seq.render(i),
-                                        cfg.camera.depth_map_factor),
-                        seq.timestamps[i])
-    slam.shutdown()
+    kernels.reset_launches()
+    with _pose_calls() as pc_track:
+        for i in range(CONSTRUCTED_FRAMES):
+            slam.track_rgbd(*quantize_frame(*seq.render(i),
+                                            cfg.camera.depth_map_factor),
+                            seq.timestamps[i])
+        slam.shutdown()
+    tracking_launches = dict(kernels.LAUNCHES)
+    _check_pose_launches("path4b (tracking)", tracking_launches, pc_track,
+                         cfg, CONSTRUCTED_FRAMES)
     m = slam.map
     kf, n_clones, pose_before = construct_loop(m)
     n_valid = int(m.pt_valid.sum())
@@ -1031,9 +1479,11 @@ def run_constructed_loop_path(seq, cfg, dev) -> dict:
            "k3_in_verification": inside["gated_hamming_top2"],
            "k6_in_verification": inside["horn_align_batch"],
            "gba_s": after_pg.get("gba_s"), "wall_s": wall,
-           "pose_optimize_calls": pc["calls"], "launches": launches}
+           **_call_counts(pc), "launches": launches,
+           "tracking_calls": _call_counts(pc_track),
+           "tracking_launches": tracking_launches}
     print("path4b_constructed_loop " + json.dumps(res), flush=True)
-    _check_pose_launches("path4b", launches, pc["calls"])
+    _check_pose_launches("path4b", launches, pc, cfg)
     _check(ok, "path4b: the constructed loop was not verified")
     _check("pose" in after_pg, "path4b: global BA did not run")
     _check(delta_pg < 0.4 * drift, f"path4b: the pose graph left "
@@ -1142,7 +1592,9 @@ def run_ba_scale_path(dev) -> dict:
                f"path4c: {name} orbit did not converge: {res[name]}")
     res["launches"] = dict(kernels.LAUNCHES)
     print("path4c_ba_scale " + json.dumps(res), flush=True)
-    _check_pose_launches("path4c (BA alone)", res["launches"], 0)
+    _check_pose_launches("path4c (BA alone)", res["launches"],
+                         {"calls": 0, "plane_calls": 0,
+                          "manhattan_calls": 0})
     return res
 
 
@@ -1196,12 +1648,11 @@ def run_tracking_path(name, seq, frames, cfg, dev, local_mapping: bool,
            "manhattan_success": int(st["manhattan_success"]),
            "median_ms_per_frame": float(np.median(t_ms)),
            "p95_ms_per_frame": float(np.percentile(t_ms, 95)),
-           "pose_optimize_calls": pc["calls"],
-           "wall_s": wall, "launches": launches}
+           **_call_counts(pc), "wall_s": wall, "launches": launches}
     if slam.local_mapper is not None:
         res["mapping"] = dict(slam.local_mapper.stats)
     print(f"{name} " + json.dumps(res), flush=True)
-    _check_pose_launches(name, launches, pc["calls"])
+    _check_pose_launches(name, launches, pc, cfg, n_frames)
     res["captured"] = pc["inputs"]
     _check(ate < ATE_LIMIT_M, f"{name}: ATE {ate:.5f} m >= {ATE_LIMIT_M} m")
     _check(res["lost"] == 0, f"{name}: {res['lost']} lost frames")
@@ -1234,11 +1685,10 @@ def run_reloc_path(seq, cfg, dev) -> dict:
     with _pose_calls() as pc:
         res = _reloc_run(slam, seq, cfg)
     torch.cuda.synchronize()
-    res.update(wall_s=time.perf_counter() - t_all,
-               pose_optimize_calls=pc["calls"],
+    res.update(wall_s=time.perf_counter() - t_all, **_call_counts(pc),
                launches=dict(kernels.LAUNCHES))
     print("path3_reloc " + json.dumps(res), flush=True)
-    _check_pose_launches("path3", res["launches"], pc["calls"])
+    _check_pose_launches("path3", res["launches"], pc, cfg)
     return res
 
 
@@ -1338,7 +1788,9 @@ def main(argv=None) -> int:
                                   height=cfg.camera.height)
     k11 = pose_kernel_parity(cfg, dev)
     report = (kernel_parity(seq, cfg, dev) + backend_kernel_parity(cfg, dev)
-              + ba_kernel_parity(dev) + k11)
+              + ba_kernel_parity(dev) + k11
+              + plane_kernel_parity(seq, cfg, dev)
+              + manhattan_kernel_parity(seq, cfg, dev))
     frames = [quantize_frame(*seq.render(i), cfg.camera.depth_map_factor)
               for i in range(n)]
     # the two calls (obs1, obs2) of path 1's 21st fused frame

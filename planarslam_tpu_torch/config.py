@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU SLAM system.
+"""Typed configuration for the PyTorch/CUDA port of the SLAM system.
 
 One dataclass tree replaces the reference's two config channels (direct
 ``cv::FileStorage`` reads in constructors, reference ``src/Tracking.cc:29-141``,
@@ -8,9 +8,11 @@ plus the global ``Config::Get<T>`` singleton, ``include/Config.h:13-26``).
 ``Plane.AssociationAngRef``), so a reference user can point this system at
 their existing settings file.
 
-Static capacities: XLA needs static shapes, so every per-frame and map-wide
-quantity has a fixed capacity with a validity mask (SURVEY.md §7 "fixed-size
-everything"). Capacities live here so tests can shrink them.
+Static capacities: the kernels and the device-resident map work on fixed
+shapes, so every per-frame and map-wide quantity has a fixed capacity with a
+validity mask (SURVEY.md §7 "fixed-size everything"). Capacities live here
+so tests can shrink them. Field names and values equal the JAX package's
+``planarslam_tpu/config.py``.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ class ORBConfig:
     """ORB front-end parameters (reference `src/ORBextractor.cc:410` ctor args).
 
     The octree keypoint distribution (`src/ORBextractor.cc:539`) is redesigned
-    as per-tile top-k selection — same uniform-coverage goal, TPU shaped.
+    as per-tile top-k selection — same uniform-coverage goal, fixed shapes.
     """
 
     n_features: int = 1000
@@ -65,7 +67,7 @@ class ORBConfig:
     n_levels: int = 8
     ini_th_fast: int = 20
     min_th_fast: int = 7
-    # TPU capacities / tiling (not in reference; implementation parameters)
+    # device capacities / tiling (not in reference; implementation parameters)
     max_keypoints: int = 1024  # padded per-frame keypoint capacity
     tile: int = 32  # top-k selection tile size in pixels (level 0)
     patch_size: int = 31  # orientation / descriptor patch (reference PATCH_SIZE)
@@ -111,7 +113,7 @@ class PlaneConfig:
     vp_chi: float = 50.0  # Plane.VPChi gating for parallel/vertical edges
     parallel_info: float = 0.1  # Plane.ParallelInfo
     vertical_info: float = 0.1  # Plane.VerticalInfo
-    # TPU implementation parameters (PEAC block size; reference default 10x10)
+    # implementation parameters (PEAC block size; reference default 10x10)
     block: int = 8
     # label-propagation rounds replacing the AHC heap merge; with pointer
     # jumping (path halving) coverage grows ~2^rounds, so 12 rounds span any
@@ -134,9 +136,9 @@ class PlaneConfig:
     # the robust re-assign/refit rounds run on a refine_stride-subsampled
     # pixel grid: plane moments from HW/stride^2 samples estimate the same
     # parameters (tens of thousands of samples per plane remain at 640x480)
-    # while each round's (HW, P) distance matrix + one-hot refit — the
-    # dominant extract_planes cost, measured 3.3-3.6 ms/round on TPU —
-    # shrinks by stride^2. Only the FINAL pixel labeling runs at full
+    # while each round's pass over the pixels (distances to P planes and
+    # the moment sums, kernel K13) shrinks by stride^2. Only the FINAL
+    # pixel labeling (K14) runs at full
     # resolution. Set to 1 on tiny frames where every pixel counts.
     refine_stride: int = 2
     # edge-preserving box window for the plane/normal depth path (the role
@@ -195,7 +197,7 @@ class TrackingConfig:
     reloc_min_inliers: int = 50
     # >1 runs C sequential frames per device program (one upload/execute/
     # pull per chunk) — throughput mode for transaction-latency-bound
-    # deployments (e.g. a host<->TPU tunnel); pose output + map updates lag
+    # deployments (e.g. a remote accelerator); pose output + map updates lag
     # up to 2C frames. 1 = per-frame streaming with the pipelined tracker.
     chunk_size: int = 1
     # streaming mode: frames in flight before the tracker blocks on the

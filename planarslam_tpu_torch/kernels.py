@@ -32,7 +32,8 @@ KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
                 "plane_block_moments", "triangulate_two_view",
                 "horn_align_batch", "pnp_dlt_hypotheses", "ba_normal_eqs",
                 "ba_schur_eliminate", "pose_graph_normal_eqs",
-                "pose_optimize")
+                "pose_optimize", "plane_components", "plane_assign_refit",
+                "plane_label_pixels", "manhattan_mean_shift")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -41,9 +42,13 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
 CUDA_SOURCES = ("fast_score.cu", "orb_describe.cu", "hamming_top2.cu",
                 "triangulate.cu", "horn_align.cu", "pnp_dlt.cu",
                 "ba_normal_eqs.cu", "ba_schur.cu", "pose_graph.cu",
-                "pose_opt.cu")
+                "pose_opt.cu", "plane_segment.cu", "manhattan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+# Sources whose float32 gates must round as the plain version's separate
+# PyTorch ops do: no contraction of a product and a sum into one FMA.
+SOURCE_FLAGS = {"plane_segment.cu": ("-fmad=false",),
+                "manhattan.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -95,6 +100,25 @@ _SIGNATURES = {
     "psl_pose_optimize": [_P] * 6 + [_I] + [_P] * 5 + [_I]
                          + ([_P] * 3 + [_I]) * 3 + [_P, _I] + [_F] * 11
                          + [_I, _I] + [_P] * 10,
+    # s1, s2, n, hb, wb, P, merge_rounds, full_count, mse_sigma, mse_tol,
+    # angle_cos, dist_thr, min_support, assoc_angle, assoc_dist2, fit_b,
+    # normal_c, d_c, cand_valid, labels, block_valid, stream
+    "psl_plane_components": [_P] * 3 + [_I] * 4 + [_F] * 8 + [_P] * 7,
+    # depth, alpha, h, w, rs, fx, fy, cx, cy, geo_tol, max_distance,
+    # dist_thr, jump_coef, P, normal, d, valid, mse, mean, n_p (the last
+    # three NULL in round 1), pix_per_block, partial, label_sub, normal_f,
+    # d_f, mse_f, mean_f, n_f, alive, stream
+    "psl_plane_assign_refit": [_P, _P] + [_I] * 3 + [_F] * 8 + [_I]
+                              + [_P] * 6 + [_I] + [_P] * 9,
+    # depth, alpha, h, w, fx, fy, cx, cy, geo_tol, max_distance, dist_thr,
+    # jump_coef, P, normal, d, valid, mse, mean, n_p, min_size, label_in
+    # (or NULL), coeffs, valid_out, count, pixel_label, stream
+    "psl_plane_label_pixels": [_P, _P] + [_I] * 2 + [_F] * 8 + [_I]
+                              + [_P] * 6 + [_I] + [_P] * 6,
+    # R_init, normals, valid, N, cos_half, kernel, min_support, iters,
+    # ms_iters, R_out, support, n_axes, success, stream
+    "psl_manhattan_mean_shift": [_P] * 3 + [_I, _F, _F] + [_I] * 3
+                                + [_P] * 5,
 }
 
 
@@ -121,6 +145,7 @@ def library_path() -> str:
             with open(os.path.join(CSRC, name), "rb") as f:
                 h.update(name.encode() + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return os.path.join(BUILD_DIR, f"libpsl_kernels_{h.hexdigest()[:16]}.so")
 
 
@@ -138,7 +163,8 @@ def build(verbose: bool = False) -> str:
     objs, procs = [], []
     for src in CUDA_SOURCES:
         obj = os.path.join(BUILD_DIR, f"{src}.{tag}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()), "-I", CSRC,
+               "-c", "-o", obj]
         if verbose:
             cmd += ["-Xptxas", "-v"]
         cmd.append(os.path.join(CSRC, src))

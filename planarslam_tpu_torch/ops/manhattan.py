@@ -6,6 +6,10 @@ three axes, each axis is refined by mean-shift on its tangent plane with the
 kernel exp(-k ||x||^2), a single missing axis is completed by a cross
 product, and the result is re-orthonormalized. Fixed shapes, no
 data-dependent branching, no host sync.
+
+``track_manhattan_frame`` is the wrapper of kernel K15
+(``csrc/manhattan.cu``, all rounds in one launch); its plain PyTorch
+version ``track_manhattan_frame_plain`` runs for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -16,23 +20,26 @@ from typing import NamedTuple, Tuple
 import torch
 from torch.profiler import record_function
 
+from planarslam_tpu_torch import kernels
 from planarslam_tpu_torch.geometry import se3
 
 
 class ManhattanResult(NamedTuple):
     R_cm: torch.Tensor          # (3, 3) camera-from-Manhattan rotation
-    axis_support: torch.Tensor  # (3,) int32 normals voting per axis
-    n_axes: torch.Tensor        # () int32 number of well-supported axes
+    axis_support: torch.Tensor  # (3,) int64 normals voting per axis
+    n_axes: torch.Tensor        # () int64 number of well-supported axes
     success: torch.Tensor       # () bool — at least 2 axes found
 
 
-@record_function("manhattan.track_manhattan_frame")
-def track_manhattan_frame(R_cm_init: torch.Tensor, normals: torch.Tensor,
-                          valid: torch.Tensor, cone_sin: float = 0.2018,
-                          kernel: float = 20.0, min_support: int = 20,
-                          iters: int = 3, ms_iters: int = 4
-                          ) -> ManhattanResult:
-    """Refine the Manhattan rotation from one frame's surface normals."""
+def track_manhattan_frame_plain(R_cm_init: torch.Tensor,
+                                normals: torch.Tensor, valid: torch.Tensor,
+                                cone_sin: float = 0.2018,
+                                kernel: float = 20.0, min_support: int = 20,
+                                iters: int = 3, ms_iters: int = 4
+                                ) -> ManhattanResult:
+    """Plain version of K15: ``iters`` rounds of cone membership, per-axis
+    mean shift, completion of one missing axis and re-orthonormalization.
+    A round that finds fewer than two axes keeps the rotation it had."""
     cos_half = math.sqrt(1.0 - cone_sin * cone_sin)
     R_cm = R_cm_init
     supp = n_found = ok = None
@@ -92,6 +99,47 @@ def track_manhattan_frame(R_cm_init: torch.Tensor, normals: torch.Tensor,
         R_cm = torch.where(ok, R_new, R_cm)
     return ManhattanResult(R_cm=R_cm, axis_support=supp, n_axes=n_found,
                            success=ok)
+
+
+@record_function("manhattan.track_manhattan_frame")
+def track_manhattan_frame(R_cm_init: torch.Tensor, normals: torch.Tensor,
+                          valid: torch.Tensor, cone_sin: float = 0.2018,
+                          kernel: float = 20.0, min_support: int = 20,
+                          iters: int = 3, ms_iters: int = 4
+                          ) -> ManhattanResult:
+    """Refine the Manhattan rotation from one frame's surface normals. K15
+    wrapper. R_cm_init: (3, 3) float32; normals: (N, 3) float32 unit
+    vectors (zeros where padded); valid: (N,) bool. Returns R_cm (3, 3)
+    float32, axis_support (3,) and n_axes () int64, success () bool."""
+    if kernels.on_cpu(R_cm_init, normals, valid):
+        return track_manhattan_frame_plain(R_cm_init, normals, valid,
+                                           cone_sin, kernel, min_support,
+                                           iters, ms_iters)
+    kernels.check(R_cm_init, "R_cm_init", torch.float32, (3, 3))
+    if normals.dim() != 2:
+        raise ValueError(f"normals: expected (N, 3), got "
+                         f"{tuple(normals.shape)}")
+    n = normals.shape[0]
+    kernels.check(normals, "normals", torch.float32, (n, 3))
+    kernels.check(valid, "valid", torch.bool, (n,))
+    if iters < 1 or ms_iters < 0:
+        raise ValueError(f"iters >= 1 and ms_iters >= 0, got {iters}, "
+                         f"{ms_iters}")
+    dev = normals.device
+    R_cm = torch.empty((3, 3), dtype=torch.float32, device=dev)
+    support = torch.empty((3,), dtype=torch.int64, device=dev)
+    n_axes = torch.empty((), dtype=torch.int64, device=dev)
+    success = torch.empty((), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch(
+            "psl_manhattan_mean_shift", kernels.ptr(R_cm_init),
+            kernels.ptr(normals), kernels.ptr(valid), n,
+            math.sqrt(1.0 - cone_sin * cone_sin), float(kernel),
+            int(min_support), int(iters), int(ms_iters), kernels.ptr(R_cm),
+            kernels.ptr(support), kernels.ptr(n_axes), kernels.ptr(success))
+    kernels.LAUNCHES["manhattan_mean_shift"] += 1
+    return ManhattanResult(R_cm=R_cm, axis_support=support, n_axes=n_axes,
+                           success=success)
 
 
 def seed_from_plane_normals(normals: torch.Tensor, counts: torch.Tensor,

@@ -7,14 +7,21 @@ per-component refit, top-P by support -> pixel-level refinement rounds.
 
 ``plane_block_moments`` is kernel K4 (Triton, ``csrc/plane_moments_triton.py``):
 back-projection, the depth-range and depth-jump gate and the per-block
-moment sums in one pass. ``plane_block_moments_plain`` is its plain PyTorch
-version. Everything else here stays plain PyTorch.
+moment sums in one pass. The rest of ``extract_planes`` is three CUDA
+kernels (``csrc/plane_segment.cu``): ``plane_components`` (K12: block fits,
+connected components, top-P candidates), ``plane_assign_refit`` (K13: one
+assign-and-refit round over the subsampled pixels, launched once per
+round) and ``plane_label_pixels`` (K14: the final gate and the
+full-resolution labels). Each wrapper has its plain PyTorch version beside
+it (``*_plain``), taken only for CPU tensors; ``extract_planes`` composes
+the wrappers. ``_noise_alpha``, ``box_smooth_depth`` and ``surface_normals``
+stay plain PyTorch.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,8 +51,8 @@ class PlaneFeatures(NamedTuple):
 def backproject_depth(depth: torch.Tensor, cam: CameraConfig) -> torch.Tensor:
     """(H, W) metres -> (H, W, 3) camera-frame points (z=0 where invalid)."""
     h, w = depth.shape
-    vv = torch.arange(h, dtype=torch.float32, device=depth.device)[:, None]
-    uu = torch.arange(w, dtype=torch.float32, device=depth.device)[None, :]
+    vv = torch.arange(h, dtype=depth.dtype, device=depth.device)[:, None]
+    uu = torch.arange(w, dtype=depth.dtype, device=depth.device)[None, :]
     x = (uu - cam.cx) / cam.fx * depth
     y = (vv - cam.cy) / cam.fy * depth
     return torch.stack([x, y, depth], dim=-1)
@@ -250,25 +257,48 @@ def _noise_alpha(depth: torch.Tensor, max_distance: float) -> torch.Tensor:
     return torch.nan_to_num(alpha, nan=0.0)
 
 
-@record_function("planes.extract_planes")
-def extract_planes(depth: torch.Tensor, cam: CameraConfig,
-                   cfg: PlaneConfig) -> PlaneFeatures:
-    """Full plane segmentation for one frame (PEAC-equivalent)."""
-    dev = depth.device
-    h, w = depth.shape
+class PlaneCandidates(NamedTuple):
+    normal: torch.Tensor       # (P, 3) candidate plane normals
+    d: torch.Tensor            # (P,) candidate plane offsets
+    valid: torch.Tensor        # (P,) bool, after the support gate and dedup
+    labels: torch.Tensor       # (B,) int32 component root of every block
+    block_valid: torch.Tensor  # (B,) bool
+
+
+class PlaneRefit(NamedTuple):
+    label_sub: torch.Tensor  # (S,) int32 plane of each subsampled pixel or P
+    normal: torch.Tensor     # (P, 3) refitted planes
+    d: torch.Tensor          # (P,)
+    mse: torch.Tensor        # (P,)
+    mean: torch.Tensor       # (P, 3) centroids
+    n: torch.Tensor          # (P,) support in full-resolution pixels
+    alive: torch.Tensor      # (P,) bool: the planes this round assigned to
+
+
+# most blocks K12's one thread block holds in shared memory (two int32
+# label buffers and two byte edge maps per block) and most planes K12-K14
+# keep per thread block
+MAX_BLOCKS = 16384
+MAX_PLANES = 32
+# subsampled pixels per thread block of K13's first kernel: one row of its
+# partial-sum scratch per block
+ASSIGN_PIXELS_PER_BLOCK = 512
+
+
+def _geo_tol(width: int) -> float:
+    """Geometric depth-jump tolerance per metre, scaled with resolution."""
+    return 0.02 * (640.0 / width)
+
+
+def plane_components_plain(stats: _BlockStats, hb: int, wb: int,
+                           cfg: PlaneConfig) -> PlaneCandidates:
+    """Plain version of K12: per-block plane fits and validity, connected
+    components over coplanar neighbours (synchronous min-label pull with
+    pointer jumping, ``merge_rounds`` rounds), per-component refit of the
+    top-P components by support, dedup of near-identical candidates."""
+    dev = stats.n.device
     block = cfg.block
-    hb, wb = h // block, w // block
     n_blocks = hb * wb
-
-    points = backproject_depth(depth, cam)
-    res_scale = 640.0 / w
-    geo_tol = 0.02 * res_scale
-    z2 = torch.clamp(depth, min=1.0) ** 2
-    alpha = _noise_alpha(depth, cfg.max_distance)
-    depth_ok = _valid_depth(depth, alpha, geo_tol, cfg.max_distance)
-
-    stats = plane_block_moments(depth, alpha, cam, geo_tol, cfg.max_distance,
-                                block)
     normal_b, d_b, mse_b, mean_b = _plane_from_moments(stats.s1, stats.s2,
                                                        stats.n)
 
@@ -309,16 +339,15 @@ def extract_planes(depth: torch.Tensor, cam: CameraConfig,
         labels = new[new]  # pointer jumping
 
     # --- per-component refit --------------------------------------------------
-    bvf = block_valid.to(torch.float32)
+    bvf = block_valid.to(stats.n.dtype)
     seg = torch.where(block_valid, labels, n_blocks)
     s1_seg = segment_sum(stats.s1 * bvf[:, None], seg, n_blocks + 1)
     s2_seg = segment_sum(stats.s2 * bvf[:, None, None], seg, n_blocks + 1)
     n_seg = segment_sum(stats.n * bvf, seg, n_blocks + 1)
 
-    p_cap = cfg.max_planes
-    top_n, top_idx = top_k(n_seg[:n_blocks], p_cap)
+    top_n, top_idx = top_k(n_seg[:n_blocks], cfg.max_planes)
     cand_valid = top_n >= float(min(cfg.min_size, 3 * block * block))
-    normal_c, d_c, mse_c, mean_c = _plane_from_moments(
+    normal_c, d_c, _, _ = _plane_from_moments(
         s1_seg[top_idx], s2_seg[top_idx], top_n)
 
     cos_ij = normal_c @ normal_c.T
@@ -327,91 +356,284 @@ def extract_planes(depth: torch.Tensor, cam: CameraConfig,
            & cand_valid[:, None] & cand_valid[None, :])
     shadowed = torch.tril(dup, -1).any(dim=1)
     cand_valid = cand_valid & ~shadowed
+    return PlaneCandidates(normal_c, d_c, cand_valid,
+                           labels.to(torch.int32), block_valid)
 
-    # --- pixel-level refinement ----------------------------------------------
+
+def plane_components(stats: _BlockStats, hb: int, wb: int,
+                     cfg: PlaneConfig) -> PlaneCandidates:
+    """K12 wrapper. stats: K4's (s1 (B, 3), s2 (B, 3, 3), n (B,)) float32
+    over the hb x wb block grid, B = hb * wb in row-major order. Returns
+    the P = cfg.max_planes candidate planes with their validity, and every
+    block's component label and validity."""
+    if kernels.on_cpu(*stats):
+        return plane_components_plain(stats, hb, wb, cfg)
+    nb, p_cap = hb * wb, cfg.max_planes
+    kernels.check(stats.s1, "s1", torch.float32, (nb, 3))
+    kernels.check(stats.s2, "s2", torch.float32, (nb, 3, 3))
+    kernels.check(stats.n, "n", torch.float32, (nb,))
+    if not 0 < p_cap <= min(MAX_PLANES, nb):
+        raise ValueError(f"max_planes must lie in [1, min({MAX_PLANES}, "
+                         f"{nb} blocks)], got {p_cap}")
+    if nb > MAX_BLOCKS:
+        raise ValueError(f"{nb} blocks exceed the {MAX_BLOCKS} one thread "
+                         f"block holds")
+    dev = stats.n.device
+    fit_b = torch.empty((nb, 7), dtype=torch.float32, device=dev)
+    normal_c = torch.empty((p_cap, 3), dtype=torch.float32, device=dev)
+    d_c = torch.empty((p_cap,), dtype=torch.float32, device=dev)
+    cand_valid = torch.empty((p_cap,), dtype=torch.bool, device=dev)
+    labels = torch.empty((nb,), dtype=torch.int32, device=dev)
+    block_valid = torch.empty((nb,), dtype=torch.bool, device=dev)
+    block = cfg.block
+    with torch.cuda.device(dev):
+        kernels.launch(
+            "psl_plane_components", kernels.ptr(stats.s1),
+            kernels.ptr(stats.s2), kernels.ptr(stats.n), hb, wb, p_cap,
+            int(cfg.merge_rounds), float(block * block - 4),
+            float(cfg.block_mse_sigma), float(cfg.block_mse_tol),
+            math.cos(math.radians(cfg.angle_threshold_deg * 2.0)),
+            float(cfg.distance_threshold),
+            float(min(cfg.min_size, 3 * block * block)),
+            float(cfg.assoc_angle), 2.0 * cfg.assoc_dist,
+            kernels.ptr(fit_b), kernels.ptr(normal_c), kernels.ptr(d_c),
+            kernels.ptr(cand_valid), kernels.ptr(labels),
+            kernels.ptr(block_valid))
+    kernels.LAUNCHES["plane_components"] += 1
+    return PlaneCandidates(normal_c, d_c, cand_valid, labels, block_valid)
+
+
+def _pixel_inputs(depth: torch.Tensor, alpha: torch.Tensor,
+                  cam: CameraConfig, cfg: PlaneConfig, stride: int):
+    """Per pixel of the stride-subsampled grid: the back-projected point
+    (S, 3), the noise-scaled distance band (S,) and the depth gate (S,)."""
+    points = backproject_depth(depth, cam)
+    z2 = torch.clamp(depth, min=1.0) ** 2
+    depth_ok = _valid_depth(depth, alpha, _geo_tol(depth.shape[1]),
+                            cfg.max_distance)
+    pts = points[::stride, ::stride].reshape(-1, 3)
+    band = torch.clamp(3.0 * alpha * z2[::stride, ::stride],
+                       min=cfg.distance_threshold).reshape(-1)
+    return pts, band, depth_ok[::stride, ::stride].reshape(-1)
+
+
+def _tau(mse: torch.Tensor) -> torch.Tensor:
+    """A plane's own inlier gate: 2.5 fitted sigma, at least 1 mm."""
+    return torch.clamp(2.5 * torch.sqrt(torch.clamp(mse, min=0.0)), min=1e-3)
+
+
+def plane_assign_refit_plain(depth: torch.Tensor, alpha: torch.Tensor,
+                             cam: CameraConfig, cfg: PlaneConfig,
+                             normal: torch.Tensor, d: torch.Tensor,
+                             valid: torch.Tensor,
+                             fit: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]] = None
+                             ) -> PlaneRefit:
+    """Plain version of K13: one assign-and-refit round over the
+    ``refine_stride``-subsampled pixels. Round 1 (``fit`` None) assigns each
+    gated pixel to the nearest valid plane within its band. A refine round
+    gets the ``(mse, mean, n)`` of the fit the planes came from: it first
+    drops ghost planes (a plane whose centroid lies in a bigger, nearly
+    parallel plane's band), then also gates each pixel at its plane's own
+    tau. Either way the planes are refitted from the moments of their
+    pixels, weighted by the stride's area."""
+    p_cap = normal.shape[0]
     rs = max(1, int(cfg.refine_stride))
-    pts_sub = points[::rs, ::rs].reshape(-1, 3)
-    band_sub = torch.clamp(3.0 * alpha * z2[::rs, ::rs],
-                           min=cfg.distance_threshold).reshape(-1)
-    ok_sub = depth_ok[::rs, ::rs].reshape(-1)
-    area = float(rs * rs)
-    inf = math.inf
-
-    dist_pix = torch.abs(pts_sub @ normal_c.T + d_c[None, :])
-    dist_pix = torch.where(cand_valid[None, :], dist_pix, inf)
-    best_dist = torch.amin(dist_pix, dim=-1)
-    best = torch.argmin(dist_pix, dim=-1)
-    assigned = (best_dist < band_sub) & ok_sub
-    label_sub = torch.where(assigned, best, p_cap)
-
-    x, y, z = pts_sub[:, 0], pts_sub[:, 1], pts_sub[:, 2]
-    feats = torch.stack([x, y, z, x * x, x * y, x * z, y * y, y * z, z * z,
-                         torch.ones_like(x)], dim=-1)
-
-    def refit(lbl):
-        one_hot = F.one_hot(lbl, p_cap + 1).to(torch.float32)
-        agg = one_hot.T @ feats * area
-        s1_p = agg[:p_cap, :3]
-        a = agg[:p_cap]
-        s2_p = torch.stack([
-            torch.stack([a[:, 3], a[:, 4], a[:, 5]], -1),
-            torch.stack([a[:, 4], a[:, 6], a[:, 7]], -1),
-            torch.stack([a[:, 5], a[:, 7], a[:, 8]], -1),
-        ], dim=-2)
-        n_p = a[:, 9]
-        return _plane_from_moments(s1_p, s2_p, n_p) + (n_p,)
-
-    normal_f, d_f, mse_f, mean_f, n_p = refit(label_sub)
-
-    cos25 = 0.9063
-    for _ in range(cfg.refine_rounds):
-        alive = cand_valid & (n_p > 3)
-        cosm = normal_f @ normal_f.T
-        cen_d = torch.abs(mean_f @ normal_f.T + d_f[None, :])
+    pts, band, ok = _pixel_inputs(depth, alpha, cam, cfg, rs)
+    if fit is None:
+        alive = valid
+    else:
+        mse, mean, n_p = fit
+        alive = valid & (n_p > 3)
+        cosm = normal @ normal.T
+        cen_d = torch.abs(mean @ normal.T + d[None, :])
         band_j = torch.clamp(
-            3.0 * alpha * torch.clamp(mean_f[:, 2], min=1.0) ** 2,
+            3.0 * alpha * torch.clamp(mean[:, 2], min=1.0) ** 2,
             min=cfg.distance_threshold)
         bigger = n_p[None, :] > n_p[:, None]
         shadow = (alive[None, :] & alive[:, None] & bigger
-                  & (cosm > cos25) & (cen_d < band_j[:, None]))
+                  & (cosm > 0.9063) & (cen_d < band_j[:, None]))
         alive = alive & ~shadow.any(dim=1)
 
-        tau = torch.clamp(2.5 * torch.sqrt(torch.clamp(mse_f, min=0.0)),
-                          min=1e-3)
-        dist_r = torch.abs(pts_sub @ normal_f.T + d_f[None, :])
-        dist_r = torch.where(alive[None, :], dist_r, inf)
-        best_rd = torch.amin(dist_r, dim=-1)
-        best_r = torch.argmin(dist_r, dim=-1)
-        keep = (best_rd < torch.minimum(tau[best_r], band_sub)) & ok_sub
-        label_sub = torch.where(keep, best_r, p_cap)
-        normal_f, d_f, mse_f, mean_f, n_p = refit(label_sub)
-        cand_valid = cand_valid & alive
+    dist = torch.abs(pts @ normal.T + d[None, :])
+    dist = torch.where(alive[None, :], dist, math.inf)
+    best_d = torch.amin(dist, dim=-1)
+    best = torch.argmin(dist, dim=-1)
+    if fit is None:
+        keep = (best_d < band) & ok
+    else:
+        keep = (best_d < torch.minimum(_tau(mse)[best], band)) & ok
+    label = torch.where(keep, best, p_cap)
 
-    count = n_p.to(torch.int32)
-    mse_gate = torch.clamp(2.0 * alpha * mean_f[:, 2] ** 2,
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    feats = torch.stack([x, y, z, x * x, x * y, x * z, y * y, y * z, z * z,
+                         torch.ones_like(x)], dim=-1)
+    one_hot = F.one_hot(label, p_cap + 1).to(feats.dtype)
+    a = (one_hot.T @ feats * float(rs * rs))[:p_cap]
+    s2_p = torch.stack([
+        torch.stack([a[:, 3], a[:, 4], a[:, 5]], -1),
+        torch.stack([a[:, 4], a[:, 6], a[:, 7]], -1),
+        torch.stack([a[:, 5], a[:, 7], a[:, 8]], -1),
+    ], dim=-2)
+    n_new = a[:, 9]
+    normal_f, d_f, mse_f, mean_f = _plane_from_moments(a[:, :3], s2_p, n_new)
+    return PlaneRefit(label.to(torch.int32), normal_f, d_f, mse_f, mean_f,
+                      n_new, alive)
+
+
+def _check_pixel_args(depth, alpha, normal, d, valid, fit) -> int:
+    """Validate what K13 and K14 share; returns P."""
+    kernels.check(depth, "depth", torch.float32)
+    if depth.dim() != 2:
+        raise ValueError(f"depth: expected (H, W), got {tuple(depth.shape)}")
+    kernels.check(alpha, "alpha", torch.float32, ())
+    if normal.dim() != 2:
+        raise ValueError(f"normal: expected (P, 3), got "
+                         f"{tuple(normal.shape)}")
+    p_cap = normal.shape[0]
+    if not 0 < p_cap <= MAX_PLANES:
+        raise ValueError(f"1 to {MAX_PLANES} planes, got {p_cap}")
+    kernels.check(normal, "normal", torch.float32, (p_cap, 3))
+    kernels.check(d, "d", torch.float32, (p_cap,))
+    kernels.check(valid, "valid", torch.bool, (p_cap,))
+    if fit is not None:
+        kernels.check(fit[0], "mse", torch.float32, (p_cap,))
+        kernels.check(fit[1], "mean", torch.float32, (p_cap, 3))
+        kernels.check(fit[2], "n", torch.float32, (p_cap,))
+    return p_cap
+
+
+def _pixel_scalars(depth, cam: CameraConfig, cfg: PlaneConfig):
+    """The float arguments K13 and K14 share, after the image size."""
+    return (float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
+            _geo_tol(depth.shape[1]), float(cfg.max_distance),
+            float(cfg.distance_threshold), _THREE_SQRT2)
+
+
+def plane_assign_refit(depth: torch.Tensor, alpha: torch.Tensor,
+                       cam: CameraConfig, cfg: PlaneConfig,
+                       normal: torch.Tensor, d: torch.Tensor,
+                       valid: torch.Tensor,
+                       fit: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]] = None
+                       ) -> PlaneRefit:
+    """K13 wrapper. depth: (H, W) float32 metres; alpha: () float32 noise
+    scale; normal (P, 3), d (P,), valid (P,) bool: the planes to assign to;
+    fit: None in round 1, else the ``(mse (P,), mean (P, 3), n (P,))`` of
+    the refit the planes came from (a refine round). Everything stays on
+    the device: a round's result feeds the next without a host sync."""
+    tensors = (depth, alpha, normal, d, valid) + tuple(fit or ())
+    if kernels.on_cpu(*tensors):
+        return plane_assign_refit_plain(depth, alpha, cam, cfg, normal, d,
+                                        valid, fit)
+    p_cap = _check_pixel_args(depth, alpha, normal, d, valid, fit)
+    rs = max(1, int(cfg.refine_stride))
+    h, w = depth.shape
+    n_sub = -(-h // rs) * -(-w // rs)
+    dev = depth.device
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    n_part = -(-n_sub // ASSIGN_PIXELS_PER_BLOCK)
+    partial = empty((n_part, p_cap, 10), torch.float64)
+    out = PlaneRefit(empty((n_sub,), torch.int32), empty((p_cap, 3)),
+                     empty((p_cap,)), empty((p_cap,)), empty((p_cap, 3)),
+                     empty((p_cap,)), empty((p_cap,), torch.bool))
+    fit_ptrs = [kernels.ptr(t) for t in fit] if fit is not None else [None] * 3
+    with torch.cuda.device(dev):
+        kernels.launch(
+            "psl_plane_assign_refit", kernels.ptr(depth), kernels.ptr(alpha),
+            h, w, rs, *_pixel_scalars(depth, cam, cfg), p_cap,
+            kernels.ptr(normal), kernels.ptr(d), kernels.ptr(valid),
+            *fit_ptrs, ASSIGN_PIXELS_PER_BLOCK, kernels.ptr(partial),
+            *[kernels.ptr(t) for t in out])
+    kernels.LAUNCHES["plane_assign_refit"] += 1
+    return out
+
+
+def plane_label_pixels_plain(depth: torch.Tensor, alpha: torch.Tensor,
+                             cam: CameraConfig, cfg: PlaneConfig,
+                             fit: PlaneRefit) -> PlaneFeatures:
+    """Plain version of K14: the final gate over the last refit, then every
+    full-resolution pixel labeled against the planes that pass (nearest
+    plane, within its tau and the pixel's band, depth gate), -1 elsewhere.
+    With ``refine_stride`` 1 the last round's labels are already at full
+    resolution and are only gated by the planes' validity."""
+    h, w = depth.shape
+    p_cap = fit.normal.shape[0]
+    count = fit.n.to(torch.int32)
+    mse_gate = torch.clamp(2.0 * alpha * fit.mean[:, 2] ** 2,
                            min=cfg.distance_threshold) ** 2
-    valid = cand_valid & (count >= cfg.min_size) & (mse_f < mse_gate)
-    coeffs = torch.cat([normal_f, d_f[:, None]], dim=-1)
+    valid = fit.alive & (count >= cfg.min_size) & (fit.mse < mse_gate)
+    coeffs = torch.cat([fit.normal, fit.d[:, None]], dim=-1)
     coeffs = plane_geo.normalize(coeffs)
     coeffs = torch.where(valid[:, None], coeffs, 0.0)
-
-    if rs == 1:
-        label_pix = label_sub
+    if max(1, int(cfg.refine_stride)) == 1:
+        label_pix = fit.label_sub.to(torch.int64)
     else:
-        pts_flat = points.reshape(-1, 3)
-        band_pix = torch.clamp(3.0 * alpha * z2,
-                               min=cfg.distance_threshold).reshape(-1)
-        dist_full = torch.abs(pts_flat @ normal_f.T + d_f[None, :])
-        dist_full = torch.where(valid[None, :], dist_full, inf)
-        best_fd = torch.amin(dist_full, dim=-1)
-        best_f = torch.argmin(dist_full, dim=-1)
-        tau_f = torch.clamp(2.5 * torch.sqrt(torch.clamp(mse_f, min=0.0)),
-                            min=1e-3)
-        keep_f = ((best_fd < torch.minimum(tau_f[best_f], band_pix))
-                  & depth_ok.reshape(-1))
-        label_pix = torch.where(keep_f, best_f, p_cap)
+        pts, band, ok = _pixel_inputs(depth, alpha, cam, cfg, 1)
+        dist = torch.abs(pts @ fit.normal.T + fit.d[None, :])
+        dist = torch.where(valid[None, :], dist, math.inf)
+        best_d = torch.amin(dist, dim=-1)
+        best = torch.argmin(dist, dim=-1)
+        keep = (best_d < torch.minimum(_tau(fit.mse)[best], band)) & ok
+        label_pix = torch.where(keep, best, p_cap)
 
     lbl_ok = (label_pix < p_cap) & valid[torch.clamp(label_pix, 0, p_cap - 1)]
     pixel_label = torch.where(lbl_ok, label_pix, -1).to(torch.int32)
-    return PlaneFeatures(coeffs=coeffs, centroid=mean_f, count=count,
+    return PlaneFeatures(coeffs=coeffs, centroid=fit.mean, count=count,
                          valid=valid, pixel_label=pixel_label.reshape(h, w))
+
+
+def plane_label_pixels(depth: torch.Tensor, alpha: torch.Tensor,
+                       cam: CameraConfig, cfg: PlaneConfig,
+                       fit: PlaneRefit) -> PlaneFeatures:
+    """K14 wrapper. depth: (H, W) float32; alpha: () float32; fit: the last
+    round's PlaneRefit (its label_sub is read only with refine_stride 1,
+    where it must hold H * W labels)."""
+    if kernels.on_cpu(depth, alpha, *fit):
+        return plane_label_pixels_plain(depth, alpha, cam, cfg, fit)
+    p_cap = _check_pixel_args(depth, alpha, fit.normal, fit.d, fit.alive,
+                              (fit.mse, fit.mean, fit.n))
+    h, w = depth.shape
+    dev = depth.device
+    label_in = None
+    if max(1, int(cfg.refine_stride)) == 1:
+        kernels.check(fit.label_sub, "label_sub", torch.int32, (h * w,))
+        label_in = kernels.ptr(fit.label_sub)
+    coeffs = torch.empty((p_cap, 4), dtype=torch.float32, device=dev)
+    valid = torch.empty((p_cap,), dtype=torch.bool, device=dev)
+    count = torch.empty((p_cap,), dtype=torch.int32, device=dev)
+    pixel_label = torch.empty((h, w), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch(
+            "psl_plane_label_pixels", kernels.ptr(depth), kernels.ptr(alpha),
+            h, w, *_pixel_scalars(depth, cam, cfg), p_cap,
+            kernels.ptr(fit.normal), kernels.ptr(fit.d),
+            kernels.ptr(fit.alive), kernels.ptr(fit.mse),
+            kernels.ptr(fit.mean), kernels.ptr(fit.n), int(cfg.min_size),
+            label_in, kernels.ptr(coeffs), kernels.ptr(valid),
+            kernels.ptr(count), kernels.ptr(pixel_label))
+    kernels.LAUNCHES["plane_label_pixels"] += 1
+    return PlaneFeatures(coeffs=coeffs, centroid=fit.mean, count=count,
+                         valid=valid, pixel_label=pixel_label)
+
+
+@record_function("planes.extract_planes")
+def extract_planes(depth: torch.Tensor, cam: CameraConfig,
+                   cfg: PlaneConfig) -> PlaneFeatures:
+    """Full plane segmentation for one frame (PEAC-equivalent): the noise
+    scale, K4's block moments, K12's candidates, 1 + refine_rounds K13
+    rounds and K14's labels, with no host sync between them."""
+    h, w = depth.shape
+    alpha = _noise_alpha(depth, cfg.max_distance)
+    stats = plane_block_moments(depth, alpha, cam, _geo_tol(w),
+                                cfg.max_distance, cfg.block)
+    cand = plane_components(stats, h // cfg.block, w // cfg.block, cfg)
+    fit = plane_assign_refit(depth, alpha, cam, cfg, cand.normal, cand.d,
+                             cand.valid)
+    for _ in range(cfg.refine_rounds):
+        fit = plane_assign_refit(depth, alpha, cam, cfg, fit.normal, fit.d,
+                                 fit.alive, (fit.mse, fit.mean, fit.n))
+    return plane_label_pixels(depth, alpha, cam, cfg, fit)

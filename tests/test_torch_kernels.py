@@ -1,4 +1,4 @@
-"""The hand-written Hopper kernels (K1-K11) against their plain PyTorch
+"""The hand-written Hopper kernels (K1-K15) against their plain PyTorch
 versions on the card. These need a GPU: without one every test skips.
 
     python -m pytest tests/test_torch_kernels.py -q     # on the GPU machine
@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import _ba_problem, _pose_problem
 from planarslam_tpu_torch import kernels
 from planarslam_tpu_torch.config import SystemConfig
@@ -343,3 +344,97 @@ def test_pose_optimize(dev, case):
     if case == "all_invalid":
         assert torch.equal(got.T_cw, t(T0))
         assert float(got.chi2) == 0.0 and int(got.n_point_inliers) == 0
+
+
+def _held(fn, *args):
+    """Run one of chip_smoke.py's comparisons; its failure (an exit) fails
+    the test."""
+    try:
+        return fn(*args)
+    except SystemExit:
+        pytest.fail(f"{fn.__name__} failed (message on stderr)")
+
+
+@pytest.mark.parametrize("which", ["clean", "noisy"])
+def test_plane_segment_kernels(dev, which):
+    """K12, the three rounds of K13 and K14 at 640x480 against their plain
+    versions (chip_smoke.py's plane_segment_compare states the limits): K12
+    integer-exact on clean depth, its candidate fits no further from a
+    float64 refit than the float32 plain run is, plus
+    chip_smoke.CANDIDATE_EPS; K13's fits no further from the float64 plain
+    run than the float32 plain run is, plus chip_smoke.REFIT_EPS, labels
+    equal on >= 99.5% of pixels; K14 validity
+    and counts exact, coefficients 1e-5, labels >= 99.9%; two launches of
+    each give equal bits; one launch per call."""
+    cfg = SystemConfig()
+    factor = cfg.camera.depth_map_factor
+    seq = synthetic.make_sequence(4, width=640, height=480)
+    d = np.round(np.array(seq.render(1)[1], np.float32) * factor) / factor
+    d = d.astype(np.float32)
+    if which == "noisy":
+        d = chip_smoke.noisy_depth(d, factor)
+    n0 = dict(kernels.LAUNCHES)
+    res = _held(chip_smoke.plane_segment_compare,
+                torch.from_numpy(d).to(dev), cfg, which == "clean")
+    assert res["plane_label_pixels"]["planes"] >= 2
+    # two launches of each kernel per comparison
+    rounds = 1 + cfg.planes.refine_rounds
+    for name, n in (("plane_components", 2), ("plane_assign_refit",
+                                              2 * rounds),
+                    ("plane_label_pixels", 2)):
+        assert kernels.LAUNCHES[name] == n0[name] + n
+
+
+def test_extract_planes_on_card(dev, frame):
+    """extract_planes on the card (K4, K12-K14) against the composition of
+    the plain versions on the same depth: validity exact, counts rtol
+    2e-3, labels equal on >= 99.5% of pixels, coefficients and centroids
+    atol 2e-3 (the limits of the CPU parity test on noisy depth); a CUDA
+    input never reaches a plain function."""
+    cfg = SystemConfig()
+    pc, cam = cfg.planes, cfg.camera
+    depth = frame[1]
+    n0 = dict(kernels.LAUNCHES)
+    got = planes.extract_planes(depth, cam, pc)
+    for name, n in (("plane_block_moments", 1), ("plane_components", 1),
+                    ("plane_assign_refit", 1 + pc.refine_rounds),
+                    ("plane_label_pixels", 1)):
+        assert kernels.LAUNCHES[name] == n0[name] + n
+    h, w = depth.shape
+    alpha = planes._noise_alpha(depth, pc.max_distance)
+    stats = planes.plane_block_moments_plain(
+        depth, alpha, cam, planes._geo_tol(w), pc.max_distance, pc.block)
+    cand = planes.plane_components_plain(stats, h // pc.block, w // pc.block,
+                                         pc)
+    fit = planes.plane_assign_refit_plain(depth, alpha, cam, pc, cand.normal,
+                                          cand.d, cand.valid)
+    for _ in range(pc.refine_rounds):
+        fit = planes.plane_assign_refit_plain(
+            depth, alpha, cam, pc, fit.normal, fit.d, fit.alive,
+            (fit.mse, fit.mean, fit.n))
+    want = planes.plane_label_pixels_plain(depth, alpha, cam, pc, fit)
+    assert int(want.valid.sum()) >= 2
+    assert torch.equal(got.valid, want.valid)
+    torch.testing.assert_close(got.count.float(), want.count.float(),
+                               rtol=2e-3, atol=0)
+    assert float((got.pixel_label == want.pixel_label).float().mean()) >= 0.995
+    torch.testing.assert_close(got.coeffs, want.coeffs, rtol=0, atol=2e-3)
+    torch.testing.assert_close(got.centroid[want.valid],
+                               want.centroid[want.valid], rtol=0, atol=2e-3)
+
+
+def test_manhattan_mean_shift(dev):
+    """K15 at N = 2112 on a frame's normals and line directions
+    (chip_smoke.py's manhattan_kernel_parity): both cone sines, one axis
+    missing (cross-product completion), two missing (success false, R_cm
+    returned unchanged); R_cm atol 1e-5, support counts, axis count and
+    success exact, two launches equal bits."""
+    cfg = SystemConfig()
+    seq = synthetic.make_sequence(2, width=640, height=480)
+    n0 = kernels.LAUNCHES["manhattan_mean_shift"]
+    out = _held(chip_smoke.manhattan_kernel_parity, seq, cfg, dev)
+    assert kernels.LAUNCHES["manhattan_mean_shift"] > n0
+    assert out[0]["shapes"]["N"] == (cfg.manhattan.max_normals
+                                     + cfg.lines.max_lines)
+    assert set(out[0]["cases"]) == {"track", "project", "axis_missing",
+                                    "two_missing"}

@@ -46,7 +46,10 @@ SPAN_MODULES = ("frontend", "lines", "planes", "manhattan", "matching",
 PORT_KERNELS = ("fast_score_kernel", "orb_describe_kernel",
                 "hamming_top2_kernel", "_plane_block_moments_kernel",
                 "triangulate_kernel", "horn_align_kernel", "pnp_dlt_kernel",
-                "normal_eqs_", "schur_", "pose_graph_", "pose_opt_kernel")
+                "normal_eqs_", "schur_", "pose_graph_", "pose_opt_kernel",
+                "plane_components_kernel", "plane_assign_kernel",
+                "plane_refit_kernel", "plane_label_kernel",
+                "manhattan_kernel")
 
 
 def main(argv=None) -> int:
