@@ -15,7 +15,12 @@ Phases, each fatal on failure:
      K12-K14 (plane segmentation) on frame 0's quantized depth and on the
      same depth with Kinect noise, also against the plain version run in
      float64; K15 (Manhattan mean shift) on frame 0's normals and line
-     directions;
+     directions; K16-K19 (pyramid, blur, keypoint selection, point
+     epilogue) and the all-levels launches of K1 and K2 on frame 0's
+     8-level pyramid and 1000 keypoints, K18 also on a planted score map
+     with ties, empty tiles and more than 4 candidates per tile, and the
+     whole extract_point_features on the card against the same function
+     composed of plain versions;
   4. path 1, tracking only: System(SystemConfig(), enable_local_mapping=
      False, enable_loop_closing=False) tracks 96 frames of the 640x480
      synthetic room, quantized to uint8 gray / uint16 depth; ATE against
@@ -38,12 +43,19 @@ Phases, each fatal on failure:
      (K8, K9) must pull the drift back and merge the clones;
   9. path 4c, BA at scale: ba_solve on a 96-keyframe perturbed orbit and
      ba_solve_pcg on a 256-keyframe one, to the convergence limits of
-     tests/test_ba_full.py.
+     tests/test_ba_full.py;
+ 10. host-to-device copies: a tracking-only System warms up, then 32 tracked
+     frames run under one torch.profiler session, each in a span of its
+     own, and their "Memcpy HtoD" events are counted per span: one per
+     frame (the packed sensor frame) and one per refresh of the local-map
+     window, no constant among them.
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel must have launched on the paths, and on every path K11
 must have launched once per pose_optimize call, K12 and K14 once and K13
-1 + refine_rounds times per extract_planes call, and K15 once per
-track_manhattan_frame call. The line before the
+1 + refine_rounds times per extract_planes call, K15 once per
+track_manhattan_frame call, and per extract_point_features call K1, K2 and
+K19 once, K16 n_levels - 1 times and K18 twice, with one K17 launch per
+extract_point_features and per extract_line_features call. The line before the
 last is a JSON object with one entry per kernel (its time and its plain
 version's, the least time the card could take for the same bytes and
 operations, and a PyTorch call's time where one computes the same
@@ -139,7 +151,7 @@ def kernel_parity(seq, cfg, dev) -> list:
     from planarslam_tpu_torch.io.frames import quantize_frame
     from planarslam_tpu_torch.ops import fast, image, orb, planes
     from planarslam_tpu_torch.ops import matching
-    from planarslam_tpu_torch.ops.frontend import EDGE_BORDER, level_quotas
+    from planarslam_tpu_torch.ops.frontend import EDGE_BORDER, orb_level_table
 
     out = []
     g8, d16 = quantize_frame(*seq.render(0), cfg.camera.depth_map_factor)
@@ -149,14 +161,23 @@ def kernel_parity(seq, cfg, dev) -> list:
     ).to(dev)
     levels = image.build_pyramid(gray, cfg.orb.n_levels, cfg.orb.scale_factor)
     blurs = [image.blur(l, ksize=7, sigma=2.0) for l in levels]
-    quotas = level_quotas(cfg.orb.n_features, cfg.orb.n_levels,
-                          cfg.orb.scale_factor)
 
-    # K1: FAST score over all pyramid levels (exact: min/max/sub only)
+    # the same levels as the one buffer the main path keeps them in
+    table = orb_level_table(*gray.shape, cfg.orb)
+    quotas, tiles = table.column("quota"), table.column("tile")
+    buf = torch.cat([l.reshape(-1) for l in levels])[None].contiguous()
+    blur_buf = torch.cat([b.reshape(-1) for b in blurs])[None].contiguous()
+
+    # K1: FAST score over all pyramid levels (exact: min/max/sub only), one
+    # launch per level and the main path's one launch for all levels
     scores = [fast.fast_score(l) for l in levels]
     err = max(float((sk - fast.fast_score_plain(l)).abs().max())
               for sk, l in zip(scores, levels))
     _check(err == 0.0, f"fast_score differs from plain by {err}")
+    all_scores = fast.fast_score_levels(buf, table)
+    _check(torch.equal(all_scores[0],
+                       torch.cat([sk.reshape(-1) for sk in scores])),
+           "fast_score_levels differs from the per-level launches")
     n_px = sum(l.numel() for l in levels)
     out.append({"name": "fast_score", "route": "cuda", "library_ms": None,
                 # per pixel: 16 circle reads, compares, two arc scans
@@ -164,16 +185,18 @@ def kernel_parity(seq, cfg, dev) -> list:
                 "source": "planarslam_tpu_torch/csrc/fast_score.cu",
                 "replaces": "planarslam_tpu/ops/fast.py:41",
                 "max_abs_err": err, "tolerance": 0.0,
-                "ms": _time_ms(lambda: [fast.fast_score(l) for l in levels]),
+                "ms": _time_ms(lambda: fast.fast_score_levels(buf, table)),
+                "per_level_ms": _time_ms(
+                    lambda: [fast.fast_score(l) for l in levels]),
                 "plain_ms": _time_ms(
                     lambda: [fast.fast_score_plain(l) for l in levels])})
 
     # K2: orientation + steered BRIEF at each level's selected keypoints
     kps = []
     for l, img_l in enumerate(levels):
-        tile = max(8, int(round(cfg.orb.tile / (cfg.orb.scale_factor ** l))))
         uv, _, valid = fast.select_keypoints(
-            fast.fast_score_plain(img_l), tile=tile, k_total=quotas[l],
+            fast.fast_score_plain(img_l), tile=int(tiles[l]),
+            k_total=int(quotas[l]),
             min_score=float(cfg.orb.min_th_fast), border=EDGE_BORDER)
         kps.append((levels[l], blurs[l], uv.contiguous(), valid.contiguous()))
     ang_err, bits_bad, n_valid = 0.0, 0, 0
@@ -187,6 +210,18 @@ def kernel_parity(seq, cfg, dev) -> list:
     k2_out = [orb.orb_describe(*k) for k in kps]
     _check(bits_bad <= 0.01 * n_valid,
            f"orb_describe: {bits_bad}/{n_valid} descriptors differ (> 1%)")
+    # the main path's one launch for all levels, into the 1024-slot outputs
+    cap = cfg.orb.max_keypoints
+    uv_all = torch.cat([k[2] for k in kps])[None].contiguous()
+    valid_all = torch.cat([k[3] for k in kps])[None].contiguous()
+    k2_args = (buf, blur_buf, uv_all, valid_all, table, cap)
+    a_all, d_all = orb.orb_describe_levels(*k2_args)
+    n_all = uv_all.shape[1]
+    _check(torch.equal(a_all[0, :n_all], torch.cat([a for a, _ in k2_out]))
+           and torch.equal(d_all[0, :n_all], torch.cat([d for _, d in k2_out]))
+           and not bool(a_all[0, n_all:].any())
+           and not bool(d_all[0, n_all:].any()),
+           "orb_describe_levels differs from the per-level launches")
     out.append({"name": "orb_describe", "route": "cuda", "library_ms": None,
                 # per keypoint: the 31 x 31 intensity moments, 256 rotated
                 # pair comparisons
@@ -195,7 +230,9 @@ def kernel_parity(seq, cfg, dev) -> list:
                 "replaces": "planarslam_tpu/ops/orb.py:57",
                 "max_abs_err": ang_err, "tolerance": 1e-4,
                 "desc_mismatch": bits_bad, "n_keypoints": n_valid,
-                "ms": _time_ms(lambda: [orb.orb_describe(*k) for k in kps]),
+                "ms": _time_ms(lambda: orb.orb_describe_levels(*k2_args)),
+                "per_level_ms": _time_ms(
+                    lambda: [orb.orb_describe(*k) for k in kps]),
                 "plain_ms": _time_ms(
                     lambda: [orb.orb_describe_plain(*k) for k in kps])})
 
@@ -273,6 +310,297 @@ def kernel_parity(seq, cfg, dev) -> list:
                 "ms": _time_ms(lambda: planes.plane_block_moments(*args)),
                 "plain_ms": _time_ms(
                     lambda: planes.plane_block_moments_plain(*args))})
+    _print_kernels(out)
+    return out
+
+
+def planted_scores(rng, h: int, w: int, tile: int, n_peaks: int,
+                   border: int) -> np.ndarray:
+    """A score map (numpy) with ties inside and across tiles, empty tiles,
+    maxima on the border gate and in the last partial tile: isolated peaks
+    and 2-pixel plateaus with values from a small set, in one tile of three
+    only, so that a level cannot fill its quota."""
+    s = np.zeros((h, w), np.float32)
+    ys = rng.integers(0, h, n_peaks)
+    xs = rng.integers(0, w, n_peaks)
+    vals = rng.choice(np.array([6.0, 8.0, 8.0, 9.5, 12.0], np.float32),
+                      n_peaks)
+    for y, x, v in zip(ys, xs, vals):
+        if ((y // tile) * 7 + x // tile) % 3 != 0:
+            continue  # an empty tile
+        s[y, x] = v
+        if x + 1 < w and v == 8.0:
+            s[y, x + 1] = v  # a plateau: both pixels pass the NMS
+    # maxima exactly on the first and last rows and columns the gate admits
+    s[border, border:w - border:29] = 9.5
+    s[h - border - 1, border:w - border:31] = 9.5
+    s[border:h - border:23, w - border - 1] = 12.0
+    return s
+
+
+# a three-level geometry for K18 whose levels keep 15, 2 and 1 candidates
+# per tile: the sort branch and the arg-max branch in one launch
+PLANTED_LEVELS = dict(shapes=[(120, 160), (100, 133), (83, 111)],
+                      quotas=[600, 80, 40], tiles=[16, 13, 11],
+                      scales=[1.0, 1.2, 1.44])
+PLANTED_PEAKS = [24000, 250, 100]  # planted per level: no quota fills
+# K16 against the plain pyramid's two float32 products: grey levels. Both
+# add the same 2-3 products per output; the product's summation order and
+# its use of fused multiply-adds are the library's, so only a few float32
+# ulps of 255 (1.5e-5 each) are expected, and 1e-3 is the limit the CPU
+# test holds the plain pyramid to against JAX.
+PYRAMID_TOLERANCE = 1e-3
+
+
+def _keypoint_set(uv, level, valid) -> set:
+    uv, level, valid = uv.cpu().numpy(), level.cpu().numpy(), \
+        valid.cpu().numpy()
+    return {(int(l), float(x), float(y))
+            for l, (x, y), v in zip(level, uv, valid) if v}
+
+
+def frontend_kernel_parity(seq, cfg, dev) -> list:
+    """K16-K19 against their plain versions on the card on frame 0 of the
+    quantized sequence at the default configuration's full width (8 levels,
+    1000 features in 1024 slots), and the whole extract_point_features on
+    the card against the same function composed of plain versions.
+    K16: within PYRAMID_TOLERANCE of the plain pyramid, and the front end
+    fed K16's pyramid shares >= 97% of its keypoints (pixel and level) with
+    the one fed the plain pyramid. K17: exact, 7 taps on all levels and 5
+    taps on the frame. K18: uv, response and validity exactly equal in every
+    slot on frame 0's scores and on the planted score map. K19: depth,
+    validity, level, response and uv_raw exact, uv and u_right within 1e-4,
+    with and without distortion."""
+    import dataclasses
+
+    import torch
+
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import fast, image, levels, orb
+    from planarslam_tpu_torch.ops import frontend as fe
+
+    oc, cam = cfg.orb, cfg.camera
+    g8, d16 = quantize_frame(*seq.render(0), cam.depth_map_factor)
+    gray = torch.from_numpy(g8.astype(np.float32)).to(dev)
+    depth = torch.from_numpy(
+        d16.astype(np.float32) / np.float32(cam.depth_map_factor)).to(dev)
+    table = fe.orb_level_table(*gray.shape, oc)
+    cap = oc.max_keypoints
+    min_score = float(oc.min_th_fast)
+    src = "planarslam_tpu_torch/csrc/"
+    out = []
+
+    def after_pyramid(buf):
+        """The card's stages after the pyramid on a level buffer."""
+        scores = fast.fast_score_levels(buf, table)
+        uv_l, resp, valid = fast.select_keypoints_levels(
+            scores, table, min_score, fe.EDGE_BORDER)
+        blur = image.gaussian_blur_levels(buf, table, 7, 2.0)
+        angle, desc = orb.orb_describe_levels(buf, blur, uv_l, valid, table,
+                                              cap)
+        ep = fe.point_epilogue(uv_l, resp, valid, depth[None], cam, table,
+                               cap)
+        return fe._features(angle, desc, ep)
+
+    # K16: the 7 resize launches against the plain pyramid
+    k16 = lambda: image.build_pyramid_levels(gray[None], table,  # noqa: E731
+                                             oc.scale_factor)
+    p16 = lambda: image.build_pyramid_levels_plain(  # noqa: E731
+        gray[None], table, oc.scale_factor)
+    buf, buf_plain = k16(), p16()
+    torch.cuda.synchronize()
+    _check(torch.equal(buf, k16()),
+           "pyramid_resize: two runs on equal inputs differ")
+    _check(torch.equal(buf[0, table.level_slice(0)], gray.reshape(-1)),
+           "pyramid_resize: level 0 is not the frame")
+    err16 = _max_err(buf, buf_plain)
+    _check(err16 <= PYRAMID_TOLERANCE,
+           f"pyramid_resize error {err16} > {PYRAMID_TOLERANCE}")
+    f_k, f_p = after_pyramid(buf), after_pyramid(buf_plain)
+    keys_k = _keypoint_set(f_k.uv_raw, f_k.level, f_k.valid)
+    keys_p = _keypoint_set(f_p.uv_raw, f_p.level, f_p.valid)
+    shared = len(keys_k & keys_p) / max(len(keys_p), 1)
+    _check(len(keys_p) > 500 and shared >= 0.97,
+           f"pyramid_resize: {shared:.4f} of {len(keys_p)} keypoints shared "
+           f"with the plain pyramid's front end")
+    n_out = table.n_pixels - gray.numel()
+    taps = sum(image.resize_taps(a, b).nbytes
+               for s0, s1 in zip(table.shapes, table.shapes[1:])
+               for a, b in zip(s0, s1))
+    out.append({"name": "pyramid_resize", "route": "cuda", "library_ms": None,
+                # per output pixel: up to 3 x 3 row taps and 3 column taps
+                **_bound(_nbytes(gray, buf) + taps, 24.0 * n_out),
+                "source": src + "pyramid.cu",
+                "replaces": "planarslam_tpu/ops/image.py:48",
+                "max_abs_err": err16, "tolerance": PYRAMID_TOLERANCE,
+                "keypoints_shared": shared, "keypoints": len(keys_p),
+                "differing_pixels": int((buf != buf_plain).sum()),
+                "ms": _time_ms(k16), "plain_ms": _time_ms(p16)})
+
+    # K17: 7 taps on all levels, 5 taps on the frame (the line stage)
+    blur_k = image.gaussian_blur_levels(buf, table, 7, 2.0)
+    blur_p = image.gaussian_blur_levels_plain(buf, table, 7, 2.0)
+    line_k = image.gaussian_blur(gray, 5, 1.0)
+    line_p = image.blur(gray, 5, 1.0)
+    torch.cuda.synchronize()
+    err17 = max(_max_err(blur_k, blur_p), _max_err(line_k, line_p))
+    _check(torch.equal(blur_k, blur_p),
+           f"gaussian_blur (7 taps, all levels) differs from plain by "
+           f"{_max_err(blur_k, blur_p)}")
+    _check(torch.equal(line_k, line_p),
+           f"gaussian_blur (5 taps, the frame) differs from plain by "
+           f"{_max_err(line_k, line_p)}")
+    out.append({"name": "gaussian_blur", "route": "cuda", "library_ms": None,
+                # per pixel and pass: 7 multiplies and 7 adds
+                **_bound(_nbytes(buf, blur_k), 28.0 * table.n_pixels),
+                "source": src + "pyramid.cu",
+                "replaces": "planarslam_tpu/ops/image.py:27",
+                "max_abs_err": err17, "tolerance": 0.0,
+                "ms": _time_ms(lambda: image.gaussian_blur_levels(
+                    buf, table, 7, 2.0)),
+                "line_stage_ms": _time_ms(
+                    lambda: image.gaussian_blur(gray, 5, 1.0)),
+                "plain_ms": _time_ms(lambda: image.gaussian_blur_levels_plain(
+                    buf, table, 7, 2.0))})
+
+    # K18: frame 0's scores, then the planted map
+    scores = fast.fast_score_levels(buf, table)
+    k18 = fast.select_keypoints_levels(scores, table, min_score,
+                                       fe.EDGE_BORDER)
+    p18 = fast.select_keypoints_levels_plain(scores, table, min_score,
+                                             fe.EDGE_BORDER)
+    again = fast.select_keypoints_levels(scores, table, min_score,
+                                         fe.EDGE_BORDER)
+    torch.cuda.synchronize()
+    names = ("uv", "response", "valid")
+    for n, a, b, c in zip(names, k18, p18, again):
+        _check(torch.equal(a, b), f"select_keypoints: {n} differs from plain "
+               f"on frame 0 in {int((a != b).sum())} entries")
+        _check(torch.equal(a, c),
+               f"select_keypoints: two launches differ in {n}")
+    planted = levels.table_from_levels(**PLANTED_LEVELS)
+    rng = np.random.default_rng(18)
+    maps = [planted_scores(rng, h, w, t, n, 5).reshape(-1)
+            for (h, w), t, n in zip(planted.shapes, PLANTED_LEVELS["tiles"],
+                                    PLANTED_PEAKS)]
+    pl_scores = torch.from_numpy(np.concatenate(maps)).to(dev)[None]
+    k18p = fast.select_keypoints_levels(pl_scores, planted, 7.0, 5)
+    p18p = fast.select_keypoints_levels_plain(pl_scores, planted, 7.0, 5)
+    torch.cuda.synchronize()
+    for n, a, b in zip(names, k18p, p18p):
+        _check(torch.equal(a, b), f"select_keypoints: {n} differs from plain "
+               f"on the planted map in {int((a != b).sum())} entries")
+    q = planted.column("quota")
+    planted_valid = [int(v.sum()) for v in torch.split(k18p[2][0],
+                                                       [int(x) for x in q])]
+    _check(all(0 < v < n for v, n in zip(planted_valid, q))
+           and int(planted.column("k_tile").max()) > 4,
+           f"select_keypoints: the planted map fills {planted_valid} of "
+           f"{q.tolist()} slots, k_tile {planted.column('k_tile').tolist()}")
+    tiles, k_tiles = table.column("tile"), table.column("k_tile")
+    n_tiles = table.column("n_tiles")
+    ops18 = (12.0 * table.n_pixels
+             + float((n_tiles * k_tiles * tiles * tiles).sum())
+             + 3.0 * float(((n_tiles * k_tiles) ** 2).sum()))
+    out.append({"name": "select_keypoints", "route": "cuda",
+                "library_ms": None,
+                # per pixel the gate and 8 neighbour compares; per tile and
+                # pass a scan of its cells; per level n^2 rank compares
+                **_bound(_nbytes(scores, k18), ops18),
+                "source": src + "select_keypoints.cu",
+                "replaces": "planarslam_tpu/ops/fast.py:73",
+                "max_abs_err": 0.0, "tolerance": 0.0,
+                "valid_keypoints": int(k18[2].sum()),
+                "planted": {"k_tile": [int(k) for k in
+                                       planted.column("k_tile")],
+                            "quotas": [int(x) for x in q],
+                            "valid": planted_valid},
+                "ms": _time_ms(lambda: fast.select_keypoints_levels(
+                    scores, table, min_score, fe.EDGE_BORDER)),
+                "plain_ms": _time_ms(
+                    lambda: fast.select_keypoints_levels_plain(
+                        scores, table, min_score, fe.EDGE_BORDER))})
+
+    # K19: the synthetic camera (no distortion) and one with all five
+    # coefficients set
+    uv_l, resp, valid = k18
+    cams = {"pinhole": cam,
+            "distorted": dataclasses.replace(cam, k1=0.08, k2=-0.12,
+                                             p1=0.002, p2=-0.001, k3=0.03)}
+    cases = {}
+    for name, c in cams.items():
+        got = fe.point_epilogue(uv_l, resp, valid, depth[None], c, table, cap)
+        want = fe.point_epilogue_plain(uv_l, resp, valid, depth[None], c,
+                                       table, cap)
+        torch.cuda.synchronize()
+        for f in ("uv_raw", "response", "level", "depth", "valid"):
+            _check(torch.equal(getattr(got, f), getattr(want, f)),
+                   f"point_epilogue ({name}): {f} differs from plain")
+        cases[name] = {"uv": _max_err(got.uv, want.uv),
+                       "u_right": _max_err(got.u_right, want.u_right),
+                       "with_depth": int((got.depth > 0).sum()),
+                       "moved_px": _max_err(got.uv, got.uv_raw)}
+        _check(max(cases[name]["uv"], cases[name]["u_right"]) <= 1e-4,
+               f"point_epilogue ({name}) differs from plain: {cases[name]}")
+    _check(cases["distorted"]["moved_px"] > 1.0
+           and cases["pinhole"]["moved_px"] == 0.0
+           and cases["pinhole"]["with_depth"] > 500,
+           f"point_epilogue: the cases do not exercise it: {cases}")
+    ep = fe.point_epilogue(uv_l, resp, valid, depth[None], cam, table, cap)
+    out.append({"name": "point_epilogue", "route": "cuda", "library_ms": None,
+                # per slot: the scale, 5 undistortion steps of ~30 where the
+                # camera distorts, the depth gather, the right coordinate
+                **_bound(_nbytes(uv_l, resp, valid, ep) + 4 * cap,
+                         (30.0 + 150.0 * cam.has_distortion) * cap),
+                "source": src + "select_keypoints.cu",
+                "replaces": "planarslam_tpu/ops/frontend.py:92",
+                "max_abs_err": max(max(c["uv"], c["u_right"])
+                                   for c in cases.values()),
+                "tolerance": "uv, u_right 1e-4; the rest exact",
+                "cases": cases,
+                "ms": _time_ms(lambda: fe.point_epilogue(
+                    uv_l, resp, valid, depth[None], cam, table, cap)),
+                "plain_ms": _time_ms(lambda: fe.point_epilogue_plain(
+                    uv_l, resp, valid, depth[None], cam, table, cap))})
+
+    # the whole front end: kernels after the plain pyramid against the plain
+    # composition (K16 out of the way), then the card's function itself
+    want = fe.extract_point_features_plain(gray, depth, cam, oc)
+    got = fe.extract_point_features(gray, depth, cam, oc)
+    torch.cuda.synchronize()
+    for f in ("uv_raw", "response", "level", "depth", "valid"):
+        _check(torch.equal(getattr(f_p, f), getattr(want, f)),
+               f"front end after the plain pyramid: {f} differs from the "
+               f"plain composition")
+    for f in ("uv", "u_right"):
+        _check(_max_err(getattr(f_p, f), getattr(want, f)) <= 1e-4,
+               f"front end after the plain pyramid: {f} is "
+               f"{_max_err(getattr(f_p, f), getattr(want, f))} from the "
+               f"plain composition")
+    ang = _max_err(f_p.angle, want.angle)
+    bad = int(((f_p.desc != want.desc).any(dim=1) & want.valid).sum())
+    n_valid = int(want.valid.sum())
+    _check(ang <= 1e-4 and bad <= 0.01 * n_valid,
+           f"front end after the plain pyramid: angle error {ang}, "
+           f"{bad}/{n_valid} descriptors differ")
+    for f in got._fields:
+        _check(torch.equal(getattr(got, f), getattr(f_k, f)),
+               f"extract_point_features differs from its stages in {f}")
+    keys_g = _keypoint_set(got.uv_raw, got.level, got.valid)
+    keys_w = _keypoint_set(want.uv_raw, want.level, want.valid)
+    whole = {"keypoints": len(keys_w),
+             "shared": len(keys_g & keys_w) / max(len(keys_w), 1),
+             "angle_err_after_plain_pyramid": ang,
+             "desc_mismatch_after_plain_pyramid": bad,
+             "ms": _time_ms(lambda: fe.extract_point_features(
+                 gray, depth, cam, oc), reps=10),
+             "plain_ms": _time_ms(lambda: fe.extract_point_features_plain(
+                 gray, depth, cam, oc), reps=5)}
+    _check(whole["shared"] >= 0.97,
+           f"extract_point_features shares {whole['shared']:.4f} of its "
+           f"keypoints with the plain composition")
+    print(f"frontend_kernel_parity extract_point_features: "
+          f"{json.dumps(whole)}", flush=True)
     _print_kernels(out)
     return out
 
@@ -1066,16 +1394,21 @@ def _clone(obj):
 
 @contextlib.contextmanager
 def _pose_calls(capture=()):
-    """Count the pose_opt.pose_optimize, planes.extract_planes and
-    manhattan.track_manhattan_frame calls made inside the block (their
-    callers reach them through their modules) and keep the inputs of the
-    pose_optimize calls numbered in `capture` (from 1)."""
-    from planarslam_tpu_torch.ops import manhattan, planes
+    """Count the pose_opt.pose_optimize, planes.extract_planes,
+    manhattan.track_manhattan_frame, extract_point_features and
+    lines.extract_line_features calls made inside the block, each where its
+    caller looks it up (slam/frame.py imports extract_point_features by
+    name; the others are reached through their modules), and keep the
+    inputs of the pose_optimize calls numbered in `capture` (from 1)."""
+    from planarslam_tpu_torch.ops import lines, manhattan, planes
+    from planarslam_tpu_torch.slam import frame
     from planarslam_tpu_torch.solvers import pose_opt
 
-    rec = {"calls": 0, "inputs": [], "plane_calls": 0, "manhattan_calls": 0}
+    rec = {"calls": 0, "inputs": [], "plane_calls": 0, "manhattan_calls": 0,
+           "point_calls": 0, "line_calls": 0}
     orig = (pose_opt.pose_optimize, planes.extract_planes,
-            manhattan.track_manhattan_frame)
+            manhattan.track_manhattan_frame, frame.extract_point_features,
+            lines.extract_line_features)
 
     def counted(*args, **kw):
         rec["calls"] += 1
@@ -1091,37 +1424,59 @@ def _pose_calls(capture=()):
         rec["manhattan_calls"] += 1
         return orig[2](*args, **kw)
 
+    def counted_points(*args, **kw):
+        rec["point_calls"] += 1
+        return orig[3](*args, **kw)
+
+    def counted_lines(*args, **kw):
+        rec["line_calls"] += 1
+        return orig[4](*args, **kw)
+
     pose_opt.pose_optimize = counted
     planes.extract_planes = counted_planes
     manhattan.track_manhattan_frame = counted_manhattan
+    frame.extract_point_features = counted_points
+    lines.extract_line_features = counted_lines
     try:
         yield rec
     finally:
         (pose_opt.pose_optimize, planes.extract_planes,
-         manhattan.track_manhattan_frame) = orig
+         manhattan.track_manhattan_frame, frame.extract_point_features,
+         lines.extract_line_features) = orig
 
 
 def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
                          frames=None) -> None:
     """One K11 launch per pose_optimize call; per extract_planes call one
     K4, one K12, 1 + refine_rounds K13 and one K14 launch; one K15 launch
-    per track_manhattan_frame call; with `frames`, one extract_planes call
-    per frame."""
+    per track_manhattan_frame call; per extract_point_features call one K1,
+    one K2, one K19, n_levels - 1 K16 and two K18 launches, and one K17
+    launch per extract_point_features and per extract_line_features call;
+    with `frames`, one extract_planes, extract_point_features and
+    extract_line_features call per frame."""
     rounds = 1 + (cfg.planes.refine_rounds if cfg is not None else 0)
+    resizes = cfg.orb.n_levels - 1 if cfg is not None else 0
+    points, lns = rec["point_calls"], rec["line_calls"]
     want = {"pose_optimize": rec["calls"],
             "plane_block_moments": rec["plane_calls"],
             "plane_components": rec["plane_calls"],
             "plane_assign_refit": rounds * rec["plane_calls"],
             "plane_label_pixels": rec["plane_calls"],
-            "manhattan_mean_shift": rec["manhattan_calls"]}
+            "manhattan_mean_shift": rec["manhattan_calls"],
+            "fast_score": points, "orb_describe": points,
+            "point_epilogue": points, "pyramid_resize": resizes * points,
+            "select_keypoints": 2 * points, "gaussian_blur": points + lns}
     for kernel, n in want.items():
         _check(launches[kernel] == n, f"{name}: {launches[kernel]} {kernel} "
                f"launches, expected {n} ({rec['calls']} pose_optimize, "
                f"{rec['plane_calls']} extract_planes, "
-               f"{rec['manhattan_calls']} track_manhattan_frame calls)")
+               f"{rec['manhattan_calls']} track_manhattan_frame, {points} "
+               f"extract_point_features, {lns} extract_line_features calls)")
     if frames is not None:
-        _check(rec["plane_calls"] == frames and rec["manhattan_calls"] > 0,
-               f"{name}: {rec['plane_calls']} extract_planes and "
+        _check(rec["plane_calls"] == frames and rec["manhattan_calls"] > 0
+               and points == frames and lns == frames,
+               f"{name}: {rec['plane_calls']} extract_planes, {points} "
+               f"extract_point_features, {lns} extract_line_features and "
                f"{rec['manhattan_calls']} track_manhattan_frame calls for "
                f"{frames} frames")
 
@@ -1129,7 +1484,9 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
 def _call_counts(rec: dict) -> dict:
     return {"pose_optimize_calls": rec["calls"],
             "extract_planes_calls": rec["plane_calls"],
-            "track_manhattan_frame_calls": rec["manhattan_calls"]}
+            "track_manhattan_frame_calls": rec["manhattan_calls"],
+            "extract_point_features_calls": rec["point_calls"],
+            "extract_line_features_calls": rec["line_calls"]}
 
 
 def _rel_err(got, want) -> float:
@@ -1594,7 +1951,8 @@ def run_ba_scale_path(dev) -> dict:
     print("path4c_ba_scale " + json.dumps(res), flush=True)
     _check_pose_launches("path4c (BA alone)", res["launches"],
                          {"calls": 0, "plane_calls": 0,
-                          "manhattan_calls": 0})
+                          "manhattan_calls": 0, "point_calls": 0,
+                          "line_calls": 0})
     return res
 
 
@@ -1752,6 +2110,133 @@ def _reloc_run(slam, seq, cfg) -> dict:
                 "relocalizations", 0))}
 
 
+H2D_WARMUP_FRAMES = 20
+H2D_FRAMES = 32  # long enough to hold a keyframe and the refresh after it
+
+
+def run_h2d_copies(seq, frames, cfg, dev) -> dict:
+    """Host-to-device copies of tracked frames of path 1. After
+    H2D_WARMUP_FRAMES frames of a tracking-only System, one more frame and
+    then H2D_FRAMES frames run under one torch.profiler session, each in a
+    record_function span that ends with a device synchronization, and the
+    "Memcpy HtoD" device events are counted per span (the first frame under
+    the profiler only absorbs its start and is not counted). The allowed
+    copies of a tracked frame, each named: the packed sensor frame (gray and
+    depth in one pinned upload) and, in a frame that follows a change of the
+    map, the packed local-map window. No constant is among them: level
+    tables travel as launch arguments, and every table or number a stage
+    needs is cached on the card at its first use. A frame in which a
+    keyframe is decided or materialized also uploads that keyframe's fuse
+    set: it is reported with the host ops that asked for its copies and is
+    not held; at least half of the frames must be held, and one of them
+    must refresh the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from planarslam_tpu_torch.slam.system import System
+
+    slam = System(config=cfg, enable_local_mapping=False,
+                  enable_loop_closing=False, device=dev)
+    for i in range(H2D_WARMUP_FRAMES):
+        slam.track_rgbd(*frames[i], seq.timestamps[i])
+    tr = slam.tracker
+    seen = {"refresh": 0, "keyframe": 0}
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            if name == "refresh" or out is not False:
+                seen[name] += 1
+            return out
+        return wrapped
+
+    tr._refresh_window = counting("refresh", tr._refresh_window)
+    tr._begin_keyframe = counting("keyframe", tr._begin_keyframe)
+    tr._apply_pending_kf = counting("keyframe", tr._apply_pending_kf)
+    first = H2D_WARMUP_FRAMES
+    per_frame = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(first, first + 1 + H2D_FRAMES):
+            seen.update(refresh=0, keyframe=0)
+            with record_function(f"h2d_frame_{i}"):
+                slam.track_rgbd(*frames[i], seq.timestamps[i])
+                torch.cuda.synchronize()
+            per_frame.append({"frame": i, "h2d_copies": 0,
+                              "window_refreshes": seen["refresh"],
+                              "keyframe_events": seen["keyframe"]})
+    slam.shutdown()
+    events = prof.events()
+
+    def on_device(e):
+        return "CUDA" in str(e.device_type)
+
+    # the spans' host start times: a frame's device work lies between its
+    # span's start and the next span's, because each span ends synchronized
+    starts = sorted((e.time_range.start, int(e.name.rsplit("_", 1)[1]))
+                    for e in events
+                    if e.name.startswith("h2d_frame_") and not on_device(e))
+    _check([i for _, i in starts] == [r["frame"] for r in per_frame],
+           f"h2d: the profiler kept {len(starts)} of {len(per_frame)} frame "
+           f"spans")
+
+    def frame_of(t):
+        k = sum(1 for t0, _ in starts if t0 <= t) - 1
+        return per_frame[k] if k >= 0 else None
+
+    n_events = 0
+    for e in events:
+        if "Memcpy HtoD" in e.name and on_device(e):
+            rec = frame_of(e.time_range.start)
+            _check(rec is not None, "h2d: a copy precedes the first span")
+            rec["h2d_copies"] += 1
+            n_events += 1
+        elif any("Memcpy HtoD" in k.name
+                 for k in getattr(e, "kernels", None) or []):
+            # the host op (outermost first) whose device work is a copy
+            rec = frame_of(e.time_range.start)
+            chain, p = [e.name], e.cpu_parent
+            while p is not None and not p.name.startswith("h2d_frame_"):
+                chain.append(p.name)
+                p = p.cpu_parent
+            key = " < ".join(chain[-3:][::-1])
+            if rec is not None:
+                asked = rec.setdefault("asked_by", {})
+                asked[key] = asked.get(key, 0) + 1
+    per_frame = per_frame[1:]  # the frame that absorbed the profiler's start
+    held = 0
+    for rec in per_frame:
+        limit = 1 + rec["window_refreshes"]
+        if rec["h2d_copies"] <= limit:
+            rec.pop("asked_by", None)
+        if rec["keyframe_events"] == 0:
+            held += 1
+            _check(rec["h2d_copies"] <= limit,
+                   f"h2d: frame {rec['frame']} made {rec['h2d_copies']} "
+                   f"host-to-device copies, allowed {limit}: the packed "
+                   f"frame and {rec['window_refreshes']} window refreshes "
+                   f"({rec})")
+            _check(rec["h2d_copies"] >= 1, f"h2d: the profiler saw no copy "
+                   f"in frame {rec['frame']} ({n_events} in all)")
+    refreshes = sum(r["window_refreshes"] for r in per_frame)
+    res = {"frames": H2D_FRAMES, "frames_held": held,
+           "window_refreshes": refreshes,
+           "limit_per_frame": "1 packed frame + 1 per window refresh",
+           "copies_per_held_frame": float(np.mean(
+               [r["h2d_copies"] for r in per_frame
+                if r["keyframe_events"] == 0])),
+           "copies_per_frame": float(np.mean(
+               [r["h2d_copies"] for r in per_frame])),
+           "per_frame": per_frame}
+    print("h2d_copies " + json.dumps(res), flush=True)
+    _check(held >= H2D_FRAMES // 2, f"h2d: only {held} frames without a "
+           f"keyframe event in {H2D_FRAMES}")
+    _check(refreshes >= 1, f"h2d: no window refresh in {H2D_FRAMES} frames: "
+           f"the window's allowance was not exercised")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=96,
@@ -1790,7 +2275,8 @@ def main(argv=None) -> int:
     report = (kernel_parity(seq, cfg, dev) + backend_kernel_parity(cfg, dev)
               + ba_kernel_parity(dev) + k11
               + plane_kernel_parity(seq, cfg, dev)
-              + manhattan_kernel_parity(seq, cfg, dev))
+              + manhattan_kernel_parity(seq, cfg, dev)
+              + frontend_kernel_parity(seq, cfg, dev))
     frames = [quantize_frame(*seq.render(i), cfg.camera.depth_map_factor)
               for i in range(n)]
     # the two calls (obs1, obs2) of path 1's 21st fused frame
@@ -1812,6 +2298,7 @@ def main(argv=None) -> int:
         run_constructed_loop_path(seq, cfg, dev),
         run_ba_scale_path(dev),
     ]
+    run_h2d_copies(seq, frames, cfg, dev)
     for k in report:
         k["launches"] = sum(p["launches"][k["name"]] for p in paths)
         _check(k["launches"] > 0,

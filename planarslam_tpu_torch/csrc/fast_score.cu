@@ -15,7 +15,13 @@
 // larger cost at these sizes, and launch latency dominates below ~100k
 // pixels. min/max/subtract are exact, so the result is bit-identical to the
 // plain version.
+//
+// fast_score_levels_kernel scores every level of a frame's pyramid (and
+// every frame of a batch) in one launch: a thread owns one pixel of the
+// all-levels buffer and finds its level in the by-value table
+// (levels.cuh), so a frame costs one launch instead of one per level.
 #include "common.cuh"
+#include "levels.cuh"
 
 namespace {
 
@@ -25,11 +31,8 @@ __constant__ int kRingDx[16] = {0, 1, 2, 3, 3, 3, 2, 1,
                                 0, -1, -2, -3, -3, -3, -2, -1};
 constexpr int kArc = 9;
 
-__global__ void fast_score_kernel(const float* __restrict__ img,
-                                  float* __restrict__ out, int h, int w) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= w || y >= h) return;
+__device__ __forceinline__ float fast_score_at(const float* __restrict__ img,
+                                               int h, int w, int x, int y) {
   const float c = img[y * w + x];
   float d[16];
 #pragma unroll
@@ -53,7 +56,28 @@ __global__ void fast_score_kernel(const float* __restrict__ img,
     bright = fmaxf(bright, mn);
     dark = fmaxf(dark, -mx);
   }
-  out[y * w + x] = fmaxf(fmaxf(bright, dark), 0.0f);
+  return fmaxf(fmaxf(bright, dark), 0.0f);
+}
+
+__global__ void fast_score_kernel(const float* __restrict__ img,
+                                  float* __restrict__ out, int h, int w) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= w || y >= h) return;
+  out[y * w + x] = fast_score_at(img, h, w, x, y);
+}
+
+__global__ void fast_score_levels_kernel(const float* __restrict__ buf,
+                                         float* __restrict__ out,
+                                         const PslLevels lv) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= lv.n_pixels) return;
+  const size_t frame = static_cast<size_t>(blockIdx.y) * lv.n_pixels;
+  const int l = psl_level_of(lv.off, lv.n, p);
+  const int q = p - lv.off[l];
+  const int w = lv.w[l];
+  out[frame + p] = fast_score_at(buf + frame + lv.off[l], lv.h[l], w, q % w,
+                                 q / w);
 }
 
 }  // namespace
@@ -67,5 +91,19 @@ PSL_API int psl_fast_score(const float* img, float* out, int h, int w,
   const dim3 block(32, 8);
   const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y);
   fast_score_kernel<<<grid, block, 0, stream>>>(img, out, h, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// All levels of `batch` frames: buf, out (batch, n_pixels); rows is the
+// host's level table.
+PSL_API int psl_fast_score_levels(const float* buf, float* out,
+                                  const int* rows, int n_levels, int batch,
+                                  cudaStream_t stream) {
+  PslLevels lv;
+  if (!psl_levels_from_host(rows, nullptr, n_levels, &lv) || batch < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((lv.n_pixels + 255) / 256, batch);
+  fast_score_levels_kernel<<<grid, 256, 0, stream>>>(buf, out, lv);
   return static_cast<int>(cudaGetLastError());
 }

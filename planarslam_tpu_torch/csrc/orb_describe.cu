@@ -22,7 +22,15 @@
 // The steering products use explicit round-to-nearest intrinsics so nvcc
 // cannot contract them into FMAs: the sample positions then round exactly
 // as the plain version's do, up to sinf/cosf ulps.
+//
+// orb_describe_levels_kernel describes the keypoints of every level of a
+// frame (and of every frame of a batch) in one launch: block k owns slot k
+// of the frame's keypoint block, finds its level in the by-value table
+// (levels.cuh), reads that level of the image and blur buffers, and writes
+// angle and descriptor straight into the fixed-capacity outputs; the slots
+// past the last level's quota get angle 0 and a zero descriptor.
 #include "common.cuh"
+#include "levels.cuh"
 
 namespace {
 
@@ -30,24 +38,18 @@ constexpr int kHalfPatch = 15;
 constexpr int kPatch = 2 * kHalfPatch + 1;
 constexpr int kThreads = 256;
 
-__global__ void orb_describe_kernel(const float* __restrict__ img,
-                                    const float* __restrict__ blur, int h,
-                                    int w, const float* __restrict__ uv,
-                                    const unsigned char* __restrict__ valid,
-                                    const int* __restrict__ pattern,
-                                    float* __restrict__ angle_out,
-                                    int* __restrict__ desc_out) {
-  const int k = blockIdx.x;
+// One keypoint by one block of kThreads threads: (u, v) level coordinates,
+// `ok` its validity; writes angle_out[0] and desc_out[0..7].
+__device__ __forceinline__ void describe_keypoint(
+    const float* __restrict__ img, const float* __restrict__ blur, int h,
+    int w, float u, float v, bool ok, const int* __restrict__ pattern,
+    float* __restrict__ angle_out, int* __restrict__ desc_out) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   __shared__ float red10[kThreads / 32];
   __shared__ float red01[kThreads / 32];
   __shared__ float s_angle;
-
-  const float u = uv[2 * k];
-  const float v = uv[2 * k + 1];
-  const bool ok = valid[k] != 0;
 
   // 1. intensity centroid over the clamped 31x31 window, circular mask
   const int y0 = psl_clamp(static_cast<int>(rintf(v)) - kHalfPatch, 0,
@@ -87,7 +89,7 @@ __global__ void orb_describe_kernel(const float* __restrict__ img,
   }
   __syncthreads();
   const float ang = s_angle;
-  if (tid == 0) angle_out[k] = ang;
+  if (tid == 0) angle_out[0] = ang;
 
   // 2. steered comparison pair `tid`
   const float ca = cosf(ang);
@@ -110,7 +112,43 @@ __global__ void orb_describe_kernel(const float* __restrict__ img,
                            h - 1);
   const bool bit = blur[va * w + ua] < blur[vb * w + ub];
   const unsigned word = __ballot_sync(0xffffffffu, bit);
-  if (lane == 0) desc_out[8 * k + warp] = ok ? static_cast<int>(word) : 0;
+  if (lane == 0) desc_out[warp] = ok ? static_cast<int>(word) : 0;
+}
+
+__global__ void orb_describe_kernel(const float* __restrict__ img,
+                                    const float* __restrict__ blur, int h,
+                                    int w, const float* __restrict__ uv,
+                                    const unsigned char* __restrict__ valid,
+                                    const int* __restrict__ pattern,
+                                    float* __restrict__ angle_out,
+                                    int* __restrict__ desc_out) {
+  const int k = blockIdx.x;
+  describe_keypoint(img, blur, h, w, uv[2 * k], uv[2 * k + 1], valid[k] != 0,
+                    pattern, angle_out + k, desc_out + 8 * k);
+}
+
+// uv, valid: (batch, n_slots) level coordinates and validity of the slots
+// the levels own; angle_out, desc_out: (batch, capacity) with capacity =
+// gridDim.x >= n_slots.
+__global__ void orb_describe_levels_kernel(
+    const float* __restrict__ buf, const float* __restrict__ blur,
+    const PslLevels lv, const float* __restrict__ uv,
+    const unsigned char* __restrict__ valid, const int* __restrict__ pattern,
+    float* __restrict__ angle_out, int* __restrict__ desc_out) {
+  const int k = blockIdx.x;
+  const int n_slots = lv.slot_off[lv.n];
+  const size_t out = static_cast<size_t>(blockIdx.y) * gridDim.x + k;
+  if (k >= n_slots) {
+    if (threadIdx.x == 0) angle_out[out] = 0.0f;
+    if (threadIdx.x < 8) desc_out[8 * out + threadIdx.x] = 0;
+    return;
+  }
+  const int l = psl_level_of(lv.slot_off, lv.n, k);
+  const size_t in = static_cast<size_t>(blockIdx.y) * n_slots + k;
+  const size_t px = static_cast<size_t>(blockIdx.y) * lv.n_pixels + lv.off[l];
+  describe_keypoint(buf + px, blur + px, lv.h[l], lv.w[l], uv[2 * in],
+                    uv[2 * in + 1], valid[in] != 0, pattern, angle_out + out,
+                    desc_out + 8 * out);
 }
 
 }  // namespace
@@ -124,6 +162,27 @@ PSL_API int psl_orb_describe(const float* img, const float* blur, int h,
     orb_describe_kernel<<<n, kThreads, 0, stream>>>(img, blur, h, w, uv,
                                                     valid, pattern, angle,
                                                     desc);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// All levels of `batch` frames in one launch: buf, blur (batch, n_pixels);
+// uv (batch, n_slots, 2), valid (batch, n_slots); angle (batch, capacity),
+// desc (batch, capacity, 8); rows is the host's level table.
+PSL_API int psl_orb_describe_levels(const float* buf, const float* blur,
+                                    const int* rows, int n_levels, int batch,
+                                    const float* uv,
+                                    const unsigned char* valid, int capacity,
+                                    const int* pattern, float* angle,
+                                    int* desc, cudaStream_t stream) {
+  PslLevels lv;
+  if (!psl_levels_from_host(rows, nullptr, n_levels, &lv) || batch < 1 ||
+      capacity < lv.slot_off[lv.n]) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (capacity > 0) {
+    orb_describe_levels_kernel<<<dim3(capacity, batch), kThreads, 0, stream>>>(
+        buf, blur, lv, uv, valid, pattern, angle, desc);
   }
   return static_cast<int>(cudaGetLastError());
 }

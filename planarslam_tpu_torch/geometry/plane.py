@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from planarslam_tpu_torch.ops.consts import literal
+
 _EPS = 1e-9
 
 
@@ -18,7 +20,7 @@ def _safe_norm(v, dim=-1):
     """Norm with a well-defined gradient at v = 0. The epsilon is a tensor
     of v's dtype: a Python float added to a 0-d sum makes torch.func's
     forward mode carry a float64 tangent."""
-    eps = torch.tensor(_EPS, dtype=v.dtype, device=v.device)
+    eps = literal(_EPS, v.dtype, v.device)
     return torch.sqrt(torch.sum(v * v, dim=dim) + eps)
 
 

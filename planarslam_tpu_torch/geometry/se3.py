@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from planarslam_tpu_torch.ops.consts import literal
+
 _EPS = 1e-8
 
 
@@ -157,9 +159,8 @@ def se3_right_jacobian_inv(xi):
 
 def rt_to_T(R, t):
     top = torch.cat([R, t[..., :, None]], dim=-1)  # (..., 3, 4)
-    bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)
-    bottom = bottom + torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                                   device=R.device)
+    bottom = literal((0.0, 0.0, 0.0, 1.0), R.dtype, R.device).expand(
+        R.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

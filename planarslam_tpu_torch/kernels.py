@@ -33,7 +33,9 @@ KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
                 "horn_align_batch", "pnp_dlt_hypotheses", "ba_normal_eqs",
                 "ba_schur_eliminate", "pose_graph_normal_eqs",
                 "pose_optimize", "plane_components", "plane_assign_refit",
-                "plane_label_pixels", "manhattan_mean_shift")
+                "plane_label_pixels", "manhattan_mean_shift",
+                "pyramid_resize", "gaussian_blur", "select_keypoints",
+                "point_epilogue")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -42,13 +44,16 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
 CUDA_SOURCES = ("fast_score.cu", "orb_describe.cu", "hamming_top2.cu",
                 "triangulate.cu", "horn_align.cu", "pnp_dlt.cu",
                 "ba_normal_eqs.cu", "ba_schur.cu", "pose_graph.cu",
-                "pose_opt.cu", "plane_segment.cu", "manhattan.cu")
+                "pose_opt.cu", "plane_segment.cu", "manhattan.cu",
+                "pyramid.cu", "select_keypoints.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # Sources whose float32 gates must round as the plain version's separate
 # PyTorch ops do: no contraction of a product and a sum into one FMA.
 SOURCE_FLAGS = {"plane_segment.cu": ("-fmad=false",),
-                "manhattan.cu": ("-fmad=false",)}
+                "manhattan.cu": ("-fmad=false",),
+                "pyramid.cu": ("-fmad=false",),
+                "select_keypoints.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -58,6 +63,7 @@ BUILD_SECONDS: Optional[float] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # img, out, h, w, stream
     "psl_fast_score": [_P, _P, _I, _I, _P],
@@ -119,6 +125,27 @@ _SIGNATURES = {
     # ms_iters, R_out, support, n_axes, success, stream
     "psl_manhattan_mean_shift": [_P] * 3 + [_I, _F, _F] + [_I] * 3
                                 + [_P] * 5,
+    # The all-levels entry points take the host's level table (`rows`, the
+    # int32 array of ops/levels.py) and a leading batch count.
+    # buf, out, rows, n_levels, batch, stream
+    "psl_fast_score_levels": [_P, _P, _P, _I, _I, _P],
+    # buf, blur, rows, n_levels, batch, uv, valid, capacity, pattern, angle,
+    # desc, stream
+    "psl_orb_describe_levels": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
+                                _P],
+    # gray, gray_stride, buf, rows, n_levels, batch, row_taps, col_taps (host
+    # arrays of device pointers), stream
+    "psl_pyramid_build": [_P, _L, _P, _P, _I, _I, _P, _P, _P],
+    # src, dst, rows, n_levels, batch, ksize, the 7 taps, stream
+    "psl_gaussian_blur": [_P, _P, _P, _I, _I, _I] + [_F] * 7 + [_P],
+    # score, rows, n_levels, batch, min_score, border, cand_val, cand_xy,
+    # uv, response, valid, stream
+    "psl_select_keypoints": [_P, _P, _I, _I, _F, _I] + [_P] * 6,
+    # uv_level, resp, valid_in, depth, h, w, rows, scale, n_levels, batch,
+    # capacity, fx, fy, cx, cy, bf, k1, k2, p1, p2, k3, has_distortion, uv,
+    # uv_raw, response, level, depth_out, u_right, valid, stream
+    "psl_point_epilogue": [_P] * 4 + [_I, _I, _P, _P] + [_I] * 3 + [_F] * 10
+                          + [_I] + [_P] * 8,
 }
 
 
@@ -261,3 +288,11 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
 
 def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
+
+
+def host_ptr(a) -> int:
+    """Address of a C-contiguous numpy array the caller keeps alive (the
+    level table): the C entry point reads it before it returns."""
+    if not a.flags["C_CONTIGUOUS"]:
+        raise ValueError("expected a C-contiguous array")
+    return a.ctypes.data

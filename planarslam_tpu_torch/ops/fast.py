@@ -1,9 +1,13 @@
 """FAST-9/16 corner scores and spatially-uniform keypoint selection.
 
 Port of ``planarslam_tpu/ops/fast.py``. ``fast_score`` is kernel K1
-(``csrc/fast_score.cu``); ``fast_score_plain`` is its plain PyTorch version.
-``select_keypoints`` stays plain: NMS, per-tile top-k and a global top-k,
-with ties ordered lower-index-first as ``lax.top_k`` orders them.
+(``csrc/fast_score.cu``) on one level and ``fast_score_levels`` the same
+kernel on every level of a frame in one launch; ``fast_score_plain`` is
+their plain PyTorch version. ``select_keypoints_levels`` is kernel K18
+(``csrc/select_keypoints.cu``): NMS, per-tile top-k and a per-level top-k
+for every level in two launches, with ties ordered lower-index-first as
+``lax.top_k`` orders them; ``select_keypoints`` is its plain version, one
+level at a time.
 """
 
 from __future__ import annotations
@@ -14,7 +18,9 @@ import numpy as np
 import torch
 
 from planarslam_tpu_torch import kernels
+from planarslam_tpu_torch.ops.image import per_level
 from planarslam_tpu_torch.ops.lax_compat import top_k
+from planarslam_tpu_torch.ops.levels import LevelTable, tile_budget
 
 # 16-point Bresenham circle of radius 3, in ring order, as (dy, dx).
 CIRCLE_OFFSETS = np.array([
@@ -75,6 +81,88 @@ def fast_score(img: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _check_buffer(buf: torch.Tensor, name: str, table: LevelTable) -> None:
+    kernels.check(buf, name, torch.float32)
+    if buf.dim() != 2 or buf.shape[1] != table.n_pixels:
+        raise ValueError(f"{name}: expected (B, {table.n_pixels}), got "
+                         f"{tuple(buf.shape)}")
+
+
+def fast_score_levels_plain(buf: torch.Tensor, table: LevelTable
+                            ) -> torch.Tensor:
+    """Plain version of the all-levels K1: fast_score_plain level by level."""
+    return per_level(fast_score_plain, buf, table)
+
+
+def fast_score_levels(buf: torch.Tensor, table: LevelTable) -> torch.Tensor:
+    """K1 on every level of a (B, n_pixels) float32 buffer in one launch:
+    the (B, n_pixels) FAST scores, level by level as the buffer is laid
+    out."""
+    if kernels.on_cpu(buf):
+        return fast_score_levels_plain(buf, table)
+    _check_buffer(buf, "buf", table)
+    out = torch.empty_like(buf)
+    with torch.cuda.device(buf.device):
+        kernels.launch("psl_fast_score_levels", kernels.ptr(buf),
+                       kernels.ptr(out), kernels.host_ptr(table.ints),
+                       table.n_levels, buf.shape[0])
+    kernels.LAUNCHES["fast_score"] += 1
+    return out
+
+
+def select_keypoints_levels_plain(scores: torch.Tensor, table: LevelTable,
+                                  min_score: float, border: int
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain version of K18: select_keypoints on every level with a quota,
+    the levels' keypoints one after the other."""
+    tiles, quotas = table.column("tile"), table.column("quota")
+    uvs, resps, valids = [], [], []
+    for b in range(scores.shape[0]):
+        per = [select_keypoints(
+            scores[b, table.level_slice(l)].reshape(h, w), int(tiles[l]),
+            int(quotas[l]), min_score, border)
+            for l, (h, w) in enumerate(table.shapes) if quotas[l] > 0]
+        uvs.append(torch.cat([p[0] for p in per]))
+        resps.append(torch.cat([p[1] for p in per]))
+        valids.append(torch.cat([p[2] for p in per]))
+    return torch.stack(uvs), torch.stack(resps), torch.stack(valids)
+
+
+def select_keypoints_levels(scores: torch.Tensor, table: LevelTable,
+                            min_score: float, border: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """K18 wrapper: the keypoints of every level of (B, n_pixels) FAST
+    scores. Returns (uv (B, n_slots, 2) float32 in level coordinates,
+    response (B, n_slots) float32, valid (B, n_slots) bool); level l owns
+    the slots from the sum of the lower levels' quotas on. Equal to the
+    plain version in every slot, the invalid ones too."""
+    if kernels.on_cpu(scores):
+        return select_keypoints_levels_plain(scores, table, min_score, border)
+    _check_buffer(scores, "scores", table)
+    if 4 * table.max_tile ** 2 > 48 * 1024:
+        raise ValueError(f"tile {table.max_tile} exceeds the kernel's shared "
+                         f"memory tile")
+    b, dev = scores.shape[0], scores.device
+    cand_val = torch.empty((b, table.n_candidates), dtype=torch.float32,
+                           device=dev)
+    cand_xy = torch.empty((b, table.n_candidates, 2), dtype=torch.int32,
+                          device=dev)
+    uv = torch.empty((b, table.n_slots, 2), dtype=torch.float32, device=dev)
+    resp = torch.empty((b, table.n_slots), dtype=torch.float32, device=dev)
+    valid = torch.empty((b, table.n_slots), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch("psl_select_keypoints", kernels.ptr(scores),
+                       kernels.host_ptr(table.ints), table.n_levels, b,
+                       float(min_score), int(border), kernels.ptr(cand_val),
+                       kernels.ptr(cand_xy), kernels.ptr(uv),
+                       kernels.ptr(resp), kernels.ptr(valid))
+    # the tile pass and the ranking pass
+    kernels.LAUNCHES["select_keypoints"] += 2 if table.n_tiles else 0
+    return uv, resp, valid
+
+
 def select_keypoints(score: torch.Tensor, tile: int, k_total: int,
                      min_score: float, border: int
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -98,8 +186,7 @@ def select_keypoints(score: torch.Tensor, tile: int, k_total: int,
     tiles = sp.reshape(nth, tile, ntw, tile).permute(0, 2, 1, 3)
     tiles = tiles.reshape(nth * ntw, tile * tile)
 
-    n_tiles = nth * ntw
-    k_tile = max(1, min(tile * tile, -(-2 * k_total // n_tiles)))
+    _, n_tiles, k_tile = tile_budget(h, w, tile, k_total)
     if k_tile <= 4:
         cols = torch.arange(tile * tile, device=dev)[None, :]
         vs, is_ = [], []

@@ -3,6 +3,12 @@
 Port of ``planarslam_tpu/ops/image.py``. Images are float32 (H, W) in
 [0, 255]. The filters are shift-and-add loops in the JAX module's order, so
 the float sums round identically.
+
+``build_pyramid_levels`` is kernel K16 (``csrc/pyramid.cu``,
+``pyramid_resize``) and ``gaussian_blur_levels`` kernel K17
+(``gaussian_blur``): both work on the (B, n_pixels) buffer that holds all
+levels of a frame (``ops/levels.py``); ``build_pyramid`` and ``blur`` are
+their plain versions, one level at a time.
 """
 
 from __future__ import annotations
@@ -13,6 +19,13 @@ from typing import List, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from planarslam_tpu_torch import kernels
+from planarslam_tpu_torch.ops.consts import const
+from planarslam_tpu_torch.ops.levels import (LevelTable, pyramid_shapes,
+                                             single_level)
+
+MAX_BLUR_TAPS = 7  # csrc/pyramid.cu::kBlurMaxTaps
 
 
 def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
@@ -79,22 +92,48 @@ def resize_bilinear(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     oh, ow = out_hw
     out = img
     if oh != h:
-        wh = torch.as_tensor(_resize_weights(h, oh), device=img.device)
+        wh = const(("resize_weights", h, oh),
+                   lambda: _resize_weights(h, oh), img.device)
         out = wh.T @ out
     if ow != w:
-        ww = torch.as_tensor(_resize_weights(w, ow), device=img.device)
+        ww = const(("resize_weights", w, ow),
+                   lambda: _resize_weights(w, ow), img.device)
         out = out @ ww
     return out
 
 
-def pyramid_shapes(height: int, width: int, n_levels: int,
-                   scale_factor: float) -> List[Tuple[int, int]]:
-    """Static per-level shapes, matching the reference's round(dim/scale^l)."""
-    shapes = []
-    for l in range(n_levels):
-        inv = 1.0 / (scale_factor ** l)
-        shapes.append((int(round(height * inv)), int(round(width * inv))))
-    return shapes
+MAX_RESIZE_TAPS = 3  # csrc/pyramid.cu::kMaxTaps
+
+
+@lru_cache(maxsize=64)
+def resize_taps(in_size: int, out_size: int) -> np.ndarray:
+    """The non-zero taps of ``_resize_weights(in_size, out_size)`` as K16
+    reads them: (out_size, 5) int32 rows [first input index, tap count, and
+    the bits of 3 float32 weights], the taps of an output contiguous from
+    its first input. Scattered back they give the dense matrix exactly."""
+    wts = _resize_weights(in_size, out_size)
+    taps = np.zeros((out_size, 2 + MAX_RESIZE_TAPS), np.int32)
+    for o in range(out_size):
+        nz = np.flatnonzero(wts[:, o])
+        if len(nz) == 0:
+            continue
+        first, count = int(nz[0]), int(nz[-1] - nz[0] + 1)
+        if count > MAX_RESIZE_TAPS:
+            raise ValueError(f"resize {in_size} -> {out_size}: output {o} has "
+                             f"{count} taps, the kernel takes "
+                             f"{MAX_RESIZE_TAPS}")
+        taps[o, 0], taps[o, 1] = first, count
+        taps[o, 2:2 + count] = wts[first:first + count, o].view(np.int32)
+    return taps
+
+
+def taps_to_dense(taps: np.ndarray, in_size: int) -> np.ndarray:
+    """The (in_size, out) float32 weight matrix a tap table stands for."""
+    out = np.zeros((in_size, taps.shape[0]), np.float32)
+    wts = np.ascontiguousarray(taps[:, 2:]).view(np.float32)
+    for o, (first, count) in enumerate(taps[:, :2]):
+        out[first:first + count, o] = wts[o, :count]
+    return out
 
 
 def build_pyramid(img: torch.Tensor, n_levels: int,
@@ -107,6 +146,114 @@ def build_pyramid(img: torch.Tensor, n_levels: int,
     for l in range(1, n_levels):
         levels.append(resize_bilinear(levels[-1], shapes[l]))
     return levels
+
+
+def build_pyramid_levels_plain(gray: torch.Tensor, table: LevelTable,
+                               scale_factor: float) -> torch.Tensor:
+    """Plain version of K16: (B, H, W) frames -> the (B, n_pixels) buffer of
+    all levels, each frame through build_pyramid."""
+    return torch.stack([
+        torch.cat([lv.reshape(-1) for lv in
+                   build_pyramid(g, table.n_levels, scale_factor)])
+        for g in gray])
+
+
+@lru_cache(maxsize=16)
+def _tap_pointers(shapes: Tuple[Tuple[int, int], ...], device: torch.device
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host arrays of the device addresses of every level's row and column
+    tap tables (entry 0 unused), as K16's entry point reads them. The tables
+    are device constants, so the addresses stay good."""
+    rows = np.zeros(len(shapes), np.uint64)
+    cols = np.zeros(len(shapes), np.uint64)
+    for l in range(1, len(shapes)):
+        (hi, wi), (ho, wo) = shapes[l - 1], shapes[l]
+        rows[l] = const(("resize_taps", hi, ho),
+                        lambda: resize_taps(hi, ho), device).data_ptr()
+        cols[l] = const(("resize_taps", wi, wo),
+                        lambda: resize_taps(wi, wo), device).data_ptr()
+    return rows, cols
+
+
+def build_pyramid_levels(gray: torch.Tensor, table: LevelTable,
+                         scale_factor: float) -> torch.Tensor:
+    """K16 wrapper: (B, H, W) float32 frames -> the (B, n_pixels) float32
+    buffer holding every pyramid level of each frame. One launch per level
+    above 0, each resizing the level below, all issued by one call; the
+    first also copies the frames in as level 0."""
+    if kernels.on_cpu(gray):
+        return build_pyramid_levels_plain(gray, table, scale_factor)
+    kernels.check(gray, "gray", torch.float32)
+    if gray.dim() != 3 or tuple(gray.shape[1:]) != table.shapes[0]:
+        raise ValueError(f"gray: expected (B, {table.shapes[0][0]}, "
+                         f"{table.shapes[0][1]}), got {tuple(gray.shape)}")
+    if table.shapes != tuple(pyramid_shapes(*table.shapes[0], table.n_levels,
+                                            scale_factor)):
+        raise ValueError("the level table was built for another scale factor")
+    b = gray.shape[0]
+    buf = torch.empty((b, table.n_pixels), dtype=torch.float32,
+                      device=gray.device)
+    rows, cols = _tap_pointers(table.shapes, gray.device)
+    with torch.cuda.device(gray.device):
+        kernels.launch("psl_pyramid_build", kernels.ptr(gray), gray.stride(0),
+                       kernels.ptr(buf), kernels.host_ptr(table.ints),
+                       table.n_levels, b, kernels.host_ptr(rows),
+                       kernels.host_ptr(cols))
+    kernels.LAUNCHES["pyramid_resize"] += max(1, table.n_levels - 1)
+    return buf
+
+
+def per_level(fn, buf: torch.Tensor, table: LevelTable) -> torch.Tensor:
+    """fn on every level of every frame of a (B, n_pixels) buffer: how the
+    plain versions of the all-levels kernels run."""
+    out = torch.empty_like(buf)
+    for l, (h, w) in enumerate(table.shapes):
+        sl = table.level_slice(l)
+        for b in range(buf.shape[0]):
+            out[b, sl] = fn(buf[b, sl].reshape(h, w)).reshape(-1)
+    return out
+
+
+def gaussian_blur_levels_plain(buf: torch.Tensor, table: LevelTable,
+                               ksize: int = 7, sigma: float = 2.0
+                               ) -> torch.Tensor:
+    """Plain version of K17: blur of every level of a (B, n_pixels) buffer."""
+    return per_level(lambda img: blur(img, ksize, sigma), buf, table)
+
+
+def gaussian_blur_levels(buf: torch.Tensor, table: LevelTable, ksize: int = 7,
+                         sigma: float = 2.0) -> torch.Tensor:
+    """K17 wrapper: separable Gaussian blur (replicate borders) of every
+    level of a (B, n_pixels) float32 buffer in one launch, with the bits of
+    the plain version."""
+    if kernels.on_cpu(buf):
+        return gaussian_blur_levels_plain(buf, table, ksize, sigma)
+    kernels.check(buf, "buf", torch.float32)
+    if buf.dim() != 2 or buf.shape[1] != table.n_pixels:
+        raise ValueError(f"buf: expected (B, {table.n_pixels}), got "
+                         f"{tuple(buf.shape)}")
+    if ksize % 2 != 1 or not 1 <= ksize <= MAX_BLUR_TAPS:
+        raise ValueError(f"ksize {ksize}: the kernel takes an odd number of "
+                         f"taps up to {MAX_BLUR_TAPS}")
+    taps = [float(k) for k in gaussian_kernel_1d(ksize, sigma)]
+    taps += [0.0] * (MAX_BLUR_TAPS - ksize)
+    out = torch.empty_like(buf)
+    with torch.cuda.device(buf.device):
+        kernels.launch("psl_gaussian_blur", kernels.ptr(buf),
+                       kernels.ptr(out), kernels.host_ptr(table.ints),
+                       table.n_levels, buf.shape[0], ksize, *taps)
+    kernels.LAUNCHES["gaussian_blur"] += 1
+    return out
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0
+                  ) -> torch.Tensor:
+    """K17 on one (H, W) image (a one-level buffer); `blur` on the CPU."""
+    if kernels.on_cpu(img):
+        return blur(img, ksize, sigma)
+    h, w = img.shape
+    return gaussian_blur_levels(img.reshape(1, h * w), single_level(h, w),
+                                ksize, sigma).reshape(h, w)
 
 
 def sobel_gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -20,6 +20,7 @@ from torch.profiler import record_function
 
 from planarslam_tpu_torch.config import CameraConfig, LineConfig
 from planarslam_tpu_torch.ops import image as image_ops
+from planarslam_tpu_torch.ops.consts import const
 from planarslam_tpu_torch.ops.eig3 import eigh_sym3x3
 from planarslam_tpu_torch.ops.lax_compat import (linspace, mod, nanmedian,
                                                  segment_sum, top_k)
@@ -44,10 +45,19 @@ N_THETA = 36  # orientation bins over [0, pi)
 S_BINS = 96   # position-histogram bins along a line
 
 
+def smoothed_gradients(gray: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sobel (gx, gy) of the 5-tap, sigma 1 blur of the frame (K17 on the
+    card): what detection and descriptors both read."""
+    return image_ops.sobel_gradients(image_ops.gaussian_blur(gray, 5, 1.0))
+
+
 def detect_lines(gray: torch.Tensor, cfg: LineConfig,
-                 grad_threshold: float = 40.0) -> Tuple[torch.Tensor, ...]:
+                 grad_threshold: float = 40.0, grads=None
+                 ) -> Tuple[torch.Tensor, ...]:
     """Gradient-aligned Hough line detection. Returns (uv_s, uv_e, line2d,
-    angle, response, valid) with capacity cfg.max_lines."""
+    angle, response, valid) with capacity cfg.max_lines. `grads` is
+    smoothed_gradients(gray) where the caller has it already."""
     dev = gray.device
     h, w = gray.shape
     L = cfg.max_lines
@@ -55,7 +65,7 @@ def detect_lines(gray: torch.Tensor, cfg: LineConfig,
     rho_res = 2.0
     n_rho = 2 * int(diag / rho_res) + 3
 
-    gx, gy = image_ops.sobel_gradients(image_ops.blur(gray, 5, 1.0))
+    gx, gy = smoothed_gradients(gray) if grads is None else grads
     mag = torch.sqrt(gx * gx + gy * gy + 1e-12)
 
     ang_g = torch.atan2(gy, gx)
@@ -183,19 +193,21 @@ _BAND_OFF = ((np.arange(N_BANDS) - (N_BANDS - 1) / 2.0)
 
 
 def line_descriptors(gray: torch.Tensor, uv_s: torch.Tensor,
-                     uv_e: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+                     uv_e: torch.Tensor, valid: torch.Tensor, grads=None
+                     ) -> torch.Tensor:
     """LBD-style band descriptor: per band, mean and std of the gradient
     components parallel/perpendicular to the line, L2-normalized.
-    (L, N_BANDS * 8) float32."""
+    (L, N_BANDS * 8) float32. `grads` is smoothed_gradients(gray) where the
+    caller has it already."""
     dev = gray.device
-    gx, gy = image_ops.sobel_gradients(image_ops.blur(gray, 5, 1.0))
+    gx, gy = smoothed_gradients(gray) if grads is None else grads
     d = uv_e - uv_s
     length = torch.sqrt(torch.sum(d * d, dim=-1) + 1e-9)
     t = d / length[:, None]
     n = torch.stack([-t[:, 1], t[:, 0]], dim=-1)
 
-    alphas = torch.as_tensor(_DESC_ALPHAS, device=dev)
-    band_off = torch.as_tensor(_BAND_OFF, device=dev)
+    alphas = const("lines.desc_alphas", _DESC_ALPHAS, dev)
+    band_off = const("lines.band_off", _BAND_OFF, dev)
     centers = (uv_s[:, None, None, :]
                + alphas[None, None, :, None] * d[:, None, None, :]
                + band_off[None, :, None, None] * n[:, None, None, :])
@@ -233,7 +245,8 @@ def lift_lines_3d(depth: torch.Tensor, cam: CameraConfig, cfg: LineConfig,
     Returns (p3d_s (L,3), p3d_e (L,3), has_3d (L,))."""
     dev = depth.device
     S = cfg.n_depth_samples
-    alphas = torch.as_tensor(linspace(0.02, 0.98, S), device=dev)
+    alphas = const(("lines.depth_alphas", S),
+                   lambda: linspace(0.02, 0.98, S), dev)
     pts2d = uv_s[:, None, :] + alphas[None, :, None] * (uv_e - uv_s)[:, None, :]
     z = image_ops.nearest_sample(depth, pts2d)
     z_ok = z > 1e-6
@@ -244,7 +257,8 @@ def lift_lines_3d(depth: torch.Tensor, cam: CameraConfig, cfg: LineConfig,
     sigma = cfg.depth_c1 * z * z + cfg.depth_c2 * z + cfg.depth_c3
     sigma = torch.clamp(sigma, min=2e-3)
 
-    hyp = torch.as_tensor(ransac_table(S, cfg.ransac_iters), device=dev)
+    hyp = const(("lines.ransac_table", S, cfg.ransac_iters),
+                lambda: ransac_table(S, cfg.ransac_iters), dev)
     a = p3[:, hyp[:, 0], :]
     b = p3[:, hyp[:, 1], :]
     dvec = b - a
@@ -291,8 +305,10 @@ def lift_lines_3d(depth: torch.Tensor, cam: CameraConfig, cfg: LineConfig,
 def extract_line_features(gray: torch.Tensor, depth: torch.Tensor,
                           cam: CameraConfig, cfg: LineConfig) -> LineFeatures:
     """Full line front end for one frame."""
-    uv_s, uv_e, l_eq, angle, resp, valid = detect_lines(gray, cfg)
-    desc = line_descriptors(gray, uv_s, uv_e, valid)
+    grads = smoothed_gradients(gray)  # once for detection and descriptors
+    uv_s, uv_e, l_eq, angle, resp, valid = detect_lines(gray, cfg,
+                                                        grads=grads)
+    desc = line_descriptors(gray, uv_s, uv_e, valid, grads=grads)
     p3s, p3e, has3d = lift_lines_3d(depth, cam, cfg, uv_s, uv_e, valid)
     return LineFeatures(uv_s=uv_s, uv_e=uv_e, line2d=l_eq, angle=angle,
                         response=resp, desc=desc, p3d_s=p3s, p3d_e=p3e,

@@ -19,6 +19,7 @@ from torch.profiler import record_function
 
 from planarslam_tpu_torch import kernels
 from planarslam_tpu_torch.geometry import se3
+from planarslam_tpu_torch.ops.consts import literal
 from planarslam_tpu_torch.ops.lax_compat import mod, top_k
 from planarslam_tpu_torch.ops.orb import hamming_distance
 
@@ -220,8 +221,7 @@ def search_by_projection(
     if dist_range is not None:
         dmin, dmax = dist_range
         gate_pt = gate_pt & (dist >= 0.8 * dmin) & (dist <= 1.2 * dmax)
-        log_sf = torch.log(torch.tensor(scale_factor, dtype=torch.float32,
-                                        device=dev))
+        log_sf = torch.log(literal(scale_factor, torch.float32, dev))
         pred_level = torch.ceil(
             torch.log(torch.clamp(dmax / dist, min=1.0)) / log_sf
         ).to(torch.int32)

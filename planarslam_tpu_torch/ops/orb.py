@@ -2,8 +2,10 @@
 
 Port of ``planarslam_tpu/ops/orb.py``. ``orb_describe`` is kernel K2
 (``csrc/orb_describe.cu``): orientation and descriptor of every keypoint of
-one level in one launch; ``orb_describe_plain`` is its plain PyTorch version
-(``orientations`` then ``descriptors``). Descriptors are (N, 8) int32 bit
+one level in one launch, and ``orb_describe_levels`` the same kernel on the
+keypoints of every level of a frame in one launch;
+``orb_describe_plain`` is their plain PyTorch version (``orientations``
+then ``descriptors``). Descriptors are (N, 8) int32 bit
 patterns (torch's uint32 lacks bitwise ops); they become uint32 only at the
 numpy boundary, with ``.view(np.uint32)``. The comparison pattern is the
 JAX package's, rebuilt from the same numpy seed.
@@ -17,6 +19,8 @@ import numpy as np
 import torch
 
 from planarslam_tpu_torch import kernels
+from planarslam_tpu_torch.ops.consts import const as _const
+from planarslam_tpu_torch.ops.levels import LevelTable
 
 HALF_PATCH = 15  # orientation patch radius (reference HALF_PATCH_SIZE)
 N_BITS = 256
@@ -47,16 +51,7 @@ def make_brief_pattern(seed: int = 1234) -> np.ndarray:
 
 
 _PATTERN = make_brief_pattern()
-_DEVICE_CONSTS: dict = {}
-
-
-def _const(name: str, arr: np.ndarray, device) -> torch.Tensor:
-    key = (name, str(device))
-    t = _DEVICE_CONSTS.get(key)
-    if t is None:
-        t = torch.as_tensor(arr, device=device)
-        _DEVICE_CONSTS[key] = t
-    return t
+_PATTERN_F = _PATTERN.astype(np.float32)
 
 
 def orientations(img: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor
@@ -73,9 +68,9 @@ def orientations(img: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor
     rows = y0[:, None, None] + ar[None, :, None]
     cols = x0[:, None, None] + ar[None, None, :]
     patch = img.reshape(-1)[rows * w + cols]  # (N, 31, 31)
-    dx = _const("dx", _DX, dev)
-    dy = _const("dy", _DY, dev)
-    mask = _const("mask", _MASK, dev)
+    dx = _const("orb.dx", _DX, dev)
+    dy = _const("orb.dy", _DY, dev)
+    mask = _const("orb.mask", _MASK, dev)
     m10 = torch.sum(patch * dx * mask, dim=(1, 2))
     m01 = torch.sum(patch * dy * mask, dim=(1, 2))
     ang = torch.atan2(m01, m10)
@@ -98,7 +93,7 @@ def descriptors(img_blur: torch.Tensor, uv: torch.Tensor, angle: torch.Tensor,
                 valid: torch.Tensor) -> torch.Tensor:
     """Steered-BRIEF descriptors, (N, 8) int32 bit patterns."""
     h, w = img_blur.shape
-    pat = _const("pattern_f", _PATTERN.astype(np.float32), img_blur.device)
+    pat = _const("orb.pattern_f", _PATTERN_F, img_blur.device)
     ca, sa = torch.cos(angle), torch.sin(angle)
     flat = img_blur.reshape(-1)
 
@@ -138,13 +133,79 @@ def orb_describe(img: torch.Tensor, img_blur: torch.Tensor, uv: torch.Tensor,
     kernels.check(valid, "valid", torch.bool, (n,))
     if h < 2 * HALF_PATCH + 1 or w < 2 * HALF_PATCH + 1:
         raise ValueError(f"level {h}x{w} is smaller than the ORB patch")
-    pattern = _const("pattern_i", _PATTERN, img.device)
+    pattern = _const("orb.pattern_i", _PATTERN, img.device)
     angle = torch.empty(n, dtype=torch.float32, device=img.device)
     desc = torch.empty((n, 8), dtype=torch.int32, device=img.device)
     with torch.cuda.device(img.device):
         kernels.launch("psl_orb_describe", kernels.ptr(img),
                        kernels.ptr(img_blur), h, w, kernels.ptr(uv),
                        kernels.ptr(valid), n, kernels.ptr(pattern),
+                       kernels.ptr(angle), kernels.ptr(desc))
+    kernels.LAUNCHES["orb_describe"] += 1
+    return angle, desc
+
+
+def orb_describe_levels_plain(buf: torch.Tensor, blur: torch.Tensor,
+                              uv: torch.Tensor, valid: torch.Tensor,
+                              table: LevelTable, capacity: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the all-levels K2: orb_describe_plain per level,
+    concatenated and zero-padded to `capacity` slots."""
+    quotas = table.column("quota")
+    b = buf.shape[0]
+    angle = torch.zeros((b, capacity), dtype=torch.float32, device=buf.device)
+    desc = torch.zeros((b, capacity, 8), dtype=torch.int32, device=buf.device)
+    for i in range(b):
+        s0 = 0
+        for l, (h, w) in enumerate(table.shapes):
+            q = int(quotas[l])
+            if q == 0:
+                continue
+            sl = table.level_slice(l)
+            a, d = orb_describe_plain(
+                buf[i, sl].reshape(h, w), blur[i, sl].reshape(h, w),
+                uv[i, s0:s0 + q], valid[i, s0:s0 + q])
+            angle[i, s0:s0 + q] = a
+            desc[i, s0:s0 + q] = d
+            s0 += q
+    return angle, desc
+
+
+def orb_describe_levels(buf: torch.Tensor, blur: torch.Tensor,
+                        uv: torch.Tensor, valid: torch.Tensor,
+                        table: LevelTable, capacity: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 on the keypoints of every level of a frame in one launch.
+
+    buf, blur: (B, n_pixels) float32 level buffers; uv (B, n_slots, 2)
+    float32 level coordinates and valid (B, n_slots) bool, as
+    select_keypoints_levels returns them. Returns (angle (B, capacity)
+    float32, desc (B, capacity, 8) int32) with the slots past n_slots
+    zero."""
+    if kernels.on_cpu(buf, blur, uv, valid):
+        return orb_describe_levels_plain(buf, blur, uv, valid, table,
+                                         capacity)
+    b = buf.shape[0]
+    kernels.check(buf, "buf", torch.float32, (b, table.n_pixels))
+    kernels.check(blur, "blur", torch.float32, (b, table.n_pixels))
+    kernels.check(uv, "uv", torch.float32, (b, table.n_slots, 2))
+    kernels.check(valid, "valid", torch.bool, (b, table.n_slots))
+    if capacity < table.n_slots:
+        raise ValueError(f"capacity {capacity} is below the levels' "
+                         f"{table.n_slots} slots")
+    size = 2 * HALF_PATCH + 1
+    for (h, w), q in zip(table.shapes, table.column("quota")):
+        if q > 0 and (h < size or w < size):
+            raise ValueError(f"level {h}x{w} is smaller than the ORB patch")
+    pattern = _const("orb.pattern_i", _PATTERN, buf.device)
+    angle = torch.empty((b, capacity), dtype=torch.float32, device=buf.device)
+    desc = torch.empty((b, capacity, 8), dtype=torch.int32,
+                       device=buf.device)
+    with torch.cuda.device(buf.device):
+        kernels.launch("psl_orb_describe_levels", kernels.ptr(buf),
+                       kernels.ptr(blur), kernels.host_ptr(table.ints),
+                       table.n_levels, b, kernels.ptr(uv),
+                       kernels.ptr(valid), capacity, kernels.ptr(pattern),
                        kernels.ptr(angle), kernels.ptr(desc))
     kernels.LAUNCHES["orb_describe"] += 1
     return angle, desc

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from planarslam_tpu_torch import kernels
 from planarslam_tpu_torch.config import CameraConfig, PlaneConfig
 from planarslam_tpu_torch.geometry import plane as plane_geo
+from planarslam_tpu_torch.ops.consts import literal
 from planarslam_tpu_torch.ops.eig3 import eigh_sym3x3
 from planarslam_tpu_torch.ops.lax_compat import nanmedian, segment_sum, top_k
 
@@ -48,6 +49,7 @@ class PlaneFeatures(NamedTuple):
     pixel_label: torch.Tensor  # (H, W) int32 plane id in [0, P) or -1
 
 
+@record_function("planes.backproject_depth")
 def backproject_depth(depth: torch.Tensor, cam: CameraConfig) -> torch.Tensor:
     """(H, W) metres -> (H, W, 3) camera-frame points (z=0 where invalid)."""
     h, w = depth.shape
@@ -71,6 +73,7 @@ def _box_sum(x: torch.Tensor, k: int) -> torch.Tensor:
     return acc
 
 
+@record_function("planes.box_smooth_depth")
 def box_smooth_depth(depth: torch.Tensor, k: int = 5) -> torch.Tensor:
     """Edge-preserving box smoothing of valid depths (see the JAX module)."""
     if k <= 1:
@@ -325,7 +328,7 @@ def plane_components_plain(stats: _BlockStats, hb: int, wb: int,
     edge_d = (similar(ids, nbr_down) & (nbr_down != ids)).reshape(hb, wb)
     edge_l = torch.roll(edge_r, 1, 1)
     edge_u = torch.roll(edge_d, 1, 0)
-    big = torch.tensor(n_blocks, device=dev)
+    big = literal(n_blocks, torch.int64, dev)
 
     labels = ids
     for _ in range(cfg.merge_rounds):

@@ -37,6 +37,7 @@ from planarslam_tpu_torch.geometry import plane as plane_geo
 from planarslam_tpu_torch.geometry import se3
 from planarslam_tpu_torch.ops import manhattan as manhattan_ops
 from planarslam_tpu_torch.ops import matching
+from planarslam_tpu_torch.ops.consts import literal
 from planarslam_tpu_torch.ops.frontend import PointFeatures
 from planarslam_tpu_torch.ops.lax_compat import scatter_set_drop
 from planarslam_tpu_torch.ops.lines import (LineFeatures,
@@ -137,6 +138,7 @@ def _f32_bits(a: torch.Tensor) -> torch.Tensor:
     return a.to(torch.float32).reshape(-1)
 
 
+@record_function("device_tracker._pack")
 def _pack(layout: BundleLayout, **arrays) -> torch.Tensor:
     parts = []
     for name, shape, dtype in layout.fields:
@@ -181,6 +183,7 @@ def pack_frame(gray: np.ndarray, depth: np.ndarray):
     return out
 
 
+@record_function("device_tracker._state_from")
 def _state_from(feats: FrameFeatures, T_cw, velocity,
                 cfg: SystemConfig) -> LastState:
     cam = cfg.camera
@@ -282,17 +285,18 @@ def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
     wh = (float(cam.width), float(cam.height))
     Kp = cfg.orb.max_keypoints
     layout = BundleLayout(cfg)
-    eye4 = torch.eye(4, dtype=torch.float32, device=dev)
+    with record_function("device_tracker.predict"):
+        eye4 = torch.eye(4, dtype=torch.float32, device=dev)
 
-    T_last = torch.where(use_override, T_override, last.T_cw)
-    velocity = torch.where(use_override, eye4, last.velocity)
-    T_pred = velocity @ T_last
+        T_last = torch.where(use_override, T_override, last.T_cw)
+        velocity = torch.where(use_override, eye4, last.velocity)
+        T_pred = velocity @ T_last
 
-    # ---- Manhattan rotation tracking (normals + line directions) ----------
-    ln_vec = feats.lines.p3d_e - feats.lines.p3d_s
-    ln_len = torch.linalg.norm(ln_vec, dim=-1, keepdim=True)
-    ln_dir = ln_vec / torch.clamp(ln_len, min=1e-9)
-    ln_dir_ok = feats.lines.has_3d & feats.lines.valid & (ln_len[:, 0] > 0.1)
+        # ---- Manhattan rotation tracking (normals + line directions) ----------
+        ln_vec = feats.lines.p3d_e - feats.lines.p3d_s
+        ln_len = torch.linalg.norm(ln_vec, dim=-1, keepdim=True)
+        ln_dir = ln_vec / torch.clamp(ln_len, min=1e-9)
+        ln_dir_ok = feats.lines.has_3d & feats.lines.valid & (ln_len[:, 0] > 0.1)
     manh = manhattan_ops.track_manhattan_frame(
         T_pred[:3, :3] @ R_wm,
         torch.cat([feats.normals, ln_dir], dim=0),
@@ -322,15 +326,16 @@ def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
         last.feats.points.angle, ang_tgt, ff_idx >= 0)
     ff_idx = torch.where(rot_ok, ff_idx, -1)
 
-    sf = torch.tensor(cfg.orb.scale_factor, dtype=torch.float32, device=dev)
-    inv_s2_feat = torch.pow(sf, -2.0 * pts.level.to(torch.float32))
+    with record_function("device_tracker.point_observations"):
+        sf = literal(cfg.orb.scale_factor, torch.float32, dev)
+        inv_s2_feat = torch.pow(sf, -2.0 * pts.level.to(torch.float32))
 
-    matched_ff = ff_idx >= 0
-    fi = torch.clamp(ff_idx, 0, Kp - 1).to(torch.int64)
-    obs1 = pose_opt.PointObs(
-        xw=last.pt3d_w, uv=pts.uv[fi],
-        u_right=torch.where(matched_ff, pts.u_right[fi], -1.0),
-        inv_sigma2=inv_s2_feat[fi], valid=matched_ff)
+        matched_ff = ff_idx >= 0
+        fi = torch.clamp(ff_idx, 0, Kp - 1).to(torch.int64)
+        obs1 = pose_opt.PointObs(
+            xw=last.pt3d_w, uv=pts.uv[fi],
+            u_right=torch.where(matched_ff, pts.u_right[fi], -1.0),
+            inv_sigma2=inv_s2_feat[fi], valid=matched_ff)
 
     # ---- line + plane association at the predicted pose -------------------
     Lf = cfg.lines.max_lines
@@ -338,19 +343,20 @@ def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
         win.ln_sw, win.ln_ew, win.ln_desc, win.ln_valid, T_init,
         feats.lines.uv_s, feats.lines.uv_e, feats.lines.angle,
         feats.lines.desc, feats.lines.valid, K=K, image_wh=wh, radius=14.0)
-    wl_ids = torch.arange(win.ln_desc.shape[0], dtype=torch.int32,
-                          device=dev)
-    ln_slot = torch.full((Lf,), -1, dtype=torch.int32, device=dev)
-    ln_slot = ln_slot.scatter_reduce(
-        0, torch.clamp(lm_idx, 0, Lf - 1).to(torch.int64),
-        torch.where(lm_idx >= 0, wl_ids, -1), reduce="amax")
-    has_ln = ln_slot >= 0
-    lslot = torch.clamp(ln_slot, 0, win.ln_desc.shape[0] - 1).to(torch.int64)
-    line_obs = pose_opt.LineObs(
-        xw_s=win.ln_sw[lslot], xw_e=win.ln_ew[lslot],
-        line2d=feats.lines.line2d,
-        inv_sigma2=torch.ones((Lf,), dtype=torch.float32, device=dev),
-        valid=has_ln & feats.lines.valid)
+    with record_function("device_tracker.line_observations"):
+        wl_ids = torch.arange(win.ln_desc.shape[0], dtype=torch.int32,
+                              device=dev)
+        ln_slot = torch.full((Lf,), -1, dtype=torch.int32, device=dev)
+        ln_slot = ln_slot.scatter_reduce(
+            0, torch.clamp(lm_idx, 0, Lf - 1).to(torch.int64),
+            torch.where(lm_idx >= 0, wl_ids, -1), reduce="amax")
+        has_ln = ln_slot >= 0
+        lslot = torch.clamp(ln_slot, 0, win.ln_desc.shape[0] - 1).to(torch.int64)
+        line_obs = pose_opt.LineObs(
+            xw_s=win.ln_sw[lslot], xw_e=win.ln_ew[lslot],
+            line2d=feats.lines.line2d,
+            inv_sigma2=torch.ones((Lf,), dtype=torch.float32, device=dev),
+            valid=has_ln & feats.lines.valid)
 
     pl_direct, pl_par, pl_ver, _ = _associate_planes_device(
         feats, T_init, win, cfg)
@@ -362,9 +368,10 @@ def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
                                  pi_obs=feats.planes.coeffs,
                                  valid=(ids >= 0) & feats.planes.valid)
 
-    pl_obs = plane_block(pl_direct)
-    par_obs = plane_block(pl_par)
-    ver_obs = plane_block(pl_ver)
+    with record_function("device_tracker.plane_observations"):
+        pl_obs = plane_block(pl_direct)
+        par_obs = plane_block(pl_par)
+        ver_obs = plane_block(pl_ver)
 
     # rotation-frozen solve where the Manhattan frame tracked, full pose
     # otherwise: one solve, the branch is the device-side mask use_manh
@@ -383,26 +390,27 @@ def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
         radius=4.0, max_dist=cfg.matcher.th_high,
         view_normals=win.pt_normal,
         dist_range=(win.pt_min_d, win.pt_max_d), level_window=1)
-    w_ids = torch.arange(WIN_PTS, dtype=torch.int32, device=dev)
-    feat_slot = torch.full((Kp,), -1, dtype=torch.int32, device=dev)
-    feat_slot = feat_slot.scatter_reduce(
-        0, torch.clamp(win_res.idx, 0, Kp - 1).to(torch.int64),
-        torch.where(win_res.idx >= 0, w_ids, -1), reduce="amax")
-    has_slot = feat_slot >= 0
-    slot = torch.clamp(feat_slot, 0, WIN_PTS - 1).to(torch.int64)
+    with record_function("device_tracker.map_observations"):
+        w_ids = torch.arange(WIN_PTS, dtype=torch.int32, device=dev)
+        feat_slot = torch.full((Kp,), -1, dtype=torch.int32, device=dev)
+        feat_slot = feat_slot.scatter_reduce(
+            0, torch.clamp(win_res.idx, 0, Kp - 1).to(torch.int64),
+            torch.where(win_res.idx >= 0, w_ids, -1), reduce="amax")
+        has_slot = feat_slot >= 0
+        slot = torch.clamp(feat_slot, 0, WIN_PTS - 1).to(torch.int64)
 
-    # temporal landmarks: stage-1 matches carried per current feature
-    fi_safe = torch.where(matched_ff, ff_idx, Kp)
-    ff_xw = scatter_set_drop(torch.zeros((Kp, 3), device=dev), fi_safe,
-                             last.pt3d_w)
-    ff_feat_valid = scatter_set_drop(
-        torch.zeros((Kp,), dtype=torch.bool, device=dev), fi_safe,
-        torch.ones((1,), dtype=torch.bool, device=dev))
-    obs2_valid = (has_slot | ff_feat_valid) & pts.valid
-    obs2 = pose_opt.PointObs(
-        xw=torch.where(has_slot[:, None], win.pt_xyz[slot], ff_xw),
-        uv=pts.uv, u_right=torch.where(obs2_valid, pts.u_right, -1.0),
-        inv_sigma2=inv_s2_feat, valid=obs2_valid)
+        # temporal landmarks: stage-1 matches carried per current feature
+        fi_safe = torch.where(matched_ff, ff_idx, Kp)
+        ff_xw = scatter_set_drop(torch.zeros((Kp, 3), device=dev), fi_safe,
+                                 last.pt3d_w)
+        ff_feat_valid = scatter_set_drop(
+            torch.zeros((Kp,), dtype=torch.bool, device=dev), fi_safe,
+            torch.ones((1,), dtype=torch.bool, device=dev))
+        obs2_valid = (has_slot | ff_feat_valid) & pts.valid
+        obs2 = pose_opt.PointObs(
+            xw=torch.where(has_slot[:, None], win.pt_xyz[slot], ff_xw),
+            uv=pts.uv, u_right=torch.where(obs2_valid, pts.u_right, -1.0),
+            inv_sigma2=inv_s2_feat, valid=obs2_valid)
 
     # ---- final full pose optimization ------------------------------------
     res2 = pose_opt.pose_optimize(T1, K, cam.bf, points=obs2, lines=line_obs,
@@ -412,23 +420,24 @@ def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
     ok2 = res2.n_point_inliers >= cfg.tracking.min_matches_local_map // 2
     T_out = torch.where(ok2, res2.T_cw, T1)
 
-    inl = res2.point_inlier
-    feat_slot_out = torch.where(inl | ~has_slot, feat_slot, -1)
+    with record_function("device_tracker.keyframe_stats"):
+        inl = res2.point_inlier
+        feat_slot_out = torch.where(inl | ~has_slot, feat_slot, -1)
 
-    ln_win_found = lm_idx >= 0
-    ln_win_visible = win.ln_valid & _in_view(
-        T_out, 0.5 * (win.ln_sw + win.ln_ew), K, cam)
-    win_found = win_res.idx >= 0
-    win_visible = win.pt_valid & _in_view(T_out, win.pt_xyz, K, cam)
+        ln_win_found = lm_idx >= 0
+        ln_win_visible = win.ln_valid & _in_view(
+            T_out, 0.5 * (win.ln_sw + win.ln_ew), K, cam)
+        win_found = win_res.idx >= 0
+        win_visible = win.pt_valid & _in_view(T_out, win.pt_xyz, K, cam)
 
-    close = (pts.depth > 0) & (pts.depth < cam.depth_threshold)
-    tracked = obs2_valid & inl
-    kf_stats = torch.stack([
-        torch.sum((close & tracked).to(torch.float32)),
-        torch.sum((close & ~tracked & pts.valid).to(torch.float32)),
-        torch.sum((pts.depth > 0).to(torch.float32)),
-        torch.sum(tracked.to(torch.float32)),
-    ])
+        close = (pts.depth > 0) & (pts.depth < cam.depth_threshold)
+        tracked = obs2_valid & inl
+        kf_stats = torch.stack([
+            torch.sum((close & tracked).to(torch.float32)),
+            torch.sum((close & ~tracked & pts.valid).to(torch.float32)),
+            torch.sum((pts.depth > 0).to(torch.float32)),
+            torch.sum(tracked.to(torch.float32)),
+        ])
 
     packed = _pack(
         layout, T_out=T_out, R_cm=manh.R_cm,
@@ -593,6 +602,7 @@ def build_window_host(slam_map, kf_ids: np.ndarray, cfg: SystemConfig):
     return flat, pt_pad, ln_pad
 
 
+@record_function("device_tracker.unpack_window")
 def unpack_window(flat: torch.Tensor, cfg: SystemConfig) -> DeviceWindow:
     """Views into build_window's packed buffer."""
     W, Wl = WIN_PTS, WIN_LNS

@@ -249,6 +249,45 @@ class System:
         poses = np.asarray([np.linalg.inv(self.map.kf_pose[k]) for k in ids])
         write_trajectory_tum(path, self.map.kf_timestamp[ids], poses)
 
+    def save_map(self, path: str) -> None:
+        """Serialize the full map (one compressed npz with every SlamMap
+        array and counter), after draining the pipeline and the backend."""
+        from planarslam_tpu_torch.slam.serialization import save_map
+
+        self.tracker.flush_pending()
+        self._run_backend(drain=True)
+        save_map(path, self.map)
+
+    def load_map(self, path: str) -> None:
+        """Load a map checkpoint; the tracker restarts LOST and must
+        relocalize against it (kidnapped-robot start)."""
+        from planarslam_tpu_torch.slam.serialization import load_map
+
+        self.map = load_map(path, self.cfg)
+        self.tracker = Tracking(self.cfg, self.map, kf_db=self.kf_db,
+                                device=self.device)
+        self.tracker.state = TrackingState.LOST
+        valid = self.map.valid_kf_ids()
+        self.tracker.ref_kf = int(valid[-1]) if len(valid) else 0
+        self.tracker.frame_id = int(self.map.kf_frame_id[:self.map.n_kf].max(
+            initial=-1)) + 1
+        if self.local_mapper is not None:
+            self.local_mapper = LocalMapping(self.cfg, self.map,
+                                             device=self.device)
+        if self.loop_closer is not None:
+            self.loop_closer = LoopClosing(self.cfg, self.map,
+                                           kf_db=self.kf_db,
+                                           device=self.device)
+        # the checkpoint's KFs were backend-processed before the save
+        self._next_backend_kf = self.map.n_kf
+        self._backend_kf = None
+
+    def save_mesh(self, path: str) -> None:
+        """Planar mesh export of the map's planes."""
+        from planarslam_tpu_torch.viz.mesh import save_planar_mesh
+
+        save_planar_mesh(path, self.map)
+
     def timing_summary(self) -> dict:
         t = np.asarray(self.timings[1:]) if len(self.timings) > 1 else \
             np.asarray(self.timings)

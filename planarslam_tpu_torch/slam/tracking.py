@@ -155,7 +155,7 @@ class Tracking:
         if cfg.tracking.chunk_size > 1:
             raise NotImplementedError(
                 "chunked tracking (tracking.chunk_size > 1) is not ported "
-                "yet (ROADMAP.md, queue B: batched replay)")
+                "yet (ROADMAP.md, queue A: chunked mode)")
 
     # ------------------------------------------------------- main entry point
     def track(self, gray: np.ndarray, depth: np.ndarray,

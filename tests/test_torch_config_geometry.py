@@ -145,7 +145,9 @@ def test_plane_parity(rng):
 # modules the port carries as copies of the JAX package's numpy-only code
 COPIED = ["config.py", "io/__init__.py", "io/synthetic.py", "io/tum.py",
           "evaluation/__init__.py", "evaluation/ate.py", "slam/map.py",
-          "slam/retrieval.py", "native/mapcore.cpp", "native/__init__.py"]
+          "slam/retrieval.py", "native/mapcore.cpp", "native/__init__.py",
+          "slam/serialization.py", "viz/__init__.py", "viz/mesh.py",
+          "viz/render.py", "viz/html_viewer.py", "viz/live_viewer.py"]
 
 
 @pytest.mark.parametrize("rel", COPIED)

@@ -1,4 +1,4 @@
-"""The hand-written Hopper kernels (K1-K15) against their plain PyTorch
+"""The hand-written Hopper kernels (K1-K19) against their plain PyTorch
 versions on the card. These need a GPU: without one every test skips.
 
     python -m pytest tests/test_torch_kernels.py -q     # on the GPU machine
@@ -438,3 +438,79 @@ def test_manhattan_mean_shift(dev):
                                      + cfg.lines.max_lines)
     assert set(out[0]["cases"]) == {"track", "project", "axis_missing",
                                     "two_missing"}
+
+
+def test_frontend_kernels(dev):
+    """K16-K19 and the all-levels launches of K1 and K2 at the default
+    configuration's width on frame 0 (chip_smoke.py's
+    frontend_kernel_parity states the limits): K16 within
+    chip_smoke.PYRAMID_TOLERANCE grey levels of the plain pyramid, >= 97%
+    of the keypoints shared; K17 and K18 exactly equal to their plain
+    versions, K18 also on the planted score map with ties, empty tiles and
+    15 candidates per tile; K19 uv and u_right atol 1e-4, the rest exact,
+    with and without distortion."""
+    cfg = SystemConfig()
+    seq = synthetic.make_sequence(2, width=640, height=480)
+    n0 = dict(kernels.LAUNCHES)
+    out = _held(chip_smoke.frontend_kernel_parity, seq, cfg, dev)
+    assert [k["name"] for k in out] == ["pyramid_resize", "gaussian_blur",
+                                        "select_keypoints", "point_epilogue"]
+    for k in out:
+        assert kernels.LAUNCHES[k["name"]] > n0[k["name"]]
+    assert out[2]["planted"]["k_tile"] == [15, 2, 1]
+    assert set(out[3]["cases"]) == {"pinhole", "distorted"}
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_frontend_kernels_batched(dev, batch):
+    """The leading batch count of K1, K2 and K16-K19: `batch` different
+    frames through one launch each give what each frame gives alone (K16
+    within chip_smoke.PYRAMID_TOLERANCE of the plain pyramid, the others
+    exactly their plain versions on the kernel's pyramid), with one launch
+    per stage whatever the batch."""
+    from planarslam_tpu_torch.ops import frontend as fe
+
+    cfg = SystemConfig()
+    oc, cam = cfg.orb, cfg.camera
+    seq = synthetic.make_sequence(4, width=640, height=480)
+    frames = [seq.render(i) for i in range(batch)]
+    gray = torch.from_numpy(np.stack(
+        [np.round(np.array(g, np.float32)) for g, _ in frames])).to(dev)
+    depth = torch.from_numpy(np.stack(
+        [np.array(d, np.float32) for _, d in frames])).to(dev)
+    table = fe.orb_level_table(480, 640, oc)
+    n0 = dict(kernels.LAUNCHES)
+    buf = image.build_pyramid_levels(gray, table, oc.scale_factor)
+    scores = fast.fast_score_levels(buf, table)
+    sel = fast.select_keypoints_levels(scores, table, float(oc.min_th_fast),
+                                       EDGE_BORDER)
+    blur = image.gaussian_blur_levels(buf, table, 7, 2.0)
+    ang, desc = orb.orb_describe_levels(buf, blur, sel[0], sel[2], table,
+                                        oc.max_keypoints)
+    ep = fe.point_epilogue(*sel, depth, cam, table, oc.max_keypoints)
+    for name, n in (("pyramid_resize", oc.n_levels - 1), ("fast_score", 1),
+                    ("select_keypoints", 2), ("gaussian_blur", 1),
+                    ("orb_describe", 1), ("point_epilogue", 1)):
+        assert kernels.LAUNCHES[name] == n0[name] + n, name
+    torch.testing.assert_close(
+        buf, image.build_pyramid_levels_plain(gray, table, oc.scale_factor),
+        rtol=0, atol=chip_smoke.PYRAMID_TOLERANCE)
+    assert torch.equal(scores, fast.fast_score_levels_plain(buf, table))
+    for a, b in zip(sel, fast.select_keypoints_levels_plain(
+            scores, table, float(oc.min_th_fast), EDGE_BORDER)):
+        assert torch.equal(a, b)
+    assert torch.equal(blur, image.gaussian_blur_levels_plain(buf, table, 7,
+                                                              2.0))
+    a_p, d_p = orb.orb_describe_levels_plain(buf, blur, sel[0], sel[2], table,
+                                             oc.max_keypoints)
+    torch.testing.assert_close(ang, a_p, rtol=0, atol=1e-4)
+    n_valid = int(sel[2].sum())
+    same = (desc == d_p).all(dim=-1)[:, :table.n_slots] & sel[2]
+    assert n_valid > 500 * batch and int(same.sum()) >= 0.99 * n_valid
+    want = fe.point_epilogue_plain(*sel, depth, cam, table, oc.max_keypoints)
+    for f in ("uv_raw", "response", "level", "depth", "valid"):
+        assert torch.equal(getattr(ep, f), getattr(want, f)), f
+    torch.testing.assert_close(ep.uv, want.uv, rtol=0, atol=1e-4)
+    torch.testing.assert_close(ep.u_right, want.u_right, rtol=0, atol=1e-4)
+    if batch > 1:
+        assert not torch.equal(buf[0], buf[1])

@@ -16,10 +16,14 @@ global BA), counted as one "frame". Prints, for each stage span (the
 record_function names of the port's stage functions, among them
 device_mapper.mapping_step, local_mapping.finish_keyframe,
 tracking.relocalize, loop_closing.process_keyframe, pose_graph.optimize,
-global_ba.global_bundle_adjustment and local_ba.local_bundle_adjustment),
+global_ba.global_bundle_adjustment and local_ba.local_bundle_adjustment,
+the glue spans of the fused step: device_tracker.unpack_window, .predict,
+.point_observations, .line_observations, .plane_observations,
+.map_observations, .keyframe_stats, ._state_from and ._pack, and
+planes.box_smooth_depth and planes.backproject_depth),
 the host time and the device time of its kernels, the busy share of the
-device over the window, the device time of the hand-written kernels, and
-the top kernels by device time.
+device over the window, the device time of the hand-written kernels, the
+host-to-device copies per frame, and the top kernels by device time.
 Writes the chrome trace to DIR/port_trace.json when --out is given.
 """
 
@@ -43,7 +47,11 @@ SPAN_MODULES = ("frontend", "lines", "planes", "manhattan", "matching",
                 "local_mapping", "tracking", "loop_closing", "pose_graph",
                 "global_ba", "local_ba")
 # entry names of the hand-written kernels in the trace
-PORT_KERNELS = ("fast_score_kernel", "orb_describe_kernel",
+PORT_KERNELS = ("fast_score_kernel", "fast_score_levels_kernel",
+                "orb_describe_kernel", "orb_describe_levels_kernel",
+                "pyramid_resize_kernel", "gaussian_blur_kernel",
+                "select_tiles_kernel", "select_rank_kernel",
+                "point_epilogue_kernel",
                 "hamming_top2_kernel", "_plane_block_moments_kernel",
                 "triangulate_kernel", "horn_align_kernel", "pnp_dlt_kernel",
                 "normal_eqs_", "schur_", "pose_graph_", "pose_opt_kernel",
@@ -147,6 +155,8 @@ def main(argv=None) -> int:
            "device_busy_ms_per_frame": busy_ms / n,
            "device_busy_share": busy_ms / (wall * 1e3),
            "kernel_launches_per_frame": n_kernels / n,
+           "h2d_copies_per_frame": sum(
+               k[2] for k in kern if "Memcpy HtoD" in k[1]) / n,
            "port_kernels_ms_per_frame": port_kernels,
            "spans": spans,
            "top_kernels": [{"name": k[1][:80], "ms_per_frame": k[0] / n / 1e3,
