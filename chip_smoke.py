@@ -20,7 +20,12 @@ Phases, each fatal on failure:
      8-level pyramid and 1000 keypoints, K18 also on a planted score map
      with ties, empty tiles and more than 4 candidates per tile, and the
      whole extract_point_features on the card against the same function
-     composed of plain versions;
+     composed of plain versions; K20-K23 (line detection, band
+     descriptors, 3D lifting, guided line search) on frame 0, its depth
+     clean and with Kinect noise, the search on the 256-line window of four
+     frames' lines seen from a fifth, on 4096 lines, with no candidate and
+     with fewer than 6 earned, and the whole extract_line_features against
+     its plain composition;
   4. path 1, tracking only: System(SystemConfig(), enable_local_mapping=
      False, enable_loop_closing=False) tracks 96 frames of the 640x480
      synthetic room, quantized to uint8 gray / uint16 depth; ATE against
@@ -55,7 +60,11 @@ must have launched once per pose_optimize call, K12 and K14 once and K13
 1 + refine_rounds times per extract_planes call, K15 once per
 track_manhattan_frame call, and per extract_point_features call K1, K2 and
 K19 once, K16 n_levels - 1 times and K18 twice, with one K17 launch per
-extract_point_features and per extract_line_features call. The line before the
+extract_point_features and per extract_line_features call, and per
+extract_line_features call K20's nine launches (one C call), one K21 and one
+K22, and two K23 launches per search_lines_by_projection call (local
+mapping's line fuse among them); no plain line function may see a tensor on
+the card. The line before the
 last is a JSON object with one entry per kernel (its time and its plain
 version's, the least time the card could take for the same bytes and
 operations, and a PyTorch call's time where one computes the same
@@ -67,6 +76,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -601,6 +611,447 @@ def frontend_kernel_parity(seq, cfg, dev) -> list:
            f"keypoints with the plain composition")
     print(f"frontend_kernel_parity extract_point_features: "
           f"{json.dumps(whole)}", flush=True)
+    _print_kernels(out)
+    return out
+
+
+# K21-K23 float tolerances (K20 forms every float as its plain version does
+# on the card, so it is held exactly). K21: its means and deviations sum in
+# index order where torch.mean / std reduce in their own (a few ulp of
+# normalized values <= 1). K22: the direction comes from eig3.cuh's solve,
+# not the plain version's tensor ops (ulps of a unit vector times extents of
+# a few metres). K23: a 72-term dot product of unit descriptors, a chain of
+# fused multiply-adds where the library product orders its sums otherwise at
+# M = 256 (at M = 4096 they agree bit for bit).
+DESC_TOLERANCE = 1e-5
+P3D_TOLERANCE = 1e-5  # metres
+SIM_TOLERANCE = 1e-5
+LINE_WINDOW = 256  # the local-map window's line slots: tracking's M
+LINE_FUSE = 4096   # cfg.map.max_lines: local mapping's _fuse_lines M
+
+
+def _same(a, b) -> bool:
+    """Equal entries, NaN equal to NaN."""
+    if a.dtype.is_floating_point:
+        return bool(((a == b) | (a.isnan() & b.isnan())).all())
+    return bool((a == b).all())
+
+
+def _finite_err(a, b) -> float:
+    """max |a - b| over entries finite in both; inf where the non-finite
+    entries differ."""
+    both = a.isfinite() & b.isfinite()
+    if not bool((both | (a == b) | (a.isnan() & b.isnan())).all()):
+        return float("inf")
+    return float((a.double() - b.double()).abs()[both].max()) \
+        if bool(both.any()) else 0.0
+
+
+def sum_rtol(n: int) -> float:
+    """How far apart, relative to the sum, two float32 sums of the same n
+    nonnegative terms in two orders can lie: 2 (n - 1) 2^-24."""
+    return 2.0 * (n - 1) * 2.0 ** -24
+
+
+def _detect_same(got, want):
+    """The slots (valid's shape) of two detections whose outputs that pass
+    through no sum (validity, angle, endpoints, line equation) are
+    equal."""
+    lead = tuple(got.valid.shape)
+    same = None
+    for f in ("valid", "angle", "uv_s", "uv_e", "line2d"):
+        a, b = getattr(got, f), getattr(want, f)
+        eq = (a == b) | (a.isnan() & b.isnan()) \
+            if a.dtype.is_floating_point else a == b
+        eq = eq.reshape(lead + (-1,)).all(dim=-1)
+        same = eq if same is None else same & eq
+    return same
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| / |b| (0 where both are 0)."""
+    d = (a.double() - b.double()).abs()
+    return float((d / b.double().abs().clamp(min=1e-30))[d > 0].max()) \
+        if bool((d > 0).any()) else 0.0
+
+
+def _near_decisions(blurred, lc) -> dict:
+    """K20's tolerance on one (1, H, W) blurred frame, from the plain
+    detection: "terms", the most terms any one of its sums adds (a Hough
+    bin's edge slots, a line's supporters, which bound its histogram bins
+    and its response), "rtol" = sum_rtol(terms), and the counts of the
+    decisions resting on a sum whose plain values lie within 2 rtol of
+    turning: a Hough bin against the largest of its 8 neighbours (the peak
+    test), neighbours in the order of the best L + 1 peak scores, a
+    histogram bin against the occupancy threshold, neighbours in the order
+    of the valid responses."""
+    import dataclasses
+
+    import torch
+
+    from planarslam_tpu_torch.ops import lines as ln
+    from planarslam_tpu_torch.ops.lax_compat import segment_sum
+
+    h, w = blurred.shape[1:]
+    diag, n_rho = ln.hough_shape(h, w)
+    L = lc.max_lines
+    _, _, mag, pix, ft, fr = ln._edge_slots(blurred[0], 40.0,
+                                            min(ln.N_EDGE, h * w))
+    hough = ln._hough(mag, ft, fr, diag, n_rho)
+    bins = ft * n_rho + torch.clamp(((fr + diag) / ln.RHO_RES).int(), 0,
+                                    n_rho - 1)
+    _, top_idx = ln._peaks(hough, L)
+    *_, support, _, _, hist = ln._line_support(mag, pix, ft, fr, top_idx,
+                                               w, diag, n_rho)
+    terms = int(max(segment_sum((mag > 0).float(), bins, hough.numel()).max(),
+                    support.sum(dim=1).max()))
+    tol = 2.0 * sum_rtol(terms)
+
+    def near(a, b):
+        return (a - b).abs() <= tol * torch.maximum(a.abs(), b.abs())
+
+    pad = torch.nn.functional.pad(
+        torch.cat([hough[-1:], hough, hough[:1]]), (1, 1), value=-math.inf)
+    nb = torch.stack([pad[1 + dt:1 + dt + ln.N_THETA, 1 + dr:1 + dr + n_rho]
+                      for dt in (-1, 0, 1) for dr in (-1, 0, 1)
+                      if (dt, dr) != (0, 0)]).amax(0)
+    best = torch.topk(torch.where(hough >= nb, hough, 0.0).reshape(-1),
+                      L + 1).values
+    det = ln.detect_lines_plain(blurred, dataclasses.replace(lc, keep_top=L))
+    resp = det.response[0][det.valid[0]]
+    return {"terms": terms, "rtol": sum_rtol(terms),
+            "peak_test": int(((hough > 0) & near(hough, nb)).sum()),
+            "peak_order": int((near(best[:-1], best[1:])
+                               & (best[:-1] > 0)).sum()),
+            "occupancy": int(near(hist, torch.full_like(hist, 40.0)).sum()),
+            "response_order": int(near(resp[:-1], resp[1:]).sum())}
+
+
+def _bilinear_pixels(uv, h: int, w: int):
+    """Flat indices of the 2 x 2 neighbourhoods image.bilinear_sample reads
+    at the (..., 2) positions uv."""
+    import torch
+
+    u = torch.nan_to_num(uv[..., 0]).clamp(0.0, w - 1.001).floor().long()
+    v = torch.nan_to_num(uv[..., 1]).clamp(0.0, h - 1.001).floor().long()
+    i = v * w + u
+    return torch.stack([i, i + 1, i + w, i + w + 1])
+
+
+def _line_search_problems(feats, seq, dev, rng, kw) -> dict:
+    """K23's inputs. "window": the lifted lines of frames 0, 1, 2 and 6 in
+    world coordinates (4 x 64 = 256 lines, the window's slots, at the
+    default configuration), matched against frame 3's segments at frame
+    3's pose (radius 14, as tracking calls it); "fuse_4096": the window
+    tiled to 4096 lines, the copies moved by 2 cm and their descriptors
+    perturbed, 70% of them valid (radius 8, as _fuse_lines calls it); "no_candidates": no valid map line (both medians
+    of all-NaN); "few_earned": only the four map lines with the best
+    similarities in the window valid, fewer than the 6 candidates the
+    adaptive gate needs. kw: the camera (K, image_wh)."""
+    import torch
+
+    from planarslam_tpu_torch.ops import lines
+
+    def world(i, p):
+        T = torch.from_numpy(seq.poses_wc[i].astype(np.float32)).to(dev)
+        return p @ T[:3, :3].T + T[:3, 3]
+
+    src = (0, 1, 2, 6)
+    sw = torch.cat([world(i, feats[i].p3d_s) for i in src])
+    ew = torch.cat([world(i, feats[i].p3d_e) for i in src])
+    desc = torch.cat([feats[i].desc for i in src])
+    valid = torch.cat([feats[i].has_3d & feats[i].valid for i in src])
+    T_cw = torch.from_numpy(np.linalg.inv(seq.poses_wc[3]).astype(
+        np.float32)).to(dev)
+    f = feats[3]
+    frame = (T_cw, f.uv_s, f.uv_e, f.angle, f.desc, f.valid)
+    out = {"window": ((sw, ew, desc, valid) + frame, 14.0)}
+    n, d = desc.shape
+    reps = LINE_FUSE // n
+
+    def rand(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    shift = rand(rng.normal(0.0, 0.02, (reps, n, 3)))
+    shift[0] = 0.0
+    noise = rand(rng.normal(0.0, 0.05, (reps, n, d)))
+    noise[0] = 0.0
+    d4 = desc[None] + noise
+    d4 = d4 / torch.linalg.norm(d4, dim=-1, keepdim=True).clamp(min=1e-9)
+    keep = torch.from_numpy(rng.random((reps, n)) < 0.7).to(dev)
+    keep[0] = True
+    out["fuse_4096"] = ((
+        (sw[None] + shift).reshape(-1, 3), (ew[None] + shift).reshape(-1, 3),
+        d4.reshape(-1, d), (valid[None] & keep).reshape(-1)) + frame, 8.0)
+    none = torch.zeros_like(valid)
+    out["no_candidates"] = ((sw, ew, desc, none) + frame, 14.0)
+    _, sim = lines.search_lines_by_projection_plain(*out["window"][0],
+                                                    radius=14.0, **kw)
+    few = torch.zeros_like(valid)
+    few[torch.topk(sim, 4).indices] = True
+    out["few_earned"] = ((sw, ew, desc, few) + frame, 14.0)
+    return out
+
+
+def line_kernel_parity(seq, cfg, dev) -> list:
+    """K20-K23 against their plain versions on the card at the default
+    configuration's full width (640x480, 64 lines, E = 6144 edge pixels,
+    36 x 803 Hough bins, 48 depth samples, 32 hypotheses), on frame 0 clean
+    and with Kinect noise on its depth, and the whole extract_line_features
+    against the same function composed of plain versions. K20: the
+    gradients and every output that passes through none of its three sums
+    (validity, angle, the endpoints of every slot, the invalid ones too)
+    exactly equal, the responses within the rounding of two orders of a
+    sum (sum_rtol of the most terms any one sum of the frame adds), and a
+    slot may differ only where a decision of the plain version on a sum
+    lies within twice that rounding of turning (_near_decisions, printed
+    with torch's version); K21: within DESC_TOLERANCE; K22: has_3d exact,
+    endpoints within P3D_TOLERANCE; K23 on four problems (the 256-line
+    window, 4096 lines, no candidate, fewer than 6 earned): indices exact,
+    similarities within SIM_TOLERANCE. Every kernel gives the same bits on
+    two launches."""
+    import torch
+
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import image
+    from planarslam_tpu_torch.ops import lines as ln
+
+    lc, cam = cfg.lines, cfg.camera
+    factor = cam.depth_map_factor
+
+    def frame(i):
+        g8, d16 = quantize_frame(*seq.render(i), factor)
+        return (torch.from_numpy(g8.astype(np.float32)).to(dev),
+                d16.astype(np.float32) / np.float32(factor))
+
+    gray, clean = frame(0)
+    depths = {"clean": torch.from_numpy(clean).to(dev),
+              "noisy": torch.from_numpy(noisy_depth(clean, factor)).to(dev)}
+    blurred = image.gaussian_blur(gray, 5, 1.0)[None]
+    src = "planarslam_tpu_torch/csrc/"
+    out, cases = [], {}
+
+    # K20
+    det = ln.detect_lines(blurred, lc)
+    det_p = ln.detect_lines_plain(blurred, lc)
+    again = ln.detect_lines(blurred, lc)
+    torch.cuda.synchronize()
+    for f in det._fields:
+        _check(_same(getattr(det, f), getattr(again, f)),
+               f"detect_lines: two launches differ in {f}")
+    for f in ("gx", "gy"):
+        _check(_same(getattr(det, f), getattr(det_p, f)),
+               f"detect_lines: {f} differs from plain")
+    h, w = gray.shape
+    diag, n_rho = ln.hough_shape(h, w)
+    E = min(ln.N_EDGE, h * w)
+    L = lc.max_lines
+    near = _near_decisions(blurred, lc)
+    rtol = near["rtol"]
+    same = _detect_same(det, det_p)
+    flips = int((~same).sum())
+    n_near = sum(v for k, v in near.items() if k not in ("terms", "rtol"))
+    _check(flips == 0 or n_near > 0,
+           f"detect_lines: {flips} slots differ from plain with no decision "
+           f"of the plain version within {2.0 * rtol} of turning: {near}")
+    resp_err = _rel_err(det.response[same], det_p.response[same])
+    _check(resp_err <= rtol, f"detect_lines: responses differ from plain by "
+           f"{resp_err} (relative) > {rtol}")
+    n_valid = int(det.valid.sum())
+    _check(n_valid > 10, f"detect_lines: only {n_valid} valid lines")
+    k20 = {"torch": torch.__version__, "flips": flips, "near": near,
+           "response_rel_err": resp_err}
+    print(f"line_kernel_parity detect_lines: {json.dumps(k20)}", flush=True)
+    out.append({
+        "name": "detect_lines", "route": "cuda", "library_ms": None,
+        # per pixel: Sobel, magnitude, atan2, NMS (~60); per edge slot its
+        # bin and vote (~30); per line and slot the support test, position
+        # and bin (~20)
+        **_bound(_nbytes(blurred, det), 60.0 * h * w + 30.0 * E
+                 + 20.0 * L * E),
+        "source": src + "lines.cu",
+        "replaces": "planarslam_tpu/ops/lines.py:58",
+        "max_abs_err": float((det.response[same].double()
+                              - det_p.response[same].double()).abs().max()),
+        "tolerance": f"gradients and every output off the sums exact, "
+                     f"responses {rtol} relative, flips only at plain "
+                     f"decisions within {2.0 * rtol}",
+        "valid_lines": n_valid, "hough_bins": 36 * n_rho, **k20,
+        "ms": _time_ms(lambda: ln.detect_lines(blurred, lc)),
+        "plain_ms": _time_ms(lambda: ln.detect_lines_plain(blurred, lc))})
+
+    # K21 on K20's outputs
+    dargs = (det.gx, det.gy, det.uv_s, det.uv_e, det.valid)
+    desc = ln.line_descriptors(*dargs)
+    desc_p = ln.line_descriptors_plain(*dargs)
+    torch.cuda.synchronize()
+    _check(_same(desc, ln.line_descriptors(*dargs)),
+           "line_descriptors: two launches differ")
+    err21 = _finite_err(desc, desc_p)
+    _check(err21 <= DESC_TOLERANCE,
+           f"line_descriptors differs from plain by {err21}")
+    # the gradient pixels the samples read: the 2 x 2 neighbourhoods of
+    # every line's 9 x 24 band positions, each distinct pixel once per image
+    d = det.uv_e[0] - det.uv_s[0]
+    t = d / torch.sqrt((d * d).sum(-1, keepdim=True) + 1e-9)
+    nrm = torch.stack([-t[:, 1], t[:, 0]], -1)
+    alphas = torch.from_numpy(ln._DESC_ALPHAS).to(dev)
+    band = torch.from_numpy(ln._BAND_OFF).to(dev)
+    centers = (det.uv_s[0][:, None, None] + alphas[None, None, :, None]
+               * d[:, None, None] + band[None, :, None, None]
+               * nrm[:, None, None])
+    n_pix21 = int(torch.unique(_bilinear_pixels(centers, h, w)).numel())
+    out.append({
+        "name": "line_descriptors", "route": "cuda", "library_ms": None,
+        # per line: 216 samples of two bilinear gathers (~30), 36 means and
+        # deviations over 24 (~100), the norm
+        **_bound(_nbytes(*dargs[2:], alphas, desc) + 2 * 4 * n_pix21,
+                 L * (216 * 30.0 + 36 * 100.0)),
+        "gradient_pixels_read": n_pix21,
+        "source": src + "lines.cu",
+        "replaces": "planarslam_tpu/ops/lines.py:224",
+        "max_abs_err": err21, "tolerance": DESC_TOLERANCE,
+        "ms": _time_ms(lambda: ln.line_descriptors(*dargs)),
+        "plain_ms": _time_ms(lambda: ln.line_descriptors_plain(*dargs))})
+
+    # K22, clean and noisy depth
+    lifted = {}
+    for name, depth in depths.items():
+        largs = (depth[None], cam, lc, det.uv_s, det.uv_e, det.valid)
+        got = ln.lift_lines_3d(*largs)
+        want = ln.lift_lines_3d_plain(*largs)
+        torch.cuda.synchronize()
+        for a, c in zip(got, ln.lift_lines_3d(*largs)):
+            _check(_same(a, c), f"lift_lines_3d ({name}): two launches differ")
+        _check(torch.equal(got[2], want[2]),
+               f"lift_lines_3d ({name}): has_3d differs from plain in "
+               f"{int((got[2] != want[2]).sum())} lines")
+        err = max(_finite_err(got[0], want[0]), _finite_err(got[1], want[1]))
+        _check(err <= P3D_TOLERANCE,
+               f"lift_lines_3d ({name}) differs from plain by {err} m")
+        cases[name] = {"has_3d": int(got[2].sum()), "max_abs_err": err}
+        lifted[name] = largs
+    _check(cases["clean"]["has_3d"] > 10,
+           f"lift_lines_3d: the cases do not exercise it: {cases}")
+    largs = lifted["clean"]
+    S, iters = lc.n_depth_samples, lc.ransac_iters
+    # the depth pixels the S nearest samples per line read, each once
+    tables = ln._lift_tables(lc, dev)
+    pts = (det.uv_s[0][:, None] + tables[0][None, :, None]
+           * (det.uv_e[0] - det.uv_s[0])[:, None])
+    index_img = torch.arange(h * w, dtype=torch.float64,
+                             device=dev).reshape(h, w)
+    n_pix22 = int(torch.unique(image.nearest_sample(
+        index_img, torch.nan_to_num(pts))).numel())
+    out.append({
+        "name": "lift_lines_3d", "route": "cuda", "library_ms": None,
+        # per line: S samples (~15), iters x S point-line distances (~30),
+        # the weighted PCA (~40 per sample and ~300 for the solve)
+        **_bound(_nbytes(largs[3:], tables, ln.lift_lines_3d(*largs))
+                 + 4 * n_pix22,
+                 L * (S * 15.0 + iters * S * 30.0 + S * 40.0 + 300.0)),
+        "depth_pixels_read": n_pix22,
+        "source": src + "line_lift_search.cu",
+        "replaces": "planarslam_tpu/ops/lines.py:260",
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "tolerance": f"has_3d exact, endpoints {P3D_TOLERANCE} m",
+        "cases": cases,
+        "ms": _time_ms(lambda: ln.lift_lines_3d(*largs)),
+        "plain_ms": _time_ms(lambda: ln.lift_lines_3d_plain(*largs))})
+
+    # K23 on the window of frames 0, 1, 2, 6 seen from frame 3, and the
+    # other problems built from it
+    feats = {i: ln.extract_line_features(frame(i)[0], torch.from_numpy(
+        frame(i)[1]).to(dev), cam, lc) for i in (0, 1, 2, 3, 6)}
+    kw0 = dict(K=(cam.fx, cam.fy, cam.cx, cam.cy),
+               image_wh=(float(cam.width), float(cam.height)))
+    problems = _line_search_problems(feats, seq, dev,
+                                     np.random.default_rng(23), kw0)
+    scases = {}
+    for name, (args, radius) in problems.items():
+        kw = dict(kw0, radius=radius)
+        bat = [a[None] for a in args]
+        idx, sim = ln.search_lines_by_projection_batched(*bat, **kw)
+        idx2, sim2 = ln.search_lines_by_projection_batched(*bat, **kw)
+        idx_p, sim_p = ln.search_lines_by_projection_plain(*args, **kw)
+        torch.cuda.synchronize()
+        _check(_same(idx, idx2) and _same(sim, sim2),
+               f"search_lines_by_projection ({name}): two launches differ")
+        _check(torch.equal(idx[0], idx_p),
+               f"search_lines_by_projection ({name}): {int((idx[0] != idx_p).sum())}"
+               f" indices differ from plain")
+        err = _finite_err(sim[0], sim_p)
+        _check(err <= SIM_TOLERANCE, f"search_lines_by_projection ({name}): "
+               f"similarities differ from plain by {err}")
+        cand = sim_p > -0.5
+        scases[name] = {"M": int(args[0].shape[0]),
+                        "matches": int((idx_p >= 0).sum()),
+                        "candidates": int(cand.sum()),
+                        "earned": int((cand & (sim_p >= 0.575)).sum()),
+                        "max_abs_err": err}
+    _check(scases["window"]["matches"] > 5
+           and scases["fuse_4096"]["matches"] > 5
+           and scases["no_candidates"]["candidates"] == 0
+           and 0 < scases["few_earned"]["earned"] < 6,
+           f"search_lines_by_projection: the cases do not exercise it: "
+           f"{scases}")
+    wargs, _ = problems["window"]
+    kw = dict(kw0, radius=14.0)
+    fargs, _ = problems["fuse_4096"]
+    m, d = LINE_WINDOW, wargs[2].shape[1]
+    out.append({
+        "name": "search_lines_by_projection", "route": "cuda",
+        "library_ms": None,
+        # per map line the projection (~60); per pair the gates (~40) and
+        # the 72-term product (2 per term)
+        **_bound(_nbytes(wargs), m * 60.0 + m * L * (40.0 + 2.0 * d)),
+        "source": src + "line_lift_search.cu",
+        "replaces": "planarslam_tpu/ops/lines.py:412",
+        "max_abs_err": max(c["max_abs_err"] for c in scases.values()),
+        "tolerance": f"indices exact, similarities {SIM_TOLERANCE}",
+        "cases": scases,
+        "ms": _time_ms(lambda: ln.search_lines_by_projection(*wargs, **kw)),
+        "plain_ms": _time_ms(
+            lambda: ln.search_lines_by_projection_plain(*wargs, **kw)),
+        "fuse_4096_ms": _time_ms(lambda: ln.search_lines_by_projection(
+            *fargs, **dict(kw0, radius=8.0))),
+        "fuse_4096_plain_ms": _time_ms(
+            lambda: ln.search_lines_by_projection_plain(
+                *fargs, **dict(kw0, radius=8.0)))})
+
+    # the whole line front end against its plain composition
+    depth = depths["clean"]
+    got = ln.extract_line_features(gray, depth, cam, lc)
+    want = ln.extract_line_features_plain(gray, depth, cam, lc)
+    torch.cuda.synchronize()
+    # slots K20 turned (flips, justified above) are left out of the rest
+    same = _detect_same(got, want)
+    _check(int((~same).sum()) == flips, "extract_line_features: "
+           f"{int((~same).sum())} slots differ, K20 on the frame {flips}")
+    tol = {"desc": DESC_TOLERANCE, "p3d_s": P3D_TOLERANCE,
+           "p3d_e": P3D_TOLERANCE}
+    whole = {"flips": flips,
+             "response_rel_err": _rel_err(got.response[same],
+                                          want.response[same])}
+    _check(whole["response_rel_err"] <= rtol, "extract_line_features: "
+           f"responses differ by {whole['response_rel_err']} > {rtol}")
+    for f in ("desc", "p3d_s", "p3d_e", "has_3d"):
+        a, b = getattr(got, f)[same], getattr(want, f)[same]
+        if f in tol:
+            whole[f] = _finite_err(a, b)
+            _check(whole[f] <= tol[f], f"extract_line_features: {f} differs "
+                   f"from the plain composition by {whole[f]}")
+        else:
+            _check(_same(a, b), f"extract_line_features: {f} differs from "
+                   f"the plain composition")
+    whole.update(
+        valid=int(got.valid.sum()), has_3d=int(got.has_3d.sum()),
+        ms=_time_ms(lambda: ln.extract_line_features(gray, depth, cam, lc),
+                    reps=10),
+        plain_ms=_time_ms(lambda: ln.extract_line_features_plain(
+            gray, depth, cam, lc), reps=5))
+    print(f"line_kernel_parity extract_line_features: {json.dumps(whole)}",
+          flush=True)
     _print_kernels(out)
     return out
 
@@ -1392,23 +1843,43 @@ def _clone(obj):
     return obj
 
 
+PLAIN_LINE_FUNCTIONS = ("detect_lines_plain", "line_descriptors_plain",
+                        "lift_lines_3d_plain", "extract_line_features_plain",
+                        "search_lines_by_projection_plain")
+
+
 @contextlib.contextmanager
 def _pose_calls(capture=()):
     """Count the pose_opt.pose_optimize, planes.extract_planes,
-    manhattan.track_manhattan_frame, extract_point_features and
-    lines.extract_line_features calls made inside the block, each where its
-    caller looks it up (slam/frame.py imports extract_point_features by
-    name; the others are reached through their modules), and keep the
-    inputs of the pose_optimize calls numbered in `capture` (from 1)."""
+    manhattan.track_manhattan_frame, extract_point_features,
+    lines.extract_line_features and lines.search_lines_by_projection calls
+    made inside the block, each where its caller looks it up
+    (slam/frame.py imports extract_point_features and
+    slam/device_tracker.py search_lines_by_projection by name; the others
+    are reached through their modules, local_mapping.py and tracking.py
+    import the search from ops/lines.py at the call), count the calls of a
+    plain line function with a tensor on the card, and keep the inputs of
+    the pose_optimize calls numbered in `capture` (from 1)."""
+    import torch
+
     from planarslam_tpu_torch.ops import lines, manhattan, planes
-    from planarslam_tpu_torch.slam import frame
+    from planarslam_tpu_torch.slam import device_tracker, frame
     from planarslam_tpu_torch.solvers import pose_opt
 
     rec = {"calls": 0, "inputs": [], "plane_calls": 0, "manhattan_calls": 0,
-           "point_calls": 0, "line_calls": 0}
+           "point_calls": 0, "line_calls": 0, "search_calls": 0,
+           "plain_line_calls_on_card": 0}
     orig = (pose_opt.pose_optimize, planes.extract_planes,
             manhattan.track_manhattan_frame, frame.extract_point_features,
-            lines.extract_line_features)
+            lines.extract_line_features, lines.search_lines_by_projection,
+            device_tracker.search_lines_by_projection)
+    plain = {name: getattr(lines, name) for name in PLAIN_LINE_FUNCTIONS}
+
+    def counting(i, key):
+        def counted(*args, **kw):
+            rec[key] += 1
+            return orig[i](*args, **kw)
+        return counted
 
     def counted(*args, **kw):
         rec["calls"] += 1
@@ -1416,33 +1887,32 @@ def _pose_calls(capture=()):
             rec["inputs"].append(_clone((args, kw)))
         return orig[0](*args, **kw)
 
-    def counted_planes(*args, **kw):
-        rec["plane_calls"] += 1
-        return orig[1](*args, **kw)
-
-    def counted_manhattan(*args, **kw):
-        rec["manhattan_calls"] += 1
-        return orig[2](*args, **kw)
-
-    def counted_points(*args, **kw):
-        rec["point_calls"] += 1
-        return orig[3](*args, **kw)
-
-    def counted_lines(*args, **kw):
-        rec["line_calls"] += 1
-        return orig[4](*args, **kw)
+    def guarded(fn):
+        def plain_call(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda
+                   for a in list(args) + list(kw.values())):
+                rec["plain_line_calls_on_card"] += 1
+            return fn(*args, **kw)
+        return plain_call
 
     pose_opt.pose_optimize = counted
-    planes.extract_planes = counted_planes
-    manhattan.track_manhattan_frame = counted_manhattan
-    frame.extract_point_features = counted_points
-    lines.extract_line_features = counted_lines
+    planes.extract_planes = counting(1, "plane_calls")
+    manhattan.track_manhattan_frame = counting(2, "manhattan_calls")
+    frame.extract_point_features = counting(3, "point_calls")
+    lines.extract_line_features = counting(4, "line_calls")
+    lines.search_lines_by_projection = counting(5, "search_calls")
+    device_tracker.search_lines_by_projection = counting(6, "search_calls")
+    for name, fn in plain.items():
+        setattr(lines, name, guarded(fn))
     try:
         yield rec
     finally:
         (pose_opt.pose_optimize, planes.extract_planes,
          manhattan.track_manhattan_frame, frame.extract_point_features,
-         lines.extract_line_features) = orig
+         lines.extract_line_features, lines.search_lines_by_projection,
+         device_tracker.search_lines_by_projection) = orig
+        for name, fn in plain.items():
+            setattr(lines, name, fn)
 
 
 def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
@@ -1450,10 +1920,15 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
     """One K11 launch per pose_optimize call; per extract_planes call one
     K4, one K12, 1 + refine_rounds K13 and one K14 launch; one K15 launch
     per track_manhattan_frame call; per extract_point_features call one K1,
-    one K2, one K19, n_levels - 1 K16 and two K18 launches, and one K17
-    launch per extract_point_features and per extract_line_features call;
-    with `frames`, one extract_planes, extract_point_features and
+    one K2, one K19, n_levels - 1 K16 and two K18 launches; one K17 launch
+    per extract_point_features and per extract_line_features call; per
+    extract_line_features call the DETECT_LAUNCHES of K20's one call, one
+    K21 and one K22; SEARCH_LAUNCHES of K23 per search_lines_by_projection
+    call; no plain line function called with a tensor on the card; with
+    `frames`, one extract_planes, extract_point_features and
     extract_line_features call per frame."""
+    from planarslam_tpu_torch.ops import lines
+
     rounds = 1 + (cfg.planes.refine_rounds if cfg is not None else 0)
     resizes = cfg.orb.n_levels - 1 if cfg is not None else 0
     points, lns = rec["point_calls"], rec["line_calls"]
@@ -1465,20 +1940,22 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
             "manhattan_mean_shift": rec["manhattan_calls"],
             "fast_score": points, "orb_describe": points,
             "point_epilogue": points, "pyramid_resize": resizes * points,
-            "select_keypoints": 2 * points, "gaussian_blur": points + lns}
+            "select_keypoints": 2 * points, "gaussian_blur": points + lns,
+            "detect_lines": lines.DETECT_LAUNCHES * lns,
+            "line_descriptors": lns, "lift_lines_3d": lns,
+            "search_lines_by_projection":
+                lines.SEARCH_LAUNCHES * rec["search_calls"]}
     for kernel, n in want.items():
         _check(launches[kernel] == n, f"{name}: {launches[kernel]} {kernel} "
-               f"launches, expected {n} ({rec['calls']} pose_optimize, "
-               f"{rec['plane_calls']} extract_planes, "
-               f"{rec['manhattan_calls']} track_manhattan_frame, {points} "
-               f"extract_point_features, {lns} extract_line_features calls)")
+               f"launches, expected {n} ({_call_counts(rec)})")
+    _check(rec["plain_line_calls_on_card"] == 0,
+           f"{name}: {rec['plain_line_calls_on_card']} plain line-stage "
+           f"calls with tensors on the card")
     if frames is not None:
         _check(rec["plane_calls"] == frames and rec["manhattan_calls"] > 0
-               and points == frames and lns == frames,
-               f"{name}: {rec['plane_calls']} extract_planes, {points} "
-               f"extract_point_features, {lns} extract_line_features and "
-               f"{rec['manhattan_calls']} track_manhattan_frame calls for "
-               f"{frames} frames")
+               and points == frames and lns == frames
+               and rec["search_calls"] >= frames - 1,
+               f"{name}: {_call_counts(rec)} for {frames} frames")
 
 
 def _call_counts(rec: dict) -> dict:
@@ -1486,7 +1963,8 @@ def _call_counts(rec: dict) -> dict:
             "extract_planes_calls": rec["plane_calls"],
             "track_manhattan_frame_calls": rec["manhattan_calls"],
             "extract_point_features_calls": rec["point_calls"],
-            "extract_line_features_calls": rec["line_calls"]}
+            "extract_line_features_calls": rec["line_calls"],
+            "search_lines_by_projection_calls": rec["search_calls"]}
 
 
 def _rel_err(got, want) -> float:
@@ -1715,6 +2193,27 @@ def _count_verifications(lc) -> dict:
                 inside[name] += kernels.LAUNCHES[name] - before[name]
 
     lc._verify_and_correct = counted
+    return inside
+
+
+def _count_fuse_searches(local_mapper):
+    """Wrap a local mapper's _fuse_lines: count the calls and the K23
+    launches made inside them (its search over cfg.map.max_lines lines)."""
+    from planarslam_tpu_torch import kernels
+
+    inside = {"fuse_lines_calls": 0, "k23_in_fuse_lines": 0}
+    orig = local_mapper._fuse_lines
+
+    def counted(kf):
+        before = kernels.LAUNCHES["search_lines_by_projection"]
+        try:
+            return orig(kf)
+        finally:
+            inside["fuse_lines_calls"] += 1
+            inside["k23_in_fuse_lines"] += (
+                kernels.LAUNCHES["search_lines_by_projection"] - before)
+
+    local_mapper._fuse_lines = counted
     return inside
 
 
@@ -1952,7 +2451,8 @@ def run_ba_scale_path(dev) -> dict:
     _check_pose_launches("path4c (BA alone)", res["launches"],
                          {"calls": 0, "plane_calls": 0,
                           "manhattan_calls": 0, "point_calls": 0,
-                          "line_calls": 0})
+                          "line_calls": 0, "search_calls": 0,
+                          "plain_line_calls_on_card": 0})
     return res
 
 
@@ -1980,6 +2480,8 @@ def run_tracking_path(name, seq, frames, cfg, dev, local_mapping: bool,
     n_frames = len(frames)
     slam = System(config=cfg, enable_local_mapping=local_mapping,
                   enable_loop_closing=False, device=dev)
+    fuse = (_count_fuse_searches(slam.local_mapper)
+            if slam.local_mapper is not None else None)
     torch.cuda.synchronize()
     kernels.reset_launches()
     t_all = time.perf_counter()
@@ -2008,7 +2510,7 @@ def run_tracking_path(name, seq, frames, cfg, dev, local_mapping: bool,
            "p95_ms_per_frame": float(np.percentile(t_ms, 95)),
            **_call_counts(pc), "wall_s": wall, "launches": launches}
     if slam.local_mapper is not None:
-        res["mapping"] = dict(slam.local_mapper.stats)
+        res["mapping"] = dict(slam.local_mapper.stats, **fuse)
     print(f"{name} " + json.dumps(res), flush=True)
     _check_pose_launches(name, launches, pc, cfg, n_frames)
     res["captured"] = pc["inputs"]
@@ -2018,6 +2520,8 @@ def run_tracking_path(name, seq, frames, cfg, dev, local_mapping: bool,
         steps = res["mapping"]["mapping_steps"]
         _check(steps >= m.n_kf - 1, f"{name}: {steps} mapping steps for "
                f"{m.n_kf} keyframes")
+        _check(fuse["fuse_lines_calls"] > 0 and fuse["k23_in_fuse_lines"] > 0,
+               f"{name}: local mapping's line fuse ran without K23: {fuse}")
     return res
 
 
@@ -2276,7 +2780,8 @@ def main(argv=None) -> int:
               + ba_kernel_parity(dev) + k11
               + plane_kernel_parity(seq, cfg, dev)
               + manhattan_kernel_parity(seq, cfg, dev)
-              + frontend_kernel_parity(seq, cfg, dev))
+              + frontend_kernel_parity(seq, cfg, dev)
+              + line_kernel_parity(seq, cfg, dev))
     frames = [quantize_frame(*seq.render(i), cfg.camera.depth_map_factor)
               for i in range(n)]
     # the two calls (obs1, obs2) of path 1's 21st fused frame

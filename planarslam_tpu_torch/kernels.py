@@ -35,7 +35,8 @@ KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
                 "pose_optimize", "plane_components", "plane_assign_refit",
                 "plane_label_pixels", "manhattan_mean_shift",
                 "pyramid_resize", "gaussian_blur", "select_keypoints",
-                "point_epilogue")
+                "point_epilogue", "detect_lines", "line_descriptors",
+                "lift_lines_3d", "search_lines_by_projection")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -45,7 +46,8 @@ CUDA_SOURCES = ("fast_score.cu", "orb_describe.cu", "hamming_top2.cu",
                 "triangulate.cu", "horn_align.cu", "pnp_dlt.cu",
                 "ba_normal_eqs.cu", "ba_schur.cu", "pose_graph.cu",
                 "pose_opt.cu", "plane_segment.cu", "manhattan.cu",
-                "pyramid.cu", "select_keypoints.cu")
+                "pyramid.cu", "select_keypoints.cu", "lines.cu",
+                "line_lift_search.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # Sources whose float32 gates must round as the plain version's separate
@@ -53,7 +55,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCE_FLAGS = {"plane_segment.cu": ("-fmad=false",),
                 "manhattan.cu": ("-fmad=false",),
                 "pyramid.cu": ("-fmad=false",),
-                "select_keypoints.cu": ("-fmad=false",)}
+                "select_keypoints.cu": ("-fmad=false",),
+                "lines.cu": ("-fmad=false",),
+                "line_lift_search.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -64,6 +68,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 _SIGNATURES = {
     # img, out, h, w, stream
     "psl_fast_score": [_P, _P, _I, _I, _P],
@@ -146,6 +151,30 @@ _SIGNATURES = {
     # uv_raw, response, level, depth_out, u_right, valid, stream
     "psl_point_epilogue": [_P] * 4 + [_I, _I, _P, _P] + [_I] * 3 + [_F] * 10
                           + [_I] + [_P] * 8,
+    # blur, h, w, batch, E, L, n_rho, keep_top, grad_threshold, min_length,
+    # diag, scratch, gx, gy, uv_s, uv_e, line2d, angle, response, valid,
+    # stream
+    "psl_detect_lines": [_P] + [_I] * 7 + [_F, _F, _D] + [_P] * 10,
+    # gx, gy, h, w, u_max, v_max, uv_s, uv_e, valid, batch, L, alphas,
+    # n_samples, band_width, desc, stream
+    "psl_line_descriptors": [_P, _P, _I, _I, _F, _F, _P, _P, _P, _I, _I, _P,
+                             _I, _F, _P, _P],
+    # depth, h, w, uv_s, uv_e, valid, batch, L, alphas, S, hyp, iters, fx,
+    # fy, cx, cy, c1, c2, c3, min_inliers, p3d_s, p3d_e, has_3d, stream
+    "psl_lift_lines_3d": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _I]
+                         + [_F] * 7 + [_I] + [_P] * 4,
+    # sw, ew, desc_m, valid_m, T_cw, M, f_uv_s, f_uv_e, f_angle, f_desc,
+    # f_valid, L, D, batch, fx, fy, cx, cy, W, H, radius, max_angle,
+    # min_sim, sim_floor, quality_bar, scratch, idx, sim, stream
+    "psl_search_lines": [_P] * 5 + [_I] + [_P] * 5 + [_I] * 3 + [_F] * 11
+                        + [_P] * 4,
+}
+# Host-side helpers: plain C functions that launch nothing.
+_HELPERS = {
+    # h, w, batch, E, L, n_rho
+    "psl_detect_lines_scratch_words": [_I] * 6,
+    # M, L, batch
+    "psl_search_lines_scratch_words": [_I] * 3,
 }
 
 
@@ -230,6 +259,9 @@ def cuda_lib() -> ctypes.CDLL:
             for fn, argtypes in _SIGNATURES.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
+            for fn, argtypes in _HELPERS.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_longlong
             lib.psl_error_string.argtypes = [_I]
             lib.psl_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -7,6 +7,12 @@ gradient-aligned Hough transform restricted to the strongest edge pixels
 (an exact top-k here where the JAX module asks for ``approx_max_k``, which
 is exact on the CPU), descriptors are LBD-style band statistics, and 3D
 lifting is a fixed-table 2-point RANSAC with a PCA refit.
+
+On the card each stage is a hand-written kernel on a leading batch of
+frames (B = 1 on the streaming path): the 5-tap blur is K17, detection K20
+and descriptors K21 (``csrc/lines.cu``), lifting K22 and the guided search
+K23 (``csrc/line_lift_search.cu``). Each wrapper sits beside its plain
+version (``*_plain``), which is what the CPU runs.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from planarslam_tpu_torch import kernels
 from planarslam_tpu_torch.config import CameraConfig, LineConfig
 from planarslam_tpu_torch.ops import image as image_ops
 from planarslam_tpu_torch.ops.consts import const
@@ -43,29 +50,41 @@ class LineFeatures(NamedTuple):
 
 N_THETA = 36  # orientation bins over [0, pi)
 S_BINS = 96   # position-histogram bins along a line
+N_EDGE = 6144  # the strongest edge pixels the per-line work sees
+RHO_RES = 2.0
+# launches issued by one call of csrc/lines.cu::psl_detect_lines and of
+# csrc/line_lift_search.cu::psl_search_lines
+DETECT_LAUNCHES = 9
+SEARCH_LAUNCHES = 2
 
 
-def smoothed_gradients(gray: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sobel (gx, gy) of the 5-tap, sigma 1 blur of the frame (K17 on the
-    card): what detection and descriptors both read."""
-    return image_ops.sobel_gradients(image_ops.gaussian_blur(gray, 5, 1.0))
+class LineDetection(NamedTuple):
+    """detect_lines' outputs for a batch of B frames (L = cfg.max_lines)."""
+
+    uv_s: torch.Tensor      # (B, L, 2)
+    uv_e: torch.Tensor      # (B, L, 2)
+    line2d: torch.Tensor    # (B, L, 3)
+    angle: torch.Tensor     # (B, L)
+    response: torch.Tensor  # (B, L)
+    valid: torch.Tensor     # (B, L) bool
+    gx: torch.Tensor        # (B, H, W) Sobel gradients of the blurred frame
+    gy: torch.Tensor        # (B, H, W)
 
 
-def detect_lines(gray: torch.Tensor, cfg: LineConfig,
-                 grad_threshold: float = 40.0, grads=None
-                 ) -> Tuple[torch.Tensor, ...]:
-    """Gradient-aligned Hough line detection. Returns (uv_s, uv_e, line2d,
-    angle, response, valid) with capacity cfg.max_lines. `grads` is
-    smoothed_gradients(gray) where the caller has it already."""
-    dev = gray.device
-    h, w = gray.shape
-    L = cfg.max_lines
+def hough_shape(h: int, w: int) -> Tuple[float, int]:
+    """(diag, n_rho) of an h x w frame's Hough accumulator."""
     diag = math.hypot(h, w)
-    rho_res = 2.0
-    n_rho = 2 * int(diag / rho_res) + 3
+    return diag, 2 * int(diag / RHO_RES) + 3
 
-    gx, gy = smoothed_gradients(gray) if grads is None else grads
+
+def _edge_slots(blurred: torch.Tensor, grad_threshold: float, E: int):
+    """The edge stencil and the top-E edge pixels of one (H, W) blurred
+    frame: (gx, gy, top_mag, top_pix, flat_t, flat_r), the slots ordered
+    by magnitude descending, ties to the lower pixel; a slot whose
+    magnitude is 0 is no edge."""
+    h, w = blurred.shape
+    dev = blurred.device
+    gx, gy = image_ops.sobel_gradients(blurred)
     mag = torch.sqrt(gx * gx + gy * gy + 1e-12)
 
     ang_g = torch.atan2(gy, gx)
@@ -92,60 +111,108 @@ def detect_lines(gray: torch.Tensor, cfg: LineConfig,
     ca, sa = torch.cos(n_ang), torch.sin(n_ang)
     rho = uu * ca + vv * sa
 
-    # restrict all per-line work to the strongest E edge pixels
-    E = min(6144, h * w)
     edge_score = torch.where(edge, mag, 0.0).reshape(-1)
     top_mag, top_pix = top_k(edge_score, E)
-    flat_edge = top_mag > 0.0
-    flat_t = t_bin.reshape(-1)[top_pix]
-    flat_r = rho.reshape(-1)[top_pix]
-    flat_u = uu.reshape(-1)[top_pix]
-    flat_v = vv.reshape(-1)[top_pix]
-    flat_mag = top_mag
+    return (gx, gy, top_mag, top_pix, t_bin.reshape(-1)[top_pix],
+            rho.reshape(-1)[top_pix])
 
+
+def _hough(top_mag: torch.Tensor, flat_t: torch.Tensor, flat_r: torch.Tensor,
+           diag: float, n_rho: int) -> torch.Tensor:
+    """The (N_THETA, n_rho) Hough vote of the edge slots: each bin sums the
+    magnitudes of its slots in slot order (lax_compat.segment_sum)."""
     bin_id = flat_t * n_rho + torch.clamp(
-        ((flat_r + diag) / rho_res).to(torch.int32), 0, n_rho - 1)
-    hough = segment_sum(torch.where(flat_edge, flat_mag, 0.0), bin_id,
+        ((flat_r + diag) / RHO_RES).to(torch.int32), 0, n_rho - 1)
+    hough = segment_sum(torch.where(top_mag > 0.0, top_mag, 0.0), bin_id,
                         N_THETA * n_rho)
-    hough2d = hough.reshape(N_THETA, n_rho)
+    return hough.reshape(N_THETA, n_rho)
+
+
+def _peaks(hough2d: torch.Tensor, L: int):
+    """(top_val, top_idx) of the L best peaks of a Hough vote: bins not
+    below their 3 x 3 maximum (theta wrapped, -inf beyond the rho range)
+    keep their vote, the others score 0; ties go to the lower bin, so with
+    fewer than L nonzero peaks the rest are the first zero-scored bins."""
     hp = torch.cat([hough2d[-1:], hough2d, hough2d[:1]], dim=0)
     local_max = image_ops.maxpool_3x3(hp)[1:-1]
     is_peak = hough2d >= local_max
     peak_score = torch.where(is_peak, hough2d, 0.0).reshape(-1)
-    top_val, top_idx = top_k(peak_score, L)
+    return top_k(peak_score, L)
+
+
+def _longest_run(hist: torch.Tensor, threshold: float):
+    """(run_start, run_end) per line of an (L, S_BINS) position histogram:
+    occupied bins (above threshold) with single and double gaps filled
+    between occupied neighbours (wrapping around the bins), then the
+    longest run, the first of equal ones."""
+    occupied = hist > (threshold * 1.0)
+    left_near = torch.roll(occupied, 1, 1) | torch.roll(occupied, 2, 1)
+    right_near = torch.roll(occupied, -1, 1) | torch.roll(occupied, -2, 1)
+    occupied = occupied | (left_near & right_near)
+
+    idx_row = torch.arange(S_BINS, dtype=torch.int32,
+                           device=hist.device)[None, :]
+    last_zero = torch.cummax(
+        torch.where(occupied, -1, idx_row).to(torch.int32), dim=1).values
+    run_len_at = torch.where(occupied, idx_row - last_zero, 0)
+    run_len = run_len_at.amax(dim=1)
+    run_end = torch.argmax(run_len_at, dim=1).to(torch.int32)
+    return run_end - run_len + 1, run_end
+
+
+def _line_support(flat_mag: torch.Tensor, top_pix: torch.Tensor,
+                  flat_t: torch.Tensor, flat_r: torch.Tensor,
+                  top_idx: torch.Tensor, w: int, diag: float, n_rho: int):
+    """Each peak's line: (theta_l, rho_l, dirx, diry) (L,), its supporting
+    edge slots, their position s_coord along the line and its bin s_bin
+    (L, E), and the (L, S_BINS) position histogram of the supporters'
+    magnitudes (each bin a segment sum)."""
+    L = top_idx.shape[0]
+    flat_edge = flat_mag > 0.0
+    flat_u = (top_pix % w).to(torch.float32)
+    flat_v = (top_pix // w).to(torch.float32)
     pk_t = top_idx // n_rho
     pk_r = top_idx % n_rho
 
     theta_l = (pk_t.to(torch.float32) + 0.5) * PI / N_THETA
-    rho_l = (pk_r.to(torch.float32) + 0.5) * rho_res - diag
+    rho_l = (pk_r.to(torch.float32) + 0.5) * RHO_RES - diag
 
     dt = torch.abs(flat_t[None, :] - pk_t[:, None])
     dt = torch.minimum(dt, N_THETA - dt)
     support = (flat_edge[None, :] & (dt <= 1)
-               & (torch.abs(flat_r[None, :] - rho_l[:, None]) < 1.5 * rho_res))
+               & (torch.abs(flat_r[None, :] - rho_l[:, None]) < 1.5 * RHO_RES))
 
     dirx, diry = -torch.sin(theta_l + PI / 2), torch.cos(theta_l + PI / 2)
     s_coord = flat_u[None, :] * dirx[:, None] + flat_v[None, :] * diry[:, None]
     s_norm = (s_coord + diag) / (2 * diag)
     s_bin = torch.clamp((s_norm * S_BINS).to(torch.int32), 0, S_BINS - 1)
 
-    lin_ids = torch.arange(L, dtype=torch.int32, device=dev)[:, None]
+    lin_ids = torch.arange(L, dtype=torch.int32,
+                           device=flat_mag.device)[:, None]
     seg_id = (lin_ids * S_BINS + s_bin).reshape(-1)
     seg_w = torch.where(support, flat_mag[None, :], 0.0).reshape(-1)
     hist = segment_sum(seg_w, seg_id, L * S_BINS).reshape(L, S_BINS)
+    return theta_l, rho_l, dirx, diry, support, s_coord, s_bin, hist
 
-    occupied = hist > (grad_threshold * 1.0)
-    left_near = torch.roll(occupied, 1, 1) | torch.roll(occupied, 2, 1)
-    right_near = torch.roll(occupied, -1, 1) | torch.roll(occupied, -2, 1)
-    occupied = occupied | (left_near & right_near)
 
-    idx_row = torch.arange(S_BINS, dtype=torch.int32, device=dev)[None, :]
-    last_zero = torch.cummax(
-        torch.where(occupied, -1, idx_row).to(torch.int32), dim=1).values
-    run_len_at = torch.where(occupied, idx_row - last_zero, 0)
-    run_len = run_len_at.amax(dim=1)
-    run_end = torch.argmax(run_len_at, dim=1).to(torch.int32)
-    run_start = run_end - run_len + 1
+def _detect_one(blurred: torch.Tensor, cfg: LineConfig,
+                grad_threshold: float) -> LineDetection:
+    """Plain detection on one (H, W) blurred frame (unbatched fields)."""
+    dev = blurred.device
+    h, w = blurred.shape
+    L = cfg.max_lines
+    diag, n_rho = hough_shape(h, w)
+
+    # restrict all per-line work to the strongest E edge pixels
+    E = min(N_EDGE, h * w)
+    gx, gy, flat_mag, top_pix, flat_t, flat_r = _edge_slots(
+        blurred, grad_threshold, E)
+    top_val, top_idx = _peaks(_hough(flat_mag, flat_t, flat_r, diag, n_rho),
+                              L)
+    theta_l, rho_l, dirx, diry, support, s_coord, s_bin, hist = \
+        _line_support(flat_mag, top_pix, flat_t, flat_r, top_idx, w, diag,
+                      n_rho)
+    run_start, run_end = _longest_run(hist, grad_threshold)
 
     in_run = ((s_bin >= run_start[:, None]) & (s_bin <= run_end[:, None])
               & support)
@@ -181,7 +248,56 @@ def detect_lines(gray: torch.Tensor, cfg: LineConfig,
     l_eq = torch.linalg.cross(p1, p2)
     norm = torch.sqrt(l_eq[:, 0] ** 2 + l_eq[:, 1] ** 2 + 1e-12)
     l_eq = l_eq / norm[:, None]
-    return uv_s, uv_e, l_eq, theta_out, resp, valid
+    return LineDetection(uv_s, uv_e, l_eq, theta_out, resp, valid, gx, gy)
+
+
+def detect_lines_plain(blurred: torch.Tensor, cfg: LineConfig,
+                       grad_threshold: float = 40.0) -> LineDetection:
+    """Plain version of K20: gradient-aligned Hough line detection on
+    (B, H, W) 5-tap blurred frames, one frame at a time."""
+    per = [_detect_one(b, cfg, grad_threshold) for b in blurred]
+    return LineDetection(*[torch.stack(f) for f in zip(*per)])
+
+
+def detect_lines(blurred: torch.Tensor, cfg: LineConfig,
+                 grad_threshold: float = 40.0) -> LineDetection:
+    """K20 wrapper: line detection on (B, H, W) float32 5-tap blurred
+    frames (K17's output) in one C call of DETECT_LAUNCHES launches. The
+    gradients and the edge slots are the plain version's bits; the Hough
+    votes, histograms and responses are sums in fixed orders of the
+    kernel's own, equal to the plain version's to float rounding."""
+    if kernels.on_cpu(blurred):
+        return detect_lines_plain(blurred, cfg, grad_threshold)
+    kernels.check(blurred, "blurred", torch.float32)
+    if blurred.dim() != 3:
+        raise ValueError(f"blurred: expected (B, H, W), got "
+                         f"{tuple(blurred.shape)}")
+    b, h, w = blurred.shape
+    L, dev = cfg.max_lines, blurred.device
+    diag, n_rho = hough_shape(h, w)
+    E = min(N_EDGE, h * w)
+    lib = kernels.cuda_lib()
+    words = lib.psl_detect_lines_scratch_words(h, w, b, E, L, n_rho)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    gx = torch.empty((b, h, w), **f32)
+    gy = torch.empty((b, h, w), **f32)
+    uv_s = torch.empty((b, L, 2), **f32)
+    uv_e = torch.empty((b, L, 2), **f32)
+    line2d = torch.empty((b, L, 3), **f32)
+    angle = torch.empty((b, L), **f32)
+    resp = torch.empty((b, L), **f32)
+    valid = torch.empty((b, L), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch("psl_detect_lines", kernels.ptr(blurred), h, w, b, E,
+                       L, n_rho, cfg.keep_top, float(grad_threshold),
+                       float(cfg.min_length_px), diag, kernels.ptr(scratch),
+                       kernels.ptr(gx), kernels.ptr(gy), kernels.ptr(uv_s),
+                       kernels.ptr(uv_e), kernels.ptr(line2d),
+                       kernels.ptr(angle), kernels.ptr(resp),
+                       kernels.ptr(valid))
+    kernels.LAUNCHES["detect_lines"] += DETECT_LAUNCHES
+    return LineDetection(uv_s, uv_e, line2d, angle, resp, valid, gx, gy)
 
 
 N_BANDS = 9
@@ -192,15 +308,10 @@ _BAND_OFF = ((np.arange(N_BANDS) - (N_BANDS - 1) / 2.0)
              * BAND_WIDTH).astype(np.float32)
 
 
-def line_descriptors(gray: torch.Tensor, uv_s: torch.Tensor,
-                     uv_e: torch.Tensor, valid: torch.Tensor, grads=None
-                     ) -> torch.Tensor:
-    """LBD-style band descriptor: per band, mean and std of the gradient
-    components parallel/perpendicular to the line, L2-normalized.
-    (L, N_BANDS * 8) float32. `grads` is smoothed_gradients(gray) where the
-    caller has it already."""
-    dev = gray.device
-    gx, gy = smoothed_gradients(gray) if grads is None else grads
+def _descriptors_one(gx: torch.Tensor, gy: torch.Tensor, uv_s: torch.Tensor,
+                     uv_e: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Plain descriptors of one frame's (L,) segments."""
+    dev = gx.device
     d = uv_e - uv_s
     length = torch.sqrt(torch.sum(d * d, dim=-1) + 1e-9)
     t = d / length[:, None]
@@ -229,6 +340,44 @@ def line_descriptors(gray: torch.Tensor, uv_s: torch.Tensor,
     return desc * valid[:, None]
 
 
+def line_descriptors_plain(gx: torch.Tensor, gy: torch.Tensor,
+                           uv_s: torch.Tensor, uv_e: torch.Tensor,
+                           valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of K21: LBD-style band descriptors, per band the mean
+    and deviation of the positive and negative gradient parts parallel and
+    perpendicular to the line, L2-normalized. gx, gy (B, H, W); uv_s, uv_e
+    (B, L, 2); valid (B, L). Returns (B, L, N_BANDS * 8) float32."""
+    return torch.stack([_descriptors_one(*a)
+                        for a in zip(gx, gy, uv_s, uv_e, valid)])
+
+
+def line_descriptors(gx: torch.Tensor, gy: torch.Tensor, uv_s: torch.Tensor,
+                     uv_e: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """K21 wrapper: band descriptors of (B, L) segments in one launch; equal
+    to the plain version to float rounding (its means and deviations reduce
+    in PyTorch's order)."""
+    if kernels.on_cpu(gx, gy, uv_s, uv_e, valid):
+        return line_descriptors_plain(gx, gy, uv_s, uv_e, valid)
+    b, h, w = gx.shape
+    L = uv_s.shape[1]
+    for t, name in ((gx, "gx"), (gy, "gy")):
+        kernels.check(t, name, torch.float32, (b, h, w))
+    kernels.check(uv_s, "uv_s", torch.float32, (b, L, 2))
+    kernels.check(uv_e, "uv_e", torch.float32, (b, L, 2))
+    kernels.check(valid, "valid", torch.bool, (b, L))
+    alphas = const("lines.desc_alphas", _DESC_ALPHAS, gx.device)
+    desc = torch.empty((b, L, N_BANDS * 8), dtype=torch.float32,
+                       device=gx.device)
+    with torch.cuda.device(gx.device):
+        kernels.launch("psl_line_descriptors", kernels.ptr(gx),
+                       kernels.ptr(gy), h, w, w - 1.001, h - 1.001,
+                       kernels.ptr(uv_s), kernels.ptr(uv_e),
+                       kernels.ptr(valid), b, L, kernels.ptr(alphas),
+                       N_SAMPLES_DESC, BAND_WIDTH, kernels.ptr(desc))
+    kernels.LAUNCHES["line_descriptors"] += 1
+    return desc
+
+
 def ransac_table(n_samples: int, iters: int) -> np.ndarray:
     """Fixed 2-point hypothesis table (iters, 2), numpy seed 99."""
     rng = np.random.default_rng(99)
@@ -238,15 +387,23 @@ def ransac_table(n_samples: int, iters: int) -> np.ndarray:
     return hyp.astype(np.int64)
 
 
-def lift_lines_3d(depth: torch.Tensor, cam: CameraConfig, cfg: LineConfig,
-                  uv_s: torch.Tensor, uv_e: torch.Tensor, valid: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Sample depths along each 2D segment and robustly fit a 3D line.
-    Returns (p3d_s (L,3), p3d_e (L,3), has_3d (L,))."""
-    dev = depth.device
+def _lift_tables(cfg: LineConfig, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The depth sample positions and the hypothesis table on `dev`."""
     S = cfg.n_depth_samples
     alphas = const(("lines.depth_alphas", S),
                    lambda: linspace(0.02, 0.98, S), dev)
+    hyp = const(("lines.ransac_table", S, cfg.ransac_iters),
+                lambda: ransac_table(S, cfg.ransac_iters), dev)
+    return alphas, hyp
+
+
+def _lift_one(depth: torch.Tensor, cam: CameraConfig, cfg: LineConfig,
+              uv_s: torch.Tensor, uv_e: torch.Tensor, valid: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain lifting of one frame's (L,) segments."""
+    dev = depth.device
+    S = cfg.n_depth_samples
+    alphas, hyp = _lift_tables(cfg, dev)
     pts2d = uv_s[:, None, :] + alphas[None, :, None] * (uv_e - uv_s)[:, None, :]
     z = image_ops.nearest_sample(depth, pts2d)
     z_ok = z > 1e-6
@@ -257,8 +414,6 @@ def lift_lines_3d(depth: torch.Tensor, cam: CameraConfig, cfg: LineConfig,
     sigma = cfg.depth_c1 * z * z + cfg.depth_c2 * z + cfg.depth_c3
     sigma = torch.clamp(sigma, min=2e-3)
 
-    hyp = const(("lines.ransac_table", S, cfg.ransac_iters),
-                lambda: ransac_table(S, cfg.ransac_iters), dev)
     a = p3[:, hyp[:, 0], :]
     b = p3[:, hyp[:, 1], :]
     dvec = b - a
@@ -301,18 +456,84 @@ def lift_lines_3d(depth: torch.Tensor, cam: CameraConfig, cfg: LineConfig,
             torch.where(has[:, None], p_e, zero), has)
 
 
+def lift_lines_3d_plain(depth: torch.Tensor, cam: CameraConfig,
+                        cfg: LineConfig, uv_s: torch.Tensor,
+                        uv_e: torch.Tensor, valid: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K22: sample depths along each 2D segment and fit a
+    3D line robustly. depth (B, H, W); uv_s, uv_e (B, L, 2); valid (B, L).
+    Returns (p3d_s (B, L, 3), p3d_e (B, L, 3), has_3d (B, L))."""
+    per = [_lift_one(d, cam, cfg, s, e, v)
+           for d, s, e, v in zip(depth, uv_s, uv_e, valid)]
+    return tuple(torch.stack(f) for f in zip(*per))
+
+
+def lift_lines_3d(depth: torch.Tensor, cam: CameraConfig, cfg: LineConfig,
+                  uv_s: torch.Tensor, uv_e: torch.Tensor, valid: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K22 wrapper: 3D lifting of (B, L) segments in one launch; the
+    inlier counts are the plain version's, the fit agrees to float
+    rounding."""
+    if kernels.on_cpu(depth, uv_s, uv_e, valid):
+        return lift_lines_3d_plain(depth, cam, cfg, uv_s, uv_e, valid)
+    b, h, w = depth.shape
+    L = uv_s.shape[1]
+    kernels.check(depth, "depth", torch.float32)
+    kernels.check(uv_s, "uv_s", torch.float32, (b, L, 2))
+    kernels.check(uv_e, "uv_e", torch.float32, (b, L, 2))
+    kernels.check(valid, "valid", torch.bool, (b, L))
+    dev = depth.device
+    S = cfg.n_depth_samples
+    alphas, hyp = _lift_tables(cfg, dev)
+    p3d_s = torch.empty((b, L, 3), dtype=torch.float32, device=dev)
+    p3d_e = torch.empty((b, L, 3), dtype=torch.float32, device=dev)
+    has = torch.empty((b, L), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch("psl_lift_lines_3d", kernels.ptr(depth), h, w,
+                       kernels.ptr(uv_s), kernels.ptr(uv_e),
+                       kernels.ptr(valid), b, L, kernels.ptr(alphas), S,
+                       kernels.ptr(hyp), cfg.ransac_iters, cam.fx, cam.fy,
+                       cam.cx, cam.cy, cfg.depth_c1, cfg.depth_c2,
+                       cfg.depth_c3, int(0.6 * S), kernels.ptr(p3d_s),
+                       kernels.ptr(p3d_e), kernels.ptr(has))
+    kernels.LAUNCHES["lift_lines_3d"] += 1
+    return p3d_s, p3d_e, has
+
+
+def _line_features(det: LineDetection, desc, lifted) -> LineFeatures:
+    """The one frame of a B = 1 batch as LineFeatures."""
+    p3s, p3e, has3d = lifted
+    return LineFeatures(uv_s=det.uv_s[0], uv_e=det.uv_e[0],
+                        line2d=det.line2d[0], angle=det.angle[0],
+                        response=det.response[0], desc=desc[0],
+                        p3d_s=p3s[0], p3d_e=p3e[0], has_3d=has3d[0],
+                        valid=det.valid[0])
+
+
+def extract_line_features_plain(gray: torch.Tensor, depth: torch.Tensor,
+                                cam: CameraConfig, cfg: LineConfig
+                                ) -> LineFeatures:
+    """The line front end composed of the plain versions."""
+    det = detect_lines_plain(image_ops.blur(gray, 5, 1.0)[None], cfg)
+    desc = line_descriptors_plain(det.gx, det.gy, det.uv_s, det.uv_e,
+                                  det.valid)
+    lifted = lift_lines_3d_plain(depth[None], cam, cfg, det.uv_s, det.uv_e,
+                                 det.valid)
+    return _line_features(det, desc, lifted)
+
+
 @record_function("lines.extract_line_features")
 def extract_line_features(gray: torch.Tensor, depth: torch.Tensor,
                           cam: CameraConfig, cfg: LineConfig) -> LineFeatures:
-    """Full line front end for one frame."""
-    grads = smoothed_gradients(gray)  # once for detection and descriptors
-    uv_s, uv_e, l_eq, angle, resp, valid = detect_lines(gray, cfg,
-                                                        grads=grads)
-    desc = line_descriptors(gray, uv_s, uv_e, valid, grads=grads)
-    p3s, p3e, has3d = lift_lines_3d(depth, cam, cfg, uv_s, uv_e, valid)
-    return LineFeatures(uv_s=uv_s, uv_e=uv_e, line2d=l_eq, angle=angle,
-                        response=resp, desc=desc, p3d_s=p3s, p3d_e=p3e,
-                        has_3d=has3d, valid=valid)
+    """Full line front end for one frame. On the card: one K17 launch, then
+    K20 (one call), K21 and K22, with allocations only between them."""
+    if kernels.on_cpu(gray, depth):
+        return extract_line_features_plain(gray, depth, cam, cfg)
+    det = detect_lines(image_ops.gaussian_blur(gray, 5, 1.0)[None], cfg)
+    desc = line_descriptors(det.gx, det.gy, det.uv_s, det.uv_e, det.valid)
+    lifted = lift_lines_3d(depth[None], cam, cfg, det.uv_s, det.uv_e,
+                           det.valid)
+    return _line_features(det, desc, lifted)
 
 
 def _adaptive_sim_gate(best: torch.Tensor, cand: torch.Tensor,
@@ -332,8 +553,7 @@ def _adaptive_sim_gate(best: torch.Tensor, cand: torch.Tensor,
     return best > th
 
 
-@record_function("lines.search_lines_by_projection")
-def search_lines_by_projection(
+def search_lines_by_projection_plain(
         sw_w: torch.Tensor, ew_w: torch.Tensor, desc_m: torch.Tensor,
         valid_m: torch.Tensor, T_cw: torch.Tensor, f_uv_s: torch.Tensor,
         f_uv_e: torch.Tensor, f_angle: torch.Tensor, f_desc: torch.Tensor,
@@ -341,11 +561,11 @@ def search_lines_by_projection(
         image_wh: Tuple[float, float], radius: float = 12.0,
         max_angle: float = 0.26, min_sim: float = 0.7,
         sim_floor: float = 0.45):
-    """Guided line matching by projection: project each map line's
-    endpoints through T_cw, gate frame segments on endpoint distance to the
-    projected infinite line, overlap, direction and descriptor similarity;
-    best match per map line, duplicates resolved per frame line.
-    Returns (idx (M,) frame-line index or -1, sim (M,))."""
+    """Plain version of K23: guided line matching by projection. Project
+    each map line's endpoints through T_cw, gate frame segments on endpoint
+    distance to the projected infinite line, overlap, direction and
+    descriptor similarity; best match per map line, duplicates resolved per
+    frame line. Returns (idx (M,) frame-line index or -1, sim (M,))."""
     fx, fy, cx, cy = K
     W, H = image_wh
     R, t = T_cw[:3, :3], T_cw[:3, 3]
@@ -392,3 +612,82 @@ def search_lines_by_projection(
     back = torch.argmax(sim, dim=0)
     ok = ok & (back[best] == torch.arange(sim.shape[0], device=sim.device))
     return torch.where(ok, best, -1).to(torch.int32), best_sim
+
+
+def search_lines_by_projection_batched(
+        sw_w: torch.Tensor, ew_w: torch.Tensor, desc_m: torch.Tensor,
+        valid_m: torch.Tensor, T_cw: torch.Tensor, f_uv_s: torch.Tensor,
+        f_uv_e: torch.Tensor, f_angle: torch.Tensor, f_desc: torch.Tensor,
+        f_valid: torch.Tensor, K: Tuple[float, float, float, float],
+        image_wh: Tuple[float, float], radius: float = 12.0,
+        max_angle: float = 0.26, min_sim: float = 0.7,
+        sim_floor: float = 0.45):
+    """K23 wrapper: the guided search of B problems (every tensor with a
+    leading B) in one C call of SEARCH_LAUNCHES launches. Returns (idx (B,
+    M) int32, sim (B, M)). The descriptor products are chains of fused
+    multiply-adds in index order: the plain version's products on the card
+    (a library matrix product) agree to float rounding."""
+    args = (sw_w, ew_w, desc_m, valid_m, T_cw, f_uv_s, f_uv_e, f_angle,
+            f_desc, f_valid)
+    kw = dict(K=K, image_wh=image_wh, radius=radius, max_angle=max_angle,
+              min_sim=min_sim, sim_floor=sim_floor)
+    if kernels.on_cpu(*args):
+        per = [search_lines_by_projection_plain(*a, **kw) for a in zip(*args)]
+        return tuple(torch.stack(f) for f in zip(*per))
+    (sw_w, ew_w, desc_m, valid_m, T_cw, f_uv_s, f_uv_e, f_angle, f_desc,
+     f_valid) = [t.contiguous() for t in args]
+    b, M, D = desc_m.shape
+    L = f_desc.shape[1]
+    for t, name, shape in ((sw_w, "sw_w", (b, M, 3)), (ew_w, "ew_w", (b, M, 3)),
+                           (T_cw, "T_cw", (b, 4, 4)),
+                           (f_uv_s, "f_uv_s", (b, L, 2)),
+                           (f_uv_e, "f_uv_e", (b, L, 2)),
+                           (f_angle, "f_angle", (b, L)),
+                           (f_desc, "f_desc", (b, L, D)),
+                           (desc_m, "desc_m", (b, M, D))):
+        kernels.check(t, name, torch.float32, shape)
+    kernels.check(valid_m, "valid_m", torch.bool, (b, M))
+    kernels.check(f_valid, "f_valid", torch.bool, (b, L))
+    dev = desc_m.device
+    lib = kernels.cuda_lib()
+    scratch = torch.empty(lib.psl_search_lines_scratch_words(M, L, b),
+                          dtype=torch.int32, device=dev)
+    idx = torch.empty((b, M), dtype=torch.int32, device=dev)
+    sim = torch.empty((b, M), dtype=torch.float32, device=dev)
+    fx, fy, cx, cy = K
+    W, H = image_wh
+    with torch.cuda.device(dev):
+        kernels.launch("psl_search_lines", kernels.ptr(sw_w),
+                       kernels.ptr(ew_w), kernels.ptr(desc_m),
+                       kernels.ptr(valid_m), kernels.ptr(T_cw), M,
+                       kernels.ptr(f_uv_s), kernels.ptr(f_uv_e),
+                       kernels.ptr(f_angle), kernels.ptr(f_desc),
+                       kernels.ptr(f_valid), L, D, b, fx, fy, cx, cy, W, H,
+                       radius, max_angle, min_sim, sim_floor,
+                       0.5 * (sim_floor + min_sim), kernels.ptr(scratch),
+                       kernels.ptr(idx), kernels.ptr(sim))
+    kernels.LAUNCHES["search_lines_by_projection"] += SEARCH_LAUNCHES
+    return idx, sim
+
+
+@record_function("lines.search_lines_by_projection")
+def search_lines_by_projection(
+        sw_w: torch.Tensor, ew_w: torch.Tensor, desc_m: torch.Tensor,
+        valid_m: torch.Tensor, T_cw: torch.Tensor, f_uv_s: torch.Tensor,
+        f_uv_e: torch.Tensor, f_angle: torch.Tensor, f_desc: torch.Tensor,
+        f_valid: torch.Tensor, K: Tuple[float, float, float, float],
+        image_wh: Tuple[float, float], radius: float = 12.0,
+        max_angle: float = 0.26, min_sim: float = 0.7,
+        sim_floor: float = 0.45):
+    """Guided line matching by projection of M map lines against a frame's
+    L segments: K23 on the card, the plain version on the CPU. Returns (idx
+    (M,) frame-line index or -1, sim (M,))."""
+    args = (sw_w, ew_w, desc_m, valid_m, T_cw, f_uv_s, f_uv_e, f_angle,
+            f_desc, f_valid)
+    kw = dict(K=K, image_wh=image_wh, radius=radius, max_angle=max_angle,
+              min_sim=min_sim, sim_floor=sim_floor)
+    if kernels.on_cpu(*args):
+        return search_lines_by_projection_plain(*args, **kw)
+    idx, sim = search_lines_by_projection_batched(*[t[None] for t in args],
+                                                  **kw)
+    return idx[0], sim[0]

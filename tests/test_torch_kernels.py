@@ -1,4 +1,4 @@
-"""The hand-written Hopper kernels (K1-K19) against their plain PyTorch
+"""The hand-written Hopper kernels (K1-K23) against their plain PyTorch
 versions on the card. These need a GPU: without one every test skips.
 
     python -m pytest tests/test_torch_kernels.py -q     # on the GPU machine
@@ -13,7 +13,7 @@ from chip_smoke import _ba_problem, _pose_problem
 from planarslam_tpu_torch import kernels
 from planarslam_tpu_torch.config import SystemConfig
 from planarslam_tpu_torch.io import synthetic
-from planarslam_tpu_torch.ops import fast, image, matching, orb, planes
+from planarslam_tpu_torch.ops import fast, image, lines, matching, orb, planes
 from planarslam_tpu_torch.ops.frontend import EDGE_BORDER
 
 pytestmark = pytest.mark.cuda
@@ -514,3 +514,73 @@ def test_frontend_kernels_batched(dev, batch):
     torch.testing.assert_close(ep.u_right, want.u_right, rtol=0, atol=1e-4)
     if batch > 1:
         assert not torch.equal(buf[0], buf[1])
+
+
+def test_line_kernels(dev):
+    """K20-K23 at the default configuration's width on frame 0, clean and
+    with Kinect noise (chip_smoke.py's line_kernel_parity states the
+    limits): K20 equal to its plain version off its sums, the responses
+    within their rounding and flips only at plain near-decisions, K21
+    within chip_smoke.DESC_TOLERANCE, K22 has_3d exact and endpoints within
+    chip_smoke.P3D_TOLERANCE, K23 indices exact and similarities within
+    chip_smoke.SIM_TOLERANCE on the window, 4096 lines, no candidate and
+    fewer than 6 earned."""
+    cfg = SystemConfig()
+    seq = synthetic.make_sequence(8, width=640, height=480)
+    n0 = dict(kernels.LAUNCHES)
+    out = _held(chip_smoke.line_kernel_parity, seq, cfg, dev)
+    assert [k["name"] for k in out] == ["detect_lines", "line_descriptors",
+                                        "lift_lines_3d",
+                                        "search_lines_by_projection"]
+    for k in out:
+        assert kernels.LAUNCHES[k["name"]] > n0[k["name"]]
+    assert set(out[3]["cases"]) == {"window", "fuse_4096", "no_candidates",
+                                    "few_earned"}
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_line_kernels_batched(dev, batch):
+    """The leading batch count of K20-K23: `batch` different frames (or
+    search problems) through one call each give what each gives alone, with
+    the same launches whatever the batch."""
+    cfg = SystemConfig()
+    lc, cam = cfg.lines, cfg.camera
+    seq = synthetic.make_sequence(4, width=640, height=480)
+    frames = [seq.render(i) for i in range(batch)]
+    gray = torch.from_numpy(np.stack(
+        [np.round(np.array(g, np.float32)) for g, _ in frames])).to(dev)
+    depth = torch.from_numpy(np.stack(
+        [np.array(d, np.float32) for _, d in frames])).to(dev)
+    blurred = torch.stack([image.gaussian_blur(g, 5, 1.0) for g in gray])
+    n0 = dict(kernels.LAUNCHES)
+    det = lines.detect_lines(blurred, lc)
+    args = (det.gx, det.gy, det.uv_s, det.uv_e, det.valid)
+    desc = lines.line_descriptors(*args)
+    lifted = lines.lift_lines_3d(depth, cam, lc, det.uv_s, det.uv_e,
+                                 det.valid)
+    T = torch.from_numpy(np.stack([np.linalg.inv(seq.poses_wc[i]).astype(
+        np.float32) for i in range(batch)])).to(dev)
+    search = (lifted[0], lifted[1], desc, lifted[2], T, det.uv_s, det.uv_e,
+              det.angle, desc, det.valid)
+    kw = dict(K=(cam.fx, cam.fy, cam.cx, cam.cy),
+              image_wh=(float(cam.width), float(cam.height)), radius=14.0)
+    idx, sim = lines.search_lines_by_projection_batched(*search, **kw)
+    for name, n in (("detect_lines", lines.DETECT_LAUNCHES),
+                    ("line_descriptors", 1), ("lift_lines_3d", 1),
+                    ("search_lines_by_projection", lines.SEARCH_LAUNCHES)):
+        assert kernels.LAUNCHES[name] == n0[name] + n, name
+    for b in range(batch):
+        one = lines.detect_lines(blurred[b:b + 1], lc)
+        for f in det._fields:
+            assert torch.equal(getattr(det, f)[b], getattr(one, f)[0]), f
+        d1 = lines.line_descriptors(*[a[b:b + 1] for a in args])
+        assert torch.equal(desc[b], d1[0])
+        l1 = lines.lift_lines_3d(depth[b:b + 1], cam, lc, det.uv_s[b:b + 1],
+                                 det.uv_e[b:b + 1], det.valid[b:b + 1])
+        for a, c in zip(lifted, l1):
+            assert torch.equal(a[b], c[0])
+        i1, s1 = lines.search_lines_by_projection(
+            *[a[b] for a in search], **kw)
+        assert torch.equal(idx[b], i1) and torch.equal(sim[b], s1)
+    if batch > 1:
+        assert not torch.equal(det.uv_s[0], det.uv_s[1])
