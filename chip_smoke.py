@@ -25,7 +25,11 @@ Phases, each fatal on failure:
      clean and with Kinect noise, the search on the 256-line window of four
      frames' lines seen from a fifth, on 4096 lines, with no candidate and
      with fewer than 6 earned, and the whole extract_line_features against
-     its plain composition;
+     its plain composition; K24-K27 (projection prologue, match
+     selection, frame-match selection, observation assembly) on frames
+     0 -> 1: the frame search, the window search over those landmarks
+     tiled to 4096 slots with planted normals and distance ranges,
+     match_descriptors, and the line observations of frame 1's line search;
   4. path 1, tracking only: System(SystemConfig(), enable_local_mapping=
      False, enable_loop_closing=False) tracks 96 frames of the 640x480
      synthetic room, quantized to uint8 gray / uint16 depth; ATE against
@@ -63,8 +67,12 @@ K19 once, K16 n_levels - 1 times and K18 twice, with one K17 launch per
 extract_point_features and per extract_line_features call, and per
 extract_line_features call K20's nine launches (one C call), one K21 and one
 K22, and two K23 launches per search_lines_by_projection call (local
-mapping's line fuse among them); no plain line function may see a tensor on
-the card. The line before the
+mapping's line fuse among them), one K24 per search_by_projection call, one
+K3 per search_by_projection and two per match_descriptors call, one K25 per
+either call, one K26 per tracking step and per rotation_histogram_filter
+call and two K27 per tracking step (inside each tracking step K24 2, K3
+4, K25 3, K26 1, K27 2); no plain line or matching function may see a
+tensor on the card. The line before the
 last is a JSON object with one entry per kernel (its time and its plain
 version's, the least time the card could take for the same bytes and
 operations, and a PyTorch call's time where one computes the same
@@ -1056,6 +1064,367 @@ def line_kernel_parity(seq, cfg, dev) -> list:
     return out
 
 
+MATCH_WINDOW = 4096  # the local-map window's point slots (WIN_PTS)
+# the matching launches of one tracking step (device_tracker._track_core):
+# two projection searches, match_descriptors, the frame-match selection, the
+# line and the point observations
+MATCH_PER_STEP = {"project_landmarks": 2, "gated_hamming_top2": 4,
+                  "match_select": 3, "frame_match_select": 1,
+                  "assemble_observations": 2}
+
+
+def _matching_problems(seq, cfg, dev, rng) -> dict:
+    """K24-K27's inputs from frames 0 -> 1 of the 640x480 room on the card:
+    frame 0's features with depth lifted at its true pose (the carried
+    LastState) searched in frame 1 at frame 1's pose ("frame", radius 15,
+    every level), and those landmarks tiled to the 4096 window slots,
+    the copies moved by 1 cm, their descriptors perturbed, 70% valid, with
+    viewing normals and distance ranges planted around the true ones so
+    that some gates turn and levels 0 to 4 are predicted ("window", radius
+    4, level window 1); frame 0's 64 lines lifted to world and tiled to
+    the 256 window lines for frame 1's line search."""
+    import torch
+
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.slam import device_tracker as dt
+    from planarslam_tpu_torch.slam.frame import extract_frame
+
+    cam = cfg.camera
+
+    def features(i):
+        g8, d16 = quantize_frame(*seq.render(i), cam.depth_map_factor)
+        return extract_frame(*dt.to_gray_depth(
+            torch.from_numpy(g8).to(dev),
+            torch.from_numpy(d16.astype(np.int32)).to(dev), cfg), cfg)
+
+    def pose_cw(i):
+        return torch.from_numpy(np.linalg.inv(seq.poses_wc[i]).astype(
+            np.float32)).to(dev)
+
+    def rand(a, dtype=np.float32):
+        return torch.from_numpy(np.asarray(a, dtype)).to(dev)
+
+    f0, f1 = features(0), features(1)
+    last = dt._state_from(f0, pose_cw(0), torch.eye(4, device=dev), cfg)
+    kp = cfg.orb.max_keypoints
+    reps = MATCH_WINDOW // kp
+    shift = rand(rng.normal(0.0, 0.01, (reps, kp, 3)))
+    shift[0] = 0.0
+    pts = (last.pt3d_w[None] + shift).reshape(-1, 3)
+    flips = rng.random((reps, kp, 8, 32)) < 0.03
+    flips[0] = False
+    words = (flips * (1 << np.arange(32, dtype=np.int64))).sum(-1)
+    desc = (f0.points.desc[None] ^ rand(words.astype(np.uint32).view(
+        np.int32), np.int32)).reshape(-1, 8)
+    keep = rand(rng.random((reps, kp)) < 0.7, bool)
+    keep[0] = True
+    valid = (last.valid3d[None] & keep).reshape(-1)
+    centre = rand(seq.poses_wc[1][:3, 3])
+    vec = pts - centre
+    dist = torch.linalg.norm(vec, dim=-1)
+    normals = vec / dist[:, None] + rand(rng.normal(0.0, 0.5, (MATCH_WINDOW,
+                                                                3)))
+    normals = normals / torch.linalg.norm(normals, dim=-1, keepdim=True)
+    dmin = dist * rand(rng.uniform(0.5, 1.1, MATCH_WINDOW))
+    dmax = dist * rand(rng.uniform(0.9, 2.5, MATCH_WINDOW))
+
+    def world(p):
+        T = rand(seq.poses_wc[0])
+        return p @ T[:3, :3].T + T[:3, 3]
+
+    lreps = LINE_WINDOW // cfg.lines.max_lines
+    lines0 = f0.lines
+    return {
+        "f1": f1, "last": last, "T_cw": pose_cw(1),
+        "frame": dict(pts_w=last.pt3d_w, descs=f0.points.desc,
+                      valid=last.valid3d, radius=15.0,
+                      level_window=cfg.orb.n_levels),
+        "window": dict(pts_w=pts.contiguous(), descs=desc.contiguous(),
+                       valid=valid.contiguous(), radius=4.0, level_window=1,
+                       view_normals=normals.contiguous(),
+                       dist_range=(dmin.contiguous(), dmax.contiguous())),
+        "lines": (world(lines0.p3d_s).repeat(lreps, 1),
+                  world(lines0.p3d_e).repeat(lreps, 1),
+                  lines0.desc.repeat(lreps, 1),
+                  (lines0.has_3d & lines0.valid).repeat(lreps))}
+
+
+def _distinct(idx) -> int:
+    """Distinct non-negative entries of idx: the rows a gather reads."""
+    import torch
+
+    return int(torch.unique(idx[idx >= 0]).numel())
+
+
+def _clashes(idx, n: int) -> int:
+    """Targets that more than one row of idx is matched to."""
+    import torch
+
+    hits = torch.bincount(idx[idx >= 0].long(), minlength=n)
+    return int((hits > 1).sum())
+
+
+def matching_kernel_parity(seq, cfg, dev) -> list:
+    """K24-K27 against their plain versions on the card, on the problems of
+    _matching_problems (frames 0 -> 1 of the 640x480 room at the default
+    configuration's widths: 1024 landmarks or 4096 window points against
+    1024 features, 256 window lines against 64 frame lines). K24 on both
+    searches, K25 on both searches' K3 outputs and on match_descriptors'
+    two (mutual), K26 on the frame search and the brute-force matches (and
+    with the projection matches cut below MIN_PROJ_MATCHES, and in filter
+    mode), K27 on the window search and K26's matches, and on the line
+    search of frame 1 in the 256 window lines. Every output equals the
+    plain version's bit for bit (integers and gathered floats; K24's floats
+    because kernel and plain version take the same operations in the same
+    order), and two launches give the same bits. Targets matched by more
+    than one row (clashes, which K25's duplicate resolution and mutual
+    check rule out) are counted."""
+    import torch
+
+    from planarslam_tpu_torch.ops import lines as ln
+    from planarslam_tpu_torch.ops import matching as mt
+
+    cam = cfg.camera
+    kw0 = dict(K=(cam.fx, cam.fy, cam.cx, cam.cy),
+               image_wh=(float(cam.width), float(cam.height)), bf=cam.bf,
+               scale_factor=cfg.orb.scale_factor)
+    probs = _matching_problems(seq, cfg, dev, np.random.default_rng(24))
+    f1, last, T_cw = probs["f1"], probs["last"], probs["T_cw"]
+    p1 = f1.points
+    src = "planarslam_tpu_torch/csrc/matching.cu"
+    out, cases = [], {}
+
+    def twice_same(fn, *args, **kw):
+        """fn's kernel output, checked equal to a second launch."""
+        a, b = fn(*args, **kw), fn(*args, **kw)
+        torch.cuda.synchronize()
+        _check(all(_same(x, y) for x, y in zip(a, b)),
+               f"{fn.__name__}: two launches differ")
+        return a
+
+    def held(name, got, want):
+        bad = {f: int((~((x == y) | (x.isnan() & y.isnan()))).sum())
+               if x.dtype.is_floating_point else int((x != y).sum())
+               for f, x, y in zip(got._fields if hasattr(got, "_fields")
+                                  else range(len(got)), got, want)}
+        _check(not any(bad.values()),
+               f"{name}: entries differ from the plain version: {bad}")
+
+    # K24 on both searches
+    proj = {}
+    for case in ("frame", "window"):
+        c = probs[case]
+        args = (c["pts_w"][None], c["valid"][None], T_cw[None])
+        kw = dict(kw0, radius=c["radius"])
+        if case == "window":
+            kw.update(view_normals=c["view_normals"][None],
+                      dist_range=tuple(d[None] for d in c["dist_range"]))
+        got = twice_same(mt.project_landmarks, *args, **kw)
+        want = mt.project_landmarks_plain(
+            c["pts_w"], c["valid"], T_cw, **dict(kw0, radius=c["radius"]),
+            view_normals=c.get("view_normals"),
+            dist_range=c.get("dist_range"))
+        held(f"project_landmarks ({case})", [g[0] for g in got], want)
+        proj[case] = (got, args, kw)
+        cases[case] = {"M": int(c["valid"].shape[0]),
+                       "gated": int(got.gate_pt.sum()),
+                       "levels": sorted(set(
+                           got.a_level[got.gate_pt].tolist()))}
+    _check(cases["frame"]["gated"] > 200 and cases["window"]["gated"] > 500
+           and len(cases["window"]["levels"]) >= 3,
+           f"project_landmarks: the cases do not exercise it: {cases}")
+    got, args, kw = proj["window"]
+    c = probs["window"]
+    out.append({
+        "name": "project_landmarks", "route": "cuda", "library_ms": None,
+        # per landmark: the transform and projection (~25), the camera
+        # centre, distance and cosine (~30), log, ceil, pow (~60)
+        **_bound(_nbytes(args, c["view_normals"], c["dist_range"], got),
+                 MATCH_WINDOW * 120.0),
+        "source": src, "replaces": "planarslam_tpu/ops/matching.py:142",
+        "max_abs_err": 0.0, "tolerance": "every output bit-equal",
+        "cases": cases,
+        "ms": _time_ms(lambda: mt.project_landmarks(*args, **kw)),
+        "plain_ms": _time_ms(lambda: mt.project_landmarks_plain(
+            c["pts_w"], c["valid"], T_cw, **dict(kw0, radius=4.0),
+            view_normals=c["view_normals"], dist_range=c["dist_range"])),
+        "frame_ms": _time_ms(lambda: mt.project_landmarks(
+            *proj["frame"][1], **proj["frame"][2]))})
+
+    # K25 on K3's outputs: both searches (duplicates resolved), and
+    # match_descriptors' rows with the transposed problem's (mutual)
+    n = p1.desc.shape[0]
+    top2 = {}
+    for case in ("frame", "window"):
+        g = proj[case][0]
+        gate = mt.ProjGate(a_uv=g.a_uv[0], a_r=g.a_r[0], a_level=g.a_level[0],
+                           a_ur_pred=g.a_ur_pred[0], b_uv=p1.uv,
+                           b_level=p1.level, b_ur=p1.u_right,
+                           level_window=probs[case]["level_window"])
+        top2[case] = (mt.gated_hamming_top2(probs[case]["descs"], p1.desc,
+                                            g.gate_pt[0], p1.valid, gate),
+                      dict(max_dist=cfg.matcher.th_high, n_targets=n))
+    fwd = mt.gated_hamming_top2(last.feats.points.desc, p1.desc,
+                                last.valid3d, p1.valid)
+    back = mt.gated_hamming_top2(p1.desc, last.feats.points.desc, p1.valid,
+                                 last.valid3d)[2]
+    top2["descriptors"] = (fwd, dict(max_dist=cfg.matcher.th_low, ratio=0.9,
+                                     back=back))
+    sel = {}
+    for case, (t3, kw) in top2.items():
+        bat = [t[None] for t in t3]
+        kwb = dict(kw, back=kw["back"][None]) if "back" in kw else kw
+        got = twice_same(mt.match_select, *bat, **kwb)
+        want = mt.match_select_plain(*t3, kw["max_dist"], kw.get("ratio"),
+                                     kw.get("back"), kw.get("n_targets"))
+        held(f"match_select ({case})", [g[0] for g in got], want)
+        sel[case] = {"matches": int((got[0] >= 0).sum()),
+                     "before": int((t3[0] <= kw["max_dist"]).sum()),
+                     "clashes": _clashes(got[0][0], n)}
+    _check(all(v["matches"] > 20 for v in sel.values())
+           and sel["window"]["matches"] < sel["window"]["before"]
+           and sel["window"]["clashes"] == 0
+           and sel["descriptors"]["clashes"] == 0,
+           f"match_select: the cases do not exercise it: {sel}")
+    t3, kw = top2["window"]
+    bat = [t[None] for t in t3]
+    t3d, kwd = top2["descriptors"]
+    batd = [t[None] for t in t3d]
+    kwdb = dict(kwd, back=kwd["back"][None])
+    out.append({
+        "name": "match_select", "route": "cuda", "library_ms": None,
+        # per row: the tests and three passes of shared-memory minima (~20);
+        # with the ratio test off the kernel reads best and best_idx only
+        **_bound(_nbytes(bat[0], bat[2]) + 8 * MATCH_WINDOW,
+                 MATCH_WINDOW * 20.0),
+        "source": src, "replaces": "planarslam_tpu/ops/matching.py:184",
+        "max_abs_err": 0.0, "tolerance": "indices and distances exact",
+        "cases": sel,
+        "ms": _time_ms(lambda: mt.match_select(*bat, **kw)),
+        "plain_ms": _time_ms(lambda: mt.match_select_plain(
+            *t3, kw["max_dist"], n_targets=n)),
+        "descriptors_ms": _time_ms(lambda: mt.match_select(*batd, **kwdb))})
+
+    # K26 on the frame search and the brute-force matches, with the
+    # projection matches cut below MIN_PROJ_MATCHES, and in filter mode
+    table = mt.level_inv_sigma2(cfg.orb.scale_factor, cfg.orb.n_levels, dev)
+    proj_idx = mt.match_select(*[t[None] for t in top2["frame"][0]],
+                               **top2["frame"][1])[0]
+    bf_idx = mt.match_select(*batd, **kwdb)[0]
+    few = proj_idx.clone()
+    few[:, torch.cumsum((few >= 0).int(), 1)[0] > 10] = -1
+    tgt = (p1.angle, p1.uv, p1.u_right, p1.level)
+    fm_args = {"projection": (proj_idx, bf_idx),
+               "brute_force": (few, bf_idx)}
+    fm = {}
+    for case, (pi, bi) in fm_args.items():
+        args = (pi, bi, last.feats.points.angle[None],
+                *[t[None] for t in tgt], table)
+        got = twice_same(mt.frame_match_select, *args)
+        want = mt.frame_match_select_plain(pi[0], bi[0],
+                                           last.feats.points.angle, *tgt,
+                                           table)
+        held(f"frame_match_select ({case})", [g[0] for g in got], want)
+        chosen = bi if case == "brute_force" else pi
+        fm[case] = {"input": int((chosen >= 0).sum()),
+                    "kept": int((got.ff_idx >= 0).sum()),
+                    "clashes": _clashes(got.ff_idx[0], n), "out": got,
+                    "args": args}
+    ang = p1.angle[torch.clamp(proj_idx[0], 0, n - 1).long()]
+    fargs = (last.feats.points.angle, ang, proj_idx[0] >= 0)
+    keep = twice_same(lambda *a: (mt.rotation_histogram_filter(*a),),
+                      *fargs)[0]
+    held("rotation_histogram_filter", [keep],
+         [mt.rotation_histogram_filter_plain(*fargs)])
+    _check(all(0 < v["kept"] <= v["input"] and v["clashes"] == 0
+               for v in fm.values())
+           and torch.equal(fm["projection"]["out"].ff_idx[0] >= 0,
+                           keep),
+           f"frame_match_select: the cases do not exercise it: {fm}")
+    args = fm["projection"]["args"]
+    got = fm["projection"]["out"]
+    ff = got.ff_idx[0]
+    out.append({
+        "name": "frame_match_select", "route": "cuda", "library_ms": None,
+        # per source: the count, the gather, mod and bin (~20), the
+        # histogram test and the obs1 gathers (~10). Bytes: proj_idx (the
+        # projection matches suffice, so bf_idx is not read), the source
+        # angles, the table and the outputs, and of the targets only the
+        # rows gathered: the angles of the matched ones, the uv and level
+        # of the kept ones (row 0 for the rest), their u_right
+        **_bound(_nbytes(args[0], args[2], table, got)
+                 + 4 * _distinct(args[0]) + 4 * _distinct(ff)
+                 + 12 * _distinct(torch.clamp(ff, 0, n - 1)), n * 30.0),
+        "source": src,
+        "replaces": "planarslam_tpu/slam/device_tracker.py:314",
+        "max_abs_err": 0.0, "tolerance": "every output bit-equal",
+        "cases": {k: {f: v[f] for f in ("input", "kept", "clashes")}
+                  for k, v in fm.items()},
+        "ms": _time_ms(lambda: mt.frame_match_select(*args)),
+        "plain_ms": _time_ms(lambda: mt.frame_match_select_plain(
+            *[a[0] for a in args[:-1]], table)),
+        "filter_ms": _time_ms(lambda: mt.rotation_histogram_filter(*fargs))})
+
+    # K27 on the window search and K26's matches, and on frame 1's line
+    # search in the 256 window lines
+    win_idx = mt.match_select(*bat, **kw)[0]
+    ff_idx = fm["projection"]["out"].ff_idx
+    c = probs["window"]
+    pargs = (win_idx, ff_idx, last.pt3d_w[None], c["pts_w"][None],
+             p1.valid[None], p1.u_right[None], p1.level[None], table)
+    got = twice_same(mt.assemble_point_obs, *pargs)
+    want = mt.assemble_point_obs_plain(*[a[0] for a in pargs[:-1]], table)
+    held("assemble_point_obs", [g[0] for g in got], want)
+    lw = probs["lines"]
+    lm_idx, _ = ln.search_lines_by_projection(
+        *lw, T_cw, f1.lines.uv_s, f1.lines.uv_e, f1.lines.angle,
+        f1.lines.desc, f1.lines.valid, K=kw0["K"],
+        image_wh=kw0["image_wh"], radius=14.0)
+    largs = (lm_idx[None], lw[0][None].contiguous(),
+             lw[1][None].contiguous(), f1.lines.valid[None])
+    lgot = twice_same(mt.assemble_line_obs, *largs)
+    held("assemble_line_obs", [g[0] for g in lgot],
+         mt.assemble_line_obs_plain(*[a[0] for a in largs]))
+    temporal = torch.zeros(n, dtype=torch.bool, device=dev)
+    temporal[ff_idx[0][ff_idx[0] >= 0].long()] = True
+    temporal &= got.feat_slot[0] < 0
+    asm = {"window_slots": int((got.feat_slot >= 0).sum()),
+           "temporal": int(((got.feat_slot < 0) & got.valid).sum()),
+           "temporal_rows": int(temporal.sum()),
+           "line_slots": int((lgot.ln_slot >= 0).sum()),
+           "window_clashes": _clashes(win_idx[0], n),
+           "temporal_clashes": fm["projection"]["clashes"],
+           "line_clashes": _clashes(lm_idx, cfg.lines.max_lines)}
+    _check(asm["window_slots"] > 50 and asm["temporal"] > 0
+           and asm["line_slots"] > 5,
+           f"assemble_observations: the cases do not exercise it: {asm}")
+    print(f"matching_kernel_parity clashes (expected 0): {json.dumps(asm)}",
+          flush=True)
+    out.append({
+        "name": "assemble_observations", "route": "cuda",
+        "library_ms": None,
+        # per window row and source: one shared-memory maximum; per target
+        # the selections and gathers (~10). Bytes: win_idx, ff_idx, the
+        # per-feature inputs, the table and the outputs, and 12 per point
+        # gathered: the matched window rows and the temporal landmarks of
+        # the features without one
+        **_bound(_nbytes(pargs[:2], pargs[4:], got)
+                 + 12 * (asm["window_slots"] + asm["temporal_rows"]),
+                 2.0 * MATCH_WINDOW + 10.0 * n),
+        "source": src,
+        "replaces": "planarslam_tpu/slam/device_tracker.py:406",
+        "max_abs_err": 0.0, "tolerance": "every output bit-equal",
+        "cases": asm,
+        "ms": _time_ms(lambda: mt.assemble_point_obs(*pargs)),
+        "plain_ms": _time_ms(lambda: mt.assemble_point_obs_plain(
+            *[a[0] for a in pargs[:-1]], table)),
+        "lines_ms": _time_ms(lambda: mt.assemble_line_obs(*largs)),
+        "lines_plain_ms": _time_ms(lambda: mt.assemble_line_obs_plain(
+            *[a[0] for a in largs]))})
+    _print_kernels(out)
+    return out
+
+
 def _planted_se3(rng, scale: float = 0.3) -> np.ndarray:
     """A random rigid transform (numpy)."""
     w = rng.normal(0, scale, 3)
@@ -1846,73 +2215,90 @@ def _clone(obj):
 PLAIN_LINE_FUNCTIONS = ("detect_lines_plain", "line_descriptors_plain",
                         "lift_lines_3d_plain", "extract_line_features_plain",
                         "search_lines_by_projection_plain")
+PLAIN_MATCHING_FUNCTIONS = ("gated_hamming_top2_plain",
+                            "project_landmarks_plain", "match_select_plain",
+                            "rotation_histogram_filter_plain",
+                            "frame_match_select_plain",
+                            "assemble_point_obs_plain",
+                            "assemble_line_obs_plain")
+# the calls _pose_calls counts: (module, attribute, count key)
+COUNTED_CALLS = (
+    ("pose_opt", "pose_optimize", "calls"),
+    ("planes", "extract_planes", "plane_calls"),
+    ("manhattan", "track_manhattan_frame", "manhattan_calls"),
+    ("frame", "extract_point_features", "point_calls"),
+    ("lines", "extract_line_features", "line_calls"),
+    ("lines", "search_lines_by_projection", "search_calls"),
+    ("device_tracker", "search_lines_by_projection", "search_calls"),
+    ("matching", "search_by_projection", "projection_search_calls"),
+    ("matching", "match_descriptors", "descriptor_match_calls"),
+    ("matching", "rotation_histogram_filter", "rotation_filter_calls"),
+    ("device_tracker", "_track_core", "track_core_calls"))
 
 
 @contextlib.contextmanager
 def _pose_calls(capture=()):
-    """Count the pose_opt.pose_optimize, planes.extract_planes,
-    manhattan.track_manhattan_frame, extract_point_features,
-    lines.extract_line_features and lines.search_lines_by_projection calls
-    made inside the block, each where its caller looks it up
-    (slam/frame.py imports extract_point_features and
-    slam/device_tracker.py search_lines_by_projection by name; the others
-    are reached through their modules, local_mapping.py and tracking.py
-    import the search from ops/lines.py at the call), count the calls of a
-    plain line function with a tensor on the card, and keep the inputs of
-    the pose_optimize calls numbered in `capture` (from 1)."""
+    """Count the calls of COUNTED_CALLS made inside the block, each where
+    its caller looks it up (slam/frame.py imports extract_point_features
+    and slam/device_tracker.py search_lines_by_projection by name; the
+    others are reached through their modules, local_mapping.py and
+    tracking.py import the line search from ops/lines.py at the call,
+    fused_track_step calls device_tracker._track_core, the tracking step
+    of one frame, whose matching launches are counted apart), count the
+    calls of a plain line or matching function with a tensor on the card,
+    and keep the inputs of the pose_optimize calls numbered in `capture`
+    (from 1)."""
     import torch
 
-    from planarslam_tpu_torch.ops import lines, manhattan, planes
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.ops import lines, manhattan, matching, planes
     from planarslam_tpu_torch.slam import device_tracker, frame
     from planarslam_tpu_torch.solvers import pose_opt
 
-    rec = {"calls": 0, "inputs": [], "plane_calls": 0, "manhattan_calls": 0,
-           "point_calls": 0, "line_calls": 0, "search_calls": 0,
-           "plain_line_calls_on_card": 0}
-    orig = (pose_opt.pose_optimize, planes.extract_planes,
-            manhattan.track_manhattan_frame, frame.extract_point_features,
-            lines.extract_line_features, lines.search_lines_by_projection,
-            device_tracker.search_lines_by_projection)
-    plain = {name: getattr(lines, name) for name in PLAIN_LINE_FUNCTIONS}
+    modules = {"pose_opt": pose_opt, "planes": planes,
+               "manhattan": manhattan, "frame": frame, "lines": lines,
+               "device_tracker": device_tracker, "matching": matching}
+    rec = {key: 0 for _, _, key in COUNTED_CALLS}
+    rec.update(inputs=[], plain_calls_on_card=0,
+               step_launches=dict.fromkeys(MATCH_PER_STEP, 0))
+    orig = [(modules[mod], attr, getattr(modules[mod], attr))
+            for mod, attr, _ in COUNTED_CALLS]
+    plain = [(mod, name, getattr(mod, name))
+             for mod, names in ((lines, PLAIN_LINE_FUNCTIONS),
+                                (matching, PLAIN_MATCHING_FUNCTIONS))
+             for name in names]
 
-    def counting(i, key):
+    def counting(fn, key):
         def counted(*args, **kw):
             rec[key] += 1
-            return orig[i](*args, **kw)
+            if key == "calls" and rec["calls"] in capture:
+                rec["inputs"].append(_clone((args, kw)))
+            if key != "track_core_calls":
+                return fn(*args, **kw)
+            before = dict(kernels.LAUNCHES)
+            out = fn(*args, **kw)
+            for k in MATCH_PER_STEP:
+                rec["step_launches"][k] += kernels.LAUNCHES[k] - before[k]
+            return out
         return counted
-
-    def counted(*args, **kw):
-        rec["calls"] += 1
-        if rec["calls"] in capture:
-            rec["inputs"].append(_clone((args, kw)))
-        return orig[0](*args, **kw)
 
     def guarded(fn):
         def plain_call(*args, **kw):
             if any(isinstance(a, torch.Tensor) and a.is_cuda
                    for a in list(args) + list(kw.values())):
-                rec["plain_line_calls_on_card"] += 1
+                rec["plain_calls_on_card"] += 1
             return fn(*args, **kw)
         return plain_call
 
-    pose_opt.pose_optimize = counted
-    planes.extract_planes = counting(1, "plane_calls")
-    manhattan.track_manhattan_frame = counting(2, "manhattan_calls")
-    frame.extract_point_features = counting(3, "point_calls")
-    lines.extract_line_features = counting(4, "line_calls")
-    lines.search_lines_by_projection = counting(5, "search_calls")
-    device_tracker.search_lines_by_projection = counting(6, "search_calls")
-    for name, fn in plain.items():
-        setattr(lines, name, guarded(fn))
+    for (mod, attr, fn), (_, _, key) in zip(orig, COUNTED_CALLS):
+        setattr(mod, attr, counting(fn, key))
+    for mod, name, fn in plain:
+        setattr(mod, name, guarded(fn))
     try:
         yield rec
     finally:
-        (pose_opt.pose_optimize, planes.extract_planes,
-         manhattan.track_manhattan_frame, frame.extract_point_features,
-         lines.extract_line_features, lines.search_lines_by_projection,
-         device_tracker.search_lines_by_projection) = orig
-        for name, fn in plain.items():
-            setattr(lines, name, fn)
+        for mod, attr, fn in orig + plain:
+            setattr(mod, attr, fn)
 
 
 def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
@@ -1924,14 +2310,26 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
     per extract_point_features and per extract_line_features call; per
     extract_line_features call the DETECT_LAUNCHES of K20's one call, one
     K21 and one K22; SEARCH_LAUNCHES of K23 per search_lines_by_projection
-    call; no plain line function called with a tensor on the card; with
+    call; one K24 per search_by_projection call; one K3 per
+    search_by_projection call and two per match_descriptors call (rows and
+    the transposed problem: every caller checks mutual matches); one K25
+    per search_by_projection and per match_descriptors call; one K26 per
+    tracking step and per rotation_histogram_filter call; two K27 per
+    tracking step (its line observations, which the first pose solve
+    takes, then its point observations after the window search), and
+    inside each tracking step MATCH_PER_STEP; no plain line or matching
+    function called with a tensor on the card; with
     `frames`, one extract_planes, extract_point_features and
-    extract_line_features call per frame."""
+    extract_line_features call per frame, and a tracking step on all
+    frames but the first."""
     from planarslam_tpu_torch.ops import lines
 
     rounds = 1 + (cfg.planes.refine_rounds if cfg is not None else 0)
     resizes = cfg.orb.n_levels - 1 if cfg is not None else 0
     points, lns = rec["point_calls"], rec["line_calls"]
+    searches = rec["projection_search_calls"]
+    matches = rec["descriptor_match_calls"]
+    steps = rec["track_core_calls"]
     want = {"pose_optimize": rec["calls"],
             "plane_block_moments": rec["plane_calls"],
             "plane_components": rec["plane_calls"],
@@ -1944,27 +2342,35 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
             "detect_lines": lines.DETECT_LAUNCHES * lns,
             "line_descriptors": lns, "lift_lines_3d": lns,
             "search_lines_by_projection":
-                lines.SEARCH_LAUNCHES * rec["search_calls"]}
+                lines.SEARCH_LAUNCHES * rec["search_calls"],
+            "project_landmarks": searches,
+            "gated_hamming_top2": searches + 2 * matches,
+            "match_select": searches + matches,
+            "frame_match_select": steps + rec["rotation_filter_calls"],
+            "assemble_observations": 2 * steps}
     for kernel, n in want.items():
         _check(launches[kernel] == n, f"{name}: {launches[kernel]} {kernel} "
                f"launches, expected {n} ({_call_counts(rec)})")
-    _check(rec["plain_line_calls_on_card"] == 0,
-           f"{name}: {rec['plain_line_calls_on_card']} plain line-stage "
+    per_step = {k: n * steps for k, n in MATCH_PER_STEP.items()}
+    _check(rec["step_launches"] == per_step,
+           f"{name}: {rec['step_launches']} matching launches in {steps} "
+           f"tracking steps, expected {per_step}")
+    _check(rec["plain_calls_on_card"] == 0,
+           f"{name}: {rec['plain_calls_on_card']} plain line or matching "
            f"calls with tensors on the card")
     if frames is not None:
         _check(rec["plane_calls"] == frames and rec["manhattan_calls"] > 0
                and points == frames and lns == frames
-               and rec["search_calls"] >= frames - 1,
+               and rec["search_calls"] >= frames - 1
+               and steps >= frames - 1,
                f"{name}: {_call_counts(rec)} for {frames} frames")
 
 
 def _call_counts(rec: dict) -> dict:
-    return {"pose_optimize_calls": rec["calls"],
-            "extract_planes_calls": rec["plane_calls"],
-            "track_manhattan_frame_calls": rec["manhattan_calls"],
-            "extract_point_features_calls": rec["point_calls"],
-            "extract_line_features_calls": rec["line_calls"],
-            "search_lines_by_projection_calls": rec["search_calls"]}
+    out = {f"{attr.lstrip('_')}_calls": rec[key]
+           for _, attr, key in COUNTED_CALLS}
+    out["matching_launches_in_tracking_steps"] = rec["step_launches"]
+    return out
 
 
 def _rel_err(got, want) -> float:
@@ -2449,10 +2855,10 @@ def run_ba_scale_path(dev) -> dict:
     res["launches"] = dict(kernels.LAUNCHES)
     print("path4c_ba_scale " + json.dumps(res), flush=True)
     _check_pose_launches("path4c (BA alone)", res["launches"],
-                         {"calls": 0, "plane_calls": 0,
-                          "manhattan_calls": 0, "point_calls": 0,
-                          "line_calls": 0, "search_calls": 0,
-                          "plain_line_calls_on_card": 0})
+                         dict({key: 0 for _, _, key in COUNTED_CALLS},
+                              plain_calls_on_card=0,
+                              step_launches=dict.fromkeys(MATCH_PER_STEP,
+                                                          0)))
     return res
 
 
@@ -2781,7 +3187,8 @@ def main(argv=None) -> int:
               + plane_kernel_parity(seq, cfg, dev)
               + manhattan_kernel_parity(seq, cfg, dev)
               + frontend_kernel_parity(seq, cfg, dev)
-              + line_kernel_parity(seq, cfg, dev))
+              + line_kernel_parity(seq, cfg, dev)
+              + matching_kernel_parity(seq, cfg, dev))
     frames = [quantize_frame(*seq.render(i), cfg.camera.depth_map_factor)
               for i in range(n)]
     # the two calls (obs1, obs2) of path 1's 21st fused frame

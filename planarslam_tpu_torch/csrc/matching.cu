@@ -1,0 +1,433 @@
+// The matching stage around K3: K24 project_landmarks, K25 match_select,
+// K26 frame_match_select and K27 assemble_observations, `batch` problems
+// per launch (B = 1 on the streaming path).
+//
+// K24 replaces the gates of planarslam_tpu/ops/matching.py::
+// search_by_projection before the Hamming matrix (:142-179; the port's plain
+// version is ops/matching.py::project_landmarks_plain). One thread per
+// landmark: the transform by T_cw (device memory), se3.project, the
+// in-front and in-image gates, the camera centre -R^T t and the distance,
+// the optional distance-range gate and predicted level
+// ceil(log(max(dmax / dist, 1)) / log(scale_factor)), the optional
+// viewing-cosine gate, the radius radius * scale_factor^level and the
+// pseudo-stereo prediction u - bf / max(z, 1e-6), written as the ProjGate
+// fields K3 reads. The plain version spells the 3 x 3 product and the norm
+// as products and sums in a fixed order, and the kernel (built with
+// -fmad=false) repeats PyTorch's form of every operation on the card: a
+// scalar over a tensor is the reciprocal times the scalar, log, pow and
+// sqrt are the correctly rounded libdevice functions PyTorch's kernels
+// call, so every output equals the plain version's bit for bit.
+// Bound: latency (about 33 bytes in and 21 out per landmark).
+//
+// K25 replaces the tails of ::search_by_projection (:184-189) with
+// ::_resolve_duplicates (:50-64), and of ::match_descriptors (:102-109).
+// One 1024-thread block per problem walks its M rows: best <= max_dist,
+// the optional ratio test float(best) < float32(ratio) * float(second),
+// the optional mutual check back[best_idx] == row, then the optional
+// duplicate resolution: per target the least distance, then the first
+// source, by integer atomicMin in shared memory (order-free, so two
+// launches give the same bits), with invalid rows parked in slot N as the
+// plain version parks them. Bound: latency (~16 bytes per row).
+//
+// K26 replaces the frame-to-frame selection of planarslam_tpu/slam/
+// device_tracker.py (:314-338) with ::rotation_histogram_filter (:67-87).
+// One 1024-thread block per problem: the count of projection matches
+// decides the brute-force fallback on the device (count < kMinProj), the
+// target angle is gathered, the angle difference is jnp.mod'ed into
+// [0, 2 pi) (fmod, then shifted), binned as the card computes
+// rot * 30 / two_pi (a product with the float32 reciprocal), the 30 bins
+// are counted with integer atomics, the three largest taken with ties to
+// the lower bin, the second and third kept at >= 10% of the first; then
+// the first stage's PointObs fields are gathered (uv, u_right or -1,
+// 1/sigma^2 from the per-level table, valid). In filter mode it takes the
+// matched target angles and a validity mask and writes only the kept mask.
+// Bound: latency (~40 bytes per source).
+//
+// K27 replaces the observation assembly of planarslam_tpu/slam/
+// device_tracker.py (:352-362, the lines; :406-428, the points). One
+// 1024-thread block per problem: the window-to-target slot inversion by
+// integer atomicMax in shared memory (.at[].max), in point mode also the
+// temporal landmarks scattered by ff_idx (.at[].set; a clash, which the
+// duplicate resolution and the mutual check rule out, keeps the largest
+// source id, so the bits never depend on order), then per target the
+// gathers: the window row or the temporal landmark, u_right or -1, the
+// level's 1/sigma^2 and the validity (points); both window endpoints, 1 and
+// the validity (lines). Bound: latency (~50 bytes per target).
+#include "common.cuh"
+
+namespace {
+
+constexpr int kProjThreads = 256;
+constexpr int kBlockThreads = 1024;
+constexpr int kInfDist = 10000;
+constexpr int kHisto = 30;    // rotation histogram bins (HISTO_LENGTH)
+constexpr int kMinProj = 20;  // fewer projection matches: the brute-force
+                              // fallback (MIN_PROJ_MATCHES)
+
+struct ProjConsts {
+  float fx, fy, cx, cy, width, height, bf, scale_factor, radius;
+};
+
+// torch.clamp(x, min=lo): NaN stays NaN
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return x < lo ? lo : x;
+}
+
+// ((a0 * x + a1 * y) + a2 * z), each product and sum rounded
+__device__ __forceinline__ float dot3(float a0, float a1, float a2, float x,
+                                      float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a0, x), __fmul_rn(a1, y)),
+                   __fmul_rn(a2, z));
+}
+
+__global__ void project_landmarks_kernel(
+    const float* __restrict__ pts, const unsigned char* __restrict__ valid,
+    const float* __restrict__ T_cw, const float* __restrict__ normals,
+    const float* __restrict__ dmin, const float* __restrict__ dmax, int m,
+    ProjConsts c, float* __restrict__ a_uv, float* __restrict__ a_r,
+    int* __restrict__ a_level, float* __restrict__ a_ur_pred,
+    unsigned char* __restrict__ gate) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const long long row = static_cast<long long>(blockIdx.y) * m + i;
+  const float* T = T_cw + 16 * blockIdx.y;
+  const float x = pts[3 * row], y = pts[3 * row + 1], z = pts[3 * row + 2];
+  float pc[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    pc[r] = __fadd_rn(dot3(T[4 * r], T[4 * r + 1], T[4 * r + 2], x, y, z),
+                      T[4 * r + 3]);
+  }
+  // se3.project: 1.0 / where(|z| < 1e-8, 1e-8, z) is a reciprocal
+  const float zs = fabsf(pc[2]) < 1e-8f ? 1e-8f : pc[2];
+  const float inv_z = __fdiv_rn(1.0f, zs);
+  const float u = __fadd_rn(__fmul_rn(__fmul_rn(c.fx, pc[0]), inv_z), c.cx);
+  const float v = __fadd_rn(__fmul_rn(__fmul_rn(c.fy, pc[1]), inv_z), c.cy);
+  bool g = (valid[row] != 0) && (pc[2] > 0.05f) && (u >= 0.0f) &&
+           (u < c.width) && (v >= 0.0f) && (v < c.height);
+
+  // camera centre -R^T t, the vector to the landmark and its length
+  const float tx = T[3], ty = T[7], tz = T[11];
+  const float vx = __fsub_rn(x, -dot3(T[0], T[4], T[8], tx, ty, tz));
+  const float vy = __fsub_rn(y, -dot3(T[1], T[5], T[9], tx, ty, tz));
+  const float vz = __fsub_rn(z, -dot3(T[2], T[6], T[10], tx, ty, tz));
+  const float dist =
+      clamp_min(__fsqrt_rn(dot3(vx, vy, vz, vx, vy, vz)), 1e-6f);
+  int level = 0;
+  if (dmax != nullptr) {
+    const float lo = dmin[row], hi = dmax[row];
+    g = g && (dist >= __fmul_rn(0.8f, lo)) && (dist <= __fmul_rn(1.2f, hi));
+    const float ratio = clamp_min(__fdiv_rn(hi, dist), 1.0f);
+    level = static_cast<int>(
+        ceilf(__fdiv_rn(logf(ratio), logf(c.scale_factor))));
+  }
+  if (normals != nullptr) {
+    const float cosv =
+        __fdiv_rn(dot3(vx, vy, vz, normals[3 * row], normals[3 * row + 1],
+                       normals[3 * row + 2]),
+                  dist);
+    g = g && (cosv > 0.5f);
+  }
+  const float inv_zc = __fdiv_rn(1.0f, clamp_min(pc[2], 1e-6f));
+  a_uv[2 * row] = u;
+  a_uv[2 * row + 1] = v;
+  a_r[row] = __fmul_rn(c.radius,
+                       powf(c.scale_factor, static_cast<float>(level)));
+  a_level[row] = level;
+  a_ur_pred[row] = __fsub_rn(u, __fmul_rn(inv_zc, c.bf));
+  gate[row] = g ? 1 : 0;
+}
+
+__global__ void match_select_kernel(
+    const int* __restrict__ best, const int* __restrict__ second,
+    const int* __restrict__ best_idx, const int* __restrict__ back, int m,
+    int n, int max_dist, int use_ratio, float ratio, int resolve,
+    int* __restrict__ idx_out, int* __restrict__ dist_out) {
+  extern __shared__ int slots[];  // resolve: best_t[n + 1], first_t[n + 1]
+  int* best_t = slots;
+  int* first_t = slots + n + 1;
+  const long long base = static_cast<long long>(blockIdx.x) * m;
+  const int* back_b =
+      back != nullptr ? back + static_cast<long long>(blockIdx.x) * n
+                      : nullptr;
+  // each thread owns rows tid, tid + 1024, ...: what it writes it reads
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const int b = best[base + i];
+    const int bi = best_idx[base + i];
+    bool ok = b <= max_dist;
+    if (use_ratio) {
+      ok = ok && (static_cast<float>(b) <
+                  __fmul_rn(ratio, static_cast<float>(second[base + i])));
+    }
+    if (back_b != nullptr) {
+      ok = ok && bi >= 0 && bi < n && back_b[bi] == i;
+    }
+    idx_out[base + i] = ok ? bi : -1;
+    dist_out[base + i] = ok ? b : kInfDist;
+  }
+  if (!resolve) return;
+  for (int j = threadIdx.x; j <= n; j += blockDim.x) {
+    best_t[j] = kInfDist;
+    first_t[j] = m;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const int idx = idx_out[base + i];
+    atomicMin(&best_t[idx >= 0 ? idx : n], dist_out[base + i]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const int idx = idx_out[base + i];
+    const int tgt = idx >= 0 ? idx : n;
+    const bool keep = idx >= 0 && dist_out[base + i] <= best_t[tgt];
+    atomicMin(&first_t[tgt], keep ? i : m);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const int idx = idx_out[base + i];
+    const int tgt = idx >= 0 ? idx : n;
+    const int d = dist_out[base + i];
+    const bool keep = idx >= 0 && d <= best_t[tgt] && first_t[tgt] == i;
+    idx_out[base + i] = keep ? idx : -1;
+    dist_out[base + i] = keep ? d : kInfDist;
+  }
+}
+
+// mod(a_src - a_tgt, two_pi), then the bin the card computes for
+// clamp(int(rot * kHisto / two_pi), 0, kHisto - 1)
+__device__ __forceinline__ int rotation_bin(float a_src, float a_tgt,
+                                            float two_pi, float inv_two_pi) {
+  float rot = fmodf(__fsub_rn(a_src, a_tgt), two_pi);
+  if (rot != 0.0f && rot < 0.0f) rot = __fadd_rn(rot, two_pi);
+  const float scaled =
+      __fmul_rn(__fmul_rn(rot, static_cast<float>(kHisto)), inv_two_pi);
+  return psl_clamp(static_cast<int>(scaled), 0, kHisto - 1);
+}
+
+__global__ void frame_matches_kernel(
+    const int* __restrict__ proj_idx, const int* __restrict__ bf_idx,
+    const unsigned char* __restrict__ valid_in,
+    const float* __restrict__ angle_src, const float* __restrict__ angle_tgt,
+    int m, int n, const float* __restrict__ uv_tgt,
+    const float* __restrict__ ur_tgt, const int* __restrict__ level_tgt,
+    const float* __restrict__ inv_s2_table, int n_levels, float two_pi,
+    float inv_two_pi, int* __restrict__ ff_out,
+    float* __restrict__ obs_uv, float* __restrict__ obs_ur,
+    float* __restrict__ obs_inv_s2, unsigned char* __restrict__ obs_valid,
+    unsigned char* __restrict__ keep_out) {
+  __shared__ int counts[kHisto];
+  __shared__ unsigned char keep_bin[kHisto];
+  const long long bm = static_cast<long long>(blockIdx.x) * m;
+  const long long bn = static_cast<long long>(blockIdx.x) * n;
+  const bool filter = valid_in != nullptr;
+  for (int k = threadIdx.x; k < kHisto; k += blockDim.x) {
+    counts[k] = 0;
+    keep_bin[k] = 0;
+  }
+  // use_bf = count(proj_idx >= 0) < kMinProj, the same in every thread
+  bool use_bf = false;
+  if (!filter && bf_idx != nullptr) {
+    int n_proj = 0;
+    for (int i0 = 0; i0 < m; i0 += blockDim.x) {
+      const int i = i0 + threadIdx.x;
+      n_proj += __syncthreads_count(i < m && proj_idx[bm + i] >= 0);
+    }
+    use_bf = n_proj < kMinProj;
+  }
+  __syncthreads();
+  const int* ff_in = use_bf ? bf_idx : proj_idx;
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    bool ok;
+    float a_tgt;
+    if (filter) {
+      ok = valid_in[bm + i] != 0;
+      a_tgt = angle_tgt[bm + i];
+    } else {
+      const int ff = ff_in[bm + i];
+      ok = ff >= 0;
+      a_tgt = angle_tgt[bn + psl_clamp(ff, 0, n - 1)];
+    }
+    if (ok) {
+      atomicAdd(&counts[rotation_bin(angle_src[bm + i], a_tgt, two_pi,
+                                     inv_two_pi)],
+                1);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // top 3 of the counts, ties to the lower bin (lax.top_k)
+    int top[3] = {-1, -1, -1};
+    for (int r = 0; r < 3; ++r) {
+      for (int k = 0; k < kHisto; ++k) {
+        if (k == top[0] || k == top[1]) continue;
+        if (top[r] < 0 || counts[k] > counts[top[r]]) top[r] = k;
+      }
+    }
+    const float tenth = __fmul_rn(0.1f, static_cast<float>(counts[top[0]]));
+    keep_bin[top[0]] = 1;
+    keep_bin[top[1]] = static_cast<float>(counts[top[1]]) >= tenth;
+    keep_bin[top[2]] = static_cast<float>(counts[top[2]]) >= tenth;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    if (filter) {
+      const bool ok = valid_in[bm + i] != 0;
+      keep_out[bm + i] =
+          ok && keep_bin[rotation_bin(angle_src[bm + i], angle_tgt[bm + i],
+                                      two_pi, inv_two_pi)];
+      continue;
+    }
+    int ff = ff_in[bm + i];
+    if (ff >= 0) {
+      const float a_tgt = angle_tgt[bn + psl_clamp(ff, 0, n - 1)];
+      if (!keep_bin[rotation_bin(angle_src[bm + i], a_tgt, two_pi,
+                                 inv_two_pi)]) {
+        ff = -1;
+      }
+    }
+    // the gathers follow the filtered match: index 0 where it was dropped
+    const int fi = psl_clamp(ff, 0, n - 1);
+    const bool matched = ff >= 0;
+    ff_out[bm + i] = ff;
+    obs_uv[2 * (bm + i)] = uv_tgt[2 * (bn + fi)];
+    obs_uv[2 * (bm + i) + 1] = uv_tgt[2 * (bn + fi) + 1];
+    obs_ur[bm + i] = matched ? ur_tgt[bn + fi] : -1.0f;
+    obs_inv_s2[bm + i] =
+        inv_s2_table[psl_clamp(level_tgt[bn + fi], 0, n_levels - 1)];
+    obs_valid[bm + i] = matched ? 1 : 0;
+  }
+}
+
+__global__ void assemble_observations_kernel(
+    const int* __restrict__ win_idx, int n_win, const float* __restrict__ win_a,
+    const float* __restrict__ win_b, const int* __restrict__ ff_idx,
+    int m_src, const float* __restrict__ src_xw,
+    const unsigned char* __restrict__ tgt_valid,
+    const float* __restrict__ tgt_ur, const int* __restrict__ tgt_level,
+    const float* __restrict__ inv_s2_table, int n_levels, int n,
+    int* __restrict__ slot_out, float* __restrict__ out_a,
+    float* __restrict__ out_b, float* __restrict__ out_ur,
+    float* __restrict__ out_inv_s2, unsigned char* __restrict__ out_valid) {
+  extern __shared__ int slots[];  // slot[n], temporal source[n]
+  int* slot = slots;
+  int* src = slots + n;
+  const int b = blockIdx.x;
+  const long long bw = static_cast<long long>(b) * n_win;
+  const long long bs = static_cast<long long>(b) * m_src;
+  const long long bn = static_cast<long long>(b) * n;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    slot[j] = -1;
+    src[j] = -1;
+  }
+  __syncthreads();
+  for (int w = threadIdx.x; w < n_win; w += blockDim.x) {
+    const int t = win_idx[bw + w];
+    if (t >= 0) atomicMax(&slot[psl_clamp(t, 0, n - 1)], w);
+  }
+  if (ff_idx != nullptr) {
+    for (int i = threadIdx.x; i < m_src; i += blockDim.x) {
+      const int t = ff_idx[bs + i];
+      if (t >= 0 && t < n) atomicMax(&src[t], i);
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const int s = slot[j];
+    const bool has_slot = s >= 0;
+    const long long ws = bw + psl_clamp(s, 0, n_win - 1);
+    const bool tv = tgt_valid[bn + j] != 0;
+    slot_out[bn + j] = s;
+    if (ff_idx != nullptr) {  // points
+      const int f = src[j];
+      const bool valid = (has_slot || f >= 0) && tv;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        out_a[3 * (bn + j) + q] = has_slot ? win_a[3 * ws + q]
+                                  : f >= 0 ? src_xw[3 * (bs + f) + q]
+                                           : 0.0f;
+      }
+      out_ur[bn + j] = valid ? tgt_ur[bn + j] : -1.0f;
+      out_inv_s2[bn + j] =
+          inv_s2_table[psl_clamp(tgt_level[bn + j], 0, n_levels - 1)];
+      out_valid[bn + j] = valid ? 1 : 0;
+    } else {  // lines
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        out_a[3 * (bn + j) + q] = win_a[3 * ws + q];
+        out_b[3 * (bn + j) + q] = win_b[3 * ws + q];
+      }
+      out_inv_s2[bn + j] = 1.0f;
+      out_valid[bn + j] = (has_slot && tv) ? 1 : 0;
+    }
+  }
+}
+
+}  // namespace
+
+PSL_API int psl_project_landmarks(
+    const float* pts, const unsigned char* valid, const float* T_cw,
+    const float* normals, const float* dmin, const float* dmax, int m,
+    int batch, float fx, float fy, float cx, float cy, float width,
+    float height, float bf, float scale_factor, float radius, float* a_uv,
+    float* a_r, int* a_level, float* a_ur_pred, unsigned char* gate,
+    cudaStream_t stream) {
+  if (m > 0 && batch > 0) {
+    const ProjConsts c{fx, fy, cx, cy, width, height, bf, scale_factor,
+                       radius};
+    const dim3 grid((m + kProjThreads - 1) / kProjThreads, batch);
+    project_landmarks_kernel<<<grid, kProjThreads, 0, stream>>>(
+        pts, valid, T_cw, normals, dmin, dmax, m, c, a_uv, a_r, a_level,
+        a_ur_pred, gate);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+PSL_API int psl_match_select(const int* best, const int* second,
+                             const int* best_idx, const int* back, int m,
+                             int n, int batch, int max_dist, int use_ratio,
+                             float ratio, int resolve, int* idx_out,
+                             int* dist_out, cudaStream_t stream) {
+  if (m > 0 && batch > 0) {
+    const size_t smem =
+        resolve ? 2 * (static_cast<size_t>(n) + 1) * sizeof(int) : 0;
+    match_select_kernel<<<batch, kBlockThreads, smem, stream>>>(
+        best, second, best_idx, back, m, n, max_dist, use_ratio, ratio,
+        resolve, idx_out, dist_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+PSL_API int psl_frame_match_select(
+    const int* proj_idx, const int* bf_idx, const unsigned char* valid_in,
+    const float* angle_src, const float* angle_tgt, int m, int n, int batch,
+    const float* uv_tgt, const float* ur_tgt, const int* level_tgt,
+    const float* inv_s2_table, int n_levels, float two_pi, int* ff_out,
+    float* obs_uv, float* obs_ur, float* obs_inv_s2, unsigned char* obs_valid,
+    unsigned char* keep_out, cudaStream_t stream) {
+  if (m > 0 && batch > 0) {
+    // the reciprocal PyTorch's division by a number multiplies with
+    const float inv_two_pi = 1.0f / two_pi;
+    frame_matches_kernel<<<batch, kBlockThreads, 0, stream>>>(
+        proj_idx, bf_idx, valid_in, angle_src, angle_tgt, m, n, uv_tgt,
+        ur_tgt, level_tgt, inv_s2_table, n_levels, two_pi, inv_two_pi, ff_out,
+        obs_uv, obs_ur, obs_inv_s2, obs_valid, keep_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+PSL_API int psl_assemble_observations(
+    const int* win_idx, int n_win, const float* win_a, const float* win_b,
+    const int* ff_idx, int m_src, const float* src_xw,
+    const unsigned char* tgt_valid, const float* tgt_ur, const int* tgt_level,
+    const float* inv_s2_table, int n_levels, int n, int batch, int* slot_out,
+    float* out_a, float* out_b, float* out_ur, float* out_inv_s2,
+    unsigned char* out_valid, cudaStream_t stream) {
+  if (n > 0 && batch > 0) {
+    const size_t smem = 2 * static_cast<size_t>(n) * sizeof(int);
+    assemble_observations_kernel<<<batch, kBlockThreads, smem, stream>>>(
+        win_idx, n_win, win_a, win_b, ff_idx, m_src, src_xw, tgt_valid,
+        tgt_ur, tgt_level, inv_s2_table, n_levels, n, slot_out, out_a, out_b,
+        out_ur, out_inv_s2, out_valid);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -36,7 +36,9 @@ KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
                 "plane_label_pixels", "manhattan_mean_shift",
                 "pyramid_resize", "gaussian_blur", "select_keypoints",
                 "point_epilogue", "detect_lines", "line_descriptors",
-                "lift_lines_3d", "search_lines_by_projection")
+                "lift_lines_3d", "search_lines_by_projection",
+                "project_landmarks", "match_select", "frame_match_select",
+                "assemble_observations")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -47,7 +49,7 @@ CUDA_SOURCES = ("fast_score.cu", "orb_describe.cu", "hamming_top2.cu",
                 "ba_normal_eqs.cu", "ba_schur.cu", "pose_graph.cu",
                 "pose_opt.cu", "plane_segment.cu", "manhattan.cu",
                 "pyramid.cu", "select_keypoints.cu", "lines.cu",
-                "line_lift_search.cu")
+                "line_lift_search.cu", "matching.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # Sources whose float32 gates must round as the plain version's separate
@@ -57,7 +59,8 @@ SOURCE_FLAGS = {"plane_segment.cu": ("-fmad=false",),
                 "pyramid.cu": ("-fmad=false",),
                 "select_keypoints.cu": ("-fmad=false",),
                 "lines.cu": ("-fmad=false",),
-                "line_lift_search.cu": ("-fmad=false",)}
+                "line_lift_search.cu": ("-fmad=false",),
+                "matching.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -168,6 +171,25 @@ _SIGNATURES = {
     # min_sim, sim_floor, quality_bar, scratch, idx, sim, stream
     "psl_search_lines": [_P] * 5 + [_I] + [_P] * 5 + [_I] * 3 + [_F] * 11
                         + [_P] * 4,
+    # pts, valid, T_cw, normals, dmin, dmax (the last three or NULL), M,
+    # batch, fx, fy, cx, cy, W, H, bf, scale_factor, radius, a_uv, a_r,
+    # a_level, a_ur_pred, gate, stream
+    "psl_project_landmarks": [_P] * 6 + [_I, _I] + [_F] * 9 + [_P] * 6,
+    # best, second, best_idx, back (or NULL), M, N, batch, max_dist,
+    # use_ratio, ratio, resolve, idx, dist, stream
+    "psl_match_select": [_P] * 4 + [_I] * 5 + [_F, _I] + [_P] * 3,
+    # proj_idx, bf_idx (or NULL), valid_in (filter mode, or NULL),
+    # angle_src, angle_tgt, M, N, batch, uv_tgt, ur_tgt, level_tgt,
+    # inv_s2_table, n_levels, two_pi, ff_idx, obs_uv, obs_ur, obs_inv_s2,
+    # obs_valid, keep (the outputs of the other mode NULL), stream
+    "psl_frame_match_select": [_P] * 5 + [_I] * 3 + [_P] * 4 + [_I, _F]
+                              + [_P] * 7,
+    # win_idx, n_win, win_a, win_b (lines, or NULL), ff_idx (points, or
+    # NULL), M, src_xw, tgt_valid, tgt_ur, tgt_level, inv_s2_table,
+    # n_levels, N, batch, slot, out_a, out_b, out_ur, out_inv_s2, out_valid
+    # (what a mode does not write NULL), stream
+    "psl_assemble_observations": [_P, _I] + [_P] * 3 + [_I] + [_P] * 5
+                                 + [_I] * 3 + [_P] * 7,
 }
 # Host-side helpers: plain C functions that launch nothing.
 _HELPERS = {

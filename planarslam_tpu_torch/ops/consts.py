@@ -3,7 +3,8 @@
 A per-frame function that builds a device tensor from a host constant
 (``torch.as_tensor(table, device=...)``, ``torch.tensor(1.2, device=...)``)
 pays a pageable host-to-device copy on every call. ``const`` keeps one
-tensor per (name, device) instead; callers never write into what it returns.
+tensor per (name, device) instead, ``computed`` one that torch computes on
+the device; callers never write into what they return.
 """
 
 from __future__ import annotations
@@ -27,6 +28,19 @@ def const(name: Hashable, value: Union[np.ndarray, Callable[[], np.ndarray]],
     if t is None:
         arr = value() if callable(value) else value
         t = torch.as_tensor(np.asarray(arr), device=device)
+        _CACHE[key] = t
+    return t
+
+
+def computed(name: Hashable, fn: Callable[[torch.device], torch.Tensor],
+             device) -> torch.Tensor:
+    """The tensor ``fn(device)`` computes on ``device``, computed at the
+    first request (a table that must carry the bits of torch's own
+    operations there). ``name`` identifies the value as for ``const``."""
+    key = (name, str(device))
+    t = _CACHE.get(key)
+    if t is None:
+        t = fn(torch.device(device))
         _CACHE[key] = t
     return t
 

@@ -9,9 +9,7 @@ formula, start * (1 - t) + stop * t, in float32.
 ``jax.ops.segment_sum`` becomes an accumulating ``index_put_``: on CUDA
 it sorts the indices and sums each segment in one pass, so equal inputs
 give equal sums from run to run (``index_add_`` adds with float atomics in
-no fixed order). ``.at[i].set(..., mode="drop")`` becomes a scatter into
-one extra padding slot that out-of-range indices are sent to, sliced off
-afterwards.
+no fixed order).
 """
 
 from __future__ import annotations
@@ -65,17 +63,3 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor,
                       dtype=values.dtype, device=values.device)
     return out.index_put_((seg.to(torch.int64),), values, accumulate=True)
 
-
-def _parked(idx: torch.Tensor, n: int) -> torch.Tensor:
-    """Indices outside [0, n) go to the padding slot n."""
-    idx = idx.to(torch.int64)
-    return torch.where((idx >= 0) & (idx < n), idx, n)
-
-
-def scatter_set_drop(base: torch.Tensor, idx: torch.Tensor,
-                     src: torch.Tensor) -> torch.Tensor:
-    """base.at[idx].set(src, mode="drop") along dim 0 (unique in-range idx)."""
-    n = base.shape[0]
-    pad = torch.cat([base, torch.zeros_like(base[:1])])
-    src = src.to(base.dtype).expand((idx.shape[0],) + tuple(base.shape[1:]))
-    return pad.index_put((_parked(idx, n),), src)[:n]

@@ -37,9 +37,7 @@ from planarslam_tpu_torch.geometry import plane as plane_geo
 from planarslam_tpu_torch.geometry import se3
 from planarslam_tpu_torch.ops import manhattan as manhattan_ops
 from planarslam_tpu_torch.ops import matching
-from planarslam_tpu_torch.ops.consts import literal
 from planarslam_tpu_torch.ops.frontend import PointFeatures
-from planarslam_tpu_torch.ops.lax_compat import scatter_set_drop
 from planarslam_tpu_torch.ops.lines import (LineFeatures,
                                             search_lines_by_projection)
 from planarslam_tpu_torch.ops.planes import PlaneFeatures
@@ -283,7 +281,6 @@ def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
     cam = cfg.camera
     K = (cam.fx, cam.fy, cam.cx, cam.cy)
     wh = (float(cam.width), float(cam.height))
-    Kp = cfg.orb.max_keypoints
     layout = BundleLayout(cfg)
     with record_function("device_tracker.predict"):
         eye4 = torch.eye(4, dtype=torch.float32, device=dev)
@@ -319,44 +316,35 @@ def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
     bf_res = matching.match_descriptors(
         last.feats.points.desc, pts.desc, last.valid3d, pts.valid,
         max_dist=cfg.matcher.th_low, ratio=0.9)
-    use_bf = torch.sum(proj.idx >= 0) < 20
-    ff_idx = torch.where(use_bf, bf_res.idx, proj.idx)
-    ang_tgt = pts.angle[torch.clamp(ff_idx, 0, Kp - 1).to(torch.int64)]
-    rot_ok = matching.rotation_histogram_filter(
-        last.feats.points.angle, ang_tgt, ff_idx >= 0)
-    ff_idx = torch.where(rot_ok, ff_idx, -1)
+    inv_s2 = matching.level_inv_sigma2(cfg.orb.scale_factor,
+                                       cfg.orb.n_levels, dev)
 
     with record_function("device_tracker.point_observations"):
-        sf = literal(cfg.orb.scale_factor, torch.float32, dev)
-        inv_s2_feat = torch.pow(sf, -2.0 * pts.level.to(torch.float32))
-
-        matched_ff = ff_idx >= 0
-        fi = torch.clamp(ff_idx, 0, Kp - 1).to(torch.int64)
-        obs1 = pose_opt.PointObs(
-            xw=last.pt3d_w, uv=pts.uv[fi],
-            u_right=torch.where(matched_ff, pts.u_right[fi], -1.0),
-            inv_sigma2=inv_s2_feat[fi], valid=matched_ff)
+        # the brute-force fallback below MIN_PROJ_MATCHES projection
+        # matches, the rotation histogram and obs1's gathers (K26)
+        fm = matching.frame_match_select(
+            proj.idx[None], bf_res.idx[None], last.feats.points.angle[None],
+            pts.angle[None], pts.uv[None], pts.u_right[None],
+            pts.level[None], inv_s2)
+        ff_idx = fm.ff_idx[0]
+        obs1 = pose_opt.PointObs(xw=last.pt3d_w, uv=fm.uv[0],
+                                 u_right=fm.u_right[0],
+                                 inv_sigma2=fm.inv_sigma2[0],
+                                 valid=fm.valid[0])
 
     # ---- line + plane association at the predicted pose -------------------
-    Lf = cfg.lines.max_lines
     lm_idx, _ = search_lines_by_projection(
         win.ln_sw, win.ln_ew, win.ln_desc, win.ln_valid, T_init,
         feats.lines.uv_s, feats.lines.uv_e, feats.lines.angle,
         feats.lines.desc, feats.lines.valid, K=K, image_wh=wh, radius=14.0)
     with record_function("device_tracker.line_observations"):
-        wl_ids = torch.arange(win.ln_desc.shape[0], dtype=torch.int32,
-                              device=dev)
-        ln_slot = torch.full((Lf,), -1, dtype=torch.int32, device=dev)
-        ln_slot = ln_slot.scatter_reduce(
-            0, torch.clamp(lm_idx, 0, Lf - 1).to(torch.int64),
-            torch.where(lm_idx >= 0, wl_ids, -1), reduce="amax")
-        has_ln = ln_slot >= 0
-        lslot = torch.clamp(ln_slot, 0, win.ln_desc.shape[0] - 1).to(torch.int64)
+        la = matching.assemble_line_obs(lm_idx[None], win.ln_sw[None],
+                                        win.ln_ew[None],
+                                        feats.lines.valid[None])
+        ln_slot = la.ln_slot[0]
         line_obs = pose_opt.LineObs(
-            xw_s=win.ln_sw[lslot], xw_e=win.ln_ew[lslot],
-            line2d=feats.lines.line2d,
-            inv_sigma2=torch.ones((Lf,), dtype=torch.float32, device=dev),
-            valid=has_ln & feats.lines.valid)
+            xw_s=la.xw_s[0], xw_e=la.xw_e[0], line2d=feats.lines.line2d,
+            inv_sigma2=la.inv_sigma2[0], valid=la.valid[0])
 
     pl_direct, pl_par, pl_ver, _ = _associate_planes_device(
         feats, T_init, win, cfg)
@@ -391,26 +379,19 @@ def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
         view_normals=win.pt_normal,
         dist_range=(win.pt_min_d, win.pt_max_d), level_window=1)
     with record_function("device_tracker.map_observations"):
-        w_ids = torch.arange(WIN_PTS, dtype=torch.int32, device=dev)
-        feat_slot = torch.full((Kp,), -1, dtype=torch.int32, device=dev)
-        feat_slot = feat_slot.scatter_reduce(
-            0, torch.clamp(win_res.idx, 0, Kp - 1).to(torch.int64),
-            torch.where(win_res.idx >= 0, w_ids, -1), reduce="amax")
+        # window matches first, the frame-to-frame landmarks fill the rest
+        # (K27)
+        pa = matching.assemble_point_obs(
+            win_res.idx[None], ff_idx[None], last.pt3d_w[None],
+            win.pt_xyz[None], pts.valid[None], pts.u_right[None],
+            pts.level[None], inv_s2)
+        feat_slot = pa.feat_slot[0]
         has_slot = feat_slot >= 0
-        slot = torch.clamp(feat_slot, 0, WIN_PTS - 1).to(torch.int64)
-
-        # temporal landmarks: stage-1 matches carried per current feature
-        fi_safe = torch.where(matched_ff, ff_idx, Kp)
-        ff_xw = scatter_set_drop(torch.zeros((Kp, 3), device=dev), fi_safe,
-                                 last.pt3d_w)
-        ff_feat_valid = scatter_set_drop(
-            torch.zeros((Kp,), dtype=torch.bool, device=dev), fi_safe,
-            torch.ones((1,), dtype=torch.bool, device=dev))
-        obs2_valid = (has_slot | ff_feat_valid) & pts.valid
-        obs2 = pose_opt.PointObs(
-            xw=torch.where(has_slot[:, None], win.pt_xyz[slot], ff_xw),
-            uv=pts.uv, u_right=torch.where(obs2_valid, pts.u_right, -1.0),
-            inv_sigma2=inv_s2_feat, valid=obs2_valid)
+        obs2_valid = pa.valid[0]
+        obs2 = pose_opt.PointObs(xw=pa.xw[0], uv=pts.uv,
+                                 u_right=pa.u_right[0],
+                                 inv_sigma2=pa.inv_sigma2[0],
+                                 valid=obs2_valid)
 
     # ---- final full pose optimization ------------------------------------
     res2 = pose_opt.pose_optimize(T1, K, cam.bf, points=obs2, lines=line_obs,

@@ -1,4 +1,4 @@
-"""The hand-written Hopper kernels (K1-K23) against their plain PyTorch
+"""The hand-written Hopper kernels (K1-K27) against their plain PyTorch
 versions on the card. These need a GPU: without one every test skips.
 
     python -m pytest tests/test_torch_kernels.py -q     # on the GPU machine
@@ -584,3 +584,91 @@ def test_line_kernels_batched(dev, batch):
         assert torch.equal(idx[b], i1) and torch.equal(sim[b], s1)
     if batch > 1:
         assert not torch.equal(det.uv_s[0], det.uv_s[1])
+
+
+def test_matching_kernels(dev):
+    """K24-K27 on frames 0 -> 1 of the 640x480 room at the default
+    configuration's widths (chip_smoke.py's matching_kernel_parity states
+    the cases): every output equal to the plain version's bit for bit, two
+    launches equal bits."""
+    cfg = SystemConfig()
+    seq = synthetic.make_sequence(2, width=640, height=480)
+    n0 = dict(kernels.LAUNCHES)
+    out = _held(chip_smoke.matching_kernel_parity, seq, cfg, dev)
+    assert [k["name"] for k in out] == ["project_landmarks", "match_select",
+                                        "frame_match_select",
+                                        "assemble_observations"]
+    for k in out:
+        assert kernels.LAUNCHES[k["name"]] > n0[k["name"]]
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+def test_matching_kernels_batched(dev, batch):
+    """The leading batch count of K24-K27: `batch` window problems (the
+    frame 0 -> 1 landmarks tiled with other perturbations) through one
+    launch each give what each gives alone."""
+    cfg = SystemConfig()
+    cam = cfg.camera
+    seq = synthetic.make_sequence(2, width=640, height=480)
+    probs = [chip_smoke._matching_problems(seq, cfg, dev,
+                                           np.random.default_rng(b))
+             for b in range(batch)]
+    p1, last = probs[0]["f1"].points, probs[0]["last"]
+    n = p1.desc.shape[0]
+    kw = dict(K=(cam.fx, cam.fy, cam.cx, cam.cy),
+              image_wh=(float(cam.width), float(cam.height)), bf=cam.bf,
+              scale_factor=cfg.orb.scale_factor, radius=4.0)
+
+    def stack(f):
+        return torch.stack([f(p) for p in probs])
+
+    T = stack(lambda p: p["T_cw"])
+    args = (stack(lambda p: p["window"]["pts_w"]),
+            stack(lambda p: p["window"]["valid"]), T)
+    rng_kw = dict(view_normals=stack(lambda p: p["window"]["view_normals"]),
+                  dist_range=(stack(lambda p: p["window"]["dist_range"][0]),
+                              stack(lambda p: p["window"]["dist_range"][1])))
+    n0 = dict(kernels.LAUNCHES)
+    proj = matching.project_landmarks(*args, **kw, **rng_kw)
+    top2 = [matching.gated_hamming_top2(
+        probs[b]["window"]["descs"], p1.desc, proj.gate_pt[b], p1.valid,
+        matching.ProjGate(proj.a_uv[b], proj.a_r[b], proj.a_level[b],
+                          proj.a_ur_pred[b], p1.uv, p1.level, p1.u_right, 1))
+        for b in range(batch)]
+    t3 = [torch.stack(f) for f in zip(*top2)]
+    sel = matching.match_select(*t3, 100, n_targets=n)
+    table = matching.level_inv_sigma2(cfg.orb.scale_factor, cfg.orb.n_levels,
+                                      dev)
+    rep = [a[None].expand(batch, *a.shape).contiguous()
+           for a in (last.feats.points.angle, p1.angle, p1.uv, p1.u_right,
+                     p1.level)]
+    ff_in = torch.roll(sel[0][:, :n], 1, 0)  # a 1024-row problem per lane
+    fm = matching.frame_match_select(sel[0][:, :n], ff_in, *rep, table)
+    pa = matching.assemble_point_obs(
+        sel[0], fm.ff_idx, last.pt3d_w[None].expand(batch, -1, -1), args[0],
+        p1.valid[None].expand(batch, -1), rep[3], rep[4], table)
+    for name in ("project_landmarks", "match_select", "frame_match_select",
+                 "assemble_observations"):
+        assert kernels.LAUNCHES[name] == n0[name] + 1, name
+    for b in range(batch):
+        one = matching.project_landmarks(
+            *[a[b:b + 1] for a in args], **kw,
+            view_normals=rng_kw["view_normals"][b:b + 1],
+            dist_range=tuple(d[b:b + 1] for d in rng_kw["dist_range"]))
+        for f in one._fields:
+            assert torch.equal(getattr(proj, f)[b], getattr(one, f)[0]), f
+        one = matching.match_select(*[a[b:b + 1] for a in t3], 100,
+                                    n_targets=n)
+        assert torch.equal(sel[0][b], one[0][0])
+        assert torch.equal(sel[1][b], one[1][0])
+        one = matching.frame_match_select(
+            sel[0][b:b + 1, :n], ff_in[b:b + 1], *[a[b:b + 1] for a in rep],
+            table)
+        for f in one._fields:
+            assert torch.equal(getattr(fm, f)[b], getattr(one, f)[0]), f
+        one = matching.assemble_point_obs(
+            sel[0][b:b + 1], fm.ff_idx[b:b + 1], last.pt3d_w[None],
+            args[0][b:b + 1], p1.valid[None], rep[3][:1], rep[4][:1], table)
+        for f in one._fields:
+            assert torch.equal(getattr(pa, f)[b], getattr(one, f)[0]), f
+    assert not torch.equal(sel[0][0], sel[0][1])

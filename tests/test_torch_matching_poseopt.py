@@ -141,10 +141,12 @@ def test_hamming_and_top2_plain(two_frames):
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
 
 
-def test_rotation_filter_and_duplicates():
-    """Rotation-histogram consistency and duplicate resolution: exact."""
+@pytest.mark.parametrize("n", [300, 1024])
+def test_rotation_filter_and_duplicates(n):
+    """Rotation-histogram consistency and duplicate resolution: exact, at a
+    small width and at the main path's (1024 matches: K26's filter mode on
+    tracking's modular path)."""
     rng = np.random.default_rng(11)
-    n = 300
     a_src = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
     a_tgt = (a_src - 0.3 + np.where(rng.random(n) < 0.8, 0.0,
                                     rng.uniform(-3, 3, n))).astype(np.float32)
@@ -154,12 +156,14 @@ def test_rotation_filter_and_duplicates():
                                           jnp.asarray(valid))
     kt = tmatch.rotation_histogram_filter(_t(a_src), _t(a_tgt), _t(valid))
     np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
-    idx = np.where(rng.random(n) < 0.8, rng.integers(0, 60, n), -1)
+    assert 0 < int(kt.sum()) < int(valid.sum())  # some dropped, not all
+    n_tgt = n // 5
+    idx = np.where(rng.random(n) < 0.8, rng.integers(0, n_tgt, n), -1)
     dist = rng.integers(0, 40, n)
     ij, dj = jmatch._resolve_duplicates(jnp.asarray(idx, jnp.int32),
-                                        jnp.asarray(dist, jnp.int32), 60)
+                                        jnp.asarray(dist, jnp.int32), n_tgt)
     it, dt = tmatch._resolve_duplicates(_t(idx.astype(np.int32)),
-                                        _t(dist.astype(np.int32)), 60)
+                                        _t(dist.astype(np.int32)), n_tgt)
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
     np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
 

@@ -64,7 +64,9 @@ PORT_KERNELS = ("fast_score_kernel", "fast_score_levels_kernel",
                 "lines_peaks_kernel", "lines_segment_kernel",
                 "lines_rank_kernel", "lines_descriptor_kernel",
                 "lines_lift_kernel", "lines_search_rows_kernel",
-                "lines_search_gate_kernel")
+                "lines_search_gate_kernel", "project_landmarks_kernel",
+                "match_select_kernel", "frame_matches_kernel",
+                "assemble_observations_kernel")
 
 
 def main(argv=None) -> int:
