@@ -30,6 +30,15 @@ Phases, each fatal on failure:
      0 -> 1: the frame search, the window search over those landmarks
      tiled to 4096 slots with planted normals and distance ranges,
      match_descriptors, and the line observations of frame 1's line search;
+     K28-K31 (depth-noise median, frame normals, plane association, the
+     step's tail), each bit-equal to its plain version in every output
+     slot: K28 on frame 0's depth clean and with Kinect noise and on
+     planted depths (no valid sample, odd and even counts, a flat plane,
+     many duplicates), K29 on the same two depths and at strides 1 and 7,
+     K30 on planted associations (a tie, the direct match also the most
+     parallel, an empty cloud, no map plane), K30 and K31 on the last
+     tracking step of two 10-frame Systems (clean, noisy), K31 on random
+     tails, and both again on the inputs of path 1's 48th tracking step;
   4. path 1, tracking only: System(SystemConfig(), enable_local_mapping=
      False, enable_loop_closing=False) tracks 96 frames of the 640x480
      synthetic room, quantized to uint8 gray / uint16 depth; ATE against
@@ -71,8 +80,10 @@ mapping's line fuse among them), one K24 per search_by_projection call, one
 K3 per search_by_projection and two per match_descriptors call, one K25 per
 either call, one K26 per tracking step and per rotation_histogram_filter
 call and two K27 per tracking step (inside each tracking step K24 2, K3
-4, K25 3, K26 1, K27 2); no plain line or matching function may see a
-tensor on the card. The line before the
+4, K25 3, K26 1, K27 2, K30 1, K31 1), one K28 and one K29 per
+extract_frame call; no plain line, matching, noise, normal, plane
+association or step-tail function may see a tensor on the card. The line
+before the
 last is a JSON object with one entry per kernel (its time and its plain
 version's, the least time the card could take for the same bytes and
 operations, and a PyTorch call's time where one computes the same
@@ -1425,6 +1436,460 @@ def matching_kernel_parity(seq, cfg, dev) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K28-K31: the depth-noise median, the frame normals, the plane association
+# and the step's tail
+
+# the tail's launches of one tracking step, and all of a step's counted ones
+TAIL_PER_STEP = {"associate_planes": 1, "finish_step": 1}
+STEP_LAUNCHES = {**MATCH_PER_STEP, **TAIL_PER_STEP}
+PLANE_KEYS = ("coeffs", "valid", "T_cw", "pl_coeffs", "pl_cloud",
+              "pl_cloud_n", "pl_valid")
+PLANE_CASES = ("random", "tie", "self_parallel", "empty_cloud", "no_map")
+ALPHA_CASES = ("empty", "even", "odd", "flat", "duplicates")
+TAIL_FRAMES = 10  # frames of the Systems whose last step K30 and K31 see
+
+
+def _unit(rng, n: int) -> np.ndarray:
+    v = rng.normal(0, 1, (n, 3))
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def planted_alpha_depth(case: str) -> np.ndarray:
+    """Depth maps (metres) for K28's planted cases: no valid sample
+    ("empty"), 100 and 99 samples ("even", "odd"), a flat plane whose every
+    sample is 0 ("flat") and a ramp quantized to 5 mm, a few distinct
+    values each many times ("duplicates")."""
+    rng = np.random.default_rng(28)
+    if case == "empty":
+        return np.zeros((40, 40), np.float32)
+    if case in ("even", "odd"):
+        d = (2.0 + rng.normal(0, 0.01, (40, 40))).astype(np.float32)
+        if case == "odd":
+            d[0, 1] = 0.0  # only the sample at (0, 0) reads pixel (0, 1)
+        return d
+    if case == "flat":
+        return np.full((48, 64), 1.5, np.float32)
+    yy, xx = np.mgrid[:120, :160]
+    ramp = 1.0 + 0.01 * xx + 0.004 * yy + rng.normal(0, 0.002, (120, 160))
+    return (np.round(ramp * 200.0) / 200.0).astype(np.float32)
+
+
+def planted_plane_problem(rng, case: str, P: int = 16, Mp: int = 128,
+                          C: int = 512) -> dict:
+    """K30's inputs (numpy, keyed by PLANE_KEYS): P frame planes against Mp
+    map planes with C-point clouds. Half the frame planes are seen map
+    planes (a direct match each), the rest random; map planes 40-43 are
+    parallel to frame planes 0-3 at another offset, 60-63 perpendicular.
+    Planted: "tie", map planes 5 and 9 equal in coefficients and cloud (the
+    direct match ties, the first wins); "self_parallel", frame plane 0's
+    direct match is also its most parallel plane (excluded) beside a second
+    parallel one, 50; "empty_cloud", map plane 3, frame plane 2's plane,
+    has no cloud point (never direct) and is a parallel candidate; "no_map",
+    no valid map plane."""
+    T_cw = _planted_se3(rng, 0.4).astype(np.float64)
+    nm = _unit(rng, Mp)
+    dm = rng.uniform(0.5, 4.0, Mp)
+    nw = np.concatenate([nm[:P // 2], _unit(rng, P - P // 2)])
+    dw = np.concatenate([dm[:P // 2], rng.uniform(0.5, 4.0, P - P // 2)])
+    for j in range(4):
+        nm[40 + j], dm[40 + j] = nw[j], dw[j] + 0.3
+        perp = np.cross(nw[j], _unit(rng, 1)[0])
+        nm[60 + j] = perp / np.linalg.norm(perp)
+    if case == "tie":
+        nm[9], dm[9] = nm[5], dm[5]
+    if case == "self_parallel":
+        nm[50], dm[50] = nw[0], dw[0] + 0.5
+    if case == "empty_cloud":
+        nm[3], dm[3] = nw[2], dw[2]
+    b1 = np.cross(nm, _unit(rng, Mp))
+    b1 /= np.linalg.norm(b1, axis=1, keepdims=True)
+    b2 = np.cross(nm, b1)
+    ab = rng.uniform(-1, 1, (Mp, C, 2))
+    cloud = (-dm[:, None, None] * nm[:, None, :] + ab[..., :1] * b1[:, None]
+             + ab[..., 1:] * b2[:, None] + rng.normal(0, 0.002, (Mp, C, 3)))
+    if case == "tie":
+        cloud[9] = cloud[5]
+    n_pts = rng.integers(1, C + 1, Mp)
+    n_pts[:P] = C
+    if case == "empty_cloud":
+        n_pts[3] = 0
+    # the frame planes in the camera: n_c = R n_w, d_c = d_w - n_c . t
+    n_c = nw @ T_cw[:3, :3].T
+    coeffs = np.concatenate([n_c, (dw - n_c @ T_cw[:3, 3])[:, None]], 1)
+    coeffs *= rng.uniform(0.9, 1.1, (P, 1))  # not unit: K30 normalizes
+    pl_valid = rng.random(Mp) < 0.9
+    pl_valid[:P] = True
+    pl_valid[[3, 5, 9, 40, 41, 42, 43, 50]] = True
+    if case == "no_map":
+        pl_valid[:] = False
+    valid = rng.random(P) < 0.9
+    valid[[0, 2, 5]] = True
+    pl_coeffs = np.concatenate([nm, dm[:, None]], 1) * rng.uniform(
+        0.9, 1.1, (Mp, 1))
+    f32 = np.float32
+    return dict(coeffs=coeffs.astype(f32), valid=valid,
+                T_cw=T_cw.astype(f32), pl_coeffs=pl_coeffs.astype(f32),
+                pl_cloud=cloud.astype(f32), pl_cloud_n=n_pts.astype(np.int64),
+                pl_valid=pl_valid)
+
+
+def random_tail_problem(rng, cfg, final_ok: bool = True) -> dict:
+    """K31's inputs (numpy, keyed by StepTail's fields) at cfg's widths: a
+    pose and the final solve's pose near it (kept, or with too few inliers
+    the pose before it), 4096 window points and 256 window lines around
+    the view (some outside the image or behind the camera), 1024 features,
+    matches, inliers and 16 planes."""
+    from planarslam_tpu_torch.slam.device_tracker import WIN_LNS, WIN_PTS
+
+    cam = cfg.camera
+    K, L, P = cfg.orb.max_keypoints, cfg.lines.max_lines, cfg.planes.max_planes
+    f32, i32 = np.float32, np.int32
+    T1 = _planted_se3(rng, 0.3).astype(np.float64)
+    T_cand = _planted_se3(rng, 0.01).astype(np.float64) @ T1
+    T_wc = np.linalg.inv(T_cand)
+
+    def world_points(n):
+        uv = rng.uniform([-0.2 * cam.width, -0.2 * cam.height],
+                         [1.2 * cam.width, 1.2 * cam.height], (n, 2))
+        z = np.where(rng.random(n) < 0.9, rng.uniform(0.2, 8.0, n),
+                     rng.uniform(-2.0, 0.1, n))
+        pc = np.stack([(uv[:, 0] - cam.cx) / cam.fx * z,
+                       (uv[:, 1] - cam.cy) / cam.fy * z, z], -1)
+        return pc @ T_wc[:3, :3].T + T_wc[:3, 3]
+
+    def ids(n, m, frac):
+        return np.where(rng.random(n) < frac, rng.integers(0, m, n),
+                        -1).astype(i32)
+
+    mid = world_points(WIN_LNS)
+    half = rng.normal(0, 0.3, (WIN_LNS, 3))
+    depth = np.where(rng.random(K) < 0.8, rng.uniform(0.3, 9.0, K),
+                     np.where(rng.random(K) < 0.5, 0.0, -1.0))
+    n_in2 = 200 if final_ok else cfg.tracking.min_matches_local_map // 2 - 1
+    return dict(
+        T_cand=T_cand.astype(f32), n_in2=np.int64(n_in2), T1=T1.astype(f32),
+        n_in1=np.int64(123), T_last=_planted_se3(rng, 0.3),
+        R_cm=_planted_se3(rng, 1.0)[:3, :3].copy(),
+        manh_success=np.bool_(True), use_manh=np.bool_(False),
+        ff_idx=ids(K, K, 0.5), feat_slot=ids(K, WIN_PTS, 0.6),
+        inl=rng.random(K) < 0.7, obs2_valid=rng.random(K) < 0.8,
+        pt_uv=rng.uniform(0, [cam.width, cam.height], (K, 2)).astype(f32),
+        pt_depth=depth.astype(f32), pt_valid=rng.random(K) < 0.95,
+        win_idx=ids(WIN_PTS, K, 0.3), win_xyz=world_points(WIN_PTS).astype(
+            f32), win_valid=rng.random(WIN_PTS) < 0.8,
+        lm_idx=ids(WIN_LNS, L, 0.2), ln_sw=(mid - half).astype(f32),
+        ln_ew=(mid + half).astype(f32), ln_valid=rng.random(WIN_LNS) < 0.8,
+        ln_slot=ids(L, WIN_LNS, 0.4), pl_direct=ids(P, 128, 0.5),
+        pl_par=ids(P, 128, 0.3), pl_ver=ids(P, 128, 0.3),
+        pl_coeffs=np.concatenate([_unit(rng, P), rng.uniform(
+            0.5, 4.0, (P, 1))], 1).astype(f32), pl_valid=rng.random(P) < 0.8)
+
+
+def _bit_diff(x, y, as_int: bool = False) -> int:
+    """Entries of x and y whose bits differ; a float NaN matches any NaN
+    unless as_int (a bundle whose int32 fields are stored as bits)."""
+    import torch
+
+    if x.dtype == torch.float32:
+        xi, yi = x.contiguous().view(torch.int32), y.contiguous().view(
+            torch.int32)
+        same = xi == yi
+        if not as_int:
+            same |= x.isnan() & y.isnan()
+        return int((~same).sum())
+    return int((x != y).sum())
+
+
+def _tail_held(name: str, got, want) -> None:
+    """Every output field of a K28-K31 launch bit-equal to the plain
+    version's (the bundle compared as int32 bits)."""
+    fields = got._fields if hasattr(got, "_fields") else range(len(got))
+    bad = {f: _bit_diff(x, y, as_int=f == "packed")
+           for f, x, y in zip(fields, got, want)}
+    _check(not any(bad.values()),
+           f"{name}: entries differ from the plain version: {bad}")
+
+
+def _twice(fn, *args):
+    """fn's kernel output, checked bit-equal to a second launch."""
+    import torch
+
+    a, b = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    if isinstance(a, torch.Tensor):
+        a, b = (a,), (b,)
+    _check(all(_bit_diff(x, y, as_int=True) == 0 for x, y in zip(a, b)),
+           f"{fn.__name__}: two launches differ")
+    return a
+
+
+def _tail_capture(step: int) -> tuple:
+    """_pose_calls' capture of K30's and K31's wrappers in tracking step
+    `step` (from 1; -1: the last), where _track_core looks them up."""
+    return (("device_tracker", "_associate_planes_device", step),
+            ("device_tracker", "finish_step", step))
+
+
+def _tail_inputs(inputs: dict, step: int) -> tuple:
+    """The positional inputs of K30 and K31 that _tail_capture(step) kept."""
+    got = [inputs.get(c) for c in _tail_capture(step)]
+    _check(None not in got, f"tail: tracking step {step} was not captured")
+    return got[0][0], got[1][0][0]
+
+
+def _last_step(frames, cfg, dev) -> tuple:
+    """The K30 arguments and K31's StepTail of the last tracking step of a
+    tracking-only System over `frames`."""
+    from planarslam_tpu_torch.slam.system import System
+
+    slam = System(config=cfg, enable_local_mapping=False,
+                  enable_loop_closing=False, device=dev)
+    with _pose_calls(_tail_capture(-1)) as rec:
+        for i, (g, d) in enumerate(frames):
+            slam.track_rgbd(g, d, float(i) / 30.0)
+    slam.shutdown()
+    return _tail_inputs(rec["inputs"], -1)
+
+
+def _hold_assoc(name, args, pcfg) -> dict:
+    """K30 on args (B = 1) against its plain version, twice; the counts of
+    its matches."""
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    got = _twice(dt._associate_planes_device, *args, pcfg)
+    _tail_held(f"associate_planes ({name})", got,
+               kernels.per_problem(dt._associate_planes_plain, list(args),
+                                   pcfg))
+    return {f: int((getattr(got, f) >= 0).sum())
+            for f in ("direct", "par", "ver")}
+
+
+def _hold_tail(name, tail, cfg) -> dict:
+    """K31 on tail (B = 1) against its plain version, twice; a few of its
+    counts."""
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    got = _twice(dt.finish_step, tail, cfg)
+    _tail_held(f"finish_step ({name})", got, kernels.per_problem(
+        lambda *f: dt.finish_step_plain(dt.StepTail(*f), cfg), list(tail)))
+    b = dt.BundleLayout(cfg).unpack(got.packed[0].cpu().numpy())
+    return {"kf_stats": b["kf_stats"].tolist(),
+            "win_visible": int(b["win_visible"].sum()),
+            "ln_win_visible": int(b["ln_win_visible"].sum()),
+            "valid3d": int(got.valid3d.sum())}
+
+
+def _normal_reads(h: int, w: int, stride: int, k: int) -> int:
+    """Depth pixels K29's stencils read at least once: the box windows
+    around the smoothed pixels each sample needs (rows and columns apart:
+    the samples form a grid)."""
+    if stride <= 1:
+        return h * w
+    b, lo = min(stride, 3), (k - 1) // 2
+
+    def axis(n):
+        near = {(c + o) % n for c in range(stride // 2, n, stride)
+                for o in range(-b, b + 2)}
+        return len({r for c in near for r in range(c - lo, c + k - lo)
+                    if 0 <= r < n})
+    return axis(h) * axis(w)
+
+
+def tail_kernel_parity(seq, cfg, dev) -> list:
+    """K28-K31 against their plain versions on the card, each output slot
+    bit-equal and two launches equal bits. K28 on frame 0's quantized depth
+    clean and with Kinect noise and on the planted ALPHA_CASES; K29 on
+    those two depths at the 640x480 stride (13) and on the room rendered at
+    40x30 and 320x240 (strides 1 and 7, budget 2048); K30 on the planted
+    PLANE_CASES; K30 and K31 on the last tracking step of a System over
+    the first TAIL_FRAMES frames, clean and noisy (the map planes of frame
+    0's keyframe in its window), and K31 on two
+    random tails (the final pose kept and not). Times at the 640x480
+    shapes (median of 25 calls)."""
+    import dataclasses
+
+    import torch
+
+    from planarslam_tpu_torch.io import synthetic
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import planes as P
+    from planarslam_tpu_torch.slam import device_tracker as dt
+    from planarslam_tpu_torch.slam.frame import _normal_stride
+
+    cam, pcfg = cfg.camera, cfg.planes
+    dmf = cam.depth_map_factor
+    frames = [quantize_frame(*seq.render(i), dmf) for i in range(TAIL_FRAMES)]
+    clean = [d.astype(np.float32) / np.float32(dmf) for _, d in frames]
+    noisy = [noisy_depth(d, dmf, seed=i) for i, d in enumerate(clean)]
+    depths = {"clean": clean[0], "noisy": noisy[0]}
+    src = "planarslam_tpu_torch/csrc/"
+    out = []
+
+    # K28
+    mx = pcfg.max_distance
+    alphas = {}
+    for name, d in [*depths.items(),
+                    *((c, planted_alpha_depth(c)) for c in ALPHA_CASES)]:
+        dd = torch.from_numpy(d).to(dev)
+        got = _twice(P._noise_alpha, dd, mx)
+        _tail_held(f"noise_alpha ({name})", got,
+                   (P.noise_alpha_plain(dd, mx),))
+        alphas[name] = float(got[0])
+    _check(alphas["empty"] == 0.0 and alphas["flat"] == 0.0
+           and alphas["clean"] < alphas["noisy"]
+           and alphas["duplicates"] > 0 and alphas["odd"] > 0,
+           f"noise_alpha: the cases do not exercise it: {alphas}")
+    d0 = torch.from_numpy(clean[0]).to(dev)
+    h, w = clean[0].shape
+    ok = (d0 > 1e-6) & (d0 < mx)
+    d2 = torch.abs(d0 - 2 * torch.roll(d0, -1, 1) + torch.roll(d0, -2, 1))
+    interior = ok & torch.roll(ok, -1, 1) & torch.roll(ok, -2, 1)
+    sub = torch.where(interior, d2 / torch.clamp(d0, min=1.0) ** 2,
+                      math.nan)[::4, ::4]
+    cols = len({(x + o) % w for x in range(0, w, 4) for o in range(3)})
+    out.append({
+        "name": "noise_alpha", "route": "cuda", "library_ms": _time_ms(
+            lambda: torch.nanquantile(sub, 0.5)),
+        # the pixels the strided samples read; per sample the difference,
+        # the division and six radix passes over it
+        **_bound(4 * len(range(0, h, 4)) * cols + 4, 20.0 * sub.numel()),
+        "source": src + "depth_normals.cu",
+        "replaces": "planarslam_tpu/ops/planes.py:243",
+        "max_abs_err": 0.0, "tolerance": "bit-equal", "cases": alphas,
+        "ms": _time_ms(lambda: P._noise_alpha(d0, mx)),
+        "plain_ms": _time_ms(lambda: P.noise_alpha_plain(d0, mx))})
+
+    # K29 at the 640x480 stride and at strides 1 and 7
+    k = pcfg.smooth_window
+    budget = cfg.manhattan.max_normals
+    stride = _normal_stride(cfg)
+    normals = {}
+    probs = {name: (torch.from_numpy(d).to(dev), cam, stride)
+             for name, d in depths.items()}
+    for hs, ws in ((30, 40), (240, 320)):
+        small = cfg.tiny(height=hs, width=ws).replace(
+            manhattan=dataclasses.replace(cfg.manhattan, max_normals=budget))
+        g8, d16 = quantize_frame(*synthetic.make_sequence(
+            1, width=ws, height=hs).render(0), dmf)
+        probs[f"{ws}x{hs}"] = (torch.from_numpy(
+            d16.astype(np.float32) / np.float32(dmf)).to(dev), small.camera,
+            _normal_stride(small))
+    for name, (dd, c, s) in probs.items():
+        args = (dd, c, k, s, budget)
+        got = _twice(P.frame_normals, *args)
+        _tail_held(f"frame_normals ({name})", got,
+                   P.frame_normals_plain(*args))
+        normals[name] = {"stride": s, "valid": int(got[1].sum())}
+    _check([v["stride"] for v in normals.values()] == [stride, stride, 1, 7]
+           and all(v["valid"] > 100 for v in normals.values()),
+           f"frame_normals: the cases do not exercise it: {normals}")
+    args = (d0, cam, k, stride, budget)
+    got = P.frame_normals(*args)
+    out.append({
+        "name": "frame_normals", "route": "cuda", "library_ms": None,
+        # the depth pixels the stencils read, once; per sample the
+        # (2b + 2)^2 smoothed pixels (k^2 taps each), the normal and guards
+        **_bound(4 * _normal_reads(h, w, stride, k) + _nbytes(got),
+                 budget * ((2 * min(stride, 3) + 2) ** 2 * 4 * k * k
+                           + 200.0)),
+        "source": src + "depth_normals.cu",
+        "replaces": "planarslam_tpu/slam/frame.py:53",
+        "max_abs_err": 0.0, "tolerance": "bit-equal", "cases": normals,
+        "ms": _time_ms(lambda: P.frame_normals(*args)),
+        "plain_ms": _time_ms(lambda: P.frame_normals_plain(*args))})
+
+    # K30 on the planted cases
+    assoc = {}
+    for case in PLANE_CASES:
+        p = planted_plane_problem(np.random.default_rng(30), case)
+        args = [torch.from_numpy(p[key][None]).to(dev) for key in PLANE_KEYS]
+        assoc[case] = _hold_assoc(case, args, pcfg)
+    # K30 and K31 on the first tracking step, clean and noisy
+    steps = {}
+    tails = {}
+    for name, ds in (("clean", clean), ("noisy", noisy)):
+        fr = [(g, np.round(d * dmf).astype(np.uint16))
+              for (g, _), d in zip(frames, ds)]
+        a_args, tail = _last_step(fr, cfg, dev)
+        steps[name] = a_args
+        assoc[f"step_{name}"] = _hold_assoc(f"step {name}", a_args[:7], pcfg)
+        tails[f"step_{name}"] = tail
+    for ok in (True, False):
+        t = random_tail_problem(np.random.default_rng(31), cfg, ok)
+        tails[f"random_final_{ok}"] = dt.StepTail(*[
+            torch.from_numpy(np.asarray(t[f])[None]).to(dev)
+            for f in dt.StepTail._fields])
+    tail_cases = {name: _hold_tail(name, t, cfg) for name, t in tails.items()}
+    _check(assoc["step_clean"]["direct"] > 0
+           and assoc["no_map"] == {"direct": 0, "par": 0, "ver": 0}
+           and all(v["direct"] >= 4 and v["par"] > 0 and v["ver"] > 0
+                   for c, v in assoc.items() if c in PLANE_CASES[:4]),
+           f"associate_planes: the cases do not exercise it: {assoc}")
+    print(f"tail_kernel_parity steps: {json.dumps(tail_cases)}", flush=True)
+
+    a_args = steps["clean"][:7]
+    n_pts = torch.clamp(a_args[5][0], 0, a_args[4].shape[2])
+    cloud_pts = int(n_pts[a_args[6][0]].sum())
+    n_p, n_m = a_args[0].shape[1], a_args[3].shape[1]
+    assoc_out = dt._associate_planes_device(*a_args, pcfg)
+    out.append({
+        "name": "associate_planes", "route": "cuda", "library_ms": None,
+        # the plane rows, the counts and flags, and of the clouds the
+        # points of the valid map planes (the rest never enter a decision)
+        **_bound(_nbytes(a_args[:4], a_args[5:], assoc_out)
+                 + 12 * cloud_pts, 7.0 * n_p * cloud_pts + 20.0 * n_p * n_m),
+        "source": src + "step_tail.cu",
+        "replaces": "planarslam_tpu/slam/device_tracker.py:185",
+        "max_abs_err": 0.0, "tolerance": "bit-equal", "cases": assoc,
+        "ms": _time_ms(lambda: dt._associate_planes_device(*a_args, pcfg)),
+        "plain_ms": _time_ms(lambda: dt._associate_planes_plain(
+            *[a[0] for a in a_args], pcfg))})
+
+    tail = tails["step_clean"]
+    tail_out = dt.finish_step(tail, cfg)
+    n_k = tail.inl.shape[1]
+    n_wv, n_lv = int(tail.win_valid.sum()), int(tail.ln_valid.sum())
+    read = tail._replace(T1=None, win_xyz=None, ln_sw=None, ln_ew=None)
+    out.append({
+        "name": "finish_step", "route": "cuda", "library_ms": None,
+        # the flags, indices and per-feature rows, one of the two poses
+        # (n_in2 picks it), and the coordinates of the valid window points
+        # and lines alone (no other row is projected); per valid window
+        # point or line the transform, projection and gates (~30), per
+        # feature the slot, counts and lift (~30)
+        **_bound(_nbytes(read, tail_out) + 12 * n_wv + 24 * n_lv,
+                 30.0 * (n_wv + n_lv + n_k)),
+        "source": src + "step_tail.cu",
+        "replaces": "planarslam_tpu/slam/device_tracker.py:440",
+        "max_abs_err": 0.0, "tolerance": "bit-equal (the bundle as int32)",
+        "cases": tail_cases,
+        "ms": _time_ms(lambda: dt.finish_step(tail, cfg)),
+        "plain_ms": _time_ms(lambda: dt.finish_step_plain(
+            dt.StepTail(*[x[0] for x in tail]), cfg))})
+    _print_kernels(out)
+    return out
+
+
+def tail_frame_parity(report: list, a_args, tail) -> None:
+    """K30 and K31 against their plain versions on the inputs of a
+    mid-sequence step of path 1 (captured at the call); the counts join
+    their report entries."""
+    from planarslam_tpu_torch.config import SystemConfig
+
+    cfg = SystemConfig()
+    entries = {k["name"]: k for k in report}
+    entries["associate_planes"]["cases"]["path1_step"] = _hold_assoc(
+        "path 1 step", a_args[:7], cfg.planes)
+    entries["finish_step"]["cases"]["path1_step"] = _hold_tail(
+        "path 1 step", tail, cfg)
+    print(f"tail_kernel_parity path 1 step: "
+          f"{entries['associate_planes']['cases']['path1_step']} "
+          f"{entries['finish_step']['cases']['path1_step']}", flush=True)
+
+
 def _planted_se3(rng, scale: float = 0.3) -> np.ndarray:
     """A random rigid transform (numpy)."""
     w = rng.normal(0, scale, 3)
@@ -2221,6 +2686,13 @@ PLAIN_MATCHING_FUNCTIONS = ("gated_hamming_top2_plain",
                             "frame_match_select_plain",
                             "assemble_point_obs_plain",
                             "assemble_line_obs_plain")
+PLAIN_TAIL_FUNCTIONS = (("planes", "noise_alpha_plain"),
+                        ("planes", "frame_normals_plain"),
+                        ("device_tracker", "_associate_planes_plain"),
+                        ("device_tracker", "finish_step_plain"))
+# the two pose_optimize calls (obs1, obs2) of path 1's 21st fused frame
+POSE_CAPTURE = (("pose_opt", "pose_optimize", 41),
+                ("pose_opt", "pose_optimize", 42))
 # the calls _pose_calls counts: (module, attribute, count key)
 COUNTED_CALLS = (
     ("pose_opt", "pose_optimize", "calls"),
@@ -2233,7 +2705,22 @@ COUNTED_CALLS = (
     ("matching", "search_by_projection", "projection_search_calls"),
     ("matching", "match_descriptors", "descriptor_match_calls"),
     ("matching", "rotation_histogram_filter", "rotation_filter_calls"),
-    ("device_tracker", "_track_core", "track_core_calls"))
+    ("device_tracker", "_track_core", "track_core_calls"),
+    ("device_tracker", "extract_frame", "frame_calls"),
+    ("tracking", "extract_frame", "frame_calls"))
+
+
+def _on_card(obj) -> bool:
+    """A tensor on the card in obj (tuples, lists and dicts walked)."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.is_cuda
+    if isinstance(obj, (tuple, list)):
+        return any(_on_card(x) for x in obj)
+    if isinstance(obj, dict):
+        return any(_on_card(x) for x in obj.values())
+    return False
 
 
 @contextlib.contextmanager
@@ -2244,48 +2731,61 @@ def _pose_calls(capture=()):
     others are reached through their modules, local_mapping.py and
     tracking.py import the line search from ops/lines.py at the call,
     fused_track_step calls device_tracker._track_core, the tracking step
-    of one frame, whose matching launches are counted apart), count the
-    calls of a plain line or matching function with a tensor on the card,
-    and keep the inputs of the pose_optimize calls numbered in `capture`
-    (from 1)."""
+    of one frame, whose counted launches are counted apart, and
+    device_tracker.py and tracking.py import extract_frame by name), count
+    the calls of a plain line, matching, noise, normal, plane association
+    or step-tail function with a tensor on the card, and keep under
+    "inputs", keyed by the triple, the inputs of each call named in
+    `capture` by (module, attribute, call number from 1; -1: the last)."""
     import torch
 
     from planarslam_tpu_torch import kernels
     from planarslam_tpu_torch.ops import lines, manhattan, matching, planes
-    from planarslam_tpu_torch.slam import device_tracker, frame
+    from planarslam_tpu_torch.slam import device_tracker, frame, tracking
     from planarslam_tpu_torch.solvers import pose_opt
 
     modules = {"pose_opt": pose_opt, "planes": planes,
                "manhattan": manhattan, "frame": frame, "lines": lines,
-               "device_tracker": device_tracker, "matching": matching}
+               "device_tracker": device_tracker, "matching": matching,
+               "tracking": tracking}
     rec = {key: 0 for _, _, key in COUNTED_CALLS}
-    rec.update(inputs=[], plain_calls_on_card=0,
-               step_launches=dict.fromkeys(MATCH_PER_STEP, 0))
+    rec.update(inputs={}, plain_calls_on_card=0,
+               step_launches=dict.fromkeys(STEP_LAUNCHES, 0))
     orig = [(modules[mod], attr, getattr(modules[mod], attr))
             for mod, attr, _ in COUNTED_CALLS]
     plain = [(mod, name, getattr(mod, name))
              for mod, names in ((lines, PLAIN_LINE_FUNCTIONS),
                                 (matching, PLAIN_MATCHING_FUNCTIONS))
              for name in names]
+    plain += [(modules[mod], name, getattr(modules[mod], name))
+              for mod, name in PLAIN_TAIL_FUNCTIONS]
 
     def counting(fn, key):
         def counted(*args, **kw):
             rec[key] += 1
-            if key == "calls" and rec["calls"] in capture:
-                rec["inputs"].append(_clone((args, kw)))
             if key != "track_core_calls":
                 return fn(*args, **kw)
             before = dict(kernels.LAUNCHES)
             out = fn(*args, **kw)
-            for k in MATCH_PER_STEP:
+            for k in STEP_LAUNCHES:
                 rec["step_launches"][k] += kernels.LAUNCHES[k] - before[k]
             return out
         return counted
 
+    def capturing(fn, mod, attr):
+        numbers = {n for m, a, n in capture if (m, a) == (mod, attr)}
+        calls = [0]
+
+        def captured(*args, **kw):
+            calls[0] += 1
+            for n in numbers & {calls[0], -1}:
+                rec["inputs"][mod, attr, n] = _clone((args, kw))
+            return fn(*args, **kw)
+        return captured
+
     def guarded(fn):
         def plain_call(*args, **kw):
-            if any(isinstance(a, torch.Tensor) and a.is_cuda
-                   for a in list(args) + list(kw.values())):
+            if _on_card((args, kw)):
                 rec["plain_calls_on_card"] += 1
             return fn(*args, **kw)
         return plain_call
@@ -2294,10 +2794,14 @@ def _pose_calls(capture=()):
         setattr(mod, attr, counting(fn, key))
     for mod, name, fn in plain:
         setattr(mod, name, guarded(fn))
+    targets = list(dict.fromkeys((m, a) for m, a, _ in capture))
+    kept = [(modules[m], a, getattr(modules[m], a)) for m, a in targets]
+    for (mod, attr, fn), (name, _) in zip(kept, targets):
+        setattr(mod, attr, capturing(fn, name, attr))
     try:
         yield rec
     finally:
-        for mod, attr, fn in orig + plain:
+        for mod, attr, fn in kept[::-1] + orig + plain:
             setattr(mod, attr, fn)
 
 
@@ -2316,12 +2820,13 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
     per search_by_projection and per match_descriptors call; one K26 per
     tracking step and per rotation_histogram_filter call; two K27 per
     tracking step (its line observations, which the first pose solve
-    takes, then its point observations after the window search), and
-    inside each tracking step MATCH_PER_STEP; no plain line or matching
-    function called with a tensor on the card; with
-    `frames`, one extract_planes, extract_point_features and
-    extract_line_features call per frame, and a tracking step on all
-    frames but the first."""
+    takes, then its point observations after the window search); one K28
+    and one K29 per extract_frame call; one K30 and one K31 per tracking
+    step, and inside each tracking step STEP_LAUNCHES; no plain line,
+    matching, noise, normal, plane association or step-tail function
+    called with a tensor on the card; with `frames`, one extract_frame,
+    extract_planes, extract_point_features and extract_line_features call
+    per frame, and a tracking step on all frames but the first."""
     from planarslam_tpu_torch.ops import lines
 
     rounds = 1 + (cfg.planes.refine_rounds if cfg is not None else 0)
@@ -2347,19 +2852,24 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
             "gated_hamming_top2": searches + 2 * matches,
             "match_select": searches + matches,
             "frame_match_select": steps + rec["rotation_filter_calls"],
-            "assemble_observations": 2 * steps}
+            "assemble_observations": 2 * steps,
+            "noise_alpha": rec["frame_calls"],
+            "frame_normals": rec["frame_calls"],
+            "associate_planes": steps, "finish_step": steps}
     for kernel, n in want.items():
         _check(launches[kernel] == n, f"{name}: {launches[kernel]} {kernel} "
                f"launches, expected {n} ({_call_counts(rec)})")
-    per_step = {k: n * steps for k, n in MATCH_PER_STEP.items()}
+    per_step = {k: n * steps for k, n in STEP_LAUNCHES.items()}
     _check(rec["step_launches"] == per_step,
-           f"{name}: {rec['step_launches']} matching launches in {steps} "
+           f"{name}: {rec['step_launches']} counted launches in {steps} "
            f"tracking steps, expected {per_step}")
     _check(rec["plain_calls_on_card"] == 0,
-           f"{name}: {rec['plain_calls_on_card']} plain line or matching "
-           f"calls with tensors on the card")
+           f"{name}: {rec['plain_calls_on_card']} plain line, matching, "
+           f"noise, normal, association or tail calls with tensors on the "
+           f"card")
     if frames is not None:
-        _check(rec["plane_calls"] == frames and rec["manhattan_calls"] > 0
+        _check(rec["plane_calls"] == frames and rec["frame_calls"] == frames
+               and rec["manhattan_calls"] > 0
                and points == frames and lns == frames
                and rec["search_calls"] >= frames - 1
                and steps >= frames - 1,
@@ -2369,7 +2879,7 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
 def _call_counts(rec: dict) -> dict:
     out = {f"{attr.lstrip('_')}_calls": rec[key]
            for _, attr, key in COUNTED_CALLS}
-    out["matching_launches_in_tracking_steps"] = rec["step_launches"]
+    out["launches_in_tracking_steps"] = rec["step_launches"]
     return out
 
 
@@ -2857,7 +3367,7 @@ def run_ba_scale_path(dev) -> dict:
     _check_pose_launches("path4c (BA alone)", res["launches"],
                          dict({key: 0 for _, _, key in COUNTED_CALLS},
                               plain_calls_on_card=0,
-                              step_launches=dict.fromkeys(MATCH_PER_STEP,
+                              step_launches=dict.fromkeys(STEP_LAUNCHES,
                                                           0)))
     return res
 
@@ -2876,7 +3386,7 @@ def run_tracking_path(name, seq, frames, cfg, dev, local_mapping: bool,
                       capture=()) -> dict:
     """Path 1 (tracking only) or path 2 (with local mapping) end to end;
     returns its metrics and launch counts, and under "captured" the inputs
-    of the pose_optimize calls numbered in `capture`."""
+    of the calls named in `capture` (as _pose_calls keeps them)."""
     import torch
 
     from planarslam_tpu_torch import kernels
@@ -3188,17 +3698,21 @@ def main(argv=None) -> int:
               + manhattan_kernel_parity(seq, cfg, dev)
               + frontend_kernel_parity(seq, cfg, dev)
               + line_kernel_parity(seq, cfg, dev)
-              + matching_kernel_parity(seq, cfg, dev))
+              + matching_kernel_parity(seq, cfg, dev)
+              + tail_kernel_parity(seq, cfg, dev))
     frames = [quantize_frame(*seq.render(i), cfg.camera.depth_map_factor)
               for i in range(n)]
-    # the two calls (obs1, obs2) of path 1's 21st fused frame
+    # the two calls (obs1, obs2) of path 1's 21st fused frame, and the
+    # plane association and tail of its 48th tracking step
     path1 = run_tracking_path("path1_tracking", seq,
                               frames[:TRACKING_FRAMES], cfg, dev, False,
-                              capture=(41, 42))
-    _check(len(path1["captured"]) == 2,
+                              capture=POSE_CAPTURE + _tail_capture(48))
+    captured = path1.pop("captured")
+    _check(all(c in captured for c in POSE_CAPTURE),
            "path1: the pose_optimize inputs of a tracked frame were not "
            "captured")
-    pose_frame_parity(k11[0], path1.pop("captured"))
+    pose_frame_parity(k11[0], [captured[c] for c in POSE_CAPTURE])
+    tail_frame_parity(report, *_tail_inputs(captured, 48))
     paths = [
         path1,
         run_tracking_path("path2_mapping", seq, frames[:args.frames], cfg,

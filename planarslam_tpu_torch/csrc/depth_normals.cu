@@ -1,0 +1,414 @@
+// K28 noise_alpha and K29 frame_normals: the per-frame depth stages outside
+// plane segmentation, `batch` frames per launch (B = 1 on the streaming
+// path).
+//
+// K28 replaces the depth-noise scale of planarslam_tpu/ops/planes.py::
+// extract_planes (:243-254; the port's plain version is ops/planes.py::
+// noise_alpha_plain): the absolute second difference
+// |d - 2 d(x+1) + d(x+2)| / max(d, 1)^2 (columns wrapped) on the 4 x
+// 4-strided grid, NaN where one of the three pixels fails the depth gate,
+// then the median of the samples as jnp.nanmedian takes it (the mean of
+// the two middle values, s[low] * lw + s[high] * hw in float32), over
+// 0.674 sqrt(6), 0 when no sample is valid. One block per frame computes
+// only the strided samples (19200 at 640x480) into a scratch row of their
+// float bits, with the invalid ones at 0xffffffff, above every finite
+// value's bits; the samples are >= +0, so their bits order as their values.
+// The two ranks are an exact radix select (11, 11 and 10 bits, each digit's
+// histogram by warp-aggregated integer atomics in shared memory), no sort.
+// Bound: latency (230 KB of depth read per frame; three dependent passes
+// per rank).
+//
+// K29 replaces the normal chain of planarslam_tpu/slam/frame.py (:53-63):
+// box_smooth_depth (ops/planes.py:55-76), backproject_depth (:45-52), the
+// surface_normals of the sampling stride (:79-170) and the padding to
+// max_normals. Only the normals and their flags leave the chain, so one
+// thread per output sample computes the smoothed depths it reads, each a
+// k x k zero-padded box mean of the raw depth with the keep rule: at a
+// stride >= 2, those of the (2b + 2)^2 pixels around the sample (b =
+// min(stride, 3), the wrapped rows and columns of the +-b taps and the
+// right and lower neighbours of the (2b + 1)^2 jump window), at stride 1
+// the sample and its four neighbours. From them: the back-projection, the
+// central-difference normal, its orientation, the crease and
+// discontinuity guards and the subgrid border. Bound: latency (at 640x480,
+// 1813 samples read 64 x 25 depths each, 11.6 MB from L1 and L2, of 1.04 MB
+// distinct pixels).
+//
+// The plain versions spell every product, cross product, dot and norm in
+// a fixed order and this file is built with -fmad=false, so that every
+// float is rounded where the plain version's separate PyTorch operations
+// round it: a division by a Python number is PyTorch's product with the
+// number's reciprocal taken in double and rounded to float32 (the wrapper
+// passes it), the rest is IEEE (__fdiv_rn, __fsqrt_rn). The outputs equal
+// the plain version's bit for bit; no atomics touch a float.
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kAlphaThreads = 1024;
+constexpr int kNormalThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kNoSample = 0xffffffffu;
+constexpr unsigned kNoDigit = 0xffffffffu;
+constexpr int kMaxSpan = 8;  // 2 b + 2 with b = min(stride, 3)
+
+// torch.clamp(x, min=lo): NaN stays NaN
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return x < lo ? lo : x;
+}
+
+// torch.maximum / max_pool2d: NaN wins
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a > b || isnan(a)) ? a : b;
+}
+
+// ((a0 b0 + a1 b1) + a2 b2), each product and sum rounded
+__device__ __forceinline__ float dot3(const float* a, const float* b) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a[0], b[0]), __fmul_rn(a[1], b[1])),
+                   __fmul_rn(a[2], b[2]));
+}
+
+// (a1 b2 - a2 b1, a2 b0 - a0 b2, a0 b1 - a1 b0)
+__device__ __forceinline__ void cross3(const float* a, const float* b,
+                                       float* out) {
+  out[0] = __fsub_rn(__fmul_rn(a[1], b[2]), __fmul_rn(a[2], b[1]));
+  out[1] = __fsub_rn(__fmul_rn(a[2], b[0]), __fmul_rn(a[0], b[2]));
+  out[2] = __fsub_rn(__fmul_rn(a[0], b[1]), __fmul_rn(a[1], b[0]));
+}
+
+__device__ __forceinline__ int wrap(int v, int n) {
+  const int r = v % n;
+  return r < 0 ? r + n : r;
+}
+
+// ---------------------------------------------------------------- K28 ---
+
+// The value of rank `k` (0-based, ascending) among bits[0..n), one radix
+// digit at a time: 11, 11, then 10 bits. Run by the whole block.
+__device__ unsigned select_rank(const unsigned* bits, int n, int k,
+                                int* hist, unsigned* s_prefix, int* s_k) {
+  __syncthreads();  // the previous selection's result has been read
+  if (threadIdx.x == 0) {
+    *s_prefix = 0u;
+    *s_k = k;
+  }
+  const int shifts[3] = {21, 10, 0};
+  const int digits[3] = {2048, 2048, 1024};
+  const int lane = threadIdx.x & 31;
+  unsigned mask = 0u;
+  for (int pass = 0; pass < 3; ++pass) {
+    const int shift = shifts[pass], nd = digits[pass];
+    const unsigned dmask = static_cast<unsigned>(nd - 1);
+    for (int d = threadIdx.x; d < nd; d += blockDim.x) hist[d] = 0;
+    __syncthreads();
+    const unsigned pre = *s_prefix;
+    // whole warps step together, so __match_any_sync sees every lane
+    for (int base = threadIdx.x - lane; base < n; base += blockDim.x) {
+      const int i = base + lane;
+      const unsigned u = i < n ? bits[i] : 0u;
+      const bool in = i < n && (u & mask) == pre;
+      const unsigned digit = in ? (u >> shift) & dmask : kNoDigit;
+      const unsigned peers = __match_any_sync(kFull, digit);
+      if (in && lane == __ffs(peers) - 1) {
+        atomicAdd(&hist[digit], __popc(peers));
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      // lane l sums the l-th group of digits from the bottom
+      const int per = nd / 32, lo = lane * per;
+      int sum = 0;
+      for (int d = lo; d < lo + per; ++d) sum += hist[d];
+      int incl = sum;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int o = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += o;
+      }
+      const int want = *s_k;
+      const unsigned hit = __ballot_sync(kFull, incl > want);
+      if (lane == __ffs(hit) - 1) {
+        int cum = incl - sum;
+        for (int d = lo; d < lo + per; ++d) {
+          if (cum + hist[d] > want) {
+            *s_k = want - cum;
+            *s_prefix = pre | (static_cast<unsigned>(d) << shift);
+            break;
+          }
+          cum += hist[d];
+        }
+      }
+    }
+    mask |= dmask << shift;
+    __syncthreads();
+  }
+  return *s_prefix;
+}
+
+__global__ void noise_alpha_kernel(const float* __restrict__ depth, int h,
+                                   int w, float max_distance, float inv_mad,
+                                   unsigned* __restrict__ scratch,
+                                   float* __restrict__ alpha) {
+  __shared__ int hist[2048];
+  __shared__ unsigned s_prefix;
+  __shared__ int s_k, s_count;
+  const int hs = (h + 3) / 4, ws = (w + 3) / 4, n_s = hs * ws;
+  const float* d = depth + static_cast<size_t>(blockIdx.x) * h * w;
+  unsigned* bits = scratch + static_cast<size_t>(blockIdx.x) * n_s;
+  if (threadIdx.x == 0) s_count = 0;
+  __syncthreads();
+  int mine = 0;
+  for (int i = threadIdx.x; i < n_s; i += blockDim.x) {
+    const float* row = d + static_cast<size_t>(i / ws) * 4 * w;
+    const int x = (i % ws) * 4;
+    const float d0 = row[x], d1 = row[(x + 1) % w], d2 = row[(x + 2) % w];
+    const bool ok = d0 > 1e-6f && d0 < max_distance && d1 > 1e-6f &&
+                    d1 < max_distance && d2 > 1e-6f && d2 < max_distance;
+    unsigned u = kNoSample;
+    if (ok) {
+      const float z = clamp_min(d0, 1.0f);
+      const float d2r =
+          fabsf(__fadd_rn(__fsub_rn(d0, __fmul_rn(2.0f, d1)), d2));
+      u = __float_as_uint(__fdiv_rn(d2r, __fmul_rn(z, z)));
+      ++mine;
+    }
+    bits[i] = u;
+  }
+  if (mine > 0) atomicAdd(&s_count, mine);
+  __syncthreads();  // the count, and the samples for the whole block
+  const int n = s_count;
+  if (n == 0) {  // nanmedian of no sample is NaN, and nan_to_num makes it 0
+    if (threadIdx.x == 0) alpha[blockIdx.x] = 0.0f;
+    return;
+  }
+  // lax_compat.nanmedian's ranks and weights, in float32
+  const float nf = static_cast<float>(n);
+  const float q = __fmul_rn(0.5f, __fsub_rn(nf, 1.0f));
+  const float lo_f = floorf(q), hi_f = ceilf(q);
+  const float hw = __fsub_rn(q, lo_f);
+  const float lw = __fsub_rn(1.0f, hw);
+  const float last = __fsub_rn(nf, 1.0f);
+  const int lo = static_cast<int>(clamp_min(fminf(lo_f, last), 0.0f));
+  const int hi = static_cast<int>(clamp_min(fminf(hi_f, last), 0.0f));
+  const unsigned s_lo = select_rank(bits, n_s, lo, hist, &s_prefix, &s_k);
+  const unsigned s_hi =
+      hi == lo ? s_lo : select_rank(bits, n_s, hi, hist, &s_prefix, &s_k);
+  if (threadIdx.x == 0) {
+    const float med = __fadd_rn(__fmul_rn(__uint_as_float(s_lo), lw),
+                                __fmul_rn(__uint_as_float(s_hi), hw));
+    alpha[blockIdx.x] = __fmul_rn(med, inv_mad);
+  }
+}
+
+// ---------------------------------------------------------------- K29 ---
+
+struct NormalConsts {
+  int h, w, stride, off, b, hs, ws, budget, k, k_lo;
+  float inv_fx, inv_fy, cx, cy;
+};
+
+// box_smooth_depth at one pixel: the k x k zero-padded box mean of the
+// valid depths, kept where it stays within 3% of the raw depth
+__device__ float smoothed(const float* __restrict__ d,
+                          const NormalConsts& c, int y, int x) {
+  const float z = d[static_cast<size_t>(y) * c.w + x];
+  if (c.k <= 1) return z;
+  float acc = 0.0f, cnt = 0.0f;
+  for (int dy = 0; dy < c.k; ++dy) {
+    const int py = y + dy - c.k_lo;
+    for (int dx = 0; dx < c.k; ++dx) {
+      const int px = x + dx - c.k_lo;
+      float term = 0.0f, v = 0.0f;
+      if (py >= 0 && py < c.h && px >= 0 && px < c.w) {
+        const float e = d[static_cast<size_t>(py) * c.w + px];
+        v = e > 1e-6f ? 1.0f : 0.0f;
+        term = __fmul_rn(e, v);
+      }
+      acc = __fadd_rn(acc, term);
+      cnt = __fadd_rn(cnt, v);
+    }
+  }
+  const float mu = __fdiv_rn(acc, clamp_min(cnt, 1.0f));
+  const bool keep =
+      fabsf(__fsub_rn(z, mu)) < __fmul_rn(0.03f, clamp_min(z, 1.0f));
+  return (z > 1e-6f && keep && cnt > 0.0f) ? mu : z;
+}
+
+// backproject_depth of a smoothed depth zs at pixel (y, x)
+__device__ __forceinline__ void point_at(const NormalConsts& c, int y, int x,
+                                         float zs, float* p) {
+  p[0] = __fmul_rn(__fmul_rn(__fsub_rn(static_cast<float>(x), c.cx),
+                             c.inv_fx),
+                   zs);
+  p[1] = __fmul_rn(__fmul_rn(__fsub_rn(static_cast<float>(y), c.cy),
+                             c.inv_fy),
+                   zs);
+  p[2] = zs;
+}
+
+// the normal of the central differences dx = 0.5 (xp - xm), dy =
+// 0.5 (yp - ym), unit and turned toward the camera; returns its norm
+__device__ float oriented_normal(const float* xp, const float* xm,
+                                 const float* yp, const float* ym,
+                                 const float* p, float* n) {
+  float dx[3], dy[3];
+  for (int j = 0; j < 3; ++j) {
+    dx[j] = __fmul_rn(0.5f, __fsub_rn(xp[j], xm[j]));
+    dy[j] = __fmul_rn(0.5f, __fsub_rn(yp[j], ym[j]));
+  }
+  cross3(dx, dy, n);
+  const float norm = __fsqrt_rn(__fadd_rn(dot3(n, n), 1e-18f));
+  for (int j = 0; j < 3; ++j) n[j] = __fdiv_rn(n[j], norm);
+  if (dot3(n, p) > 0.0f) {
+    for (int j = 0; j < 3; ++j) n[j] = -n[j];
+  }
+  return norm;
+}
+
+// surface_normals at stride 1: every pixel, 1-pixel central differences
+__device__ bool normal_full(const float* __restrict__ d,
+                            const NormalConsts& c, int y, int x, float* n) {
+  const int xr = wrap(x + 1, c.w), xl = wrap(x - 1, c.w);
+  const int yd = wrap(y + 1, c.h), yu = wrap(y - 1, c.h);
+  const float z = smoothed(d, c, y, x);
+  const float zxp = smoothed(d, c, y, xr), zxm = smoothed(d, c, y, xl);
+  const float zyp = smoothed(d, c, yd, x), zym = smoothed(d, c, yu, x);
+  float p[3], xp[3], xm[3], yp[3], ym[3];
+  point_at(c, y, x, z, p);
+  point_at(c, y, xr, zxp, xp);
+  point_at(c, y, xl, zxm, xm);
+  point_at(c, yd, x, zyp, yp);
+  point_at(c, yu, x, zym, ym);
+  const float norm = oriented_normal(xp, xm, yp, ym, p, n);
+  const float zn = __fmul_rn(__fmul_rn(__fmul_rn(zxp, zxm), zyp), zym);
+  const float jump = max_nan(fabsf(__fsub_rn(zxp, zxm)),
+                             fabsf(__fsub_rn(zyp, zym)));
+  return z > 1e-6f && zn > 1e-12f && norm > 1e-9f &&
+         jump < __fmul_rn(0.05f, clamp_min(z, 1.0f));
+}
+
+// surface_normals at a stride >= 2: the +-b taps, the crease guard and the
+// 1-pixel jump scan over the (2b + 1)^2 window, at subgrid sample (sy, sx)
+__device__ bool normal_strided(const float* __restrict__ d,
+                               const NormalConsts& c, int sy, int sx,
+                               float* n) {
+  const int b = c.b, span = 2 * b + 2;
+  const int y = c.off + sy * c.stride, x = c.off + sx * c.stride;
+  // smoothed depth of rows y-b..y+b+1 and columns x-b..x+b+1, wrapped
+  float zc[kMaxSpan][kMaxSpan];
+  for (int r = 0; r < span; ++r) {
+    const int yy = wrap(y - b + r, c.h);
+    for (int q = 0; q < span; ++q) {
+      zc[r][q] = smoothed(d, c, yy, wrap(x - b + q, c.w));
+    }
+  }
+  // max of the 1-pixel jumps (right and lower neighbour, wrapped) over the
+  // window's pixels inside the image; -inf padding
+  float jmax = -INFINITY;
+  for (int r = 0; r <= 2 * b; ++r) {
+    const int yy = y - b + r;
+    if (yy < 0 || yy >= c.h) continue;
+    for (int q = 0; q <= 2 * b; ++q) {
+      const int xx = x - b + q;
+      if (xx < 0 || xx >= c.w) continue;
+      const float z0 = zc[r][q];
+      const float j1 = max_nan(fabsf(__fsub_rn(z0, zc[r][q + 1])),
+                               fabsf(__fsub_rn(z0, zc[r + 1][q])));
+      jmax = max_nan(jmax, j1);
+    }
+  }
+  float p[3], xp[3], xm[3], yp[3], ym[3];
+  point_at(c, y, x, zc[b][b], p);
+  point_at(c, y, wrap(x + b, c.w), zc[b][2 * b], xp);
+  point_at(c, y, wrap(x - b, c.w), zc[b][0], xm);
+  point_at(c, wrap(y + b, c.h), x, zc[2 * b][b], yp);
+  point_at(c, wrap(y - b, c.h), x, zc[0][b], ym);
+  const bool disc_free = jmax < __fmul_rn(0.05f, clamp_min(p[2], 1.0f));
+  const float norm = oriented_normal(xp, xm, yp, ym, p, n);
+  // crease guard: the one-sided normals agree within 45 degrees
+  float a[3], e[3], f[3], g[3], nf[3], nb[3];
+  for (int j = 0; j < 3; ++j) {
+    a[j] = __fsub_rn(xp[j], p[j]);
+    e[j] = __fsub_rn(yp[j], p[j]);
+    f[j] = __fsub_rn(p[j], xm[j]);
+    g[j] = __fsub_rn(p[j], ym[j]);
+  }
+  cross3(a, e, nf);
+  cross3(f, g, nb);
+  const float nf_n = __fsqrt_rn(__fadd_rn(dot3(nf, nf), 1e-18f));
+  const float nb_n = __fsqrt_rn(__fadd_rn(dot3(nb, nb), 1e-18f));
+  const bool agree = __fdiv_rn(dot3(nf, nb), __fmul_rn(nf_n, nb_n)) > 0.7071f;
+  const float zn =
+      __fmul_rn(__fmul_rn(__fmul_rn(xp[2], xm[2]), yp[2]), ym[2]);
+  const bool border = sy > 0 && sy < c.hs - 1 && sx > 0 && sx < c.ws - 1;
+  return p[2] > 1e-6f && zn > 1e-12f && norm > 1e-9f && disc_free &&
+         agree && border;
+}
+
+__global__ void frame_normals_kernel(const float* __restrict__ depth,
+                                     NormalConsts c,
+                                     float* __restrict__ normals,
+                                     unsigned char* __restrict__ valid) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= c.budget) return;
+  const float* d = depth + static_cast<size_t>(blockIdx.y) * c.h * c.w;
+  const size_t o = static_cast<size_t>(blockIdx.y) * c.budget + i;
+  float n[3] = {0.0f, 0.0f, 0.0f};
+  bool ok = false;
+  if (i < c.hs * c.ws) {  // rows past the grid stay zero and False
+    const int sy = i / c.ws, sx = i % c.ws;
+    ok = c.stride <= 1 ? normal_full(d, c, sy, sx, n)
+                       : normal_strided(d, c, sy, sx, n);
+  }
+  normals[3 * o] = n[0];
+  normals[3 * o + 1] = n[1];
+  normals[3 * o + 2] = n[2];
+  valid[o] = ok ? 1 : 0;
+}
+
+}  // namespace
+
+PSL_API int psl_noise_alpha(const float* depth, int h, int w, int batch,
+                            float max_distance, float inv_mad,
+                            unsigned* scratch, float* alpha,
+                            cudaStream_t stream) {
+  if (batch > 0 && h > 0 && w > 0) {
+    noise_alpha_kernel<<<batch, kAlphaThreads, 0, stream>>>(
+        depth, h, w, max_distance, inv_mad, scratch, alpha);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+PSL_API int psl_frame_normals(const float* depth, int h, int w, int batch,
+                              int stride, int budget, int smooth_window,
+                              float inv_fx, float inv_fy, float cx, float cy,
+                              float* normals, unsigned char* valid,
+                              cudaStream_t stream) {
+  if (batch > 0 && budget > 0) {
+    NormalConsts c;
+    c.h = h;
+    c.w = w;
+    c.stride = stride;
+    c.b = stride < 3 ? stride : 3;
+    if (stride <= 1) {
+      c.off = 0;
+      c.hs = h;
+      c.ws = w;
+    } else {
+      c.off = stride / 2;
+      c.hs = c.off < h ? (h - c.off + stride - 1) / stride : 0;
+      c.ws = c.off < w ? (w - c.off + stride - 1) / stride : 0;
+    }
+    c.budget = budget;
+    c.k = smooth_window;
+    c.k_lo = (smooth_window - 1) / 2;
+    c.inv_fx = inv_fx;
+    c.inv_fy = inv_fy;
+    c.cx = cx;
+    c.cy = cy;
+    const dim3 grid((budget + kNormalThreads - 1) / kNormalThreads, batch);
+    frame_normals_kernel<<<grid, kNormalThreads, 0, stream>>>(depth, c,
+                                                              normals, valid);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -26,6 +26,7 @@ import threading
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
@@ -38,7 +39,8 @@ KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
                 "point_epilogue", "detect_lines", "line_descriptors",
                 "lift_lines_3d", "search_lines_by_projection",
                 "project_landmarks", "match_select", "frame_match_select",
-                "assemble_observations")
+                "assemble_observations", "noise_alpha", "frame_normals",
+                "associate_planes", "finish_step")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -49,7 +51,8 @@ CUDA_SOURCES = ("fast_score.cu", "orb_describe.cu", "hamming_top2.cu",
                 "ba_normal_eqs.cu", "ba_schur.cu", "pose_graph.cu",
                 "pose_opt.cu", "plane_segment.cu", "manhattan.cu",
                 "pyramid.cu", "select_keypoints.cu", "lines.cu",
-                "line_lift_search.cu", "matching.cu")
+                "line_lift_search.cu", "matching.cu", "depth_normals.cu",
+                "step_tail.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # Sources whose float32 gates must round as the plain version's separate
@@ -60,7 +63,9 @@ SOURCE_FLAGS = {"plane_segment.cu": ("-fmad=false",),
                 "select_keypoints.cu": ("-fmad=false",),
                 "lines.cu": ("-fmad=false",),
                 "line_lift_search.cu": ("-fmad=false",),
-                "matching.cu": ("-fmad=false",)}
+                "matching.cu": ("-fmad=false",),
+                "depth_normals.cu": ("-fmad=false",),
+                "step_tail.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -190,6 +195,21 @@ _SIGNATURES = {
     # (what a mode does not write NULL), stream
     "psl_assemble_observations": [_P, _I] + [_P] * 3 + [_I] + [_P] * 5
                                  + [_I] * 3 + [_P] * 7,
+    # depth, h, w, batch, max_distance, inv_mad, scratch, alpha, stream
+    "psl_noise_alpha": [_P, _I, _I, _I, _F, _F, _P, _P, _P],
+    # depth, h, w, batch, stride, budget, smooth_window, inv_fx, inv_fy, cx,
+    # cy, normals, valid, stream
+    "psl_frame_normals": [_P] + [_I] * 6 + [_F] * 4 + [_P] * 3,
+    # coeffs, valid, T_cw, pl_coeffs, pl_cloud, pl_cloud_n, pl_valid, P,
+    # Mp, C, batch, assoc_angle, assoc_dist, par_thr, ver_thr, direct, par,
+    # ver, pi_w, obs_pi_w, obs_valid, stream
+    "psl_associate_planes": [_P] * 7 + [_I] * 4 + [_F] * 4 + [_P] * 7,
+    # the 28 inputs of TailInputs' order, K, L, P, Wp, Wl, batch,
+    # min_inliers, fx, fy, cx, cy, inv_fx, inv_fy, width, height,
+    # depth_threshold, the bundle's offset table (host), its total, bundle,
+    # T_out, velocity, pt3d_w, valid3d, stream
+    "psl_finish_step": [_P] * 28 + [_I] * 7 + [_F] * 9 + [_P, _I]
+                       + [_P] * 6,
 }
 # Host-side helpers: plain C functions that launch nothing.
 _HELPERS = {
@@ -338,6 +358,24 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+def scalar_reciprocal(x: float) -> float:
+    """The factor PyTorch multiplies a CUDA float32 tensor with when it
+    divides it by the Python number x: 1 / x in double precision, rounded
+    to float32. A kernel that repeats such a division takes it as an
+    argument."""
+    return float(np.float32(1.0 / x))
+
+
+def per_problem(fn, tensors, *args, **kw):
+    """fn over each problem of the tensors' leading batch dimension (a None
+    stays None), the outputs stacked: the batched wrappers' CPU path."""
+    outs = [fn(*[None if t is None else t[b] for t in tensors], *args, **kw)
+            for b in range(tensors[0].shape[0])]
+    fields = [torch.stack(f) for f in zip(*outs)]
+    return type(outs[0])(*fields) if hasattr(outs[0], "_fields") \
+        else tuple(fields)
 
 
 def ptr(t: torch.Tensor) -> int:

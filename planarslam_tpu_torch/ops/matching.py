@@ -143,16 +143,6 @@ def gated_hamming_top2(a_desc: torch.Tensor, b_desc: torch.Tensor,
     return best, second, best_idx
 
 
-def _per_problem(fn, tensors, *args, **kw):
-    """fn over each problem of the tensors' leading batch dimension (a None
-    stays None), the outputs stacked: the wrappers' CPU path."""
-    outs = [fn(*[None if t is None else t[b] for t in tensors], *args, **kw)
-            for b in range(tensors[0].shape[0])]
-    fields = [torch.stack(f) for f in zip(*outs)]
-    return type(outs[0])(*fields) if hasattr(outs[0], "_fields") \
-        else tuple(fields)
-
-
 def _out(shape, dtype, dev) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=dev)
 
@@ -245,7 +235,7 @@ def project_landmarks(
             return project_landmarks_plain(
                 p, v, T, view_normals=n,
                 dist_range=None if hi is None else (lo, hi), **kw)
-        return _per_problem(one, tensors)
+        return kernels.per_problem(one, tensors)
     pts_w, valid_pts, T_cw, view_normals, dmin, dmax = [
         None if t is None else t.contiguous() for t in tensors]
     b, m = valid_pts.shape
@@ -335,7 +325,7 @@ def match_select(best: torch.Tensor, second: torch.Tensor,
         def one(best, second, best_idx, back):
             return match_select_plain(best, second, best_idx, max_dist,
                                       ratio, back, n_targets)
-        return _per_problem(one, tensors)
+        return kernels.per_problem(one, tensors)
     b, m = best.shape
     n = n_targets if n_targets is not None else (
         back.shape[1] if back is not None else 0)
@@ -494,7 +484,7 @@ def frame_match_select(proj_idx: torch.Tensor, bf_idx: torch.Tensor,
     tensors = [proj_idx, bf_idx, angle_src, angle_tgt, uv_tgt, ur_tgt,
                level_tgt]
     if kernels.on_cpu(*tensors, table):
-        return _per_problem(frame_match_select_plain, tensors, table)
+        return kernels.per_problem(frame_match_select_plain, tensors, table)
     (proj_idx, bf_idx, angle_src, angle_tgt, uv_tgt, ur_tgt,
      level_tgt) = [t.contiguous() for t in tensors]
     b, m = proj_idx.shape
@@ -618,7 +608,7 @@ def assemble_point_obs(win_idx: torch.Tensor, ff_idx: torch.Tensor,
     tensors = [win_idx, ff_idx, src_xw, win_xyz, feat_valid, feat_ur,
                feat_level]
     if kernels.on_cpu(*tensors, table):
-        return _per_problem(assemble_point_obs_plain, tensors, table)
+        return kernels.per_problem(assemble_point_obs_plain, tensors, table)
     (win_idx, ff_idx, src_xw, win_xyz, feat_valid, feat_ur,
      feat_level) = [t.contiguous() for t in tensors]
     (b, w), m, n = win_idx.shape, ff_idx.shape[1], feat_valid.shape[1]
@@ -658,7 +648,7 @@ def assemble_line_obs(lm_idx: torch.Tensor, win_sw: torch.Tensor,
     with a leading B."""
     tensors = [lm_idx, win_sw, win_ew, line_valid]
     if kernels.on_cpu(*tensors):
-        return _per_problem(assemble_line_obs_plain, tensors)
+        return kernels.per_problem(assemble_line_obs_plain, tensors)
     lm_idx, win_sw, win_ew, line_valid = [t.contiguous() for t in tensors]
     (b, w), n = lm_idx.shape, line_valid.shape[1]
     _check_targets(n, b, (

@@ -14,8 +14,14 @@ assign-and-refit round over the subsampled pixels, launched once per
 round) and ``plane_label_pixels`` (K14: the final gate and the
 full-resolution labels). Each wrapper has its plain PyTorch version beside
 it (``*_plain``), taken only for CPU tensors; ``extract_planes`` composes
-the wrappers. ``_noise_alpha``, ``box_smooth_depth`` and ``surface_normals``
-stay plain PyTorch.
+the wrappers. The noise scale before them is K28 ``_noise_alpha`` (its
+plain version ``noise_alpha_plain``), and the frame's surface normals,
+``box_smooth_depth``, ``backproject_depth`` and the strided
+``surface_normals`` padded to the normal budget, are K29 ``frame_normals``
+(its plain version ``frame_normals_plain``), both in
+``csrc/depth_normals.cu``. The plain normal chain spells every cross
+product, dot and norm in a fixed order (``dot3``, ``cross3``), which the
+kernel repeats.
 """
 
 from __future__ import annotations
@@ -94,29 +100,55 @@ def _max_window(x: torch.Tensor, k: int) -> torch.Tensor:
     return F.max_pool2d(xp, k, stride=1)[0, 0]
 
 
+def dot3(a, b):
+    """((a0 b0 + a1 b1) + a2 b2) of two 3-sequences of tensors: the order the
+    kernels repeat (a matrix product, ``linalg.cross`` or a sum over a last
+    dimension of 3 leaves its order, or a fused multiply-add, to the
+    library)."""
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def cross3(a, b):
+    """a x b of two 3-sequences of tensors, each component a difference of
+    two rounded products."""
+    return (a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
+
+
+def _oriented_normal(xp, xm, yp, ym, p):
+    """The unit normal of the central differences 0.5 (xp - xm) and
+    0.5 (yp - ym), turned toward the camera, and its norm before."""
+    dx = [0.5 * (a - b) for a, b in zip(xp, xm)]
+    dy = [0.5 * (a - b) for a, b in zip(yp, ym)]
+    n = cross3(dx, dy)
+    norm = torch.sqrt(dot3(n, n) + 1e-18)
+    n = [c / norm for c in n]
+    flip = dot3(n, p) > 0
+    return [torch.where(flip, -c, c) for c in n], norm
+
+
 @record_function("planes.surface_normals")
 def surface_normals(points: torch.Tensor, stride: int = 1
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Normals from the point map via central differences, oriented toward
     the camera. Returns (normals (H', W', 3), valid (H', W'))."""
     roll = torch.roll
-    cross = torch.linalg.cross
+
+    def shifted(comps, s, dim):
+        return [roll(c, s, dim) for c in comps]
+
     if stride <= 1:
-        p = points
-        z = p[..., 2]
-        dx = 0.5 * (roll(p, -1, 1) - roll(p, 1, 1))
-        dy = 0.5 * (roll(p, -1, 0) - roll(p, 1, 0))
-        n = cross(dx, dy)
-        norm = torch.sqrt(torch.sum(n * n, dim=-1) + 1e-18)
-        n = n / norm[..., None]
-        flip = torch.sum(n * p, dim=-1) > 0
-        n = torch.where(flip[..., None], -n, n)
-        zn = roll(z, -1, 1) * roll(z, 1, 1) * roll(z, -1, 0) * roll(z, 1, 0)
-        jump = torch.maximum(torch.abs(roll(z, -1, 1) - roll(z, 1, 1)),
-                             torch.abs(roll(z, -1, 0) - roll(z, 1, 0)))
+        p = points.unbind(-1)
+        z = p[2]
+        xp, xm = shifted(p, -1, 1), shifted(p, 1, 1)
+        yp, ym = shifted(p, -1, 0), shifted(p, 1, 0)
+        n, norm = _oriented_normal(xp, xm, yp, ym, p)
+        zn = xp[2] * xm[2] * yp[2] * ym[2]
+        jump = torch.maximum(torch.abs(xp[2] - xm[2]),
+                             torch.abs(yp[2] - ym[2]))
         valid = ((z > 1e-6) & (zn > 1e-12) & (norm > 1e-9)
                  & (jump < 0.05 * torch.clamp(z, min=1.0)))
-        return n, valid
+        return torch.stack(n, dim=-1), valid
 
     b = min(stride, 3)
     z_full = points[..., 2]
@@ -125,34 +157,80 @@ def surface_normals(points: torch.Tensor, stride: int = 1
     jmax = _max_window(jump1, 2 * b + 1)
     off = stride // 2
 
-    def sub(a):
-        return a[off::stride, off::stride]
+    def sub(comps):
+        return [c[off::stride, off::stride] for c in comps]
 
-    p = sub(points)
-    pxp = sub(roll(points, -b, 1))
-    pxm = sub(roll(points, b, 1))
-    pyp = sub(roll(points, -b, 0))
-    pym = sub(roll(points, b, 0))
-    disc_free = sub(jmax) < 0.05 * torch.clamp(p[..., 2], min=1.0)
-
-    dx = 0.5 * (pxp - pxm)
-    dy = 0.5 * (pyp - pym)
-    n = cross(dx, dy)
-    norm = torch.sqrt(torch.sum(n * n, dim=-1) + 1e-18)
-    n = n / norm[..., None]
-    flip = torch.sum(n * p, dim=-1) > 0
-    n = torch.where(flip[..., None], -n, n)
-    n_f = cross(pxp - p, pyp - p)
-    n_b = cross(p - pxm, p - pym)
-    nf_n = torch.sqrt(torch.sum(n_f * n_f, -1) + 1e-18)
-    nb_n = torch.sqrt(torch.sum(n_b * n_b, -1) + 1e-18)
-    agree = torch.sum(n_f * n_b, -1) / (nf_n * nb_n) > 0.7071
-    zn = pxp[..., 2] * pxm[..., 2] * pyp[..., 2] * pym[..., 2]
-    valid = ((p[..., 2] > 1e-6) & (zn > 1e-12) & (norm > 1e-9)
+    full = points.unbind(-1)
+    p = sub(full)
+    pxp, pxm = sub(shifted(full, -b, 1)), sub(shifted(full, b, 1))
+    pyp, pym = sub(shifted(full, -b, 0)), sub(shifted(full, b, 0))
+    disc_free = (jmax[off::stride, off::stride]
+                 < 0.05 * torch.clamp(p[2], min=1.0))
+    n, norm = _oriented_normal(pxp, pxm, pyp, pym, p)
+    # crease guard: the one-sided normals agree within 45 degrees
+    n_f = cross3([a - c for a, c in zip(pxp, p)],
+                 [a - c for a, c in zip(pyp, p)])
+    n_b = cross3([c - a for c, a in zip(p, pxm)],
+                 [c - a for c, a in zip(p, pym)])
+    nf_n = torch.sqrt(dot3(n_f, n_f) + 1e-18)
+    nb_n = torch.sqrt(dot3(n_b, n_b) + 1e-18)
+    agree = dot3(n_f, n_b) / (nf_n * nb_n) > 0.7071
+    zn = pxp[2] * pxm[2] * pyp[2] * pym[2]
+    valid = ((p[2] > 1e-6) & (zn > 1e-12) & (norm > 1e-9)
              & disc_free & agree)
     border = torch.zeros_like(valid)
     border[1:-1, 1:-1] = True
-    return n, valid & border
+    return torch.stack(n, dim=-1), valid & border
+
+
+def frame_normals_plain(depth: torch.Tensor, cam: CameraConfig,
+                        smooth_window: int, stride: int, budget: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K29 for one frame: the edge-preserving smoothed
+    depth, its point map, the normals of the sampling stride, flattened
+    row-major and padded with zero / False (or cut) to `budget` rows."""
+    depth_s = box_smooth_depth(depth, smooth_window)
+    n, v = surface_normals(backproject_depth(depth_s, cam), stride=stride)
+    n = n.reshape(-1, 3)
+    v = v.reshape(-1)
+    if n.shape[0] < budget:
+        n = F.pad(n, (0, 0, 0, budget - n.shape[0]))
+        v = F.pad(v.to(torch.uint8), (0, budget - v.shape[0])).to(torch.bool)
+    return n[:budget], v[:budget]
+
+
+@record_function("planes.frame_normals")
+def frame_normals(depth: torch.Tensor, cam: CameraConfig,
+                  smooth_window: int, stride: int, budget: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K29 wrapper. depth: (H, W) or (B, H, W) float32 metres. Returns the
+    normals (budget, 3) float32 and their flags (budget,) bool, with a
+    leading B for a batch."""
+    if depth.dim() not in (2, 3):
+        raise ValueError(f"depth: expected (H, W) or (B, H, W), got "
+                         f"{tuple(depth.shape)}")
+    frames = depth[None] if depth.dim() == 2 else depth
+    if kernels.on_cpu(depth):
+        normals, valid = kernels.per_problem(
+            frame_normals_plain, [frames], cam, smooth_window, stride, budget)
+    else:
+        kernels.check(depth, "depth", torch.float32)
+        b, h, w = frames.shape
+        dev = depth.device
+        normals = torch.empty((b, budget, 3), dtype=torch.float32,
+                              device=dev)
+        valid = torch.empty((b, budget), dtype=torch.bool, device=dev)
+        with torch.cuda.device(dev):
+            kernels.launch("psl_frame_normals", kernels.ptr(frames), h, w, b,
+                           int(stride), int(budget), int(smooth_window),
+                           kernels.scalar_reciprocal(cam.fx),
+                           kernels.scalar_reciprocal(cam.fy), float(cam.cx),
+                           float(cam.cy), kernels.ptr(normals),
+                           kernels.ptr(valid))
+        kernels.LAUNCHES["frame_normals"] += 1
+    if depth.dim() == 2:
+        return normals[0], valid[0]
+    return normals, valid
 
 
 class _BlockStats(NamedTuple):
@@ -246,9 +324,11 @@ def plane_block_moments(depth: torch.Tensor, alpha: torch.Tensor,
     return _BlockStats(s1, s2, n)
 
 
-def _noise_alpha(depth: torch.Tensor, max_distance: float) -> torch.Tensor:
-    """Per-frame depth-noise scale alpha (sigma(z) = alpha z^2) from the
-    median absolute second difference on a 4x4-strided subsample."""
+def noise_alpha_plain(depth: torch.Tensor, max_distance: float
+                      ) -> torch.Tensor:
+    """Plain version of K28 for one frame: the per-frame depth-noise scale
+    alpha (sigma(z) = alpha z^2) from the median absolute second difference
+    on a 4x4-strided subsample; () float32, 0 without a valid sample."""
     z2 = torch.clamp(depth, min=1.0) ** 2
     depth_ok = (depth > 1e-6) & (depth < max_distance)
     d2_r = torch.abs(depth - 2 * torch.roll(depth, -1, 1)
@@ -258,6 +338,33 @@ def _noise_alpha(depth: torch.Tensor, max_distance: float) -> torch.Tensor:
     sub_r = torch.where(interior, d2_r / z2, math.nan)[::4, ::4]
     alpha = nanmedian(sub_r) / _MAD_TO_SIGMA
     return torch.nan_to_num(alpha, nan=0.0)
+
+
+def _noise_alpha(depth: torch.Tensor, max_distance: float) -> torch.Tensor:
+    """K28 wrapper. depth: (H, W) float32 metres -> () float32, or
+    (B, H, W) -> (B,)."""
+    if depth.dim() not in (2, 3):
+        raise ValueError(f"depth: expected (H, W) or (B, H, W), got "
+                         f"{tuple(depth.shape)}")
+    frames = depth[None] if depth.dim() == 2 else depth
+    if kernels.on_cpu(depth):
+        alpha, = kernels.per_problem(
+            lambda d: (noise_alpha_plain(d, max_distance),), [frames])
+        return alpha[0] if depth.dim() == 2 else alpha
+    kernels.check(depth, "depth", torch.float32)
+    b, h, w = frames.shape
+    dev = depth.device
+    # the samples' float bits, one row per frame
+    scratch = torch.empty((b, -(-h // 4) * -(-w // 4)), dtype=torch.int32,
+                          device=dev)
+    alpha = torch.empty((b,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch("psl_noise_alpha", kernels.ptr(frames), h, w, b,
+                       float(max_distance),
+                       kernels.scalar_reciprocal(_MAD_TO_SIGMA),
+                       kernels.ptr(scratch), kernels.ptr(alpha))
+    kernels.LAUNCHES["noise_alpha"] += 1
+    return alpha[0] if depth.dim() == 2 else alpha
 
 
 class PlaneCandidates(NamedTuple):

@@ -9,9 +9,10 @@ with no host sync, the whole per-frame pipeline:
   -> frame-to-frame matching (projection search, brute-force fallback)
   -> pose optimization, rotation-frozen when the Manhattan frame tracked
   -> local-map point matching against the device-resident map window
-  -> on-device plane association
+  -> on-device plane association (K30)
   -> full pose optimization over point / line / plane residuals
-  -> keyframe-policy statistics, packed into one float32 bundle.
+  -> keyframe-policy statistics, packed into one float32 bundle with the
+     carried state (K31).
 
 The JAX module branches between the rotation-frozen and the full first
 solve with ``lax.cond``; here the branch is a device-side mask: one
@@ -21,6 +22,12 @@ solve with ``lax.cond``; here the branch is a device-side mask: one
 The previous frame's features and landmarks stay on the device between
 frames (``LastState``). The host reads the packed bundle ``pipeline_depth``
 frames later (``Tracking``).
+
+K30 ``_associate_planes_device`` (plain version ``_associate_planes_plain``)
+and K31 ``finish_step`` (plain version ``finish_step_plain``) are in
+``csrc/step_tail.cu``; both take a leading batch dimension. Their plain
+versions spell every 3 x 3 product, dot and norm in a fixed order
+(``planes.dot3``), which the kernels repeat.
 """
 
 from __future__ import annotations
@@ -31,16 +38,17 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from planarslam_tpu_torch.config import SystemConfig
+from planarslam_tpu_torch import kernels
+from planarslam_tpu_torch.config import PlaneConfig, SystemConfig
 from planarslam_tpu_torch.device import resolve_device
-from planarslam_tpu_torch.geometry import plane as plane_geo
 from planarslam_tpu_torch.geometry import se3
 from planarslam_tpu_torch.ops import manhattan as manhattan_ops
 from planarslam_tpu_torch.ops import matching
 from planarslam_tpu_torch.ops.frontend import PointFeatures
 from planarslam_tpu_torch.ops.lines import (LineFeatures,
                                             search_lines_by_projection)
-from planarslam_tpu_torch.ops.planes import PlaneFeatures
+from planarslam_tpu_torch.ops.consts import literal
+from planarslam_tpu_torch.ops.planes import PlaneFeatures, dot3
 from planarslam_tpu_torch.slam.frame import FrameFeatures, extract_frame
 from planarslam_tpu_torch.solvers import pose_opt
 
@@ -113,6 +121,8 @@ class BundleLayout:
         ]
         self.sizes = [int(np.prod(s)) for _, s, _ in self.fields]
         self.total = sum(self.sizes)
+        # each field's first word: K31's offset table
+        self.offsets = np.cumsum([0] + self.sizes[:-1]).astype(np.int32)
 
     def unpack(self, flat: np.ndarray) -> dict:
         out = {}
@@ -181,39 +191,89 @@ def pack_frame(gray: np.ndarray, depth: np.ndarray):
     return out
 
 
+def _t_inv(T: torch.Tensor):
+    """T_inv(T) as (rows of R^T, t'): row i of R^T is column i of R, and
+    t'_i = -(column i of R . t)."""
+    R, t = T[:3, :3], T[:3, 3]
+    rows = [R[:, i] for i in range(3)]
+    return rows, [-dot3(r, t) for r in rows]
+
+
+def _plane_to_world(T_cw: torch.Tensor, coeffs: torch.Tensor
+                    ) -> torch.Tensor:
+    """plane_geo.transform(T_inv(T_cw), coeffs) in a fixed order: (P, 4)
+    camera-frame planes to the world."""
+    rows, tw = _t_inv(T_cw)
+    n = coeffs[:, :3].unbind(-1)
+    n_w = [dot3(r, n) for r in rows]
+    return torch.stack([*n_w, coeffs[:, 3] - dot3(n_w, tw)], dim=-1)
+
+
+def _lift_features(pts: PointFeatures, T_cw: torch.Tensor, cam
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """World positions (K, 3) of the features with depth (0 elsewhere) at
+    pose T_cw, and that mask (K,)."""
+    z = pts.depth
+    has = (z > 0) & pts.valid
+    x = (pts.uv[:, 0] - cam.cx) / cam.fx * z
+    y = (pts.uv[:, 1] - cam.cy) / cam.fy * z
+    pc = (x, y, torch.clamp(z, min=0.0))
+    rows, tw = _t_inv(T_cw)
+    pw = torch.stack([dot3(r, pc) + t for r, t in zip(rows, tw)], dim=-1)
+    return torch.where(has[:, None], pw, 0.0), has
+
+
 @record_function("device_tracker._state_from")
 def _state_from(feats: FrameFeatures, T_cw, velocity,
                 cfg: SystemConfig) -> LastState:
-    cam = cfg.camera
-    z = feats.points.depth
-    has = (z > 0) & feats.points.valid
-    x = (feats.points.uv[:, 0] - cam.cx) / cam.fx * z
-    y = (feats.points.uv[:, 1] - cam.cy) / cam.fy * z
-    pc = torch.stack([x, y, torch.clamp(z, min=0.0)], dim=-1)
-    pw = se3.transform_points(se3.T_inv(T_cw), pc)
-    return LastState(feats=feats, pt3d_w=torch.where(has[:, None], pw, 0.0),
-                     valid3d=has, T_cw=T_cw, velocity=velocity)
+    pt3d_w, has = _lift_features(feats.points, T_cw, cfg.camera)
+    return LastState(feats=feats, pt3d_w=pt3d_w, valid3d=has, T_cw=T_cw,
+                     velocity=velocity)
 
 
-@record_function("device_tracker._associate_planes_device")
-def _associate_planes_device(feats: FrameFeatures, T_cw, win: DeviceWindow,
-                             cfg: SystemConfig):
-    """On-device PlaneMatcher: direct, parallel and vertical partners."""
-    pcfg = cfg.planes
-    pi_w = plane_geo.transform(se3.T_inv(T_cw), feats.planes.coeffs)
-    nf_norm = torch.clamp(torch.linalg.norm(pi_w[:, :3], dim=-1), min=1e-9)
-    nf = pi_w[:, :3] / nf_norm[:, None]
-    nm = win.pl_coeffs[:, :3] / torch.clamp(
-        torch.linalg.norm(win.pl_coeffs[:, :3], dim=-1, keepdim=True),
-        min=1e-9)
-    cos = torch.abs(nf @ nm.T)
-    both = feats.planes.valid[:, None] & win.pl_valid[None, :]
+def _empty(shape, dtype, dev) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# K30: plane association
+
+
+class PlaneAssoc(NamedTuple):
+    """K30's outputs (a leading B from the wrapper)."""
+
+    direct: torch.Tensor     # (P,) int32 map plane matched directly, or -1
+    par: torch.Tensor        # (P,) int32 parallel partner, or -1
+    ver: torch.Tensor        # (P,) int32 vertical partner, or -1
+    pi_w: torch.Tensor       # (P, 4) the frame planes in the world
+    obs_pi_w: torch.Tensor   # (3, P, 4) the map planes of direct, par, ver
+    obs_valid: torch.Tensor  # (3, P) bool: matched and a valid frame plane
+
+
+def _associate_planes_plain(coeffs, valid, T_cw, pl_coeffs, pl_cloud,
+                            pl_cloud_n, pl_valid, pcfg: PlaneConfig
+                            ) -> PlaneAssoc:
+    """Plain version of K30 for one step: the on-device PlaneMatcher, the
+    direct, parallel and vertical partners of the P frame planes (coeffs
+    (P, 4), valid (P,)) among the Mp map planes (pl_coeffs (Mp, 4),
+    pl_cloud (Mp, C, 3), pl_cloud_n (Mp,) int64, pl_valid (Mp,)), and the
+    three plane observation blocks of the pose solver."""
+    pi_w = _plane_to_world(T_cw, coeffs)
+    n_w = pi_w[:, :3].unbind(-1)
+    nf_norm = torch.clamp(torch.sqrt(dot3(n_w, n_w)), min=1e-9)
+    nf = [c / nf_norm for c in n_w]
+    m_n = pl_coeffs[:, :3].unbind(-1)
+    nm_norm = torch.clamp(torch.sqrt(dot3(m_n, m_n)), min=1e-9)
+    nm = [c / nm_norm for c in m_n]
+    cos = torch.abs(dot3([c[:, None] for c in nf], [c[None, :] for c in nm]))
+    both = valid[:, None] & pl_valid[None, :]
 
     d_f = pi_w[:, 3] / nf_norm
-    dots = torch.einsum("mcj,pj->pmc", win.pl_cloud, nf)
+    dots = dot3([c[None] for c in pl_cloud.unbind(-1)],
+                [c[:, None, None] for c in nf])
     dist = torch.abs(dots + d_f[:, None, None])
-    c_ids = torch.arange(win.pl_cloud.shape[1], device=cos.device)
-    dist = torch.where(c_ids[None, None, :] < win.pl_cloud_n[None, :, None],
+    c_ids = torch.arange(pl_cloud.shape[1], device=cos.device)
+    dist = torch.where(c_ids[None, None, :] < pl_cloud_n[None, :, None],
                        dist, torch.inf)
     dmin = dist.amin(dim=-1)
 
@@ -233,7 +293,54 @@ def _associate_planes_device(feats: FrameFeatures, T_cw, win: DeviceWindow,
                             cos, 2.0)
     ver = torch.where(ver_score.amin(dim=-1) < 2.0,
                       torch.argmin(ver_score, dim=-1), -1).to(torch.int32)
-    return direct, par, ver, pi_w
+    ids = torch.stack([direct, par, ver])
+    j = torch.clamp(ids, 0, pl_coeffs.shape[0] - 1).to(torch.int64)
+    return PlaneAssoc(direct, par, ver, pi_w, pl_coeffs[j],
+                      (ids >= 0) & valid[None, :])
+
+
+@record_function("device_tracker._associate_planes_device")
+def _associate_planes_device(coeffs, valid, T_cw, pl_coeffs, pl_cloud,
+                             pl_cloud_n, pl_valid, pcfg: PlaneConfig
+                             ) -> PlaneAssoc:
+    """K30 wrapper: B steps, coeffs (B, P, 4) float32, valid (B, P) bool,
+    T_cw (B, 4, 4) float32 read on the device, pl_coeffs (B, Mp, 4),
+    pl_cloud (B, Mp, C, 3) float32, pl_cloud_n (B, Mp) int64, pl_valid
+    (B, Mp) bool. Returns PlaneAssoc with a leading B."""
+    tensors = [coeffs, valid, T_cw, pl_coeffs, pl_cloud, pl_cloud_n,
+               pl_valid]
+    if kernels.on_cpu(*tensors):
+        return kernels.per_problem(_associate_planes_plain, tensors, pcfg)
+    coeffs, valid, T_cw, pl_coeffs, pl_cloud, pl_cloud_n, pl_valid = [
+        t.contiguous() for t in tensors]
+    b, p = valid.shape
+    mp, c = pl_cloud.shape[1:3]
+    kernels.check(coeffs, "coeffs", torch.float32, (b, p, 4))
+    kernels.check(valid, "valid", torch.bool, (b, p))
+    kernels.check(T_cw, "T_cw", torch.float32, (b, 4, 4))
+    kernels.check(pl_coeffs, "pl_coeffs", torch.float32, (b, mp, 4))
+    kernels.check(pl_cloud, "pl_cloud", torch.float32, (b, mp, c, 3))
+    kernels.check(pl_cloud_n, "pl_cloud_n", torch.int64, (b, mp))
+    kernels.check(pl_valid, "pl_valid", torch.bool, (b, mp))
+    dev = coeffs.device
+    out = PlaneAssoc(direct=_empty((b, p), torch.int32, dev),
+                     par=_empty((b, p), torch.int32, dev),
+                     ver=_empty((b, p), torch.int32, dev),
+                     pi_w=_empty((b, p, 4), torch.float32, dev),
+                     obs_pi_w=_empty((b, 3, p, 4), torch.float32, dev),
+                     obs_valid=_empty((b, 3, p), torch.bool, dev))
+    with torch.cuda.device(dev):
+        kernels.launch("psl_associate_planes",
+                       *[kernels.ptr(t) for t in (coeffs, valid, T_cw,
+                                                  pl_coeffs, pl_cloud,
+                                                  pl_cloud_n, pl_valid)],
+                       p, mp, c, b, float(pcfg.assoc_angle),
+                       float(pcfg.assoc_dist),
+                       float(pcfg.parallel_threshold),
+                       float(pcfg.vertical_threshold),
+                       *[kernels.ptr(t) for t in out])
+    kernels.LAUNCHES["associate_planes"] += 1
+    return out
 
 
 def fused_track_step(gray: torch.Tensor, depth: torch.Tensor,
@@ -264,24 +371,190 @@ def _with_rotation(T: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
 
 
 def _in_view(T, pts, K, cam) -> torch.Tensor:
-    pc = se3.transform_points(T, pts)
+    p = pts.unbind(-1)
+    pc = torch.stack([dot3(T[i, :3], p) + T[i, 3] for i in range(3)], dim=-1)
     uv = se3.project(K, pc)
     return ((pc[:, 2] > 0.05) & (uv[:, 0] >= 0) & (uv[:, 0] < cam.width)
             & (uv[:, 1] >= 0) & (uv[:, 1] < cam.height))
+
+
+# ---------------------------------------------------------------------------
+# K31: the step's tail
+
+
+class StepTail(NamedTuple):
+    """What the tracking step's tail reads (a leading B in the wrapper)."""
+
+    T_cand: torch.Tensor      # (4, 4) the final solve's pose
+    n_in2: torch.Tensor       # () int64 its point inliers
+    T1: torch.Tensor          # (4, 4) the pose the final solve started from
+    n_in1: torch.Tensor       # () int64 the first solve's point inliers
+    T_last: torch.Tensor      # (4, 4) the previous pose (override applied)
+    R_cm: torch.Tensor        # (3, 3) Manhattan rotation
+    manh_success: torch.Tensor  # () bool
+    use_manh: torch.Tensor    # () bool
+    ff_idx: torch.Tensor      # (K,) int32 last-feature -> feature match
+    feat_slot: torch.Tensor   # (K,) int32 feature -> window point slot
+    inl: torch.Tensor         # (K,) bool final point inliers
+    obs2_valid: torch.Tensor  # (K,) bool final point observations
+    pt_uv: torch.Tensor       # (K, 2) float32
+    pt_depth: torch.Tensor    # (K,) float32
+    pt_valid: torch.Tensor    # (K,) bool
+    win_idx: torch.Tensor     # (Wp,) int32 window point -> feature, or -1
+    win_xyz: torch.Tensor     # (Wp, 3) float32
+    win_valid: torch.Tensor   # (Wp,) bool
+    lm_idx: torch.Tensor      # (Wl,) int32 window line -> frame line, or -1
+    ln_sw: torch.Tensor       # (Wl, 3) float32
+    ln_ew: torch.Tensor       # (Wl, 3) float32
+    ln_valid: torch.Tensor    # (Wl,) bool
+    ln_slot: torch.Tensor     # (L,) int32 frame line -> window line slot
+    pl_direct: torch.Tensor   # (P,) int32
+    pl_par: torch.Tensor      # (P,) int32
+    pl_ver: torch.Tensor      # (P,) int32
+    pl_coeffs: torch.Tensor   # (P, 4) float32 camera-frame planes
+    pl_valid: torch.Tensor    # (P,) bool
+
+
+class StepOut(NamedTuple):
+    """K31's outputs (a leading B from the wrapper)."""
+
+    packed: torch.Tensor    # (total,) float32 BundleLayout bundle
+    T_out: torch.Tensor     # (4, 4) the step's pose
+    velocity: torch.Tensor  # (4, 4) T_out T_inv(T_last)
+    pt3d_w: torch.Tensor    # (K, 3) carried world points
+    valid3d: torch.Tensor   # (K,) bool
+
+
+def _times_inv(T: torch.Tensor, T_last: torch.Tensor) -> torch.Tensor:
+    """T @ T_inv(T_last), each entry ((a0 b0 + a1 b1) + a2 b2) + a3 b3."""
+    rows, tw = _t_inv(T_last)
+    Ti = torch.stack([torch.stack([r[0], r[1], r[2], t])
+                      for r, t in zip(rows, tw)]
+                     + [literal((0.0, 0.0, 0.0, 1.0), T.dtype, T.device)])
+    return (((T[:, 0:1] * Ti[0:1] + T[:, 1:2] * Ti[1:2])
+             + T[:, 2:3] * Ti[2:3]) + T[:, 3:4] * Ti[3:4])
+
+
+def finish_step_plain(t: StepTail, cfg: SystemConfig) -> StepOut:
+    """Plain version of K31 for one step: the final pose (the last solve's
+    where it kept enough inliers), the outlier-free window slots, the found
+    and visible flags of the window, the keyframe counts, the planes in the
+    world, the packed bundle, the carried world points and the velocity."""
+    cam = cfg.camera
+    K = (cam.fx, cam.fy, cam.cx, cam.cy)
+    ok2 = t.n_in2 >= cfg.tracking.min_matches_local_map // 2
+    T_out = torch.where(ok2, t.T_cand, t.T1)
+    with record_function("device_tracker.keyframe_stats"):
+        feat_slot_out = torch.where(t.inl | ~(t.feat_slot >= 0), t.feat_slot,
+                                    -1)
+        ln_win_visible = t.ln_valid & _in_view(
+            T_out, 0.5 * (t.ln_sw + t.ln_ew), K, cam)
+        win_visible = t.win_valid & _in_view(T_out, t.win_xyz, K, cam)
+        close = (t.pt_depth > 0) & (t.pt_depth < cam.depth_threshold)
+        tracked = t.obs2_valid & t.inl
+        kf_stats = torch.stack([
+            torch.sum((close & tracked).to(torch.float32)),
+            torch.sum((close & ~tracked & t.pt_valid).to(torch.float32)),
+            torch.sum((t.pt_depth > 0).to(torch.float32)),
+            torch.sum(tracked.to(torch.float32)),
+        ])
+    packed = _pack(
+        BundleLayout(cfg), T_out=T_out, R_cm=t.R_cm,
+        flags=torch.stack([t.manh_success.to(torch.float32),
+                           t.use_manh.to(torch.float32),
+                           t.n_in1.to(torch.float32),
+                           t.n_in2.to(torch.float32)]),
+        ff_idx=t.ff_idx, win_idx=feat_slot_out, pt_inlier=t.inl,
+        win_found=t.win_idx >= 0, win_visible=win_visible,
+        ln_win_idx=t.ln_slot, ln_win_found=t.lm_idx >= 0,
+        ln_win_visible=ln_win_visible, pl_direct=t.pl_direct,
+        pl_par=t.pl_par, pl_ver=t.pl_ver,
+        pl_coeffs_w=_plane_to_world(T_out, t.pl_coeffs),
+        pl_valid=t.pl_valid, kf_stats=kf_stats)
+    pts = PointFeatures(uv=t.pt_uv, uv_raw=None, response=None, level=None,
+                        angle=None, desc=None, depth=t.pt_depth,
+                        u_right=None, valid=t.pt_valid)
+    pt3d_w, valid3d = _lift_features(pts, T_out, cam)
+    return StepOut(packed, T_out, _times_inv(T_out, t.T_last), pt3d_w,
+                   valid3d)
+
+
+# dtype of each StepTail field on the card
+_TAIL_DTYPES = {"n_in2": torch.int64, "n_in1": torch.int64,
+                "manh_success": torch.bool, "use_manh": torch.bool,
+                "inl": torch.bool, "obs2_valid": torch.bool,
+                "pt_valid": torch.bool, "win_valid": torch.bool,
+                "ln_valid": torch.bool, "pl_valid": torch.bool,
+                "ff_idx": torch.int32, "feat_slot": torch.int32,
+                "win_idx": torch.int32, "lm_idx": torch.int32,
+                "ln_slot": torch.int32, "pl_direct": torch.int32,
+                "pl_par": torch.int32, "pl_ver": torch.int32}
+
+
+@record_function("device_tracker.finish_step")
+def finish_step(t: StepTail, cfg: SystemConfig) -> StepOut:
+    """K31 wrapper: B steps, every field of t with a leading B (poses and
+    counts read on the device). Returns StepOut with a leading B."""
+    if kernels.on_cpu(*t):
+        return kernels.per_problem(
+            lambda *f: finish_step_plain(StepTail(*f), cfg), list(t))
+    t = StepTail(*[x.contiguous() for x in t])
+    b, k = t.inl.shape
+    wp, wl = t.win_idx.shape[1], t.lm_idx.shape[1]
+    n_l, n_p = t.ln_slot.shape[1], t.pl_direct.shape[1]
+    shapes = dict(T_cand=(4, 4), n_in2=(), T1=(4, 4), n_in1=(),
+                  T_last=(4, 4), R_cm=(3, 3), manh_success=(), use_manh=(),
+                  pt_uv=(k, 2), win_xyz=(wp, 3), ln_sw=(wl, 3),
+                  ln_ew=(wl, 3), pl_coeffs=(n_p, 4))
+    lengths = dict(ff_idx=k, feat_slot=k, inl=k, obs2_valid=k, pt_depth=k,
+                   pt_valid=k, win_idx=wp, win_valid=wp, lm_idx=wl,
+                   ln_valid=wl, ln_slot=n_l, pl_direct=n_p, pl_par=n_p,
+                   pl_ver=n_p, pl_valid=n_p)
+    for name, x in zip(StepTail._fields, t):
+        shape = shapes.get(name, (lengths.get(name),))
+        kernels.check(x, name, _TAIL_DTYPES.get(name, torch.float32),
+                      (b, *shape))
+    layout = BundleLayout(cfg)
+    # csrc/step_tail.cu's enum Field names the 17 fields in this order
+    assert len(layout.fields) == 17
+    sizes = {f[0]: n for f, n in zip(layout.fields, layout.sizes)}
+    widths = dict(ff_idx=k, ln_win_idx=n_l, pl_direct=n_p, win_found=wp,
+                  ln_win_found=wl)
+    if any(sizes[f] != n for f, n in widths.items()):
+        raise ValueError(f"finish_step: widths {widths} differ from the "
+                         f"bundle layout's {sizes}")
+    cam = cfg.camera
+    dev = t.inl.device
+    out = StepOut(packed=_empty((b, layout.total), torch.float32, dev),
+                  T_out=_empty((b, 4, 4), torch.float32, dev),
+                  velocity=_empty((b, 4, 4), torch.float32, dev),
+                  pt3d_w=_empty((b, k, 3), torch.float32, dev),
+                  valid3d=_empty((b, k), torch.bool, dev))
+    with torch.cuda.device(dev):
+        kernels.launch("psl_finish_step", *[kernels.ptr(x) for x in t],
+                       k, n_l, n_p, wp, wl, b,
+                       int(cfg.tracking.min_matches_local_map // 2),
+                       float(cam.fx), float(cam.fy), float(cam.cx),
+                       float(cam.cy), kernels.scalar_reciprocal(cam.fx),
+                       kernels.scalar_reciprocal(cam.fy), float(cam.width),
+                       float(cam.height), float(cam.depth_threshold),
+                       kernels.host_ptr(layout.offsets), layout.total,
+                       *[kernels.ptr(x) for x in out])
+    kernels.LAUNCHES["finish_step"] += 1
+    return out
 
 
 def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
                 manh_enabled, last: LastState, win_flat: torch.Tensor,
                 weights: pose_opt.PoseOptWeights,
                 cfg: SystemConfig) -> StepResult:
-    """Everything after extraction: Manhattan tracking, matching, pose
-    optimization, bundle packing."""
+    """Everything after extraction: Manhattan tracking, matching, plane
+    association, pose optimization, bundle packing."""
     win = unpack_window(win_flat, cfg)
     dev = win_flat.device
     cam = cfg.camera
     K = (cam.fx, cam.fy, cam.cx, cam.cy)
     wh = (float(cam.width), float(cam.height))
-    layout = BundleLayout(cfg)
     with record_function("device_tracker.predict"):
         eye4 = torch.eye(4, dtype=torch.float32, device=dev)
 
@@ -346,20 +619,16 @@ def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
             xw_s=la.xw_s[0], xw_e=la.xw_e[0], line2d=feats.lines.line2d,
             inv_sigma2=la.inv_sigma2[0], valid=la.valid[0])
 
-    pl_direct, pl_par, pl_ver, _ = _associate_planes_device(
-        feats, T_init, win, cfg)
-    Mp = win.pl_coeffs.shape[0]
-
-    def plane_block(ids):
-        j = torch.clamp(ids, 0, Mp - 1).to(torch.int64)
-        return pose_opt.PlaneObs(pi_w=win.pl_coeffs[j],
-                                 pi_obs=feats.planes.coeffs,
-                                 valid=(ids >= 0) & feats.planes.valid)
-
-    with record_function("device_tracker.plane_observations"):
-        pl_obs = plane_block(pl_direct)
-        par_obs = plane_block(pl_par)
-        ver_obs = plane_block(pl_ver)
+    # plane association at the predicted pose, with the three plane
+    # observation blocks of the pose solver (K30)
+    assoc = _associate_planes_device(
+        feats.planes.coeffs[None], feats.planes.valid[None], T_init[None],
+        win.pl_coeffs[None], win.pl_cloud[None], win.pl_cloud_n[None],
+        win.pl_valid[None], cfg.planes)
+    pl_obs, par_obs, ver_obs = (
+        pose_opt.PlaneObs(pi_w=assoc.obs_pi_w[0, k],
+                          pi_obs=feats.planes.coeffs,
+                          valid=assoc.obs_valid[0, k]) for k in range(3))
 
     # rotation-frozen solve where the Manhattan frame tracked, full pose
     # otherwise: one solve, the branch is the device-side mask use_manh
@@ -386,7 +655,6 @@ def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
             win.pt_xyz[None], pts.valid[None], pts.u_right[None],
             pts.level[None], inv_s2)
         feat_slot = pa.feat_slot[0]
-        has_slot = feat_slot >= 0
         obs2_valid = pa.valid[0]
         obs2 = pose_opt.PointObs(xw=pa.xw[0], uv=pts.uv,
                                  u_right=pa.u_right[0],
@@ -398,45 +666,24 @@ def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
                                   planes=pl_obs, par_planes=par_obs,
                                   ver_planes=ver_obs, weights=weights,
                                   rotation_fixed=False)
-    ok2 = res2.n_point_inliers >= cfg.tracking.min_matches_local_map // 2
-    T_out = torch.where(ok2, res2.T_cw, T1)
 
-    with record_function("device_tracker.keyframe_stats"):
-        inl = res2.point_inlier
-        feat_slot_out = torch.where(inl | ~has_slot, feat_slot, -1)
-
-        ln_win_found = lm_idx >= 0
-        ln_win_visible = win.ln_valid & _in_view(
-            T_out, 0.5 * (win.ln_sw + win.ln_ew), K, cam)
-        win_found = win_res.idx >= 0
-        win_visible = win.pt_valid & _in_view(T_out, win.pt_xyz, K, cam)
-
-        close = (pts.depth > 0) & (pts.depth < cam.depth_threshold)
-        tracked = obs2_valid & inl
-        kf_stats = torch.stack([
-            torch.sum((close & tracked).to(torch.float32)),
-            torch.sum((close & ~tracked & pts.valid).to(torch.float32)),
-            torch.sum((pts.depth > 0).to(torch.float32)),
-            torch.sum(tracked.to(torch.float32)),
-        ])
-
-    packed = _pack(
-        layout, T_out=T_out, R_cm=manh.R_cm,
-        flags=torch.stack([manh.success.to(torch.float32),
-                           use_manh.to(torch.float32),
-                           res1.n_point_inliers.to(torch.float32),
-                           res2.n_point_inliers.to(torch.float32)]),
-        ff_idx=ff_idx, win_idx=feat_slot_out, pt_inlier=inl,
-        win_found=win_found, win_visible=win_visible, ln_win_idx=ln_slot,
-        ln_win_found=ln_win_found, ln_win_visible=ln_win_visible,
-        pl_direct=pl_direct, pl_par=pl_par, pl_ver=pl_ver,
-        pl_coeffs_w=plane_geo.transform(se3.T_inv(T_out),
-                                        feats.planes.coeffs),
-        pl_valid=feats.planes.valid, kf_stats=kf_stats)
-
-    new_vel = T_out @ se3.T_inv(T_last)
-    return StepResult(packed=packed,
-                      new_state=_state_from(feats, T_out, new_vel, cfg))
+    # the final pose, the window flags, the keyframe counts, the packed
+    # bundle and the carried state (K31)
+    tail = StepTail(
+        T_cand=res2.T_cw, n_in2=res2.n_point_inliers, T1=T1,
+        n_in1=res1.n_point_inliers, T_last=T_last, R_cm=manh.R_cm,
+        manh_success=manh.success, use_manh=use_manh, ff_idx=ff_idx,
+        feat_slot=feat_slot, inl=res2.point_inlier, obs2_valid=obs2_valid,
+        pt_uv=pts.uv, pt_depth=pts.depth, pt_valid=pts.valid,
+        win_idx=win_res.idx, win_xyz=win.pt_xyz, win_valid=win.pt_valid,
+        lm_idx=lm_idx, ln_sw=win.ln_sw, ln_ew=win.ln_ew,
+        ln_valid=win.ln_valid, ln_slot=ln_slot, pl_direct=assoc.direct[0],
+        pl_par=assoc.par[0], pl_ver=assoc.ver[0],
+        pl_coeffs=feats.planes.coeffs, pl_valid=feats.planes.valid)
+    out = finish_step(StepTail(*[x[None] for x in tail]), cfg)
+    return StepResult(packed=out.packed[0], new_state=LastState(
+        feats=feats, pt3d_w=out.pt3d_w[0], valid3d=out.valid3d[0],
+        T_cw=out.T_out[0], velocity=out.velocity[0]))
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from planarslam_tpu_torch.config import SystemConfig
 from planarslam_tpu_torch.ops import lines as line_ops
@@ -46,18 +45,9 @@ def extract_frame(gray: torch.Tensor, depth: torch.Tensor,
     lns = line_ops.extract_line_features(gray, depth, cfg.camera, cfg.lines)
     # planes read the raw depth; normals read an edge-preserving smoothed one
     pls = plane_ops.extract_planes(depth, cfg.camera, cfg.planes)
-    depth_s = plane_ops.box_smooth_depth(depth, cfg.planes.smooth_window)
-    points3d = plane_ops.backproject_depth(depth_s, cfg.camera)
-    n, v = plane_ops.surface_normals(points3d, stride=_normal_stride(cfg))
-    n = n.reshape(-1, 3)
-    v = v.reshape(-1)
-    budget = cfg.manhattan.max_normals
-    if n.shape[0] < budget:
-        n = F.pad(n, (0, 0, 0, budget - n.shape[0]))
-        v = F.pad(v.to(torch.uint8), (0, budget - v.shape[0])).to(torch.bool)
-    else:
-        n = n[:budget]
-        v = v[:budget]
+    n, v = plane_ops.frame_normals(depth, cfg.camera, cfg.planes.smooth_window,
+                                   _normal_stride(cfg),
+                                   cfg.manhattan.max_normals)
     return FrameFeatures(points=pts, lines=lns, planes=pls, normals=n,
                          normals_valid=v)
 

@@ -1,4 +1,4 @@
-"""The hand-written Hopper kernels (K1-K27) against their plain PyTorch
+"""The hand-written Hopper kernels (K1-K31) against their plain PyTorch
 versions on the card. These need a GPU: without one every test skips.
 
     python -m pytest tests/test_torch_kernels.py -q     # on the GPU machine
@@ -15,6 +15,7 @@ from planarslam_tpu_torch.config import SystemConfig
 from planarslam_tpu_torch.io import synthetic
 from planarslam_tpu_torch.ops import fast, image, lines, matching, orb, planes
 from planarslam_tpu_torch.ops.frontend import EDGE_BORDER
+from planarslam_tpu_torch.slam import device_tracker
 
 pytestmark = pytest.mark.cuda
 
@@ -672,3 +673,69 @@ def test_matching_kernels_batched(dev, batch):
         for f in one._fields:
             assert torch.equal(getattr(pa, f)[b], getattr(one, f)[0]), f
     assert not torch.equal(sel[0][0], sel[0][1])
+
+
+def test_tail_kernels(dev):
+    """K28-K31 at the default configuration's widths (chip_smoke.py's
+    tail_kernel_parity states the cases): every output equal to the plain
+    version's bit for bit, two launches equal bits."""
+    cfg = SystemConfig()
+    seq = synthetic.make_sequence(chip_smoke.TAIL_FRAMES, width=640,
+                                  height=480)
+    n0 = dict(kernels.LAUNCHES)
+    out = _held(chip_smoke.tail_kernel_parity, seq, cfg, dev)
+    assert [k["name"] for k in out] == ["noise_alpha", "frame_normals",
+                                        "associate_planes", "finish_step"]
+    for k in out:
+        assert kernels.LAUNCHES[k["name"]] > n0[k["name"]]
+
+
+@pytest.mark.parametrize("batch", [2, 3])
+def test_tail_kernels_batched(dev, batch):
+    """The leading batch count of K28-K31: `batch` frames (the room's
+    first), planted associations and random tails through one launch each
+    give what each gives alone."""
+    cfg = SystemConfig()
+    cam = cfg.camera
+    seq = synthetic.make_sequence(batch, width=640, height=480,
+                                  depth_noise=1.0, noise_model="kinect")
+    depth = torch.from_numpy(np.stack([np.asarray(seq.render(b)[1],
+                                                  np.float32)
+                                       for b in range(batch)])).to(dev)
+    assoc = [chip_smoke.planted_plane_problem(np.random.default_rng(b),
+                                              chip_smoke.PLANE_CASES[b])
+             for b in range(batch)]
+    a_args = [torch.from_numpy(np.stack([p[k] for p in assoc])).to(dev)
+              for k in chip_smoke.PLANE_KEYS]
+    tails = [chip_smoke.random_tail_problem(np.random.default_rng(b), cfg,
+                                            b % 2 == 0)
+             for b in range(batch)]
+    tail = device_tracker.StepTail(*[
+        torch.from_numpy(np.stack([np.asarray(t[f]) for t in tails])).to(dev)
+        for f in device_tracker.StepTail._fields])
+    n_args = (cam, cfg.planes.smooth_window, 13, cfg.manhattan.max_normals)
+    n0 = dict(kernels.LAUNCHES)
+    alpha = planes._noise_alpha(depth, cfg.planes.max_distance)
+    normals, valid = planes.frame_normals(depth, *n_args)
+    pa = device_tracker._associate_planes_device(*a_args, cfg.planes)
+    out = device_tracker.finish_step(tail, cfg)
+    for name in ("noise_alpha", "frame_normals", "associate_planes",
+                 "finish_step"):
+        assert kernels.LAUNCHES[name] == n0[name] + 1, name
+    for b in range(batch):
+        assert torch.equal(alpha[b], planes._noise_alpha(
+            depth[b], cfg.planes.max_distance))
+        n1, v1 = planes.frame_normals(depth[b], *n_args)
+        assert torch.equal(normals[b], n1) and torch.equal(valid[b], v1)
+        one = device_tracker._associate_planes_device(
+            *[a[b:b + 1] for a in a_args], cfg.planes)
+        for f in one._fields:
+            assert torch.equal(getattr(pa, f)[b], getattr(one, f)[0]), f
+        one = device_tracker.finish_step(
+            device_tracker.StepTail(*[x[b:b + 1] for x in tail]), cfg)
+        assert torch.equal(out.packed[b].view(torch.int32),
+                           one.packed[0].view(torch.int32))
+        for f in one._fields[1:]:
+            assert torch.equal(getattr(out, f)[b], getattr(one, f)[0]), f
+    assert alpha[0] != alpha[1]
+    assert not torch.equal(pa.direct[0], pa.direct[1])

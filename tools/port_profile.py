@@ -18,9 +18,12 @@ device_mapper.mapping_step, local_mapping.finish_keyframe,
 tracking.relocalize, loop_closing.process_keyframe, pose_graph.optimize,
 global_ba.global_bundle_adjustment and local_ba.local_bundle_adjustment,
 the glue spans of the fused step: device_tracker.unpack_window, .predict,
-.point_observations, .line_observations, .plane_observations,
-.map_observations, .keyframe_stats, ._state_from and ._pack, and
-planes.box_smooth_depth and planes.backproject_depth),
+.point_observations, .line_observations and .map_observations, and the
+spans of K28-K31's wrappers: planes.extract_planes (K28 in it),
+planes.frame_normals (K29; box_smooth_depth, backproject_depth and
+surface_normals before), device_tracker._associate_planes_device (K30;
+with plane_observations before) and device_tracker.finish_step (K31;
+keyframe_stats, _pack and _state_from before)),
 the host time and the device time of its kernels, the busy share of the
 device over the window, the device time of the hand-written kernels, the
 host-to-device copies per frame, and the top kernels by device time.
@@ -66,7 +69,9 @@ PORT_KERNELS = ("fast_score_kernel", "fast_score_levels_kernel",
                 "lines_lift_kernel", "lines_search_rows_kernel",
                 "lines_search_gate_kernel", "project_landmarks_kernel",
                 "match_select_kernel", "frame_matches_kernel",
-                "assemble_observations_kernel")
+                "assemble_observations_kernel", "noise_alpha_kernel",
+                "frame_normals_kernel", "associate_planes_kernel",
+                "finish_step_kernel")
 
 
 def main(argv=None) -> int:
