@@ -57,8 +57,12 @@ Phases, each fatal on failure:
      launched inside every loop verification;
   8. path 4b, a constructed loop: a map tracked over the room's first 48
      frames gets a copy of keyframe 0 with a drifted pose and cloned
-     landmarks; verification, the pose graph (K10), the fuse and global BA
-     (K8, K9) must pull the drift back and merge the clones;
+     landmarks; verification (K3, K6, K32), the pose graph (K10), the fuse
+     and global BA (K8, K9, K33-K35) must pull the drift back and merge the
+     clones; then the loop kernels' parity (loop_kernel_parity): K32-K35
+     against their plain versions on the inputs path 4b's correction gave
+     them (its two loop-edge refinements, one LM step of its first global
+     BA solve), two launches equal bits;
   9. path 4c, BA at scale: ba_solve on a 96-keyframe perturbed orbit and
      ba_solve_pcg on a 256-keyframe one, to the convergence limits of
      tests/test_ba_full.py;
@@ -81,9 +85,12 @@ K3 per search_by_projection and two per match_descriptors call, one K25 per
 either call, one K26 per tracking step and per rotation_histogram_filter
 call and two K27 per tracking step (inside each tracking step K24 2, K3
 4, K25 3, K26 1, K27 2, K30 1, K31 1), one K28 and one K29 per
-extract_frame call; no plain line, matching, noise, normal, plane
-association or step-tail function may see a tensor on the card. The line
-before the
+extract_frame call, one K32 per refine_relative_se3 call, per LM step of
+ba_solve and ba_solve_pcg one K33 launch (the mu_p pass) and one more
+with plane tables and one K34, per dense step one K35, one K34 per solve
+(its tables mode); no plain line, matching, noise, normal, plane
+association, step-tail, refinement, plane-block, cost-test or
+reduced-system function may see a tensor on the card. The line before the
 last is a JSON object with one entry per kernel (its time and its plain
 version's, the least time the card could take for the same bytes and
 operations, and a PyTorch call's time where one computes the same
@@ -106,7 +113,8 @@ ATE_LIMIT_M = 0.010
 TIMING_REPS = 25
 TRACKING_FRAMES = 96  # path 1 (tracking alone)
 LOOP_FRAMES = 96      # path 4a
-CONSTRUCTED_FRAMES = 48  # path 4b
+CONSTRUCTED_FRAMES = 48  # path 4b, the first frames of a sequence of
+CONSTRUCTED_SEQUENCE = 96  # frames (the trajectory spans them all)
 # one NVIDIA H100 SXM at its 700 W limit (NVIDIA data sheet): HBM
 # bytes/s, and float32 operations/s outside the tensor cores, the rate used
 # for every kernel's operations (integer and float64 work included)
@@ -2690,6 +2698,16 @@ PLAIN_TAIL_FUNCTIONS = (("planes", "noise_alpha_plain"),
                         ("planes", "frame_normals_plain"),
                         ("device_tracker", "_associate_planes_plain"),
                         ("device_tracker", "finish_step_plain"))
+PLAIN_LOOP_FUNCTIONS = (("sim3_solver", "_refine_relative_plain"),
+                        ("ba_core", "plane_blocks_plain"),
+                        ("ba_core", "cost_test_plain"),
+                        ("ba_core", "_chi2"),
+                        ("ba_core", "reduced_system_plain"))
+# the inputs of path 4b's two loop-edge refinements and its first global
+# BA solve (loop_kernel_parity's)
+LOOP_CAPTURE = (("sim3_solver", "refine_relative_se3", 1),
+                ("sim3_solver", "refine_relative_se3", 2),
+                ("global_ba", "ba_solve", 1))
 # the two pose_optimize calls (obs1, obs2) of path 1's 21st fused frame
 POSE_CAPTURE = (("pose_opt", "pose_optimize", 41),
                 ("pose_opt", "pose_optimize", 42))
@@ -2707,7 +2725,14 @@ COUNTED_CALLS = (
     ("matching", "rotation_histogram_filter", "rotation_filter_calls"),
     ("device_tracker", "_track_core", "track_core_calls"),
     ("device_tracker", "extract_frame", "frame_calls"),
-    ("tracking", "extract_frame", "frame_calls"))
+    ("tracking", "extract_frame", "frame_calls"),
+    ("sim3_solver", "refine_relative_se3", "refine_calls"),
+    ("ba_core", "ba_plane_blocks", "plane_block_calls"),
+    ("ba_pcg", "ba_plane_blocks", "plane_block_calls"),
+    ("ba_core", "ba_cost_test", "cost_test_calls"),
+    ("ba_pcg", "ba_cost_test", "cost_test_calls"),
+    ("ba_core", "ba_chi2_tables", "chi2_table_calls"),
+    ("ba_core", "ba_reduced_system", "reduced_system_calls"))
 
 
 def _on_card(obj) -> bool:
@@ -2732,9 +2757,13 @@ def _pose_calls(capture=()):
     tracking.py import the line search from ops/lines.py at the call,
     fused_track_step calls device_tracker._track_core, the tracking step
     of one frame, whose counted launches are counted apart, and
-    device_tracker.py and tracking.py import extract_frame by name), count
-    the calls of a plain line, matching, noise, normal, plane association
-    or step-tail function with a tensor on the card, and keep under
+    device_tracker.py and tracking.py import extract_frame by name;
+    loop_closing.py imports refine_relative_se3 from sim3_solver at the
+    call, ba_solve looks K33-K35's wrappers up in ba_core and ba_pcg imports
+    K33's and K34's by name; a K33 call with plane tables is counted apart),
+    count the calls of a plain line, matching, noise, normal, plane
+    association, step-tail, refinement, plane-block, cost-test or
+    reduced-system function with a tensor on the card, and keep under
     "inputs", keyed by the triple, the inputs of each call named in
     `capture` by (module, attribute, call number from 1; -1: the last)."""
     import torch
@@ -2742,14 +2771,16 @@ def _pose_calls(capture=()):
     from planarslam_tpu_torch import kernels
     from planarslam_tpu_torch.ops import lines, manhattan, matching, planes
     from planarslam_tpu_torch.slam import device_tracker, frame, tracking
-    from planarslam_tpu_torch.solvers import pose_opt
+    from planarslam_tpu_torch.solvers import (ba_core, ba_pcg, global_ba,
+                                              pose_opt, sim3_solver)
 
     modules = {"pose_opt": pose_opt, "planes": planes,
                "manhattan": manhattan, "frame": frame, "lines": lines,
                "device_tracker": device_tracker, "matching": matching,
-               "tracking": tracking}
+               "tracking": tracking, "sim3_solver": sim3_solver,
+               "ba_core": ba_core, "ba_pcg": ba_pcg, "global_ba": global_ba}
     rec = {key: 0 for _, _, key in COUNTED_CALLS}
-    rec.update(inputs={}, plain_calls_on_card=0,
+    rec.update(inputs={}, plain_calls_on_card=0, plane_block_with_planes=0,
                step_launches=dict.fromkeys(STEP_LAUNCHES, 0))
     orig = [(modules[mod], attr, getattr(modules[mod], attr))
             for mod, attr, _ in COUNTED_CALLS]
@@ -2758,11 +2789,13 @@ def _pose_calls(capture=()):
                                 (matching, PLAIN_MATCHING_FUNCTIONS))
              for name in names]
     plain += [(modules[mod], name, getattr(modules[mod], name))
-              for mod, name in PLAIN_TAIL_FUNCTIONS]
+              for mod, name in PLAIN_TAIL_FUNCTIONS + PLAIN_LOOP_FUNCTIONS]
 
     def counting(fn, key):
         def counted(*args, **kw):
             rec[key] += 1
+            if key == "plane_block_calls" and ba_core._active_planes(args[0]):
+                rec["plane_block_with_planes"] += 1
             if key != "track_core_calls":
                 return fn(*args, **kw)
             before = dict(kernels.LAUNCHES)
@@ -2822,11 +2855,17 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
     tracking step (its line observations, which the first pose solve
     takes, then its point observations after the window search); one K28
     and one K29 per extract_frame call; one K30 and one K31 per tracking
-    step, and inside each tracking step STEP_LAUNCHES; no plain line,
-    matching, noise, normal, plane association or step-tail function
-    called with a tensor on the card; with `frames`, one extract_frame,
-    extract_planes, extract_point_features and extract_line_features call
-    per frame, and a tracking step on all frames but the first."""
+    step, and inside each tracking step STEP_LAUNCHES; one K32 per
+    refine_relative_se3 call; per LM step of ba_solve or ba_solve_pcg (one
+    K8 launch) one ba_plane_blocks call of one K33 launch (its mu_p pass)
+    and one more with plane tables, and one ba_cost_test call (K34); per
+    dense step (two K9 launches) one K35; one K34 per solve in its tables
+    mode; no plain line, matching, noise, normal, plane association,
+    step-tail, refinement, plane-block, cost-test or reduced-system
+    function called with a tensor on the card; with `frames`, one
+    extract_frame, extract_planes, extract_point_features and
+    extract_line_features call per frame, and a tracking step on all frames
+    but the first."""
     from planarslam_tpu_torch.ops import lines
 
     rounds = 1 + (cfg.planes.refine_rounds if cfg is not None else 0)
@@ -2855,7 +2894,21 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
             "assemble_observations": 2 * steps,
             "noise_alpha": rec["frame_calls"],
             "frame_normals": rec["frame_calls"],
-            "associate_planes": steps, "finish_step": steps}
+            "associate_planes": steps, "finish_step": steps,
+            "refine_relative": rec["refine_calls"],
+            "ba_plane_blocks": rec["plane_block_calls"]
+                               + rec["plane_block_with_planes"],
+            "ba_cost_test": rec["cost_test_calls"] + rec["chi2_table_calls"],
+            "ba_reduced_system": rec["reduced_system_calls"]}
+    # every LM step (one K8 launch) adds its plane blocks and ends in a
+    # cost test, every dense step (two K9 launches) reduces its system
+    _check(rec["plane_block_calls"] == launches["ba_normal_eqs"]
+           == rec["cost_test_calls"]
+           and 2 * rec["reduced_system_calls"]
+           == launches["ba_schur_eliminate"],
+           f"{name}: {launches['ba_normal_eqs']} K8 and "
+           f"{launches['ba_schur_eliminate']} K9 launches for "
+           f"{_call_counts(rec)}")
     for kernel, n in want.items():
         _check(launches[kernel] == n, f"{name}: {launches[kernel]} {kernel} "
                f"launches, expected {n} ({_call_counts(rec)})")
@@ -2865,8 +2918,8 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
            f"tracking steps, expected {per_step}")
     _check(rec["plain_calls_on_card"] == 0,
            f"{name}: {rec['plain_calls_on_card']} plain line, matching, "
-           f"noise, normal, association or tail calls with tensors on the "
-           f"card")
+           f"noise, normal, association, tail, refinement, plane-block, "
+           f"cost-test or reduced-system calls with tensors on the card")
     if frames is not None:
         _check(rec["plane_calls"] == frames and rec["frame_calls"] == frames
                and rec["manhattan_calls"] > 0
@@ -2879,6 +2932,7 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
 def _call_counts(rec: dict) -> dict:
     out = {f"{attr.lstrip('_')}_calls": rec[key]
            for _, attr, key in COUNTED_CALLS}
+    out["ba_plane_blocks_with_planes"] = rec["plane_block_with_planes"]
     out["launches_in_tracking_steps"] = rec["step_launches"]
     return out
 
@@ -3058,6 +3112,406 @@ def ba_kernel_parity(dev) -> list:
     return out
 
 
+def _refine_problem(rng, N: int, case: str = "outliers") -> tuple:
+    """Seeded inputs of one loop-edge refinement (numpy): N points 2-6 m in
+    front of camera 2 and their camera-1 coordinates through a planted
+    transform, 0.5 px noise, the last 5 correspondences invalid, a start 1
+    cm / 0.01 rad off. "clean" has no outlier; "outliers" moves 10% of
+    camera 1's pixels 30 px; "behind" also puts one point behind both
+    cameras and marks it invalid, so its clamped projection (z at 1e-6,
+    pixels near 1e8) must leave the sums through the mask without a NaN (a
+    valid one makes the float32 refinement diverge, the JAX package's
+    too); "nonfinite" gives one pixel a NaN, so every step's dx is NaN and
+    is rejected. Returns (T0, p1, p2, uv1, uv2, valid, K)."""
+    K = (535.4, 539.2, 319.5, 239.5)
+    p2 = np.stack([rng.uniform(-2, 2, N), rng.uniform(-1.5, 1.5, N),
+                   rng.uniform(2, 6, N)], -1)
+    T = _planted_se3(rng, 0.05).astype(np.float64)
+    p1 = p2 @ T[:3, :3].T + T[:3, 3]
+
+    def proj(p):
+        return np.stack([K[0] * p[:, 0] / p[:, 2] + K[2],
+                         K[1] * p[:, 1] / p[:, 2] + K[3]], -1)
+
+    uv1 = proj(p1) + rng.normal(0, 0.5, (N, 2))
+    uv2 = proj(p2) + rng.normal(0, 0.5, (N, 2))
+    if case != "clean":
+        uv1[:N // 10] += 30.0
+    if case == "behind":
+        p2[N // 2] = (0.4, -0.2, -3.0)
+        p1[N // 2] = T[:3, :3] @ p2[N // 2] + T[:3, 3]
+    if case == "nonfinite":
+        uv2[3, 0] = np.nan
+    valid = np.ones(N)
+    valid[-5:] = 0.0
+    if case == "behind":
+        valid[N // 2] = 0.0
+    T0 = _planted_se3(rng, 0.01) @ T
+    f = np.float32
+    return (T0.astype(f), p1.astype(f), p2.astype(f), uv1.astype(f),
+            uv2.astype(f), valid.astype(f), K)
+
+
+def _plane_problem(rng, Kt: int, Pp: int, Q: int, par_cols=None,
+                   poses=None) -> dict:
+    """Seeded plane inputs of a BA step (numpy): Q world planes (unit
+    normals, d 1-4 m) with chart coordinates of 0.02, Kt poses 0.3 rad /
+    0.3 m from the origin, and three (Kt, Pp) observation tables with 20%
+    empty slots (slot -1, zero coefficients, mask 0, as
+    local_ba.build_plane_tables leaves them): direct observations of the
+    plane seen from the keyframe with 0.01 noise, half of them with the
+    coefficients negated; parallel ones, planes of the same normal at
+    another distance, half of them in the other hemisphere; vertical ones,
+    a plane about perpendicular to the observed one. par_cols sets the
+    parallel table's width (0: an empty table); `poses` (Kt, 4, 4) replaces
+    the random poses."""
+    base = rng.normal(0, 1, (Q, 4))
+    base[:, :3] /= np.linalg.norm(base[:, :3], axis=1, keepdims=True)
+    base[:, 3] = rng.uniform(1, 4, Q)
+    theta = rng.normal(0, 0.02, (Q, 3))
+    if poses is None:
+        poses = np.stack([_planted_se3(rng, 0.3) for _ in range(Kt)])
+    poses = np.asarray(poses, np.float64)
+
+    def retract(q):
+        n0 = base[q, :3]
+        seed = np.eye(3)[np.argmin(np.abs(n0))]
+        b1 = np.cross(n0, seed)
+        b1 /= np.linalg.norm(b1)
+        b2 = np.cross(n0, b1)
+        n = n0 + theta[q, 0] * b1 + theta[q, 1] * b2
+        return np.r_[n / np.linalg.norm(n), base[q, 3] + theta[q, 2]]
+
+    def seen(k, pi):
+        n = poses[k, :3, :3] @ pi[:3]
+        return np.r_[n, pi[3] - n @ poses[k, :3, 3]]
+
+    def table(kind, cols):
+        slot = rng.integers(0, Q, (Kt, cols)).astype(np.int32)
+        slot[rng.random((Kt, cols)) < 0.2] = -1
+        pi = np.zeros((Kt, cols, 4))
+        for k in range(Kt):
+            for p in range(cols):
+                if slot[k, p] < 0:
+                    continue
+                w = retract(slot[k, p])
+                if kind == 1:
+                    w = np.r_[w[:3], w[3] + rng.uniform(0.5, 2)]
+                elif kind == 2:
+                    v = np.cross(w[:3], rng.normal(0, 1, 3))
+                    w = np.r_[v / np.linalg.norm(v), rng.uniform(1, 4)]
+                c = seen(k, w) + rng.normal(0, 0.01, 4)
+                pi[k, p] = -c if (kind < 2 and rng.random() < 0.5) else c
+        f = np.float32
+        return {"slot": slot, "pi_obs": pi.astype(f),
+                "mask": (slot >= 0).astype(f)}
+
+    return {"poses": poses.astype(np.float32),
+            "base": base.astype(np.float32),
+            "theta": theta.astype(np.float32),
+            "tables": [table(0, Pp), table(1, Pp if par_cols is None
+                                           else par_cols), table(2, Pp)]}
+
+
+def _plane_tables(prob: dict, dev) -> list:
+    """_plane_problem's three tables as port PlaneTables on dev."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import ba_core
+
+    return [ba_core.PlaneTables(*[torch.from_numpy(t[k]).to(dev)
+                                  for k in ("slot", "pi_obs", "mask")])
+            for t in prob["tables"]]
+
+
+def _ulps(got, want):
+    """|got - want| in units of the last place of want (float32)."""
+    import torch
+
+    a = want.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return (got - want).abs() / ulp
+
+
+def _rho_terms(pb, chis) -> tuple:
+    """The robust cost of every observation (ba_core._rho_fn per table) and
+    their count."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import ba_core
+
+    terms = [ba_core._rho_fn(c, g, m, True)
+             for c, g, m in zip(chis, pb.gates, pb.masks)]
+    return terms, sum(int(t.numel()) for t in terms)
+
+
+def loop_kernel_parity(dev, captured: dict) -> list:
+    """K32-K35 against their plain versions on the card at path 4b's
+    shapes: K32 on the inputs of the constructed loop's two
+    refine_relative_se3 calls (about the identity) and on planted clean
+    and outlier problems of their widths; K33-K35 on one LM step of its
+    first global
+    BA solve (Kt = 128, three plane tables of 16 columns, Q = 64, M =
+    12864), the step's Hcc, bc, Hpp, bp and Hcp from K8: K33 on zeroed sums
+    (the plane blocks alone) and on K8's (with mu_p), K35 on the step's S,
+    K34 on its dxc and dxp and, in tables mode, at the step's state. Every
+    kernel twice, with equal bits."""
+    import torch
+
+    from planarslam_tpu_torch.geometry import se3
+    from planarslam_tpu_torch.solvers import ba_core, sim3_solver
+
+    out = []
+    # K32 --------------------------------------------------------------
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            dev)[None]
+
+    def refine_inputs(args):
+        return ((t(args[0]), torch.ones(1, device=dev), *map(t, args[1:6])),
+                tuple(float(v) for v in args[6]))
+
+    def held(ins, K, what):
+        got = sim3_solver.refine_relative(*ins, K)
+        again = sim3_solver.refine_relative(*ins, K)
+        want = sim3_solver._refine_relative_plain(*[x[0] for x in ins], K)
+        torch.cuda.synchronize()
+        err = float((got[0][0] - want[0]).abs().max())
+        _check(err <= 1e-5 and bool(torch.isfinite(got[0]).all()),
+               f"refine_relative ({what}): pose entries off by {err}")
+        _check(all(torch.equal(a, b) for a, b in zip(got, again)),
+               f"refine_relative ({what}): two launches differ")
+        return err, float((want[0] - ins[0][0]).abs().max())
+
+    # path 4b's two refinements: the new keyframe copies keyframe 0's
+    # features, so both start at about the identity with residuals about
+    # 0, and a kernel that returned its start would pass them; K32 is
+    # held on planted problems of the same widths, which the refinement
+    # must move more than 1e-3 from their start
+    errs4b, ns = [], []
+    for n in (1, 2):
+        ins, K = refine_inputs(captured["sim3_solver", "refine_relative_se3",
+                                        n][0])
+        errs4b.append(held(ins, K, f"path 4b call {n}")[0])
+        ns.append(int(ins[2].shape[1]))
+    rng = np.random.default_rng(32)
+    errs, moved = [], []
+    for N in ns:
+        for case in ("clean", "outliers"):
+            err, move = held(*refine_inputs(_refine_problem(rng, N, case)),
+                             f"planted {case}, N = {N}")
+            _check(move > 1e-3, f"refine_relative: the planted {case} "
+                   f"problem (N = {N}) moved only {move} from its start")
+            errs.append(err)
+            moved.append(move)
+    N = ns[-1]
+    out.append({"name": "refine_relative", "route": "cuda",
+                "source": "planarslam_tpu_torch/csrc/refine_relative.cu",
+                "replaces": "planarslam_tpu/solvers/sim3_solver.py:117",
+                "max_abs_err": max(errs),
+                "max_abs_err_path4b": max(errs4b),
+                "moved_from_start": min(moved),
+                "tolerance": "pose entries 1e-5, on planted clean and "
+                             "outlier problems at path 4b's widths (each "
+                             "moved > 1e-3 from its start) and on path 4b's "
+                             "own (about the identity)",
+                "shapes": {"N": ns, "steps": 8}, "library_ms": None,
+                # per step and correspondence: two projections with their
+                # 2 x 7 Jacobians and the 35 weighted sums of each
+                **_bound(_nbytes(ins) + 68, 8 * N * 600.0),
+                "ms": _time_ms(lambda: sim3_solver.refine_relative(*ins, K)),
+                "plain_ms": _time_ms(
+                    lambda: sim3_solver._refine_relative_plain(
+                        *[x[0] for x in ins], K), reps=5)})
+
+    # one LM step of the first GBA solve -----------------------------------
+    args, _ = captured["global_ba", "ba_solve", 1]
+    poses, fixed, lm_xyz, plane_base, pt, ln, pl, par, ver, K, bf, w = args
+    pb = ba_core._problem(lm_xyz, plane_base, pt, ln, pl, par, ver, w)
+    Kt, P, Q, M = poses.shape[0], pb.P, pb.Q, pb.M
+    lm = torch.cat([lm_xyz, torch.zeros((Q, 3), device=dev)]).contiguous()
+    theta = lm[P:]
+    lam = torch.tensor(1e-4, device=dev)
+    k8 = ba_core.ba_normal_eqs(poses, lm[:P], pb.pt, pb.ln, M, K, bf, True,
+                               True, pb.plan)[:5]
+    n_obs = sum(int(t.mask.numel()) for t in (pl, par, ver))
+
+    # K33: the plane blocks alone (zeroed sums), then on K8's sums with mu_p
+    def blocks(fn, sums):
+        return fn(pb, poses, plane_base, theta, *[x.clone() for x in sums],
+                  True)
+
+    zero = [torch.zeros_like(x) for x in k8]
+    got, again = (blocks(ba_core.ba_plane_blocks, zero) for _ in range(2))
+    want = blocks(ba_core.plane_blocks_plain, zero)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(got[:5], again[:5]))
+           and all(torch.equal(x, y) for a, b in zip(got[5], again[5])
+                   for x, y in zip(a[1:], b[1:])),
+           "ba_plane_blocks: two launches differ")
+    err33 = max(_rel_err(a, b) for a, b in zip(got[:5], want[:5]))
+    for a, b in zip(got[5], want[5]):
+        err33 = max(err33, *(_rel_err(x, y) for x, y in zip(a[1:], b[1:])))
+    got_f = blocks(ba_core.ba_plane_blocks, k8)
+    want_f = blocks(ba_core.plane_blocks_plain, k8)
+    torch.cuda.synchronize()
+    err33_full = max(_rel_err(a, b) for a, b in zip(
+        got_f[:5] + (got_f[6],), want_f[:5] + (want_f[6],)))
+    _check(err33 <= 1e-5 and err33_full <= 1e-5,
+           f"ba_plane_blocks: relative error {err33} (blocks alone), "
+           f"{err33_full} (with K8's sums and mu_p)")
+    _check(torch.equal(got_f[4][:, :, :P], k8[4][:, :, :P]),
+           "ba_plane_blocks: Hcp's point columns changed")
+    scratch = [x.clone() for x in k8]
+    # the tables and states read, the sums' plane rows and columns read
+    # and written, the records written, the mu_p pass's diagonal read
+    bytes33 = (_nbytes(poses, plane_base, theta, pl, par, ver)
+               + 2 * 4 * (Kt * 42 + Q * 12 + Kt * 18 * Q)
+               + sum(4 * 11 * int(t.rr.numel()) for t in got[5])
+               + 12 * M)
+    out.append({"name": "ba_plane_blocks", "route": "cuda",
+                "source": "planarslam_tpu_torch/csrc/ba_step.cu",
+                "replaces": "planarslam_tpu/solvers/ba_core.py:407",
+                "max_abs_err": max(err33, err33_full),
+                "tolerance": "relative 1e-5 of each output's largest value "
+                             "(the plane blocks alone and with K8's sums, "
+                             "mu_p)",
+                "shapes": {"Kt": Kt, "Pp": [int(t.slot.shape[1]) for t in
+                                            (pl, par, ver)], "Q": Q, "M": M},
+                "library_ms": None,
+                # per observation: chart, transform, normalization and 9
+                # Jacobian columns, then its shares of Hcc, bc, Hcp, Hpp, bp
+                **_bound(bytes33, 1500.0 * n_obs),
+                "ms": _time_ms(lambda: ba_core.ba_plane_blocks(
+                    pb, poses, plane_base, theta, *scratch, True)),
+                "plain_ms": _time_ms(lambda: ba_core.plane_blocks_plain(
+                    pb, poses, plane_base, theta, *scratch, True), reps=5)})
+
+    # the rest of the step, plain, to K35's and K34's inputs
+    Hcc, bc, Hpp, bp, Hcp = want_f[:5]
+    Hinv, HcpHinv, rhs = ba_core.ba_schur_eliminate(Hpp, bp, Hcp, bc, lam,
+                                                    want_f[6])
+    S = -(HcpHinv.view(Kt * 6, M * 3) @ Hcp.view(Kt * 6, M * 3).T)
+    del HcpHinv, scratch, got_f, zero
+    args35 = (S, Hcc, rhs, lam, fixed)
+    got35 = ba_core.ba_reduced_system(*args35)
+    again35 = ba_core.ba_reduced_system(*args35)
+    want35 = ba_core.reduced_system_plain(*args35)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(got35, again35)),
+           "ba_reduced_system: two launches differ")
+    ulps = float(_ulps(got35[0], want35[0]).max())
+    fixed_rows = torch.repeat_interleave(fixed, 6) > 0
+    eye = torch.eye(Kt * 6, device=dev)
+    _check(ulps <= 4 and torch.equal(got35[1], want35[1])
+           and torch.equal(got35[0][fixed_rows], eye[fixed_rows])
+           and torch.equal(got35[0][:, fixed_rows], eye[:, fixed_rows]),
+           f"ba_reduced_system: {ulps} ulps, or a fixed row not exactly "
+           f"the identity")
+    out.append({"name": "ba_reduced_system", "route": "cuda",
+                "source": "planarslam_tpu_torch/csrc/ba_step.cu",
+                "replaces": "planarslam_tpu/solvers/ba_core.py:475",
+                "max_abs_err": float((got35[0] - want35[0]).abs().max()),
+                "tolerance": "4 ulps; the fixed rows and columns exactly "
+                             "the identity; rhs exact",
+                "ulps": ulps, "shapes": {"Kt": Kt, "n": 6 * Kt,
+                                         "fixed": int(fixed.sum())},
+                "library_ms": None,
+                # mu_c over the diagonal, then four operations per entry
+                **_bound(_nbytes(args35, got35), 5.0 * (6 * Kt) ** 2),
+                "ms": _time_ms(lambda: ba_core.ba_reduced_system(*args35)),
+                "plain_ms": _time_ms(
+                    lambda: ba_core.reduced_system_plain(*args35))})
+    L, info = torch.linalg.cholesky_ex(want35[0])
+    dx0 = torch.cholesky_solve(want35[1], L)
+    dx = dx0 + torch.cholesky_solve(want35[1] - want35[0] @ dx0, L)
+    dxc = torch.where(info == 0, -dx.reshape(Kt, 6), float("nan")
+                      ).contiguous()
+    dxp = ba_core.ba_schur_backsub(Hinv, bp, Hcp, dxc)
+    del S, got35, again35, want35, L, Hinv
+
+    # K34: the cost test of the step, then the tables mode at its state
+    args34 = (pb, poses, lm, dxc, dxp, lam, plane_base, K, bf, True)
+    got34 = ba_core.ba_cost_test(*args34)
+    again34 = ba_core.ba_cost_test(*args34)
+    want34 = ba_core.cost_test_plain(*args34)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(got34, again34)),
+           "ba_cost_test: two launches differ")
+    chis_new = ba_core._chi2(pb, se3.se3_exp(dxc) @ poses, lm + dxp,
+                             plane_base, K, bf, w)
+    chis_cur = ba_core._chi2(pb, poses, lm, plane_base, K, bf, w)
+    terms, n_terms = _rho_terms(pb, chis_new)
+    terms_c, _ = _rho_terms(pb, chis_cur)
+    bound = 2 * (2 * n_terms - 1) * 2.0 ** -24 * float(
+        sum(t.abs().sum() for t in terms + terms_c))
+    dec_err = abs(float(got34.decrease) - float(want34.decrease))
+    _check(dec_err <= bound, f"ba_cost_test: decrease {float(got34.decrease)}"
+           f" against {float(want34.decrease)}, bound {bound}")
+    decided = abs(float(want34.decrease)) > bound
+    same = bool(got34.accept) == bool(want34.accept)
+    _check(same or not decided, "ba_cost_test: accept differs on a decided "
+           "step")
+    if same:
+        _check(torch.equal(got34.lm, want34.lm)
+               and torch.equal(got34.lam, want34.lam)
+               and float((got34.poses - want34.poses).abs().max()) <= 1e-5,
+               "ba_cost_test: the selected state differs")
+    # each table's decrease: K34's per-keyframe sums (its scratch) summed
+    # over keyframes against the plain table's, within the table's own
+    # bound, so a table left out or wrong fails where the total would not
+    scratch34 = torch.empty(Kt * ba_core.COST_SCRATCH, device=dev)
+    ba_core._cost_test_launch(
+        pb, poses, lm, plane_base, K, bf, True,
+        step=(dxc, dxp, lam, *[torch.empty_like(x) for x in got34],
+              scratch34))
+    k_sums = scratch34.view(Kt, ba_core.COST_SCRATCH)[
+        :, ba_core.COST_SCRATCH_SUMS:ba_core.COST_SCRATCH_SUMS + 5].double(
+    ).sum(0).tolist()
+    tables34 = []
+    for name, k_sum, tn, tc in zip(("pt", "ln", "pl", "par", "ver"), k_sums,
+                                   terms, terms_c):
+        p_sum = float((tn.double() - tc.double()).sum())
+        b_t = 2 * (2 * max(int(tn.numel()), 1) - 1) * 2.0 ** -24 * float(
+            tn.abs().sum() + tc.abs().sum())
+        _check(abs(k_sum - p_sum) <= b_t, f"ba_cost_test: table {name}'s "
+               f"decrease {k_sum} against {p_sum}, bound {b_t}")
+        tables34.append({"table": name, "decrease": [k_sum, p_sum],
+                         "bound": b_t, "decided": abs(p_sum) > b_t})
+    chi_k = ba_core.ba_chi2_tables(pb, poses, lm, plane_base, K, bf)
+    chi_p = ba_core._chi2(pb, poses, lm, plane_base, K, bf, w)
+    torch.cuda.synchronize()
+    err34 = max(_rel_err(a, b) for a, b in zip(chi_k, chi_p) if b.numel())
+    _check(err34 <= 1e-6, f"ba_cost_test (tables mode): chi2 relative "
+           f"error {err34}")
+    out.append({"name": "ba_cost_test", "route": "cuda",
+                "source": "planarslam_tpu_torch/csrc/ba_step.cu",
+                "replaces": "planarslam_tpu/solvers/ba_core.py:497",
+                "max_abs_err": err34,
+                "tolerance": "chi2 1e-6 of each table's largest value; the "
+                             "decrease within 2 (n - 1) 2^-24 of the sum of "
+                             "the |rho| terms, and each table's within its "
+                             "own; accept equal where |decrease| exceeds "
+                             "that",
+                "decrease": [float(got34.decrease), float(want34.decrease)],
+                "decrease_bound": bound, "tables": tables34,
+                "accept": bool(got34.accept),
+                "accept_flips_within_bound": int(not same),
+                "shapes": {"Kt": Kt, "F": int(pt.slot.shape[1]),
+                           "L2": int(ln.slot.shape[1]), "M": M,
+                           "observations": n_terms},
+                "library_ms": None,
+                # per observation and state: a transform, a projection or
+                # a plane error, the robust cost
+                **_bound(_nbytes(args34[1:6], pt, ln, pl, par, ver, got34),
+                         2 * 60.0 * n_terms),
+                "ms": _time_ms(lambda: ba_core.ba_cost_test(*args34)),
+                "plain_ms": _time_ms(
+                    lambda: ba_core.cost_test_plain(*args34))})
+    _print_kernels(out)
+    return out
+
+
 def construct_loop(m, src: int = 0):
     """The constructed loop of tests/test_reloc_loop.py::
     test_loop_verify_and_correct_constructed on a port map: a new keyframe
@@ -3226,15 +3680,25 @@ def run_constructed_loop_path(seq, cfg, dev) -> dict:
         torch.cuda.synchronize()
         after_pg["gba_s"] = time.perf_counter() - t0
 
+    # verification ends where it records the loop edge (its results are
+    # on the host by then)
+    orig_edge = m.add_loop_edge
+
+    def timed_edge(*a):
+        after_pg["verify_s"] = time.perf_counter() - t0
+        return orig_edge(*a)
+
     global_ba.global_bundle_adjustment = gba_after_pose_graph
+    m.add_loop_edge = timed_edge
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
     try:
-        with _pose_calls() as pc:
+        with _pose_calls(LOOP_CAPTURE) as pc:
             ok = lc._verify_and_correct(kf, 0)
     finally:
         global_ba.global_bundle_adjustment = orig_gba
+        del m.add_loop_edge
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -3250,6 +3714,7 @@ def run_constructed_loop_path(seq, cfg, dev) -> dict:
            "fused": fused, "last_fuse_count": lc.last_fuse_count,
            "k3_in_verification": inside["gated_hamming_top2"],
            "k6_in_verification": inside["horn_align_batch"],
+           "verify_s": after_pg.get("verify_s"),
            "gba_s": after_pg.get("gba_s"), "wall_s": wall,
            **_call_counts(pc), "launches": launches,
            "tracking_calls": _call_counts(pc_track),
@@ -3265,8 +3730,12 @@ def run_constructed_loop_path(seq, cfg, dev) -> dict:
     _check(np.isfinite(m.kf_pose[:m.n_kf]).all(), "path4b: non-finite poses")
     for name in ("ba_normal_eqs", "ba_schur_eliminate",
                  "pose_graph_normal_eqs", "gated_hamming_top2",
-                 "horn_align_batch"):
+                 "horn_align_batch", "refine_relative", "ba_plane_blocks",
+                 "ba_cost_test", "ba_reduced_system"):
         _check(launches[name] > 0, f"path4b: {name} not launched")
+    _check(all(c in pc["inputs"] for c in LOOP_CAPTURE),
+           "path4b: the refinement and global BA inputs were not captured")
+    res["captured"] = pc["inputs"]
     return res
 
 
@@ -3342,15 +3811,24 @@ def run_ba_scale_path(dev) -> dict:
     rng = np.random.default_rng(42)
     res = {}
     kernels.reset_launches()
+    calls = {}
     for name, solver, Kt, F, lim_mean, lim_max in (
             ("dense", ba_solve, 96, 48, 0.15, 0.3),
             ("pcg", ba_solve_pcg, 256, 24, 0.2, 0.4)):
         poses_gt, poses0, args, slot = _orbit_problem(rng, Kt, 1024, F, dev)
         torch.cuda.synchronize()
+        before = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
-        poses1, _, _, chis = solver(*args, n_iters=12)
-        poses1 = poses1.cpu().numpy()
+        with _pose_calls() as pc:
+            poses1, _, _, chis = solver(*args, n_iters=12)
+            poses1 = poses1.cpu().numpy()
         wall = time.perf_counter() - t0
+        for key, n in pc.items():
+            if isinstance(n, int):
+                calls[key] = calls.get(key, 0) + n
+        _check(all(kernels.LAUNCHES[k] > before[k]
+                   for k in ("ba_plane_blocks", "ba_cost_test")),
+               f"path4c: the {name} solve launched no K33 or K34")
         err0 = np.linalg.norm(poses0[:, :3, 3] - poses_gt[:, :3, 3], axis=1)
         err1 = np.linalg.norm(poses1[:, :3, 3] - poses_gt[:, :3, 3], axis=1)
         med_chi = float(np.median(chis["pt"].cpu().numpy()[slot >= 0]))
@@ -3364,11 +3842,11 @@ def run_ba_scale_path(dev) -> dict:
                f"path4c: {name} orbit did not converge: {res[name]}")
     res["launches"] = dict(kernels.LAUNCHES)
     print("path4c_ba_scale " + json.dumps(res), flush=True)
+    _check(res["launches"]["ba_reduced_system"] > 0,
+           "path4c: the dense solve launched no K35")
     _check_pose_launches("path4c (BA alone)", res["launches"],
-                         dict({key: 0 for _, _, key in COUNTED_CALLS},
-                              plain_calls_on_card=0,
-                              step_launches=dict.fromkeys(STEP_LAUNCHES,
-                                                          0)))
+                         dict(calls, step_launches=dict.fromkeys(
+                             STEP_LAUNCHES, 0)))
     return res
 
 
@@ -3532,15 +4010,20 @@ def _reloc_run(slam, seq, cfg) -> dict:
 
 H2D_WARMUP_FRAMES = 20
 H2D_FRAMES = 32  # long enough to hold a keyframe and the refresh after it
+# idle host time before each frame's span: a device copy counts in the span
+# that starts at most half of it after the copy, so the profiler's mapping
+# of device times onto the host clock may be off by that much
+H2D_GAP_S = 0.02
 
 
 def run_h2d_copies(seq, frames, cfg, dev) -> dict:
     """Host-to-device copies of tracked frames of path 1. After
     H2D_WARMUP_FRAMES frames of a tracking-only System, one more frame and
     then H2D_FRAMES frames run under one torch.profiler session, each in a
-    record_function span that ends with a device synchronization, and the
-    "Memcpy HtoD" device events are counted per span (the first frame under
-    the profiler only absorbs its start and is not counted). The allowed
+    record_function span that ends with a device synchronization, after
+    H2D_GAP_S of idle host, and the "Memcpy HtoD" device events are counted
+    per span (the first frame under the profiler only absorbs its start and
+    is not counted). The allowed
     copies of a tracked frame, each named: the packed sensor frame (gray and
     depth in one pinned upload) and, in a frame that follows a change of the
     map, the packed local-map window. No constant is among them: level
@@ -3580,6 +4063,7 @@ def run_h2d_copies(seq, frames, cfg, dev) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         for i in range(first, first + 1 + H2D_FRAMES):
             seen.update(refresh=0, keyframe=0)
+            time.sleep(H2D_GAP_S)
             with record_function(f"h2d_frame_{i}"):
                 slam.track_rgbd(*frames[i], seq.timestamps[i])
                 torch.cuda.synchronize()
@@ -3592,9 +4076,12 @@ def run_h2d_copies(seq, frames, cfg, dev) -> dict:
     def on_device(e):
         return "CUDA" in str(e.device_type)
 
-    # the spans' host start times: a frame's device work lies between its
-    # span's start and the next span's, because each span ends synchronized
-    starts = sorted((e.time_range.start, int(e.name.rsplit("_", 1)[1]))
+    # the spans' host start times, each moved half the idle gap earlier: a
+    # frame's device work lies between its span's start and the next
+    # span's, because each span ends synchronized
+    half_gap_us = H2D_GAP_S * 1e6 / 2
+    starts = sorted((e.time_range.start - half_gap_us,
+                     int(e.name.rsplit("_", 1)[1]))
                     for e in events
                     if e.name.startswith("h2d_frame_") and not on_device(e))
     _check([i for _, i in starts] == [r["frame"] for r in per_frame],
@@ -3688,7 +4175,7 @@ def main(argv=None) -> int:
     print(f"build {time.perf_counter() - t0:.1f}s -> {path}", flush=True)
 
     cfg = SystemConfig()
-    n = max(args.frames, TRACKING_FRAMES)
+    n = max(args.frames, TRACKING_FRAMES, CONSTRUCTED_SEQUENCE)
     seq = synthetic.make_sequence(n, width=cfg.camera.width,
                                   height=cfg.camera.height)
     k11 = pose_kernel_parity(cfg, dev)
@@ -3721,9 +4208,10 @@ def main(argv=None) -> int:
         run_loop_path(synthetic.make_sequence(
             LOOP_FRAMES, kind="loop", width=cfg.camera.width,
             height=cfg.camera.height), cfg, dev),
-        run_constructed_loop_path(seq, cfg, dev),
-        run_ba_scale_path(dev),
     ]
+    path4b = run_constructed_loop_path(seq, cfg, dev)
+    report += loop_kernel_parity(dev, path4b.pop("captured"))
+    paths += [path4b, run_ba_scale_path(dev)]
     run_h2d_copies(seq, frames, cfg, dev)
     for k in report:
         k["launches"] = sum(p["launches"][k["name"]] for p in paths)

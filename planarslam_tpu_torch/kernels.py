@@ -40,7 +40,8 @@ KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
                 "lift_lines_3d", "search_lines_by_projection",
                 "project_landmarks", "match_select", "frame_match_select",
                 "assemble_observations", "noise_alpha", "frame_normals",
-                "associate_planes", "finish_step")
+                "associate_planes", "finish_step", "refine_relative",
+                "ba_plane_blocks", "ba_cost_test", "ba_reduced_system")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -52,7 +53,7 @@ CUDA_SOURCES = ("fast_score.cu", "orb_describe.cu", "hamming_top2.cu",
                 "pose_opt.cu", "plane_segment.cu", "manhattan.cu",
                 "pyramid.cu", "select_keypoints.cu", "lines.cu",
                 "line_lift_search.cu", "matching.cu", "depth_normals.cu",
-                "step_tail.cu")
+                "step_tail.cu", "refine_relative.cu", "ba_step.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # Sources whose float32 gates must round as the plain version's separate
@@ -65,7 +66,8 @@ SOURCE_FLAGS = {"plane_segment.cu": ("-fmad=false",),
                 "line_lift_search.cu": ("-fmad=false",),
                 "matching.cu": ("-fmad=false",),
                 "depth_normals.cu": ("-fmad=false",),
-                "step_tail.cu": ("-fmad=false",)}
+                "step_tail.cu": ("-fmad=false",),
+                "ba_step.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -210,6 +212,28 @@ _SIGNATURES = {
     # T_out, velocity, pt3d_w, valid3d, stream
     "psl_finish_step": [_P] * 28 + [_I] * 7 + [_F] * 9 + [_P, _I]
                        + [_P] * 6,
+    # T_init, s_init, pts1, pts2, uv1, uv2, valid, batch, N, fx, fy, cx,
+    # cy, fix_scale, n_iters, huber, T_out, s_out, stream
+    "psl_refine_relative": [_P] * 7 + [_I] * 2 + [_F] * 4 + [_I] * 2
+                           + [_F] + [_P] * 3,
+    # poses, base, theta, batch, Kt, Q, P, M, per plane table (slot,
+    # pi_obs, mask, Pp, records), the four informations, the two gates,
+    # huber, Hcc, bc, Hpp, bp, Hcp (or NULL), stream
+    "psl_ba_plane_blocks": [_P] * 3 + [_I] * 5 + ([_P] * 3 + [_I, _P]) * 3
+                           + [_F] * 6 + [_I] + [_P] * 6,
+    # Hpp, batch, M, mu_p, stream
+    "psl_ba_mu_p": [_P, _I, _I, _P, _P],
+    # poses, lm, base, batch, Kt, P, Q, M, the point table (slot, uv, ur,
+    # inv_s2, mask), F, the line table (slot, line2d, inv_s2, mask), L2, per plane
+    # table (slot, pi_obs, mask, Pp), fx, fy, cx, cy, bf, the four
+    # informations, the two gates, huber; step mode dxc, dxp, lam,
+    # poses_out, lm_out, lam_out, accept, decrease, scratch; tables mode the
+    # five chi2 tables (what a mode does not use NULL), stream
+    "psl_ba_cost_test": [_P] * 3 + [_I] * 5 + [_P] * 5 + [_I] + [_P] * 4
+                        + [_I] + ([_P] * 3 + [_I]) * 3 + [_F] * 11 + [_I]
+                        + [_P] * 15,
+    # S, Hcc, rhs, lam, fixed_mask, batch, Kt, S_out, rhs_vec, stream
+    "psl_ba_reduced_system": [_P] * 5 + [_I] * 2 + [_P] * 3,
 }
 # Host-side helpers: plain C functions that launch nothing.
 _HELPERS = {

@@ -8,9 +8,15 @@ numpy as there:
     temporal consistency over neighbouring candidate ids;
   - verification: descriptor matching (K3), a Horn RANSAC SE3 between the
     two keyframes' depth points (K6), a bidirectional-reprojection
-    refinement, a guided projection rematch (K3) and a second refinement;
+    refinement (K32), a guided projection rematch (K3) and a second
+    refinement;
   - correction: the pose graph (K10), landmark re-anchoring, the fuse of
-    duplicated landmarks across the loop (K3) and global BA (K8, K9).
+    duplicated landmarks across the loop (K3) and global BA (K8, K9,
+    K33-K35).
+Spans: loop_closing.verify (verify_match, verify_ransac, verify_refine
+twice, verify_guided_search) and loop_closing.correct (pose_graph.optimize,
+reanchor, search_and_fuse with its device call fuse_search and its host
+merge fuse_merge, global BA).
 
 Every device call goes to the loop closer's device: a call that fell back
 to a helper's CPU default would run quietly on the host beside a card.
@@ -90,91 +96,104 @@ class LoopClosing:
         def put(a):
             return _tensor_from(a, dev)
 
-        res = matching.match_descriptors(
-            put(m.kf_desc[kf]), put(m.kf_desc[loop_kf]),
-            put(m.kf_feat_valid[kf] & (m.kf_depth[kf] > 0)),
-            put(m.kf_feat_valid[loop_kf] & (m.kf_depth[loop_kf] > 0)),
-            max_dist=cfg.matcher.th_low, ratio=0.85)
-        idx = res.idx.cpu().numpy()
-        ok = idx >= 0
-        if ok.sum() < cfg.loop.sim3_min_inliers:
-            return False
+        with record_function("loop_closing.verify"):
+            with record_function("loop_closing.verify_match"):
+                res = matching.match_descriptors(
+                    put(m.kf_desc[kf]), put(m.kf_desc[loop_kf]),
+                    put(m.kf_feat_valid[kf] & (m.kf_depth[kf] > 0)),
+                    put(m.kf_feat_valid[loop_kf]
+                        & (m.kf_depth[loop_kf] > 0)),
+                    max_dist=cfg.matcher.th_low, ratio=0.85)
+                idx = res.idx.cpu().numpy()
+            ok = idx >= 0
+            if ok.sum() < cfg.loop.sim3_min_inliers:
+                return False
 
-        cam = cfg.camera
+            cam = cfg.camera
 
-        def unproject(k, feat_ids):
-            uv = m.kf_uv[k][feat_ids]
-            z = m.kf_depth[k][feat_ids]
-            x = (uv[:, 0] - cam.cx) / cam.fx * z
-            y = (uv[:, 1] - cam.cy) / cam.fy * z
-            return np.stack([x, y, z], -1).astype(np.float32)
+            def unproject(k, feat_ids):
+                uv = m.kf_uv[k][feat_ids]
+                z = m.kf_depth[k][feat_ids]
+                x = (uv[:, 0] - cam.cx) / cam.fx * z
+                y = (uv[:, 1] - cam.cy) / cam.fy * z
+                return np.stack([x, y, z], -1).astype(np.float32)
 
-        src_ids = np.flatnonzero(ok)
-        pts_kf = unproject(kf, src_ids)               # current KF camera
-        pts_loop = unproject(loop_kf, idx[src_ids])   # loop KF camera
-        # T maps loop-camera coordinates to current-camera coordinates
-        T_kl, n_inl, inl = horn_ransac_se3(pts_loop, pts_kf, device=dev)
-        if n_inl < cfg.loop.sim3_min_inliers:       # first gate
-            return False
+            src_ids = np.flatnonzero(ok)
+            pts_kf = unproject(kf, src_ids)               # current KF camera
+            pts_loop = unproject(loop_kf, idx[src_ids])   # loop KF camera
+            # T maps loop-camera coordinates to current-camera coordinates
+            with record_function("loop_closing.verify_ransac"):
+                T_kl, n_inl, inl = horn_ransac_se3(pts_loop, pts_kf,
+                                                   device=dev)
+            if n_inl < cfg.loop.sim3_min_inliers:       # first gate
+                return False
 
-        # refine the loop edge with bidirectional reprojection
-        K = (cam.fx, cam.fy, cam.cx, cam.cy)
-        T_kl, _ = refine_relative_se3(
-            T_kl.astype(np.float32), pts_kf, pts_loop, m.kf_uv[kf][src_ids],
-            m.kf_uv[loop_kf][idx[src_ids]], inl.astype(np.float32), K,
-            device=dev)
+            # refine the loop edge with bidirectional reprojection
+            K = (cam.fx, cam.fy, cam.cx, cam.cy)
+            with record_function("loop_closing.verify_refine"):
+                T_kl, _ = refine_relative_se3(
+                    T_kl.astype(np.float32), pts_kf, pts_loop,
+                    m.kf_uv[kf][src_ids], m.kf_uv[loop_kf][idx[src_ids]],
+                    inl.astype(np.float32), K, device=dev)
 
-        # guided rematch: all loop-KF depth features projected into the
-        # current KF through the refined transform, window-matched
-        Kp = cfg.orb.max_keypoints
-        all_loop = np.flatnonzero(m.kf_feat_valid[loop_kf]
-                                  & (m.kf_depth[loop_kf] > 0))[:Kp]
-        pad_ids = np.zeros(Kp, np.int64)
-        pad_ids[:len(all_loop)] = all_loop
-        pad_valid = np.zeros(Kp, bool)
-        pad_valid[:len(all_loop)] = True
-        pc_loop_all = unproject(loop_kf, pad_ids)
-        res2 = matching.search_by_projection(
-            put(pc_loop_all), put(m.kf_desc[loop_kf][pad_ids]),
-            put(pad_valid), put(np.asarray(T_kl, np.float32)),
-            put(m.kf_uv[kf].astype(np.float32)), put(m.kf_desc[kf]),
-            put(m.kf_level[kf].astype(np.int32)), put(m.kf_feat_valid[kf]),
-            put(m.kf_ur[kf].astype(np.float32)), K=K,
-            image_wh=(float(cam.width), float(cam.height)), bf=cam.bf,
-            scale_factor=cfg.orb.scale_factor, radius=7.5,
-            max_dist=cfg.matcher.th_high, level_window=1)
-        g_idx = res2.idx.cpu().numpy()
-        g_ok = (g_idx >= 0) & pad_valid
-        if int(g_ok.sum()) < cfg.loop.min_total_matches:  # second gate
-            return False
-        # re-refine over the guided matches
-        pts_loop_g = pc_loop_all[g_ok]
-        z_g = m.kf_depth[kf][g_idx[g_ok]]
-        uv_g = m.kf_uv[kf][g_idx[g_ok]]
-        has_zg = z_g > 0
-        if has_zg.sum() >= cfg.loop.sim3_min_inliers:
-            x = (uv_g[:, 0] - cam.cx) / cam.fx * z_g
-            y = (uv_g[:, 1] - cam.cy) / cam.fy * z_g
-            pts_kf_g = np.stack([x, y, z_g], -1).astype(np.float32)
-            T_kl, _ = refine_relative_se3(
-                T_kl.astype(np.float32), pts_kf_g[has_zg],
-                pts_loop_g[has_zg].astype(np.float32), uv_g[has_zg],
-                m.kf_uv[loop_kf][pad_ids][g_ok][has_zg],
-                np.ones(int(has_zg.sum()), np.float32), K, device=dev)
+            # guided rematch: all loop-KF depth features projected into the
+            # current KF through the refined transform, window-matched
+            Kp = cfg.orb.max_keypoints
+            all_loop = np.flatnonzero(m.kf_feat_valid[loop_kf]
+                                      & (m.kf_depth[loop_kf] > 0))[:Kp]
+            pad_ids = np.zeros(Kp, np.int64)
+            pad_ids[:len(all_loop)] = all_loop
+            pad_valid = np.zeros(Kp, bool)
+            pad_valid[:len(all_loop)] = True
+            pc_loop_all = unproject(loop_kf, pad_ids)
+            with record_function("loop_closing.verify_guided_search"):
+                res2 = matching.search_by_projection(
+                    put(pc_loop_all), put(m.kf_desc[loop_kf][pad_ids]),
+                    put(pad_valid), put(np.asarray(T_kl, np.float32)),
+                    put(m.kf_uv[kf].astype(np.float32)), put(m.kf_desc[kf]),
+                    put(m.kf_level[kf].astype(np.int32)),
+                    put(m.kf_feat_valid[kf]),
+                    put(m.kf_ur[kf].astype(np.float32)), K=K,
+                    image_wh=(float(cam.width), float(cam.height)),
+                    bf=cam.bf, scale_factor=cfg.orb.scale_factor,
+                    radius=7.5, max_dist=cfg.matcher.th_high,
+                    level_window=1)
+                g_idx = res2.idx.cpu().numpy()
+            g_ok = (g_idx >= 0) & pad_valid
+            if int(g_ok.sum()) < cfg.loop.min_total_matches:  # second gate
+                return False
+            # re-refine over the guided matches
+            pts_loop_g = pc_loop_all[g_ok]
+            z_g = m.kf_depth[kf][g_idx[g_ok]]
+            uv_g = m.kf_uv[kf][g_idx[g_ok]]
+            has_zg = z_g > 0
+            if has_zg.sum() >= cfg.loop.sim3_min_inliers:
+                x = (uv_g[:, 0] - cam.cx) / cam.fx * z_g
+                y = (uv_g[:, 1] - cam.cy) / cam.fy * z_g
+                pts_kf_g = np.stack([x, y, z_g], -1).astype(np.float32)
+                with record_function("loop_closing.verify_refine"):
+                    T_kl, _ = refine_relative_se3(
+                        T_kl.astype(np.float32), pts_kf_g[has_zg],
+                        pts_loop_g[has_zg].astype(np.float32), uv_g[has_zg],
+                        m.kf_uv[loop_kf][pad_ids][g_ok][has_zg],
+                        np.ones(int(has_zg.sum()), np.float32), K,
+                        device=dev)
 
-        # corrected current pose through the loop: T_kf_w = T_kf_loop T_loop_w
-        T_c_w_corr = (T_kl @ m.kf_pose[loop_kf]).astype(np.float32)
+            # corrected current pose through the loop:
+            # T_kf_w = T_kf_loop T_loop_w
+            T_c_w_corr = (T_kl @ m.kf_pose[loop_kf]).astype(np.float32)
 
-        # persist the accepted constraint for every later pose-graph run
-        m.add_loop_edge(kf, loop_kf, T_kl)
+            # persist the accepted constraint for every later pose-graph run
+            m.add_loop_edge(kf, loop_kf, T_kl)
 
-        # an already consistent loop is recorded without moving the map
-        dT = T_c_w_corr @ np.linalg.inv(m.kf_pose[kf])
-        dt = np.linalg.norm(dT[:3, 3])
-        dR = np.arccos(np.clip((np.trace(dT[:3, :3]) - 1) / 2, -1, 1))
-        if dt < 0.03 and dR < np.deg2rad(0.5):
-            return True
-        self._correct(kf, T_c_w_corr, loop_kf)
+            # an already consistent loop is recorded without moving the map
+            dT = T_c_w_corr @ np.linalg.inv(m.kf_pose[kf])
+            dt = np.linalg.norm(dT[:3, 3])
+            dR = np.arccos(np.clip((np.trace(dT[:3, :3]) - 1) / 2, -1, 1))
+            if dt < 0.03 and dR < np.deg2rad(0.5):
+                return True
+        with record_function("loop_closing.correct"):
+            self._correct(kf, T_c_w_corr, loop_kf)
         return True
 
     # ------------------------------------------------------------- correction
@@ -217,17 +236,21 @@ class LoopClosing:
             return np.einsum("nij,njk->nik",
                              np.linalg.inv(m.kf_pose[anchor_ids]), before)
 
-        corr = correction(pt_anchor, anchor_before)
-        xyz_h = np.concatenate([m.pt_xyz[pt_ids],
-                                np.ones((len(pt_ids), 1), np.float32)], axis=1)
-        m.pt_xyz[pt_ids] = np.einsum("nij,nj->ni", corr, xyz_h)[:, :3]
-        corr_l = correction(ln_anchor, ln_before)
-        for arr in (m.ln_sw, m.ln_ew):
-            h = np.concatenate([arr[ln_ids],
-                                np.ones((len(ln_ids), 1), np.float32)], axis=1)
-            arr[ln_ids] = np.einsum("nij,nj->ni", corr_l, h)[:, :3]
+        with record_function("loop_closing.reanchor"):
+            corr = correction(pt_anchor, anchor_before)
+            xyz_h = np.concatenate([m.pt_xyz[pt_ids],
+                                    np.ones((len(pt_ids), 1), np.float32)],
+                                   axis=1)
+            m.pt_xyz[pt_ids] = np.einsum("nij,nj->ni", corr, xyz_h)[:, :3]
+            corr_l = correction(ln_anchor, ln_before)
+            for arr in (m.ln_sw, m.ln_ew):
+                h = np.concatenate([arr[ln_ids],
+                                    np.ones((len(ln_ids), 1), np.float32)],
+                                   axis=1)
+                arr[ln_ids] = np.einsum("nij,nj->ni", corr_l, h)[:, :3]
 
-        self._search_and_fuse(kf, loop_kf)
+        with record_function("loop_closing.search_and_fuse"):
+            self._search_and_fuse(kf, loop_kf)
 
         if self.run_gba:
             from planarslam_tpu_torch.solvers.global_ba import \
@@ -259,28 +282,30 @@ class LoopClosing:
         targets = [t for t in targets if t not in loop_group]
         if not targets:
             return
-        res = run_fuse_set(m, lm_ids, targets, self.cfg, radius=4.0,
-                           device=self.device)
-        fused = 0
-        for i, nb in enumerate(res["nb_ids"]):
-            if not res["nb_ok"][i]:
-                continue
-            nb = int(nb)
-            idx = res["idx"][i]
-            for s in np.flatnonzero(idx >= 0):
-                p = int(res["lm_ids"][s])
-                if not m.pt_valid[p]:
-                    continue  # merged away in an earlier iteration
-                f = int(idx[s])
-                q = int(m.kf_pt_idx[nb, f])
-                if q == p:
+        with record_function("loop_closing.fuse_search"):
+            res = run_fuse_set(m, lm_ids, targets, self.cfg, radius=4.0,
+                               device=self.device)
+        with record_function("loop_closing.fuse_merge"):
+            fused = 0
+            for i, nb in enumerate(res["nb_ids"]):
+                if not res["nb_ok"][i]:
                     continue
-                if q >= 0 and m.pt_valid[q]:
-                    # the current-side point is replaced by the loop side's
-                    m.replace_point(q, p)
-                    fused += 1
-                else:
-                    m.kf_pt_idx[nb, f] = p
-                    m.pt_nobs[p] += 1
-            m.update_covisibility(nb)
-        self.last_fuse_count = fused
+                nb = int(nb)
+                idx = res["idx"][i]
+                for s in np.flatnonzero(idx >= 0):
+                    p = int(res["lm_ids"][s])
+                    if not m.pt_valid[p]:
+                        continue  # merged away in an earlier iteration
+                    f = int(idx[s])
+                    q = int(m.kf_pt_idx[nb, f])
+                    if q == p:
+                        continue
+                    if q >= 0 and m.pt_valid[q]:
+                        # the current-side point is replaced by the loop side's
+                        m.replace_point(q, p)
+                        fused += 1
+                    else:
+                        m.kf_pt_idx[nb, f] = p
+                        m.pt_nobs[p] += 1
+                m.update_covisibility(nb)
+            self.last_fuse_count = fused

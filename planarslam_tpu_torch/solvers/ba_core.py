@@ -7,19 +7,27 @@ observation tables, Huber kernels, fixed poses eliminated exactly, and
 Levenberg-Marquardt with multiplicative damping plus an absolute floor and
 an accept test on per-observation cost differences.
 
-Two hand-written kernels take the dense work of each LM step:
+Hand-written kernels take the work of each LM step:
   - K8 ``ba_normal_eqs`` (``csrc/ba_normal_eqs.cu``): per point and line-
     endpoint observation the residual, analytic Jacobians, Huber weight and
     chi2, reduced into Hcc (Kt, 6, 6), bc (Kt, 6), Hpp (M, 3, 3), bp (M, 3)
     and, when asked, the cross blocks Hcp (Kt, 6, M, 3);
+  - K33 ``ba_plane_blocks`` (``csrc/ba_step.cu``): the same for the three
+    plane tables with closed-form Jacobians, added into K8's outputs, and
+    the landmark damping floor mu_p;
   - K9 ``ba_schur_eliminate`` (``csrc/ba_schur.cu``): the damped landmark
     inverses, Hcp Hpp^-1 and the reduced right-hand side; its second entry
-    ``ba_schur_backsub`` recovers the landmark step.
+    ``ba_schur_backsub`` recovers the landmark step;
+  - K35 ``ba_reduced_system`` (``csrc/ba_step.cu``): Hcc on the diagonal
+    blocks of S, the damping, the fixed poses eliminated;
+  - K34 ``ba_cost_test`` (``csrc/ba_step.cu``): the chi2 of the five tables
+    at both states, the robust decrease, the accept test and the selected
+    state; its tables mode gives the final chi2 tables.
 Hcp is laid out (Kt, 6, M, 3), so ``Hcp.view(Kt * 6, M * 3)`` is the
 operand of the reduced camera system S = Hcc - (Hcp Hpp^-1) Hcp^T, which
-stays one ``torch.matmul`` as it stays one XLA product in JAX. The plane
-blocks (``_plane_jacs``, ``torch.func.jacfwd`` per observation as JAX's
-``jax.jacfwd``) and the chi2 pass at the new state stay plain torch.
+stays one ``torch.matmul`` as it stays one XLA product in JAX; the
+Cholesky factorization and its two solves stay PyTorch's, as JAX leaves
+them to its library.
 
 No float atomics: the kernels sum in an order fixed for the whole solve by
 ``obs_plan`` (stable sorts of the observation slots), and the plain
@@ -34,10 +42,12 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from planarslam_tpu_torch import kernels
 from planarslam_tpu_torch.geometry import plane as plane_geo
 from planarslam_tpu_torch.geometry import se3
+from planarslam_tpu_torch.ops.consts import literal
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -184,33 +194,6 @@ def _line_jacs(poses_c, pts, slot, line2d, K):
     return r_ln, Jp, Jl
 
 
-def _plane_jacs(poses_c, plane_base, theta, slot, pi_obs, err_fn):
-    """Plane residuals rr (Kt, Pp, D) and their jacfwd Jacobians Jx
-    (Kt, Pp, D, 6) wrt the pose tangent and Jt (Kt, Pp, D, 3) wrt the
-    plane's tangent chart, one forward-mode pass per observation."""
-    from torch.func import jacfwd, vmap
-
-    Kt, Pp = slot.shape
-    s = slot.long().reshape(-1)
-    T_g = poses_c[:, None].expand(Kt, Pp, 4, 4).reshape(-1, 4, 4)
-
-    def obs_res(x, T0, base0, theta0, pi_o):
-        T_new = se3.se3_exp(x[:6]) @ T0
-        return err_fn(plane_geo.transform(
-            T_new, plane_retract(base0, theta0 + x[6:])), pi_o)
-
-    x0 = torch.zeros(9, dtype=poses_c.dtype, device=poses_c.device)
-
-    def one(T0, base0, theta0, pi_o):
-        return (obs_res(x0, T0, base0, theta0, pi_o),
-                jacfwd(obs_res)(x0, T0, base0, theta0, pi_o))
-
-    rr, J = vmap(one)(T_g, plane_base[s], theta[s], pi_obs.reshape(-1, 4))
-    D = rr.shape[-1]
-    return (rr.reshape(Kt, Pp, D), J[..., :6].reshape(Kt, Pp, D, 6),
-            J[..., 6:].reshape(Kt, Pp, D, 3))
-
-
 def _rho_fn(chi, gate, mask, huber: bool):
     """Robust (Huber-composed) per-observation cost."""
     if huber:
@@ -250,28 +233,170 @@ def _info(w: BAWeights, device):
             t(w.par_info, w.par_info), t(w.ver_info, w.ver_info))
 
 
+# The plane estimate and error spelled in one fixed order of products and
+# sums, the order K33 and K34 repeat (csrc/lie.cuh): the plain chi2 of
+# _all_chi2_tables and K33's closed-form Jacobians.
+
+
+def _dot3(a, b):
+    """a . b over the last dimension, x + y then + z."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])
+
+
+def _affine3(T, x):
+    """R x + t of poses T (Kt, 4, 4) for points x (Kt, n, 3)."""
+    return torch.stack([_dot3(T[:, None, i, :3], x) + T[:, None, i, 3]
+                        for i in range(3)], dim=-1)
+
+
+def _norm3(v):
+    """plane._safe_norm of 3-vectors."""
+    return torch.sqrt(_dot3(v, v) + literal(plane_geo._EPS, v.dtype, v.device))
+
+
+def _cross3(a, b):
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]],
+                       dim=-1)
+
+
+def _basis3(n):
+    """plane.tangent_basis."""
+    ax = torch.abs(n)
+    use_x = (ax[..., 0] <= ax[..., 1]) & (ax[..., 0] <= ax[..., 2])
+    use_y = ~use_x & (ax[..., 1] <= ax[..., 2])
+    seed = torch.stack([use_x, use_y, ~use_x & ~use_y], dim=-1).to(n.dtype)
+    b1 = _cross3(n, seed)
+    b1 = b1 / _norm3(b1)[..., None]
+    return b1, _cross3(n, b1)
+
+
+def _unit_plane(c):
+    """plane.normalize."""
+    e = c / _norm3(c[..., :3])[..., None]
+    return e * torch.where(e[..., 3:4] < 0, -1.0, 1.0)
+
+
+def _plane_estimate(poses, base, theta):
+    """The camera-frame estimate c (Kt, Pp, 4) of planes base (Kt, Pp, 4)
+    moved by their chart coordinates theta (``plane_retract``) and then by
+    poses (Kt, 4, 4) (``plane.transform``); also the world normal n_w, the
+    chart's basis b1, b2 and the norm |n| the retraction divided by."""
+    b1, b2 = _basis3(base[..., :3])
+    n = (base[..., :3] + theta[..., 0:1] * b1) + theta[..., 1:2] * b2
+    sn = _norm3(n)[..., None]
+    n_w = n / sn
+    d = base[..., 3] + theta[..., 2]
+    n_c = torch.stack([_dot3(poses[:, None, i, :3], n_w) for i in range(3)],
+                      dim=-1)
+    d_c = d - _dot3(n_c, poses[:, None, :3, 3])
+    return torch.cat([n_c, d_c[..., None]], dim=-1), n_w, b1, b2, sn
+
+
+def _plane_rows(c, pi_obs, kind: int):
+    """The error rows of estimate c against pi_obs (plane.ominus, kind 0;
+    ominus_par, 1; ominus_ver, 2): the rows r and, per row, the vector of
+    the measurement it dots the estimate's normal with (None: kind 0's
+    distance row e_d - m_d, kind 2's zero row)."""
+    e = _unit_plane(c)
+    m = _unit_plane(pi_obs)
+    if kind == 2:
+        return [_dot3(e, m), torch.zeros_like(e[..., 0])], [m[..., :3], None]
+    if kind == 1:  # plane._hemi_align to the estimate
+        m = m * torch.where(_dot3(m, e)[..., None] < 0, -1.0, 1.0)
+    u1, u2 = _basis3(m[..., :3])
+    rows, vecs = [_dot3(u1, e), _dot3(u2, e)], [u1, u2]
+    if kind == 0:
+        rows.append(e[..., 3] - m[..., 3])
+        vecs.append(None)
+    return rows, vecs
+
+
+def _plane_chi(poses, base, theta, pi_obs, kind: int, info):
+    """The chi2 of plane observations: sum_d r_d^2 info_d."""
+    r = _plane_rows(_plane_estimate(poses, base, theta)[0], pi_obs, kind)[0]
+    chi = r[0] * r[0] * info[0]
+    for d, rd in enumerate(r[1:], 1):
+        chi = chi + rd * rd * info[d]
+    return chi
+
+
+def plane_jacs_closed(poses_c, plane_base, theta, slot, pi_obs, kind: int):
+    """Plane residuals rr (Kt, Pp, D) and their Jacobians Jx (Kt, Pp, D, 6)
+    wrt the pose tangent and Jt (Kt, Pp, D, 3) wrt the plane's tangent
+    chart, in closed form, as jax.jacfwd of the JAX module's residual
+    (``_plane_jacs``) gives them at 0; K33 computes the same.
+      retract: n = n0 + th0 b1 + th1 b2, n_w = n / |n|, d_w = d0 + th2, so
+        dn_w/dth_j = (b_j - n_w (n_w . b_j)) / |n| (j = 0, 1), dd_w/dth2 = 1;
+      transform by exp(x) T: dn_c = dphi x n_c, dd_c = -n_c . drho (a turn
+        about the camera centre keeps d), and through the chart
+        dn_c = R dn_w, dd_c = dd_w - (R dn_w) . t;
+      normalize: de = sgn (dc - c (n_c . dn_c) / s^2) / s with s the safe
+        norm of n_c and sgn the sign that makes d >= 0;
+    each error row is the estimate dotted with a vector of the measurement
+    (its tangent basis, the basis of the measurement turned into the
+    estimate's hemisphere, its normal), which carries no derivative;
+    ominus_ver's second row is identically 0."""
+    s_idx = slot.long()
+    c, n_w, b1, b2, sn = _plane_estimate(poses_c, plane_base[s_idx],
+                                         theta[s_idx])
+    n_c = c[..., :3]
+    zero = torch.zeros_like(c[..., 0])
+    cols = [torch.stack([zero, zero, zero, -n_c[..., k]], dim=-1)
+            for k in range(3)]
+    cols += [torch.stack([zero, -n_c[..., 2], n_c[..., 1], zero], dim=-1),
+             torch.stack([n_c[..., 2], zero, -n_c[..., 0], zero], dim=-1),
+             torch.stack([-n_c[..., 1], n_c[..., 0], zero, zero], dim=-1)]
+    for b in (b1, b2):
+        dn_w = (b - n_w * _dot3(n_w, b)[..., None]) / sn
+        dn = torch.stack([_dot3(poses_c[:, None, i, :3], dn_w)
+                          for i in range(3)], dim=-1)
+        cols.append(torch.cat([dn, -_dot3(dn, poses_c[:, None, :3, 3])[
+            ..., None]], dim=-1))
+    cols.append(torch.stack([zero, zero, zero, torch.ones_like(zero)], -1))
+    dc = torch.stack(cols, dim=-1)                        # (Kt, Pp, 4, 9)
+    sc = _norm3(n_c)[..., None]
+    sgn = torch.where(c[..., 3:4] / sc < 0, -1.0, 1.0)
+    nd = _dot3(n_c[..., :, None].transpose(-1, -2), dc[..., :3, :]
+               .transpose(-1, -2))                         # (Kt, Pp, 9)
+    de = sgn[..., None] * (dc - c[..., :, None] * (nd / (sc * sc))[
+        ..., None, :]) / sc[..., None]
+    rows, vecs = _plane_rows(c, pi_obs, kind)
+
+    def jac_row(v):
+        if v is not None:
+            return _dot3(v[..., None, :], de[..., :3, :].transpose(-1, -2))
+        if kind == 0:
+            return de[..., 3, :]                  # the distance row
+        return torch.zeros_like(de[..., 0, :])    # ominus_ver's second row
+
+    J = torch.stack([jac_row(v) for v in vecs], dim=-2)
+    return torch.stack(rows, dim=-1), J[..., :6], J[..., 6:]
+
+
 def _all_chi2_tables(poses_c, lm_c, plane_base, P, pt, ln, pl, par, ver,
                      pt_slot, ln_slot, pl_slot, par_slot, ver_slot,
                      is_stereo, K, bf, w):
     """Per-observation chi2 of every table at the given state (residuals
-    only; shared by both solvers)."""
+    only; shared by both solvers): the JAX module's formulas, each product
+    and sum spelled in a fixed order (K34's plain version)."""
     fx, fy, cx, cy = K
     pts = lm_c[:P]
-    R = poses_c[:, :3, :3]
-    t = poses_c[:, :3, 3]
+    bf_t = literal(float(np.float32(bf)), lm_c.dtype, lm_c.device)
 
-    xw = pts[pt_slot.long()]
-    pc = torch.einsum("kij,kfj->kfi", R, xw) + t[:, None, :]
+    pc = _affine3(poses_c, pts[pt_slot.long()])
     z = torch.clamp(pc[..., 2], min=1e-6)
     u = fx * pc[..., 0] / z + cx
     v = fy * pc[..., 1] / z + cy
-    urh = u - bf / z
-    r_pt = torch.stack([pt.uv[..., 0] - u, pt.uv[..., 1] - v,
-                        torch.where(is_stereo, pt.ur - urh, 0.0)], dim=-1)
-    chi_pt = torch.sum(r_pt * r_pt, dim=-1) * pt.inv_s2
+    urh = u - bf_t / z
+    r0 = pt.uv[..., 0] - u
+    r1 = pt.uv[..., 1] - v
+    r2 = torch.where(is_stereo, pt.ur - urh, 0.0)
+    chi_pt = (r0 * r0 + r1 * r1 + r2 * r2) * pt.inv_s2
 
-    xl = pts[ln_slot.long()]
-    pcl = torch.einsum("kij,klj->kli", R, xl) + t[:, None, :]
+    pcl = _affine3(poses_c, pts[ln_slot.long()])
     zl = torch.clamp(pcl[..., 2], min=1e-6)
     ul = fx * pcl[..., 0] / zl + cx
     vl = fy * pcl[..., 1] / zl + cy
@@ -280,21 +405,19 @@ def _all_chi2_tables(poses_c, lm_c, plane_base, P, pt, ln, pl, par, ver,
     chi_ln = r_ln * r_ln * ln.inv_s2
 
     Q = plane_base.shape[0]
-    pi_w = plane_retract(plane_base, lm_c[P:]) if Q > 0 else None
+    infos = (w.angle_info, w.angle_info, w.dis_info), \
+        (w.par_info, w.par_info), (w.ver_info, w.ver_info)
 
-    def plane_chi(tables, slot, err_fn, wts):
+    def plane_chi(tables, slot, kind):
         if Q == 0 or slot.shape[1] == 0:
             return torch.zeros(slot.shape, dtype=lm_c.dtype,
                                device=lm_c.device)
-        pi_est = plane_geo.transform(poses_c[:, None], pi_w[slot.long()])
-        r = err_fn(pi_est, tables.pi_obs)
-        return torch.sum(r * r * wts, dim=-1)
+        s = slot.long()
+        return _plane_chi(poses_c, plane_base[s], lm_c[P:][s], tables.pi_obs,
+                          kind, infos[kind])
 
-    w_pl, w_par, w_ver = _info(w, lm_c.device)
-    chi_pl = plane_chi(pl, pl_slot, plane_geo.ominus, w_pl)
-    chi_par = plane_chi(par, par_slot, plane_geo.ominus_par, w_par)
-    chi_ver = plane_chi(ver, ver_slot, plane_geo.ominus_ver, w_ver)
-    return chi_pt, chi_ln, chi_pl, chi_par, chi_ver
+    return (chi_pt, chi_ln, plane_chi(pl, pl_slot, 0),
+            plane_chi(par, par_slot, 1), plane_chi(ver, ver_slot, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -533,7 +656,7 @@ def ba_schur_backsub(Hpp_inv, bp, Hcp, dxc):
 
 
 # ---------------------------------------------------------------------------
-# the solver
+# the problem of one solve
 
 
 class _Problem(NamedTuple):
@@ -545,17 +668,21 @@ class _Problem(NamedTuple):
     M: int
     pt: PointTables
     ln: LineTables
-    planes: tuple           # ((tables, slot, err_fn, info, gate), ...)
+    planes: tuple           # ((tables, slot, kind, info, gate), ...)
     pl_slots: tuple
     is_stereo: torch.Tensor
     gates: tuple
     masks: tuple
     plan: ObsPlan
+    w: BAWeights
 
 
 def _problem(lm_xyz, plane_base, pt, ln, pl, par, ver, w) -> _Problem:
-    P = lm_xyz.shape[0]
-    Q = plane_base.shape[0]
+    """The problem of one solve; with a leading batch on every table (and
+    lm_xyz (B, P, 3), plane_base (B, Q, 4)) the batch of K33's and K34's
+    wrappers, without K8's plan."""
+    P = lm_xyz.shape[-2]
+    Q = plane_base.shape[-2]
     M = P + Q
     dev = lm_xyz.device
 
@@ -568,16 +695,16 @@ def _problem(lm_xyz, plane_base, pt, ln, pl, par, ver, w) -> _Problem:
     is_stereo = pt.ur >= 0
     gate_pt = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO).to(torch.float32)
     w_pl, w_par, w_ver = _info(w, dev)
-    planes = ((pl, pl_slot, plane_geo.ominus, w_pl, w.plane_chi),
-              (par, par_slot, plane_geo.ominus_par, w_par, w.vp_chi),
-              (ver, ver_slot, plane_geo.ominus_ver, w_ver, w.vp_chi))
+    planes = ((pl, pl_slot, 0, w_pl, w.plane_chi),
+              (par, par_slot, 1, w_par, w.vp_chi),
+              (ver, ver_slot, 2, w_ver, w.vp_chi))
     plan = None
-    if not kernels.on_cpu(pt.slot):
+    if lm_xyz.dim() == 2 and not kernels.on_cpu(pt.slot):
         plan = obs_plan(pt.slot, pt.mask, ln.slot, ln.mask, M)
     return _Problem(P, Q, M, pt, ln, planes, (pl_slot, par_slot, ver_slot),
                     is_stereo,
                     (gate_pt, CHI2_MONO, w.plane_chi, w.vp_chi, w.vp_chi),
-                    (pt.mask, ln.mask, pl.mask, par.mask, ver.mask), plan)
+                    (pt.mask, ln.mask, pl.mask, par.mask, ver.mask), plan, w)
 
 
 def _chi2(pb: _Problem, poses_c, lm_c, plane_base, K, bf, w):
@@ -587,47 +714,375 @@ def _chi2(pb: _Problem, poses_c, lm_c, plane_base, K, bf, w):
                             *pb.pl_slots, pb.is_stereo, K, bf, w)
 
 
-def _plane_terms(pb: _Problem, poses_c, plane_base, theta, huber: bool):
-    """Per plane table: (slot, rr, Jx, Jt, Wv) with the Huber-weighted
-    information Wv (Kt, Pp, D)."""
-    out = []
+def _active_planes(pb: _Problem) -> list:
+    """The plane tables that add terms: none without a plane block, and no
+    table without observation slots."""
     if pb.Q == 0:
-        return out
-    for tables, slot, err_fn, info, gate in pb.planes:
-        if slot.shape[1] == 0:
-            continue
-        rr, Jx, Jt = _plane_jacs(poses_c, plane_base, theta, slot,
-                                 tables.pi_obs, err_fn)
-        chi = torch.sum(rr * rr * info, dim=-1)
-        Wv = (_huber_w_fn(chi, gate, huber) * tables.mask)[..., None] * info
-        out.append((slot, rr, Jx, Jt, Wv))
-    return out
+        return []
+    return [pl for pl in pb.planes if pl[1].shape[-1] > 0]
 
 
-def _add_plane_blocks(pb: _Problem, terms, Hcc, bc, Hpp, bp, Hcp):
-    """Add the plane observations into the normal equations; Hcp rows are
-    summed per keyframe with a one-hot product (no scatter)."""
-    for slot, rr, Jx, Jt, Wv in terms:
-        rw = rr * Wv
-        Hcc = Hcc + torch.einsum("kpdi,kpd,kpdj->kij", Jx, Wv, Jx)
-        bc = bc + torch.einsum("kpdi,kpd->ki", Jx, rw)
-        flat = (slot + pb.P).reshape(-1)
-        Hpp = Hpp + segment_sum(torch.einsum(
-            "kpdi,kpd,kpdj->kpij", Jt, Wv, Jt).reshape(-1, 3, 3), flat, pb.M)
-        bp = bp + segment_sum(torch.einsum(
-            "kpdi,kpd->kpi", Jt, rw).reshape(-1, 3), flat, pb.M)
-        if Hcp is not None:
-            C = torch.einsum("kpdi,kpd,kpdj->kpij", Jx, Wv, Jt)
-            onehot = torch.nn.functional.one_hot(
-                slot.long(), pb.Q).to(C.dtype)            # (Kt, Pp, Q)
-            Hcp[:, :, pb.P:, :] += torch.einsum("kpq,kpij->kiqj", onehot, C)
-    return Hcc, bc, Hpp, bp
+def _problem_at(pb: _Problem, b: int) -> _Problem:
+    """Problem b of a batched _Problem."""
+    def at(x):
+        return x[b] if isinstance(x, torch.Tensor) else x
+
+    def tab(t):
+        return type(t)(*map(at, t))
+
+    return pb._replace(
+        pt=tab(pb.pt), ln=tab(pb.ln),
+        planes=tuple((tab(t), at(s), k, i, g) for t, s, k, i, g in pb.planes),
+        pl_slots=tuple(map(at, pb.pl_slots)), is_stereo=at(pb.is_stereo),
+        gates=tuple(map(at, pb.gates)), masks=tuple(map(at, pb.masks)))
+
+
+def _stacked(outs):
+    """Per-problem results stacked along a new leading batch dimension
+    (tuples, named tuples and lists of PlaneTerms walked)."""
+    first = outs[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(outs)
+    if first is None:
+        return None
+    if isinstance(first, list):
+        return [_stacked(list(x)) for x in zip(*outs)]
+    fields = [_stacked(list(x)) for x in zip(*outs)]
+    return type(first)(*fields) if hasattr(first, "_fields") \
+        else tuple(fields)
+
+
+# ---------------------------------------------------------------------------
+# K33: the plane blocks of the normal equations
+
+
+class PlaneTerms(NamedTuple):
+    """One plane table's per-observation terms (the PCG products' factors):
+    slot (Kt, Pp), rr and Wv (Kt, Pp, D), Jx (Kt, Pp, D, 6), Jt (Kt, Pp, D,
+    3), Wv the Huber-weighted information."""
+
+    slot: torch.Tensor
+    rr: torch.Tensor
+    Jx: torch.Tensor
+    Jt: torch.Tensor
+    Wv: torch.Tensor
 
 
 def _mu_p(Hpp):
+    """The mean observed landmark diagonal: the absolute floor of the
+    landmark damping."""
     diag_p = torch.diagonal(Hpp, dim1=-2, dim2=-1)
     n_obs = torch.sum(diag_p.sum(-1) > 0) + 1
     return torch.sum(diag_p) / (3 * n_obs)
+
+
+def plane_blocks_plain(pb: _Problem, poses_c, plane_base, theta, Hcc, bc,
+                       Hpp, bp, Hcp, huber: bool = True):
+    """Plain version of K33. Per plane observation the residual, the
+    closed-form Jacobians (``plane_jacs_closed``) and the Huber-weighted
+    information, summed into Hcc (Kt, 6, 6), bc (Kt, 6), the plane rows
+    P.. of Hpp (M, 3, 3) and bp (M, 3) and, unless Hcp is None, the plane
+    columns of Hcp (Kt, 6, M, 3) (added in place). Returns Hcc, bc, Hpp,
+    bp, Hcp, the PlaneTerms of each table that has slots, and mu_p (0-d),
+    the landmark damping floor of the summed Hpp."""
+    P, M = pb.P, pb.M
+    terms = []
+    for tables, slot, kind, info, gate in _active_planes(pb):
+        rr, Jx, Jt = plane_jacs_closed(poses_c, plane_base, theta, slot,
+                                       tables.pi_obs, kind)
+        chi = torch.sum(rr * rr * info, dim=-1)
+        Wv = (_huber_w_fn(chi, gate, huber) * tables.mask)[..., None] * info
+        terms.append(PlaneTerms(slot, rr, Jx, Jt, Wv))
+        rw = rr * Wv
+        Hcc = Hcc + torch.einsum("kpdi,kpd,kpdj->kij", Jx, Wv, Jx)
+        bc = bc + torch.einsum("kpdi,kpd->ki", Jx, rw)
+        flat = (slot + P).reshape(-1)
+        Hpp = Hpp + segment_sum(torch.einsum(
+            "kpdi,kpd,kpdj->kpij", Jt, Wv, Jt).reshape(-1, 3, 3), flat, M)
+        bp = bp + segment_sum(torch.einsum(
+            "kpdi,kpd->kpi", Jt, rw).reshape(-1, 3), flat, M)
+        if Hcp is not None:
+            # the plane columns summed per keyframe by a one-hot product
+            C = torch.einsum("kpdi,kpd,kpdj->kpij", Jx, Wv, Jt)
+            onehot = torch.nn.functional.one_hot(
+                slot.long(), pb.Q).to(C.dtype)            # (Kt, Pp, Q)
+            Hcp[:, :, P:, :] += torch.einsum("kpq,kpij->kiqj", onehot, C)
+    return Hcc, bc, Hpp, bp, Hcp, terms, _mu_p(Hpp)
+
+
+def ba_plane_blocks(pb: _Problem, poses_c, plane_base, theta, Hcc, bc, Hpp,
+                    bp, Hcp, huber: bool = True):
+    """K33 wrapper; the arguments and results of ``plane_blocks_plain``,
+    each with an optional leading batch dimension (a batched _Problem,
+    poses_c (B, Kt, 4, 4), plane_base (B, Q, 4), theta (B, Q, 3), the sums
+    (B, ...); mu_p (B,)). On the card the sums are added in place into
+    K8's outputs, and each table's terms are views of one (Kt, Pp, D, 11)
+    record buffer (r, Wv, Jx, Jt). Two launches with plane tables (the
+    blocks, then the mu_p pass), one without."""
+    batched = poses_c.dim() == 4
+    if kernels.on_cpu(poses_c, plane_base, theta, Hcc, bc, Hpp, bp):
+        if not batched:
+            return plane_blocks_plain(pb, poses_c, plane_base, theta, Hcc,
+                                      bc, Hpp, bp, Hcp, huber)
+        return _stacked([plane_blocks_plain(
+            _problem_at(pb, b), poses_c[b], plane_base[b], theta[b], Hcc[b],
+            bc[b], Hpp[b], bp[b], None if Hcp is None else Hcp[b], huber)
+            for b in range(poses_c.shape[0])])
+    lead = poses_c.shape[:1] if batched else ()
+    B = poses_c.shape[0] if batched else 1
+    Kt, P, Q, M = poses_c.shape[-3], pb.P, pb.Q, pb.M
+    f32 = torch.float32
+    kernels.check(poses_c, "poses_c", f32, lead + (Kt, 4, 4))
+    kernels.check(plane_base, "plane_base", f32, lead + (Q, 4))
+    kernels.check(theta, "theta", f32, lead + (Q, 3))
+    kernels.check(Hcc, "Hcc", f32, lead + (Kt, 6, 6))
+    kernels.check(bc, "bc", f32, lead + (Kt, 6))
+    kernels.check(Hpp, "Hpp", f32, lead + (M, 3, 3))
+    kernels.check(bp, "bp", f32, lead + (M, 3))
+    if Hcp is not None:
+        kernels.check(Hcp, "Hcp", f32, lead + (Kt, 6, M, 3))
+    dev = poses_c.device
+    active = _active_planes(pb)
+    terms, args = [], []
+    for tables, slot, kind, _, _ in pb.planes:
+        Pp = slot.shape[-1] if any(a[2] == kind for a in active) else 0
+        D = 3 if kind == 0 else 2
+        rec = torch.empty(lead + (Kt, Pp, D, 11), dtype=f32, device=dev)
+        if Pp:
+            kernels.check(slot, "slot", torch.int32, lead + (Kt, Pp))
+            kernels.check(tables.pi_obs, "pi_obs", f32, lead + (Kt, Pp, 4))
+            kernels.check(tables.mask, "mask", f32, lead + (Kt, Pp))
+            terms.append(PlaneTerms(slot, rec[..., 0], rec[..., 2:8],
+                                    rec[..., 8:11], rec[..., 1]))
+        args += [kernels.ptr(slot), kernels.ptr(tables.pi_obs),
+                 kernels.ptr(tables.mask), Pp, kernels.ptr(rec)]
+    w = pb.w
+    mu_p = torch.empty(lead, dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        if active:
+            kernels.launch(
+                "psl_ba_plane_blocks", kernels.ptr(poses_c),
+                kernels.ptr(plane_base), kernels.ptr(theta), B, Kt, Q, P, M,
+                *args, w.angle_info, w.dis_info, w.par_info, w.ver_info,
+                w.plane_chi, w.vp_chi, int(huber), kernels.ptr(Hcc),
+                kernels.ptr(bc), kernels.ptr(Hpp), kernels.ptr(bp),
+                kernels.ptr(Hcp) if Hcp is not None else None)
+            kernels.LAUNCHES["ba_plane_blocks"] += 1
+        kernels.launch("psl_ba_mu_p", kernels.ptr(Hpp), B, M,
+                       kernels.ptr(mu_p))
+    kernels.LAUNCHES["ba_plane_blocks"] += 1
+    return Hcc, bc, Hpp, bp, Hcp, terms, mu_p
+
+
+# ---------------------------------------------------------------------------
+# K34: the LM step's cost test
+
+
+# K34's scratch per keyframe (csrc/ba_step.cu kScratch): the new pose (16
+# floats), the keyframe's decrease per table from COST_SCRATCH_SUMS on (pt,
+# ln, pl, par, ver), the finite flag
+COST_SCRATCH, COST_SCRATCH_SUMS = 22, 16
+
+
+class CostTest(NamedTuple):
+    """The state after the accept test: poses (Kt, 4, 4), lm (M, 3), lam,
+    accept (0-d bool) and the robust cost decrease (0-d)."""
+
+    poses: torch.Tensor
+    lm: torch.Tensor
+    lam: torch.Tensor
+    accept: torch.Tensor
+    decrease: torch.Tensor
+
+
+def cost_test_plain(pb: _Problem, poses_c, lm_c, dxc, dxp, lam, plane_base,
+                    K, bf: float, huber: bool = True) -> CostTest:
+    """Plain version of K34: poses_new = se3_exp(dxc) poses_c, lm_new =
+    lm_c + dxp, the per-observation chi2 of the five tables at both states,
+    the robust decrease as a sum of per-observation differences (tables
+    in the order pt, ln, pl, par, ver), the finite test, the accept and
+    the selected state and lam."""
+    poses_new = se3.se3_exp(dxc) @ poses_c
+    lm_new = lm_c + dxp
+    decrease = _robust_decrease_tables(
+        _chi2(pb, poses_new, lm_new, plane_base, K, bf, pb.w),
+        _chi2(pb, poses_c, lm_c, plane_base, K, bf, pb.w),
+        pb.gates, pb.masks, huber)
+    finite = (torch.isfinite(decrease) & torch.all(torch.isfinite(dxc))
+              & torch.all(torch.isfinite(dxp)))
+    accept = (decrease < 0.0) & finite
+    return CostTest(torch.where(accept, poses_new, poses_c),
+                    torch.where(accept, lm_new, lm_c),
+                    torch.clamp(torch.where(accept, lam * 0.3, lam * 6.0),
+                                1e-8, 1e6),
+                    accept, decrease)
+
+
+def _cost_test_launch(pb: _Problem, poses_c, lm_c, plane_base, K, bf,
+                      huber, step=None, chis=None):
+    """One K34 call: the cost test of `step` = (dxc, dxp, lam, poses_new,
+    lm_out, lam_out, accept, decrease, scratch), or with chis the tables
+    mode, which writes the five per-observation chi2 tables. A leading
+    batch on poses_c (B, Kt, 4, 4) runs B problems."""
+    lead = poses_c.shape[:1] if poses_c.dim() == 4 else ()
+    B = poses_c.shape[0] if lead else 1
+    Kt, P, Q, M = poses_c.shape[-3], pb.P, pb.Q, pb.M
+    f32, i32 = torch.float32, torch.int32
+    pt, ln = pb.pt, pb.ln
+    F, L2 = pt.slot.shape[-1], ln.slot.shape[-1]
+    kernels.check(poses_c, "poses", f32, lead + (Kt, 4, 4))
+    kernels.check(lm_c, "lm", f32, lead + (M, 3))
+    kernels.check(plane_base, "plane_base", f32, lead + (Q, 4))
+    kernels.check(pt.slot, "pt.slot", i32, lead + (Kt, F))
+    kernels.check(ln.slot, "ln.slot", i32, lead + (Kt, L2))
+    for name, t, shape in (("pt.uv", pt.uv, (Kt, F, 2)),
+                           ("pt.ur", pt.ur, (Kt, F)),
+                           ("pt.inv_s2", pt.inv_s2, (Kt, F)),
+                           ("pt.mask", pt.mask, (Kt, F)),
+                           ("ln.line2d", ln.line2d, (Kt, L2, 3)),
+                           ("ln.inv_s2", ln.inv_s2, (Kt, L2)),
+                           ("ln.mask", ln.mask, (Kt, L2))):
+        kernels.check(t, name, f32, lead + shape)
+    planes = []
+    for tables, slot, kind, _, _ in pb.planes:
+        Pp = slot.shape[-1] if Q > 0 else 0
+        if Pp:
+            kernels.check(slot, "slot", i32, lead + (Kt, Pp))
+            kernels.check(tables.pi_obs, "pi_obs", f32, lead + (Kt, Pp, 4))
+            kernels.check(tables.mask, "mask", f32, lead + (Kt, Pp))
+        planes += [kernels.ptr(slot), kernels.ptr(tables.pi_obs),
+                   kernels.ptr(tables.mask), Pp]
+    if step is None:
+        step = (None,) * 9
+    else:
+        kernels.check(step[0], "dxc", f32, lead + (Kt, 6))
+        kernels.check(step[1], "dxp", f32, lead + (M, 3))
+        kernels.check(step[2], "lam", f32, lead)
+    if chis is None:
+        chis = (None,) * 5
+    w = pb.w
+    fx, fy, cx, cy = (float(np.float32(v)) for v in K)
+    with torch.cuda.device(poses_c.device):
+        kernels.launch(
+            "psl_ba_cost_test", kernels.ptr(poses_c), kernels.ptr(lm_c),
+            kernels.ptr(plane_base), B, Kt, P, Q, M, kernels.ptr(pt.slot),
+            kernels.ptr(pt.uv), kernels.ptr(pt.ur), kernels.ptr(pt.inv_s2),
+            kernels.ptr(pt.mask), F, kernels.ptr(ln.slot),
+            kernels.ptr(ln.line2d), kernels.ptr(ln.inv_s2),
+            kernels.ptr(ln.mask), L2, *planes, fx, fy, cx, cy,
+            float(np.float32(bf)), w.angle_info, w.dis_info, w.par_info,
+            w.ver_info, w.plane_chi, w.vp_chi, int(huber),
+            *[None if x is None else kernels.ptr(x) for x in step],
+            *[None if x is None else kernels.ptr(x) for x in chis])
+    kernels.LAUNCHES["ba_cost_test"] += 1
+
+
+def ba_cost_test(pb: _Problem, poses_c, lm_c, dxc, dxp, lam, plane_base, K,
+                 bf: float, huber: bool = True) -> CostTest:
+    """K34 wrapper; the arguments and results of ``cost_test_plain``, each
+    with an optional leading batch dimension (a batched _Problem, poses_c
+    (B, Kt, 4, 4), lm_c (B, M, 3), dxc, dxp, lam (B,), plane_base (B, Q,
+    4)). One launch decides on the card: no host sync."""
+    batched = poses_c.dim() == 4
+    if kernels.on_cpu(poses_c, lm_c, dxc, dxp, lam, plane_base):
+        if not batched:
+            return cost_test_plain(pb, poses_c, lm_c, dxc, dxp, lam,
+                                   plane_base, K, bf, huber)
+        return _stacked([cost_test_plain(
+            _problem_at(pb, b), poses_c[b], lm_c[b], dxc[b], dxp[b], lam[b],
+            plane_base[b], K, bf, huber) for b in range(poses_c.shape[0])])
+    lead = poses_c.shape[:1] if batched else ()
+    Kt, M = poses_c.shape[-3], lm_c.shape[-2]
+    dev, f32 = poses_c.device, torch.float32
+    out = CostTest(torch.empty(lead + (Kt, 4, 4), dtype=f32, device=dev),
+                   torch.empty(lead + (M, 3), dtype=f32, device=dev),
+                   torch.empty(lead, dtype=f32, device=dev),
+                   torch.empty(lead, dtype=torch.bool, device=dev),
+                   torch.empty(lead, dtype=f32, device=dev))
+    # new poses, per-keyframe table sums, per-keyframe finite flags
+    scratch = torch.empty(lead + (Kt * COST_SCRATCH,), dtype=f32,
+                          device=dev)
+    _cost_test_launch(pb, poses_c, lm_c, plane_base, K, bf, huber,
+                      step=(dxc, dxp, lam, out.poses, out.lm, out.lam,
+                            out.accept, out.decrease, scratch))
+    return out
+
+
+def ba_chi2_tables(pb: _Problem, poses, lm, plane_base, K, bf: float):
+    """K34's tables mode: the per-observation chi2 of the five tables at
+    one state (chi_pt, chi_ln, chi_pl, chi_par, chi_ver); plain: _chi2.
+    An optional leading batch as ``ba_cost_test``'s."""
+    if kernels.on_cpu(poses, lm, plane_base):
+        if poses.dim() == 3:
+            return _chi2(pb, poses, lm, plane_base, K, bf, pb.w)
+        return _stacked([_chi2(_problem_at(pb, b), poses[b], lm[b],
+                               plane_base[b], K, bf, pb.w)
+                         for b in range(poses.shape[0])])
+    dev, f32 = poses.device, torch.float32
+    chis = tuple(torch.zeros(t.shape, dtype=f32, device=dev)
+                 for t in (pb.pt.slot, pb.ln.slot, *pb.pl_slots))
+    _cost_test_launch(pb, poses.contiguous(), lm.contiguous(), plane_base,
+                      K, bf, True, chis=chis)
+    return chis
+
+
+# ---------------------------------------------------------------------------
+# K35: the damped reduced camera system
+
+
+def reduced_system_plain(S, Hcc, rhs, lam, fixed_mask):
+    """Plain version of K35 for one problem. S (6 Kt, 6 Kt) = -(Hcp Hpp^-1)
+    Hcp^T, Hcc (Kt, 6, 6), rhs (Kt, 6), lam 0-d, fixed_mask (Kt,) (1 =
+    fixed). Returns the damped system with Hcc on its diagonal blocks and
+    the fixed poses eliminated (their rows and columns exactly the
+    identity), and rhs_vec (6 Kt, 1) with the fixed rows zeroed."""
+    Kt = Hcc.shape[0]
+    kidx = torch.arange(Kt, device=S.device)
+    free_rep = torch.repeat_interleave(1.0 - fixed_mask, 6)
+    S = S.clone()
+    S.view(Kt, 6, Kt, 6)[kidx, :, kidx, :] += Hcc
+    diag_S = torch.diagonal(S)
+    mu_c = torch.sum(diag_S * free_rep) / (torch.sum(free_rep) + 1.0)
+    eye_c = torch.eye(Kt * 6, dtype=S.dtype, device=S.device)
+    S = S + lam * torch.diag(diag_S) + (lam * mu_c + 1e-8) * eye_c
+    # exact elimination of fixed poses: identity rows/cols, zero rhs
+    S = S * free_rep[:, None] * free_rep[None, :] + torch.diag(
+        1.0 - free_rep)
+    return S, (rhs.reshape(-1) * free_rep)[:, None]
+
+
+def ba_reduced_system(S, Hcc, rhs, lam, fixed_mask):
+    """K35 wrapper; the arguments and results of ``reduced_system_plain``,
+    each with an optional leading batch dimension (B problems: S (B, n,
+    n), Hcc (B, Kt, 6, 6), rhs (B, Kt, 6), lam (B,), fixed_mask (B, Kt))."""
+    batched = S.dim() == 3
+    if kernels.on_cpu(S, Hcc, rhs, lam, fixed_mask):
+        if not batched:
+            return reduced_system_plain(S, Hcc, rhs, lam, fixed_mask)
+        return kernels.per_problem(reduced_system_plain,
+                                   (S, Hcc, rhs, lam, fixed_mask))
+    lead = S.shape[:1] if batched else ()
+    B = S.shape[0] if batched else 1
+    Kt = Hcc.shape[-3]
+    n, f32 = 6 * Kt, torch.float32
+    kernels.check(S, "S", f32, lead + (n, n))
+    kernels.check(Hcc, "Hcc", f32, lead + (Kt, 6, 6))
+    kernels.check(rhs, "rhs", f32, lead + (Kt, 6))
+    kernels.check(lam, "lam", f32, lead)
+    kernels.check(fixed_mask, "fixed_mask", f32, lead + (Kt,))
+    S_out = torch.empty_like(S)
+    rhs_vec = torch.empty(lead + (n, 1), dtype=f32, device=S.device)
+    with torch.cuda.device(S.device):
+        kernels.launch("psl_ba_reduced_system", kernels.ptr(S),
+                       kernels.ptr(Hcc), kernels.ptr(rhs), kernels.ptr(lam),
+                       kernels.ptr(fixed_mask), B, Kt, kernels.ptr(S_out),
+                       kernels.ptr(rhs_vec))
+    kernels.LAUNCHES["ba_reduced_system"] += 1
+    return S_out, rhs_vec
+
+
+# ---------------------------------------------------------------------------
+# the solver
 
 
 def ba_solve(poses: torch.Tensor, fixed_mask: torch.Tensor,
@@ -642,63 +1097,45 @@ def ba_solve(poses: torch.Tensor, fixed_mask: torch.Tensor,
     Kt = poses.shape[0]
     P, M = pb.P, pb.M
     dev, dt = poses.device, poses.dtype
-    free_rep = torch.repeat_interleave(1.0 - fixed_mask, 6)
-    eye_c = torch.eye(Kt * 6, dtype=dt, device=dev)
-    kidx = torch.arange(Kt, device=dev)
+    fixed_mask = fixed_mask.contiguous()
 
     def step(poses_c, lm_c, lam):
         pts = lm_c[:P]
         Hcc, bc, Hpp, bp, Hcp, _, _ = ba_normal_eqs(
             poses_c, pts, pb.pt, pb.ln, M, K, bf, huber, True, pb.plan)
-        Hcc, bc, Hpp, bp = _add_plane_blocks(
-            pb, _plane_terms(pb, poses_c, plane_base, lm_c[P:], huber),
-            Hcc, bc, Hpp, bp, Hcp)
-        Hinv, HcpHinv, rhs = ba_schur_eliminate(Hpp, bp, Hcp, bc, lam,
-                                                _mu_p(Hpp))
+        with record_function("ba_core.plane_blocks"):
+            Hcc, bc, Hpp, bp, Hcp, _, mu_p = ba_plane_blocks(
+                pb, poses_c, plane_base, lm_c[P:], Hcc, bc, Hpp, bp, Hcp,
+                huber)
+        Hinv, HcpHinv, rhs = ba_schur_eliminate(Hpp, bp, Hcp, bc, lam, mu_p)
         S = -(HcpHinv.view(Kt * 6, M * 3) @ Hcp.view(Kt * 6, M * 3).T)
-        S4 = S.view(Kt, 6, Kt, 6)
-        S4[kidx, :, kidx, :] += Hcc
-        diag_S = torch.diagonal(S)
-        mu_c = torch.sum(diag_S * free_rep) / (torch.sum(free_rep) + 1.0)
-        S = S + lam * torch.diag(diag_S) + (lam * mu_c + 1e-8) * eye_c
-        # exact elimination of fixed poses: identity rows/cols, zero rhs
-        S = S * free_rep[:, None] * free_rep[None, :] + torch.diag(
-            1.0 - free_rep)
-        rhs_vec = (rhs.reshape(-1) * free_rep)[:, None]
+        with record_function("ba_core.reduced_system"):
+            S, rhs_vec = ba_reduced_system(S, Hcc, rhs, lam, fixed_mask)
         # one step of iterative refinement; a matrix that is not positive
         # definite gives NaN, which the finite test below rejects (as JAX's
         # cho_factor does)
-        L, info = torch.linalg.cholesky_ex(S)
-        dx0 = torch.cholesky_solve(rhs_vec, L)
-        dx = dx0 + torch.cholesky_solve(rhs_vec - S @ dx0, L)
-        dxc = torch.where(info == 0, -dx.reshape(Kt, 6), float("nan"))
+        with record_function("ba_core.cholesky"):
+            L, info = torch.linalg.cholesky_ex(S)
+            dx0 = torch.cholesky_solve(rhs_vec, L)
+            dx = dx0 + torch.cholesky_solve(rhs_vec - S @ dx0, L)
+            dxc = torch.where(info == 0, -dx.reshape(Kt, 6), float("nan"))
         dxp = ba_schur_backsub(Hinv, bp, Hcp, dxc.contiguous())
-
-        poses_new = se3.se3_exp(dxc) @ poses_c
-        lm_new = lm_c + dxp
-        decrease = _robust_decrease_tables(
-            _chi2(pb, poses_new, lm_new, plane_base, K, bf, w),
-            _chi2(pb, poses_c, lm_c, plane_base, K, bf, w),
-            pb.gates, pb.masks, huber)
-        finite = (torch.isfinite(decrease) & torch.all(torch.isfinite(dxc))
-                  & torch.all(torch.isfinite(dxp)))
-        accept = (decrease < 0.0) & finite
-        return (torch.where(accept, poses_new, poses_c),
-                torch.where(accept, lm_new, lm_c),
-                torch.clamp(torch.where(accept, lam * 0.3, lam * 6.0),
-                            1e-8, 1e6))
+        with record_function("ba_core.cost_test"):
+            out = ba_cost_test(pb, poses_c, lm_c, dxc.contiguous(), dxp, lam,
+                               plane_base, K, bf, huber)
+        return out.poses, out.lm, out.lam
 
     lm = torch.cat([lm_xyz.to(dt), torch.zeros((pb.Q, 3), dtype=dt,
                                                device=dev)], dim=0)
     lam = torch.tensor(1e-4, dtype=dt, device=dev)
     for _ in range(n_iters):
         poses, lm, lam = step(poses.contiguous(), lm.contiguous(), lam)
-    return _finish(pb, poses, lm, plane_base, K, bf, w)
+    return _finish(pb, poses, lm, plane_base, K, bf)
 
 
-def _finish(pb: _Problem, poses, lm, plane_base, K, bf, w):
-    chi_pt, chi_ln, chi_pl, chi_par, chi_ver = _chi2(pb, poses, lm,
-                                                     plane_base, K, bf, w)
+def _finish(pb: _Problem, poses, lm, plane_base, K, bf):
+    chi_pt, chi_ln, chi_pl, chi_par, chi_ver = ba_chi2_tables(
+        pb, poses, lm, plane_base, K, bf)
     P = pb.P
     plane_out = (plane_geo.normalize(plane_retract(plane_base, lm[P:]))
                  if pb.Q > 0 else plane_base)

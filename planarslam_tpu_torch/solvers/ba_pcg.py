@@ -7,10 +7,13 @@ a fixed number of CG iterations on S x = rhs with matrix-free products and
 a block-Jacobi preconditioner. Global BA takes it above 128 keyframes.
 
 K8 (``ba_core.ba_normal_eqs`` with the Hcp output off) gives the point and
-line-endpoint block diagonals and gradient; the per-observation Jacobians
-that the matrix-free products and the preconditioner need, the CG loop and
-the plane terms stay plain torch. Gauge and LM policy match ba_solve, and
-no step reads a value back to the host.
+line-endpoint block diagonals and gradient, K33 (``ba_plane_blocks``) adds
+the plane blocks and returns the plane observations' terms and the
+landmark damping floor, and K34 (``ba_cost_test``) decides each step. The
+per-observation point and line Jacobians that the matrix-free products and
+the preconditioner need, the damping and the CG loop stay plain torch.
+Gauge and LM policy match ba_solve, and no step reads a value back to the
+host.
 """
 
 from __future__ import annotations
@@ -19,11 +22,10 @@ from typing import Tuple
 
 import torch
 
-from planarslam_tpu_torch.geometry import se3
 from planarslam_tpu_torch.solvers.ba_core import (
-    CHI2_MONO, BAWeights, LineTables, PlaneTables, PointTables, _chi2,
-    _finish, _huber_w_fn, _line_jacs, _mu_p, _plane_terms, _point_jacs,
-    _problem, _robust_decrease_tables, ba_normal_eqs, segment_sum)
+    CHI2_MONO, BAWeights, LineTables, PlaneTables, PointTables, _finish,
+    _huber_w_fn, _line_jacs, _point_jacs, _problem, ba_cost_test,
+    ba_normal_eqs, ba_plane_blocks, segment_sum)
 
 
 def ba_solve_pcg(poses: torch.Tensor, fixed_mask: torch.Tensor,
@@ -63,24 +65,17 @@ def ba_solve_pcg(poses: torch.Tensor, fixed_mask: torch.Tensor,
             chi_ln = r_ln * r_ln * ln.inv_s2
             w_ln = (ln.inv_s2 * _huber_w_fn(chi_ln, CHI2_MONO, huber)
                     * ln.mask)
-        pl_terms = _plane_terms(pb, poses_c, plane_base, theta, huber)
 
-        # block diagonals and gradient: K8 for points and lines, planes here
+        # block diagonals and gradient: K8 for points and lines, K33 planes
         Hcc, bc, Hpp, bp, _, _, _ = ba_normal_eqs(
             poses_c, pts, pt, ln, M, K, bf, huber, False, pb.plan)
-        for slot, rr, Jx, Jt, Wv in pl_terms:
-            Hcc = Hcc + torch.einsum("kpdi,kpd,kpdj->kij", Jx, Wv, Jx)
-            bc = bc + torch.einsum("kpdi,kpd->ki", Jx, rr * Wv)
-            fp = (slot + P).reshape(-1)
-            Hpp = Hpp + segment_sum(torch.einsum(
-                "kpdi,kpd,kpdj->kpij", Jt, Wv, Jt).reshape(-1, 3, 3), fp, M)
-            bp = bp + segment_sum(torch.einsum(
-                "kpdi,kpd->kpi", Jt, rr * Wv).reshape(-1, 3), fp, M)
+        Hcc, bc, Hpp, bp, _, pl_terms, mu_p = ba_plane_blocks(
+            pb, poses_c, plane_base, theta, Hcc, bc, Hpp, bp, None, huber)
 
         # Levenberg damping with the absolute floor, as in ba_solve
         diag_p = torch.diagonal(Hpp, dim1=-2, dim2=-1)
         Hpp_d = (Hpp + lam * torch.diag_embed(diag_p)
-                 + (lam * _mu_p(Hpp) + 1e-6) * eye3)
+                 + (lam * mu_p + 1e-6) * eye3)
         Hpp_inv = torch.linalg.inv_ex(Hpp_d)[0]
         diag_c = torch.diagonal(Hcc, dim1=-2, dim2=-1)
         mu_c = torch.sum(diag_c * free) / (torch.sum(free) * 6.0 + 1.0)
@@ -165,24 +160,14 @@ def ba_solve_pcg(poses: torch.Tensor, fixed_mask: torch.Tensor,
         dxc = -x
         dxp = -hppinv_apply(bp + hcpT_x(dxc))
 
-        poses_new = se3.se3_exp(dxc) @ poses_c
-        lm_new = lm_c + dxp
-        decrease = _robust_decrease_tables(
-            _chi2(pb, poses_new, lm_new, plane_base, K, bf, w),
-            _chi2(pb, poses_c, lm_c, plane_base, K, bf, w),
-            pb.gates, pb.masks, huber)
-        finite = (torch.isfinite(decrease) & torch.all(torch.isfinite(dxc))
-                  & torch.all(torch.isfinite(dxp)))
-        accept = (decrease < 0.0) & finite
-        return (torch.where(accept, poses_new, poses_c),
-                torch.where(accept, lm_new, lm_c),
-                torch.clamp(torch.where(accept, lam * 0.3, lam * 6.0),
-                            1e-8, 1e6))
+        out = ba_cost_test(pb, poses_c, lm_c, dxc.contiguous(),
+                           dxp.contiguous(), lam, plane_base, K, bf, huber)
+        return out.poses, out.lm, out.lam
 
     lm = torch.cat([lm_xyz.to(dt), torch.zeros((pb.Q, 3), dtype=dt,
                                                device=dev)], dim=0)
     lam = torch.tensor(1e-4, dtype=dt, device=dev)
     for _ in range(n_iters):
         poses, lm, lam = step(poses.contiguous(), lm.contiguous(), lam)
-    return _finish(pb, poses, lm, plane_base, K, bf, w)
+    return _finish(pb, poses, lm, plane_base, K, bf)
 

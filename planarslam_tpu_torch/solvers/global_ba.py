@@ -4,9 +4,10 @@ Port of ``planarslam_tpu/solvers/global_ba.py``: all keyframes (up to the
 caps) and all landmark types, the first keyframe fixed, a Huber stage, an
 outlier purge and a second stage, then spanning-tree propagation of the
 correction to keyframes outside the window and re-anchoring of landmarks
-outside the caps. The dense-Schur ``ba_core.ba_solve`` (K8, K9) holds up
-to MAX_GBA_KF keyframes; above that the matrix-free ``ba_pcg.ba_solve_pcg``
-(K8) takes one problem of up to MAX_GBA_KF_PCG.
+outside the caps. The dense-Schur ``ba_core.ba_solve`` (K8, K9, K33-K35)
+holds up to MAX_GBA_KF keyframes; above that the matrix-free
+``ba_pcg.ba_solve_pcg`` (K8, K33, K34) takes one problem of up to
+MAX_GBA_KF_PCG. Spans: global_ba.build_tables and each global_ba.ba_solve.
 """
 
 from __future__ import annotations
@@ -62,43 +63,49 @@ def global_bundle_adjustment(slam_map, cfg: SystemConfig, n_iters: int = 12,
     fixed_mask[:n_real] = 0.0
     fixed_mask[0] = 1.0  # gauge: first keyframe fixed
 
-    pt_tab, _ = build_point_tables(m, ids, Kt, pt_ids, cfg, device)
-    P_pts = MAX_GBA_PTS
-    ln_tab, _ = build_line_tables(m, ids, Kt, ln_ids, P_pts, cfg, device)
-    pl_tab, par_tab, ver_tab, _ = build_plane_tables(m, ids, Kt, pl_ids, cfg,
-                                                     device)
+    with record_function("global_ba.build_tables"):
+        pt_tab, _ = build_point_tables(m, ids, Kt, pt_ids, cfg, device)
+        P_pts = MAX_GBA_PTS
+        ln_tab, _ = build_line_tables(m, ids, Kt, ln_ids, P_pts, cfg,
+                                      device)
+        pl_tab, par_tab, ver_tab, _ = build_plane_tables(m, ids, Kt, pl_ids,
+                                                         cfg, device)
 
-    P_total = P_pts + 2 * MAX_GBA_LNS
-    lm = np.zeros((P_total, 3), np.float32)
-    lm[:len(pt_ids)] = m.pt_xyz[pt_ids]
-    lm[P_pts + 0:P_pts + 2 * len(ln_ids):2] = m.ln_sw[ln_ids]
-    lm[P_pts + 1:P_pts + 2 * len(ln_ids):2] = m.ln_ew[ln_ids]
-    plane_base = np.zeros((MAX_GBA_PLS, 4), np.float32)
-    plane_base[:, 2] = 1.0
-    plane_base[:len(pl_ids)] = m.pl_coeffs[pl_ids]
+        P_total = P_pts + 2 * MAX_GBA_LNS
+        lm = np.zeros((P_total, 3), np.float32)
+        lm[:len(pt_ids)] = m.pt_xyz[pt_ids]
+        lm[P_pts + 0:P_pts + 2 * len(ln_ids):2] = m.ln_sw[ln_ids]
+        lm[P_pts + 1:P_pts + 2 * len(ln_ids):2] = m.ln_ew[ln_ids]
+        plane_base = np.zeros((MAX_GBA_PLS, 4), np.float32)
+        plane_base[:, 2] = 1.0
+        plane_base[:len(pl_ids)] = m.pl_coeffs[pl_ids]
 
-    poses0 = np.tile(np.eye(4, dtype=np.float32), (Kt, 1, 1))
-    poses0[:n_real] = m.kf_pose[ids].astype(np.float32)
+        poses0 = np.tile(np.eye(4, dtype=np.float32), (Kt, 1, 1))
+        poses0[:n_real] = m.kf_pose[ids].astype(np.float32)
 
-    solver = ba_solve
-    if use_pcg:
-        from planarslam_tpu_torch.solvers.ba_pcg import ba_solve_pcg
-        solver = ba_solve_pcg
+        solver = ba_solve
+        if use_pcg:
+            from planarslam_tpu_torch.solvers.ba_pcg import ba_solve_pcg
+            solver = ba_solve_pcg
 
-    fixed_t = _put(fixed_mask, device)
-    poses1, lm1, planes1, chis = solver(
-        _put(poses0, device), fixed_t, _put(lm, device),
-        _put(plane_base, device), pt_tab, ln_tab, pl_tab, par_tab, ver_tab,
-        K, bf, w, n_iters=n_iters)
-    chis = {k: v.cpu().numpy() for k, v in chis.items()}
+        fixed_t = _put(fixed_mask, device)
+        args = (_put(poses0, device), fixed_t, _put(lm, device),
+                _put(plane_base, device))
+
+    with record_function("global_ba.ba_solve"):
+        poses1, lm1, planes1, chis = solver(
+            *args, pt_tab, ln_tab, pl_tab, par_tab, ver_tab, K, bf, w,
+            n_iters=n_iters)
+        chis = {k: v.cpu().numpy() for k, v in chis.items()}
     keep, _ = purge_masks(chis, pt_tab.ur.cpu().numpy(), Kt, w)
     tabs = [gated(t, k) for t, k in zip(
         (pt_tab, ln_tab, pl_tab, par_tab, ver_tab), keep)]
-    poses_out, lm_out, planes_out, _ = solver(
-        poses1, fixed_t, lm1, planes1, *tabs, K, bf, w,
-        n_iters=max(4, n_iters // 2))
+    with record_function("global_ba.ba_solve"):
+        poses_out, lm_out, planes_out, _ = solver(
+            poses1, fixed_t, lm1, planes1, *tabs, K, bf, w,
+            n_iters=max(4, n_iters // 2))
+        poses_out = poses_out.cpu().numpy()
 
-    poses_out = poses_out.cpu().numpy()
     lm_out = lm_out.cpu().numpy()
     planes_out = planes_out.cpu().numpy()
 

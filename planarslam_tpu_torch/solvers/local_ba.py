@@ -6,7 +6,8 @@ they observe, with fixed anchor keyframes, in the two-stage schedule (5
 iterations, outlier purge, 10 more iterations) and write-back of poses,
 landmarks and erased outlier observations. The tables are gathered on the
 host (numpy, as in JAX) and the solve runs on the map's device
-(``ba_core.ba_solve``, kernels K8 and K9 on a card).
+(``ba_core.ba_solve``, kernels K8, K9 and K33-K35 on a card; each solve
+in a local_ba.ba_solve span).
 """
 
 from __future__ import annotations
@@ -206,18 +207,20 @@ def local_bundle_adjustment(slam_map, kf: int, cfg: SystemConfig,
     poses0[:n_real] = m.kf_pose[all_kfs].astype(np.float32)
     fixed_t = _put(fixed_mask, device)
 
-    poses1, lm1, planes1, chis = ba_solve(
-        _put(poses0, device), fixed_t, _put(lm, device),
-        _put(plane_base, device), pt_tab, ln_tab, pl_tab, par_tab, ver_tab,
-        K, bf, w, n_iters=5)
+    with record_function("local_ba.ba_solve"):
+        poses1, lm1, planes1, chis = ba_solve(
+            _put(poses0, device), fixed_t, _put(lm, device),
+            _put(plane_base, device), pt_tab, ln_tab, pl_tab, par_tab,
+            ver_tab, K, bf, w, n_iters=5)
 
     # outlier purge, then 10 more iterations without the outliers
     chis = {k: v.cpu().numpy() for k, v in chis.items()}
     keep, gate = purge_masks(chis, pt_tab.ur.cpu().numpy(), Kt, w)
     tabs = [gated(t, k) for t, k in zip(
         (pt_tab, ln_tab, pl_tab, par_tab, ver_tab), keep)]
-    poses2, lm2, planes2, chis2 = ba_solve(
-        poses1, fixed_t, lm1, planes1, *tabs, K, bf, w, n_iters=10)
+    with record_function("local_ba.ba_solve"):
+        poses2, lm2, planes2, chis2 = ba_solve(
+            poses1, fixed_t, lm1, planes1, *tabs, K, bf, w, n_iters=10)
 
     poses2 = poses2.cpu().numpy()
     lm2 = lm2.cpu().numpy()

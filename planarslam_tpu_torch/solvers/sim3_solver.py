@@ -12,6 +12,11 @@ its plain PyTorch version. A RANSAC launches it twice: the 64 one-hot
 hypothesis rows, then the single row of the inlier refit. Hypotheses come
 from ``np.random.default_rng(7)``, as in the JAX module, so both packages
 draw the same triplets.
+
+Kernel K32 ``refine_relative`` (``csrc/refine_relative.cu``) runs the
+loop-edge refinement, all eight Gauss-Newton steps of one problem in one
+block and one launch; ``_refine_relative_plain`` is its plain version,
+with the analytic Jacobian of the bidirectional reprojection.
 """
 
 from __future__ import annotations
@@ -152,53 +157,112 @@ def horn_ransac_se3(src: np.ndarray, dst: np.ndarray,
     return T, int(n_inl), inl.cpu().numpy()[:n]
 
 
-def _refine_relative(T12_init, s_init, pts1_c, pts2_c, uv1, uv2, valid, K,
-                     fix_scale: bool = True, n_iters: int = 8,
-                     huber_chi2: float = 10.0):
-    """Gauss-Newton refinement of the relative transform between two
-    cameras: bidirectional reprojection (camera 2's points into camera 1
-    through S12 = (s R12, t12), camera 1's into camera 2 through S12^-1)
-    with Huber weights on each correspondence's chi2. 7-dof tangent
-    [rho, phi, sigma], sigma frozen when fix_scale. The Jacobian is
-    torch.func.jacfwd of the residual, as JAX's jax.jacfwd; the problem is
-    small, so it stays plain torch. Runs without a host sync."""
-    from torch.func import jacfwd
-
+def _proj_jac(p, K):
+    """project() of the refinement (z clamped at 1e-6) and its Jacobian
+    d(u, v)/dp (..., 2, 3); the clamp passes no derivative to z below
+    1e-6, as jnp.maximum and torch.clamp do."""
     fx, fy, cx, cy = K
+    z = torch.clamp(p[..., 2], min=1e-6)
+    front = p[..., 2] > 1e-6
+    uv = torch.stack([fx * p[..., 0] / z + cx, fy * p[..., 1] / z + cy],
+                     dim=-1)
+    zero = torch.zeros_like(z)
+    z2 = z * z
+    J = torch.stack([
+        torch.stack([fx / z, zero,
+                     torch.where(front, -fx * p[..., 0] / z2, zero)], -1),
+        torch.stack([zero, fy / z,
+                     torch.where(front, -fy * p[..., 1] / z2, zero)], -1)],
+        dim=-2)
+    return uv, J
 
-    def project(p):
-        z = torch.clamp(p[..., 2], min=1e-6)
-        return torch.stack([fx * p[..., 0] / z + cx,
-                            fy * p[..., 1] / z + cy], dim=-1)
 
-    def residuals(xi, T, s):
-        T_new = se3.se3_exp(xi[:6]) @ T
-        s_new = s * torch.exp(xi[6] * (0.0 if fix_scale else 1.0))
-        R12 = T_new[:3, :3]
-        t12 = T_new[:3, 3]
-        r1 = (uv1 - project(s_new * (pts2_c @ R12.T) + t12)) * valid[:, None]
-        p1_in_2 = (pts1_c - t12) @ R12 / torch.clamp(s_new, min=1e-9)
-        r2 = (uv2 - project(p1_in_2)) * valid[:, None]
-        return torch.cat([r1.reshape(-1), r2.reshape(-1)])
-
+def _refine_relative_plain(T12_init, s_init, pts1_c, pts2_c, uv1, uv2, valid,
+                           K, fix_scale: bool = True, n_iters: int = 8,
+                           huber_chi2: float = 10.0):
+    """Plain version of K32 for one problem. Gauss-Newton refinement of the
+    relative transform between two cameras: bidirectional reprojection
+    (camera 2's points into camera 1 through S12 = (s R12, t12), camera
+    1's into camera 2 through S12^-1) with Huber weights on each
+    correspondence's chi2. 7-dof tangent [rho, phi, sigma] on the left of
+    T12, sigma frozen when fix_scale. The Jacobian is analytic, as
+    jax.jacfwd of the JAX module's residual gives it at xi = 0:
+      p21 = s R p2 + t:  d/drho = I, d/dphi = -hat(p21), d/dsigma = s R p2;
+      p12 = R^T (p1 - t) / s:  d/drho = -R^T / s, d/dphi = R^T hat(p1) / s,
+        d/dsigma = -p12,
+    with the sigma column exactly 0 when fix_scale. Runs without a host
+    sync."""
     eye7 = torch.eye(7, dtype=torch.float32, device=T12_init.device)
-    xi0 = torch.zeros(7, dtype=torch.float32, device=T12_init.device)
     T, s = T12_init, s_init
+    n = pts1_c.shape[0]
+    v = valid[:, None, None]
     for _ in range(n_iters):
-        r0 = residuals(xi0, T, s)
+        R, t = T[:3, :3], T[:3, 3]
+        s_c = torch.clamp(s, min=1e-9)
+        sR2 = s * (pts2_c @ R.T)
+        p21 = sR2 + t
+        p12 = (pts1_c - t) @ R / s_c
+        uv_21, P1 = _proj_jac(p21, K)
+        uv_12, P2 = _proj_jac(p12, K)
+        r1 = (uv1 - uv_21) * valid[:, None]
+        r2 = (uv2 - uv_12) * valid[:, None]
+        sig = 0.0 if fix_scale else 1.0  # the sigma column
+        Rt = R.T.expand(n, 3, 3)
+        D1 = torch.cat([torch.eye(3, device=R.device).expand(n, 3, 3),
+                        -se3.hat(p21), sig * sR2[..., None]], dim=-1)
+        D2 = torch.cat([-Rt / s_c, Rt @ se3.hat(pts1_c) / s_c,
+                        -sig * torch.where(s > 1e-9, p12, 0.0)[..., None]],
+                       dim=-1)
+        J = torch.cat([(-(P1 @ D1) * v).reshape(-1, 7),
+                       (-(P2 @ D2) * v).reshape(-1, 7)])
+        r0 = torch.cat([r1.reshape(-1), r2.reshape(-1)])
         chi2 = torch.sum(r0.reshape(2, -1, 2) ** 2, dim=-1)
         w = torch.where(chi2 > huber_chi2,
                         torch.sqrt(huber_chi2 / torch.clamp(chi2, min=1e-9)),
                         1.0)
-        J = jacfwd(residuals)(xi0, T, s)
         Jw = J * torch.repeat_interleave(w.reshape(-1), 2)[:, None]
         dx = -torch.linalg.solve_ex(Jw.T @ J + 1e-6 * eye7, Jw.T @ r0,
                                     check_errors=False)[0]
         ok = torch.all(torch.isfinite(dx))
         T_new = se3.se3_exp(dx[:6]) @ T
-        s_new = s * torch.exp(dx[6] * (0.0 if fix_scale else 1.0))
+        s_new = s if fix_scale else s * torch.exp(dx[6])
         T = torch.where(ok, T_new, T)
         s = torch.where(ok, s_new, s)
+    return T, s
+
+
+def refine_relative(T12_init, s_init, pts1_c, pts2_c, uv1, uv2, valid, K,
+                    fix_scale: bool = True, n_iters: int = 8,
+                    huber_chi2: float = 10.0):
+    """K32 wrapper: B refinement problems with a leading batch dimension.
+    T12_init (B, 4, 4), s_init (B,), pts1_c, pts2_c (B, N, 3), uv1, uv2
+    (B, N, 2), valid (B, N) float32. Returns T (B, 4, 4) and s (B,).
+    One block per problem runs all n_iters steps in one launch."""
+    if kernels.on_cpu(T12_init, s_init, pts1_c, pts2_c, uv1, uv2, valid):
+        return kernels.per_problem(
+            _refine_relative_plain,
+            (T12_init, s_init, pts1_c, pts2_c, uv1, uv2, valid), K,
+            fix_scale, n_iters, huber_chi2)
+    B, N = valid.shape
+    f32 = torch.float32
+    kernels.check(T12_init, "T12_init", f32, (B, 4, 4))
+    kernels.check(s_init, "s_init", f32, (B,))
+    for name, x, d in (("pts1_c", pts1_c, 3), ("pts2_c", pts2_c, 3),
+                       ("uv1", uv1, 2), ("uv2", uv2, 2)):
+        kernels.check(x, name, f32, (B, N, d))
+    kernels.check(valid, "valid", f32, (B, N))
+    T = torch.empty((B, 4, 4), dtype=f32, device=valid.device)
+    s = torch.empty((B,), dtype=f32, device=valid.device)
+    fx, fy, cx, cy = (float(np.float32(x)) for x in K)
+    with torch.cuda.device(valid.device):
+        kernels.launch("psl_refine_relative", kernels.ptr(T12_init),
+                       kernels.ptr(s_init), kernels.ptr(pts1_c),
+                       kernels.ptr(pts2_c), kernels.ptr(uv1),
+                       kernels.ptr(uv2), kernels.ptr(valid), B, N, fx, fy,
+                       cx, cy, int(fix_scale), n_iters,
+                       float(np.float32(huber_chi2)), kernels.ptr(T),
+                       kernels.ptr(s))
+    kernels.LAUNCHES["refine_relative"] += 1
     return T, s
 
 
@@ -213,8 +277,9 @@ def refine_relative_se3(T12_init: np.ndarray, pts1_c: np.ndarray,
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
             device)
 
-    T, s = _refine_relative(
-        put(T12_init), torch.tensor(1.0, device=device), put(pts1_c),
-        put(pts2_c), put(uv1), put(uv2), put(valid),
-        tuple(float(v) for v in K), fix_scale=fix_scale)
-    return T.cpu().numpy(), float(s)
+    T, s = refine_relative(
+        put(T12_init)[None], torch.ones(1, device=device),
+        put(pts1_c)[None], put(pts2_c)[None], put(uv1)[None],
+        put(uv2)[None], put(valid)[None], tuple(float(v) for v in K),
+        fix_scale=fix_scale)
+    return T[0].cpu().numpy(), float(s[0])

@@ -1,4 +1,4 @@
-"""The hand-written Hopper kernels (K1-K31) against their plain PyTorch
+"""The hand-written Hopper kernels (K1-K35) against their plain PyTorch
 versions on the card. These need a GPU: without one every test skips.
 
     python -m pytest tests/test_torch_kernels.py -q     # on the GPU machine
@@ -739,3 +739,243 @@ def test_tail_kernels_batched(dev, batch):
             assert torch.equal(getattr(out, f)[b], getattr(one, f)[0]), f
     assert alpha[0] != alpha[1]
     assert not torch.equal(pa.direct[0], pa.direct[1])
+
+
+def _refine_inputs(dev, case, batch, N=1024):
+    """`batch` seeded loop-edge refinements (chip_smoke._refine_problem) as
+    the K32 wrapper's stacked tensors, and K."""
+    rng = np.random.default_rng(32)
+    probs = [chip_smoke._refine_problem(rng, N, case) for _ in range(batch)]
+    ins = [torch.from_numpy(np.stack([p[i] for p in probs])).to(dev)
+           for i in range(6)]
+    return (ins[0], torch.ones(batch, device=dev), *ins[1:]), probs[0][6]
+
+
+@pytest.mark.parametrize("case", ["outliers", "behind", "nonfinite"])
+def test_refine_relative(dev, case):
+    """K32 against _refine_relative_plain, N = 1024 (the guided rematch's
+    width): pose entries within 1e-5, with 10% outliers, a point behind
+    both cameras, and a NaN pixel that makes every step's dx non-finite
+    (both then return the start exactly); a batch of 3 equals each problem
+    launched alone; two launches equal bits."""
+    from planarslam_tpu_torch.solvers import sim3_solver
+
+    ins, K = _refine_inputs(dev, case, 3)
+    n0 = kernels.LAUNCHES["refine_relative"]
+    got = sim3_solver.refine_relative(*ins, K)
+    again = sim3_solver.refine_relative(*ins, K)
+    assert kernels.LAUNCHES["refine_relative"] == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for b in range(3):
+        want = sim3_solver._refine_relative_plain(*[x[b] for x in ins], K)
+        alone = sim3_solver.refine_relative(*[x[b:b + 1] for x in ins], K)
+        assert float((got[0][b] - want[0]).abs().max()) <= 1e-5
+        assert torch.equal(alone[0][0], got[0][b])
+        assert float(got[1][b]) == float(want[1]) == 1.0
+        if case == "nonfinite":
+            assert torch.equal(got[0][b], ins[0][b])
+            assert torch.equal(want[0], ins[0][b])
+        else:
+            assert not torch.equal(got[0][b], ins[0][b])
+
+
+def _plane_step(dev, case, Kt=16, Q=8, seed=33, raw=None):
+    """A BA problem with plane tables (chip_smoke._ba_problem and
+    _plane_problem): its _Problem, poses, plane coefficients, state (points
+    and chart coordinates), K8's sums and K. case "q0": no plane block;
+    "empty_par": a parallel table without columns. With a list `raw`, the
+    raw inputs of _problem are appended to it."""
+    from planarslam_tpu_torch.config import PlaneConfig
+    from planarslam_tpu_torch.solvers import ba_core
+
+    poses, pts, pt, ln, K = _ba_problem(dev, Kt, 256, 32, 1024, seed=seed)
+    prob = chip_smoke._plane_problem(np.random.default_rng(seed), Kt, 16, Q,
+                                     par_cols=0 if case == "empty_par"
+                                     else None, poses=poses.cpu().numpy())
+    base = torch.from_numpy(prob["base"]).to(dev)
+    theta = torch.from_numpy(prob["theta"]).to(dev)
+    if case == "q0":
+        base, theta = base[:0], theta[:0]
+    pl, par, ver = chip_smoke._plane_tables(prob, dev)
+    w = ba_core.BAWeights.from_config(PlaneConfig())
+    pb = ba_core._problem(pts, base, pt, ln, pl, par, ver, w)
+    if raw is not None:
+        raw.append((pts, base, pt, ln, pl, par, ver, w))
+    lm = torch.cat([pts, theta]).contiguous()
+    sums = ba_core.ba_normal_eqs_plain(poses, pts, pb.pt, pb.ln, pb.M, K,
+                                       40.0)[:5]
+    return pb, poses, base, lm, sums, K
+
+
+def _batched_problem(raw):
+    """The batched _Problem of problems of one shape (their raw inputs)."""
+    from planarslam_tpu_torch.solvers import ba_core
+
+    def stack(*xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack(xs)
+        return type(xs[0])(*[stack(*f) for f in zip(*xs)])
+
+    return ba_core._problem(*[stack(*x) for x in zip(*[r[:7] for r in raw])],
+                            raw[0][7])
+
+
+@pytest.mark.parametrize("case", ["tables", "q0", "empty_par"])
+def test_ba_plane_blocks(dev, case):
+    """K33 against plane_blocks_plain on 16 keyframes, 3 x 16 plane
+    observation slots, Q = 8 (planted hemisphere flips and vertical
+    pairs): every sum and record within 1e-5 of its largest value, on
+    zeroed sums (the plane blocks alone) and on K8's, mu_p too; Q = 0
+    launches only the mu_p pass; an empty parallel table adds nothing;
+    two launches equal bits; a batch of two problems equals each alone."""
+    from planarslam_tpu_torch.solvers import ba_core
+
+    pb, poses, base, lm, sums, _ = _plane_step(dev, case)
+    theta = lm[pb.P:]
+    for start in ([torch.zeros_like(x) for x in sums], sums):
+        n0 = kernels.LAUNCHES["ba_plane_blocks"]
+        got = ba_core.ba_plane_blocks(pb, poses, base, theta,
+                                      *[x.clone() for x in start], True)
+        assert kernels.LAUNCHES["ba_plane_blocks"] == n0 + (
+            1 if case == "q0" else 2)
+        again = ba_core.ba_plane_blocks(pb, poses, base, theta,
+                                        *[x.clone() for x in start], True)
+        want = ba_core.plane_blocks_plain(pb, poses, base, theta,
+                                          *[x.clone() for x in start], True)
+        for g, a, w in zip(got[:5] + (got[6],), again[:5] + (again[6],),
+                           want[:5] + (want[6],)):
+            assert _rel(g, w) <= 1e-5
+            assert torch.equal(g, a)
+        assert len(got[5]) == len(want[5]) == (
+            0 if case == "q0" else 2 if case == "empty_par" else 3)
+        for g, w in zip(got[5], want[5]):
+            assert torch.equal(g.slot, w.slot)
+            for x, y in zip(g[1:], w[1:]):
+                assert _rel(x, y) <= 1e-5
+    if case == "q0":
+        assert all(torch.equal(g, s) for g, s in zip(got[:5], sums))
+    # a batch of two problems equals each launched alone
+    raw = []
+    steps = [_plane_step(dev, case, seed=seed, raw=raw) for seed in (33, 36)]
+    bpb = _batched_problem(raw)
+    stacked = [torch.stack(x) for x in zip(*[
+        (p[1], p[2], p[3][p[0].P:].contiguous(), *p[4]) for p in steps])]
+    got = ba_core.ba_plane_blocks(bpb, *stacked, True)
+    for b, (pb1, poses1, base1, lm1, sums1, _) in enumerate(steps):
+        one = ba_core.ba_plane_blocks(pb1, poses1, base1, lm1[pb1.P:],
+                                      *[x.clone() for x in sums1], True)
+        for g, o in zip(got[:5] + (got[6],), one[:5] + (one[6],)):
+            assert torch.equal(g[b], o)
+        for g, o in zip(got[5], one[5]):
+            for x, y in zip(g[1:], o[1:]):
+                assert torch.equal(x[b], y)
+
+
+@pytest.mark.parametrize("case", ["accepted", "rejected"])
+def test_ba_cost_test(dev, case):
+    """K34 against cost_test_plain on the plane problem: a step that
+    undoes a planted pose error is accepted, a 0.3 rad step rejected (lam
+    x 6, the state kept exactly); the decrease within 2 (n - 1) 2^-24 of
+    the sum of the |rho| terms, the selected state equal; the tables mode
+    within 1e-6 of each table's largest chi2; two launches equal bits; a
+    batch of two problems equals each alone, in both modes."""
+    from planarslam_tpu_torch.geometry import se3
+    from planarslam_tpu_torch.solvers import ba_core
+
+    pb, poses, base, lm, _, K = _plane_step(dev, "tables")
+    rng = np.random.default_rng(34)
+    Kt, M = poses.shape[0], pb.M
+    delta = torch.from_numpy(rng.normal(
+        0, 0.3 if case == "rejected" else 0.002, (Kt, 6)).astype(
+            np.float32)).to(dev)
+    if case == "accepted":
+        poses = (se3.se3_exp(delta) @ poses).contiguous()
+        delta = -delta
+    dxp = torch.from_numpy(rng.normal(0, 1e-4, (M, 3)).astype(
+        np.float32)).to(dev)
+    lam = torch.tensor(1e-3, device=dev)
+    args = (pb, poses, lm, delta, dxp, lam, base, K, 40.0, True)
+    n0 = kernels.LAUNCHES["ba_cost_test"]
+    got = ba_core.ba_cost_test(*args)
+    again = ba_core.ba_cost_test(*args)
+    assert kernels.LAUNCHES["ba_cost_test"] == n0 + 2
+    want = ba_core.cost_test_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    chis = [ba_core._chi2(pb, p, x, base, K, 40.0, pb.w)
+            for p, x in ((se3.se3_exp(delta) @ poses, lm + dxp),
+                         (poses, lm))]
+    rho = [ba_core._rho_fn(c, g, m, True) for cs in chis
+           for c, g, m in zip(cs, pb.gates, pb.masks)]
+    n = sum(int(r.numel()) for r in rho)
+    bound = 2 * (n - 1) * 2.0 ** -24 * float(sum(r.abs().sum() for r in rho))
+    assert abs(float(got.decrease) - float(want.decrease)) <= bound
+    assert abs(float(want.decrease)) > bound
+    assert bool(got.accept) == bool(want.accept) == (case == "accepted")
+    assert torch.equal(got.lam, want.lam) and torch.equal(got.lm, want.lm)
+    assert float((got.poses - want.poses).abs().max()) <= 1e-5
+    if case == "rejected":
+        assert torch.equal(got.poses, poses) and torch.equal(got.lm, lm)
+        assert float(got.lam) == float(np.float32(1e-3) * np.float32(6.0))
+    chi_k = ba_core.ba_chi2_tables(pb, poses, lm, base, K, 40.0)
+    chi_p = ba_core._chi2(pb, poses, lm, base, K, 40.0, pb.w)
+    for a, b in zip(chi_k, chi_p):
+        assert _rel(a, b) <= 1e-6
+    # a batch of this problem and another equals each launched alone
+    raw = []
+    other = _plane_step(dev, "tables", seed=37, raw=raw)
+    _plane_step(dev, "tables", raw=raw)
+    bpb = _batched_problem([raw[1], raw[0]])
+    states = [(poses, lm, delta, dxp, lam, base),
+              (other[1], other[3], delta, dxp, lam, other[2])]
+    batch = [torch.stack(x).contiguous() for x in zip(*states)]
+    got_b = ba_core.ba_cost_test(bpb, *batch, K, 40.0, True)
+    chi_b = ba_core.ba_chi2_tables(bpb, batch[0], batch[1], batch[5], K,
+                                   40.0)
+    for b, (p1, (ps, x, dc, dp, lm_, bs)) in enumerate(zip(
+            (pb, other[0]), states)):
+        one = ba_core.ba_cost_test(p1, ps, x, dc, dp, lm_, bs, K, 40.0, True)
+        assert all(torch.equal(g[b], o) for g, o in zip(got_b, one))
+        chi1 = ba_core.ba_chi2_tables(p1, ps, x, bs, K, 40.0)
+        assert all(torch.equal(g[b], o) for g, o in zip(chi_b, chi1))
+
+
+def test_ba_reduced_system(dev):
+    """K35 against reduced_system_plain on Kt = 16 (S = -A A^T, PSD Hcc
+    blocks), every pose fixed but one, and with the first pose fixed: S
+    within 4 ulps, the fixed rows and columns exactly the identity, rhs
+    exact; a batch of two equals each alone; two launches equal bits."""
+    from planarslam_tpu_torch.solvers import ba_core
+
+    rng = np.random.default_rng(35)
+    Kt, n = 16, 96
+
+    def problem(fixed):
+        A = rng.normal(0, 1, (n, 2 * n))
+        B = rng.normal(0, 1, (Kt, 6, 8))
+        f32 = np.float32
+        return [torch.from_numpy(x.astype(f32)).to(dev) for x in (
+            -(A @ A.T), np.einsum("kab,kcb->kac", B, B) + 50 * np.eye(6),
+            rng.normal(0, 1, (Kt, 6)), np.array(1e-3), fixed)]
+
+    all_but_one = np.ones(Kt)
+    all_but_one[5] = 0.0
+    first = np.zeros(Kt)
+    first[0] = 1.0
+    probs = [problem(all_but_one), problem(first)]
+    batch = [torch.stack([p[i] for p in probs]) for i in range(5)]
+    n0 = kernels.LAUNCHES["ba_reduced_system"]
+    got = ba_core.ba_reduced_system(*batch)
+    again = ba_core.ba_reduced_system(*batch)
+    assert kernels.LAUNCHES["ba_reduced_system"] == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    eye = torch.eye(n, device=dev)
+    for b, p in enumerate(probs):
+        want = ba_core.reduced_system_plain(*p)
+        alone = ba_core.ba_reduced_system(*p)
+        assert torch.equal(alone[0], got[0][b])
+        assert torch.equal(alone[1], got[1][b])
+        assert float(chip_smoke._ulps(got[0][b], want[0]).max()) <= 4
+        assert torch.equal(got[1][b], want[1])
+        rows = torch.repeat_interleave(p[4], 6) > 0
+        assert torch.equal(got[0][b][rows], eye[rows])
+        assert torch.equal(got[0][b][:, rows], eye[:, rows])

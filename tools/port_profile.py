@@ -2,17 +2,29 @@
 """Where the time goes in the PyTorch/CUDA port, on a GPU.
 
     python3 tools/port_profile.py [--frames 40] [--warmup 20]
-                                  [--tracking-only | --loop-correction]
-                                  [--out DIR]
+                                  [--tracking-only | --loop-correction
+                                   [--repeat N]] [--out DIR]
 
-Tracks the 640x480 synthetic sequence with
+Tracks the 640x480 synthetic sequence (with --loop-correction path 4b's:
+chip_smoke.CONSTRUCTED_SEQUENCE frames, unless --frames is longer) with
 System(SystemConfig(), enable_loop_closing=False) (local mapping on; with
 --tracking-only also enable_local_mapping=False) and wraps frames
 warmup..frames-1 in torch.profiler (CPU + CUDA). With --loop-correction the
 default System (loop closing on) tracks the first `warmup` frames, the
 constructed loop of chip_smoke.py's path 4b is added to its map, and the
 window is that loop's verification and correction (pose graph, fuse,
-global BA), counted as one "frame". Prints, for each stage span (the
+global BA), counted as one "frame"; --repeat N rebuilds that loop on a
+fresh copy of the tracked map and corrects it N times in the process,
+each under a profiler session of its own (the first pays the first-call
+costs, the later ones do not), and prints one result per correction. The
+loop-correction spans split the stall: loop_closing.verify (with
+verify_match, verify_ransac, verify_refine, verify_guided_search),
+loop_closing.correct (pose_graph.optimize, loop_closing.reanchor,
+loop_closing.search_and_fuse with its device call fuse_search and host
+merge fuse_merge, global_ba.global_bundle_adjustment with
+global_ba.build_tables and each global_ba.ba_solve, and inside each LM
+step ba_core.plane_blocks, ba_core.reduced_system, ba_core.cholesky and
+ba_core.cost_test). Prints, for each stage span (the
 record_function names of the port's stage functions, among them
 device_mapper.mapping_step, local_mapping.finish_keyframe,
 tracking.relocalize, loop_closing.process_keyframe, pose_graph.optimize,
@@ -48,7 +60,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SPAN_MODULES = ("frontend", "lines", "planes", "manhattan", "matching",
                 "pose_opt", "device_tracker", "device_mapper",
                 "local_mapping", "tracking", "loop_closing", "pose_graph",
-                "global_ba", "local_ba")
+                "global_ba", "local_ba", "ba_core")
 # entry names of the hand-written kernels in the trace
 PORT_KERNELS = ("fast_score_kernel", "fast_score_levels_kernel",
                 "orb_describe_kernel", "orb_describe_levels_kernel",
@@ -71,7 +83,10 @@ PORT_KERNELS = ("fast_score_kernel", "fast_score_levels_kernel",
                 "match_select_kernel", "frame_matches_kernel",
                 "assemble_observations_kernel", "noise_alpha_kernel",
                 "frame_normals_kernel", "associate_planes_kernel",
-                "finish_step_kernel")
+                "finish_step_kernel", "refine_relative_kernel",
+                "plane_kf_kernel", "plane_lm_kernel", "mu_p_kernel",
+                "cost_obs_kernel", "cost_decide_kernel", "cost_select_kernel",
+                "reduced_system_kernel")
 
 
 def main(argv=None) -> int:
@@ -83,11 +98,13 @@ def main(argv=None) -> int:
     ap.add_argument("--loop-correction", action="store_true",
                     help="profile one constructed loop's verification and "
                     "correction after `warmup` tracked frames")
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="with --loop-correction: corrections of the "
+                    "constructed loop, each on a fresh copy of the map")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("port_profile: no CUDA device", file=sys.stderr)
@@ -104,7 +121,12 @@ def main(argv=None) -> int:
     print(f"device {smi.stdout.strip()}", flush=True)
     kernels.build()
     cfg = SystemConfig()
-    seq = synthetic.make_sequence(args.frames, width=cfg.camera.width,
+    n_seq = args.frames
+    if args.loop_correction:
+        from chip_smoke import CONSTRUCTED_SEQUENCE
+
+        n_seq = max(n_seq, CONSTRUCTED_SEQUENCE)
+    seq = synthetic.make_sequence(n_seq, width=cfg.camera.width,
                                   height=cfg.camera.height)
     frames = [quantize_frame(*seq.render(i), cfg.camera.depth_map_factor)
               for i in range(args.frames)]
@@ -112,19 +134,38 @@ def main(argv=None) -> int:
                   enable_loop_closing=args.loop_correction, device="cuda")
     for i in range(args.warmup):
         slam.track_rgbd(*frames[i], seq.timestamps[i])
+    runs, loop_kf = 1, None
     if args.loop_correction:
+        import copy
+
         from chip_smoke import construct_loop
 
         slam.shutdown()
-        loop_kf, _, _ = construct_loop(slam.map)
-    torch.cuda.synchronize()
+        base_map = slam.map
+        runs = args.repeat
+    for r in range(runs):
+        if args.loop_correction:
+            # a fresh copy of the tracked map for every correction
+            slam.map = slam.loop_closer.map = copy.deepcopy(base_map)
+            loop_kf, _, _ = construct_loop(slam.map)
+        torch.cuda.synchronize()
+        _profile_window(args, slam, frames, seq, r, loop_kf)
+    return 0
+
+
+def _profile_window(args, slam, frames, seq, run: int, loop_kf) -> None:
+    """Profile one window (the tracked frames, or the correction of the
+    loop that keyframe loop_kf closes) and print its JSON result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     n_kf0 = slam.map.n_kf
     n = 1 if args.loop_correction else args.frames - args.warmup
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         if args.loop_correction:
-            slam.loop_closer._verify_and_correct(loop_kf, 0)
+            ok = slam.loop_closer._verify_and_correct(loop_kf, 0)
         else:
             for i in range(args.warmup, args.frames):
                 slam.track_rgbd(*frames[i], seq.timestamps[i])
@@ -163,9 +204,10 @@ def main(argv=None) -> int:
     port_kernels = {name: sum(k[0] for k in kern if name in k[1]) / n / 1e3
                     for name in PORT_KERNELS}
     out = {"frames": n, "local_mapping": not args.tracking_only,
-           "loop_correction": args.loop_correction,
+           "loop_correction": args.loop_correction, "run": run,
            "keyframes_in_window": int(slam.map.n_kf - n_kf0),
            "wall_ms_per_frame": wall / n * 1e3,
+           **({"verified": bool(ok)} if args.loop_correction else {}),
            "device_busy_ms_per_frame": busy_ms / n,
            "device_busy_share": busy_ms / (wall * 1e3),
            "kernel_launches_per_frame": n_kernels / n,
@@ -178,8 +220,8 @@ def main(argv=None) -> int:
     print(json.dumps(out, indent=1), flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.out, "port_trace.json"))
-    return 0
+        prof.export_chrome_trace(os.path.join(
+            args.out, f"port_trace_{run}.json" if run else "port_trace.json"))
 
 
 if __name__ == "__main__":
