@@ -39,6 +39,12 @@ Phases, each fatal on failure:
      parallel, an empty cloud, no map plane), K30 and K31 on the last
      tracking step of two 10-frame Systems (clean, noisy), K31 on random
      tails, and both again on the inputs of path 1's 48th tracking step;
+     K36 (the step's prelude) bit-equal to its plain version on the
+     inputs of path 1's 48th tracking step and on four planted lanes; the
+     batch of K3, K4, K11, K12-K14 and K15 (with its initial-pose epilogue)
+     on four lanes in one launch each, every lane bit-equal to its own B =
+     1 launch and held to its plain version as one problem is, timed at
+     B = 1 and B = 4;
   4. path 1, tracking only: System(SystemConfig(), enable_local_mapping=
      False, enable_loop_closing=False) tracks 96 frames of the 640x480
      synthetic room, quantized to uint8 gray / uint16 depth; ATE against
@@ -66,11 +72,19 @@ Phases, each fatal on failure:
   9. path 4c, BA at scale: ba_solve on a 96-keyframe perturbed orbit and
      ba_solve_pcg on a 256-keyframe one, to the convergence limits of
      tests/test_ba_full.py;
- 10. host-to-device copies: a tracking-only System warms up, then 32 tracked
+ 10. path 5, batched replay: BatchedSLAM(SystemConfig(), B) at B = 4 and 8
+     over 48 quantized frames per lane (bench.py::_run_batched's
+     sequences); every lane's ATE, 0 lost, the fused lane frames, and per
+     batched step every step kernel launched as often as in one streaming
+     step whatever B; lane b of one B = 4 step bit-equal to the B = 1 step
+     on its inputs; make_batched_frame_step once at B = 8;
+ 11. host-to-device copies: a tracking-only System warms up, then 32 tracked
      frames run under one torch.profiler session, each in a span of its
      own, and their "Memcpy HtoD" events are counted per span: one per
      frame (the packed sensor frame) and one per refresh of the local-map
-     window, no constant among them.
+     window, no constant among them; then 24 batched steps of four
+     tracking-only lanes: two per step (the stacked frames, the small
+     parameters) plus one per lane window upload.
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel must have launched on the paths, and on every path K11
 must have launched once per pose_optimize call, K12 and K14 once and K13
@@ -84,13 +98,14 @@ mapping's line fuse among them), one K24 per search_by_projection call, one
 K3 per search_by_projection and two per match_descriptors call, one K25 per
 either call, one K26 per tracking step and per rotation_histogram_filter
 call and two K27 per tracking step (inside each tracking step K24 2, K3
-4, K25 3, K26 1, K27 2, K30 1, K31 1), one K28 and one K29 per
-extract_frame call, one K32 per refine_relative_se3 call, per LM step of
+4, K25 3, K26 1, K27 2, K30 1, K31 1, K11 2, K15 1, K36 1, whatever the
+step's batch of lanes), one K28 and one K29 per extract_frame call, one K32 per refine_relative_se3 call, per LM step of
 ba_solve and ba_solve_pcg one K33 launch (the mu_p pass) and one more
 with plane tables and one K34, per dense step one K35, one K34 per solve
 (its tables mode); no plain line, matching, noise, normal, plane
-association, step-tail, refinement, plane-block, cost-test or
-reduced-system function may see a tensor on the card. The line before the
+association, step-tail, prelude, plane, Manhattan, pose, refinement,
+plane-block, cost-test or reduced-system function may see a tensor on the
+card. The line before the
 last is a JSON object with one entry per kernel (its time and its plain
 version's, the least time the card could take for the same bytes and
 operations, and a PyTorch call's time where one computes the same
@@ -1448,9 +1463,13 @@ def matching_kernel_parity(seq, cfg, dev) -> list:
 # K28-K31: the depth-noise median, the frame normals, the plane association
 # and the step's tail
 
-# the tail's launches of one tracking step, and all of a step's counted ones
+# the tail's launches of one tracking step, its prelude, Manhattan and pose
+# launches, and all of a step's counted ones (the same whatever the step's
+# batch of lanes)
 TAIL_PER_STEP = {"associate_planes": 1, "finish_step": 1}
-STEP_LAUNCHES = {**MATCH_PER_STEP, **TAIL_PER_STEP}
+CORE_PER_STEP = {"step_prelude": 1, "manhattan_mean_shift": 1,
+                 "pose_optimize": 2}
+STEP_LAUNCHES = {**MATCH_PER_STEP, **TAIL_PER_STEP, **CORE_PER_STEP}
 PLANE_KEYS = ("coeffs", "valid", "T_cw", "pl_coeffs", "pl_cloud",
               "pl_cloud_n", "pl_valid")
 PLANE_CASES = ("random", "tie", "self_parallel", "empty_cloud", "no_map")
@@ -2256,13 +2275,29 @@ def pose_kernel_parity(cfg, dev) -> list:
     return [entry]
 
 
+def _lane0(obj):
+    """Lane 0 of a call's batched (B = 1) tensors, tuples and dicts
+    walked."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj[0]
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*[_lane0(x) for x in obj])
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_lane0(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _lane0(v) for k, v in obj.items()}
+    return obj
+
+
 def pose_frame_parity(entry: dict, captured: list) -> None:
     """K11 against its plain version on the inputs of the two calls of one
-    tracked frame of path 1 (obs1 and obs2, captured at the call); the
-    results join K11's report entry."""
+    tracked frame of path 1 (obs1 and obs2, captured at the call, the
+    step's one lane); the results join K11's report entry."""
     frame = {}
     for name, (args, kw) in zip(("obs1", "obs2"), captured):
-        frame[name] = _pose_compare(args, kw, False)
+        frame[name] = _pose_compare(*_lane0((args, kw)), False)
         frame[name]["rows"] = _pose_rows(kw)
     print(f"pose_optimize tracked frame: {json.dumps(frame)}", flush=True)
     entry["tracked_frame"] = frame
@@ -2697,7 +2732,15 @@ PLAIN_MATCHING_FUNCTIONS = ("gated_hamming_top2_plain",
 PLAIN_TAIL_FUNCTIONS = (("planes", "noise_alpha_plain"),
                         ("planes", "frame_normals_plain"),
                         ("device_tracker", "_associate_planes_plain"),
-                        ("device_tracker", "finish_step_plain"))
+                        ("device_tracker", "finish_step_plain"),
+                        ("device_tracker", "step_prelude_plain"),
+                        ("planes", "plane_block_moments_plain"),
+                        ("planes", "plane_components_plain"),
+                        ("planes", "plane_assign_refit_plain"),
+                        ("planes", "plane_label_pixels_plain"),
+                        ("manhattan", "track_manhattan_frame_plain"),
+                        ("manhattan", "init_select_plain"),
+                        ("pose_opt", "_pose_optimize_plain"))
 PLAIN_LOOP_FUNCTIONS = (("sim3_solver", "_refine_relative_plain"),
                         ("ba_core", "plane_blocks_plain"),
                         ("ba_core", "cost_test_plain"),
@@ -2895,6 +2938,7 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
             "noise_alpha": rec["frame_calls"],
             "frame_normals": rec["frame_calls"],
             "associate_planes": steps, "finish_step": steps,
+            "step_prelude": steps,
             "refine_relative": rec["refine_calls"],
             "ba_plane_blocks": rec["plane_block_calls"]
                                + rec["plane_block_with_planes"],
@@ -4144,6 +4188,645 @@ def run_h2d_copies(seq, frames, cfg, dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# K36 (the step's prelude), the batch of K3, K4, K11-K15, and path 5
+
+BATCH_SIZES = (4, 8)   # path 5's lanes (bench.py::_run_batched)
+BATCH_FRAMES = 48      # frames per lane (bench.py::_run_batched), the
+BATCH_SEQUENCE = 96    # first of a sequence of this many: at bench.py's
+                       # pace (48-frame sequences) lanes 0 and 1 lose
+                       # tracking and reset in both packages
+BATCH_WARMUP = 8       # batched steps left out of the step times
+BATCH_PARITY = 4       # lanes of the batched kernel phases
+H2D_BATCH_STEPS = 24   # batched steps under the profiler (B = 4)
+# the step prelude's inputs in path 1's 48th tracking step
+PRELUDE_CAPTURE = (("device_tracker", "step_prelude", 48),)
+
+
+def _planted_prelude(dev, B: int, L: int, Nn: int, seed: int = 36) -> tuple:
+    """K36's inputs for B seeded lanes at the main path's widths: the
+    override on and off, a zero-length, a short and a NaN line."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def poses(n):
+        return np.stack([_planted_se3(rng) for _ in range(n)]).astype(
+            np.float32)
+
+    p3d_s = rng.normal(size=(B, L, 3)).astype(np.float32)
+    p3d_e = (p3d_s + rng.normal(scale=0.3, size=(B, L, 3))).astype(
+        np.float32)
+    p3d_e[:, 0] = p3d_s[:, 0]
+    p3d_e[:, 1] = p3d_s[:, 1] + 0.05
+    p3d_e[0, 2, 0] = np.nan
+    normals = rng.normal(size=(B, Nn, 3))
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    return (t(poses(B)), t(np.arange(B) % 2 == 0), t(poses(B)), t(poses(B)),
+            t(p3d_s), t(p3d_e), t(rng.random((B, L)) > 0.2),
+            t(rng.random((B, L)) > 0.2), t(normals.astype(np.float32)),
+            t(rng.random((B, Nn)) > 0.3), t(poses(B)[:, :3, :3].copy()))
+
+
+def prelude_kernel_parity(cfg, dev, captured: dict) -> list:
+    """K36 against its plain version, every output bit-equal, two
+    launches equal bits: on the inputs of path 1's 48th tracking step and
+    on four planted lanes at the main path's widths."""
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    key = PRELUDE_CAPTURE[0]
+    _check(key in captured, "prelude: path 1's step prelude was not "
+           "captured")
+    cases = {"path1_step48": captured[key][0],
+             "planted": _planted_prelude(dev, BATCH_PARITY,
+                                         cfg.lines.max_lines,
+                                         cfg.manhattan.max_normals)}
+    for name, args in cases.items():
+        got = _twice(dt.step_prelude, *args)
+        _tail_held(f"step_prelude ({name})", got, dt.step_prelude_plain(*args))
+    args = cases["path1_step48"]
+    out = dt.step_prelude(*args)
+    n = out.dirs_valid.shape[1]
+    entry = {"name": "step_prelude", "route": "cuda", "library_ms": None,
+             # T_last, the velocity select, 64 products for T_pred, 45 for
+             # R_init, per line ~15 (difference, norm, divisions, gates)
+             **_bound(_nbytes(args, out),
+                      out.T_pred.shape[0] * (200 + 15 * args[4].shape[1])),
+             "source": "planarslam_tpu_torch/csrc/step_prelude.cu",
+             "replaces": "planarslam_tpu/slam/device_tracker.py:274",
+             "max_abs_err": 0.0, "tolerance": "bit-equal",
+             "shapes": {"lanes": int(out.T_pred.shape[0]), "N": int(n)},
+             "ms": _time_ms(lambda: dt.step_prelude(*args)),
+             "plain_ms": _time_ms(lambda: dt.step_prelude_plain(*args))}
+    _print_kernels([entry])
+    return [entry]
+
+
+def _same_lanes(name: str, batched, singles: list) -> None:
+    """Lane b of a batched launch's outputs bit-equal to the B = 1 launch
+    of that lane (None fields skipped)."""
+    for b, one in enumerate(singles):
+        for f, x, y in zip(range(len(one)), batched, one):
+            if y is None:
+                continue
+            _check(_bit_diff(x[b], y[0], as_int=True) == 0,
+                   f"{name}: lane {b} field {f} differs from its B = 1 "
+                   f"launch")
+
+
+def _batch_entry(report: list, name: str, ms_b1: float, ms_b: float,
+                 lanes: int, extra: dict) -> None:
+    """Add the batched timings to a kernel's report entry: its time at B =
+    1 and at B = lanes on this phase's inputs, and the bound at B = lanes
+    (lanes times the single problem's bytes and operations)."""
+    entry = next(k for k in report if k["name"] == name)
+    entry[f"batch{lanes}"] = {
+        "ms_b1": ms_b1, "ms": ms_b,
+        **_bound(lanes * entry["bytes"], lanes * entry["operations"]),
+        "lanes_bit_equal_to_b1": True, **extra}
+
+
+def batched_kernel_parity(seq, cfg, dev, report: list) -> None:
+    """K3, K4, K11, K12-K14 and K15 on BATCH_PARITY lanes in one launch
+    each: every lane bit-equal to its own B = 1 launch, and held to its
+    plain version as the single problem is; one launch per call whatever
+    B; times at B = 1 and B = BATCH_PARITY beside the bound."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import manhattan, matching, planes
+    from planarslam_tpu_torch.slam import device_tracker as dt
+    from planarslam_tpu_torch.slam.frame import extract_frame
+    from planarslam_tpu_torch.solvers import pose_opt
+
+    B = BATCH_PARITY
+    factor = cfg.camera.depth_map_factor
+    W, H = cfg.camera.width, cfg.camera.height
+    frames = []
+    for b in range(B):
+        s = seq if b == 0 else _lane_sequence(cfg, b)
+        g8, d16 = quantize_frame(*s.render(1), factor)
+        d = d16.astype(np.float32) / np.float32(factor)
+        frames.append((g8.astype(np.float32),
+                       noisy_depth(d, factor, seed=b) if b % 2 else d))
+    gray = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+    depth = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
+
+    def launches(name, fn, *a, **kw):
+        n0 = kernels.LAUNCHES[name]
+        out = fn(*a, **kw)
+        _check(kernels.LAUNCHES[name] == n0 + 1, f"{name}: "
+               f"{kernels.LAUNCHES[name] - n0} launches for {B} lanes")
+        return out
+
+    def timed(fn_b, fn_1):
+        return _time_ms(fn_1), _time_ms(fn_b)
+
+    # K3 at the window search's shapes (4096 x 1024 per lane)
+    rng = np.random.default_rng(3)
+    M, N = 4096, cfg.orb.max_keypoints
+
+    def t(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    a = rng.integers(-2 ** 31, 2 ** 31, (B, M, 8)).astype(np.int32)
+    src = rng.integers(0, M, (B, N))
+    flips = (rng.random((B, N, 8)) < 0.2) * rng.integers(0, 2 ** 31,
+                                                         (B, N, 8))
+    bd = (np.take_along_axis(a, src[..., None], 1) ^ flips).astype(np.int32)
+    a_uv = rng.uniform(0, [W, H], (B, M, 2))
+    lvl = rng.integers(0, cfg.orb.n_levels, (B, M))
+    b_uv = np.take_along_axis(a_uv, src[..., None], 1) + rng.normal(
+        0, 2.0, (B, N, 2))
+    gate = matching.ProjGate(
+        a_uv=t(a_uv, np.float32), a_r=t(4.0 * 1.2 ** lvl, np.float32),
+        a_level=t(lvl, np.int32), a_ur_pred=t(a_uv[..., 0] - 20.0,
+                                              np.float32),
+        b_uv=t(b_uv, np.float32),
+        b_level=t(np.take_along_axis(lvl, src, 1), np.int32),
+        b_ur=t(np.full((B, N), -1.0), np.float32), level_window=1)
+    k3a = (t(a), t(bd), t(rng.random((B, M)) < 0.9),
+           t(rng.random((B, N)) < 0.95))
+    got = launches("gated_hamming_top2", matching.gated_hamming_top2, *k3a,
+                   gate)
+
+    def k3_lane(b):
+        return ([x[b:b + 1] for x in k3a],
+                matching.ProjGate(*[x[b:b + 1] for x in gate[:-1]], 1))
+
+    singles = [matching.gated_hamming_top2(*x, g)
+               for x, g in map(k3_lane, range(B))]
+    _same_lanes("gated_hamming_top2", got, singles)
+    for b in range(B):
+        x, g = k3_lane(b)
+        want = matching.gated_hamming_top2_plain(
+            *[y[0] for y in x], matching.ProjGate(*[y[0] for y in g[:-1]], 1))
+        _check(all(torch.equal(u[b], v) for u, v in zip(got, want)),
+               f"gated_hamming_top2: lane {b} differs from plain")
+    x1, g1 = k3_lane(0)
+    _batch_entry(report, "gated_hamming_top2", *timed(
+        lambda: matching.gated_hamming_top2(*k3a, gate),
+        lambda: matching.gated_hamming_top2(*x1, g1)), B, {})
+
+    # K4 on the lanes' depths
+    pc = cfg.planes
+    alpha = planes._noise_alpha(depth, pc.max_distance)
+    kw4 = dict(cam=cfg.camera, geo_tol=planes._geo_tol(W),
+               max_distance=pc.max_distance, block=pc.block)
+    got = launches("plane_block_moments", planes.plane_block_moments, depth,
+                   alpha, **kw4)
+    singles = [planes.plane_block_moments(depth[b:b + 1], alpha[b:b + 1],
+                                          **kw4) for b in range(B)]
+    _same_lanes("plane_block_moments", got, singles)
+    err = 0.0
+    for b in range(B):
+        want = planes.plane_block_moments_plain(depth[b], alpha[b], **kw4)
+        _check(torch.equal(got.n[b], want.n), f"plane_block_moments: lane "
+               f"{b} counts differ from plain")
+        scale = max(float(w.abs().max()) for w in want)
+        e = max(float((g[b] - w).abs().max()) for g, w in zip(got, want))
+        _check(e <= 1e-5 * scale, f"plane_block_moments: lane {b} error {e}")
+        err = max(err, e / scale)
+    _batch_entry(report, "plane_block_moments", *timed(
+        lambda: planes.plane_block_moments(depth, alpha, **kw4),
+        lambda: planes.plane_block_moments(depth[:1], alpha[:1], **kw4)),
+        B, {"max_rel_err_plain": err})
+
+    # K12-K14 through extract_planes: one launch of K12 and K14 and 1 +
+    # refine_rounds of K13 for all lanes
+    n0 = dict(kernels.LAUNCHES)
+    got = planes.extract_planes(depth, cfg.camera, pc)
+    for name, n in (("plane_components", 1),
+                    ("plane_assign_refit", 1 + pc.refine_rounds),
+                    ("plane_label_pixels", 1)):
+        _check(kernels.LAUNCHES[name] == n0[name] + n,
+               f"extract_planes: {kernels.LAUNCHES[name] - n0[name]} {name} "
+               f"launches for {B} lanes")
+    singles = [planes.extract_planes(depth[b:b + 1], cfg.camera, pc)
+               for b in range(B)]
+    _same_lanes("extract_planes", got, singles)
+    stats = planes.plane_block_moments(depth, alpha, **kw4)
+    hb, wb = H // pc.block, W // pc.block
+    cand = planes.plane_components(stats, hb, wb, pc)
+    _same_lanes("plane_components", cand, [
+        planes.plane_components(planes._BlockStats(*[x[b:b + 1]
+                                                     for x in stats]),
+                                hb, wb, pc) for b in range(B)])
+    fit = planes.plane_assign_refit(depth, alpha, cfg.camera, pc,
+                                    cand.normal, cand.d, cand.valid)
+    _batch_entry(report, "plane_components", *timed(
+        lambda: planes.plane_components(stats, hb, wb, pc),
+        lambda: planes.plane_components(
+            planes._BlockStats(*[x[:1] for x in stats]), hb, wb, pc)), B, {})
+    _batch_entry(report, "plane_assign_refit", *timed(
+        lambda: planes.plane_assign_refit(depth, alpha, cfg.camera, pc,
+                                          cand.normal, cand.d, cand.valid),
+        lambda: planes.plane_assign_refit(depth[:1], alpha[:1], cfg.camera,
+                                          pc, cand.normal[:1], cand.d[:1],
+                                          cand.valid[:1])), B, {})
+    _batch_entry(report, "plane_label_pixels", *timed(
+        lambda: planes.plane_label_pixels(depth, alpha, cfg.camera, pc, fit),
+        lambda: planes.plane_label_pixels(
+            depth[:1], alpha[:1], cfg.camera, pc,
+            planes.PlaneRefit(*[x[:1] for x in fit]))), B, {})
+
+    # K15 with the initial-pose epilogue on the lanes' normals and lines
+    feats = extract_frame(gray, depth, cfg)
+    pre = dt.step_prelude(*_planted_prelude(dev, B, cfg.lines.max_lines,
+                                            cfg.manhattan.max_normals)[:4],
+                          feats.lines.p3d_s, feats.lines.p3d_e,
+                          feats.lines.has_3d, feats.lines.valid,
+                          feats.normals, feats.normals_valid,
+                          torch.eye(3, device=dev).expand(B, 3, 3)
+                          .contiguous())
+    mc = cfg.manhattan
+    kw15 = dict(cone_sin=mc.cone_sin_track, kernel=mc.mean_shift_kernel,
+                min_support=mc.min_axis_support)
+    R0 = torch.eye(3, device=dev).expand(B, 3, 3).contiguous()
+    init = manhattan.InitSelect(pre.T_pred, pre.R_init,
+                                torch.arange(B, device=dev) % 2 == 0)
+    got = launches("manhattan_mean_shift", manhattan.track_manhattan_frame,
+                   R0, pre.dirs, pre.dirs_valid, init=init, **kw15)
+    singles = [manhattan.track_manhattan_frame(
+        R0[b:b + 1], pre.dirs[b:b + 1], pre.dirs_valid[b:b + 1],
+        init=manhattan.InitSelect(*[x[b:b + 1] for x in init]), **kw15)
+        for b in range(B)]
+    _same_lanes("manhattan_mean_shift", got, singles)
+    err = 0.0
+    for b in range(B):
+        want = manhattan.track_manhattan_frame_plain(
+            R0[b], pre.dirs[b], pre.dirs_valid[b], **kw15)
+        e = float((got.R_cm[b] - want.R_cm).abs().max())
+        _check(e <= 1e-5 and torch.equal(got.success[b], want.success)
+               and torch.equal(got.axis_support[b], want.axis_support),
+               f"manhattan_mean_shift: lane {b} differs from plain ({e})")
+        err = max(err, e)
+        T_i, use_i = manhattan.init_select_plain(
+            got.R_cm[b], got.success[b],
+            manhattan.InitSelect(*[x[b] for x in init]))
+        _check(_bit_diff(got.T_init[b], T_i, as_int=True) == 0
+               and torch.equal(got.use_manh[b], use_i),
+               f"manhattan_mean_shift: lane {b}'s epilogue differs from "
+               f"init_select_plain")
+    _batch_entry(report, "manhattan_mean_shift", *timed(
+        lambda: manhattan.track_manhattan_frame(R0, pre.dirs, pre.dirs_valid,
+                                                init=init, **kw15),
+        lambda: manhattan.track_manhattan_frame(
+            R0[:1], pre.dirs[:1], pre.dirs_valid[:1],
+            init=manhattan.InitSelect(*[x[:1] for x in init]), **kw15)),
+        B, {"max_abs_err_plain": err, "epilogue_bit_equal": True})
+
+    # K11 on B seeded problems at the main path's width, the rotation flag
+    # per lane
+    cam = cfg.camera
+    K = (cam.fx, cam.fy, cam.cx, cam.cy)
+    probs = [_pose_problem(K, cam.bf, seed=b, n=cfg.orb.max_keypoints,
+                           n_lines=cfg.lines.max_lines, n_planes=16)
+             for b in range(B)]
+
+    def st(*xs):
+        return torch.from_numpy(np.ascontiguousarray(np.stack(xs))).to(dev)
+
+    names = POSE_BLOCKS
+    classes = (pose_opt.PointObs, pose_opt.LineObs, pose_opt.PlaneObs,
+               pose_opt.PlaneObs, pose_opt.PlaneObs)
+    T0 = st(*[p[0] for p in probs])
+    kw11 = {n: cls(*[st(*[p[k + 1][f] for p in probs])
+                     for f in range(len(probs[0][k + 1]))])
+            for k, (n, cls) in enumerate(zip(names, classes))}
+    kw11["weights"] = pose_opt.PoseOptWeights.from_config(cfg.planes)
+    kw11["rotation_fixed"] = torch.arange(B, device=dev) % 2 == 1
+    got = launches("pose_optimize", pose_opt.pose_optimize, T0, K, cam.bf,
+                   **kw11)
+
+    def lane(b):
+        return {k: (v[b:b + 1] if isinstance(v, torch.Tensor)
+                    else type(v)(*[x[b:b + 1] for x in v])
+                    if k != "weights" else v) for k, v in kw11.items()}
+
+    singles = [pose_opt.pose_optimize(T0[b:b + 1], K, cam.bf, **lane(b))
+               for b in range(B)]
+    _same_lanes("pose_optimize", got, singles)
+    err = max(_pose_compare(*_lane0(((T0[b:b + 1], K, cam.bf), lane(b))),
+                            False)["pose_err"] for b in range(B))
+    _batch_entry(report, "pose_optimize", *timed(
+        lambda: pose_opt.pose_optimize(T0, K, cam.bf, **kw11),
+        lambda: pose_opt.pose_optimize(T0[:1], K, cam.bf, **lane(0))), B,
+        {"max_abs_err_plain": err})
+    print("batched_kernel_parity " + json.dumps(
+        {k["name"]: k[f"batch{B}"] for k in report if f"batch{B}" in k}),
+        flush=True)
+
+
+def _lane_sequence(cfg, b: int, n: int = BATCH_SEQUENCE):
+    """Path 5's sequence of lane b (bench.py::_run_batched's seed, at the
+    pace of a BATCH_SEQUENCE-frame sequence)."""
+    from planarslam_tpu_torch.io import synthetic
+
+    return synthetic.make_sequence(n, width=cfg.camera.width,
+                                   height=cfg.camera.height, seed=11 + b)
+
+
+def _render_lane(args) -> list:
+    """The first n quantized frames of lane b's sequence (a worker
+    process's task)."""
+    from planarslam_tpu_torch.config import SystemConfig
+    from planarslam_tpu_torch.io.frames import quantize_frame
+
+    b, n = args
+    cfg = SystemConfig()
+    s = _lane_sequence(cfg, b)
+    return [quantize_frame(*s.render(i), cfg.camera.depth_map_factor)
+            for i in range(n)]
+
+
+def _lane_frames(B: int, n: int) -> list:
+    """Lanes 0..B-1's first n quantized frames (SystemConfig's camera),
+    rendered in parallel, one worker process per lane (spawned, so no CUDA
+    state is shared; all ended on return)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(
+            max_workers=B,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        return list(pool.map(_render_lane, [(b, n) for b in range(B)]))
+
+
+def batched_step_lane_equality(captured, cfg) -> dict:
+    """Lane b of one batched step (path 5's, B = 4) bit-equal to the B = 1
+    step on that lane's inputs: the bundle as int32 bits and every leaf of
+    the new carried state."""
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    args, kw = captured
+    frames, T_ovr, use, R_wm, manh, state, win, weights = args[:8]
+    B = frames.shape[0]
+    res = dt.fused_track_step_packed(*args[:8], cfg)
+    leaves = dt.state_leaves(state)
+    for b in range(B):
+        one = dt.fused_track_step_packed(
+            frames[b:b + 1], T_ovr[b:b + 1], use[b:b + 1], R_wm[b:b + 1],
+            manh[b:b + 1], dt.state_of_leaves([x[b:b + 1] for x in leaves]),
+            win[b:b + 1], weights, cfg)
+        _check(_bit_diff(res.packed[b], one.packed[0], as_int=True) == 0,
+               f"lane equality: lane {b}'s bundle differs from its B = 1 "
+               f"step")
+        for i, (x, y) in enumerate(zip(dt.state_leaves(res.new_state),
+                                       dt.state_leaves(one.new_state))):
+            _check(_bit_diff(x[b], y[0], as_int=True) == 0,
+                   f"lane equality: lane {b}'s state leaf {i} differs")
+    out = {"lanes": B, "bundle_words": int(res.packed.shape[1]),
+           "state_leaves": len(leaves), "bit_equal": True}
+    print("batched_lane_equality " + json.dumps(out), flush=True)
+    return out
+
+
+def run_batched_path(cfg, dev, lane_frames: list, B: int,
+                     capture: int = 0) -> dict:
+    """Path 5: BatchedSLAM(cfg, B) over the first B lanes' frames of
+    lane_frames (_lane_frames: bench.py::_run_batched's seeds, quantized
+    frames): every lane's ATE <
+    ATE_LIMIT_M and 0 lost; fused lane frames at least B x (n_frames - the
+    frames before a lane's first fused step); per batched step, every step
+    kernel launched as often as in one streaming step, and the extraction
+    kernels as per extract_frame call; no plain function on a card
+    tensor. Reports the median and p95 ms of a batched step and the frames
+    per second over all lanes. With `capture`, the inputs of that batched
+    step (from 1) are kept under "captured"."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.evaluation.ate import ate_rmse
+    from planarslam_tpu_torch.parallel.replay import BatchedSLAM
+
+    name = f"path5_batched_B{B}"
+    seqs = [_lane_sequence(cfg, b) for b in range(B)]
+    frames = lane_frames[:B]
+    n_frames = len(frames[0])
+    bs = BatchedSLAM(cfg, B, device=dev)
+    first_fused = [None] * B
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    cap = (("device_tracker", "fused_track_step_packed", capture),) \
+        if capture else ()
+    times = []
+    t_all = time.perf_counter()
+    with _pose_calls(cap) as pc:
+        for i in range(n_frames):
+            t0 = time.perf_counter()
+            bs.track([frames[b][i][0] for b in range(B)],
+                     [frames[b][i][1] for b in range(B)],
+                     np.full(B, float(i) / 30.0))
+            times.append(time.perf_counter() - t0)
+            for b in range(B):
+                if first_fused[b] is None and bs._lane_live[b]:
+                    first_fused[b] = i
+        bs.flush()
+        for s in bs.systems:
+            s.shutdown()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    launches = dict(kernels.LAUNCHES)
+    ates, lost, shapes = [], [], []
+    for b, s in enumerate(bs.systems):
+        poses = s.frame_poses_wc()
+        shapes.append(poses.shape)
+        ok = poses.shape == (n_frames, 4, 4) and np.isfinite(poses).all()
+        ates.append(float(ate_rmse(poses[:, :3, 3],
+                                   seqs[b].poses_wc[:n_frames, :3, 3]))
+                    if ok else None)
+        lost.append(int(s.tracker.stats["lost"]))
+    steps = bs.stats["batched_steps"]
+    t = np.asarray(times[BATCH_WARMUP:])
+    res = {"B": B, "frames": n_frames, "ate_rmse_m": ates, "lost": lost,
+           "first_fused_frame": first_fused, "batched_steps": steps,
+           **{k: v for k, v in bs.stats.items() if k != "batched_steps"},
+           "median_step_ms": float(np.median(t)) * 1e3,
+           "p95_step_ms": float(np.percentile(t, 95)) * 1e3,
+           "fps_all_lanes": B * len(t) / float(t.sum()),
+           "keyframes": [int(s.map.n_kf) for s in bs.systems],
+           **_call_counts(pc), "wall_s": wall, "launches": launches}
+    print(f"{name} " + json.dumps(res), flush=True)
+    for b in range(B):
+        _check(ates[b] is not None, f"{name}: lane {b} trajectory "
+               f"{shapes[b]}, not ({n_frames}, 4, 4) and finite (a reset "
+               f"drops the frames before it)")
+    _check(steps == pc["track_core_calls"] and steps >= n_frames - 2,
+           f"{name}: {steps} batched steps, {pc['track_core_calls']} "
+           f"tracking steps")
+    _check_pose_launches(name, launches, pc, cfg)
+    for b in range(B):
+        _check(ates[b] < ATE_LIMIT_M, f"{name}: lane {b} ATE {ates[b]:.5f} "
+               f"m >= {ATE_LIMIT_M} m")
+        _check(lost[b] == 0, f"{name}: lane {b} lost {lost[b]} frames")
+    want = sum(n_frames - f for f in first_fused if f is not None)
+    _check(None not in first_fused and bs.stats["fused_lane_frames"] >= want,
+           f"{name}: {bs.stats['fused_lane_frames']} fused lane frames, "
+           f"expected >= {want}")
+    if capture:
+        key = cap[0]
+        _check(key in pc["inputs"], f"{name}: step {capture} not captured")
+        res["captured"] = pc["inputs"][key]
+    return res
+
+
+def run_batched_vo_step(cfg, dev, B: int = 8) -> dict:
+    """make_batched_frame_step once at B lanes and full width: frame 1 of
+    path 5's sequences against frame 0's features (run_batched_replay's
+    carry); finite poses, and each lane within 0.05 m and 0.05 rad of its
+    ground-truth motion with > 50 point inliers."""
+    import torch
+
+    from planarslam_tpu_torch.parallel.replay import make_batched_frame_step
+    from planarslam_tpu_torch.slam import device_tracker as dt
+    from planarslam_tpu_torch.slam.frame import (extract_frame,
+                                                 unproject_points)
+
+    seqs = [_lane_sequence(cfg, b) for b in range(B)]
+    step, put = make_batched_frame_step(cfg, device=dev)
+    r0 = [s.render(0) for s in seqs]
+    r1 = [s.render(1) for s in seqs]
+
+    def stack(rs, j):
+        return put(np.stack([np.asarray(r[j], np.float32) for r in rs]))
+
+    f0 = dt.feats_to_numpy(extract_frame(stack(r0, 0), stack(r0, 1),
+                                         cfg)).points
+    k = cfg.orb.max_keypoints
+    pts_w = np.zeros((B, k, 3), np.float32)
+    for b in range(B):
+        T_wc0 = seqs[b].poses_wc[0].astype(np.float32)
+        pts_w[b] = unproject_points(type(f0)(*[a[b] for a in f0]), cfg,
+                                    T_wc0)
+    T_init = np.stack([np.linalg.inv(s.poses_wc[0]) for s in seqs]).astype(
+        np.float32)
+    n0 = time.perf_counter()
+    T, R, n_in = step(stack(r1, 0), stack(r1, 1), put(T_init),
+                      put(np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))),
+                      put(pts_w), put(f0.desc), put(f0.valid & (f0.depth > 0)))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - n0) * 1e3
+    T = T.cpu().numpy()
+    err_t, err_r = [], []
+    for b in range(B):
+        gt = np.linalg.inv(seqs[b].poses_wc[1])
+        err_t.append(float(np.linalg.norm(T[b, :3, 3] - gt[:3, 3])))
+        err_r.append(float(np.abs(T[b, :3, :3] - gt[:3, :3]).max()))
+    res = {"B": B, "ms": ms, "n_inliers": n_in.cpu().tolist(),
+           "err_t_m": err_t, "err_R": err_r}
+    print("batched_vo_step " + json.dumps(res), flush=True)
+    _check(np.isfinite(T).all() and max(err_t) < 0.05 and max(err_r) < 0.05
+           and min(res["n_inliers"]) > 50,
+           f"batched VO step: {res}")
+    return res
+
+
+def run_h2d_batched(cfg, dev, lane_frames: list, B: int = 4) -> dict:
+    """Host-to-device copies of batched steps: a BatchedSLAM of B
+    tracking-only lanes warms up, then H2D_BATCH_STEPS steps run under one
+    torch.profiler session, each in a span that ends synchronized after
+    H2D_GAP_S of idle host. Allowed per step: the stacked frame upload and
+    the small-parameter upload, plus one window upload per lane whose
+    window was refreshed (its insert into the stack is a device copy). A
+    step in which a lane decides or makes a keyframe (its fuse set is
+    uploaded apart) is reported, not held."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from planarslam_tpu_torch.parallel.replay import BatchedSLAM
+    from planarslam_tpu_torch.slam.system import System
+
+    n = H2D_WARMUP_FRAMES + 1 + H2D_BATCH_STEPS
+    frames = lane_frames[:B]
+    _check(len(frames[0]) >= n, f"h2d batched: {n} frames needed")
+    bs = BatchedSLAM(cfg, B, device=dev)
+    bs.systems = [System(config=cfg, enable_local_mapping=False,
+                         enable_loop_closing=False, device=dev)
+                  for _ in range(B)]
+
+    def track(i):
+        bs.track([frames[b][i][0] for b in range(B)],
+                 [frames[b][i][1] for b in range(B)],
+                 np.full(B, float(i) / 30.0))
+
+    for i in range(H2D_WARMUP_FRAMES):
+        track(i)
+    seen = {"refresh": 0, "keyframe": 0}
+
+    def counting(key, fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            if key == "refresh" or out is not False:
+                seen[key] += 1
+            return out
+        return wrapped
+
+    for s in bs.systems:
+        tr = s.tracker
+        tr._refresh_window = counting("refresh", tr._refresh_window)
+        tr._begin_keyframe = counting("keyframe", tr._begin_keyframe)
+        tr._apply_pending_kf = counting("keyframe", tr._apply_pending_kf)
+    per_step = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(H2D_WARMUP_FRAMES, n):
+            seen.update(refresh=0, keyframe=0)
+            time.sleep(H2D_GAP_S)
+            with record_function(f"h2d_step_{i}"):
+                track(i)
+                torch.cuda.synchronize()
+            per_step.append({"frame": i, "h2d_copies": 0,
+                             "window_refreshes": seen["refresh"],
+                             "keyframe_events": seen["keyframe"]})
+    bs.flush()
+    events = prof.events()
+
+    def on_device(e):
+        return "CUDA" in str(e.device_type)
+
+    half_gap_us = H2D_GAP_S * 1e6 / 2
+    starts = sorted((e.time_range.start - half_gap_us,
+                     int(e.name.rsplit("_", 1)[1]))
+                    for e in events
+                    if e.name.startswith("h2d_step_") and not on_device(e))
+    _check([i for _, i in starts] == [r["frame"] for r in per_step],
+           f"h2d batched: the profiler kept {len(starts)} of "
+           f"{len(per_step)} step spans")
+    for e in events:
+        if "Memcpy HtoD" in e.name and on_device(e):
+            k = sum(1 for t0, _ in starts if t0 <= e.time_range.start) - 1
+            _check(k >= 0, "h2d batched: a copy precedes the first span")
+            per_step[k]["h2d_copies"] += 1
+    per_step = per_step[1:]
+    held = [r for r in per_step if r["keyframe_events"] == 0]
+    for r in held:
+        limit = 2 + r["window_refreshes"]
+        _check(1 <= r["h2d_copies"] <= limit,
+               f"h2d batched: step at frame {r['frame']} made "
+               f"{r['h2d_copies']} host-to-device copies, allowed {limit} "
+               f"(frames, small parameters, {r['window_refreshes']} window "
+               f"uploads): {r}")
+    res = {"B": B, "steps": H2D_BATCH_STEPS, "steps_held": len(held),
+           "limit_per_step": "2 (frames, small parameters) + 1 per lane "
+                             "window upload",
+           "copies_per_held_step": float(np.mean(
+               [r["h2d_copies"] for r in held])) if held else None,
+           "copies_per_step": float(np.mean(
+               [r["h2d_copies"] for r in per_step])),
+           "per_step": per_step}
+    print("h2d_copies_batched " + json.dumps(res), flush=True)
+    _check(len(held) >= 3, f"h2d batched: only {len(held)} steps without a "
+           f"keyframe event in {H2D_BATCH_STEPS}")
+    return res
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=96,
@@ -4187,19 +4870,22 @@ def main(argv=None) -> int:
               + line_kernel_parity(seq, cfg, dev)
               + matching_kernel_parity(seq, cfg, dev)
               + tail_kernel_parity(seq, cfg, dev))
+    batched_kernel_parity(seq, cfg, dev, report)
     frames = [quantize_frame(*seq.render(i), cfg.camera.depth_map_factor)
               for i in range(n)]
     # the two calls (obs1, obs2) of path 1's 21st fused frame, and the
     # plane association and tail of its 48th tracking step
     path1 = run_tracking_path("path1_tracking", seq,
                               frames[:TRACKING_FRAMES], cfg, dev, False,
-                              capture=POSE_CAPTURE + _tail_capture(48))
+                              capture=POSE_CAPTURE + _tail_capture(48)
+                              + PRELUDE_CAPTURE)
     captured = path1.pop("captured")
     _check(all(c in captured for c in POSE_CAPTURE),
            "path1: the pose_optimize inputs of a tracked frame were not "
            "captured")
     pose_frame_parity(k11[0], [captured[c] for c in POSE_CAPTURE])
     tail_frame_parity(report, *_tail_inputs(captured, 48))
+    report += prelude_kernel_parity(cfg, dev, captured)
     paths = [
         path1,
         run_tracking_path("path2_mapping", seq, frames[:args.frames], cfg,
@@ -4212,7 +4898,15 @@ def main(argv=None) -> int:
     path4b = run_constructed_loop_path(seq, cfg, dev)
     report += loop_kernel_parity(dev, path4b.pop("captured"))
     paths += [path4b, run_ba_scale_path(dev)]
+    lane_frames = _lane_frames(max(BATCH_SIZES), BATCH_FRAMES)
+    path5 = [run_batched_path(cfg, dev, lane_frames, B,
+                              capture=12 if B == BATCH_PARITY else 0)
+             for B in BATCH_SIZES]
+    batched_step_lane_equality(path5[0].pop("captured"), cfg)
+    paths += path5
+    run_batched_vo_step(cfg, dev, B=max(BATCH_SIZES))
     run_h2d_copies(seq, frames, cfg, dev)
+    run_h2d_batched(cfg, dev, lane_frames, B=BATCH_PARITY)
     for k in report:
         k["launches"] = sum(p["launches"][k["name"]] for p in paths)
         _check(k["launches"] > 0,

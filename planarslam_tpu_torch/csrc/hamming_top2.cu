@@ -6,7 +6,10 @@
 // ops/orb.py::hamming_distance) and ::_top2_min. Ungated (gated == 0) it is
 // the core of ::match_descriptors: only the two validity masks apply.
 //
-// One 128-thread block owns one row (landmark): the row's 8 descriptor words
+// One 128-thread block owns one row (landmark) of one problem: blockIdx.x
+// is the row, blockIdx.y the problem of a batch of B independent (M, N)
+// problems (every input and output carries a leading B; one launch serves
+// all of them). The row's 8 descriptor words
 // live in registers, each thread walks columns j = tid, tid + 128, ... and
 // keeps a running (best, best_idx, second); masked entries count as
 // INF_DIST = 10000. A warp-shuffle then shared-memory merge of the
@@ -54,9 +57,28 @@ __global__ void hamming_top2_kernel(
     const int* __restrict__ a_level, const float* __restrict__ a_ur_pred,
     const float* __restrict__ b_uv, const int* __restrict__ b_level,
     const float* __restrict__ b_ur, int level_window, int* __restrict__ best,
-    int* __restrict__ second, int* __restrict__ best_idx) {
+    int* __restrict__ second, int* __restrict__ best_idx, int m) {
   const int row = blockIdx.x;
   const int tid = threadIdx.x;
+  // the problem's rows and columns
+  const size_t lane = blockIdx.y;
+  const size_t ra = lane * m, cb = lane * n;
+  a_desc += 8 * ra;
+  b_desc += 8 * cb;
+  a_ok += ra;
+  b_ok += cb;
+  best += ra;
+  second += ra;
+  best_idx += ra;
+  if (gated) {
+    a_uv += 2 * ra;
+    a_r += ra;
+    a_level += ra;
+    a_ur_pred += ra;
+    b_uv += 2 * cb;
+    b_level += cb;
+    b_ur += cb;
+  }
   unsigned a[8];
 #pragma unroll
   for (int q = 0; q < 8; ++q) a[q] = static_cast<unsigned>(a_desc[8 * row + q]);
@@ -123,16 +145,17 @@ __global__ void hamming_top2_kernel(
 }  // namespace
 
 PSL_API int psl_gated_hamming_top2(
-    const int* a_desc, const int* b_desc, int m, int n,
+    const int* a_desc, const int* b_desc, int m, int n, int batch,
     const unsigned char* a_ok, const unsigned char* b_ok, int gated,
     const float* a_uv, const float* a_r, const int* a_level,
     const float* a_ur_pred, const float* b_uv, const int* b_level,
     const float* b_ur, int level_window, int* best, int* second,
     int* best_idx, cudaStream_t stream) {
-  if (m > 0 && n > 0) {
-    hamming_top2_kernel<<<m, kThreads, 0, stream>>>(
+  if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (m > 0 && n > 0 && batch > 0) {
+    hamming_top2_kernel<<<dim3(m, batch), kThreads, 0, stream>>>(
         a_desc, b_desc, n, a_ok, b_ok, gated, a_uv, a_r, a_level, a_ur_pred,
-        b_uv, b_level, b_ur, level_window, best, second, best_idx);
+        b_uv, b_level, b_ur, level_window, best, second, best_idx, m);
   }
   return static_cast<int>(cudaGetLastError());
 }

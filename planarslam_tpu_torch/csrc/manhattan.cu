@@ -12,13 +12,22 @@
 //
 // What bounds it on an H100: the latency of iters x (1 + ms_iters)
 // dependent block reductions over N ~ 2k normals (~34 KB, ~1 MFLOP: under
-// a microsecond at the card's rates). One block of 512 threads; thread t
+// a microsecond at the card's rates). One block of 512 threads per frame
+// (a batch of B frames, every array with a leading B, is one launch of B
+// blocks, block b reading frame b at its strides); thread t
 // owns normals t, t + 512, ... and recomputes their frame coordinates in
 // registers each step. A normal votes for at most one axis, so one pass
 // gives the weight sums of all three axes; they are summed in float64 by a
 // shuffle tree in each warp and a second tree over the warp sums, a fixed
 // order with no atomics, so two launches give equal bits. Thread 0 then
 // does the serial tail of the round (axes, completion, polar factor).
+//
+// Optional epilogue (the tracking step's initial pose, replacing
+// planarslam_tpu/slam/device_tracker.py:296-299): given T_pred, R_wm and
+// the Manhattan switch, thread 0 writes use_manh = enabled && success and
+// T_init = T_pred with its rotation replaced by R_cm R_wm^T where use_manh
+// holds. Each entry of the product is ((a0 b0 + a1 b1) + a2 b2), the
+// order of the plain version, ops/manhattan.py::init_select_plain.
 #include <math.h>
 
 #include "common.cuh"
@@ -83,13 +92,51 @@ __device__ __forceinline__ int cone_of(const float* R, const float* n,
   return best;
 }
 
+struct InitSelect {
+  const float* T_pred;               // (B, 4, 4), or NULL: no epilogue
+  const float* R_wm;                 // (B, 3, 3)
+  const unsigned char* enabled;      // (B,)
+  float* T_init;                     // (B, 4, 4)
+  unsigned char* use_manh;           // (B,)
+};
+
+// The epilogue for one frame, by thread 0 after the last round.
+__device__ __forceinline__ void init_select(const InitSelect& e, int f,
+                                            const float* R_cm, bool ok) {
+  const float* T = e.T_pred + 16 * f;
+  const float* W = e.R_wm + 9 * f;
+  const bool use = e.enabled[f] != 0 && ok;
+  float* out = e.T_init + 16 * f;
+  for (int q = 0; q < 16; ++q) out[q] = T[q];
+  if (use) {
+    for (int i = 0; i < 3; ++i) {
+      for (int j = 0; j < 3; ++j) {
+        out[4 * i + j] = psl_dot3(R_cm + 3 * i, W + 3 * j);
+      }
+    }
+  }
+  e.use_manh[f] = use ? 1 : 0;
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
     manhattan_kernel(const float* R_init, const float* normals,
                      const unsigned char* valid, int N, float cos_half,
                      float kernel, int min_support, int iters, int ms_iters,
                      float* R_out, long long* support_out,
-                     long long* n_axes_out, unsigned char* success_out) {
+                     long long* n_axes_out, unsigned char* success_out,
+                     const InitSelect sel) {
   __shared__ float R[9];
+  const int frame = blockIdx.x;
+  {  // this block's frame
+    const size_t f = frame;
+    R_init += 9 * f;
+    normals += 3 * f * N;
+    valid += f * N;
+    R_out += 9 * f;
+    support_out += 3 * f;
+    n_axes_out += f;
+    success_out += f;
+  }
   __shared__ float center[3][2];
   __shared__ double warp_buf[kWarps * 9];
   __shared__ double sums[9];
@@ -189,6 +236,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int k = 0; k < 3; ++k) support_out[k] = supp[k];
         *n_axes_out = n_found;
         *success_out = ok ? 1 : 0;
+        if (sel.T_pred != nullptr) init_select(sel, frame, R, ok);
       }
     }
     __syncthreads();
@@ -199,12 +247,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 PSL_API int psl_manhattan_mean_shift(
     const float* R_init, const float* normals, const unsigned char* valid,
-    int N, float cos_half, float kernel, int min_support, int iters,
-    int ms_iters, float* R_out, long long* support, long long* n_axes,
-    unsigned char* success, cudaStream_t stream) {
-  if (iters < 1) return static_cast<int>(cudaErrorInvalidValue);
-  manhattan_kernel<<<1, kThreads, 0, stream>>>(
+    int N, int batch, float cos_half, float kernel, int min_support,
+    int iters, int ms_iters, float* R_out, long long* support,
+    long long* n_axes, unsigned char* success, const float* T_pred,
+    const float* R_wm, const unsigned char* enabled, float* T_init,
+    unsigned char* use_manh, cudaStream_t stream) {
+  if (iters < 1 || batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const InitSelect sel{T_pred, R_wm, enabled, T_init, use_manh};
+  manhattan_kernel<<<batch, kThreads, 0, stream>>>(
       R_init, normals, valid, N, cos_half, kernel, min_support, iters,
-      ms_iters, R_out, support, n_axes, success);
+      ms_iters, R_out, support, n_axes, success, sel);
   return static_cast<int>(cudaGetLastError());
 }

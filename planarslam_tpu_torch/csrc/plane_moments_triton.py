@@ -8,7 +8,9 @@ no host sync is needed) and ``_block_moments`` (:196-207): per 8x8 block,
 the sum of valid back-projected points (s1), of their outer products (s2)
 and the valid count (n).
 
-One program owns a strip of NB consecutive blocks of one block row. Its
+One program owns a strip of NB consecutive blocks of one block row of one
+frame (grid axis 2 is the frame of a batch of B depth maps, every array
+with a leading B: one launch serves them all). Its
 tile is (block*block, NB): axis 0 walks the pixels of a block, axis 1 the
 blocks, so ``tl.sum(axis=0)`` yields the strip's per-block moments
 directly. Each pixel loads its right and lower neighbour (roll semantics:
@@ -31,6 +33,13 @@ def _plane_block_moments_kernel(depth_ptr, coef_ptr, s1_ptr, s2_ptr, n_ptr,
                                 BLOCK: tl.constexpr, NB: tl.constexpr):
     by = tl.program_id(0)
     bc = tl.program_id(1)
+    f = tl.program_id(2).to(tl.int64)               # frame of the batch
+    HB = H // BLOCK
+    depth_ptr += f * H * W
+    coef_ptr += f
+    s1_ptr += f * HB * WB * 3
+    s2_ptr += f * HB * WB * 9
+    n_ptr += f * HB * WB
     p = tl.arange(0, BLOCK * BLOCK)[:, None]      # pixel within a block
     b = bc * NB + tl.arange(0, NB)[None, :]        # block column
     yy = by * BLOCK + p // BLOCK
@@ -79,13 +88,14 @@ def _plane_block_moments_kernel(depth_ptr, coef_ptr, s1_ptr, s2_ptr, n_ptr,
     tl.store(n_ptr + bflat, tl.reshape(tl.sum(v, axis=0), (NB,)), mask=oflat)
 
 
-def launch(depth, coef, s1, s2, n, fx, fy, cx, cy, max_dist, geo_tol,
-           block):
-    """Launch on the current stream; outputs are preallocated (B,3)/(B,3,3)/(B,)."""
-    h, w = depth.shape
+def launch(depth, coef, s1, s2, n, frames, h, w, fx, fy, cx, cy, max_dist,
+           geo_tol, block):
+    """Launch on the current stream: `frames` depth maps (H, W) one after
+    another, coef (frames,), outputs preallocated (frames, nb, 3) /
+    (frames, nb, 3, 3) / (frames, nb) for nb blocks."""
     hb, wb = h // block, w // block
     nb = 16
-    grid = (hb, triton.cdiv(wb, nb))
+    grid = (hb, triton.cdiv(wb, nb), frames)
     _plane_block_moments_kernel[grid](
         depth, coef, s1, s2, n, h, w, wb, fx, fy, cx, cy, max_dist, geo_tol,
         BLOCK=block, NB=nb, num_warps=4)

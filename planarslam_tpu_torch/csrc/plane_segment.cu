@@ -23,6 +23,12 @@
 // the back-projection, the noise band and the depth gate per pixel in
 // registers, so no full-resolution temporary exists.
 //
+// Batches. Every input and output may carry a leading B of independent
+// frames, all served by one launch: K12 runs one block per frame, K13's
+// assign pass takes the frame from blockIdx.y and its refit one block per
+// frame, K14 takes the frame from blockIdx.y. A block reads its frame at
+// the frame's strides, so a frame's result does not depend on B.
+//
 // Sums have a fixed order and no float atomics. K12 counts component
 // support with integer atomics (the counts are whole numbers) and sums
 // each top component's moments per lane in ascending block order, in
@@ -64,9 +70,21 @@ struct CcParams {
 };
 
 __global__ void __launch_bounds__(kCcThreads, 1)
-    plane_components_kernel(const CcParams p) {
+    plane_components_kernel(CcParams p) {
   extern __shared__ int smem[];
   const int B = p.hb * p.wb;
+  {  // this block's frame
+    const size_t f = blockIdx.x;
+    p.s1 += 3 * f * B;
+    p.s2 += 9 * f * B;
+    p.n += f * B;
+    p.fit_b += 7 * f * B;
+    p.normal_c += 3 * f * p.P;
+    p.d_c += f * p.P;
+    p.cand_valid += f * p.P;
+    p.labels += f * B;
+    p.block_valid += f * B;
+  }
   int* lab_a = smem;        // labels
   int* lab_b = smem + B;    // pulled labels, then the component counts
   unsigned char* edge_r = reinterpret_cast<unsigned char*>(smem + 2 * B);
@@ -262,6 +280,23 @@ struct PixParams {
   const float* n_p;             // (P,)
 };
 
+// PixParams of frame f of a batch: the depth map, alpha and the plane
+// arrays advanced by the frame's strides.
+__device__ __forceinline__ PixParams pix_at(PixParams p, int f) {
+  const size_t b = f;
+  p.depth += b * p.h * p.w;
+  p.alpha += b;
+  p.normal += 3 * b * p.P;
+  p.d += b * p.P;
+  p.valid += b * p.P;
+  if (p.mse != nullptr) {
+    p.mse += b * p.P;
+    p.mean += 3 * b * p.P;
+    p.n_p += b * p.P;
+  }
+  return p;
+}
+
 struct PlaneSet {
   float normal[kMaxPlanes][3];
   float d[kMaxPlanes];
@@ -342,9 +377,12 @@ __device__ __forceinline__ int assign_pixel(const PixParams& p,
 // K13, first kernel: labels of the subsampled pixels and each block's
 // partial moment sums per plane.
 __global__ void __launch_bounds__(kPixThreads)
-    plane_assign_kernel(const PixParams p, int refine, int hs, int ws,
+    plane_assign_kernel(const PixParams p_batch, int refine, int hs, int ws,
                         int pix_per_block, int* label_sub, double* partial) {
   __shared__ PlaneSet ps;
+  const PixParams p = pix_at(p_batch, blockIdx.y);
+  label_sub += static_cast<size_t>(blockIdx.y) * hs * ws;
+  partial += static_cast<size_t>(blockIdx.y) * gridDim.x * p.P * kFeat;
   __shared__ double acc[kPixWarps][kMaxPlanes][kFeat];
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -397,13 +435,24 @@ __global__ void __launch_bounds__(kPixThreads)
 // K13, second kernel (one block): the blocks' partials summed in order,
 // then each plane's moment fit; the alive mask goes out with it.
 __global__ void __launch_bounds__(kMaxPlanes * kFeat)
-    plane_refit_kernel(const PixParams p, int refine, int n_part,
+    plane_refit_kernel(const PixParams p_batch, int refine, int n_part,
                        const double* partial, float area, float* normal_f,
                        float* d_f, float* mse_f, float* mean_f, float* n_f,
                        unsigned char* alive_out) {
   __shared__ PlaneSet ps;
   __shared__ float agg[kMaxPlanes][kFeat];
   const int tid = threadIdx.x;
+  const PixParams p = pix_at(p_batch, blockIdx.x);
+  {  // this block's frame
+    const size_t f = blockIdx.x;
+    partial += f * n_part * p.P * kFeat;
+    normal_f += 3 * f * p.P;
+    d_f += f * p.P;
+    mse_f += f * p.P;
+    mean_f += 3 * f * p.P;
+    n_f += f * p.P;
+    alive_out += f * p.P;
+  }
   load_planes(p, refine != 0, ps);
   if (tid < p.P * kFeat) {
     double x = 0.0;
@@ -435,11 +484,21 @@ __global__ void __launch_bounds__(kMaxPlanes * kFeat)
 // label_in (refine stride 1) the labels of the last round are kept and
 // only gated by the planes' validity.
 __global__ void __launch_bounds__(kPixThreads)
-    plane_label_kernel(const PixParams p, int min_size, const int* label_in,
-                       float* coeffs, unsigned char* valid_out,
-                       int* count_out, int* pixel_label) {
+    plane_label_kernel(const PixParams p_batch, int min_size,
+                       const int* label_in, float* coeffs,
+                       unsigned char* valid_out, int* count_out,
+                       int* pixel_label) {
   __shared__ PlaneSet ps;
   const int tid = threadIdx.x;
+  const PixParams p = pix_at(p_batch, blockIdx.y);
+  {  // this block's frame
+    const size_t f = blockIdx.y;
+    if (label_in != nullptr) label_in += f * p.h * p.w;
+    coeffs += 4 * f * p.P;
+    valid_out += f * p.P;
+    count_out += f * p.P;
+    pixel_label += f * p.h * p.w;
+  }
   const float alpha = *p.alpha;
   if (tid < p.P) {
     const int count = static_cast<int>(p.n_p[tid]);
@@ -519,10 +578,12 @@ PSL_API int psl_plane_components(
     const float* s1, const float* s2, const float* n, int hb, int wb, int P,
     int merge_rounds, float full_count, float mse_sigma, float mse_tol,
     float angle_cos, float dist_thr, float min_support, float assoc_angle,
-    float assoc_dist2, float* fit_b, float* normal_c, float* d_c,
+    float assoc_dist2, int batch, float* fit_b, float* normal_c, float* d_c,
     unsigned char* cand_valid, int* labels, unsigned char* block_valid,
     cudaStream_t stream) {
-  if (P > kMaxPlanes) return static_cast<int>(cudaErrorInvalidValue);
+  if (P > kMaxPlanes || batch < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   CcParams p;
   p.s1 = s1;
   p.s2 = s2;
@@ -551,7 +612,7 @@ PSL_API int psl_plane_components(
       plane_components_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  plane_components_kernel<<<1, kCcThreads, smem, stream>>>(p);
+  plane_components_kernel<<<batch, kCcThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -560,11 +621,12 @@ PSL_API int psl_plane_assign_refit(
     float fy, float cx, float cy, float geo_tol, float max_distance,
     float dist_thr, float jump_coef, int P, const float* normal,
     const float* d, const unsigned char* valid, const float* mse,
-    const float* mean, const float* n_p, int pix_per_block, double* partial,
-    int* label_sub, float* normal_f,
+    const float* mean, const float* n_p, int pix_per_block, int batch,
+    double* partial, int* label_sub, float* normal_f,
     float* d_f, float* mse_f, float* mean_f, float* n_f,
     unsigned char* alive, cudaStream_t stream) {
-  if (P > kMaxPlanes || rs < 1 || pix_per_block < 1) {
+  if (P > kMaxPlanes || rs < 1 || pix_per_block < 1 || batch < 1 ||
+      batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const PixParams p =
@@ -573,13 +635,13 @@ PSL_API int psl_plane_assign_refit(
                  n_p);
   const int refine = mse != nullptr ? 1 : 0;
   const int hs = (h + rs - 1) / rs, ws = (w + rs - 1) / rs;
-  // the caller sized `partial` as n_part x P x 10 float64
+  // the caller sized `partial` as batch x n_part x P x 10 float64
   const int n_part = (hs * ws + pix_per_block - 1) / pix_per_block;
-  plane_assign_kernel<<<n_part, kPixThreads, 0, stream>>>(
+  plane_assign_kernel<<<dim3(n_part, batch), kPixThreads, 0, stream>>>(
       p, refine, hs, ws, pix_per_block, label_sub, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  plane_refit_kernel<<<1, kMaxPlanes * kFeat, 0, stream>>>(
+  plane_refit_kernel<<<batch, kMaxPlanes * kFeat, 0, stream>>>(
       p, refine, n_part, partial, static_cast<float>(rs * rs), normal_f, d_f,
       mse_f, mean_f, n_f, alive);
   return static_cast<int>(cudaGetLastError());
@@ -590,16 +652,19 @@ PSL_API int psl_plane_label_pixels(
     float cx, float cy, float geo_tol, float max_distance, float dist_thr,
     float jump_coef, int P, const float* normal, const float* d,
     const unsigned char* valid, const float* mse, const float* mean,
-    const float* n_p, int min_size,
+    const float* n_p, int min_size, int batch,
     const int* label_in, float* coeffs, unsigned char* valid_out,
     int* count_out, int* pixel_label, cudaStream_t stream) {
-  if (P > kMaxPlanes) return static_cast<int>(cudaErrorInvalidValue);
+  if (P > kMaxPlanes || batch < 1 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const PixParams p =
       pix_params(depth, alpha, h, w, 1, fx, fy, cx, cy, geo_tol,
                  max_distance, dist_thr, jump_coef, P, normal, d, valid, mse, mean,
                  n_p);
   const int blocks = (h * w + kPixThreads - 1) / kPixThreads;
-  plane_label_kernel<<<blocks < 1 ? 1 : blocks, kPixThreads, 0, stream>>>(
+  plane_label_kernel<<<dim3(blocks < 1 ? 1 : blocks, batch), kPixThreads, 0,
+                       stream>>>(
       p, min_size, label_in, coeffs, valid_out, count_out, pixel_label);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,7 +19,9 @@
 //
 // Design. The call is a chain of 40 dependent steps over ~3.3k rows, so it
 // is bound by latency, not by bytes or operations: one block of 512
-// threads loops over the rounds and steps, and between them nothing leaves
+// threads per problem loops over the rounds and steps (a batch of B
+// independent problems, every array with a leading B, is one launch of B
+// blocks, block b reading problem b at its lane strides), and between them nothing leaves
 // the SM except each item's row weights (global scratch, written and read
 // back by the same thread) and its inlier flag (the output mask, likewise).
 // An item is a point (3 rows, the third zero for mono), a line (its two
@@ -505,8 +507,42 @@ __device__ void se3_exp_mul(const float* xi, const float* T, float* T_new) {
   }
 }
 
+// Params of problem `lane` of a batch: every array advanced by the lane's
+// stride (its row count times its width).
+__device__ __forceinline__ Params at_lane(Params P, int lane) {
+  const size_t b = lane;
+  const size_t n_items =
+      P.n_pt + P.n_ln + P.pl[0].n + P.pl[1].n + P.pl[2].n;
+  P.T_init += 16 * b;
+  P.pt_xw += 3 * b * P.n_pt;
+  P.pt_uv += 2 * b * P.n_pt;
+  P.pt_ur += b * P.n_pt;
+  P.pt_is2 += b * P.n_pt;
+  P.pt_valid += b * P.n_pt;
+  P.pt_in += b * P.n_pt;
+  P.ln_s += 3 * b * P.n_ln;
+  P.ln_e += 3 * b * P.n_ln;
+  P.ln_l2d += 3 * b * P.n_ln;
+  P.ln_is2 += b * P.n_ln;
+  P.ln_valid += b * P.n_ln;
+  P.ln_in += b * P.n_ln;
+  for (int q = 0; q < 3; ++q) {
+    P.pl[q].pi_w += 4 * b * P.pl[q].n;
+    P.pl[q].pi_obs += 4 * b * P.pl[q].n;
+    P.pl[q].valid += b * P.pl[q].n;
+    P.pl[q].in += b * P.pl[q].n;
+  }
+  if (P.rot_flag != nullptr) P.rot_flag += b;
+  P.w_scr += 3 * b * n_items;
+  P.T_out += 16 * b;
+  P.n_in += b;
+  P.chi2 += b;
+  return P;
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
-    pose_opt_kernel(const Params P) {
+    pose_opt_kernel(const Params P_batch) {
+  const Params P = at_lane(P_batch, blockIdx.x);
   __shared__ float T0[16], T[16], T_new[16];
   __shared__ double warp_buf[kWarps * kSums];
   __shared__ double sums[kSums];
@@ -640,7 +676,7 @@ PSL_API int psl_pose_optimize(
     const unsigned char* rot_flag, int rot_fixed, float fx, float fy,
     float cx, float cy, float bf, float angle_info, float dis_info,
     float par_info, float ver_info, float plane_chi, float vp_chi,
-    int n_rounds, int n_iters, float* w_scr, float* T_out,
+    int n_rounds, int n_iters, int batch, float* w_scr, float* T_out,
     unsigned char* pt_in, unsigned char* ln_in, unsigned char* pl_in,
     unsigned char* par_in, unsigned char* ver_in, long long* n_in,
     float* chi2, cudaStream_t stream) {
@@ -682,6 +718,7 @@ PSL_API int psl_pose_optimize(
   P.T_out = T_out;
   P.n_in = n_in;
   P.chi2 = chi2;
-  pose_opt_kernel<<<1, kThreads, 0, stream>>>(P);
+  if (batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+  pose_opt_kernel<<<batch, kThreads, 0, stream>>>(P);
   return static_cast<int>(cudaGetLastError());
 }

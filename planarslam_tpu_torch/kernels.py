@@ -41,7 +41,8 @@ KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
                 "project_landmarks", "match_select", "frame_match_select",
                 "assemble_observations", "noise_alpha", "frame_normals",
                 "associate_planes", "finish_step", "refine_relative",
-                "ba_plane_blocks", "ba_cost_test", "ba_reduced_system")
+                "ba_plane_blocks", "ba_cost_test", "ba_reduced_system",
+                "step_prelude")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -53,7 +54,8 @@ CUDA_SOURCES = ("fast_score.cu", "orb_describe.cu", "hamming_top2.cu",
                 "pose_opt.cu", "plane_segment.cu", "manhattan.cu",
                 "pyramid.cu", "select_keypoints.cu", "lines.cu",
                 "line_lift_search.cu", "matching.cu", "depth_normals.cu",
-                "step_tail.cu", "refine_relative.cu", "ba_step.cu")
+                "step_tail.cu", "refine_relative.cu", "ba_step.cu",
+                "step_prelude.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # Sources whose float32 gates must round as the plain version's separate
@@ -67,7 +69,8 @@ SOURCE_FLAGS = {"plane_segment.cu": ("-fmad=false",),
                 "matching.cu": ("-fmad=false",),
                 "depth_normals.cu": ("-fmad=false",),
                 "step_tail.cu": ("-fmad=false",),
-                "ba_step.cu": ("-fmad=false",)}
+                "ba_step.cu": ("-fmad=false",),
+                "step_prelude.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -84,11 +87,11 @@ _SIGNATURES = {
     "psl_fast_score": [_P, _P, _I, _I, _P],
     # img, blur, h, w, uv, valid, n, pattern, angle, desc, stream
     "psl_orb_describe": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P],
-    # a_desc, b_desc, M, N, a_ok, b_ok, gated, a_uv, a_r, a_level,
+    # a_desc, b_desc, M, N, batch, a_ok, b_ok, gated, a_uv, a_r, a_level,
     # a_ur_pred, b_uv, b_level, b_ur, level_window, best, second,
     # best_idx, stream
-    "psl_gated_hamming_top2": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P,
-                               _P, _P, _P, _I, _P, _P, _P, _P],
+    "psl_gated_hamming_top2": [_P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P,
+                               _P, _P, _P, _P, _I, _P, _P, _P, _P],
     # own_uv, own_level, uv2, level2, has, own_T, nb_T, nb, k, fx, fy, cx,
     # cy, scale_factor, X, good, stream
     "psl_triangulate_two_view": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
@@ -117,29 +120,36 @@ _SIGNATURES = {
     # xw_e, line2d, inv_sigma2, valid, L; planes, parallel and vertical
     # planes pi_w, pi_obs, valid, P; rotation flag (device) or NULL and the
     # host flag; fx, fy, cx, cy, bf; the six PoseOptWeights; n_rounds,
-    # n_iters; scratch; T_out, the five inlier masks, n_in, chi2; stream
+    # n_iters, batch; scratch; T_out, the five inlier masks, n_in, chi2;
+    # stream
     "psl_pose_optimize": [_P] * 6 + [_I] + [_P] * 5 + [_I]
                          + ([_P] * 3 + [_I]) * 3 + [_P, _I] + [_F] * 11
-                         + [_I, _I] + [_P] * 10,
+                         + [_I] * 3 + [_P] * 10,
     # s1, s2, n, hb, wb, P, merge_rounds, full_count, mse_sigma, mse_tol,
-    # angle_cos, dist_thr, min_support, assoc_angle, assoc_dist2, fit_b,
-    # normal_c, d_c, cand_valid, labels, block_valid, stream
-    "psl_plane_components": [_P] * 3 + [_I] * 4 + [_F] * 8 + [_P] * 7,
+    # angle_cos, dist_thr, min_support, assoc_angle, assoc_dist2, batch,
+    # fit_b, normal_c, d_c, cand_valid, labels, block_valid, stream
+    "psl_plane_components": [_P] * 3 + [_I] * 4 + [_F] * 8 + [_I]
+                            + [_P] * 7,
     # depth, alpha, h, w, rs, fx, fy, cx, cy, geo_tol, max_distance,
     # dist_thr, jump_coef, P, normal, d, valid, mse, mean, n_p (the last
-    # three NULL in round 1), pix_per_block, partial, label_sub, normal_f,
-    # d_f, mse_f, mean_f, n_f, alive, stream
+    # three NULL in round 1), pix_per_block, batch, partial, label_sub,
+    # normal_f, d_f, mse_f, mean_f, n_f, alive, stream
     "psl_plane_assign_refit": [_P, _P] + [_I] * 3 + [_F] * 8 + [_I]
-                              + [_P] * 6 + [_I] + [_P] * 9,
+                              + [_P] * 6 + [_I, _I] + [_P] * 9,
     # depth, alpha, h, w, fx, fy, cx, cy, geo_tol, max_distance, dist_thr,
-    # jump_coef, P, normal, d, valid, mse, mean, n_p, min_size, label_in
-    # (or NULL), coeffs, valid_out, count, pixel_label, stream
+    # jump_coef, P, normal, d, valid, mse, mean, n_p, min_size, batch,
+    # label_in (or NULL), coeffs, valid_out, count, pixel_label, stream
     "psl_plane_label_pixels": [_P, _P] + [_I] * 2 + [_F] * 8 + [_I]
-                              + [_P] * 6 + [_I] + [_P] * 6,
-    # R_init, normals, valid, N, cos_half, kernel, min_support, iters,
-    # ms_iters, R_out, support, n_axes, success, stream
-    "psl_manhattan_mean_shift": [_P] * 3 + [_I, _F, _F] + [_I] * 3
-                                + [_P] * 5,
+                              + [_P] * 6 + [_I, _I] + [_P] * 6,
+    # R_init, normals, valid, N, batch, cos_half, kernel, min_support,
+    # iters, ms_iters, R_out, support, n_axes, success, the epilogue's
+    # T_pred, R_wm, enabled, T_init, use_manh (all NULL without it), stream
+    "psl_manhattan_mean_shift": [_P] * 3 + [_I, _I, _F, _F] + [_I] * 3
+                                + [_P] * 10,
+    # T_override, use_override, T_cw, velocity, p3d_s, p3d_e, has_3d,
+    # ln_valid, L, normals, normals_valid, Nn, R_wm, batch, T_last, T_pred,
+    # dirs, dirs_valid, R_init, stream
+    "psl_step_prelude": [_P] * 8 + [_I, _P, _P, _I, _P, _I] + [_P] * 6,
     # The all-levels entry points take the host's level table (`rows`, the
     # int32 array of ops/levels.py) and a leading batch count.
     # buf, out, rows, n_levels, batch, stream

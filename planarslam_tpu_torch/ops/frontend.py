@@ -8,8 +8,8 @@ tensors with validity masks (capacity = ORBConfig.max_keypoints).
 
 On the card every stage is one launch for all pyramid levels (the pyramid
 one per level above 0), on the (B, n_pixels) level buffer of
-``ops/levels.py`` with B = 1; on the CPU the plain versions run level by
-level.
+``ops/levels.py`` for a batch of B frames (B = 1 for one frame); on the CPU
+the plain versions run level by level, frame by frame.
 """
 
 from __future__ import annotations
@@ -168,12 +168,16 @@ def point_epilogue(uv_level: torch.Tensor, response: torch.Tensor,
     return res
 
 
+def _batch_features(angle, desc, ep: PointEpilogue) -> PointFeatures:
+    """The batched stage outputs as one PointFeatures with a leading B."""
+    return PointFeatures(uv=ep.uv, uv_raw=ep.uv_raw, response=ep.response,
+                         level=ep.level, angle=angle, desc=desc,
+                         depth=ep.depth, u_right=ep.u_right, valid=ep.valid)
+
+
 def _features(angle, desc, ep: PointEpilogue) -> PointFeatures:
     """Frame 0 of the batched stage outputs as one PointFeatures."""
-    return PointFeatures(uv=ep.uv[0], uv_raw=ep.uv_raw[0],
-                         response=ep.response[0], level=ep.level[0],
-                         angle=angle[0], desc=desc[0], depth=ep.depth[0],
-                         u_right=ep.u_right[0], valid=ep.valid[0])
+    return PointFeatures(*[x[0] for x in _batch_features(angle, desc, ep)])
 
 
 def extract_point_features_plain(gray: torch.Tensor, depth: torch.Tensor,
@@ -217,19 +221,31 @@ def extract_point_features_plain(gray: torch.Tensor, depth: torch.Tensor,
 def extract_point_features(gray: torch.Tensor, depth: torch.Tensor,
                            cam: CameraConfig, cfg: ORBConfig) -> PointFeatures:
     """Full ORB front end for one frame. gray: (H, W) f32 [0,255],
-    depth: (H, W) f32 metres (0 = invalid). On the card: K16 (one launch
-    per level above 0), then one launch each of K1, K18 (two), K17, K2 and
-    K19 for all levels."""
+    depth: (H, W) f32 metres (0 = invalid); or B frames (B, H, W), every
+    output then with a leading B. On the card: K16 (one launch per level
+    above 0), then one launch each of K1, K18 (two), K17, K2 and K19 for
+    all levels and frames."""
+    if gray.dim() == 2:
+        return PointFeatures(*[x[0] for x in _extract_points_batched(
+            gray[None], depth[None], cam, cfg)])
+    return _extract_points_batched(gray, depth, cam, cfg)
+
+
+def _extract_points_batched(gray: torch.Tensor, depth: torch.Tensor,
+                            cam: CameraConfig, cfg: ORBConfig
+                            ) -> PointFeatures:
+    """extract_point_features of B frames (B, H, W)."""
     if kernels.on_cpu(gray, depth):
-        return extract_point_features_plain(gray, depth, cam, cfg)
-    table = orb_level_table(*gray.shape, cfg)
+        return kernels.per_problem(extract_point_features_plain,
+                                   [gray, depth], cam, cfg)
+    table = orb_level_table(*gray.shape[1:], cfg)
     k = cfg.max_keypoints
     _check_capacity(table, k)
-    buf = image.build_pyramid_levels(gray[None], table, cfg.scale_factor)
+    buf = image.build_pyramid_levels(gray, table, cfg.scale_factor)
     scores = fast.fast_score_levels(buf, table)
     uv_l, resp, valid = fast.select_keypoints_levels(
         scores, table, float(cfg.min_th_fast), EDGE_BORDER)
     blur = image.gaussian_blur_levels(buf, table, ksize=7, sigma=2.0)
     angle, desc = orb.orb_describe_levels(buf, blur, uv_l, valid, table, k)
-    ep = point_epilogue(uv_l, resp, valid, depth[None], cam, table, k)
-    return _features(angle, desc, ep)
+    ep = point_epilogue(uv_l, resp, valid, depth, cam, table, k)
+    return _batch_features(angle, desc, ep)

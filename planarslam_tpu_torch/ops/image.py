@@ -248,12 +248,16 @@ def gaussian_blur_levels(buf: torch.Tensor, table: LevelTable, ksize: int = 7,
 
 def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0
                   ) -> torch.Tensor:
-    """K17 on one (H, W) image (a one-level buffer); `blur` on the CPU."""
+    """K17 on one (H, W) image, or on B images (B, H, W) in one launch (a
+    one-level buffer each); `blur` on the CPU."""
     if kernels.on_cpu(img):
+        if img.dim() == 3:
+            return torch.stack([blur(x, ksize, sigma) for x in img])
         return blur(img, ksize, sigma)
-    h, w = img.shape
-    return gaussian_blur_levels(img.reshape(1, h * w), single_level(h, w),
-                                ksize, sigma).reshape(h, w)
+    h, w = img.shape[-2:]
+    frames = img.reshape(-1, h * w)
+    return gaussian_blur_levels(frames, single_level(h, w), ksize,
+                                sigma).reshape(img.shape)
 
 
 def sobel_gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -501,13 +501,11 @@ def lift_lines_3d(depth: torch.Tensor, cam: CameraConfig, cfg: LineConfig,
 
 
 def _line_features(det: LineDetection, desc, lifted) -> LineFeatures:
-    """The one frame of a B = 1 batch as LineFeatures."""
+    """The batched stage outputs as LineFeatures with a leading B."""
     p3s, p3e, has3d = lifted
-    return LineFeatures(uv_s=det.uv_s[0], uv_e=det.uv_e[0],
-                        line2d=det.line2d[0], angle=det.angle[0],
-                        response=det.response[0], desc=desc[0],
-                        p3d_s=p3s[0], p3d_e=p3e[0], has_3d=has3d[0],
-                        valid=det.valid[0])
+    return LineFeatures(uv_s=det.uv_s, uv_e=det.uv_e, line2d=det.line2d,
+                        angle=det.angle, response=det.response, desc=desc,
+                        p3d_s=p3s, p3d_e=p3e, has_3d=has3d, valid=det.valid)
 
 
 def extract_line_features_plain(gray: torch.Tensor, depth: torch.Tensor,
@@ -519,20 +517,32 @@ def extract_line_features_plain(gray: torch.Tensor, depth: torch.Tensor,
                                   det.valid)
     lifted = lift_lines_3d_plain(depth[None], cam, cfg, det.uv_s, det.uv_e,
                                  det.valid)
-    return _line_features(det, desc, lifted)
+    return LineFeatures(*[x[0] for x in _line_features(det, desc, lifted)])
 
 
 @record_function("lines.extract_line_features")
 def extract_line_features(gray: torch.Tensor, depth: torch.Tensor,
                           cam: CameraConfig, cfg: LineConfig) -> LineFeatures:
-    """Full line front end for one frame. On the card: one K17 launch, then
-    K20 (one call), K21 and K22, with allocations only between them."""
+    """Full line front end for one frame, gray and depth (H, W), or for B
+    frames (B, H, W), every output then with a leading B. On the card: one
+    K17 launch, then K20 (one call), K21 and K22 for all frames, with
+    allocations only between them."""
+    if gray.dim() == 2:
+        return LineFeatures(*[x[0] for x in _extract_lines_batched(
+            gray[None], depth[None], cam, cfg)])
+    return _extract_lines_batched(gray, depth, cam, cfg)
+
+
+def _extract_lines_batched(gray: torch.Tensor, depth: torch.Tensor,
+                           cam: CameraConfig, cfg: LineConfig
+                           ) -> LineFeatures:
+    """extract_line_features of B frames (B, H, W)."""
     if kernels.on_cpu(gray, depth):
-        return extract_line_features_plain(gray, depth, cam, cfg)
-    det = detect_lines(image_ops.gaussian_blur(gray, 5, 1.0)[None], cfg)
+        return kernels.per_problem(extract_line_features_plain,
+                                   [gray, depth], cam, cfg)
+    det = detect_lines(image_ops.gaussian_blur(gray, 5, 1.0), cfg)
     desc = line_descriptors(det.gx, det.gy, det.uv_s, det.uv_e, det.valid)
-    lifted = lift_lines_3d(depth[None], cam, cfg, det.uv_s, det.uv_e,
-                           det.valid)
+    lifted = lift_lines_3d(depth, cam, cfg, det.uv_s, det.uv_e, det.valid)
     return _line_features(det, desc, lifted)
 
 
@@ -681,11 +691,15 @@ def search_lines_by_projection(
         sim_floor: float = 0.45):
     """Guided line matching by projection of M map lines against a frame's
     L segments: K23 on the card, the plain version on the CPU. Returns (idx
-    (M,) frame-line index or -1, sim (M,))."""
+    (M,) frame-line index or -1, sim (M,)). With T_cw (B, 4, 4), every
+    tensor carries a leading B: the B problems of
+    search_lines_by_projection_batched."""
     args = (sw_w, ew_w, desc_m, valid_m, T_cw, f_uv_s, f_uv_e, f_angle,
             f_desc, f_valid)
     kw = dict(K=K, image_wh=image_wh, radius=radius, max_angle=max_angle,
               min_sim=min_sim, sim_floor=sim_floor)
+    if T_cw.dim() == 3:
+        return search_lines_by_projection_batched(*args, **kw)
     if kernels.on_cpu(*args):
         return search_lines_by_projection_plain(*args, **kw)
     idx, sim = search_lines_by_projection_batched(*[t[None] for t in args],

@@ -8,14 +8,17 @@ product, and the result is re-orthonormalized. Fixed shapes, no
 data-dependent branching, no host sync.
 
 ``track_manhattan_frame`` is the wrapper of kernel K15
-(``csrc/manhattan.cu``, all rounds in one launch); its plain PyTorch
-version ``track_manhattan_frame_plain`` runs for CPU tensors only.
+(``csrc/manhattan.cu``, all rounds in one launch, one thread block per
+frame of a leading batch); its plain PyTorch version
+``track_manhattan_frame_plain`` runs for CPU tensors only. With
+``init=InitSelect(...)`` the kernel's epilogue also forms the tracking
+step's initial pose (``init_select_plain`` is its plain version).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -29,6 +32,43 @@ class ManhattanResult(NamedTuple):
     axis_support: torch.Tensor  # (3,) int64 normals voting per axis
     n_axes: torch.Tensor        # () int64 number of well-supported axes
     success: torch.Tensor       # () bool — at least 2 axes found
+
+
+class ManhattanInit(NamedTuple):
+    """ManhattanResult and the tracking step's initial pose (K15 with its
+    epilogue)."""
+
+    R_cm: torch.Tensor
+    axis_support: torch.Tensor
+    n_axes: torch.Tensor
+    success: torch.Tensor
+    T_init: torch.Tensor        # (4, 4) float32
+    use_manh: torch.Tensor      # () bool
+
+
+class InitSelect(NamedTuple):
+    """What K15's epilogue reads to form the tracking step's initial pose
+    (every field with the frames' leading B)."""
+
+    T_pred: torch.Tensor   # (4, 4) float32 the predicted pose
+    R_wm: torch.Tensor     # (3, 3) float32 world-from-Manhattan
+    enabled: torch.Tensor  # () bool the Manhattan switch
+
+
+def init_select_plain(R_cm: torch.Tensor, success: torch.Tensor,
+                      init: InitSelect
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K15's epilogue for one frame: use_manh = enabled &
+    success, and T_init = T_pred with its rotation replaced by R_cm R_wm^T
+    where use_manh holds (each entry ((a0 b0 + a1 b1) + a2 b2))."""
+    use_manh = init.enabled & success
+    R_manh = torch.stack([torch.stack([
+        R_cm[i, 0] * init.R_wm[j, 0] + R_cm[i, 1] * init.R_wm[j, 1]
+        + R_cm[i, 2] * init.R_wm[j, 2] for j in range(3)])
+        for i in range(3)])
+    T_rot = init.T_pred.clone()
+    T_rot[:3, :3] = R_manh
+    return torch.where(use_manh, T_rot, init.T_pred), use_manh
 
 
 def track_manhattan_frame_plain(R_cm_init: torch.Tensor,
@@ -105,41 +145,73 @@ def track_manhattan_frame_plain(R_cm_init: torch.Tensor,
 def track_manhattan_frame(R_cm_init: torch.Tensor, normals: torch.Tensor,
                           valid: torch.Tensor, cone_sin: float = 0.2018,
                           kernel: float = 20.0, min_support: int = 20,
-                          iters: int = 3, ms_iters: int = 4
+                          iters: int = 3, ms_iters: int = 4,
+                          init: Optional[InitSelect] = None
                           ) -> ManhattanResult:
     """Refine the Manhattan rotation from one frame's surface normals. K15
     wrapper. R_cm_init: (3, 3) float32; normals: (N, 3) float32 unit
-    vectors (zeros where padded); valid: (N,) bool. Returns R_cm (3, 3)
-    float32, axis_support (3,) and n_axes () int64, success () bool."""
-    if kernels.on_cpu(R_cm_init, normals, valid):
-        return track_manhattan_frame_plain(R_cm_init, normals, valid,
-                                           cone_sin, kernel, min_support,
-                                           iters, ms_iters)
-    kernels.check(R_cm_init, "R_cm_init", torch.float32, (3, 3))
-    if normals.dim() != 2:
-        raise ValueError(f"normals: expected (N, 3), got "
+    vectors (zeros where padded); valid: (N,) bool; or B frames, every
+    tensor (and init's) with a leading B, in one launch. Returns R_cm (3,
+    3) float32, axis_support (3,) and n_axes () int64, success () bool;
+    with `init` a ManhattanInit, which adds the step's T_init (4, 4) and
+    use_manh () bool (all with the leading B)."""
+    if kernels.on_cpu(R_cm_init, normals, valid,
+                      *(() if init is None else init)):
+        if R_cm_init.dim() == 2:
+            res = track_manhattan_frame_plain(R_cm_init, normals, valid,
+                                              cone_sin, kernel, min_support,
+                                              iters, ms_iters)
+            if init is None:
+                return res
+            return ManhattanInit(*res, *init_select_plain(
+                res.R_cm, res.success, init))
+        outs = []
+        for b in range(R_cm_init.shape[0]):
+            res = track_manhattan_frame_plain(R_cm_init[b], normals[b],
+                                              valid[b], cone_sin, kernel,
+                                              min_support, iters, ms_iters)
+            if init is not None:
+                res = ManhattanInit(*res, *init_select_plain(
+                    res.R_cm, res.success, InitSelect(*[t[b] for t in init])))
+            outs.append(res)
+        return type(outs[0])(*[torch.stack(f) for f in zip(*outs)])
+    lead = tuple(R_cm_init.shape[:-2])
+    kernels.check(R_cm_init, "R_cm_init", torch.float32, (*lead, 3, 3))
+    if normals.dim() != len(lead) + 2 or len(lead) > 1:
+        raise ValueError(f"normals: expected {lead} + (N, 3), got "
                          f"{tuple(normals.shape)}")
-    n = normals.shape[0]
-    kernels.check(normals, "normals", torch.float32, (n, 3))
-    kernels.check(valid, "valid", torch.bool, (n,))
+    b, n = (lead[0] if lead else 1), normals.shape[-2]
+    kernels.check(normals, "normals", torch.float32, (*lead, n, 3))
+    kernels.check(valid, "valid", torch.bool, (*lead, n))
     if iters < 1 or ms_iters < 0:
         raise ValueError(f"iters >= 1 and ms_iters >= 0, got {iters}, "
                          f"{ms_iters}")
     dev = normals.device
-    R_cm = torch.empty((3, 3), dtype=torch.float32, device=dev)
-    support = torch.empty((3,), dtype=torch.int64, device=dev)
-    n_axes = torch.empty((), dtype=torch.int64, device=dev)
-    success = torch.empty((), dtype=torch.bool, device=dev)
+    R_cm = torch.empty((*lead, 3, 3), dtype=torch.float32, device=dev)
+    support = torch.empty((*lead, 3), dtype=torch.int64, device=dev)
+    n_axes = torch.empty(lead, dtype=torch.int64, device=dev)
+    success = torch.empty(lead, dtype=torch.bool, device=dev)
+    T_init = use_manh = None
+    sel = [None] * 5
+    if init is not None:
+        kernels.check(init.T_pred, "T_pred", torch.float32, (*lead, 4, 4))
+        kernels.check(init.R_wm, "R_wm", torch.float32, (*lead, 3, 3))
+        kernels.check(init.enabled, "enabled", torch.bool, lead)
+        T_init = torch.empty((*lead, 4, 4), dtype=torch.float32, device=dev)
+        use_manh = torch.empty(lead, dtype=torch.bool, device=dev)
+        sel = [kernels.ptr(t) for t in (*init, T_init, use_manh)]
     with torch.cuda.device(dev):
         kernels.launch(
             "psl_manhattan_mean_shift", kernels.ptr(R_cm_init),
-            kernels.ptr(normals), kernels.ptr(valid), n,
+            kernels.ptr(normals), kernels.ptr(valid), n, b,
             math.sqrt(1.0 - cone_sin * cone_sin), float(kernel),
             int(min_support), int(iters), int(ms_iters), kernels.ptr(R_cm),
-            kernels.ptr(support), kernels.ptr(n_axes), kernels.ptr(success))
+            kernels.ptr(support), kernels.ptr(n_axes), kernels.ptr(success),
+            *sel)
     kernels.LAUNCHES["manhattan_mean_shift"] += 1
-    return ManhattanResult(R_cm=R_cm, axis_support=support, n_axes=n_axes,
-                           success=success)
+    res = ManhattanResult(R_cm=R_cm, axis_support=support, n_axes=n_axes,
+                          success=success)
+    return res if init is None else ManhattanInit(*res, T_init, use_manh)
 
 
 def seed_from_plane_normals(normals: torch.Tensor, counts: torch.Tensor,

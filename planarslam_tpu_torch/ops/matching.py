@@ -15,8 +15,9 @@ selection with the rotation histogram (``rotation_histogram_filter`` is
 its filter-only mode); K27 ``assemble_observations``, the pose solver's
 point and line observations from the window matches
 (``assemble_point_obs``, ``assemble_line_obs``). Each ``*_plain`` function
-is its kernel's plain version; the wrappers of K24-K27 take a leading batch
-dimension. -1 sentinels mark missing matches.
+is its kernel's plain version; the wrappers of K3 and K24-K27, and the
+searches built from them, take a leading batch dimension (K3's also one
+problem alone). -1 sentinels mark missing matches.
 """
 
 from __future__ import annotations
@@ -106,36 +107,49 @@ def gated_hamming_top2(a_desc: torch.Tensor, b_desc: torch.Tensor,
                        a_ok: torch.Tensor, b_ok: torch.Tensor,
                        gate: Optional[ProjGate] = None):
     """K3 wrapper. a_desc (M, 8) / b_desc (N, 8) int32 bit patterns, a_ok
-    (M,) / b_ok (N,) bool, optional projection gates. Masked pairs count as
-    INF_DIST. Returns (best, second, best_idx), each (M,) int32."""
+    (M,) / b_ok (N,) bool, optional projection gates; or B problems, every
+    tensor with a leading B, in one launch. Masked pairs count as INF_DIST.
+    Returns (best, second, best_idx), each (M,) int32 (with the leading
+    B)."""
     tensors = [a_desc, b_desc, a_ok, b_ok]
     if gate is not None:
         tensors += list(gate[:-1])
+    lead = tuple(a_desc.shape[:-2])
     if kernels.on_cpu(*tensors):
-        return gated_hamming_top2_plain(a_desc, b_desc, a_ok, b_ok, gate)
-    m, n = a_desc.shape[0], b_desc.shape[0]
-    kernels.check(a_desc, "a_desc", torch.int32, (m, 8))
-    kernels.check(b_desc, "b_desc", torch.int32, (n, 8))
-    kernels.check(a_ok, "a_ok", torch.bool, (m,))
-    kernels.check(b_ok, "b_ok", torch.bool, (n,))
+        if not lead:
+            return gated_hamming_top2_plain(a_desc, b_desc, a_ok, b_ok, gate)
+
+        def one(a, b, ao, bo, *g):
+            return gated_hamming_top2_plain(
+                a, b, ao, bo, ProjGate(*g, gate.level_window) if g else None)
+        return kernels.per_problem(one, tensors)
+    if len(lead) > 1:
+        raise ValueError(f"a_desc: expected (M, 8) or (B, M, 8), got "
+                         f"{tuple(a_desc.shape)}")
+    bsz = lead[0] if lead else 1
+    m, n = a_desc.shape[-2], b_desc.shape[-2]
+    kernels.check(a_desc, "a_desc", torch.int32, (*lead, m, 8))
+    kernels.check(b_desc, "b_desc", torch.int32, (*lead, n, 8))
+    kernels.check(a_ok, "a_ok", torch.bool, (*lead, m))
+    kernels.check(b_ok, "b_ok", torch.bool, (*lead, n))
     gate_ptrs = [0] * 7
     level_window = 0
     if gate is not None:
-        kernels.check(gate.a_uv, "a_uv", torch.float32, (m, 2))
-        kernels.check(gate.a_r, "a_r", torch.float32, (m,))
-        kernels.check(gate.a_level, "a_level", torch.int32, (m,))
-        kernels.check(gate.a_ur_pred, "a_ur_pred", torch.float32, (m,))
-        kernels.check(gate.b_uv, "b_uv", torch.float32, (n, 2))
-        kernels.check(gate.b_level, "b_level", torch.int32, (n,))
-        kernels.check(gate.b_ur, "b_ur", torch.float32, (n,))
+        kernels.check(gate.a_uv, "a_uv", torch.float32, (*lead, m, 2))
+        kernels.check(gate.a_r, "a_r", torch.float32, (*lead, m))
+        kernels.check(gate.a_level, "a_level", torch.int32, (*lead, m))
+        kernels.check(gate.a_ur_pred, "a_ur_pred", torch.float32, (*lead, m))
+        kernels.check(gate.b_uv, "b_uv", torch.float32, (*lead, n, 2))
+        kernels.check(gate.b_level, "b_level", torch.int32, (*lead, n))
+        kernels.check(gate.b_ur, "b_ur", torch.float32, (*lead, n))
         gate_ptrs = [kernels.ptr(t) for t in gate[:-1]]
         level_window = int(gate.level_window)
-    best = torch.empty(m, dtype=torch.int32, device=a_desc.device)
+    best = torch.empty((*lead, m), dtype=torch.int32, device=a_desc.device)
     second = torch.empty_like(best)
     best_idx = torch.empty_like(best)
     with torch.cuda.device(a_desc.device):
         kernels.launch("psl_gated_hamming_top2", kernels.ptr(a_desc),
-                       kernels.ptr(b_desc), m, n, kernels.ptr(a_ok),
+                       kernels.ptr(b_desc), m, n, bsz, kernels.ptr(a_ok),
                        kernels.ptr(b_ok), int(gate is not None), *gate_ptrs,
                        level_window, kernels.ptr(best), kernels.ptr(second),
                        kernels.ptr(best_idx))
@@ -684,15 +698,20 @@ def match_descriptors(desc_a: torch.Tensor, desc_b: torch.Tensor,
                       mutual: bool = True) -> MatchResult:
     """Brute-force descriptor matching a->b with Lowe ratio and an optional
     mutual check: K3 on the rows (and on the transposed problem), then
-    K25."""
+    K25. desc_a (M, 8), desc_b (N, 8), valid_a (M,), valid_b (N,), or B
+    problems with a leading B (the result then has it too)."""
+    one = desc_a.dim() == 2
+    if one:
+        desc_a, desc_b, valid_a, valid_b = (
+            t[None] for t in (desc_a, desc_b, valid_a, valid_b))
     best, second, best_idx = gated_hamming_top2(desc_a, desc_b, valid_a,
                                                 valid_b)
     back = None
     if mutual:
-        back = gated_hamming_top2(desc_b, desc_a, valid_b, valid_a)[2][None]
-    idx, dist = match_select(best[None], second[None], best_idx[None],
-                             max_dist, ratio=ratio, back=back)
-    return MatchResult(idx[0], dist[0])
+        back = gated_hamming_top2(desc_b, desc_a, valid_b, valid_a)[2]
+    idx, dist = match_select(best, second, best_idx, max_dist, ratio=ratio,
+                             back=back)
+    return MatchResult(idx[0], dist[0]) if one else MatchResult(idx, dist)
 
 
 @record_function("matching.search_by_projection")
@@ -709,22 +728,29 @@ def search_by_projection(
 ) -> MatchResult:
     """Project landmarks into the frame and match within a scale-aware
     window: K24, K3 on the gated (M, N) problem, K25 with the duplicate
-    resolution."""
+    resolution. Every tensor may carry a leading B (B problems, one launch
+    of each kernel; the result then has it too)."""
+    one = pts_w.dim() == 2
+    if one:
+        (pts_w, descs, valid_pts, T_cw, feat_uv, feat_desc, feat_level,
+         feat_valid, feat_ur) = (t[None] for t in (
+             pts_w, descs, valid_pts, T_cw, feat_uv, feat_desc, feat_level,
+             feat_valid, feat_ur))
+        if view_normals is not None:
+            view_normals = view_normals[None]
+        if dist_range is not None:
+            dist_range = (dist_range[0][None], dist_range[1][None])
     proj = project_landmarks(
-        pts_w[None], valid_pts[None], T_cw[None], K, image_wh, bf,
-        scale_factor, radius,
-        view_normals=None if view_normals is None else view_normals[None],
-        dist_range=None if dist_range is None
-        else (dist_range[0][None], dist_range[1][None]))
-    gate = ProjGate(a_uv=proj.a_uv[0], a_r=proj.a_r[0],
-                    a_level=proj.a_level[0], a_ur_pred=proj.a_ur_pred[0],
-                    b_uv=feat_uv.contiguous(),
+        pts_w, valid_pts, T_cw, K, image_wh, bf, scale_factor, radius,
+        view_normals=view_normals, dist_range=dist_range)
+    gate = ProjGate(a_uv=proj.a_uv, a_r=proj.a_r, a_level=proj.a_level,
+                    a_ur_pred=proj.a_ur_pred, b_uv=feat_uv.contiguous(),
                     b_level=feat_level.to(torch.int32).contiguous(),
                     b_ur=feat_ur.contiguous(), level_window=level_window)
     best, second, best_idx = gated_hamming_top2(
-        descs.contiguous(), feat_desc.contiguous(), proj.gate_pt[0],
+        descs.contiguous(), feat_desc.contiguous(), proj.gate_pt,
         feat_valid.contiguous(), gate)
-    idx, dist = match_select(best[None], second[None], best_idx[None],
-                             max_dist, ratio=ratio if ratio < 1.0 else None,
-                             n_targets=feat_desc.shape[0])
-    return MatchResult(idx[0], dist[0])
+    idx, dist = match_select(best, second, best_idx, max_dist,
+                             ratio=ratio if ratio < 1.0 else None,
+                             n_targets=feat_desc.shape[-2])
+    return MatchResult(idx[0], dist[0]) if one else MatchResult(idx, dist)

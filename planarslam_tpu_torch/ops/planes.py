@@ -287,6 +287,15 @@ def _valid_depth(depth: torch.Tensor, alpha: torch.Tensor, geo_tol: float,
             & (jump_r < tol) & (jump_d < tol))
 
 
+def _frames(lead: tuple) -> int:
+    """The frame count of a leading batch shape, () for one frame."""
+    f = int(np.prod(lead)) if lead else 1
+    if len(lead) > 1 or not 0 < f <= 65535:
+        raise ValueError(f"one leading dimension of 1 to 65535 frames, got "
+                         f"{lead}")
+    return f
+
+
 def plane_block_moments_plain(depth: torch.Tensor, alpha: torch.Tensor,
                               cam: CameraConfig, geo_tol: float,
                               max_distance: float, block: int) -> _BlockStats:
@@ -299,25 +308,35 @@ def plane_block_moments(depth: torch.Tensor, alpha: torch.Tensor,
                         cam: CameraConfig, geo_tol: float,
                         max_distance: float, block: int) -> _BlockStats:
     """K4 wrapper. depth: (H, W) float32 metres; alpha: () float32 noise
-    scale. Returns per-block (s1 (B, 3), s2 (B, 3, 3), n (B,)) float32 with
-    B = (H // block) * (W // block), blocks in row-major order."""
+    scale. Returns per-block (s1 (nb, 3), s2 (nb, 3, 3), n (nb,)) float32
+    with nb = (H // block) * (W // block), blocks in row-major order. A
+    batch, depth (F, H, W) and alpha (F,), is one launch and gives each
+    output a leading F."""
     if kernels.on_cpu(depth, alpha):
-        return plane_block_moments_plain(depth, alpha, cam, geo_tol,
-                                         max_distance, block)
+        if depth.dim() == 2:
+            return plane_block_moments_plain(depth, alpha, cam, geo_tol,
+                                             max_distance, block)
+        return kernels.per_problem(plane_block_moments_plain, [depth, alpha],
+                                   cam, geo_tol, max_distance, block)
     kernels.check(depth, "depth", torch.float32)
-    if depth.dim() != 2:
-        raise ValueError(f"depth: expected (H, W), got {tuple(depth.shape)}")
+    if depth.dim() not in (2, 3):
+        raise ValueError(f"depth: expected (H, W) or (F, H, W), got "
+                         f"{tuple(depth.shape)}")
     if block & (block - 1):
         raise ValueError(f"block must be a power of two, got {block}")
-    h, w = depth.shape
+    lead = tuple(depth.shape[:-2])
+    f = _frames(lead)
+    h, w = depth.shape[-2:]
+    kernels.check(alpha, "alpha", torch.float32, lead)
     nb = (h // block) * (w // block)
-    coef = (_THREE_SQRT2 * alpha).to(torch.float32).reshape(1)
-    s1 = torch.empty((nb, 3), dtype=torch.float32, device=depth.device)
-    s2 = torch.empty((nb, 3, 3), dtype=torch.float32, device=depth.device)
-    n = torch.empty((nb,), dtype=torch.float32, device=depth.device)
+    coef = (_THREE_SQRT2 * alpha).to(torch.float32)
+    s1 = torch.empty((*lead, nb, 3), dtype=torch.float32, device=depth.device)
+    s2 = torch.empty((*lead, nb, 3, 3), dtype=torch.float32,
+                     device=depth.device)
+    n = torch.empty((*lead, nb), dtype=torch.float32, device=depth.device)
     with torch.cuda.device(depth.device):
         kernels.triton_module().launch(
-            depth, coef, s1, s2, n, float(cam.fx), float(cam.fy),
+            depth, coef, s1, s2, n, f, h, w, float(cam.fx), float(cam.fy),
             float(cam.cx), float(cam.cy), float(max_distance),
             float(geo_tol), block)
     kernels.LAUNCHES["plane_block_moments"] += 1
@@ -475,13 +494,21 @@ def plane_components(stats: _BlockStats, hb: int, wb: int,
     """K12 wrapper. stats: K4's (s1 (B, 3), s2 (B, 3, 3), n (B,)) float32
     over the hb x wb block grid, B = hb * wb in row-major order. Returns
     the P = cfg.max_planes candidate planes with their validity, and every
-    block's component label and validity."""
+    block's component label and validity. Stats of F frames, each field
+    with a leading F, are one launch of F thread blocks, and every output
+    then has the leading F."""
+    lead = tuple(stats.n.shape[:-1])
     if kernels.on_cpu(*stats):
-        return plane_components_plain(stats, hb, wb, cfg)
+        if not lead:
+            return plane_components_plain(stats, hb, wb, cfg)
+        return kernels.per_problem(
+            lambda *t: plane_components_plain(_BlockStats(*t), hb, wb, cfg),
+            list(stats))
     nb, p_cap = hb * wb, cfg.max_planes
-    kernels.check(stats.s1, "s1", torch.float32, (nb, 3))
-    kernels.check(stats.s2, "s2", torch.float32, (nb, 3, 3))
-    kernels.check(stats.n, "n", torch.float32, (nb,))
+    f = _frames(lead)
+    kernels.check(stats.s1, "s1", torch.float32, (*lead, nb, 3))
+    kernels.check(stats.s2, "s2", torch.float32, (*lead, nb, 3, 3))
+    kernels.check(stats.n, "n", torch.float32, (*lead, nb))
     if not 0 < p_cap <= min(MAX_PLANES, nb):
         raise ValueError(f"max_planes must lie in [1, min({MAX_PLANES}, "
                          f"{nb} blocks)], got {p_cap}")
@@ -489,12 +516,13 @@ def plane_components(stats: _BlockStats, hb: int, wb: int,
         raise ValueError(f"{nb} blocks exceed the {MAX_BLOCKS} one thread "
                          f"block holds")
     dev = stats.n.device
-    fit_b = torch.empty((nb, 7), dtype=torch.float32, device=dev)
-    normal_c = torch.empty((p_cap, 3), dtype=torch.float32, device=dev)
-    d_c = torch.empty((p_cap,), dtype=torch.float32, device=dev)
-    cand_valid = torch.empty((p_cap,), dtype=torch.bool, device=dev)
-    labels = torch.empty((nb,), dtype=torch.int32, device=dev)
-    block_valid = torch.empty((nb,), dtype=torch.bool, device=dev)
+    fit_b = torch.empty((f, nb, 7), dtype=torch.float32, device=dev)
+    normal_c = torch.empty((*lead, p_cap, 3), dtype=torch.float32,
+                           device=dev)
+    d_c = torch.empty((*lead, p_cap), dtype=torch.float32, device=dev)
+    cand_valid = torch.empty((*lead, p_cap), dtype=torch.bool, device=dev)
+    labels = torch.empty((*lead, nb), dtype=torch.int32, device=dev)
+    block_valid = torch.empty((*lead, nb), dtype=torch.bool, device=dev)
     block = cfg.block
     with torch.cuda.device(dev):
         kernels.launch(
@@ -505,7 +533,7 @@ def plane_components(stats: _BlockStats, hb: int, wb: int,
             math.cos(math.radians(cfg.angle_threshold_deg * 2.0)),
             float(cfg.distance_threshold),
             float(min(cfg.min_size, 3 * block * block)),
-            float(cfg.assoc_angle), 2.0 * cfg.assoc_dist,
+            float(cfg.assoc_angle), 2.0 * cfg.assoc_dist, f,
             kernels.ptr(fit_b), kernels.ptr(normal_c), kernels.ptr(d_c),
             kernels.ptr(cand_valid), kernels.ptr(labels),
             kernels.ptr(block_valid))
@@ -592,31 +620,35 @@ def plane_assign_refit_plain(depth: torch.Tensor, alpha: torch.Tensor,
 
 
 def _check_pixel_args(depth, alpha, normal, d, valid, fit) -> int:
-    """Validate what K13 and K14 share; returns P."""
+    """Validate what K13 and K14 share (one frame, or F frames with every
+    tensor led by F); returns P."""
     kernels.check(depth, "depth", torch.float32)
-    if depth.dim() != 2:
-        raise ValueError(f"depth: expected (H, W), got {tuple(depth.shape)}")
-    kernels.check(alpha, "alpha", torch.float32, ())
-    if normal.dim() != 2:
-        raise ValueError(f"normal: expected (P, 3), got "
+    if depth.dim() not in (2, 3):
+        raise ValueError(f"depth: expected (H, W) or (F, H, W), got "
+                         f"{tuple(depth.shape)}")
+    lead = tuple(depth.shape[:-2])
+    _frames(lead)
+    kernels.check(alpha, "alpha", torch.float32, lead)
+    if normal.dim() != len(lead) + 2:
+        raise ValueError(f"normal: expected {lead} + (P, 3), got "
                          f"{tuple(normal.shape)}")
-    p_cap = normal.shape[0]
+    p_cap = normal.shape[-2]
     if not 0 < p_cap <= MAX_PLANES:
         raise ValueError(f"1 to {MAX_PLANES} planes, got {p_cap}")
-    kernels.check(normal, "normal", torch.float32, (p_cap, 3))
-    kernels.check(d, "d", torch.float32, (p_cap,))
-    kernels.check(valid, "valid", torch.bool, (p_cap,))
+    kernels.check(normal, "normal", torch.float32, (*lead, p_cap, 3))
+    kernels.check(d, "d", torch.float32, (*lead, p_cap))
+    kernels.check(valid, "valid", torch.bool, (*lead, p_cap))
     if fit is not None:
-        kernels.check(fit[0], "mse", torch.float32, (p_cap,))
-        kernels.check(fit[1], "mean", torch.float32, (p_cap, 3))
-        kernels.check(fit[2], "n", torch.float32, (p_cap,))
+        kernels.check(fit[0], "mse", torch.float32, (*lead, p_cap))
+        kernels.check(fit[1], "mean", torch.float32, (*lead, p_cap, 3))
+        kernels.check(fit[2], "n", torch.float32, (*lead, p_cap))
     return p_cap
 
 
 def _pixel_scalars(depth, cam: CameraConfig, cfg: PlaneConfig):
     """The float arguments K13 and K14 share, after the image size."""
     return (float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
-            _geo_tol(depth.shape[1]), float(cfg.max_distance),
+            _geo_tol(depth.shape[-1]), float(cfg.max_distance),
             float(cfg.distance_threshold), _THREE_SQRT2)
 
 
@@ -631,22 +663,31 @@ def plane_assign_refit(depth: torch.Tensor, alpha: torch.Tensor,
     scale; normal (P, 3), d (P,), valid (P,) bool: the planes to assign to;
     fit: None in round 1, else the ``(mse (P,), mean (P, 3), n (P,))`` of
     the refit the planes came from (a refine round). Everything stays on
-    the device: a round's result feeds the next without a host sync."""
-    tensors = (depth, alpha, normal, d, valid) + tuple(fit or ())
+    the device: a round's result feeds the next without a host sync. F
+    frames, every tensor with a leading F, are one call (its two kernels
+    launched once each), and every output then has the leading F."""
+    tensors = [depth, alpha, normal, d, valid] + list(fit or ())
     if kernels.on_cpu(*tensors):
-        return plane_assign_refit_plain(depth, alpha, cam, cfg, normal, d,
-                                        valid, fit)
+        if depth.dim() == 2:
+            return plane_assign_refit_plain(depth, alpha, cam, cfg, normal,
+                                            d, valid, fit)
+        return kernels.per_problem(
+            lambda dp, a, nm, dd, v, *ft: plane_assign_refit_plain(
+                dp, a, cam, cfg, nm, dd, v, ft or None), tensors)
     p_cap = _check_pixel_args(depth, alpha, normal, d, valid, fit)
     rs = max(1, int(cfg.refine_stride))
-    h, w = depth.shape
+    lead = tuple(depth.shape[:-2])
+    f = _frames(lead)
+    h, w = depth.shape[-2:]
     n_sub = -(-h // rs) * -(-w // rs)
     dev = depth.device
 
     def empty(shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
+        return torch.empty((*lead, *shape), dtype=dtype, device=dev)
 
     n_part = -(-n_sub // ASSIGN_PIXELS_PER_BLOCK)
-    partial = empty((n_part, p_cap, 10), torch.float64)
+    partial = torch.empty((f, n_part, p_cap, 10), dtype=torch.float64,
+                          device=dev)
     out = PlaneRefit(empty((n_sub,), torch.int32), empty((p_cap, 3)),
                      empty((p_cap,)), empty((p_cap,)), empty((p_cap, 3)),
                      empty((p_cap,)), empty((p_cap,), torch.bool))
@@ -656,7 +697,7 @@ def plane_assign_refit(depth: torch.Tensor, alpha: torch.Tensor,
             "psl_plane_assign_refit", kernels.ptr(depth), kernels.ptr(alpha),
             h, w, rs, *_pixel_scalars(depth, cam, cfg), p_cap,
             kernels.ptr(normal), kernels.ptr(d), kernels.ptr(valid),
-            *fit_ptrs, ASSIGN_PIXELS_PER_BLOCK, kernels.ptr(partial),
+            *fit_ptrs, ASSIGN_PIXELS_PER_BLOCK, f, kernels.ptr(partial),
             *[kernels.ptr(t) for t in out])
     kernels.LAUNCHES["plane_assign_refit"] += 1
     return out
@@ -701,28 +742,36 @@ def plane_label_pixels(depth: torch.Tensor, alpha: torch.Tensor,
                        fit: PlaneRefit) -> PlaneFeatures:
     """K14 wrapper. depth: (H, W) float32; alpha: () float32; fit: the last
     round's PlaneRefit (its label_sub is read only with refine_stride 1,
-    where it must hold H * W labels)."""
+    where it must hold H * W labels). F frames, every tensor with a leading
+    F, are one launch, and every output then has the leading F."""
     if kernels.on_cpu(depth, alpha, *fit):
-        return plane_label_pixels_plain(depth, alpha, cam, cfg, fit)
+        if depth.dim() == 2:
+            return plane_label_pixels_plain(depth, alpha, cam, cfg, fit)
+        return kernels.per_problem(
+            lambda dp, a, *ft: plane_label_pixels_plain(
+                dp, a, cam, cfg, PlaneRefit(*ft)), [depth, alpha, *fit])
     p_cap = _check_pixel_args(depth, alpha, fit.normal, fit.d, fit.alive,
                               (fit.mse, fit.mean, fit.n))
-    h, w = depth.shape
+    lead = tuple(depth.shape[:-2])
+    f = _frames(lead)
+    h, w = depth.shape[-2:]
     dev = depth.device
     label_in = None
     if max(1, int(cfg.refine_stride)) == 1:
-        kernels.check(fit.label_sub, "label_sub", torch.int32, (h * w,))
+        kernels.check(fit.label_sub, "label_sub", torch.int32,
+                      (*lead, h * w))
         label_in = kernels.ptr(fit.label_sub)
-    coeffs = torch.empty((p_cap, 4), dtype=torch.float32, device=dev)
-    valid = torch.empty((p_cap,), dtype=torch.bool, device=dev)
-    count = torch.empty((p_cap,), dtype=torch.int32, device=dev)
-    pixel_label = torch.empty((h, w), dtype=torch.int32, device=dev)
+    coeffs = torch.empty((*lead, p_cap, 4), dtype=torch.float32, device=dev)
+    valid = torch.empty((*lead, p_cap), dtype=torch.bool, device=dev)
+    count = torch.empty((*lead, p_cap), dtype=torch.int32, device=dev)
+    pixel_label = torch.empty((*lead, h, w), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         kernels.launch(
             "psl_plane_label_pixels", kernels.ptr(depth), kernels.ptr(alpha),
             h, w, *_pixel_scalars(depth, cam, cfg), p_cap,
             kernels.ptr(fit.normal), kernels.ptr(fit.d),
             kernels.ptr(fit.alive), kernels.ptr(fit.mse),
-            kernels.ptr(fit.mean), kernels.ptr(fit.n), int(cfg.min_size),
+            kernels.ptr(fit.mean), kernels.ptr(fit.n), int(cfg.min_size), f,
             label_in, kernels.ptr(coeffs), kernels.ptr(valid),
             kernels.ptr(count), kernels.ptr(pixel_label))
     kernels.LAUNCHES["plane_label_pixels"] += 1
@@ -735,8 +784,10 @@ def extract_planes(depth: torch.Tensor, cam: CameraConfig,
                    cfg: PlaneConfig) -> PlaneFeatures:
     """Full plane segmentation for one frame (PEAC-equivalent): the noise
     scale, K4's block moments, K12's candidates, 1 + refine_rounds K13
-    rounds and K14's labels, with no host sync between them."""
-    h, w = depth.shape
+    rounds and K14's labels, with no host sync between them. depth (H, W),
+    or F frames (F, H, W) with one launch of each kernel for all of them
+    (every output then has the leading F)."""
+    h, w = depth.shape[-2:]
     alpha = _noise_alpha(depth, cfg.max_distance)
     stats = plane_block_moments(depth, alpha, cam, _geo_tol(w),
                                 cfg.max_distance, cfg.block)

@@ -19,9 +19,21 @@ solve with ``lax.cond``; here the branch is a device-side mask: one
 ``pose_optimize`` call whose ``rotation_fixed`` is the bool tensor
 ``use_manh`` (see ``solvers/pose_opt.py``).
 
+Every input of the step carries a leading batch dimension B: B
+independent lanes (sequences) step together, one launch of each kernel for
+all of them, as ``jax.vmap`` of the JAX step does
+(``planarslam_tpu/parallel/replay.py``). Streaming tracking is the same
+step at B = 1.
+
 The previous frame's features and landmarks stay on the device between
 frames (``LastState``). The host reads the packed bundle ``pipeline_depth``
 frames later (``Tracking``).
+
+K36 ``step_prelude`` (``csrc/step_prelude.cu``, plain version
+``step_prelude_plain``) is the prelude between extraction and K15: the
+override and velocity selections, the predicted pose, the line directions
+and the Manhattan prediction; K15's epilogue then forms the initial pose
+(``ops/manhattan.py::init_select_plain``).
 
 K30 ``_associate_planes_device`` (plain version ``_associate_planes_plain``)
 and K31 ``finish_step`` (plain version ``finish_step_plain``) are in
@@ -171,11 +183,11 @@ def to_gray_depth(gray_raw: torch.Tensor, depth_raw: torch.Tensor,
 
 
 def unpack_frame(frame_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(3, H, W) uint8 [gray, depth_lo, depth_hi] -> (gray uint8, depth as
-    int32 holding the uint16 value)."""
-    lo = frame_u8[1].to(torch.int32)
-    hi = frame_u8[2].to(torch.int32)
-    return frame_u8[0], torch.bitwise_or(lo, torch.bitwise_left_shift(hi, 8))
+    """(..., 3, H, W) uint8 [gray, depth_lo, depth_hi] -> (gray uint8, depth
+    as int32 holding the uint16 value), each (..., H, W)."""
+    gray, lo, hi = frame_u8.unbind(-3)
+    return gray, torch.bitwise_or(lo.to(torch.int32), torch.bitwise_left_shift(
+        hi.to(torch.int32), 8))
 
 
 def pack_frame(gray: np.ndarray, depth: np.ndarray):
@@ -349,6 +361,10 @@ def fused_track_step(gray: torch.Tensor, depth: torch.Tensor,
                      last: LastState, win_flat: torch.Tensor,
                      weights: pose_opt.PoseOptWeights,
                      cfg: SystemConfig) -> StepResult:
+    """B lanes' tracking step: gray, depth (B, H, W) (uint8 / uint16-as-
+    int32 sensor values or float32), T_override (B, 4, 4), use_override
+    (B,) bool, R_wm (B, 3, 3), manh_enabled (B,) bool, the carried state
+    and the packed windows (B, S), each with the leading B."""
     gray, depth = to_gray_depth(gray, depth, cfg)
     feats = extract_frame(gray, depth, cfg)
     return _track_core(feats, T_override, use_override, R_wm, manh_enabled,
@@ -358,16 +374,10 @@ def fused_track_step(gray: torch.Tensor, depth: torch.Tensor,
 def fused_track_step_packed(frame_u8: torch.Tensor, T_override, use_override,
                             R_wm, manh_enabled, last: LastState, win_flat,
                             weights, cfg: SystemConfig) -> StepResult:
-    """fused_track_step over one packed (3, H, W) uint8 sensor upload."""
+    """fused_track_step over packed (B, 3, H, W) uint8 sensor frames."""
     gray, depth16 = unpack_frame(frame_u8)
     return fused_track_step(gray, depth16, T_override, use_override, R_wm,
                             manh_enabled, last, win_flat, weights, cfg)
-
-
-def _with_rotation(T: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
-    out = T.clone()
-    out[:3, :3] = R
-    return out
 
 
 def _in_view(T, pts, K, cam) -> torch.Tensor:
@@ -544,91 +554,179 @@ def finish_step(t: StepTail, cfg: SystemConfig) -> StepOut:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K36: the step's prelude
+
+
+class Prelude(NamedTuple):
+    """K36's outputs (every field with the lanes' leading B)."""
+
+    T_last: torch.Tensor      # (4, 4) the previous pose, override applied
+    T_pred: torch.Tensor      # (4, 4) velocity @ T_last
+    dirs: torch.Tensor        # (Nn + L, 3) normals, then line directions
+    dirs_valid: torch.Tensor  # (Nn + L,) bool
+    R_init: torch.Tensor      # (3, 3) T_pred[:3, :3] @ R_wm
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a b + c rounded once to float32: the product of two float32 values is
+    exact in float64, so the float64 sum rounded to float32 is the fused
+    multiply-add (K36 computes it the same way)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _mat4_cublas(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B of (..., 4, 4) float32 in the order the library's product takes
+    on the card: fma(a1, b1, a0 b0) + fma(a3, b3, a2 b2)."""
+    a = [A[..., :, k:k + 1] for k in range(4)]
+    b = [B[..., k:k + 1, :] for k in range(4)]
+    return (_fma(a[1], b[1], a[0] * b[0]) + _fma(a[3], b[3], a[2] * b[2]))
+
+
+def _mat3_cublas(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B of (..., 3, 3) float32, A a 4 x 4's corner, in the order the
+    library's product takes on the card: fma(a1, b1, a0 b0) + a2 b2."""
+    a = [A[..., :, k:k + 1] for k in range(3)]
+    b = [B[..., k:k + 1, :] for k in range(3)]
+    return _fma(a[1], b[1], a[0] * b[0]) + a[2] * b[2]
+
+
+def step_prelude_plain(T_override, use_override, T_cw, velocity, p3d_s,
+                       p3d_e, has_3d, ln_valid, normals, normals_valid,
+                       R_wm) -> Prelude:
+    """Plain version of K36 (every input with a leading B): the override
+    and velocity selections, T_pred = velocity @ T_last, the line
+    directions (valid when lifted, valid and longer than 0.1 m) after the
+    normals, and R_init = T_pred[:3, :3] @ R_wm. Each product, sum, norm
+    and division is spelled in the float form the step's PyTorch ops took
+    on the card before K36 (measured on an H100: the 4 x 4 and 3 x 3 matrix
+    products above, |v| = sqrt((v0^2 + v2^2) + v1^2), IEEE division), so
+    the tracking step keeps its bits."""
+    over = use_override[:, None, None]
+    T_last = torch.where(over, T_override, T_cw)
+    eye = torch.eye(4, dtype=torch.float32, device=T_cw.device)
+    T_pred = _mat4_cublas(torch.where(over, eye, velocity), T_last)
+    v = (p3d_e - p3d_s).unbind(-1)
+    ln_len = torch.sqrt((v[0] * v[0] + v[2] * v[2]) + v[1] * v[1])
+    den = torch.clamp(ln_len, min=1e-9)
+    ln_dir = torch.stack([c / den for c in v], dim=-1)
+    ln_ok = has_3d & ln_valid & (ln_len > 0.1)
+    return Prelude(T_last, T_pred, torch.cat([normals, ln_dir], dim=1),
+                   torch.cat([normals_valid, ln_ok], dim=1),
+                   _mat3_cublas(T_pred[:, :3, :3], R_wm))
+
+
+@record_function("device_tracker.step_prelude")
+def step_prelude(T_override, use_override, T_cw, velocity, p3d_s, p3d_e,
+                 has_3d, ln_valid, normals, normals_valid, R_wm) -> Prelude:
+    """K36 wrapper: B lanes, T_override, T_cw, velocity (B, 4, 4) float32,
+    use_override (B,) bool, the frame lines' p3d_s, p3d_e (B, L, 3) float32
+    and has_3d, ln_valid (B, L) bool, normals (B, Nn, 3) float32,
+    normals_valid (B, Nn) bool, R_wm (B, 3, 3) float32. Returns Prelude."""
+    tensors = [T_override, use_override, T_cw, velocity, p3d_s, p3d_e,
+               has_3d, ln_valid, normals, normals_valid, R_wm]
+    if kernels.on_cpu(*tensors):
+        return step_prelude_plain(*tensors)
+    (T_override, use_override, T_cw, velocity, p3d_s, p3d_e, has_3d,
+     ln_valid, normals, normals_valid, R_wm) = [t.contiguous()
+                                                for t in tensors]
+    b, n_l = ln_valid.shape
+    nn = normals_valid.shape[1]
+    for t, name, dtype, shape in (
+            (T_override, "T_override", torch.float32, (4, 4)),
+            (use_override, "use_override", torch.bool, ()),
+            (T_cw, "T_cw", torch.float32, (4, 4)),
+            (velocity, "velocity", torch.float32, (4, 4)),
+            (p3d_s, "p3d_s", torch.float32, (n_l, 3)),
+            (p3d_e, "p3d_e", torch.float32, (n_l, 3)),
+            (has_3d, "has_3d", torch.bool, (n_l,)),
+            (normals, "normals", torch.float32, (nn, 3)),
+            (normals_valid, "normals_valid", torch.bool, (nn,)),
+            (R_wm, "R_wm", torch.float32, (3, 3))):
+        kernels.check(t, name, dtype, (b, *shape))
+    dev = T_cw.device
+    out = Prelude(T_last=_empty((b, 4, 4), torch.float32, dev),
+                  T_pred=_empty((b, 4, 4), torch.float32, dev),
+                  dirs=_empty((b, nn + n_l, 3), torch.float32, dev),
+                  dirs_valid=_empty((b, nn + n_l), torch.bool, dev),
+                  R_init=_empty((b, 3, 3), torch.float32, dev))
+    with torch.cuda.device(dev):
+        kernels.launch("psl_step_prelude",
+                       *[kernels.ptr(t) for t in tensors[:8]], n_l,
+                       kernels.ptr(normals), kernels.ptr(normals_valid), nn,
+                       kernels.ptr(R_wm), b, *[kernels.ptr(t) for t in out])
+    kernels.LAUNCHES["step_prelude"] += 1
+    return out
+
+
 def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
                 manh_enabled, last: LastState, win_flat: torch.Tensor,
                 weights: pose_opt.PoseOptWeights,
                 cfg: SystemConfig) -> StepResult:
-    """Everything after extraction: Manhattan tracking, matching, plane
-    association, pose optimization, bundle packing."""
+    """Everything after extraction, for B lanes (every input with a
+    leading B): Manhattan tracking, matching, plane association, pose
+    optimization, bundle packing. One launch of each kernel serves all
+    lanes."""
     win = unpack_window(win_flat, cfg)
     dev = win_flat.device
     cam = cfg.camera
     K = (cam.fx, cam.fy, cam.cx, cam.cy)
     wh = (float(cam.width), float(cam.height))
-    with record_function("device_tracker.predict"):
-        eye4 = torch.eye(4, dtype=torch.float32, device=dev)
+    ln = feats.lines
 
-        T_last = torch.where(use_override, T_override, last.T_cw)
-        velocity = torch.where(use_override, eye4, last.velocity)
-        T_pred = velocity @ T_last
-
-        # ---- Manhattan rotation tracking (normals + line directions) ----------
-        ln_vec = feats.lines.p3d_e - feats.lines.p3d_s
-        ln_len = torch.linalg.norm(ln_vec, dim=-1, keepdim=True)
-        ln_dir = ln_vec / torch.clamp(ln_len, min=1e-9)
-        ln_dir_ok = feats.lines.has_3d & feats.lines.valid & (ln_len[:, 0] > 0.1)
+    # ---- prediction and Manhattan rotation tracking (K36, K15) ----------
+    pre = step_prelude(T_override, use_override, last.T_cw, last.velocity,
+                       ln.p3d_s, ln.p3d_e, ln.has_3d, ln.valid, feats.normals,
+                       feats.normals_valid, R_wm)
     manh = manhattan_ops.track_manhattan_frame(
-        T_pred[:3, :3] @ R_wm,
-        torch.cat([feats.normals, ln_dir], dim=0),
-        torch.cat([feats.normals_valid, ln_dir_ok], dim=0),
+        pre.R_init, pre.dirs, pre.dirs_valid,
         cone_sin=cfg.manhattan.cone_sin_track,
         kernel=cfg.manhattan.mean_shift_kernel,
-        min_support=cfg.manhattan.min_axis_support)
-    use_manh = manh_enabled & manh.success
-    T_init = torch.where(use_manh, _with_rotation(T_pred, manh.R_cm @ R_wm.T),
-                         T_pred)
+        min_support=cfg.manhattan.min_axis_support,
+        init=manhattan_ops.InitSelect(pre.T_pred, R_wm, manh_enabled))
+    use_manh, T_init = manh.use_manh, manh.T_init
 
     # ---- frame-to-frame matching ----------------------------------------
     pts = feats.points
+    last_pts = last.feats.points
     proj = matching.search_by_projection(
-        last.pt3d_w, last.feats.points.desc, last.valid3d, T_init,
+        last.pt3d_w, last_pts.desc, last.valid3d, T_init,
         pts.uv, pts.desc, pts.level, pts.valid, pts.u_right,
         K=K, image_wh=wh, bf=cam.bf, scale_factor=cfg.orb.scale_factor,
         radius=15.0, max_dist=cfg.matcher.th_high,
         level_window=cfg.orb.n_levels)
     bf_res = matching.match_descriptors(
-        last.feats.points.desc, pts.desc, last.valid3d, pts.valid,
+        last_pts.desc, pts.desc, last.valid3d, pts.valid,
         max_dist=cfg.matcher.th_low, ratio=0.9)
     inv_s2 = matching.level_inv_sigma2(cfg.orb.scale_factor,
                                        cfg.orb.n_levels, dev)
-
-    with record_function("device_tracker.point_observations"):
-        # the brute-force fallback below MIN_PROJ_MATCHES projection
-        # matches, the rotation histogram and obs1's gathers (K26)
-        fm = matching.frame_match_select(
-            proj.idx[None], bf_res.idx[None], last.feats.points.angle[None],
-            pts.angle[None], pts.uv[None], pts.u_right[None],
-            pts.level[None], inv_s2)
-        ff_idx = fm.ff_idx[0]
-        obs1 = pose_opt.PointObs(xw=last.pt3d_w, uv=fm.uv[0],
-                                 u_right=fm.u_right[0],
-                                 inv_sigma2=fm.inv_sigma2[0],
-                                 valid=fm.valid[0])
+    # the brute-force fallback below MIN_PROJ_MATCHES projection matches,
+    # the rotation histogram and obs1's gathers (K26)
+    fm = matching.frame_match_select(
+        proj.idx, bf_res.idx, last_pts.angle, pts.angle, pts.uv, pts.u_right,
+        pts.level, inv_s2)
+    obs1 = pose_opt.PointObs(xw=last.pt3d_w, uv=fm.uv, u_right=fm.u_right,
+                             inv_sigma2=fm.inv_sigma2, valid=fm.valid)
 
     # ---- line + plane association at the predicted pose -------------------
     lm_idx, _ = search_lines_by_projection(
         win.ln_sw, win.ln_ew, win.ln_desc, win.ln_valid, T_init,
-        feats.lines.uv_s, feats.lines.uv_e, feats.lines.angle,
-        feats.lines.desc, feats.lines.valid, K=K, image_wh=wh, radius=14.0)
-    with record_function("device_tracker.line_observations"):
-        la = matching.assemble_line_obs(lm_idx[None], win.ln_sw[None],
-                                        win.ln_ew[None],
-                                        feats.lines.valid[None])
-        ln_slot = la.ln_slot[0]
-        line_obs = pose_opt.LineObs(
-            xw_s=la.xw_s[0], xw_e=la.xw_e[0], line2d=feats.lines.line2d,
-            inv_sigma2=la.inv_sigma2[0], valid=la.valid[0])
+        ln.uv_s, ln.uv_e, ln.angle, ln.desc, ln.valid, K=K, image_wh=wh,
+        radius=14.0)
+    la = matching.assemble_line_obs(lm_idx, win.ln_sw, win.ln_ew, ln.valid)
+    line_obs = pose_opt.LineObs(xw_s=la.xw_s, xw_e=la.xw_e,
+                                line2d=ln.line2d, inv_sigma2=la.inv_sigma2,
+                                valid=la.valid)
 
     # plane association at the predicted pose, with the three plane
     # observation blocks of the pose solver (K30)
     assoc = _associate_planes_device(
-        feats.planes.coeffs[None], feats.planes.valid[None], T_init[None],
-        win.pl_coeffs[None], win.pl_cloud[None], win.pl_cloud_n[None],
-        win.pl_valid[None], cfg.planes)
+        feats.planes.coeffs, feats.planes.valid, T_init, win.pl_coeffs,
+        win.pl_cloud, win.pl_cloud_n, win.pl_valid, cfg.planes)
     pl_obs, par_obs, ver_obs = (
-        pose_opt.PlaneObs(pi_w=assoc.obs_pi_w[0, k],
+        pose_opt.PlaneObs(pi_w=assoc.obs_pi_w[:, k],
                           pi_obs=feats.planes.coeffs,
-                          valid=assoc.obs_valid[0, k]) for k in range(3))
+                          valid=assoc.obs_valid[:, k]) for k in range(3))
 
     # rotation-frozen solve where the Manhattan frame tracked, full pose
     # otherwise: one solve, the branch is the device-side mask use_manh
@@ -637,7 +735,7 @@ def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
                                   par_planes=par_obs, ver_planes=ver_obs,
                                   weights=weights, rotation_fixed=use_manh)
     enough1 = res1.n_point_inliers >= cfg.tracking.min_matches_track
-    T1 = torch.where(enough1, res1.T_cw, T_init)
+    T1 = torch.where(enough1[:, None, None], res1.T_cw, T_init)
 
     # ---- local-map point matching ---------------------------------------
     win_res = matching.search_by_projection(
@@ -647,19 +745,12 @@ def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
         radius=4.0, max_dist=cfg.matcher.th_high,
         view_normals=win.pt_normal,
         dist_range=(win.pt_min_d, win.pt_max_d), level_window=1)
-    with record_function("device_tracker.map_observations"):
-        # window matches first, the frame-to-frame landmarks fill the rest
-        # (K27)
-        pa = matching.assemble_point_obs(
-            win_res.idx[None], ff_idx[None], last.pt3d_w[None],
-            win.pt_xyz[None], pts.valid[None], pts.u_right[None],
-            pts.level[None], inv_s2)
-        feat_slot = pa.feat_slot[0]
-        obs2_valid = pa.valid[0]
-        obs2 = pose_opt.PointObs(xw=pa.xw[0], uv=pts.uv,
-                                 u_right=pa.u_right[0],
-                                 inv_sigma2=pa.inv_sigma2[0],
-                                 valid=obs2_valid)
+    # window matches first, the frame-to-frame landmarks fill the rest (K27)
+    pa = matching.assemble_point_obs(
+        win_res.idx, fm.ff_idx, last.pt3d_w, win.pt_xyz, pts.valid,
+        pts.u_right, pts.level, inv_s2)
+    obs2 = pose_opt.PointObs(xw=pa.xw, uv=pts.uv, u_right=pa.u_right,
+                             inv_sigma2=pa.inv_sigma2, valid=pa.valid)
 
     # ---- final full pose optimization ------------------------------------
     res2 = pose_opt.pose_optimize(T1, K, cam.bf, points=obs2, lines=line_obs,
@@ -669,21 +760,55 @@ def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
 
     # the final pose, the window flags, the keyframe counts, the packed
     # bundle and the carried state (K31)
-    tail = StepTail(
+    out = finish_step(StepTail(
         T_cand=res2.T_cw, n_in2=res2.n_point_inliers, T1=T1,
-        n_in1=res1.n_point_inliers, T_last=T_last, R_cm=manh.R_cm,
-        manh_success=manh.success, use_manh=use_manh, ff_idx=ff_idx,
-        feat_slot=feat_slot, inl=res2.point_inlier, obs2_valid=obs2_valid,
+        n_in1=res1.n_point_inliers, T_last=pre.T_last, R_cm=manh.R_cm,
+        manh_success=manh.success, use_manh=use_manh, ff_idx=fm.ff_idx,
+        feat_slot=pa.feat_slot, inl=res2.point_inlier, obs2_valid=pa.valid,
         pt_uv=pts.uv, pt_depth=pts.depth, pt_valid=pts.valid,
         win_idx=win_res.idx, win_xyz=win.pt_xyz, win_valid=win.pt_valid,
         lm_idx=lm_idx, ln_sw=win.ln_sw, ln_ew=win.ln_ew,
-        ln_valid=win.ln_valid, ln_slot=ln_slot, pl_direct=assoc.direct[0],
-        pl_par=assoc.par[0], pl_ver=assoc.ver[0],
-        pl_coeffs=feats.planes.coeffs, pl_valid=feats.planes.valid)
-    out = finish_step(StepTail(*[x[None] for x in tail]), cfg)
-    return StepResult(packed=out.packed[0], new_state=LastState(
-        feats=feats, pt3d_w=out.pt3d_w[0], valid3d=out.valid3d[0],
-        T_cw=out.T_out[0], velocity=out.velocity[0]))
+        ln_valid=win.ln_valid, ln_slot=la.ln_slot, pl_direct=assoc.direct,
+        pl_par=assoc.par, pl_ver=assoc.ver, pl_coeffs=feats.planes.coeffs,
+        pl_valid=feats.planes.valid), cfg)
+    return StepResult(packed=out.packed, new_state=LastState(
+        feats=feats, pt3d_w=out.pt3d_w, valid3d=out.valid3d,
+        T_cw=out.T_out, velocity=out.velocity))
+
+
+# ---------------------------------------------------------------------------
+# stacked lanes: the carried state of B lanes
+
+
+def state_leaves(state: LastState) -> list:
+    """The tensors of a LastState, in a fixed order."""
+    return _flatten(state.feats) + [state.pt3d_w, state.valid3d, state.T_cw,
+                                    state.velocity]
+
+
+def state_of_leaves(leaves: list) -> LastState:
+    n = len(leaves) - 4
+    return LastState(_unflatten(leaves[:n]), *leaves[n:])
+
+
+def lanes(state: LastState) -> LastState:
+    """One lane's unbatched LastState as a B = 1 stack (views)."""
+    return state_of_leaves([t[None] for t in state_leaves(state)])
+
+
+def stack_states(states: list) -> LastState:
+    """B-lane stacks (each a LastState with a leading lane dimension) into
+    one, lanes in order: one concatenation per leaf."""
+    return state_of_leaves([torch.cat(ts) for ts in zip(
+        *[state_leaves(s) for s in states])])
+
+
+def insert_lane(stack: LastState, state: LastState, lane: int) -> None:
+    """Write a B = 1 stack into lane `lane` of `stack`, in place: one
+    device-to-device copy per leaf (the lanes of a stack are not views of
+    one buffer, since the step's kernels write each leaf apart)."""
+    for dst, src in zip(state_leaves(stack), state_leaves(state)):
+        dst[lane:lane + 1].copy_(src)
 
 
 # ---------------------------------------------------------------------------
@@ -779,6 +904,12 @@ def pack_feats(feats: FrameFeatures) -> torch.Tensor:
     return torch.cat([_f32_bits(a) for a in _flatten(feats)])
 
 
+def pack_feats_slice(feats_stack: FrameFeatures, lane: int) -> torch.Tensor:
+    """pack_feats of lane `lane` of stacked (B, ...) features: the keyframe
+    feature pull of a lane of a batched step."""
+    return pack_feats(_unflatten([x[lane] for x in _flatten(feats_stack)]))
+
+
 def feats_to_numpy(feats: FrameFeatures) -> FrameFeatures:
     """Device FrameFeatures -> numpy (descriptors as uint32)."""
     out = _unflatten([a.cpu().numpy() for a in _flatten(feats)])
@@ -832,7 +963,8 @@ def build_window_host(slam_map, kf_ids: np.ndarray, cfg: SystemConfig):
 
 @record_function("device_tracker.unpack_window")
 def unpack_window(flat: torch.Tensor, cfg: SystemConfig) -> DeviceWindow:
-    """Views into build_window's packed buffer."""
+    """Views into build_window's packed buffer (S,), or into B lanes'
+    windows (B, S), every field then with the leading B."""
     W, Wl = WIN_PTS, WIN_LNS
     Mp = cfg.map.max_planes
     ld = cfg.lines.desc_dim
@@ -843,9 +975,10 @@ def unpack_window(flat: torch.Tensor, cfg: SystemConfig) -> DeviceWindow:
     ]
     fields = []
     off = 0
+    lead = flat.shape[:-1]
     for shp in shapes:
         n = int(np.prod(shp))
-        fields.append(flat[off:off + n].reshape(shp))
+        fields.append(flat[..., off:off + n].reshape(*lead, *shp))
         off += n
     (pt_xyz, pt_desc_f, pt_normal, pt_min_d, pt_max_d, pt_valid_f,
      ln_sw, ln_ew, ln_desc, ln_valid_f,

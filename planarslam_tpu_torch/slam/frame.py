@@ -2,8 +2,8 @@
 
 Port of ``planarslam_tpu/slam/frame.py``. The JAX module fuses the four
 extractions into one XLA program; here they are issued in order on the
-current CUDA stream (no host sync between them). Returns fixed-capacity
-feature blocks.
+current CUDA stream (no host sync between them), for one frame or for a
+batch of frames with a leading B. Returns fixed-capacity feature blocks.
 """
 
 from __future__ import annotations
@@ -40,7 +40,9 @@ def _normal_stride(cfg: SystemConfig) -> int:
 
 def extract_frame(gray: torch.Tensor, depth: torch.Tensor,
                   cfg: SystemConfig) -> FrameFeatures:
-    """gray: (H, W) float32 in [0, 255]; depth: (H, W) float32 metres."""
+    """gray: (H, W) float32 in [0, 255]; depth: (H, W) float32 metres; or
+    B frames (B, H, W), every feature block then with a leading B (one
+    launch of each kernel for all frames)."""
     pts = extract_point_features(gray, depth, cfg.camera, cfg.orb)
     lns = line_ops.extract_line_features(gray, depth, cfg.camera, cfg.lines)
     # planes read the raw depth; normals read an edge-preserving smoothed one

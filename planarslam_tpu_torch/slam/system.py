@@ -85,6 +85,25 @@ class System:
 
     TrackRGBD = track_rgbd
 
+    def submit_fused_result(self, result, timestamp: float,
+                            state_stack=None, lane: int = 0) -> np.ndarray:
+        """Batched-replay entry (parallel/replay.py): apply one lane of an
+        externally computed batched step (its bundle already on the host,
+        the carried state stacked on the device) and run the back-end
+        stages of track_rgbd. Returns T_cw."""
+        n_kf_before = self.map.n_kf
+        tr = self.tracker
+        tr.frame_id += 1
+        tr.stats["frames"] += 1
+        ok = tr.submit_fused_result(result, timestamp,
+                                    state_stack=state_stack, lane=lane)
+        if not ok:
+            tr.stats["lost"] += 1
+            tr.state = TrackingState.LOST
+            tr._flag_reset_if_young()
+        self._post_track(n_kf_before)
+        return tr.T_cw.copy()
+
     def _post_track(self, n_kf_before: int) -> None:
         """Backend stages after one tracked frame: retrieval DB, local
         mapping, slot compaction, auto-reset when lost with a young map."""

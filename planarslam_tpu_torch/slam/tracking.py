@@ -90,6 +90,16 @@ class _HostPull:
         return self.host.numpy()
 
 
+class _Pulled:
+    """A bundle already on the host (a lane's row of a batched pull)."""
+
+    def __init__(self, a: np.ndarray):
+        self.host = a
+
+    def result(self) -> np.ndarray:
+        return self.host
+
+
 def _upload(a: np.ndarray, device) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(a))
     if torch.device(device).type == "cuda":
@@ -272,9 +282,9 @@ class Tracking:
         self.records.append(FrameRecord(timestamp,
                                         np.eye(4, dtype=np.float32), kf,
                                         False))
-        self._fused_state = dt._state_from(
+        self._fused_state = dt.lanes(dt._state_from(
             feats_dev, self._dev(self.T_cw), self._dev(self.velocity),
-            self.cfg)
+            self.cfg))
         self._window_dirty = True
         self._pending = []
         self._pose_override = None
@@ -310,7 +320,7 @@ class Tracking:
                                            if self.map.kf_valid[i])))
         flat, self._win_pt_ids, self._win_ln_ids = dt.build_window_host(
             self.map, kf_ids, self.cfg)
-        self._window = _upload(flat, self.device)
+        self._window = _upload(flat[None], self.device)
         self._win_kf_ids = np.asarray(kf_ids, np.int64)
         self._win_pt_gen = self.map.pt_gen[
             np.clip(self._win_pt_ids, 0, None)].copy()
@@ -319,9 +329,9 @@ class Tracking:
         self._window_dirty = False
 
     def fused_step_inputs(self, gray, depth=None) -> tuple:
-        """Arguments of fused_track_step (minus cfg); with depth=None, gray
-        is a packed (3, H, W) uint8 frame and the tuple fits
-        fused_track_step_packed."""
+        """Arguments of fused_track_step (minus cfg) for one lane (B = 1):
+        frames (1, H, W), or with depth=None a packed (1, 3, H, W) uint8
+        frame, and the tuple fits fused_track_step_packed."""
         if self._window_dirty or self._window is None:
             self._refresh_window()
         if self._dev_consts is None:
@@ -329,33 +339,47 @@ class Tracking:
             manh = self.R_wm is not None
             R = self.R_wm if manh else np.eye(3, dtype=np.float32)
             self._dev_consts = (
-                self._dev(np.eye(4, dtype=np.float32)),
-                torch.tensor(False, device=self.device),
-                self._dev(R.astype(np.float32)),
-                torch.tensor(manh, device=self.device))
+                self._dev(np.eye(4, dtype=np.float32)[None]),
+                torch.tensor([False], device=self.device),
+                self._dev(R.astype(np.float32)[None]),
+                torch.tensor([manh], device=self.device))
         head = self._dev_consts[:2]
         if self._pose_override is not None:
             # the first step after a map correction starts from the
             # re-based pose with zero velocity
-            head = (self._dev(self._pose_override.astype(np.float32)),
-                    torch.tensor(True, device=self.device))
+            head = (self._dev(self._pose_override.astype(np.float32)[None]),
+                    torch.tensor([True], device=self.device))
             self._pose_override = None
         tail = head + self._dev_consts[2:] + (self._fused_state, self._window,
                                              self._pose_weights)
         if depth is None:
-            return (_upload(gray, self.device),) + tail
-        return (_upload(gray, self.device), _upload(depth, self.device)) + tail
+            return (_upload(gray[None], self.device),) + tail
+        return (_upload(gray[None], self.device),
+                _upload(depth[None], self.device)) + tail
 
-    def submit_fused_result(self, result: dt.StepResult,
-                            timestamp: float) -> bool:
+    def submit_fused_result(self, result: dt.StepResult, timestamp: float,
+                            state_stack: Optional[dt.LastState] = None,
+                            lane: int = 0) -> bool:
         """Queue a step result and process the bundle now due (frame k
-        dispatched, frame k - pipeline_depth applied)."""
+        dispatched, frame k - pipeline_depth applied).
+
+        Streaming: `result` is this tracker's B = 1 step. Batched replay
+        (parallel/replay.py): `result.packed` is this lane's bundle, already
+        pulled to the host, and the carried state stays stacked on the
+        device as `state_stack`; this lane's keyframe feature pull slices
+        it there (pack_feats_slice), and the stack is this tracker's
+        fused state, the marker that the lane is alive."""
         self._apply_pending_kf()
+        if state_stack is None:
+            state_stack = result.new_state
+            pull = _HostPull(result.packed[lane])
+        else:
+            pull = _Pulled(np.asarray(result.packed))
         self._pending.append({
-            "pull": _HostPull(result.packed), "state": result.new_state,
+            "pull": pull, "state_stack": state_stack, "lane": lane,
             "timestamp": timestamp, "frame_id": self.frame_id,
             "depth": self._last_depth})
-        self._fused_state = result.new_state
+        self._fused_state = state_stack
         while len(self._pending) > self.pipeline_depth:
             prev = self._pending.pop(0)
             if not self._process_bundle(prev):
@@ -501,7 +525,8 @@ class Tracking:
         """Start deferred keyframe creation: dispatch the packed feature
         pull and snapshot what the materialization needs."""
         self._pending_kf = {
-            "pull": _HostPull(dt.pack_feats(prev["state"].feats)),
+            "pull": _HostPull(dt.pack_feats_slice(prev["state_stack"].feats,
+                                                  prev["lane"])),
             "timestamp": prev["timestamp"], "frame_id": prev["frame_id"],
             "decided_at": self.frame_id,
             "T_cw": self.T_cw.copy(),
@@ -636,8 +661,8 @@ class Tracking:
     def _rebuild_fused_state(self, feats: FrameFeatures) -> None:
         """Device state for the fused path from the frame just tracked on
         the modular path."""
-        self._fused_state = dt._state_from(
-            feats, self._dev(self.T_cw), self._dev(self.velocity), self.cfg)
+        self._fused_state = dt.lanes(dt._state_from(
+            feats, self._dev(self.T_cw), self._dev(self.velocity), self.cfg))
         self._window_dirty = True
         self._pending = []
         self._pose_override = None

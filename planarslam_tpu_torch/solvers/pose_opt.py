@@ -21,8 +21,9 @@ se3_exp([rho, 0]) @ T adds rho to the translation as the 3-dof update
 does, so the caller needs no host-side branch.
 
 Kernel K11 ``pose_optimize`` (``csrc/pose_opt.cu``) runs the whole call,
-every round and LM step, in one launch of one thread block, reading the
-flag on the device; ``_pose_optimize_plain`` is its plain version and the
+every round and LM step, in one launch of one thread block per problem
+(B problems with a leading B share the launch), reading the flag on the
+device; ``_pose_optimize_plain`` is its plain version and the
 CPU route. The kernel sums the normal equations across threads in float64
 and solves them in float64 (LU with partial pivoting, as the plain
 version's float32 ``solve_ex``), so the pose agrees to a tolerance and an
@@ -386,55 +387,62 @@ _BLOCK_DIMS = {PointObs: (3, 2, None, None, None),
                PlaneObs: (4, 4, None)}
 
 
-def _block_args(block, cls, dev):
-    """K11's view of one residual block: its pointers and count, the
-    tensors behind them, and the inlier mask the kernel fills. An absent
-    block is empty (NULL pointers, count 0)."""
+def _block_args(block, cls, lead, dev):
+    """K11's view of one residual block of a problem (lead ()) or of B
+    problems (lead (B,)): its pointers and per-problem count, the tensors
+    behind them, and the inlier mask the kernel fills. An absent block is
+    empty (NULL pointers, count 0)."""
     dims = _BLOCK_DIMS[cls]
     if block is None:
-        mask = torch.zeros((0,), dtype=torch.bool, device=dev)
+        mask = torch.zeros((*lead, 0), dtype=torch.bool, device=dev)
         return [None] * len(dims) + [0], [], mask
-    n = block.valid.shape[0]
+    n = block.valid.shape[-1]
     held = []
     for field, d, t in zip(cls._fields, dims, block):
         dtype = torch.bool if field == "valid" else torch.float32
         t = t.to(dtype).contiguous()
         kernels.check(t, f"{cls.__name__}.{field}", dtype,
-                      (n,) if d is None else (n, d))
+                      (*lead, n) if d is None else (*lead, n, d))
         held.append(t)
-    mask = torch.empty((n,), dtype=torch.bool, device=dev)
+    mask = torch.empty((*lead, n), dtype=torch.bool, device=dev)
     return [kernels.ptr(t) for t in held] + [n], held, mask
 
 
 def _pose_optimize_kernel(T_cw_init, K, bf, blocks, weights, rotation_fixed,
                           n_rounds, n_iters) -> PoseOptResult:
-    """Launch K11 (csrc/pose_opt.cu) once for the whole solve."""
+    """Launch K11 (csrc/pose_opt.cu) once for the whole solve of one
+    problem, or of B problems (every tensor with a leading B)."""
     dev = T_cw_init.device
     T0 = T_cw_init.to(torch.float32).contiguous()
-    kernels.check(T0, "T_cw_init", torch.float32, (4, 4))
+    lead = tuple(T0.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"T_cw_init: expected (4, 4) or (B, 4, 4), got "
+                         f"{tuple(T0.shape)}")
+    b = lead[0] if lead else 1
+    kernels.check(T0, "T_cw_init", torch.float32, (*lead, 4, 4))
     args, held, masks = [kernels.ptr(T0)], [T0], []
     for block, cls in zip(blocks, (PointObs, LineObs, PlaneObs, PlaneObs,
                                    PlaneObs)):
-        a, h, mask = _block_args(block, cls, dev)
+        a, h, mask = _block_args(block, cls, lead, dev)
         args += a
         held += h
         masks.append(mask)
     if isinstance(rotation_fixed, torch.Tensor):
         flag = rotation_fixed.to(torch.bool).contiguous()
-        kernels.check(flag, "rotation_fixed", torch.bool, ())
+        kernels.check(flag, "rotation_fixed", torch.bool, lead)
         held.append(flag)
         args += [kernels.ptr(flag), 0]
     else:
         args += [None, int(bool(rotation_fixed))]
-    n_items = sum(m.shape[0] for m in masks)
-    scratch = torch.empty((3 * max(n_items, 1),), dtype=torch.float32,
+    n_items = sum(m.shape[-1] for m in masks)
+    scratch = torch.empty((b, 3 * max(n_items, 1)), dtype=torch.float32,
                           device=dev)
-    T_out = torch.empty((4, 4), dtype=torch.float32, device=dev)
-    n_in = torch.empty((), dtype=torch.int64, device=dev)
-    chi2 = torch.empty((), dtype=torch.float32, device=dev)
+    T_out = torch.empty((*lead, 4, 4), dtype=torch.float32, device=dev)
+    n_in = torch.empty(lead, dtype=torch.int64, device=dev)
+    chi2 = torch.empty(lead, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         kernels.launch("psl_pose_optimize", *args, *K, bf, *weights,
-                       n_rounds, n_iters, kernels.ptr(scratch),
+                       n_rounds, n_iters, b, kernels.ptr(scratch),
                        kernels.ptr(T_out), *[kernels.ptr(m) for m in masks],
                        kernels.ptr(n_in), kernels.ptr(chi2))
     kernels.LAUNCHES["pose_optimize"] += 1
@@ -458,14 +466,29 @@ def pose_optimize(
 ) -> PoseOptResult:
     """Robust pose-only optimization (module docstring). K11 wrapper: CPU
     tensors take ``_pose_optimize_plain``; CUDA tensors launch the kernel
-    once per call, or raise."""
+    once per call, or raise. T_cw_init (4, 4) with blocks of (N, ...), or
+    B problems: T_cw_init (B, 4, 4), every block tensor and a tensor
+    rotation_fixed with a leading B, one launch for all (the result then
+    has the leading B too)."""
     blocks = (points, lines, planes, par_planes, ver_planes)
     tensors = [t for b in blocks if b is not None for t in b]
     if isinstance(rotation_fixed, torch.Tensor):
         tensors.append(rotation_fixed)
     if kernels.on_cpu(T_cw_init, *tensors):
-        return _pose_optimize_plain(T_cw_init, K, bf, *blocks, weights,
-                                    rotation_fixed, n_rounds, n_iters)
+        if T_cw_init.dim() == 2:
+            return _pose_optimize_plain(T_cw_init, K, bf, *blocks, weights,
+                                        rotation_fixed, n_rounds, n_iters)
+        outs = []
+        for i in range(T_cw_init.shape[0]):
+            lane = [None if blk is None else type(blk)(*[t[i] for t in blk])
+                    for blk in blocks]
+            flag = (rotation_fixed[i]
+                    if isinstance(rotation_fixed, torch.Tensor)
+                    else rotation_fixed)
+            outs.append(_pose_optimize_plain(T_cw_init[i], K, bf, *lane,
+                                             weights, flag, n_rounds,
+                                             n_iters))
+        return PoseOptResult(*[torch.stack(f) for f in zip(*outs)])
     return _pose_optimize_kernel(
         T_cw_init, tuple(float(np.float32(v)) for v in K),
         float(np.float32(bf)), blocks,

@@ -979,3 +979,255 @@ def test_ba_reduced_system(dev):
         rows = torch.repeat_interleave(p[4], 6) > 0
         assert torch.equal(got[0][b][rows], eye[rows])
         assert torch.equal(got[0][b][:, rows], eye[:, rows])
+
+
+# --------------------------------------------------------------------------
+# the leading batch of K3, K4, K11-K15 and K36: one launch for B problems,
+# each problem's result the bits it has alone
+
+
+def _launched(name, fn, *args, **kw):
+    """fn's result and how many `name` launches it made."""
+    n0 = kernels.LAUNCHES[name]
+    out = fn(*args, **kw)
+    return out, kernels.LAUNCHES[name] - n0
+
+
+def _same_bits(got, want):
+    for g, w in zip(got, want):
+        if g is None:
+            assert w is None
+            continue
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4])
+def test_gated_hamming_top2_batched(dev, batch):
+    """K3 over B gated problems of 1024 x 512 in one launch: each problem's
+    rows equal its own launch and the plain version exactly."""
+    rng = np.random.default_rng(40 + batch)
+    M, N = 1024, 512
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    a = rng.integers(-2 ** 31, 2 ** 31, (batch, M, 8)).astype(np.int32)
+    src = rng.integers(0, M, (batch, N))
+    flips = (rng.random((batch, N, 8)) < 0.2) * rng.integers(
+        0, 2 ** 31, (batch, N, 8))
+    b = (np.take_along_axis(a, src[..., None], 1) ^ flips).astype(np.int32)
+    a_uv = rng.uniform(0, [640, 480], (batch, M, 2)).astype(np.float32)
+    lvl = rng.integers(0, 8, (batch, M)).astype(np.int32)
+    b_uv = np.take_along_axis(a_uv, src[..., None], 1) + rng.normal(
+        0, 3, (batch, N, 2))
+    gate = matching.ProjGate(
+        a_uv=t(a_uv), a_r=t((5.0 * 1.2 ** lvl).astype(np.float32)),
+        a_level=t(lvl), a_ur_pred=t(a_uv[..., 0] - 20.0),
+        b_uv=t(b_uv.astype(np.float32)),
+        b_level=t(np.take_along_axis(lvl, src, 1)),
+        b_ur=t(np.full((batch, N), -1.0, np.float32)), level_window=1)
+    a_ok = t(rng.random((batch, M)) < 0.9)
+    b_ok = t(rng.random((batch, N)) < 0.9)
+    got, n = _launched("gated_hamming_top2", matching.gated_hamming_top2,
+                       t(a), t(b), a_ok, b_ok, gate)
+    assert n == 1 and got[0].shape == (batch, M)
+    for i in range(batch):
+        g_i = matching.ProjGate(*[x[i] for x in gate[:-1]], 1)
+        one = matching.gated_hamming_top2(t(a[i]), t(b[i]), a_ok[i],
+                                          b_ok[i], g_i)
+        plain = matching.gated_hamming_top2_plain(t(a[i]), t(b[i]), a_ok[i],
+                                                  b_ok[i], g_i)
+        _same_bits([x[i] for x in got], one)
+        _same_bits([x[i] for x in got], plain)
+
+
+def _depths(dev, batch):
+    cfg = SystemConfig()
+    factor = cfg.camera.depth_map_factor
+    frames = []
+    for i in range(batch):
+        seq = synthetic.make_sequence(2, width=640, height=480, seed=11 + i)
+        d = np.round(np.array(seq.render(1)[1], np.float32) * factor)
+        d = (d / factor).astype(np.float32)
+        frames.append(chip_smoke.noisy_depth(d, factor, seed=i) if i % 2
+                      else d)
+    return torch.from_numpy(np.stack(frames)).to(dev)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4])
+def test_plane_block_moments_batched(dev, batch):
+    """K4 over B 480x640 depths in one launch (the grid's third axis):
+    each frame equals its own launch bit for bit, counts equal the plain
+    version's, sums within 1e-5 of their largest magnitude."""
+    cfg = SystemConfig()
+    depth = _depths(dev, batch)
+    alpha = planes._noise_alpha(depth, cfg.planes.max_distance)
+    kw = dict(cam=cfg.camera, geo_tol=0.02,
+              max_distance=cfg.planes.max_distance, block=8)
+    got, n = _launched("plane_block_moments", planes.plane_block_moments,
+                       depth, alpha, **kw)
+    assert n == 1 and got.n.shape == (batch, 4800)
+    for i in range(batch):
+        one = planes.plane_block_moments(depth[i], alpha[i], **kw)
+        _same_bits([x[i] for x in got], one)
+        want = planes.plane_block_moments_plain(depth[i], alpha[i], **kw)
+        torch.testing.assert_close(got.n[i], want.n, rtol=0, atol=0)
+        for g, w in ((got.s1[i], want.s1), (got.s2[i], want.s2)):
+            torch.testing.assert_close(g, w, rtol=0,
+                                       atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4])
+def test_pose_optimize_batched(dev, batch):
+    """K11 over B seeded problems at the main path's width in one launch
+    of B blocks, the rotation flag per lane: each lane equals its own
+    launch bit for bit, and its plain version within the single problem's
+    limits (pose 1e-4, masks exact)."""
+    from planarslam_tpu_torch.solvers import pose_opt
+
+    cam = SystemConfig().camera
+    K = (cam.fx, cam.fy, cam.cx, cam.cy)
+    probs = [_pose_problem(K, cam.bf, seed=i, n=1024, n_lines=64,
+                           n_planes=16) for i in range(batch)]
+
+    def t(*a):
+        return torch.from_numpy(np.ascontiguousarray(np.stack(a))).to(dev)
+
+    T0 = t(*[p[0] for p in probs])
+    blocks = [cls(*[t(*[p[k][f] for p in probs])
+                    for f in range(len(probs[0][k]))])
+              for k, cls in ((1, pose_opt.PointObs), (2, pose_opt.LineObs),
+                             (3, pose_opt.PlaneObs), (4, pose_opt.PlaneObs),
+                             (5, pose_opt.PlaneObs))]
+    flag = torch.tensor([i % 2 == 1 for i in range(batch)], device=dev)
+    names = ("points", "lines", "planes", "par_planes", "ver_planes")
+    got, n = _launched("pose_optimize", pose_opt.pose_optimize, T0, K,
+                       cam.bf, **dict(zip(names, blocks)),
+                       rotation_fixed=flag)
+    assert n == 1 and got.T_cw.shape == (batch, 4, 4)
+    for i in range(batch):
+        lane = {k: type(b)(*[x[i] for x in b]) for k, b in zip(names,
+                                                                blocks)}
+        one = pose_opt.pose_optimize(T0[i], K, cam.bf, **lane,
+                                     rotation_fixed=flag[i])
+        _same_bits([x[i] for x in got], one)
+        want = pose_opt._pose_optimize_plain(T0[i], K, cam.bf, **lane,
+                                             rotation_fixed=flag[i])
+        torch.testing.assert_close(one.T_cw, want.T_cw, rtol=0, atol=1e-4)
+        assert torch.equal(one.point_inlier, want.point_inlier)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4])
+def test_plane_segment_batched(dev, batch):
+    """extract_planes over B 480x640 depths (clean and noisy): one launch
+    of K4, K12 and K14 and 1 + refine_rounds of K13 for all frames, and
+    each frame's planes and labels the bits of extract_planes on it
+    alone."""
+    cfg = SystemConfig()
+    pc = cfg.planes
+    depth = _depths(dev, batch)
+    n0 = dict(kernels.LAUNCHES)
+    got = planes.extract_planes(depth, cfg.camera, pc)
+    for name, n in (("plane_block_moments", 1), ("plane_components", 1),
+                    ("plane_assign_refit", 1 + pc.refine_rounds),
+                    ("plane_label_pixels", 1)):
+        assert kernels.LAUNCHES[name] == n0[name] + n, name
+    assert got.pixel_label.shape == (batch, 480, 640)
+    for i in range(batch):
+        one = planes.extract_planes(depth[i], cfg.camera, pc)
+        assert int(one.valid.sum()) >= 2
+        _same_bits([x[i] for x in got], one)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4])
+def test_manhattan_mean_shift_batched(dev, batch):
+    """K15 over B frames' normals and line directions (N = 2112) in one
+    launch, with the step's initial-pose epilogue: each frame equals its
+    own launch bit for bit, R_cm within 1e-5 of the plain version, the
+    epilogue's T_init and use_manh bit-equal to init_select_plain on the
+    kernel's own R_cm and success."""
+    from planarslam_tpu_torch.ops import manhattan
+    from planarslam_tpu_torch.slam.frame import extract_frame
+
+    cfg = SystemConfig()
+    mc = cfg.manhattan
+    grays, depths = [], []
+    for i in range(batch):
+        seq = synthetic.make_sequence(2, width=640, height=480, seed=11 + i)
+        g, d = seq.render(1)
+        grays.append(np.asarray(g, np.float32))
+        depths.append(np.asarray(d, np.float32))
+    feats = extract_frame(torch.from_numpy(np.stack(grays)).to(dev),
+                          torch.from_numpy(np.stack(depths)).to(dev), cfg)
+    rng = np.random.default_rng(batch)
+    eye = torch.eye(4, device=dev).expand(batch, 4, 4)
+    pre = device_tracker.step_prelude(
+        eye.contiguous(), torch.zeros(batch, dtype=torch.bool, device=dev),
+        eye.contiguous(), eye.contiguous(), feats.lines.p3d_s,
+        feats.lines.p3d_e, feats.lines.has_3d, feats.lines.valid,
+        feats.normals, feats.normals_valid,
+        torch.eye(3, device=dev).expand(batch, 3, 3).contiguous())
+    T_pred = torch.from_numpy(np.stack([_pose(rng) for _ in range(batch)]
+                                       ).astype(np.float32)).to(dev)
+    R_wm = torch.from_numpy(np.stack([_pose(rng)[:3, :3]
+                                      for _ in range(batch)]
+                                     ).astype(np.float32)).to(dev)
+    init = manhattan.InitSelect(T_pred, R_wm,
+                                torch.arange(batch, device=dev) % 2 == 0)
+    kw = dict(cone_sin=mc.cone_sin_track, kernel=mc.mean_shift_kernel,
+              min_support=mc.min_axis_support)
+    R0 = pre.R_init
+    got, n = _launched("manhattan_mean_shift",
+                       manhattan.track_manhattan_frame, R0, pre.dirs,
+                       pre.dirs_valid, init=init, **kw)
+    assert n == 1 and got.R_cm.shape == (batch, 3, 3)
+    for i in range(batch):
+        init_i = manhattan.InitSelect(*[x[i] for x in init])
+        one = manhattan.track_manhattan_frame(R0[i], pre.dirs[i],
+                                              pre.dirs_valid[i],
+                                              init=init_i, **kw)
+        _same_bits([None if x is None else x[i] for x in got], one)
+        plain = manhattan.track_manhattan_frame_plain(
+            R0[i], pre.dirs[i], pre.dirs_valid[i], **kw)
+        torch.testing.assert_close(one.R_cm, plain.R_cm, rtol=0, atol=1e-5)
+        assert torch.equal(one.success, plain.success)
+        _same_bits(manhattan.init_select_plain(one.R_cm, one.success,
+                                               init_i),
+                   (one.T_init, one.use_manh))
+
+
+def test_step_prelude_kernel(dev):
+    """K36 at the main path's width (64 lines, 2048 normals) on four
+    seeded lanes (the override on and off, zero-length and short lines, a
+    NaN endpoint) equals step_prelude_plain bit for bit in every output;
+    one launch per call; two launches equal bits."""
+    rng = np.random.default_rng(36)
+    B, L, Nn = 4, 64, 2048
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    p3d_s = rng.normal(size=(B, L, 3)).astype(np.float32)
+    p3d_e = (p3d_s + rng.normal(scale=0.3, size=(B, L, 3))).astype(
+        np.float32)
+    p3d_e[:, 0] = p3d_s[:, 0]
+    p3d_e[:, 1] = p3d_s[:, 1] + 0.05
+    p3d_e[0, 2, 0] = np.nan
+    normals = rng.normal(size=(B, Nn, 3)).astype(np.float32)
+    poses = [np.stack([_pose(rng) for _ in range(B)]).astype(np.float32)
+             for _ in range(3)]
+    args = [t(poses[0]), t(np.array([True, False, True, False])),
+            t(poses[1]), t(poses[2]), t(p3d_s), t(p3d_e),
+            t(rng.random((B, L)) > 0.2), t(rng.random((B, L)) > 0.2),
+            t(normals / np.linalg.norm(normals, axis=-1, keepdims=True)),
+            t(rng.random((B, Nn)) > 0.3),
+            t(np.stack([_pose(rng)[:3, :3] for _ in range(B)]).astype(
+                np.float32))]
+    got, n = _launched("step_prelude", device_tracker.step_prelude, *args)
+    again = device_tracker.step_prelude(*args)
+    assert n == 1
+    want = device_tracker.step_prelude_plain(*args)
+    _same_bits(got, want)
+    _same_bits(got, again)

@@ -61,11 +61,11 @@ def test_fused_step_from_identical_state(run):
     frame_u8, T_ovr, use_ovr, R_wm, manh, state, win = run["step"]["args"]
     t_state, t_win = tdt.state_from_numpy(state, win, device="cpu")
     res = tdt.fused_track_step_packed(
-        torch.from_numpy(frame_u8), torch.from_numpy(T_ovr),
-        torch.tensor(bool(use_ovr)), torch.from_numpy(R_wm),
-        torch.tensor(bool(manh)), t_state, t_win,
+        torch.from_numpy(frame_u8)[None], torch.from_numpy(T_ovr)[None],
+        torch.tensor([bool(use_ovr)]), torch.from_numpy(R_wm)[None],
+        torch.tensor([bool(manh)]), tdt.lanes(t_state), t_win[None],
         tpo.PoseOptWeights.from_config(cfg.planes), cfg)
-    got = tdt.BundleLayout(cfg).unpack(res.packed.numpy())
+    got = tdt.BundleLayout(cfg).unpack(res.packed[0].numpy())
     want = run["step"]["bundle"]
     np.testing.assert_allclose(got["T_out"], want["T_out"], atol=1e-4)
     np.testing.assert_allclose(got["R_cm"], want["R_cm"], atol=1e-4)
@@ -75,7 +75,7 @@ def test_fused_step_from_identical_state(run):
         assert np.mean(got[name] == want[name]) >= 0.99, name
     for name in ("pl_direct", "pl_par", "pl_ver", "pl_valid"):
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
-    np.testing.assert_allclose(res.new_state.pt3d_w.numpy(),
+    np.testing.assert_allclose(res.new_state.pt3d_w[0].numpy(),
                                run["step"]["state"].pt3d_w, atol=1e-4)
 
 

@@ -3,7 +3,7 @@
 
     python3 tools/port_profile.py [--frames 40] [--warmup 20]
                                   [--tracking-only | --loop-correction
-                                   [--repeat N]] [--out DIR]
+                                   [--repeat N] | --batched B] [--out DIR]
 
 Tracks the 640x480 synthetic sequence (with --loop-correction path 4b's:
 chip_smoke.CONSTRUCTED_SEQUENCE frames, unless --frames is longer) with
@@ -29,10 +29,9 @@ record_function names of the port's stage functions, among them
 device_mapper.mapping_step, local_mapping.finish_keyframe,
 tracking.relocalize, loop_closing.process_keyframe, pose_graph.optimize,
 global_ba.global_bundle_adjustment and local_ba.local_bundle_adjustment,
-the glue spans of the fused step: device_tracker.unpack_window, .predict,
-.point_observations, .line_observations and .map_observations, and the
-spans of K28-K31's wrappers: planes.extract_planes (K28 in it),
-planes.frame_normals (K29; box_smooth_depth, backproject_depth and
+the fused step's device_tracker.unpack_window and
+device_tracker.step_prelude (K36), and the spans of K28-K31's wrappers:
+planes.extract_planes (K28 in it), planes.frame_normals (K29; box_smooth_depth, backproject_depth and
 surface_normals before), device_tracker._associate_planes_device (K30;
 with plane_observations before) and device_tracker.finish_step (K31;
 keyframe_stats, _pack and _state_from before)),
@@ -40,6 +39,16 @@ the host time and the device time of its kernels, the busy share of the
 device over the window, the device time of the hand-written kernels, the
 host-to-device copies per frame, and the top kernels by device time.
 Writes the chrome trace to DIR/port_trace.json when --out is given.
+
+With --batched B, BatchedSLAM(SystemConfig(), B) replays chip_smoke.py's
+path 5 sequences (one per lane, quantized) and the window is batched steps
+warmup..frames-1, each counted as one "frame" of B lanes: it prints the
+same per-step numbers (launches, device busy share, host-to-device copies,
+spans), and host ms per step in each span of BatchedSLAM.track
+(host_lanes: the lanes on their own host path; frame_upload;
+small_upload; state_win_insert: window refreshes and lane inserts;
+dispatch: the batched step's launches; drain: the previous step's pull and
+the lanes' host policy).
 """
 
 from __future__ import annotations
@@ -86,7 +95,7 @@ PORT_KERNELS = ("fast_score_kernel", "fast_score_levels_kernel",
                 "finish_step_kernel", "refine_relative_kernel",
                 "plane_kf_kernel", "plane_lm_kernel", "mu_p_kernel",
                 "cost_obs_kernel", "cost_decide_kernel", "cost_select_kernel",
-                "reduced_system_kernel")
+                "reduced_system_kernel", "step_prelude_kernel")
 
 
 def main(argv=None) -> int:
@@ -101,6 +110,8 @@ def main(argv=None) -> int:
     ap.add_argument("--repeat", type=int, default=1,
                     help="with --loop-correction: corrections of the "
                     "constructed loop, each on a fresh copy of the map")
+    ap.add_argument("--batched", type=int, default=0, metavar="B",
+                    help="profile batched steps of B lanes (path 5)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -121,6 +132,9 @@ def main(argv=None) -> int:
     print(f"device {smi.stdout.strip()}", flush=True)
     kernels.build()
     cfg = SystemConfig()
+    if args.batched:
+        _profile_batched(args, cfg)
+        return 0
     n_seq = args.frames
     if args.loop_correction:
         from chip_smoke import CONSTRUCTED_SEQUENCE
@@ -153,19 +167,61 @@ def main(argv=None) -> int:
     return 0
 
 
-def _profile_window(args, slam, frames, seq, run: int, loop_kf) -> None:
+def _profile_batched(args, cfg) -> None:
+    """Profile batched steps warmup..frames-1 of BatchedSLAM(cfg, B) on
+    path 5's sequences, with BatchedSLAM.track's host spans."""
+    from chip_smoke import BATCH_SEQUENCE, _lane_sequence
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.parallel.replay import BatchedSLAM
+
+    B = args.batched
+    factor = cfg.camera.depth_map_factor
+    seqs = [_lane_sequence(cfg, b, max(args.frames, BATCH_SEQUENCE))
+            for b in range(B)]
+    frames = [[quantize_frame(*s.render(i), factor)
+               for i in range(args.frames)] for s in seqs]
+    bs = BatchedSLAM(cfg, B, device="cuda")
+
+    def track(i):
+        bs.track([frames[b][i][0] for b in range(B)],
+                 [frames[b][i][1] for b in range(B)],
+                 np.full(B, float(i) / 30.0))
+
+    for i in range(args.warmup):
+        track(i)
+    bs.enable_profile()
+    steps0 = bs.stats["batched_steps"]
+    out = _profile_window(args, bs, frames, None, 0, None, step=track)
+    steps = bs.stats["batched_steps"] - steps0
+    out["batched"] = {
+        "lanes": B, "batched_steps": steps,
+        "host_ms_per_step": {k: float(np.sum(v)) / max(steps, 1) * 1e3
+                             for k, v in bs.prof.items()},
+        **{k: v for k, v in bs.stats.items()}}
+    print(json.dumps(out["batched"], indent=1), flush=True)
+
+
+def _profile_window(args, slam, frames, seq, run: int, loop_kf,
+                    step=None) -> dict:
     """Profile one window (the tracked frames, or the correction of the
     loop that keyframe loop_kf closes) and print its JSON result."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    n_kf0 = slam.map.n_kf
+    def n_kf():
+        systems = getattr(slam, "systems", [slam])
+        return sum(int(s.map.n_kf) for s in systems)
+
+    n_kf0 = n_kf()
     n = 1 if args.loop_correction else args.frames - args.warmup
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         if args.loop_correction:
             ok = slam.loop_closer._verify_and_correct(loop_kf, 0)
+        elif step is not None:
+            for i in range(args.warmup, args.frames):
+                step(i)
         else:
             for i in range(args.warmup, args.frames):
                 slam.track_rgbd(*frames[i], seq.timestamps[i])
@@ -204,8 +260,9 @@ def _profile_window(args, slam, frames, seq, run: int, loop_kf) -> None:
     port_kernels = {name: sum(k[0] for k in kern if name in k[1]) / n / 1e3
                     for name in PORT_KERNELS}
     out = {"frames": n, "local_mapping": not args.tracking_only,
+           "batched": args.batched,
            "loop_correction": args.loop_correction, "run": run,
-           "keyframes_in_window": int(slam.map.n_kf - n_kf0),
+           "keyframes_in_window": n_kf() - n_kf0,
            "wall_ms_per_frame": wall / n * 1e3,
            **({"verified": bool(ok)} if args.loop_correction else {}),
            "device_busy_ms_per_frame": busy_ms / n,
@@ -222,6 +279,7 @@ def _profile_window(args, slam, frames, seq, run: int, loop_kf) -> None:
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
             args.out, f"port_trace_{run}.json" if run else "port_trace.json"))
+    return out
 
 
 if __name__ == "__main__":
