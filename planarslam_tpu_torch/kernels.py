@@ -120,8 +120,8 @@ _SIGNATURES = {
     # xw_e, line2d, inv_sigma2, valid, L; planes, parallel and vertical
     # planes pi_w, pi_obs, valid, P; rotation flag (device) or NULL and the
     # host flag; fx, fy, cx, cy, bf; the six PoseOptWeights; n_rounds,
-    # n_iters, batch; scratch; T_out, the five inlier masks, n_in, chi2;
-    # stream
+    # n_iters, batch; scratch (psl_pose_optimize_scratch_bytes per problem,
+    # or NULL); T_out, the five inlier masks, n_in, chi2; stream
     "psl_pose_optimize": [_P] * 6 + [_I] + [_P] * 5 + [_I]
                          + ([_P] * 3 + [_I]) * 3 + [_P, _I] + [_F] * 11
                          + [_I] * 3 + [_P] * 10,
@@ -175,6 +175,9 @@ _SIGNATURES = {
     # diag, scratch, gx, gy, uv_s, uv_e, line2d, angle, response, valid,
     # stream
     "psl_detect_lines": [_P] + [_I] * 7 + [_F, _F, _D] + [_P] * 10,
+    # score, h, w, batch, E, scratch, top_pix, top_val, stream: K20's
+    # selection stage alone (its tests)
+    "psl_lines_select": [_P] + [_I] * 4 + [_P] * 4,
     # gx, gy, h, w, u_max, v_max, uv_s, uv_e, valid, batch, L, alphas,
     # n_samples, band_width, desc, stream
     "psl_line_descriptors": [_P, _P, _I, _I, _F, _F, _P, _P, _P, _I, _I, _P,
@@ -247,10 +250,14 @@ _SIGNATURES = {
 }
 # Host-side helpers: plain C functions that launch nothing.
 _HELPERS = {
+    # n_items
+    "psl_pose_optimize_scratch_bytes": [_I],
     # h, w, batch, E, L, n_rho
     "psl_detect_lines_scratch_words": [_I] * 6,
     # M, L, batch
     "psl_search_lines_scratch_words": [_I] * 3,
+    # h, w, batch, E
+    "psl_lines_select_scratch_words": [_I] * 4,
 }
 
 

@@ -52,9 +52,9 @@ N_THETA = 36  # orientation bins over [0, pi)
 S_BINS = 96   # position-histogram bins along a line
 N_EDGE = 6144  # the strongest edge pixels the per-line work sees
 RHO_RES = 2.0
-# launches issued by one call of csrc/lines.cu::psl_detect_lines and of
-# csrc/line_lift_search.cu::psl_search_lines
-DETECT_LAUNCHES = 9
+# launches issued by one call of csrc/lines.cu::psl_detect_lines (besides
+# a memset) and of csrc/line_lift_search.cu::psl_search_lines
+DETECT_LAUNCHES = 8
 SEARCH_LAUNCHES = 2
 
 
@@ -298,6 +298,30 @@ def detect_lines(blurred: torch.Tensor, cfg: LineConfig,
                        kernels.ptr(valid))
     kernels.LAUNCHES["detect_lines"] += DETECT_LAUNCHES
     return LineDetection(uv_s, uv_e, line2d, angle, resp, valid, gx, gy)
+
+
+def select_top_e(score: torch.Tensor, E: int):
+    """K20's selection stage alone on (B, H, W) float32 scores >= 0 on the
+    card (csrc/lines.cu::psl_lines_select, a memset and four launches):
+    (values, pixels)
+    (B, E), each frame's E largest scores as lax_compat.top_k orders them,
+    the pixels int32. For the tests of the stage; detect_lines runs it
+    inside its own launches."""
+    kernels.check(score, "score", torch.float32)
+    if score.dim() != 3 or score.device.type != "cuda":
+        raise ValueError(f"score: expected (B, H, W) on the card, got "
+                         f"{tuple(score.shape)} on {score.device}")
+    b, h, w = score.shape
+    dev = score.device
+    words = kernels.cuda_lib().psl_lines_select_scratch_words(h, w, b, E)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    pix = torch.empty((b, E), dtype=torch.int32, device=dev)
+    val = torch.empty((b, E), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch("psl_lines_select", kernels.ptr(score), h, w, b, E,
+                       kernels.ptr(scratch), kernels.ptr(pix),
+                       kernels.ptr(val))
+    return val, pix
 
 
 N_BANDS = 9

@@ -28,6 +28,9 @@ CPU route. The kernel sums the normal equations across threads in float64
 and solves them in float64 (LU with partial pivoting, as the plain
 version's float32 ``solve_ex``), so the pose agrees to a tolerance and an
 inlier flag can differ only where an observation's chi2 lies at its gate.
+It visits each pose once: a step's pass at T_new also sums the next
+step's system, which a rejected step does not need, since T and the masks
+did not change.
 """
 
 from __future__ import annotations
@@ -434,15 +437,21 @@ def _pose_optimize_kernel(T_cw_init, K, bf, blocks, weights, rotation_fixed,
         args += [kernels.ptr(flag), 0]
     else:
         args += [None, int(bool(rotation_fixed))]
-    n_items = sum(m.shape[-1] for m in masks)
-    scratch = torch.empty((b, 3 * max(n_items, 1)), dtype=torch.float32,
-                          device=dev)
     T_out = torch.empty((*lead, 4, 4), dtype=torch.float32, device=dev)
     n_in = torch.empty(lead, dtype=torch.int64, device=dev)
     chi2 = torch.empty(lead, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        # a problem stages in shared memory (0 bytes here) unless it is too
+        # large for it
+        per = kernels.cuda_lib().psl_pose_optimize_scratch_bytes(
+            sum(m.shape[-1] for m in masks))
+        if per < 0:
+            raise RuntimeError("psl_pose_optimize_scratch_bytes failed")
+        scratch = (torch.empty(b * per, dtype=torch.uint8, device=dev)
+                   if per else None)
         kernels.launch("psl_pose_optimize", *args, *K, bf, *weights,
-                       n_rounds, n_iters, b, kernels.ptr(scratch),
+                       n_rounds, n_iters, b,
+                       None if scratch is None else kernels.ptr(scratch),
                        kernels.ptr(T_out), *[kernels.ptr(m) for m in masks],
                        kernels.ptr(n_in), kernels.ptr(chi2))
     kernels.LAUNCHES["pose_optimize"] += 1

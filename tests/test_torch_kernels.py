@@ -347,6 +347,87 @@ def test_pose_optimize(dev, case):
         assert float(got.chi2) == 0.0 and int(got.n_point_inliers) == 0
 
 
+@pytest.mark.parametrize("start", ["converged", "far"])
+def test_pose_optimize_start(dev, start):
+    """K11 on the seeded problem at the main path's width from the true
+    pose (nearly every LM step is rejected and the kernel keeps the sums
+    it has) and from 0.1 rad / 0.1 m off with its 10% outliers: pose
+    within 1e-4 of the plain version; masks exact from the true pose, and
+    flipping only at their gates from afar (chip_smoke._pose_compare); one
+    launch per call and two launches give the same bits."""
+    from planarslam_tpu_torch.solvers import pose_opt
+
+    cam = SystemConfig().camera
+    K = (cam.fx, cam.fy, cam.cx, cam.cy)
+    T0, pts, lns, pls, par, ver = _pose_problem(K, cam.bf, n=1024,
+                                                n_lines=64, n_planes=16,
+                                                start=start)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    kw = dict(points=pose_opt.PointObs(*map(t, pts)),
+              lines=pose_opt.LineObs(*map(t, lns)),
+              planes=pose_opt.PlaneObs(*map(t, pls)),
+              par_planes=pose_opt.PlaneObs(*map(t, par)),
+              ver_planes=pose_opt.PlaneObs(*map(t, ver)),
+              rotation_fixed=torch.tensor(False, device=dev))
+    args = (t(T0), K, cam.bf)
+    res = _held(chip_smoke._pose_compare, args, kw, start == "converged")
+    assert res["n_inliers"] > 0.5 * 1024
+    got, n = _launched("pose_optimize", pose_opt.pose_optimize, *args, **kw)
+    assert n == 1
+    _same_bits(got, pose_opt.pose_optimize(*args, **kw))
+
+
+def test_pose_optimize_large(dev):
+    """K11 on a problem too large to stage in shared memory (5000 points,
+    64 lines, 16 planes per block: the global-scratch layout), two lanes
+    in one launch: each lane equals its own launch bit for bit and its
+    plain version within the single problem's limits (pose 1e-4, flips
+    only at their gates)."""
+    from planarslam_tpu_torch.solvers import pose_opt
+
+    assert kernels.cuda_lib().psl_pose_optimize_scratch_bytes(5000 + 64 + 48) > 0
+    cam = SystemConfig().camera
+    K = (cam.fx, cam.fy, cam.cx, cam.cy)
+    probs = [_pose_problem(K, cam.bf, seed=i, n=5000, n_lines=64,
+                           n_planes=16, start=st)
+             for i, st in ((0, "near"), (1, "far"))]
+
+    def t(*a):
+        return torch.from_numpy(np.ascontiguousarray(np.stack(a))).to(dev)
+
+    names = ("points", "lines", "planes", "par_planes", "ver_planes")
+    classes = (pose_opt.PointObs, pose_opt.LineObs, pose_opt.PlaneObs,
+               pose_opt.PlaneObs, pose_opt.PlaneObs)
+    blocks = {name: cls(*[t(*[p[k + 1][f] for p in probs])
+                          for f in range(len(probs[0][k + 1]))])
+              for k, (name, cls) in enumerate(zip(names, classes))}
+    T0 = t(*[p[0] for p in probs])
+    flag = torch.tensor([False, True], device=dev)
+    got = pose_opt.pose_optimize(T0, K, cam.bf, **blocks,
+                                 rotation_fixed=flag)
+    for i in range(2):
+        lane = {k: type(b)(*[x[i] for x in b]) for k, b in blocks.items()}
+        one = pose_opt.pose_optimize(T0[i], K, cam.bf, **lane,
+                                     rotation_fixed=flag[i])
+        _same_bits([x[i] for x in got], one)
+        _held(chip_smoke._pose_compare, (T0[i], K, cam.bf),
+              dict(lane, rotation_fixed=flag[i]), False)
+
+
+def test_select_top_e_planted(dev):
+    """K20's selection stage alone (lines.select_top_e) equals
+    lax_compat.top_k bit for bit on chip_smoke.planted_top_e_maps at
+    120x160 and 480x640 (ties below and at the E-th rank, fewer than E
+    nonzero, all zero), two calls equal bits (chip_smoke's
+    select_stage_parity)."""
+    entry = {}
+    _held(chip_smoke.select_stage_parity, dev, entry)
+    assert set(entry["select_stage"]) == {"120x160", "480x640"}
+
+
 def _held(fn, *args):
     """Run one of chip_smoke.py's comparisons; its failure (an exit) fails
     the test."""

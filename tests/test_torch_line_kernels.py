@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _line_search_problems
+from chip_smoke import _line_search_problems, planted_top_e_maps
 from planarslam_tpu import config as jconfig
 from planarslam_tpu.io import synthetic
 from planarslam_tpu.ops import image as jimage
@@ -251,19 +251,19 @@ def test_edge_slots_exact(gray, case):
 
 def test_top_e_reference_planted():
     """(b) lax_compat.top_k (the plain version's top-E) equals the numpy
-    reference and jax.lax.approx_max_k (exact on the CPU) on planted
-    scores: distinct values, a tie of 2000 at the E-th rank, and a map
-    with fewer than E nonzero scores (the zero-valued slots are the first
-    zero pixels in pixel order)."""
-    rng = np.random.default_rng(7)
-    n = H * W
-    for n_nonzero, n_tie in ((9000, 2000), (3000, 0)):
-        score = np.zeros(n, f32)
-        pix = rng.choice(n, n_nonzero, replace=False)
-        vals = rng.uniform(41.0, 500.0, n_nonzero).astype(f32)
-        vals[:n_tie] = f32(80.0)
-        vals[n_tie:] = np.where(vals[n_tie:] == 80.0, 81.0, vals[n_tie:])
-        score[pix] = vals
+    reference and jax.lax.approx_max_k (exact on the CPU) on the planted
+    scores of chip_smoke.planted_top_e_maps, which the card's selection
+    stage is held to as well: 9000 distinct values with a tie of 2000
+    below the E-th rank, a map with fewer than E nonzero scores (the
+    zero-valued slots are the first zero pixels in pixel order), an
+    all-zero map (the slots are pixels 0..E-1), and a tie at the E-th rank
+    whose taken part spans three of the selection's 4-row bands and is cut
+    inside one."""
+    maps = planted_top_e_maps(H, W, E)
+    assert list(maps) == ["tie_2000", "fewer_than_E", "all_zero",
+                          "tie_across_bands"]
+    for name, score2d in maps.items():
+        score = score2d.reshape(-1)
         got_val, got_pix = lax_compat.top_k(_t(score), E)
         ref_val, ref_pix = top_e_reference(score, E)
         j_val, j_pix = jax.lax.approx_max_k(jnp.asarray(score), E,
@@ -271,10 +271,17 @@ def test_top_e_reference_planted():
         np.testing.assert_array_equal(got_pix.numpy(), ref_pix)
         np.testing.assert_array_equal(got_val.numpy(), ref_val)
         np.testing.assert_array_equal(_n(j_pix), ref_pix)
-        if n_tie:
-            assert np.sum(ref_val == 80.0) < n_tie
+        if name == "tie_2000":
+            assert np.sum(ref_val == 80.0) < 2000
+        elif name == "fewer_than_E":
+            assert np.sum(ref_val == 0) == E - 3000
+        elif name == "all_zero":
+            np.testing.assert_array_equal(ref_pix, np.arange(E))
         else:
-            assert np.sum(ref_val == 0) == E - n_nonzero
+            tied = np.sort(ref_pix[ref_val == 80.0])
+            assert len(tied) == int(7.5 * W) < np.sum(score == 80.0)
+            bands = np.unique(tied // W // 4)
+            assert len(bands) == 3 and (tied[-1] + 1) % (4 * W) != 0
 
 
 @pytest.mark.parametrize("case", ["frame", "stripes"])

@@ -181,6 +181,8 @@ _POSE_CASES = {
     "points_only": (False, _FULL, "full", "points"),
     "planes_only": (False, _FULL, "full", "planes"),
     "all_invalid": (False, _FULL, "full", "invalid"),
+    "converged": (False, dict(_FULL, start="converged"), "full", "all"),
+    "far": (False, dict(_FULL, start="far"), "full", "all"),
 }
 
 
@@ -210,8 +212,9 @@ def test_pose_optimize_parity(case):
     against the JAX function: pose atol 1e-4, every inlier mask exact,
     inlier count exact. Cases: the small problem and the main path's full
     width (N = 1024 with 10% outliers, stereo and mono, L = 64, P = 16 per
-    plane block), each with rotation_fixed False and True; the modular
-    path's points-only call; a planes-only call (plane weights of 2500 to
+    plane block), each with rotation_fixed False and True; at full width
+    from the true pose (nearly every LM step rejected) and from 0.1 rad
+    and 0.1 m off; the modular path's points-only call; a planes-only call (plane weights of 2500 to
     328280 against a 1e-9 regulariser); and an all-invalid call, which
     keeps T at T_init with chi2 0 and no inliers in both packages."""
     from planarslam_tpu.config import PlaneConfig as JPC

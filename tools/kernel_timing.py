@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Time K11 (pose_optimize) and K20 (detect_lines) of one tree of the port
+on a GPU, so that two trees can be compared in one run.
+
+    python3 tools/kernel_timing.py [--root DIR]
+
+--root is the checkout whose planarslam_tpu_torch is timed (default: this
+one); its kernels are built into DIR/build/. The problems and the timing
+come from this checkout's chip_smoke.py, whatever the root: K11 on
+`pose_problem` from its usual start, from the true pose ("converged") and
+from 0.1 rad / 0.1 m off ("far"), timed by `pose_timing` (per call, device
+time, per LM step); K20 on frame 0 of the 640x480 synthetic room after its
+5-tap blur, timed by `detect_timing` (per call, device time by launch).
+Prints one JSON object with the card's name and power limit, those times
+and a hash of each output, so that two trees' outputs can be compared bit
+for bit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _smoke():
+    """This checkout's chip_smoke.py (the problems, the timing helpers)."""
+    spec = importlib.util.spec_from_file_location(
+        "kernel_timing_chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _digest(obj) -> str:
+    h = hashlib.sha256()
+    for t in obj:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=HERE)
+    root = os.path.abspath(ap.parse_args(argv).root)
+    smoke = _smoke()
+    sys.path.insert(0, root)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_timing: no CUDA device", file=sys.stderr)
+        return 1
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.config import SystemConfig
+    from planarslam_tpu_torch.io import synthetic
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import image
+    from planarslam_tpu_torch.ops import lines as ln
+    from planarslam_tpu_torch.solvers import pose_opt
+
+    assert kernels.__file__.startswith(root), kernels.__file__
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    kernels.build()
+    dev = torch.device("cuda", 0)
+    cfg = SystemConfig()
+    cam = cfg.camera
+    out = {"root": root, "device": smi.stdout.strip(),
+           "torch": torch.__version__, "pose_optimize": {}}
+    for start in ("near", "converged", "far"):
+        args, kw = smoke.pose_problem(cfg, dev, start)
+        out["pose_optimize"][start] = {
+            "hash": _digest(pose_opt.pose_optimize(*args, **kw)),
+            **smoke.pose_timing(args, kw)}
+
+    seq = synthetic.make_sequence(1, width=cam.width, height=cam.height)
+    g8, _ = quantize_frame(*seq.render(0), cam.depth_map_factor)
+    gray = torch.from_numpy(g8.astype(np.float32)).to(dev)
+    blurred = image.gaussian_blur(gray, 5, 1.0)[None]
+    out["detect_lines"] = {
+        "hash": _digest(ln.detect_lines(blurred, cfg.lines)),
+        "launches_per_call": ln.DETECT_LAUNCHES,
+        **smoke.detect_timing(blurred, cfg.lines)}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -82,11 +82,11 @@ PORT_KERNELS = ("fast_score_kernel", "fast_score_levels_kernel",
                 "plane_components_kernel", "plane_assign_kernel",
                 "plane_refit_kernel", "plane_label_kernel",
                 "manhattan_kernel",
-                "lines_gradient_kernel", "lines_edge_kernel",
-                "lines_select_kernel", "lines_slot_kernel",
-                "lines_hough_order_kernel", "lines_hough_sum_kernel",
+                "lines_stencil_kernel", "lines_select_kernel",
+                "lines_count_rank_kernel", "lines_slot_kernel",
                 "lines_peaks_kernel", "lines_segment_kernel",
-                "lines_rank_kernel", "lines_descriptor_kernel",
+                "lines_rank_kernel",
+                "lines_descriptor_kernel",
                 "lines_lift_kernel", "lines_search_rows_kernel",
                 "lines_search_gate_kernel", "project_landmarks_kernel",
                 "match_select_kernel", "frame_matches_kernel",
