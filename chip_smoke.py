@@ -7,7 +7,8 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the hand-written kernels from planarslam_tpu_torch/csrc
      (one nvcc per source, in parallel), and print ptxas's registers,
-     spills and stack frame for each kernel of pose_opt.cu and lines.cu;
+     spills and stack frame for each kernel of pose_opt.cu, lines.cu,
+     hamming_top2.cu and plane_segment.cu;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the 640x480 paths give it (inputs from frame 0 of the
      synthetic sequence, or from a numpy seed with planted structure), with
@@ -16,10 +17,15 @@ Phases, each fatal on failure:
      and 0.1 m off), timed per call, per LM step (1 x 1, 1 x 10 and 4 x 10
      steps) and by its device time, and also on the inputs of one tracked
      frame of path 1, after that path;
+     K3 also on planted edge cases (every row dead, one gated-in column,
+     N = 1, duplicate best columns across two column tiles, N above one
+     tile, windows of up to 70 pixels, B = 8, both directions of a mutual
+     match in one launch) and timed on one tracking step's launches;
      K12-K14 (plane segmentation) on frame 0's quantized depth and on the
      same depth with Kinect noise, also against the plain version run in
-     float64; K15 (Manhattan mean shift) on frame 0's normals and line
-     directions; K16-K19 (pyramid, blur, keypoint selection, point
+     float64; K12 also on eight lanes' frame 0 in one launch (each lane
+     bit-equal to its own launch), captured in a CUDA graph and replayed;
+     K15 (Manhattan mean shift) on frame 0's normals and line directions; K16-K19 (pyramid, blur, keypoint selection, point
      epilogue) and the all-levels launches of K1 and K2 on frame 0's
      8-level pyramid and 1000 keypoints, K18 also on a planted score map
      with ties, empty tiles and more than 4 candidates per tile, and the
@@ -102,10 +108,11 @@ extract_point_features and per extract_line_features call, and per
 extract_line_features call K20's eight launches (one C call), one K21 and one
 K22, and two K23 launches per search_lines_by_projection call (local
 mapping's line fuse among them), one K24 per search_by_projection call, one
-K3 per search_by_projection and two per match_descriptors call, one K25 per
+K3 per search_by_projection and per match_descriptors call (both
+directions in one launch), one K25 per
 either call, one K26 per tracking step and per rotation_histogram_filter
 call and two K27 per tracking step (inside each tracking step K24 2, K3
-4, K25 3, K26 1, K27 2, K30 1, K31 1, K11 2, K15 1, K36 1, whatever the
+3, K25 3, K26 1, K27 2, K30 1, K31 1, K11 2, K15 1, K36 1, whatever the
 step's batch of lanes), one K28 and one K29 per extract_frame call, one K32 per refine_relative_se3 call, per LM step of
 ba_solve and ba_solve_pcg one K33 launch (the mu_p pass) and one more
 with plane tables and one K34, per dense step one K35, one K34 per solve
@@ -224,7 +231,8 @@ def _launch_split(fn, reps: int = TIMING_REPS, match: str = "") -> dict:
     return split
 
 
-PTXAS_SOURCES = ("pose_opt.cu", "lines.cu")
+PTXAS_SOURCES = ("pose_opt.cu", "lines.cu", "hamming_top2.cu",
+                 "plane_segment.cu")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -441,14 +449,21 @@ def kernel_parity(seq, cfg, dev) -> list:
     _check(err == 0, f"gated_hamming_top2 differs from plain by {err}")
     _check(int((k3[0] <= cfg.matcher.th_high).sum()) > 100,
            "gated_hamming_top2 parity input holds too few matches")
+    k3_cases = hamming_edge_cases(cfg, dev)
+    print(f"gated_hamming_top2 edge cases: {json.dumps(k3_cases)}",
+          flush=True)
     out.append({"name": "gated_hamming_top2", "route": "cuda",
-                "library_ms": None,
+                "library_ms": None, "edge_cases": k3_cases,
                 # per pair: 8 xor + 8 popcount + 8 adds, the window gate
                 **_bound(_nbytes(a_desc, b_desc, a_ok, b_ok, gate, k3),
                          34.0 * M * N),
                 "source": "planarslam_tpu_torch/csrc/hamming_top2.cu",
                 "replaces": "planarslam_tpu/ops/matching.py:169",
                 "max_abs_err": float(err), "tolerance": 0.0,
+                "step_timing": {
+                    k: kernel_timing_entry(fn, "hamming_top2")
+                    for k, fn in hamming_step_problems(seq, cfg,
+                                                       dev).items()},
                 "ms": _time_ms(lambda: matching.gated_hamming_top2(
                     a_desc, b_desc, a_ok, b_ok, gate)),
                 "plain_ms": _time_ms(lambda: matching.gated_hamming_top2_plain(
@@ -477,6 +492,165 @@ def kernel_parity(seq, cfg, dev) -> list:
                     lambda: planes.plane_block_moments_plain(*args))})
     _print_kernels(out)
     return out
+
+
+def _k3_problem(rng, B: int, M: int, N: int, dev, gated: bool = True):
+    """A K3 problem of B lanes: random descriptors, each column a copy of a
+    random row with 5% of its bits flipped, pixels near that row's, the
+    planted gates of kernel_parity's window search. Returns (a_desc,
+    b_desc, a_ok, b_ok, gate or None), every tensor with the leading B."""
+    import torch
+
+    from planarslam_tpu_torch.ops import matching
+
+    def t(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    a = rng.integers(-2 ** 31, 2 ** 31, (B, M, 8)).astype(np.int64)
+    src = rng.integers(0, M, (B, N))
+    flips = rng.random((B, N, 8, 32)) < 0.05
+    words = (flips * (1 << np.arange(32, dtype=np.int64))).sum(-1)
+    bd = np.take_along_axis(a, src[..., None], 1) ^ words
+    a_uv = rng.uniform(0, [640, 480], (B, M, 2))
+    lvl = rng.integers(0, 8, (B, M))
+    b_uv = np.take_along_axis(a_uv, src[..., None], 1) + rng.normal(
+        0, 2.0, (B, N, 2))
+    gate = matching.ProjGate(
+        a_uv=t(a_uv, np.float32), a_r=t(4.0 * 1.2 ** lvl, np.float32),
+        a_level=t(lvl, np.int32),
+        a_ur_pred=t(a_uv[..., 0] - 20.0, np.float32),
+        b_uv=t(b_uv, np.float32),
+        b_level=t(np.take_along_axis(lvl, src, 1), np.int32),
+        b_ur=t(np.where(rng.random((B, N)) < 0.7, b_uv[..., 0] - 20.0, -1.0),
+               np.float32), level_window=1) if gated else None
+    return (t(a.astype(np.uint32).view(np.int32)),
+            t(bd.astype(np.uint32).view(np.int32)),
+            t(rng.random((B, M)) < 0.9), t(rng.random((B, N)) < 0.95),
+            gate)
+
+
+def hamming_edge_cases(cfg, dev) -> dict:
+    """K3 on planted edge cases, every output bit-equal to its plain
+    version lane by lane and two launches equal: every row dead; a row
+    with one gated-in column; N = 1; exact duplicates of the best column
+    in two column tiles (one before and one after the tile edge); N larger
+    than one tile, gated and not; windows of up to 70 pixels, pixels off
+    the image and NaN; B = 8 at the window search's shapes; and both
+    directions of a mutual match in one launch (match_descriptors'
+    problem, and N > M). Returns what each case exercised."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.ops import matching
+
+    rng = np.random.default_rng(33)
+    res = {}
+
+    def lane(x, b):
+        return None if x is None else (
+            matching.ProjGate(*[y[b] for y in x[:-1]], x.level_window)
+            if isinstance(x, matching.ProjGate) else x[b])
+
+    def held(name, prob):
+        a, bd, ao, bo, gate = prob
+        n0 = kernels.LAUNCHES["gated_hamming_top2"]
+        got = matching.gated_hamming_top2(a, bd, ao, bo, gate)
+        again = matching.gated_hamming_top2(a, bd, ao, bo, gate)
+        torch.cuda.synchronize()
+        _check(kernels.LAUNCHES["gated_hamming_top2"] == n0 + 2,
+               f"gated_hamming_top2 ({name}): not one launch per call")
+        _check(all(torch.equal(x, y) for x, y in zip(got, again)),
+               f"gated_hamming_top2 ({name}): two launches differ")
+        for b in range(a.shape[0]):
+            want = matching.gated_hamming_top2_plain(
+                *[lane(x, b) for x in prob])
+            _check(all(torch.equal(x[b], y) for x, y in zip(got, want)),
+                   f"gated_hamming_top2 ({name}): lane {b} differs from "
+                   f"its plain version")
+        res[name] = {"B": int(a.shape[0]), "M": int(a.shape[1]),
+                     "N": int(bd.shape[1]), "gated": gate is not None,
+                     "live_rows": int(ao.sum()),
+                     "matched": int((got[0] < matching.INF_DIST).sum()),
+                     "ties_at_best": int(((got[0] == got[1])
+                                          & (got[0] < matching.INF_DIST))
+                                         .sum())}
+        return got
+
+    N = cfg.orb.max_keypoints
+    dead = list(_k3_problem(rng, 1, 256, N, dev))
+    dead[2] = torch.zeros_like(dead[2])
+    got = held("all_rows_dead", dead)
+    _check(bool((got[0] == matching.INF_DIST).all()
+                & (got[1] == matching.INF_DIST).all()
+                & (got[2] == 0).all()),
+           "gated_hamming_top2: a dead row must give (10000, 10000, 0)")
+    one = list(_k3_problem(rng, 1, 64, N, dev))
+    g = one[4]
+    uv, lvl, urp = g.a_uv.clone(), g.a_level.clone(), g.a_ur_pred.clone()
+    uv[0, 0] = g.b_uv[0, 17]  # row 0 sits on column 17 alone
+    lvl[0, 0] = g.b_level[0, 17]
+    urp[0, 0] = g.b_uv[0, 17, 0] - 20.0
+    one[4] = g._replace(a_uv=uv, a_level=lvl, a_ur_pred=urp,
+                        a_r=torch.full_like(g.a_r, 1e-3))
+    one[2][0, 0], one[3][0, 17] = True, True
+    got = held("one_gated_in_column", one)
+    _check(int(got[2][0, 0]) == 17 and int(got[1][0, 0])
+           == matching.INF_DIST, "gated_hamming_top2: the one gated-in "
+           "column is not row 0's best with nothing second")
+    held("n_1", _k3_problem(rng, 1, 300, 1, dev))
+    held("n_1_ungated", _k3_problem(rng, 1, 300, 1, dev, gated=False))
+    tie = list(_k3_problem(rng, 1, 48, 2500, dev, gated=False))
+    bd = tie[1].clone()
+    bd[0, 1500] = bd[0, 5] = tie[0][0, 3]  # row 3's exact copy, twice
+    tie[1] = bd
+    tie[2][0, 3], tie[3][0, 5], tie[3][0, 1500] = True, True, True
+    got = held("duplicate_best_across_tiles", tie)
+    _check(int(got[0][0, 3]) == 0 and int(got[1][0, 3]) == 0
+           and int(got[2][0, 3]) == 5, "gated_hamming_top2: the tied "
+           "best must keep the lower column and give second == best")
+    held("n_above_tile_gated", _k3_problem(rng, 1, 700, 2500, dev))
+    # rows on 32-pixel grid lines, radii of 1-70 pixels, columns off the
+    # image and a NaN pixel on either side
+    wide = list(_k3_problem(rng, 1, 600, N, dev))
+    g = wide[4]
+    uv, bv = g.a_uv.clone(), g.b_uv.clone()
+    edge = rng.integers(0, 20, (64, 2)) * 32 + rng.choice([-0.5, 0.0, 0.5],
+                                                         (64, 2))
+    uv[0, :64] = torch.from_numpy(edge.astype(np.float32)).to(dev)
+    uv[0, 70, 1] = float("nan")
+    bv[0, :20] = torch.from_numpy(rng.uniform(-100, 1200, (20, 2)).astype(
+        np.float32)).to(dev)
+    bv[0, 20, 0] = float("nan")
+    wide[4] = g._replace(a_uv=uv, b_uv=bv, a_r=torch.from_numpy(
+        rng.uniform(1.0, 70.0, (1, 600)).astype(np.float32)).to(dev))
+    held("wide_windows", wide)
+    held("b8_window", _k3_problem(rng, 8, MATCH_WINDOW, N, dev))
+
+    # both directions in one launch, against the two plain problems
+    for name, (m, n) in (("mutual", (N, N)), ("mutual_n_above_m",
+                                               (300, 1700))):
+        a, bd, ao, bo, _ = _k3_problem(rng, 2, m, n, dev, gated=False)
+        n0 = kernels.LAUNCHES["gated_hamming_top2"]
+        got = matching.mutual_hamming_top2(a, bd, ao, bo)
+        again = matching.mutual_hamming_top2(a, bd, ao, bo)
+        torch.cuda.synchronize()
+        _check(kernels.LAUNCHES["gated_hamming_top2"] == n0 + 2,
+               f"mutual_hamming_top2 ({name}): not one launch per call")
+        _check(all(torch.equal(x, y) for x, y in zip(got, again)),
+               f"mutual_hamming_top2 ({name}): two launches differ")
+        for b in range(2):
+            fwd = matching.gated_hamming_top2_plain(a[b], bd[b], ao[b], bo[b])
+            back = matching.gated_hamming_top2_plain(bd[b], a[b], bo[b],
+                                                     ao[b])[2]
+            _check(all(torch.equal(x[b], y) for x, y in
+                       zip(got, (*fwd, back))),
+                   f"mutual_hamming_top2 ({name}): lane {b} differs from "
+                   f"its plain version")
+        res[name] = {"B": 2, "M": m, "N": n,
+                     "mutual_pairs": int((got[3].gather(
+                         1, got[2].long()) == torch.arange(
+                             m, device=dev)[None]).sum())}
+    return res
 
 
 def planted_scores(rng, h: int, w: int, tile: int, n_peaks: int,
@@ -1309,7 +1483,7 @@ MATCH_WINDOW = 4096  # the local-map window's point slots (WIN_PTS)
 # the matching launches of one tracking step (device_tracker._track_core):
 # two projection searches, match_descriptors, the frame-match selection, the
 # line and the point observations
-MATCH_PER_STEP = {"project_landmarks": 2, "gated_hamming_top2": 4,
+MATCH_PER_STEP = {"project_landmarks": 2, "gated_hamming_top2": 3,
                   "match_select": 3, "frame_match_select": 1,
                   "assemble_observations": 2}
 
@@ -1388,6 +1562,98 @@ def _matching_problems(seq, cfg, dev, rng) -> dict:
                   world(lines0.p3d_e).repeat(lreps, 1),
                   lines0.desc.repeat(lreps, 1),
                   (lines0.has_3d & lines0.valid).repeat(lreps))}
+
+
+def hamming_step_problems(seq, cfg, dev) -> dict:
+    """K3's launches of one tracking step at the main path's shapes, on
+    _matching_problems' frames 0 -> 1: the frame search (1024 x 1024,
+    gated), the window search (4096 x 1024, gated), match_descriptors'
+    two directions (1024 x 1024 each, ungated; one launch where the tree
+    has mutual_hamming_top2, else two), and the window search at B = 4
+    lanes in one launch. Returns {name: fn}, fn() launching them."""
+    import torch
+
+    from planarslam_tpu_torch.ops import matching as mt
+
+    cam = cfg.camera
+    probs = _matching_problems(seq, cfg, dev, np.random.default_rng(24))
+    p1, last, T_cw = probs["f1"].points, probs["last"], probs["T_cw"]
+    out = {}
+    for case in ("frame", "window"):
+        c = probs[case]
+        proj = mt.project_landmarks(
+            c["pts_w"][None], c["valid"][None], T_cw[None],
+            K=(cam.fx, cam.fy, cam.cx, cam.cy),
+            image_wh=(float(cam.width), float(cam.height)), bf=cam.bf,
+            scale_factor=cfg.orb.scale_factor, radius=c["radius"],
+            view_normals=None if case == "frame" else c["view_normals"][None],
+            dist_range=None if case == "frame" else tuple(
+                d[None] for d in c["dist_range"]))
+        gate = mt.ProjGate(*proj[:4], p1.uv[None], p1.level[None],
+                           p1.u_right[None], c["level_window"])
+        args = (c["descs"][None], p1.desc[None], proj.gate_pt, p1.valid[None])
+        out[case] = (lambda a=args, g=gate: mt.gated_hamming_top2(*a, g))
+        if case == "window":
+            a4 = [torch.cat([x] * 4).contiguous() for x in args]
+            g4 = mt.ProjGate(*[torch.cat([x] * 4).contiguous()
+                               for x in gate[:-1]], gate.level_window)
+            out["window_b4"] = (lambda a=a4, g=g4:
+                                mt.gated_hamming_top2(*a, g))
+    da, db = last.feats.points.desc[None], p1.desc[None]
+    va, vb = last.valid3d[None], p1.valid[None]
+    if hasattr(mt, "mutual_hamming_top2"):
+        out["descriptors"] = lambda: mt.mutual_hamming_top2(da, db, va, vb)
+    else:
+        out["descriptors"] = lambda: (
+            *mt.gated_hamming_top2(da, db, va, vb),
+            mt.gated_hamming_top2(db, da, vb, va)[2])
+    return out
+
+
+def kernel_timing_entry(fn, match: str) -> dict:
+    """One kernel problem's times: ms per wrapper call (CUDA events) and
+    its device ms per call under the profiler (launches whose kernel name
+    holds `match`), with the launches per call."""
+    split = _launch_split(fn, match=match)
+    return {"ms": _time_ms(fn),
+            "device_ms": sum(v["ms"] for v in split.values()),
+            "launches": sum(v["calls"] for v in split.values())}
+
+
+def components_inputs(seq, cfg, dev):
+    """K12's inputs at the main path's shapes: K4's block moments of frame
+    0 of `seq` (lane 0) and of path 5's lane sequences 1-7, quantized, in
+    one batch of 8. Returns (stats, hb, wb)."""
+    import torch
+
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import planes as P
+
+    pc, cam = cfg.planes, cfg.camera
+    factor = cam.depth_map_factor
+    depths = []
+    for b in range(8):
+        s = seq if b == 0 else _lane_sequence(cfg, b)
+        _, d16 = quantize_frame(*s.render(0), factor)
+        depths.append(d16.astype(np.float32) / np.float32(factor))
+    depth = torch.from_numpy(np.stack(depths)).to(dev)
+    h, w = depth.shape[-2:]
+    alpha = P._noise_alpha(depth, pc.max_distance)
+    stats = P.plane_block_moments(depth, alpha, cam, P._geo_tol(w),
+                                  pc.max_distance, pc.block)
+    return stats, h // pc.block, w // pc.block
+
+
+def components_problems(seq, cfg, dev) -> dict:
+    """K12 on components_inputs: lane 0 alone ("b1") and all eight lanes
+    in one launch ("b8"). Returns {name: fn}, fn() launching it."""
+    from planarslam_tpu_torch.ops import planes as P
+
+    pc = cfg.planes
+    stats, hb, wb = components_inputs(seq, cfg, dev)
+    one = P._BlockStats(*[x[:1].contiguous() for x in stats])
+    return {"b1": lambda: P.plane_components(one, hb, wb, pc),
+            "b8": lambda: P.plane_components(stats, hb, wb, pc)}
 
 
 def _distinct(idx) -> int:
@@ -1505,12 +1771,25 @@ def matching_kernel_parity(seq, cfg, dev) -> list:
         top2[case] = (mt.gated_hamming_top2(probs[case]["descs"], p1.desc,
                                             g.gate_pt[0], p1.valid, gate),
                       dict(max_dist=cfg.matcher.th_high, n_targets=n))
-    fwd = mt.gated_hamming_top2(last.feats.points.desc, p1.desc,
-                                last.valid3d, p1.valid)
-    back = mt.gated_hamming_top2(p1.desc, last.feats.points.desc, p1.valid,
-                                 last.valid3d)[2]
+    # match_descriptors' two directions in one K3 launch
+    *fwd, back = (x[0] for x in twice_same(
+        mt.mutual_hamming_top2, last.feats.points.desc[None], p1.desc[None],
+        last.valid3d[None], p1.valid[None]))
     top2["descriptors"] = (fwd, dict(max_dist=cfg.matcher.th_low, ratio=0.9,
                                      back=back))
+    plain_back = mt.gated_hamming_top2_plain(
+        p1.desc, last.feats.points.desc, p1.valid, last.valid3d)[2]
+    for case, (t3, kw) in top2.items():
+        a, b, ao, bo, gate = (
+            (probs[case]["descs"], p1.desc, proj[case][0].gate_pt[0],
+             p1.valid, mt.ProjGate(*[x[0] for x in proj[case][0][:4]],
+                                   p1.uv, p1.level, p1.u_right,
+                                   probs[case]["level_window"]))
+            if case != "descriptors" else
+            (last.feats.points.desc, p1.desc, last.valid3d, p1.valid, None))
+        held(f"gated_hamming_top2 ({case})", t3,
+             mt.gated_hamming_top2_plain(a, b, ao, bo, gate))
+    held("mutual_hamming_top2 (back)", [back], [plain_back])
     sel = {}
     for case, (t3, kw) in top2.items():
         bat = [t[None] for t in t3]
@@ -2672,6 +2951,96 @@ def _component_fits_f64(stats, cand, p_cap: int):
     return P._plane_from_moments(s1, s2, top_n)[:2] + (ev[:, 1] - ev[:, 0],)
 
 
+def components_compare(stats, hb: int, wb: int, pc, exact: bool):
+    """K12 on one frame's block moments against its plain version (the
+    limits of plane_segment_compare), two launches equal bits. Returns
+    (the kernel's PlaneCandidates, the errors)."""
+    import torch
+
+    from planarslam_tpu_torch.ops import planes as P
+
+    got = P.plane_components(stats, hb, wb, pc)
+    again = P.plane_components(stats, hb, wb, pc)
+    want = P.plane_components_plain(stats, hb, wb, pc)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(got, again)),
+           "plane_components: two launches on equal inputs differ")
+    nb = hb * wb
+    k12 = {"block_valid_differ": int((got.block_valid != want.block_valid)
+                                     .sum()),
+           "labels_differ": int((got.labels != want.labels).sum()),
+           "cand_valid_differ": int((got.valid != want.valid).sum()),
+           "candidates": int(want.valid.sum()),
+           "valid_blocks": int(want.block_valid.sum())}
+    v = want.valid
+    ref = _component_fits_f64(stats, want, pc.max_planes)
+
+    def per_plane(a, b):  # (P,) largest |normal| or |d| difference
+        return torch.maximum(
+            (a.normal.double() - b[0]).abs().amax(dim=-1),
+            (a.d.double() - b[1]).abs())
+
+    ek, ep = per_plane(got, ref), per_plane(want, ref)
+    well = v & (ref[2] >= MIN_EIGEN_GAP)
+    k12.update(
+        well_conditioned=int(well.sum()),
+        max_abs_err=float(per_plane(got, (want.normal, want.d))[well].max()),
+        kernel_vs_f64=ek[v].tolist(), plain_vs_f64=ep[v].tolist())
+    _check(k12["well_conditioned"] > 0,
+           "plane_components: no well-conditioned candidate")
+    lim = 0 if exact else 0.005 * nb
+    _check(k12["cand_valid_differ"] == 0
+           and k12["block_valid_differ"] <= lim
+           and k12["labels_differ"] <= lim
+           and k12["max_abs_err"] <= 2e-3 + CANDIDATE_EPS
+           and bool((ek[well] <= ep[well] + CANDIDATE_EPS).all()),
+           f"plane_components differs from plain: {k12}")
+    return got, k12
+
+
+def components_lanes(seq, cfg, dev) -> dict:
+    """K12 on frame 0 of eight lanes (components_problems' inputs) in one
+    launch: each lane bit-equal to its own B = 1 launch and held to its
+    plain version (the noisy-depth limits: the lanes' frames are not
+    frame 0); and the launch captured in a CUDA graph, replayed twice,
+    bit-equal to the eager launch."""
+    import torch
+
+    from planarslam_tpu_torch.ops import planes as P
+
+    pc = cfg.planes
+    stats, hb, wb = components_inputs(seq, cfg, dev)
+    got = P.plane_components(stats, hb, wb, pc)
+    lanes = [P._BlockStats(*[x[b:b + 1].contiguous() for x in stats])
+             for b in range(stats.n.shape[0])]
+    _same_lanes("plane_components (B = 8)", got,
+                [P.plane_components(x, hb, wb, pc) for x in lanes])
+    res = {"lanes": len(lanes), "candidates": []}
+    for x in lanes:
+        _, k12 = components_compare(P._BlockStats(*[y[0] for y in x]), hb,
+                                    wb, pc, exact=False)
+        res["candidates"].append(k12["candidates"])
+    # capture: a later PR captures the step as a CUDA graph
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        P.plane_components(stats, hb, wb, pc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap = P.plane_components(stats, hb, wb, pc)
+    for _ in range(2):
+        for t in cap:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        _check(all(torch.equal(a, b) for a, b in zip(cap, got)),
+               "plane_components: the graph replay differs from the "
+               "eager launch")
+    res["graph_replay_bit_equal"] = True
+    return res
+
+
 def plane_segment_compare(depth, cfg, exact: bool) -> dict:
     """K12, the 1 + refine_rounds rounds of K13 and K14 against their plain
     versions on one depth map on the card, each stage on the kernel's own
@@ -2704,44 +3073,8 @@ def plane_segment_compare(depth, cfg, exact: bool) -> dict:
                                   pc.max_distance, pc.block)
     res = {"alpha": float(alpha)}
 
-    got = P.plane_components(stats, hb, wb, pc)
-    again = P.plane_components(stats, hb, wb, pc)
-    want = P.plane_components_plain(stats, hb, wb, pc)
-    torch.cuda.synchronize()
-    _check(all(torch.equal(a, b) for a, b in zip(got, again)),
-           "plane_components: two launches on equal inputs differ")
-    nb = hb * wb
-    k12 = {"block_valid_differ": int((got.block_valid != want.block_valid)
-                                     .sum()),
-           "labels_differ": int((got.labels != want.labels).sum()),
-           "cand_valid_differ": int((got.valid != want.valid).sum()),
-           "candidates": int(want.valid.sum()),
-           "valid_blocks": int(want.block_valid.sum())}
-    v = want.valid
-    ref = _component_fits_f64(stats, want, pc.max_planes)
-
-    def per_plane(a, b):  # (P,) largest |normal| or |d| difference
-        return torch.maximum(
-            (a.normal.double() - b[0]).abs().amax(dim=-1),
-            (a.d.double() - b[1]).abs())
-
-    ek, ep = per_plane(got, ref), per_plane(want, ref)
-    well = v & (ref[2] >= MIN_EIGEN_GAP)
-    k12.update(
-        well_conditioned=int(well.sum()),
-        max_abs_err=float(per_plane(got, (want.normal, want.d))[well].max()),
-        kernel_vs_f64=ek[v].tolist(), plain_vs_f64=ep[v].tolist())
-    res["plane_components"] = k12
-    _check(k12["well_conditioned"] > 0,
-           "plane_components: no well-conditioned candidate")
-    lim = 0 if exact else 0.005 * nb
-    _check(k12["cand_valid_differ"] == 0
-           and k12["block_valid_differ"] <= lim
-           and k12["labels_differ"] <= lim
-           and k12["max_abs_err"] <= 2e-3 + CANDIDATE_EPS
-           and bool((ek[well] <= ep[well] + CANDIDATE_EPS).all()),
-           f"plane_components differs from plain: {k12}")
-
+    got, res["plane_components"] = components_compare(stats, hb, wb, pc,
+                                                      exact)
     args = (depth, alpha, cam, pc)
     area = float(max(1, pc.refine_stride) ** 2)
     rounds = []
@@ -2834,6 +3167,9 @@ def plane_kernel_parity(seq, cfg, dev) -> list:
                       "float64 refit than the float32 plain run plus "
                       f"{CANDIDATE_EPS}",
          "cases": {k: c["plane_components"] for k, c in cases.items()},
+         "b8_lanes": components_lanes(seq, cfg, dev),
+         **{f"{k}_timing": kernel_timing_entry(fn, "plane_")
+            for k, fn in components_problems(seq, cfg, dev).items()},
          "ms": _time_ms(lambda: P.plane_components(stats, hb, wb, pc)),
          "plain_ms": _time_ms(
              lambda: P.plane_components_plain(stats, hb, wb, pc))},
@@ -3159,8 +3495,9 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
     extract_line_features call the DETECT_LAUNCHES of K20's one call, one
     K21 and one K22; SEARCH_LAUNCHES of K23 per search_lines_by_projection
     call; one K24 per search_by_projection call; one K3 per
-    search_by_projection call and two per match_descriptors call (rows and
-    the transposed problem: every caller checks mutual matches); one K25
+    search_by_projection call and per match_descriptors call (rows and the
+    transposed problem in one launch: every caller checks mutual matches);
+    one K25
     per search_by_projection and per match_descriptors call; one K26 per
     tracking step and per rotation_histogram_filter call; two K27 per
     tracking step (its line observations, which the first pose solve
@@ -3199,7 +3536,7 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
             "search_lines_by_projection":
                 lines.SEARCH_LAUNCHES * rec["search_calls"],
             "project_landmarks": searches,
-            "gated_hamming_top2": searches + 2 * matches,
+            "gated_hamming_top2": searches + matches,
             "match_select": searches + matches,
             "frame_match_select": steps + rec["rotation_filter_calls"],
             "assemble_observations": 2 * steps,

@@ -13,18 +13,25 @@
 // compiled with -fmad=false).
 //
 // What bounds them on an H100. K12 is a chain of dependent steps (the fits,
-// then merge_rounds x (pull, barrier, jump, barrier), then P block-wide
-// arg-max passes) over 4800 blocks, ~250 KB: latency, not bytes. One block
-// of 1024 threads keeps both label buffers and the edges in shared memory;
-// the pull reads the old labels everywhere and the jump reads only the
-// pulled ones, as the plain version's synchronous update does. K13 and K14
+// then merge_rounds x (pull, barrier, jump, barrier), then the top P) over
+// 4800 blocks, ~250 KB: latency and instructions, not bytes. Its 4800 fits
+// (~3000 cycles each, tools/kernel_phases.py) run in a first kernel, one
+// thread per block over the card, not ~5 per thread on one SM. One block
+// of 1024 threads per frame then keeps both label buffers, a neighbour mask
+// and the validity in shared memory for the rest of the chain; the pull
+// reads the old labels everywhere and the jump reads only the pulled ones,
+// as the plain version's synchronous update does, and a round that changes
+// no label ends the rounds (the rest would change none). The top P rank
+// the component roots directly, and the component sums read the blocks'
+// moments as doubles staged in shared memory. K13 and K14
 // read the depth map once (1.2 MB) and do ~100 operations per pixel, far
 // under the card's rates for either: a launch plus one pass. They recompute
 // the back-projection, the noise band and the depth gate per pixel in
 // registers, so no full-resolution temporary exists.
 //
 // Batches. Every input and output may carry a leading B of independent
-// frames, all served by one launch: K12 runs one block per frame, K13's
+// frames, all served by one launch of each kernel: K12's fits take the
+// frame from blockIdx.y and its chain one block per frame, K13's
 // assign pass takes the frame from blockIdx.y and its refit one block per
 // frame, K14 takes the frame from blockIdx.y. A block reads its frame at
 // the frame's strides, so a frame's result does not depend on B.
@@ -47,6 +54,13 @@ namespace {
 constexpr int kMaxPlanes = 32;
 constexpr int kFeat = 10;  // x y z xx xy xz yy yz zz 1
 constexpr int kCcThreads = 1024;
+constexpr int kFitThreads = 128;  // K12's fit kernel
+constexpr int kFeatStaged = 12;  // floats of a block's moments (s1, s2)
+constexpr int kChunk = 512;      // blocks of moments K12 stages at once
+constexpr int kFewRoots = 512;   // K12 ranks this many roots directly
+// K12's dynamic shared memory at most: the 227 KB a block may opt into
+// less 16 KB for its static arrays
+constexpr int kCcDynamicSmem = 232448 - 16384;
 constexpr int kPixThreads = 256;
 constexpr int kPixWarps = kPixThreads / 32;
 constexpr float kCos25 = 0.9063f;
@@ -69,94 +83,167 @@ struct CcParams {
   unsigned char* block_valid;  // (B,)
 };
 
+// CcParams of frame f of a batch: the inputs and outputs advanced by the
+// frame's strides.
+__device__ __forceinline__ CcParams cc_at(CcParams p, int f) {
+  const size_t b = f, B = static_cast<size_t>(p.hb) * p.wb;
+  p.s1 += 3 * b * B;
+  p.s2 += 9 * b * B;
+  p.n += b * B;
+  p.fit_b += 7 * b * B;
+  p.normal_c += 3 * b * p.P;
+  p.d_c += b * p.P;
+  p.cand_valid += b * p.P;
+  p.labels += b * B;
+  p.block_valid += b * B;
+  return p;
+}
+
+// K12, first kernel: the per-block plane fit and validity, one thread per
+// block of the frame blockIdx.y.
+__global__ void __launch_bounds__(kFitThreads)
+    plane_fits_kernel(const CcParams p_batch) {
+  const CcParams p = cc_at(p_batch, blockIdx.y);
+  const int i = blockIdx.x * kFitThreads + threadIdx.x;
+  if (i >= p.hb * p.wb) return;
+  float normal[3], d, mse, mean[3];
+  const float n = p.n[i];
+  psl_plane_from_moments(p.s1 + 3 * i, p.s2 + 9 * i, n, normal, &d, &mse,
+                         mean);
+  const float z = mean[2];
+  const float thr = p.mse_sigma * z * z + p.mse_tol;
+  const bool ok = n >= p.full_count && mse < thr * thr && z > 1e-6f;
+  float* f = p.fit_b + 7 * i;
+  f[0] = normal[0];
+  f[1] = normal[1];
+  f[2] = normal[2];
+  f[3] = d;
+  f[4] = mean[0];
+  f[5] = mean[1];
+  f[6] = mean[2];
+  p.block_valid[i] = ok ? 1 : 0;
+}
+
+// K12, second kernel: the rest of the chain, one block of kCcThreads per
+// frame.
 __global__ void __launch_bounds__(kCcThreads, 1)
-    plane_components_kernel(CcParams p) {
-  extern __shared__ int smem[];
+    plane_components_kernel(const CcParams p_batch) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const CcParams p = cc_at(p_batch, blockIdx.x);
   const int B = p.hb * p.wb;
-  {  // this block's frame
-    const size_t f = blockIdx.x;
-    p.s1 += 3 * f * B;
-    p.s2 += 9 * f * B;
-    p.n += f * B;
-    p.fit_b += 7 * f * B;
-    p.normal_c += 3 * f * p.P;
-    p.d_c += f * p.P;
-    p.cand_valid += f * p.P;
-    p.labels += f * B;
-    p.block_valid += f * B;
-  }
-  int* lab_a = smem;        // labels
-  int* lab_b = smem + B;    // pulled labels, then the component counts
-  unsigned char* edge_r = reinterpret_cast<unsigned char*>(smem + 2 * B);
-  unsigned char* edge_d = edge_r + B;
+  const int tid = threadIdx.x;
+  int* lab_a = reinterpret_cast<int*>(smem_raw);  // labels
+  int* lab_b = lab_a + B;  // pulled labels, then the component counts
+  // a staged chunk: rows of block fits (floats) for the edges, then the
+  // moments of kChunk blocks (doubles) for the component sums
+  double* dstage = reinterpret_cast<double*>(lab_b + B);
+  float* stage = reinterpret_cast<float*>(dstage);
+  const int cap = 2 * kFeatStaged * kChunk;  // floats
+  // per block: bit 0 an edge to the right, 1 to the left, 2 down, 3 up
+  unsigned char* nbr =
+      reinterpret_cast<unsigned char*>(dstage + kFeatStaged * kChunk);
+  unsigned char* valid = nbr + B;  // block validity
   __shared__ int top_idx[kMaxPlanes];
   __shared__ int top_cnt[kMaxPlanes];
   __shared__ float cand[kMaxPlanes][4];
   __shared__ unsigned char cand_ok[kMaxPlanes];
-  __shared__ int red_cnt[kCcThreads / 32];
-  __shared__ int red_idx[kCcThreads / 32];
-  const int tid = threadIdx.x;
+  __shared__ int list_cnt[kCcThreads / 32][kMaxPlanes];
+  __shared__ int list_idx[kCcThreads / 32][kMaxPlanes];
+  __shared__ int root_cnt[kFewRoots];
+  __shared__ int root_idx[kFewRoots];
+  __shared__ int n_roots;
   const int lane = tid & 31, warp = tid >> 5;
 
-  // per-block plane fit and validity
   for (int i = tid; i < B; i += kCcThreads) {
-    float normal[3], d, mse, mean[3];
-    const float n = p.n[i];
-    psl_plane_from_moments(p.s1 + 3 * i, p.s2 + 9 * i, n, normal, &d, &mse,
-                           mean);
-    const float z = mean[2];
-    const float thr = p.mse_sigma * z * z + p.mse_tol;
-    const bool ok = n >= p.full_count && mse < thr * thr && z > 1e-6f;
-    float* f = p.fit_b + 7 * i;
-    f[0] = normal[0];
-    f[1] = normal[1];
-    f[2] = normal[2];
-    f[3] = d;
-    f[4] = mean[0];
-    f[5] = mean[1];
-    f[6] = mean[2];
-    p.block_valid[i] = ok ? 1 : 0;
+    valid[i] = p.block_valid[i];
     lab_a[i] = i;
   }
   __syncthreads();
 
-  // coplanarity edges to the right and lower neighbour
-  for (int i = tid; i < B; i += kCcThreads) {
-    const int ix = i % p.wb, iy = i / p.wb;
-    const float* fi = p.fit_b + 7 * i;
-    bool er = false, ed = false;
-    if (p.block_valid[i]) {
-      for (int dir = 0; dir < 2; ++dir) {
-        const bool has = dir == 0 ? ix + 1 < p.wb : iy + 1 < p.hb;
-        if (!has) continue;
-        const int j = dir == 0 ? i + 1 : i + p.wb;
-        const float* fj = p.fit_b + 7 * j;
-        const float c = psl_dot3(fi, fj);
-        const float dist = fabsf(psl_dot3(fj, fi + 4) + fj[3]);
-        const bool e = c > p.angle_cos && dist < p.dist_thr &&
-                       p.block_valid[j];
-        if (dir == 0) er = e; else ed = e;
-      }
+  // coplanarity edges to the right and lower neighbour, over chunks of
+  // block rows whose fits (with the next row) are staged in shared memory
+  const int chunk_rows = max(1, cap / (7 * p.wb) - 1);
+  const float inv_wb = 1.0f / static_cast<float>(p.wb);
+  // (a thread's share of the rows is loaded one chunk ahead, as below)
+  constexpr int kRowRegs = 2 * kFeatStaged * kChunk / kCcThreads;
+  float fr[kRowRegs];
+  auto load_rows = [&](int r0) {
+    const int n7 = 7 * min(chunk_rows + 1, p.hb - r0) * p.wb;
+    const float* src = p.fit_b + static_cast<size_t>(7) * r0 * p.wb;
+#pragma unroll
+    for (int u = 0; u < kRowRegs; ++u) {
+      const int q = tid + u * kCcThreads;
+      fr[u] = q < n7 ? src[q] : 0.0f;
     }
-    edge_r[i] = er ? 1 : 0;
-    edge_d[i] = ed ? 1 : 0;
+  };
+  load_rows(0);
+  for (int r0 = 0; r0 < p.hb; r0 += chunk_rows) {
+    const int n7 = 7 * min(chunk_rows + 1, p.hb - r0) * p.wb;
+    __syncthreads();  // the previous chunk is read
+#pragma unroll
+    for (int u = 0; u < kRowRegs; ++u) {
+      const int q = tid + u * kCcThreads;
+      if (q < n7) stage[q] = fr[u];
+    }
+    __syncthreads();
+    if (r0 + chunk_rows < p.hb) load_rows(r0 + chunk_rows);
+    const int i0 = r0 * p.wb, i1 = min(r0 + chunk_rows, p.hb) * p.wb;
+    for (int i = i0 + tid; i < i1; i += kCcThreads) {
+      bool er = false, ed = false;
+      if (valid[i]) {
+        const float* fi = stage + 7 * (i - i0);
+        // the row of i within the chunk: a float quotient, corrected
+        int ry = static_cast<int>(static_cast<float>(i - i0) * inv_wb);
+        ry += (ry + 1) * p.wb <= i - i0;
+        ry -= ry * p.wb > i - i0;
+        const int ix = i - i0 - ry * p.wb, iy = r0 + ry;
+        for (int dir = 0; dir < 2; ++dir) {
+          const bool has = dir == 0 ? ix + 1 < p.wb : iy + 1 < p.hb;
+          if (!has) continue;
+          const int j = dir == 0 ? i + 1 : i + p.wb;
+          const float* fj = stage + 7 * (j - i0);
+          const float c = psl_dot3(fi, fj);
+          const float dist = fabsf(psl_dot3(fj, fi + 4) + fj[3]);
+          const bool e = c > p.angle_cos && dist < p.dist_thr && valid[j];
+          if (dir == 0) er = e; else ed = e;
+        }
+      }
+      nbr[i] = (er ? 1 : 0) | (ed ? 4 : 0);
+    }
+  }
+  __syncthreads();
+  // a block's left and upper edges are its neighbours' right and lower
+  // ones (only bits 0 and 2 of a neighbour are read)
+  for (int i = tid; i < B; i += kCcThreads) {
+    const int left = i > 0 ? (nbr[i - 1] & 1) << 1 : 0;
+    const int up = i >= p.wb ? (nbr[i - p.wb] & 4) << 1 : 0;
+    nbr[i] = nbr[i] | left | up;
   }
   __syncthreads();
 
-  // synchronous min-label pull over the 4 neighbours, then pointer jumping
+  // synchronous min-label pull over the 4 neighbours, then pointer
+  // jumping; a round that changes no label is a fixed point, so the rounds
+  // left would change none either
   for (int rnd = 0; rnd < p.merge_rounds; ++rnd) {
+#pragma unroll 4
     for (int i = tid; i < B; i += kCcThreads) {
-      const int ix = i % p.wb, iy = i / p.wb;
+      const int e = nbr[i];
       int m = lab_a[i];
-      if (edge_r[i]) m = min(m, lab_a[i + 1]);
-      if (ix > 0 && edge_r[i - 1]) m = min(m, lab_a[i - 1]);
-      if (edge_d[i]) m = min(m, lab_a[i + p.wb]);
-      if (iy > 0 && edge_d[i - p.wb]) m = min(m, lab_a[i - p.wb]);
+      if (e & 1) m = min(m, lab_a[i + 1]);
+      if (e & 2) m = min(m, lab_a[i - 1]);
+      if (e & 4) m = min(m, lab_a[i + p.wb]);
+      if (e & 8) m = min(m, lab_a[i - p.wb]);
       lab_b[i] = m;
     }
     __syncthreads();
-    for (int i = tid; i < B; i += kCcThreads) lab_a[i] = lab_b[lab_b[i]];
-    __syncthreads();
+    int changed = 0;
+#pragma unroll 4
+    for (int i = tid; i < B; i += kCcThreads) {
+      const int l = lab_b[lab_b[i]];
+      changed |= l != lab_a[i];
+      lab_a[i] = l;
+    }
+    if (!__syncthreads_or(changed)) break;
   }
 
   // component support: whole-number counts, integer atomics
@@ -166,63 +253,146 @@ __global__ void __launch_bounds__(kCcThreads, 1)
   }
   __syncthreads();
   for (int i = tid; i < B; i += kCcThreads) {
-    if (p.block_valid[i]) {
-      atomicAdd(&lab_b[lab_a[i]], static_cast<int>(p.n[i]));
+    if (valid[i]) atomicAdd(&lab_b[lab_a[i]], static_cast<int>(p.n[i]));
+  }
+  __syncthreads();
+
+  // top-P by support, ties to the lower index: the order of P arg-max
+  // passes over the counts. Only component roots count more than 0. With
+  // at most kFewRoots of them, each root's rank among the roots is counted
+  // directly, and blocks of count 0 fill the ranks left in index order;
+  // else each warp takes the P best of its range in order, marking each
+  // taken (-1), and warp 0 merges the 32 sorted lists (a key: count + 1,
+  // then the lowest index; two warp max-reductions a pick).
+  if (tid == 0) n_roots = 0;
+  __syncthreads();
+  for (int i = tid; i < B; i += kCcThreads) {
+    const int c = lab_b[i];
+    if (c > 0) {
+      const int at = atomicAdd(&n_roots, 1);
+      if (at < kFewRoots) {
+        root_cnt[at] = c;
+        root_idx[at] = i;
+      }
+    }
+  }
+  __syncthreads();
+  const int K = n_roots;
+  if (K <= kFewRoots) {
+    if (tid < K) {
+      const int c = root_cnt[tid], i = root_idx[tid];
+      int rank = 0;
+      for (int u = 0; u < K; ++u) {
+        const int cu = root_cnt[u];
+        rank += cu > c || (cu == c && root_idx[u] < i);
+      }
+      if (rank < p.P) {
+        top_idx[rank] = i;
+        top_cnt[rank] = c;
+      }
+    }
+    if (warp == 0 && K < p.P) {
+      int filled = K;  // the lowest-index blocks of count 0
+      for (int i0 = 0; filled < p.P && i0 < B; i0 += 32) {
+        const int i = i0 + lane;
+        const bool zero = i < B && lab_b[i] == 0;
+        const unsigned mask = __ballot_sync(0xffffffffu, zero);
+        const int at = filled + __popc(mask & ((1u << lane) - 1u));
+        if (zero && at < p.P) {
+          top_idx[at] = i;
+          top_cnt[at] = 0;
+        }
+        filled += __popc(mask);
+      }
+    }
+  } else {
+    const int per = (B + 31) / 32;
+    const int lo = warp * per, hi = min(B, lo + per);
+    for (int k = 0; k < p.P; ++k) {
+      int best_c = -1, best_i = INT_MAX;
+      for (int i = lo + lane; i < hi; i += 32) {
+        const int c = lab_b[i];
+        if (c > best_c) {  // ascending i per lane: the first maximum stays
+          best_c = c;
+          best_i = i;
+        }
+      }
+      const unsigned key = static_cast<unsigned>(best_c + 1);
+      const unsigned top = __reduce_max_sync(0xffffffffu, key);
+      const int top_i = static_cast<int>(~__reduce_max_sync(
+          0xffffffffu, key == top ? ~static_cast<unsigned>(best_i) : 0u));
+      if (lane == 0) {
+        list_cnt[warp][k] = static_cast<int>(top) - 1;
+        list_idx[warp][k] = top_i;
+      }
+      if (top > 0 && best_i == top_i) lab_b[best_i] = -1;  // taken
+      __syncwarp();
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int head = 0;  // this lane's next entry of list `lane`
+      for (int k = 0; k < p.P; ++k) {
+        const int c = head < p.P ? list_cnt[lane][head] : -1;
+        const int i = head < p.P ? list_idx[lane][head] : INT_MAX;
+        const unsigned key = static_cast<unsigned>(c + 1);
+        const unsigned top = __reduce_max_sync(0xffffffffu, key);
+        const int top_i = static_cast<int>(~__reduce_max_sync(
+            0xffffffffu, key == top ? ~static_cast<unsigned>(i) : 0u));
+        if (lane == 0) {
+          top_idx[k] = top_i;
+          top_cnt[k] = static_cast<int>(top) - 1;
+        }
+        if (key == top && i == top_i) ++head;
+      }
     }
   }
   __syncthreads();
 
-  // top-P by support, ties to the lower index: P arg-max passes
-  for (int k = 0; k < p.P; ++k) {
-    int best_c = -1, best_i = INT_MAX;
-    for (int i = tid; i < B; i += kCcThreads) {
-      const int c = lab_b[i];
-      if (c > best_c) {  // ascending i per thread: the first maximum stays
-        best_c = c;
-        best_i = i;
-      }
+  // per-component moment sums (warp k for component k, lane l over the
+  // blocks i = l mod 32 in ascending order, in float64), over chunks of
+  // kChunk blocks whose moments are staged in shared memory as doubles,
+  // a thread's share of the next chunk loaded while this one is summed.
+  // Then the lanes by a shuffle tree and the plane fit.
+  const int k = warp;
+  const int root = k < p.P ? top_idx[k] : -1;
+  const bool summing = k < p.P && top_cnt[k] > 0;
+  double acc[12];
+  for (int q = 0; q < 12; ++q) acc[q] = 0.0;
+  constexpr int kPerThread = kFeatStaged * kChunk / kCcThreads;
+  float v[kPerThread];
+  auto load_chunk = [&](int c0) {
+    const int cn = min(kChunk, B - c0);
+    const float* s1 = p.s1 + 3 * static_cast<size_t>(c0);
+    const float* s2 = p.s2 + 9 * static_cast<size_t>(c0);
+#pragma unroll
+    for (int u = 0; u < kPerThread; ++u) {
+      const int q = tid + u * kCcThreads;
+      v[u] = q < 3 * cn ? s1[q] : (q < 12 * cn ? s2[q - 3 * cn] : 0.0f);
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const int oc = __shfl_down_sync(0xffffffffu, best_c, off);
-      const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-      if (oc > best_c || (oc == best_c && oi < best_i)) {
-        best_c = oc;
-        best_i = oi;
-      }
-    }
-    if (lane == 0) {
-      red_cnt[warp] = best_c;
-      red_idx[warp] = best_i;
+  };
+  load_chunk(0);
+  for (int c0 = 0; c0 < B; c0 += kChunk) {
+    const int cn = min(kChunk, B - c0), c1 = c0 + cn;
+    __syncthreads();  // the previous chunk is read
+#pragma unroll
+    for (int u = 0; u < kPerThread; ++u) {
+      const int q = tid + u * kCcThreads;
+      if (q < 12 * cn) dstage[q] = static_cast<double>(v[u]);
     }
     __syncthreads();
-    if (tid == 0) {
-      for (int w = 1; w < kCcThreads / 32; ++w) {
-        if (red_cnt[w] > best_c ||
-            (red_cnt[w] == best_c && red_idx[w] < best_i)) {
-          best_c = red_cnt[w];
-          best_i = red_idx[w];
+    if (c0 + kChunk < B) load_chunk(c0 + kChunk);
+    if (summing) {
+      for (int i = c0 + lane; i < c1; i += 32) {
+        if (lab_a[i] == root && valid[i]) {
+          const double* m1 = dstage + 3 * (i - c0);
+          const double* m2 = dstage + 3 * cn + 9 * (i - c0);
+          for (int q = 0; q < 3; ++q) acc[q] += m1[q];
+          for (int q = 0; q < 9; ++q) acc[3 + q] += m2[q];
         }
       }
-      top_idx[k] = best_i;
-      top_cnt[k] = best_c;
-      lab_b[best_i] = -1;  // taken
     }
-    __syncthreads();
   }
-
-  // per-component moment sums (one warp per component) and the plane fit
-  for (int k = warp; k < p.P; k += kCcThreads / 32) {
-    const int root = top_idx[k];
-    double acc[12];
-    for (int q = 0; q < 12; ++q) acc[q] = 0.0;
-    if (top_cnt[k] > 0) {
-      for (int i = lane; i < B; i += 32) {
-        if (lab_a[i] == root && p.block_valid[i]) {
-          for (int q = 0; q < 3; ++q) acc[q] += p.s1[3 * i + q];
-          for (int q = 0; q < 9; ++q) acc[3 + q] += p.s2[9 * i + q];
-        }
-      }
-    }
+  if (k < p.P) {
     for (int q = 0; q < 12; ++q) {
       for (int off = 16; off > 0; off >>= 1) {
         acc[q] += __shfl_down_sync(0xffffffffu, acc[q], off);
@@ -606,11 +776,28 @@ PSL_API int psl_plane_components(
   p.cand_valid = cand_valid;
   p.labels = labels;
   p.block_valid = block_valid;
-  // two int label buffers and two byte edge maps per block
-  const int smem = hb * wb * (2 * static_cast<int>(sizeof(int)) + 2);
-  cudaError_t err = cudaFuncSetAttribute(
-      plane_components_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  // two int label buffers, the neighbour mask and the validity per block,
+  // and a staged chunk of kChunk blocks' moments as doubles (which must
+  // also hold two rows of block fits as floats)
+  const int B = hb * wb;
+  const int smem = B * (2 * static_cast<int>(sizeof(int)) + 2) +
+                   kChunk * kFeatStaged * static_cast<int>(sizeof(double));
+  if (smem > kCcDynamicSmem ||
+      7 * wb * min(hb, 2) > 2 * kFeatStaged * kChunk) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static int opted = 0;  // the opt-in above 48 KB, for the largest asked
+  if (smem > opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        plane_components_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = smem;
+  }
+  if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  plane_fits_kernel<<<dim3((B + kFitThreads - 1) / kFitThreads, batch),
+                      kFitThreads, 0, stream>>>(p);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   plane_components_kernel<<<batch, kCcThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());

@@ -92,6 +92,10 @@ _SIGNATURES = {
     # best_idx, stream
     "psl_gated_hamming_top2": [_P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P,
                                _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    # a_desc, b_desc, M, N, batch, a_ok, b_ok, best, second, best_idx,
+    # back_idx, stream
+    "psl_mutual_hamming_top2": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                _P],
     # own_uv, own_level, uv2, level2, has, own_T, nb_T, nb, k, fx, fy, cx,
     # cy, scale_factor, X, good, stream
     "psl_triangulate_two_view": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,

@@ -7,7 +7,9 @@ gated (M, N) problem. Its core, the gates, the Hamming distance and the
 per-row best / second-best / argmin, is kernel K3 ``gated_hamming_top2``
 (``csrc/hamming_top2.cu``); ``gated_hamming_top2_plain`` is its plain
 PyTorch version (the JAX package's +-1 matmul Hamming distance, masked,
-then two min-reductions). Around it (``csrc/matching.cu``): K24
+then two min-reductions); ``mutual_hamming_top2`` is K3 on both
+directions of a mutual match in one launch. Around it
+(``csrc/matching.cu``): K24
 ``project_landmarks``, the projection search's gates before K3; K25
 ``match_select``, the ratio and mutual checks and the duplicate resolution
 after it; K26 ``frame_match_select``, the tracking step's frame-to-frame
@@ -155,6 +157,37 @@ def gated_hamming_top2(a_desc: torch.Tensor, b_desc: torch.Tensor,
                        kernels.ptr(best_idx))
     kernels.LAUNCHES["gated_hamming_top2"] += 1
     return best, second, best_idx
+
+
+def mutual_hamming_top2(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                        valid_a: torch.Tensor, valid_b: torch.Tensor):
+    """K3 on both directions of a mutual match in one launch: the ungated
+    rows of A against B and of B against A. desc_a (B, M, 8), desc_b (B,
+    N, 8) int32, valid_a (B, M), valid_b (B, N) bool. Returns (best,
+    second, best_idx) of the rows of A, each (B, M) int32, and the
+    best_idx of the rows of B, (B, N) int32."""
+    tensors = [desc_a, desc_b, valid_a, valid_b]
+    if kernels.on_cpu(*tensors):
+        best, second, best_idx = gated_hamming_top2(*tensors)
+        back = gated_hamming_top2(desc_b, desc_a, valid_b, valid_a)[2]
+        return best, second, best_idx, back
+    (b, m), n = valid_a.shape, valid_b.shape[-1]
+    kernels.check(desc_a, "desc_a", torch.int32, (b, m, 8))
+    kernels.check(desc_b, "desc_b", torch.int32, (b, n, 8))
+    kernels.check(valid_a, "valid_a", torch.bool, (b, m))
+    kernels.check(valid_b, "valid_b", torch.bool, (b, n))
+    dev = desc_a.device
+    best, second, best_idx = (_out((b, m), torch.int32, dev)
+                              for _ in range(3))
+    back = _out((b, n), torch.int32, dev)
+    with torch.cuda.device(dev):
+        kernels.launch("psl_mutual_hamming_top2", kernels.ptr(desc_a),
+                       kernels.ptr(desc_b), m, n, b, kernels.ptr(valid_a),
+                       kernels.ptr(valid_b), kernels.ptr(best),
+                       kernels.ptr(second), kernels.ptr(best_idx),
+                       kernels.ptr(back))
+    kernels.LAUNCHES["gated_hamming_top2"] += 1
+    return best, second, best_idx, back
 
 
 def _out(shape, dtype, dev) -> torch.Tensor:
@@ -697,18 +730,21 @@ def match_descriptors(desc_a: torch.Tensor, desc_b: torch.Tensor,
                       max_dist: int = 50, ratio: float = 0.9,
                       mutual: bool = True) -> MatchResult:
     """Brute-force descriptor matching a->b with Lowe ratio and an optional
-    mutual check: K3 on the rows (and on the transposed problem), then
-    K25. desc_a (M, 8), desc_b (N, 8), valid_a (M,), valid_b (N,), or B
-    problems with a leading B (the result then has it too)."""
+    mutual check: K3 on the rows (with the mutual check, on the transposed
+    problem too, in the same launch), then K25. desc_a (M, 8), desc_b (N,
+    8), valid_a (M,), valid_b (N,), or B problems with a leading B (the
+    result then has it too)."""
     one = desc_a.dim() == 2
     if one:
         desc_a, desc_b, valid_a, valid_b = (
             t[None] for t in (desc_a, desc_b, valid_a, valid_b))
-    best, second, best_idx = gated_hamming_top2(desc_a, desc_b, valid_a,
-                                                valid_b)
     back = None
     if mutual:
-        back = gated_hamming_top2(desc_b, desc_a, valid_b, valid_a)[2]
+        best, second, best_idx, back = mutual_hamming_top2(
+            desc_a, desc_b, valid_a, valid_b)
+    else:
+        best, second, best_idx = gated_hamming_top2(desc_a, desc_b, valid_a,
+                                                    valid_b)
     idx, dist = match_select(best, second, best_idx, max_dist, ratio=ratio,
                              back=back)
     return MatchResult(idx[0], dist[0]) if one else MatchResult(idx, dist)

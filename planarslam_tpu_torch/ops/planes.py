@@ -404,8 +404,8 @@ class PlaneRefit(NamedTuple):
     alive: torch.Tensor      # (P,) bool: the planes this round assigned to
 
 
-# most blocks K12's one thread block holds in shared memory (two int32
-# label buffers and two byte edge maps per block) and most planes K12-K14
+# most blocks K12's chain block holds in shared memory (two int32 label
+# buffers, two byte edge maps and a validity byte per block) and most planes K12-K14
 # keep per thread block
 MAX_BLOCKS = 16384
 MAX_PLANES = 32
@@ -495,8 +495,9 @@ def plane_components(stats: _BlockStats, hb: int, wb: int,
     over the hb x wb block grid, B = hb * wb in row-major order. Returns
     the P = cfg.max_planes candidate planes with their validity, and every
     block's component label and validity. Stats of F frames, each field
-    with a leading F, are one launch of F thread blocks, and every output
-    then has the leading F."""
+    with a leading F, are one C call for all frames (two launches: the
+    block fits over the card, then one thread block per frame for the rest
+    of the chain), and every output then has the leading F."""
     lead = tuple(stats.n.shape[:-1])
     if kernels.on_cpu(*stats):
         if not lead:

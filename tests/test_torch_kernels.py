@@ -1,4 +1,4 @@
-"""The hand-written Hopper kernels (K1-K35) against their plain PyTorch
+"""The hand-written Hopper kernels (K1-K36) against their plain PyTorch
 versions on the card. These need a GPU: without one every test skips.
 
     python -m pytest tests/test_torch_kernels.py -q     # on the GPU machine
@@ -94,6 +94,27 @@ def test_gated_hamming_top2(dev, gated):
     want = matching.gated_hamming_top2_plain(t(a), t(b), a_ok, b_ok, gate)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_hamming_edge_cases(dev):
+    """K3 on chip_smoke.py's planted edge cases (every row dead, one
+    gated-in column, N = 1, duplicate best columns across two tiles, N
+    above one tile, B = 8, both directions of a mutual match in one
+    launch): bit-equal to its plain version, two launches equal."""
+    res = _held(chip_smoke.hamming_edge_cases, SystemConfig(), dev)
+    assert res["one_gated_in_column"]["matched"] == 1
+    assert res["mutual"]["mutual_pairs"] > 100
+
+
+def test_plane_components_lanes(dev):
+    """K12 on eight lanes in one launch bit-equal to each lane's own
+    launch and held to its plain version, and its launch captured in a
+    CUDA graph replaying the eager bits."""
+    seq = synthetic.make_sequence(chip_smoke.TRACKING_FRAMES, width=640,
+                                  height=480)
+    res = _held(chip_smoke.components_lanes, seq, SystemConfig(), dev)
+    assert res["lanes"] == 8 and res["graph_replay_bit_equal"]
+    assert min(res["candidates"]) >= 2
 
 
 def test_plane_block_moments(frame):

@@ -1,0 +1,256 @@
+#!/usr/bin/env python3
+"""Time the phases inside K3 (gated_hamming_top2) and K12
+(plane_components) on a GPU.
+
+    python3 tools/kernel_phases.py
+
+Copies csrc/hamming_top2.cu and csrc/plane_segment.cu into
+build/kernel_phases/, inserts clock64 (and, in K3, %globaltimer) reads at
+the phase comments the sources carry, builds each copy with the build's
+own flags into a library of its own, and runs the wrappers of this
+checkout with those entry points in place of the built ones:
+- K3 on chip_smoke.py's `hamming_step_problems` (one tracking step's
+  frame search, window search and match_descriptors' launch, and the
+  window search at B = 4): per block the cycles of its phases (the rows'
+  validity, staging the tile, the walk, the merge; median and largest
+  over the blocks that ran them all), the blocks' start skew and the
+  launch's span;
+- K12's chain kernel (block 0) on `components_problems`' lane 0: the
+  cycles of each phase from the validity copy to the end, median of five
+  launches after one, and one block fit's cycles alone (one thread).
+Prints one JSON object with the card's name and power limit. The marks
+move where the code between them runs, not what it computes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+OUT = os.path.join(HERE, "build", "kernel_phases")
+K3_BLOCKS = 8192  # per-block mark rows: the largest grid timed (B = 4)
+K3_MARK = ("if (threadIdx.x == 0) {{ long long g; asm volatile(\"mov.u64 "
+           "%0, %%globaltimer;\" : \"=l\"(g)); const int b = blockIdx.y * "
+           "gridDim.x + blockIdx.x; psl_phase[b][{k}] = clock64(); "
+           "psl_phase[b][8 + {k}] = g; }}")
+K3_PHASES = ("rows", "stage", "walk", "merge")
+# K3: (anchor, mark index, before the anchor or after it)
+K3_ANCHORS = (
+    ("  // the rows' validity is asked first, then the first column tile's"
+     " loads", 0, True),
+    ("  // shared column tile: the descriptor halves", 1, True),
+    ("    __syncthreads();\n    if (active) {\n      // four independent "
+     "columns per step", 2, "after_sync"),
+    ("  // the partial triples of a slot: inside a warp by shuffles", 3,
+     True),
+    ("              acc.idx);\n  }\n}\n", 4, "end"))
+K12_MARK = ("if (threadIdx.x == 0 && blockIdx.x == 0) psl_phase[{k}] = "
+            "clock64();")
+K12_PHASES = ("valid_copy", "edges", "neighbour_mask", "label_rounds",
+              "counts", "top_p_compact", "top_p_rank", "sums", "fits",
+              "dedup")
+K12_ANCHORS = (
+    "  for (int i = tid; i < B; i += kCcThreads) {\n    valid[i] = "
+    "p.block_valid[i];",
+    "  // coplanarity edges to the right",
+    "  // a block's left and upper edges are its neighbours'",
+    "  // synchronous min-label pull",
+    "  // component support: whole-number",
+    "  // top-P by support",
+    "  const int K = n_roots;",
+    "  // per-component moment sums",
+    "  if (k < p.P) {",
+    "  // dedup: a candidate")
+K12_END = ("    p.cand_valid[tid] = (cand_ok[tid] && !shadowed) ? 1 : 0;\n"
+           "  }\n}\n")
+K12_FIT = r"""
+__global__ void phase_fit_kernel(const float* s1, const float* s2,
+                                 const float* n, int i, long long* out,
+                                 float* res) {
+  float normal[3], d, mse, mean[3], s2v[9];
+  const float s1v[3] = {s1[3 * i], s1[3 * i + 1], s1[3 * i + 2]};
+  for (int q = 0; q < 9; ++q) s2v[q] = s2[9 * i + q];
+  const float nv = n[i];
+  const long long t0 = clock64();
+  psl_plane_from_moments(s1v, s2v, nv, normal, &d, &mse, mean);
+  out[0] = clock64() - t0;
+  res[0] = normal[0] + d + mse + mean[0];
+}
+extern "C" int psl_phase_fit(const float* s1, const float* s2,
+                             const float* n, int i, long long* out,
+                             float* res) {
+  phase_fit_kernel<<<1, 1>>>(s1, s2, n, i, out, res);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+READ = ('\nextern "C" int psl_phase_read(void* out, int bytes) {\n'
+        '  return static_cast<int>(cudaMemcpyFromSymbol(out, psl_phase, '
+        'bytes));\n}\n')
+
+
+def _mark(src: str, anchor: str, mark: str, where) -> str:
+    if src.count(anchor) != 1:
+        raise RuntimeError(f"phase anchor not found once: {anchor!r}")
+    if where == "after_sync":
+        head, tail = anchor.split("\n", 1)
+        return src.replace(anchor, f"{head}\n    {mark}\n{tail}")
+    if where == "end":
+        return src.replace(anchor,
+                           f"{anchor[:-2]}  __syncthreads();\n  {mark}\n}}\n")
+    return src.replace(anchor, f"{mark}\n{anchor}")
+
+
+def _k3_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "hamming_top2.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", f"__device__ long long psl_phase"
+                      f"[{K3_BLOCKS}][16];\nnamespace {{\n", 1)
+    for anchor, k, where in K3_ANCHORS:
+        src = _mark(src, anchor, K3_MARK.format(k=k), where)
+    return src + READ
+
+
+def _k12_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "plane_segment.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", "__device__ long long psl_phase[16];"
+                      "\nnamespace {\n", 1)
+    for k, anchor in enumerate(K12_ANCHORS):
+        src = _mark(src, anchor, K12_MARK.format(k=k), True)
+    src = _mark(src, K12_END, K12_MARK.format(k=len(K12_ANCHORS)), "end")
+    return src + K12_FIT + READ
+
+
+def _build(kernels, name: str, src: str, flags) -> ctypes.CDLL:
+    path = os.path.join(OUT, f"{name}.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    lib = os.path.join(OUT, f"lib{name}.so")
+    # fast_score.cu carries psl_error_string, which kernels.launch calls
+    run = subprocess.run(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, *flags, "-I", kernels.CSRC,
+         "-shared", "-o", lib, path, os.path.join(kernels.CSRC,
+                                                  "fast_score.cu")],
+        capture_output=True, text=True)
+    if run.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}: {run.stderr}")
+    return ctypes.CDLL(lib)
+
+
+class _Swap:
+    """The built library with some entry points taken from another."""
+
+    def __init__(self, real, other, names):
+        self.real, self.other, self.names = real, other, names
+
+    def __getattr__(self, name):
+        return getattr(self.other if name in self.names else self.real, name)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_phases: no CUDA device", file=sys.stderr)
+        return 1
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.config import SystemConfig
+    from planarslam_tpu_torch.io import synthetic
+
+    spec = importlib.util.spec_from_file_location(
+        "kernel_phases_chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    os.makedirs(OUT, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    real = kernels.cuda_lib()
+    k3 = _build(kernels, "hamming_top2", _k3_source(kernels), ())
+    k12 = _build(kernels, "plane_segment", _k12_source(kernels),
+                 kernels.SOURCE_FLAGS["plane_segment.cu"])
+    entries = {"psl_gated_hamming_top2": k3, "psl_mutual_hamming_top2": k3,
+               "psl_plane_components": k12}
+    for name, lib in entries.items():
+        getattr(lib, name).argtypes = kernels._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    for lib in (k3, k12):
+        lib.psl_phase_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    cfg = SystemConfig()
+    seq = synthetic.make_sequence(smoke.TRACKING_FRAMES,
+                                  width=cfg.camera.width,
+                                  height=cfg.camera.height)
+    dev = torch.device("cuda", 0)
+    out = {"device": smi.stdout.strip(), "gated_hamming_top2": {}}
+
+    kernels._lib = _Swap(real, k3, set(entries) - {"psl_plane_components"})
+    marks = np.zeros((K3_BLOCKS, 16), np.int64)
+    for name, fn in smoke.hamming_step_problems(seq, cfg, dev).items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        k3.psl_phase_read(marks.ctypes.data_as(ctypes.c_void_p),
+                          marks.nbytes)
+        before = marks.copy()
+        fn()
+        torch.cuda.synchronize()
+        k3.psl_phase_read(marks.ctypes.data_as(ctypes.c_void_p),
+                          marks.nbytes)
+        # the blocks this launch ran: their marks moved
+        ran = marks[:, 8] != before[:, 8]
+        full = ran & (marks[:, 12] != before[:, 12])
+        g0 = marks[ran, 8].min()
+        cyc = marks[full, 1:5] - marks[full, 0:4]
+        out["gated_hamming_top2"][name] = {
+            "blocks_ran": int(ran.sum()), "blocks_full": int(full.sum()),
+            "span_us": float((marks[ran, 8:13].max() - g0) / 1e3),
+            "start_skew_us": float((marks[ran, 8].max() - g0) / 1e3),
+            "cycles_median": dict(zip(K3_PHASES,
+                                      np.median(cyc, 0).tolist())),
+            "cycles_max": dict(zip(K3_PHASES, cyc.max(0).tolist()))}
+
+    kernels._lib = _Swap(real, k12, {"psl_plane_components"})
+    fn = smoke.components_problems(seq, cfg, dev)["b1"]
+    t = np.zeros(16, np.int64)
+    rows = []
+    for rep in range(6):
+        fn()
+        torch.cuda.synchronize()
+        k12.psl_phase_read(t.ctypes.data_as(ctypes.c_void_p), t.nbytes)
+        if rep:
+            rows.append(np.diff(t[:len(K12_PHASES) + 1]))
+    stats, _, _ = smoke.components_inputs(seq, cfg, dev)
+    cyc = torch.zeros(1, dtype=torch.int64, device=dev)
+    res = torch.zeros(1, device=dev)
+    k12.psl_phase_fit.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fits = []
+    for i in (0, 100, 2000, 2401, 4000):
+        for _ in range(2):
+            k12.psl_phase_fit(stats.s1.data_ptr(), stats.s2.data_ptr(),
+                              stats.n.data_ptr(), i, cyc.data_ptr(),
+                              res.data_ptr())
+        fits.append(int(cyc.item()))
+    out["plane_components"] = {
+        "cycles_median": dict(zip(K12_PHASES,
+                                  np.median(rows, 0).tolist())),
+        "one_fit_cycles": fits}
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                             "--format=csv,noheader"], capture_output=True,
+                            text=True)
+    out["sm_clock"] = clocks.stdout.strip()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
-"""Time K11 (pose_optimize) and K20 (detect_lines) of one tree of the port
-on a GPU, so that two trees can be compared in one run.
+"""Time K3 (gated_hamming_top2), K11 (pose_optimize), K12
+(plane_components) and K20 (detect_lines) of one tree of the port on a
+GPU, so that two trees can be compared in one run.
 
     python3 tools/kernel_timing.py [--root DIR]
 
 --root is the checkout whose planarslam_tpu_torch is timed (default: this
 one); its kernels are built into DIR/build/. The problems and the timing
-come from this checkout's chip_smoke.py, whatever the root: K11 on
-`pose_problem` from its usual start, from the true pose ("converged") and
-from 0.1 rad / 0.1 m off ("far"), timed by `pose_timing` (per call, device
-time, per LM step); K20 on frame 0 of the 640x480 synthetic room after its
-5-tap blur, timed by `detect_timing` (per call, device time by launch).
-Prints one JSON object with the card's name and power limit, those times
-and a hash of each output, so that two trees' outputs can be compared bit
-for bit.
+come from this checkout's chip_smoke.py, whatever the root: K3 on the
+launches of one tracking step (`hamming_step_problems`: the frame search,
+the window search, match_descriptors' two directions, one launch or two
+as the tree has them) and on the window search at B = 4, each timed by
+`kernel_timing_entry` (per wrapper call, device time and launches per
+call), with their device time per tracking step; K11 on `pose_problem`
+from its usual start, from the true pose ("converged") and from 0.1 rad /
+0.1 m off ("far"), timed by `pose_timing` (per call, device time, per LM
+step); K12 on frame 0's block moments at B = 1 and on eight lanes' at B =
+8 (`components_problems`); K20 on frame 0 of the 640x480 synthetic room
+after its 5-tap blur, timed by `detect_timing` (per call, device time by
+launch). Prints one JSON object with the card's name and power limit,
+those times and a hash of each output, so that two trees' outputs can be
+compared bit for bit.
 """
 
 from __future__ import annotations
@@ -83,7 +90,20 @@ def main(argv=None) -> int:
             "hash": _digest(pose_opt.pose_optimize(*args, **kw)),
             **smoke.pose_timing(args, kw)}
 
-    seq = synthetic.make_sequence(1, width=cam.width, height=cam.height)
+    seq = synthetic.make_sequence(smoke.TRACKING_FRAMES, width=cam.width,
+                                  height=cam.height)
+    k3 = {}
+    for name, fn in smoke.hamming_step_problems(seq, cfg, dev).items():
+        k3[name] = {"hash": _digest(fn()),
+                    **smoke.kernel_timing_entry(fn, "hamming_top2")}
+    k3["device_ms_per_step"] = sum(k3[n]["device_ms"] for n in (
+        "frame", "window", "descriptors"))
+    out["gated_hamming_top2"] = k3
+    out["plane_components"] = {
+        name: {"hash": _digest(fn()),
+               **smoke.kernel_timing_entry(fn, "plane_")}
+        for name, fn in smoke.components_problems(seq, cfg, dev).items()}
+
     g8, _ = quantize_frame(*seq.render(0), cam.depth_map_factor)
     gray = torch.from_numpy(g8.astype(np.float32)).to(dev)
     blurred = image.gaussian_blur(gray, 5, 1.0)[None]

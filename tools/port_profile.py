@@ -36,7 +36,9 @@ surface_normals before), device_tracker._associate_planes_device (K30;
 with plane_observations before) and device_tracker.finish_step (K31;
 keyframe_stats, _pack and _state_from before)),
 the host time and the device time of its kernels, the busy share of the
-device over the window, the device time of the hand-written kernels, the
+device over the window, the device time and launches of each
+hand-written kernel per frame (K1-K36, `port_kernels_ms_per_frame`; their
+share of the busy time, and every other device event by name), the
 host-to-device copies per frame, and the top kernels by device time.
 Writes the chrome trace to DIR/port_trace.json when --out is given.
 
@@ -70,32 +72,62 @@ SPAN_MODULES = ("frontend", "lines", "planes", "manhattan", "matching",
                 "pose_opt", "device_tracker", "device_mapper",
                 "local_mapping", "tracking", "loop_closing", "pose_graph",
                 "global_ba", "local_ba", "ba_core")
-# entry names of the hand-written kernels in the trace
-PORT_KERNELS = ("fast_score_kernel", "fast_score_levels_kernel",
-                "orb_describe_kernel", "orb_describe_levels_kernel",
-                "pyramid_resize_kernel", "gaussian_blur_kernel",
-                "select_tiles_kernel", "select_rank_kernel",
-                "point_epilogue_kernel",
-                "hamming_top2_kernel", "_plane_block_moments_kernel",
-                "triangulate_kernel", "horn_align_kernel", "pnp_dlt_kernel",
-                "normal_eqs_", "schur_", "pose_graph_", "pose_opt_kernel",
-                "plane_components_kernel", "plane_assign_kernel",
-                "plane_refit_kernel", "plane_label_kernel",
-                "manhattan_kernel",
-                "lines_stencil_kernel", "lines_select_kernel",
-                "lines_count_rank_kernel", "lines_slot_kernel",
-                "lines_peaks_kernel", "lines_segment_kernel",
-                "lines_rank_kernel",
-                "lines_descriptor_kernel",
-                "lines_lift_kernel", "lines_search_rows_kernel",
-                "lines_search_gate_kernel", "project_landmarks_kernel",
-                "match_select_kernel", "frame_matches_kernel",
-                "assemble_observations_kernel", "noise_alpha_kernel",
-                "frame_normals_kernel", "associate_planes_kernel",
-                "finish_step_kernel", "refine_relative_kernel",
-                "plane_kf_kernel", "plane_lm_kernel", "mu_p_kernel",
-                "cost_obs_kernel", "cost_decide_kernel", "cost_select_kernel",
-                "reduced_system_kernel", "step_prelude_kernel")
+# the hand-written kernels by number and name, each with the entry names
+# (substrings of the trace's kernel names) of its launches; a trace kernel
+# counts for the first kernel whose entry name it holds
+PORT_KERNELS = {
+    "K1 fast_score": ("fast_score_kernel", "fast_score_levels_kernel"),
+    "K2 orb_describe": ("orb_describe_kernel", "orb_describe_levels_kernel"),
+    "K3 gated_hamming_top2": ("hamming_top2_kernel",),
+    "K4 plane_block_moments": ("_plane_block_moments_kernel",),
+    "K5 triangulate_two_view": ("triangulate_kernel",),
+    "K6 horn_align_batch": ("horn_align_kernel",),
+    "K7 pnp_dlt_hypotheses": ("pnp_dlt_kernel",),
+    "K8 ba_normal_eqs": ("normal_eqs_",),
+    "K9 ba_schur_eliminate": ("schur_",),
+    "K10 pose_graph_normal_eqs": ("pose_graph_",),
+    "K11 pose_optimize": ("pose_opt_kernel",),
+    "K12 plane_components": ("plane_components_kernel",
+                             "plane_fits_kernel"),
+    "K13 plane_assign_refit": ("plane_assign_", "plane_refit_kernel"),
+    "K14 plane_label_pixels": ("plane_label_kernel",),
+    "K15 manhattan_mean_shift": ("manhattan_kernel",),
+    "K16 pyramid_resize": ("pyramid_resize_kernel",),
+    "K17 gaussian_blur": ("gaussian_blur_kernel",),
+    "K18 select_keypoints": ("select_tiles_kernel", "select_rank_kernel"),
+    "K19 point_epilogue": ("point_epilogue_kernel",),
+    "K20 detect_lines": ("lines_stencil_kernel", "lines_compact_kernel",
+                         "lines_select_kernel", "lines_count_rank_kernel",
+                         "lines_slot_kernel", "lines_peaks_kernel",
+                         "lines_segment_kernel", "lines_rank_kernel"),
+    "K21 line_descriptors": ("lines_descriptor_kernel",),
+    "K22 lift_lines_3d": ("lines_lift_kernel",),
+    "K23 search_lines_by_projection": ("lines_search_rows_kernel",
+                                       "lines_search_gate_kernel"),
+    "K24 project_landmarks": ("project_landmarks_kernel",),
+    "K25 match_select": ("match_select_kernel",),
+    "K26 frame_match_select": ("frame_matches_kernel",),
+    "K27 assemble_observations": ("assemble_observations_kernel",),
+    "K28 noise_alpha": ("noise_alpha_kernel",),
+    "K29 frame_normals": ("frame_normals_kernel",),
+    "K30 associate_planes": ("associate_planes_kernel",),
+    "K31 finish_step": ("finish_step_kernel",),
+    "K32 refine_relative": ("refine_relative_kernel",),
+    "K33 ba_plane_blocks": ("plane_kf_kernel", "plane_lm_kernel",
+                            "mu_p_kernel"),
+    "K34 ba_cost_test": ("cost_obs_kernel", "cost_decide_kernel",
+                         "cost_select_kernel"),
+    "K35 ba_reduced_system": ("reduced_system_kernel",),
+    "K36 step_prelude": ("step_prelude_kernel",),
+}
+
+
+def port_kernel(trace_name: str):
+    """The PORT_KERNELS key a trace kernel belongs to, or None."""
+    for key, entries in PORT_KERNELS.items():
+        if any(e in trace_name for e in entries):
+            return key
+    return None
 
 
 def main(argv=None) -> int:
@@ -256,9 +288,19 @@ def _profile_window(args, slam, frames, seq, run: int, loop_kf,
                    and self_dev_us(e) > 0), reverse=True)
     busy_ms = sum(k[0] for k in kern) / 1e3
     n_kernels = sum(k[2] for k in kern)
-    # device time of the hand-written kernels, found by their entry names
-    port_kernels = {name: sum(k[0] for k in kern if name in k[1]) / n / 1e3
-                    for name in PORT_KERNELS}
+    # device time and launches of each hand-written kernel, and of every
+    # other device event (PyTorch's own kernels, copies, memsets)
+    port_kernels = {key: 0.0 for key in PORT_KERNELS}
+    port_launches = {key: 0.0 for key in PORT_KERNELS}
+    other = []
+    for us, name, count in kern:
+        key = port_kernel(name)
+        if key is None:
+            other.append({"name": name[:80], "ms_per_frame": us / n / 1e3,
+                          "calls_per_frame": count / n})
+        else:
+            port_kernels[key] += us / n / 1e3
+            port_launches[key] += count / n
     out = {"frames": n, "local_mapping": not args.tracking_only,
            "batched": args.batched,
            "loop_correction": args.loop_correction, "run": run,
@@ -271,6 +313,10 @@ def _profile_window(args, slam, frames, seq, run: int, loop_kf,
            "h2d_copies_per_frame": sum(
                k[2] for k in kern if "Memcpy HtoD" in k[1]) / n,
            "port_kernels_ms_per_frame": port_kernels,
+           "port_kernels_launches_per_frame": port_launches,
+           "port_kernels_share_of_busy": sum(port_kernels.values())
+           / max(busy_ms / n, 1e-12),
+           "other_kernels": other,
            "spans": spans,
            "top_kernels": [{"name": k[1][:80], "ms_per_frame": k[0] / n / 1e3,
                             "calls_per_frame": k[2] / n} for k in kern[:25]]}
