@@ -8,7 +8,7 @@ Phases, each fatal on failure:
   2. build: compile the hand-written kernels from planarslam_tpu_torch/csrc
      (one nvcc per source, in parallel), and print ptxas's registers,
      spills and stack frame for each kernel of pose_opt.cu, lines.cu,
-     hamming_top2.cu and plane_segment.cu;
+     hamming_top2.cu, plane_segment.cu, manhattan.cu and depth_normals.cu;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the 640x480 paths give it (inputs from frame 0 of the
      synthetic sequence, or from a numpy seed with planted structure), with
@@ -25,7 +25,8 @@ Phases, each fatal on failure:
      same depth with Kinect noise, also against the plain version run in
      float64; K12 also on eight lanes' frame 0 in one launch (each lane
      bit-equal to its own launch), captured in a CUDA graph and replayed;
-     K15 (Manhattan mean shift) on frame 0's normals and line directions; K16-K19 (pyramid, blur, keypoint selection, point
+     K15 (Manhattan mean shift) on frame 0's normals and line directions,
+     also on them twice over (N = 4224) and on none; K16-K19 (pyramid, blur, keypoint selection, point
      epilogue) and the all-levels launches of K1 and K2 on frame 0's
      8-level pyramid and 1000 keypoints, K18 also on a planted score map
      with ties, empty tiles and more than 4 candidates per tile, and the
@@ -47,7 +48,8 @@ Phases, each fatal on failure:
      step's tail), each bit-equal to its plain version in every output
      slot: K28 on frame 0's depth clean and with Kinect noise and on
      planted depths (no valid sample, odd and even counts, a flat plane,
-     many duplicates), K29 on the same two depths and at strides 1 and 7,
+     many duplicates), K29 on the same two depths, at strides 1, 4 (windows
+     that wrap around the image) and 7, and at B = 4 lane by lane,
      K30 on planted associations (a tie, the direct match also the most
      parallel, an empty cloud, no map plane), K30 and K31 on the last
      tracking step of two 10-frame Systems (clean, noisy), K31 on random
@@ -141,6 +143,9 @@ import numpy as np
 
 ATE_LIMIT_M = 0.010
 TIMING_REPS = 25
+# what a kernel row's "ms" is
+MS_SOURCE = ("chip_smoke.py::_time_ms: CUDA events around one wrapper "
+             "call, median of 25 calls after 3")
 TRACKING_FRAMES = 96  # path 1 (tracking alone)
 LOOP_FRAMES = 96      # path 4a
 CONSTRUCTED_FRAMES = 48  # path 4b, the first frames of a sequence of
@@ -232,7 +237,7 @@ def _launch_split(fn, reps: int = TIMING_REPS, match: str = "") -> dict:
 
 
 PTXAS_SOURCES = ("pose_opt.cu", "lines.cu", "hamming_top2.cu",
-                 "plane_segment.cu")
+                 "plane_segment.cu", "manhattan.cu", "depth_normals.cu")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2215,8 +2220,10 @@ def tail_kernel_parity(seq, cfg, dev) -> list:
     """K28-K31 against their plain versions on the card, each output slot
     bit-equal and two launches equal bits. K28 on frame 0's quantized depth
     clean and with Kinect noise and on the planted ALPHA_CASES; K29 on
-    those two depths at the 640x480 stride (13) and on the room rendered at
-    40x30 and 320x240 (strides 1 and 7, budget 2048); K30 on the planted
+    those two depths at the 640x480 stride (13), on the room rendered at
+    40x30, 160x120 and 320x240 (strides 1, 4 and 7, budget 2048; the last
+    also with boxes of 3 and 11 pixels) and on four 640x480 depths in one
+    launch (each lane bit-equal to its own launch); K30 on the planted
     PLANE_CASES; K30 and K31 on the last tracking step of a System over
     the first TAIL_FRAMES frames, clean and noisy (the map planes of frame
     0's keyframe in its window), and K31 on two
@@ -2275,14 +2282,15 @@ def tail_kernel_parity(seq, cfg, dev) -> list:
         "ms": _time_ms(lambda: P._noise_alpha(d0, mx)),
         "plain_ms": _time_ms(lambda: P.noise_alpha_plain(d0, mx))})
 
-    # K29 at the 640x480 stride and at strides 1 and 7
+    # K29 at the 640x480 stride and at strides 1, 4 (windows that wrap
+    # around the image: off = 2 < b = 3) and 7
     k = pcfg.smooth_window
     budget = cfg.manhattan.max_normals
     stride = _normal_stride(cfg)
     normals = {}
     probs = {name: (torch.from_numpy(d).to(dev), cam, stride)
              for name, d in depths.items()}
-    for hs, ws in ((30, 40), (240, 320)):
+    for hs, ws in ((30, 40), (120, 160), (240, 320)):
         small = cfg.tiny(height=hs, width=ws).replace(
             manhattan=dataclasses.replace(cfg.manhattan, max_normals=budget))
         g8, d16 = quantize_frame(*synthetic.make_sequence(
@@ -2296,9 +2304,27 @@ def tail_kernel_parity(seq, cfg, dev) -> list:
         _tail_held(f"frame_normals ({name})", got,
                    P.frame_normals_plain(*args))
         normals[name] = {"stride": s, "valid": int(got[1].sum())}
-    _check([v["stride"] for v in normals.values()] == [stride, stride, 1, 7]
+    _check([v["stride"] for v in normals.values()] == [stride, stride, 1, 4,
+                                                        7]
            and all(v["valid"] > 100 for v in normals.values()),
            f"frame_normals: the cases do not exercise it: {normals}")
+    # box sides other than the configuration's 5: the kernel's copy that
+    # reads k at run time (3), and a box too wide to stage (11)
+    dd, c, s = probs["320x240"]
+    for kk in (3, 11):
+        _tail_held(f"frame_normals (320x240, k = {kk})",
+                   _twice(P.frame_normals, dd, c, kk, s, budget),
+                   P.frame_normals_plain(dd, c, kk, s, budget))
+    # B = 4 in one launch: frames 0 and 1, clean and noisy, each lane
+    # bit-equal to its own B = 1 launch
+    lanes = [clean[0], noisy[0], clean[1], noisy[1]]
+    d4 = torch.from_numpy(np.stack(lanes)).to(dev)
+    got4 = _twice(P.frame_normals, d4, cam, k, stride, budget)
+    _same_lanes("frame_normals", got4, [
+        [x[None] for x in P.frame_normals(torch.from_numpy(d).to(dev), cam,
+                                          k, stride, budget)]
+        for d in lanes])
+    normals["b4"] = {"stride": stride, "valid": got4[1].sum(1).tolist()}
     args = (d0, cam, k, stride, budget)
     got = P.frame_normals(*args)
     out.append({
@@ -2311,6 +2337,7 @@ def tail_kernel_parity(seq, cfg, dev) -> list:
         "source": src + "depth_normals.cu",
         "replaces": "planarslam_tpu/slam/frame.py:53",
         "max_abs_err": 0.0, "tolerance": "bit-equal", "cases": normals,
+        "ms_source": MS_SOURCE,
         "ms": _time_ms(lambda: P.frame_normals(*args)),
         "plain_ms": _time_ms(lambda: P.frame_normals_plain(*args))})
 
@@ -3238,11 +3265,11 @@ def manhattan_compare(R0, normals, valid, kw, want_success=None) -> dict:
     return res
 
 
-def manhattan_kernel_parity(seq, cfg, dev) -> list:
-    """K15 against its plain version on the card on frame 0's surface
-    normals and line directions (N = max_normals + max_lines) with a
-    perturbed seed rotation, at both cone sines, with one axis's normals
-    invalidated (the cross-product completion) and with two (no success)."""
+def manhattan_inputs(seq, cfg, dev) -> tuple:
+    """K15's inputs at the main path's shapes: frame 0's surface normals
+    and line directions (N = max_normals + max_lines), a seed rotation from
+    its planes and lines turned by a small twist, and the tracking cone.
+    Returns (R0, normals, valid, kw)."""
     import torch
     from scipy.spatial.transform import Rotation
 
@@ -3273,6 +3300,57 @@ def manhattan_kernel_parity(seq, cfg, dev) -> list:
     mc = cfg.manhattan
     kw = dict(cone_sin=mc.cone_sin_track, kernel=mc.mean_shift_kernel,
               min_support=mc.min_axis_support)
+    return R0, normals, valid, kw
+
+
+def manhattan_problems(seq, cfg, dev) -> dict:
+    """K15 on manhattan_inputs alone ("b1") and four times in one launch
+    ("b4"). Returns {name: fn}, fn() launching it."""
+    import torch
+
+    from planarslam_tpu_torch.ops import manhattan as M
+
+    R0, normals, valid, kw = manhattan_inputs(seq, cfg, dev)
+    four = [torch.stack([x] * 4).contiguous() for x in (R0, normals, valid)]
+    return {"b1": lambda: M.track_manhattan_frame(R0, normals, valid, **kw),
+            "b4": lambda: M.track_manhattan_frame(*four, **kw)}
+
+
+def normals_problems(seq, cfg, dev) -> dict:
+    """K29 at the main path's shapes: frame 0's quantized 640x480 depth
+    alone ("b1") and frames 0-3 in one launch ("b4"). Returns {name: fn},
+    fn() launching it."""
+    import torch
+
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import planes as P
+    from planarslam_tpu_torch.slam.frame import _normal_stride
+
+    cam = cfg.camera
+    factor = cam.depth_map_factor
+    depth = torch.from_numpy(np.stack([
+        quantize_frame(*seq.render(i), factor)[1].astype(np.float32)
+        / np.float32(factor) for i in range(4)])).to(dev)
+    one = depth[:1].contiguous()
+    args = (cam, cfg.planes.smooth_window, _normal_stride(cfg),
+            cfg.manhattan.max_normals)
+    return {"b1": lambda: P.frame_normals(one, *args),
+            "b4": lambda: P.frame_normals(depth, *args)}
+
+
+def manhattan_kernel_parity(seq, cfg, dev) -> list:
+    """K15 against its plain version on the card on manhattan_inputs (frame
+    0's surface normals and line directions with a perturbed seed
+    rotation), at both cone sines, with one axis's normals invalidated (the
+    cross-product completion) and with two (no success), on those normals
+    twice over (N = 4224: more than a thread keeps in registers) and on
+    none."""
+    import torch
+
+    from planarslam_tpu_torch.ops import manhattan as M
+
+    R0, normals, valid, kw = manhattan_inputs(seq, cfg, dev)
+    mc = cfg.manhattan
     cases = {"track": manhattan_compare(R0, normals, valid, kw, True),
              "project": manhattan_compare(
                  R0, normals, valid, dict(kw, cone_sin=mc.cone_sin_project),
@@ -3286,6 +3364,13 @@ def manhattan_kernel_parity(seq, cfg, dev) -> list:
     _check(cases["axis_missing"]["n_axes"] == 2,
            f"manhattan parity: expected 2 axes: {cases['axis_missing']}")
     cases["two_missing"] = manhattan_compare(R0, normals, two, kw, False)
+    # N past the normals a thread keeps in registers (the rest recomputed
+    # in each pass), and N = 0
+    cases["n_twice"] = manhattan_compare(
+        R0, torch.cat([normals] * 2).contiguous(),
+        torch.cat([valid] * 2).contiguous(), kw, True)
+    cases["n_zero"] = manhattan_compare(R0, normals[:0].contiguous(),
+                                        valid[:0].contiguous(), kw, False)
     print(f"manhattan kernel: {json.dumps(cases)}", flush=True)
     got = M.track_manhattan_frame(R0, normals, valid, **kw)
     n = normals.shape[0]
@@ -3299,7 +3384,7 @@ def manhattan_kernel_parity(seq, cfg, dev) -> list:
             "replaces": "planarslam_tpu/ops/manhattan.py:38",
             "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
             "tolerance": "R_cm 1e-5, support, axis count and success exact",
-            "shapes": {"N": n}, "cases": cases,
+            "shapes": {"N": n}, "cases": cases, "ms_source": MS_SOURCE,
             "ms": _time_ms(lambda: M.track_manhattan_frame(
                 R0, normals, valid, **kw)),
             "plain_ms": _time_ms(lambda: M.track_manhattan_frame_plain(

@@ -21,17 +21,29 @@
 // K29 replaces the normal chain of planarslam_tpu/slam/frame.py (:53-63):
 // box_smooth_depth (ops/planes.py:55-76), backproject_depth (:45-52), the
 // surface_normals of the sampling stride (:79-170) and the padding to
-// max_normals. Only the normals and their flags leave the chain, so one
-// thread per output sample computes the smoothed depths it reads, each a
-// k x k zero-padded box mean of the raw depth with the keep rule: at a
-// stride >= 2, those of the (2b + 2)^2 pixels around the sample (b =
-// min(stride, 3), the wrapped rows and columns of the +-b taps and the
-// right and lower neighbours of the (2b + 1)^2 jump window), at stride 1
-// the sample and its four neighbours. From them: the back-projection, the
-// central-difference normal, its orientation, the crease and
-// discontinuity guards and the subgrid border. Bound: latency (at 640x480,
-// 1813 samples read 64 x 25 depths each, 11.6 MB from L1 and L2, of 1.04 MB
-// distinct pixels).
+// max_normals. Only the normals and their flags leave the chain, so each
+// output sample computes the smoothed depths it reads, each a k x k
+// zero-padded box mean of the raw depth with the keep rule: at a stride
+// >= 2, those of the (2b + 2)^2 pixels around the sample (b = min(stride,
+// 3), the wrapped rows and columns of the +-b taps and the right and lower
+// neighbours of the (2b + 1)^2 jump window), at stride 1 the sample and its
+// four neighbours. From them: the back-projection, the central-difference
+// normal, its orientation, the crease and discontinuity guards and the
+// subgrid border. Bound: latency (at 640x480, 1813 samples of 64 smoothed
+// depths, 25 taps each, over 1.04 MB of distinct pixels).
+//
+// At a stride >= 2 one warp owns a sample, eight samples to a 256-thread
+// block (256 blocks at 640x480): the warp stages the sample's (2b + 1 +
+// k)^2 raw depths in shared memory once (two rows a step, zero outside
+// the image), each lane sums the boxes of two of the (2b + 2)^2 smoothed
+// depths from there (the taps unrolled for the configuration's k = 5),
+// takes the 1-pixel jumps of one or two window pixels, a shuffle tree
+// takes their max, and lane 0 finishes the sample. A sample whose window
+// reaches past an image edge wraps its rows or columns (strides 2-5 put
+// the first row and column there: off = stride / 2 < b), so its lanes read
+// their boxes around the wrapped pixels from device memory instead. Only
+// the warp touches its sample's shared memory, so __syncwarp orders the
+// phases. Stride 1 keeps one thread per pixel.
 //
 // The plain versions spell every product, cross product, dot and norm in
 // a fixed order and this file is built with -fmad=false, so that every
@@ -47,11 +59,18 @@
 namespace {
 
 constexpr int kAlphaThreads = 1024;
-constexpr int kNormalThreads = 128;
+constexpr int kNormalThreads = 128;   // stride 1: one thread per pixel
+constexpr int kSamplesPerBlock = 8;   // stride >= 2: one warp per sample
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNoSample = 0xffffffffu;
 constexpr unsigned kNoDigit = 0xffffffffu;
 constexpr int kMaxSpan = 8;  // 2 b + 2 with b = min(stride, 3)
+// the side 2 b + 1 + k of a staged patch, at most (a half-warp stages a
+// row): k <= 9; a larger box reads device memory for every sample
+constexpr int kMaxPatch = 16;
+// the box side the strided kernel is compiled for (the configuration's
+// smooth_window); any other runs a copy that reads k at run time
+constexpr int kBox = 5;
 
 // torch.clamp(x, min=lo): NaN stays NaN
 __device__ __forceinline__ float clamp_min(float x, float lo) {
@@ -203,7 +222,7 @@ __global__ void noise_alpha_kernel(const float* __restrict__ depth, int h,
 // ---------------------------------------------------------------- K29 ---
 
 struct NormalConsts {
-  int h, w, stride, off, b, hs, ws, budget, k, k_lo;
+  int h, w, stride, off, b, hs, ws, budget, k, k_lo, patch;
   float inv_fx, inv_fy, cx, cy;
 };
 
@@ -287,42 +306,50 @@ __device__ bool normal_full(const float* __restrict__ d,
          jump < __fmul_rn(0.05f, clamp_min(z, 1.0f));
 }
 
-// surface_normals at a stride >= 2: the +-b taps, the crease guard and the
-// 1-pixel jump scan over the (2b + 1)^2 window, at subgrid sample (sy, sx)
-__device__ bool normal_strided(const float* __restrict__ d,
-                               const NormalConsts& c, int sy, int sx,
-                               float* n) {
+// smoothed() at pixel (r, q) of a staged sample's window: the patch holds
+// the raw depths from row y - b - k_lo and column x - b - k_lo on, P to a
+// row, 0 outside the image (which adds what smoothed() adds there: 0 * 0).
+// K > 0: the box side, known at compile time (the taps unrolled); K = 0:
+// c.k.
+template <int K>
+__device__ __forceinline__ float smoothed_staged(const float* patch, int P,
+                                                 const NormalConsts& c,
+                                                 int r, int q) {
+  const int k = K > 0 ? K : c.k, k_lo = K > 0 ? (K - 1) / 2 : c.k_lo;
+  const float z = patch[(r + k_lo) * P + q + k_lo];
+  if (k <= 1) return z;
+  float acc = 0.0f, cnt = 0.0f;
+#pragma unroll
+  for (int dy = 0; dy < k; ++dy) {
+    const float* row = patch + (r + dy) * P + q;
+#pragma unroll
+    for (int dx = 0; dx < k; ++dx) {
+      const float e = row[dx];
+      const float v = e > 1e-6f ? 1.0f : 0.0f;
+      acc = __fadd_rn(acc, __fmul_rn(e, v));
+      cnt = __fadd_rn(cnt, v);
+    }
+  }
+  const float mu = __fdiv_rn(acc, clamp_min(cnt, 1.0f));
+  const bool keep =
+      fabsf(__fsub_rn(z, mu)) < __fmul_rn(0.03f, clamp_min(z, 1.0f));
+  return (z > 1e-6f && keep && cnt > 0.0f) ? mu : z;
+}
+
+// surface_normals at a stride >= 2 after the jump scan, at subgrid sample
+// (sy, sx): the +-b taps, the normal, the crease guard, the border rule;
+// zs holds the smoothed depths of rows y-b..y+b+1 and columns x-b..x+b+1
+// (wrapped), 2 b + 2 to a row, jmax the max of the window's jumps
+__device__ bool strided_tail(const NormalConsts& c, int sy, int sx,
+                             const float* zs, float jmax, float* n) {
   const int b = c.b, span = 2 * b + 2;
   const int y = c.off + sy * c.stride, x = c.off + sx * c.stride;
-  // smoothed depth of rows y-b..y+b+1 and columns x-b..x+b+1, wrapped
-  float zc[kMaxSpan][kMaxSpan];
-  for (int r = 0; r < span; ++r) {
-    const int yy = wrap(y - b + r, c.h);
-    for (int q = 0; q < span; ++q) {
-      zc[r][q] = smoothed(d, c, yy, wrap(x - b + q, c.w));
-    }
-  }
-  // max of the 1-pixel jumps (right and lower neighbour, wrapped) over the
-  // window's pixels inside the image; -inf padding
-  float jmax = -INFINITY;
-  for (int r = 0; r <= 2 * b; ++r) {
-    const int yy = y - b + r;
-    if (yy < 0 || yy >= c.h) continue;
-    for (int q = 0; q <= 2 * b; ++q) {
-      const int xx = x - b + q;
-      if (xx < 0 || xx >= c.w) continue;
-      const float z0 = zc[r][q];
-      const float j1 = max_nan(fabsf(__fsub_rn(z0, zc[r][q + 1])),
-                               fabsf(__fsub_rn(z0, zc[r + 1][q])));
-      jmax = max_nan(jmax, j1);
-    }
-  }
   float p[3], xp[3], xm[3], yp[3], ym[3];
-  point_at(c, y, x, zc[b][b], p);
-  point_at(c, y, wrap(x + b, c.w), zc[b][2 * b], xp);
-  point_at(c, y, wrap(x - b, c.w), zc[b][0], xm);
-  point_at(c, wrap(y + b, c.h), x, zc[2 * b][b], yp);
-  point_at(c, wrap(y - b, c.h), x, zc[0][b], ym);
+  point_at(c, y, x, zs[b * span + b], p);
+  point_at(c, y, wrap(x + b, c.w), zs[b * span + 2 * b], xp);
+  point_at(c, y, wrap(x - b, c.w), zs[b * span], xm);
+  point_at(c, wrap(y + b, c.h), x, zs[2 * b * span + b], yp);
+  point_at(c, wrap(y - b, c.h), x, zs[b], ym);
   const bool disc_free = jmax < __fmul_rn(0.05f, clamp_min(p[2], 1.0f));
   const float norm = oriented_normal(xp, xm, yp, ym, p, n);
   // crease guard: the one-sided normals agree within 45 degrees
@@ -345,10 +372,11 @@ __device__ bool normal_strided(const float* __restrict__ d,
          agree && border;
 }
 
-__global__ void frame_normals_kernel(const float* __restrict__ depth,
-                                     NormalConsts c,
-                                     float* __restrict__ normals,
-                                     unsigned char* __restrict__ valid) {
+// stride 1: one thread per output row
+__global__ void frame_normals_full_kernel(const float* __restrict__ depth,
+                                          NormalConsts c,
+                                          float* __restrict__ normals,
+                                          unsigned char* __restrict__ valid) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= c.budget) return;
   const float* d = depth + static_cast<size_t>(blockIdx.y) * c.h * c.w;
@@ -356,14 +384,99 @@ __global__ void frame_normals_kernel(const float* __restrict__ depth,
   float n[3] = {0.0f, 0.0f, 0.0f};
   bool ok = false;
   if (i < c.hs * c.ws) {  // rows past the grid stay zero and False
-    const int sy = i / c.ws, sx = i % c.ws;
-    ok = c.stride <= 1 ? normal_full(d, c, sy, sx, n)
-                       : normal_strided(d, c, sy, sx, n);
+    ok = normal_full(d, c, i / c.ws, i % c.ws, n);
   }
   normals[3 * o] = n[0];
   normals[3 * o + 1] = n[1];
   normals[3 * o + 2] = n[2];
   valid[o] = ok ? 1 : 0;
+}
+
+// stride >= 2: one warp per output row; K as smoothed_staged's
+template <int K>
+__global__ void __launch_bounds__(kSamplesPerBlock * 32)
+    frame_normals_strided_kernel(const float* __restrict__ depth,
+                                 NormalConsts c,
+                                 float* __restrict__ normals,
+                                 unsigned char* __restrict__ valid) {
+  __shared__ float s_patch[kSamplesPerBlock][kMaxPatch * kMaxPatch];
+  __shared__ float s_zs[kSamplesPerBlock][kMaxSpan * kMaxSpan];
+  const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kSamplesPerBlock + g;
+  if (i >= c.budget) return;  // the whole warp
+  const size_t o = static_cast<size_t>(blockIdx.y) * c.budget + i;
+  if (i >= c.hs * c.ws) {  // rows past the grid stay zero and False
+    if (lane < 3) normals[3 * o + lane] = 0.0f;
+    if (lane == 0) valid[o] = 0;
+    return;
+  }
+  const float* d = depth + static_cast<size_t>(blockIdx.y) * c.h * c.w;
+  const int b = c.b, span = 2 * b + 2, win = 2 * b + 1, P = c.patch;
+  const int sy = i / c.ws, sx = i % c.ws;
+  const int y = c.off + sy * c.stride, x = c.off + sx * c.stride;
+  float* patch = s_patch[g];
+  float* zs = s_zs[g];
+  const bool staged =
+      P > 0 && y >= b && y + b + 1 < c.h && x >= b && x + b + 1 < c.w;
+  // staging: the raw patch of a window inside the image, read once
+  if (staged) {
+    // half-warp h stages rows h, h + 2, ...: lane l column l & 15 (all the
+    // loads in flight at once, no division)
+    const int y0 = y - b - c.k_lo, px = x - b - c.k_lo + (lane & 15);
+    const bool col_in = (lane & 15) < P && px >= 0 && px < c.w;
+    float v[kMaxPatch / 2];
+#pragma unroll
+    for (int step = 0; step < kMaxPatch / 2; ++step) {
+      const int r = 2 * step + (lane >> 4), py = y0 + r;
+      v[step] = (r < P && col_in && py >= 0 && py < c.h)
+                    ? d[static_cast<size_t>(py) * c.w + px]
+                    : 0.0f;
+    }
+#pragma unroll
+    for (int step = 0; step < kMaxPatch / 2; ++step) {
+      const int r = 2 * step + (lane >> 4);
+      if (r < P && (lane & 15) < P) patch[r * P + (lane & 15)] = v[step];
+    }
+  }
+  __syncwarp();
+  // box sums: lane l the smoothed depths of window pixels l and l + 32
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = lane + 32 * half;
+    if (t < span * span) {
+      const int r = t / span, q = t % span;
+      zs[t] = staged ? smoothed_staged<K>(patch, P, c, r, q)
+                     : smoothed(d, c, wrap(y - b + r, c.h),
+                                wrap(x - b + q, c.w));
+    }
+  }
+  __syncwarp();
+  // jump scan: the 1-pixel jumps (right and lower neighbour, wrapped) of
+  // the window's pixels inside the image, their max (NaN wins, -inf where
+  // none) by a shuffle tree: max_nan gives the same NaN-or-max in any order
+  float jmax = -INFINITY;
+  for (int t = lane; t < win * win; t += 32) {
+    const int r = t / win, q = t % win;
+    const int yy = y - b + r, xx = x - b + q;
+    if (yy >= 0 && yy < c.h && xx >= 0 && xx < c.w) {
+      const float z0 = zs[r * span + q];
+      jmax = max_nan(jmax,
+                     max_nan(fabsf(__fsub_rn(z0, zs[r * span + q + 1])),
+                             fabsf(__fsub_rn(z0, zs[(r + 1) * span + q]))));
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    jmax = max_nan(jmax, __shfl_xor_sync(kFull, jmax, off));
+  }
+  // the sample's tail, by lane 0
+  if (lane == 0) {
+    float n[3];
+    const bool ok = strided_tail(c, sy, sx, zs, jmax, n);
+    normals[3 * o] = n[0];
+    normals[3 * o + 1] = n[1];
+    normals[3 * o + 2] = n[2];
+    valid[o] = ok ? 1 : 0;
+  }
 }
 
 }  // namespace
@@ -406,9 +519,26 @@ PSL_API int psl_frame_normals(const float* depth, int h, int w, int batch,
     c.inv_fy = inv_fy;
     c.cx = cx;
     c.cy = cy;
-    const dim3 grid((budget + kNormalThreads - 1) / kNormalThreads, batch);
-    frame_normals_kernel<<<grid, kNormalThreads, 0, stream>>>(depth, c,
-                                                              normals, valid);
+    if (stride <= 1) {
+      c.patch = 0;
+      const dim3 grid((budget + kNormalThreads - 1) / kNormalThreads, batch);
+      frame_normals_full_kernel<<<grid, kNormalThreads, 0, stream>>>(
+          depth, c, normals, valid);
+    } else {
+      const int side = 2 * c.b + 1 + (smooth_window > 1 ? smooth_window : 1);
+      c.patch = side <= kMaxPatch ? side : 0;
+      const dim3 grid((budget + kSamplesPerBlock - 1) / kSamplesPerBlock,
+                      batch);
+      if (smooth_window == kBox) {
+        frame_normals_strided_kernel<kBox>
+            <<<grid, kSamplesPerBlock * 32, 0, stream>>>(depth, c, normals,
+                                                         valid);
+      } else {
+        frame_normals_strided_kernel<0>
+            <<<grid, kSamplesPerBlock * 32, 0, stream>>>(depth, c, normals,
+                                                         valid);
+      }
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,16 +11,25 @@
 // with -fmad=false; expf, sqrtf and IEEE division as PyTorch uses them).
 //
 // What bounds it on an H100: the latency of iters x (1 + ms_iters)
-// dependent block reductions over N ~ 2k normals (~34 KB, ~1 MFLOP: under
-// a microsecond at the card's rates). One block of 512 threads per frame
-// (a batch of B frames, every array with a leading B, is one launch of B
-// blocks, block b reading frame b at its strides); thread t
-// owns normals t, t + 512, ... and recomputes their frame coordinates in
-// registers each step. A normal votes for at most one axis, so one pass
-// gives the weight sums of all three axes; they are summed in float64 by a
-// shuffle tree in each warp and a second tree over the warp sums, a fixed
-// order with no atomics, so two launches give equal bits. Thread 0 then
-// does the serial tail of the round (axes, completion, polar factor).
+// dependent steps over N ~ 2k normals (~34 KB, ~1 MFLOP: under a
+// microsecond at the card's rates). One block of 512 threads per frame (a
+// batch of B frames, every array with a leading B, is one launch of B
+// blocks, block b reading frame b at its strides); thread t owns normals
+// t, t + 512, ... A round's rotation does not change inside it, so each
+// thread rotates its normals once per round and keeps their cones and
+// tangent coordinates in registers (kOwned of them, read from device
+// memory once for all rounds; a thread recomputes any further ones in each
+// pass). A normal votes for at most one axis, so one pass gives the weight
+// sums of all three axes; each is summed in float64 by a shuffle tree in
+// each warp and a second tree over the warp sums, a fixed order with no
+// atomics, so two launches give equal bits.
+// The warp trees carry several values in one shuffle (a lane keeps one of
+// a pair and sends the other), each value's tree the one a plain
+// shfl_down tree gives lane 0; the second trees run one axis to a warp,
+// whose lane 0 forms the axis's new centre; the support counts ride in
+// the first pass's sums. A pass takes two barriers, after which every
+// thread reads the centres. Thread 0 then does the serial tail of the
+// round (axes, completion, polar factor).
 //
 // Optional epilogue (the tracking step's initial pose, replacing
 // planarslam_tpu/slam/device_tracker.py:296-299): given T_pred, R_wm and
@@ -37,33 +46,58 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kOwned = 5;  // normals a thread keeps: N <= 2560 in registers
+// warp_buf's value rows: 9 weight sums, then 3 support counts and a zero
+// (stored by the 4-value tree, never summed)
+constexpr int kBufValues = 13;
+constexpr unsigned kFull = 0xffffffffu;
 
-template <int NV>
-__device__ __forceinline__ void block_sum(const double* v, double* warp_buf,
-                                          double* out) {
+// The first level of a block sum: the 32-lane tree of each of P values
+// (P a power of two, <= 8) in this warp, stored at buf[(base + k) *
+// kWarps + warp]. At each of the first log2(P) levels a lane keeps one
+// value of each pair and sends the other to the lane `off` away, which
+// keeps that one, so P values take the shuffles of one; what a lane holds
+// is still the sum a shfl_down tree holds at the same lane, since a + b =
+// b + a in IEEE arithmetic.
+template <int P>
+__device__ __forceinline__ void warp_tree(const double* v, int base,
+                                          double* buf) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  double x[P];
 #pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    double x = v[k];
+  for (int k = 0; k < P; ++k) x[k] = v[k];
+  int off = 16, k_lane = 0;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      x += __shfl_down_sync(0xffffffffu, x, off);
+  for (int bit = 0; (1 << bit) < P; ++bit) {
+    const bool hi = (lane & off) != 0;
+#pragma unroll
+    for (int m = 0; m < (P >> (bit + 1)); ++m) {
+      const double keep = hi ? x[2 * m + 1] : x[2 * m];
+      const double send = hi ? x[2 * m] : x[2 * m + 1];
+      x[m] = keep + __shfl_xor_sync(kFull, send, off);
     }
-    if (lane == 0) warp_buf[warp * NV + k] = x;
+    k_lane |= (hi ? 1 : 0) << bit;
+    off >>= 1;
   }
-  __syncthreads();
-  if (warp == 0) {
+  double s = x[0];
+  for (; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+  if ((lane & (32 / P - 1)) == 0) buf[(base + k_lane) * kWarps + warp] = s;
+}
+
+// The second level for values v0, v0 + 1, v0 + 2: each the tree of lanes
+// 0..31 over the warps' sums (lanes past kWarps adding 0), at lane 0.
+__device__ __forceinline__ void warp_sums3(const double* buf, int v0,
+                                           double* s) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-    for (int k = 0; k < NV; ++k) {
-      double x = lane < kWarps ? warp_buf[lane * NV + k] : 0.0;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        x += __shfl_down_sync(0xffffffffu, x, off);
-      }
-      if (lane == 0) out[k] = x;
-    }
+  for (int j = 0; j < 3; ++j) {
+    s[j] = lane < kWarps ? buf[(v0 + j) * kWarps + lane] : 0.0;
   }
-  __syncthreads();
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) s[j] += __shfl_down_sync(kFull, s[j], off);
+  }
 }
 
 // One normal in the frame R (row-major, columns = axes): the axis whose
@@ -90,6 +124,28 @@ __device__ __forceinline__ int cone_of(const float* R, const float* n,
   *u = s * nm[i] / denom;
   *v = s * nm[j] / denom;
   return best;
+}
+
+// One normal's mean-shift terms, added to acc[3 k ..] of its axis k: the
+// weight once, then three predicated sums (no divergent branch per axis).
+__device__ __forceinline__ void add_weight(int k, float u, float v,
+                                           const float (&c)[3][2],
+                                           float kernel, double* acc) {
+  if (k < 0) return;
+  const float c0 = k == 0 ? c[0][0] : (k == 1 ? c[1][0] : c[2][0]);
+  const float c1 = k == 0 ? c[0][1] : (k == 1 ? c[1][1] : c[2][1]);
+  const float du = u - c0, dv = v - c1;
+  const float d2 = du * du + dv * dv;
+  const float wgt = expf(-kernel * d2);
+  const double w = wgt, wu = wgt * u, wv = wgt * v;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    if (k == a) {
+      acc[3 * a] += w;
+      acc[3 * a + 1] += wu;
+      acc[3 * a + 2] += wv;
+    }
+  }
 }
 
 struct InitSelect {
@@ -137,59 +193,104 @@ __global__ void __launch_bounds__(kThreads, 1)
     n_axes_out += f;
     success_out += f;
   }
-  __shared__ float center[3][2];
-  __shared__ double warp_buf[kWarps * 9];
-  __shared__ double sums[9];
+  __shared__ double warp_buf[kBufValues * kWarps];
+  __shared__ float s_center[3][2];
+  __shared__ long long s_supp[3];
   const int tid = threadIdx.x;
   if (tid < 9) R[tid] = R_init[tid];
+  // the owned normals, read once for all rounds
+  float own[kOwned][3];
+  bool own_ok[kOwned];
+#pragma unroll
+  for (int j = 0; j < kOwned; ++j) {
+    const int i = tid + j * kThreads;
+    own_ok[j] = i < N && valid[i] != 0;
+    for (int q = 0; q < 3; ++q) {
+      own[j][q] = i < N ? normals[3 * i + q] : 0.0f;
+    }
+  }
   __syncthreads();
 
   for (int rnd = 0; rnd < iters; ++rnd) {
     float Rr[9];
     for (int q = 0; q < 9; ++q) Rr[q] = R[q];
-    if (tid < 6) center[tid / 2][tid % 2] = 0.0f;
-    // support counts (whole numbers: exact in float64)
-    double cnt[3] = {0.0, 0.0, 0.0};
-    for (int i = tid; i < N; i += kThreads) {
+    // cone pass: the owned normals' cones and (u, v) in this round's frame,
+    // and the support counts (whole numbers: exact in float64)
+    int ck[kOwned];
+    float cu[kOwned], cv[kOwned];
+    double cnt[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+    for (int j = 0; j < kOwned; ++j) {
+      cu[j] = cv[j] = 0.0f;
+      ck[j] = cone_of(Rr, own[j], own_ok[j], cos_half, &cu[j], &cv[j]);
+    }
+    for (int i = tid + kOwned * kThreads; i < N; i += kThreads) {
       float u, v;
       const int k = cone_of(Rr, normals + 3 * i, valid[i] != 0, cos_half,
                             &u, &v);
-      if (k >= 0) cnt[k] += 1.0;
+      cnt[0] += k == 0 ? 1.0 : 0.0;
+      cnt[1] += k == 1 ? 1.0 : 0.0;
+      cnt[2] += k == 2 ? 1.0 : 0.0;
     }
-    block_sum<3>(cnt, warp_buf, sums);
-    long long supp[3];
-    for (int k = 0; k < 3; ++k) supp[k] = static_cast<long long>(sums[k]);
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kOwned; ++j) {
+      cnt[0] += ck[j] == 0 ? 1.0 : 0.0;
+      cnt[1] += ck[j] == 1 ? 1.0 : 0.0;
+      cnt[2] += ck[j] == 2 ? 1.0 : 0.0;
+    }
+    float c[3][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
 
-    for (int ms = 0; ms < ms_iters; ++ms) {
-      float c[3][2];
-      for (int k = 0; k < 3; ++k) {
-        c[k][0] = center[k][0];
-        c[k][1] = center[k][1];
-      }
+    for (int ms = 0; ms < (ms_iters > 0 ? ms_iters : 1); ++ms) {
+      // a mean-shift pass: each thread's weight sums in normal order
       double acc[9];
       for (int q = 0; q < 9; ++q) acc[q] = 0.0;
-      for (int i = tid; i < N; i += kThreads) {
-        float u, v;
-        const int k = cone_of(Rr, normals + 3 * i, valid[i] != 0, cos_half,
-                              &u, &v);
-        if (k < 0) continue;
-        const float du = u - c[k][0], dv = v - c[k][1];
-        const float d2 = du * du + dv * dv;
-        const float wgt = expf(-kernel * d2);
-        acc[3 * k] += wgt;
-        acc[3 * k + 1] += wgt * u;
-        acc[3 * k + 2] += wgt * v;
+      if (ms_iters > 0) {
+#pragma unroll
+        for (int j = 0; j < kOwned; ++j) {
+          add_weight(ck[j], cu[j], cv[j], c, kernel, acc);
+        }
+        for (int i = tid + kOwned * kThreads; i < N; i += kThreads) {
+          float u = 0.0f, v = 0.0f;
+          const int k = cone_of(Rr, normals + 3 * i, valid[i] != 0, cos_half,
+                                &u, &v);
+          add_weight(k, u, v, c, kernel, acc);
+        }
       }
-      block_sum<9>(acc, warp_buf, sums);
-      if (tid < 3) {
-        const float wsum = fmaxf(static_cast<float>(sums[3 * tid]), 1e-9f);
-        center[tid][0] = static_cast<float>(sums[3 * tid + 1]) / wsum;
-        center[tid][1] = static_cast<float>(sums[3 * tid + 2]) / wsum;
+      // the block reduction: the warps' trees, then warp a < 3 sums axis
+      // a's three values over the warps and forms its centre (warp 3 the
+      // support counts, in the first pass)
+      const int warp = tid >> 5, lane = tid & 31;
+      warp_tree<8>(acc, 0, warp_buf);
+      warp_tree<1>(acc + 8, 8, warp_buf);
+      if (ms == 0) warp_tree<4>(cnt, 9, warp_buf);
+      __syncthreads();
+      if (warp < 3 && ms_iters > 0) {
+        double s3[3];
+        warp_sums3(warp_buf, 3 * warp, s3);
+        if (lane == 0) {
+          const float wsum = fmaxf(static_cast<float>(s3[0]), 1e-9f);
+          s_center[warp][0] = static_cast<float>(s3[1]) / wsum;
+          s_center[warp][1] = static_cast<float>(s3[2]) / wsum;
+        }
+      } else if (warp == 3 && ms == 0) {
+        double s3[3];
+        warp_sums3(warp_buf, 9, s3);
+        if (lane == 0) {
+          for (int k = 0; k < 3; ++k) {
+            s_supp[k] = static_cast<long long>(s3[k]);
+          }
+        }
       }
       __syncthreads();
+      if (ms_iters > 0) {
+        for (int k = 0; k < 3; ++k) {
+          c[k][0] = s_center[k][0];
+          c[k][1] = s_center[k][1];
+        }
+      }
     }
 
+    // the round's tail
     if (tid == 0) {
       float axes[3][3];  // axes[k] = new axis k in the camera frame
       int n_found = 0;
@@ -197,13 +298,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int k = 0; k < 3; ++k) {
         const int i = (k + 1) % 3, j = (k + 2) % 3;
         float dir[3];
-        dir[i] = center[k][0];
-        dir[j] = center[k][1];
+        dir[i] = c[k][0];
+        dir[j] = c[k][1];
         dir[k] = 1.0f;
         const float nrm = sqrtf(psl_dot3(dir, dir));
         for (int q = 0; q < 3; ++q) dir[q] = dir[q] / nrm;
         for (int r = 0; r < 3; ++r) axes[k][r] = psl_dot3(Rr + 3 * r, dir);
-        found[k] = supp[k] >= min_support;
+        found[k] = s_supp[k] >= min_support;
         n_found += found[k] ? 1 : 0;
       }
       float cols[3][3];  // cols[k] = column k
@@ -233,7 +334,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       if (rnd == iters - 1) {
         for (int q = 0; q < 9; ++q) R_out[q] = R[q];
-        for (int k = 0; k < 3; ++k) support_out[k] = supp[k];
+        for (int k = 0; k < 3; ++k) support_out[k] = s_supp[k];
         *n_axes_out = n_found;
         *success_out = ok ? 1 : 0;
         if (sel.T_pred != nullptr) init_select(sel, frame, R, ok);

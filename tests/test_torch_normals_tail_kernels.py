@@ -138,9 +138,12 @@ def _config(h, w, budget):
 
 
 # (h, w, budget): strides 13 (37 x 49 = 1813 samples cut to 1764), 7
-# (34 x 45 padded to 2048) and 1 (a 40 x 30 image padded)
+# (34 x 45 padded to 2048), 4 (30 x 40 padded; the first row and column of
+# samples have windows that wrap around the image: off = 2 < b = 3) and 1
+# (a 40 x 30 image padded)
 NORMAL_CASES = {"stride13_cut": (480, 640, 1764),
-                "stride7": (240, 320, 2048), "stride1": (30, 40, 2048)}
+                "stride7": (240, 320, 2048), "stride4": (120, 160, 2048),
+                "stride1": (30, 40, 2048)}
 
 
 @pytest.mark.parametrize("noise", [False, True])

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Time the phases inside K3 (gated_hamming_top2) and K12
-(plane_components) on a GPU.
+"""Time the phases inside K3 (gated_hamming_top2), K12
+(plane_components), K15 (manhattan_mean_shift) and K29 (frame_normals) on
+a GPU.
 
     python3 tools/kernel_phases.py
 
-Copies csrc/hamming_top2.cu and csrc/plane_segment.cu into
-build/kernel_phases/, inserts clock64 (and, in K3, %globaltimer) reads at
-the phase comments the sources carry, builds each copy with the build's
-own flags into a library of its own, and runs the wrappers of this
-checkout with those entry points in place of the built ones:
+Copies csrc/hamming_top2.cu, csrc/plane_segment.cu, csrc/manhattan.cu and
+csrc/depth_normals.cu into build/kernel_phases/, inserts clock64 (and, in
+K3 and K29, %globaltimer) reads at the phase comments the sources carry,
+builds each copy with the build's own flags into a library of its own,
+and runs the wrappers of this checkout with those entry points in place
+of the built ones:
 - K3 on chip_smoke.py's `hamming_step_problems` (one tracking step's
   frame search, window search and match_descriptors' launch, and the
   window search at B = 4): per block the cycles of its phases (the rows'
@@ -17,7 +19,17 @@ checkout with those entry points in place of the built ones:
   launch's span;
 - K12's chain kernel (block 0) on `components_problems`' lane 0: the
   cycles of each phase from the validity copy to the end, median of five
-  launches after one, and one block fit's cycles alone (one thread).
+  launches after one, and one block fit's cycles alone (one thread);
+- K15 (block 0, thread 0, round 0) on chip_smoke.py's
+  `manhattan_problems` at B = 1 and 4: the cycles of the cone pass, of
+  one mean-shift pass (the second), of that pass's block reduction (from
+  the warps' trees to the new centres, barriers included) and of thread
+  0's tail of the round, and of the whole round; median of five launches
+  after one;
+- K29 on `normals_problems` at B = 1 and 4: per block, the first sample's
+  cycles of staging, the box sums, the jump scan and the tail (median and
+  largest over the blocks that ran them), the blocks' start skew and the
+  launch's span.
 Prints one JSON object with the card's name and power limit. The marks
 move where the code between them runs, not what it computes.
 """
@@ -37,11 +49,12 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 OUT = os.path.join(HERE, "build", "kernel_phases")
-K3_BLOCKS = 8192  # per-block mark rows: the largest grid timed (B = 4)
-K3_MARK = ("if (threadIdx.x == 0) {{ long long g; asm volatile(\"mov.u64 "
-           "%0, %%globaltimer;\" : \"=l\"(g)); const int b = blockIdx.y * "
-           "gridDim.x + blockIdx.x; psl_phase[b][{k}] = clock64(); "
-           "psl_phase[b][8 + {k}] = g; }}")
+BLOCK_ROWS = 8192  # per-block mark rows: the largest grid timed (K3, B = 4)
+# K3's and K29's mark: thread 0 of each block, clock64 and %globaltimer
+BLOCK_MARK = ("if (threadIdx.x == 0) {{ long long g; asm volatile(\"mov.u64 "
+              "%0, %%globaltimer;\" : \"=l\"(g)); const int b = "
+              "blockIdx.y * gridDim.x + blockIdx.x; psl_phase[b][{k}] = "
+              "clock64(); psl_phase[b][8 + {k}] = g; }}")
 K3_PHASES = ("rows", "stage", "walk", "merge")
 # K3: (anchor, mark index, before the anchor or after it)
 K3_ANCHORS = (
@@ -92,6 +105,28 @@ extern "C" int psl_phase_fit(const float* s1, const float* s2,
   return static_cast<int>(cudaDeviceSynchronize());
 }
 """
+K15_MARK = ("if (threadIdx.x == 0 && blockIdx.x == 0 && rnd == 0{cond}) "
+            "psl_phase[{k}] = clock64();")
+K15_PHASES = ("cones", "ms_pass", "reduction", "tail", "round")
+# K15: (anchor, mark index, extra condition); marks 2 and 4 open passes 1
+# and 2, so 4 - 2 is one whole pass and 4 - 3 its reduction
+K15_ANCHORS = (
+    ("    // cone pass: the owned normals' cones", 0, ""),
+    ("    float c[3][2] = {{0.0f, 0.0f}", 1, ""),
+    ("      // a mean-shift pass: each thread's weight sums", 2,
+     " && ms == 1"),
+    ("      // a mean-shift pass: each thread's weight sums", 4,
+     " && ms == 2"),
+    ("      // the block reduction: the warps' trees", 3, " && ms == 1"),
+    ("    // the round's tail", 5, ""),
+    ("    __syncthreads();\n  }\n}\n\n}  // namespace", 6, ""))
+K29_PHASES = ("stage", "box_sums", "jump_scan", "tail")
+K29_ANCHORS = (
+    "  // staging: the raw patch of a window inside the image",
+    "  // box sums: lane l the smoothed depths",
+    "  // jump scan: the 1-pixel jumps",
+    "  // the sample's tail, by lane 0")
+K29_END = "    valid[o] = ok ? 1 : 0;\n  }\n}\n"
 READ = ('\nextern "C" int psl_phase_read(void* out, int bytes) {\n'
         '  return static_cast<int>(cudaMemcpyFromSymbol(out, psl_phase, '
         'bytes));\n}\n')
@@ -113,9 +148,9 @@ def _k3_source(kernels) -> str:
     with open(os.path.join(kernels.CSRC, "hamming_top2.cu")) as f:
         src = f.read()
     src = src.replace("namespace {\n", f"__device__ long long psl_phase"
-                      f"[{K3_BLOCKS}][16];\nnamespace {{\n", 1)
+                      f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
     for anchor, k, where in K3_ANCHORS:
-        src = _mark(src, anchor, K3_MARK.format(k=k), where)
+        src = _mark(src, anchor, BLOCK_MARK.format(k=k), where)
     return src + READ
 
 
@@ -128,6 +163,59 @@ def _k12_source(kernels) -> str:
         src = _mark(src, anchor, K12_MARK.format(k=k), True)
     src = _mark(src, K12_END, K12_MARK.format(k=len(K12_ANCHORS)), "end")
     return src + K12_FIT + READ
+
+
+def _k15_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "manhattan.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", "__device__ long long psl_phase[16];"
+                      "\nnamespace {\n", 1)
+    for anchor, k, cond in K15_ANCHORS:
+        src = _mark(src, anchor, K15_MARK.format(k=k, cond=cond), True)
+    return src + READ
+
+
+def _k29_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "depth_normals.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", f"__device__ long long psl_phase"
+                      f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
+    for k, anchor in enumerate(K29_ANCHORS):
+        src = _mark(src, anchor, BLOCK_MARK.format(k=k), True)
+    if src.count(K29_END) != 1:
+        raise RuntimeError(f"phase anchor not found once: {K29_END!r}")
+    head = K29_END[:-len("  }\n}\n")]
+    src = src.replace(K29_END, f"{head}    "
+                      f"{BLOCK_MARK.format(k=len(K29_ANCHORS))}\n  }}\n}}\n")
+    return src + READ
+
+
+def _block_marks(lib, fn, rows: int, phases) -> dict:
+    """One launch of fn after three: per block the cycles of each phase
+    (median and largest over the blocks whose marks all moved), their start
+    skew and the launch's span, from per-block rows of clock64 (0-7) and
+    %globaltimer (8-15) marks."""
+    import torch
+
+    marks = np.zeros((rows, 16), np.int64)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    lib.psl_phase_read(marks.ctypes.data_as(ctypes.c_void_p), marks.nbytes)
+    before = marks.copy()
+    fn()
+    torch.cuda.synchronize()
+    lib.psl_phase_read(marks.ctypes.data_as(ctypes.c_void_p), marks.nbytes)
+    n = len(phases)
+    ran = marks[:, 8] != before[:, 8]
+    full = ran & (marks[:, 8 + n] != before[:, 8 + n])
+    g0 = marks[ran, 8].min()
+    cyc = marks[full, 1:n + 1] - marks[full, 0:n]
+    return {"blocks_ran": int(ran.sum()), "blocks_full": int(full.sum()),
+            "span_us": float((marks[ran, 8:9 + n].max() - g0) / 1e3),
+            "start_skew_us": float((marks[ran, 8].max() - g0) / 1e3),
+            "cycles_median": dict(zip(phases, np.median(cyc, 0).tolist())),
+            "cycles_max": dict(zip(phases, cyc.max(0).tolist()))}
 
 
 def _build(kernels, name: str, src: str, flags) -> ctypes.CDLL:
@@ -178,12 +266,17 @@ def main() -> int:
     k3 = _build(kernels, "hamming_top2", _k3_source(kernels), ())
     k12 = _build(kernels, "plane_segment", _k12_source(kernels),
                  kernels.SOURCE_FLAGS["plane_segment.cu"])
+    k15 = _build(kernels, "manhattan", _k15_source(kernels),
+                 kernels.SOURCE_FLAGS["manhattan.cu"])
+    k29 = _build(kernels, "depth_normals", _k29_source(kernels),
+                 kernels.SOURCE_FLAGS["depth_normals.cu"])
     entries = {"psl_gated_hamming_top2": k3, "psl_mutual_hamming_top2": k3,
-               "psl_plane_components": k12}
+               "psl_plane_components": k12, "psl_manhattan_mean_shift": k15,
+               "psl_frame_normals": k29}
     for name, lib in entries.items():
         getattr(lib, name).argtypes = kernels._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
-    for lib in (k3, k12):
+    for lib in (k3, k12, k15, k29):
         lib.psl_phase_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     cfg = SystemConfig()
     seq = synthetic.make_sequence(smoke.TRACKING_FRAMES,
@@ -192,31 +285,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     out = {"device": smi.stdout.strip(), "gated_hamming_top2": {}}
 
-    kernels._lib = _Swap(real, k3, set(entries) - {"psl_plane_components"})
-    marks = np.zeros((K3_BLOCKS, 16), np.int64)
+    kernels._lib = _Swap(real, k3, {"psl_gated_hamming_top2",
+                                    "psl_mutual_hamming_top2"})
     for name, fn in smoke.hamming_step_problems(seq, cfg, dev).items():
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        k3.psl_phase_read(marks.ctypes.data_as(ctypes.c_void_p),
-                          marks.nbytes)
-        before = marks.copy()
-        fn()
-        torch.cuda.synchronize()
-        k3.psl_phase_read(marks.ctypes.data_as(ctypes.c_void_p),
-                          marks.nbytes)
-        # the blocks this launch ran: their marks moved
-        ran = marks[:, 8] != before[:, 8]
-        full = ran & (marks[:, 12] != before[:, 12])
-        g0 = marks[ran, 8].min()
-        cyc = marks[full, 1:5] - marks[full, 0:4]
-        out["gated_hamming_top2"][name] = {
-            "blocks_ran": int(ran.sum()), "blocks_full": int(full.sum()),
-            "span_us": float((marks[ran, 8:13].max() - g0) / 1e3),
-            "start_skew_us": float((marks[ran, 8].max() - g0) / 1e3),
-            "cycles_median": dict(zip(K3_PHASES,
-                                      np.median(cyc, 0).tolist())),
-            "cycles_max": dict(zip(K3_PHASES, cyc.max(0).tolist()))}
+        out["gated_hamming_top2"][name] = _block_marks(k3, fn, BLOCK_ROWS,
+                                                       K3_PHASES)
 
     kernels._lib = _Swap(real, k12, {"psl_plane_components"})
     fn = smoke.components_problems(seq, cfg, dev)["b1"]
@@ -244,6 +317,26 @@ def main() -> int:
         "cycles_median": dict(zip(K12_PHASES,
                                   np.median(rows, 0).tolist())),
         "one_fit_cycles": fits}
+    kernels._lib = _Swap(real, k15, {"psl_manhattan_mean_shift"})
+    out["manhattan_mean_shift"] = {}
+    for name, fn in smoke.manhattan_problems(seq, cfg, dev).items():
+        rows = []
+        for rep in range(6):
+            fn()
+            torch.cuda.synchronize()
+            k15.psl_phase_read(t.ctypes.data_as(ctypes.c_void_p), t.nbytes)
+            if rep:
+                rows.append([t[1] - t[0], t[4] - t[2], t[4] - t[3],
+                             t[6] - t[5], t[6] - t[0]])
+        out["manhattan_mean_shift"][name] = {
+            "cycles_median": dict(zip(K15_PHASES,
+                                      np.median(rows, 0).tolist()))}
+
+    kernels._lib = _Swap(real, k29, {"psl_frame_normals"})
+    out["frame_normals"] = {
+        name: _block_marks(k29, fn, BLOCK_ROWS, K29_PHASES)
+        for name, fn in smoke.normals_problems(seq, cfg, dev).items()}
+    kernels._lib = real
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
                              "--format=csv,noheader"], capture_output=True,
                             text=True)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time K3 (gated_hamming_top2), K11 (pose_optimize), K12
-(plane_components) and K20 (detect_lines) of one tree of the port on a
-GPU, so that two trees can be compared in one run.
+(plane_components), K15 (manhattan_mean_shift), K20 (detect_lines) and K29
+(frame_normals) of one tree of the port on a GPU, so that two trees can be
+compared in one run.
 
     python3 tools/kernel_timing.py [--root DIR]
 
@@ -16,9 +17,12 @@ call), with their device time per tracking step; K11 on `pose_problem`
 from its usual start, from the true pose ("converged") and from 0.1 rad /
 0.1 m off ("far"), timed by `pose_timing` (per call, device time, per LM
 step); K12 on frame 0's block moments at B = 1 and on eight lanes' at B =
-8 (`components_problems`); K20 on frame 0 of the 640x480 synthetic room
-after its 5-tap blur, timed by `detect_timing` (per call, device time by
-launch). Prints one JSON object with the card's name and power limit,
+8 (`components_problems`); K15 on frame 0's normals and line directions
+with the tracking cone at B = 1 and 4 (`manhattan_problems`); K20 on
+frame 0 of the 640x480 synthetic room after its 5-tap blur, timed by
+`detect_timing` (per call, device time by launch); K29 on frame 0's depth
+at B = 1 and on frames 0-3 at B = 4 (`normals_problems`). K3, K12, K15
+and K29 are timed by `kernel_timing_entry`. Prints one JSON object with the card's name and power limit,
 those times and a hash of each output, so that two trees' outputs can be
 compared bit for bit.
 """
@@ -103,6 +107,13 @@ def main(argv=None) -> int:
         name: {"hash": _digest(fn()),
                **smoke.kernel_timing_entry(fn, "plane_")}
         for name, fn in smoke.components_problems(seq, cfg, dev).items()}
+
+    for key, problems, match in (
+            ("manhattan_mean_shift", smoke.manhattan_problems, "manhattan"),
+            ("frame_normals", smoke.normals_problems, "frame_normals")):
+        out[key] = {name: {"hash": _digest(fn()),
+                           **smoke.kernel_timing_entry(fn, match)}
+                    for name, fn in problems(seq, cfg, dev).items()}
 
     g8, _ = quantize_frame(*seq.render(0), cam.depth_map_factor)
     gray = torch.from_numpy(g8.astype(np.float32)).to(dev)

@@ -109,7 +109,8 @@ PORT_KERNELS = {
     "K26 frame_match_select": ("frame_matches_kernel",),
     "K27 assemble_observations": ("assemble_observations_kernel",),
     "K28 noise_alpha": ("noise_alpha_kernel",),
-    "K29 frame_normals": ("frame_normals_kernel",),
+    "K29 frame_normals": ("frame_normals_strided_kernel",
+                          "frame_normals_full_kernel"),
     "K30 associate_planes": ("associate_planes_kernel",),
     "K31 finish_step": ("finish_step_kernel",),
     "K32 refine_relative": ("refine_relative_kernel",),
