@@ -2308,15 +2308,15 @@ def tail_kernel_parity(seq, cfg, dev) -> list:
                                                         7]
            and all(v["valid"] > 100 for v in normals.values()),
            f"frame_normals: the cases do not exercise it: {normals}")
-    # box sides other than the configuration's 5: the kernel's copy that
-    # reads k at run time (3), and a box too wide to stage (11)
+    # box sides other than the configuration's 5, whose samples read their
+    # boxes from device memory, as wrapped windows do: 3 and 11
     dd, c, s = probs["320x240"]
     for kk in (3, 11):
         _tail_held(f"frame_normals (320x240, k = {kk})",
                    _twice(P.frame_normals, dd, c, kk, s, budget),
                    P.frame_normals_plain(dd, c, kk, s, budget))
     # B = 4 in one launch: frames 0 and 1, clean and noisy, each lane
-    # bit-equal to its own B = 1 launch
+    # bit-equal to its own B = 1 launch and to the plain version
     lanes = [clean[0], noisy[0], clean[1], noisy[1]]
     d4 = torch.from_numpy(np.stack(lanes)).to(dev)
     got4 = _twice(P.frame_normals, d4, cam, k, stride, budget)
@@ -2324,6 +2324,11 @@ def tail_kernel_parity(seq, cfg, dev) -> list:
         [x[None] for x in P.frame_normals(torch.from_numpy(d).to(dev), cam,
                                           k, stride, budget)]
         for d in lanes])
+    for b, d in enumerate(lanes):
+        _tail_held(f"frame_normals (B = 4, lane {b})",
+                   [x[b] for x in got4],
+                   P.frame_normals_plain(torch.from_numpy(d).to(dev), cam, k,
+                                         stride, budget))
     normals["b4"] = {"stride": stride, "valid": got4[1].sum(1).tolist()}
     args = (d0, cam, k, stride, budget)
     got = P.frame_normals(*args)

@@ -41,7 +41,8 @@
 // takes their max, and lane 0 finishes the sample. A sample whose window
 // reaches past an image edge wraps its rows or columns (strides 2-5 put
 // the first row and column there: off = stride / 2 < b), so its lanes read
-// their boxes around the wrapped pixels from device memory instead. Only
+// their boxes around the wrapped pixels from device memory instead, as
+// every sample does when smooth_window is not the staged k = 5. Only
 // the warp touches its sample's shared memory, so __syncwarp orders the
 // phases. Stride 1 keeps one thread per pixel.
 //
@@ -65,11 +66,11 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNoSample = 0xffffffffu;
 constexpr unsigned kNoDigit = 0xffffffffu;
 constexpr int kMaxSpan = 8;  // 2 b + 2 with b = min(stride, 3)
-// the side 2 b + 1 + k of a staged patch, at most (a half-warp stages a
-// row): k <= 9; a larger box reads device memory for every sample
+// the row of a staged patch, 2 b + 1 + kBox <= 12 wide, that a half-warp
+// stages in one step
 constexpr int kMaxPatch = 16;
-// the box side the strided kernel is compiled for (the configuration's
-// smooth_window); any other runs a copy that reads k at run time
+// the box side a staged patch is summed for (the configuration's
+// smooth_window); the samples of any other box read device memory
 constexpr int kBox = 5;
 
 // torch.clamp(x, min=lo): NaN stays NaN
@@ -308,22 +309,18 @@ __device__ bool normal_full(const float* __restrict__ d,
 
 // smoothed() at pixel (r, q) of a staged sample's window: the patch holds
 // the raw depths from row y - b - k_lo and column x - b - k_lo on, P to a
-// row, 0 outside the image (which adds what smoothed() adds there: 0 * 0).
-// K > 0: the box side, known at compile time (the taps unrolled); K = 0:
-// c.k.
-template <int K>
+// row, 0 outside the image (which adds what smoothed() adds there: 0 * 0),
+// for a box of kBox (the taps unrolled)
 __device__ __forceinline__ float smoothed_staged(const float* patch, int P,
-                                                 const NormalConsts& c,
                                                  int r, int q) {
-  const int k = K > 0 ? K : c.k, k_lo = K > 0 ? (K - 1) / 2 : c.k_lo;
+  constexpr int k_lo = (kBox - 1) / 2;
   const float z = patch[(r + k_lo) * P + q + k_lo];
-  if (k <= 1) return z;
   float acc = 0.0f, cnt = 0.0f;
 #pragma unroll
-  for (int dy = 0; dy < k; ++dy) {
+  for (int dy = 0; dy < kBox; ++dy) {
     const float* row = patch + (r + dy) * P + q;
 #pragma unroll
-    for (int dx = 0; dx < k; ++dx) {
+    for (int dx = 0; dx < kBox; ++dx) {
       const float e = row[dx];
       const float v = e > 1e-6f ? 1.0f : 0.0f;
       acc = __fadd_rn(acc, __fmul_rn(e, v));
@@ -392,8 +389,7 @@ __global__ void frame_normals_full_kernel(const float* __restrict__ depth,
   valid[o] = ok ? 1 : 0;
 }
 
-// stride >= 2: one warp per output row; K as smoothed_staged's
-template <int K>
+// stride >= 2: one warp per output row
 __global__ void __launch_bounds__(kSamplesPerBlock * 32)
     frame_normals_strided_kernel(const float* __restrict__ depth,
                                  NormalConsts c,
@@ -445,7 +441,7 @@ __global__ void __launch_bounds__(kSamplesPerBlock * 32)
     const int t = lane + 32 * half;
     if (t < span * span) {
       const int r = t / span, q = t % span;
-      zs[t] = staged ? smoothed_staged<K>(patch, P, c, r, q)
+      zs[t] = staged ? smoothed_staged(patch, P, r, q)
                      : smoothed(d, c, wrap(y - b + r, c.h),
                                 wrap(x - b + q, c.w));
     }
@@ -525,19 +521,11 @@ PSL_API int psl_frame_normals(const float* depth, int h, int w, int batch,
       frame_normals_full_kernel<<<grid, kNormalThreads, 0, stream>>>(
           depth, c, normals, valid);
     } else {
-      const int side = 2 * c.b + 1 + (smooth_window > 1 ? smooth_window : 1);
-      c.patch = side <= kMaxPatch ? side : 0;
+      c.patch = smooth_window == kBox ? 2 * c.b + 1 + kBox : 0;
       const dim3 grid((budget + kSamplesPerBlock - 1) / kSamplesPerBlock,
                       batch);
-      if (smooth_window == kBox) {
-        frame_normals_strided_kernel<kBox>
-            <<<grid, kSamplesPerBlock * 32, 0, stream>>>(depth, c, normals,
-                                                         valid);
-      } else {
-        frame_normals_strided_kernel<0>
-            <<<grid, kSamplesPerBlock * 32, 0, stream>>>(depth, c, normals,
-                                                         valid);
-      }
+      frame_normals_strided_kernel<<<grid, kSamplesPerBlock * 32, 0,
+                                     stream>>>(depth, c, normals, valid);
     }
   }
   return static_cast<int>(cudaGetLastError());
