@@ -4749,10 +4749,71 @@ def _reloc_run(slam, seq, cfg) -> dict:
 
 H2D_WARMUP_FRAMES = 20
 H2D_FRAMES = 32  # long enough to hold a keyframe and the refresh after it
-# idle host time before each frame's span: a device copy counts in the span
-# that starts at most half of it after the copy, so the profiler's mapping
-# of device times onto the host clock may be off by that much
+# idle host time before each frame's span: a device copy that no host op
+# issued counts in the span that starts at most half of it after the copy
 H2D_GAP_S = 0.02
+
+
+def _h2d_by_span(kineto_events, events, prefix: str, where: str) -> dict:
+    """The "Memcpy HtoD" device events of one profile, each given to the
+    span (a host event named prefix + frame) in which the host op that
+    issued it started. kineto_events are the profile's raw events
+    (prof.profiler.kineto_results.events()), events its FunctionEvents
+    (prof.events()), which give the ops' parents. A copy's op is the host
+    event whose correlation id the copy is linked to, as torch links a
+    device event to its op, and the op's start and the spans' lie on one
+    clock, so the count does not rest on the profiler's mapping of device
+    times onto the host clock, which can be off by milliseconds within one
+    profile (a copy then seems to start before the op that issued it:
+    "device_minus_issue_us"). A copy that no host op issued counts in the
+    span that starts at most half of H2D_GAP_S after it. Returns the
+    frames of the spans in order, the copies per frame, per frame the host
+    ops (outermost three) that issued them, the number of copies with no
+    host op, and the range of each copy's device start minus its op's
+    start, in us."""
+    ops, copies = {}, []
+    for e in kineto_events:
+        if "CUDA" in str(e.device_type()):
+            if "Memcpy HtoD" in e.name():
+                copies.append(e)
+        elif e.linked_correlation_id() == 0:
+            ops.setdefault(e.correlation_id(), e)
+    starts = sorted((e.start_ns(), int(e.name().rsplit("_", 1)[1]))
+                    for e in ops.values() if e.name().startswith(prefix))
+    parents = {(e.id, e.name): e for e in events
+               if "CUDA" not in str(e.device_type)}
+    half_gap_ns = int(H2D_GAP_S * 1e9) // 2
+
+    def frame_of(t):
+        k = [i for t0, i in starts if t0 <= t]
+        return k[-1] if k else None
+
+    per, asked, lag = {}, {}, []
+    unlinked = 0
+    for e in copies:
+        op = ops.get(e.linked_correlation_id())
+        if op is None:
+            unlinked += 1
+            i = frame_of(e.start_ns() + half_gap_ns)
+            key = "(no host op)"
+        else:
+            i = frame_of(op.start_ns())
+            lag.append((e.start_ns() - op.start_ns()) / 1e3)
+            chain = [op.name()]
+            fe = parents.get((op.correlation_id(), op.name()))
+            p = fe.cpu_parent if fe is not None else None
+            while p is not None and not p.name.startswith(prefix):
+                chain.append(p.name)
+                p = p.cpu_parent
+            key = " < ".join(chain[-3:][::-1])
+        _check(i is not None, f"{where}: a copy precedes the first span")
+        per[i] = per.get(i, 0) + 1
+        by = asked.setdefault(i, {})
+        by[key] = by.get(key, 0) + 1
+    return {"frames": [i for _, i in starts], "copies": per,
+            "asked_by": asked, "unlinked": unlinked,
+            "device_minus_issue_us": [float(min(lag)), float(max(lag))]
+            if lag else None}
 
 
 def run_h2d_copies(seq, frames, cfg, dev) -> dict:
@@ -4760,9 +4821,10 @@ def run_h2d_copies(seq, frames, cfg, dev) -> dict:
     H2D_WARMUP_FRAMES frames of a tracking-only System, one more frame and
     then H2D_FRAMES frames run under one torch.profiler session, each in a
     record_function span that ends with a device synchronization, after
-    H2D_GAP_S of idle host, and the "Memcpy HtoD" device events are counted
-    per span (the first frame under the profiler only absorbs its start and
-    is not counted). The allowed
+    H2D_GAP_S of idle host, and each "Memcpy HtoD" device event counts in
+    the span of the host op that issued it (_h2d_by_span; the first frame
+    under the profiler only absorbs its start and is not counted). The
+    allowed
     copies of a tracked frame, each named: the packed sensor frame (gray and
     depth in one pinned upload) and, in a frame that follows a change of the
     map, the packed local-map window. No constant is among them: level
@@ -4810,46 +4872,16 @@ def run_h2d_copies(seq, frames, cfg, dev) -> dict:
                               "window_refreshes": seen["refresh"],
                               "keyframe_events": seen["keyframe"]})
     slam.shutdown()
-    events = prof.events()
-
-    def on_device(e):
-        return "CUDA" in str(e.device_type)
-
-    # the spans' host start times, each moved half the idle gap earlier: a
-    # frame's device work lies between its span's start and the next
-    # span's, because each span ends synchronized
-    half_gap_us = H2D_GAP_S * 1e6 / 2
-    starts = sorted((e.time_range.start - half_gap_us,
-                     int(e.name.rsplit("_", 1)[1]))
-                    for e in events
-                    if e.name.startswith("h2d_frame_") and not on_device(e))
-    _check([i for _, i in starts] == [r["frame"] for r in per_frame],
-           f"h2d: the profiler kept {len(starts)} of {len(per_frame)} frame "
-           f"spans")
-
-    def frame_of(t):
-        k = sum(1 for t0, _ in starts if t0 <= t) - 1
-        return per_frame[k] if k >= 0 else None
-
-    n_events = 0
-    for e in events:
-        if "Memcpy HtoD" in e.name and on_device(e):
-            rec = frame_of(e.time_range.start)
-            _check(rec is not None, "h2d: a copy precedes the first span")
-            rec["h2d_copies"] += 1
-            n_events += 1
-        elif any("Memcpy HtoD" in k.name
-                 for k in getattr(e, "kernels", None) or []):
-            # the host op (outermost first) whose device work is a copy
-            rec = frame_of(e.time_range.start)
-            chain, p = [e.name], e.cpu_parent
-            while p is not None and not p.name.startswith("h2d_frame_"):
-                chain.append(p.name)
-                p = p.cpu_parent
-            key = " < ".join(chain[-3:][::-1])
-            if rec is not None:
-                asked = rec.setdefault("asked_by", {})
-                asked[key] = asked.get(key, 0) + 1
+    got = _h2d_by_span(prof.profiler.kineto_results.events(),
+                       prof.events(), "h2d_frame_", "h2d")
+    _check(got["frames"] == [r["frame"] for r in per_frame],
+           f"h2d: the profiler kept {len(got['frames'])} of "
+           f"{len(per_frame)} frame spans")
+    for rec in per_frame:
+        rec["h2d_copies"] = got["copies"].get(rec["frame"], 0)
+        if rec["frame"] in got["asked_by"]:
+            rec["asked_by"] = got["asked_by"][rec["frame"]]
+    n_events = sum(got["copies"].values())
     per_frame = per_frame[1:]  # the frame that absorbed the profiler's start
     held = 0
     for rec in per_frame:
@@ -4874,6 +4906,8 @@ def run_h2d_copies(seq, frames, cfg, dev) -> dict:
                 if r["keyframe_events"] == 0])),
            "copies_per_frame": float(np.mean(
                [r["h2d_copies"] for r in per_frame])),
+           "copies_without_host_op": got["unlinked"],
+           "device_minus_issue_us": got["device_minus_issue_us"],
            "per_frame": per_frame}
     print("h2d_copies " + json.dumps(res), flush=True)
     _check(held >= H2D_FRAMES // 2, f"h2d: only {held} frames without a "
@@ -5425,9 +5459,11 @@ def run_h2d_batched(cfg, dev, lane_frames: list, B: int = 4) -> dict:
     """Host-to-device copies of batched steps: a BatchedSLAM of B
     tracking-only lanes warms up, then H2D_BATCH_STEPS steps run under one
     torch.profiler session, each in a span that ends synchronized after
-    H2D_GAP_S of idle host. Allowed per step: the stacked frame upload and
-    the small-parameter upload, plus one window upload per lane whose
-    window was refreshed (its insert into the stack is a device copy). A
+    H2D_GAP_S of idle host, and each copy counts in the span of the host op
+    that issued it (_h2d_by_span). Allowed per step: the stacked frame
+    upload and the small-parameter upload, plus one window upload per lane
+    whose window was refreshed (its insert into the stack is a device
+    copy). A
     step in which a lane decides or makes a keyframe (its fuse set is
     uploaded apart) is reported, not held."""
     import torch
@@ -5480,24 +5516,13 @@ def run_h2d_batched(cfg, dev, lane_frames: list, B: int = 4) -> dict:
                              "window_refreshes": seen["refresh"],
                              "keyframe_events": seen["keyframe"]})
     bs.flush()
-    events = prof.events()
-
-    def on_device(e):
-        return "CUDA" in str(e.device_type)
-
-    half_gap_us = H2D_GAP_S * 1e6 / 2
-    starts = sorted((e.time_range.start - half_gap_us,
-                     int(e.name.rsplit("_", 1)[1]))
-                    for e in events
-                    if e.name.startswith("h2d_step_") and not on_device(e))
-    _check([i for _, i in starts] == [r["frame"] for r in per_step],
-           f"h2d batched: the profiler kept {len(starts)} of "
+    got = _h2d_by_span(prof.profiler.kineto_results.events(),
+                       prof.events(), "h2d_step_", "h2d batched")
+    _check(got["frames"] == [r["frame"] for r in per_step],
+           f"h2d batched: the profiler kept {len(got['frames'])} of "
            f"{len(per_step)} step spans")
-    for e in events:
-        if "Memcpy HtoD" in e.name and on_device(e):
-            k = sum(1 for t0, _ in starts if t0 <= e.time_range.start) - 1
-            _check(k >= 0, "h2d batched: a copy precedes the first span")
-            per_step[k]["h2d_copies"] += 1
+    for r in per_step:
+        r["h2d_copies"] = got["copies"].get(r["frame"], 0)
     per_step = per_step[1:]
     held = [r for r in per_step if r["keyframe_events"] == 0]
     for r in held:
@@ -5514,6 +5539,8 @@ def run_h2d_batched(cfg, dev, lane_frames: list, B: int = 4) -> dict:
                [r["h2d_copies"] for r in held])) if held else None,
            "copies_per_step": float(np.mean(
                [r["h2d_copies"] for r in per_step])),
+           "copies_without_host_op": got["unlinked"],
+           "device_minus_issue_us": got["device_minus_issue_us"],
            "per_step": per_step}
     print("h2d_copies_batched " + json.dumps(res), flush=True)
     _check(len(held) >= 3, f"h2d batched: only {len(held)} steps without a "

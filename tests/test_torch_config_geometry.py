@@ -213,3 +213,53 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_h2d_copies_counted_by_issuing_op():
+    """chip_smoke.py counts a host-to-device copy in the frame span of the
+    host op that issued it, whatever device time the profiler gives the
+    copy: here 30 ms before its op, past the half gap that a copy with no
+    host op is allowed, which counts by its device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for i in range(3):
+            with record_function(f"h2d_frame_{i}"):
+                torch.ones(3).to(torch.float64)
+    raw = list(prof.profiler.kineto_results.events())
+    ops = [e for e in raw if e.name() == "aten::copy_"]
+    span2 = next(e for e in raw if e.name() == "h2d_frame_2")
+    gap_ns = int(chip_smoke.H2D_GAP_S * 1e9)
+
+    class Copy:
+        def __init__(self, linked, start):
+            self.linked, self.start = linked, start
+
+        def name(self):
+            return "Memcpy HtoD (Pinned -> Device)"
+
+        def device_type(self):
+            return "DeviceType.CUDA"
+
+        def linked_correlation_id(self):
+            return self.linked
+
+        def start_ns(self):
+            return self.start
+
+    got = chip_smoke._h2d_by_span(
+        raw + [Copy(ops[1].correlation_id(),
+                    ops[1].start_ns() - 3 * gap_ns // 2),
+               Copy(ops[2].correlation_id(), ops[2].start_ns() + 40_000),
+               Copy(0, span2.start_ns() - 2 * gap_ns // 5)],
+        prof.events(), "h2d_frame_", "test")
+    assert got["frames"] == [0, 1, 2]
+    assert got["copies"] == {1: 1, 2: 2}
+    assert got["asked_by"][1] == {
+        "aten::to < aten::_to_copy < aten::copy_": 1}
+    assert got["asked_by"][2]["(no host op)"] == 1
+    assert got["unlinked"] == 1
+    assert got["device_minus_issue_us"] == [-1.5 * gap_ns / 1e3, 40.0]
