@@ -48,7 +48,9 @@ Phases, each fatal on failure:
      step's tail), each bit-equal to its plain version in every output
      slot: K28 on frame 0's depth clean and with Kinect noise and on
      planted depths (no valid sample, odd and even counts, a flat plane,
-     many duplicates), K29 on the same two depths, at strides 1, 4 (windows
+     many duplicates, two middle values in different top digits, exactly
+     two samples, a 1280x960 frame), K29 on the same two depths, at
+     strides 1, 4 (windows
      that wrap around the image) and 7, and at B = 4 lane by lane,
      K30 on planted associations (a tie, the direct match also the most
      parallel, an empty cloud, no map plane), K30 and K31 on the last
@@ -56,10 +58,13 @@ Phases, each fatal on failure:
      tails, and both again on the inputs of path 1's 48th tracking step;
      K36 (the step's prelude) bit-equal to its plain version on the
      inputs of path 1's 48th tracking step and on four planted lanes; the
-     batch of K3, K4, K11, K12-K14 and K15 (with its initial-pose epilogue)
-     on four lanes in one launch each, every lane bit-equal to its own B =
-     1 launch and held to its plain version as one problem is, timed at
-     B = 1 and B = 4;
+     batch of K3, K4, K11, K12-K14, K15 (with its initial-pose epilogue)
+     and K28 on four lanes in one launch each, every lane bit-equal to its
+     own B = 1 launch and held to its plain version as one problem is,
+     timed at B = 1 and B = 4; one K13 launch per round and one K28
+     launch per call (the wrappers' counts), their device time per call
+     under torch.profiler, and K13's rounds captured in a CUDA graph and
+     replayed bit-equal;
   4. path 1, tracking only: System(SystemConfig(), enable_local_mapping=
      False, enable_loop_closing=False) tracks 96 frames of the 640x480
      synthetic room, quantized to uint8 gray / uint16 depth; ATE against
@@ -1964,7 +1969,8 @@ STEP_LAUNCHES = {**MATCH_PER_STEP, **TAIL_PER_STEP, **CORE_PER_STEP}
 PLANE_KEYS = ("coeffs", "valid", "T_cw", "pl_coeffs", "pl_cloud",
               "pl_cloud_n", "pl_valid")
 PLANE_CASES = ("random", "tie", "self_parallel", "empty_cloud", "no_map")
-ALPHA_CASES = ("empty", "even", "odd", "flat", "duplicates")
+ALPHA_CASES = ("empty", "even", "odd", "flat", "duplicates", "split", "pair",
+               "wide")
 TAIL_FRAMES = 10  # frames of the Systems whose last step K30 and K31 see
 
 
@@ -1973,11 +1979,28 @@ def _unit(rng, n: int) -> np.ndarray:
     return v / np.linalg.norm(v, axis=1, keepdims=True)
 
 
+def alpha_samples(depth: np.ndarray, max_distance: float = 10.0
+                  ) -> np.ndarray:
+    """K28's valid strided samples of a depth map as float32, in float32
+    arithmetic as the kernel rounds them (the plain version's spelling)."""
+    d = depth.astype(np.float32)
+    d1, d2 = np.roll(d, -1, 1), np.roll(d, -2, 1)
+    ok = (d > 1e-6) & (d < max_distance)
+    ok = ok & np.roll(ok, -1, 1) & np.roll(ok, -2, 1)
+    z = np.maximum(d, np.float32(1.0))
+    r = np.abs((d - np.float32(2.0) * d1) + d2) / (z * z)
+    return r[::4, ::4][ok[::4, ::4]].astype(np.float32)
+
+
 def planted_alpha_depth(case: str) -> np.ndarray:
     """Depth maps (metres) for K28's planted cases: no valid sample
     ("empty"), 100 and 99 samples ("even", "odd"), a flat plane whose every
-    sample is 0 ("flat") and a ramp quantized to 5 mm, a few distinct
-    values each many times ("duplicates")."""
+    sample is 0 ("flat"), a ramp quantized to 5 mm, a few distinct values
+    each many times ("duplicates"), 100 samples whose two middle values
+    differ in their top 11 bits, half near 2.5e-4 and half near 0.025
+    ("split"), exactly two samples that share their first 22 bits and no
+    value ("pair"), and a 1280x960 ramp with noise and a hole (76800
+    samples, "wide")."""
     rng = np.random.default_rng(28)
     if case == "empty":
         return np.zeros((40, 40), np.float32)
@@ -1988,6 +2011,30 @@ def planted_alpha_depth(case: str) -> np.ndarray:
         return d
     if case == "flat":
         return np.full((48, 64), 1.5, np.float32)
+    if case == "split":
+        # sample (y, x) alone reads pixel (y, x + 1): |2 - 2 d1 + 2| / 4
+        d = np.full((40, 40), 2.0, np.float32)
+        e = np.concatenate([1e-3 * (1.0 + np.arange(50) / 50.0),
+                            0.1 * (1.0 + np.arange(50) / 50.0)])
+        d[0::4, 1::4] = (2.0 - rng.permutation(e) / 2.0).reshape(10, 10)
+        return d
+    if case == "pair":
+        d = np.zeros((40, 40), np.float32)
+        d[0, 0:3] = d[20, 20:23] = 2.0
+        d[0, 1] = np.float32(1.99)
+        one = d[0, 1]
+        for _ in range(64):  # the next d1 whose sample keeps 22 bits
+            d[20, 21] = np.nextafter(d[20, 21] if d[20, 21] < 2.0 else one,
+                                     np.float32(2.0))
+            a, b = np.sort(alpha_samples(d)).view(np.uint32)
+            if a != b and a >> 10 == b >> 10:
+                break
+        return d
+    if case == "wide":
+        yy, xx = np.mgrid[:960, :1280]
+        d = 1.0 + 0.002 * xx + 0.001 * yy + rng.normal(0, 0.005, xx.shape)
+        d[100:300, 200:520] = 0.0
+        return d.astype(np.float32)
     yy, xx = np.mgrid[:120, :160]
     ramp = 1.0 + 0.01 * xx + 0.004 * yy + rng.normal(0, 0.002, (120, 160))
     return (np.round(ramp * 200.0) / 200.0).astype(np.float32)
@@ -2228,11 +2275,13 @@ def tail_kernel_parity(seq, cfg, dev) -> list:
     the first TAIL_FRAMES frames, clean and noisy (the map planes of frame
     0's keyframe in its window), and K31 on two
     random tails (the final pose kept and not). Times at the 640x480
-    shapes (median of 25 calls)."""
+    shapes (median of 25 calls); K28's device time and launches per call
+    on alpha_problems (one launch each). ALPHA_CASES' "wide" is 1280x960."""
     import dataclasses
 
     import torch
 
+    from planarslam_tpu_torch import kernels
     from planarslam_tpu_torch.io import synthetic
     from planarslam_tpu_torch.io.frames import quantize_frame
     from planarslam_tpu_torch.ops import planes as P
@@ -2260,7 +2309,8 @@ def tail_kernel_parity(seq, cfg, dev) -> list:
         alphas[name] = float(got[0])
     _check(alphas["empty"] == 0.0 and alphas["flat"] == 0.0
            and alphas["clean"] < alphas["noisy"]
-           and alphas["duplicates"] > 0 and alphas["odd"] > 0,
+           and min(alphas[c] for c in ("duplicates", "odd", "split", "pair",
+                                        "wide")) > 0,
            f"noise_alpha: the cases do not exercise it: {alphas}")
     d0 = torch.from_numpy(clean[0]).to(dev)
     h, w = clean[0].shape
@@ -2270,15 +2320,28 @@ def tail_kernel_parity(seq, cfg, dev) -> list:
     sub = torch.where(interior, d2 / torch.clamp(d0, min=1.0) ** 2,
                       math.nan)[::4, ::4]
     cols = len({(x + o) % w for x in range(0, w, 4) for o in range(3)})
+    k28_problems = alpha_problems(seq, cfg, dev)
+    for k, fn in k28_problems.items():
+        n0 = kernels.LAUNCHES["noise_alpha"]
+        fn()
+        _check(kernels.LAUNCHES["noise_alpha"] == n0 + 1,
+               f"noise_alpha: {kernels.LAUNCHES['noise_alpha'] - n0} "
+               f"launches for {k}")
+    k28_timing = {f"{k}_timing": kernel_timing_entry(fn, "noise_alpha")
+                  for k, fn in k28_problems.items()}
     out.append({
         "name": "noise_alpha", "route": "cuda", "library_ms": _time_ms(
             lambda: torch.nanquantile(sub, 0.5)),
         # the pixels the strided samples read; per sample the difference,
-        # the division and six radix passes over it
-        **_bound(4 * len(range(0, h, 4)) * cols + 4, 20.0 * sub.numel()),
+        # the division and four radix passes over it
+        **_bound(4 * len(range(0, h, 4)) * cols + 4, 16.0 * sub.numel()),
         "source": src + "depth_normals.cu",
         "replaces": "planarslam_tpu/ops/planes.py:243",
         "max_abs_err": 0.0, "tolerance": "bit-equal", "cases": alphas,
+        **k28_timing,
+        "ms_of": "CUDA events around one wrapper call on frame 0's clean "
+                 "depth, median of 25 (_time_ms); device ms per launch in "
+                 "*_timing (torch.profiler)",
         "ms": _time_ms(lambda: P._noise_alpha(d0, mx)),
         "plain_ms": _time_ms(lambda: P.noise_alpha_plain(d0, mx))})
 
@@ -3159,6 +3222,7 @@ def plane_kernel_parity(seq, cfg, dev) -> list:
     noise; timed on the clean depth."""
     import torch
 
+    from planarslam_tpu_torch import kernels
     from planarslam_tpu_torch.io.frames import quantize_frame
     from planarslam_tpu_torch.ops import planes as P
 
@@ -3181,6 +3245,19 @@ def plane_kernel_parity(seq, cfg, dev) -> list:
     out14 = P.plane_label_pixels(*args, fit)
     n_valid = int(out14.valid.sum())
     src = "planarslam_tpu_torch/csrc/plane_segment.cu"
+    # K13: one launch a round up to 8 frames, as the C entry reports the
+    # launches it made; partial sums filled with NaN and other problems'
+    # sums left in reused buffers change no bit, and no flag word is left
+    # set (refit_protocol); the profiler's launch count, which can miss
+    # records, is reported
+    k13_problems = refit_problems(seq, cfg, dev, frames=9)
+    k13_timing = {"protocol": refit_protocol(k13_problems,
+                                             1 + pc.refine_rounds)}
+    k13_timing.update({f"{k}_timing": kernel_timing_entry(k13_problems[k],
+                                                          "plane_")
+                       for k in ("b1", "b4")})
+    k13_timing["graph_replay_bit_equal"] = refit_graph_replay(
+        k13_problems["b4"])
 
     def worst(name):
         return max(c[name]["max_abs_err"] for c in cases.values())
@@ -3216,6 +3293,11 @@ def plane_kernel_parity(seq, cfg, dev) -> list:
          "tolerance": "no further from the float64 plain run than the "
                       f"float32 plain run plus {REFIT_EPS}; labels >= 99.5%",
          "cases": {k: c["plane_assign_refit"] for k, c in cases.items()},
+         **k13_timing,
+         "ms_of": "CUDA events around one wrapper call (a refine round) on "
+                  "frame 0's clean depth, median of 25 (_time_ms); device "
+                  "ms and launches of extract_planes' rounds in *_timing "
+                  "(torch.profiler)",
          "ms": _time_ms(lambda: P.plane_assign_refit(*args, *planes2, fit2)),
          "plain_ms": _time_ms(
              lambda: P.plane_assign_refit_plain(*args, *planes2, fit2))},
@@ -3321,23 +3403,179 @@ def manhattan_problems(seq, cfg, dev) -> dict:
             "b4": lambda: M.track_manhattan_frame(*four, **kw)}
 
 
+def _room_depths(seq, cfg, dev, n: int):
+    """Frames 0..n-1 of `seq`, quantized, as one (n, H, W) float32 depth
+    on the card."""
+    import torch
+
+    from planarslam_tpu_torch.io.frames import quantize_frame
+
+    factor = cfg.camera.depth_map_factor
+    return torch.from_numpy(np.stack([
+        quantize_frame(*seq.render(i), factor)[1].astype(np.float32)
+        / np.float32(factor) for i in range(n)])).to(dev)
+
+
+def alpha_problems(seq, cfg, dev) -> dict:
+    """K28 at the main path's shapes: frame 0's quantized 640x480 depth
+    clean ("clean") and with Kinect noise ("noisy") alone, and frames 0-3
+    in one launch ("b4"). Returns {name: fn}, fn() launching it."""
+    import torch
+
+    from planarslam_tpu_torch.ops import planes as P
+
+    depth = _room_depths(seq, cfg, dev, 4)
+    clean = depth[0].contiguous()
+    noisy = torch.from_numpy(noisy_depth(
+        clean.cpu().numpy(), cfg.camera.depth_map_factor)).to(dev)
+    mx = cfg.planes.max_distance
+    return {"clean": lambda: (P._noise_alpha(clean, mx),),
+            "noisy": lambda: (P._noise_alpha(noisy, mx),),
+            "b4": lambda: (P._noise_alpha(depth, mx),)}
+
+
+def refit_problems(seq, cfg, dev, frames: int = 4) -> dict:
+    """K13 at the main path's shapes: the 1 + refine_rounds rounds of
+    extract_planes from K12's candidates, on frame 0's quantized depth
+    alone ("b1") and on frames 0-3 in one launch a round ("b4"), and with
+    frames > 8 on frames 0-8 ("b9": two launches a round). Returns {name:
+    fn}, fn() running the rounds and returning every round's outputs;
+    fn(poison=True) gives each round a partial-sum buffer filled with NaN
+    and checks the stream's flag words all zero after it."""
+    import torch
+
+    from planarslam_tpu_torch.ops import planes as P
+
+    pc, cam = cfg.planes, cfg.camera
+    depth = _room_depths(seq, cfg, dev, frames)
+    h, w = depth.shape[-2:]
+    alpha = P._noise_alpha(depth, pc.max_distance)
+    stats = P.plane_block_moments(depth, alpha, cam, P._geo_tol(w),
+                                  pc.max_distance, pc.block)
+    cand = P.plane_components(stats, h // pc.block, w // pc.block, pc)
+    rs = max(1, int(pc.refine_stride))
+    n_part = -(-(-(-h // rs) * -(-w // rs)) // P.ASSIGN_PIXELS_PER_BLOCK)
+
+    def rounds(b, poison=False):
+        dd, a = depth[:b].contiguous(), alpha[:b].contiguous()
+        nm, d0, v = (x[:b].contiguous() for x in cand[:3])
+
+        def one(*planes):
+            if not poison:  # as any tree's wrapper takes it
+                return P.plane_assign_refit(dd, a, cam, pc, *planes)
+            part = torch.full((b, n_part, nm.shape[-2], 10), float("nan"),
+                              dtype=torch.float64, device=dev)
+            fit = P.plane_assign_refit(dd, a, cam, pc, *planes,
+                                       partial=part)
+            refit_flags_clear()
+            return fit
+
+        fit = one(nm, d0, v)
+        out = list(fit)
+        for _ in range(pc.refine_rounds):
+            fit = one(fit.normal, fit.d, fit.alive,
+                      (fit.mse, fit.mean, fit.n))
+            out += list(fit)
+        return tuple(out)
+
+    probs = {"b1": lambda poison=False: rounds(1, poison),
+             "b4": lambda poison=False: rounds(4, poison)}
+    if frames >= 9:
+        probs["b9"] = lambda poison=False: rounds(9, poison)
+    return probs
+
+
+def refit_flags_clear(stream=None) -> None:
+    """K13's flag words of `stream` (the current one when None) all zero
+    once the card has run what was queued: every launch's last collector
+    of a frame cleared the frame's words."""
+    import torch
+
+    from planarslam_tpu_torch.ops import planes as P
+
+    torch.cuda.synchronize()
+    stream = stream or torch.cuda.current_stream()
+    words = P._FLAGS[(stream.device, stream.cuda_stream)]
+    left = int((words != 0).sum())
+    _check(left == 0, f"plane_assign_refit: {left} flag words left set "
+           f"after a launch (first {torch.nonzero(words)[:8].flatten()})")
+
+
+def refit_protocol(probs: dict, rounds: int, reps: int = 8) -> dict:
+    """K13's flag protocol on the card, on refit_problems' problems: each
+    problem's rounds once as the reference; then `reps` passes over the
+    problems in turn, each run with every partial-sum buffer filled with
+    NaN (so every term a collector adds was written by a block of its own
+    launch) and once as is (so a collector that read another problem's
+    sums from a reused buffer would show), each bit-equal to its
+    reference, the flag words all zero after every round, and each round
+    as many launches as the C entry reports for its frames (one a round
+    up to 8 frames)."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+
+    want = {k: fn() for k, fn in probs.items()}
+    refit_flags_clear()
+    frames = {"b1": 1, "b4": 4, "b9": 9}
+    calls = 0
+    for _ in range(reps):
+        for k, fn in probs.items():
+            for poison in (True, False):
+                n0 = kernels.LAUNCHES["plane_assign_refit"]
+                got = fn(poison=poison)
+                n = kernels.LAUNCHES["plane_assign_refit"] - n0
+                _check(n == rounds * -(-frames[k] // 8),
+                       f"plane_assign_refit: {n} launches for the rounds "
+                       f"of {k}")
+                refit_flags_clear()
+                _check(all(torch.equal(a, b) for a, b in zip(got, want[k])),
+                       f"plane_assign_refit: the rounds of {k} differ from "
+                       f"their first run (partial filled with NaN: "
+                       f"{poison})")
+                calls += 1
+    return {"calls": calls, "problems": sorted(probs),
+            "nan_partials_bit_equal": True, "flags_clear": True}
+
+
+def refit_graph_replay(fn) -> bool:
+    """K13's rounds (refit_problems' fn) captured in a CUDA graph on a side
+    stream after a warm-up there, and replayed twice, each replay
+    bit-equal to the eager rounds: the flag words the launches share need
+    no reset between replays, and they are all zero after each."""
+    import torch
+
+    want = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        cap = fn()
+    for _ in range(2):
+        for t in cap:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        _check(all(torch.equal(a, b) for a, b in zip(cap, want)),
+               "plane_assign_refit: the graph replay differs from the "
+               "eager rounds")
+        refit_flags_clear(side)
+    return True
+
+
 def normals_problems(seq, cfg, dev) -> dict:
     """K29 at the main path's shapes: frame 0's quantized 640x480 depth
     alone ("b1") and frames 0-3 in one launch ("b4"). Returns {name: fn},
     fn() launching it."""
-    import torch
-
-    from planarslam_tpu_torch.io.frames import quantize_frame
     from planarslam_tpu_torch.ops import planes as P
     from planarslam_tpu_torch.slam.frame import _normal_stride
 
-    cam = cfg.camera
-    factor = cam.depth_map_factor
-    depth = torch.from_numpy(np.stack([
-        quantize_frame(*seq.render(i), factor)[1].astype(np.float32)
-        / np.float32(factor) for i in range(4)])).to(dev)
+    depth = _room_depths(seq, cfg, dev, 4)
     one = depth[:1].contiguous()
-    args = (cam, cfg.planes.smooth_window, _normal_stride(cfg),
+    args = (cfg.camera, cfg.planes.smooth_window, _normal_stride(cfg),
             cfg.manhattan.max_normals)
     return {"b1": lambda: P.frame_normals(one, *args),
             "b4": lambda: P.frame_normals(depth, *args)}
@@ -5019,7 +5257,7 @@ def _batch_entry(report: list, name: str, ms_b1: float, ms_b: float,
 
 
 def batched_kernel_parity(seq, cfg, dev, report: list) -> None:
-    """K3, K4, K11, K12-K14 and K15 on BATCH_PARITY lanes in one launch
+    """K3, K4, K11, K12-K15 and K28 on BATCH_PARITY lanes in one launch
     each: every lane bit-equal to its own B = 1 launch, and held to its
     plain version as the single problem is; one launch per call whatever
     B; times at B = 1 and B = BATCH_PARITY beside the bound."""
@@ -5101,9 +5339,22 @@ def batched_kernel_parity(seq, cfg, dev, report: list) -> None:
         lambda: matching.gated_hamming_top2(*k3a, gate),
         lambda: matching.gated_hamming_top2(*x1, g1)), B, {})
 
-    # K4 on the lanes' depths
+    # K28 on the lanes' depths (odd lanes with Kinect noise)
     pc = cfg.planes
-    alpha = planes._noise_alpha(depth, pc.max_distance)
+    mx = pc.max_distance
+    alpha = launches("noise_alpha", planes._noise_alpha, depth, mx)
+    for b in range(B):
+        one = planes._noise_alpha(depth[b:b + 1], mx)
+        plain = planes.noise_alpha_plain(depth[b], mx)[None]
+        _check(_bit_diff(alpha[b:b + 1], one, as_int=True) == 0,
+               f"noise_alpha: lane {b} differs from its B = 1 launch")
+        _check(_bit_diff(one, plain, as_int=True) == 0,
+               f"noise_alpha: lane {b} differs from plain")
+    _batch_entry(report, "noise_alpha", *timed(
+        lambda: planes._noise_alpha(depth, mx),
+        lambda: planes._noise_alpha(depth[:1], mx)), B, {})
+
+    # K4 on the lanes' depths
     kw4 = dict(cam=cfg.camera, geo_tol=planes._geo_tol(W),
                max_distance=pc.max_distance, block=pc.block)
     got = launches("plane_block_moments", planes.plane_block_moments, depth,

@@ -11,6 +11,31 @@
 
 #define PSL_API extern "C" __attribute__((visibility("default")))
 
+// Return codes of the entry points' own, above every cudaError_t; each has
+// its message in psl_error_string.
+// K28 (noise_alpha): a frame has more strided samples than its cluster's
+// shared memory holds, kPslAlphaMaxSamples (8 blocks of 52736).
+constexpr int kPslErrAlphaSamples = 100001;
+constexpr int kPslAlphaMaxSamples = 421888;
+// K13 (plane_assign_refit): a frame has more logical blocks of subsampled
+// pixels than its flag words hold (kAssignMaxParts in plane_segment.cu).
+constexpr int kPslErrAssignParts = 100002;
+
+// Cards an entry point caches a per-card value for (a shared-memory
+// opt-in, a residency count).
+constexpr int kPslDevices = 64;
+
+// The current card's slot of a per-card cache of kPslDevices values, or
+// nullptr past them (the caller then recomputes the value every call).
+template <typename T>
+inline T* psl_device_slot(T (&cache)[kPslDevices]) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kPslDevices) {
+    return nullptr;
+  }
+  return &cache[dev];
+}
+
 __device__ __forceinline__ int psl_clamp(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }

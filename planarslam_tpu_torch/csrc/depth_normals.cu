@@ -9,14 +9,30 @@
 // 4-strided grid, NaN where one of the three pixels fails the depth gate,
 // then the median of the samples as jnp.nanmedian takes it (the mean of
 // the two middle values, s[low] * lw + s[high] * hw in float32), over
-// 0.674 sqrt(6), 0 when no sample is valid. One block per frame computes
-// only the strided samples (19200 at 640x480) into a scratch row of their
-// float bits, with the invalid ones at 0xffffffff, above every finite
-// value's bits; the samples are >= +0, so their bits order as their values.
-// The two ranks are an exact radix select (11, 11 and 10 bits, each digit's
-// histogram by warp-aggregated integer atomics in shared memory), no sort.
-// Bound: latency (230 KB of depth read per frame; three dependent passes
-// per rank).
+// 0.674 sqrt(6), 0 when no sample is valid. Bound: latency (230 KB of
+// depth read per frame, ~100 operations per sample; what costs is the
+// chain of dependent selection passes and their barriers).
+//
+// One thread-block cluster of kAlphaCluster blocks per frame (the batch
+// on the grid's y). Block r computes its contiguous share of the strided
+// samples (19200 at 640x480) into its own shared memory as their float
+// bits, with the invalid ones at 0xffffffff, above every finite value's
+// bits; the samples are >= +0, so their bits order as their values. Rank
+// lo is an exact radix select (11, 11 and 10 bits): each block counts its
+// samples' digits by warp-aggregated integer atomics in shared memory and
+// sums them into 64 coarse counts; after the cluster's barrier, warp 0 of
+// every block merges the cluster's coarse counts through distributed
+// shared memory (integers: exact in any order), scans them, then merges
+// and scans the 32 (16) digits of the coarse count that holds the rank,
+// so every block takes the same digit from the same counts while reading
+// 3 KB of its peers' memory a pass, not their 8 KB of counts each. The
+// first pass's upper half of digits holds only the invalid samples (the
+// sign bit), so it also gives n. Rank hi = lo + 1 (n even) is read off
+// the last pass's counts when it shares lo's first 22 bits; otherwise it
+// is the smallest sample above lo's value, one integer-min pass merged
+// across the cluster. A frame's samples must
+// fit in the cluster's shared memory: at most kPslAlphaMaxSamples (421888,
+// e.g. 2560x2560); past that the entry returns kPslErrAlphaSamples.
 //
 // K29 replaces the normal chain of planarslam_tpu/slam/frame.py (:53-63):
 // box_smooth_depth (ops/planes.py:55-76), backproject_depth (:45-52), the
@@ -55,11 +71,26 @@
 // the plain version's bit for bit; no atomics touch a float.
 #include <math.h>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kAlphaThreads = 1024;
+namespace cg = cooperative_groups;
+
+constexpr int kAlphaCluster = 8;  // K28's blocks per frame
+constexpr int kAlphaThreads = 512;
+constexpr int kAlphaWarps = kAlphaThreads / 32;
+constexpr int kAlphaLoads = 5;  // samples a thread loads before it stores
+// a block's counts of the three passes, 2048 + 2048 + 1024 ints, ahead of
+// its samples in dynamic shared memory
+constexpr int kAlphaCounts = 5120;
+// the dynamic shared memory a block may opt into, less 1 KB for the
+// static arrays: at most kAlphaPerBlock samples a block
+constexpr int kAlphaPerBlock = (232448 - 1024) / 4 - kAlphaCounts;
+static_assert(kAlphaCluster * kAlphaPerBlock == kPslAlphaMaxSamples,
+              "common.cuh's K28 limit");
 constexpr int kNormalThreads = 128;   // stride 1: one thread per pixel
 constexpr int kSamplesPerBlock = 8;   // stride >= 2: one warp per sample
 constexpr unsigned kFull = 0xffffffffu;
@@ -104,120 +135,283 @@ __device__ __forceinline__ int wrap(int v, int n) {
 
 // ---------------------------------------------------------------- K28 ---
 
-// The value of rank `k` (0-based, ascending) among bits[0..n), one radix
-// digit at a time: 11, 11, then 10 bits. Run by the whole block.
-__device__ unsigned select_rank(const unsigned* bits, int n, int k,
-                                int* hist, unsigned* s_prefix, int* s_k) {
-  __syncthreads();  // the previous selection's result has been read
-  if (threadIdx.x == 0) {
-    *s_prefix = 0u;
-    *s_k = k;
-  }
-  const int shifts[3] = {21, 10, 0};
-  const int digits[3] = {2048, 2048, 1024};
-  const int lane = threadIdx.x & 31;
-  unsigned mask = 0u;
-  for (int pass = 0; pass < 3; ++pass) {
-    const int shift = shifts[pass], nd = digits[pass];
-    const unsigned dmask = static_cast<unsigned>(nd - 1);
-    for (int d = threadIdx.x; d < nd; d += blockDim.x) hist[d] = 0;
-    __syncthreads();
-    const unsigned pre = *s_prefix;
-    // whole warps step together, so __match_any_sync sees every lane
-    for (int base = threadIdx.x - lane; base < n; base += blockDim.x) {
-      const int i = base + lane;
-      const unsigned u = i < n ? bits[i] : 0u;
-      const bool in = i < n && (u & mask) == pre;
-      const unsigned digit = in ? (u >> shift) & dmask : kNoDigit;
-      const unsigned peers = __match_any_sync(kFull, digit);
-      if (in && lane == __ffs(peers) - 1) {
-        atomicAdd(&hist[digit], __popc(peers));
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < 32) {
-      // lane l sums the l-th group of digits from the bottom
-      const int per = nd / 32, lo = lane * per;
-      int sum = 0;
-      for (int d = lo; d < lo + per; ++d) sum += hist[d];
-      int incl = sum;
-      for (int off = 1; off < 32; off <<= 1) {
-        const int o = __shfl_up_sync(kFull, incl, off);
-        if (lane >= off) incl += o;
-      }
-      const int want = *s_k;
-      const unsigned hit = __ballot_sync(kFull, incl > want);
-      if (lane == __ffs(hit) - 1) {
-        int cum = incl - sum;
-        for (int d = lo; d < lo + per; ++d) {
-          if (cum + hist[d] > want) {
-            *s_k = want - cum;
-            *s_prefix = pre | (static_cast<unsigned>(d) << shift);
-            break;
-          }
-          cum += hist[d];
-        }
-      }
-    }
-    mask |= dmask << shift;
-    __syncthreads();
-  }
-  return *s_prefix;
+// One strided sample's bits: |d0 - 2 d1 + d2| / max(d0, 1)^2 as the plain
+// version rounds it, kNoSample where a pixel fails the depth gate.
+__device__ __forceinline__ unsigned alpha_sample(float d0, float d1,
+                                                 float d2,
+                                                 float max_distance) {
+  const bool ok = d0 > 1e-6f && d0 < max_distance && d1 > 1e-6f &&
+                  d1 < max_distance && d2 > 1e-6f && d2 < max_distance;
+  if (!ok) return kNoSample;
+  const float z = clamp_min(d0, 1.0f);
+  const float d2r = fabsf(__fadd_rn(__fsub_rn(d0, __fmul_rn(2.0f, d1)), d2));
+  return __float_as_uint(__fdiv_rn(d2r, __fmul_rn(z, z)));
 }
 
-__global__ void noise_alpha_kernel(const float* __restrict__ depth, int h,
-                                   int w, float max_distance, float inv_mad,
-                                   unsigned* __restrict__ scratch,
-                                   float* __restrict__ alpha) {
-  __shared__ int hist[2048];
-  __shared__ unsigned s_prefix;
-  __shared__ int s_k, s_count;
-  const int hs = (h + 3) / 4, ws = (w + 3) / 4, n_s = hs * ws;
-  const float* d = depth + static_cast<size_t>(blockIdx.x) * h * w;
-  unsigned* bits = scratch + static_cast<size_t>(blockIdx.x) * n_s;
-  if (threadIdx.x == 0) s_count = 0;
-  __syncthreads();
-  int mine = 0;
-  for (int i = threadIdx.x; i < n_s; i += blockDim.x) {
-    const float* row = d + static_cast<size_t>(i / ws) * 4 * w;
-    const int x = (i % ws) * 4;
-    const float d0 = row[x], d1 = row[(x + 1) % w], d2 = row[(x + 2) % w];
-    const bool ok = d0 > 1e-6f && d0 < max_distance && d1 > 1e-6f &&
-                    d1 < max_distance && d2 > 1e-6f && d2 < max_distance;
-    unsigned u = kNoSample;
-    if (ok) {
-      const float z = clamp_min(d0, 1.0f);
-      const float d2r =
-          fabsf(__fadd_rn(__fsub_rn(d0, __fmul_rn(2.0f, d1)), d2));
-      u = __float_as_uint(__fdiv_rn(d2r, __fmul_rn(z, z)));
-      ++mine;
-    }
-    bits[i] = u;
+// This block's counts of the digit (u >> shift) & dmask of its samples
+// whose bits under `mask` equal `pre`, into hist. Whole warps step
+// together, so __match_any_sync sees every lane; one atomic per digit a
+// warp holds.
+__device__ __forceinline__ void count_digits(const unsigned* s, int m,
+                                             unsigned pre, unsigned mask,
+                                             int shift, unsigned dmask,
+                                             int* hist) {
+  const int lane = threadIdx.x & 31;
+  for (int base = threadIdx.x - lane; base < m; base += kAlphaThreads) {
+    const int i = base + lane;
+    const unsigned u = i < m ? s[i] : 0u;
+    const bool in = i < m && (u & mask) == pre;
+    const unsigned digit = in ? (u >> shift) & dmask : kNoDigit;
+    const unsigned peers = __match_any_sync(kFull, digit);
+    if (in && lane == __ffs(peers) - 1) atomicAdd(&hist[digit], __popc(peers));
   }
-  if (mine > 0) atomicAdd(&s_count, mine);
-  __syncthreads();  // the count, and the samples for the whole block
-  const int n = s_count;
-  if (n == 0) {  // nanmedian of no sample is NaN, and nan_to_num makes it 0
-    if (threadIdx.x == 0) alpha[blockIdx.x] = 0.0f;
+}
+
+// The coarse counts of one pass: thread t sums its kPer digits [kPer t,
+// kPer t + kPer) of this block's counts, and eight lanes' sums make coarse
+// count t / 8 (32 digits, 16 in the 10-bit pass). Run by the whole block
+// after its counts are in.
+template <int kPer>
+__device__ __forceinline__ void coarse_counts(const int* hist, int* coarse) {
+  int sum;
+  if constexpr (kPer == 4) {
+    const int4 v = reinterpret_cast<const int4*>(hist)[threadIdx.x];
+    sum = v.x + v.y + v.z + v.w;
+  } else {
+    const int2 v = reinterpret_cast<const int2*>(hist)[threadIdx.x];
+    sum = v.x + v.y;
+  }
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1) {
+    sum += __shfl_xor_sync(kFull, sum, off);
+  }
+  if ((threadIdx.x & 7) == 0) coarse[threadIdx.x >> 3] = sum;
+}
+
+// Warp-wide inclusive scan of v over the lanes.
+__device__ __forceinline__ int warp_scan(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(kFull, v, off);
+    if (lane >= off) v += o;
+  }
+  return v;
+}
+
+// Lane l's coarse counts 2l and 2l + 1 of a pass, merged over the
+// cluster (integers: exact in any order). Run by a whole warp after the
+// cluster barrier of the pass.
+__device__ __forceinline__ int2 merged_coarse(cg::cluster_group& cl,
+                                              int* coarse) {
+  const int lane = threadIdx.x & 31;
+  int2 c = make_int2(0, 0);
+#pragma unroll
+  for (int r = 0; r < kAlphaCluster; ++r) {
+    const int2 v =
+        reinterpret_cast<const int2*>(cl.map_shared_rank(coarse, r))[lane];
+    c.x += v.x;
+    c.y += v.y;
+  }
+  return c;
+}
+
+// The digit of a pass that holds rank `want` (< the pass's total) and
+// want's rank among its samples, from the merged coarse counts c (lane l:
+// coarse counts 2l and 2l + 1) and the cluster's counts of the kFine
+// digits of the coarse count that holds it. Run by a whole warp; every
+// lane returns the same.
+template <int kFine>
+__device__ __forceinline__ void locate(cg::cluster_group& cl, int2 c,
+                                       int* hist, int want, int* digit,
+                                       int* rank) {
+  const int lane = threadIdx.x & 31;
+  const int incl = warp_scan(c.x + c.y), excl = incl - c.x - c.y;
+  const int src = __ffs(__ballot_sync(kFull, want >= excl && want < incl)) - 1;
+  const bool first = want < excl + c.x;
+  const int cs = __shfl_sync(kFull, first ? 2 * lane : 2 * lane + 1, src);
+  const int rem = __shfl_sync(
+      kFull, first ? want - excl : want - excl - c.x, src);
+  int f = 0;
+  if (lane < kFine) {
+#pragma unroll
+    for (int r = 0; r < kAlphaCluster; ++r) {
+      f += cl.map_shared_rank(hist, r)[cs * kFine + lane];
+    }
+  }
+  const int fi = warp_scan(f), fe = fi - f;
+  const int d = __ffs(__ballot_sync(kFull, rem >= fe && rem < fi)) - 1;
+  *digit = cs * kFine + d;
+  *rank = rem - __shfl_sync(kFull, fe, d);
+}
+
+struct AlphaShared {
+  int coarse[3][64];   // each pass's coarse counts
+  unsigned warp_min[kAlphaWarps];
+  unsigned prefix;     // lo's digits chosen so far
+  unsigned hi;         // s_hi when the last pass's counts hold it
+  unsigned block_min;  // this block's smallest sample above s_lo
+  int k;               // lo's rank among the samples under prefix
+  int n;               // the frame's valid samples
+  int lo, hi_rank;     // the ranks of the two middle samples
+  float lw, hw;        // their weights
+};
+
+__global__ void __cluster_dims__(kAlphaCluster, 1, 1)
+    __launch_bounds__(kAlphaThreads)
+    noise_alpha_kernel(const float* __restrict__ depth, int h, int w,
+                       float max_distance, float inv_mad,
+                       float* __restrict__ alpha) {
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ __align__(16) int alpha_smem[];
+  int* hist = alpha_smem;  // pass 0 [0, 2048), 1 [2048, 4096), 2 [4096, 5120)
+  unsigned* s = reinterpret_cast<unsigned*>(alpha_smem + kAlphaCounts);
+  __shared__ __align__(16) AlphaShared sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = static_cast<int>(cl.block_rank());
+  const int hs = (h + 3) / 4, ws = (w + 3) / 4, n_s = hs * ws;
+  const int per = (n_s + kAlphaCluster - 1) / kAlphaCluster;
+  const int first = q * per, m = max(0, min(per, n_s - first));
+  const float* d = depth + static_cast<size_t>(blockIdx.y) * h * w;
+  for (int i = tid; i < kAlphaCounts; i += kAlphaThreads) hist[i] = 0;
+  if (tid == 0) sh.hi = kNoSample;
+  // sampling: this block's samples into shared memory, kAlphaLoads a
+  // thread in flight before they are stored
+  for (int j0 = tid; j0 < m; j0 += kAlphaLoads * kAlphaThreads) {
+    float v[kAlphaLoads][3];
+#pragma unroll
+    for (int t = 0; t < kAlphaLoads; ++t) {
+      const int j = j0 + t * kAlphaThreads;
+      if (j < m) {
+        const int i = first + j, r = i / ws;
+        const float* row = d + static_cast<size_t>(r) * 4 * w;
+        const int x = (i - r * ws) * 4;  // < w
+        int x1 = x + 1, x2 = x + 2;      // the columns wrapped
+        if (x1 >= w) x1 -= w;
+        if (x2 >= w) x2 -= w;
+        if (x2 >= w) x2 -= w;
+        v[t][0] = row[x];
+        v[t][1] = row[x1];
+        v[t][2] = row[x2];
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kAlphaLoads; ++t) {
+      const int j = j0 + t * kAlphaThreads;
+      if (j < m) s[j] = alpha_sample(v[t][0], v[t][1], v[t][2], max_distance);
+    }
+  }
+  __syncthreads();  // the counts zeroed, the samples stored
+  // pass 0's counts: the top 11 bits, the invalid samples in digit 2047
+  count_digits(s, m, 0u, 0u, 21, 2047u, hist);
+  __syncthreads();
+  coarse_counts<4>(hist, sh.coarse[0]);
+  cl.sync();  // every block's counts of the pass
+  // merge and pick: warp 0 merges the cluster's coarse counts, then those
+  // of the 32 digits that hold rank lo; n from the last coarse count,
+  // which holds only the invalid samples (digits >= 1024 have the sign)
+  if (warp == 0) {
+    const int2 c = merged_coarse(cl, sh.coarse[0]);
+    const int n = n_s - __shfl_sync(kFull, c.y, 31);
+    if (n > 0) {
+      // lax_compat.nanmedian's ranks and weights, in float32
+      const float nf = static_cast<float>(n);
+      const float qf = __fmul_rn(0.5f, __fsub_rn(nf, 1.0f));
+      const float lo_f = floorf(qf), hi_f = ceilf(qf);
+      const float hw = __fsub_rn(qf, lo_f);
+      const float last = __fsub_rn(nf, 1.0f);
+      const int lo = static_cast<int>(clamp_min(fminf(lo_f, last), 0.0f));
+      int digit, rank;
+      locate<32>(cl, c, hist, lo, &digit, &rank);
+      if (lane == 0) {
+        sh.lo = lo;
+        sh.hi_rank = static_cast<int>(clamp_min(fminf(hi_f, last), 0.0f));
+        sh.hw = hw;
+        sh.lw = __fsub_rn(1.0f, hw);
+        sh.prefix = static_cast<unsigned>(digit) << 21;
+        sh.k = rank;
+      }
+    }
+    if (lane == 0) sh.n = n;
+  }
+  __syncthreads();
+  if (sh.n == 0) {  // nanmedian of no sample is NaN, nan_to_num makes it 0
+    if (q == 0 && tid == 0) alpha[blockIdx.y] = 0.0f;
+    cl.sync();  // no block leaves while another reads its counts
     return;
   }
-  // lax_compat.nanmedian's ranks and weights, in float32
-  const float nf = static_cast<float>(n);
-  const float q = __fmul_rn(0.5f, __fsub_rn(nf, 1.0f));
-  const float lo_f = floorf(q), hi_f = ceilf(q);
-  const float hw = __fsub_rn(q, lo_f);
-  const float lw = __fsub_rn(1.0f, hw);
-  const float last = __fsub_rn(nf, 1.0f);
-  const int lo = static_cast<int>(clamp_min(fminf(lo_f, last), 0.0f));
-  const int hi = static_cast<int>(clamp_min(fminf(hi_f, last), 0.0f));
-  const unsigned s_lo = select_rank(bits, n_s, lo, hist, &s_prefix, &s_k);
-  const unsigned s_hi =
-      hi == lo ? s_lo : select_rank(bits, n_s, hi, hist, &s_prefix, &s_k);
-  if (threadIdx.x == 0) {
-    const float med = __fadd_rn(__fmul_rn(__uint_as_float(s_lo), lw),
-                                __fmul_rn(__uint_as_float(s_hi), hw));
-    alpha[blockIdx.x] = __fmul_rn(med, inv_mad);
+  // passes 1 and 2: the next 11 bits, then the last 10, of the samples
+  // under lo's prefix
+  unsigned pre = sh.prefix;
+  count_digits(s, m, pre, 0xffe00000u, 10, 2047u, hist + 2048);
+  __syncthreads();
+  coarse_counts<4>(hist + 2048, sh.coarse[1]);
+  cl.sync();
+  if (warp == 0) {
+    int digit, rank;
+    locate<32>(cl, merged_coarse(cl, sh.coarse[1]), hist + 2048, sh.k,
+               &digit, &rank);
+    if (lane == 0) {
+      sh.prefix = pre | (static_cast<unsigned>(digit) << 10);
+      sh.k = rank;
+    }
   }
+  __syncthreads();
+  pre = sh.prefix;
+  count_digits(s, m, pre, 0xfffffc00u, 0, 1023u, hist + 4096);
+  __syncthreads();
+  coarse_counts<2>(hist + 4096, sh.coarse[2]);
+  cl.sync();
+  if (warp == 0) {
+    const int2 c = merged_coarse(cl, sh.coarse[2]);
+    const int want = sh.k;
+    int digit, rank;
+    locate<16>(cl, c, hist + 4096, want, &digit, &rank);
+    const int total = __shfl_sync(kFull, warp_scan(c.x + c.y), 31);
+    // rank hi among the samples under lo's first 22 bits, when they hold it
+    unsigned s_hi = kNoSample;
+    if (sh.hi_rank != sh.lo && want + 1 < total) {
+      int digit2;
+      locate<16>(cl, c, hist + 4096, want + 1, &digit2, &rank);
+      s_hi = pre | static_cast<unsigned>(digit2);
+    }
+    if (lane == 0) {
+      sh.prefix = pre | static_cast<unsigned>(digit);
+      sh.hi = s_hi;
+    }
+  }
+  __syncthreads();
+  const unsigned s_lo = sh.prefix;
+  unsigned s_hi = sh.hi_rank == sh.lo ? s_lo : sh.hi;
+  // the neighbour step: rank hi lies above lo's first 22 bits, so its
+  // value is the smallest sample above s_lo (a valid one: hi < n)
+  if (s_hi == kNoSample) {
+    unsigned mn = kNoSample;
+    for (int j = tid; j < m; j += kAlphaThreads) {
+      const unsigned u = s[j];
+      if (u > s_lo && u < mn) mn = u;
+    }
+    mn = __reduce_min_sync(kFull, mn);
+    if (lane == 0) sh.warp_min[warp] = mn;
+    __syncthreads();
+    if (tid == 0) {
+      unsigned b = kNoSample;
+      for (int x = 0; x < kAlphaWarps; ++x) b = min(b, sh.warp_min[x]);
+      sh.block_min = b;
+    }
+    cl.sync();  // every block's minimum
+    if (q == 0 && tid == 0) {
+      for (int r = 0; r < kAlphaCluster; ++r) {
+        s_hi = min(s_hi, *cl.map_shared_rank(&sh.block_min, r));
+      }
+    }
+  }
+  if (q == 0 && tid == 0) {
+    const float med = __fadd_rn(__fmul_rn(__uint_as_float(s_lo), sh.lw),
+                                __fmul_rn(__uint_as_float(s_hi), sh.hw));
+    alpha[blockIdx.y] = __fmul_rn(med, inv_mad);
+  }
+  cl.sync();  // no block leaves while another reads its shared memory
 }
 
 // ---------------------------------------------------------------- K29 ---
@@ -478,13 +672,28 @@ __global__ void __launch_bounds__(kSamplesPerBlock * 32)
 }  // namespace
 
 PSL_API int psl_noise_alpha(const float* depth, int h, int w, int batch,
-                            float max_distance, float inv_mad,
-                            unsigned* scratch, float* alpha,
+                            float max_distance, float inv_mad, float* alpha,
                             cudaStream_t stream) {
-  if (batch > 0 && h > 0 && w > 0) {
-    noise_alpha_kernel<<<batch, kAlphaThreads, 0, stream>>>(
-        depth, h, w, max_distance, inv_mad, scratch, alpha);
+  if (batch < 0 || batch > 65535 || h < 0 || w < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (batch == 0 || h == 0 || w == 0) return 0;
+  const long long n_s = static_cast<long long>((h + 3) / 4) * ((w + 3) / 4);
+  if (n_s > kPslAlphaMaxSamples) return kPslErrAlphaSamples;
+  const int per = static_cast<int>((n_s + kAlphaCluster - 1) / kAlphaCluster);
+  const int smem = 4 * (kAlphaCounts + per);
+  // the opt-in above 48 KB, per card, for the largest asked
+  static int opted[kPslDevices] = {};
+  int* dev_opted = psl_device_slot(opted);
+  if (dev_opted == nullptr || smem > *dev_opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        noise_alpha_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev_opted != nullptr) *dev_opted = smem;
+  }
+  noise_alpha_kernel<<<dim3(kAlphaCluster, batch), kAlphaThreads, smem,
+                       stream>>>(depth, h, w, max_distance, inv_mad, alpha);
   return static_cast<int>(cudaGetLastError());
 }
 

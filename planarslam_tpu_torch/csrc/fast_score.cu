@@ -83,6 +83,16 @@ __global__ void fast_score_levels_kernel(const float* __restrict__ buf,
 }  // namespace
 
 PSL_API const char* psl_error_string(int code) {
+  if (code == kPslErrAlphaSamples) {
+    return "noise_alpha: a frame has more than 421888 strided samples "
+           "(ceil(H / 4) x ceil(W / 4)), the most its cluster's shared "
+           "memory holds";
+  }
+  if (code == kPslErrAssignParts) {
+    return "plane_assign_refit: a frame has more than 16384 logical blocks "
+           "(ceil(ceil(H / rs) x ceil(W / rs) / pix_per_block)), the most "
+           "its flag words hold";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

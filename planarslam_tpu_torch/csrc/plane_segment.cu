@@ -27,13 +27,29 @@
 // read the depth map once (1.2 MB) and do ~100 operations per pixel, far
 // under the card's rates for either: a launch plus one pass. They recompute
 // the back-projection, the noise band and the depth gate per pixel in
-// registers, so no full-resolution temporary exists.
+// registers, so no full-resolution temporary exists. A K13 round is one
+// launch (three per frame): its logical blocks publish their partials,
+// each with a flag word, to the frame's collector blocks (one per plane),
+// which load a plane's terms as the blocks publish, so no second kernel
+// waits for the first and the loads run beside the assign pass; the flag
+// words (one per logical block and a ticket per frame of a launch, the
+// caller's per stream) are zeroed once by the caller and cleared by the
+// frame's last collector, so no launch zeroes them and a captured step can
+// replay the kernel. A block publishes with a release store and a
+// collector reads its flag with an acquire load before the block's
+// partial. What bounds a
+// round is its chain: the ghost merge (one thread a pair of planes), the
+// assign pass (the ten moment trees of a warp share their shuffles), the
+// publication, the last block's terms (none loaded for a block whose
+// plane mask lacks the plane), the 150 in-order additions of a sum and
+// the fit, by a half-warp that spreads every step's divisions over its
+// lanes (a one-thread fit is ~40 dependent divisions).
 //
 // Batches. Every input and output may carry a leading B of independent
-// frames, all served by one launch of each kernel: K12's fits take the
-// frame from blockIdx.y and its chain one block per frame, K13's
-// assign pass takes the frame from blockIdx.y and its refit one block per
-// frame, K14 takes the frame from blockIdx.y. A block reads its frame at
+// frames, all served by one launch of each kernel (K13: one launch for up
+// to kCollectFrames frames): K12's fits take the frame from blockIdx.y
+// and its chain one block per frame, K13 and K14 take the frame from
+// blockIdx.y. A block reads its frame at
 // the frame's strides, so a frame's result does not depend on B.
 //
 // Sums have a fixed order and no float atomics. K12 counts component
@@ -41,9 +57,10 @@
 // each top component's moments per lane in ascending block order, in
 // float64, then over the lanes by a shuffle tree. K13 sums each warp's 32
 // pixels by a float64 shuffle tree into the warp's own shared accumulator,
-// the warps of a block in order, the blocks' partials in order in a second
-// one-block kernel that also fits the planes. Two launches on equal
-// inputs give equal bits.
+// the warps of a block in order, the blocks' partials in order in the
+// frame's collector, which also fits the planes. Two launches on equal
+// inputs give equal bits, and the bits of K13's first version (one thread
+// a fit, a tree a value, every partial added).
 #include <math.h>
 
 #include "common.cuh"
@@ -63,6 +80,14 @@ constexpr int kFewRoots = 512;   // K12 ranks this many roots directly
 constexpr int kCcDynamicSmem = 232448 - 16384;
 constexpr int kPixThreads = 256;
 constexpr int kPixWarps = kPixThreads / 32;
+constexpr int kPixSteps = 2;   // K13: pixels a thread loads ahead
+// K13: a logical block's flag word, its plane mask with this bit set
+constexpr unsigned kPublished = 0x80000000u;
+// K13: frames a launch collects (P collector blocks each, which wait),
+// and the most logical blocks a frame may have: the flag words a stream
+// needs are kCollectFrames x (kAssignMaxParts + 1)
+constexpr int kCollectFrames = 8;
+constexpr int kAssignMaxParts = 16384;
 constexpr float kCos25 = 0.9063f;
 
 // ---------------------------------------------------------------- K12 ---
@@ -472,55 +497,299 @@ struct PlaneSet {
   float d[kMaxPlanes];
   float tau[kMaxPlanes];
   unsigned char alive[kMaxPlanes];
+  unsigned char shadow[kMaxPlanes];  // K13's ghost merge
 };
 
-// planes.py:368-380: the ghost merge of a refine round and tau. Thread j
-// < P fills its plane's entry; the caller synchronizes.
+// planes.py:368-380: the ghost merge of a refine round and tau, by the
+// whole block: one thread a pair (j, i) of planes tests whether i shadows
+// j, then thread j < P fills its plane's entry (its own arrays loaded
+// before the pairs' barriers). The caller synchronizes after it.
 __device__ __forceinline__ void load_planes(const PixParams& p, bool refine,
                                             PlaneSet& ps) {
-  const int j = threadIdx.x;
-  if (j >= p.P) return;
-  for (int q = 0; q < 3; ++q) ps.normal[j][q] = p.normal[3 * j + q];
-  ps.d[j] = p.d[j];
-  bool alive = p.valid[j] != 0;
-  float tau = INFINITY;
+  const int t = threadIdx.x;
+  const bool mine = t < p.P;
+  float normal[3] = {0.0f, 0.0f, 0.0f}, d = 0.0f, n_p = 0.0f, mse = 0.0f;
+  bool valid = false;
+  if (mine) {
+    for (int q = 0; q < 3; ++q) normal[q] = p.normal[3 * t + q];
+    d = p.d[t];
+    valid = p.valid[t] != 0;
+    if (refine) {
+      n_p = p.n_p[t];
+      mse = p.mse[t];
+    }
+  }
   if (refine) {
+    if (mine) ps.shadow[t] = 0;
+    __syncthreads();
     const float alpha = *p.alpha;
-    alive = alive && p.n_p[j] > 3.0f;
-    const float zc = fmaxf(p.mean[3 * j + 2], 1.0f);
-    const float band_j = fmaxf(3.0f * alpha * (zc * zc), p.dist_thr);
-    bool shadow = false;
-    for (int i = 0; i < p.P; ++i) {
+    for (int pair = t; pair < p.P * p.P; pair += blockDim.x) {
+      const int j = pair / p.P, i = pair % p.P;
+      const bool alive_j = p.valid[j] != 0 && p.n_p[j] > 3.0f;
+      const float zc = fmaxf(p.mean[3 * j + 2], 1.0f);
+      const float band_j = fmaxf(3.0f * alpha * (zc * zc), p.dist_thr);
       const bool alive_i = p.valid[i] != 0 && p.n_p[i] > 3.0f;
       const float cosm = psl_dot3(p.normal + 3 * j, p.normal + 3 * i);
       const float cen_d =
           fabsf(psl_dot3(p.mean + 3 * j, p.normal + 3 * i) + p.d[i]);
-      if (alive_i && alive && p.n_p[i] > p.n_p[j] && cosm > kCos25 &&
+      if (alive_i && alive_j && p.n_p[i] > p.n_p[j] && cosm > kCos25 &&
           cen_d < band_j) {
-        shadow = true;
+        ps.shadow[j] = 1;
       }
     }
-    alive = alive && !shadow;
-    tau = fmaxf(2.5f * sqrtf(fmaxf(p.mse[j], 0.0f)), 1e-3f);
+    __syncthreads();
   }
-  ps.alive[j] = alive ? 1 : 0;
-  ps.tau[j] = tau;
+  if (!mine) return;
+  for (int q = 0; q < 3; ++q) ps.normal[t][q] = normal[q];
+  ps.d[t] = d;
+  bool alive = valid;
+  float tau = INFINITY;
+  if (refine) {
+    alive = alive && n_p > 3.0f && !ps.shadow[t];
+    tau = fmaxf(2.5f * sqrtf(fmaxf(mse, 0.0f)), 1e-3f);
+  }
+  ps.alive[t] = alive ? 1 : 0;
+  ps.tau[t] = tau;
 }
 
-// One pixel (v, u) of the full-resolution grid: back-projection, the
-// depth-range and jump gate, the band, the nearest alive plane (first
-// index on ties) and the band / tau gate. Returns the plane or -1.
+// psl_plane_from_moments (eig3.cuh) by the 16 lanes of a half-warp, each
+// with the plane's moments: every operation of the one-thread version in
+// its order, each step's independent divisions, square roots and cosines
+// spread over the lanes (one each) and gathered by width-16 shuffles, so
+// the chain holds one division where the thread's held up to twelve.
+// Every lane ends with the same result, bit-equal to the thread's.
+__device__ __forceinline__ float lane_pick(const float* a, int n, int i) {
+  float r = a[0];
+#pragma unroll
+  for (int k = 1; k < 12; ++k) {
+    if (k < n && k == i) r = a[k];
+  }
+  return r;
+}
+
+__device__ __forceinline__ float gather16(float v, int src) {
+  return __shfl_sync(0xffffffffu, v, src, 16);
+}
+
+// psl_unit_or of two vectors at once (lanes 0-2 divide the first, 3-5
+// the second)
+__device__ __forceinline__ void unit_or_pair(float* a, int axis_a, float* b,
+                                             int axis_b) {
+  const int l = threadIdx.x & 15;
+  const float sq = sqrtf(l & 1 ? psl_dot3(b, b) : psl_dot3(a, a));
+  const float nrm_a = gather16(sq, 0), nrm_b = gather16(sq, 1);
+  const float den_a = fmaxf(nrm_a, 1e-30f), den_b = fmaxf(nrm_b, 1e-30f);
+  const float num[6] = {a[0], a[1], a[2], b[0], b[1], b[2]};
+  float x = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    if (k == l) x = num[k];
+  }
+  const float quo = x / (l < 3 ? den_a : den_b);
+  for (int k = 0; k < 3; ++k) {  // the shuffles outside the branches
+    const float qa = gather16(quo, k), qb = gather16(quo, 3 + k);
+    a[k] = nrm_a > 1e-20f ? qa : (axis_a == k ? 1.0f : 0.0f);
+    b[k] = nrm_b > 1e-20f ? qb : (axis_b == k ? 1.0f : 0.0f);
+  }
+}
+
+// eig3.cuh::psl_eigenvector_for without its psl_unit_or
+__device__ __forceinline__ void eigenvector_pick(const float* A, float lam,
+                                                 float* v) {
+  const float r0[3] = {A[0] - lam, A[1], A[2]};
+  const float r1[3] = {A[3], A[4] - lam, A[5]};
+  const float r2[3] = {A[6], A[7], A[8] - lam};
+  float c01[3], c02[3], c12[3];
+  psl_cross3(r0, r1, c01);
+  psl_cross3(r0, r2, c02);
+  psl_cross3(r1, r2, c12);
+  const float n01 = psl_dot3(c01, c01);
+  const float n02 = psl_dot3(c02, c02);
+  const float n12 = psl_dot3(c12, c12);
+  const bool p01 = n01 >= n02 && n01 >= n12, p02 = n02 >= n12;
+  for (int k = 0; k < 3; ++k) v[k] = p01 ? c01[k] : (p02 ? c02[k] : c12[k]);
+}
+
+__device__ __forceinline__ void plane_from_moments_lanes(
+    const float* s1, const float* s2, float n, float* normal, float* d,
+    float* mse, float* mean) {
+  const int l = threadIdx.x & 15;
+  const float n_safe = fmaxf(n, 1.0f);
+  // mean and s2 / n: lanes 0-2 and 3-11
+  const float mom[12] = {s1[0], s1[1], s1[2], s2[0], s2[1], s2[2], s2[3],
+                         s2[4], s2[5], s2[6], s2[7], s2[8]};
+  const float q12 = lane_pick(mom, 12, l) / n_safe;
+  for (int i = 0; i < 3; ++i) mean[i] = gather16(q12, i);
+  float cov[9];
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) {
+      cov[3 * i + j] = gather16(q12, 3 + 3 * i + j) - mean[i] * mean[j];
+      if (i == j) cov[3 * i + j] = cov[3 * i + j] + 1e-12f;
+    }
+  }
+  // psl_eigh_sym3x3(cov)
+  float A[9];
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) {
+      A[3 * i + j] = 0.5f * (cov[3 * i + j] + cov[3 * j + i]);
+    }
+  }
+  float amax = 0.0f;
+  for (int i = 0; i < 9; ++i) amax = fmaxf(amax, fabsf(A[i]));
+  const float scale = fmaxf(amax, 1e-30f);
+  const float qa = lane_pick(A, 9, l) / scale;
+  for (int i = 0; i < 9; ++i) A[i] = gather16(qa, i);
+  const float a00 = A[0], a11 = A[4], a22 = A[8];
+  const float a01 = A[1], a02 = A[2], a12 = A[5];
+  const float q = (a00 + a11 + a22) / 3.0f;
+  const float b00 = a00 - q, b11 = a11 - q, b22 = a22 - q;
+  const float p2 = b00 * b00 + b11 * b11 + b22 * b22 +
+                   2.0f * (a01 * a01 + a02 * a02 + a12 * a12);
+  const float p = sqrtf(fmaxf(p2 / 6.0f, 1e-30f));
+  const float bs[6] = {b00, b11, b22, a01, a02, a12};
+  const float qc = lane_pick(bs, 6, l) / p;
+  const float c00 = gather16(qc, 0), c11 = gather16(qc, 1);
+  const float c22 = gather16(qc, 2), c01 = gather16(qc, 3);
+  const float c02 = gather16(qc, 4), c12 = gather16(qc, 5);
+  const float detBn = c00 * (c11 * c22 - c12 * c12) -
+                      c01 * (c01 * c22 - c12 * c02) +
+                      c02 * (c01 * c12 - c11 * c02);
+  const float r = fminf(fmaxf(detBn / 2.0f, -1.0f), 1.0f);
+  const float phi = acosf(r) / 3.0f;
+  const float two_p = 2.0f * p;
+  const float cs = cosf(l & 1 ? phi + 2.0943951023931953f : phi);
+  const float e_hi = q + two_p * gather16(cs, 0);
+  const float e_lo = q + two_p * gather16(cs, 1);
+  float v_lo[3], v_hi[3], v_mid[3];
+  eigenvector_pick(A, e_lo, v_lo);
+  eigenvector_pick(A, e_hi, v_hi);
+  unit_or_pair(v_lo, 2, v_hi, 2);
+  psl_cross3(v_hi, v_lo, v_mid);
+  const float sq = sqrtf(psl_dot3(v_mid, v_mid));
+  const float mid_den = fmaxf(sq, 1e-30f);
+  const float qm = lane_pick(v_mid, 3, l) / mid_den;
+  for (int k = 0; k < 3; ++k) {
+    const float g = gather16(qm, k);
+    v_mid[k] = sq > 1e-20f ? g : (k == 1 ? 1.0f : 0.0f);
+  }
+  psl_cross3(v_mid, v_hi, v_lo);
+  const float den = fmaxf(sqrtf(psl_dot3(v_lo, v_lo)), 1e-30f);
+  const float qv = lane_pick(v_lo, 3, l) / den;
+  for (int k = 0; k < 3; ++k) normal[k] = gather16(qv, k);
+  *mse = e_lo * scale;
+  if (psl_dot3(normal, mean) > 0.0f) {
+    normal[0] = -normal[0];
+    normal[1] = -normal[1];
+    normal[2] = -normal[2];
+  }
+  *d = -psl_dot3(normal, mean);
+}
+
+// The float64 shfl_down tree of each of a warp's kFeat values (lane 0's
+// x += shfl_down(x, o), o = 16, 8, 4, 2, 1), all of them at once: at each
+// level a lane keeps the node of one of two values and trades the other
+// with its partner, so every node is still the sum of the same two
+// children (a + b = b + a in IEEE) while the warp makes 12 exchanges where
+// the kFeat trees made 50 shuffles. Returns this lane's root: an even
+// lane l holds the root of value tree_value(l) when that is below kFeat
+// (value f's bits 0-3 are the lane's bits 4, 3, 2 and 1).
+__device__ __forceinline__ int tree_value(int lane) {
+  return ((lane >> 4) & 1) | (((lane >> 3) & 1) << 1) |
+         (((lane >> 2) & 1) << 2) | (((lane >> 1) & 1) << 3);
+}
+
+// one level: n values -> (n + 1) / 2, partner lane ^ o
+template <int kN>
+__device__ __forceinline__ void tree_level(const double* in, double* out,
+                                           int o) {
+  const bool upper = (threadIdx.x & o) != 0;
+#pragma unroll
+  for (int k = 0; k < (kN + 1) / 2; ++k) {
+    const double lo = in[2 * k], hi = 2 * k + 1 < kN ? in[2 * k + 1] : 0.0;
+    const double send = upper ? lo : hi, keep = upper ? hi : lo;
+    out[k] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+  }
+}
+
+__device__ __forceinline__ double moment_tree(const double (&v)[kFeat]) {
+  static_assert(kFeat == 10, "moment_tree's levels are for ten values");
+  double a[5], b[3], c[2], d[1];
+  tree_level<10>(v, a, 16);
+  tree_level<5>(a, b, 8);
+  tree_level<3>(b, c, 4);
+  tree_level<2>(c, d, 2);
+  return d[0] + __shfl_xor_sync(0xffffffffu, d[0], 1);
+}
+
+// A flag word read with acquire semantics at the card's scope: the loads
+// after it see what the block wrote before it published.
+__device__ __forceinline__ unsigned load_acquire(const unsigned* ptr) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(ptr)
+               : "memory");
+  return v;
+}
+
+// A flag word published with release semantics at the card's scope.
+__device__ __forceinline__ void store_release(unsigned* ptr, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;"
+               :
+               : "l"(ptr), "r"(v)
+               : "memory");
+}
+
+// The ten terms src[0..9] where `on`, else +0: predicated loads in one
+// asm, so they stay in flight together and none moves above the acquire
+// load before it.
+__device__ __forceinline__ void load_terms(const double* src, bool on,
+                                           double (&v)[kFeat]) {
+  static_assert(kFeat == 10, "load_terms loads ten terms");
+#pragma unroll
+  for (int q = 0; q < kFeat; ++q) v[q] = 0.0;
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.u32 p, %11, 0;\n"
+      " @p ld.global.f64 %0, [%10];\n @p ld.global.f64 %1, [%10+8];\n"
+      " @p ld.global.f64 %2, [%10+16];\n @p ld.global.f64 %3, [%10+24];\n"
+      " @p ld.global.f64 %4, [%10+32];\n @p ld.global.f64 %5, [%10+40];\n"
+      " @p ld.global.f64 %6, [%10+48];\n @p ld.global.f64 %7, [%10+56];\n"
+      " @p ld.global.f64 %8, [%10+64];\n @p ld.global.f64 %9, [%10+72];\n}"
+      : "+d"(v[0]), "+d"(v[1]), "+d"(v[2]), "+d"(v[3]), "+d"(v[4]),
+        "+d"(v[5]), "+d"(v[6]), "+d"(v[7]), "+d"(v[8]), "+d"(v[9])
+      : "l"(src), "r"(static_cast<unsigned>(on))
+      : "memory");
+}
+
+// The depths a pixel (v, u) reads: its own, its right and its lower
+// neighbour's (0 past the image's edge, where they are not read).
+struct PixDepth {
+  float z, right, down;
+};
+
+__device__ __forceinline__ PixDepth load_pixel(const PixParams& p, int v,
+                                               int u) {
+  PixDepth d;
+  d.z = p.depth[v * p.w + u];
+  d.right = u + 1 < p.w ? p.depth[v * p.w + u + 1] : 0.0f;
+  d.down = v + 1 < p.h ? p.depth[(v + 1) * p.w + u] : 0.0f;
+  return d;
+}
+
+// One pixel (v, u) of the full-resolution grid from its depths:
+// back-projection, the depth-range and jump gate, the band, the nearest
+// alive plane (first index on ties) and the band / tau gate. Returns the
+// plane or -1.
 __device__ __forceinline__ int assign_pixel(const PixParams& p,
                                             const PlaneSet& ps, float alpha,
-                                            int v, int u, float* pt) {
-  const float z = p.depth[v * p.w + u];
+                                            int v, int u, const PixDepth& dp,
+                                            float* pt) {
+  const float z = dp.z;
   const float zc = fmaxf(z, 1.0f);
   const float z2 = zc * zc;
   const float tol = fmaxf(p.geo_tol * zc, p.jump_coef * alpha * z2);
-  const float jump_r =
-      u + 1 < p.w ? fabsf(z - p.depth[v * p.w + u + 1]) : 0.0f;
-  const float jump_d =
-      v + 1 < p.h ? fabsf(z - p.depth[(v + 1) * p.w + u]) : 0.0f;
+  const float jump_r = u + 1 < p.w ? fabsf(z - dp.right) : 0.0f;
+  const float jump_d = v + 1 < p.h ? fabsf(z - dp.down) : 0.0f;
   const bool ok = z > 1e-6f && z < p.max_distance && jump_r < tol &&
                   jump_d < tol;
   const float band = fmaxf(3.0f * alpha * z2, p.dist_thr);
@@ -544,109 +813,203 @@ __device__ __forceinline__ int assign_pixel(const PixParams& p,
   return keep ? best : -1;
 }
 
-// K13, first kernel: labels of the subsampled pixels and each block's
-// partial moment sums per plane.
-__global__ void __launch_bounds__(kPixThreads)
-    plane_assign_kernel(const PixParams p_batch, int refine, int hs, int ws,
-                        int pix_per_block, int* label_sub, double* partial) {
+__device__ __forceinline__ int assign_pixel(const PixParams& p,
+                                            const PlaneSet& ps, float alpha,
+                                            int v, int u, float* pt) {
+  return assign_pixel(p, ps, alpha, v, u, load_pixel(p, v, u), pt);
+}
+
+// K13's collector of plane j of a frame (P collectors a frame): the
+// plane's in-order sums and its fit. Thread t waits for logical block c0
+// + t's flag, then loads the block's ten sums of plane j into shared
+// memory (none when the block's mask lacks the plane: x never holds -0,
+// so adding +0 for it keeps the bits), so the loads run as the blocks
+// publish; lane q < 10 of warp 0 then adds feature q in block order.
+// Warp 0 fits the plane while warp 1 takes the frame's collectors'
+// ticket: the last collector to finish clears the frame's flags.
+__device__ __forceinline__ void collect_plane(
+    const PixParams& p, size_t frame, int j, int n_part, float area,
+    const double* partial, unsigned* flags, unsigned* done,
+    const PlaneSet& ps, double* vals, float* normal_f, float* d_f,
+    float* mse_f, float* mean_f, float* n_f, unsigned char* alive_out) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = p.P * kFeat;
+  // the in-order sums
+  double x = 0.0;
+  for (int c0 = 0; c0 < n_part; c0 += kPixThreads) {
+    const int cn = min(kPixThreads, n_part - c0);
+    if (c0 > 0) __syncthreads();  // the last chunk's terms are added
+    if (tid < cn) {
+      unsigned f;
+      while ((f = load_acquire(flags + c0 + tid)) == 0u) __nanosleep(32);
+      const double* src =
+          partial + static_cast<size_t>(c0 + tid) * row + j * kFeat;
+      double v[kFeat];
+      load_terms(src, ((f >> j) & 1u) != 0u, v);
+#pragma unroll
+      for (int q = 0; q < kFeat; ++q) vals[q * kPixThreads + tid] = v[q];
+    }
+    __syncthreads();
+    if (tid < kFeat) {
+#pragma unroll 8
+      for (int b = 0; b < cn; ++b) x += vals[tid * kPixThreads + b];
+    }
+  }
+  __syncthreads();  // every flag read, every term added
+  if (warp == 1) {
+    // the ticket: the last collector clears the frame's flags
+    unsigned last = 0u;
+    if (lane == 0) {
+      __threadfence();
+      last = atomicAdd(done, 1u) == static_cast<unsigned>(p.P - 1);
+      if (last) *done = 0u;
+    }
+    if (__shfl_sync(0xffffffffu, last, 0)) {
+      for (int b = lane; b < n_part; b += 32) flags[b] = 0u;
+    }
+    return;
+  }
+  if (warp != 0) return;
+  // the fits: plane j by warp 0's first half-warp
+  const float a = lane < kFeat ? static_cast<float>(x) * area : 0.0f;
+  float m[kFeat];
+#pragma unroll
+  for (int k = 0; k < kFeat; ++k) m[k] = __shfl_sync(0xffffffffu, a, k);
+  const float s2[9] = {m[3], m[4], m[5], m[4], m[6], m[7], m[5], m[7], m[8]};
+  float normal[3], d, mse, mean[3];
+  plane_from_moments_lanes(m, s2, m[9], normal, &d, &mse, mean);
+  if (lane == 0) {
+    const size_t o = frame * p.P + j;
+    for (int k = 0; k < 3; ++k) {
+      normal_f[3 * o + k] = normal[k];
+      mean_f[3 * o + k] = mean[k];
+    }
+    d_f[o] = d;
+    mse_f[o] = mse;
+    n_f[o] = m[9];
+    alive_out[o] = ps.alive[j];
+  }
+}
+
+// K13, one round in one launch: grid (n_part + P, frames), block x <
+// n_part the logical 512-pixel block x of frame frame0 + y, block n_part
+// + j the collector of the frame's plane j. Every logical block labels
+// its pixels, writes its partial moment sums per plane and publishes them
+// in its flag word with its plane mask; each collector gathers its
+// plane's sums as they are published, adds them in block order and fits
+// the plane. Only collectors wait, and only on blocks that never wait,
+// so no order of dispatch can hang a launch that leaves the card slots
+// besides its collectors (the entry checks that it does).
+__global__ void __launch_bounds__(kPixThreads, 4)
+    plane_assign_refit_kernel(const PixParams p_batch, int frame0,
+                              int refine, int hs, int ws, int pix_per_block,
+                              float area, int* label_sub, double* partial,
+                              unsigned* flags, float* normal_f, float* d_f,
+                              float* mse_f, float* mean_f, float* n_f,
+                              unsigned char* alive_out) {
   __shared__ PlaneSet ps;
-  const PixParams p = pix_at(p_batch, blockIdx.y);
-  label_sub += static_cast<size_t>(blockIdx.y) * hs * ws;
-  partial += static_cast<size_t>(blockIdx.y) * gridDim.x * p.P * kFeat;
   __shared__ double acc[kPixWarps][kMaxPlanes][kFeat];
+  __shared__ unsigned touched;  // the planes this block's pixels took
+  const size_t frame = frame0 + blockIdx.y;
+  const PixParams p = pix_at(p_batch, static_cast<int>(frame));
+  const int n_part = gridDim.x - p.P, row = p.P * kFeat;
+  label_sub += frame * hs * ws;
+  partial += frame * n_part * row;
+  // the flag words of the launch's frame y: one per logical block, then
+  // its collectors' ticket
+  flags += blockIdx.y * (n_part + 1);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
+  const bool collector = static_cast<int>(blockIdx.x) >= n_part;
+  // the depths of a thread's first kPixSteps pixels, loaded before the
+  // ghost merge (they do not depend on it)
+  const int S = hs * ws;
+  const int base = blockIdx.x * pix_per_block;
+  PixDepth dp[kPixSteps];
+  if (!collector) {
+#pragma unroll
+    for (int k = 0; k < kPixSteps; ++k) {
+      const int o = k * kPixThreads, s = base + o + tid;
+      if (o + tid < pix_per_block && s < S) {
+        dp[k] = load_pixel(p, (s / ws) * p.rs, (s % ws) * p.rs);
+      }
+    }
+  }
+  // the planes: the ghost merge, once per block
   load_planes(p, refine != 0, ps);
+  if (collector) {
+    // the collectors stage their terms in the accumulators' words
+    collect_plane(p, frame, blockIdx.x - n_part, n_part, area, partial,
+                  flags, flags + n_part, ps, &acc[0][0][0], normal_f, d_f,
+                  mse_f, mean_f, n_f, alive_out);
+    return;
+  }
   for (int q = tid; q < kPixWarps * kMaxPlanes * kFeat; q += kPixThreads) {
     (&acc[0][0][0])[q] = 0.0;
   }
+  if (tid == 0) touched = 0u;
   __syncthreads();
+  // assign: each pixel's plane, each warp's moment sums per plane by a
+  // float64 shuffle tree into the warp's accumulator; the depths of a
+  // thread's kPixSteps pixels are loaded before the first is assigned
   const float alpha = *p.alpha;
-  const int S = hs * ws;
-  const int base = blockIdx.x * pix_per_block;
-  for (int off = 0; off < pix_per_block; off += kPixThreads) {
-    const int s = base + off + tid;
-    int label = -1;
-    float pt[3] = {0.0f, 0.0f, 0.0f};
-    if (off + tid < pix_per_block && s < S) {
-      label = assign_pixel(p, ps, alpha, (s / ws) * p.rs, (s % ws) * p.rs,
-                           pt);
-      label_sub[s] = label < 0 ? p.P : label;
-    }
-    const float f[kFeat] = {pt[0], pt[1], pt[2], pt[0] * pt[0],
-                            pt[0] * pt[1], pt[0] * pt[2], pt[1] * pt[1],
-                            pt[1] * pt[2], pt[2] * pt[2], 1.0f};
-    // the planes present in this warp, lowest first
-    unsigned todo = __ballot_sync(0xffffffffu, label >= 0);
-    while (todo) {
-      const int src = __ffs(todo) - 1;
-      const int j = __shfl_sync(0xffffffffu, label, src);
-      const bool mine = label == j;
-      todo &= ~__ballot_sync(0xffffffffu, mine);
+  for (int off0 = 0; off0 < pix_per_block; off0 += kPixSteps * kPixThreads) {
+    if (off0 > 0) {
 #pragma unroll
-      for (int q = 0; q < kFeat; ++q) {
-        double x = mine ? static_cast<double>(f[q]) : 0.0;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          x += __shfl_down_sync(0xffffffffu, x, o);
+      for (int k = 0; k < kPixSteps; ++k) {
+        const int o = off0 + k * kPixThreads, s = base + o + tid;
+        if (o + tid < pix_per_block && s < S) {
+          dp[k] = load_pixel(p, (s / ws) * p.rs, (s % ws) * p.rs);
         }
-        if (lane == 0) acc[warp][j][q] += x;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPixSteps; ++k) {
+      const int off = off0 + k * kPixThreads, s = base + off + tid;
+      int label = -1;
+      float pt[3] = {0.0f, 0.0f, 0.0f};
+      if (off + tid < pix_per_block && s < S) {
+        label = assign_pixel(p, ps, alpha, (s / ws) * p.rs, (s % ws) * p.rs,
+                             dp[k], pt);
+        label_sub[s] = label < 0 ? p.P : label;
+      }
+      const float f[kFeat] = {pt[0], pt[1], pt[2], pt[0] * pt[0],
+                              pt[0] * pt[1], pt[0] * pt[2], pt[1] * pt[1],
+                              pt[1] * pt[2], pt[2] * pt[2], 1.0f};
+      // the planes present in this warp, lowest first
+      unsigned todo = __ballot_sync(0xffffffffu, label >= 0);
+      while (todo) {
+        const int src = __ffs(todo) - 1;
+        const int j = __shfl_sync(0xffffffffu, label, src);
+        const bool mine = label == j;
+        todo &= ~__ballot_sync(0xffffffffu, mine);
+        double v[kFeat];
+#pragma unroll
+        for (int q = 0; q < kFeat; ++q) {
+          v[q] = mine ? static_cast<double>(f[q]) : 0.0;
+        }
+        const double x = moment_tree(v);
+        if ((lane & 1) == 0 && tree_value(lane) < kFeat) {
+          acc[warp][j][tree_value(lane)] += x;
+        }
       }
     }
   }
   __syncthreads();
-  for (int q = tid; q < p.P * kFeat; q += kPixThreads) {
+  // this block's partial: its warps summed in order; a plane no pixel
+  // took has every sum +0 (its count, the last feature, is 0)
+  for (int q = tid; q < row; q += kPixThreads) {
     double x = 0.0;
     for (int w = 0; w < kPixWarps; ++w) x += acc[w][q / kFeat][q % kFeat];
-    partial[static_cast<size_t>(blockIdx.x) * p.P * kFeat + q] = x;
-  }
-}
-
-// K13, second kernel (one block): the blocks' partials summed in order,
-// then each plane's moment fit; the alive mask goes out with it.
-__global__ void __launch_bounds__(kMaxPlanes * kFeat)
-    plane_refit_kernel(const PixParams p_batch, int refine, int n_part,
-                       const double* partial, float area, float* normal_f,
-                       float* d_f, float* mse_f, float* mean_f, float* n_f,
-                       unsigned char* alive_out) {
-  __shared__ PlaneSet ps;
-  __shared__ float agg[kMaxPlanes][kFeat];
-  const int tid = threadIdx.x;
-  const PixParams p = pix_at(p_batch, blockIdx.x);
-  {  // this block's frame
-    const size_t f = blockIdx.x;
-    partial += f * n_part * p.P * kFeat;
-    normal_f += 3 * f * p.P;
-    d_f += f * p.P;
-    mse_f += f * p.P;
-    mean_f += 3 * f * p.P;
-    n_f += f * p.P;
-    alive_out += f * p.P;
-  }
-  load_planes(p, refine != 0, ps);
-  if (tid < p.P * kFeat) {
-    double x = 0.0;
-    for (int b = 0; b < n_part; ++b) {
-      x += partial[static_cast<size_t>(b) * p.P * kFeat + tid];
+    partial[static_cast<size_t>(blockIdx.x) * row + q] = x;
+    if (q % kFeat == kFeat - 1 && x != 0.0) {
+      atomicOr(&touched, 1u << (q / kFeat));
     }
-    agg[tid / kFeat][tid % kFeat] = static_cast<float>(x) * area;
   }
+  // publish: the partial visible device-wide, then the flag
+  __threadfence();
   __syncthreads();
-  if (tid < p.P) {
-    const float* a = agg[tid];
-    const float s2[9] = {a[3], a[4], a[5], a[4], a[6], a[7], a[5], a[7],
-                         a[8]};
-    float normal[3], d, mse, mean[3];
-    psl_plane_from_moments(a, s2, a[9], normal, &d, &mse, mean);
-    for (int q = 0; q < 3; ++q) {
-      normal_f[3 * tid + q] = normal[q];
-      mean_f[3 * tid + q] = mean[q];
-    }
-    d_f[tid] = d;
-    mse_f[tid] = mse;
-    n_f[tid] = a[9];
-    alive_out[tid] = ps.alive[tid];
-  }
+  if (tid == 0) store_release(flags + blockIdx.x, touched | kPublished);
 }
 
 // K14: the final gate per plane (every block computes it; block 0 writes
@@ -786,13 +1149,15 @@ PSL_API int psl_plane_components(
       7 * wb * min(hb, 2) > 2 * kFeatStaged * kChunk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static int opted = 0;  // the opt-in above 48 KB, for the largest asked
-  if (smem > opted) {
+  // the opt-in above 48 KB, per card, for the largest asked
+  static int opted[kPslDevices] = {};
+  int* dev_opted = psl_device_slot(opted);
+  if (dev_opted == nullptr || smem > *dev_opted) {
     const cudaError_t err = cudaFuncSetAttribute(
         plane_components_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    opted = smem;
+    if (dev_opted != nullptr) *dev_opted = smem;
   }
   if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   plane_fits_kernel<<<dim3((B + kFitThreads - 1) / kFitThreads, batch),
@@ -803,15 +1168,25 @@ PSL_API int psl_plane_components(
   return static_cast<int>(cudaGetLastError());
 }
 
+// Flag words psl_plane_assign_refit needs, which a caller keeps per
+// stream, zeroed once: kCollectFrames frames of kAssignMaxParts logical
+// blocks and a ticket each.
+PSL_API long long psl_plane_assign_flag_words() {
+  return static_cast<long long>(kCollectFrames) * (kAssignMaxParts + 1);
+}
+
+// K13 for `batch` frames, kCollectFrames a launch in turn; *launches is
+// the number of launches made.
 PSL_API int psl_plane_assign_refit(
     const float* depth, const float* alpha, int h, int w, int rs, float fx,
     float fy, float cx, float cy, float geo_tol, float max_distance,
     float dist_thr, float jump_coef, int P, const float* normal,
     const float* d, const unsigned char* valid, const float* mse,
     const float* mean, const float* n_p, int pix_per_block, int batch,
-    double* partial, int* label_sub, float* normal_f,
+    double* partial, unsigned* flags, int* label_sub, float* normal_f,
     float* d_f, float* mse_f, float* mean_f, float* n_f,
-    unsigned char* alive, cudaStream_t stream) {
+    unsigned char* alive, int* launches, cudaStream_t stream) {
+  *launches = 0;
   if (P > kMaxPlanes || rs < 1 || pix_per_block < 1 || batch < 1 ||
       batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -822,16 +1197,42 @@ PSL_API int psl_plane_assign_refit(
                  n_p);
   const int refine = mse != nullptr ? 1 : 0;
   const int hs = (h + rs - 1) / rs, ws = (w + rs - 1) / rs;
-  // the caller sized `partial` as batch x n_part x P x 10 float64
-  const int n_part = (hs * ws + pix_per_block - 1) / pix_per_block;
-  plane_assign_kernel<<<dim3(n_part, batch), kPixThreads, 0, stream>>>(
-      p, refine, hs, ws, pix_per_block, label_sub, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  plane_refit_kernel<<<batch, kMaxPlanes * kFeat, 0, stream>>>(
-      p, refine, n_part, partial, static_cast<float>(rs * rs), normal_f, d_f,
-      mse_f, mean_f, n_f, alive);
-  return static_cast<int>(cudaGetLastError());
+  // the caller sized `partial` as batch x n_part x P x 10 float64 and
+  // `flags` as psl_plane_assign_flag_words, zero between launches
+  const long long n_part_l =
+      (static_cast<long long>(hs) * ws + pix_per_block - 1) / pix_per_block;
+  if (n_part_l > kAssignMaxParts) return kPslErrAssignParts;
+  const int n_part = static_cast<int>(n_part_l);
+  // the collectors of a launch wait for its other blocks: keep half the
+  // card's slots for those (resident blocks per card, cached per card)
+  static int slots[kPslDevices] = {};
+  int* dev_slots = psl_device_slot(slots);
+  int resident = dev_slots != nullptr ? *dev_slots : 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, plane_assign_refit_kernel, kPixThreads, 0);
+    resident = sms * per_sm;
+    if (dev_slots != nullptr) *dev_slots = resident;
+  }
+  if (2 * kCollectFrames * P > resident) {
+    return static_cast<int>(cudaErrorLaunchOutOfResources);
+  }
+  for (int f0 = 0; f0 < batch; f0 += kCollectFrames) {
+    const int frames = batch - f0 < kCollectFrames ? batch - f0
+                                                   : kCollectFrames;
+    plane_assign_refit_kernel<<<dim3(n_part + P, frames), kPixThreads, 0,
+                                stream>>>(
+        p, f0, refine, hs, ws, pix_per_block, static_cast<float>(rs * rs),
+        label_sub, partial, flags, normal_f, d_f, mse_f, mean_f, n_f,
+        alive);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launches;
+  }
+  return 0;
 }
 
 PSL_API int psl_plane_label_pixels(

@@ -136,10 +136,11 @@ _SIGNATURES = {
                             + [_P] * 7,
     # depth, alpha, h, w, rs, fx, fy, cx, cy, geo_tol, max_distance,
     # dist_thr, jump_coef, P, normal, d, valid, mse, mean, n_p (the last
-    # three NULL in round 1), pix_per_block, batch, partial, label_sub,
-    # normal_f, d_f, mse_f, mean_f, n_f, alive, stream
+    # three NULL in round 1), pix_per_block, batch, partial, flags,
+    # label_sub, normal_f, d_f, mse_f, mean_f, n_f, alive, launches (the
+    # int the entry sets to the launches it made), stream
     "psl_plane_assign_refit": [_P, _P] + [_I] * 3 + [_F] * 8 + [_I]
-                              + [_P] * 6 + [_I, _I] + [_P] * 9,
+                              + [_P] * 6 + [_I, _I] + [_P] * 11,
     # depth, alpha, h, w, fx, fy, cx, cy, geo_tol, max_distance, dist_thr,
     # jump_coef, P, normal, d, valid, mse, mean, n_p, min_size, batch,
     # label_in (or NULL), coeffs, valid_out, count, pixel_label, stream
@@ -214,8 +215,8 @@ _SIGNATURES = {
     # (what a mode does not write NULL), stream
     "psl_assemble_observations": [_P, _I] + [_P] * 3 + [_I] + [_P] * 5
                                  + [_I] * 3 + [_P] * 7,
-    # depth, h, w, batch, max_distance, inv_mad, scratch, alpha, stream
-    "psl_noise_alpha": [_P, _I, _I, _I, _F, _F, _P, _P, _P],
+    # depth, h, w, batch, max_distance, inv_mad, alpha, stream
+    "psl_noise_alpha": [_P, _I, _I, _I, _F, _F, _P, _P],
     # depth, h, w, batch, stride, budget, smooth_window, inv_fx, inv_fy, cx,
     # cy, normals, valid, stream
     "psl_frame_normals": [_P] + [_I] * 6 + [_F] * 4 + [_P] * 3,
@@ -262,6 +263,8 @@ _HELPERS = {
     "psl_search_lines_scratch_words": [_I] * 3,
     # h, w, batch, E
     "psl_lines_select_scratch_words": [_I] * 4,
+    # (none): K13's flag words a stream keeps
+    "psl_plane_assign_flag_words": [],
 }
 
 

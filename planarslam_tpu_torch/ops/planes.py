@@ -26,8 +26,9 @@ kernel repeats.
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -361,7 +362,9 @@ def noise_alpha_plain(depth: torch.Tensor, max_distance: float
 
 def _noise_alpha(depth: torch.Tensor, max_distance: float) -> torch.Tensor:
     """K28 wrapper. depth: (H, W) float32 metres -> () float32, or
-    (B, H, W) -> (B,)."""
+    (B, H, W) -> (B,). A frame may hold at most 421888 strided samples
+    (ceil(H / 4) x ceil(W / 4), e.g. 2560x2560): the kernel raises past
+    that."""
     if depth.dim() not in (2, 3):
         raise ValueError(f"depth: expected (H, W) or (B, H, W), got "
                          f"{tuple(depth.shape)}")
@@ -372,16 +375,12 @@ def _noise_alpha(depth: torch.Tensor, max_distance: float) -> torch.Tensor:
         return alpha[0] if depth.dim() == 2 else alpha
     kernels.check(depth, "depth", torch.float32)
     b, h, w = frames.shape
-    dev = depth.device
-    # the samples' float bits, one row per frame
-    scratch = torch.empty((b, -(-h // 4) * -(-w // 4)), dtype=torch.int32,
-                          device=dev)
-    alpha = torch.empty((b,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    alpha = torch.empty((b,), dtype=torch.float32, device=depth.device)
+    with torch.cuda.device(depth.device):
         kernels.launch("psl_noise_alpha", kernels.ptr(frames), h, w, b,
                        float(max_distance),
                        kernels.scalar_reciprocal(_MAD_TO_SIGMA),
-                       kernels.ptr(scratch), kernels.ptr(alpha))
+                       kernels.ptr(alpha))
     kernels.LAUNCHES["noise_alpha"] += 1
     return alpha[0] if depth.dim() == 2 else alpha
 
@@ -409,7 +408,7 @@ class PlaneRefit(NamedTuple):
 # keep per thread block
 MAX_BLOCKS = 16384
 MAX_PLANES = 32
-# subsampled pixels per thread block of K13's first kernel: one row of its
+# subsampled pixels per logical thread block of K13: one row of its
 # partial-sum scratch per block
 ASSIGN_PIXELS_PER_BLOCK = 512
 
@@ -646,6 +645,33 @@ def _check_pixel_args(depth, alpha, normal, d, valid, fit) -> int:
     return p_cap
 
 
+# K13's flag words by (device, stream): psl_plane_assign_flag_words of
+# them (one per logical block and a ticket, for each frame a launch
+# takes), zeroed when made; each launch's last collector of a frame
+# clears the frame's words, so the launches of one stream share them and
+# no call zeroes them. A stream's words are made at its first call, which
+# may not lie inside a CUDA graph capture: the zeroing would run only at
+# replay, and eager launches would find the words unset.
+_FLAGS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _assign_flags(dev: torch.device, stream: int, words: int,
+                  capturing: bool) -> torch.Tensor:
+    """K13's flag words of ``stream`` on ``dev``: ``words`` int32 words,
+    allocated zeroed at the stream's first request and the same tensor
+    afterwards. Raises when the first request comes during a capture."""
+    t = _FLAGS.get((dev, stream))
+    if t is None:
+        if capturing:
+            raise RuntimeError(
+                "plane_assign_refit: this stream has no flag words yet; "
+                "call it once on the capturing stream before the capture "
+                "(torch.cuda.graph(..., stream=s) after a warm-up on s)")
+        t = torch.zeros(words, dtype=torch.int32, device=dev)
+        _FLAGS[(dev, stream)] = t
+    return t
+
+
 def _pixel_scalars(depth, cam: CameraConfig, cfg: PlaneConfig):
     """The float arguments K13 and K14 share, after the image size."""
     return (float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
@@ -658,15 +684,21 @@ def plane_assign_refit(depth: torch.Tensor, alpha: torch.Tensor,
                        normal: torch.Tensor, d: torch.Tensor,
                        valid: torch.Tensor,
                        fit: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                           torch.Tensor]] = None
+                                           torch.Tensor]] = None,
+                       partial: Optional[torch.Tensor] = None
                        ) -> PlaneRefit:
     """K13 wrapper. depth: (H, W) float32 metres; alpha: () float32 noise
     scale; normal (P, 3), d (P,), valid (P,) bool: the planes to assign to;
     fit: None in round 1, else the ``(mse (P,), mean (P, 3), n (P,))`` of
     the refit the planes came from (a refine round). Everything stays on
     the device: a round's result feeds the next without a host sync. F
-    frames, every tensor with a leading F, are one call (its two kernels
-    launched once each), and every output then has the leading F."""
+    frames, every tensor with a leading F, take the launches the C entry
+    chooses (one for up to its kCollectFrames) and reports, and every
+    output then has the leading F. Launches of one stream share its flag words
+    (_assign_flags). partial: None, or the float64 (F, n_part, P, 10)
+    tensor the logical blocks write their sums to (made per call when
+    None); a check may fill it with NaN first, since every term a
+    collector adds is one a block wrote in the same launch."""
     tensors = [depth, alpha, normal, d, valid] + list(fit or ())
     if kernels.on_cpu(*tensors):
         if depth.dim() == 2:
@@ -687,20 +719,33 @@ def plane_assign_refit(depth: torch.Tensor, alpha: torch.Tensor,
         return torch.empty((*lead, *shape), dtype=dtype, device=dev)
 
     n_part = -(-n_sub // ASSIGN_PIXELS_PER_BLOCK)
-    partial = torch.empty((f, n_part, p_cap, 10), dtype=torch.float64,
-                          device=dev)
+    if partial is None:
+        partial = torch.empty((f, n_part, p_cap, 10), dtype=torch.float64,
+                              device=dev)
+    kernels.check(partial, "partial", torch.float64, (f, n_part, p_cap, 10))
+    if partial.device != dev:
+        raise ValueError(f"partial: expected {dev}, got {partial.device}")
     out = PlaneRefit(empty((n_sub,), torch.int32), empty((p_cap, 3)),
                      empty((p_cap,)), empty((p_cap,)), empty((p_cap, 3)),
                      empty((p_cap,)), empty((p_cap,), torch.bool))
     fit_ptrs = [kernels.ptr(t) for t in fit] if fit is not None else [None] * 3
+    launches = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        kernels.launch(
-            "psl_plane_assign_refit", kernels.ptr(depth), kernels.ptr(alpha),
-            h, w, rs, *_pixel_scalars(depth, cam, cfg), p_cap,
-            kernels.ptr(normal), kernels.ptr(d), kernels.ptr(valid),
-            *fit_ptrs, ASSIGN_PIXELS_PER_BLOCK, f, kernels.ptr(partial),
-            *[kernels.ptr(t) for t in out])
-    kernels.LAUNCHES["plane_assign_refit"] += 1
+        flags = _assign_flags(
+            dev, torch.cuda.current_stream().cuda_stream,
+            kernels.cuda_lib().psl_plane_assign_flag_words(),
+            torch.cuda.is_current_stream_capturing())
+        try:
+            kernels.launch(
+                "psl_plane_assign_refit", kernels.ptr(depth),
+                kernels.ptr(alpha), h, w, rs,
+                *_pixel_scalars(depth, cam, cfg), p_cap,
+                kernels.ptr(normal), kernels.ptr(d), kernels.ptr(valid),
+                *fit_ptrs, ASSIGN_PIXELS_PER_BLOCK, f, kernels.ptr(partial),
+                kernels.ptr(flags), *[kernels.ptr(t) for t in out],
+                ctypes.addressof(launches))
+        finally:
+            kernels.LAUNCHES["plane_assign_refit"] += launches.value
     return out
 
 

@@ -488,6 +488,28 @@ def test_plane_segment_kernels(dev, which):
         assert kernels.LAUNCHES[name] == n0[name] + n
 
 
+def test_plane_assign_refit_rounds(dev):
+    """K13's three rounds of extract_planes at B = 1, 4 and 9
+    (chip_smoke.refit_problems): one launch a round up to 8 frames (two at
+    9), as the C entry reports; with every partial-sum buffer filled with
+    NaN and with other problems' sums left in reused buffers, each run
+    bit-equal to its first and no flag word left set after a round
+    (chip_smoke.refit_protocol); lane 0 of the B = 4 and 9 rounds equal to
+    the B = 1 rounds; and a CUDA graph of the B = 4 rounds replays
+    bit-equal to them, its flag words clear after each replay."""
+    cfg = SystemConfig()
+    seq = synthetic.make_sequence(9, width=640, height=480)
+    probs = chip_smoke.refit_problems(seq, cfg, dev, frames=9)
+    rounds = 1 + cfg.planes.refine_rounds
+    got = _held(chip_smoke.refit_protocol, probs, rounds, 2)
+    assert got["calls"] == 2 * 2 * len(probs) == 12
+    outs = {name: fn() for name, fn in probs.items()}
+    for name in ("b4", "b9"):
+        for a, b in zip(outs[name], outs["b1"]):
+            assert torch.equal(a[:1], b)
+    assert _held(chip_smoke.refit_graph_replay, probs["b4"])
+
+
 def test_extract_planes_on_card(dev, frame):
     """extract_planes on the card (K4, K12-K14) against the composition of
     the plain versions on the same depth: validity exact, counts rtol
@@ -790,6 +812,22 @@ def test_tail_kernels(dev):
                                         "associate_planes", "finish_step"]
     for k in out:
         assert kernels.LAUNCHES[k["name"]] > n0[k["name"]]
+
+
+def test_noise_alpha_frame_size_limit(dev):
+    """K28 keeps a frame's strided samples in its cluster's shared memory:
+    at 2560x2560 (409600 samples) it is bit-equal to the plain version, at
+    2600x2600 (422500, past the 421888 it holds) it raises with the limit
+    in the message."""
+    rng = np.random.default_rng(28)
+    d = torch.from_numpy((2.0 + rng.normal(0, 0.01, (2560, 2560)))
+                         .astype(np.float32)).to(dev)
+    got = planes._noise_alpha(d, 10.0)
+    want = planes.noise_alpha_plain(d, 10.0)
+    assert torch.equal(got[None].view(torch.int32),
+                       want[None].view(torch.int32))
+    with pytest.raises(RuntimeError, match="421888"):
+        planes._noise_alpha(torch.full((2600, 2600), 2.0, device=dev), 10.0)
 
 
 @pytest.mark.parametrize("batch", [2, 3])

@@ -96,6 +96,17 @@ def test_noise_alpha_plain_vs_jax(case):
         assert n > 0 and float(got) == 0.0
     if case.startswith("room") or case == "duplicates":
         assert float(want) > 0.0
+    # the middle two samples' bits: "split" in two top 11-bit digits (the
+    # kernel's neighbour pass), "pair" in one 22-bit prefix (its last
+    # pass's counts)
+    bits = np.sort(chip_smoke.alpha_samples(depth)).view(np.uint32)
+    assert len(bits) == n
+    if case == "split":
+        assert n == 100 and bits[49] >> 21 != bits[50] >> 21
+    if case == "pair":
+        assert n == 2 and bits[0] != bits[1] and bits[0] >> 10 == bits[1] >> 10
+    if case == "wide":
+        assert depth.shape == (960, 1280) and n > 19200
 
 
 def test_noise_alpha_batched_cpu():

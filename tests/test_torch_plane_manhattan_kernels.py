@@ -303,3 +303,47 @@ def test_extract_planes_mixed_devices_raises():
             torch.zeros((120, 160)), _fake_cuda(()), TC.camera, TC.planes,
             torch.zeros((8, 3)), torch.zeros((8,)),
             torch.zeros((8,), dtype=torch.bool))
+
+
+def test_assign_flags_allocated_once():
+    """K13's flag words: one buffer per (device, stream), zeroed at the
+    stream's first request and the same words afterwards (the kernel's
+    collectors clear them); another stream gets its own; a first request
+    inside a CUDA graph capture raises, since the zeroing would then run
+    only at replay."""
+    dev = torch.device("cpu")
+    keys = [(dev, s) for s in (1, 2, 3)]
+    for k in keys:
+        tplanes._FLAGS.pop(k, None)
+    try:
+        a = tplanes._assign_flags(dev, 1, 150, False)
+        assert a.dtype == torch.int32 and a.shape == (150,) and not a.any()
+        assert tplanes._assign_flags(dev, 1, 150, False) is a
+        assert tplanes._assign_flags(dev, 1, 150, True) is a
+        b = tplanes._assign_flags(dev, 2, 150, False)
+        assert b is not a and b.shape == (150,) and not b.any()
+        with pytest.raises(RuntimeError, match="capturing stream"):
+            tplanes._assign_flags(dev, 3, 150, True)
+        assert (dev, 3) not in tplanes._FLAGS
+    finally:
+        for k in keys:
+            tplanes._FLAGS.pop(k, None)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape"])
+def test_plane_assign_refit_rejects_bad_partial(bad):
+    """K13's partial-sum buffer, when the caller gives one, is held to the
+    float64 (F, n_part, P, 10) the kernel writes before anything is
+    launched."""
+    pc = TC.planes
+    p_cap, rs = pc.max_planes, max(1, int(pc.refine_stride))
+    n_part = -(-(-(-120 // rs) * -(-160 // rs))
+               // tplanes.ASSIGN_PIXELS_PER_BLOCK)
+    f = _fake_cuda
+    part = f((1, n_part + (bad == "shape"), p_cap, 10),
+             torch.float32 if bad == "dtype" else torch.float64)
+    with pytest.raises(TypeError if bad == "dtype" else ValueError,
+                       match="partial"):
+        tplanes.plane_assign_refit(
+            f((120, 160)), f(()), TC.camera, pc, f((p_cap, 3)), f((p_cap,)),
+            f((p_cap,), torch.bool), partial=part)

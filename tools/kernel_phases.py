@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Time the phases inside K3 (gated_hamming_top2), K12
-(plane_components), K15 (manhattan_mean_shift) and K29 (frame_normals) on
-a GPU.
+(plane_components), K13 (plane_assign_refit), K15 (manhattan_mean_shift),
+K28 (noise_alpha) and K29 (frame_normals) on a GPU.
 
     python3 tools/kernel_phases.py
 
-Copies csrc/hamming_top2.cu, csrc/plane_segment.cu, csrc/manhattan.cu and
-csrc/depth_normals.cu into build/kernel_phases/, inserts clock64 (and, in
-K3 and K29, %globaltimer) reads at the phase comments the sources carry,
+Copies csrc/hamming_top2.cu, csrc/plane_segment.cu (twice: K12, K13),
+csrc/manhattan.cu and csrc/depth_normals.cu (twice: K28, K29) into
+build/kernel_phases/, inserts clock64 (and, in K3, K13, K28 and K29,
+%globaltimer) reads at the phase comments the sources carry,
 builds each copy with the build's own flags into a library of its own,
 and runs the wrappers of this checkout with those entry points in place
 of the built ones:
@@ -29,7 +30,17 @@ of the built ones:
 - K29 on `normals_problems` at B = 1 and 4: per block, the first sample's
   cycles of staging, the box sums, the jump scan and the tail (median and
   largest over the blocks that ran them), the blocks' start skew and the
-  launch's span.
+  launch's span;
+- K28 on `alpha_problems` (frame 0 clean and noisy, B = 4): per block the
+  cycles of the sampling, pass 0's counts (with their coarse sums), the
+  wait at the cluster barrier after them, warp 0's merge and pick of the
+  digit, passes 1 and 2, and the neighbour step with the result;
+- K13 on `refit_problems` (B = 1 and 4; the marks of the last launch, the
+  third round): per logical block the cycles of the ghost merge, the
+  assign pass and the partial with its publication (median and largest),
+  per collector (one per plane) those of the ghost merge, the in-order
+  sums (its waits for the blocks included) and the fit, and per frame
+  the tail from its last publication to its last collector's end.
 Prints one JSON object with the card's name and power limit. The marks
 move where the code between them runs, not what it computes.
 """
@@ -127,6 +138,28 @@ K29_ANCHORS = (
     "  // jump scan: the 1-pixel jumps",
     "  // the sample's tail, by lane 0")
 K29_END = "    valid[o] = ok ? 1 : 0;\n  }\n}\n"
+K28_PHASES = ("sampling", "pass0_counts", "cluster_wait", "merge_pick",
+              "passes_1_2", "neighbour")
+K28_ANCHORS = (
+    "  // sampling: this block's samples",
+    "  // pass 0's counts:",
+    "  cl.sync();  // every block's counts of the pass",
+    "  // merge and pick:",
+    "  // passes 1 and 2:",
+    "  // the neighbour step:",
+    "  cl.sync();  // no block leaves while another reads its shared memory")
+# K13: marks 0-3 in a logical block (the ghost merge, the assign pass, the
+# partial and its publication, the end), 0 and 4-6 in the frame's
+# collector (the ghost merge, the in-order sums, the fits, the end)
+K13_ANCHORS = (
+    "  // the planes: the ghost merge, once per block",
+    "  // assign: each pixel's plane",
+    "  // this block's partial: its warps summed in order",
+    "  if (tid == 0) store_release(flags + blockIdx.x, touched | kPublished);"
+    "\n",
+    "  // the in-order sums\n",
+    "  // the fits: plane j by warp 0's first half-warp",
+    "    alive_out[o] = ps.alive[j];\n")
 READ = ('\nextern "C" int psl_phase_read(void* out, int bytes) {\n'
         '  return static_cast<int>(cudaMemcpyFromSymbol(out, psl_phase, '
         'bytes));\n}\n')
@@ -190,14 +223,74 @@ def _k29_source(kernels) -> str:
     return src + READ
 
 
-def _block_marks(lib, fn, rows: int, phases) -> dict:
-    """One launch of fn after three: per block the cycles of each phase
-    (median and largest over the blocks whose marks all moved), their start
-    skew and the launch's span, from per-block rows of clock64 (0-7) and
-    %globaltimer (8-15) marks."""
+def _k28_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "depth_normals.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", f"__device__ long long psl_phase"
+                      f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
+    for k, anchor in enumerate(K28_ANCHORS):
+        src = _mark(src, anchor, BLOCK_MARK.format(k=k), True)
+    return src + READ
+
+
+def _k13_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "plane_segment.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", f"__device__ long long psl_phase"
+                      f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
+    for k, anchor in enumerate(K13_ANCHORS):
+        # marks 3 and 6 close their blocks: after the anchor, not before
+        after = k in (3, 6)
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"phase anchor not found once: {anchor!r}")
+        mark = BLOCK_MARK.format(k=k)
+        src = src.replace(anchor, f"{anchor}{mark}\n" if after
+                          else f"{mark}\n{anchor}")
+    return src + READ
+
+
+def _k13_marks(lib, fn, n_part: int, planes: int) -> dict:
+    """K13's marks after one call of fn (its last launch): per logical
+    block the cycles of the ghost merge, the assign pass and the partial
+    with its publication (median and largest), per collector those of the
+    ghost merge, the in-order sums (its waits included) and the fit, and
+    per frame the tail: its last collector's end less its last
+    publication (us). A launch's grid is n_part logical blocks and one
+    collector per plane a frame."""
+    marks, _ = _launch_marks(lib, fn)
+    gx = n_part + planes
+    rows = np.arange(len(marks))
+    ran = marks[:, 8] != 0
+    coll = ran & (rows % gx >= n_part)
+    assign = ran & ~coll
+    a, c = marks[assign], marks[coll]
+    ac = {"planes": a[:, 1] - a[:, 0], "assign": a[:, 2] - a[:, 1],
+          "partial_publish": a[:, 3] - a[:, 2]}
+    cc = {"planes": c[:, 4] - c[:, 0], "collect": c[:, 5] - c[:, 4],
+          "fit": c[:, 6] - c[:, 5]}
+    tail = []
+    for f in sorted(set((rows[coll] // gx).tolist())):
+        blk = marks[gx * f:gx * f + gx]
+        tail.append(float((blk[n_part:, 14].max() - blk[:n_part, 11].max())
+                          / 1e3))
+    return {"assign_blocks": int(assign.sum()), "collectors": int(coll.sum()),
+            "span_us": float((marks[ran, 8:15].max() - marks[ran, 8].min())
+                             / 1e3),
+            "assign_cycles_median": {k: float(np.median(v))
+                                     for k, v in ac.items()},
+            "assign_cycles_max": {k: int(v.max()) for k, v in ac.items()},
+            "collector_cycles_median": {k: float(np.median(v))
+                                        for k, v in cc.items()},
+            "collector_cycles_max": {k: int(v.max()) for k, v in cc.items()},
+            "tail_us": tail}
+
+
+def _launch_marks(lib, fn):
+    """The mark rows after one call of fn that follows three, with the
+    rows before it: clock64 (0-7) and %globaltimer (8-15) per block."""
     import torch
 
-    marks = np.zeros((rows, 16), np.int64)
+    marks = np.zeros((BLOCK_ROWS, 16), np.int64)
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -206,6 +299,15 @@ def _block_marks(lib, fn, rows: int, phases) -> dict:
     fn()
     torch.cuda.synchronize()
     lib.psl_phase_read(marks.ctypes.data_as(ctypes.c_void_p), marks.nbytes)
+    return marks, before
+
+
+def _block_marks(lib, fn, phases) -> dict:
+    """One launch of fn after three: per block the cycles of each phase
+    (median and largest over the blocks whose marks all moved), their start
+    skew and the launch's span, from per-block rows of clock64 (0-7) and
+    %globaltimer (8-15) marks."""
+    marks, before = _launch_marks(lib, fn)
     n = len(phases)
     ran = marks[:, 8] != before[:, 8]
     full = ran & (marks[:, 8 + n] != before[:, 8 + n])
@@ -270,13 +372,18 @@ def main() -> int:
                  kernels.SOURCE_FLAGS["manhattan.cu"])
     k29 = _build(kernels, "depth_normals", _k29_source(kernels),
                  kernels.SOURCE_FLAGS["depth_normals.cu"])
+    k28 = _build(kernels, "depth_normals_k28", _k28_source(kernels),
+                 kernels.SOURCE_FLAGS["depth_normals.cu"])
+    k13 = _build(kernels, "plane_segment_k13", _k13_source(kernels),
+                 kernels.SOURCE_FLAGS["plane_segment.cu"])
     entries = {"psl_gated_hamming_top2": k3, "psl_mutual_hamming_top2": k3,
                "psl_plane_components": k12, "psl_manhattan_mean_shift": k15,
-               "psl_frame_normals": k29}
+               "psl_frame_normals": k29, "psl_noise_alpha": k28,
+               "psl_plane_assign_refit": k13}
     for name, lib in entries.items():
         getattr(lib, name).argtypes = kernels._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
-    for lib in (k3, k12, k15, k29):
+    for lib in (k3, k12, k15, k29, k28, k13):
         lib.psl_phase_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     cfg = SystemConfig()
     seq = synthetic.make_sequence(smoke.TRACKING_FRAMES,
@@ -288,8 +395,7 @@ def main() -> int:
     kernels._lib = _Swap(real, k3, {"psl_gated_hamming_top2",
                                     "psl_mutual_hamming_top2"})
     for name, fn in smoke.hamming_step_problems(seq, cfg, dev).items():
-        out["gated_hamming_top2"][name] = _block_marks(k3, fn, BLOCK_ROWS,
-                                                       K3_PHASES)
+        out["gated_hamming_top2"][name] = _block_marks(k3, fn, K3_PHASES)
 
     kernels._lib = _Swap(real, k12, {"psl_plane_components"})
     fn = smoke.components_problems(seq, cfg, dev)["b1"]
@@ -334,8 +440,21 @@ def main() -> int:
 
     kernels._lib = _Swap(real, k29, {"psl_frame_normals"})
     out["frame_normals"] = {
-        name: _block_marks(k29, fn, BLOCK_ROWS, K29_PHASES)
+        name: _block_marks(k29, fn, K29_PHASES)
         for name, fn in smoke.normals_problems(seq, cfg, dev).items()}
+    kernels._lib = _Swap(real, k28, {"psl_noise_alpha"})
+    out["noise_alpha"] = {
+        name: _block_marks(k28, fn, K28_PHASES)
+        for name, fn in smoke.alpha_problems(seq, cfg, dev).items()}
+    kernels._lib = _Swap(real, k13, {"psl_plane_assign_refit"})
+    from planarslam_tpu_torch.ops import planes as P
+
+    rs = max(1, int(cfg.planes.refine_stride))
+    n_part = -(-(-(-cfg.camera.height // rs) * -(-cfg.camera.width // rs))
+               // P.ASSIGN_PIXELS_PER_BLOCK)
+    out["plane_assign_refit"] = {
+        name: _k13_marks(k13, fn, n_part, cfg.planes.max_planes)
+        for name, fn in smoke.refit_problems(seq, cfg, dev).items()}
     kernels._lib = real
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
                              "--format=csv,noheader"], capture_output=True,

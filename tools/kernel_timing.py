@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time K3 (gated_hamming_top2), K11 (pose_optimize), K12
-(plane_components), K15 (manhattan_mean_shift), K20 (detect_lines) and K29
-(frame_normals) of one tree of the port on a GPU, so that two trees can be
-compared in one run.
+(plane_components), K13 (plane_assign_refit), K15 (manhattan_mean_shift),
+K20 (detect_lines), K28 (noise_alpha) and K29 (frame_normals) of one tree
+of the port on a GPU, so that two trees can be compared in one run.
 
     python3 tools/kernel_timing.py [--root DIR]
 
@@ -21,8 +21,13 @@ step); K12 on frame 0's block moments at B = 1 and on eight lanes' at B =
 with the tracking cone at B = 1 and 4 (`manhattan_problems`); K20 on
 frame 0 of the 640x480 synthetic room after its 5-tap blur, timed by
 `detect_timing` (per call, device time by launch); K29 on frame 0's depth
-at B = 1 and on frames 0-3 at B = 4 (`normals_problems`). K3, K12, K15
-and K29 are timed by `kernel_timing_entry`. Prints one JSON object with the card's name and power limit,
+at B = 1 and on frames 0-3 at B = 4 (`normals_problems`); K28 on frame
+0's depth clean and with Kinect noise and on frames 0-3 at B = 4
+(`alpha_problems`); K13 on extract_planes' 1 + refine_rounds rounds from
+K12's candidates, frame 0 at B = 1 and frames 0-3 at B = 4
+(`refit_problems`: per call the three rounds, their launches and device
+time). K3, K12, K13, K15, K28 and K29 are timed by
+`kernel_timing_entry`. Prints one JSON object with the card's name and power limit,
 those times and a hash of each output, so that two trees' outputs can be
 compared bit for bit.
 """
@@ -110,7 +115,9 @@ def main(argv=None) -> int:
 
     for key, problems, match in (
             ("manhattan_mean_shift", smoke.manhattan_problems, "manhattan"),
-            ("frame_normals", smoke.normals_problems, "frame_normals")):
+            ("frame_normals", smoke.normals_problems, "frame_normals"),
+            ("noise_alpha", smoke.alpha_problems, "noise_alpha"),
+            ("plane_assign_refit", smoke.refit_problems, "plane_")):
         out[key] = {name: {"hash": _digest(fn()),
                            **smoke.kernel_timing_entry(fn, match)}
                     for name, fn in problems(seq, cfg, dev).items()}
