@@ -8,7 +8,8 @@ Phases, each fatal on failure:
   2. build: compile the hand-written kernels from planarslam_tpu_torch/csrc
      (one nvcc per source, in parallel), and print ptxas's registers,
      spills and stack frame for each kernel of pose_opt.cu, lines.cu,
-     hamming_top2.cu, plane_segment.cu, manhattan.cu and depth_normals.cu;
+     hamming_top2.cu, plane_segment.cu, manhattan.cu, depth_normals.cu,
+     fast_score.cu and line_lift_search.cu;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the 640x480 paths give it (inputs from frame 0 of the
      synthetic sequence, or from a numpy seed with planted structure), with
@@ -28,15 +29,18 @@ Phases, each fatal on failure:
      K15 (Manhattan mean shift) on frame 0's normals and line directions,
      also on them twice over (N = 4224) and on none; K16-K19 (pyramid, blur, keypoint selection, point
      epilogue) and the all-levels launches of K1 and K2 on frame 0's
-     8-level pyramid and 1000 keypoints, K18 also on a planted score map
+     8-level pyramid and 1000 keypoints, K1 also on planted levels
+     narrower or shorter than its ring and a flat image, K18 also on a
+     planted score map
      with ties, empty tiles and more than 4 candidates per tile, and the
      whole extract_point_features on the card against the same function
      composed of plain versions; K20-K23 (line detection, band
      descriptors, 3D lifting, guided line search) on frame 0, its depth
      clean and with Kinect noise, the search on the 256-line window of four
-     frames' lines seen from a fifth, on 4096 lines, with no candidate and
-     with fewer than 6 earned, and the whole extract_line_features against
-     its plain composition; K20's device time split by launch, and its
+     frames' lines seen from a fifth, on 4096 lines, with no candidate,
+     with fewer than 6 earned, with a planted tie, on 250 and 1000 lines
+     and with every candidate NaN, and the whole extract_line_features
+     against its plain composition; K20's device time split by launch, and its
      selection stage alone against lax_compat.top_k on planted score maps
      (ties below and at the E-th rank, fewer than E nonzero, all zero);
      K24-K27 (projection prologue, match
@@ -58,9 +62,10 @@ Phases, each fatal on failure:
      tails, and both again on the inputs of path 1's 48th tracking step;
      K36 (the step's prelude) bit-equal to its plain version on the
      inputs of path 1's 48th tracking step and on four planted lanes; the
-     batch of K3, K4, K11, K12-K14, K15 (with its initial-pose epilogue)
-     and K28 on four lanes in one launch each, every lane bit-equal to its
-     own B = 1 launch and held to its plain version as one problem is,
+     batch of K1, K3, K4, K11, K12-K14, K15 (with its initial-pose
+     epilogue), K23 and K28 on four lanes in one launch each, every lane
+     bit-equal to its own B = 1 launch and held to its plain version as
+     one problem is,
      timed at B = 1 and B = 4; one K13 launch per round and one K28
      launch per call (the wrappers' counts), their device time per call
      under torch.profiler, and K13's rounds captured in a CUDA graph and
@@ -113,8 +118,9 @@ track_manhattan_frame call, and per extract_point_features call K1, K2 and
 K19 once, K16 n_levels - 1 times and K18 twice, with one K17 launch per
 extract_point_features and per extract_line_features call, and per
 extract_line_features call K20's eight launches (one C call), one K21 and one
-K22, and two K23 launches per search_lines_by_projection call (local
-mapping's line fuse among them), one K24 per search_by_projection call, one
+K22, and per search_lines_by_projection call over M map lines one K23
+launch up to M = 256 (tracking's window) and two above (local mapping's
+line fuse over 4096), one K24 per search_by_projection call, one
 K3 per search_by_projection and per match_descriptors call (both
 directions in one launch), one K25 per
 either call, one K26 per tracking step and per rotation_histogram_filter
@@ -242,7 +248,8 @@ def _launch_split(fn, reps: int = TIMING_REPS, match: str = "") -> dict:
 
 
 PTXAS_SOURCES = ("pose_opt.cu", "lines.cu", "hamming_top2.cu",
-                 "plane_segment.cu", "manhattan.cu", "depth_normals.cu")
+                 "plane_segment.cu", "manhattan.cu", "depth_normals.cu",
+                 "fast_score.cu", "line_lift_search.cu")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -327,6 +334,41 @@ def _print_kernels(out: list) -> None:
               f"({k['bound_by']})", flush=True)
 
 
+# K1's operations per pixel for its bound: per polarity the 64 min (or
+# max) of the doubled arcs and 15 for the best start, two subtractions of
+# the centre and the two max of the score
+FAST_OPS_PER_PIXEL = 2 * (64 + 15) + 2 + 2
+# K1's planted levels: (h, w) shapes narrower or shorter than the 7-pixel
+# ring (the clamps reach across the level) among larger ones
+PLANTED_FAST_SHAPES = ((37, 70), (6, 23), (19, 5), (3, 3), (1, 9), (7, 1),
+                       (65, 129), (2, 2))
+PLANTED_FAST_CASES = ("noise", "flat")
+
+
+def planted_fast_levels(case: str, seed: int = 1):
+    """K1's planted levels (PLANTED_FAST_SHAPES) as one (1, n_pixels)
+    float32 buffer and its level table: "noise", integer grey levels
+    0-255 with a bright and a dark 3x3 blob on each level large enough,
+    "flat", every pixel 7 (every score 0)."""
+    from planarslam_tpu_torch.ops import levels
+
+    n = len(PLANTED_FAST_SHAPES)
+    table = levels.table_from_levels(PLANTED_FAST_SHAPES, [0] * n, [8] * n,
+                                     [1.0] * n)
+    rng = np.random.default_rng(seed)
+    maps = []
+    for h, w in PLANTED_FAST_SHAPES:
+        if case == "flat":
+            img = np.full((h, w), 7.0, np.float32)
+        else:
+            img = rng.integers(0, 256, (h, w)).astype(np.float32)
+            if h >= 12 and w >= 12:
+                img[3:6, 3:6] = 255.0
+                img[h - 6:h - 3, w - 6:w - 3] = 0.0
+        maps.append(img.reshape(-1))
+    return table, np.concatenate(maps)[None]
+
+
 def kernel_parity(seq, cfg, dev) -> list:
     """K1-K4 against their plain versions on the card."""
     import torch
@@ -352,22 +394,40 @@ def kernel_parity(seq, cfg, dev) -> list:
     blur_buf = torch.cat([b.reshape(-1) for b in blurs])[None].contiguous()
 
     # K1: FAST score over all pyramid levels (exact: min/max/sub only), one
-    # launch per level and the main path's one launch for all levels
+    # launch per level and the main path's one launch for all levels, then
+    # the planted levels (narrower or shorter than the ring, noise and
+    # flat)
     scores = [fast.fast_score(l) for l in levels]
     err = max(float((sk - fast.fast_score_plain(l)).abs().max())
               for sk, l in zip(scores, levels))
     _check(err == 0.0, f"fast_score differs from plain by {err}")
     all_scores = fast.fast_score_levels(buf, table)
     _check(torch.equal(all_scores[0],
-                       torch.cat([sk.reshape(-1) for sk in scores])),
-           "fast_score_levels differs from the per-level launches")
+                       torch.cat([sk.reshape(-1) for sk in scores]))
+           and torch.equal(all_scores, fast.fast_score_levels(buf, table)),
+           "fast_score_levels differs from the per-level launches or from "
+           "its own second launch")
+    planted = {}
+    for case in PLANTED_FAST_CASES:
+        p_table, p_buf = planted_fast_levels(case)
+        p_buf = torch.from_numpy(p_buf).to(dev)
+        got = fast.fast_score_levels(p_buf, p_table)
+        want = fast.fast_score_levels_plain(p_buf, p_table)
+        torch.cuda.synchronize()
+        _check(torch.equal(got, want), f"fast_score ({case}): "
+               f"{int((got != want).sum())} planted scores differ from plain")
+        planted[case] = {"levels": [list(s) for s in p_table.shapes],
+                         "nonzero": int((got != 0).sum())}
+    _check(planted["flat"]["nonzero"] == 0
+           and planted["noise"]["nonzero"] > 0
+           and min(min(s) for s in planted["noise"]["levels"]) < 7,
+           f"fast_score: the planted levels do not exercise it: {planted}")
     n_px = sum(l.numel() for l in levels)
     out.append({"name": "fast_score", "route": "cuda", "library_ms": None,
-                # per pixel: 16 circle reads, compares, two arc scans
-                **_bound(_nbytes(levels, scores), 64 * n_px),
+                **_bound(_nbytes(levels, scores), FAST_OPS_PER_PIXEL * n_px),
                 "source": "planarslam_tpu_torch/csrc/fast_score.cu",
                 "replaces": "planarslam_tpu/ops/fast.py:41",
-                "max_abs_err": err, "tolerance": 0.0,
+                "max_abs_err": err, "tolerance": 0.0, "planted": planted,
                 "ms": _time_ms(lambda: fast.fast_score_levels(buf, table)),
                 "per_level_ms": _time_ms(
                     lambda: [fast.fast_score(l) for l in levels]),
@@ -1115,34 +1175,56 @@ def _bilinear_pixels(uv, h: int, w: int):
     return torch.stack([i, i + 1, i + w, i + w + 1])
 
 
-def _line_search_problems(feats, seq, dev, rng, kw) -> dict:
-    """K23's inputs. "window": the lifted lines of frames 0, 1, 2 and 6 in
-    world coordinates (4 x 64 = 256 lines, the window's slots, at the
-    default configuration), matched against frame 3's segments at frame
-    3's pose (radius 14, as tracking calls it); "fuse_4096": the window
-    tiled to 4096 lines, the copies moved by 2 cm and their descriptors
-    perturbed, 70% of them valid (radius 8, as _fuse_lines calls it); "no_candidates": no valid map line (both medians
-    of all-NaN); "few_earned": only the four map lines with the best
-    similarities in the window valid, fewer than the 6 candidates the
-    adaptive gate needs. kw: the camera (K, image_wh)."""
-    import torch
+LINE_WINDOW_FRAMES = (0, 1, 2, 6)  # the window's lifted lines
+LINE_LANE_VIEWS = (3, 4, 5, 7)     # the frames that see it, one a lane
 
-    from planarslam_tpu_torch.ops import lines
+
+def _line_window(feats, seq, dev, view: int = 3) -> tuple:
+    """K23's tracking problem: the lifted lines of LINE_WINDOW_FRAMES in
+    world coordinates (4 x 64 = 256 lines, the window's slots, at the
+    default configuration) against frame `view`'s segments at its pose."""
+    import torch
 
     def world(i, p):
         T = torch.from_numpy(seq.poses_wc[i].astype(np.float32)).to(dev)
         return p @ T[:3, :3].T + T[:3, 3]
 
-    src = (0, 1, 2, 6)
+    src = LINE_WINDOW_FRAMES
     sw = torch.cat([world(i, feats[i].p3d_s) for i in src])
     ew = torch.cat([world(i, feats[i].p3d_e) for i in src])
     desc = torch.cat([feats[i].desc for i in src])
     valid = torch.cat([feats[i].has_3d & feats[i].valid for i in src])
-    T_cw = torch.from_numpy(np.linalg.inv(seq.poses_wc[3]).astype(
+    T_cw = torch.from_numpy(np.linalg.inv(seq.poses_wc[view]).astype(
         np.float32)).to(dev)
-    f = feats[3]
-    frame = (T_cw, f.uv_s, f.uv_e, f.angle, f.desc, f.valid)
-    out = {"window": ((sw, ew, desc, valid) + frame, 14.0)}
+    f = feats[view]
+    return (sw, ew, desc, valid, T_cw, f.uv_s, f.uv_e, f.angle, f.desc,
+            f.valid)
+
+
+def _line_search_problems(feats, seq, dev, rng, kw) -> dict:
+    """K23's inputs, {name: (args, radius)}. "window": _line_window seen
+    from frame 3 (radius 14, as tracking calls it); "fuse_4096": the window
+    tiled to 4096 lines, the copies moved by 2 cm and their descriptors
+    perturbed, 70% of them valid (radius 8, as _fuse_lines calls it);
+    "no_candidates": no valid map line (both medians of all-NaN);
+    "few_earned": only the four map lines with the best similarities in
+    the window valid, fewer than the 6 candidates the adaptive gate needs;
+    "tie": the window with its best match's segment copied into a second
+    slot (a row's two best segments equal) and its map line into a row 96
+    lines on (a column's two best rows equal, in two row tiles);
+    "window_250" and "fuse_1000": the first 250 and 1000 map lines of the
+    window and of fuse_4096 (a last row tile part full, in one cluster and
+    in the two-launch configuration); "all_nan": the window with every
+    valid map line's descriptor NaN (every gated similarity NaN, so no
+    candidate). kw: the camera (K, image_wh)."""
+    import torch
+
+    from planarslam_tpu_torch.ops import lines
+
+    win = _line_window(feats, seq, dev)
+    sw, ew, desc, valid = win[:4]
+    frame = win[4:]
+    out = {"window": (win, 14.0)}
     n, d = desc.shape
     reps = LINE_FUSE // n
 
@@ -1162,12 +1244,114 @@ def _line_search_problems(feats, seq, dev, rng, kw) -> dict:
         d4.reshape(-1, d), (valid[None] & keep).reshape(-1)) + frame, 8.0)
     none = torch.zeros_like(valid)
     out["no_candidates"] = ((sw, ew, desc, none) + frame, 14.0)
-    _, sim = lines.search_lines_by_projection_plain(*out["window"][0],
-                                                    radius=14.0, **kw)
+    idx, sim = lines.search_lines_by_projection_plain(*win, radius=14.0,
+                                                      **kw)
     few = torch.zeros_like(valid)
     few[torch.topk(sim, 4).indices] = True
     out["few_earned"] = ((sw, ew, desc, few) + frame, 14.0)
+    # the tie: the best match (m, l), l's segment also in slot l2, m's map
+    # line also in row m2
+    m, m2, l, l2 = _line_tie_slots(idx, sim, frame[4].shape[0])
+    tie = [t.clone() for t in win]
+    for t in tie[:4]:
+        t[m2] = t[m]
+    for t in tie[5:]:
+        t[l2] = t[l]
+    out["tie"] = (tuple(tie), 14.0)
+    out["window_250"] = (tuple(t[:250] for t in win[:4]) + frame, 14.0)
+    fuse = out["fuse_4096"][0]
+    out["fuse_1000"] = (tuple(t[:1000] for t in fuse[:4]) + frame, 8.0)
+    nan_desc = torch.where(valid[:, None], torch.full_like(desc, math.nan),
+                           desc)
+    out["all_nan"] = ((sw, ew, nan_desc, valid) + frame, 14.0)
     return out
+
+
+def _line_tie_slots(idx, sim, L: int) -> tuple:
+    """The "tie" problem's planted slots from the window's plain result:
+    (m, m2, l, l2), the best match (m, l), the row m2 = m + 96 (mod the
+    window's 256) that copies map line m and the slot l2 = l + 37 (mod L)
+    that copies segment l."""
+    import torch
+
+    m = int(torch.where(idx >= 0, sim, -2.0).argmax())
+    l = int(idx[m])
+    return m, (m + 96) % idx.shape[0], l, (l + 37) % L
+
+
+def line_search_feats(seq, cfg, dev) -> dict:
+    """The card's line features of the quantized frames of seq that
+    _line_window and line_search_lanes read."""
+    import torch
+
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import lines as ln
+
+    cam, factor = cfg.camera, cfg.camera.depth_map_factor
+    feats = {}
+    for i in sorted(set(LINE_WINDOW_FRAMES) | set(LINE_LANE_VIEWS)):
+        g8, d16 = quantize_frame(*seq.render(i), factor)
+        feats[i] = ln.extract_line_features(
+            torch.from_numpy(g8.astype(np.float32)).to(dev),
+            torch.from_numpy(d16.astype(np.float32)
+                             / np.float32(factor)).to(dev), cam, cfg.lines)
+    return feats
+
+
+def line_search_lanes(feats, seq, dev) -> list:
+    """K23's window seen from each frame of LINE_LANE_VIEWS, stacked as B =
+    4 problems (every tensor with a leading B)."""
+    import torch
+
+    lanes = [_line_window(feats, seq, dev, v) for v in LINE_LANE_VIEWS]
+    return [torch.stack(f).contiguous() for f in zip(*lanes)]
+
+
+def line_search_problems(seq, cfg, dev) -> dict:
+    """K23 at the main path's shapes: the tracking window (M = 256) at B =
+    1 ("window") and seen from LINE_LANE_VIEWS in one launch
+    ("window_b4"), "fuse_4096", "no_candidates" and "few_earned" of
+    _line_search_problems. Returns {name: fn}, fn() launching it."""
+    from planarslam_tpu_torch.ops import lines as ln
+
+    cam = cfg.camera
+    kw = dict(K=(cam.fx, cam.fy, cam.cx, cam.cy),
+              image_wh=(float(cam.width), float(cam.height)))
+    feats = line_search_feats(seq, cfg, dev)
+    probs = _line_search_problems(feats, seq, dev,
+                                  np.random.default_rng(23), kw)
+    out = {}
+    for name in ("window", "fuse_4096", "no_candidates", "few_earned"):
+        args, radius = probs[name]
+        bat = [a[None].contiguous() for a in args]
+        out[name] = (lambda b=bat, r=radius:
+                     ln.search_lines_by_projection_batched(*b, radius=r,
+                                                           **kw))
+    lanes = line_search_lanes(feats, seq, dev)
+    out["window_b4"] = lambda: ln.search_lines_by_projection_batched(
+        *lanes, radius=14.0, **kw)
+    return out
+
+
+def fast_problems(seq, cfg, dev) -> dict:
+    """K1 at the main path's shapes: frame 0's 8-level pyramid ("b1") and
+    frames 0-3's in one launch ("b4"), built by the tree's K16. Returns
+    {name: fn}, fn() launching it."""
+    import torch
+
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import fast, image
+    from planarslam_tpu_torch.ops.frontend import orb_level_table
+
+    cam, oc = cfg.camera, cfg.orb
+    gray = torch.from_numpy(np.stack([
+        quantize_frame(*seq.render(i), cam.depth_map_factor)[0].astype(
+            np.float32) for i in range(4)])).to(dev)
+    table = orb_level_table(cam.height, cam.width, oc)
+    buf = image.build_pyramid_levels(gray, table, oc.scale_factor)
+    one = buf[:1].contiguous()
+    return {"b1": lambda: (fast.fast_score_levels(one, table),),
+            "b4": lambda: (fast.fast_score_levels(buf, table),)}
 
 
 def detect_timing(blurred, lc) -> dict:
@@ -1195,12 +1379,16 @@ def line_kernel_parity(seq, cfg, dev) -> list:
     slot may differ only where a decision of the plain version on a sum
     lies within twice that rounding of turning (_near_decisions, printed
     with torch's version); K21: within DESC_TOLERANCE; K22: has_3d exact,
-    endpoints within P3D_TOLERANCE; K23 on four problems (the 256-line
-    window, 4096 lines, no candidate, fewer than 6 earned): indices exact,
-    similarities within SIM_TOLERANCE. Every kernel gives the same bits on
-    two launches."""
+    endpoints within P3D_TOLERANCE; K23 on _line_search_problems (the
+    256-line window, 4096 lines, no candidate, fewer than 6 earned, a
+    planted tie of two segments and of two rows in two row tiles, 250 and
+    1000 lines, every candidate NaN): indices exact, similarities within
+    SIM_TOLERANCE, NaN where the plain version's are, the launches the
+    configuration of its M takes. Every kernel gives the same bits on two
+    launches."""
     import torch
 
+    from planarslam_tpu_torch import kernels
     from planarslam_tpu_torch.io.frames import quantize_frame
     from planarslam_tpu_torch.ops import image
     from planarslam_tpu_torch.ops import lines as ln
@@ -1353,21 +1541,26 @@ def line_kernel_parity(seq, cfg, dev) -> list:
 
     # K23 on the window of frames 0, 1, 2, 6 seen from frame 3, and the
     # other problems built from it
-    feats = {i: ln.extract_line_features(frame(i)[0], torch.from_numpy(
-        frame(i)[1]).to(dev), cam, lc) for i in (0, 1, 2, 3, 6)}
+    feats = line_search_feats(seq, cfg, dev)
     kw0 = dict(K=(cam.fx, cam.fy, cam.cx, cam.cy),
                image_wh=(float(cam.width), float(cam.height)))
     problems = _line_search_problems(feats, seq, dev,
                                      np.random.default_rng(23), kw0)
-    scases = {}
+    scases, plain_idx = {}, {}
     for name, (args, radius) in problems.items():
         kw = dict(kw0, radius=radius)
         bat = [a[None] for a in args]
+        M = int(args[0].shape[0])
+        n0 = kernels.LAUNCHES["search_lines_by_projection"]
         idx, sim = ln.search_lines_by_projection_batched(*bat, **kw)
+        launched = kernels.LAUNCHES["search_lines_by_projection"] - n0
         idx2, sim2 = ln.search_lines_by_projection_batched(*bat, **kw)
         idx_p, sim_p = ln.search_lines_by_projection_plain(*args, **kw)
         torch.cuda.synchronize()
-        _check(_same(idx, idx2) and _same(sim, sim2),
+        _check(launched == ln.search_launches(M),
+               f"search_lines_by_projection ({name}): {launched} launches "
+               f"at M = {M}, expected {ln.search_launches(M)}")
+        _check(_same(idx, idx2) and _bit_diff(sim, sim2, as_int=True) == 0,
                f"search_lines_by_projection ({name}): two launches differ")
         _check(torch.equal(idx[0], idx_p),
                f"search_lines_by_projection ({name}): {int((idx[0] != idx_p).sum())}"
@@ -1376,18 +1569,31 @@ def line_kernel_parity(seq, cfg, dev) -> list:
         _check(err <= SIM_TOLERANCE, f"search_lines_by_projection ({name}): "
                f"similarities differ from plain by {err}")
         cand = sim_p > -0.5
-        scases[name] = {"M": int(args[0].shape[0]),
+        plain_idx[name] = idx_p
+        scases[name] = {"M": M, "launches": launched,
                         "matches": int((idx_p >= 0).sum()),
                         "candidates": int(cand.sum()),
                         "earned": int((cand & (sim_p >= 0.575)).sum()),
+                        "nan_best": int(sim_p.isnan().sum()),
                         "max_abs_err": err}
+    wargs, _ = problems["window"]
+    m, m2, l, l2 = _line_tie_slots(*ln.search_lines_by_projection_plain(
+        *wargs, radius=14.0, **kw0), wargs[8].shape[0])
+    tie = plain_idx["tie"]
+    scases["tie"]["slots"] = [m, m2, l, l2]
     _check(scases["window"]["matches"] > 5
            and scases["fuse_4096"]["matches"] > 5
+           and scases["window_250"]["matches"] > 5
+           and scases["fuse_1000"]["matches"] > 5
            and scases["no_candidates"]["candidates"] == 0
-           and 0 < scases["few_earned"]["earned"] < 6,
+           and 0 < scases["few_earned"]["earned"] < 6
+           and int(tie[min(m, m2)]) == min(l, l2)
+           and int(tie[max(m, m2)]) == -1
+           and m // 32 != m2 // 32
+           and scases["all_nan"]["candidates"] == 0
+           and scases["all_nan"]["nan_best"] > 0,
            f"search_lines_by_projection: the cases do not exercise it: "
            f"{scases}")
-    wargs, _ = problems["window"]
     kw = dict(kw0, radius=14.0)
     fargs, _ = problems["fuse_4096"]
     m, d = LINE_WINDOW, wargs[2].shape[1]
@@ -3756,6 +3962,7 @@ def _pose_calls(capture=()):
                "ba_core": ba_core, "ba_pcg": ba_pcg, "global_ba": global_ba}
     rec = {key: 0 for _, _, key in COUNTED_CALLS}
     rec.update(inputs={}, plain_calls_on_card=0, plane_block_with_planes=0,
+               search_launches=0,
                step_launches=dict.fromkeys(STEP_LAUNCHES, 0))
     orig = [(modules[mod], attr, getattr(modules[mod], attr))
             for mod, attr, _ in COUNTED_CALLS]
@@ -3771,6 +3978,9 @@ def _pose_calls(capture=()):
             rec[key] += 1
             if key == "plane_block_calls" and ba_core._active_planes(args[0]):
                 rec["plane_block_with_planes"] += 1
+            if key == "search_calls":  # K23's launches at this call's M
+                rec["search_launches"] += lines.search_launches(
+                    args[0].shape[-2])
             if key != "track_core_calls":
                 return fn(*args, **kw)
             before = dict(kernels.LAUNCHES)
@@ -3821,9 +4031,11 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
     one K2, one K19, n_levels - 1 K16 and two K18 launches; one K17 launch
     per extract_point_features and per extract_line_features call; per
     extract_line_features call the DETECT_LAUNCHES of K20's one call, one
-    K21 and one K22; SEARCH_LAUNCHES of K23 per search_lines_by_projection
-    call; one K24 per search_by_projection call; one K3 per
-    search_by_projection call and per match_descriptors call (rows and the
+    K21 and one K22; lines.search_launches(M) of K23 per
+    search_lines_by_projection call over M map lines (1 for tracking's
+    window, 2 for local mapping's fuse); one K24 per search_by_projection
+    call; one K3 per search_by_projection call and per match_descriptors
+    call (rows and the
     transposed problem in one launch: every caller checks mutual matches);
     one K25
     per search_by_projection and per match_descriptors call; one K26 per
@@ -3861,8 +4073,7 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
             "select_keypoints": 2 * points, "gaussian_blur": points + lns,
             "detect_lines": lines.DETECT_LAUNCHES * lns,
             "line_descriptors": lns, "lift_lines_3d": lns,
-            "search_lines_by_projection":
-                lines.SEARCH_LAUNCHES * rec["search_calls"],
+            "search_lines_by_projection": rec["search_launches"],
             "project_landmarks": searches,
             "gated_hamming_top2": searches + matches,
             "match_select": searches + matches,
@@ -5257,15 +5468,19 @@ def _batch_entry(report: list, name: str, ms_b1: float, ms_b: float,
 
 
 def batched_kernel_parity(seq, cfg, dev, report: list) -> None:
-    """K3, K4, K11, K12-K15 and K28 on BATCH_PARITY lanes in one launch
-    each: every lane bit-equal to its own B = 1 launch, and held to its
-    plain version as the single problem is; one launch per call whatever
-    B; times at B = 1 and B = BATCH_PARITY beside the bound."""
+    """K1, K3, K4, K11, K12-K15, K23 and K28 on BATCH_PARITY lanes in one
+    launch each (K1 on the lanes' pyramids, K23 on the window seen from
+    LINE_LANE_VIEWS): every lane bit-equal to its own B = 1 launch, and
+    held to its plain version as the single problem is; one launch per
+    call whatever B; times at B = 1 and B = BATCH_PARITY beside the bound."""
     import torch
 
     from planarslam_tpu_torch import kernels
     from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import fast, image
+    from planarslam_tpu_torch.ops import lines as ln
     from planarslam_tpu_torch.ops import manhattan, matching, planes
+    from planarslam_tpu_torch.ops.frontend import orb_level_table
     from planarslam_tpu_torch.slam import device_tracker as dt
     from planarslam_tpu_torch.slam.frame import extract_frame
     from planarslam_tpu_torch.solvers import pose_opt
@@ -5497,6 +5712,48 @@ def batched_kernel_parity(seq, cfg, dev, report: list) -> None:
         lambda: pose_opt.pose_optimize(T0, K, cam.bf, **kw11),
         lambda: pose_opt.pose_optimize(T0[:1], K, cam.bf, **lane(0))), B,
         {"max_abs_err_plain": err})
+    # K1 on the lanes' 8-level pyramids, exact against its plain version
+    oc = cfg.orb
+    table = orb_level_table(H, W, oc)
+    buf = image.build_pyramid_levels(gray, table, oc.scale_factor)
+    got = launches("fast_score", fast.fast_score_levels, buf, table)
+    _same_lanes("fast_score", (got,), [
+        (fast.fast_score_levels(buf[b:b + 1].contiguous(), table),)
+        for b in range(B)])
+    _check(torch.equal(got, fast.fast_score_levels_plain(buf, table)),
+           "fast_score: the lanes differ from the plain version")
+    one = buf[:1].contiguous()
+    _batch_entry(report, "fast_score", *timed(
+        lambda: fast.fast_score_levels(buf, table),
+        lambda: fast.fast_score_levels(one, table)), B,
+        {"max_abs_err_plain": 0.0})
+
+    # K23 on the window seen from LINE_LANE_VIEWS, one lane each
+    cam = cfg.camera
+    kw23 = dict(K=(cam.fx, cam.fy, cam.cx, cam.cy),
+                image_wh=(float(W), float(H)), radius=14.0)
+    lanes = line_search_lanes(line_search_feats(seq, cfg, dev), seq, dev)
+    got = launches("search_lines_by_projection",
+                   ln.search_lines_by_projection_batched, *lanes, **kw23)
+    _same_lanes("search_lines_by_projection", got, [
+        ln.search_lines_by_projection_batched(
+            *[x[b:b + 1] for x in lanes], **kw23) for b in range(B)])
+    err = 0.0
+    for b in range(B):
+        idx_p, sim_p = ln.search_lines_by_projection_plain(
+            *[x[b] for x in lanes], **kw23)
+        _check(torch.equal(got[0][b], idx_p),
+               f"search_lines_by_projection: lane {b}'s indices differ "
+               f"from plain")
+        err = max(err, _finite_err(got[1][b], sim_p))
+    _check(err <= SIM_TOLERANCE, f"search_lines_by_projection: the lanes' "
+           f"similarities differ from plain by {err}")
+    lane0 = [x[:1] for x in lanes]
+    _batch_entry(report, "search_lines_by_projection", *timed(
+        lambda: ln.search_lines_by_projection_batched(*lanes, **kw23),
+        lambda: ln.search_lines_by_projection_batched(*lane0, **kw23)), B,
+        {"max_abs_err_plain": err,
+         "matches": [int((got[0][b] >= 0).sum()) for b in range(B)]})
     print("batched_kernel_parity " + json.dumps(
         {k["name"]: k[f"batch{B}"] for k in report if f"batch{B}" in k}),
         flush=True)

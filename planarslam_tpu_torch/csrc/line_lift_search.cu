@@ -22,32 +22,58 @@
 // Bound: latency (64 lines x 32 hypotheses x 48 samples, ~1.5e6 operations).
 //
 // K23 replaces planarslam_tpu/ops/lines.py::search_lines_by_projection and
-// its _adaptive_sim_gate. Two launches:
-//   1. rows: a block projects 32 map lines' endpoints through T_cw (the
-//      projection is the fused multiply-add chain of the 3 x 3 product),
-//      gates their pairs with every frame segment (in front, on screen,
-//      endpoint distance to the projected infinite line, midpoint
-//      parameter, angle), forms the 72-wide descriptor dot products as a
-//      chain of fused multiply-adds in index order, takes each row's first
-//      best and each column's first best among its rows;
-//   2. gate, one block per problem: the two nanmedians of the MAD-adaptive
-//      gate (the values at the two middle ranks found by counting, weighted
-//      as lax_compat.nanmedian weights them), the earned count, the
-//      threshold, the columns' first best over the blocks in row order, and
-//      the mutual check.
+// its _adaptive_sim_gate. A row tile is 32 map lines: a block projects its
+// lines' endpoints through T_cw (the fused multiply-add chain of the 3 x 3
+// product, one thread a line), gates each pair with every frame segment
+// (in front, on screen, endpoint distance to the projected infinite line,
+// midpoint parameter, angle) and forms the 72-wide descriptor products as
+// chains of fused multiply-adds in index order. A warp takes 2 lines and
+// each lane 2 segments of every 64: four independent chains a thread,
+// the tile's descriptors read from shared memory as float4s, the frame's
+// at a stride of an odd number of float4s so that a warp's reads hit
+// every bank quad once. A row's best segment is a shuffle reduction over
+// its warp, a column's best row a reduction over the warps; both in
+// torch.argmax's order (NaN above every number, the first index among
+// equals), which is a total order: any reduction tree gives argmax's
+// answer, and without NaN the first K23's (a first best by > in index
+// order). Then the gate: the two nanmedians of the MAD-adaptive threshold
+// (the candidates' keys gathered and sorted by a bitonic network, one a
+// thread by shuffles and 6 barriers up to 256 of them and in shared memory
+// above, and the values at lax_compat.nanmedian's two middle ranks with
+// its weights), the earned count, the threshold and the mutual check.
+// The descriptors are staged by asynchronous copies, all of a thread's in
+// flight at once.
+// - M <= 256 (tracking's window): one launch, a cluster of 8 blocks per
+//   problem; the first block gathers the tiles' bests through distributed
+//   shared memory, merges the columns' in tile order and runs the gate.
+// - M > 256 (local mapping's fuse, M = 4096): two launches, the tiles, then
+//   one block per problem for the merge and the gate (a sort of its
+//   candidates' keys where the first K23 counted ranks in O(M^2)).
 // Bound: operations (M x L pairs x 72 multiply-adds: 2.4 MFLOP for M = 256,
 // 38 MFLOP for the 4096 lines of local mapping's fuse).
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
+
+#include <mutex>
+
 #include "common.cuh"
 #include "eig3.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxSamples = 64;
 constexpr int kMaxHyp = 64;
 constexpr int kLiftThreads = 64;
+// K23: a row tile is 32 map lines (16 warps of 2), a cluster 8 tiles
 constexpr int kRows = 32;
-constexpr int kSearchThreads = 256;
+constexpr int kSearchThreads = 512;
+constexpr int kWarps = kSearchThreads / 32;
+constexpr int kRowsPerWarp = kRows / kWarps;
+constexpr int kSearchCluster = 8;
 constexpr int kGateThreads = 1024;
+constexpr int kThreadSort = 256;  // keys thread_bitonic sorts one a thread
 
 __device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
   return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
@@ -255,184 +281,594 @@ __device__ Row project_row(const float* sw, const float* ew, bool valid,
   return r;
 }
 
-__global__ void lines_search_rows_kernel(
-    const float* __restrict__ sw, const float* __restrict__ ew,
-    const float* __restrict__ desc_m, const unsigned char* __restrict__ valid_m,
-    const float* __restrict__ T_cw, int M, const float* __restrict__ f_uv_s,
-    const float* __restrict__ f_uv_e, const float* __restrict__ f_angle,
-    const float* __restrict__ f_desc, const unsigned char* __restrict__ f_valid,
-    int L, int D, SearchConsts k, int* __restrict__ best_idx,
-    float* __restrict__ best_sim, float* __restrict__ col_val,
-    int* __restrict__ col_row) {
-  extern __shared__ float sh[];
-  float* fd = sh;              // L x D frame descriptors
-  float* md = fd + L * D;      // kRows x D map descriptors
-  float* sims = md + kRows * D;  // kRows x L
-  __shared__ Row rows[kRows];
-  const int b = blockIdx.y, m0 = blockIdx.x * kRows;
-  const int n_rows = min(kRows, M - m0);
-  const size_t mb = static_cast<size_t>(b) * M;
-  const size_t lb = static_cast<size_t>(b) * L;
-  for (int i = threadIdx.x; i < L * D; i += blockDim.x) {
-    fd[i] = f_desc[lb * D + i];
-  }
-  for (int i = threadIdx.x; i < n_rows * D; i += blockDim.x) {
-    md[i] = desc_m[(mb + m0) * D + i];
-  }
-  if (threadIdx.x < n_rows) {
-    const size_t m = mb + m0 + threadIdx.x;
-    rows[threadIdx.x] = project_row(sw + 3 * m, ew + 3 * m, valid_m[m] != 0,
-                                    T_cw + 16 * static_cast<size_t>(b), k);
-  }
-  __syncthreads();
-  for (int pi = threadIdx.x; pi < n_rows * L; pi += blockDim.x) {
-    const int r = pi / L, l = pi % L;
-    const Row& row = rows[r];
-    const size_t f = lb + l;
-    const float s0 = f_uv_s[2 * f], s1 = f_uv_s[2 * f + 1];
-    const float e0 = f_uv_e[2 * f], e1 = f_uv_e[2 * f + 1];
-    const float d_s = fabsf(__fadd_rn(
-        __fadd_rn(__fmul_rn(row.a, s0), __fmul_rn(row.b, s1)), row.c));
-    const float d_e = fabsf(__fadd_rn(
-        __fadd_rn(__fmul_rn(row.a, e0), __fmul_rn(row.b, e1)), row.c));
-    const bool close = d_s < k.radius && d_e < k.radius;
-    const float rel_u = __fsub_rn(__fmul_rn(0.5f, __fadd_rn(s0, e0)), row.us);
-    const float rel_v = __fsub_rn(__fmul_rn(0.5f, __fadd_rn(s1, e1)), row.vs);
-    const float tpar = __fdiv_rn(
-        __fadd_rn(__fmul_rn(rel_u, row.dx), __fmul_rn(rel_v, row.dy)),
-        row.nrm2);
-    const bool overlap = tpar > -0.25f && tpar < 1.25f;
-    const float da0 = fabsf(__fsub_rn(row.ang, f_angle[f]));
-    const float da = min_nan(da0, __fsub_rn(k.pi, da0));
-    const bool gate = row.vis && f_valid[f] && close && overlap &&
-                      da < k.max_angle;
-    float dot = 0.0f;
-    const float* x = md + r * D;
-    const float* y = fd + l * D;
-    for (int j = 0; j < D; ++j) dot = __fmaf_rn(x[j], y[j], dot);
-    sims[r * L + l] = gate ? dot : -1.0f;
-  }
-  __syncthreads();
-  if (threadIdx.x < n_rows) {
-    const float* s = sims + threadIdx.x * L;
-    int bi = 0;
-    for (int l = 1; l < L; ++l) {
-      if (s[l] > s[bi]) bi = l;
+// K23's parameters, by value into each launch.
+struct SearchArgs {
+  const float* sw;           // (batch, M, 3) map line start, world
+  const float* ew;           // (batch, M, 3) end
+  const float* desc_m;       // (batch, M, D)
+  const unsigned char* valid_m;
+  const float* T_cw;         // (batch, 4, 4)
+  const float* f_uv_s;       // (batch, L, 2)
+  const float* f_uv_e;
+  const float* f_angle;      // (batch, L)
+  const float* f_desc;       // (batch, L, D)
+  const unsigned char* f_valid;
+  float* sim;                // (batch, M) output: each row's best similarity
+  int M, L, D;
+  int S;                     // shared descriptor stride (floats), see stride
+  SearchConsts k;
+};
+
+struct GateParams {
+  float min_sim, sim_floor, quality_bar;
+};
+
+// A frame segment's gate inputs, as the rows see them.
+struct Seg {
+  float s0, s1, e0, e1, mu, mv, ang;
+  bool ok;
+};
+
+// The gates of one (row, segment) pair: in front and on screen (the row's
+// vis), endpoint distances to the projected infinite line, the midpoint's
+// parameter along the projected segment, the angle. The plain version's
+// float32 operations in its order (the midpoint 0.5 (s + e) is the same
+// number for every row).
+__device__ __forceinline__ bool pair_gate(const Row& row, const Seg& g,
+                                          const SearchConsts& k) {
+  const float d_s = fabsf(__fadd_rn(
+      __fadd_rn(__fmul_rn(row.a, g.s0), __fmul_rn(row.b, g.s1)), row.c));
+  const float d_e = fabsf(__fadd_rn(
+      __fadd_rn(__fmul_rn(row.a, g.e0), __fmul_rn(row.b, g.e1)), row.c));
+  const bool close = d_s < k.radius && d_e < k.radius;
+  const float rel_u = __fsub_rn(g.mu, row.us);
+  const float rel_v = __fsub_rn(g.mv, row.vs);
+  const float tpar = __fdiv_rn(
+      __fadd_rn(__fmul_rn(rel_u, row.dx), __fmul_rn(rel_v, row.dy)),
+      row.nrm2);
+  const bool overlap = tpar > -0.25f && tpar < 1.25f;
+  const float da0 = fabsf(__fsub_rn(row.ang, g.ang));
+  const float da = min_nan(da0, __fsub_rn(k.pi, da0));
+  return row.vis && g.ok && close && overlap && da < k.max_angle;
+}
+
+// (v, i) before (u, j) in torch.argmax's order: NaN above every number,
+// equal values (NaN among NaN) by the lower index. A total order, so a
+// best found by any tree of these comparisons is the first index of the
+// largest value, as argmax's; without NaN it is the first index of the
+// largest value by >, the order the first K23 scanned in.
+__device__ __forceinline__ bool wins(float v, int i, float u, int j) {
+  const bool vn = isnan(v), un = isnan(u);
+  if (vn != un) return vn;
+  if (vn) return i < j;
+  return v > u || (v == u && i < j);
+}
+
+// A float's key in an unsigned order that is the float order (-0 below
+// +0; the values here hold no -0: similarities are fused multiply-add
+// chains from +0, deviations are absolute values), NaN last.
+constexpr unsigned kNanKey = 0xffffffffu;
+__device__ __forceinline__ unsigned float_key(float x) {
+  const unsigned u = __float_as_uint(x);
+  return isnan(x) ? kNanKey : ((u & 0x80000000u) ? ~u : (u | 0x80000000u));
+}
+__device__ __forceinline__ float key_float(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+__host__ __device__ __forceinline__ int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// Ascending bitonic sort of n2 (a power of two) keys in shared memory by
+// the whole block; ends with a barrier.
+__device__ void bitonic_sort(unsigned* keys, int n2) {
+  for (int k = 2; k <= n2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = threadIdx.x; t < n2 / 2; t += blockDim.x) {
+        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+        const int p = i | j;
+        const unsigned a = keys[i], b = keys[p];
+        if ((a > b) == ((i & k) == 0)) {
+          keys[i] = b;
+          keys[p] = a;
+        }
+      }
+      __syncthreads();
     }
-    best_idx[mb + m0 + threadIdx.x] = bi;
-    best_sim[mb + m0 + threadIdx.x] = s[bi];
-  }
-  if (threadIdx.x < L) {
-    int br = 0;
-    for (int r = 1; r < n_rows; ++r) {
-      if (sims[r * L + threadIdx.x] > sims[br * L + threadIdx.x]) br = r;
-    }
-    const size_t o = (static_cast<size_t>(b) * gridDim.x + blockIdx.x) * L +
-                     threadIdx.x;
-    col_val[o] = sims[br * L + threadIdx.x];
-    col_row[o] = m0 + br;
   }
 }
 
-// lax_compat.nanmedian of x (n values) by the whole block: the values at
-// the two middle ranks of the non-NaN entries (ranks by counting), weighted
-// as its formula weighs them; NaN when every entry is NaN.
-__device__ float block_nanmedian(const float* x, int n, int* count,
-                                 float* at_lo, float* at_hi) {
-  if (threadIdx.x == 0) {
-    *count = 0;
-    *at_lo = NAN;
-    *at_hi = NAN;
+// The same bitonic network on kThreadSort keys held one a thread by
+// threads 0..kThreadSort-1 (every thread of the block calls it): partners
+// in a warp by shuffles, across warps through xchg (kThreadSort shared
+// words) and a barrier.
+// Returns the key at rank threadIdx.x.
+__device__ unsigned thread_bitonic(unsigned key, unsigned* xchg) {
+  const int i = threadIdx.x;
+  const bool in = i < kThreadSort;
+  for (int k = 2; k <= kThreadSort; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      unsigned o;
+      if (j >= 32) {
+        if (in) xchg[i] = key;
+        __syncthreads();
+        o = in ? xchg[i ^ j] : key;
+        __syncthreads();
+      } else {
+        o = __shfl_xor_sync(0xffffffffu, key, j);
+      }
+      const bool keep_min = ((i & j) == 0) == ((i & k) == 0);
+      key = keep_min ? min(key, o) : max(key, o);
+    }
   }
-  __syncthreads();
-  int mine = 0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) mine += isnan(x[i]) ? 0 : 1;
-  atomicAdd(count, mine);
-  __syncthreads();
-  const float nf = static_cast<float>(*count);
+  return key;
+}
+
+// lax_compat.nanmedian's two middle ranks of n values and their weights,
+// in float32.
+struct MiddleRanks {
+  int lo, hi;
+  float lw, hw;
+};
+
+__device__ __forceinline__ MiddleRanks middle_ranks(int n) {
+  const float nf = static_cast<float>(n);
   const float q = __fmul_rn(0.5f, __fsub_rn(nf, 1.0f));
   const float lo = floorf(q), hi = ceilf(q);
-  const float hw = __fsub_rn(q, lo), lw = __fsub_rn(1.0f, hw);
   const float last = __fsub_rn(nf, 1.0f);
-  const int r_lo = static_cast<int>(fmaxf(fminf(lo, last), 0.0f));
-  const int r_hi = static_cast<int>(fmaxf(fminf(hi, last), 0.0f));
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float v = x[i];
-    if (isnan(v)) continue;
-    int rank = 0;
-    for (int j = 0; j < n; ++j) {
-      const float o = x[j];
-      rank += (o < v || (o == v && j < i)) ? 1 : 0;
-    }
-    if (rank == r_lo) *at_lo = v;
-    if (rank == r_hi) *at_hi = v;
-  }
-  __syncthreads();
-  const float med = __fadd_rn(__fmul_rn(*at_lo, lw), __fmul_rn(*at_hi, hw));
-  __syncthreads();
-  return med;
+  MiddleRanks m;
+  m.lo = static_cast<int>(fmaxf(fminf(lo, last), 0.0f));
+  m.hi = static_cast<int>(fmaxf(fminf(hi, last), 0.0f));
+  m.hw = __fsub_rn(q, lo);
+  m.lw = __fsub_rn(1.0f, m.hw);
+  return m;
 }
 
-__global__ void lines_search_gate_kernel(
-    const int* __restrict__ best_idx, const float* __restrict__ best_sim,
-    const float* __restrict__ col_val, const int* __restrict__ col_row, int M,
-    int L, int n_blk, float min_sim, float sim_floor, float quality_bar,
-    int* __restrict__ idx) {
-  extern __shared__ float bn[];  // M candidates (NaN where none), M spare
-  float* dev = bn + M;
-  int* back = reinterpret_cast<int*>(dev + M);  // L
-  __shared__ int count, earned;
-  __shared__ float at_lo, at_hi;
-  const int b = blockIdx.x;
-  const size_t mb = static_cast<size_t>(b) * M;
-  if (threadIdx.x == 0) earned = 0;
+// lax_compat.nanmedian of n non-NaN values from the keys at their two
+// middle ranks (sorted); NaN when n = 0.
+__device__ __forceinline__ float weighted_median(int n, const MiddleRanks& m,
+                                                 unsigned k_lo,
+                                                 unsigned k_hi) {
+  const float at_lo = n > 0 ? key_float(k_lo) : NAN;
+  const float at_hi = n > 0 ? key_float(k_hi) : NAN;
+  return __fadd_rn(__fmul_rn(at_lo, m.lw), __fmul_rn(at_hi, m.hw));
+}
+
+// The nanmedian of n2 sorted keys in shared memory (n of them not NaN).
+__device__ __forceinline__ float block_nanmedian(const unsigned* keys,
+                                                 int n) {
+  const MiddleRanks m = middle_ranks(n);
+  return weighted_median(n, m, keys[m.lo], keys[m.hi]);
+}
+
+// A candidate's absolute deviation from the first median, as a key; NaN
+// (kNanKey) where the deviation is NaN.
+__device__ __forceinline__ unsigned deviation_key(unsigned key, float med) {
+  const float dev = fabsf(__fsub_rn(key_float(key), med));
+  return float_key(dev);
+}
+
+// The MAD-adaptive gate and the mutual check of one problem, by the whole
+// block: bs, bi its M rows' best similarities and segments, back the L
+// columns' best rows; counts four shared words; keys max(kThreadSort,
+// pow2_at_least(M)) words of shared memory. Writes idx (M); needs
+// blockDim >= kThreadSort. The candidates' keys are gathered (in any
+// order: a sort's result does not depend on it), then sorted one a thread
+// up to kThreadSort of them (thread_bitonic), else in shared memory
+// (bitonic_sort).
+__device__ void gate_tail(const float* bs, const int* bi, const int* back,
+                          int M, unsigned* keys, int* counts,
+                          const GateParams& g, int* __restrict__ idx) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid < 3) counts[tid] = 0;
   __syncthreads();
-  int mine = 0;
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const float s = best_sim[mb + m];
-    const bool cand = s > -0.5f;
-    bn[m] = cand ? s : NAN;
-    mine += (cand && s >= quality_bar) ? 1 : 0;
+  // the two medians: the candidates (best > -0.5), sorted; then their
+  // absolute deviations from the first median, sorted
+  const int span = (M + blockDim.x - 1) / blockDim.x * blockDim.x;
+  for (int i = tid; i < span; i += blockDim.x) {
+    const bool cand = i < M && bs[i] > -0.5f;
+    const unsigned ball = __ballot_sync(0xffffffffu, cand);
+    const unsigned earned =
+        __ballot_sync(0xffffffffu, cand && bs[i] >= g.quality_bar);
+    int base = 0;
+    if (lane == 0 && ball != 0) {
+      base = atomicAdd(&counts[0], __popc(ball));  // integers: exact
+      atomicAdd(&counts[1], __popc(earned));
+    }
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (cand) {
+      keys[base + __popc(ball & ((1u << lane) - 1u))] = float_key(bs[i]);
+    }
   }
-  atomicAdd(&earned, mine);
   __syncthreads();
-  const float med = block_nanmedian(bn, M, &count, &at_lo, &at_hi);
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    dev[m] = fabsf(__fsub_rn(bn[m], med));
+  const int n = counts[0];
+  float* th_s = reinterpret_cast<float*>(counts + 3);
+  if (n <= kThreadSort) {
+    // one key a thread: the candidates' first, then their deviations
+    unsigned key = tid < n ? keys[tid] : kNanKey;
+    __syncthreads();  // keys is the exchange area from here
+    key = thread_bitonic(key, keys);
+    if (tid < kThreadSort) keys[tid] = key;
+    __syncthreads();
+    const float med = block_nanmedian(keys, n);
+    key = tid < n ? deviation_key(key, med) : kNanKey;
+    const int nd = __syncthreads_count(tid < kThreadSort && key != kNanKey);
+    key = thread_bitonic(key, keys);
+    if (tid < kThreadSort) keys[tid] = key;
+    __syncthreads();
+    const float mad = __fmul_rn(1.4826f, block_nanmedian(keys, nd));
+    const float th_adapt = clamp_nan(__fsub_rn(med, __fmul_rn(1.0f, mad)),
+                                     g.sim_floor, g.min_sim);
+    if (tid == 0) {
+      *th_s = (counts[1] >= 6 && isfinite(th_adapt)) ? th_adapt : g.min_sim;
+    }
+  } else {
+    const int n2 = pow2_at_least(n);
+    for (int i = n + tid; i < n2; i += blockDim.x) keys[i] = kNanKey;
+    __syncthreads();
+    bitonic_sort(keys, n2);
+    const float med = block_nanmedian(keys, n);
+    __syncthreads();  // every thread read the keys
+    int nd = 0;
+    for (int i = tid; i < n; i += blockDim.x) {
+      keys[i] = deviation_key(keys[i], med);
+      nd += keys[i] != kNanKey ? 1 : 0;
+    }
+    atomicAdd(&counts[2], nd);
+    __syncthreads();
+    bitonic_sort(keys, n2);
+    const float mad = __fmul_rn(1.4826f, block_nanmedian(keys, counts[2]));
+    const float th_adapt = clamp_nan(__fsub_rn(med, __fmul_rn(1.0f, mad)),
+                                     g.sim_floor, g.min_sim);
+    if (tid == 0) {
+      *th_s = (counts[1] >= 6 && isfinite(th_adapt)) ? th_adapt : g.min_sim;
+    }
   }
   __syncthreads();
-  const float mad =
-      __fmul_rn(1.4826f, block_nanmedian(dev, M, &count, &at_lo, &at_hi));
-  const float th_adapt =
-      clamp_nan(__fsub_rn(med, __fmul_rn(1.0f, mad)), sim_floor, min_sim);
-  const float th = (earned >= 6 && isfinite(th_adapt)) ? th_adapt : min_sim;
-  for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    const size_t c0 = static_cast<size_t>(b) * n_blk * L + l;
-    float bv = col_val[c0];
-    int br = col_row[c0];
-    for (int k = 1; k < n_blk; ++k) {
-      if (col_val[c0 + static_cast<size_t>(k) * L] > bv) {
-        bv = col_val[c0 + static_cast<size_t>(k) * L];
-        br = col_row[c0 + static_cast<size_t>(k) * L];
+  const float th = *th_s;
+  // the mutual check: a row's best segment must have it as its best row
+  for (int m = tid; m < M; m += blockDim.x) {
+    const int b = bi[m];
+    idx[m] = (bs[m] > th && back[b] == m) ? b : -1;
+  }
+}
+
+// The shared stride of a descriptor row (floats): D rounded up to whole
+// float4s, an odd number of them, so that 8 lanes reading 8 rows' float4
+// at one column hit 8 distinct bank quads.
+__host__ __device__ __forceinline__ int desc_stride(int D) {
+  const int q = (D + 3) / 4;
+  return 4 * (q | 1);
+}
+
+// A row tile's outputs, at the start of the block's dynamic shared memory
+// (the cluster's first block reads them through distributed shared
+// memory): each row's best similarity and segment, each column's best
+// value and row among the tile's rows.
+__host__ __device__ __forceinline__ int tile_out_words(int L) {
+  return (2 * kRows + 2 * L + 3) / 4 * 4;
+}
+
+// Words of the tile's work area after its outputs: the frame's and the
+// tile's descriptors, the segments' gate inputs and the warps' column
+// bests.
+__host__ __device__ __forceinline__ int tile_work_words(int L, int S) {
+  return L * S + kRows * S + 8 * L + 2 * kWarps * L;
+}
+
+// One row tile of problem b: rows [m0, m0 + n_rows) (n_rows >= 1) against
+// every frame segment. Leaves the tile's outputs at sh (tile_out_words)
+// and writes the rows' best similarities to a.sim.
+__device__ void search_tile(const SearchArgs& a, int b, int m0, int n_rows,
+                            float* sh, Row* rows) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int L = a.L, D = a.D, S = a.S;
+  float* out_bs = sh;
+  int* out_bi = reinterpret_cast<int*>(sh + kRows);
+  float* out_cv = sh + 2 * kRows;
+  int* out_cr = reinterpret_cast<int*>(sh + 2 * kRows + L);
+  float* fd = sh + tile_out_words(L);  // L x S
+  float* md = fd + L * S;              // kRows x S
+  float* seg = md + kRows * S;         // 8 x L: the Seg fields
+  float* wcv = seg + 8 * L;            // kWarps x L column bests
+  int* wcr = reinterpret_cast<int*>(wcv + kWarps * L);
+  const size_t mb = static_cast<size_t>(b) * a.M;
+  const size_t lb = static_cast<size_t>(b) * L;
+  // projection: a row's endpoints through T_cw, by one thread a row
+  if (tid < n_rows) {
+    const size_t m = mb + m0 + tid;
+    rows[tid] = project_row(a.sw + 3 * m, a.ew + 3 * m, a.valid_m[m] != 0,
+                            a.T_cw + 16 * static_cast<size_t>(b), a.k);
+  }
+  for (int l = tid; l < L; l += blockDim.x) {
+    const size_t f = lb + l;
+    const float s0 = a.f_uv_s[2 * f], s1 = a.f_uv_s[2 * f + 1];
+    const float e0 = a.f_uv_e[2 * f], e1 = a.f_uv_e[2 * f + 1];
+    seg[l] = s0;
+    seg[L + l] = s1;
+    seg[2 * L + l] = e0;
+    seg[3 * L + l] = e1;
+    seg[4 * L + l] = __fmul_rn(0.5f, __fadd_rn(s0, e0));
+    seg[5 * L + l] = __fmul_rn(0.5f, __fadd_rn(s1, e1));
+    seg[6 * L + l] = a.f_angle[f];
+    seg[7 * L + l] = a.f_valid[f] ? 1.0f : 0.0f;
+  }
+  // the descriptors: every copy of a thread in flight at once
+  // (asynchronous copies), the rows past the tile's zero
+  for (int l = warp; l < L; l += kWarps) {
+    const float* src = a.f_desc + (lb + l) * D;
+    for (int j = lane; j < D; j += 32) {
+      __pipeline_memcpy_async(fd + l * S + j, src + j, sizeof(float));
+    }
+  }
+  for (int r = warp; r < kRows; r += kWarps) {
+    if (r < n_rows) {
+      const float* src = a.desc_m + (mb + m0 + r) * D;
+      for (int j = lane; j < D; j += 32) {
+        __pipeline_memcpy_async(md + r * S + j, src + j, sizeof(float));
+      }
+    } else {
+      for (int j = lane; j < D; j += 32) md[r * S + j] = 0.0f;
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  // products: warp w takes rows 2w and 2w + 1, lane the segments lane
+  // and lane + 32 of each group of 64, four independent chains of fused
+  // multiply-adds a thread, each in index order
+  const int r0 = warp * kRowsPerWarp;
+  const float4* md4 = reinterpret_cast<const float4*>(md);
+  const float4* fd4 = reinterpret_cast<const float4*>(fd);
+  const int S4 = S / 4, D4 = D / 4;
+  float row_v[kRowsPerWarp];
+  int row_l[kRowsPerWarp];
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    row_v[i] = -INFINITY;
+    row_l[i] = INT_MAX;  // below every segment
+  }
+  for (int lg = 0; lg < L; lg += 64) {
+    int lx[2];
+    const float4* y[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      lx[c] = lg + 32 * c + lane;
+      y[c] = fd4 + min(lx[c], L - 1) * S4;
+    }
+    float acc[kRowsPerWarp][2];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) acc[i][0] = acc[i][1] = 0.0f;
+#pragma unroll 2
+    for (int j4 = 0; j4 < D4; ++j4) {
+      const float4 y0 = y[0][j4], y1 = y[1][j4];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const float4 x = md4[(r0 + i) * S4 + j4];
+        acc[i][0] = __fmaf_rn(x.x, y0.x, acc[i][0]);
+        acc[i][0] = __fmaf_rn(x.y, y0.y, acc[i][0]);
+        acc[i][0] = __fmaf_rn(x.z, y0.z, acc[i][0]);
+        acc[i][0] = __fmaf_rn(x.w, y0.w, acc[i][0]);
+        acc[i][1] = __fmaf_rn(x.x, y1.x, acc[i][1]);
+        acc[i][1] = __fmaf_rn(x.y, y1.y, acc[i][1]);
+        acc[i][1] = __fmaf_rn(x.z, y1.z, acc[i][1]);
+        acc[i][1] = __fmaf_rn(x.w, y1.w, acc[i][1]);
       }
     }
-    back[l] = br;
+    for (int j = 4 * D4; j < D; ++j) {
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const float x = md[(r0 + i) * S + j];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          acc[i][c] = __fmaf_rn(x, fd[min(lx[c], L - 1) * S + j], acc[i][c]);
+        }
+      }
+    }
+    // the gates; a pair that fails one has similarity -1
+    float col_v[2];
+    int col_r[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      col_v[c] = -INFINITY;
+      col_r[c] = INT_MAX;
+      const int l = lx[c];
+      if (l >= L) continue;
+      Seg g;
+      g.s0 = seg[l];
+      g.s1 = seg[L + l];
+      g.e0 = seg[2 * L + l];
+      g.e1 = seg[3 * L + l];
+      g.mu = seg[4 * L + l];
+      g.mv = seg[5 * L + l];
+      g.ang = seg[6 * L + l];
+      g.ok = seg[7 * L + l] != 0.0f;
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const int r = r0 + i;
+        if (r >= n_rows) continue;
+        const float s = pair_gate(rows[r], g, a.k) ? acc[i][c] : -1.0f;
+        if (wins(s, l, row_v[i], row_l[i])) {
+          row_v[i] = s;
+          row_l[i] = l;
+        }
+        if (wins(s, r, col_v[c], col_r[c])) {
+          col_v[c] = s;
+          col_r[c] = r;
+        }
+      }
+      wcv[warp * L + l] = col_v[c];
+      wcr[warp * L + l] = col_r[c];
+    }
+  }
+  // row and column bests: a row's over the warp's lanes by shuffles, a
+  // column's over the warps in row order
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    float v = row_v[i];
+    int l = row_l[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+      const int ol = __shfl_xor_sync(0xffffffffu, l, off);
+      if (wins(ov, ol, v, l)) {
+        v = ov;
+        l = ol;
+      }
+    }
+    const int r = r0 + i;
+    if (lane == 0 && r < n_rows) {
+      out_bs[r] = v;
+      out_bi[r] = l;
+      a.sim[mb + m0 + r] = v;
+    }
   }
   __syncthreads();
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const int bi = best_idx[mb + m];
-    const bool ok = best_sim[mb + m] > th && back[bi] == m;
-    idx[mb + m] = ok ? bi : -1;
+  const int n_warps = (n_rows + kRowsPerWarp - 1) / kRowsPerWarp;
+  for (int l = tid; l < L; l += blockDim.x) {
+    float v = wcv[l];
+    int r = wcr[l];
+    for (int w = 1; w < n_warps; ++w) {
+      if (wins(wcv[w * L + l], wcr[w * L + l], v, r)) {
+        v = wcv[w * L + l];
+        r = wcr[w * L + l];
+      }
+    }
+    out_cv[l] = v;
+    out_cr[l] = m0 + r;
+  }
+  __syncthreads();
+}
+
+// K23 at M <= kSearchCluster * kRows: one cluster per problem, block q
+// the rows [32 q, 32 q + 32); the first block gathers every tile's
+// outputs through distributed shared memory and runs the gate.
+__global__ void __cluster_dims__(kSearchCluster, 1, 1)
+    __launch_bounds__(kSearchThreads)
+    lines_search_cluster_kernel(const SearchArgs a, const GateParams g,
+                                int n2, int* __restrict__ idx) {
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ __align__(16) float search_smem[];
+  __shared__ Row rows[kRows];
+  __shared__ int counts[4];
+  const int q = static_cast<int>(cl.block_rank()), b = blockIdx.y;
+  const int m0 = q * kRows, n_rows = min(kRows, a.M - m0);
+  const int L = a.L;
+  if (n_rows > 0) search_tile(a, b, m0, n_rows, search_smem, rows);
+  cl.sync();  // every tile's outputs
+  // the first block: its gather area after its own tile's outputs
+  unsigned* keys =
+      reinterpret_cast<unsigned*>(search_smem + tile_out_words(L));
+  float* bs = reinterpret_cast<float*>(keys + n2);
+  int* bi = reinterpret_cast<int*>(bs + a.M);
+  int* back = bi + a.M;
+  if (q == 0) {
+    for (int m = threadIdx.x; m < a.M; m += blockDim.x) {
+      const float* o = cl.map_shared_rank(search_smem, m / kRows);
+      bs[m] = o[m % kRows];
+      bi[m] = reinterpret_cast<const int*>(o + kRows)[m % kRows];
+    }
+    const int n_tiles = (a.M + kRows - 1) / kRows;
+    for (int l = threadIdx.x; l < L; l += blockDim.x) {
+      float v = search_smem[2 * kRows + l];
+      int r = reinterpret_cast<const int*>(search_smem + 2 * kRows + L)[l];
+      for (int t = 1; t < n_tiles; ++t) {
+        const float* o = cl.map_shared_rank(search_smem, t);
+        const float ov = o[2 * kRows + l];
+        const int orow = reinterpret_cast<const int*>(o + 2 * kRows + L)[l];
+        if (wins(ov, orow, v, r)) {
+          v = ov;
+          r = orow;
+        }
+      }
+      back[l] = r;
+    }
+  }
+  cl.sync();  // no block leaves while the first reads its shared memory
+  if (q != 0) return;
+  gate_tail(bs, bi, back, a.M, keys, counts, g,
+            idx + static_cast<size_t>(b) * a.M);
+}
+
+// K23 above one cluster's rows, launch 1 of 2: one block per row tile of
+// every problem; the tiles' outputs to global scratch.
+__global__ void __launch_bounds__(kSearchThreads)
+    lines_search_rows_kernel(const SearchArgs a, int* __restrict__ best_idx,
+                             float* __restrict__ col_val,
+                             int* __restrict__ col_row) {
+  extern __shared__ __align__(16) float search_smem[];
+  __shared__ Row rows[kRows];
+  const int b = blockIdx.y, m0 = blockIdx.x * kRows;
+  const int n_rows = min(kRows, a.M - m0), L = a.L;
+  search_tile(a, b, m0, n_rows, search_smem, rows);
+  const int* out_bi = reinterpret_cast<const int*>(search_smem + kRows);
+  const int* out_cr =
+      reinterpret_cast<const int*>(search_smem + 2 * kRows + L);
+  if (threadIdx.x < n_rows) {
+    best_idx[static_cast<size_t>(b) * a.M + m0 + threadIdx.x] =
+        out_bi[threadIdx.x];
+  }
+  const size_t o = (static_cast<size_t>(b) * gridDim.x + blockIdx.x) * L;
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    col_val[o + l] = search_smem[2 * kRows + l];
+    col_row[o + l] = out_cr[l];
   }
 }
 
-int set_smem(const void* fn, size_t bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
+// Launch 2 of 2: one block per problem merges the columns' bests over the
+// tiles in row order and runs the gate.
+__global__ void __launch_bounds__(kGateThreads) lines_search_gate_kernel(
+    const int* __restrict__ best_idx, const float* __restrict__ best_sim,
+    const float* __restrict__ col_val, const int* __restrict__ col_row, int M,
+    int L, int n_blk, int n2, const GateParams g, int* __restrict__ idx) {
+  extern __shared__ __align__(16) unsigned gate_keys[];  // n2, then L
+  int* back = reinterpret_cast<int*>(gate_keys + n2);
+  __shared__ int counts[4];
+  const int b = blockIdx.x;
+  const size_t mb = static_cast<size_t>(b) * M;
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    const size_t c0 = static_cast<size_t>(b) * n_blk * L + l;
+    float v = col_val[c0];
+    int r = col_row[c0];
+    for (int t = 1; t < n_blk; ++t) {
+      const size_t c = c0 + static_cast<size_t>(t) * L;
+      if (wins(col_val[c], col_row[c], v, r)) {
+        v = col_val[c];
+        r = col_row[c];
+      }
+    }
+    back[l] = r;
+  }
+  gate_tail(best_sim + mb, best_idx + mb, back, M, gate_keys, counts, g,
+            idx + mb);
 }
 
 int search_blocks(int M) { return (M + kRows - 1) / kRows; }
+
+
+// The dynamic shared memory each K23 kernel was set to, per card (kept
+// only for the first kPslDevices cards; past them it is set every call).
+struct SearchSmem {
+  size_t bytes[3];  // the cluster, rows and gate kernels
+};
+
+int set_search_smem(int which, const void* fn, size_t bytes) {
+  static std::mutex mu;
+  static SearchSmem opted[kPslDevices] = {};
+  const std::lock_guard<std::mutex> hold(mu);
+  SearchSmem once = {};
+  SearchSmem* o = psl_device_slot(opted);
+  if (o == nullptr) o = &once;
+  if (bytes <= o->bytes[which]) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  o->bytes[which] = bytes;
+  return 0;
+}
 
 }  // namespace
 
@@ -468,8 +904,10 @@ PSL_API int psl_lift_lines_3d(const float* depth, int h, int w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Words (4 bytes) of scratch psl_search_lines needs.
+// Words (4 bytes) of scratch psl_search_lines needs: none when a problem's
+// rows fit one cluster.
 PSL_API long long psl_search_lines_scratch_words(int M, int L, int batch) {
+  if (M <= kSearchCluster * kRows) return 0;
   return static_cast<long long>(batch) *
          (M + 2LL * search_blocks(M) * L);
 }
@@ -478,7 +916,8 @@ PSL_API long long psl_search_lines_scratch_words(int M, int L, int batch) {
 // M, D), valid_m (batch, M); T_cw (batch, 4, 4); frame segments f_uv_s,
 // f_uv_e (batch, L, 2), f_angle (batch, L), f_desc (batch, L, D), f_valid
 // (batch, L); quality_bar = float(0.5 (sim_floor + min_sim)); outputs idx
-// (batch, M) int32 and sim (batch, M).
+// (batch, M) int32 and sim (batch, M). *launches is the number of
+// launches made: 1 up to kSearchCluster * kRows rows (256), 2 above.
 PSL_API int psl_search_lines(const float* sw, const float* ew,
                              const float* desc_m, const unsigned char* valid_m,
                              const float* T_cw, int M, const float* f_uv_s,
@@ -489,45 +928,85 @@ PSL_API int psl_search_lines(const float* sw, const float* ew,
                              float cy, float W, float H, float radius,
                              float max_angle, float min_sim, float sim_floor,
                              float quality_bar, void* scratch, int* idx,
-                             float* sim, cudaStream_t stream) {
-  // a row block's threads take one frame segment each for its columns
-  if (batch < 1 || M < 1 || L < 1 || L > kSearchThreads || D < 1) {
+                             float* sim, int* launches, cudaStream_t stream) {
+  *launches = 0;
+  if (batch < 1 || batch > 65535 || M < 1 || L < 1 || D < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  SearchConsts k;
-  k.fx = fx;
-  k.fy = fy;
-  k.cx = cx;
-  k.cy = cy;
-  k.W = W;
-  k.H = H;
-  k.radius = radius;
-  k.max_angle = max_angle;
-  k.pi = static_cast<float>(3.14159265358979323846);
+  SearchArgs a;
+  a.sw = sw;
+  a.ew = ew;
+  a.desc_m = desc_m;
+  a.valid_m = valid_m;
+  a.T_cw = T_cw;
+  a.f_uv_s = f_uv_s;
+  a.f_uv_e = f_uv_e;
+  a.f_angle = f_angle;
+  a.f_desc = f_desc;
+  a.f_valid = f_valid;
+  a.sim = sim;
+  a.M = M;
+  a.L = L;
+  a.D = D;
+  a.S = desc_stride(D);
+  a.k.fx = fx;
+  a.k.fy = fy;
+  a.k.cx = cx;
+  a.k.cy = cy;
+  a.k.W = W;
+  a.k.H = H;
+  a.k.radius = radius;
+  a.k.max_angle = max_angle;
+  a.k.pi = static_cast<float>(3.14159265358979323846);
+  GateParams g;
+  g.min_sim = min_sim;
+  g.sim_floor = sim_floor;
+  g.quality_bar = quality_bar;
+  // the gate's keys: the candidates', or kThreadSort to sort one a thread
+  const int n2 = pow2_at_least(M) > kThreadSort ? pow2_at_least(M)
+                                                : kThreadSort;
+  const size_t tile_words = tile_out_words(L) +
+                            static_cast<size_t>(tile_work_words(L, a.S));
+  int rc = 0;
+  if (M <= kSearchCluster * kRows) {
+    // the first block's gather area: keys, rows' bests, columns' rows
+    const size_t gather = tile_out_words(L) + static_cast<size_t>(n2) +
+                          2 * static_cast<size_t>(M) + L;
+    const size_t smem = 4 * (tile_words > gather ? tile_words : gather);
+    rc = set_search_smem(
+        0, reinterpret_cast<const void*>(lines_search_cluster_kernel), smem);
+    if (rc != 0) return rc;
+    lines_search_cluster_kernel<<<dim3(kSearchCluster, batch),
+                                  kSearchThreads, smem, stream>>>(a, g, n2,
+                                                                  idx);
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc == 0) *launches = 1;
+    return rc;
+  }
   const int n_blk = search_blocks(M);
   int* best_idx = static_cast<int*>(scratch);
   float* col_val =
       reinterpret_cast<float*>(best_idx + static_cast<size_t>(batch) * M);
   int* col_row = reinterpret_cast<int*>(
       col_val + static_cast<size_t>(batch) * n_blk * L);
-  const size_t rows_smem = sizeof(float) *
-                           (static_cast<size_t>(L) * D + kRows * D + kRows * L);
-  const size_t gate_smem = sizeof(float) * (2 * static_cast<size_t>(M) + L);
-  int rc = set_smem(reinterpret_cast<const void*>(lines_search_rows_kernel),
-                    rows_smem);
+  const size_t rows_smem = 4 * tile_words;
+  const size_t gate_smem = 4 * (static_cast<size_t>(n2) + L);
+  rc = set_search_smem(
+      1, reinterpret_cast<const void*>(lines_search_rows_kernel), rows_smem);
   if (rc == 0) {
-    rc = set_smem(reinterpret_cast<const void*>(lines_search_gate_kernel),
-                  gate_smem);
+    rc = set_search_smem(
+        2, reinterpret_cast<const void*>(lines_search_gate_kernel),
+        gate_smem);
   }
   if (rc != 0) return rc;
   lines_search_rows_kernel<<<dim3(n_blk, batch), kSearchThreads, rows_smem,
-                       stream>>>(sw, ew, desc_m, valid_m, T_cw, M, f_uv_s,
-                                 f_uv_e, f_angle, f_desc, f_valid, L, D, k,
-                                 best_idx, sim, col_val, col_row);
+                             stream>>>(a, best_idx, col_val, col_row);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
+  *launches = 1;
   lines_search_gate_kernel<<<batch, kGateThreads, gate_smem, stream>>>(
-      best_idx, sim, col_val, col_row, M, L, n_blk, min_sim, sim_floor,
-      quality_bar, idx);
-  return static_cast<int>(cudaGetLastError());
+      best_idx, sim, col_val, col_row, M, L, n_blk, n2, g, idx);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc == 0) *launches = 2;
+  return rc;
 }

@@ -1287,16 +1287,24 @@ int set_smem(const void* fn, size_t bytes) {
 
 // The dynamic shared memory of the stencil (and compact), select, peaks
 // and segment launches, each set on its kernel when it grows (the card's
-// limit read and each kernel's size kept once per process); an error if
-// the card has less for a block.
+// limit read and each kernel's size kept per card; past kPslDevices cards
+// both are found again every call); an error if the card has less for a
+// block.
+struct LaunchSmem {
+  int optin;        // the card's opt-in limit per block, 0 until read
+  size_t done[5];   // the size each kernel was last set to
+};
+
 int set_launch_smem(size_t stencil, size_t select, size_t peaks,
                     size_t segment) {
   static std::mutex mu;
-  static int optin = -1;
-  static size_t done[5] = {};
+  static LaunchSmem cache[kPslDevices] = {};
   const std::lock_guard<std::mutex> hold(mu);
+  LaunchSmem once = {};
+  LaunchSmem* c = psl_device_slot(cache);
+  if (c == nullptr) c = &once;
   int rc = 0;
-  if (optin < 0) {
+  if (c->optin == 0) {
     int dev = 0, bytes = 0;
     rc = static_cast<int>(cudaGetDevice(&dev));
     if (rc == 0) {
@@ -1304,7 +1312,7 @@ int set_launch_smem(size_t stencil, size_t select, size_t peaks,
           &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
     }
     if (rc != 0) return rc;
-    optin = bytes;
+    c->optin = bytes;
   }
   // the static shared memory of each kernel stays under 9 KB
   const std::pair<const void*, size_t> sets[] = {
@@ -1315,12 +1323,12 @@ int set_launch_smem(size_t stencil, size_t select, size_t peaks,
       {reinterpret_cast<const void*>(lines_segment_kernel), segment}};
   for (size_t i = 0; i < 5; ++i) {
     const size_t bytes = sets[i].second;
-    if (bytes + 9 * 1024 > static_cast<size_t>(optin)) {
+    if (bytes + 9 * 1024 > static_cast<size_t>(c->optin)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (bytes > done[i]) {
+    if (bytes > c->done[i]) {
       if ((rc = set_smem(sets[i].first, bytes)) != 0) return rc;
-      done[i] = bytes;
+      c->done[i] = bytes;
     }
   }
   return 0;

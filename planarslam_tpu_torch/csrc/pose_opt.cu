@@ -55,6 +55,8 @@
 // under a microsecond at the card's rates.
 #include <math.h>
 
+#include <mutex>
+
 #include "common.cuh"
 
 namespace {
@@ -856,10 +858,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // The dynamic shared memory the staging may take: the card's opt-in limit
-// per block less the kernel's static shared memory; -1 on an error.
+// per block less the kernel's static shared memory, set on the kernel once
+// per card (every call past kPslDevices cards); -1 on an error.
 long long stage_smem_limit() {
-  static long long limit = -2;
-  if (limit != -2) return limit;
+  static std::mutex mu;
+  static long long limits[kPslDevices] = {};  // 0 until set
+  const std::lock_guard<std::mutex> hold(mu);
+  long long* cached = psl_device_slot(limits);
+  if (cached != nullptr && *cached > 0) return *cached;
   int dev = 0, optin = 0;
   cudaFuncAttributes fa;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -870,14 +876,16 @@ long long stage_smem_limit() {
           cudaSuccess) {
     return -1;
   }
-  limit = static_cast<long long>(optin) - static_cast<long long>(
-      fa.sharedSizeBytes);
-  if (cudaFuncSetAttribute(
+  const long long limit = static_cast<long long>(optin) -
+                          static_cast<long long>(fa.sharedSizeBytes);
+  if (limit <= 0 ||
+      cudaFuncSetAttribute(
           reinterpret_cast<const void*>(pose_opt_kernel<true>),
           cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(limit)) != cudaSuccess) {
-    limit = -1;
+    return -1;
   }
+  if (cached != nullptr) *cached = limit;
   return limit;
 }
 

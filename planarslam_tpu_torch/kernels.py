@@ -193,9 +193,10 @@ _SIGNATURES = {
                          + [_F] * 7 + [_I] + [_P] * 4,
     # sw, ew, desc_m, valid_m, T_cw, M, f_uv_s, f_uv_e, f_angle, f_desc,
     # f_valid, L, D, batch, fx, fy, cx, cy, W, H, radius, max_angle,
-    # min_sim, sim_floor, quality_bar, scratch, idx, sim, stream
+    # min_sim, sim_floor, quality_bar, scratch, idx, sim, launches (the
+    # int the entry sets to the launches it made), stream
     "psl_search_lines": [_P] * 5 + [_I] + [_P] * 5 + [_I] * 3 + [_F] * 11
-                        + [_P] * 4,
+                        + [_P] * 5,
     # pts, valid, T_cw, normals, dmin, dmax (the last three or NULL), M,
     # batch, fx, fy, cx, cy, W, H, bf, scale_factor, radius, a_uv, a_r,
     # a_level, a_ur_pred, gate, stream

@@ -17,6 +17,7 @@ version (``*_plain``), which is what the CPU runs.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Tuple
 
@@ -53,9 +54,17 @@ S_BINS = 96   # position-histogram bins along a line
 N_EDGE = 6144  # the strongest edge pixels the per-line work sees
 RHO_RES = 2.0
 # launches issued by one call of csrc/lines.cu::psl_detect_lines (besides
-# a memset) and of csrc/line_lift_search.cu::psl_search_lines
+# a memset)
 DETECT_LAUNCHES = 8
-SEARCH_LAUNCHES = 2
+# csrc/line_lift_search.cu::psl_search_lines runs a problem of up to this
+# many map lines as one cluster of blocks, one launch; above, two launches
+SEARCH_CLUSTER_ROWS = 256
+
+
+def search_launches(M: int) -> int:
+    """K23's launches for one call over M map lines (its C entry reports
+    what it made; this is what a caller expects)."""
+    return 1 if M <= SEARCH_CLUSTER_ROWS else 2
 
 
 class LineDetection(NamedTuple):
@@ -657,10 +666,12 @@ def search_lines_by_projection_batched(
         max_angle: float = 0.26, min_sim: float = 0.7,
         sim_floor: float = 0.45):
     """K23 wrapper: the guided search of B problems (every tensor with a
-    leading B) in one C call of SEARCH_LAUNCHES launches. Returns (idx (B,
-    M) int32, sim (B, M)). The descriptor products are chains of fused
-    multiply-adds in index order: the plain version's products on the card
-    (a library matrix product) agree to float rounding."""
+    leading B) in one C call of search_launches(M) launches: one cluster of
+    blocks per problem up to SEARCH_CLUSTER_ROWS map lines, the row tiles
+    and then the gate above. Returns (idx (B, M) int32, sim (B, M)). The
+    descriptor products are chains of fused multiply-adds in index order:
+    the plain version's products on the card (a library matrix product)
+    agree to float rounding."""
     args = (sw_w, ew_w, desc_m, valid_m, T_cw, f_uv_s, f_uv_e, f_angle,
             f_desc, f_valid)
     kw = dict(K=K, image_wh=image_wh, radius=radius, max_angle=max_angle,
@@ -690,6 +701,7 @@ def search_lines_by_projection_batched(
     sim = torch.empty((b, M), dtype=torch.float32, device=dev)
     fx, fy, cx, cy = K
     W, H = image_wh
+    launches = ctypes.c_int(0)
     with torch.cuda.device(dev):
         kernels.launch("psl_search_lines", kernels.ptr(sw_w),
                        kernels.ptr(ew_w), kernels.ptr(desc_m),
@@ -699,8 +711,9 @@ def search_lines_by_projection_batched(
                        kernels.ptr(f_valid), L, D, b, fx, fy, cx, cy, W, H,
                        radius, max_angle, min_sim, sim_floor,
                        0.5 * (sim_floor + min_sim), kernels.ptr(scratch),
-                       kernels.ptr(idx), kernels.ptr(sim))
-    kernels.LAUNCHES["search_lines_by_projection"] += SEARCH_LAUNCHES
+                       kernels.ptr(idx), kernels.ptr(sim),
+                       ctypes.addressof(launches))
+    kernels.LAUNCHES["search_lines_by_projection"] += launches.value
     return idx, sim
 
 

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import planted_scores
+from chip_smoke import PLANTED_FAST_CASES, planted_fast_levels, planted_scores
 from planarslam_tpu import config as jconfig
 from planarslam_tpu.io import synthetic
 from planarslam_tpu.ops import fast as jfast
@@ -28,6 +28,7 @@ from planarslam_tpu_torch.ops import orb as torb
 
 torch.set_num_threads(2)
 
+f32 = np.float32
 DISTORTION = dict(k1=0.08, k2=-0.12, p1=0.002, p2=-0.001, k3=0.03)
 
 
@@ -77,6 +78,64 @@ def test_resize_taps_equal_dense_weights(w, h, level):
         assert taps[:, 1].min() >= 2 and taps[:, 1].max() <= 3
         np.testing.assert_array_equal(timage.taps_to_dense(taps, n_in),
                                       timage._resize_weights(n_in, n_out))
+
+
+def fast_doubling_reference(img: np.ndarray) -> np.ndarray:
+    """K1's order in numpy: the ring values of the edge-replicated level
+    (its staging clamps the coordinates), the arcs reduced by doubling on
+    the ring values (min of 2, of 4, of 8, then the ninth member; max for
+    the dark polarity), the best over the 16 starts, and the centre
+    subtracted once, after."""
+    h, w = img.shape
+    p = np.pad(img, 3, mode="edge")
+    ring = np.stack([p[3 + dy:3 + dy + h, 3 + dx:3 + dx + w]
+                     for dy, dx in tfast.CIRCLE_OFFSETS])
+
+    def best(op, over):
+        m2 = op(ring, np.roll(ring, -1, 0))
+        m4 = op(m2, np.roll(m2, -2, 0))
+        m8 = op(m4, np.roll(m4, -4, 0))
+        return over(op(m8, np.roll(ring, -8, 0)), axis=0)
+
+    bright = (best(np.minimum, np.max) - img).astype(f32)
+    dark = -(best(np.maximum, np.min) - img).astype(f32)
+    return np.maximum(np.maximum(bright, dark), f32(0))
+
+
+def _fast_levels(case):
+    """K1's test levels: chip_smoke.py's planted levels, or the JAX
+    pyramid of a 160x120 frame ("pyramid")."""
+    if case == "pyramid":
+        oc = jconfig.SystemConfig.tiny().orb
+        return [np.array(lv) for lv in jimage.build_pyramid(
+            jnp.asarray(_frame(160, 120)[0]), oc.n_levels, oc.scale_factor)]
+    table, buf = planted_fast_levels(case)
+    return [buf[0, table.level_slice(l)].reshape(h, w)
+            for l, (h, w) in enumerate(table.shapes)]
+
+
+@pytest.mark.parametrize("case", PLANTED_FAST_CASES + ("pyramid",))
+def test_fast_doubling_reference_planted(case):
+    """K1's order (fast_doubling_reference) against JAX fast_score and the
+    port's plain version on every level, those narrower or shorter than
+    the 7-pixel ring included: every positive score bit for bit, the rest
+    0 in all three (the sign of a zero max is each library's own); the
+    flat image scores 0 everywhere."""
+    levels = _fast_levels(case)
+    assert any(min(lv.shape) < 7 for lv in levels) or case == "pyramid"
+    n_pos = 0
+    for img in levels:
+        ref = fast_doubling_reference(img)
+        pos = ref > 0
+        n_pos += int(pos.sum())
+        assert not (ref < 0).any()
+        for other in (np.asarray(jfast.fast_score(jnp.asarray(img))),
+                      tfast.fast_score_plain(torch.from_numpy(img)).numpy()):
+            assert np.array_equal(other > 0, pos)
+            assert not (other < 0).any()
+            np.testing.assert_array_equal(ref[pos].view(np.int32),
+                                          other[pos].view(np.int32))
+    assert (n_pos == 0) == (case == "flat")
 
 
 def _select_by_counting(score, tile, k_total, min_score, border):

@@ -45,6 +45,48 @@ def test_fast_score(frame):
                                    atol=0)
 
 
+@pytest.mark.parametrize("case", chip_smoke.PLANTED_FAST_CASES)
+def test_fast_score_planted_levels(dev, case):
+    """K1 over chip_smoke.py's planted levels (narrower or shorter than the
+    7-pixel ring among larger ones; noise and flat) in one launch: exactly
+    its plain version and the one-level launches; the flat image scores 0
+    everywhere."""
+    table, buf = chip_smoke.planted_fast_levels(case)
+    buf = torch.from_numpy(buf).to(dev)
+    n0 = kernels.LAUNCHES["fast_score"]
+    got = fast.fast_score_levels(buf, table)
+    assert kernels.LAUNCHES["fast_score"] == n0 + 1
+    assert torch.equal(got, fast.fast_score_levels_plain(buf, table))
+    for l, (h, w) in enumerate(table.shapes):
+        lv = buf[0, table.level_slice(l)].reshape(h, w)
+        assert torch.equal(fast.fast_score(lv).reshape(-1),
+                           got[0, table.level_slice(l)])
+    if case == "flat":
+        assert not bool(got.any())
+    else:
+        assert bool(got.any())
+
+
+def test_fast_score_batched(dev):
+    """K1 over four frames' 8-level pyramids in one launch: each lane's
+    bits those of its own launch, and exactly the plain version."""
+    from planarslam_tpu_torch.ops.frontend import orb_level_table
+
+    cfg = SystemConfig()
+    seq = synthetic.make_sequence(4, width=640, height=480)
+    table = orb_level_table(480, 640, cfg.orb)
+    gray = torch.from_numpy(np.stack([np.round(np.array(
+        seq.render(i)[0], np.float32)) for i in range(4)])).to(dev)
+    buf = image.build_pyramid_levels(gray, table, cfg.orb.scale_factor)
+    n0 = kernels.LAUNCHES["fast_score"]
+    got = fast.fast_score_levels(buf, table)
+    assert kernels.LAUNCHES["fast_score"] == n0 + 1
+    for b in range(4):
+        one = fast.fast_score_levels(buf[b:b + 1].contiguous(), table)
+        assert torch.equal(got[b].view(torch.int32), one[0].view(torch.int32))
+    assert torch.equal(got, fast.fast_score_levels_plain(buf, table))
+
+
 def test_orb_describe(frame):
     """K2: angles atol 1e-4 (sum order of the moments); descriptors
     bit-identical for >= 99% of valid keypoints."""
@@ -648,8 +690,9 @@ def test_line_kernels(dev):
     within their rounding and flips only at plain near-decisions, K21
     within chip_smoke.DESC_TOLERANCE, K22 has_3d exact and endpoints within
     chip_smoke.P3D_TOLERANCE, K23 indices exact and similarities within
-    chip_smoke.SIM_TOLERANCE on the window, 4096 lines, no candidate and
-    fewer than 6 earned."""
+    chip_smoke.SIM_TOLERANCE on the window, 4096 lines, no candidate,
+    fewer than 6 earned, a planted tie, 250 and 1000 lines and every
+    candidate NaN."""
     cfg = SystemConfig()
     seq = synthetic.make_sequence(8, width=640, height=480)
     n0 = dict(kernels.LAUNCHES)
@@ -660,7 +703,8 @@ def test_line_kernels(dev):
     for k in out:
         assert kernels.LAUNCHES[k["name"]] > n0[k["name"]]
     assert set(out[3]["cases"]) == {"window", "fuse_4096", "no_candidates",
-                                    "few_earned"}
+                                    "few_earned", "tie", "window_250",
+                                    "fuse_1000", "all_nan"}
 
 
 @pytest.mark.parametrize("batch", [1, 3])
@@ -692,7 +736,8 @@ def test_line_kernels_batched(dev, batch):
     idx, sim = lines.search_lines_by_projection_batched(*search, **kw)
     for name, n in (("detect_lines", lines.DETECT_LAUNCHES),
                     ("line_descriptors", 1), ("lift_lines_3d", 1),
-                    ("search_lines_by_projection", lines.SEARCH_LAUNCHES)):
+                    ("search_lines_by_projection",
+                     lines.search_launches(desc.shape[1]))):
         assert kernels.LAUNCHES[name] == n0[name] + n, name
     for b in range(batch):
         one = lines.detect_lines(blurred[b:b + 1], lc)
@@ -709,6 +754,48 @@ def test_line_kernels_batched(dev, batch):
         assert torch.equal(idx[b], i1) and torch.equal(sim[b], s1)
     if batch > 1:
         assert not torch.equal(det.uv_s[0], det.uv_s[1])
+
+
+@pytest.mark.parametrize("case", ["tie", "fuse_4096", "fuse_1000",
+                                  "window_250", "all_nan"])
+def test_search_lines_planted(dev, case):
+    """K23 on chip_smoke.py's planted problems at the default
+    configuration's width: indices exactly the plain version's,
+    similarities within chip_smoke.SIM_TOLERANCE (NaN where the plain
+    version's are), the launches of its M's configuration, two calls equal
+    bits; the tie goes to the lower row and the lower segment."""
+    cfg = SystemConfig()
+    cam = cfg.camera
+    seq = synthetic.make_sequence(8, width=640, height=480)
+    kw0 = dict(K=(cam.fx, cam.fy, cam.cx, cam.cy),
+               image_wh=(float(cam.width), float(cam.height)))
+    feats = chip_smoke.line_search_feats(seq, cfg, dev)
+    probs = chip_smoke._line_search_problems(feats, seq, dev,
+                                             np.random.default_rng(23), kw0)
+    args, radius = probs[case]
+    kw = dict(kw0, radius=radius)
+    M = args[0].shape[0]
+    n0 = kernels.LAUNCHES["search_lines_by_projection"]
+    idx, sim = lines.search_lines_by_projection_batched(
+        *[a[None] for a in args], **kw)
+    assert (kernels.LAUNCHES["search_lines_by_projection"]
+            == n0 + lines.search_launches(M))
+    idx2, sim2 = lines.search_lines_by_projection_batched(
+        *[a[None] for a in args], **kw)
+    assert torch.equal(idx, idx2)
+    assert torch.equal(sim.view(torch.int32), sim2.view(torch.int32))
+    idx_p, sim_p = lines.search_lines_by_projection_plain(*args, **kw)
+    assert torch.equal(idx[0], idx_p)
+    assert chip_smoke._finite_err(sim[0], sim_p) <= chip_smoke.SIM_TOLERANCE
+    if case == "tie":
+        w = probs["window"][0]
+        m, m2, l, l2 = chip_smoke._line_tie_slots(
+            *lines.search_lines_by_projection_plain(*w, radius=14.0, **kw0),
+            w[8].shape[0])
+        assert int(idx[0, min(m, m2)]) == min(l, l2)
+        assert int(idx[0, max(m, m2)]) == -1
+    if case == "all_nan":
+        assert bool(sim.isnan().any()) and not bool((idx >= 0).any())
 
 
 def test_matching_kernels(dev):

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _line_search_problems, planted_top_e_maps
+from chip_smoke import _line_search_problems, _line_tie_slots
+from chip_smoke import planted_top_e_maps
 from planarslam_tpu import config as jconfig
 from planarslam_tpu.io import synthetic
 from planarslam_tpu.ops import image as jimage
@@ -200,6 +201,111 @@ def nanmedian_reference(x: np.ndarray) -> np.float32:
                 return v
 
     return f32(f32(at(r_lo) * lw) + f32(at(r_hi) * hw))
+
+
+def bitonic_keys(x: np.ndarray) -> np.ndarray:
+    """K23's sort in numpy: x's float32 values as unsigned keys in float
+    order (NaN last), padded with NaN keys to a power of two and run
+    through the kernel's bitonic network, pass by pass."""
+    nan_key = np.uint32(0xFFFFFFFF)
+    u = x.astype(f32).view(np.uint32)
+    keys = np.where(np.isnan(x), nan_key,
+                    np.where(u & np.uint32(0x80000000), ~u,
+                             u | np.uint32(0x80000000))).astype(np.uint32)
+    n2 = 1
+    while n2 < len(x):
+        n2 <<= 1
+    keys = np.concatenate([keys, np.full(n2 - len(x), nan_key, np.uint32)])
+    t = np.arange(n2 // 2)
+    k = 2
+    while k <= n2:
+        j = k >> 1
+        while j > 0:
+            i = ((t & ~(j - 1)) << 1) | (t & (j - 1))
+            p = i | j
+            a, b = keys[i].copy(), keys[p].copy()
+            swap = (a > b) == ((i & k) == 0)
+            keys[i] = np.where(swap, b, a)
+            keys[p] = np.where(swap, a, b)
+            j >>= 1
+        k <<= 1
+    return keys
+
+
+def sorted_nanmedian_reference(x: np.ndarray) -> np.float32:
+    """K23's nanmedian in numpy: the bitonic keys, n the non-NaN count,
+    the values at lax_compat.nanmedian's two middle ranks read off the
+    sorted keys, weighted as its formula weighs them, in float32; NaN when
+    n = 0."""
+    keys = bitonic_keys(x)
+    n = int(np.sum(~np.isnan(x)))
+    q = f32(f32(0.5) * f32(f32(n) - f32(1)))
+    lo, hi = np.floor(q), np.ceil(q)
+    hw = f32(q - lo)
+    lw = f32(f32(1) - hw)
+    last = f32(f32(n) - f32(1))
+
+    def at(r):
+        if n == 0:
+            return f32(np.nan)
+        k = keys[int(max(min(r, last), 0))]
+        v = (k & np.uint32(0x7FFFFFFF)) if k & np.uint32(0x80000000) else ~k
+        return np.uint32(v).view(f32)
+
+    return f32(f32(at(lo) * lw) + f32(at(hi) * hw))
+
+
+def _wins(v, i, u, j) -> bool:
+    """K23's order of (value, index) pairs: torch.argmax's."""
+    vn, un = bool(np.isnan(v)), bool(np.isnan(u))
+    if vn != un:
+        return vn
+    if vn:
+        return i < j
+    return bool(v > u) or (bool(v == u) and i < j)
+
+
+def kernel_bests(s: np.ndarray):
+    """K23's row and column bests of an (M, L) similarity matrix in numpy,
+    in the kernel's reduction order: a row over each lane's segments
+    (lane, lane + 32 of every 64), then a butterfly over the 32 lanes; a
+    column over each warp's 4 rows, the 8 warps of a 32-row tile, then
+    the tiles, each in row order."""
+    M, L = s.shape
+    none = (-np.inf, 2 ** 31 - 1)
+    rows = []
+    for r in range(M):
+        lanes = []
+        for lane in range(32):
+            best = none
+            for lg in range(0, L, 64):
+                for l in (lg + lane, lg + 32 + lane):
+                    if l < L and _wins(s[r, l], l, *best):
+                        best = (s[r, l], l)
+            lanes.append(best)
+        off = 16
+        while off:
+            lanes = [lanes[x ^ off] if _wins(*lanes[x ^ off], *lanes[x])
+                     else lanes[x] for x in range(32)]
+            off >>= 1
+        rows.append(lanes[0])
+    cols = []
+    for l in range(L):
+        best = none
+        for m0 in range(0, M, 32):
+            tile = none
+            for w0 in range(m0, min(m0 + 32, M), 4):
+                warp = none
+                for r in range(w0, min(w0 + 4, M)):
+                    if _wins(s[r, l], r, *warp):
+                        warp = (s[r, l], r)
+                if _wins(*warp, *tile):
+                    tile = warp
+            if _wins(*tile, *best):
+                best = tile
+        cols.append(best[1])
+    return (np.array([r[1] for r in rows]),
+            np.array([r[0] for r in rows], f32), np.array(cols))
 
 
 # ---- stage tests
@@ -436,14 +542,18 @@ def search_problems(seq):
 
 
 @pytest.mark.parametrize("case", ["window", "fuse_4096", "no_candidates",
-                                  "few_earned"])
+                                  "few_earned", "tie", "window_250",
+                                  "fuse_1000", "all_nan"])
 def test_search_lines_matches_jax(search_problems, case):
     """(i) The guided search, plain version against JAX: indices exact,
-    similarities atol 1e-5 (a 72-term dot product of unit vectors), on the
-    64-line window (radius 14, as tracking calls it), 4096 lines (radius 8,
-    as local mapping's fuse calls it), no candidate (both medians of
-    all-NaN) and the four best map lines alone (fewer than the 6 earned the
-    adaptive gate needs)."""
+    similarities atol 1e-5 (a 72-term dot product of unit vectors), NaN
+    where JAX's are, on the 64-line window (radius 14, as tracking calls
+    it), 4096 lines (radius 8, as local mapping's fuse calls it), no
+    candidate (both medians of all-NaN), the four best map lines alone
+    (fewer than the 6 earned the adaptive gate needs), a planted tie (two
+    equal segments, two equal map lines: the lower of each wins), the
+    first 250 and 1000 map lines, and every valid map line's descriptor
+    NaN (every gated similarity NaN: no candidate, no match)."""
     args, radius = search_problems[case]
     kw = dict(CAMERA, radius=radius)
     idx, sim = tlines.search_lines_by_projection_plain(*args, **kw)
@@ -453,10 +563,20 @@ def test_search_lines_matches_jax(search_problems, case):
     np.testing.assert_allclose(sim.numpy(), _n(j_sim), atol=1e-5)
     cand = sim.numpy() > -0.5
     earned = int((cand & (sim.numpy() >= 0.575)).sum())
-    if case in ("window", "fuse_4096"):
+    if case in ("window", "fuse_4096", "window_250", "fuse_1000"):
         assert int((idx >= 0).sum()) > 0 and earned >= 6
     elif case == "no_candidates":
         assert cand.sum() == 0 and int((idx >= 0).sum()) == 0
+    elif case == "tie":
+        w, r = search_problems["window"]
+        best = tlines.search_lines_by_projection_plain(
+            *w, **dict(CAMERA, radius=r))
+        m, m2, l, l2 = _line_tie_slots(*best, w[8].shape[0])
+        assert int(idx[min(m, m2)]) == min(l, l2)
+        assert int(idx[max(m, m2)]) == -1
+    elif case == "all_nan":
+        assert cand.sum() == 0 and int((idx >= 0).sum()) == 0
+        assert np.isnan(sim.numpy()).any()
     else:
         assert 0 < cand.sum() <= 4 and earned < 6
 
@@ -478,6 +598,77 @@ def test_nanmedian_reference():
         ref = nanmedian_reference(x)
         for v in (got, want):
             assert (np.isnan(v) and np.isnan(ref)) or v == ref
+
+
+def _median_cases():
+    rng = np.random.default_rng(12)
+    big = rng.uniform(-1, 1, 4096).astype(f32)
+    big[rng.random(4096) < 0.6] = np.nan
+    sims = np.round(rng.uniform(0.4, 1.0, 256), 2).astype(f32)
+    sims[rng.random(256) < 0.3] = np.nan
+    return {"all_nan": np.full(8, np.nan, f32),
+            "single": np.array([np.nan, 0.3, np.nan], f32),
+            "even": rng.normal(size=10).astype(f32),
+            "odd": rng.normal(size=7).astype(f32),
+            "ties": np.array([0.5, 0.5, 0.5, 0.2, np.nan, 0.9], f32),
+            "tied_middles": np.array([0.7, 0.2, 0.7, 0.7, 0.1, 0.9], f32),
+            "sims_256": sims, "nan_4096": big}
+
+
+@pytest.mark.parametrize("case", list(_median_cases()))
+def test_sorted_nanmedian_reference(case):
+    """(l) K23's nanmedian (sorted_nanmedian_reference: the bitonic keys
+    and the two middle ranks) equals lax_compat.nanmedian and jnp.nanmedian
+    bit for bit, and so does its second median, of the absolute deviations
+    from the first: every entry NaN, a single entry, even and odd counts,
+    ties at and across the middle ranks, 256 rounded similarities with
+    NaN, 4096 values with NaN."""
+    x = _median_cases()[case]
+    ref = sorted_nanmedian_reference(x)
+    dev = np.abs(x - ref).astype(f32)
+    for vals, want in ((x, ref), (dev, sorted_nanmedian_reference(dev))):
+        for got in (np.float32(lax_compat.nanmedian(_t(vals))),
+                    np.float32(jnp.nanmedian(jnp.asarray(vals)))):
+            assert (np.isnan(got) and np.isnan(want)) or (
+                got.view(np.int32) == want.view(np.int32))
+        assert np.array_equal(
+            np.sort(vals[~np.isnan(vals)]),
+            np.sort(vals)[:int(np.sum(~np.isnan(vals)))])
+
+
+@pytest.mark.parametrize("case", ["window", "tie", "nan_rows", "window_250"])
+def test_kernel_bests_reference(search_problems, case):
+    """(m) K23's row and column bests in its reduction order (kernel_bests)
+    equal torch.argmax and jnp.argmax over both dimensions, and the rows'
+    best values torch.amax, bit for bit: on the window's similarities
+    rounded to 0.01 (ties) with 70% of the pairs gated out (-1), its rows
+    repeated to 256 (equal rows in other tiles), the planted tie, NaN
+    entries and a NaN row among them, and 250 rows (a last tile part
+    full)."""
+    name = "window" if case in ("nan_rows", "window_250") else case
+    args, radius = search_problems[name]
+    desc, fd = args[2], args[8]
+    # the tiny window's rows repeated to the main path's 256 (or 250)
+    s = np.tile((desc @ fd.T).numpy(), (4, 1))[:250 if case == "window_250"
+                                                else 256]
+    s = np.where(np.random.default_rng(5).random(s.shape) < 0.7, f32(-1),
+                 np.round(s, 2)).astype(f32)
+    if case == "nan_rows":
+        s[3, 5], s[3, 9], s[40, :] = np.nan, np.nan, np.nan
+        s[100, 7] = s[200, 7] = f32(2.0)
+    bi, bv, back = kernel_bests(s)
+    st = torch.from_numpy(s)
+    for want_i, want_back in ((torch.argmax(st, 1).numpy(),
+                               torch.argmax(st, 0).numpy()),
+                              (np.asarray(jnp.argmax(s, 1)),
+                               np.asarray(jnp.argmax(s, 0)))):
+        np.testing.assert_array_equal(bi, want_i)
+        np.testing.assert_array_equal(back, want_back)
+    amax = torch.amax(st, 1).numpy()
+    assert np.array_equal(np.isnan(bv), np.isnan(amax))
+    ok = ~np.isnan(bv)
+    np.testing.assert_array_equal(bv[ok].view(np.int32),
+                                  amax[ok].view(np.int32))
 
 
 def test_batched_wrappers_on_cpu(seq, gray, search_problems):

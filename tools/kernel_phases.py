@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Time the phases inside K3 (gated_hamming_top2), K12
+"""Time the phases inside K1 (fast_score), K3 (gated_hamming_top2), K12
 (plane_components), K13 (plane_assign_refit), K15 (manhattan_mean_shift),
-K28 (noise_alpha) and K29 (frame_normals) on a GPU.
+K23 (search_lines_by_projection), K28 (noise_alpha) and K29
+(frame_normals) on a GPU.
 
     python3 tools/kernel_phases.py
 
-Copies csrc/hamming_top2.cu, csrc/plane_segment.cu (twice: K12, K13),
-csrc/manhattan.cu and csrc/depth_normals.cu (twice: K28, K29) into
-build/kernel_phases/, inserts clock64 (and, in K3, K13, K28 and K29,
-%globaltimer) reads at the phase comments the sources carry,
+Copies csrc/fast_score.cu, csrc/hamming_top2.cu, csrc/plane_segment.cu
+(twice: K12, K13), csrc/manhattan.cu, csrc/line_lift_search.cu and
+csrc/depth_normals.cu (twice: K28, K29) into build/kernel_phases/,
+inserts clock64 (and, in K1, K3, K13, K23, K28 and K29, %globaltimer)
+reads at the phase comments the sources carry,
 builds each copy with the build's own flags into a library of its own,
 and runs the wrappers of this checkout with those entry points in place
 of the built ones:
@@ -40,7 +42,15 @@ of the built ones:
   assign pass and the partial with its publication (median and largest),
   per collector (one per plane) those of the ghost merge, the in-order
   sums (its waits for the blocks included) and the fit, and per frame
-  the tail from its last publication to its last collector's end.
+  the tail from its last publication to its last collector's end;
+- K1 on chip_smoke.py's `fast_problems` (B = 1 and 4): per block the
+  cycles of staging its tile and of thread (0, 0)'s scoring of its
+  pixels;
+- K23 on chip_smoke.py's `line_search_problems`: per row tile the cycles
+  of the projection (with the staging), the products and gates, and the
+  row and column bests; per gate (the cluster's first block, or the gate
+  launch above 256 lines) those of the two medians and of the mutual
+  check, and from %globaltimer the wait of the gate for the last tile.
 Prints one JSON object with the card's name and power limit. The marks
 move where the code between them runs, not what it computes.
 """
@@ -160,6 +170,25 @@ K13_ANCHORS = (
     "  // the in-order sums\n",
     "  // the fits: plane j by warp 0's first half-warp",
     "    alive_out[o] = ps.alive[j];\n")
+K1_ANCHORS = (
+    "  // staging: the tile and its halo",
+    "  // scoring: the footprint's")
+K1_END = "    if (x < w) o[x] = score_of(v, p);\n  }\n"
+K1_PHASES = ("staging", "scoring")
+# K1's blocks are 16 x 16 threads: thread (0, 0) marks
+K1_MARK = BLOCK_MARK.replace("threadIdx.x == 0", "threadIdx.x == 0 && "
+                             "threadIdx.y == 0")
+# K23: marks 0-3 in every row tile (projection, products, bests, the
+# tile's end), 4-6 in the gate (the medians, the mutual check, the end)
+K23_ANCHORS = (
+    ("  // projection: a row's endpoints", 0, True),
+    ("  // products: warp w takes rows", 1, True),
+    ("  // row and column bests:", 2, True),
+    ("    out_cr[l] = m0 + r;\n  }\n  __syncthreads();\n", 3, False),
+    ("  // the two medians:", 4, True),
+    ("  // the mutual check:", 5, True),
+    ("    idx[m] = (bs[m] > th && back[b] == m) ? b : -1;\n  }\n", 6,
+     False))
 READ = ('\nextern "C" int psl_phase_read(void* out, int bytes) {\n'
         '  return static_cast<int>(cudaMemcpyFromSymbol(out, psl_phase, '
         'bytes));\n}\n')
@@ -249,6 +278,62 @@ def _k13_source(kernels) -> str:
     return src + READ
 
 
+def _k1_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "fast_score.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", f"__device__ long long psl_phase"
+                      f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
+    for k, anchor in enumerate(K1_ANCHORS):
+        src = _mark(src, anchor, K1_MARK.format(k=k), True)
+    if src.count(K1_END) != 1:
+        raise RuntimeError(f"phase anchor not found once: {K1_END!r}")
+    return src.replace(K1_END, K1_END + "  " + K1_MARK.format(
+        k=len(K1_ANCHORS)) + "\n") + READ
+
+
+def _k23_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "line_lift_search.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", f"__device__ long long psl_phase"
+                      f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
+    for anchor, k, before in K23_ANCHORS:
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"phase anchor not found once: {anchor!r}")
+        mark = BLOCK_MARK.format(k=k)
+        src = src.replace(anchor, f"{mark}\n{anchor}" if before
+                          else f"{anchor}  {mark}\n")
+    return src + READ
+
+
+def _k23_marks(lib, fn) -> dict:
+    """K23's marks after one call of fn: per row tile the cycles of the
+    projection (with the staging), the products and gates and the bests
+    (median and largest), per gate those of the two medians and the
+    mutual check, the gate's wait from the last tile's end (us, the
+    cluster configuration) and the call's span."""
+    marks, before = _launch_marks(lib, fn)
+    tile = marks[(marks[:, 8] != before[:, 8])
+                 & (marks[:, 11] != before[:, 11])]
+    gate = marks[(marks[:, 12] != before[:, 12])
+                 & (marks[:, 14] != before[:, 14])]
+    tc = {"projection": tile[:, 1] - tile[:, 0],
+          "products": tile[:, 2] - tile[:, 1],
+          "bests": tile[:, 3] - tile[:, 2]}
+    gc = {"medians": gate[:, 5] - gate[:, 4],
+          "mutual_check": gate[:, 6] - gate[:, 5]}
+    moved = marks[:, 8:15] != before[:, 8:15]
+    stamps = marks[:, 8:15][moved]
+    return {"tiles": len(tile), "gates": len(gate),
+            "span_us": float((stamps.max() - stamps.min()) / 1e3),
+            "gate_wait_us": float((gate[:, 12].min() - tile[:, 11].max())
+                                  / 1e3),
+            "tile_cycles_median": {k: float(np.median(v))
+                                   for k, v in tc.items()},
+            "tile_cycles_max": {k: int(v.max()) for k, v in tc.items()},
+            "gate_cycles_median": {k: float(np.median(v))
+                                   for k, v in gc.items()}}
+
+
 def _k13_marks(lib, fn, n_part: int, planes: int) -> dict:
     """K13's marks after one call of fn (its last launch): per logical
     block the cycles of the ghost merge, the assign pass and the partial
@@ -326,10 +411,11 @@ def _build(kernels, name: str, src: str, flags) -> ctypes.CDLL:
         f.write(src)
     lib = os.path.join(OUT, f"lib{name}.so")
     # fast_score.cu carries psl_error_string, which kernels.launch calls
+    extra = [] if name == "fast_score" else [
+        os.path.join(kernels.CSRC, "fast_score.cu")]
     run = subprocess.run(
         [kernels._nvcc(), *kernels.NVCC_FLAGS, *flags, "-I", kernels.CSRC,
-         "-shared", "-o", lib, path, os.path.join(kernels.CSRC,
-                                                  "fast_score.cu")],
+         "-shared", "-o", lib, path, *extra],
         capture_output=True, text=True)
     if run.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}: {run.stderr}")
@@ -376,14 +462,22 @@ def main() -> int:
                  kernels.SOURCE_FLAGS["depth_normals.cu"])
     k13 = _build(kernels, "plane_segment_k13", _k13_source(kernels),
                  kernels.SOURCE_FLAGS["plane_segment.cu"])
+    k1 = _build(kernels, "fast_score", _k1_source(kernels),
+                kernels.SOURCE_FLAGS.get("fast_score.cu", ()))
+    k23 = _build(kernels, "line_lift_search", _k23_source(kernels),
+                 kernels.SOURCE_FLAGS["line_lift_search.cu"])
     entries = {"psl_gated_hamming_top2": k3, "psl_mutual_hamming_top2": k3,
                "psl_plane_components": k12, "psl_manhattan_mean_shift": k15,
                "psl_frame_normals": k29, "psl_noise_alpha": k28,
-               "psl_plane_assign_refit": k13}
+               "psl_plane_assign_refit": k13, "psl_fast_score_levels": k1,
+               "psl_search_lines": k23}
     for name, lib in entries.items():
         getattr(lib, name).argtypes = kernels._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
-    for lib in (k3, k12, k15, k29, k28, k13):
+    k23.psl_search_lines_scratch_words.argtypes = kernels._HELPERS[
+        "psl_search_lines_scratch_words"]
+    k23.psl_search_lines_scratch_words.restype = ctypes.c_longlong
+    for lib in (k3, k12, k15, k29, k28, k13, k1, k23):
         lib.psl_phase_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     cfg = SystemConfig()
     seq = synthetic.make_sequence(smoke.TRACKING_FRAMES,
@@ -455,6 +549,15 @@ def main() -> int:
     out["plane_assign_refit"] = {
         name: _k13_marks(k13, fn, n_part, cfg.planes.max_planes)
         for name, fn in smoke.refit_problems(seq, cfg, dev).items()}
+    kernels._lib = _Swap(real, k1, {"psl_fast_score_levels"})
+    out["fast_score"] = {
+        name: _block_marks(k1, fn, K1_PHASES)
+        for name, fn in smoke.fast_problems(seq, cfg, dev).items()}
+    kernels._lib = _Swap(real, k23, {"psl_search_lines",
+                                     "psl_search_lines_scratch_words"})
+    out["search_lines_by_projection"] = {
+        name: _k23_marks(k23, fn)
+        for name, fn in smoke.line_search_problems(seq, cfg, dev).items()}
     kernels._lib = real
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
                              "--format=csv,noheader"], capture_output=True,

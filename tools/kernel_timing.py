@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time K3 (gated_hamming_top2), K11 (pose_optimize), K12
-(plane_components), K13 (plane_assign_refit), K15 (manhattan_mean_shift),
-K20 (detect_lines), K28 (noise_alpha) and K29 (frame_normals) of one tree
-of the port on a GPU, so that two trees can be compared in one run.
+"""Time K1 (fast_score), K3 (gated_hamming_top2), K11 (pose_optimize),
+K12 (plane_components), K13 (plane_assign_refit), K15
+(manhattan_mean_shift), K20 (detect_lines), K23
+(search_lines_by_projection), K28 (noise_alpha) and K29 (frame_normals)
+of one tree of the port on a GPU, so that two trees can be compared in
+one run.
 
     python3 tools/kernel_timing.py [--root DIR]
 
@@ -26,10 +28,13 @@ at B = 1 and on frames 0-3 at B = 4 (`normals_problems`); K28 on frame
 (`alpha_problems`); K13 on extract_planes' 1 + refine_rounds rounds from
 K12's candidates, frame 0 at B = 1 and frames 0-3 at B = 4
 (`refit_problems`: per call the three rounds, their launches and device
-time). K3, K12, K13, K15, K28 and K29 are timed by
-`kernel_timing_entry`. Prints one JSON object with the card's name and power limit,
-those times and a hash of each output, so that two trees' outputs can be
-compared bit for bit.
+time); K1 on frame 0's 8-level pyramid at B = 1 and frames 0-3's at B =
+4 (`fast_problems`); K23 on the tracking window (M = 256) at B = 1 and
+seen from four frames at B = 4, on 4096 lines, with no candidate and
+with fewer than 6 earned (`line_search_problems`). K1, K3, K12, K13,
+K15, K23, K28 and K29 are timed by `kernel_timing_entry`. Prints one JSON
+object with the card's name and power limit, those times and a hash of
+each output, so that two trees' outputs can be compared bit for bit.
 """
 
 from __future__ import annotations
@@ -117,7 +122,10 @@ def main(argv=None) -> int:
             ("manhattan_mean_shift", smoke.manhattan_problems, "manhattan"),
             ("frame_normals", smoke.normals_problems, "frame_normals"),
             ("noise_alpha", smoke.alpha_problems, "noise_alpha"),
-            ("plane_assign_refit", smoke.refit_problems, "plane_")):
+            ("plane_assign_refit", smoke.refit_problems, "plane_"),
+            ("fast_score", smoke.fast_problems, "fast_score"),
+            ("search_lines_by_projection", smoke.line_search_problems,
+             "lines_search")):
         out[key] = {name: {"hash": _digest(fn()),
                            **smoke.kernel_timing_entry(fn, match)}
                     for name, fn in problems(seq, cfg, dev).items()}

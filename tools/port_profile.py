@@ -76,7 +76,7 @@ SPAN_MODULES = ("frontend", "lines", "planes", "manhattan", "matching",
 # (substrings of the trace's kernel names) of its launches; a trace kernel
 # counts for the first kernel whose entry name it holds
 PORT_KERNELS = {
-    "K1 fast_score": ("fast_score_kernel", "fast_score_levels_kernel"),
+    "K1 fast_score": ("fast_score_levels_kernel",),
     "K2 orb_describe": ("orb_describe_kernel", "orb_describe_levels_kernel"),
     "K3 gated_hamming_top2": ("hamming_top2_kernel",),
     "K4 plane_block_moments": ("_plane_block_moments_kernel",),
@@ -102,7 +102,8 @@ PORT_KERNELS = {
                          "lines_segment_kernel", "lines_rank_kernel"),
     "K21 line_descriptors": ("lines_descriptor_kernel",),
     "K22 lift_lines_3d": ("lines_lift_kernel",),
-    "K23 search_lines_by_projection": ("lines_search_rows_kernel",
+    "K23 search_lines_by_projection": ("lines_search_cluster_kernel",
+                                       "lines_search_rows_kernel",
                                        "lines_search_gate_kernel"),
     "K24 project_landmarks": ("project_landmarks_kernel",),
     "K25 match_select": ("match_select_kernel",),
