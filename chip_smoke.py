@@ -249,12 +249,14 @@ def _launch_split(fn, reps: int = TIMING_REPS, match: str = "") -> dict:
 
 PTXAS_SOURCES = ("pose_opt.cu", "lines.cu", "hamming_top2.cu",
                  "plane_segment.cu", "manhattan.cu", "depth_normals.cu",
-                 "fast_score.cu", "line_lift_search.cu")
+                 "fast_score.cu", "line_lift_search.cu", "pyramid.cu",
+                 "select_keypoints.cu")
 
 
 def _kernel_name(mangled: str) -> str:
     """The kernel's name in a mangled symbol (its length-prefixed
-    identifier ending in _kernel), with a bool template argument."""
+    identifier ending in _kernel), with a bool or int template
+    argument."""
     import re
 
     for m in re.finditer(r"\d+", mangled):
@@ -264,7 +266,10 @@ def _kernel_name(mangled: str) -> str:
             if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*",
                                                           name):
                 arg = re.match(r"ILb([01])E", mangled[m.end() + n:])
-                return f"{name}<{arg.group(1) == '1'}>" if arg else name
+                if arg:
+                    return f"{name}<{arg.group(1) == '1'}>"
+                arg = re.match(r"ILi(\d+)E", mangled[m.end() + n:])
+                return f"{name}<{arg.group(1)}>" if arg else name
     return mangled
 
 
@@ -343,6 +348,68 @@ FAST_OPS_PER_PIXEL = 2 * (64 + 15) + 2 + 2
 PLANTED_FAST_SHAPES = ((37, 70), (6, 23), (19, 5), (3, 3), (1, 9), (7, 1),
                        (65, 129), (2, 2))
 PLANTED_FAST_CASES = ("noise", "flat")
+# K17's planted levels: (h, w) shapes 1-6 pixels wide or tall (narrower or
+# shorter than the 7-tap halo: the clamps reach across the level), widths
+# that are no multiple of 4 (so odd level offsets), a level wider than one
+# strip and levels taller than one band; and the (ksize, sigma) pairs
+PLANTED_BLUR_SHAPES = ((1, 1), (1, 6), (5, 1), (2, 3), (6, 5), (4, 37),
+                       (33, 2), (3, 129), (67, 61), (130, 59))
+PLANTED_BLUR_TAPS = ((1, 1.0), (3, 0.8), (5, 1.0), (7, 2.0))
+# K18's planted levels (border 2, min_score 7): "wide_tile", a 16-pixel
+# tile wider than its 12-pixel level (k_tile 3); "dry_sort", k_tile 12 (the
+# sort branch) over tiles with fewer maxima than that; "all_below", no
+# score above min_score (every candidate -1); "tie_at_cut", one isolated
+# maximum per tile, 3 of 60 and 13 of 50, so that the quota of 8 cuts
+# inside the tie across tiles
+PLANTED_SELECT = dict(
+    names=("wide_tile", "dry_sort", "all_below", "tie_at_cut"),
+    shapes=[(21, 12), (40, 40), (30, 50), (64, 64)],
+    quotas=[3, 150, 20, 8], tiles=[16, 8, 10, 16], scales=[1.0] * 4,
+    border=2, min_score=7.0)
+
+
+def planted_blur_levels(seed: int = 17, batch: int = 1):
+    """K17's planted levels (PLANTED_BLUR_SHAPES) as one (batch, n_pixels)
+    float32 buffer of uniform values in [0, 255) and its level table."""
+    from planarslam_tpu_torch.ops import levels
+
+    n = len(PLANTED_BLUR_SHAPES)
+    table = levels.table_from_levels(PLANTED_BLUR_SHAPES, [0] * n, [8] * n,
+                                     [1.0] * n)
+    rng = np.random.default_rng(seed)
+    buf = rng.uniform(0.0, 255.0, (batch, table.n_pixels)).astype(np.float32)
+    return table, buf
+
+
+def planted_select_levels(seed: int = 18, batch: int = 1):
+    """K18's planted levels (PLANTED_SELECT) as one (batch, n_pixels)
+    float32 score buffer and its level table; each lane draws its own
+    peaks."""
+    from planarslam_tpu_torch.ops import levels
+
+    ps = PLANTED_SELECT
+    table = levels.table_from_levels(ps["shapes"], ps["quotas"], ps["tiles"],
+                                     ps["scales"])
+    rng = np.random.default_rng(seed)
+    lanes = []
+    for _ in range(batch):
+        maps = []
+        for name, (h, w), tile in zip(ps["names"], ps["shapes"],
+                                      ps["tiles"]):
+            if name == "all_below":
+                s = rng.uniform(0.0, ps["min_score"], (h, w)).astype(
+                    np.float32)
+            elif name == "tie_at_cut":
+                s = np.zeros((h, w), np.float32)
+                for t in range(16):
+                    y = (t // 4) * tile + int(rng.integers(3, tile - 3))
+                    x = (t % 4) * tile + int(rng.integers(3, tile - 3))
+                    s[y, x] = 60.0 if t in (2, 7, 13) else 50.0
+            else:
+                s = planted_scores(rng, h, w, tile, 4 * tile, ps["border"])
+            maps.append(s.reshape(-1))
+        lanes.append(np.concatenate(maps))
+    return table, np.stack(lanes)
 
 
 def planted_fast_levels(case: str, seed: int = 1):
@@ -791,6 +858,15 @@ PLANTED_LEVELS = dict(shapes=[(120, 160), (100, 133), (83, 111)],
                       quotas=[600, 80, 40], tiles=[16, 13, 11],
                       scales=[1.0, 1.2, 1.44])
 PLANTED_PEAKS = [24000, 250, 100]  # planted per level: no quota fills
+
+
+def planted_levels_map(planted) -> np.ndarray:
+    """The (n_pixels,) planted score map of PLANTED_LEVELS (border 5)."""
+    rng = np.random.default_rng(18)
+    return np.concatenate([
+        planted_scores(rng, h, w, t, n, 5).reshape(-1)
+        for (h, w), t, n in zip(planted.shapes, PLANTED_LEVELS["tiles"],
+                                PLANTED_PEAKS)])
 # K16 against the plain pyramid's two float32 products: grey levels. Both
 # add the same 2-3 products per output; the product's summation order and
 # its use of fused multiply-adds are the library's, so only a few float32
@@ -814,14 +890,18 @@ def frontend_kernel_parity(seq, cfg, dev) -> list:
     K16: within PYRAMID_TOLERANCE of the plain pyramid, and the front end
     fed K16's pyramid shares >= 97% of its keypoints (pixel and level) with
     the one fed the plain pyramid. K17: exact, 7 taps on all levels and 5
-    taps on the frame. K18: uv, response and validity exactly equal in every
-    slot on frame 0's scores and on the planted score map. K19: depth,
+    taps on the frame, and on PLANTED_BLUR_SHAPES at 1, 3, 5 and 7 taps.
+    K18: uv, response and validity exactly equal in every slot on frame 0's
+    scores, on the planted score map and on PLANTED_SELECT, with the
+    launches its C entry reports. Both with their device times (*_timing,
+    blur_problems and select_problems). K19: depth,
     validity, level, response and uv_raw exact, uv and u_right within 1e-4,
     with and without distortion."""
     import dataclasses
 
     import torch
 
+    from planarslam_tpu_torch import kernels
     from planarslam_tpu_torch.io.frames import quantize_frame
     from planarslam_tpu_torch.ops import fast, image, levels, orb
     from planarslam_tpu_torch.ops import frontend as fe
@@ -897,12 +977,36 @@ def frontend_kernel_parity(seq, cfg, dev) -> list:
     _check(torch.equal(line_k, line_p),
            f"gaussian_blur (5 taps, the frame) differs from plain by "
            f"{_max_err(line_k, line_p)}")
+    # the planted levels (1-6 pixels wide or tall, odd offsets) at every
+    # tap count, one launch each
+    changed = {}
+    p_table, p_buf = planted_blur_levels()
+    p_buf = torch.from_numpy(p_buf).to(dev)
+    for ksize, sigma in PLANTED_BLUR_TAPS:
+        n0 = kernels.LAUNCHES["gaussian_blur"]
+        got = image.gaussian_blur_levels(p_buf, p_table, ksize, sigma)
+        want = image.gaussian_blur_levels_plain(p_buf, p_table, ksize, sigma)
+        torch.cuda.synchronize()
+        _check(kernels.LAUNCHES["gaussian_blur"] == n0 + 1,
+               f"gaussian_blur (planted, {ksize} taps): not one launch")
+        _check(torch.equal(got, want), f"gaussian_blur (planted, {ksize} "
+               f"taps): {int((got != want).sum())} pixels differ from plain")
+        changed[ksize] = int((got != p_buf).sum())
+    planted17 = {"levels": [list(x) for x in p_table.shapes],
+                 "pixels_changed_by_ksize": changed}
     out.append({"name": "gaussian_blur", "route": "cuda", "library_ms": None,
                 # per pixel and pass: 7 multiplies and 7 adds
                 **_bound(_nbytes(buf, blur_k), 28.0 * table.n_pixels),
+                # the 5-tap frame launch: the frame read and written, per
+                # pixel and pass 5 multiplies and 5 adds
+                "line_stage_bound": _bound(_nbytes(gray, line_k),
+                                           20.0 * gray.numel()),
                 "source": src + "pyramid.cu",
                 "replaces": "planarslam_tpu/ops/image.py:27",
                 "max_abs_err": err17, "tolerance": 0.0,
+                "planted": planted17,
+                **{f"{k}_timing": kernel_timing_entry(fn, "gaussian_blur")
+                   for k, fn in blur_problems(seq, cfg, dev).items()},
                 "ms": _time_ms(lambda: image.gaussian_blur_levels(
                     buf, table, 7, 2.0)),
                 "line_stage_ms": _time_ms(
@@ -926,17 +1030,39 @@ def frontend_kernel_parity(seq, cfg, dev) -> list:
         _check(torch.equal(a, c),
                f"select_keypoints: two launches differ in {n}")
     planted = levels.table_from_levels(**PLANTED_LEVELS)
-    rng = np.random.default_rng(18)
-    maps = [planted_scores(rng, h, w, t, n, 5).reshape(-1)
-            for (h, w), t, n in zip(planted.shapes, PLANTED_LEVELS["tiles"],
-                                    PLANTED_PEAKS)]
-    pl_scores = torch.from_numpy(np.concatenate(maps)).to(dev)[None]
+    pl_scores = torch.from_numpy(planted_levels_map(planted)).to(dev)[None]
+    n0 = kernels.LAUNCHES["select_keypoints"]
     k18p = fast.select_keypoints_levels(pl_scores, planted, 7.0, 5)
+    _check(kernels.LAUNCHES["select_keypoints"]
+           == n0 + fast.select_launches(planted),
+           f"select_keypoints: {kernels.LAUNCHES['select_keypoints'] - n0} "
+           f"launches, the C entry's count {fast.select_launches(planted)}")
     p18p = fast.select_keypoints_levels_plain(pl_scores, planted, 7.0, 5)
     torch.cuda.synchronize()
     for n, a, b in zip(names, k18p, p18p):
         _check(torch.equal(a, b), f"select_keypoints: {n} differs from plain "
                f"on the planted map in {int((a != b).sum())} entries")
+    # PLANTED_SELECT: a tile wider than its level, a dry tile of the sort
+    # branch, a level of -1 only, a tie across tiles at the quota's cut
+    ps = PLANTED_SELECT
+    s_table, s_scores = planted_select_levels()
+    s_scores = torch.from_numpy(s_scores).to(dev)
+    k18s = fast.select_keypoints_levels(s_scores, s_table, ps["min_score"],
+                                        ps["border"])
+    p18s = fast.select_keypoints_levels_plain(s_scores, s_table,
+                                              ps["min_score"], ps["border"])
+    torch.cuda.synchronize()
+    for n, a, b in zip(names, k18s, p18s):
+        _check(torch.equal(a, b), f"select_keypoints: {n} differs from plain "
+               f"on PLANTED_SELECT in {int((a != b).sum())} entries")
+    planted_select = dict(zip(ps["names"], [
+        int(v.sum()) for v in torch.split(
+            k18s[2][0], [int(x) for x in s_table.column("quota")])]))
+    _check(planted_select["all_below"] == 0
+           and planted_select["tie_at_cut"] == ps["quotas"][3]
+           and 0 < planted_select["dry_sort"] < ps["quotas"][1],
+           f"select_keypoints: PLANTED_SELECT does not exercise it: "
+           f"{planted_select}")
     q = planted.column("quota")
     planted_valid = [int(v.sum()) for v in torch.split(k18p[2][0],
                                                        [int(x) for x in q])]
@@ -962,6 +1088,10 @@ def frontend_kernel_parity(seq, cfg, dev) -> list:
                                        planted.column("k_tile")],
                             "quotas": [int(x) for x in q],
                             "valid": planted_valid},
+                "planted_select_valid": planted_select,
+                "launches_per_call": fast.select_launches(table),
+                **{f"{k}_timing": kernel_timing_entry(fn, "select_")
+                   for k, fn in select_problems(seq, cfg, dev).items()},
                 "ms": _time_ms(lambda: fast.select_keypoints_levels(
                     scores, table, min_score, fe.EDGE_BORDER)),
                 "plain_ms": _time_ms(
@@ -1333,25 +1463,75 @@ def line_search_problems(seq, cfg, dev) -> dict:
     return out
 
 
+def _frames_pyramid(seq, cfg, dev):
+    """Frames 0-3 of `seq` (taken again from the first where it is
+    shorter), quantized, on the card (4, H, W), their level table and their
+    8-level pyramids (4, n_pixels) built by the tree's K16."""
+    import torch
+
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import image
+    from planarslam_tpu_torch.ops.frontend import orb_level_table
+
+    cam, oc = cfg.camera, cfg.orb
+    n = len(seq.poses_wc)
+    gray = torch.from_numpy(np.stack([
+        quantize_frame(*seq.render(i % n), cam.depth_map_factor)[0].astype(
+            np.float32) for i in range(4)])).to(dev)
+    table = orb_level_table(cam.height, cam.width, oc)
+    return gray, table, image.build_pyramid_levels(gray, table,
+                                                   oc.scale_factor)
+
+
 def fast_problems(seq, cfg, dev) -> dict:
     """K1 at the main path's shapes: frame 0's 8-level pyramid ("b1") and
     frames 0-3's in one launch ("b4"), built by the tree's K16. Returns
     {name: fn}, fn() launching it."""
-    import torch
+    from planarslam_tpu_torch.ops import fast
 
-    from planarslam_tpu_torch.io.frames import quantize_frame
-    from planarslam_tpu_torch.ops import fast, image
-    from planarslam_tpu_torch.ops.frontend import orb_level_table
-
-    cam, oc = cfg.camera, cfg.orb
-    gray = torch.from_numpy(np.stack([
-        quantize_frame(*seq.render(i), cam.depth_map_factor)[0].astype(
-            np.float32) for i in range(4)])).to(dev)
-    table = orb_level_table(cam.height, cam.width, oc)
-    buf = image.build_pyramid_levels(gray, table, oc.scale_factor)
+    _, table, buf = _frames_pyramid(seq, cfg, dev)
     one = buf[:1].contiguous()
     return {"b1": lambda: (fast.fast_score_levels(one, table),),
             "b4": lambda: (fast.fast_score_levels(buf, table),)}
+
+
+def blur_problems(seq, cfg, dev) -> dict:
+    """K17 at the main path's shapes: 7 taps on frame 0's 8-level pyramid
+    ("b1") and on frames 0-3's in one launch ("b4"), and the line stage's
+    5 taps on frame 0 ("frame_5tap") and on frames 0-3 in one launch
+    ("frame_5tap_b4"). Returns {name: fn}, fn() launching it."""
+    from planarslam_tpu_torch.ops import image
+
+    gray, table, buf = _frames_pyramid(seq, cfg, dev)
+    one, g1 = buf[:1].contiguous(), gray[:1].contiguous()
+    return {"b1": lambda: (image.gaussian_blur_levels(one, table, 7, 2.0),),
+            "b4": lambda: (image.gaussian_blur_levels(buf, table, 7, 2.0),),
+            "frame_5tap": lambda: (image.gaussian_blur(g1, 5, 1.0),),
+            "frame_5tap_b4": lambda: (image.gaussian_blur(gray, 5, 1.0),)}
+
+
+def select_problems(seq, cfg, dev) -> dict:
+    """K18 at the main path's shapes: frame 0's FAST scores ("b1") and
+    frames 0-3's in one launch ("b4"), from the tree's K16 and K1, and the
+    planted map of PLANTED_LEVELS ("planted"). Returns {name: fn}, fn()
+    launching it."""
+    import torch
+
+    from planarslam_tpu_torch.ops import fast, levels
+    from planarslam_tpu_torch.ops.frontend import EDGE_BORDER
+
+    _, table, buf = _frames_pyramid(seq, cfg, dev)
+    scores = fast.fast_score_levels(buf, table)
+    one = scores[:1].contiguous()
+    min_score = float(cfg.orb.min_th_fast)
+    planted = levels.table_from_levels(**PLANTED_LEVELS)
+    pl_scores = torch.from_numpy(planted_levels_map(planted)).to(dev)[None]
+    return {"b1": lambda: fast.select_keypoints_levels(
+                one, table, min_score, EDGE_BORDER),
+            "b4": lambda: fast.select_keypoints_levels(
+                scores, table, min_score, EDGE_BORDER),
+            "planted": lambda: fast.select_keypoints_levels(
+                pl_scores, planted, 7.0, 5)}
 
 
 def detect_timing(blurred, lc) -> dict:
@@ -1829,11 +2009,12 @@ def hamming_step_problems(seq, cfg, dev) -> dict:
 def kernel_timing_entry(fn, match: str) -> dict:
     """One kernel problem's times: ms per wrapper call (CUDA events) and
     its device ms per call under the profiler (launches whose kernel name
-    holds `match`), with the launches per call."""
+    holds `match`), with the launches per call, and by kernel name."""
     split = _launch_split(fn, match=match)
     return {"ms": _time_ms(fn),
             "device_ms": sum(v["ms"] for v in split.values()),
-            "launches": sum(v["calls"] for v in split.values())}
+            "launches": sum(v["calls"] for v in split.values()),
+            "device_ms_by_kernel": {k: v["ms"] for k, v in split.items()}}
 
 
 def components_inputs(seq, cfg, dev):
@@ -4028,7 +4209,8 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
     """One K11 launch per pose_optimize call; per extract_planes call one
     K4, one K12, 1 + refine_rounds K13 and one K14 launch; one K15 launch
     per track_manhattan_frame call; per extract_point_features call one K1,
-    one K2, one K19, n_levels - 1 K16 and two K18 launches; one K17 launch
+    one K2, one K19, n_levels - 1 K16 and fast.select_launches(table) K18
+    launches (two, as its C entry reports them); one K17 launch
     per extract_point_features and per extract_line_features call; per
     extract_line_features call the DETECT_LAUNCHES of K20's one call, one
     K21 and one K22; lines.search_launches(M) of K23 per
@@ -4054,10 +4236,15 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
     extract_frame, extract_planes, extract_point_features and
     extract_line_features call per frame, and a tracking step on all frames
     but the first."""
-    from planarslam_tpu_torch.ops import lines
+    from planarslam_tpu_torch.ops import fast, lines
+    from planarslam_tpu_torch.ops.frontend import orb_level_table
 
     rounds = 1 + (cfg.planes.refine_rounds if cfg is not None else 0)
     resizes = cfg.orb.n_levels - 1 if cfg is not None else 0
+    # K18's launches per call, as its C entry reports them
+    selects = (fast.select_launches(orb_level_table(
+        cfg.camera.height, cfg.camera.width, cfg.orb))
+        if cfg is not None else 0)
     points, lns = rec["point_calls"], rec["line_calls"]
     searches = rec["projection_search_calls"]
     matches = rec["descriptor_match_calls"]
@@ -4070,7 +4257,8 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
             "manhattan_mean_shift": rec["manhattan_calls"],
             "fast_score": points, "orb_describe": points,
             "point_epilogue": points, "pyramid_resize": resizes * points,
-            "select_keypoints": 2 * points, "gaussian_blur": points + lns,
+            "select_keypoints": selects * points,
+            "gaussian_blur": points + lns,
             "detect_lines": lines.DETECT_LAUNCHES * lns,
             "line_descriptors": lns, "lift_lines_3d": lns,
             "search_lines_by_projection": rec["search_launches"],
@@ -5468,8 +5656,10 @@ def _batch_entry(report: list, name: str, ms_b1: float, ms_b: float,
 
 
 def batched_kernel_parity(seq, cfg, dev, report: list) -> None:
-    """K1, K3, K4, K11, K12-K15, K23 and K28 on BATCH_PARITY lanes in one
-    launch each (K1 on the lanes' pyramids, K23 on the window seen from
+    """K1, K3, K4, K11, K12-K15, K17, K18, K23 and K28 on BATCH_PARITY
+    lanes in one launch each (K1 and K17 on the lanes' pyramids, K17 also
+    on their frames at 5 taps and on planted levels, K18 on the lanes'
+    scores and on PLANTED_SELECT, K23 on the window seen from
     LINE_LANE_VIEWS): every lane bit-equal to its own B = 1 launch, and
     held to its plain version as the single problem is; one launch per
     call whatever B; times at B = 1 and B = BATCH_PARITY beside the bound."""
@@ -5480,7 +5670,7 @@ def batched_kernel_parity(seq, cfg, dev, report: list) -> None:
     from planarslam_tpu_torch.ops import fast, image
     from planarslam_tpu_torch.ops import lines as ln
     from planarslam_tpu_torch.ops import manhattan, matching, planes
-    from planarslam_tpu_torch.ops.frontend import orb_level_table
+    from planarslam_tpu_torch.ops.frontend import EDGE_BORDER, orb_level_table
     from planarslam_tpu_torch.slam import device_tracker as dt
     from planarslam_tpu_torch.slam.frame import extract_frame
     from planarslam_tpu_torch.solvers import pose_opt
@@ -5726,6 +5916,64 @@ def batched_kernel_parity(seq, cfg, dev, report: list) -> None:
     _batch_entry(report, "fast_score", *timed(
         lambda: fast.fast_score_levels(buf, table),
         lambda: fast.fast_score_levels(one, table)), B,
+        {"max_abs_err_plain": 0.0})
+    scores = got
+
+    # K17: 7 taps on the lanes' pyramids, 5 taps on their frames (the line
+    # stage) and 7 taps on planted levels of B lanes, exact
+    p_table, p_buf = planted_blur_levels(batch=B)
+    p_buf = torch.from_numpy(p_buf).to(dev)
+    for what, x, t17, ksize, sigma in (("pyramid", buf, table, 7, 2.0),
+                                       ("frame", gray, None, 5, 1.0),
+                                       ("planted", p_buf, p_table, 7, 2.0)):
+        if t17 is None:  # (B, H, W) frames: gaussian_blur and blur
+            fn = lambda y: image.gaussian_blur(y, ksize, sigma)  # noqa: E731
+            want = torch.stack([image.blur(g, ksize, sigma) for g in x])
+        else:
+            fn = lambda y: image.gaussian_blur_levels(  # noqa: E731
+                y, t17, ksize, sigma)
+            want = image.gaussian_blur_levels_plain(x, t17, ksize, sigma)
+        got = launches("gaussian_blur", fn, x)
+        _same_lanes(f"gaussian_blur ({what})", (got,), [
+            (fn(x[b:b + 1].contiguous()),) for b in range(B)])
+        _check(torch.equal(got, want),
+               f"gaussian_blur ({what}): the lanes differ from plain")
+    _batch_entry(report, "gaussian_blur", *timed(
+        lambda: image.gaussian_blur_levels(buf, table, 7, 2.0),
+        lambda: image.gaussian_blur_levels(one, table, 7, 2.0)), B,
+        {"max_abs_err_plain": 0.0, "frame_5tap": dict(zip(
+            ("ms_b1", "ms"), timed(
+                lambda: image.gaussian_blur(gray, 5, 1.0),
+                lambda: image.gaussian_blur(gray[:1], 5, 1.0))))})
+
+    # K18 on the lanes' scores and on PLANTED_SELECT's levels for B lanes,
+    # exact in every slot, with the launches its C entry reports
+    ps = PLANTED_SELECT
+    s_table, s_scores = planted_select_levels(batch=B)
+    s_scores = torch.from_numpy(s_scores).to(dev)
+    min_score = float(oc.min_th_fast)
+    for what, t18, x, ms, border in (
+            ("frames", table, scores, min_score, EDGE_BORDER),
+            ("planted", s_table, s_scores, ps["min_score"], ps["border"])):
+        n0 = kernels.LAUNCHES["select_keypoints"]
+        got = fast.select_keypoints_levels(x, t18, ms, border)
+        _check(kernels.LAUNCHES["select_keypoints"]
+               == n0 + fast.select_launches(t18),
+               f"select_keypoints ({what}): "
+               f"{kernels.LAUNCHES['select_keypoints'] - n0} launches for "
+               f"{B} lanes, the C entry's count {fast.select_launches(t18)}")
+        _same_lanes(f"select_keypoints ({what})", got, [
+            fast.select_keypoints_levels(x[b:b + 1].contiguous(), t18, ms,
+                                         border) for b in range(B)])
+        want = fast.select_keypoints_levels_plain(x, t18, ms, border)
+        _check(all(torch.equal(a, c) for a, c in zip(got, want)),
+               f"select_keypoints ({what}): the lanes differ from plain")
+    s_one = scores[:1].contiguous()
+    _batch_entry(report, "select_keypoints", *timed(
+        lambda: fast.select_keypoints_levels(scores, table, min_score,
+                                             EDGE_BORDER),
+        lambda: fast.select_keypoints_levels(s_one, table, min_score,
+                                             EDGE_BORDER)), B,
         {"max_abs_err_plain": 0.0})
 
     # K23 on the window seen from LINE_LANE_VIEWS, one lane each

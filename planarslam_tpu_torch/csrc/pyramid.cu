@@ -19,17 +19,35 @@
 //
 // K17 replaces planarslam_tpu/ops/image.py::blur (separable Gaussian, up to
 // 7 taps, replicate borders), which is 14 scaled adds and 4 concatenations
-// per level in the JAX version. Here one launch blurs every level of the
-// buffer: a block loads a 32 x 16 tile with its halo into shared memory
-// (clamped coordinates = replicate borders), runs the vertical pass into a
-// second shared tile (rounded to float32, as the JAX version's intermediate
-// image is) and the horizontal pass from there. Each pass accumulates
-// 0 + k0 x0 + k1 x1 + ... in that order with a separate multiply and add, so
-// the result has the bits of the plain version: descriptor bits are
-// comparisons of blurred values. The 5-tap blur of the line stage is the
-// same kernel on a one-level table.
-// Bound: bytes (each pixel read once and written once); 2 x ksize
-// multiplies and adds per pixel.
+// per level in the JAX version. One launch blurs every level of the buffer
+// (the 5-tap blur of the line stage is the same kernel on a one-level
+// table). Each pass accumulates 0 + k0 x0 + k1 x1 + ... in that order with
+// a separate multiply and add, and the vertical result is rounded to
+// float32 before the horizontal pass reads it, as the JAX version's
+// intermediate image is: the output has the bits of the plain version, and
+// descriptor bits are comparisons of blurred values.
+// Bound: bytes (each pixel read once and written once, 7.6 MB for the eight
+// levels of a 640x480 frame and 2.5 MB for the frame); 2 x ksize multiplies
+// and adds per pixel. At one frame the launch is latency: few bytes, many
+// small blocks. The design:
+// - a block owns a strip of kBlurCols staged columns of one level (the
+//   strip's 64 - 2r output columns and an r-column halo each side, the
+//   coordinates clamped into the level: replicate borders) and walks down
+//   `seg_bands` bands of kBlurBand rows; the host picks seg_bands so that
+//   the grid is about one wave of resident blocks (one band a block at one
+//   frame, three at four), taking each block's level from its table;
+// - a band's rows, with their r-row halo, are staged by asynchronous
+//   4-byte copies (level offsets such as 842491 are not 16-byte aligned),
+//   double-buffered: band k + 1 loads while band k is filtered;
+// - the vertical pass: a thread takes 8 rows of one column, its
+//   8 + 2r-row window read once into registers;
+// - the horizontal pass: a warp takes a row of the intermediate, a lane
+//   two outputs, so the stores of a warp are 32 consecutive floats.
+// The tap count is a template argument: the loops unroll.
+#include <cuda_pipeline.h>
+
+#include <algorithm>
+
 #include "common.cuh"
 #include "levels.cuh"
 
@@ -77,63 +95,157 @@ __global__ void pyramid_resize_kernel(
   dst[b * dst_stride + oy * w_out + ox] = acc;
 }
 
-constexpr int kBlurTileW = 32;
-constexpr int kBlurTileH = 16;
 constexpr int kBlurMaxTaps = 7;
-constexpr int kBlurMaxR = kBlurMaxTaps / 2;
+constexpr int kBlurCols = 64;     // staged columns of a strip
+constexpr int kBlurBand = 16;     // rows of a band
+constexpr int kBlurThreads = 128;  // vertical pass: 2 x 8 rows x 64 columns
+static_assert(kBlurThreads == 2 * kBlurCols, "two row halves a column");
+static_assert(kBlurBand == 16 && kBlurThreads == 4 * 32,
+              "a warp takes rows w, w + 4, w + 8, w + 12 of a band");
 
 struct BlurTaps {
   float k[kBlurMaxTaps];
 };
 
-__global__ void gaussian_blur_kernel(const float* __restrict__ src,
-                                     float* __restrict__ dst,
-                                     const PslLevels lv, const BlurTaps taps,
-                                     int ksize) {
-  __shared__ float in[kBlurTileH + 2 * kBlurMaxR][kBlurTileW + 2 * kBlurMaxR];
-  __shared__ float mid[kBlurTileH][kBlurTileW + 2 * kBlurMaxR];
-  const int r = ksize / 2;
+template <int KSIZE>
+__global__ void __launch_bounds__(kBlurThreads)
+    gaussian_blur_kernel(const float* __restrict__ src,
+                         float* __restrict__ dst, const PslLevels lv,
+                         const BlurTaps taps, int seg_bands) {
+  constexpr int R = KSIZE / 2;
+  constexpr int kStrip = kBlurCols - 2 * R;  // output columns of a strip
+  constexpr int kRows = kBlurBand + 2 * R;   // staged rows of a band
+  constexpr int kWin = kBlurBand / 2 + 2 * R;  // a thread's vertical window
+  __shared__ float stage[2][kRows][kBlurCols];
+  __shared__ float mid[kBlurBand][kBlurCols];
   const int l = psl_level_of(lv.blk_off, lv.n, blockIdx.x);
-  const int h = lv.h[l];
-  const int w = lv.w[l];
-  const int blocks_x = (w + kBlurTileW - 1) / kBlurTileW;
+  const int h = lv.h[l], w = lv.w[l];
+  const int strips = (w + kStrip - 1) / kStrip;
   const int blk = blockIdx.x - lv.blk_off[l];
-  const int x0 = (blk % blocks_x) * kBlurTileW;
-  const int y0 = (blk / blocks_x) * kBlurTileH;
+  const int x0 = (blk % strips) * kStrip;
+  const int y_seg = (blk / strips) * seg_bands * kBlurBand;
+  const int n_bands =
+      min(seg_bands, (h - y_seg + kBlurBand - 1) / kBlurBand);
   const size_t base = static_cast<size_t>(blockIdx.y) * lv.n_pixels + lv.off[l];
-  const float* s = src + base;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int n_threads = blockDim.x * blockDim.y;
-  const int in_w = kBlurTileW + 2 * r;
-  const int in_h = kBlurTileH + 2 * r;
-
-  for (int i = tid; i < in_w * in_h; i += n_threads) {
-    const int ty = i / in_w;
-    const int tx = i % in_w;
-    const int yy = psl_clamp(y0 + ty - r, 0, h - 1);
-    const int xx = psl_clamp(x0 + tx - r, 0, w - 1);
-    in[ty][tx] = s[yy * w + xx];
-  }
-  __syncthreads();
-  // vertical pass at every column of the tile and its halo
-  for (int i = tid; i < in_w * kBlurTileH; i += n_threads) {
-    const int ty = i / in_w;
-    const int tx = i % in_w;
-    float acc = 0.0f;
-    for (int t = 0; t < ksize; ++t) {
-      acc = __fadd_rn(acc, __fmul_rn(taps.k[t], in[ty + t][tx]));
+  const int tid = threadIdx.x;
+  const int c = tid % kBlurCols;   // this thread's staged column
+  const int half = tid / kBlurCols;  // and row half (vertical pass)
+  const int warp = tid / 32, lane = tid % 32;
+  // a thread stages one column of every other row of a band
+  const float* col = src + base + psl_clamp(x0 - R + c, 0, w - 1);
+  auto stage_band = [&](int k) {
+    const int y_top = y_seg + k * kBlurBand - R;
+    for (int r = half; r < kRows; r += 2) {
+      __pipeline_memcpy_async(&stage[k & 1][r][c],
+                              col + psl_clamp(y_top + r, 0, h - 1) * w,
+                              sizeof(float));
     }
-    mid[ty][tx] = acc;
+    __pipeline_commit();
+  };
+  stage_band(0);
+  for (int k = 0; k < n_bands; ++k) {
+    // staging: band k + 1's copies issued, band k's awaited
+    if (k + 1 < n_bands) {
+      stage_band(k + 1);
+    } else {
+      __pipeline_commit();
+    }
+    __pipeline_wait_prior(1);
+    __syncthreads();
+    // vertical pass: rows 8 half .. 8 half + 7 of column c
+    {
+      float win[kWin];
+#pragma unroll
+      for (int i = 0; i < kWin; ++i) {
+        win[i] = stage[k & 1][half * (kBlurBand / 2) + i][c];
+      }
+#pragma unroll
+      for (int o = 0; o < kBlurBand / 2; ++o) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int t = 0; t < KSIZE; ++t) {
+          acc = __fadd_rn(acc, __fmul_rn(taps.k[t], win[o + t]));
+        }
+        mid[half * (kBlurBand / 2) + o][c] = acc;
+      }
+    }
+    __syncthreads();
+    // horizontal pass: warp w rows w, w + 4, ..., lane the columns lane
+    // and lane + 32 of the strip
+    const int y_band = y_seg + k * kBlurBand;
+#pragma unroll
+    for (int i = 0; i < kBlurBand / 4; ++i) {
+      const int r = warp + 4 * i;
+      if (y_band + r >= h) break;
+      float* out = dst + base + static_cast<size_t>(y_band + r) * w + x0;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int j = lane + 32 * q;
+        if (j < kStrip && x0 + j < w) {
+          float acc = 0.0f;
+#pragma unroll
+          for (int t = 0; t < KSIZE; ++t) {
+            acc = __fadd_rn(acc, __fmul_rn(taps.k[t], mid[r][j + t]));
+          }
+          out[j] = acc;
+        }
+      }
+    }
+  }  // the walk down the strip
+}
+
+// Blocks of gaussian_blur_kernel<KSIZE> resident on the current card at
+// once (its SMs times the blocks an SM holds) into *wave, cached per card;
+// returns a CUDA error code.
+template <int KSIZE>
+int blur_wave(int* wave) {
+  static int cache[kPslDevices] = {};
+  int* slot = psl_device_slot(cache);
+  if (slot != nullptr && *slot > 0) {
+    *wave = *slot;
+    return 0;
   }
-  __syncthreads();
-  const int x = x0 + threadIdx.x;
-  const int y = y0 + threadIdx.y;
-  if (x >= w || y >= h) return;
-  float acc = 0.0f;
-  for (int t = 0; t < ksize; ++t) {
-    acc = __fadd_rn(acc, __fmul_rn(taps.k[t], mid[threadIdx.y][threadIdx.x + t]));
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  dst[base + y * w + x] = acc;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gaussian_blur_kernel<KSIZE>, kBlurThreads, 0);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (sms * per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  *wave = sms * per_sm;
+  if (slot != nullptr) *slot = *wave;
+  return 0;
+}
+
+// K17 over the levels of lv (its blk_off set here) for `batch` frames:
+// bands of all strips over about one wave of blocks.
+template <int KSIZE>
+int launch_blur(const float* src, float* dst, PslLevels lv, int batch,
+                const BlurTaps& taps, cudaStream_t stream) {
+  constexpr int kStrip = kBlurCols - 2 * (KSIZE / 2);
+  long long bands = 0;
+  for (int l = 0; l < lv.n; ++l) {
+    bands += static_cast<long long>((lv.w[l] + kStrip - 1) / kStrip) *
+             ((lv.h[l] + kBlurBand - 1) / kBlurBand);
+  }
+  if (bands == 0) return 0;
+  int wave = 0;
+  const int rc = blur_wave<KSIZE>(&wave);
+  if (rc != 0) return rc;
+  const int seg = static_cast<int>(
+      std::max(1LL, (bands * batch + wave - 1) / wave));
+  for (int l = 0; l < lv.n; ++l) {
+    const int segs = ((lv.h[l] + kBlurBand - 1) / kBlurBand + seg - 1) / seg;
+    lv.blk_off[l + 1] =
+        lv.blk_off[l] + ((lv.w[l] + kStrip - 1) / kStrip) * segs;
+  }
+  gaussian_blur_kernel<KSIZE><<<dim3(lv.blk_off[lv.n], batch), kBlurThreads,
+                                0, stream>>>(src, dst, lv, taps, seg);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -181,24 +293,28 @@ PSL_API int psl_pyramid_build(const float* gray, long long gray_stride,
 }
 
 // Every level of `batch` frames: src, dst (batch, n_pixels); rows is the
-// host's level table; k0..k6 the taps (the first ksize are read), ksize odd.
+// host's level table; k0..k6 the taps (the first ksize are read), ksize 1,
+// 3, 5 or 7.
 PSL_API int psl_gaussian_blur(const float* src, float* dst, const int* rows,
                               int n_levels, int batch, int ksize, float k0,
                               float k1, float k2, float k3, float k4, float k5,
                               float k6, cudaStream_t stream) {
   PslLevels lv;
   if (!psl_levels_from_host(rows, nullptr, n_levels, &lv) || batch < 1 ||
-      ksize < 1 || ksize > kBlurMaxTaps || ksize % 2 == 0) {
+      batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  for (int l = 0; l < lv.n; ++l) {
-    lv.blk_off[l + 1] = lv.blk_off[l] +
-                        ((lv.w[l] + kBlurTileW - 1) / kBlurTileW) *
-                            ((lv.h[l] + kBlurTileH - 1) / kBlurTileH);
-  }
   const BlurTaps taps = {{k0, k1, k2, k3, k4, k5, k6}};
-  const dim3 grid(lv.blk_off[lv.n], batch);
-  gaussian_blur_kernel<<<grid, dim3(kBlurTileW, kBlurTileH), 0, stream>>>(
-      src, dst, lv, taps, ksize);
-  return static_cast<int>(cudaGetLastError());
+  switch (ksize) {
+    case 1:
+      return launch_blur<1>(src, dst, lv, batch, taps, stream);
+    case 3:
+      return launch_blur<3>(src, dst, lv, batch, taps, stream);
+    case 5:
+      return launch_blur<5>(src, dst, lv, batch, taps, stream);
+    case 7:
+      return launch_blur<7>(src, dst, lv, batch, taps, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

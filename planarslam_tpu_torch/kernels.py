@@ -169,8 +169,9 @@ _SIGNATURES = {
     # src, dst, rows, n_levels, batch, ksize, the 7 taps, stream
     "psl_gaussian_blur": [_P, _P, _P, _I, _I, _I] + [_F] * 7 + [_P],
     # score, rows, n_levels, batch, min_score, border, cand_val, cand_xy,
-    # uv, response, valid, stream
-    "psl_select_keypoints": [_P, _P, _I, _I, _F, _I] + [_P] * 6,
+    # uv, response, valid, launches (the int the entry sets to the launches
+    # it made), stream
+    "psl_select_keypoints": [_P, _P, _I, _I, _F, _I] + [_P] * 7,
     # uv_level, resp, valid_in, depth, h, w, rows, scale, n_levels, batch,
     # capacity, fx, fy, cx, cy, bf, k1, k2, p1, p2, k3, has_distortion, uv,
     # uv_raw, response, level, depth_out, u_right, valid, stream

@@ -5,13 +5,14 @@ Port of ``planarslam_tpu/ops/fast.py``. ``fast_score`` is kernel K1
 kernel on every level of a frame in one launch; ``fast_score_plain`` is
 their plain PyTorch version. ``select_keypoints_levels`` is kernel K18
 (``csrc/select_keypoints.cu``): NMS, per-tile top-k and a per-level top-k
-for every level in two launches, with ties ordered lower-index-first as
-``lax.top_k`` orders them; ``select_keypoints`` is its plain version, one
-level at a time.
+for every level in select_launches(table) launches, with ties ordered
+lower-index-first as ``lax.top_k`` orders them; ``select_keypoints`` is its
+plain version, one level at a time.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -81,6 +82,19 @@ def fast_score(img: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# launches issued by one call of csrc/select_keypoints.cu::
+# psl_select_keypoints on a table with tiles: the tiles, then the ranking
+SELECT_LAUNCHES = 2
+# the shared memory a block of K18's tile stage may opt in to on an H100
+SELECT_SMEM_LIMIT = 232448
+
+
+def select_launches(table: LevelTable) -> int:
+    """K18's launches for one call on `table` (its C entry reports what it
+    made; this is what a caller expects)."""
+    return SELECT_LAUNCHES if table.n_tiles else 0
+
+
 def _check_buffer(buf: torch.Tensor, name: str, table: LevelTable) -> None:
     kernels.check(buf, name, torch.float32)
     if buf.dim() != 2 or buf.shape[1] != table.n_pixels:
@@ -141,9 +155,10 @@ def select_keypoints_levels(scores: torch.Tensor, table: LevelTable,
     if kernels.on_cpu(scores):
         return select_keypoints_levels_plain(scores, table, min_score, border)
     _check_buffer(scores, "scores", table)
-    if 4 * table.max_tile ** 2 > 48 * 1024:
-        raise ValueError(f"tile {table.max_tile} exceeds the kernel's shared "
-                         f"memory tile")
+    t = table.max_tile
+    if 4 * ((t + 2) ** 2 + t ** 2) > SELECT_SMEM_LIMIT:
+        raise ValueError(f"tile {t} exceeds the shared memory of the "
+                         f"kernel's block")
     b, dev = scores.shape[0], scores.device
     cand_val = torch.empty((b, table.n_candidates), dtype=torch.float32,
                            device=dev)
@@ -152,14 +167,15 @@ def select_keypoints_levels(scores: torch.Tensor, table: LevelTable,
     uv = torch.empty((b, table.n_slots, 2), dtype=torch.float32, device=dev)
     resp = torch.empty((b, table.n_slots), dtype=torch.float32, device=dev)
     valid = torch.empty((b, table.n_slots), dtype=torch.bool, device=dev)
+    launches = ctypes.c_int(0)
     with torch.cuda.device(dev):
         kernels.launch("psl_select_keypoints", kernels.ptr(scores),
                        kernels.host_ptr(table.ints), table.n_levels, b,
                        float(min_score), int(border), kernels.ptr(cand_val),
                        kernels.ptr(cand_xy), kernels.ptr(uv),
-                       kernels.ptr(resp), kernels.ptr(valid))
-    # the tile pass and the ranking pass
-    kernels.LAUNCHES["select_keypoints"] += 2 if table.n_tiles else 0
+                       kernels.ptr(resp), kernels.ptr(valid),
+                       ctypes.addressof(launches))
+    kernels.LAUNCHES["select_keypoints"] += launches.value
     return uv, resp, valid
 
 

@@ -12,7 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import PLANTED_FAST_CASES, planted_fast_levels, planted_scores
+from chip_smoke import (PLANTED_BLUR_TAPS, PLANTED_FAST_CASES,
+                        PLANTED_SELECT, planted_blur_levels,
+                        planted_fast_levels, planted_scores,
+                        planted_select_levels)
 from planarslam_tpu import config as jconfig
 from planarslam_tpu.io import synthetic
 from planarslam_tpu.ops import fast as jfast
@@ -214,12 +217,62 @@ def test_select_keypoints_planted(h, w, tile, k_total, border, peaks, k_tile):
         np.testing.assert_array_equal(c, a, err_msg=f"counting vs JAX: {name}")
 
 
-@pytest.mark.parametrize("ksize,sigma", [(5, 1.0), (7, 2.0)])
+@pytest.mark.parametrize("level", range(len(PLANTED_SELECT["names"])))
+def test_select_keypoints_planted_levels(level):
+    """(b) select_keypoints' plain version, the JAX function and K18's
+    rank-by-counting rule on K18's planted levels (chip_smoke.py's
+    PLANTED_SELECT: a tile wider than its level, a dry tile of the sort
+    branch, a level of -1 only, a tie across tiles at the quota's cut), two
+    lanes: uv, response and validity exactly equal in every slot, the
+    invalid ones too, and the all-levels plain version's slots of the
+    level the same."""
+    ps = PLANTED_SELECT
+    table, scores = planted_select_levels(batch=2)
+    h, w = table.shapes[level]
+    tile, quota = int(table.column("tile")[level]), int(
+        table.column("quota")[level])
+    kw = dict(tile=tile, k_total=quota, min_score=ps["min_score"],
+              border=ps["border"])
+    lev = tfast.select_keypoints_levels(torch.from_numpy(scores), table,
+                                        ps["min_score"], ps["border"])
+    q0 = int(table.column("quota")[:level].sum())
+    name = ps["names"][level]
+    for b in range(2):
+        score = scores[b, table.level_slice(level)].reshape(h, w)
+        want = [np.asarray(a) for a in
+                jfast.select_keypoints(jnp.asarray(score), **kw)]
+        got = [a.numpy() for a in
+               tfast.select_keypoints(torch.from_numpy(score), **kw)]
+        ref = _select_by_counting(score, **kw)
+        for n, a, g, c, x in zip(("uv", "response", "valid"), want, got,
+                                 ref, lev):
+            np.testing.assert_array_equal(g, a, err_msg=f"plain vs JAX: {n}")
+            np.testing.assert_array_equal(c, a,
+                                          err_msg=f"counting vs JAX: {n}")
+            np.testing.assert_array_equal(x[b, q0:q0 + quota].numpy(), a,
+                                          err_msg=f"all levels vs JAX: {n}")
+        valid = want[2]
+        if name == "wide_tile":
+            assert tile > w
+        elif name == "dry_sort":
+            assert table.column("k_tile")[level] > 4
+            assert 0 < valid.sum() < quota
+        elif name == "all_below":
+            assert not valid.any() and (score <= ps["min_score"]).all()
+        else:  # tie_at_cut: 13 of the 16 tiles' maxima tie at the cut
+            assert valid.all()
+            assert (want[1] == 50.0).sum() == quota - 3
+
+
+@pytest.mark.parametrize("ksize,sigma", PLANTED_BLUR_TAPS)
 def test_blur_parity(ksize, sigma):
-    """(c) The separable Gaussian blur of a rendered 320x240 frame against
-    the JAX function, atol 1e-4 grey levels (XLA may contract a product and
-    a sum); the all-levels form on a one-level buffer gives the same
-    bits as the plain function."""
+    """(c) The separable Gaussian blur of a rendered 320x240 frame and of
+    chip_smoke.py's planted levels (1-6 pixels wide or tall, widths no
+    multiple of 4, odd offsets; K17's planted problem) against the JAX
+    function, atol 1e-4 grey levels (XLA may contract a product and a sum);
+    the all-levels form on a one-level buffer and on the planted buffer
+    (two lanes) gives the same bits as the plain function level by
+    level."""
     img, _ = _frame(320, 240)
     got = timage.blur(torch.from_numpy(img), ksize, sigma)
     np.testing.assert_allclose(
@@ -231,6 +284,20 @@ def test_blur_parity(ksize, sigma):
     lev = timage.gaussian_blur_levels(torch.from_numpy(img).reshape(1, -1),
                                       table, ksize, sigma)
     assert torch.equal(lev.reshape(240, 320), got)
+    table, buf = planted_blur_levels(batch=2)
+    lev = timage.gaussian_blur_levels(torch.from_numpy(buf), table, ksize,
+                                      sigma)
+    assert min(min(s) for s in table.shapes) == 1
+    assert sorted(set(table.column("offset") % 4)) == [0, 1, 2, 3]
+    for b in range(2):
+        for l, (h, w) in enumerate(table.shapes):
+            level = buf[b, table.level_slice(l)].reshape(h, w)
+            want = timage.blur(torch.from_numpy(level), ksize, sigma)
+            np.testing.assert_allclose(
+                want.numpy(), np.asarray(jimage.blur(jnp.asarray(level), ksize,
+                                                     sigma)), atol=1e-4)
+            assert torch.equal(lev[b, table.level_slice(l)].reshape(h, w),
+                               want)
 
 
 def _jax_tail(uv_raw, response, valid, depth, cam):

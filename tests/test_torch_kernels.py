@@ -594,8 +594,9 @@ def test_manhattan_mean_shift(dev):
     """K15 at N = 2112 on a frame's normals and line directions
     (chip_smoke.py's manhattan_kernel_parity): both cone sines, one axis
     missing (cross-product completion), two missing (success false, R_cm
-    returned unchanged); R_cm atol 1e-5, support counts, axis count and
-    success exact, two launches equal bits."""
+    returned unchanged), the normals twice over (N = 4224) and none;
+    R_cm atol 1e-5, support counts, axis count and success exact, two
+    launches equal bits."""
     cfg = SystemConfig()
     seq = synthetic.make_sequence(2, width=640, height=480)
     n0 = kernels.LAUNCHES["manhattan_mean_shift"]
@@ -604,7 +605,7 @@ def test_manhattan_mean_shift(dev):
     assert out[0]["shapes"]["N"] == (cfg.manhattan.max_normals
                                      + cfg.lines.max_lines)
     assert set(out[0]["cases"]) == {"track", "project", "axis_missing",
-                                    "two_missing"}
+                                    "two_missing", "n_twice", "n_zero"}
 
 
 def test_frontend_kernels(dev):
@@ -613,9 +614,10 @@ def test_frontend_kernels(dev):
     frontend_kernel_parity states the limits): K16 within
     chip_smoke.PYRAMID_TOLERANCE grey levels of the plain pyramid, >= 97%
     of the keypoints shared; K17 and K18 exactly equal to their plain
-    versions, K18 also on the planted score map with ties, empty tiles and
-    15 candidates per tile; K19 uv and u_right atol 1e-4, the rest exact,
-    with and without distortion."""
+    versions, K17 also on planted levels at 1, 3, 5 and 7 taps, K18 also
+    on the planted score map with ties, empty tiles and 15 candidates per
+    tile and on PLANTED_SELECT; K19 uv and u_right atol 1e-4, the rest
+    exact, with and without distortion."""
     cfg = SystemConfig()
     seq = synthetic.make_sequence(2, width=640, height=480)
     n0 = dict(kernels.LAUNCHES)
@@ -626,6 +628,50 @@ def test_frontend_kernels(dev):
         assert kernels.LAUNCHES[k["name"]] > n0[k["name"]]
     assert out[2]["planted"]["k_tile"] == [15, 2, 1]
     assert set(out[3]["cases"]) == {"pinhole", "distorted"}
+
+
+@pytest.mark.parametrize("ksize,sigma", chip_smoke.PLANTED_BLUR_TAPS)
+@pytest.mark.parametrize("batch", [1, 3])
+def test_blur_planted_levels(dev, ksize, sigma, batch):
+    """K17 over chip_smoke.py's planted levels (1-6 pixels wide or tall,
+    widths no multiple of 4, odd offsets, wider than a strip, taller than a
+    band) at 1, 3, 5 and 7 taps, `batch` lanes in one launch: exactly its
+    plain version, and each lane its one-lane launch."""
+    table, buf = chip_smoke.planted_blur_levels(batch=batch)
+    buf = torch.from_numpy(buf).to(dev)
+    n0 = kernels.LAUNCHES["gaussian_blur"]
+    got = image.gaussian_blur_levels(buf, table, ksize, sigma)
+    assert kernels.LAUNCHES["gaussian_blur"] == n0 + 1
+    assert torch.equal(got, image.gaussian_blur_levels_plain(buf, table,
+                                                             ksize, sigma))
+    for b in range(batch):
+        one = image.gaussian_blur_levels(buf[b:b + 1].contiguous(), table,
+                                         ksize, sigma)
+        assert torch.equal(got[b], one[0])
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_select_keypoints_planted_levels(dev, batch):
+    """K18 over chip_smoke.py's PLANTED_SELECT levels (a tile wider than its
+    level, a dry tile of the sort branch, a level of -1 only, a tie across
+    tiles at the quota's cut), `batch` lanes in one call of the launches
+    its C entry reports: uv, response and validity exactly its plain
+    version's in every slot, and each lane its one-lane call's."""
+    ps = chip_smoke.PLANTED_SELECT
+    table, scores = chip_smoke.planted_select_levels(batch=batch)
+    scores = torch.from_numpy(scores).to(dev)
+    kw = dict(min_score=ps["min_score"], border=ps["border"])
+    n0 = kernels.LAUNCHES["select_keypoints"]
+    got = fast.select_keypoints_levels(scores, table, **kw)
+    assert kernels.LAUNCHES["select_keypoints"] == (
+        n0 + fast.select_launches(table))
+    for a, b in zip(got, fast.select_keypoints_levels_plain(scores, table,
+                                                            **kw)):
+        assert torch.equal(a, b)
+    for b in range(batch):
+        one = fast.select_keypoints_levels(scores[b:b + 1].contiguous(),
+                                           table, **kw)
+        assert all(torch.equal(x[b], y[0]) for x, y in zip(got, one))
 
 
 @pytest.mark.parametrize("batch", [1, 3])
@@ -656,7 +702,8 @@ def test_frontend_kernels_batched(dev, batch):
                                         oc.max_keypoints)
     ep = fe.point_epilogue(*sel, depth, cam, table, oc.max_keypoints)
     for name, n in (("pyramid_resize", oc.n_levels - 1), ("fast_score", 1),
-                    ("select_keypoints", 2), ("gaussian_blur", 1),
+                    ("select_keypoints", fast.select_launches(table)),
+                    ("gaussian_blur", 1),
                     ("orb_describe", 1), ("point_epilogue", 1)):
         assert kernels.LAUNCHES[name] == n0[name] + n, name
     torch.testing.assert_close(

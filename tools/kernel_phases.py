@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Time the phases inside K1 (fast_score), K3 (gated_hamming_top2), K12
 (plane_components), K13 (plane_assign_refit), K15 (manhattan_mean_shift),
-K23 (search_lines_by_projection), K28 (noise_alpha) and K29
-(frame_normals) on a GPU.
+K17 (gaussian_blur), K18 (select_keypoints), K23
+(search_lines_by_projection), K28 (noise_alpha) and K29 (frame_normals)
+on a GPU.
 
     python3 tools/kernel_phases.py
 
 Copies csrc/fast_score.cu, csrc/hamming_top2.cu, csrc/plane_segment.cu
-(twice: K12, K13), csrc/manhattan.cu, csrc/line_lift_search.cu and
-csrc/depth_normals.cu (twice: K28, K29) into build/kernel_phases/,
-inserts clock64 (and, in K1, K3, K13, K23, K28 and K29, %globaltimer)
-reads at the phase comments the sources carry,
+(twice: K12, K13), csrc/manhattan.cu, csrc/line_lift_search.cu,
+csrc/pyramid.cu, csrc/select_keypoints.cu and csrc/depth_normals.cu
+(twice: K28, K29) into build/kernel_phases/, inserts clock64 (and, in
+K1, K3, K13, K17, K18, K23, K28 and K29, %globaltimer) reads at the
+phase comments the sources carry,
 builds each copy with the build's own flags into a library of its own,
 and runs the wrappers of this checkout with those entry points in place
 of the built ones:
@@ -50,7 +52,14 @@ of the built ones:
   of the projection (with the staging), the products and gates, and the
   row and column bests; per gate (the cluster's first block, or the gate
   launch above 256 lines) those of the two medians and of the mutual
-  check, and from %globaltimer the wait of the gate for the last tile.
+  check, and from %globaltimer the wait of the gate for the last tile;
+- K17 on chip_smoke.py's `blur_problems` (7 taps at B = 1 and 4, the
+  line stage's 5 taps at B = 1 and 4): per block the cycles of its last
+  band's staging wait, vertical pass and horizontal pass (thread 0's);
+- K18 on chip_smoke.py's `select_problems` (B = 1 and 4, the planted
+  map): per tile block the cycles of warp 0's staging, NMS and gate and
+  passes, per rank block those of the staging and counting and of the
+  slot, each launch's span and the gap between them.
 Prints one JSON object with the card's name and power limit. The marks
 move where the code between them runs, not what it computes.
 """
@@ -189,6 +198,25 @@ K23_ANCHORS = (
     ("  // the mutual check:", 5, True),
     ("    idx[m] = (bs[m] > th && back[b] == m) ? b : -1;\n  }\n", 6,
      False))
+# K17: marks 0-3 in each band of a block (thread 0's: the staging wait,
+# the vertical pass, the horizontal pass, the band's end); the last band's
+K17_ANCHORS = (
+    "    // staging: band k + 1's copies issued, band k's awaited",
+    "    // vertical pass: rows 8 half",
+    "    // horizontal pass: warp w rows",
+    "  }  // the walk down the strip")
+K17_PHASES = ("staging", "vertical", "horizontal")
+# K18: marks 0-3 in a tile block (warp 0's tile: staging, NMS and gate,
+# passes, end), 4-6 in a rank block (staging and counting, the slot, end)
+K18_ANCHORS = (
+    ("  // staging: the tile and its 1-pixel halo", 0, True),
+    ("  // NMS and gate:", 1, True),
+    ("  // passes: the tile's best by shuffles", 2, True),
+    ("    if (lane == 0) cell[b.i] = taken;\n    __syncwarp();\n  }\n", 3,
+     False),
+    ("  // rank stage: this lane's candidate", 4, True),
+    ("  // the slot: the slices' counts summed", 5, True),
+    ("      valid[slot] = vi > 0.0f ? 1 : 0;\n    }\n  }\n", 6, False))
 READ = ('\nextern "C" int psl_phase_read(void* out, int bytes) {\n'
         '  return static_cast<int>(cudaMemcpyFromSymbol(out, psl_phase, '
         'bytes));\n}\n')
@@ -303,6 +331,58 @@ def _k23_source(kernels) -> str:
         src = src.replace(anchor, f"{mark}\n{anchor}" if before
                           else f"{anchor}  {mark}\n")
     return src + READ
+
+
+def _k17_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "pyramid.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", f"__device__ long long psl_phase"
+                      f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
+    for k, anchor in enumerate(K17_ANCHORS):
+        src = _mark(src, anchor, BLOCK_MARK.format(k=k), True)
+    return src + READ
+
+
+def _k18_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "select_keypoints.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", f"__device__ long long psl_phase"
+                      f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
+    for anchor, k, before in K18_ANCHORS:
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"phase anchor not found once: {anchor!r}")
+        mark = BLOCK_MARK.format(k=k)
+        src = src.replace(anchor, f"{mark}\n{anchor}" if before
+                          else f"{anchor}  {mark}\n")
+    return src + READ
+
+
+def _k18_marks(lib, fn) -> dict:
+    """K18's marks after one call of fn: per tile block (warp 0's tile) the
+    cycles of the staging, the NMS and gate and the passes, per rank block
+    those of the staging and counting and of the slot (median and
+    largest), each launch's span and the rank launch's first mark after
+    the tile launch's last (us)."""
+    marks, before = _launch_marks(lib, fn)
+    tile = marks[(marks[:, 8] != before[:, 8])
+                 & (marks[:, 11] != before[:, 11])]
+    rank = marks[(marks[:, 12] != before[:, 12])
+                 & (marks[:, 14] != before[:, 14])]
+    tc = {"staging": tile[:, 1] - tile[:, 0], "nms_gate": tile[:, 2]
+          - tile[:, 1], "passes": tile[:, 3] - tile[:, 2]}
+    rc = {"count": rank[:, 5] - rank[:, 4], "slot": rank[:, 6] - rank[:, 5]}
+    return {"tile_blocks": len(tile), "rank_blocks": len(rank),
+            "tile_span_us": float((tile[:, 11].max() - tile[:, 8].min())
+                                  / 1e3),
+            "rank_span_us": float((rank[:, 14].max() - rank[:, 12].min())
+                                  / 1e3),
+            "gap_us": float((rank[:, 12].min() - tile[:, 11].max()) / 1e3),
+            "tile_cycles_median": {k: float(np.median(v))
+                                   for k, v in tc.items()},
+            "tile_cycles_max": {k: int(v.max()) for k, v in tc.items()},
+            "rank_cycles_median": {k: float(np.median(v))
+                                   for k, v in rc.items()},
+            "rank_cycles_max": {k: int(v.max()) for k, v in rc.items()}}
 
 
 def _k23_marks(lib, fn) -> dict:
@@ -466,18 +546,23 @@ def main() -> int:
                 kernels.SOURCE_FLAGS.get("fast_score.cu", ()))
     k23 = _build(kernels, "line_lift_search", _k23_source(kernels),
                  kernels.SOURCE_FLAGS["line_lift_search.cu"])
+    k17 = _build(kernels, "pyramid", _k17_source(kernels),
+                 kernels.SOURCE_FLAGS["pyramid.cu"])
+    k18 = _build(kernels, "select_keypoints", _k18_source(kernels),
+                 kernels.SOURCE_FLAGS["select_keypoints.cu"])
     entries = {"psl_gated_hamming_top2": k3, "psl_mutual_hamming_top2": k3,
                "psl_plane_components": k12, "psl_manhattan_mean_shift": k15,
                "psl_frame_normals": k29, "psl_noise_alpha": k28,
                "psl_plane_assign_refit": k13, "psl_fast_score_levels": k1,
-               "psl_search_lines": k23}
+               "psl_search_lines": k23, "psl_gaussian_blur": k17,
+               "psl_select_keypoints": k18}
     for name, lib in entries.items():
         getattr(lib, name).argtypes = kernels._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     k23.psl_search_lines_scratch_words.argtypes = kernels._HELPERS[
         "psl_search_lines_scratch_words"]
     k23.psl_search_lines_scratch_words.restype = ctypes.c_longlong
-    for lib in (k3, k12, k15, k29, k28, k13, k1, k23):
+    for lib in (k3, k12, k15, k29, k28, k13, k1, k23, k17, k18):
         lib.psl_phase_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     cfg = SystemConfig()
     seq = synthetic.make_sequence(smoke.TRACKING_FRAMES,
@@ -558,6 +643,14 @@ def main() -> int:
     out["search_lines_by_projection"] = {
         name: _k23_marks(k23, fn)
         for name, fn in smoke.line_search_problems(seq, cfg, dev).items()}
+    kernels._lib = _Swap(real, k17, {"psl_gaussian_blur"})
+    out["gaussian_blur"] = {
+        name: _block_marks(k17, fn, K17_PHASES)
+        for name, fn in smoke.blur_problems(seq, cfg, dev).items()}
+    kernels._lib = _Swap(real, k18, {"psl_select_keypoints"})
+    out["select_keypoints"] = {
+        name: _k18_marks(k18, fn)
+        for name, fn in smoke.select_problems(seq, cfg, dev).items()}
     kernels._lib = real
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
                              "--format=csv,noheader"], capture_output=True,

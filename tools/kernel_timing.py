@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time K1 (fast_score), K3 (gated_hamming_top2), K11 (pose_optimize),
 K12 (plane_components), K13 (plane_assign_refit), K15
-(manhattan_mean_shift), K20 (detect_lines), K23
-(search_lines_by_projection), K28 (noise_alpha) and K29 (frame_normals)
-of one tree of the port on a GPU, so that two trees can be compared in
-one run.
+(manhattan_mean_shift), K17 (gaussian_blur), K18 (select_keypoints), K20
+(detect_lines), K23 (search_lines_by_projection), K28 (noise_alpha) and
+K29 (frame_normals) of one tree of the port on a GPU, so that two trees
+can be compared in one run.
 
     python3 tools/kernel_timing.py [--root DIR]
 
@@ -29,10 +29,15 @@ at B = 1 and on frames 0-3 at B = 4 (`normals_problems`); K28 on frame
 K12's candidates, frame 0 at B = 1 and frames 0-3 at B = 4
 (`refit_problems`: per call the three rounds, their launches and device
 time); K1 on frame 0's 8-level pyramid at B = 1 and frames 0-3's at B =
-4 (`fast_problems`); K23 on the tracking window (M = 256) at B = 1 and
-seen from four frames at B = 4, on 4096 lines, with no candidate and
-with fewer than 6 earned (`line_search_problems`). K1, K3, K12, K13,
-K15, K23, K28 and K29 are timed by `kernel_timing_entry`. Prints one JSON
+4 (`fast_problems`); K17 at 7 taps on frame 0's 8-level pyramid at B = 1
+and frames 0-3's at B = 4, and the line stage's 5-tap blur of frame 0
+and of frames 0-3 (`blur_problems`); K18 on frame 0's FAST scores at B =
+1 and frames 0-3's at B = 4, and on the planted map of PLANTED_LEVELS
+(`select_problems`; device time by launch: the tiles and the rank); K23
+on the tracking window (M = 256) at B = 1 and seen from four frames at B
+= 4, on 4096 lines, with no candidate and with fewer than 6 earned
+(`line_search_problems`). K1, K3, K12, K13, K15, K17, K18, K23, K28 and
+K29 are timed by `kernel_timing_entry`. Prints one JSON
 object with the card's name and power limit, those times and a hash of
 each output, so that two trees' outputs can be compared bit for bit.
 """
@@ -124,6 +129,8 @@ def main(argv=None) -> int:
             ("noise_alpha", smoke.alpha_problems, "noise_alpha"),
             ("plane_assign_refit", smoke.refit_problems, "plane_"),
             ("fast_score", smoke.fast_problems, "fast_score"),
+            ("gaussian_blur", smoke.blur_problems, "gaussian_blur"),
+            ("select_keypoints", smoke.select_problems, "select_"),
             ("search_lines_by_projection", smoke.line_search_problems,
              "lines_search")):
         out[key] = {name: {"hash": _digest(fn()),

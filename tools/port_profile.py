@@ -39,7 +39,10 @@ the host time and the device time of its kernels, the busy share of the
 device over the window, the device time and launches of each
 hand-written kernel per frame (K1-K36, `port_kernels_ms_per_frame`; their
 share of the busy time, and every other device event by name), the
-host-to-device copies per frame, and the top kernels by device time.
+host-to-device copies per frame, the device time of each launch of K17
+and K18 apart (`port_launches_per_frame`: by kernel name and grid, so
+K17's 7-tap pyramid blur apart from its 5-tap frame blur), and the top
+kernels by device time.
 Writes the chrome trace to DIR/port_trace.json when --out is given.
 
 With --batched B, BatchedSLAM(SystemConfig(), B) replays chip_smoke.py's
@@ -124,12 +127,48 @@ PORT_KERNELS = {
 }
 
 
+# kernels whose launches are also reported one by one, by kernel name and
+# grid (`port_launches_per_frame`): K17's 7-tap pyramid blur and 5-tap
+# frame blur, K18's tiles and rank
+SPLIT_KERNELS = ("K17 gaussian_blur", "K18 select_keypoints")
+
+
 def port_kernel(trace_name: str):
     """The PORT_KERNELS key a trace kernel belongs to, or None."""
     for key, entries in PORT_KERNELS.items():
         if any(e in trace_name for e in entries):
             return key
     return None
+
+
+def launch_split(prof, n: int) -> dict:
+    """Device ms and launches per frame of each launch of SPLIT_KERNELS,
+    keyed "<kernel name> grid <x>x<y>", from the profile's chrome trace
+    (written to build/port_profile/ and removed)."""
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "build", "port_profile")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"split_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    split = {}
+    for e in events:
+        if e.get("cat") != "kernel" or port_kernel(e["name"]) not in (
+                SPLIT_KERNELS):
+            continue
+        name = e["name"].replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].removeprefix("void ")
+        grid = e.get("args", {}).get("grid", [0, 0, 0])
+        key = f"{name} grid {grid[0]}x{grid[1]}"
+        rec = split.setdefault(key, {"ms_per_frame": 0.0,
+                                     "launches_per_frame": 0.0})
+        rec["ms_per_frame"] += e["dur"] / n / 1e3
+        rec["launches_per_frame"] += 1.0 / n
+    return split
 
 
 def main(argv=None) -> int:
@@ -318,6 +357,7 @@ def _profile_window(args, slam, frames, seq, run: int, loop_kf,
            "port_kernels_launches_per_frame": port_launches,
            "port_kernels_share_of_busy": sum(port_kernels.values())
            / max(busy_ms / n, 1e-12),
+           "port_launches_per_frame": launch_split(prof, n),
            "other_kernels": other,
            "spans": spans,
            "top_kernels": [{"name": k[1][:80], "ms_per_frame": k[0] / n / 1e3,
