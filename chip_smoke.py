@@ -29,7 +29,10 @@ Phases, each fatal on failure:
      K15 (Manhattan mean shift) on frame 0's normals and line directions,
      also on them twice over (N = 4224) and on none; K16-K19 (pyramid, blur, keypoint selection, point
      epilogue) and the all-levels launches of K1 and K2 on frame 0's
-     8-level pyramid and 1000 keypoints, K1 also on planted levels
+     8-level pyramid and 1000 keypoints, K16 also on a 1280x960 frame, a
+     64x48 one and frames 0-3 at B = 4 lane by lane, into a buffer
+     filled with NaN (pyramid_protocol) and captured and replayed, K1
+     also on planted levels
      narrower or shorter than its ring and a flat image, K18 also on a
      planted score map
      with ties, empty tiles and more than 4 candidates per tile, and the
@@ -57,13 +60,16 @@ Phases, each fatal on failure:
      strides 1, 4 (windows
      that wrap around the image) and 7, and at B = 4 lane by lane,
      K30 on planted associations (a tie, the direct match also the most
-     parallel, an empty cloud, no map plane), K30 and K31 on the last
+     parallel, an empty cloud, no map plane, an invalid map plane nearer
+     than any valid one, point counts of 0, C and above C, a NaN point,
+     half the frame planes invalid), also four of them at B = 4 lane by
+     lane, K30 and K31 on the last
      tracking step of two 10-frame Systems (clean, noisy), K31 on random
      tails, and both again on the inputs of path 1's 48th tracking step;
      K36 (the step's prelude) bit-equal to its plain version on the
      inputs of path 1's 48th tracking step and on four planted lanes; the
      batch of K1, K3, K4, K11, K12-K14, K15 (with its initial-pose
-     epilogue), K23 and K28 on four lanes in one launch each, every lane
+     epilogue), K16, K23 and K28 on four lanes in one launch each, every lane
      bit-equal to its own B = 1 launch and held to its plain version as
      one problem is,
      timed at B = 1 and B = 4; one K13 launch per round and one K28
@@ -115,7 +121,8 @@ after; every kernel must have launched on the paths, and on every path K11
 must have launched once per pose_optimize call, K12 and K14 once and K13
 1 + refine_rounds times per extract_planes call, K15 once per
 track_manhattan_frame call, and per extract_point_features call K1, K2 and
-K19 once, K16 n_levels - 1 times and K18 twice, with one K17 launch per
+K16 and K19 once and K18 twice (K16 and K18 as their C entries report),
+with one K17 launch per
 extract_point_features and per extract_line_features call, and per
 extract_line_features call K20's eight launches (one C call), one K21 and one
 K22, and per search_lines_by_projection call over M map lines one K23
@@ -873,6 +880,151 @@ def planted_levels_map(planted) -> np.ndarray:
 # ulps of 255 (1.5e-5 each) are expected, and 1e-3 is the limit the CPU
 # test holds the plain pyramid to against JAX.
 PYRAMID_TOLERANCE = 1e-3
+# K16's frames besides the path's: the room rendered at 1280x960 and at
+# 64x48 (its top levels narrower than one 32-pixel tile)
+PYRAMID_FRAMES = {"wide": (960, 1280), "small": (48, 64)}
+PYRAMID_MIN_KEYPOINTS = 100  # the keypoint share is held above this many
+
+
+def pyramid_inputs(seq, cfg, dev) -> dict:
+    """K16's inputs at cfg's ORB settings, {name: (gray (B, H, W) on the
+    card, level table)}: frame 0 ("b1"), frames 0-3 ("b4") and the room's
+    frame 0 at each size of PYRAMID_FRAMES, quantized."""
+    import torch
+
+    from planarslam_tpu_torch.io import synthetic
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops.frontend import orb_level_table
+
+    gray, table = _frames_gray(seq, cfg, dev)
+    out = {"b1": (gray[:1].contiguous(), table), "b4": (gray, table)}
+    for name, (h, w) in PYRAMID_FRAMES.items():
+        g8, _ = quantize_frame(*synthetic.make_sequence(
+            1, width=w, height=h).render(0), cfg.camera.depth_map_factor)
+        out[name] = (torch.from_numpy(g8.astype(np.float32))[None].to(dev),
+                     orb_level_table(h, w, cfg.orb))
+    return out
+
+
+def pyramid_problems(seq, cfg, dev, inputs=None) -> dict:
+    """K16 on pyramid_inputs (or `inputs`, built by it): {name: fn}, fn()
+    launching it."""
+    from planarslam_tpu_torch.ops import image
+
+    sf = cfg.orb.scale_factor
+    inputs = inputs or pyramid_inputs(seq, cfg, dev)
+    return {k: (lambda g=g, t=t: (image.build_pyramid_levels(g, t, sf),))
+            for k, (g, t) in inputs.items()}
+
+
+def _selected_sets(buf, table, cfg) -> list:
+    """Per lane of a (B, n_pixels) pyramid, the keypoints (level, u, v)
+    FAST and the selection keep on it (the kernels)."""
+    from planarslam_tpu_torch.ops import fast
+    from planarslam_tpu_torch.ops.frontend import EDGE_BORDER
+
+    uv, _, valid = fast.select_keypoints_levels(
+        fast.fast_score_levels(buf, table), table,
+        float(cfg.orb.min_th_fast), EDGE_BORDER)
+    level = np.repeat(np.arange(table.n_levels), table.column("quota"))
+    uv, valid = uv.cpu().numpy(), valid.cpu().numpy()
+    return [{(int(l), float(x), float(y))
+             for l, (x, y), v in zip(level, uv[b], valid[b]) if v}
+            for b in range(buf.shape[0])]
+
+
+def pyramid_cases(seq, cfg, dev, inputs=None) -> dict:
+    """K16 on pyramid_inputs (or `inputs`, built by it) against the plain
+    pyramid: within
+    PYRAMID_TOLERANCE, level 0 the frames, two launches equal bits, the
+    launches its C entry reports, B = 4 lane by lane bit-equal to B = 1,
+    and the keypoints FAST and the selection keep on it >= 97% shared with
+    the plain pyramid's where it has PYRAMID_MIN_KEYPOINTS or more."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.ops import image
+
+    sf = cfg.orb.scale_factor
+    inputs = inputs or pyramid_inputs(seq, cfg, dev)
+    out = {}
+    for name, (g, table) in inputs.items():
+        n0 = kernels.LAUNCHES["pyramid_resize"]
+        got = image.build_pyramid_levels(g, table, sf)
+        _check(kernels.LAUNCHES["pyramid_resize"] - n0
+               == image.PYRAMID_LAUNCHES,
+               f"pyramid_resize ({name}): "
+               f"{kernels.LAUNCHES['pyramid_resize'] - n0} launches, the C "
+               f"entry's count {image.PYRAMID_LAUNCHES}")
+        want = image.build_pyramid_levels_plain(g, table, sf)
+        again = image.build_pyramid_levels(g, table, sf)
+        torch.cuda.synchronize()
+        _check(torch.equal(got, again),
+               f"pyramid_resize ({name}): two launches differ")
+        _check(torch.equal(got[:, table.level_slice(0)],
+                           g.reshape(g.shape[0], -1)),
+               f"pyramid_resize ({name}): level 0 is not the frame")
+        err = _max_err(got, want)
+        _check(err <= PYRAMID_TOLERANCE,
+               f"pyramid_resize ({name}) error {err} > {PYRAMID_TOLERANCE}")
+        if g.shape[0] > 1:
+            _same_lanes(f"pyramid_resize ({name})", (got,), [
+                (image.build_pyramid_levels(g[b:b + 1].contiguous(), table,
+                                            sf),) for b in range(g.shape[0])])
+        keys_k = _selected_sets(got, table, cfg)
+        keys_p = _selected_sets(want, table, cfg)
+        shared = [len(a & b) / max(len(b), 1) for a, b in zip(keys_k, keys_p)]
+        for n_p, s in zip(map(len, keys_p), shared):
+            _check(n_p < PYRAMID_MIN_KEYPOINTS or s >= 0.97,
+                   f"pyramid_resize ({name}): {s:.4f} of {n_p} keypoints "
+                   f"shared with the plain pyramid's")
+        out[name] = {"shape": list(table.shapes[0]), "lanes": g.shape[0],
+                     "levels": [list(s) for s in table.shapes],
+                     "max_abs_err": err,
+                     "differing_pixels": int((got != want).sum()),
+                     "keypoints": [len(k) for k in keys_p],
+                     "keypoints_shared": shared}
+    return out
+
+
+def pyramid_protocol(probs: dict, reps: int = 4) -> dict:
+    """K16 on pyramid_problems, each problem once as the reference; then
+    `reps` passes over the problems in turn, each run once into a buffer
+    the allocator hands back after it was filled with NaN (so every pixel
+    of every level was written by the call: the cones' owned parts
+    partition the pyramid) and once as is, each bit-equal to its
+    reference, one launch a call, as the C entry reports."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.ops import image
+
+    want = {k: fn()[0] for k, fn in probs.items()}
+    calls = 0
+    for _ in range(reps):
+        for k, fn in probs.items():
+            for poison in (True, False):
+                ptr = None
+                if poison:
+                    nan = torch.full_like(want[k], math.nan)
+                    ptr = nan.data_ptr()
+                    del nan
+                n0 = kernels.LAUNCHES["pyramid_resize"]
+                got = fn()[0]
+                torch.cuda.synchronize()
+                _check(kernels.LAUNCHES["pyramid_resize"] - n0
+                       == image.PYRAMID_LAUNCHES,
+                       f"pyramid_resize: "
+                       f"{kernels.LAUNCHES['pyramid_resize'] - n0} launches "
+                       f"for {k}")
+                _check(ptr is None or got.data_ptr() == ptr,
+                       f"pyramid_resize: {k} did not reuse the NaN buffer")
+                _check(torch.equal(got, want[k]),
+                       f"pyramid_resize: {k} differs from its first run "
+                       f"(buffer filled with NaN: {poison})")
+                calls += 1
+    return {"calls": calls, "problems": sorted(probs),
+            "nan_buffer_bit_equal": True}
 
 
 def _keypoint_set(uv, level, valid) -> set:
@@ -929,20 +1081,20 @@ def frontend_kernel_parity(seq, cfg, dev) -> list:
                                cap)
         return fe._features(angle, desc, ep)
 
-    # K16: the 7 resize launches against the plain pyramid
-    k16 = lambda: image.build_pyramid_levels(gray[None], table,  # noqa: E731
-                                             oc.scale_factor)
+    # K16: one launch a pyramid against the plain pyramid, on frame 0
+    # ("b1") and on pyramid_inputs' other frames (1280x960, 64x48, B = 4
+    # lane by lane), into a buffer filled with NaN, and captured and
+    # replayed; then the whole front end on frame 0's two pyramids
+    inputs16 = pyramid_inputs(seq, cfg, dev)
+    cases16 = pyramid_cases(seq, cfg, dev, inputs16)
+    probs16 = pyramid_problems(seq, cfg, dev, inputs16)
+    protocol16 = pyramid_protocol(probs16)
+    replay16 = graph_replay(lambda: probs16["b4"](), "pyramid_resize", None)
+    k16 = lambda: probs16["b1"]()[0]  # noqa: E731
     p16 = lambda: image.build_pyramid_levels_plain(  # noqa: E731
-        gray[None], table, oc.scale_factor)
+        *inputs16["b1"], oc.scale_factor)
     buf, buf_plain = k16(), p16()
     torch.cuda.synchronize()
-    _check(torch.equal(buf, k16()),
-           "pyramid_resize: two runs on equal inputs differ")
-    _check(torch.equal(buf[0, table.level_slice(0)], gray.reshape(-1)),
-           "pyramid_resize: level 0 is not the frame")
-    err16 = _max_err(buf, buf_plain)
-    _check(err16 <= PYRAMID_TOLERANCE,
-           f"pyramid_resize error {err16} > {PYRAMID_TOLERANCE}")
     f_k, f_p = after_pyramid(buf), after_pyramid(buf_plain)
     keys_k = _keypoint_set(f_k.uv_raw, f_k.level, f_k.valid)
     keys_p = _keypoint_set(f_p.uv_raw, f_p.level, f_p.valid)
@@ -959,9 +1111,16 @@ def frontend_kernel_parity(seq, cfg, dev) -> list:
                 **_bound(_nbytes(gray, buf) + taps, 24.0 * n_out),
                 "source": src + "pyramid.cu",
                 "replaces": "planarslam_tpu/ops/image.py:48",
-                "max_abs_err": err16, "tolerance": PYRAMID_TOLERANCE,
+                "max_abs_err": max(c["max_abs_err"]
+                                   for c in cases16.values()),
+                "tolerance": PYRAMID_TOLERANCE,
                 "keypoints_shared": shared, "keypoints": len(keys_p),
-                "differing_pixels": int((buf != buf_plain).sum()),
+                "differing_pixels": cases16["b1"]["differing_pixels"],
+                "cases": cases16, "protocol": protocol16,
+                "graph_replay_bit_equal": replay16,
+                "launches_per_call": image.PYRAMID_LAUNCHES,
+                **{f"{k}_timing": kernel_timing_entry(fn, "pyramid_")
+                   for k, fn in probs16.items()},
                 "ms": _time_ms(k16), "plain_ms": _time_ms(p16)})
 
     # K17: 7 taps on all levels, 5 taps on the frame (the line stage)
@@ -1463,24 +1622,30 @@ def line_search_problems(seq, cfg, dev) -> dict:
     return out
 
 
-def _frames_pyramid(seq, cfg, dev):
+def _frames_gray(seq, cfg, dev):
     """Frames 0-3 of `seq` (taken again from the first where it is
-    shorter), quantized, on the card (4, H, W), their level table and their
-    8-level pyramids (4, n_pixels) built by the tree's K16."""
+    shorter), quantized, on the card (4, H, W), and their level table."""
     import torch
 
     from planarslam_tpu_torch.io.frames import quantize_frame
-    from planarslam_tpu_torch.ops import image
     from planarslam_tpu_torch.ops.frontend import orb_level_table
 
-    cam, oc = cfg.camera, cfg.orb
+    cam = cfg.camera
     n = len(seq.poses_wc)
     gray = torch.from_numpy(np.stack([
         quantize_frame(*seq.render(i % n), cam.depth_map_factor)[0].astype(
             np.float32) for i in range(4)])).to(dev)
-    table = orb_level_table(cam.height, cam.width, oc)
+    return gray, orb_level_table(cam.height, cam.width, cfg.orb)
+
+
+def _frames_pyramid(seq, cfg, dev):
+    """_frames_gray's frames and table, and their 8-level pyramids (4,
+    n_pixels) built by the tree's K16."""
+    from planarslam_tpu_torch.ops import image
+
+    gray, table = _frames_gray(seq, cfg, dev)
     return gray, table, image.build_pyramid_levels(gray, table,
-                                                   oc.scale_factor)
+                                                   cfg.orb.scale_factor)
 
 
 def fast_problems(seq, cfg, dev) -> dict:
@@ -2355,7 +2520,8 @@ CORE_PER_STEP = {"step_prelude": 1, "manhattan_mean_shift": 1,
 STEP_LAUNCHES = {**MATCH_PER_STEP, **TAIL_PER_STEP, **CORE_PER_STEP}
 PLANE_KEYS = ("coeffs", "valid", "T_cw", "pl_coeffs", "pl_cloud",
               "pl_cloud_n", "pl_valid")
-PLANE_CASES = ("random", "tie", "self_parallel", "empty_cloud", "no_map")
+PLANE_CASES = ("random", "tie", "self_parallel", "empty_cloud", "no_map",
+               "invalid_near", "cloud_n_range", "nan_point", "invalid_frame")
 ALPHA_CASES = ("empty", "even", "odd", "flat", "duplicates", "split", "pair",
                "wide")
 TAIL_FRAMES = 10  # frames of the Systems whose last step K30 and K31 see
@@ -2438,7 +2604,12 @@ def planted_plane_problem(rng, case: str, P: int = 16, Mp: int = 128,
     direct match is also its most parallel plane (excluded) beside a second
     parallel one, 50; "empty_cloud", map plane 3, frame plane 2's plane,
     has no cloud point (never direct) and is a parallel candidate; "no_map",
-    no valid map plane."""
+    no valid map plane; "invalid_near", map plane 100, invalid, as well
+    aligned as frame plane 0's plane and nearer (no noise), its cloud NaN
+    past its 300 counted points; "cloud_n_range", pl_cloud_n 0 (map plane
+    4), exactly C (7) and above C (6); "nan_point", a NaN point inside map
+    plane 5's counted cloud (never direct, still a parallel or vertical
+    candidate); "invalid_frame", the odd frame planes invalid."""
     T_cw = _planted_se3(rng, 0.4).astype(np.float64)
     nm = _unit(rng, Mp)
     dm = rng.uniform(0.5, 4.0, Mp)
@@ -2454,6 +2625,8 @@ def planted_plane_problem(rng, case: str, P: int = 16, Mp: int = 128,
         nm[50], dm[50] = nw[0], dw[0] + 0.5
     if case == "empty_cloud":
         nm[3], dm[3] = nw[2], dw[2]
+    if case == "invalid_near":
+        nm[100], dm[100] = nw[0], dw[0]
     b1 = np.cross(nm, _unit(rng, Mp))
     b1 /= np.linalg.norm(b1, axis=1, keepdims=True)
     b2 = np.cross(nm, b1)
@@ -2466,6 +2639,15 @@ def planted_plane_problem(rng, case: str, P: int = 16, Mp: int = 128,
     n_pts[:P] = C
     if case == "empty_cloud":
         n_pts[3] = 0
+    if case == "invalid_near":  # on its plane exactly, NaN past its points
+        cloud[100] = (-dm[100] * nm[100] + ab[100, :, :1] * b1[100]
+                      + ab[100, :, 1:] * b2[100])
+        n_pts[100] = 300
+        cloud[100, 300:] = np.nan
+    if case == "cloud_n_range":
+        n_pts[4], n_pts[6], n_pts[7] = 0, C + 7, C
+    if case == "nan_point":
+        cloud[5, 7] = np.nan
     # the frame planes in the camera: n_c = R n_w, d_c = d_w - n_c . t
     n_c = nw @ T_cw[:3, :3].T
     coeffs = np.concatenate([n_c, (dw - n_c @ T_cw[:3, 3])[:, None]], 1)
@@ -2475,8 +2657,16 @@ def planted_plane_problem(rng, case: str, P: int = 16, Mp: int = 128,
     pl_valid[[3, 5, 9, 40, 41, 42, 43, 50]] = True
     if case == "no_map":
         pl_valid[:] = False
+    if case == "invalid_near":
+        pl_valid[100] = False
     valid = rng.random(P) < 0.9
     valid[[0, 2, 5]] = True
+    if case == "cloud_n_range":
+        valid[[4, 6, 7]] = True
+        pl_valid[[4, 6, 7]] = True
+    if case == "invalid_frame":
+        valid[:] = True
+        valid[1::2] = False
     pl_coeffs = np.concatenate([nm, dm[:, None]], 1) * rng.uniform(
         0.9, 1.1, (Mp, 1))
     f32 = np.float32
@@ -2616,6 +2806,79 @@ def _hold_assoc(name, args, pcfg) -> dict:
                                    pcfg))
     return {f: int((getattr(got, f) >= 0).sum())
             for f in ("direct", "par", "ver")}
+
+
+def plane_stats(args) -> dict:
+    """What K30 walks on its inputs (B = 1): the valid frame planes, the
+    valid map planes, those with a point, and the points they count
+    (pl_cloud_n clamped to the cloud's C)."""
+    import torch
+
+    valid, pl_cloud, pl_cloud_n, pl_valid = (args[1], args[4], args[5],
+                                             args[6])
+    n = torch.clamp(pl_cloud_n, 0, pl_cloud.shape[2]) * pl_valid
+    return {"frame_valid": int(valid.sum()), "map_valid": int(pl_valid.sum()),
+            "map_with_points": int((n > 0).sum()),
+            "cloud_points": int(n.sum())}
+
+
+ASSOC_STEP = 48  # path 1's tracking step whose K30 inputs are timed
+
+
+def assoc_inputs(seq, cfg, dev, steps: int = ASSOC_STEP) -> dict:
+    """K30's inputs (the 7 tensors, B = 1) at tracking steps 1..steps of a
+    tracking-only System over seq's frames (as many as those steps take),
+    its depth clean and with Kinect noise as tail_kernel_parity makes
+    them: {"clean": [step 1's, ...], "noisy": [...]}."""
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.slam.system import System
+
+    dmf = cfg.camera.depth_map_factor
+    capture = tuple(("device_tracker", "_associate_planes_device", n)
+                    for n in range(1, steps + 1))
+    out = {}
+    for name in ("clean", "noisy"):
+        slam = System(config=cfg, enable_local_mapping=False,
+                      enable_loop_closing=False, device=dev)
+        with _pose_calls(capture) as rec:
+            for i in range(len(seq.poses_wc)):
+                if capture[-1] in rec["inputs"]:
+                    break
+                g, d16 = quantize_frame(*seq.render(i), dmf)
+                d = d16.astype(np.float32) / np.float32(dmf)
+                if name == "noisy":
+                    d = noisy_depth(d, dmf, seed=i)
+                slam.track_rgbd(g, np.round(d * dmf).astype(np.uint16),
+                                float(i) / 30.0)
+        slam.shutdown()
+        _check(all(c in rec["inputs"] for c in capture),
+               f"assoc_inputs: {name}: not {steps} tracking steps")
+        out[name] = [rec["inputs"][c][0][:7] for c in capture]
+    return out
+
+
+def assoc_problems(seq, cfg, dev, inputs=None) -> dict:
+    """K30 at the main path's shapes: path 1's ASSOC_STEP-th step clean and
+    noisy (assoc_inputs), every PLANE_CASES problem, and B = 4 (steps
+    ASSOC_STEP - 1 and ASSOC_STEP, clean and noisy) in one launch. Returns
+    {name: fn}, fn() launching it."""
+    import torch
+
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    inputs = inputs or assoc_inputs(seq, cfg, dev)
+    probs = {f"step{ASSOC_STEP}_{k}": inputs[k][-1]
+             for k in ("clean", "noisy")}
+    for case in PLANE_CASES:
+        p = planted_plane_problem(np.random.default_rng(30), case)
+        probs[case] = [torch.from_numpy(p[key][None]).to(dev)
+                       for key in PLANE_KEYS]
+    probs["b4"] = [torch.cat(x) for x in zip(
+        inputs["clean"][-2], inputs["clean"][-1], inputs["noisy"][-2],
+        inputs["noisy"][-1])]
+    pcfg = cfg.planes
+    return {k: (lambda a=a: dt._associate_planes_device(*a, pcfg))
+            for k, a in probs.items()}
 
 
 def _hold_tail(name, tail, cfg) -> dict:
@@ -2796,12 +3059,17 @@ def tail_kernel_parity(seq, cfg, dev) -> list:
         "ms": _time_ms(lambda: P.frame_normals(*args)),
         "plain_ms": _time_ms(lambda: P.frame_normals_plain(*args))})
 
-    # K30 on the planted cases
-    assoc = {}
+    # K30 on the planted cases, and the last four of them at B = 4 (each
+    # lane against the plain version)
+    assoc, planted = {}, {}
     for case in PLANE_CASES:
         p = planted_plane_problem(np.random.default_rng(30), case)
-        args = [torch.from_numpy(p[key][None]).to(dev) for key in PLANE_KEYS]
-        assoc[case] = _hold_assoc(case, args, pcfg)
+        planted[case] = [torch.from_numpy(p[key][None]).to(dev)
+                         for key in PLANE_KEYS]
+        assoc[case] = _hold_assoc(case, planted[case], pcfg)
+    assoc["planted_b4"] = _hold_assoc("planted, B = 4", [
+        torch.cat(x) for x in zip(*[planted[c] for c in PLANE_CASES[-4:]])],
+        pcfg)
     # K30 and K31 on the first tracking step, clean and noisy
     steps = {}
     tails = {}
@@ -2832,6 +3100,7 @@ def tail_kernel_parity(seq, cfg, dev) -> list:
     assoc_out = dt._associate_planes_device(*a_args, pcfg)
     out.append({
         "name": "associate_planes", "route": "cuda", "library_ms": None,
+        "planes": {k: plane_stats(a[:7]) for k, a in steps.items()},
         # the plane rows, the counts and flags, and of the clouds the
         # points of the valid map planes (the rest never enter a decision)
         **_bound(_nbytes(a_args[:4], a_args[5:], assoc_out)
@@ -2878,6 +3147,8 @@ def tail_frame_parity(report: list, a_args, tail) -> None:
     entries = {k["name"]: k for k in report}
     entries["associate_planes"]["cases"]["path1_step"] = _hold_assoc(
         "path 1 step", a_args[:7], cfg.planes)
+    entries["associate_planes"]["planes"]["path1_step"] = plane_stats(
+        a_args[:7])
     entries["finish_step"]["cases"]["path1_step"] = _hold_tail(
         "path 1 step", tail, cfg)
     print(f"tail_kernel_parity path 1 step: "
@@ -3643,8 +3914,7 @@ def plane_kernel_parity(seq, cfg, dev) -> list:
     k13_timing.update({f"{k}_timing": kernel_timing_entry(k13_problems[k],
                                                           "plane_")
                        for k in ("b1", "b4")})
-    k13_timing["graph_replay_bit_equal"] = refit_graph_replay(
-        k13_problems["b4"])
+    k13_timing["graph_replay_bit_equal"] = graph_replay(k13_problems["b4"])
 
     def worst(name):
         return max(c[name]["max_abs_err"] for c in cases.values())
@@ -3925,11 +4195,13 @@ def refit_protocol(probs: dict, rounds: int, reps: int = 8) -> dict:
             "nan_partials_bit_equal": True, "flags_clear": True}
 
 
-def refit_graph_replay(fn) -> bool:
-    """K13's rounds (refit_problems' fn) captured in a CUDA graph on a side
-    stream after a warm-up there, and replayed twice, each replay
-    bit-equal to the eager rounds: the flag words the launches share need
-    no reset between replays, and they are all zero after each."""
+def graph_replay(fn, name: str = "plane_assign_refit",
+                 flags_clear=refit_flags_clear) -> bool:
+    """A kernel's calls (fn: K13's rounds of refit_problems, or K16's
+    pyramid) captured in a CUDA graph on a side stream after a warm-up
+    there, and replayed twice, each replay bit-equal to the eager calls;
+    with flags_clear (K13's), the flag words the launches share need no
+    reset between replays, and they are all zero after each."""
     import torch
 
     want = fn()
@@ -3947,9 +4219,9 @@ def refit_graph_replay(fn) -> bool:
         graph.replay()
         torch.cuda.synchronize()
         _check(all(torch.equal(a, b) for a, b in zip(cap, want)),
-               "plane_assign_refit: the graph replay differs from the "
-               "eager rounds")
-        refit_flags_clear(side)
+               f"{name}: the graph replay differs from the eager calls")
+        if flags_clear is not None:
+            flags_clear(side)
     return True
 
 
@@ -4236,12 +4508,12 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
     extract_frame, extract_planes, extract_point_features and
     extract_line_features call per frame, and a tracking step on all frames
     but the first."""
-    from planarslam_tpu_torch.ops import fast, lines
+    from planarslam_tpu_torch.ops import fast, image, lines
     from planarslam_tpu_torch.ops.frontend import orb_level_table
 
     rounds = 1 + (cfg.planes.refine_rounds if cfg is not None else 0)
-    resizes = cfg.orb.n_levels - 1 if cfg is not None else 0
-    # K18's launches per call, as its C entry reports them
+    # K16's and K18's launches per call, as their C entries report them
+    resizes = image.PYRAMID_LAUNCHES if cfg is not None else 0
     selects = (fast.select_launches(orb_level_table(
         cfg.camera.height, cfg.camera.width, cfg.orb))
         if cfg is not None else 0)
@@ -5656,8 +5928,9 @@ def _batch_entry(report: list, name: str, ms_b1: float, ms_b: float,
 
 
 def batched_kernel_parity(seq, cfg, dev, report: list) -> None:
-    """K1, K3, K4, K11, K12-K15, K17, K18, K23 and K28 on BATCH_PARITY
-    lanes in one launch each (K1 and K17 on the lanes' pyramids, K17 also
+    """K1, K3, K4, K11, K12-K18, K23 and K28 on BATCH_PARITY lanes in one
+    launch each (K16 on the lanes' frames, K1 and K17 on the lanes'
+    pyramids, K17 also
     on their frames at 5 taps and on planted levels, K18 on the lanes'
     scores and on PLANTED_SELECT, K23 on the window seen from
     LINE_LANE_VIEWS): every lane bit-equal to its own B = 1 launch, and
@@ -5902,10 +6175,25 @@ def batched_kernel_parity(seq, cfg, dev, report: list) -> None:
         lambda: pose_opt.pose_optimize(T0, K, cam.bf, **kw11),
         lambda: pose_opt.pose_optimize(T0[:1], K, cam.bf, **lane(0))), B,
         {"max_abs_err_plain": err})
-    # K1 on the lanes' 8-level pyramids, exact against its plain version
+    # K16 on the lanes' frames in one launch, each lane bit-equal to its B
+    # = 1 launch and within PYRAMID_TOLERANCE of the plain pyramid
     oc = cfg.orb
     table = orb_level_table(H, W, oc)
-    buf = image.build_pyramid_levels(gray, table, oc.scale_factor)
+    buf = launches("pyramid_resize", image.build_pyramid_levels, gray, table,
+                   oc.scale_factor)
+    _same_lanes("pyramid_resize", (buf,), [
+        (image.build_pyramid_levels(gray[b:b + 1].contiguous(), table,
+                                    oc.scale_factor),) for b in range(B)])
+    err16 = _max_err(buf, image.build_pyramid_levels_plain(
+        gray, table, oc.scale_factor))
+    _check(err16 <= PYRAMID_TOLERANCE,
+           f"pyramid_resize: the lanes are {err16} from the plain pyramid")
+    g1 = gray[:1].contiguous()
+    _batch_entry(report, "pyramid_resize", *timed(
+        lambda: image.build_pyramid_levels(gray, table, oc.scale_factor),
+        lambda: image.build_pyramid_levels(g1, table, oc.scale_factor)), B,
+        {"max_abs_err_plain": err16})
+    # K1 on the lanes' 8-level pyramids, exact against its plain version
     got = launches("fast_score", fast.fast_score_levels, buf, table)
     _same_lanes("fast_score", (got,), [
         (fast.fast_score_levels(buf[b:b + 1].contiguous(), table),)

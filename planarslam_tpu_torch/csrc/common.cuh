@@ -6,6 +6,9 @@
 #pragma once
 
 #include <climits>
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include <cuda_runtime.h>
 
@@ -34,6 +37,26 @@ inline T* psl_device_slot(T (&cache)[kPslDevices]) {
     return nullptr;
   }
   return &cache[dev];
+}
+
+// Sets kernel fn's dynamic shared memory limit to `bytes` on the current
+// card where it was set lower there before (each kernel and card once for
+// the largest size asked): the opt-in a launch above 48 KB, static shared
+// memory included, needs. 0 or the CUDA error.
+inline int psl_opt_in_smem(const void* fn, size_t bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> opted;
+  const std::lock_guard<std::mutex> hold(mu);
+  size_t& done = opted[{dev, fn}];
+  if (bytes <= done) return 0;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  done = bytes;
+  return 0;
 }
 
 __device__ __forceinline__ int psl_clamp(int v, int lo, int hi) {

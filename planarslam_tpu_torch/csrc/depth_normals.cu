@@ -682,16 +682,9 @@ PSL_API int psl_noise_alpha(const float* depth, int h, int w, int batch,
   if (n_s > kPslAlphaMaxSamples) return kPslErrAlphaSamples;
   const int per = static_cast<int>((n_s + kAlphaCluster - 1) / kAlphaCluster);
   const int smem = 4 * (kAlphaCounts + per);
-  // the opt-in above 48 KB, per card, for the largest asked
-  static int opted[kPslDevices] = {};
-  int* dev_opted = psl_device_slot(opted);
-  if (dev_opted == nullptr || smem > *dev_opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        noise_alpha_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev_opted != nullptr) *dev_opted = smem;
-  }
+  const int rc = psl_opt_in_smem(
+      reinterpret_cast<const void*>(noise_alpha_kernel), smem);
+  if (rc != 0) return rc;
   noise_alpha_kernel<<<dim3(kAlphaCluster, batch), kAlphaThreads, smem,
                        stream>>>(depth, h, w, max_distance, inv_mad, alpha);
   return static_cast<int>(cudaGetLastError());

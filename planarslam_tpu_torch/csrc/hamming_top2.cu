@@ -38,7 +38,6 @@
 // main-path problems have N <= 1024 (one tile), so there is nothing for
 // an asynchronous copy to overlap with inside the block.
 #include <cstdint>
-#include <mutex>
 
 #include "common.cuh"
 
@@ -339,22 +338,9 @@ size_t smem_bytes(int tile, bool gated) {
 template <bool kGated>
 int launch(const Params& prm, int n_sets, int max_m, cudaStream_t stream) {
   const size_t smem = smem_bytes(prm.tile, kGated);
-  // the opt-in above 48 KB, per card for the largest size asked (every
-  // call past kPslDevices cards)
-  static std::mutex mu;
-  static size_t opted[kPslDevices] = {};
-  {
-    const std::lock_guard<std::mutex> hold(mu);
-    size_t* dev_opted = psl_device_slot(opted);
-    if (dev_opted == nullptr || smem > *dev_opted) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          hamming_top2_kernel<kGated>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      if (dev_opted != nullptr) *dev_opted = smem;
-    }
-  }
+  const int rc = psl_opt_in_smem(
+      reinterpret_cast<const void*>(hamming_top2_kernel<kGated>), smem);
+  if (rc != 0) return rc;
   // 16 rows a block where that gives a block to every SM, else 8
   Params q = prm;
   const int per_row16 = (max_m + 15) / 16 * prm.batch * n_sets;

@@ -54,8 +54,6 @@
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 
-#include <mutex>
-
 #include "common.cuh"
 #include "eig3.cuh"
 
@@ -848,28 +846,6 @@ __global__ void __launch_bounds__(kGateThreads) lines_search_gate_kernel(
 int search_blocks(int M) { return (M + kRows - 1) / kRows; }
 
 
-// The dynamic shared memory each K23 kernel was set to, per card (kept
-// only for the first kPslDevices cards; past them it is set every call).
-struct SearchSmem {
-  size_t bytes[3];  // the cluster, rows and gate kernels
-};
-
-int set_search_smem(int which, const void* fn, size_t bytes) {
-  static std::mutex mu;
-  static SearchSmem opted[kPslDevices] = {};
-  const std::lock_guard<std::mutex> hold(mu);
-  SearchSmem once = {};
-  SearchSmem* o = psl_device_slot(opted);
-  if (o == nullptr) o = &once;
-  if (bytes <= o->bytes[which]) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  o->bytes[which] = bytes;
-  return 0;
-}
-
 }  // namespace
 
 // K22 for `batch` frames: depth (batch, h, w) metres; uv_s, uv_e (batch,
@@ -973,8 +949,8 @@ PSL_API int psl_search_lines(const float* sw, const float* ew,
     const size_t gather = tile_out_words(L) + static_cast<size_t>(n2) +
                           2 * static_cast<size_t>(M) + L;
     const size_t smem = 4 * (tile_words > gather ? tile_words : gather);
-    rc = set_search_smem(
-        0, reinterpret_cast<const void*>(lines_search_cluster_kernel), smem);
+    rc = psl_opt_in_smem(
+        reinterpret_cast<const void*>(lines_search_cluster_kernel), smem);
     if (rc != 0) return rc;
     lines_search_cluster_kernel<<<dim3(kSearchCluster, batch),
                                   kSearchThreads, smem, stream>>>(a, g, n2,
@@ -991,12 +967,11 @@ PSL_API int psl_search_lines(const float* sw, const float* ew,
       col_val + static_cast<size_t>(batch) * n_blk * L);
   const size_t rows_smem = 4 * tile_words;
   const size_t gate_smem = 4 * (static_cast<size_t>(n2) + L);
-  rc = set_search_smem(
-      1, reinterpret_cast<const void*>(lines_search_rows_kernel), rows_smem);
+  rc = psl_opt_in_smem(
+      reinterpret_cast<const void*>(lines_search_rows_kernel), rows_smem);
   if (rc == 0) {
-    rc = set_search_smem(
-        2, reinterpret_cast<const void*>(lines_search_gate_kernel),
-        gate_smem);
+    rc = psl_opt_in_smem(
+        reinterpret_cast<const void*>(lines_search_gate_kernel), gate_smem);
   }
   if (rc != 0) return rc;
   lines_search_rows_kernel<<<dim3(n_blk, batch), kSearchThreads, rows_smem,

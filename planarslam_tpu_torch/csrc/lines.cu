@@ -1277,34 +1277,21 @@ __global__ void lines_descriptor_kernel(
   }
 }
 
-// Dynamic shared memory above the default 48 KB (static included) needs the
-// kernel's opt-in.
-int set_smem(const void* fn, size_t bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
-}
-
 // The dynamic shared memory of the stencil (and compact), select, peaks
-// and segment launches, each set on its kernel when it grows (the card's
-// limit read and each kernel's size kept per card; past kPslDevices cards
-// both are found again every call); an error if the card has less for a
-// block.
-struct LaunchSmem {
-  int optin;        // the card's opt-in limit per block, 0 until read
-  size_t done[5];   // the size each kernel was last set to
-};
-
+// and segment launches, each set on its kernel when it grows
+// (psl_opt_in_smem; the card's limit read and kept per card, past
+// kPslDevices cards read again every call); an error if the card has less
+// for a block.
 int set_launch_smem(size_t stencil, size_t select, size_t peaks,
                     size_t segment) {
   static std::mutex mu;
-  static LaunchSmem cache[kPslDevices] = {};
+  static int cache[kPslDevices] = {};  // the opt-in limit, 0 until read
   const std::lock_guard<std::mutex> hold(mu);
-  LaunchSmem once = {};
-  LaunchSmem* c = psl_device_slot(cache);
-  if (c == nullptr) c = &once;
+  int once = 0;
+  int* optin = psl_device_slot(cache);
+  if (optin == nullptr) optin = &once;
   int rc = 0;
-  if (c->optin == 0) {
+  if (*optin == 0) {
     int dev = 0, bytes = 0;
     rc = static_cast<int>(cudaGetDevice(&dev));
     if (rc == 0) {
@@ -1312,7 +1299,7 @@ int set_launch_smem(size_t stencil, size_t select, size_t peaks,
           &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
     }
     if (rc != 0) return rc;
-    c->optin = bytes;
+    *optin = bytes;
   }
   // the static shared memory of each kernel stays under 9 KB
   const std::pair<const void*, size_t> sets[] = {
@@ -1323,13 +1310,10 @@ int set_launch_smem(size_t stencil, size_t select, size_t peaks,
       {reinterpret_cast<const void*>(lines_segment_kernel), segment}};
   for (size_t i = 0; i < 5; ++i) {
     const size_t bytes = sets[i].second;
-    if (bytes + 9 * 1024 > static_cast<size_t>(c->optin)) {
+    if (bytes + 9 * 1024 > static_cast<size_t>(*optin)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (bytes > c->done[i]) {
-      if ((rc = set_smem(sets[i].first, bytes)) != 0) return rc;
-      c->done[i] = bytes;
-    }
+    if ((rc = psl_opt_in_smem(sets[i].first, bytes)) != 0) return rc;
   }
   return 0;
 }

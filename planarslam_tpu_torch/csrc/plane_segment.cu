@@ -1149,16 +1149,9 @@ PSL_API int psl_plane_components(
       7 * wb * min(hb, 2) > 2 * kFeatStaged * kChunk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // the opt-in above 48 KB, per card, for the largest asked
-  static int opted[kPslDevices] = {};
-  int* dev_opted = psl_device_slot(opted);
-  if (dev_opted == nullptr || smem > *dev_opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        plane_components_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev_opted != nullptr) *dev_opted = smem;
-  }
+  const int rc = psl_opt_in_smem(
+      reinterpret_cast<const void*>(plane_components_kernel), smem);
+  if (rc != 0) return rc;
   if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   plane_fits_kernel<<<dim3((B + kFitThreads - 1) / kFitThreads, batch),
                       kFitThreads, 0, stream>>>(p);

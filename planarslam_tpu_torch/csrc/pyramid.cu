@@ -4,18 +4,34 @@
 // K16 replaces planarslam_tpu/ops/image.py::resize_bilinear as build_pyramid
 // calls it (jax.image.resize, the antialiased triangle filter): the JAX
 // version applies two dense (in, out) weight matrices per level whose
-// columns hold 2-3 non-zero taps. Here a thread owns one output pixel and
-// gathers those taps from a compact table (first input index, tap count, 3
-// weights per output row and per output column), which the host derives
-// once from the same float32 weights and keeps on the device. Rows are
-// applied first and each row sum is rounded to float32 before the column
-// taps use it, as the two products do; the taps are added in ascending
-// order. A level is resized from the previous one, so a pyramid is
-// n_levels - 1 dependent launches, issued by one call of the C entry point;
-// the first of them also copies the frame into the buffer as level 0.
-// Bound: bytes. A level is read once and written once (3.8 MB for the eight
-// levels of 640x480); per output pixel at most 9 loads that neighbours share
-// through L1 and 12 multiply-adds. At these sizes a launch is latency.
+// columns hold 2-3 non-zero taps. Here the taps come from a compact table
+// (first input index, tap count, 3 weights per output row and per output
+// column), which the host derives once from the same float32 weights and
+// keeps on the device. Rows are applied first and each row sum is rounded
+// to float32 before the column taps use it, as the two products do; the
+// taps are added in ascending order by fmaf. A level is resized from the
+// previous one.
+// Bound: bytes (each level read once and written once, 3.8 MB for the
+// eight levels of 640x480); per output at most 12 multiply-adds. A pyramid
+// is a chain of seven dependent levels, and each level's hop through
+// device memory (its stores seen by the next level's readers: a launch,
+// or a flag between blocks) costs microseconds while its work costs less.
+// The design: one launch, and no block waits for another.
+// - A block takes a cone: a 16 x 16 tile of the last level and, at every
+//   level below, the range of rows and columns the tile's outputs depend
+//   on, widened to hold the part of that level the cone owns (the top
+//   tiles scaled down: a partition of every level). The host derives the
+//   ranges from the tap tables once per pyramid shape (ops/image.py::
+//   pyramid_cones, a device constant). Neighbouring cones overlap, and
+//   their overlap computes the same outputs with the same bits, about 1.4
+//   times the pyramid's outputs in all.
+// - The frame's window (level 0 of the cone) and every level's taps are
+//   staged into shared memory once, by asynchronous copies (16-byte where
+//   the frame's rows allow, 4-byte else).
+// - Each level: a warp a row applies the row taps to the level below's
+//   columns into an intermediate, then a lane a column applies the column
+//   taps into the level's buffer, which the next level reads; outputs the
+//   cone owns are stored to the pyramid (level 0: the frame's, copied).
 //
 // K17 replaces planarslam_tpu/ops/image.py::blur (separable Gaussian, up to
 // 7 taps, replicate borders), which is 14 scaled adds and 4 concatenations
@@ -47,6 +63,7 @@
 #include <cuda_pipeline.h>
 
 #include <algorithm>
+#include <cstdint>
 
 #include "common.cuh"
 #include "levels.cuh"
@@ -61,38 +78,131 @@ struct ResizeTap {  // 20 bytes, matches ops/image.py::resize_taps
   float w[kMaxTaps];
 };
 
-__global__ void pyramid_resize_kernel(
-    const float* __restrict__ src, int h_in, int w_in, size_t src_stride,
-    float* __restrict__ dst, int h_out, int w_out, size_t dst_stride,
-    const ResizeTap* __restrict__ row_taps,
-    const ResizeTap* __restrict__ col_taps, float* __restrict__ copy_to,
-    size_t copy_stride) {
-  const int b = blockIdx.z;
-  const float* s = src + b * src_stride;
-  const int ox = blockIdx.x * blockDim.x + threadIdx.x;
-  const int oy = blockIdx.y * blockDim.y + threadIdx.y;
-  if (copy_to != nullptr) {
-    // level 0: the frame itself, copied by the threads of this launch
-    const int n_threads = gridDim.x * gridDim.y * blockDim.x * blockDim.y;
-    const int tid = (blockIdx.y * gridDim.x + blockIdx.x) *
-                        (blockDim.x * blockDim.y) +
-                    threadIdx.y * blockDim.x + threadIdx.x;
-    float* c = copy_to + b * copy_stride;
-    for (int i = tid; i < h_in * w_in; i += n_threads) c[i] = s[i];
+constexpr int kConeThreads = 512;
+constexpr int kConeWarps = kConeThreads / 32;
+constexpr int kConeBlocksPerSm = 4;  // so four frames' cones fit in one wave
+constexpr int kConeMax = 64;         // cones along a side of the top level
+constexpr int kLevelWords = 10;      // ops/image.py::CONE_LEVEL_WORDS
+
+struct ConeArgs {
+  const float* gray;  // (batch, h0, w0), frames gray_stride floats apart
+  long long gray_stride;
+  float* buf;         // (batch, n_pixels)
+  // (cones, chunk_words): per cone and level [row lo, hi, owned lo, hi,
+  // column lo, hi, owned lo, hi, offset, width] (header_words in all), then
+  // the taps of levels 1..: its rows' and its columns'
+  const int* chunks;
+  int n, n_pixels, w0, chunk_words, header_words, cone_cols;
+  int buf_floats, mid_floats;
+  int aligned;  // the frame's rows are 16-byte aligned: stage by 16 bytes
+  int range0[4][kConeMax];  // level 0's rows by cone row, columns by column
+};
+
+__global__ void __launch_bounds__(kConeThreads, kConeBlocksPerSm)
+    pyramid_cone_kernel(const __grid_constant__ ConeArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y, cone = blockIdx.x;
+  const int ty = cone / a.cone_cols, tx = cone % a.cone_cols;
+  int* const chunk = reinterpret_cast<int*>(smem);  // the cone's chunk
+  float* const level = smem + a.chunk_words;        // a level of the cone
+  float* const mid = level + a.buf_floats;          // its row taps' sums
+  // staging: the cone's chunk (its levels' ranges and taps) and the
+  // frame's window (level 0 of the cone; by 16 bytes its columns widened
+  // to multiples of 4), by asynchronous copies, all in flight at once
+  const int y0 = a.range0[0][ty], ny0 = a.range0[1][ty] - y0;
+  int ax0 = a.range0[2][tx], an = a.range0[3][tx] - ax0;  // the level below
+  if (a.aligned) {
+    an = ((ax0 + an + 3) & ~3) - (ax0 & ~3);
+    ax0 &= ~3;
   }
-  if (ox >= w_out || oy >= h_out) return;
-  const ResizeTap rt = row_taps[oy];
-  const ResizeTap ct = col_taps[ox];
-  float acc = 0.0f;
-  for (int j = 0; j < ct.count; ++j) {
-    const int ix = ct.first + j;
-    float rows = 0.0f;  // the row product's value at (oy, ix)
-    for (int i = 0; i < rt.count; ++i) {
-      rows = fmaf(rt.w[i], s[(rt.first + i) * w_in + ix], rows);
+  {
+    const int* src = a.chunks + static_cast<size_t>(cone) * a.chunk_words;
+    for (int i = 4 * tid; i < a.chunk_words; i += 4 * kConeThreads) {
+      __pipeline_memcpy_async(chunk + i, src + i, 4 * sizeof(int));
     }
-    acc = fmaf(rows, ct.w[j], acc);
+    const float* frame = a.gray + b * a.gray_stride;
+    const int step = a.aligned ? 4 : 1;
+    for (int r = warp; r < ny0; r += kConeWarps) {
+      const float* row = frame + static_cast<size_t>(y0 + r) * a.w0 + ax0;
+      for (int c = lane * step; c < an; c += 32 * step) {
+        if (a.aligned) {
+          __pipeline_memcpy_async(&level[r * an + c], row + c,
+                                  4 * sizeof(float));
+        } else {
+          __pipeline_memcpy_async(&level[r * an + c], row + c,
+                                  sizeof(float));
+        }
+      }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
   }
-  dst[b * dst_stride + oy * w_out + ox] = acc;
+  __syncthreads();
+  float* const out = a.buf + static_cast<size_t>(b) * a.n_pixels;
+  // level 0: the part of the frame the cone owns, copied into the pyramid
+  {
+    const int* h = chunk;
+    for (int y = h[2] + warp; y < h[3]; y += kConeWarps) {
+      for (int x = h[6] + lane; x < h[7]; x += 32) {
+        out[h[8] + y * h[9] + x] = level[(y - y0) * an + x - ax0];
+      }
+    }
+  }
+  // the levels above, each from the one below in shared memory
+  const ResizeTap* lt = reinterpret_cast<const ResizeTap*>(chunk +
+                                                           a.header_words);
+  int ay0 = y0;
+  for (int l = 1; l < a.n; ++l) {
+    const int* h = chunk + kLevelWords * l;
+    const int ly0 = h[0], ny = h[1] - ly0;
+    const int lx0 = h[4], nx = h[5] - lx0;
+    const ResizeTap* rt_l = lt;
+    const ResizeTap* ct_l = lt + ny;
+    lt += ny + nx;
+    // row taps: a warp a row of the cone, a lane a column of the level
+    // below, each sum rounded to float32
+    for (int r = warp; r < ny; r += kConeWarps) {
+      const ResizeTap rt = rt_l[r];
+      const float* in = level + (rt.first - ay0) * an;
+#pragma unroll 2
+      for (int c = lane; c < an; c += 32) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int t = 0; t < kMaxTaps; ++t) {
+          if (t < rt.count) acc = fmaf(rt.w[t], in[t * an + c], acc);
+        }
+        mid[r * an + c] = acc;
+      }
+    }
+    __syncthreads();
+    // column taps: a lane a column of the cone, a warp its rows; the
+    // outputs the cone owns go to the pyramid
+    const int oy0 = h[2], oy1 = h[3], ox0 = h[6], ox1 = h[7];
+    float* const dst = out + h[8];
+    const int width = h[9];
+    for (int c = lane; c < nx; c += 32) {
+      const ResizeTap ct = ct_l[c];
+      const int x = lx0 + c;
+      const bool own_x = x >= ox0 && x < ox1;
+#pragma unroll 2
+      for (int r = warp; r < ny; r += kConeWarps) {
+        const float* in = mid + r * an + ct.first - ax0;
+        float acc = 0.0f;
+#pragma unroll
+        for (int t = 0; t < kMaxTaps; ++t) {
+          if (t < ct.count) acc = fmaf(in[t], ct.w[t], acc);
+        }
+        level[r * nx + c] = acc;
+        const int y = ly0 + r;
+        if (own_x && y >= oy0 && y < oy1) dst[y * width + x] = acc;
+      }
+    }
+    __syncthreads();
+    ay0 = ly0;
+    ax0 = lx0;
+    an = nx;
+  }
 }
 
 constexpr int kBlurMaxTaps = 7;
@@ -252,44 +362,61 @@ int launch_blur(const float* src, float* dst, PslLevels lv, int batch,
 
 // The pyramid of `batch` frames: gray (batch, h, w) with frames gray_stride
 // floats apart -> buf (batch, n_pixels), level 0 a copy of the frame and
-// level l resized from level l - 1. rows is the host's level table;
-// row_taps[l] (h[l] entries) and col_taps[l] (w[l] entries) are the device
-// tap tables of level l >= 1 (host arrays of device pointers, entry 0
-// unused). One launch per level above 0, issued here one after the other;
-// a one-level table is the copy alone.
+// level l resized from level l - 1. rows is the host's level table; chunks
+// (cone_rows x cone_cols, chunk_words) the device table of the cones'
+// chunks (header_words of levels' ranges, then taps); level0 the host's
+// (4, kConeMax) level-0 ranges; buf_floats and mid_floats the most floats
+// of a cone's level and of its row sums (ops/image.py::pyramid_cones). One
+// launch (*launches).
 PSL_API int psl_pyramid_build(const float* gray, long long gray_stride,
                               float* buf, const int* rows, int n_levels,
-                              int batch, const void* const* row_taps,
-                              const void* const* col_taps,
+                              int batch, const int* chunks, int chunk_words,
+                              int header_words, int cone_rows, int cone_cols,
+                              const int* level0, int buf_floats,
+                              int mid_floats, int* launches,
                               cudaStream_t stream) {
+  *launches = 0;
   PslLevels lv;
-  if (!psl_levels_from_host(rows, nullptr, n_levels, &lv) || batch < 1) {
+  if (!psl_levels_from_host(rows, nullptr, n_levels, &lv) || batch < 1 ||
+      batch > 65535 || cone_rows < 1 || cone_rows > kConeMax ||
+      cone_cols < 1 || cone_cols > kConeMax || chunk_words % 4 != 0 ||
+      header_words < kLevelWords * lv.n || chunk_words < header_words ||
+      buf_floats < 1 || mid_floats < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 block(32, 8);
-  const size_t stride = static_cast<size_t>(lv.n_pixels);
-  if (lv.n == 1) {
-    const dim3 grid((lv.w[0] + block.x - 1) / block.x,
-                    (lv.h[0] + block.y - 1) / block.y, batch);
-    pyramid_resize_kernel<<<grid, block, 0, stream>>>(
-        gray, lv.h[0], lv.w[0], static_cast<size_t>(gray_stride), nullptr, 0,
-        0, 0, nullptr, nullptr, buf, stride);
-    return static_cast<int>(cudaGetLastError());
+  ConeArgs a;
+  a.gray = gray;
+  a.gray_stride = gray_stride;
+  a.buf = buf;
+  a.chunks = chunks;
+  a.n = lv.n;
+  a.n_pixels = lv.n_pixels;
+  a.w0 = lv.w[0];
+  a.chunk_words = chunk_words;
+  a.header_words = header_words;
+  a.cone_cols = cone_cols;
+  a.buf_floats = buf_floats;
+  a.mid_floats = mid_floats;
+  a.aligned = lv.w[0] % 4 == 0 && gray_stride % 4 == 0 &&
+              reinterpret_cast<uintptr_t>(gray) % 16 == 0;
+  for (int q = 0; q < 4; ++q) {
+    for (int k = 0; k < kConeMax; ++k) {
+      a.range0[q][k] = level0[q * kConeMax + k];
+    }
   }
-  for (int l = 1; l < lv.n; ++l) {
-    const dim3 grid((lv.w[l] + block.x - 1) / block.x,
-                    (lv.h[l] + block.y - 1) / block.y, batch);
-    const bool first = l == 1;
-    pyramid_resize_kernel<<<grid, block, 0, stream>>>(
-        first ? gray : buf + lv.off[l - 1], lv.h[l - 1], lv.w[l - 1],
-        first ? static_cast<size_t>(gray_stride) : stride, buf + lv.off[l],
-        lv.h[l], lv.w[l], stride, static_cast<const ResizeTap*>(row_taps[l]),
-        static_cast<const ResizeTap*>(col_taps[l]), first ? buf : nullptr,
-        stride);
-    const int rc = static_cast<int>(cudaGetLastError());
-    if (rc != 0) return rc;
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(chunk_words) + buf_floats +
+                       mid_floats);
+  if (smem > 48 * 1024) {
+    const int err = psl_opt_in_smem(
+        reinterpret_cast<const void*>(pyramid_cone_kernel), smem);
+    if (err != 0) return err;
   }
-  return 0;
+  pyramid_cone_kernel<<<dim3(cone_rows * cone_cols, batch), kConeThreads,
+                        smem, stream>>>(a);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc == 0) *launches = 1;
+  return rc;
 }
 
 // Every level of `batch` frames: src, dst (batch, n_pixels); rows is the

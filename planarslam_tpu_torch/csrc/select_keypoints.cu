@@ -349,16 +349,9 @@ PSL_API int psl_select_keypoints(const float* score, const int* rows,
       std::min(kTileWarps, std::max(1, kSmemDefault / per_tile));
   const int smem = per_block * per_tile;
   if (smem > kSmemDefault) {
-    // the opt-in above 48 KB, per card, for the largest asked
-    static int opted[kPslDevices] = {};
-    int* dev_opted = psl_device_slot(opted);
-    if (dev_opted == nullptr || smem > *dev_opted) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          select_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      if (dev_opted != nullptr) *dev_opted = smem;
-    }
+    const int rc = psl_opt_in_smem(
+        reinterpret_cast<const void*>(select_tiles_kernel), smem);
+    if (rc != 0) return rc;
   }
   PslLevels tiles = lv;
   for (int l = 0; l < lv.n; ++l) {

@@ -6,19 +6,39 @@
 // _associate_planes_device (:185-227; src/PlaneMatcher.cpp:10-81 in the
 // C++ reference) and the three plane_block gathers of the step's plane
 // observations (the port's plain version is slam/device_tracker.py::
-// _associate_planes_plain). One block per (step, frame plane): the frame
-// plane moved to the world by T_inv(T_cw) (device memory), then one warp
-// per map plane at a time: the normalized normals' |cosine|, and the least
-// point-to-plane distance over the first pl_cloud_n points of the map
-// plane's cloud (512), the lanes striding the cloud and a shuffle tree
-// taking the minimum (exact in any order). Then one warp takes the direct
-// match (the least distance among the planes within the angle and distance
-// gates), the parallel partner (the largest cosine above the threshold)
-// and the vertical one (the least below it), the matched plane itself
-// excluded from both, each tie to the first map plane as torch.argmin and
-// argmax, -1 when there is none; and it gathers the three PlaneObs. Bound:
-// latency (16 x 128 x 512 point distances, 3.1 MFLOP, and 786 KB of
-// clouds that each of the 16 blocks reads from L2).
+// _associate_planes_plain): for each frame plane moved to the world by
+// T_inv(T_cw) (device memory), the normalized normals' |cosine| with every
+// map plane and the least point-to-plane distance over the first
+// pl_cloud_n points of each map plane's cloud; then the direct match (the
+// least distance among the planes within the angle and distance gates),
+// the parallel partner (the largest cosine above the threshold) and the
+// vertical one (the least below it), the matched plane itself excluded
+// from both, each tie to the first map plane as torch.argmin and argmax,
+// -1 when there is none; and the three PlaneObs gathered.
+// Bound: bytes, and at the path's inputs latency: only the points of the
+// valid map planes enter a decision (about 31 KB on path 1's steps: 3 of 16
+// frame planes and 5 of 128 map planes valid, 2560 points; up to 128 x 512
+// points as a map fills), and 16 x 128 cosines. The design: a cluster of
+// kAssocCluster blocks per step, so that a dense window's distance pass
+// spreads over as many SMs.
+// - Staging, in every block of the cluster: one thread per map plane (the
+//   clamped point count, the plane's units of kAssocPts points; in the
+//   first block also the normalized normal) and per frame plane (its world
+//   plane), in one pass; a warp's scan gives the units' offsets, so only
+//   valid map planes with points are walked, and only valid frame planes
+//   walk.
+// - The distance pass: the cluster's lanes take the units in turn, a
+//   unit's points as the contiguous floats they are, all loads in flight;
+//   per valid frame plane the lane's least distance, then the lanes of one
+//   map plane merged by a warp reduction and one atomicMin into the first
+//   block's shared memory (distributed shared memory) on an integer key
+//   (float bits + 0x7fffff as a signed int), which orders distances >= 0
+//   as floats and puts NaN below them: the minimum, NaN winning as
+//   torch.amin's, with the same bits in any order.
+// - Picks and gathers, in the first block after the cluster's barrier: a
+//   warp per frame plane takes the three picks by warp reductions of
+//   ordered keys, and 12 lanes gather the observation blocks from the
+//   staged coefficients.
 //
 // K31 replaces the tail of planarslam_tpu/slam/device_tracker.py::
 // fused_track_step (:440-500): the choice of the final pose, the
@@ -38,23 +58,20 @@
 // plain version's bit for bit: a division by a Python number is PyTorch's
 // product with the number's reciprocal taken in double and rounded to
 // float32 (the wrapper passes it), 1 / z and the rest IEEE.
+#include <cooperative_groups.h>
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kAssocThreads = 512;
+namespace cg = cooperative_groups;
+
 constexpr int kTailThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float clamp_min(float x, float lo) {
   return x < lo ? lo : x;
-}
-
-// torch.amin: NaN wins
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a < b || isnan(a)) ? a : b;
 }
 
 __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
@@ -84,124 +101,271 @@ __device__ __forceinline__ void plane_to_world(const float* T, const float* c,
 
 // ---------------------------------------------------------------- K30 ---
 
+constexpr int kAssocThreads = 512;
+constexpr int kAssocWarps = kAssocThreads / 32;
+constexpr int kAssocPts = 8;  // cloud points of a unit of the distance pass
+// blocks of a step: the largest portable cluster, so that a dense window's
+// distance pass spreads furthest (path 1's sparse windows take the same
+// time at 4 and 8)
+constexpr int kAssocCluster = 8;
+
 struct AssocConsts {
   int P, Mp, C;
   float assoc_angle, assoc_dist, par_thr, ver_thr;
 };
 
-// (value, index) reductions over the map planes: the first index wins ties
-struct Best {
-  float v;
-  int i;
+// A distance d >= 0 (or NaN) as a key whose signed order is d's, NaN
+// below every number; +inf is INT_MAX.
+__device__ __forceinline__ int dist_key(float d) {
+  return static_cast<int>(static_cast<unsigned>(__float_as_int(d)) +
+                          0x7fffffu);
+}
+
+__device__ __forceinline__ float key_dist(int k) {
+  return k < 0 ? __int_as_float(0x7fc00000) : __int_as_float(k - 0x7fffff);
+}
+
+// Shared memory of a K30 block: the map planes' rows, the frame planes'
+// and the keys of the least distances (the first block's: the cluster's).
+struct AssocSmem {
+  float* coef;    // (Mp, 4) pl_coeffs as read
+  float* nm;      // (Mp, 3) the normalized normals
+  int* mvalid;    // (Mp,) pl_valid
+  int* units;     // (Mp + 1,) the units' offsets: map plane m's from units[m]
+  int* n_eff;     // (Mp,) the points counted: clamp(pl_cloud_n, 0, C)
+  float* pf;      // (P, 8) pi_w, the normalized normal, d_f
+  int* fvalid;    // (P,)
+  int* walk;      // (P + 1,) the valid frame planes, their count last
+  int* key;       // (P, Mp) dist_key of the least distance
 };
 
-__device__ __forceinline__ Best pick(Best a, Best b, bool least) {
-  const bool b_better = least ? (b.v < a.v) : (b.v > a.v);
-  if (b_better || (b.v == a.v && b.i < a.i)) return b;
-  return a;
+__host__ __device__ inline size_t assoc_smem_bytes(int P, int Mp) {
+  return sizeof(float) * (7 * static_cast<size_t>(Mp) + 8 * P) +
+         sizeof(int) * (3 * static_cast<size_t>(Mp) + 1 + 2 * P + 1 +
+                        static_cast<size_t>(P) * Mp);
 }
 
-__device__ Best warp_pick(Best x, bool least) {
-  for (int off = 16; off > 0; off >>= 1) {
-    Best o;
-    o.v = __shfl_down_sync(kFull, x.v, off);
-    o.i = __shfl_down_sync(kFull, x.i, off);
-    x = pick(x, o, least);
-  }
-  return x;
+__device__ AssocSmem assoc_smem(char* base, int P, int Mp) {
+  AssocSmem s;
+  s.coef = reinterpret_cast<float*>(base);
+  s.nm = s.coef + 4 * Mp;
+  s.pf = s.nm + 3 * Mp;
+  s.mvalid = reinterpret_cast<int*>(s.pf + 8 * P);
+  s.units = s.mvalid + Mp;
+  s.n_eff = s.units + Mp + 1;
+  s.fvalid = s.n_eff + Mp;
+  s.walk = s.fvalid + P;
+  s.key = s.walk + P + 1;
+  return s;
 }
 
-__global__ void associate_planes_kernel(
-    const float* __restrict__ coeffs, const unsigned char* __restrict__ valid,
-    const float* __restrict__ T_cw, const float* __restrict__ pl_coeffs,
-    const float* __restrict__ pl_cloud,
-    const long long* __restrict__ pl_cloud_n,
-    const unsigned char* __restrict__ pl_valid, AssocConsts c,
-    int* __restrict__ direct, int* __restrict__ par, int* __restrict__ ver,
-    float* __restrict__ pi_w, float* __restrict__ obs_pi_w,
-    unsigned char* __restrict__ obs_valid) {
-  extern __shared__ float smem[];
-  float* s_dmin = smem;        // (Mp,)
-  float* s_cos = smem + c.Mp;  // (Mp,)
-  const int p = blockIdx.x, b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const size_t fp = static_cast<size_t>(b) * c.P + p;
-  const bool f_valid = valid[fp] != 0;
-  float pw[4];
-  plane_to_world(T_cw + 16 * b, coeffs + 4 * fp, pw);
-  const float nf_norm =
-      clamp_min(__fsqrt_rn(dot3(pw[0], pw[1], pw[2], pw[0], pw[1], pw[2])),
-                1e-9f);
-  const float nf0 = __fdiv_rn(pw[0], nf_norm), nf1 = __fdiv_rn(pw[1], nf_norm),
-              nf2 = __fdiv_rn(pw[2], nf_norm);
-  const float d_f = __fdiv_rn(pw[3], nf_norm);
+__global__ void __cluster_dims__(kAssocCluster, 1, 1)
+    __launch_bounds__(kAssocThreads) associate_planes_kernel(
+        const float* __restrict__ coeffs,
+        const unsigned char* __restrict__ valid,
+        const float* __restrict__ T_cw, const float* __restrict__ pl_coeffs,
+        const float* __restrict__ pl_cloud,
+        const long long* __restrict__ pl_cloud_n,
+        const unsigned char* __restrict__ pl_valid, AssocConsts c,
+        int* __restrict__ direct, int* __restrict__ par,
+        int* __restrict__ ver, float* __restrict__ pi_w,
+        float* __restrict__ obs_pi_w, unsigned char* __restrict__ obs_valid) {
+  extern __shared__ __align__(16) char assoc_raw[];
+  const AssocSmem s = assoc_smem(assoc_raw, c.P, c.Mp);
+  const cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(cl.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x / kAssocCluster;
 
-  for (int m = warp; m < c.Mp; m += n_warps) {
-    const size_t mb = static_cast<size_t>(b) * c.Mp + m;
-    const float* pc = pl_coeffs + 4 * mb;
-    const float nm_norm = clamp_min(
-        __fsqrt_rn(dot3(pc[0], pc[1], pc[2], pc[0], pc[1], pc[2])), 1e-9f);
-    const float cosv = fabsf(dot3(nf0, nf1, nf2, __fdiv_rn(pc[0], nm_norm),
-                                  __fdiv_rn(pc[1], nm_norm),
-                                  __fdiv_rn(pc[2], nm_norm)));
-    const long long n_pts = pl_cloud_n[mb];
-    const float* cloud = pl_cloud + 3 * mb * c.C;
-    float dmin = INFINITY;
-    for (int j = lane; j < c.C; j += 32) {
-      if (j < n_pts) {
-        const float* q = cloud + 3 * j;
-        dmin = min_nan(dmin, fabsf(__fadd_rn(
-                                 dot3(q[0], q[1], q[2], nf0, nf1, nf2), d_f)));
+  // staging: a thread a map plane or a frame plane, and the first block's
+  // keys at +inf
+  for (int i = tid; i < c.Mp + c.P; i += kAssocThreads) {
+    if (i < c.Mp) {
+      const size_t mb = static_cast<size_t>(b) * c.Mp + i;
+      const long long n = pl_cloud_n[mb];
+      const bool mv = pl_valid[mb] != 0;
+      if (rank == 0) {  // the picks' rows
+        const float* pc = pl_coeffs + 4 * mb;
+        const float p0 = pc[0], p1 = pc[1], p2 = pc[2], p3 = pc[3];
+        const float nm_norm =
+            clamp_min(__fsqrt_rn(dot3(p0, p1, p2, p0, p1, p2)), 1e-9f);
+        s.coef[4 * i] = p0;
+        s.coef[4 * i + 1] = p1;
+        s.coef[4 * i + 2] = p2;
+        s.coef[4 * i + 3] = p3;
+        s.nm[3 * i] = __fdiv_rn(p0, nm_norm);
+        s.nm[3 * i + 1] = __fdiv_rn(p1, nm_norm);
+        s.nm[3 * i + 2] = __fdiv_rn(p2, nm_norm);
+        s.mvalid[i] = mv ? 1 : 0;
       }
+      const int ne = n <= 0 ? 0 : (n >= c.C ? c.C : static_cast<int>(n));
+      s.n_eff[i] = mv ? ne : 0;
+    } else {
+      const int p = i - c.Mp;
+      const size_t fp = static_cast<size_t>(b) * c.P + p;
+      float pw[4];
+      plane_to_world(T_cw + 16 * b, coeffs + 4 * fp, pw);
+      const float nf_norm = clamp_min(
+          __fsqrt_rn(dot3(pw[0], pw[1], pw[2], pw[0], pw[1], pw[2])), 1e-9f);
+      float* f = s.pf + 8 * p;
+      for (int j = 0; j < 4; ++j) f[j] = pw[j];
+      f[4] = __fdiv_rn(pw[0], nf_norm);
+      f[5] = __fdiv_rn(pw[1], nf_norm);
+      f[6] = __fdiv_rn(pw[2], nf_norm);
+      f[7] = __fdiv_rn(pw[3], nf_norm);
+      s.fvalid[p] = valid[fp] != 0 ? 1 : 0;
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      dmin = min_nan(dmin, __shfl_down_sync(kFull, dmin, off));
-    }
-    if (lane == 0) {
-      s_dmin[m] = dmin;
-      s_cos[m] = cosv;
-    }
+  }
+  if (rank == 0) {
+    for (int i = tid; i < c.P * c.Mp; i += kAssocThreads) s.key[i] = INT_MAX;
   }
   __syncthreads();
-  if (warp != 0) return;
+  // the units' offsets (warp 0) and the valid frame planes (warp 1)
+  if (warp == 0) {
+    int run = 0;
+    for (int m0 = 0; m0 < c.Mp; m0 += 32) {
+      const int m = m0 + lane;
+      const int u = m < c.Mp ? (s.n_eff[m] + kAssocPts - 1) / kAssocPts : 0;
+      int x = u;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, off);
+        if (lane >= off) x += y;
+      }
+      if (m < c.Mp) s.units[m] = run + x - u;
+      run += __shfl_sync(kFull, x, 31);
+    }
+    if (lane == 0) s.units[c.Mp] = run;
+  } else if (warp == 1) {
+    int n = 0;
+    for (int p0 = 0; p0 < c.P; p0 += 32) {
+      const int p = p0 + lane;
+      const bool on = p < c.P && s.fvalid[p] != 0;
+      const unsigned ball = __ballot_sync(kFull, on);
+      if (on) s.walk[n + __popc(ball & ((1u << lane) - 1u))] = p;
+      n += __popc(ball);
+    }
+    if (lane == 0) s.walk[c.P] = n;
+  }
+  cl.sync();  // the units, the walk and the first block's keys
 
-  const unsigned char* mv = pl_valid + static_cast<size_t>(b) * c.Mp;
-  // the direct match: argmin of dscore, -1 unless its minimum is finite
-  Best dbest{INFINITY, 0};
-  for (int m = lane; m < c.Mp; m += 32) {
-    const bool both = f_valid && mv[m] != 0;
-    const bool ok = both && s_cos[m] > c.assoc_angle &&
-                    s_dmin[m] < c.assoc_dist;
-    dbest = pick(dbest, Best{ok ? s_dmin[m] : INFINITY, m}, true);
-  }
-  dbest = warp_pick(dbest, true);
-  const bool has_direct = isfinite(__shfl_sync(kFull, dbest.v, 0));
-  const int d_idx = has_direct ? __shfl_sync(kFull, dbest.i, 0) : -1;
-  // the parallel and vertical partners, the direct match excluded
-  Best pbest{-1.0f, 0}, vbest{2.0f, 0};
-  for (int m = lane; m < c.Mp; m += 32) {
-    const bool cand = f_valid && mv[m] != 0 && !(has_direct && m == d_idx);
-    const float cs = s_cos[m];
-    pbest = pick(pbest, Best{cand && cs > c.par_thr ? cs : -1.0f, m}, false);
-    vbest = pick(vbest, Best{cand && cs < c.ver_thr ? cs : 2.0f, m}, true);
-  }
-  pbest = warp_pick(pbest, false);
-  vbest = warp_pick(vbest, true);
-  if (lane == 0) {
-    const int ids[3] = {d_idx, pbest.v > 0.0f ? pbest.i : -1,
-                        vbest.v < 2.0f ? vbest.i : -1};
-    direct[fp] = ids[0];
-    par[fp] = ids[1];
-    ver[fp] = ids[2];
-    for (int j = 0; j < 4; ++j) pi_w[4 * fp + j] = pw[j];
-    for (int k = 0; k < 3; ++k) {
-      const size_t o = (static_cast<size_t>(b) * 3 + k) * c.P + p;
-      const int jm = psl_clamp(ids[k], 0, c.Mp - 1);
+  // the distance pass: the cluster's warps over the units, a lane a unit
+  // of one map plane
+  int* const key0 = cl.map_shared_rank(s.key, 0);
+  const int n_units = s.units[c.Mp], n_walk = s.walk[c.P];
+  for (int u0 = (rank * kAssocWarps + warp) * 32; u0 < n_units;
+       u0 += kAssocCluster * kAssocThreads) {
+    const int u = u0 + lane;
+    int m = -1, len = 0;
+    float q[3 * kAssocPts];
+    if (u < n_units) {
+      int lo = 0, hi = c.Mp - 1;  // the map plane whose units hold u
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (s.units[mid] <= u) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      m = lo;
+      const int j0 = (u - s.units[m]) * kAssocPts;
+      len = min(kAssocPts, s.n_eff[m] - j0);
       const float* src =
-          pl_coeffs + 4 * (static_cast<size_t>(b) * c.Mp + jm);
-      for (int j = 0; j < 4; ++j) obs_pi_w[4 * o + j] = src[j];
-      obs_valid[o] = (ids[k] >= 0 && f_valid) ? 1 : 0;
+          pl_cloud + 3 * ((static_cast<size_t>(b) * c.Mp + m) * c.C + j0);
+#pragma unroll
+      for (int i = 0; i < 3 * kAssocPts; ++i) {
+        q[i] = i < 3 * len ? src[i] : 0.0f;
+      }
+    }
+    const unsigned grp = __match_any_sync(kFull, m);
+    const bool leader = m >= 0 && lane == __ffs(grp) - 1;
+    for (int w = 0; w < n_walk; ++w) {
+      const int p = s.walk[w];
+      const float* f = s.pf + 8 * p;
+      const float nf0 = f[4], nf1 = f[5], nf2 = f[6], d_f = f[7];
+      int key = INT_MAX;
+#pragma unroll
+      for (int j = 0; j < kAssocPts; ++j) {
+        if (j < len) {
+          const float d = fabsf(__fadd_rn(
+              dot3(q[3 * j], q[3 * j + 1], q[3 * j + 2], nf0, nf1, nf2),
+              d_f));
+          key = min(key, dist_key(d));
+        }
+      }
+      key = __reduce_min_sync(grp, key);
+      if (leader) atomicMin(key0 + p * c.Mp + m, key);
+    }
+  }
+  cl.sync();  // the keys complete
+  if (rank != 0) return;
+
+  // picks and gathers: a warp per frame plane, in the first block. A lane
+  // keeps the first best of its map planes (m = lane, lane + 32, ...), the
+  // warp the least value (largest for the parallel partner), then the
+  // least index holding it: the first map plane among equals, as
+  // torch.argmin and argmax. Values enter as ordered int keys: a least
+  // distance by dist_key, a cosine (>= 0) by its bits, the plain version's
+  // -1 and 2 for none as -1 and the bits of 2.
+  for (int p = warp; p < c.P; p += kAssocWarps) {
+    const size_t fp = static_cast<size_t>(b) * c.P + p;
+    const bool f_valid = s.fvalid[p] != 0;
+    const float* f = s.pf + 8 * p;
+    const float nf0 = f[4], nf1 = f[5], nf2 = f[6];
+    // the direct match: the least distance within the gates, -1 if none
+    int dv = INT_MAX, di = INT_MAX;
+    for (int m = lane; m < c.Mp; m += 32) {
+      const float cosv = fabsf(dot3(nf0, nf1, nf2, s.nm[3 * m],
+                                    s.nm[3 * m + 1], s.nm[3 * m + 2]));
+      const int key = s.key[p * c.Mp + m];
+      const bool ok = f_valid && s.mvalid[m] != 0 && cosv > c.assoc_angle &&
+                      key_dist(key) < c.assoc_dist;
+      if (ok && key < dv) {
+        dv = key;
+        di = m;
+      }
+    }
+    const int dmin = __reduce_min_sync(kFull, dv);
+    const int d_idx =
+        dmin == INT_MAX ? -1 : __reduce_min_sync(kFull, dv == dmin ? di
+                                                                   : INT_MAX);
+    // the parallel and vertical partners, the direct match excluded
+    constexpr int kTwo = 0x40000000;  // the bits of 2.0f
+    int pv = -1, pi = INT_MAX, vv = kTwo, vi = INT_MAX;
+    for (int m = lane; m < c.Mp; m += 32) {
+      const float cs = fabsf(dot3(nf0, nf1, nf2, s.nm[3 * m],
+                                  s.nm[3 * m + 1], s.nm[3 * m + 2]));
+      const bool cand = f_valid && s.mvalid[m] != 0 && m != d_idx;
+      const int bits = __float_as_int(cs);
+      if (cand && cs > c.par_thr && bits > pv) {
+        pv = bits;
+        pi = m;
+      }
+      if (cand && cs < c.ver_thr && bits < vv) {
+        vv = bits;
+        vi = m;
+      }
+    }
+    const int pmax = __reduce_max_sync(kFull, pv);
+    const int vmin = __reduce_min_sync(kFull, vv);
+    const int id_par =
+        pmax > 0 ? __reduce_min_sync(kFull, pv == pmax ? pi : INT_MAX) : -1;
+    const int id_ver =
+        vmin < kTwo ? __reduce_min_sync(kFull, vv == vmin ? vi : INT_MAX)
+                    : -1;
+    // 12 lanes: observation block k = lane / 4, entry lane % 4
+    const int k = lane >> 2, j = lane & 3;
+    const int id = k == 0 ? d_idx : (k == 1 ? id_par : id_ver);
+    if (lane < 12) {
+      const size_t o = (static_cast<size_t>(b) * 3 + k) * c.P + p;
+      obs_pi_w[4 * o + j] = s.coef[4 * psl_clamp(id, 0, c.Mp - 1) + j];
+      if (j == 0) obs_valid[o] = (id >= 0 && f_valid) ? 1 : 0;
+    }
+    if (lane < 4) pi_w[4 * fp + lane] = f[lane];
+    if (lane == 0) {
+      direct[fp] = d_idx;
+      par[fp] = id_par;
+      ver[fp] = id_ver;
     }
   }
 }
@@ -405,15 +569,22 @@ PSL_API int psl_associate_planes(
     const float* pl_coeffs, const float* pl_cloud,
     const long long* pl_cloud_n, const unsigned char* pl_valid, int P, int Mp,
     int C, int batch, float assoc_angle, float assoc_dist, float par_thr,
-    float ver_thr, int* direct, int* par, int* ver, float* pi_w,
-    float* obs_pi_w, unsigned char* obs_valid, cudaStream_t stream) {
-  if (P > 0 && batch > 0) {
-    const AssocConsts c{P, Mp, C, assoc_angle, assoc_dist, par_thr, ver_thr};
-    const size_t smem = 2 * static_cast<size_t>(Mp) * sizeof(float);
-    associate_planes_kernel<<<dim3(P, batch), kAssocThreads, smem, stream>>>(
-        coeffs, valid, T_cw, pl_coeffs, pl_cloud, pl_cloud_n, pl_valid, c,
-        direct, par, ver, pi_w, obs_pi_w, obs_valid);
+    float ver_thr, int* direct, int* par, int* ver,
+    float* pi_w, float* obs_pi_w, unsigned char* obs_valid,
+    cudaStream_t stream) {
+  if (P < 1 || batch < 1) return static_cast<int>(cudaGetLastError());
+  if (Mp < 1 || C < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const AssocConsts c{P, Mp, C, assoc_angle, assoc_dist, par_thr, ver_thr};
+  const size_t smem = assoc_smem_bytes(P, Mp);
+  const int rc = psl_opt_in_smem(
+      reinterpret_cast<const void*>(associate_planes_kernel), smem);
+  if (rc != 0) return rc;
+  associate_planes_kernel<<<batch * kAssocCluster, kAssocThreads, smem,
+                            stream>>>(
+      coeffs, valid, T_cw, pl_coeffs, pl_cloud, pl_cloud_n, pl_valid, c,
+      direct, par, ver, pi_w, obs_pi_w, obs_valid);
   return static_cast<int>(cudaGetLastError());
 }
 

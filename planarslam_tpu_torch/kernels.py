@@ -163,9 +163,11 @@ _SIGNATURES = {
     # desc, stream
     "psl_orb_describe_levels": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
                                 _P],
-    # gray, gray_stride, buf, rows, n_levels, batch, row_taps, col_taps (host
-    # arrays of device pointers), stream
-    "psl_pyramid_build": [_P, _L, _P, _P, _I, _I, _P, _P, _P],
+    # gray, gray_stride, buf, rows, n_levels, batch, chunks, chunk_words,
+    # header_words, cone_rows, cone_cols, level0 (host), buf_floats,
+    # mid_floats, launches, stream
+    "psl_pyramid_build": [_P, _L, _P, _P, _I, _I, _P] + [_I] * 4
+                         + [_P, _I, _I, _P, _P],
     # src, dst, rows, n_levels, batch, ksize, the 7 taps, stream
     "psl_gaussian_blur": [_P, _P, _P, _I, _I, _I] + [_F] * 7 + [_P],
     # score, rows, n_levels, batch, min_score, border, cand_val, cand_xy,

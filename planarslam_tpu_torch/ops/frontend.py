@@ -222,9 +222,8 @@ def extract_point_features(gray: torch.Tensor, depth: torch.Tensor,
                            cam: CameraConfig, cfg: ORBConfig) -> PointFeatures:
     """Full ORB front end for one frame. gray: (H, W) f32 [0,255],
     depth: (H, W) f32 metres (0 = invalid); or B frames (B, H, W), every
-    output then with a leading B. On the card: K16 (one launch per level
-    above 0), then one launch each of K1, K18 (two), K17, K2 and K19 for
-    all levels and frames."""
+    output then with a leading B. On the card: one launch each of K16, K1,
+    K18 (two), K17, K2 and K19 for all levels and frames."""
     if gray.dim() == 2:
         return PointFeatures(*[x[0] for x in _extract_points_batched(
             gray[None], depth[None], cam, cfg)])

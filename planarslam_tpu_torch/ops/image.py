@@ -13,8 +13,9 @@ their plain versions, one level at a time.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -158,29 +159,116 @@ def build_pyramid_levels_plain(gray: torch.Tensor, table: LevelTable,
         for g in gray])
 
 
+PYRAMID_CONE = 16  # csrc/pyramid.cu's cones: a 16 x 16 tile of the last level
+
+
+def _cone_ranges(shapes, axis: int) -> np.ndarray:
+    """(n, nt, 4) int32 per level and top tile index along one axis (0:
+    rows, 1: columns): the cone's range [lo, hi) of that level, the inputs
+    its outputs above depend on and the part it owns, and the owned range
+    [own_lo, own_hi), the level's share of that top tile (the top tiles
+    scaled down, a partition of the level)."""
+    n = len(shapes)
+    top = shapes[-1][axis]
+    nt = -(-top // PYRAMID_CONE)
+    out = np.zeros((n, nt, 4), np.int32)
+    for k in range(nt):
+        a, b = k * PYRAMID_CONE, min((k + 1) * PYRAMID_CONE, top)
+        out[n - 1, k] = a, b, a, b
+        for l in range(n - 2, -1, -1):
+            size = shapes[l][axis]
+            own = [0 if k == 0 else min(size, round(k * PYRAMID_CONE * size
+                                                    / top)),
+                   size if k + 1 == nt else min(
+                       size, round((k + 1) * PYRAMID_CONE * size / top))]
+            lo, hi = own
+            taps = resize_taps(size, shapes[l + 1][axis])[a:b]
+            taps = taps[taps[:, 1] > 0]
+            if len(taps):
+                lo = min(lo, int(taps[:, 0].min()))
+                hi = max(hi, int((taps[:, 0] + taps[:, 1]).max()))
+            out[l, k] = lo, hi, own[0], own[1]
+            a, b = lo, hi
+    return out
+
+
+CONE_MAX = 64  # csrc/pyramid.cu::kConeMax: cones along a side of the top
+CONE_LEVEL_WORDS = 10  # a level's header in a cone's chunk
+
+
+class PyramidCones(NamedTuple):
+    """What K16's launch reads of a pyramid's cones (pyramid_cones)."""
+
+    ranges: np.ndarray   # (2, n, nt, 4) int32: _cone_ranges, rows then cols
+    chunks: np.ndarray   # (cones, words) int32: each cone's chunk
+    header_words: int    # the levels' headers at the front of a chunk
+    rows: int            # cones along the top level's rows, and columns
+    cols: int
+    level0: np.ndarray   # (4, CONE_MAX) int32: level 0's row ranges by cone
+                         # row, then its column ranges by cone column
+    buf_floats: int      # the most floats of a cone's level
+    mid_floats: int      # the most floats of its row taps' sums
+
+
 @lru_cache(maxsize=16)
-def _tap_pointers(shapes: Tuple[Tuple[int, int], ...], device: torch.device
-                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """Host arrays of the device addresses of every level's row and column
-    tap tables (entry 0 unused), as K16's entry point reads them. The tables
-    are device constants, so the addresses stay good."""
-    rows = np.zeros(len(shapes), np.uint64)
-    cols = np.zeros(len(shapes), np.uint64)
-    for l in range(1, len(shapes)):
-        (hi, wi), (ho, wo) = shapes[l - 1], shapes[l]
-        rows[l] = const(("resize_taps", hi, ho),
-                        lambda: resize_taps(hi, ho), device).data_ptr()
-        cols[l] = const(("resize_taps", wi, wo),
-                        lambda: resize_taps(wi, wo), device).data_ptr()
-    return rows, cols
+def pyramid_cones(shapes: Tuple[Tuple[int, int], ...]) -> PyramidCones:
+    """K16's cones over a pyramid. A cone's chunk holds, per level, its
+    row range, owned rows, column range, owned columns, the level's offset
+    in the buffer and its width (CONE_LEVEL_WORDS words), then for levels
+    1.. the row taps of its rows and the column taps of its columns
+    (resize_taps' rows), padded to a multiple of 4 words. Level 0's columns
+    are counted widened to multiples of 4 in buf_floats and mid_floats, as
+    the kernel stages them when the frame's rows allow 16-byte copies."""
+    n = len(shapes)
+    ry, rx = _cone_ranges(shapes, 0), _cone_ranges(shapes, 1)
+    nt = max(ry.shape[1], rx.shape[1])
+    ranges = np.zeros((2, n, nt, 4), np.int32)
+    ranges[0, :, :ry.shape[1]] = ry
+    ranges[1, :, :rx.shape[1]] = rx
+    offsets = np.cumsum([0] + [h * w for h, w in shapes[:-1]])
+    header = -(-n * CONE_LEVEL_WORDS // 4) * 4
+    taps = [(resize_taps(shapes[l - 1][0], shapes[l][0]),
+             resize_taps(shapes[l - 1][1], shapes[l][1])) for l in range(1, n)]
+    chunks = []
+    for ty in range(ry.shape[1]):
+        for tx in range(rx.shape[1]):
+            head = np.zeros(header, np.int32)
+            body = []
+            for l in range(n):
+                head[CONE_LEVEL_WORDS * l:CONE_LEVEL_WORDS * (l + 1)] = (
+                    *ry[l, ty], *rx[l, tx], offsets[l], shapes[l][1])
+                if l:
+                    body += [taps[l - 1][0][ry[l, ty, 0]:ry[l, ty, 1]],
+                             taps[l - 1][1][rx[l, tx, 0]:rx[l, tx, 1]]]
+            chunks.append(np.concatenate([head] + [t.reshape(-1)
+                                                   for t in body]))
+    words = -(-max(len(c) for c in chunks) // 4) * 4
+    level0 = np.zeros((4, CONE_MAX), np.int32)
+    if max(ry.shape[1], rx.shape[1]) <= CONE_MAX:
+        level0[0:2, :ry.shape[1]] = ry[0, :, :2].T
+        level0[2:4, :rx.shape[1]] = rx[0, :, :2].T
+    hy = ry[:, :, 1] - ry[:, :, 0]
+    hx = rx[:, :, 1] - rx[:, :, 0]
+    hx[0] = -(-rx[0, :, 1] // 4) * 4 - rx[0, :, 0] // 4 * 4
+    return PyramidCones(
+        ranges, np.stack([np.pad(c, (0, words - len(c))) for c in chunks]),
+        header, ry.shape[1], rx.shape[1], level0,
+        int((hy[:, :, None] * hx[:, None, :]).max()),
+        int((hy[1:, :, None] * hx[:-1, None, :]).max()) if n > 1 else 0)
+
+
+# K16's launches for one call, as its C entry reports them (what a caller
+# expects; the wrapper counts what the entry reports)
+PYRAMID_LAUNCHES = 1
 
 
 def build_pyramid_levels(gray: torch.Tensor, table: LevelTable,
                          scale_factor: float) -> torch.Tensor:
     """K16 wrapper: (B, H, W) float32 frames -> the (B, n_pixels) float32
-    buffer holding every pyramid level of each frame. One launch per level
-    above 0, each resizing the level below, all issued by one call; the
-    first also copies the frames in as level 0."""
+    buffer holding every pyramid level of each frame. One launch: a block
+    per cone (a 16 x 16 tile of the last level and what it depends on
+    below, pyramid_cones) builds every level of it in shared memory and
+    writes the outputs it owns, level 0 (the frame) included."""
     if kernels.on_cpu(gray):
         return build_pyramid_levels_plain(gray, table, scale_factor)
     kernels.check(gray, "gray", torch.float32)
@@ -193,13 +281,24 @@ def build_pyramid_levels(gray: torch.Tensor, table: LevelTable,
     b = gray.shape[0]
     buf = torch.empty((b, table.n_pixels), dtype=torch.float32,
                       device=gray.device)
-    rows, cols = _tap_pointers(table.shapes, gray.device)
+    cones = pyramid_cones(table.shapes)
+    if max(cones.rows, cones.cols) > CONE_MAX:
+        raise ValueError(f"pyramid_resize: {cones.rows} x {cones.cols} "
+                         f"cones, the kernel takes {CONE_MAX} a side")
+    chunks = const(("pyramid_cones", table.shapes), lambda: cones.chunks,
+                   gray.device)
+    launches = ctypes.c_int(0)
     with torch.cuda.device(gray.device):
-        kernels.launch("psl_pyramid_build", kernels.ptr(gray), gray.stride(0),
-                       kernels.ptr(buf), kernels.host_ptr(table.ints),
-                       table.n_levels, b, kernels.host_ptr(rows),
-                       kernels.host_ptr(cols))
-    kernels.LAUNCHES["pyramid_resize"] += max(1, table.n_levels - 1)
+        try:
+            kernels.launch("psl_pyramid_build", kernels.ptr(gray),
+                           gray.stride(0), kernels.ptr(buf),
+                           kernels.host_ptr(table.ints), table.n_levels, b,
+                           kernels.ptr(chunks), cones.chunks.shape[1],
+                           cones.header_words, cones.rows, cones.cols,
+                           kernels.host_ptr(cones.level0), cones.buf_floats,
+                           cones.mid_floats, ctypes.addressof(launches))
+        finally:
+            kernels.LAUNCHES["pyramid_resize"] += launches.value
     return buf
 
 

@@ -318,7 +318,8 @@ def _associate_planes_device(coeffs, valid, T_cw, pl_coeffs, pl_cloud,
     """K30 wrapper: B steps, coeffs (B, P, 4) float32, valid (B, P) bool,
     T_cw (B, 4, 4) float32 read on the device, pl_coeffs (B, Mp, 4),
     pl_cloud (B, Mp, C, 3) float32, pl_cloud_n (B, Mp) int64, pl_valid
-    (B, Mp) bool. Returns PlaneAssoc with a leading B."""
+    (B, Mp) bool. Returns PlaneAssoc with a leading B. One launch, a
+    cluster of 8 blocks per step."""
     tensors = [coeffs, valid, T_cw, pl_coeffs, pl_cloud, pl_cloud_n,
                pl_valid]
     if kernels.on_cpu(*tensors):

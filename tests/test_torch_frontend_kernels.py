@@ -83,6 +83,114 @@ def test_resize_taps_equal_dense_weights(w, h, level):
                                       timage._resize_weights(n_in, n_out))
 
 
+def _fma(a, b, c):
+    """float32 a * b + c through float64 (the same rounding on both sides of
+    the comparison below)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _resize_emulated(src, rt, ct, rows, cols):
+    """K16's outputs (rows x cols index arrays) of one level from `src`
+    (a window whose first row and column are given by rows.base and
+    cols.base): per output the row taps' sums, each rounded, under the
+    column taps, in ascending order."""
+    (y_base, ys), (x_base, xs) = rows, cols
+    acc = np.zeros((len(ys), len(xs)), np.float32)
+    for j in range(3):
+        rs = np.zeros_like(acc)
+        for t in range(3):
+            on = (t < rt[ys, 1])[:, None] & (j < ct[xs, 1])[None, :]
+            r = np.clip(rt[ys, 0] + t - y_base, 0, src.shape[0] - 1)
+            c = np.clip(ct[xs, 0] + j - x_base, 0, src.shape[1] - 1)
+            w = rt[ys, 2 + t].view(np.float32)[:, None]
+            rs = np.where(on, _fma(np.broadcast_to(w, acc.shape),
+                                   src[np.ix_(r, c)], rs), rs)
+        cw = ct[xs, 2 + j].view(np.float32)[None, :]
+        acc = np.where((j < ct[xs, 1])[None, :],
+                       _fma(rs, np.broadcast_to(cw, acc.shape), acc), acc)
+    return acc
+
+
+@pytest.mark.parametrize("w,h,n", [(160, 120, 8), (64, 48, 8), (77, 53, 5),
+                                   (64, 48, 1)])
+def test_pyramid_cones_cover_the_pyramid(w, h, n):
+    """K16's cones (image.pyramid_cones): walking each cone level by level
+    inside its own ranges, as the kernel does, and writing the outputs it
+    owns gives every pixel of every level exactly once and the values of
+    the level-by-level resize; each cone's chunk holds its ranges and its
+    taps, and its levels fit the shared memory the table sizes."""
+    shapes = tuple(tlevels.pyramid_shapes(h, w, n, 1.2))
+    pc = timage.pyramid_cones(shapes)
+    table, n_rows, n_cols = pc.ranges, pc.rows, pc.cols
+    offsets = np.cumsum([0] + [a * b for a, b in shapes[:-1]])
+    frame = np.random.default_rng(16).uniform(0, 255, (h, w)).astype(
+        np.float32)
+    want = [frame]
+    for l in range(1, n):
+        (hi, wi), (ho, wo) = shapes[l - 1], shapes[l]
+        want.append(_resize_emulated(
+            want[-1], timage.resize_taps(hi, ho), timage.resize_taps(wi, wo),
+            (0, np.arange(ho)), (0, np.arange(wo))))
+    got = [np.full(s, np.nan, np.float32) for s in shapes]
+    hits = [np.zeros(s, np.int32) for s in shapes]
+    for ty in range(n_rows):
+        for tx in range(n_cols):
+            ry, rx = table[0, :, ty], table[1, :, tx]
+            assert all((ry[l, 0] <= ry[l, 2] <= ry[l, 3] <= ry[l, 1])
+                       and (rx[l, 0] <= rx[l, 2] <= rx[l, 3] <= rx[l, 1])
+                       for l in range(n))
+            # the cone's chunk: its levels' ranges, offsets and widths, then
+            # the taps of its rows and columns; the level-0 ranges as the
+            # launch reads them; its levels fit the shared memory sized
+            chunk = pc.chunks[ty * n_cols + tx]
+            head = chunk[:pc.header_words].reshape(-1)[:10 * n].reshape(n, 10)
+            np.testing.assert_array_equal(head[:, :4], ry)
+            np.testing.assert_array_equal(head[:, 4:8], rx)
+            np.testing.assert_array_equal(head[:, 8], offsets)
+            np.testing.assert_array_equal(head[:, 9], [s[1] for s in shapes])
+            assert list(pc.level0[:2, ty]) == list(ry[0, :2])
+            assert list(pc.level0[2:, tx]) == list(rx[0, :2])
+            body = chunk[pc.header_words:]
+            for l in range(1, n):
+                for axis, r in ((0, ry), (1, rx)):
+                    m = 5 * (r[l, 1] - r[l, 0])
+                    want_taps = timage.resize_taps(
+                        shapes[l - 1][axis], shapes[l][axis])[r[l, 0]:r[l, 1]]
+                    np.testing.assert_array_equal(body[:m].reshape(-1, 5),
+                                                  want_taps)
+                    body = body[m:]
+            assert not body.any()
+            x0 = rx[0, 0] // 4 * 4
+            widths = [-(-rx[0, 1] // 4) * 4 - x0] + list(rx[1:, 1] - rx[1:, 0])
+            sizes = (ry[:, 1] - ry[:, 0]) * np.array(widths)
+            assert sizes.max() <= pc.buf_floats
+            assert (n == 1 or ((ry[1:, 1] - ry[1:, 0])
+                               * np.array(widths[:-1])).max()
+                    <= pc.mid_floats)
+            cur = frame[ry[0, 0]:ry[0, 1], rx[0, 0]:rx[0, 1]]
+            for l in range(n):
+                if l:
+                    (hi, wi), (ho, wo) = shapes[l - 1], shapes[l]
+                    rt = timage.resize_taps(hi, ho)
+                    ct = timage.resize_taps(wi, wo)
+                    ys = np.arange(ry[l, 0], ry[l, 1])
+                    xs = np.arange(rx[l, 0], rx[l, 1])
+                    # the taps stay inside the level below's ranges
+                    assert rt[ys, 0].min() >= ry[l - 1, 0]
+                    assert (rt[ys, 0] + rt[ys, 1]).max() <= ry[l - 1, 1]
+                    assert ct[xs, 0].min() >= rx[l - 1, 0]
+                    assert (ct[xs, 0] + ct[xs, 1]).max() <= rx[l - 1, 1]
+                    cur = _resize_emulated(cur, rt, ct, (ry[l - 1, 0], ys),
+                                           (rx[l - 1, 0], xs))
+                oy, ox = slice(ry[l, 2], ry[l, 3]), slice(rx[l, 2], rx[l, 3])
+                got[l][oy, ox] = cur[ry[l, 2] - ry[l, 0]:ry[l, 3] - ry[l, 0],
+                                     rx[l, 2] - rx[l, 0]:rx[l, 3] - rx[l, 0]]
+                hits[l][oy, ox] += 1
+    for l in range(n):
+        assert (hits[l] == 1).all(), l
+        np.testing.assert_array_equal(got[l], want[l])
+
+
 def fast_doubling_reference(img: np.ndarray) -> np.ndarray:
     """K1's order in numpy: the ring values of the edge-replicated level
     (its staging clamps the coordinates), the arcs reduced by doubling on

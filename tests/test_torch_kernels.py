@@ -549,7 +549,7 @@ def test_plane_assign_refit_rounds(dev):
     for name in ("b4", "b9"):
         for a, b in zip(outs[name], outs["b1"]):
             assert torch.equal(a[:1], b)
-    assert _held(chip_smoke.refit_graph_replay, probs["b4"])
+    assert _held(chip_smoke.graph_replay, probs["b4"])
 
 
 def test_extract_planes_on_card(dev, frame):
@@ -630,6 +630,74 @@ def test_frontend_kernels(dev):
     assert set(out[3]["cases"]) == {"pinhole", "distorted"}
 
 
+def test_pyramid_resize_launches(dev, frame):
+    """K16 builds the pyramid in the launches its C entry reports: one, as
+    image.PYRAMID_LAUNCHES says and kernels.LAUNCHES counts."""
+    from planarslam_tpu_torch.ops import frontend as fe
+
+    oc = SystemConfig().orb
+    table = fe.orb_level_table(480, 640, oc)
+    n0 = kernels.LAUNCHES["pyramid_resize"]
+    image.build_pyramid_levels(frame[0][None], table, oc.scale_factor)
+    assert image.PYRAMID_LAUNCHES == 1
+    assert kernels.LAUNCHES["pyramid_resize"] == n0 + 1
+
+
+def test_pyramid_resize_cases(dev):
+    """K16 on chip_smoke.py's pyramid_inputs (frame 0, frames 0-3 at B = 4
+    lane by lane, a 1280x960 frame, a 64x48 one whose top levels are
+    narrower than a tile): within chip_smoke.PYRAMID_TOLERANCE of the plain
+    pyramid, two launches equal bits, the keypoints shared
+    (pyramid_cases states the limits)."""
+    cfg = SystemConfig()
+    seq = synthetic.make_sequence(4, width=640, height=480)
+    out = chip_smoke.pyramid_cases(seq, cfg, dev)
+    assert set(out) == {"b1", "b4", "wide", "small"}
+    assert out["small"]["levels"][-1][1] < 32
+    assert out["wide"]["shape"] == [960, 1280]
+
+
+def test_pyramid_resize_protocol(dev):
+    """K16 into a buffer filled with NaN (chip_smoke.pyramid_protocol): each
+    call, after other frames' calls, is bit-equal to its first run, one
+    launch, every pixel written; a CUDA graph of it replays bit-equal."""
+    cfg = SystemConfig()
+    seq = synthetic.make_sequence(4, width=640, height=480)
+    probs = chip_smoke.pyramid_problems(seq, cfg, dev)
+    out = chip_smoke.pyramid_protocol(probs, reps=2)
+    assert out["calls"] == 2 * 2 * len(probs)
+    assert chip_smoke.graph_replay(lambda: probs["b4"](), "pyramid_resize",
+                                   None)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_associate_planes_planted_b4(dev, batch):
+    """K30 on chip_smoke.py's planted cases of what it skips (an invalid
+    map plane nearer than any valid one with NaN past its points, point
+    counts of 0, C and above C, a NaN point in a counted cloud, half the
+    frame planes invalid), one at a time and all four in one launch:
+    every output bit-equal to the plain version lane by lane, one
+    launch."""
+    cfg = SystemConfig()
+    cases = chip_smoke.PLANE_CASES[-4:]
+    probs = [chip_smoke.planted_plane_problem(np.random.default_rng(30), c)
+             for c in cases]
+    groups = [probs] if batch == 4 else [[p] for p in probs]
+    for group in groups:
+        args = [torch.from_numpy(np.stack([p[k] for p in group])).to(dev)
+                for k in chip_smoke.PLANE_KEYS]
+        n0 = kernels.LAUNCHES["associate_planes"]
+        got = device_tracker._associate_planes_device(*args, cfg.planes)
+        assert kernels.LAUNCHES["associate_planes"] == n0 + 1
+        want = kernels.per_problem(device_tracker._associate_planes_plain,
+                                   args, cfg.planes)
+        for f in got._fields:
+            x, y = getattr(got, f), getattr(want, f)
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            assert torch.equal(x, y), f
+
+
 @pytest.mark.parametrize("ksize,sigma", chip_smoke.PLANTED_BLUR_TAPS)
 @pytest.mark.parametrize("batch", [1, 3])
 def test_blur_planted_levels(dev, ksize, sigma, batch):
@@ -701,7 +769,8 @@ def test_frontend_kernels_batched(dev, batch):
     ang, desc = orb.orb_describe_levels(buf, blur, sel[0], sel[2], table,
                                         oc.max_keypoints)
     ep = fe.point_epilogue(*sel, depth, cam, table, oc.max_keypoints)
-    for name, n in (("pyramid_resize", oc.n_levels - 1), ("fast_score", 1),
+    for name, n in (("pyramid_resize", image.PYRAMID_LAUNCHES),
+                    ("fast_score", 1),
                     ("select_keypoints", fast.select_launches(table)),
                     ("gaussian_blur", 1),
                     ("orb_describe", 1), ("point_epilogue", 1)):

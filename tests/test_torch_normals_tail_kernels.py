@@ -241,6 +241,21 @@ def test_associate_planes_plain_vs_jax(case):
         assert direct[0] == 0 and par[0] in (40, 50)
     if case == "empty_cloud":
         assert 3 not in direct and par[2] in (3, 42)
+    if case == "invalid_near":  # it would win frame plane 0 were it valid
+        assert direct[0] == 0 and 100 not in ids
+        flip = dict(p, pl_valid=p["pl_valid"].copy())
+        flip["pl_valid"][100] = True
+        alt = tdt._associate_planes_plain(*[_t(flip[k]) for k in PLANE_KEYS],
+                                          tc.planes)
+        assert int(alt.direct[0]) == 100
+    if case == "cloud_n_range":
+        assert 4 not in direct and par[4] == 4
+        assert direct[6] == 6 and direct[7] == 7
+    if case == "nan_point":
+        assert 5 not in direct and par[5] == 5
+    if case == "invalid_frame":
+        assert (ids[:, 1::2] == -1).all()
+        assert not got.obs_valid.numpy()[:, 1::2].any()
 
 
 def test_associate_planes_batched_cpu():

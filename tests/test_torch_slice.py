@@ -208,3 +208,50 @@ def test_entry_point_without_card_raises(monkeypatch, name, kwargs):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call(**kwargs)
+
+
+def _c_entries() -> dict:
+    """The PSL_API functions of planarslam_tpu_torch/csrc: name -> the C
+    types of their parameters."""
+    import os
+    import re
+
+    from planarslam_tpu_torch import kernels
+
+    out = {}
+    for name in sorted(os.listdir(kernels.CSRC)):
+        if not name.endswith(".cu"):
+            continue
+        with open(os.path.join(kernels.CSRC, name)) as f:
+            text = re.sub(r"//[^\n]*", "", f.read())
+        for m in re.finditer(r"PSL_API\s+[\w\s\*]+?\b(psl_\w+)\s*\(([^)]*)\)",
+                             text):
+            params = [p.strip() for p in m.group(2).split(",") if p.strip()]
+            out[m.group(1)] = params
+    return out
+
+
+def test_kernel_signatures_match_c_entries():
+    """Every ctypes signature in kernels.py (launchers and host helpers)
+    names a PSL_API function of csrc/ with as many parameters, each a
+    pointer where the C parameter is one (the stream included) and a
+    64-bit integer, 32-bit integer or float where the C parameter is
+    long long, int or float: a wrong count or width passes arguments
+    that the card only shows as a fault."""
+    import ctypes
+
+    from planarslam_tpu_torch import kernels
+
+    entries = _c_entries()
+    kinds = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+             ctypes.c_longlong: "long long", ctypes.c_float: "float",
+             ctypes.c_double: "double"}
+    for name, argtypes in {**kernels._SIGNATURES, **kernels._HELPERS}.items():
+        assert name in entries, name
+        c = entries[name]
+        assert len(c) == len(argtypes), (name, len(c), len(argtypes))
+        for p, t in zip(c, argtypes):
+            want = ("ptr" if "*" in p or p.startswith("cudaStream_t")
+                    else "long long" if p.startswith("long long")
+                    else p.split()[-2] if len(p.split()) > 1 else p)
+            assert kinds[t] == want, (name, p, kinds[t])

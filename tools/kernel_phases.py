@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Time the phases inside K1 (fast_score), K3 (gated_hamming_top2), K12
 (plane_components), K13 (plane_assign_refit), K15 (manhattan_mean_shift),
-K17 (gaussian_blur), K18 (select_keypoints), K23
-(search_lines_by_projection), K28 (noise_alpha) and K29 (frame_normals)
-on a GPU.
+K16 (pyramid_resize), K17 (gaussian_blur), K18 (select_keypoints), K23
+(search_lines_by_projection), K28 (noise_alpha), K29 (frame_normals) and
+K30 (associate_planes) on a GPU.
 
     python3 tools/kernel_phases.py
 
 Copies csrc/fast_score.cu, csrc/hamming_top2.cu, csrc/plane_segment.cu
 (twice: K12, K13), csrc/manhattan.cu, csrc/line_lift_search.cu,
-csrc/pyramid.cu, csrc/select_keypoints.cu and csrc/depth_normals.cu
-(twice: K28, K29) into build/kernel_phases/, inserts clock64 (and, in
+csrc/pyramid.cu (twice: K16, K17), csrc/select_keypoints.cu,
+csrc/step_tail.cu and csrc/depth_normals.cu (twice: K28, K29) into
+build/kernel_phases/, inserts clock64 (and, in
 K1, K3, K13, K17, K18, K23, K28 and K29, %globaltimer) reads at the
 phase comments the sources carry,
 builds each copy with the build's own flags into a library of its own,
@@ -59,7 +60,14 @@ of the built ones:
 - K18 on chip_smoke.py's `select_problems` (B = 1 and 4, the planted
   map): per tile block the cycles of warp 0's staging, NMS and gate and
   passes, per rank block those of the staging and counting and of the
-  slot, each launch's span and the gap between them.
+  slot, each launch's span and the gap between them;
+- K16 on chip_smoke.py's `pyramid_problems` (B = 1 and 4, 1280x960,
+  64x48): per block (a cone) the cycles of its staging, of levels 1 (with
+  the copy of level 0), 2, 3 and 4, and of levels 5-7 together;
+- K30 on chip_smoke.py's `assoc_problems` (path 1's 48th step clean and
+  noisy, the planted "random" case, B = 4): per step (the first block of
+  its cluster) the cycles of the staging, the distance pass, the cluster
+  barrier after it and the picks and gathers.
 Prints one JSON object with the card's name and power limit. The marks
 move where the code between them runs, not what it computes.
 """
@@ -217,6 +225,26 @@ K18_ANCHORS = (
     ("  // rank stage: this lane's candidate", 4, True),
     ("  // the slot: the slices' counts summed", 5, True),
     ("      valid[slot] = vi > 0.0f ? 1 : 0;\n    }\n  }\n", 6, False))
+# K16: marks per block, a cone (thread 0's): the staging's start and end,
+# the ends of levels 1-4, the end
+K16_ANCHORS = (
+    ("  // staging: the cone's chunk (its levels' ranges and taps) and the",
+     0, True),
+    ("  // level 0: the part of the frame the cone owns", 1, True),
+    ("    an = nx;\n  }\n}\n", 6, "end"))
+K16_LEVEL = "    const int* h = chunk + kLevelWords * l;\n"
+K16_PHASES = ("staging", "level1", "level2", "level3", "level4",
+              "levels5_7")
+# K30: marks 0-4 per block (thread 0's: staging, the distance pass, the
+# cluster barrier before the keys are complete, the picks and gathers, the
+# end; only a cluster's first block picks and reaches marks 3 and 4)
+K30_ANCHORS = (
+    ("  // staging: a thread a map plane or a frame plane", 0, True),
+    ("  // the distance pass: the cluster's warps over the units", 1, True),
+    ("  cl.sync();  // the keys complete", 2, True),
+    ("  // picks and gathers: a warp per frame plane", 3, True),
+    ("      ver[fp] = id_ver;\n    }\n  }\n}\n", 4, "end"))
+K30_PHASES = ("staging", "distances", "barrier", "picks")
 READ = ('\nextern "C" int psl_phase_read(void* out, int bytes) {\n'
         '  return static_cast<int>(cudaMemcpyFromSymbol(out, psl_phase, '
         'bytes));\n}\n')
@@ -355,6 +383,38 @@ def _k18_source(kernels) -> str:
         src = src.replace(anchor, f"{mark}\n{anchor}" if before
                           else f"{anchor}  {mark}\n")
     return src + READ
+
+
+def _k16_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "pyramid.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", f"__device__ long long psl_phase"
+                      f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
+    for anchor, k, where in K16_ANCHORS:
+        src = _mark(src, anchor, BLOCK_MARK.format(k=k), where)
+    marks = "".join(f"if (l == {l}) {{ {BLOCK_MARK.format(k=l)} }}\n"
+                    for l in range(2, 6))
+    if src.count(K16_LEVEL) != 1:
+        raise RuntimeError("phase anchor not found once: the cone's level")
+    return src.replace(K16_LEVEL, marks + K16_LEVEL) + READ
+
+
+def _k30_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "step_tail.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", f"__device__ long long psl_phase"
+                      f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
+    for anchor, k, where in K30_ANCHORS:
+        src = _mark(src, anchor, BLOCK_MARK.format(k=k), where)
+    return src + READ
+
+
+def _k30_marks(lib, fn) -> dict:
+    """K30's marks after one call of fn: per step (its cluster's first
+    block, the one that picks) the cycles of its staging, distance pass,
+    cluster barrier and picks and gathers (median and largest), and the
+    launch's span (us)."""
+    return _block_marks(lib, fn, K30_PHASES)
 
 
 def _k18_marks(lib, fn) -> dict:
@@ -550,19 +610,24 @@ def main() -> int:
                  kernels.SOURCE_FLAGS["pyramid.cu"])
     k18 = _build(kernels, "select_keypoints", _k18_source(kernels),
                  kernels.SOURCE_FLAGS["select_keypoints.cu"])
+    k30 = _build(kernels, "step_tail", _k30_source(kernels),
+                 kernels.SOURCE_FLAGS["step_tail.cu"])
+    k16 = _build(kernels, "pyramid_k16", _k16_source(kernels),
+                 kernels.SOURCE_FLAGS["pyramid.cu"])
     entries = {"psl_gated_hamming_top2": k3, "psl_mutual_hamming_top2": k3,
                "psl_plane_components": k12, "psl_manhattan_mean_shift": k15,
                "psl_frame_normals": k29, "psl_noise_alpha": k28,
                "psl_plane_assign_refit": k13, "psl_fast_score_levels": k1,
                "psl_search_lines": k23, "psl_gaussian_blur": k17,
-               "psl_select_keypoints": k18}
+               "psl_select_keypoints": k18, "psl_pyramid_build": k16,
+               "psl_associate_planes": k30}
     for name, lib in entries.items():
         getattr(lib, name).argtypes = kernels._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     k23.psl_search_lines_scratch_words.argtypes = kernels._HELPERS[
         "psl_search_lines_scratch_words"]
     k23.psl_search_lines_scratch_words.restype = ctypes.c_longlong
-    for lib in (k3, k12, k15, k29, k28, k13, k1, k23, k17, k18):
+    for lib in (k3, k12, k15, k29, k28, k13, k1, k23, k17, k18, k16, k30):
         lib.psl_phase_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     cfg = SystemConfig()
     seq = synthetic.make_sequence(smoke.TRACKING_FRAMES,
@@ -651,6 +716,16 @@ def main() -> int:
     out["select_keypoints"] = {
         name: _k18_marks(k18, fn)
         for name, fn in smoke.select_problems(seq, cfg, dev).items()}
+    kernels._lib = _Swap(real, k16, {"psl_pyramid_build"})
+    out["pyramid_resize"] = {
+        name: _block_marks(k16, fn, K16_PHASES)
+        for name, fn in smoke.pyramid_problems(seq, cfg, dev).items()}
+    kernels._lib = _Swap(real, k30, {"psl_associate_planes"})
+    out["associate_planes"] = {
+        name: _k30_marks(k30, fn)
+        for name, fn in smoke.assoc_problems(seq, cfg, dev).items()
+        if name in (f"step{smoke.ASSOC_STEP}_clean",
+                    f"step{smoke.ASSOC_STEP}_noisy", "random", "b4")}
     kernels._lib = real
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
                              "--format=csv,noheader"], capture_output=True,

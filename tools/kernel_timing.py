@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time K1 (fast_score), K3 (gated_hamming_top2), K11 (pose_optimize),
 K12 (plane_components), K13 (plane_assign_refit), K15
-(manhattan_mean_shift), K17 (gaussian_blur), K18 (select_keypoints), K20
-(detect_lines), K23 (search_lines_by_projection), K28 (noise_alpha) and
-K29 (frame_normals) of one tree of the port on a GPU, so that two trees
+(manhattan_mean_shift), K16 (pyramid_resize), K17 (gaussian_blur), K18
+(select_keypoints), K20 (detect_lines), K23 (search_lines_by_projection),
+K28 (noise_alpha), K29 (frame_normals) and K30 (associate_planes) of one
+tree of the port on a GPU, so that two trees
 can be compared in one run.
 
     python3 tools/kernel_timing.py [--root DIR]
@@ -36,8 +37,13 @@ and of frames 0-3 (`blur_problems`); K18 on frame 0's FAST scores at B =
 (`select_problems`; device time by launch: the tiles and the rank); K23
 on the tracking window (M = 256) at B = 1 and seen from four frames at B
 = 4, on 4096 lines, with no candidate and with fewer than 6 earned
-(`line_search_problems`). K1, K3, K12, K13, K15, K17, K18, K23, K28 and
-K29 are timed by `kernel_timing_entry`. Prints one JSON
+(`line_search_problems`); K16 on frame 0 at B = 1, frames 0-3 at B = 4,
+a 1280x960 frame and a 64x48 one (`pyramid_problems`); K30 on path 1's
+48th tracking step clean and noisy, every PLANE_CASES problem and those
+steps at B = 4 (`assoc_problems`), with the valid frame and map planes
+and the points K30 walks over path 1's first 48 steps (`plane_stats`).
+K1, K3, K12, K13, K15, K16, K17, K18, K23, K28, K29 and K30 are timed by
+`kernel_timing_entry`. Prints one JSON
 object with the card's name and power limit, those times and a hash of
 each output, so that two trees' outputs can be compared bit for bit.
 """
@@ -132,11 +138,22 @@ def main(argv=None) -> int:
             ("gaussian_blur", smoke.blur_problems, "gaussian_blur"),
             ("select_keypoints", smoke.select_problems, "select_"),
             ("search_lines_by_projection", smoke.line_search_problems,
-             "lines_search")):
+             "lines_search"),
+            ("pyramid_resize", smoke.pyramid_problems, "pyramid_")):
         out[key] = {name: {"hash": _digest(fn()),
                            **smoke.kernel_timing_entry(fn, match)}
                     for name, fn in problems(seq, cfg, dev).items()}
-
+    assoc = smoke.assoc_inputs(seq, cfg, dev)
+    out["associate_planes"] = {
+        name: {"hash": _digest(fn()),
+               **smoke.kernel_timing_entry(fn, "associate_planes")}
+        for name, fn in smoke.assoc_problems(seq, cfg, dev, assoc).items()}
+    steps = [smoke.plane_stats(a) for a in assoc["clean"]]
+    out["associate_planes"]["path1_steps"] = {
+        k: {"min": min(s[k] for s in steps),
+            "median": float(np.median([s[k] for s in steps])),
+            "max": max(s[k] for s in steps), f"step{smoke.ASSOC_STEP}":
+            steps[-1][k]} for k in steps[0]}
     g8, _ = quantize_frame(*seq.render(0), cam.depth_map_factor)
     gray = torch.from_numpy(g8.astype(np.float32)).to(dev)
     blurred = image.gaussian_blur(gray, 5, 1.0)[None]

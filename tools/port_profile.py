@@ -4,6 +4,10 @@
     python3 tools/port_profile.py [--frames 40] [--warmup 20]
                                   [--tracking-only | --loop-correction
                                    [--repeat N] | --batched B] [--out DIR]
+                                  [--root DIR]
+
+--root profiles another checkout's planarslam_tpu_torch (built into its
+build/), with this checkout's chip_smoke.py for path 5's sequences.
 
 Tracks the 640x480 synthetic sequence (with --loop-correction path 4b's:
 chip_smoke.CONSTRUCTED_SEQUENCE frames, unless --frames is longer) with
@@ -67,8 +71,10 @@ import time
 
 import numpy as np
 
-# the repository root, so that the port imports when run as a script
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# the repository root, so that the port (and chip_smoke.py) import when run
+# as a script
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 # modules whose stage functions carry record_function("<module>.<function>")
 SPAN_MODULES = ("frontend", "lines", "planes", "manhattan", "matching",
@@ -95,7 +101,7 @@ PORT_KERNELS = {
     "K13 plane_assign_refit": ("plane_assign_", "plane_refit_kernel"),
     "K14 plane_label_pixels": ("plane_label_kernel",),
     "K15 manhattan_mean_shift": ("manhattan_kernel",),
-    "K16 pyramid_resize": ("pyramid_resize_kernel",),
+    "K16 pyramid_resize": ("pyramid_cone_kernel",),
     "K17 gaussian_blur": ("gaussian_blur_kernel",),
     "K18 select_keypoints": ("select_tiles_kernel", "select_rank_kernel"),
     "K19 point_epilogue": ("point_epilogue_kernel",),
@@ -186,7 +192,11 @@ def main(argv=None) -> int:
     ap.add_argument("--batched", type=int, default=0, metavar="B",
                     help="profile batched steps of B lanes (path 5)")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--root", default=ROOT,
+                    help="the checkout whose planarslam_tpu_torch is "
+                    "profiled (default: this one)")
     args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
 
@@ -199,6 +209,8 @@ def main(argv=None) -> int:
     from planarslam_tpu_torch.io.frames import quantize_frame
     from planarslam_tpu_torch.slam.system import System
 
+    print(f"root {os.path.dirname(os.path.dirname(kernels.__file__))}",
+          flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
