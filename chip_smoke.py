@@ -257,7 +257,7 @@ def _launch_split(fn, reps: int = TIMING_REPS, match: str = "") -> dict:
 PTXAS_SOURCES = ("pose_opt.cu", "lines.cu", "hamming_top2.cu",
                  "plane_segment.cu", "manhattan.cu", "depth_normals.cu",
                  "fast_score.cu", "line_lift_search.cu", "pyramid.cu",
-                 "select_keypoints.cu")
+                 "select_keypoints.cu", "matching.cu")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -1711,6 +1711,260 @@ def detect_timing(blurred, lc) -> dict:
             "device_ms": sum(v["ms"] for v in split.values())}
 
 
+# K22's planted cases: half the slots invalid (among them segments whose fit
+# would pass), segments over depth holes (some and all of their samples on
+# zero depth), endpoints off the image and samples on exact half pixels
+# beside a depth step, a 3D extent just under and just over 0.05 m, and
+# the small configuration's and the C entry's largest sizes
+LIFT_CASES = ("invalid_slots", "depth_holes", "off_image", "extent_edge",
+              "sizes_24_16", "sizes_64_64")
+# (n_depth_samples, ransac_iters) of the sizes cases
+LIFT_SIZES = {"sizes_24_16": (24, 16), "sizes_64_64": (64, 64)}
+LIFT_SHAPE = (480, 640)  # the planted depths' (h, w)
+LIFT_PANEL_Z = 2.0      # depth of the noiseless panel extent_edge lies on
+LIFT_SLOTS = 64         # segments a planted frame holds (max_lines)
+
+
+def _lift_segments(rng, n: int, h: int, w: int) -> tuple:
+    """n random segments 40-220 pixels long inside a (h, w) image."""
+    start = np.stack([rng.uniform(30, w - 30, n), rng.uniform(30, h - 30, n)],
+                     -1)
+    ang = rng.uniform(0.0, np.pi, n)
+    length = rng.uniform(40.0, 220.0, n)
+    end = start + length[:, None] * np.stack([np.cos(ang), np.sin(ang)], -1)
+    end = np.stack([np.clip(end[:, 0], 0, w - 1),
+                    np.clip(end[:, 1], 0, h - 1)], -1)
+    return start.astype(np.float32), end.astype(np.float32)
+
+
+def _zero_along(depth: np.ndarray, s, e, a0: float = 0.0, a1: float = 1.0):
+    """Zero the depth 2 pixels around the segment s -> e between its
+    fractions a0 and a1."""
+    h, w = depth.shape
+    for a in np.linspace(a0, a1, 400):
+        u, v = s + a * (e - s)
+        u0, v0 = int(round(u)), int(round(v))
+        depth[max(v0 - 2, 0):min(v0 + 3, h), max(u0 - 2, 0):min(u0 + 3, w)] = 0
+
+
+def planted_lift_problem(case: str, seed: int = 19, fx: float = 535.4,
+                         factor: float = 5000.0) -> dict:
+    """One planted K22 frame of LIFT_CASES as numpy arrays: depth (h, w)
+    metres (a slanted wall, a nearer box, a depth step at column 200 and
+    row 150, quantized with the Kinect noise model; a noiseless panel at
+    LIFT_PANEL_Z), uv_s, uv_e (L, 2), valid (L,), and the case's
+    (n_depth_samples, ransac_iters) or None for the configuration's. fx is
+    the camera's (extent_edge's lengths follow from it)."""
+    rng = np.random.default_rng(seed)
+    h, w = LIFT_SHAPE
+    L = LIFT_SLOTS
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    z = 3.2 + 0.0015 * (u - w / 2) + 0.0004 * (v - h / 2)
+    z = np.where((u > 380) & (u < 560) & (v > 60) & (v < 280),
+                 1.7 + 0.002 * (u - 470), z)
+    z = np.where(u <= 200, z - 0.6, z)   # a step between columns 200, 201
+    z = np.where(v <= 150, z + 0.3, z)   # and between rows 150, 151
+    depth = noisy_depth(z.astype(np.float32), factor, seed=seed)
+    panel = (v >= 300) & (v < 470) & (u >= 20) & (u < 360)
+    depth[panel] = np.float32(LIFT_PANEL_Z)
+    uv_s, uv_e = _lift_segments(rng, L, h, w)
+    valid = np.ones(L, bool)
+    if case == "invalid_slots":
+        valid[rng.permutation(L)[:L // 2]] = False
+    elif case == "depth_holes":
+        for k in range(0, 16):      # every sample on zero depth
+            _zero_along(depth, uv_s[k], uv_e[k])
+        for k in range(16, 32):     # a part of the samples
+            _zero_along(depth, uv_s[k], uv_e[k], 0.25, 0.25 + 0.1 * (k - 15)
+                        / 4.0)
+    elif case == "off_image":
+        for k in range(16):         # both ends beyond the image
+            uv_s[k] = (rng.uniform(-80, -1), rng.uniform(-60, h + 60))
+            uv_e[k] = (rng.uniform(w, w + 80), rng.uniform(-60, h + 60))
+        for k in range(16, 24):     # one end beyond a corner
+            uv_e[k] = (rng.choice([-40.0, w + 40.0]),
+                       rng.choice([-40.0, h + 40.0]))
+        for k in range(24, 32):     # vertical, on column 200.5 / 202.5
+            x = np.float32(200.5 + 2 * (k % 2))
+            uv_s[k] = (x, rng.uniform(20, 200))
+            uv_e[k] = (x, rng.uniform(260, h - 20))
+        for k in range(32, 40):     # horizontal, on row 150.5 / 148.5
+            y = np.float32(150.5 - 2 * (k % 2))
+            uv_s[k] = (rng.uniform(20, 200), y)
+            uv_e[k] = (rng.uniform(260, w - 20), y)
+    elif case == "extent_edge":
+        # horizontal segments on the panel, their 3D extent (0.96 of the
+        # length times z / fx) 0.998 and 1.002 of 0.05 m in turn
+        base = 0.05 * fx / (0.96 * LIFT_PANEL_Z)
+        for k in range(32):
+            x0 = np.float32(rng.uniform(30, 330))
+            y0 = np.float32(rng.uniform(305, 465))
+            uv_s[k] = (x0, y0)
+            uv_e[k] = (x0 + np.float32(base * (0.998 if k % 2 == 0
+                                               else 1.002)), y0)
+    return {"depth": depth, "uv_s": uv_s.astype(np.float32),
+            "uv_e": uv_e.astype(np.float32), "valid": valid,
+            "sizes": LIFT_SIZES.get(case)}
+
+
+def planted_lift_lanes(case: str, batch: int, seed: int = 19) -> dict:
+    """planted_lift_problem of seeds seed .. seed + batch - 1 stacked on a
+    leading lane dimension (the case's sizes shared)."""
+    probs = [planted_lift_problem(case, seed + b) for b in range(batch)]
+    out = {k: np.stack([p[k] for p in probs])
+           for k in ("depth", "uv_s", "uv_e", "valid")}
+    out["sizes"] = probs[0]["sizes"]
+    return out
+
+
+def lift_config(lc, sizes):
+    """The line configuration with a planted case's (n_depth_samples,
+    ransac_iters), or lc itself."""
+    import dataclasses
+
+    if sizes is None:
+        return lc
+    return dataclasses.replace(lc, n_depth_samples=sizes[0],
+                               ransac_iters=sizes[1])
+
+
+def _lift_args(prob: dict, cfg, dev) -> tuple:
+    """lift_lines_3d's arguments for a planted_lift_lanes problem."""
+    import torch
+
+    t = {k: torch.from_numpy(prob[k]).to(dev)
+         for k in ("depth", "uv_s", "uv_e", "valid")}
+    return (t["depth"], cfg.camera, lift_config(cfg.lines, prob["sizes"]),
+            t["uv_s"], t["uv_e"], t["valid"])
+
+
+def lift_lane(args: tuple, b: int) -> tuple:
+    """Lane b of lift_lines_3d's batched arguments, as a batch of one."""
+    return (args[0][b:b + 1].contiguous(), *args[1:3],
+            *[a[b:b + 1].contiguous() for a in args[3:]])
+
+
+def lift_planted_parity(cfg, dev) -> dict:
+    """K22 on every LIFT_CASES frame against its plain version: has_3d
+    exact, endpoints within P3D_TOLERANCE, two launches equal bits, one
+    launch a call; each case also at B = 4 (four seeds) in one launch,
+    each lane bit-equal to its B = 1 launch. Returns per case the lines
+    lifted, the largest error and what the case plants."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.ops import lines as ln
+
+    out = {}
+    for case in LIFT_CASES:
+        lanes = planted_lift_lanes(case, 4)
+        args4 = _lift_args(lanes, cfg, dev)
+        singles, err = [], 0.0
+        for b in range(4):
+            args = lift_lane(args4, b)
+            n0 = kernels.LAUNCHES["lift_lines_3d"]
+            got = ln.lift_lines_3d(*args)
+            _check(kernels.LAUNCHES["lift_lines_3d"] == n0 + 1,
+                   f"lift_lines_3d ({case}): not one launch a call")
+            again = ln.lift_lines_3d(*args)
+            want = ln.lift_lines_3d_plain(*args)
+            torch.cuda.synchronize()
+            _check(all(_bit_diff(x, y, as_int=x.dtype == torch.float32) == 0
+                       for x, y in zip(got, again)),
+                   f"lift_lines_3d ({case}): two launches differ")
+            _check(torch.equal(got[2], want[2]),
+                   f"lift_lines_3d ({case}, lane {b}): has_3d differs from "
+                   f"plain in {int((got[2] != want[2]).sum())} lines")
+            e = max(_finite_err(got[0], want[0]), _finite_err(got[1], want[1]))
+            _check(e <= P3D_TOLERANCE, f"lift_lines_3d ({case}, lane {b}) "
+                   f"differs from plain by {e} m")
+            err = max(err, e)
+            singles.append((got, want))
+        n0 = kernels.LAUNCHES["lift_lines_3d"]
+        got4 = ln.lift_lines_3d(*args4)
+        _check(kernels.LAUNCHES["lift_lines_3d"] == n0 + 1,
+               f"lift_lines_3d ({case}, B = 4): not one launch")
+        torch.cuda.synchronize()
+        for b, (one, _) in enumerate(singles):
+            _check(all(_bit_diff(x[b], y[0], as_int=x.dtype == torch.float32)
+                       == 0 for x, y in zip(got4, one)),
+                   f"lift_lines_3d ({case}): lane {b} of B = 4 differs from "
+                   f"its B = 1 launch")
+        has = singles[0][1][2][0]
+        rec = {"valid": int(args4[5][0].sum()), "has_3d": int(has.sum()),
+               "max_abs_err": err}
+        if case == "invalid_slots":
+            # the invalid slots' fits, were the slots valid
+            allv = ln.lift_lines_3d_plain(*args4[:5],
+                                          torch.ones_like(args4[5]))[2][0]
+            rec["would_pass"] = int((allv & ~args4[5][0]).sum())
+        if case == "extent_edge":
+            rec["under"] = int(has[0:32:2].sum())
+            rec["over"] = int(has[1:32:2].sum())
+        out[case] = rec
+    _check(out["invalid_slots"]["would_pass"] > 5
+           and out["depth_holes"]["has_3d"] > 5
+           and out["extent_edge"]["under"] == 0
+           and out["extent_edge"]["over"] == 16
+           and all(out[c]["has_3d"] > 5 for c in LIFT_SIZES),
+           f"lift_lines_3d: the planted cases do not exercise it: {out}")
+    return out
+
+
+def lift_problems(seq, cfg, dev) -> dict:
+    """K22 at the main path's shapes: frame 0's segments (K20 on its 5-tap
+    blur) on its clean and its Kinect-noisy depth, as line_kernel_parity
+    builds them, frames 0-3 in one launch ("b4"), and every LIFT_CASES
+    frame alone and at B = 4. Returns {name: fn}, fn() launching it."""
+    import torch
+
+    from planarslam_tpu_torch.ops import image
+    from planarslam_tpu_torch.ops import lines as ln
+
+    lc, cam = cfg.lines, cfg.camera
+    gray, _ = _frames_gray(seq, cfg, dev)
+    depth = _room_depths(seq, cfg, dev, 4)
+    blurred = torch.stack([image.gaussian_blur(g, 5, 1.0) for g in gray])
+    det = ln.detect_lines(blurred, lc)
+    noisy = torch.from_numpy(noisy_depth(
+        depth[0].cpu().numpy(), cam.depth_map_factor)).to(dev)
+    one = [det.uv_s[:1].contiguous(), det.uv_e[:1].contiguous(),
+           det.valid[:1].contiguous()]
+    probs = {"clean": (depth[:1].contiguous(), cam, lc, *one),
+             "noisy": (noisy[None], cam, lc, *one),
+             "b4": (depth, cam, lc, det.uv_s, det.uv_e, det.valid)}
+    for case in LIFT_CASES:
+        args4 = _lift_args(planted_lift_lanes(case, 4), cfg, dev)
+        probs[case] = lift_lane(args4, 0)
+        probs[f"{case}_b4"] = args4
+    return {k: (lambda a=a: ln.lift_lines_3d(*a)) for k, a in probs.items()}
+
+
+def lift_stats(seq, cfg, dev) -> dict:
+    """The line slots of path 1's frames: valid ones and those K22 lifts
+    (has_3d), each frame's line front end on its quantized frame; min,
+    median and max over the frames."""
+    import torch
+
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import lines as ln
+
+    cam = cfg.camera
+    counts = {"valid": [], "has_3d": []}
+    for i in range(len(seq.poses_wc)):
+        g8, d16 = quantize_frame(*seq.render(i), cam.depth_map_factor)
+        f = ln.extract_line_features(
+            torch.from_numpy(g8.astype(np.float32)).to(dev),
+            torch.from_numpy(d16.astype(np.float32)
+                             / np.float32(cam.depth_map_factor)).to(dev),
+            cam, cfg.lines)
+        counts["valid"].append(int(f.valid.sum()))
+        counts["has_3d"].append(int((f.has_3d & f.valid).sum()))
+    return {k: {"min": min(v), "median": float(np.median(v)), "max": max(v)}
+            for k, v in counts.items()} | {"frames": len(seq.poses_wc),
+                                           "slots": cfg.lines.max_lines}
+
+
 def line_kernel_parity(seq, cfg, dev) -> list:
     """K20-K23 against their plain versions on the card at the default
     configuration's full width (640x480, 64 lines, E = 6144 edge pixels,
@@ -1724,7 +1978,9 @@ def line_kernel_parity(seq, cfg, dev) -> list:
     slot may differ only where a decision of the plain version on a sum
     lies within twice that rounding of turning (_near_decisions, printed
     with torch's version); K21: within DESC_TOLERANCE; K22: has_3d exact,
-    endpoints within P3D_TOLERANCE; K23 on _line_search_problems (the
+    endpoints within P3D_TOLERANCE, also on every LIFT_CASES frame at B =
+    1 and 4 lane by lane (lift_planted_parity); K23 on
+    _line_search_problems (the
     256-line window, 4096 lines, no candidate, fewer than 6 earned, a
     planted tie of two segments and of two rows in two row tiles, 250 and
     1000 lines, every candidate NaN): indices exact, similarities within
@@ -1858,6 +2114,9 @@ def line_kernel_parity(seq, cfg, dev) -> list:
         lifted[name] = largs
     _check(cases["clean"]["has_3d"] > 10,
            f"lift_lines_3d: the cases do not exercise it: {cases}")
+    planted = lift_planted_parity(cfg, dev)
+    print(f"line_kernel_parity lift_lines_3d planted: {json.dumps(planted)}",
+          flush=True)
     largs = lifted["clean"]
     S, iters = lc.n_depth_samples, lc.ransac_iters
     # the depth pixels the S nearest samples per line read, each once
@@ -1878,9 +2137,10 @@ def line_kernel_parity(seq, cfg, dev) -> list:
         "depth_pixels_read": n_pix22,
         "source": src + "line_lift_search.cu",
         "replaces": "planarslam_tpu/ops/lines.py:260",
-        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "max_abs_err": max(c["max_abs_err"] for c in (*cases.values(),
+                                                       *planted.values())),
         "tolerance": f"has_3d exact, endpoints {P3D_TOLERANCE} m",
-        "cases": cases,
+        "cases": cases, "planted": planted,
         "ms": _time_ms(lambda: ln.lift_lines_3d(*largs)),
         "plain_ms": _time_ms(lambda: ln.lift_lines_3d_plain(*largs))})
 
@@ -2233,6 +2493,283 @@ def _clashes(idx, n: int) -> int:
     return int((hits > 1).sum())
 
 
+# K25's planted cases: every row on one target at one distance, equal least
+# distances on rows i and i + 1024 (one thread of the first K25 held
+# both), no row passing max_dist, best exactly ratio x second in float32,
+# a best_idx of -1 and of n and above, n = MAX_TARGETS, M = 1, 1025 and
+# 5000, distances below 0 and above 16383 (the resolution's 64-bit keys)
+SELECT_PLANTED = ("one_target", "stride_ties", "none_pass", "ratio_edge",
+                  "mutual_range", "max_targets", "odd_rows", "wide_keys")
+
+
+def _ratio_edges(ratio: float, top: int = 256) -> list:
+    """(best, second) pairs with float(best) == float32(ratio) *
+    float(second) in float32, which the strict ratio test rejects."""
+    r = np.float32(ratio)
+    out = []
+    for sec in range(1, top + 1):
+        prod = r * np.float32(sec)
+        if prod == np.floor(prod):
+            out.append((int(prod), sec))
+    return out
+
+
+def planted_select_problem(case: str, seed: int = 25) -> list:
+    """The K25 problems of a SELECT_PLANTED case as numpy arrays: a list
+    of dicts with best, second, best_idx (M,) int32, back (N,) int32 or
+    None, max_dist, ratio (or None) and n_targets (or None), the modes of
+    the tracking step's three launches (the searches resolve duplicates,
+    match_descriptors takes the ratio test and the mutual check)."""
+    rng = np.random.default_rng(seed)
+    out = []
+
+    def add(best, second, best_idx, max_dist=100, ratio=None, back=None,
+            n_targets=None):
+        out.append({"best": np.asarray(best, np.int32),
+                    "second": np.asarray(second, np.int32),
+                    "best_idx": np.asarray(best_idx, np.int32),
+                    "back": None if back is None else np.asarray(back,
+                                                                 np.int32),
+                    "max_dist": max_dist, "ratio": ratio,
+                    "n_targets": n_targets})
+
+    def fill(m, lo_t, hi_t):
+        best = rng.integers(0, 130, m)
+        return best, best + rng.integers(0, 40, m), rng.integers(lo_t, hi_t,
+                                                                 m)
+
+    if case == "one_target":
+        m, n = 4096, 1024
+        best = np.full(m, int(rng.integers(0, 100)))
+        second = best + rng.integers(0, 60, m)
+        idx = np.full(m, int(rng.integers(0, n)))
+        add(best, second, idx, n_targets=n)
+        add(best, second, idx, ratio=0.8, n_targets=n)
+    elif case == "stride_ties":
+        m, n = 4096, 1024
+        best, second, idx = fill(m, 0, n - 64)
+        rows = rng.permutation(1024)[:64]
+        for k, i in enumerate(rows):
+            d = int(rng.integers(0, 60))
+            idx[[i, i + 1024, i + 2048, i + 3072]] = n - 64 + k
+            best[[i + 1024, i + 3072]] = d
+            best[[i, i + 2048]] = d if k % 2 == 0 else d + 1
+        add(best, second, idx, n_targets=n)
+    elif case == "none_pass":
+        m, n = 4096, 1024
+        best = rng.integers(101, 300, m)
+        add(best, best + rng.integers(0, 40, m), rng.integers(0, n, m),
+            n_targets=n)
+        best = rng.integers(51, 200, 1024)
+        add(best, best + rng.integers(0, 40, 1024),
+            rng.permutation(1024), max_dist=50, ratio=0.9,
+            back=np.argsort(rng.permutation(1024)))
+    elif case == "ratio_edge":
+        m = n = 1024
+        for ratio, max_dist, mutual in ((0.9, 50, True), (0.8, 100, False)):
+            edges = [e for e in _ratio_edges(ratio) if e[0] <= max_dist]
+            pick = rng.integers(0, len(edges), m)
+            best = np.array([edges[k][0] for k in pick])
+            second = np.array([edges[k][1] for k in pick])
+            best = np.where(np.arange(m) % 2 == 1, best - 1, best)
+            idx = rng.permutation(n)
+            back = np.argsort(idx) if mutual else None
+            add(best, second, idx, max_dist, ratio, back,
+                None if mutual else n)
+    elif case == "mutual_range":
+        m = n = 1024
+        best = rng.integers(0, 40, m)
+        second = best + 100
+        idx = rng.permutation(n)
+        back = np.argsort(idx)
+        r0 = int(back[n - 1])          # row r0 and column n - 1: mutual
+        rows = [r for r in rng.permutation(m)[:6] if r != r0][:4]
+        idx[rows] = [-1, n, n + 5, -1]
+        add(best, second, idx, 50, 0.9, back)
+        # duplicates resolved over rows with a best_idx of -1 that pass
+        # their test (parked in slot n as the plain version parks them)
+        # and of n: their least distance below the parked ones' (the first
+        # such row kept), then above (none kept)
+        for parked, near in ((5, [8, 3, 5, 3]), (2, [8, 3, 5, 4])):
+            best, second, idx = fill(m, 0, n)
+            rows = rng.permutation(m)[:8]
+            idx[rows[:4]] = -1
+            idx[rows[4:]] = n
+            best[rows[:4]] = parked + np.arange(4)
+            best[rows[4:]] = near
+            add(best, second, idx, n_targets=n)
+    elif case == "max_targets":
+        m, n = 4096, 6143
+        best, second, idx = fill(m, 0, n)
+        idx[rng.permutation(m)[:40]] = n - 1
+        idx[rng.permutation(m)[:40]] = 0
+        add(best, second, idx, n_targets=n)
+    elif case == "wide_keys":
+        n = 1024
+        for m in (1024, 4096):
+            best = rng.integers(-40, 20000, m)
+            best[rng.permutation(m)[:m // 8]] = 10000  # INF_DIST
+            best[rng.permutation(m)[:m // 8]] = 10001
+            idx = rng.integers(0, n // 2, m)
+            add(best, best + 1, idx, max_dist=30000, n_targets=n)
+    elif case == "odd_rows":
+        n = 1024
+        for m in (1, 1025, 5000):  # 5000: rows beyond a thread's registers
+            best, second, idx = fill(m, 0, n)
+            add(best, second, idx, n_targets=n)
+            add(best, second, idx, ratio=0.8, n_targets=n)
+        best, second, idx = fill(1025, 0, n)
+        back = rng.integers(0, 1025, n)
+        back[idx[:600]] = np.arange(600)
+        add(best, second, idx, 50, 0.9, back)
+    return out
+
+
+def planted_select_lanes(case: str, batch: int, seed: int = 25) -> list:
+    """planted_select_problem of seeds seed .. seed + batch - 1, each
+    problem's arrays stacked on a leading lane dimension."""
+    lanes = [planted_select_problem(case, seed + b) for b in range(batch)]
+    out = []
+    for probs in zip(*lanes):
+        p = dict(probs[0])
+        for k in ("best", "second", "best_idx", "back"):
+            if p[k] is not None:
+                p[k] = np.stack([q[k] for q in probs])
+        out.append(p)
+    return out
+
+
+def _select_args(p: dict, dev) -> tuple:
+    """match_select's (args, kwargs) for a planted_select_lanes problem."""
+    import torch
+
+    args = [torch.from_numpy(p[k]).to(dev)
+            for k in ("best", "second", "best_idx")]
+    kw = {"max_dist": p["max_dist"], "ratio": p["ratio"],
+          "n_targets": p["n_targets"],
+          "back": None if p["back"] is None
+          else torch.from_numpy(p["back"]).to(dev)}
+    return args, kw
+
+
+def select_lane(args: list, kw: dict, b: int) -> tuple:
+    """Lane b of match_select's batched (args, kwargs), a batch of one."""
+    back = kw["back"]
+    if back is not None:
+        back = back[b:b + 1].contiguous()
+    return [a[b:b + 1].contiguous() for a in args], dict(kw, back=back)
+
+
+def select_planted_parity(dev) -> dict:
+    """K25 on every SELECT_PLANTED problem: bit-equal to its plain version,
+    two launches equal bits, one launch a call, no target matched twice
+    where duplicates are resolved; each also at B = 4 (four seeds) in one
+    launch, each lane bit-equal to its B = 1 launch. Returns per case the
+    matches and what the case plants."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.ops import matching as mt
+
+    out = {}
+    for case in SELECT_PLANTED:
+        rec = []
+        for p in planted_select_lanes(case, 4):
+            args4, kw4 = _select_args(p, dev)
+            ones = []
+            for b in range(4):
+                args, kw = select_lane(args4, kw4, b)
+                n0 = kernels.LAUNCHES["match_select"]
+                got = mt.match_select(*args, **kw)
+                _check(kernels.LAUNCHES["match_select"] == n0 + 1,
+                       f"match_select ({case}): not one launch a call")
+                again = mt.match_select(*args, **kw)
+                want = mt.match_select_plain(
+                    *[a[0] for a in args], kw["max_dist"], kw["ratio"],
+                    None if kw["back"] is None else kw["back"][0],
+                    kw["n_targets"])
+                torch.cuda.synchronize()
+                _check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                       f"match_select ({case}): two launches differ")
+                _check(all(torch.equal(x[0], y) for x, y in zip(got, want)),
+                       f"match_select ({case}, lane {b}): differs from the "
+                       f"plain version in {int((got[0][0] != want[0]).sum())}"
+                       f" indices, {int((got[1][0] != want[1]).sum())} "
+                       f"distances")
+                ones.append(got)
+            n0 = kernels.LAUNCHES["match_select"]
+            got4 = mt.match_select(*args4, **kw4)
+            _check(kernels.LAUNCHES["match_select"] == n0 + 1,
+                   f"match_select ({case}, B = 4): not one launch")
+            torch.cuda.synchronize()
+            for b, one in enumerate(ones):
+                _check(all(torch.equal(x[b], y[0]) for x, y in zip(got4, one)),
+                       f"match_select ({case}): lane {b} of B = 4 differs "
+                       f"from its B = 1 launch")
+            idx = ones[0][0][0]
+            n = p["n_targets"] or p["back"].shape[-1]
+            rec.append({"M": int(idx.shape[0]), "n": n,
+                        "matches": int((idx >= 0).sum()),
+                        "clashes": _clashes(idx, n + 1)
+                        if p["n_targets"] else None, "idx": idx})
+        out[case] = rec
+    summary = {c: [{k: v for k, v in r.items() if k != "idx"} for r in rec]
+               for c, rec in out.items()}
+    one = out["one_target"]
+    lo = planted_select_problem("stride_ties")
+    st = out["stride_ties"][0]["idx"].cpu().numpy()
+    pairs = [(i, int(lo[0]["best_idx"][i]))
+             for i in range(1024) if lo[0]["best_idx"][i] >= 1024 - 64]
+    mr = planted_select_problem("mutual_range")[0]["best_idx"]
+    got_mr = out["mutual_range"][0]["idx"].cpu().numpy()
+    _check(one[0]["matches"] == 1 and int(one[0]["idx"][0]) >= 0
+           and one[1]["matches"] <= 1
+           and all(st[i] == t or st[i + 1024] == t for i, t in pairs)
+           and all(st[i + 2048] != t and st[i + 3072] != t
+                   for i, t in pairs)
+           and all(r["matches"] == 0 for r in out["none_pass"])
+           and all(r["matches"] == r["M"] // 2 for r in out["ratio_edge"])
+           and not bool((got_mr[(mr < 0) | (mr >= 1024)] >= 0).any())
+           and out["mutual_range"][0]["matches"] > 100
+           and int((out["mutual_range"][1]["idx"] == 1024).sum()) == 1
+           and int((out["mutual_range"][2]["idx"] == 1024).sum()) == 0
+           and out["max_targets"][0]["matches"] > 100
+           and all(r["matches"] > 50 for r in out["wide_keys"])
+           and all(r["clashes"] in (None, 0) for rec in out.values()
+                   for r in rec),
+           f"match_select: the planted cases do not exercise it: {summary}")
+    return summary
+
+
+def match_select_problems(seq, cfg, dev) -> dict:
+    """K25 at the main path's shapes: the three launches of one tracking
+    step on the K3 outputs of hamming_step_problems (the frame search,
+    1024 rows, and the window search, 4096 rows, resolving duplicates
+    over the frame's 1024 features; match_descriptors, 1024 rows, the
+    ratio test and the mutual check), the window search at B = 4, and
+    every SELECT_PLANTED problem alone (`<case>_<k>`) and at B = 4.
+    Returns {name: fn}, fn() launching it."""
+    from planarslam_tpu_torch.ops import matching as mt
+
+    k3 = hamming_step_problems(seq, cfg, dev)
+    n = cfg.orb.max_keypoints
+    mc = cfg.matcher
+    probs = {}
+    for case in ("frame", "window", "window_b4"):
+        probs[case] = (list(k3[case]()),
+                       dict(max_dist=mc.th_high, n_targets=n))
+    *fwd, back = k3["descriptors"]()
+    probs["descriptors"] = (list(fwd), dict(max_dist=mc.th_low, ratio=0.9,
+                                            back=back))
+    for case in SELECT_PLANTED:
+        for k, p in enumerate(planted_select_lanes(case, 4)):
+            args4, kw4 = _select_args(p, dev)
+            probs[f"{case}_{k}"] = select_lane(args4, kw4, 0)
+            probs[f"{case}_{k}_b4"] = (args4, kw4)
+    return {k: (lambda a=a, kw=kw: mt.match_select(*a, **kw))
+            for k, (a, kw) in probs.items()}
+
+
 def matching_kernel_parity(seq, cfg, dev) -> list:
     """K24-K27 against their plain versions on the card, on the problems of
     _matching_problems (frames 0 -> 1 of the 640x480 room at the default
@@ -2368,6 +2905,9 @@ def matching_kernel_parity(seq, cfg, dev) -> list:
            and sel["window"]["clashes"] == 0
            and sel["descriptors"]["clashes"] == 0,
            f"match_select: the cases do not exercise it: {sel}")
+    planted = select_planted_parity(dev)
+    print(f"matching_kernel_parity match_select planted: "
+          f"{json.dumps(planted)}", flush=True)
     t3, kw = top2["window"]
     bat = [t[None] for t in t3]
     t3d, kwd = top2["descriptors"]
@@ -2381,7 +2921,7 @@ def matching_kernel_parity(seq, cfg, dev) -> list:
                  MATCH_WINDOW * 20.0),
         "source": src, "replaces": "planarslam_tpu/ops/matching.py:184",
         "max_abs_err": 0.0, "tolerance": "indices and distances exact",
-        "cases": sel,
+        "cases": sel, "planted": planted,
         "ms": _time_ms(lambda: mt.match_select(*bat, **kw)),
         "plain_ms": _time_ms(lambda: mt.match_select_plain(
             *t3, kw["max_dist"], n_targets=n)),

@@ -53,11 +53,9 @@ __device__ __forceinline__ void psl_eigenvector_for(const float* A, float lam,
   const float n01 = psl_dot3(c01, c01);
   const float n02 = psl_dot3(c02, c02);
   const float n12 = psl_dot3(c12, c12);
-  const float* pick = (n01 >= n02 && n01 >= n12) ? c01
-                                                 : (n02 >= n12 ? c02 : c12);
-  v[0] = pick[0];
-  v[1] = pick[1];
-  v[2] = pick[2];
+  // the components picked by value, so that no array lives in memory
+  const bool p01 = n01 >= n02 && n01 >= n12, p02 = n02 >= n12;
+  for (int k = 0; k < 3; ++k) v[k] = p01 ? c01[k] : (p02 ? c02[k] : c12[k]);
   psl_unit_or(v, 2);
 }
 

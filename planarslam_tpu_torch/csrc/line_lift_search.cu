@@ -3,22 +3,38 @@
 // `batch` problems per call.
 //
 // K22 replaces planarslam_tpu/ops/lines.py::lift_lines_3d (the port's plain
-// version is ops/lines.py::lift_lines_3d_plain). One block per line: the
-// nearest depth at n_depth_samples points of the segment (round half to
-// even) and their back-projection, sigma(z), the fixed two-point hypothesis
-// table (lines.ransac_table, numpy seed 99), the point-line distances under
-// the gate 1.5 sigma + 0.01, the inlier counts and the first best, then a
-// weighted PCA through eig3.cuh::psl_eigh_sym3x3, the extent along the
-// principal direction and the has_3d test. The sample, hypothesis and
-// inlier arithmetic is the plain version's PyTorch arithmetic on the card,
-// operation by operation (a sum of three terms adds the first and the third
-// first, as PyTorch's reduction over a last dimension of 3 does; the
-// weighted mean sums the samples into four interleaved accumulators as its
-// reduction over dimension 1 does; the covariance is the chain of fused
-// multiply-adds of the batched product einsum runs): the inlier counts and
-// the best hypothesis are the plain version's. The eigen-solve is eig3.cuh's,
-// so the direction, the endpoints and the extent gate agree to float
-// rounding.
+// version is ops/lines.py::lift_lines_3d_plain). A block of eight warps per
+// line. The sampling, a thread a sample: the nearest depth at
+// n_depth_samples points of the segment (round half to even), the
+// back-projection and sigma(z); each sample's gate 1.5 sigma + 0.01 is
+// kept as its sqrt_threshold, the least float whose sqrtf reaches it
+// (sqrtf rounds correctly and so is monotone: sqrtf(x) < gate exactly
+// where x < that threshold), so the hypothesis pass takes no square root.
+// The hypothesis pass over the fixed two-point table (lines.ransac_table,
+// numpy seed 99), a warp an eighth of it: a lane prepares one hypothesis
+// (its anchor and unit direction), and for each of the warp's hypotheses
+// every lane tests samples lane and lane + 32, so that the hypothesis's
+// inlier word is a ballot of the lanes and its count the word's population
+// count. Warp 0 then picks the first best count by one warp reduction of
+// count and index (torch.argmax's answer) and fits the weighted PCA: the
+// mean's twelve accumulator chains and the six covariance entries' chains
+// of fused multiply-adds one a lane over terms every lane made first, the
+// eigen-solve of eig3.cuh::psl_eigh_sym3x3 on every lane, the extent along
+// the principal direction by warp reductions of ordered integer keys, and
+// the has_3d test. An invalid line slot writes its zeros and does nothing
+// else. Every float operation is the plain version's PyTorch arithmetic on
+// the card in the first K22's order (a sum of three terms adds the first
+// and the third first, as PyTorch's reduction over a last dimension of 3
+// does; the weighted mean sums the samples into four interleaved
+// accumulators, each in ascending sample order, as its reduction over
+// dimension 1 does; a covariance entry is the chain of fused multiply-adds
+// of the batched product einsum runs, in ascending sample order), and the
+// extent's reduction returns the serial walk's answer (a minimum or maximum
+// of zero, whose sign the walk's fminf / fmaxf may pick otherwise, is
+// walked in order): the inlier counts and the best hypothesis are the plain
+// version's, and the bits are the first K22's. The eigen-solve is
+// eig3.cuh's, so the direction, the endpoints and the extent gate agree
+// with the plain version to float rounding.
 // Bound: latency (64 lines x 32 hypotheses x 48 samples, ~1.5e6 operations).
 //
 // K23 replaces planarslam_tpu/ops/lines.py::search_lines_by_projection and
@@ -63,7 +79,9 @@ namespace {
 
 constexpr int kMaxSamples = 64;
 constexpr int kMaxHyp = 64;
-constexpr int kLiftThreads = 64;
+// K22: a block of eight warps a line
+constexpr int kLiftWarps = 8;
+constexpr int kLiftThreads = 32 * kLiftWarps;
 // K23: a row tile is 32 map lines (16 warps of 2), a cluster 8 tiles
 constexpr int kRows = 32;
 constexpr int kSearchThreads = 512;
@@ -98,138 +116,291 @@ struct LiftConsts {
   int min_inliers;               // int(0.6 n_depth_samples)
 };
 
-__global__ void lines_lift_kernel(
+// The covariance entries (i, j), i <= j, one a lane: (j, i) rounds as
+// (i, j) does, since fmaf(a, b, c) is fmaf(b, a, c).
+__device__ __forceinline__ int cov_row(int e) {
+  return e < 3 ? 0 : (e < 5 ? 1 : 2);
+}
+__device__ __forceinline__ int cov_col(int e) {
+  return e < 3 ? e : (e < 5 ? e - 2 : 2);
+}
+__device__ __forceinline__ float pick3(const float* v, int k) {
+  return k == 0 ? v[0] : (k == 1 ? v[1] : v[2]);
+}
+
+// K22's extent: a float's key in signed integer order (NaN aside; -0
+// below +0), and back.
+__device__ __forceinline__ int extent_key(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float extent_value(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+// The least float t whose square root sqrtf(t) is at least g (NaN for a
+// NaN g, 0 for g <= 0, +inf for +inf). sqrtf rounds correctly, so it is
+// monotone: sqrtf(x) < g exactly where x < t, and a distance's test against
+// its gate takes no square root. sqrtf(t) >= g where sqrt(t) passes the
+// midpoint m of g and the float below it; m has 25 significant bits, so m^2
+// is exact in double and never a float (no tie): t is m^2 rounded up.
+__device__ __forceinline__ float sqrt_threshold(float g) {
+  if (!(g > 0.0f) || isinf(g)) return isnan(g) || g > 0.0f ? g : 0.0f;
+  const double m = 0.5 * (static_cast<double>(nextafterf(g, 0.0f)) + g);
+  return __double2float_ru(m * m);
+}
+
+// A sample's test against a hypothesis (anchor a, unit direction u): its
+// point-line distance sqrtf(x) under its gate, as x under the gate's
+// sqrt_threshold, x in the first K22's operations.
+__device__ __forceinline__ bool lift_inlier(float x, float y, float z,
+                                            float below, float ax, float ay,
+                                            float az, float ux, float uy,
+                                            float uz) {
+  const float rx = __fsub_rn(x, ax), ry = __fsub_rn(y, ay);
+  const float rz = __fsub_rn(z, az);
+  const float proj = sum3(__fmul_rn(rx, ux), __fmul_rn(ry, uy),
+                          __fmul_rn(rz, uz));
+  const float ox = __fsub_rn(rx, __fmul_rn(proj, ux));
+  const float oy = __fsub_rn(ry, __fmul_rn(proj, uy));
+  const float oz = __fsub_rn(rz, __fmul_rn(proj, uz));
+  return __fadd_rn(sum3(__fmul_rn(ox, ox), __fmul_rn(oy, oy),
+                        __fmul_rn(oz, oz)), 1e-18f) < below;
+}
+
+__global__ void __launch_bounds__(kLiftThreads) lines_lift_kernel(
     const float* __restrict__ depth, int h, int w,
     const float* __restrict__ uv_s, const float* __restrict__ uv_e,
     const unsigned char* __restrict__ valid, int L,
     const float* __restrict__ alphas, int S, const long long* __restrict__ hyp,
     int iters, LiftConsts c, float* __restrict__ p3d_s,
     float* __restrict__ p3d_e, unsigned char* __restrict__ has_3d) {
-  __shared__ float p[kMaxSamples][3];
-  __shared__ float sigma[kMaxSamples];
-  __shared__ bool z_ok[kMaxSamples];
+  __shared__ float p[3][kMaxSamples];
+  __shared__ float gate_sq[kMaxSamples];  // the gates' sqrt_threshold
+  __shared__ float t_s[kMaxSamples];
+  __shared__ float term[3][kMaxSamples];  // the mean's terms, p wt
+  __shared__ float cen[3][kMaxSamples];   // the covariance's, (p - mean) wt
+  __shared__ unsigned z_word[2];
   __shared__ int n_inl[kMaxHyp];
   __shared__ unsigned long long inl_bits[kMaxHyp];
   const int l = blockIdx.x, b = blockIdx.y;
   const size_t li = static_cast<size_t>(b) * L + l;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // every load of the line, its sample position and this warp's
+  // hypotheses goes out before the first use
+  const bool line_ok = valid[li] != 0;
   const float sx = uv_s[2 * li], sy = uv_s[2 * li + 1];
-  const float dx = __fsub_rn(uv_e[2 * li], sx);
-  const float dy = __fsub_rn(uv_e[2 * li + 1], sy);
-  const float* dep = depth + static_cast<size_t>(b) * h * w;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const float pu = __fadd_rn(sx, __fmul_rn(alphas[s], dx));
-    const float pv = __fadd_rn(sy, __fmul_rn(alphas[s], dy));
-    // image.nearest_sample: round half to even, cast, clamp
-    const long long ui = max(0LL, min(static_cast<long long>(rintf(pu)),
-                                      static_cast<long long>(w - 1)));
-    const long long vi = max(0LL, min(static_cast<long long>(rintf(pv)),
-                                      static_cast<long long>(h - 1)));
-    const float z = dep[vi * w + ui];
-    z_ok[s] = z > 1e-6f;
-    p[s][0] = __fmul_rn(__fmul_rn(__fsub_rn(pu, c.cx), c.inv_fx), z);
-    p[s][1] = __fmul_rn(__fmul_rn(__fsub_rn(pv, c.cy), c.inv_fy), z);
-    p[s][2] = z;
-    const float sg = __fadd_rn(
-        __fadd_rn(__fmul_rn(__fmul_rn(c.c1, z), z), __fmul_rn(c.c2, z)),
-        c.c3);
-    sigma[s] = clamp_nan(sg, 2e-3f, INFINITY);
+  const float ex = uv_e[2 * li], ey = uv_e[2 * li + 1];
+  const float alpha = tid < S ? alphas[tid] : 0.0f;
+  const int per_warp = (iters + kLiftWarps - 1) / kLiftWarps;
+  const int hh = warp * per_warp + lane;
+  const bool h_mine = lane < per_warp && hh < iters;
+  const int i0 = h_mine ? static_cast<int>(hyp[2 * hh]) : 0;
+  const int i1 = h_mine ? static_cast<int>(hyp[2 * hh + 1]) : 0;
+  if (!line_ok) {  // has_3d requires valid: the zeros, and no work
+    if (tid < 3) {
+      p3d_s[3 * li + tid] = 0.0f;
+      p3d_e[3 * li + tid] = 0.0f;
+    }
+    if (tid == 0) has_3d[li] = 0;
+    return;
+  }
+  // sampling: a thread a sample, its nearest depth and back-projection
+  {
+    const float dx = __fsub_rn(ex, sx), dy = __fsub_rn(ey, sy);
+    bool zok = false;
+    if (tid < S) {
+      const float pu = __fadd_rn(sx, __fmul_rn(alpha, dx));
+      const float pv = __fadd_rn(sy, __fmul_rn(alpha, dy));
+      // image.nearest_sample: round half to even, cast, clamp
+      const long long ui = max(0LL, min(static_cast<long long>(rintf(pu)),
+                                        static_cast<long long>(w - 1)));
+      const long long vi = max(0LL, min(static_cast<long long>(rintf(pv)),
+                                        static_cast<long long>(h - 1)));
+      const float z = depth[static_cast<size_t>(b) * h * w + vi * w + ui];
+      zok = z > 1e-6f;
+      p[0][tid] = __fmul_rn(__fmul_rn(__fsub_rn(pu, c.cx), c.inv_fx), z);
+      p[1][tid] = __fmul_rn(__fmul_rn(__fsub_rn(pv, c.cy), c.inv_fy), z);
+      p[2][tid] = z;
+      const float sg = __fadd_rn(
+          __fadd_rn(__fmul_rn(__fmul_rn(c.c1, z), z), __fmul_rn(c.c2, z)),
+          c.c3);
+      gate_sq[tid] = sqrt_threshold(__fadd_rn(
+          __fmul_rn(1.5f, clamp_nan(sg, 2e-3f, INFINITY)), 0.01f));
+    }
+    const unsigned word = __ballot_sync(0xffffffffu, zok);
+    if (warp < 2 && lane == 0) z_word[warp] = word;
   }
   __syncthreads();
-  for (int hh = threadIdx.x; hh < iters; hh += blockDim.x) {
-    const int i0 = static_cast<int>(hyp[2 * hh]);
-    const int i1 = static_cast<int>(hyp[2 * hh + 1]);
-    const float a[3] = {p[i0][0], p[i0][1], p[i0][2]};
-    float u[3];
-    for (int k = 0; k < 3; ++k) u[k] = __fsub_rn(p[i1][k], a[k]);
-    const float dlen = sqrtf(__fadd_rn(
-        sum3(__fmul_rn(u[0], u[0]), __fmul_rn(u[1], u[1]),
-             __fmul_rn(u[2], u[2])),
-        1e-12f));
-    for (int k = 0; k < 3; ++k) u[k] = __fdiv_rn(u[k], dlen);
-    const bool ok = z_ok[i0] && z_ok[i1] && dlen > 0.02f;
-    int count = 0;
-    unsigned long long bits = 0;
-    for (int s = 0; s < S; ++s) {
-      float r[3];
-      for (int k = 0; k < 3; ++k) r[k] = __fsub_rn(p[s][k], a[k]);
-      const float proj = sum3(__fmul_rn(r[0], u[0]), __fmul_rn(r[1], u[1]),
-                              __fmul_rn(r[2], u[2]));
-      float q[3];
-      for (int k = 0; k < 3; ++k) q[k] = __fsub_rn(r[k], __fmul_rn(proj, u[k]));
-      const float dist = sqrtf(__fadd_rn(
-          sum3(__fmul_rn(q[0], q[0]), __fmul_rn(q[1], q[1]),
-               __fmul_rn(q[2], q[2])),
-          1e-18f));
-      const float gate = __fadd_rn(__fmul_rn(1.5f, sigma[s]), 0.01f);
-      if (dist < gate && z_ok[s]) {
-        ++count;
-        bits |= 1ull << s;
+  const unsigned long long z_ok =
+      z_word[0] | (static_cast<unsigned long long>(z_word[1]) << 32);
+  // the hypothesis pass: a warp a share of the hypotheses, a lane the
+  // samples lane and lane + 32, an inlier word a ballot of the lanes' gates
+  {
+    float ax = 0.0f, ay = 0.0f, az = 0.0f, ux = 0.0f, uy = 0.0f, uz = 0.0f;
+    bool h_ok = false;
+    if (h_mine) {
+      ax = p[0][i0];
+      ay = p[1][i0];
+      az = p[2][i0];
+      ux = __fsub_rn(p[0][i1], ax);
+      uy = __fsub_rn(p[1][i1], ay);
+      uz = __fsub_rn(p[2][i1], az);
+      const float dlen = sqrtf(__fadd_rn(
+          sum3(__fmul_rn(ux, ux), __fmul_rn(uy, uy), __fmul_rn(uz, uz)),
+          1e-12f));
+      ux = __fdiv_rn(ux, dlen);
+      uy = __fdiv_rn(uy, dlen);
+      uz = __fdiv_rn(uz, dlen);
+      h_ok = ((z_ok >> i0) & 1ull) && ((z_ok >> i1) & 1ull) && dlen > 0.02f;
+    }
+    // this lane's samples lane and lane + 32: point, gate, z_ok
+    const int s0 = lane, s1 = lane + 32;
+    const bool in0 = s0 < S && ((z_ok >> s0) & 1ull);
+    const bool in1 = s1 < S && ((z_ok >> s1) & 1ull);
+    const float x0 = s0 < S ? p[0][s0] : 0.0f, y0 = s0 < S ? p[1][s0] : 0.0f;
+    const float z0 = s0 < S ? p[2][s0] : 0.0f, g0 = s0 < S ? gate_sq[s0] : 0.0f;
+    const float x1 = s1 < S ? p[0][s1] : 0.0f, y1 = s1 < S ? p[1][s1] : 0.0f;
+    const float z1 = s1 < S ? p[2][s1] : 0.0f, g1 = s1 < S ? gate_sq[s1] : 0.0f;
+    const int n_here = min(per_warp, iters - warp * per_warp);
+    unsigned long long mine = 0;
+#pragma unroll 4
+    for (int j = 0; j < n_here; ++j) {
+      const float hax = __shfl_sync(0xffffffffu, ax, j);
+      const float hay = __shfl_sync(0xffffffffu, ay, j);
+      const float haz = __shfl_sync(0xffffffffu, az, j);
+      const float hux = __shfl_sync(0xffffffffu, ux, j);
+      const float huy = __shfl_sync(0xffffffffu, uy, j);
+      const float huz = __shfl_sync(0xffffffffu, uz, j);
+      const bool t0 =
+          lift_inlier(x0, y0, z0, g0, hax, hay, haz, hux, huy, huz);
+      const bool t1 =
+          lift_inlier(x1, y1, z1, g1, hax, hay, haz, hux, huy, huz);
+      const unsigned w0 = __ballot_sync(0xffffffffu, in0 && t0);
+      const unsigned w1 = __ballot_sync(0xffffffffu, in1 && t1);
+      if (lane == j) {
+        mine = w0 | (static_cast<unsigned long long>(w1) << 32);
       }
     }
-    n_inl[hh] = ok ? count : 0;
-    inl_bits[hh] = bits;
+    if (h_mine) {
+      inl_bits[hh] = mine;
+      n_inl[hh] = h_ok ? __popcll(mine) : 0;
+    }
   }
   __syncthreads();
-  if (threadIdx.x != 0) return;
-  int best = 0;
-  for (int hh = 1; hh < iters; ++hh) {
-    if (n_inl[hh] > n_inl[best]) best = hh;
+  if (warp != 0) return;
+  // the pick of the best: the first largest count (torch.argmax's answer),
+  // one warp reduction of the keys count << 8 | (255 - index)
+  unsigned pick = lane < iters
+                      ? (static_cast<unsigned>(n_inl[lane]) << 8) | (255 - lane)
+                      : 0u;
+  if (lane + 32 < iters) {
+    pick = max(pick, (static_cast<unsigned>(n_inl[lane + 32]) << 8) |
+                         (255 - (lane + 32)));
   }
+  pick = __reduce_max_sync(0xffffffffu, pick);
+  const int best = 255 - static_cast<int>(pick & 255u);
+  const int best_n = static_cast<int>(pick >> 8);
   const unsigned long long in = inl_bits[best];
   const float wsum = fmaxf(static_cast<float>(__popcll(in)), 1.0f);
-  // weighted mean: four interleaved accumulators, folded in order
-  float acc[4][3] = {};
-  for (int s = 0; s < S; ++s) {
-    const float wt = (in >> s) & 1ull ? 1.0f : 0.0f;
-    for (int k = 0; k < 3; ++k) {
-      acc[s & 3][k] = __fadd_rn(acc[s & 3][k], __fmul_rn(p[s][k], wt));
+  // the mean and the covariance: the weighted mean's four interleaved
+  // accumulators of each coordinate on lanes 0-11, each in ascending s,
+  // folded in order; a covariance entry's chain of fused multiply-adds in
+  // ascending s on each of lanes 0-5. Every lane first makes its samples'
+  // terms (the rounded products and differences of the serial loops)
+  for (int k = 0; k < 2; ++k) {
+    const int s = lane + 32 * k;
+    if (s < S) {
+      const float wt = (in >> s) & 1ull ? 1.0f : 0.0f;
+      for (int d = 0; d < 3; ++d) term[d][s] = __fmul_rn(p[d][s], wt);
     }
   }
+  __syncwarp();
+  float acc = 0.0f;
+  if (lane < 12) {
+    const int k = lane >> 2;
+#pragma unroll 4
+    for (int s = lane & 3; s < S; s += 4) acc = __fadd_rn(acc, term[k][s]);
+  }
+  // coordinate k's fold and division on lane k (0-2), then to every lane
   float mean[3];
-  for (int k = 0; k < 3; ++k) {
-    const float m = __fadd_rn(__fadd_rn(__fadd_rn(acc[0][k], acc[1][k]),
-                                        acc[2][k]),
-                              acc[3][k]);
-    mean[k] = __fdiv_rn(m, wsum);
+  {
+    const int k = lane < 3 ? lane : 0;
+    const float a0 = __shfl_sync(0xffffffffu, acc, 4 * k);
+    const float a1 = __shfl_sync(0xffffffffu, acc, 4 * k + 1);
+    const float a2 = __shfl_sync(0xffffffffu, acc, 4 * k + 2);
+    const float a3 = __shfl_sync(0xffffffffu, acc, 4 * k + 3);
+    const float mk =
+        __fdiv_rn(__fadd_rn(__fadd_rn(__fadd_rn(a0, a1), a2), a3), wsum);
+    for (int d = 0; d < 3; ++d) mean[d] = __shfl_sync(0xffffffffu, mk, d);
   }
-  float cov[9] = {};
-  for (int s = 0; s < S; ++s) {
-    const float wt = (in >> s) & 1ull ? 1.0f : 0.0f;
-    float cen[3];
-    for (int k = 0; k < 3; ++k) {
-      cen[k] = __fmul_rn(__fsub_rn(p[s][k], mean[k]), wt);
-    }
-    for (int i = 0; i < 3; ++i) {
-      for (int j = 0; j < 3; ++j) {
-        cov[3 * i + j] = __fmaf_rn(cen[i], cen[j], cov[3 * i + j]);
+  for (int k = 0; k < 2; ++k) {
+    const int s = lane + 32 * k;
+    if (s < S) {
+      const float wt = (in >> s) & 1ull ? 1.0f : 0.0f;
+      for (int d = 0; d < 3; ++d) {
+        cen[d][s] = __fmul_rn(__fsub_rn(p[d][s], mean[d]), wt);
       }
     }
   }
-  for (int i = 0; i < 3; ++i) {
-    for (int j = 0; j < 3; ++j) {
-      cov[3 * i + j] = __fadd_rn(__fdiv_rn(cov[3 * i + j], wsum),
-                                 i == j ? 1e-12f : 0.0f);
-    }
+  __syncwarp();
+  float cv = 0.0f;
+  if (lane < 6) {
+    const int i = cov_row(lane), j = cov_col(lane);
+#pragma unroll 8
+    for (int s = 0; s < S; ++s) cv = __fmaf_rn(cen[i][s], cen[j][s], cv);
+    cv = __fadd_rn(__fdiv_rn(cv, wsum), i == j ? 1e-12f : 0.0f);
   }
+  float cov[9];
+  for (int e = 0; e < 6; ++e) {
+    const float v = __shfl_sync(0xffffffffu, cv, e);
+    cov[3 * cov_row(e) + cov_col(e)] = v;
+    cov[3 * cov_col(e) + cov_row(e)] = v;
+  }
+  // the eigen-solve: every lane of the warp the same one
   float evals[3], V[9];
   psl_eigh_sym3x3(cov, evals, V);
   const float dir[3] = {V[2], V[5], V[8]};
-  float lo = INFINITY, hi = -INFINITY;
-  for (int s = 0; s < S; ++s) {
-    if (!((in >> s) & 1ull)) continue;
-    const float t = sum3(__fmul_rn(__fsub_rn(p[s][0], mean[0]), dir[0]),
-                         __fmul_rn(__fsub_rn(p[s][1], mean[1]), dir[1]),
-                         __fmul_rn(__fsub_rn(p[s][2], mean[2]), dir[2]));
-    lo = fminf(lo, t);
-    hi = fmaxf(hi, t);
+  // the extent along dir: the least and the largest t of the inliers by
+  // warp reductions of ordered integer keys, from +-infinity as the walk
+  // starts, NaN left out as fminf / fmaxf leave it; only a zero, whose sign
+  // the walk's fminf / fmaxf may pick otherwise, is walked in order
+  int lo_key = extent_key(INFINITY), hi_key = extent_key(-INFINITY);
+  for (int k = 0; k < 2; ++k) {
+    const int s = lane + 32 * k;
+    if (s < S && ((in >> s) & 1ull)) {
+      const float t = sum3(__fmul_rn(__fsub_rn(p[0][s], mean[0]), dir[0]),
+                           __fmul_rn(__fsub_rn(p[1][s], mean[1]), dir[1]),
+                           __fmul_rn(__fsub_rn(p[2][s], mean[2]), dir[2]));
+      t_s[s] = t;
+      if (!isnan(t)) {
+        lo_key = min(lo_key, extent_key(t));
+        hi_key = max(hi_key, extent_key(t));
+      }
+    }
   }
-  const bool has = valid[li] && n_inl[best] >= c.min_inliers &&
-                   isfinite(lo) && isfinite(hi) && __fsub_rn(hi, lo) > 0.05f;
-  for (int k = 0; k < 3; ++k) {
-    p3d_s[3 * li + k] = has ? __fadd_rn(mean[k], __fmul_rn(lo, dir[k])) : 0.0f;
-    p3d_e[3 * li + k] = has ? __fadd_rn(mean[k], __fmul_rn(hi, dir[k])) : 0.0f;
+  float lo = extent_value(__reduce_min_sync(0xffffffffu, lo_key));
+  float hi = extent_value(__reduce_max_sync(0xffffffffu, hi_key));
+  if (lo == 0.0f || hi == 0.0f) {
+    __syncwarp();
+    float wlo = INFINITY, whi = -INFINITY;
+    for (int s = 0; s < S; ++s) {
+      if (!((in >> s) & 1ull)) continue;
+      wlo = fminf(wlo, t_s[s]);
+      whi = fmaxf(whi, t_s[s]);
+    }
+    lo = wlo;
+    hi = whi;
   }
-  has_3d[li] = has ? 1 : 0;
+  // the outputs
+  const bool has = best_n >= c.min_inliers && isfinite(lo) &&
+                   isfinite(hi) && __fsub_rn(hi, lo) > 0.05f;
+  if (lane < 3) {
+    const float d = pick3(dir, lane), m = pick3(mean, lane);
+    p3d_s[3 * li + lane] = has ? __fadd_rn(m, __fmul_rn(lo, d)) : 0.0f;
+    p3d_e[3 * li + lane] = has ? __fadd_rn(m, __fmul_rn(hi, d)) : 0.0f;
+  }
+  if (lane == 0) has_3d[li] = has ? 1 : 0;
 }
 
 struct SearchConsts {

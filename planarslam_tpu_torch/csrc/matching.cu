@@ -21,13 +21,22 @@
 //
 // K25 replaces the tails of ::search_by_projection (:184-189) with
 // ::_resolve_duplicates (:50-64), and of ::match_descriptors (:102-109).
-// One 1024-thread block per problem walks its M rows: best <= max_dist,
-// the optional ratio test float(best) < float32(ratio) * float(second),
-// the optional mutual check back[best_idx] == row, then the optional
-// duplicate resolution: per target the least distance, then the first
-// source, by integer atomicMin in shared memory (order-free, so two
-// launches give the same bits), with invalid rows parked in slot N as the
-// plain version parks them. Bound: latency (~16 bytes per row).
+// One 1024-thread block per problem; a thread keeps its rows tid, tid +
+// 1024, ... (up to 4096 rows) in registers from the first load to the one
+// store: every row's loads go out together, then the mutual check's
+// gathers of back[best_idx] together; best <= max_dist, the optional ratio
+// test float(best) < float32(ratio) * float(second), the optional mutual
+// check back[best_idx] == row, then the optional duplicate resolution in
+// one pass: a key per matched row (its distance, then its row: 32 bits
+// for distances in [0, 16383], 64 in signed order otherwise), its
+// target's least key by atomicMin in shared memory, the row kept where
+// its own key is its target's least: the least distance, then the first
+// source, as the plain version's two minima keep it (integer minima, so
+// two launches give the same bits). Rows with no match take no part (one
+// that passed its tests with a best_idx below 0, which K3 never gives,
+// bounds slot n as the plain version's parking does); rows beyond 4096
+// go through the outputs in memory as the first K25's did.
+// Bound: latency (~16 bytes per row).
 //
 // K26 replaces the frame-to-frame selection of planarslam_tpu/slam/
 // device_tracker.py (:314-338) with ::rotation_histogram_filter (:67-87).
@@ -138,58 +147,220 @@ __global__ void project_landmarks_kernel(
   gate[row] = g ? 1 : 0;
 }
 
-__global__ void match_select_kernel(
-    const int* __restrict__ best, const int* __restrict__ second,
-    const int* __restrict__ best_idx, const int* __restrict__ back, int m,
-    int n, int max_dist, int use_ratio, float ratio, int resolve,
-    int* __restrict__ idx_out, int* __restrict__ dist_out) {
-  extern __shared__ int slots[];  // resolve: best_t[n + 1], first_t[n + 1]
-  int* best_t = slots;
-  int* first_t = slots + n + 1;
-  const long long base = static_cast<long long>(blockIdx.x) * m;
+// K25's rows a thread keeps in registers: rows tid, tid + 1024, ...,
+// below kSelectRegRows * kBlockThreads; rows beyond pass through idx_out
+// and dist_out as the first K25's did.
+constexpr int kSelectRegRows = 4;
+// A duplicate key orders a target's rows by distance, then row: its least
+// key is the least distance, then the first source. It takes 32 bits (the
+// distance's 14 above the row's 18) where every matched row's distance
+// lies in [0, kKeyDist] and the rows number fewer than kKeyRows, as K3's
+// Hamming distances and kInfDist do; else 64 (the distance in signed
+// order above the row).
+constexpr int kKeyRowBits = 18;
+constexpr int kKeyRows = 1 << kKeyRowBits;
+constexpr int kKeyDist = (1 << (32 - kKeyRowBits)) - 1;
+__device__ __forceinline__ unsigned key32(int d, int row) {
+  return (static_cast<unsigned>(d) << kKeyRowBits) |
+         static_cast<unsigned>(row);
+}
+__device__ __forceinline__ unsigned long long key64(int d, int row) {
+  return (static_cast<unsigned long long>(static_cast<unsigned>(d) ^
+                                          0x80000000u) << 32) |
+         static_cast<unsigned>(row);
+}
+// A target's key before any row: kInfDist above every row, so that a row
+// is kept only at a distance of at most kInfDist, as the first K25's
+// minimum from kInfDist kept it.
+constexpr unsigned kInitKey32 =
+    (static_cast<unsigned>(kInfDist) << kKeyRowBits) | (kKeyRows - 1);
+constexpr unsigned long long kInitKey64 =
+    (static_cast<unsigned long long>(static_cast<unsigned>(kInfDist) ^
+                                     0x80000000u) << 32) | 0xffffffffull;
+
+struct SelectArgs {
+  const int* best;
+  const int* second;
+  const int* best_idx;
+  const int* back;
+  int m, n, max_dist, use_ratio, resolve;
+  float ratio;
+  int* idx_out;
+  int* dist_out;
+};
+
+// A matched row (target t in [0, n]) whose key needs 64 bits.
+__device__ __forceinline__ bool wide_key(int t, int d, int n) {
+  return t >= 0 && t <= n && (d < 0 || d > kKeyDist);
+}
+
+// The resolution's key tables, 32 or 64 bits a target in one area.
+struct KeyTable {
+  void* area;
+  bool wide;
+  // An atomicMin where the key is below the target's current one (a key
+  // only falls, so a key at or above what is read cannot be the least):
+  // a target many rows reach takes few atomics.
+  __device__ void min(int t, int d, int row) const {
+    if (wide) {
+      unsigned long long* k = static_cast<unsigned long long*>(area) + t;
+      const unsigned long long key = key64(d, row);
+      if (key < *static_cast<volatile unsigned long long*>(k)) {
+        atomicMin(k, key);
+      }
+    } else {
+      unsigned* k = static_cast<unsigned*>(area) + t;
+      const unsigned key = key32(d, row);
+      if (key < *static_cast<volatile unsigned*>(k)) atomicMin(k, key);
+    }
+  }
+  __device__ bool least(int t, int d, int row) const {
+    return wide ? static_cast<const unsigned long long*>(area)[t] ==
+                      key64(d, row)
+                : static_cast<const unsigned*>(area)[t] == key32(d, row);
+  }
+};
+
+// A row's tests: best <= max_dist, the optional ratio test, the optional
+// mutual check (bk: back[best_idx], read where best_idx is in [0, n)).
+__device__ __forceinline__ bool select_passes(const SelectArgs& a, bool mutual,
+                                              int b, int bi, int sc, int bk,
+                                              int row) {
+  bool ok = b <= a.max_dist;
+  if (a.use_ratio) {
+    ok = ok && (static_cast<float>(b) <
+                __fmul_rn(a.ratio, static_cast<float>(sc)));
+  }
+  if (mutual) ok = ok && bi >= 0 && bi < a.n && bk == row;
+  return ok;
+}
+
+// A row's part in the resolution: its key offered to its target, or, past
+// its tests with a best_idx below 0, its distance to the parked bound.
+__device__ __forceinline__ void select_offer(const KeyTable& keys,
+                                             int* parked, int t, int d,
+                                             int row, int n) {
+  if (t >= 0 && t <= n) {
+    keys.min(t, d, row);
+  } else if (t < 0 && d < kInfDist) {
+    atomicMin(parked, d);
+  }
+}
+
+// Whether a row stays matched after the resolution.
+__device__ __forceinline__ bool select_kept(const KeyTable& keys, int parked,
+                                            int t, int d, int row, int n) {
+  return t >= 0 && t <= n && keys.least(t, d, row) &&
+         (t < n || d <= parked);
+}
+
+// R rows a thread in registers (R * kBlockThreads >= m, or kSelectRegRows);
+// one block per problem.
+template <int R>
+__global__ void __launch_bounds__(kBlockThreads) match_select_kernel(
+    SelectArgs a) {
+  // resolve: the targets' keys, n + 1 of 32 bits (or of 64)
+  extern __shared__ unsigned long long key_area[];
+  // the least distance of the rows the plain version parks in slot n
+  // beside a best_idx of n (a test passed with a best_idx below 0)
+  __shared__ int parked;
+  const int tid = threadIdx.x;
+  const long long base = static_cast<long long>(blockIdx.x) * a.m;
   const int* back_b =
-      back != nullptr ? back + static_cast<long long>(blockIdx.x) * n
-                      : nullptr;
-  // each thread owns rows tid, tid + 1024, ...: what it writes it reads
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int b = best[base + i];
-    const int bi = best_idx[base + i];
-    bool ok = b <= max_dist;
-    if (use_ratio) {
-      ok = ok && (static_cast<float>(b) <
-                  __fmul_rn(ratio, static_cast<float>(second[base + i])));
+      a.back != nullptr ? a.back + static_cast<long long>(blockIdx.x) * a.n
+                        : nullptr;
+  // the row loads: every row's best, best_idx and second at once
+  int b[R], bi[R], sc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = tid + r * kBlockThreads;
+    const bool here = i < a.m;
+    b[r] = here ? a.best[base + i] : kInfDist;
+    bi[r] = here ? a.best_idx[base + i] : -1;
+    sc[r] = here && a.use_ratio ? a.second[base + i] : 0;
+  }
+  if (a.resolve) {
+    unsigned* k32 = reinterpret_cast<unsigned*>(key_area);
+    for (int j = tid; j <= a.n; j += kBlockThreads) k32[j] = kInitKey32;
+    if (tid == 0) parked = kInfDist;
+  }
+  // the tests: best <= max_dist, the ratio test, then the mutual check's
+  // gathers of back[best_idx] all at once
+  const bool mutual = back_b != nullptr;
+  int idx[R], d[R];
+  bool wide = a.m >= kKeyRows;
+  {
+    int bk[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      bk[r] = mutual && bi[r] >= 0 && bi[r] < a.n ? back_b[bi[r]] : -1;
     }
-    if (back_b != nullptr) {
-      ok = ok && bi >= 0 && bi < n && back_b[bi] == i;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = tid + r * kBlockThreads;
+      const bool ok =
+          i < a.m && select_passes(a, mutual, b[r], bi[r], sc[r], bk[r], i);
+      idx[r] = ok ? bi[r] : -1;
+      d[r] = ok ? b[r] : kInfDist;
+      wide = wide || wide_key(idx[r], d[r], a.n);
     }
-    idx_out[base + i] = ok ? bi : -1;
-    dist_out[base + i] = ok ? b : kInfDist;
   }
-  if (!resolve) return;
-  for (int j = threadIdx.x; j <= n; j += blockDim.x) {
-    best_t[j] = kInfDist;
-    first_t[j] = m;
+  // rows beyond the registers' (m > R * kBlockThreads): through memory
+  for (int i = tid + R * kBlockThreads; i < a.m; i += kBlockThreads) {
+    const int bb = a.best[base + i];
+    const int bj = a.best_idx[base + i];
+    const int sc_i = a.use_ratio ? a.second[base + i] : 0;
+    const int bk = mutual && bj >= 0 && bj < a.n ? back_b[bj] : -1;
+    const bool ok = select_passes(a, mutual, bb, bj, sc_i, bk, i);
+    a.idx_out[base + i] = ok ? bj : -1;
+    a.dist_out[base + i] = ok ? bb : kInfDist;
+    wide = wide || (ok && wide_key(bj, bb, a.n));
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int idx = idx_out[base + i];
-    atomicMin(&best_t[idx >= 0 ? idx : n], dist_out[base + i]);
+  if (a.resolve) {
+    // the resolution pass: one atomicMin per matched row on its target's
+    // key; integer minima give the same bits in any order. 64-bit keys
+    // only where a matched row's distance leaves [0, kKeyDist]: the table
+    // is then laid out again.
+    const KeyTable keys{key_area, __syncthreads_or(wide) != 0};
+    if (keys.wide) {
+      for (int j = tid; j <= a.n; j += kBlockThreads) {
+        key_area[j] = kInitKey64;
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      select_offer(keys, &parked, idx[r], d[r], tid + r * kBlockThreads,
+                   a.n);
+    }
+    for (int i = tid + R * kBlockThreads; i < a.m; i += kBlockThreads) {
+      select_offer(keys, &parked, a.idx_out[base + i], a.dist_out[base + i],
+                   i, a.n);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool keep = select_kept(keys, parked, idx[r], d[r],
+                                    tid + r * kBlockThreads, a.n);
+      idx[r] = keep ? idx[r] : -1;
+      d[r] = keep ? d[r] : kInfDist;
+    }
+    for (int i = tid + R * kBlockThreads; i < a.m; i += kBlockThreads) {
+      const int t = a.idx_out[base + i];
+      const int dd = a.dist_out[base + i];
+      const bool keep = select_kept(keys, parked, t, dd, i, a.n);
+      a.idx_out[base + i] = keep ? t : -1;
+      a.dist_out[base + i] = keep ? dd : kInfDist;
+    }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int idx = idx_out[base + i];
-    const int tgt = idx >= 0 ? idx : n;
-    const bool keep = idx >= 0 && dist_out[base + i] <= best_t[tgt];
-    atomicMin(&first_t[tgt], keep ? i : m);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int idx = idx_out[base + i];
-    const int tgt = idx >= 0 ? idx : n;
-    const int d = dist_out[base + i];
-    const bool keep = idx >= 0 && d <= best_t[tgt] && first_t[tgt] == i;
-    idx_out[base + i] = keep ? idx : -1;
-    dist_out[base + i] = keep ? d : kInfDist;
+  // the stores: each row once
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = tid + r * kBlockThreads;
+    if (i < a.m) {
+      a.idx_out[base + i] = idx[r];
+      a.dist_out[base + i] = d[r];
+    }
   }
 }
 
@@ -388,11 +559,29 @@ PSL_API int psl_match_select(const int* best, const int* second,
                              float ratio, int resolve, int* idx_out,
                              int* dist_out, cudaStream_t stream) {
   if (m > 0 && batch > 0) {
+    if (resolve && n < 0) return static_cast<int>(cudaErrorInvalidValue);
+    const SelectArgs a{best,   second,   best_idx, back,  m,
+                       n,      max_dist, use_ratio, resolve, ratio,
+                       idx_out, dist_out};
     const size_t smem =
-        resolve ? 2 * (static_cast<size_t>(n) + 1) * sizeof(int) : 0;
-    match_select_kernel<<<batch, kBlockThreads, smem, stream>>>(
-        best, second, best_idx, back, m, n, max_dist, use_ratio, ratio,
-        resolve, idx_out, dist_out);
+        resolve ? (static_cast<size_t>(n) + 1) * sizeof(unsigned long long)
+                : 0;
+    const int rows = (m + kBlockThreads - 1) / kBlockThreads;
+    const void* fn =
+        rows <= 1 ? reinterpret_cast<const void*>(match_select_kernel<1>)
+        : rows <= 2 ? reinterpret_cast<const void*>(match_select_kernel<2>)
+                    : reinterpret_cast<const void*>(
+                          match_select_kernel<kSelectRegRows>);
+    const int rc = psl_opt_in_smem(fn, smem);
+    if (rc != 0) return rc;
+    if (rows <= 1) {
+      match_select_kernel<1><<<batch, kBlockThreads, smem, stream>>>(a);
+    } else if (rows <= 2) {
+      match_select_kernel<2><<<batch, kBlockThreads, smem, stream>>>(a);
+    } else {
+      match_select_kernel<kSelectRegRows>
+          <<<batch, kBlockThreads, smem, stream>>>(a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

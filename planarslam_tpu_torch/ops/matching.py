@@ -40,9 +40,10 @@ INF_DIST = 10_000
 # K26 holds these two as constants (kHisto, kMinProj in csrc/matching.cu)
 HISTO_LENGTH = 30     # rotation histogram bins (the reference's HISTO_LENGTH)
 MIN_PROJ_MATCHES = 20  # fewer projection matches: the brute-force fallback
-# K25 and K27 keep two int32 slots per target in shared memory, within the
-# 48 KB a block has without opting in: 6x the largest N of any caller (the
-# frame's or a keyframe's max_keypoints, 1024 by default)
+# K27 keeps two int32 slots per target in shared memory and K25 one key of
+# at most 64 bits, within the 48 KB a block has without opting in: 6x the
+# largest N of any caller (the frame's or a keyframe's max_keypoints, 1024
+# by default)
 MAX_TARGETS = 6143
 
 
@@ -349,9 +350,12 @@ def match_select_plain(best: torch.Tensor, second: torch.Tensor,
     if ratio is not None:
         ok = ok & (best.to(torch.float32) < ratio * second.to(torch.float32))
     if back is not None:
+        # a best_idx outside [0, N) has no transposed match (K3 gives none)
         rows = torch.arange(best.shape[0], dtype=torch.int32,
                             device=best.device)
-        ok = ok & (back[best_idx.to(torch.int64)] == rows)
+        inside = (best_idx >= 0) & (best_idx < back.shape[0])
+        at = torch.where(inside, best_idx, 0).to(torch.int64)
+        ok = ok & inside & (back[at] == rows)
     idx = torch.where(ok, best_idx, -1).to(torch.int32)
     dist = torch.where(ok, best, INF_DIST).to(torch.int32)
     if n_targets is not None:

@@ -914,6 +914,56 @@ def test_search_lines_planted(dev, case):
         assert bool(sim.isnan().any()) and not bool((idx >= 0).any())
 
 
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("case", chip_smoke.LIFT_CASES)
+def test_lift_lines_planted(dev, case, batch):
+    """K22 on chip_smoke.py's planted frames (LIFT_CASES: invalid slots,
+    depth holes, endpoints off the image and half-pixel samples, an extent
+    at 0.05 m, S = 24 / 16 and 64 / 64 hypotheses) at B = 1 and 4: one
+    launch a call, two launches equal bits, has_3d exactly the plain
+    version's and endpoints within chip_smoke.P3D_TOLERANCE, each lane of
+    B = 4 bit-equal to its B = 1 launch."""
+    cfg = SystemConfig()
+    args = chip_smoke._lift_args(chip_smoke.planted_lift_lanes(case, batch),
+                                 cfg, dev)
+    got, n = _launched("lift_lines_3d", lines.lift_lines_3d, *args)
+    assert n == 1
+    _same_bits(got, lines.lift_lines_3d(*args))
+    want = lines.lift_lines_3d_plain(*args)
+    assert torch.equal(got[2], want[2])
+    for k in (0, 1):
+        assert chip_smoke._finite_err(got[k], want[k]) \
+            <= chip_smoke.P3D_TOLERANCE
+    for b in range(batch if batch > 1 else 0):
+        one = lines.lift_lines_3d(*chip_smoke.lift_lane(args, b))
+        _same_bits([x[b] for x in got], [x[0] for x in one])
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("case", chip_smoke.SELECT_PLANTED)
+def test_match_select_planted(dev, case, batch):
+    """K25 on every problem of chip_smoke.py's planted cases
+    (SELECT_PLANTED) at B = 1 and 4: one launch a call, two launches
+    equal bits, bit-equal to the plain version lane by lane, and each lane
+    of B = 4 bit-equal to its B = 1 launch."""
+    for p in chip_smoke.planted_select_lanes(case, batch):
+        args, kw = chip_smoke._select_args(p, dev)
+        got, n = _launched("match_select", matching.match_select, *args,
+                           **kw)
+        assert n == 1
+        _same_bits(got, matching.match_select(*args, **kw))
+        for b in range(batch):
+            back = None if kw["back"] is None else kw["back"][b]
+            want = matching.match_select_plain(
+                *[a[b] for a in args], kw["max_dist"], kw["ratio"], back,
+                kw["n_targets"])
+            _same_bits([x[b] for x in got], want)
+            if batch > 1:
+                a1, kw1 = chip_smoke.select_lane(args, kw, b)
+                one = matching.match_select(*a1, **kw1)
+                _same_bits([x[b] for x in got], [x[0] for x in one])
+
+
 def test_matching_kernels(dev):
     """K24-K27 on frames 0 -> 1 of the 640x480 room at the default
     configuration's widths (chip_smoke.py's matching_kernel_parity states

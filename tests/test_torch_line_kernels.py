@@ -8,6 +8,8 @@ ranks and weights). Inputs come from the synthetic renderer or a numpy seed;
 every tolerance is stated in its test.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,8 @@ import torch
 
 from chip_smoke import _line_search_problems, _line_tie_slots
 from chip_smoke import planted_top_e_maps
+from chip_smoke import LIFT_CASES, P3D_TOLERANCE, lift_config
+from chip_smoke import planted_lift_lanes
 from planarslam_tpu import config as jconfig
 from planarslam_tpu.io import synthetic
 from planarslam_tpu.ops import image as jimage
@@ -524,6 +528,109 @@ def test_lift_missing_depth_matches_jax(seq, gray):
     assert not has[k] and has.sum() > 0
     np.testing.assert_allclose(got[0][0].numpy(), _n(want[0]), atol=1e-4)
     np.testing.assert_allclose(got[1][0].numpy(), _n(want[1]), atol=1e-4)
+
+
+@pytest.mark.parametrize("case", LIFT_CASES)
+def test_lift_planted_matches_jax(case):
+    """(h') 3D lifting on chip_smoke.py's planted frames (LIFT_CASES) at
+    the default configuration's width (640x480, 64 slots; the sizes cases
+    at S = 24 with 16 hypotheses and S = 64 with 64), four seeds: the plain
+    version against JAX lift_lines_3d lane by lane, has_3d exact, endpoints
+    within chip_smoke.P3D_TOLERANCE; the wrapper's B = 4 equal to the
+    plain version's lanes; and what each case plants."""
+    jc, tc = jconfig.SystemConfig(), tconfig.SystemConfig()
+    lanes = planted_lift_lanes(case, 4)
+    tl = lift_config(tc.lines, lanes["sizes"])
+    jl = dataclasses.replace(jc.lines, n_depth_samples=tl.n_depth_samples,
+                             ransac_iters=tl.ransac_iters)
+    jfn = jax.jit(jlines.lift_lines_3d, static_argnums=(1, 2))
+    arrs = [_t(lanes[k]) for k in ("depth", "uv_s", "uv_e", "valid")]
+    got4 = tlines.lift_lines_3d(arrs[0], tc.camera, tl, *arrs[1:])
+    for b in range(4):
+        got = tlines.lift_lines_3d_plain(*[a[b:b + 1] for a in arrs[:1]],
+                                         tc.camera, tl,
+                                         *[a[b:b + 1] for a in arrs[1:]])
+        want = jfn(jnp.asarray(lanes["depth"][b]), jc.camera, jl,
+                   *[jnp.asarray(lanes[k][b])
+                     for k in ("uv_s", "uv_e", "valid")])
+        np.testing.assert_array_equal(got[2][0].numpy(), _n(want[2]))
+        for k in (0, 1):
+            np.testing.assert_allclose(got[k][0].numpy(), _n(want[k]),
+                                       rtol=0, atol=P3D_TOLERANCE)
+        for x, y in zip(got4, got):
+            assert torch.equal(x[b], y[0])
+    has = got4[2][0].numpy()
+    valid = lanes["valid"][0]
+    if case == "invalid_slots":
+        allv = tlines.lift_lines_3d_plain(
+            arrs[0][:1], tc.camera, tl, arrs[1][:1], arrs[2][:1],
+            torch.ones_like(arrs[3][:1]))[2][0].numpy()
+        assert (allv & ~valid).sum() > 5 and not (has & ~valid).any()
+    elif case == "depth_holes":
+        assert not has[:16].any() and has[32:].sum() > 5
+    elif case == "off_image":
+        assert has[:24].sum() > 3
+        # the samples on column 200.5 round to 200 (even), left of the
+        # step at 200 | 201: a line there lies on the nearer side
+        z = got4[0][0, 24:32, 2].numpy()
+        near, far = z[0::2], z[1::2]
+        assert (near[has[24:32:2]] < 3.0).all()
+        assert (far[has[25:32:2]] > 3.0).all()
+    elif case == "extent_edge":
+        assert not has[0:32:2].any() and has[1:32:2].all()
+    else:
+        assert has.sum() > 5
+
+
+def sqrt_threshold(g: np.float32) -> np.float32:
+    """csrc/line_lift_search.cu::sqrt_threshold in numpy: the square of the
+    midpoint of g and the float below it, exact in float64, rounded up to
+    float32."""
+    if not g > 0 or np.isinf(g):
+        return g if (np.isnan(g) or g > 0) else f32(0)
+    m = 0.5 * (float(np.nextafter(g, f32(0))) + float(g))
+    t = f32(m * m)
+    return t if float(t) >= m * m else np.nextafter(t, f32(np.inf))
+
+
+def least_with_sqrt_at_least(g: np.float32) -> np.float32:
+    """The least float32 t with sqrt(t) >= g, by walking from g^2 (np.sqrt
+    of a float32 rounds correctly, as sqrtf does)."""
+    t = f32(g * g)
+    while np.sqrt(t) >= g:
+        t = np.nextafter(t, f32(0))
+    while not np.sqrt(t) >= g:
+        t = np.nextafter(t, f32(np.inf))
+    return t
+
+
+def test_sqrt_threshold_rule():
+    """K22 tests a distance sqrtf(x) < gate as x < sqrt_threshold(gate):
+    the threshold is the least float whose square root reaches the gate
+    (the walk from gate^2 finds the same), and the decision is the same
+    for every x near it and near gate^2, on the gates the sigma model gives
+    (1.5 sigma + 0.01 over depths 0-10 m), at +inf and NaN."""
+    rng = np.random.default_rng(22)
+    z = rng.uniform(0.0, 10.0, 3000).astype(f32)
+    lc = TC.lines
+    sigma = np.maximum(f32(lc.depth_c1) * z * z + f32(lc.depth_c2) * z
+                       + f32(lc.depth_c3), f32(2e-3))
+    gates = list((f32(1.5) * sigma + f32(0.01)).astype(f32))
+    gates += [f32(np.inf), f32(np.nan), f32(0.013)]
+    checked = 0
+    for g in gates:
+        t = sqrt_threshold(g)
+        if np.isfinite(g):
+            assert t == least_with_sqrt_at_least(g), g
+        with np.errstate(over="ignore"):
+            sq = f32(g * g)
+        xs = [t, np.nextafter(t, f32(0)), np.nextafter(t, f32(np.inf)), sq,
+              np.nextafter(sq, f32(0)), np.nextafter(sq, f32(np.inf)),
+              f32(1e-18), f32(np.inf), f32(np.nan)]
+        for x in xs:
+            assert bool(np.sqrt(x) < g) == bool(x < t), (g, x, t)
+            checked += 1
+    assert checked == 9 * len(gates)
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ from scipy.spatial.transform import Rotation
 from planarslam_tpu import config as jconfig
 from planarslam_tpu.geometry import se3 as jse3
 from planarslam_tpu.ops import matching as jmatch
+from chip_smoke import SELECT_PLANTED, planted_select_lanes
 from planarslam_tpu_torch.ops import matching as tmatch
 
 torch.set_num_threads(2)
@@ -236,11 +237,16 @@ _SELECT_CASES = {
 }
 
 
-@pytest.mark.parametrize("m", [1024, 4096])
-@pytest.mark.parametrize("case", list(_SELECT_CASES))
+@pytest.mark.parametrize(
+    "case,m", [(c, m) for c in _SELECT_CASES for m in (1024, 4096)]
+    + [(c, None) for c in SELECT_PLANTED])
 def test_match_select_plain_vs_jax(case, m):
     """K25's plain version against the JAX tails and _resolve_duplicates:
-    indices and distances exact."""
+    indices and distances exact; also on chip_smoke.py's planted cases
+    (SELECT_PLANTED), every problem of each at B = 4 lane by lane."""
+    if case in SELECT_PLANTED:
+        _planted_select_vs_jax(case)
+        return
     max_dist, ratio, mutual, resolve = _SELECT_CASES[case]
     n = 1024
     best, second, best_idx, back = _top2_problem(np.random.default_rng(m),
@@ -259,6 +265,42 @@ def test_match_select_plain_vs_jax(case, m):
     if resolve:
         kept = want[0][want[0] >= 0]
         assert len(np.unique(kept)) == len(kept)
+
+
+def _planted_select_vs_jax(case):
+    """Every problem of a planted K25 case, four seeds: the plain version
+    equal to the JAX tails lane by lane, and the wrapper's B = 4 equal to
+    it. On `mutual_range` JAX reads back[-1] for a best_idx of -1 and
+    back[N - 1] for one of N and above (its indexing wraps and clamps),
+    where the port finds no transposed match; the case's column N - 1
+    belongs to another row's mutual pair, so both reject those rows."""
+    for p in planted_select_lanes(case, 4):
+        stacked = [_t(p[k]) for k in ("best", "second", "best_idx")]
+        back4 = None if p["back"] is None else _t(p["back"])
+        got4 = tmatch.match_select(*stacked, p["max_dist"], ratio=p["ratio"],
+                                   back=back4, n_targets=p["n_targets"])
+        for b in range(4):
+            lane = [a[b].numpy() for a in stacked]
+            back = None if back4 is None else back4[b]
+            want = _jax_select(*[jnp.asarray(a) for a in lane],
+                               p["max_dist"], p["ratio"],
+                               None if back is None else jnp.asarray(
+                                   back.numpy()), p["n_targets"])
+            got = tmatch.match_select_plain(*[_t(a) for a in lane],
+                                            p["max_dist"], p["ratio"], back,
+                                            p["n_targets"])
+            for g, g4, w in zip(got, got4, want):
+                np.testing.assert_array_equal(g.numpy(), w)
+                assert torch.equal(g4[b], g)
+            if p["n_targets"] is not None:
+                kept = want[0][want[0] >= 0]
+                assert len(np.unique(kept)) == len(kept)
+    if case == "none_pass":
+        assert not (want[0] >= 0).any()
+    elif case == "one_target":
+        assert (want[0] >= 0).sum() <= 1
+    else:
+        assert (want[0] >= 0).sum() > 0
 
 
 def test_match_select_batched_cpu():

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Time the phases inside K1 (fast_score), K3 (gated_hamming_top2), K12
 (plane_components), K13 (plane_assign_refit), K15 (manhattan_mean_shift),
-K16 (pyramid_resize), K17 (gaussian_blur), K18 (select_keypoints), K23
-(search_lines_by_projection), K28 (noise_alpha), K29 (frame_normals) and
-K30 (associate_planes) on a GPU.
+K16 (pyramid_resize), K17 (gaussian_blur), K18 (select_keypoints), K22
+(lift_lines_3d), K23 (search_lines_by_projection), K25 (match_select), K28
+(noise_alpha), K29 (frame_normals) and K30 (associate_planes) on a GPU.
 
     python3 tools/kernel_phases.py
 
 Copies csrc/fast_score.cu, csrc/hamming_top2.cu, csrc/plane_segment.cu
 (twice: K12, K13), csrc/manhattan.cu, csrc/line_lift_search.cu,
 csrc/pyramid.cu (twice: K16, K17), csrc/select_keypoints.cu,
-csrc/step_tail.cu and csrc/depth_normals.cu (twice: K28, K29) into
+csrc/step_tail.cu, csrc/depth_normals.cu (twice: K28, K29), the K22 part
+of csrc/line_lift_search.cu and csrc/matching.cu (K25) into
 build/kernel_phases/, inserts clock64 (and, in
 K1, K3, K13, K17, K18, K23, K28 and K29, %globaltimer) reads at the
 phase comments the sources carry,
@@ -67,7 +68,16 @@ of the built ones:
 - K30 on chip_smoke.py's `assoc_problems` (path 1's 48th step clean and
   noisy, the planted "random" case, B = 4): per step (the first block of
   its cluster) the cycles of the staging, the distance pass, the cluster
-  barrier after it and the picks and gathers.
+  barrier after it and the picks and gathers;
+- K22 on chip_smoke.py's `lift_problems` (frame 0 clean and noisy, B = 4,
+  the planted S = 64 / 64 frame): per block, a line, the cycles of the
+  loads' issue, the sampling, the hypothesis pass, the pick, the mean and
+  covariance, the eigen-solve and the extent (median and largest over
+  the blocks of valid lines: an invalid slot returns after its zeros);
+- K25 on chip_smoke.py's `match_select_problems` (one tracking step's
+  frame search, window search and match_descriptors, the window search
+  at B = 4): per block, a problem, the cycles of the row loads' issue, the
+  tests, the resolution pass and the stores.
 Prints one JSON object with the card's name and power limit. The marks
 move where the code between them runs, not what it computes.
 """
@@ -245,6 +255,34 @@ K30_ANCHORS = (
     ("  // picks and gathers: a warp per frame plane", 3, True),
     ("      ver[fp] = id_ver;\n    }\n  }\n}\n", 4, "end"))
 K30_PHASES = ("staging", "distances", "barrier", "picks")
+# K22: marks 0-7 per block, a line (thread 0's): the loads' issue, the
+# sampling (its depth gathers and the barrier after it), the hypothesis
+# pass (with the barrier after it), the pick of the best, the mean and
+# covariance, the eigen-solve, the extent; warp 0 alone from the pick on
+K22_ANCHORS = (
+    ("  // every load of the line, its sample position and this warp's", 0),
+    ("  // sampling: a thread a sample, its nearest depth and", 1),
+    ("  // the hypothesis pass: a warp a share of the hypotheses, a lane", 2),
+    ("  // the pick of the best: the first largest count", 3),
+    ("  // the mean and the covariance: the weighted mean's four", 4),
+    ("  // the eigen-solve: every lane of the warp the same one", 5),
+    ("  // the extent along dir: the least and the largest t", 6),
+    ("  // the outputs\n", 7))
+K22_PHASES = ("loads", "sampling", "hypotheses", "pick", "mean_cov",
+              "eigen", "extent")
+# K25: marks 0-4 per block, a problem (thread 0's): the row loads' issue,
+# the tests (the loads' wait and the mutual check's gathers), the rows
+# beyond the registers' and the resolution pass with its two barriers, the
+# stores
+K25_ANCHORS = (
+    ("  // the row loads: every row's best, best_idx and second at once", 0,
+     True),
+    ("  // the tests: best <= max_dist, the ratio test, then the mutual", 1,
+     True),
+    ("  // rows beyond the registers' (m > R * kBlockThreads)", 2, True),
+    ("  // the stores: each row once", 3, True),
+    ("      a.dist_out[base + i] = d[r];\n    }\n  }\n}\n", 4, "end"))
+K25_PHASES = ("row_loads", "tests", "resolution", "stores")
 READ = ('\nextern "C" int psl_phase_read(void* out, int bytes) {\n'
         '  return static_cast<int>(cudaMemcpyFromSymbol(out, psl_phase, '
         'bytes));\n}\n')
@@ -405,6 +443,26 @@ def _k30_source(kernels) -> str:
     src = src.replace("namespace {\n", f"__device__ long long psl_phase"
                       f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
     for anchor, k, where in K30_ANCHORS:
+        src = _mark(src, anchor, BLOCK_MARK.format(k=k), where)
+    return src + READ
+
+
+def _k22_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "line_lift_search.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", f"__device__ long long psl_phase"
+                      f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
+    for anchor, k in K22_ANCHORS:
+        src = _mark(src, anchor, BLOCK_MARK.format(k=k), True)
+    return src + READ
+
+
+def _k25_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "matching.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", f"__device__ long long psl_phase"
+                      f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
+    for anchor, k, where in K25_ANCHORS:
         src = _mark(src, anchor, BLOCK_MARK.format(k=k), where)
     return src + READ
 
@@ -614,20 +672,26 @@ def main() -> int:
                  kernels.SOURCE_FLAGS["step_tail.cu"])
     k16 = _build(kernels, "pyramid_k16", _k16_source(kernels),
                  kernels.SOURCE_FLAGS["pyramid.cu"])
+    k22 = _build(kernels, "line_lift_search_k22", _k22_source(kernels),
+                 kernels.SOURCE_FLAGS["line_lift_search.cu"])
+    k25 = _build(kernels, "matching", _k25_source(kernels),
+                 kernels.SOURCE_FLAGS["matching.cu"])
     entries = {"psl_gated_hamming_top2": k3, "psl_mutual_hamming_top2": k3,
                "psl_plane_components": k12, "psl_manhattan_mean_shift": k15,
                "psl_frame_normals": k29, "psl_noise_alpha": k28,
                "psl_plane_assign_refit": k13, "psl_fast_score_levels": k1,
                "psl_search_lines": k23, "psl_gaussian_blur": k17,
                "psl_select_keypoints": k18, "psl_pyramid_build": k16,
-               "psl_associate_planes": k30}
+               "psl_associate_planes": k30, "psl_lift_lines_3d": k22,
+               "psl_match_select": k25}
     for name, lib in entries.items():
         getattr(lib, name).argtypes = kernels._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     k23.psl_search_lines_scratch_words.argtypes = kernels._HELPERS[
         "psl_search_lines_scratch_words"]
     k23.psl_search_lines_scratch_words.restype = ctypes.c_longlong
-    for lib in (k3, k12, k15, k29, k28, k13, k1, k23, k17, k18, k16, k30):
+    for lib in (k3, k12, k15, k29, k28, k13, k1, k23, k17, k18, k16, k30,
+                k22, k25):
         lib.psl_phase_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     cfg = SystemConfig()
     seq = synthetic.make_sequence(smoke.TRACKING_FRAMES,
@@ -726,6 +790,16 @@ def main() -> int:
         for name, fn in smoke.assoc_problems(seq, cfg, dev).items()
         if name in (f"step{smoke.ASSOC_STEP}_clean",
                     f"step{smoke.ASSOC_STEP}_noisy", "random", "b4")}
+    kernels._lib = _Swap(real, k22, {"psl_lift_lines_3d"})
+    out["lift_lines_3d"] = {
+        name: _block_marks(k22, fn, K22_PHASES)
+        for name, fn in smoke.lift_problems(seq, cfg, dev).items()
+        if name in ("clean", "noisy", "b4", "sizes_64_64")}
+    kernels._lib = _Swap(real, k25, {"psl_match_select"})
+    out["match_select"] = {
+        name: _block_marks(k25, fn, K25_PHASES)
+        for name, fn in smoke.match_select_problems(seq, cfg, dev).items()
+        if name in ("frame", "window", "descriptors", "window_b4")}
     kernels._lib = real
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
                              "--format=csv,noheader"], capture_output=True,

@@ -2,12 +2,12 @@
 """Time K1 (fast_score), K3 (gated_hamming_top2), K11 (pose_optimize),
 K12 (plane_components), K13 (plane_assign_refit), K15
 (manhattan_mean_shift), K16 (pyramid_resize), K17 (gaussian_blur), K18
-(select_keypoints), K20 (detect_lines), K23 (search_lines_by_projection),
-K28 (noise_alpha), K29 (frame_normals) and K30 (associate_planes) of one
-tree of the port on a GPU, so that two trees
-can be compared in one run.
+(select_keypoints), K20 (detect_lines), K22 (lift_lines_3d), K23
+(search_lines_by_projection), K25 (match_select), K28 (noise_alpha), K29
+(frame_normals) and K30 (associate_planes) of one tree of the port on a
+GPU, so that two trees can be compared in one run.
 
-    python3 tools/kernel_timing.py [--root DIR]
+    python3 tools/kernel_timing.py [--root DIR] [--only NAME,...]
 
 --root is the checkout whose planarslam_tpu_torch is timed (default: this
 one); its kernels are built into DIR/build/. The problems and the timing
@@ -41,9 +41,18 @@ on the tracking window (M = 256) at B = 1 and seen from four frames at B
 a 1280x960 frame and a 64x48 one (`pyramid_problems`); K30 on path 1's
 48th tracking step clean and noisy, every PLANE_CASES problem and those
 steps at B = 4 (`assoc_problems`), with the valid frame and map planes
-and the points K30 walks over path 1's first 48 steps (`plane_stats`).
-K1, K3, K12, K13, K15, K16, K17, K18, K23, K28, K29 and K30 are timed by
-`kernel_timing_entry`. Prints one JSON
+and the points K30 walks over path 1's first 48 steps (`plane_stats`);
+K22 on frame 0's segments over its clean and its noisy depth, frames 0-3
+at B = 4 and every planted LIFT_CASES frame alone and at B = 4
+(`lift_problems`), with the valid line slots and those lifted on path 1's
+frames (`lift_stats`); K25 on the three launches of one tracking step on
+`hamming_step_problems`' K3 outputs (the frame search, the window search,
+match_descriptors), the window search at B = 4 and every planted
+SELECT_PLANTED problem alone and at B = 4 (`match_select_problems`), with
+its device time per tracking step. K1, K3, K12, K13, K15, K16, K17, K18,
+K22, K23, K25, K28, K29 and K30 are timed by `kernel_timing_entry`.
+--only times the named kernels alone (their keys in the output, e.g.
+`lift_lines_3d,match_select`). Prints one JSON
 object with the card's name and power limit, those times and a hash of
 each output, so that two trees' outputs can be compared bit for bit.
 """
@@ -82,7 +91,15 @@ def _digest(obj) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=HERE)
-    root = os.path.abspath(ap.parse_args(argv).root)
+    ap.add_argument("--only", default="",
+                    help="comma-separated output keys to time alone")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    only = set(filter(None, args.only.split(",")))
+
+    def wanted(key: str) -> bool:
+        return not only or key in only
+
     smoke = _smoke()
     sys.path.insert(0, root)
 
@@ -108,26 +125,34 @@ def main(argv=None) -> int:
     cfg = SystemConfig()
     cam = cfg.camera
     out = {"root": root, "device": smi.stdout.strip(),
-           "torch": torch.__version__, "pose_optimize": {}}
-    for start in ("near", "converged", "far"):
-        args, kw = smoke.pose_problem(cfg, dev, start)
-        out["pose_optimize"][start] = {
-            "hash": _digest(pose_opt.pose_optimize(*args, **kw)),
-            **smoke.pose_timing(args, kw)}
+           "torch": torch.__version__}
+    if wanted("pose_optimize"):
+        out["pose_optimize"] = {}
+        for start in ("near", "converged", "far"):
+            pargs, kw = smoke.pose_problem(cfg, dev, start)
+            out["pose_optimize"][start] = {
+                "hash": _digest(pose_opt.pose_optimize(*pargs, **kw)),
+                **smoke.pose_timing(pargs, kw)}
 
     seq = synthetic.make_sequence(smoke.TRACKING_FRAMES, width=cam.width,
                                   height=cam.height)
-    k3 = {}
-    for name, fn in smoke.hamming_step_problems(seq, cfg, dev).items():
-        k3[name] = {"hash": _digest(fn()),
-                    **smoke.kernel_timing_entry(fn, "hamming_top2")}
-    k3["device_ms_per_step"] = sum(k3[n]["device_ms"] for n in (
-        "frame", "window", "descriptors"))
-    out["gated_hamming_top2"] = k3
-    out["plane_components"] = {
-        name: {"hash": _digest(fn()),
-               **smoke.kernel_timing_entry(fn, "plane_")}
-        for name, fn in smoke.components_problems(seq, cfg, dev).items()}
+    for key, problems, match in (
+            ("gated_hamming_top2", smoke.hamming_step_problems,
+             "hamming_top2"),
+            ("match_select", smoke.match_select_problems, "match_select")):
+        if not wanted(key):
+            continue
+        rec = {name: {"hash": _digest(fn()),
+                      **smoke.kernel_timing_entry(fn, match)}
+               for name, fn in problems(seq, cfg, dev).items()}
+        rec["device_ms_per_step"] = sum(rec[n]["device_ms"] for n in (
+            "frame", "window", "descriptors"))
+        out[key] = rec
+    if wanted("plane_components"):
+        out["plane_components"] = {
+            name: {"hash": _digest(fn()),
+                   **smoke.kernel_timing_entry(fn, "plane_")}
+            for name, fn in smoke.components_problems(seq, cfg, dev).items()}
 
     for key, problems, match in (
             ("manhattan_mean_shift", smoke.manhattan_problems, "manhattan"),
@@ -139,28 +164,36 @@ def main(argv=None) -> int:
             ("select_keypoints", smoke.select_problems, "select_"),
             ("search_lines_by_projection", smoke.line_search_problems,
              "lines_search"),
-            ("pyramid_resize", smoke.pyramid_problems, "pyramid_")):
-        out[key] = {name: {"hash": _digest(fn()),
-                           **smoke.kernel_timing_entry(fn, match)}
-                    for name, fn in problems(seq, cfg, dev).items()}
-    assoc = smoke.assoc_inputs(seq, cfg, dev)
-    out["associate_planes"] = {
-        name: {"hash": _digest(fn()),
-               **smoke.kernel_timing_entry(fn, "associate_planes")}
-        for name, fn in smoke.assoc_problems(seq, cfg, dev, assoc).items()}
-    steps = [smoke.plane_stats(a) for a in assoc["clean"]]
-    out["associate_planes"]["path1_steps"] = {
-        k: {"min": min(s[k] for s in steps),
-            "median": float(np.median([s[k] for s in steps])),
-            "max": max(s[k] for s in steps), f"step{smoke.ASSOC_STEP}":
-            steps[-1][k]} for k in steps[0]}
-    g8, _ = quantize_frame(*seq.render(0), cam.depth_map_factor)
-    gray = torch.from_numpy(g8.astype(np.float32)).to(dev)
-    blurred = image.gaussian_blur(gray, 5, 1.0)[None]
-    out["detect_lines"] = {
-        "hash": _digest(ln.detect_lines(blurred, cfg.lines)),
-        "launches_per_call": ln.DETECT_LAUNCHES,
-        **smoke.detect_timing(blurred, cfg.lines)}
+            ("pyramid_resize", smoke.pyramid_problems, "pyramid_"),
+            ("lift_lines_3d", smoke.lift_problems, "lines_lift")):
+        if wanted(key):
+            out[key] = {name: {"hash": _digest(fn()),
+                               **smoke.kernel_timing_entry(fn, match)}
+                        for name, fn in problems(seq, cfg, dev).items()}
+    if wanted("lift_lines_3d"):
+        out["lift_lines_3d"]["path1_frames"] = smoke.lift_stats(seq, cfg,
+                                                                dev)
+    if wanted("associate_planes"):
+        assoc = smoke.assoc_inputs(seq, cfg, dev)
+        out["associate_planes"] = {
+            name: {"hash": _digest(fn()),
+                   **smoke.kernel_timing_entry(fn, "associate_planes")}
+            for name, fn in smoke.assoc_problems(seq, cfg, dev,
+                                                 assoc).items()}
+        steps = [smoke.plane_stats(a) for a in assoc["clean"]]
+        out["associate_planes"]["path1_steps"] = {
+            k: {"min": min(s[k] for s in steps),
+                "median": float(np.median([s[k] for s in steps])),
+                "max": max(s[k] for s in steps), f"step{smoke.ASSOC_STEP}":
+                steps[-1][k]} for k in steps[0]}
+    if wanted("detect_lines"):
+        g8, _ = quantize_frame(*seq.render(0), cam.depth_map_factor)
+        gray = torch.from_numpy(g8.astype(np.float32)).to(dev)
+        blurred = image.gaussian_blur(gray, 5, 1.0)[None]
+        out["detect_lines"] = {
+            "hash": _digest(ln.detect_lines(blurred, cfg.lines)),
+            "launches_per_call": ln.DETECT_LAUNCHES,
+            **smoke.detect_timing(blurred, cfg.lines)}
     print(json.dumps(out), flush=True)
     return 0
 

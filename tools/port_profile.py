@@ -45,7 +45,9 @@ hand-written kernel per frame (K1-K36, `port_kernels_ms_per_frame`; their
 share of the busy time, and every other device event by name), the
 host-to-device copies per frame, the device time of each launch of K17
 and K18 apart (`port_launches_per_frame`: by kernel name and grid, so
-K17's 7-tap pyramid blur apart from its 5-tap frame blur), and the top
+K17's 7-tap pyramid blur apart from its 5-tap frame blur), the device
+time of each of K25's launches by call site (`port_sites_per_frame`: the
+frame search, match_descriptors, the window search, other), and the top
 kernels by device time.
 Writes the chrome trace to DIR/port_trace.json when --out is given.
 
@@ -147,10 +149,17 @@ def port_kernel(trace_name: str):
     return None
 
 
-def launch_split(prof, n: int) -> dict:
-    """Device ms and launches per frame of each launch of SPLIT_KERNELS,
-    keyed "<kernel name> grid <x>x<y>", from the profile's chrome trace
-    (written to build/port_profile/ and removed)."""
+# kernels whose launches are also reported by call site
+# (`port_sites_per_frame`): the span that issued each launch, K25's
+# searches told apart by the launch after them (match_descriptors' follows
+# the frame search, not the window search)
+SITE_KERNELS = ("K25 match_select",)
+SITE_SPANS = ("matching.search_by_projection", "matching.match_descriptors")
+
+
+def trace_events(prof) -> list:
+    """The profile's chrome trace events (written to build/port_profile/
+    and removed)."""
     out_dir = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "build", "port_profile")
     os.makedirs(out_dir, exist_ok=True)
@@ -158,9 +167,53 @@ def launch_split(prof, n: int) -> dict:
     prof.export_chrome_trace(path)
     try:
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
+            return json.load(f)["traceEvents"]
     finally:
         os.remove(path)
+
+
+def site_split(events, n: int) -> dict:
+    """Device ms and launches per frame of SITE_KERNELS' launches by call
+    site: the innermost SITE_SPANS span around the host call that launched
+    each (its correlation id); "frame_search", "window_search",
+    "match_descriptors", or "other" outside them."""
+    launched, spans, kern = {}, [], []
+    for e in events:
+        cat, args = e.get("cat"), e.get("args", {})
+        if cat == "cuda_runtime" and "LaunchKernel" in e.get("name", ""):
+            launched[args.get("correlation")] = e["ts"]
+        elif cat in ("user_annotation", "cpu_op") and e.get(
+                "name") in SITE_SPANS:
+            spans.append((e["ts"], e["ts"] + e.get("dur", 0), e["name"]))
+        elif cat == "kernel" and port_kernel(e["name"]) in SITE_KERNELS:
+            kern.append(e)
+    kern.sort(key=lambda e: e["ts"])
+    sites = []
+    for e in kern:
+        t = launched.get(e.get("args", {}).get("correlation"))
+        around = [sp for sp in spans if t is not None and sp[0] <= t <= sp[1]]
+        sites.append(min(around, key=lambda sp: sp[1] - sp[0])[2]
+                     if around else "other")
+    out = {}
+    for i, (e, site) in enumerate(zip(kern, sites)):
+        if site == "matching.search_by_projection":
+            after = sites[i + 1] if i + 1 < len(sites) else None
+            site = ("frame_search" if after == "matching.match_descriptors"
+                    else "window_search")
+        elif site == "matching.match_descriptors":
+            site = "match_descriptors"
+        key = f"{port_kernel(e['name'])} {site}"
+        rec = out.setdefault(key, {"ms_per_frame": 0.0,
+                                   "launches_per_frame": 0.0})
+        rec["ms_per_frame"] += e["dur"] / n / 1e3
+        rec["launches_per_frame"] += 1.0 / n
+    return out
+
+
+def launch_split(events, n: int) -> dict:
+    """Device ms and launches per frame of each launch of SPLIT_KERNELS,
+    keyed "<kernel name> grid <x>x<y>", from the profile's chrome trace
+    events."""
     split = {}
     for e in events:
         if e.get("cat") != "kernel" or port_kernel(e["name"]) not in (
@@ -313,6 +366,7 @@ def _profile_window(args, slam, frames, seq, run: int, loop_kf,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
+    events_trace = trace_events(prof)
 
     def dev_us(e):
         return getattr(e, "device_time_total", None) or getattr(
@@ -369,7 +423,8 @@ def _profile_window(args, slam, frames, seq, run: int, loop_kf,
            "port_kernels_launches_per_frame": port_launches,
            "port_kernels_share_of_busy": sum(port_kernels.values())
            / max(busy_ms / n, 1e-12),
-           "port_launches_per_frame": launch_split(prof, n),
+           "port_launches_per_frame": launch_split(events_trace, n),
+           "port_sites_per_frame": site_split(events_trace, n),
            "other_kernels": other,
            "spans": spans,
            "top_kernels": [{"name": k[1][:80], "ms_per_frame": k[0] / n / 1e3,
