@@ -51,6 +51,11 @@ Phases, each fatal on failure:
      0 -> 1: the frame search, the window search over those landmarks
      tiled to 4096 slots with planted normals and distance ranges,
      match_descriptors, and the line observations of frame 1's line search;
+     K25 also on SELECT_PLANTED and K26 on FRAME_PLANTED (rotations of +0
+     and -0, just below 0, at the bin edges, ties, the 10% edge, few bins,
+     19 and 20 projection matches, small M and N, the filter mode up to M
+     = 5000), at B = 1 and 4 lane by lane, into outputs filled with NaN,
+     K26's kept rows also against card_keep_reference;
      K28-K31 (depth-noise median, frame normals, plane association, the
      step's tail), each bit-equal to its plain version in every output
      slot: K28 on frame 0's depth clean and with Kinect noise and on
@@ -65,7 +70,11 @@ Phases, each fatal on failure:
      half the frame planes invalid), also four of them at B = 4 lane by
      lane, K30 and K31 on the last
      tracking step of two 10-frame Systems (clean, noisy), K31 on random
-     tails, and both again on the inputs of path 1's 48th tracking step;
+     tails and on TAIL_PLANTED (the frustum's edges hit exactly, NaN and
+     infinite coordinates, planted depths, every feature tracked, none
+     valid, n_in2 at min_inliers - 1 and at it, K = 1000 with L = 60 and
+     P = 13; B = 1 and 4 lane by lane, outputs filled with NaN), and both
+     again on the inputs of path 1's 48th tracking step;
      K36 (the step's prelude) bit-equal to its plain version on the
      inputs of path 1's 48th tracking step and on four planted lanes; the
      batch of K1, K3, K4, K11, K12-K14, K15 (with its initial-pose
@@ -2741,6 +2750,345 @@ def select_planted_parity(dev) -> dict:
     return summary
 
 
+@contextlib.contextmanager
+def poisoned_outputs(module, name: str):
+    """module.name, an output allocator (shape, dtype, device) of a kernel
+    wrapper, handing out tensors filled with NaN (floats) or 0x7f bytes
+    (integers and bools, a value no output takes): a launch whose outputs
+    equal the plain version's wrote every entry."""
+    import torch
+
+    real = getattr(module, name)
+
+    def filled(shape, dtype, dev):
+        t = real(shape, dtype, dev)
+        if t.dtype.is_floating_point:
+            t.fill_(math.nan)
+        else:
+            t.view(torch.uint8).fill_(0x7F)
+        return t
+
+    setattr(module, name, filled)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def same_bits(got, want) -> bool:
+    """Every output of two launches (or of a launch and its plain version)
+    bit-equal (_bit_diff's int32 bits; a NaN matches only its own bits)."""
+    return all(_bit_diff(x, y, as_int=True) == 0 for x, y in zip(got, want))
+
+
+# K26's planted cases: every match at rotation 0 (+0 and -0), rotations
+# just below 0 (bin 29, down to where rot + 2 pi rounds to 2 pi), at k 2 pi
+# / 30 and one float either side, ties at the first, second and third
+# place (a fourth bin tied with the third), second and third bins at
+# exactly 10% of the first in float32 and one below, fewer than 3
+# non-empty bins, one match and none, 19 and 20 projection matches
+# (MIN_PROJ_MATCHES), M = 1, 33 and 1024 against N = 600 and 1024, and the
+# filter mode at M = 1, 1024, 4096 and 5000
+FRAME_PLANTED = ("zero_rotation", "below_zero", "bin_edges", "ties",
+                 "ten_percent", "few_bins", "min_proj", "sizes", "filter")
+TWO_PI = 2.0 * math.pi
+# rotations just below 0 (as -delta); those below 2.4e-7 round to 2 pi
+# when shifted
+BELOW_ZERO = np.array([1e-8, 5e-8, 1e-7, 2e-7, 2.3e-7, 2.4e-7, 2.5e-7, 3e-7,
+                       4.7e-7, 5e-7, 1e-6, 1e-5, 1e-3, 0.05, 0.2, 1e-30],
+                      np.float32)
+
+
+def rotation_bin_edges() -> np.ndarray:
+    """float32 k 2 pi / 30 (k = 0 .. 30) and the float on either side,
+    those in [0, float32 2 pi)."""
+    f = np.float32
+    r = []
+    for k in range(31):
+        x = f(k * TWO_PI / 30)
+        r += [np.nextafter(x, f(-1)), x, np.nextafter(x, f(10))]
+    r = np.array(r, f)
+    return r[(r >= 0) & (r < f(TWO_PI))]
+
+
+def card_rotation_bins(rot) -> np.ndarray:
+    """The bins K26 and its plain version on the card give float32
+    rotations in [0, 2 pi) (or just below 0): jnp.mod, then rot * 30 times
+    float32(1 / 2 pi), clamped (numpy float32, one rounding an
+    operation)."""
+    f = np.float32
+    rot = np.asarray(rot, f)
+    r = np.fmod(rot, f(TWO_PI))
+    r = np.where((r != 0) & (r < 0), (r + f(TWO_PI)).astype(f), r)
+    scaled = (r.astype(f) * f(30)).astype(f) * (f(1) / f(TWO_PI))
+    return np.clip(scaled.astype(np.int64), 0, 29)
+
+
+def card_keep_reference(angle_src, angle_tgt, valid) -> np.ndarray:
+    """The rows K26's rotation histogram keeps on the card, in numpy: the
+    bins of card_rotation_bins, the three largest counts with ties to the
+    lower bin, the second and third kept at >= float32(0.1) x the first
+    (one rounding)."""
+    f = np.float32
+    with np.errstate(all="ignore"):
+        bins = card_rotation_bins((np.asarray(angle_src, f)
+                                   - np.asarray(angle_tgt, f)).astype(f))
+    counts = np.bincount(bins[valid], minlength=30)
+    top = sorted(range(30), key=lambda k: (-counts[k], k))[:3]
+    tenth = f(0.1) * f(counts[top[0]])
+    kept = [top[0]] + [k for k in top[1:] if f(counts[k]) >= tenth]
+    return valid & np.isin(bins, kept)
+
+
+def planted_frame_problem(case: str, seed: int = 26) -> list:
+    """The K26 problems of a FRAME_PLANTED case as numpy arrays: a list of
+    dicts, frame mode with proj_idx, bf_idx (M,) int32, angle_src (M,),
+    angle_tgt (N,), uv_tgt (N, 2), ur_tgt (N,) float32 and level_tgt (N,)
+    int32, filter mode with angle_src, angle_tgt (M,) and valid (M,) bool;
+    "expect", the matches kept by design (None where a bin edge decides).
+    Matches take distinct rows and targets; a match of a planted exact
+    rotation r has angle_src = r and a target angle of 0 (r - 0 = r
+    exactly), one in a bin k a rotation of k + U(0.25, 0.75) bins."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    edges = rotation_bin_edges()
+    out = []
+
+    def rotations(groups):
+        """(rotation, exact) per match of groups: ("bin", k, count),
+        ("exact", values), ("zero", count: angle_src == angle_tgt)."""
+        rot, exact = [], []
+        for g in groups:
+            if g[0] == "bin":
+                rot += list((g[1] + rng.uniform(0.25, 0.75, g[2]))
+                            * TWO_PI / 30)
+                exact += [0] * g[2]
+            elif g[0] == "exact":
+                rot += list(np.asarray(g[1], f32))
+                exact += [1] * len(g[1])
+            else:
+                rot += [0.0] * g[1]
+                exact += [2] * g[1]
+        return np.asarray(rot, np.float64), np.asarray(exact)
+
+    def place(a_src, a_tgt, rows, tgts, rot, exact):
+        c = a_tgt[tgts].astype(np.float64)
+        a_tgt[tgts] = np.where(exact == 1, 0.0, a_tgt[tgts])
+        a_src[rows] = np.where(exact == 1, rot.astype(f32),
+                               np.where(exact == 2, a_tgt[tgts],
+                                        (c + rot).astype(f32)))
+
+    def frame(groups, bf_groups=(), m=1024, n=1024, expect=None):
+        rot_p, ex_p = rotations(groups)
+        rot_b, ex_b = rotations(bf_groups)
+        n_p, n_b = len(rot_p), len(rot_b)
+        assert n_p + n_b <= min(m, n)
+        rows, tgts = rng.permutation(m), rng.permutation(n)
+        a_src = rng.uniform(-math.pi, math.pi, m).astype(f32)
+        a_tgt = rng.uniform(-math.pi, math.pi, n).astype(f32)
+        proj = np.full(m, -1, np.int32)
+        bf = np.full(m, -1, np.int32)
+        proj[rows[:n_p]] = tgts[:n_p]
+        bf[rows[n_p:n_p + n_b]] = tgts[n_p:n_p + n_b]
+        place(a_src, a_tgt, rows[:n_p], tgts[:n_p], rot_p, ex_p)
+        place(a_src, a_tgt, rows[n_p:n_p + n_b], tgts[n_p:n_p + n_b],
+              rot_b, ex_b)
+        uv = rng.uniform(0, [640, 480], (n, 2)).astype(f32)
+        ur = np.where(rng.random(n) < 0.7, uv[:, 0] - rng.uniform(5, 40, n),
+                      -1.0).astype(f32)
+        out.append({"mode": "frame", "proj_idx": proj, "bf_idx": bf,
+                    "angle_src": a_src, "angle_tgt": a_tgt, "uv_tgt": uv,
+                    "ur_tgt": ur,
+                    "level_tgt": rng.integers(0, 8, n).astype(np.int32),
+                    "expect": expect})
+
+    def filt(groups, m, expect=None):
+        rot, ex = rotations(groups)
+        k = len(rot)
+        rows = rng.permutation(m)[:k]
+        a_src = rng.uniform(-math.pi, math.pi, m).astype(f32)
+        a_tgt = rng.uniform(-math.pi, math.pi, m).astype(f32)
+        place(a_src, a_tgt, rows, rows, rot, ex)
+        valid = np.zeros(m, bool)
+        valid[rows] = True
+        out.append({"mode": "filter", "angle_src": a_src,
+                    "angle_tgt": a_tgt, "valid": valid, "expect": expect})
+
+    rand = [("bin", 16, 60), ("bin", 23, 40)]  # brute-force matches unused
+    if case == "zero_rotation":
+        frame([("zero", 500), ("exact", [-0.0] * 100), ("bin", 7, 80),
+               ("bin", 20, 10)], rand, expect=680)
+        frame([("zero", 300), ("exact", [-0.0] * 300)], rand, expect=600)
+    elif case == "below_zero":
+        frame([("exact", np.repeat(-BELOW_ZERO, 20)), ("bin", 0, 100),
+               ("bin", 14, 60)], rand, expect=480)
+        frame([("exact", np.repeat(-BELOW_ZERO, 3)), ("bin", 3, 200)], rand,
+              expect=248)
+    elif case == "bin_edges":
+        # bins 1, 10 and 20 kept: the edges at k = 1, 2, 10, 11, 20, 21
+        # decide; then bins 14-16 (pi, 16 and 17 2 pi / 30 on their edges)
+        frame([("bin", 1, 400), ("bin", 10, 60), ("bin", 20, 45),
+               ("exact", np.repeat(edges, 2))], rand)
+        frame([("bin", 14, 300), ("bin", 15, 100), ("bin", 16, 40),
+               ("exact", np.repeat(edges, 3))], rand[:1])
+    elif case == "ties":
+        frame([("bin", 7, 80), ("bin", 3, 80), ("bin", 12, 30),
+               ("bin", 25, 30), ("bin", 28, 30)], rand, expect=190)
+        frame([("bin", 15, 100), ("bin", 9, 40), ("bin", 4, 40),
+               ("bin", 20, 39), ("bin", 22, 39)], rand, expect=180)
+        frame([("bin", k, 10) for k in range(30)], rand[:1], expect=30)
+    elif case == "ten_percent":
+        for groups, expect in (
+                ([("bin", 5, 200), ("bin", 12, 20), ("bin", 22, 19)], 220),
+                ([("bin", 0, 100), ("bin", 29, 10), ("bin", 14, 9)], 110),
+                ([("bin", 8, 250), ("bin", 2, 25), ("bin", 27, 24)], 275),
+                ([("bin", 3, 25), ("bin", 17, 3), ("bin", 9, 2)], 28),
+                ([("bin", 11, 30), ("bin", 6, 3), ("bin", 26, 3)], 36)):
+            frame(groups, rand, expect=expect)
+    elif case == "few_bins":
+        frame([("bin", 6, 300)], rand, expect=300)
+        frame([("bin", 6, 300), ("bin", 13, 50)], rand, expect=350)
+        frame([("bin", 4, 1)], [("bin", 9, 1)], expect=1)
+        frame([], [], expect=0)
+        frame([("bin", 4, 1)], [], expect=0)
+    elif case == "min_proj":
+        bf = [("bin", 5, 200), ("bin", 18, 50)]
+        frame([("bin", 2, 19)], bf, expect=250)
+        frame([("bin", 2, 20)], bf, expect=20)
+    elif case == "sizes":
+        for m, n in ((1, 600), (1, 1024), (33, 600), (33, 1024),
+                     (1024, 600)):
+            if m == 1:
+                frame([], [("bin", 3, 1)], m, n, expect=1)
+            elif m == 33:
+                frame([("bin", 3, 20), ("bin", 10, 5)], [("bin", 7, 8)], m,
+                      n, expect=25)
+            else:
+                frame([("bin", 1, 350), ("bin", 2, 100), ("bin", 25, 10)],
+                      rand, m, n, expect=450)
+    elif case == "filter":
+        filt([("bin", 5, 1)], 1, expect=1)
+        filt([("bin", 1, 300), ("bin", 2, 100), ("bin", 20, 40),
+              ("exact", np.repeat(edges, 2))], 1024)
+        filt([("bin", 28, 2000), ("bin", 0, 500), ("bin", 14, 199),
+              ("exact", np.repeat(-BELOW_ZERO, 10))], 4096, expect=2500)
+        filt([("bin", 10, 3000), ("bin", 11, 300), ("bin", 12, 299),
+              ("bin", 13, 299)], 5000, expect=3300)
+    return out
+
+
+def planted_frame_lanes(case: str, batch: int, seed: int = 26) -> list:
+    """planted_frame_problem of seeds seed .. seed + batch - 1, each
+    problem's arrays stacked on a leading lane dimension."""
+    lanes = [planted_frame_problem(case, seed + b) for b in range(batch)]
+    out = []
+    for probs in zip(*lanes):
+        p = dict(probs[0])
+        for k, v in p.items():
+            if isinstance(v, np.ndarray):
+                p[k] = np.stack([q[k] for q in probs])
+        out.append(p)
+    return out
+
+
+FRAME_KEYS = ("proj_idx", "bf_idx", "angle_src", "angle_tgt", "uv_tgt",
+              "ur_tgt", "level_tgt")
+FILTER_KEYS = ("angle_src", "angle_tgt", "valid")
+
+
+def frame_call(p: dict, dev, table):
+    """The K26 wrapper call of a planted_frame_lanes problem: a function
+    of no argument launching it (B lanes in one launch), and its plain
+    version's outputs lane by lane (a list of B tuples)."""
+    import torch
+
+    from planarslam_tpu_torch.ops import matching as mt
+
+    if p["mode"] == "filter":
+        args = [torch.from_numpy(p[k]).to(dev) for k in FILTER_KEYS]
+        return ((lambda: (mt.rotation_histogram_filter(*args),)),
+                lambda: [(mt.rotation_histogram_filter_plain(
+                    *[a[b] for a in args]),)
+                         for b in range(args[0].shape[0])])
+    args = [torch.from_numpy(p[k]).to(dev) for k in FRAME_KEYS]
+    return ((lambda: mt.frame_match_select(*args, table)),
+            lambda: [mt.frame_match_select_plain(*[a[b] for a in args],
+                                                 table)
+                     for b in range(args[0].shape[0])])
+
+
+def frame_planted_parity(dev, table) -> dict:
+    """K26 on every FRAME_PLANTED problem: bit-equal to its plain version,
+    two launches equal bits, one launch a call, every output written (each
+    call also into outputs filled with NaN, poisoned_outputs), the kept
+    matches as the case plants them; each also at B = 4 (four seeds) in
+    one launch, each lane bit-equal to its B = 1 launch. Returns per case
+    the problems' sizes and kept matches."""
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.ops import matching as mt
+
+    out = {}
+    for case in FRAME_PLANTED:
+        rec = []
+        for p in planted_frame_lanes(case, 4):
+            ones = []
+            for b in range(4):
+                lane = {k: v[b:b + 1] if isinstance(v, np.ndarray) else v
+                        for k, v in p.items()}
+                fn, plain = frame_call(lane, dev, table)
+                n0 = kernels.LAUNCHES["frame_match_select"]
+                got = fn()
+                _check(kernels.LAUNCHES["frame_match_select"] == n0 + 1,
+                       f"frame_match_select ({case}): not one launch a call")
+                again = fn()
+                with poisoned_outputs(mt, "_out"):
+                    filled = fn()
+                want = plain()[0]
+                _check(same_bits(got, again) and same_bits(got, filled),
+                       f"frame_match_select ({case}, lane {b}): two "
+                       f"launches differ, or an output was left unwritten")
+                _check(same_bits([x[0] for x in got], want),
+                       f"frame_match_select ({case}, lane {b}): differs "
+                       f"from the plain version in "
+                       f"{int((got[0][0] != want[0]).sum())} rows")
+                ones.append(got)
+            fn, _ = frame_call(p, dev, table)
+            n0 = kernels.LAUNCHES["frame_match_select"]
+            got4 = fn()
+            _check(kernels.LAUNCHES["frame_match_select"] == n0 + 1,
+                   f"frame_match_select ({case}, B = 4): not one launch")
+            for b, one in enumerate(ones):
+                _check(same_bits([x[b] for x in got4], [x[0] for x in one]),
+                       f"frame_match_select ({case}): lane {b} of B = 4 "
+                       f"differs from its B = 1 launch")
+            kept = [int(x.sum()) for x in (got4[0] >= 0 if p["mode"] ==
+                                           "frame" else got4[0])]
+            for b in range(4):
+                if p["mode"] == "filter":
+                    ref = card_keep_reference(*[p[k][b] for k in FILTER_KEYS])
+                else:
+                    proj, bf = p["proj_idx"][b], p["bf_idx"][b]
+                    ff = bf if (proj >= 0).sum() < mt.MIN_PROJ_MATCHES \
+                        else proj
+                    ref = card_keep_reference(
+                        p["angle_src"][b], p["angle_tgt"][b][np.clip(
+                            ff, 0, p["angle_tgt"].shape[1] - 1)], ff >= 0)
+                got_keep = (got4[0][b] >= 0 if p["mode"] == "frame"
+                            else got4[0][b]).cpu().numpy()
+                _check(np.array_equal(got_keep, ref),
+                       f"frame_match_select ({case}, lane {b}): the kept rows"
+                       f" differ from card_keep_reference's in "
+                       f"{int((got_keep != ref).sum())}")
+            rec.append({"mode": p["mode"], "M": int(p["angle_src"].shape[1]),
+                        "kept": kept, "expect": p["expect"]})
+        out[case] = rec
+    _check(all(r["expect"] is None or r["kept"] == [r["expect"]] * 4
+               for rec in out.values() for r in rec)
+           and all(min(r["kept"]) > 400 for r in out["bin_edges"]),
+           f"frame_match_select: the planted cases do not exercise it: {out}")
+    return out
+
+
 def match_select_problems(seq, cfg, dev) -> dict:
     """K25 at the main path's shapes: the three launches of one tracking
     step on the K3 outputs of hamming_step_problems (the frame search,
@@ -2770,6 +3118,59 @@ def match_select_problems(seq, cfg, dev) -> dict:
             for k, (a, kw) in probs.items()}
 
 
+def frame_match_problems(seq, cfg, dev) -> dict:
+    """K26 at the main path's shapes: one tracking step's launch on the
+    frame search's matches ("projection": hamming_step_problems' K3
+    outputs through K25, match_descriptors' as the brute-force ones), the
+    same with the projection matches cut to 10 ("brute_force"), the filter
+    mode on the projection matches ("filter"), the projection problem four
+    times in one launch ("b4"), and every FRAME_PLANTED problem alone
+    (`<case>_<k>`, lane 0) and, in frame mode, at B = 4. Returns {name:
+    fn}, fn() launching it."""
+    import torch
+
+    from planarslam_tpu_torch.ops import matching as mt
+
+    k3 = hamming_step_problems(seq, cfg, dev)
+    probs = _matching_problems(seq, cfg, dev, np.random.default_rng(24))
+    p1, last = probs["f1"].points, probs["last"]
+    n, mc = cfg.orb.max_keypoints, cfg.matcher
+    table = mt.level_inv_sigma2(cfg.orb.scale_factor, cfg.orb.n_levels, dev)
+    proj_idx = mt.match_select(*k3["frame"](), max_dist=mc.th_high,
+                               n_targets=n)[0]
+    *fwd, back = k3["descriptors"]()
+    bf_idx = mt.match_select(*fwd, max_dist=mc.th_low, ratio=0.9,
+                             back=back)[0]
+    few = proj_idx.clone()
+    few[:, torch.cumsum((few >= 0).int(), 1)[0] > 10] = -1
+    tgt = [t[None] for t in (p1.angle, p1.uv, p1.u_right, p1.level)]
+    src = last.feats.points.angle[None]
+    args = {"projection": (proj_idx, bf_idx, src, *tgt),
+            "brute_force": (few, bf_idx, src, *tgt)}
+    args["b4"] = tuple(torch.cat([a] * 4) for a in args["projection"])
+    out = {k: (lambda a=a: mt.frame_match_select(*a, table))
+           for k, a in args.items()}
+    fargs = (last.feats.points.angle,
+             p1.angle[torch.clamp(proj_idx[0], 0, n - 1).long()],
+             proj_idx[0] >= 0)
+    out["filter"] = lambda: (mt.rotation_histogram_filter(*fargs),)
+    for case in FRAME_PLANTED:
+        for k, p in enumerate(planted_frame_lanes(case, 4)):
+            lane = {key: v[0] if isinstance(v, np.ndarray) else v
+                    for key, v in p.items()}
+            if p["mode"] == "filter":  # (M,): one problem a call
+                a = [torch.from_numpy(lane[key]).to(dev)
+                     for key in FILTER_KEYS]
+                out[f"{case}_{k}"] = (
+                    lambda a=a: (mt.rotation_histogram_filter(*a),))
+                continue
+            out[f"{case}_{k}"] = frame_call(
+                {key: v[None] if isinstance(v, np.ndarray) else v
+                 for key, v in lane.items()}, dev, table)[0]
+            out[f"{case}_{k}_b4"] = frame_call(p, dev, table)[0]
+    return out
+
+
 def matching_kernel_parity(seq, cfg, dev) -> list:
     """K24-K27 against their plain versions on the card, on the problems of
     _matching_problems (frames 0 -> 1 of the 640x480 room at the default
@@ -2778,8 +3179,9 @@ def matching_kernel_parity(seq, cfg, dev) -> list:
     searches, K25 on both searches' K3 outputs and on match_descriptors'
     two (mutual), K26 on the frame search and the brute-force matches (and
     with the projection matches cut below MIN_PROJ_MATCHES, and in filter
-    mode), K27 on the window search and K26's matches, and on the line
-    search of frame 1 in the 256 window lines. Every output equals the
+    mode; also every FRAME_PLANTED problem, frame_planted_parity), K27 on
+    the window search and K26's matches, and on the line search of frame 1
+    in the 256 window lines. Every output equals the
     plain version's bit for bit (integers and gathered floats; K24's floats
     because kernel and plain version take the same operations in the same
     order), and two launches give the same bits. Targets matched by more
@@ -2963,6 +3365,9 @@ def matching_kernel_parity(seq, cfg, dev) -> list:
            and torch.equal(fm["projection"]["out"].ff_idx[0] >= 0,
                            keep),
            f"frame_match_select: the cases do not exercise it: {fm}")
+    fplanted = frame_planted_parity(dev, table)
+    print(f"matching_kernel_parity frame_match_select planted: "
+          f"{json.dumps(fplanted)}", flush=True)
     args = fm["projection"]["args"]
     got = fm["projection"]["out"]
     ff = got.ff_idx[0]
@@ -2982,6 +3387,7 @@ def matching_kernel_parity(seq, cfg, dev) -> list:
         "max_abs_err": 0.0, "tolerance": "every output bit-equal",
         "cases": {k: {f: v[f] for f in ("input", "kept", "clashes")}
                   for k, v in fm.items()},
+        "planted": fplanted,
         "ms": _time_ms(lambda: mt.frame_match_select(*args)),
         "plain_ms": _time_ms(lambda: mt.frame_match_select_plain(
             *[a[0] for a in args[:-1]], table)),
@@ -3270,9 +3676,12 @@ def random_tail_problem(rng, cfg, final_ok: bool = True) -> dict:
 
 def _bit_diff(x, y, as_int: bool = False) -> int:
     """Entries of x and y whose bits differ; a float NaN matches any NaN
-    unless as_int (a bundle whose int32 fields are stored as bits)."""
+    unless as_int (a bundle whose int32 fields are stored as bits); a bool
+    by its byte."""
     import torch
 
+    if x.dtype == torch.bool:
+        x, y = x.view(torch.uint8), y.view(torch.uint8)
     if x.dtype == torch.float32:
         xi, yi = x.contiguous().view(torch.int32), y.contiguous().view(
             torch.int32)
@@ -3437,6 +3846,246 @@ def _hold_tail(name, tail, cfg) -> dict:
             "valid3d": int(got.valid3d.sum())}
 
 
+# K31's planted cases: window points and line midpoints on the frustum's
+# edges (u = 0 and the width, v = 0 and the height, each hit exactly and
+# its neighbours; z = 0.05 and its neighbours; z = +-1e-8) at a planted
+# pose; NaN and infinite window coordinates; feature depths 0, -0,
+# negative, +-1e-30 and depth_threshold and a float either side;
+# every feature tracked; no feature valid; n_in2 at min_inliers - 1 and at
+# min_inliers; a configuration of K = 1000, L = 60, P = 13
+TAIL_PLANTED = ("frustum_edges", "nonfinite", "depths", "all_tracked",
+                "none_valid", "min_inliers", "small_config")
+
+
+def view_f32(T, pts, cam) -> tuple:
+    """K31's and its plain version's in-view test of world points (N, 3)
+    at pose T (4, 4) in numpy float32, one rounding an operation in their
+    order: (visible, u, v, z)."""
+    f = np.float32
+    T = np.asarray(T, f)
+    p = np.asarray(pts, f)
+    with np.errstate(all="ignore"):
+        pc = [((T[r, 0] * p[:, 0] + T[r, 1] * p[:, 1]) + T[r, 2] * p[:, 2])
+              + T[r, 3] for r in range(3)]
+        z = pc[2]
+        inv_z = f(1) / np.where(np.abs(z) < f(1e-8), f(1e-8), z)
+        u = (f(cam.fx) * pc[0]) * inv_z + f(cam.cx)
+        v = (f(cam.fy) * pc[1]) * inv_z + f(cam.cy)
+        vis = ((z > f(0.05)) & (u >= 0) & (u < f(cam.width)) & (v >= 0)
+               & (v < f(cam.height)))
+    return vis, u, v, z
+
+
+def frustum_edge_points(cam) -> np.ndarray:
+    """Camera points (identity pose) whose u or v is exactly 0, the width
+    or the height in float32 (view_f32), with the float on either side of
+    each; points at z = 0.05 and +-1e-8 and the floats about them."""
+    f = np.float32
+    out = []
+    for axis, edge, other in ((0, 0.0, 0.3), (0, float(cam.width), -0.2),
+                              (1, 0.0, 0.1), (1, float(cam.height), 0.4)):
+        for z in (1.0, 2.5):
+            fc, cc = (cam.fx, cam.cx) if axis == 0 else (cam.fy, cam.cy)
+            x = f((edge - cc) * z / fc)
+            xs = [x]
+            for step in (-1.0, 1.0):
+                y = x
+                for _ in range(300):
+                    y = np.nextafter(y, f(step * 1e9))
+                    xs.append(y)
+            xs = np.array(sorted(set(xs)), f)
+            pts = np.zeros((len(xs), 3), f)
+            pts[:, axis] = xs
+            pts[:, 1 - axis] = other
+            pts[:, 2] = z
+            uv = view_f32(np.eye(4), pts, cam)[1 + axis]
+            hit = np.flatnonzero(uv == f(edge))
+            k = hit[0] if len(hit) else int(np.searchsorted(uv, f(edge)))
+            out.append(pts[max(k - 1, 0):k + 2])
+    zs = []
+    for z0 in (0.05, 1e-8, -1e-8):
+        z = f(z0)
+        zs += [np.nextafter(z, f(-1)), z, np.nextafter(z, f(1))]
+    zs += [f(0.0), f(-0.0)]
+    out.append(np.array([[0.001, -0.001, z] for z in zs], f))
+    return np.concatenate(out)
+
+
+def _small_tail_config(cfg):
+    """cfg with K = 1000 features, L = 60 lines and P = 13 planes."""
+    import dataclasses
+
+    return cfg.replace(
+        orb=dataclasses.replace(cfg.orb, max_keypoints=1000),
+        lines=dataclasses.replace(cfg.lines, max_lines=60),
+        planes=dataclasses.replace(cfg.planes, max_planes=13))
+
+
+def planted_tail_problem(case: str, cfg, seed: int = 31) -> list:
+    """The K31 problems of a TAIL_PLANTED case: a list of (configuration,
+    inputs as random_tail_problem gives them, what it plants), the
+    planted window rows and their view_f32 visibility where the case
+    plants frustum edges."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    cam = cfg.camera
+    m = cfg.tracking.min_matches_local_map // 2
+    t = random_tail_problem(rng, cfg, True)
+    plants = {}
+    if case == "frustum_edges":
+        t["T_cand"] = np.eye(4, dtype=f)
+        pts = frustum_edge_points(cam)
+        k = len(pts)
+        rows = rng.permutation(len(t["win_valid"]))[:k]
+        t["win_xyz"][rows] = pts
+        t["win_valid"][rows] = True
+        lines = rng.permutation(len(t["ln_valid"]))[:k]
+        t["ln_sw"][lines] = pts
+        t["ln_ew"][lines] = pts
+        t["ln_valid"][lines] = True
+        vis = view_f32(t["T_cand"], pts, cam)
+        plants = {"rows": rows, "lines": lines, "visible": vis[0],
+                  "on_edge": int(((vis[1] == 0) | (vis[1] == cam.width)
+                                  | (vis[2] == 0) | (vis[2] == cam.height)
+                                  | (vis[3] == f(0.05))).sum())}
+    elif case == "nonfinite":
+        nan, inf = np.nan, np.inf
+        bad = np.array([[nan, 0, 1], [0, nan, 1], [0, 0, nan], [inf, 0, 1],
+                        [-inf, 0, 1], [0, inf, 1], [0, 0, inf], [0, 0, -inf],
+                        [inf, inf, inf], [nan, nan, nan], [inf, -inf, 2]], f)
+        rows = rng.permutation(len(t["win_valid"]))[:len(bad)]
+        t["win_xyz"][rows] = bad
+        t["win_valid"][rows] = True
+        lines = rng.permutation(len(t["ln_valid"]))[:len(bad)]
+        t["ln_sw"][lines] = bad
+        t["ln_ew"][lines] = bad[::-1]
+        t["ln_valid"][lines] = True
+        plants = {"rows": rows, "lines": lines}
+    elif case == "depths":
+        th = f(cam.depth_threshold)
+        d = np.array([0.0, -0.0, -1.0, -1e-30, 1e-30, th,
+                      np.nextafter(th, f(0)), np.nextafter(th, f(1e9)),
+                      2 * th, 0.05], f)
+        rows = rng.permutation(len(t["pt_depth"]))[:10 * len(d)]
+        t["pt_depth"][rows] = np.tile(d, 10)
+        t["pt_valid"][rows] = True
+        plants = {"rows": rows}
+    elif case == "all_tracked":
+        k = len(t["inl"])
+        t["inl"][:] = True
+        t["obs2_valid"][:] = True
+        t["pt_valid"][:] = True
+        t["pt_depth"] = rng.uniform(0.3, 2.0 * cam.depth_threshold,
+                                    k).astype(f)
+    elif case == "none_valid":
+        t["pt_valid"][:] = False
+        t["obs2_valid"][:] = False
+    elif case == "min_inliers":
+        t2 = {k: np.copy(v) for k, v in t.items()}
+        t["n_in2"] = np.int64(m - 1)
+        t2["n_in2"] = np.int64(m)
+        return [(cfg, t, {"final": False}), (cfg, t2, {"final": True})]
+    elif case == "small_config":
+        small = _small_tail_config(cfg)
+        return [(small, random_tail_problem(rng, small, True), {}),
+                (small, random_tail_problem(rng, small, False), {})]
+    return [(cfg, t, plants)]
+
+
+def planted_tail_lanes(case: str, cfg, batch: int, seed: int = 31) -> list:
+    """planted_tail_problem of seeds seed .. seed + batch - 1: per problem
+    (configuration, inputs stacked on a leading lane dimension, the lanes'
+    plants)."""
+    lanes = [planted_tail_problem(case, cfg, seed + b) for b in range(batch)]
+    return [(probs[0][0], {k: np.stack([np.asarray(q[1][k]) for q in probs])
+                           for k in probs[0][1]}, [q[2] for q in probs])
+            for probs in zip(*lanes)]
+
+
+def _tail_of(t: dict, dev):
+    """A StepTail on dev from stacked numpy inputs."""
+    import torch
+
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    return dt.StepTail(*[torch.from_numpy(np.ascontiguousarray(t[f])).to(dev)
+                         for f in dt.StepTail._fields])
+
+
+def tail_planted_parity(cfg, dev) -> dict:
+    """K31 on every TAIL_PLANTED problem: bit-equal to its plain version
+    (the bundle as int32), two launches equal bits, one launch a call, every
+    output written (each call also into outputs filled with NaN,
+    poisoned_outputs), what the case plants (the planted window rows'
+    visibility as view_f32 gives it, the pose n_in2 picks, the counts);
+    each also at B = 4 (four seeds) in one launch, each lane bit-equal to
+    its B = 1 launch. Returns per case a few of its counts."""
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    out = {}
+    for case in TAIL_PLANTED:
+        rec = []
+        for c, t, lane_plants in planted_tail_lanes(case, cfg, 4):
+            plants = lane_plants[0]
+            tail4 = _tail_of(t, dev)
+            ones = []
+            for b in range(4):
+                tail = dt.StepTail(*[x[b:b + 1] for x in tail4])
+                n0 = kernels.LAUNCHES["finish_step"]
+                got = dt.finish_step(tail, c)
+                _check(kernels.LAUNCHES["finish_step"] == n0 + 1,
+                       f"finish_step ({case}): not one launch a call")
+                again = dt.finish_step(tail, c)
+                with poisoned_outputs(dt, "_empty"):
+                    filled = dt.finish_step(tail, c)
+                _check(same_bits(got, again) and same_bits(got, filled),
+                       f"finish_step ({case}, lane {b}): two launches "
+                       f"differ, or an output was left unwritten")
+                _tail_held(f"finish_step ({case}, lane {b})", got,
+                           kernels.per_problem(
+                               lambda *x: dt.finish_step_plain(
+                                   dt.StepTail(*x), c), list(tail)))
+                ones.append(got)
+            n0 = kernels.LAUNCHES["finish_step"]
+            got4 = dt.finish_step(tail4, c)
+            _check(kernels.LAUNCHES["finish_step"] == n0 + 1,
+                   f"finish_step ({case}, B = 4): not one launch")
+            for b, one in enumerate(ones):
+                _check(same_bits([x[b] for x in got4], [x[0] for x in one]),
+                       f"finish_step ({case}): lane {b} of B = 4 differs "
+                       f"from its B = 1 launch")
+            bundle = dt.BundleLayout(c).unpack(got4.packed[0].cpu().numpy())
+            r = {"K": int(t["inl"].shape[1]),
+                 "kf_stats": bundle["kf_stats"].tolist(),
+                 "valid3d": int(got4.valid3d[0].sum()),
+                 "T_out_is_T_cand": bool(np.array_equal(
+                     got4.T_out[0].cpu().numpy(), t["T_cand"][0]))}
+            if "visible" in plants:
+                vis = bundle["win_visible"][plants["rows"]] != 0
+                lvis = bundle["ln_win_visible"][plants["lines"]] != 0
+                r.update(planted=len(vis), on_edge=plants["on_edge"],
+                         planted_visible=int(vis.sum()),
+                         as_emulated=bool(np.array_equal(vis, plants[
+                             "visible"]) and np.array_equal(lvis, plants[
+                                 "visible"])))
+            if "final" in plants:
+                r["final"] = plants["final"]
+            rec.append(r)
+        out[case] = rec
+    fe = out["frustum_edges"][0]
+    _check(fe["as_emulated"] and fe["on_edge"] >= 8
+           and 0 < fe["planted_visible"] < fe["planted"]
+           and all(r["T_out_is_T_cand"] == r["final"]
+                   for r in out["min_inliers"])
+           and out["all_tracked"][0]["kf_stats"][3] == 1024
+           and out["none_valid"][0]["valid3d"] == 0
+           and out["none_valid"][0]["kf_stats"][1] == 0
+           and all(r["K"] == 1000 for r in out["small_config"]),
+           f"finish_step: the planted cases do not exercise it: {out}")
+    return out
+
+
 def _normal_reads(h: int, w: int, stride: int, k: int) -> int:
     """Depth pixels K29's stencils read at least once: the box windows
     around the smoothed pixels each sample needs (rows and columns apart:
@@ -3453,6 +4102,58 @@ def _normal_reads(h: int, w: int, stride: int, k: int) -> int:
     return axis(h) * axis(w)
 
 
+def tail_step_inputs(seq, cfg, dev, step: int = ASSOC_STEP,
+                     lanes: int = 4) -> list:
+    """K31's StepTail (B = 1) at tracking steps step - lanes + 1 .. step
+    of a tracking-only System over seq's frames (path 1's, clean)."""
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.slam.system import System
+
+    capture = tuple(("device_tracker", "finish_step", k)
+                    for k in range(step - lanes + 1, step + 1))
+    slam = System(config=cfg, enable_local_mapping=False,
+                  enable_loop_closing=False, device=dev)
+    with _pose_calls(capture) as rec:
+        for i in range(len(seq.poses_wc)):
+            if capture[-1] in rec["inputs"]:
+                break
+            g, d16 = quantize_frame(*seq.render(i),
+                                    cfg.camera.depth_map_factor)
+            slam.track_rgbd(g, d16, float(i) / 30.0)
+    slam.shutdown()
+    _check(all(c in rec["inputs"] for c in capture),
+           f"tail_step_inputs: not {step} tracking steps")
+    return [rec["inputs"][c][0][0] for c in capture]
+
+
+def finish_step_problems(seq, cfg, dev, inputs=None) -> dict:
+    """K31 at the main path's shapes: path 1's ASSOC_STEP-th step
+    (tail_step_inputs, the inputs tail_frame_parity holds), steps
+    ASSOC_STEP - 3 .. ASSOC_STEP in one launch ("b4"), the two random
+    tails of tail_kernel_parity, and every TAIL_PLANTED problem alone
+    (`<case>_<k>`, lane 0) and at B = 4. Returns {name: fn}, fn()
+    launching it."""
+    import torch
+
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    tails = inputs or tail_step_inputs(seq, cfg, dev)
+    probs = {f"step{ASSOC_STEP}": (cfg, tails[-1]),
+             "b4": (cfg, dt.StepTail(*[torch.cat(x).contiguous()
+                                       for x in zip(*tails)]))}
+    for ok in (True, False):
+        t = random_tail_problem(np.random.default_rng(31), cfg, ok)
+        probs[f"random_final_{ok}"] = (cfg, _tail_of(
+            {f: np.asarray(t[f])[None] for f in t}, dev))
+    for case in TAIL_PLANTED:
+        for k, (c, t, _) in enumerate(planted_tail_lanes(case, cfg, 4)):
+            probs[f"{case}_{k}"] = (c, _tail_of({f: v[:1] for f, v in
+                                                 t.items()}, dev))
+            probs[f"{case}_{k}_b4"] = (c, _tail_of(t, dev))
+    return {k: (lambda c=c, t=t: dt.finish_step(t, c))
+            for k, (c, t) in probs.items()}
+
+
 def tail_kernel_parity(seq, cfg, dev) -> list:
     """K28-K31 against their plain versions on the card, each output slot
     bit-equal and two launches equal bits. K28 on frame 0's quantized depth
@@ -3464,7 +4165,8 @@ def tail_kernel_parity(seq, cfg, dev) -> list:
     PLANE_CASES; K30 and K31 on the last tracking step of a System over
     the first TAIL_FRAMES frames, clean and noisy (the map planes of frame
     0's keyframe in its window), and K31 on two
-    random tails (the final pose kept and not). Times at the 640x480
+    random tails (the final pose kept and not) and on every TAIL_PLANTED
+    problem (tail_planted_parity). Times at the 640x480
     shapes (median of 25 calls); K28's device time and launches per call
     on alpha_problems (one launch each). ALPHA_CASES' "wide" is 1280x960."""
     import dataclasses
@@ -3626,6 +4328,9 @@ def tail_kernel_parity(seq, cfg, dev) -> list:
             torch.from_numpy(np.asarray(t[f])[None]).to(dev)
             for f in dt.StepTail._fields])
     tail_cases = {name: _hold_tail(name, t, cfg) for name, t in tails.items()}
+    tplanted = tail_planted_parity(cfg, dev)
+    print(f"tail_kernel_parity finish_step planted: {json.dumps(tplanted)}",
+          flush=True)
     _check(assoc["step_clean"]["direct"] > 0
            and assoc["no_map"] == {"direct": 0, "par": 0, "ver": 0}
            and all(v["direct"] >= 4 and v["par"] > 0 and v["ver"] > 0
@@ -3669,7 +4374,7 @@ def tail_kernel_parity(seq, cfg, dev) -> list:
         "source": src + "step_tail.cu",
         "replaces": "planarslam_tpu/slam/device_tracker.py:440",
         "max_abs_err": 0.0, "tolerance": "bit-equal (the bundle as int32)",
-        "cases": tail_cases,
+        "cases": tail_cases, "planted": tplanted,
         "ms": _time_ms(lambda: dt.finish_step(tail, cfg)),
         "plain_ms": _time_ms(lambda: dt.finish_step_plain(
             dt.StepTail(*[x[0] for x in tail]), cfg))})

@@ -40,16 +40,27 @@
 //
 // K26 replaces the frame-to-frame selection of planarslam_tpu/slam/
 // device_tracker.py (:314-338) with ::rotation_histogram_filter (:67-87).
-// One 1024-thread block per problem: the count of projection matches
-// decides the brute-force fallback on the device (count < kMinProj), the
-// target angle is gathered, the angle difference is jnp.mod'ed into
-// [0, 2 pi) (fmod, then shifted), binned as the card computes
-// rot * 30 / two_pi (a product with the float32 reciprocal), the 30 bins
-// are counted with integer atomics, the three largest taken with ties to
-// the lower bin, the second and third kept at >= 10% of the first; then
-// the first stage's PointObs fields are gathered (uv, u_right or -1,
-// 1/sigma^2 from the per-level table, valid). In filter mode it takes the
-// matched target angles and a validity mask and writes only the kept mask.
+// One 1024-thread block per problem; a thread keeps its rows tid, tid +
+// 1024, ... (up to 4096 rows) in registers from the one load round to the
+// stores: row 0's uv and level (a dropped match's gathers) and the
+// per-level table (staged in shared memory) first, then proj_idx, bf_idx
+// and the source angle together, with the projection match's gathers
+// (target angle, uv, u_right, level) issued as soon as proj_idx is in.
+// The count of projection matches (__syncthreads_count) decides the
+// brute-force fallback on the device (count < kMinProj; its gathers then
+// go out again). The angle
+// difference is jnp.mod'ed into [0, 2 pi) (fmod, then shifted) and binned
+// once, as the card computes rot * 30 / two_pi (a product with the float32
+// reciprocal); the 30 bins are counted warp by warp (__match_any_sync, the
+// leader adding the popcount: integer sums, the same bits in any order);
+// every warp takes the three largest by three __reduce_max_sync of count
+// << 5 | (31 - bin) (ties to the lower bin, as lax.top_k; the same pick in
+// every warp, so no barrier follows it), the second and third kept at >=
+// 10% of the first; then each row's outputs come from its registers: the
+// first stage's PointObs fields (uv, u_right or -1, 1/sigma^2 from the
+// table, valid). Filter mode takes the matched target
+// angles and a validity mask and writes only the kept mask. Rows beyond
+// the registers' go through memory, read again after the pick.
 // Bound: latency (~40 bytes per source).
 //
 // K27 replaces the observation assembly of planarslam_tpu/slam/
@@ -375,98 +386,276 @@ __device__ __forceinline__ int rotation_bin(float a_src, float a_tgt,
   return psl_clamp(static_cast<int>(scaled), 0, kHisto - 1);
 }
 
-__global__ void frame_matches_kernel(
-    const int* __restrict__ proj_idx, const int* __restrict__ bf_idx,
-    const unsigned char* __restrict__ valid_in,
-    const float* __restrict__ angle_src, const float* __restrict__ angle_tgt,
-    int m, int n, const float* __restrict__ uv_tgt,
-    const float* __restrict__ ur_tgt, const int* __restrict__ level_tgt,
-    const float* __restrict__ inv_s2_table, int n_levels, float two_pi,
-    float inv_two_pi, int* __restrict__ ff_out,
-    float* __restrict__ obs_uv, float* __restrict__ obs_ur,
-    float* __restrict__ obs_inv_s2, unsigned char* __restrict__ obs_valid,
-    unsigned char* __restrict__ keep_out) {
-  __shared__ int counts[kHisto];
-  __shared__ unsigned char keep_bin[kHisto];
-  const long long bm = static_cast<long long>(blockIdx.x) * m;
-  const long long bn = static_cast<long long>(blockIdx.x) * n;
-  const bool filter = valid_in != nullptr;
-  for (int k = threadIdx.x; k < kHisto; k += blockDim.x) {
-    counts[k] = 0;
-    keep_bin[k] = 0;
+// K26's rows a thread keeps in registers: rows tid, tid + 1024, ...,
+// below kFrameRegRows * kBlockThreads; rows beyond pass through memory
+// (their inputs read again after the pick).
+constexpr int kFrameRegRows = 4;
+// a count enters a pick key above 5 bits of bin: counts below 2^26
+constexpr int kFrameMaxRows = 1 << 26;
+
+struct FrameArgs {
+  const int* proj_idx;   // (B, M) frame mode
+  const int* bf_idx;     // (B, M) frame mode, or NULL: no fallback
+  const unsigned char* valid_in;  // (B, M) filter mode
+  const float* angle_src;         // (B, M)
+  const float* angle_tgt;  // (B, N) frame mode; (B, M) matched, filter mode
+  int m, n;
+  const float* uv_tgt;     // (B, N, 2)
+  const float* ur_tgt;     // (B, N)
+  const int* level_tgt;    // (B, N)
+  const float* inv_s2_table;  // (n_levels,)
+  int n_levels;
+  float two_pi, inv_two_pi;
+  int* ff_out;
+  float* obs_uv;
+  float* obs_ur;
+  float* obs_inv_s2;
+  unsigned char* obs_valid;
+  unsigned char* keep_out;  // filter mode
+};
+
+// A frame-mode row: the chosen match, its target's gathered angle, uv,
+// u_right and level (the match's own row, clamped to [0, n)), and the bin
+// of its rotation (-1 unmatched).
+struct FrameRow {
+  int ff, bin;
+  float at, u, v, ur;
+  int level;
+};
+
+// The gathers of a frame-mode row's match ff, all issued together.
+__device__ __forceinline__ FrameRow frame_gather(const FrameArgs& a,
+                                                 long long bn, int ff) {
+  FrameRow r{ff, -1, 0.0f, 0.0f, 0.0f, -1.0f, 0};
+  if (ff >= 0) {
+    const long long g = bn + psl_clamp(ff, 0, a.n - 1);
+    r.at = __ldg(a.angle_tgt + g);
+    r.u = __ldg(a.uv_tgt + 2 * g);
+    r.v = __ldg(a.uv_tgt + 2 * g + 1);
+    r.ur = __ldg(a.ur_tgt + g);
+    r.level = __ldg(a.level_tgt + g);
   }
-  // use_bf = count(proj_idx >= 0) < kMinProj, the same in every thread
-  bool use_bf = false;
-  if (!filter && bf_idx != nullptr) {
-    int n_proj = 0;
-    for (int i0 = 0; i0 < m; i0 += blockDim.x) {
-      const int i = i0 + threadIdx.x;
-      n_proj += __syncthreads_count(i < m && proj_idx[bm + i] >= 0);
-    }
-    use_bf = n_proj < kMinProj;
+  return r;
+}
+
+// A frame-mode row's bin, computed once.
+__device__ __forceinline__ void frame_bin(const FrameArgs& a, FrameRow& r,
+                                          float a_src) {
+  r.bin = r.ff >= 0 ? rotation_bin(a_src, r.at, a.two_pi, a.inv_two_pi) : -1;
+}
+
+// One histogram entry per warp and bin: the lanes of a bin found by
+// __match_any_sync, their leader adding the popcount (integer sums: the
+// same bits in any order). Every lane of the warp calls it.
+__device__ __forceinline__ void histogram_add(int* counts, int bin) {
+  const unsigned same = __match_any_sync(0xffffffffu, bin);
+  if (bin >= 0 && (threadIdx.x & 31) == __ffs(same) - 1) {
+    atomicAdd(counts + bin, __popc(same));
   }
-  __syncthreads();
-  const int* ff_in = use_bf ? bf_idx : proj_idx;
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    bool ok;
-    float a_tgt;
-    if (filter) {
-      ok = valid_in[bm + i] != 0;
-      a_tgt = angle_tgt[bm + i];
+}
+
+// A frame-mode row's outputs: the match where its bin is kept, else -1
+// and row 0's gathers (u0, v0, level0), as the plain version's clamp of
+// -1 reads them.
+__device__ __forceinline__ void frame_store(const FrameArgs& a,
+                                            const float* table, long long o,
+                                            const FrameRow& r, unsigned keep,
+                                            float u0, float v0, int level0) {
+  const bool matched = r.bin >= 0 && ((keep >> r.bin) & 1u);
+  a.ff_out[o] = matched ? r.ff : -1;
+  // obs_uv is the wrapper's own (B, M, 2) tensor: 8-byte aligned rows
+  reinterpret_cast<float2*>(a.obs_uv)[o] =
+      matched ? make_float2(r.u, r.v) : make_float2(u0, v0);
+  a.obs_ur[o] = matched ? r.ur : -1.0f;
+  a.obs_inv_s2[o] =
+      table[psl_clamp(matched ? r.level : level0, 0, a.n_levels - 1)];
+  a.obs_valid[o] = matched ? 1 : 0;
+}
+
+// R rows a thread in registers (R * kBlockThreads >= m, or kFrameRegRows);
+// one block per problem. Frame mode: the projection matches, or the
+// brute-force ones where fewer than kMinProj projected, through the
+// rotation histogram, and the first pose solve's observations. Filter
+// mode: the kept mask of the valid rows.
+template <int R, bool kFilter>
+__global__ void __launch_bounds__(kBlockThreads) frame_matches_kernel(
+    FrameArgs a) {
+  extern __shared__ float table[];  // frame mode: the per-level table
+  __shared__ int counts[32];        // the histogram (bins 30, 31 unused)
+  const int tid = threadIdx.x, lane = tid & 31;
+  const long long bm = static_cast<long long>(blockIdx.x) * a.m;
+  const long long bn = static_cast<long long>(blockIdx.x) * a.n;
+  const int rows_beyond = R * kBlockThreads;
+
+  // the load round: row 0's gathers (a dropped match's) and the per-level
+  // table first, then every row's inputs at once and, in frame mode, the
+  // projection match's gathers (the brute-force ones, rarely taken, after
+  // the count)
+  float a_src[R];
+  FrameRow row[R];
+  int bf[R];
+  bool ok[R];
+  float a_tgt[R];
+  float u0 = 0.0f, v0 = 0.0f, level_s = 0.0f;
+  int level0 = 0;
+  if (tid < 32) counts[tid] = 0;
+  if (!kFilter) {
+    u0 = __ldg(a.uv_tgt + 2 * bn);
+    v0 = __ldg(a.uv_tgt + 2 * bn + 1);
+    level0 = __ldg(a.level_tgt + bn);
+    if (tid < a.n_levels) level_s = __ldg(a.inv_s2_table + tid);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = tid + r * kBlockThreads;
+    const bool here = i < a.m;
+    a_src[r] = here ? __ldg(a.angle_src + bm + i) : 0.0f;
+    if (kFilter) {
+      ok[r] = here && __ldg(a.valid_in + bm + i) != 0;
+      a_tgt[r] = here ? __ldg(a.angle_tgt + bm + i) : 0.0f;
     } else {
-      const int ff = ff_in[bm + i];
-      ok = ff >= 0;
-      a_tgt = angle_tgt[bn + psl_clamp(ff, 0, n - 1)];
-    }
-    if (ok) {
-      atomicAdd(&counts[rotation_bin(angle_src[bm + i], a_tgt, two_pi,
-                                     inv_two_pi)],
-                1);
+      const int pj = here ? __ldg(a.proj_idx + bm + i) : -1;
+      bf[r] = here && a.bf_idx != nullptr ? __ldg(a.bf_idx + bm + i) : -1;
+      row[r] = frame_gather(a, bn, pj);
     }
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    // top 3 of the counts, ties to the lower bin (lax.top_k)
-    int top[3] = {-1, -1, -1};
-    for (int r = 0; r < 3; ++r) {
-      for (int k = 0; k < kHisto; ++k) {
-        if (k == top[0] || k == top[1]) continue;
-        if (top[r] < 0 || counts[k] > counts[top[r]]) top[r] = k;
+  if (!kFilter) {
+    if (tid < a.n_levels) table[tid] = level_s;
+    for (int k = tid + kBlockThreads; k < a.n_levels; k += kBlockThreads) {
+      table[k] = __ldg(a.inv_s2_table + k);
+    }
+  }
+
+  // the count: use_bf = count(proj_idx >= 0) < kMinProj, the same in
+  // every thread (its barriers also order the histogram's zeros)
+  bool use_bf = false;
+  if (kFilter) {
+    __syncthreads();
+  } else {
+    int n_proj = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) n_proj += __syncthreads_count(row[r].ff >= 0);
+    for (int base = rows_beyond; base < a.m; base += kBlockThreads) {
+      const int i = base + tid;
+      n_proj +=
+          __syncthreads_count(i < a.m && __ldg(a.proj_idx + bm + i) >= 0);
+    }
+    use_bf = a.bf_idx != nullptr && n_proj < kMinProj;
+    // the gathers: the brute-force matches' where they are taken
+    if (use_bf) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) row[r] = frame_gather(a, bn, bf[r]);
+    }
+  }
+  const int* ff_in = use_bf ? a.bf_idx : a.proj_idx;
+
+  // the histogram: each row's bin computed once, warp-aggregated
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (kFilter) {
+      row[r].bin = ok[r] ? rotation_bin(a_src[r], a_tgt[r], a.two_pi,
+                                        a.inv_two_pi)
+                         : -1;
+    } else {
+      frame_bin(a, row[r], a_src[r]);
+    }
+    histogram_add(counts, row[r].bin);
+  }
+  for (int base = rows_beyond; base < a.m; base += kBlockThreads) {
+    const int i = base + tid;
+    int bin = -1;
+    if (i < a.m) {
+      if (kFilter) {
+        if (__ldg(a.valid_in + bm + i) != 0) {
+          bin = rotation_bin(__ldg(a.angle_src + bm + i),
+                             __ldg(a.angle_tgt + bm + i), a.two_pi,
+                             a.inv_two_pi);
+        }
+      } else {
+        FrameRow x = frame_gather(a, bn, __ldg(ff_in + bm + i));
+        frame_bin(a, x, __ldg(a.angle_src + bm + i));
+        bin = x.bin;
       }
     }
-    const float tenth = __fmul_rn(0.1f, static_cast<float>(counts[top[0]]));
-    keep_bin[top[0]] = 1;
-    keep_bin[top[1]] = static_cast<float>(counts[top[1]]) >= tenth;
-    keep_bin[top[2]] = static_cast<float>(counts[top[2]]) >= tenth;
+    histogram_add(counts, bin);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    if (filter) {
-      const bool ok = valid_in[bm + i] != 0;
-      keep_out[bm + i] =
-          ok && keep_bin[rotation_bin(angle_src[bm + i], angle_tgt[bm + i],
-                                      two_pi, inv_two_pi)];
-      continue;
-    }
-    int ff = ff_in[bm + i];
-    if (ff >= 0) {
-      const float a_tgt = angle_tgt[bn + psl_clamp(ff, 0, n - 1)];
-      if (!keep_bin[rotation_bin(angle_src[bm + i], a_tgt, two_pi,
-                                 inv_two_pi)]) {
-        ff = -1;
-      }
-    }
-    // the gathers follow the filtered match: index 0 where it was dropped
-    const int fi = psl_clamp(ff, 0, n - 1);
-    const bool matched = ff >= 0;
-    ff_out[bm + i] = ff;
-    obs_uv[2 * (bm + i)] = uv_tgt[2 * (bn + fi)];
-    obs_uv[2 * (bm + i) + 1] = uv_tgt[2 * (bn + fi) + 1];
-    obs_ur[bm + i] = matched ? ur_tgt[bn + fi] : -1.0f;
-    obs_inv_s2[bm + i] =
-        inv_s2_table[psl_clamp(level_tgt[bn + fi], 0, n_levels - 1)];
-    obs_valid[bm + i] = matched ? 1 : 0;
+
+  // the pick: every warp alike (no barrier after it), three reductions of
+  // count << 5 | (31 - bin), so that equal counts go to the lower bin
+  // (lax.top_k); the second and third kept at >= 10% of the first
+  unsigned keep;
+  {
+    int key = lane < kHisto ? (counts[lane] << 5) | (31 - lane) : 0;
+    const int k0 = __reduce_max_sync(0xffffffffu, key);
+    key = key == k0 ? 0 : key;
+    const int k1 = __reduce_max_sync(0xffffffffu, key);
+    key = key == k1 ? 0 : key;
+    const int k2 = __reduce_max_sync(0xffffffffu, key);
+    const float tenth = __fmul_rn(0.1f, static_cast<float>(k0 >> 5));
+    keep = (1u << (31 - (k0 & 31))) |
+           (static_cast<unsigned>(static_cast<float>(k1 >> 5) >= tenth)
+            << (31 - (k1 & 31))) |
+           (static_cast<unsigned>(static_cast<float>(k2 >> 5) >= tenth)
+            << (31 - (k2 & 31)));
   }
+
+  // the stores, from registers
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = tid + r * kBlockThreads;
+    if (i >= a.m) continue;
+    if (kFilter) {
+      a.keep_out[bm + i] =
+          row[r].bin >= 0 && ((keep >> row[r].bin) & 1u) ? 1 : 0;
+    } else {
+      frame_store(a, table, bm + i, row[r], keep, u0, v0, level0);
+    }
+  }
+  for (int i = rows_beyond + tid; i < a.m; i += kBlockThreads) {
+    if (kFilter) {
+      const bool v = __ldg(a.valid_in + bm + i) != 0;
+      const int bin =
+          v ? rotation_bin(__ldg(a.angle_src + bm + i),
+                           __ldg(a.angle_tgt + bm + i), a.two_pi,
+                           a.inv_two_pi)
+            : -1;
+      a.keep_out[bm + i] = bin >= 0 && ((keep >> bin) & 1u) ? 1 : 0;
+    } else {
+      FrameRow x = frame_gather(a, bn, __ldg(ff_in + bm + i));
+      frame_bin(a, x, __ldg(a.angle_src + bm + i));
+      frame_store(a, table, bm + i, x, keep, u0, v0, level0);
+    }
+  }
+}
+
+template <bool kFilter>
+int frame_matches_launch(const FrameArgs& a, int batch, cudaStream_t stream) {
+  const size_t smem =
+      kFilter ? 0 : static_cast<size_t>(a.n_levels) * sizeof(float);
+  const int rows = (a.m + kBlockThreads - 1) / kBlockThreads;
+  const void* fn =
+      rows <= 1 ? reinterpret_cast<const void*>(
+                      frame_matches_kernel<1, kFilter>)
+      : rows <= 2 ? reinterpret_cast<const void*>(
+                        frame_matches_kernel<2, kFilter>)
+                  : reinterpret_cast<const void*>(
+                        frame_matches_kernel<kFrameRegRows, kFilter>);
+  if (smem > 32768) {  // far more levels than a pyramid has
+    const int rc = psl_opt_in_smem(fn, smem);
+    if (rc != 0) return rc;
+  }
+  if (rows <= 1) {
+    frame_matches_kernel<1, kFilter>
+        <<<batch, kBlockThreads, smem, stream>>>(a);
+  } else if (rows <= 2) {
+    frame_matches_kernel<2, kFilter>
+        <<<batch, kBlockThreads, smem, stream>>>(a);
+  } else {
+    frame_matches_kernel<kFrameRegRows, kFilter>
+        <<<batch, kBlockThreads, smem, stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void assemble_observations_kernel(
@@ -594,12 +783,18 @@ PSL_API int psl_frame_match_select(
     float* obs_uv, float* obs_ur, float* obs_inv_s2, unsigned char* obs_valid,
     unsigned char* keep_out, cudaStream_t stream) {
   if (m > 0 && batch > 0) {
+    const bool filter = valid_in != nullptr;
+    if (m >= kFrameMaxRows || (!filter && (n < 1 || n_levels < 1))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     // the reciprocal PyTorch's division by a number multiplies with
     const float inv_two_pi = 1.0f / two_pi;
-    frame_matches_kernel<<<batch, kBlockThreads, 0, stream>>>(
-        proj_idx, bf_idx, valid_in, angle_src, angle_tgt, m, n, uv_tgt,
-        ur_tgt, level_tgt, inv_s2_table, n_levels, two_pi, inv_two_pi, ff_out,
-        obs_uv, obs_ur, obs_inv_s2, obs_valid, keep_out);
+    const FrameArgs a{proj_idx,  bf_idx, valid_in,  angle_src, angle_tgt,
+                      m,         n,      uv_tgt,    ur_tgt,    level_tgt,
+                      inv_s2_table, n_levels, two_pi, inv_two_pi, ff_out,
+                      obs_uv,    obs_ur, obs_inv_s2, obs_valid, keep_out};
+    return filter ? frame_matches_launch<true>(a, batch, stream)
+                  : frame_matches_launch<false>(a, batch, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,10 +48,19 @@
 // host bundle (_pack: every field at its offset in the layout's table, the
 // int32 fields by integer stores, so the bits of a bool's 1, a denormal as
 // a float, survive), the carried pt3d_w and valid3d (_state_from, :171) and
-// the new velocity T_out T_inv(T_last). Block 0 of a step does the features
-// (counts by integer atomics in shared memory), the planes and the pose
-// fields; the other blocks one window point or line per thread. Bound:
-// latency (about 140 KB in and 63 KB out per step).
+// the new velocity T_out T_inv(T_last). One item a thread: block 0 of a
+// step takes the 1024 features and the four keyframe counts (reduced by
+// __reduce_add_sync per warp, then over the warps: no block waits on
+// another); the other blocks the 4096 window points, 256 window lines, the
+// frame line slots, the 16 planes and the 16 pose entries (with R_cm and
+// the flags). Every input is read through the read-only path and a
+// thread's loads all go out before its first store, so that nothing waits
+// on the stores before it; the pose is no chain: warp 0 of each block
+// loads both candidates, n_in2 and T_last together and selects into shared
+// memory while the items' loads are in flight. (A cluster of 8 blocks
+// adding the counts into its first block by distributed-shared-memory
+// atomics, and one block a step with six items a thread, were slower on
+// the card.) Bound: latency (about 140 KB in and 63 KB out per step).
 //
 // The plain versions spell every 3 x 3 product, dot and norm in a fixed
 // order and this file is built with -fmad=false, so every float equals the
@@ -67,7 +76,6 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kTailThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float clamp_min(float x, float lo) {
@@ -379,6 +387,13 @@ enum Field {
   kPlCoeffsW, kPlValid, kKfStats, kFields
 };
 
+// K31's launch: per step, block 0 the K features and 1 + ceil((items -
+// K) / kTailThreads) - 1 blocks the rest, an item a thread (items beyond
+// the threads in further rounds)
+constexpr int kTailThreads = 1024;
+constexpr int kTailWarps = kTailThreads / 32;
+constexpr int kPoseItems = 16;  // T_out and the velocity (R_cm, flags)
+
 struct TailArgs {
   const float* T_cand;          // (B, 4, 4) the final solve's pose
   const long long* n_in2;       // (B,) its point inliers
@@ -409,6 +424,7 @@ struct TailArgs {
   const float* pl_coeffs;       // (B, P, 4)
   const unsigned char* pl_valid;  // (B, P)
   int K, L, P, Wp, Wl, total, min_inliers;
+  int items;                    // K + Wp + Wl + L + P + kPoseItems
   float fx, fy, cx, cy, inv_fx, inv_fy, width, height, depth_threshold;
   int off[kFields];
   float* bundle;                // (B, total)
@@ -418,7 +434,97 @@ struct TailArgs {
   unsigned char* valid3d;       // (B, K)
 };
 
-// se3.transform_points then se3.project, and the frustum gates
+// The items of a step, in this order: K features, Wp window points, Wl
+// window lines, L frame line slots, P planes, kPoseItems pose entries.
+enum ItemKind { kNone, kFeature, kWinPoint, kWinLine, kLnSlot, kPlane,
+                kPose };
+
+// An item's inputs, loaded before the pose is known: up to 6 floats, 3
+// ints and 3 flags (a feature: uv, depth, ff_idx, feat_slot, inl,
+// obs2_valid, pt_valid; a window point: xyz, win_idx, win_valid; a line:
+// both endpoints, lm_idx, ln_valid; a plane: its coefficients, the three
+// matches, pl_valid; a pose entry: R_cm's, manh_success, use_manh, n_in1)
+struct Item {
+  int kind, idx;
+  float f[6];
+  int i[3];
+  bool u[3];
+  long long n1;
+};
+
+__device__ __forceinline__ Item tail_load(const TailArgs& a, int b, int j) {
+  Item it;
+  it.kind = kNone;
+  it.idx = j;
+  if (j < a.K) {
+    const size_t o = static_cast<size_t>(b) * a.K + j;
+    it.kind = kFeature;
+    it.f[0] = __ldg(a.pt_uv + 2 * o);
+    it.f[1] = __ldg(a.pt_uv + 2 * o + 1);
+    it.f[2] = __ldg(a.pt_depth + o);
+    it.i[0] = __ldg(a.ff_idx + o);
+    it.i[1] = __ldg(a.feat_slot + o);
+    it.u[0] = __ldg(a.inl + o) != 0;
+    it.u[1] = __ldg(a.obs2_valid + o) != 0;
+    it.u[2] = __ldg(a.pt_valid + o) != 0;
+    return it;
+  }
+  j -= a.K;
+  if (j < a.Wp) {
+    const size_t o = static_cast<size_t>(b) * a.Wp + j;
+    it.kind = kWinPoint;
+    it.idx = j;
+    for (int q = 0; q < 3; ++q) it.f[q] = __ldg(a.win_xyz + 3 * o + q);
+    it.i[0] = __ldg(a.win_idx + o);
+    it.u[0] = __ldg(a.win_valid + o) != 0;
+    return it;
+  }
+  j -= a.Wp;
+  if (j < a.Wl) {
+    const size_t o = static_cast<size_t>(b) * a.Wl + j;
+    it.kind = kWinLine;
+    it.idx = j;
+    for (int q = 0; q < 3; ++q) {
+      it.f[q] = __ldg(a.ln_sw + 3 * o + q);
+      it.f[3 + q] = __ldg(a.ln_ew + 3 * o + q);
+    }
+    it.i[0] = __ldg(a.lm_idx + o);
+    it.u[0] = __ldg(a.ln_valid + o) != 0;
+    return it;
+  }
+  j -= a.Wl;
+  if (j < a.L) {
+    it.kind = kLnSlot;
+    it.idx = j;
+    it.i[0] = __ldg(a.ln_slot + static_cast<size_t>(b) * a.L + j);
+    return it;
+  }
+  j -= a.L;
+  if (j < a.P) {
+    const size_t o = static_cast<size_t>(b) * a.P + j;
+    it.kind = kPlane;
+    it.idx = j;
+    for (int q = 0; q < 4; ++q) it.f[q] = __ldg(a.pl_coeffs + 4 * o + q);
+    it.i[0] = __ldg(a.pl_direct + o);
+    it.i[1] = __ldg(a.pl_par + o);
+    it.i[2] = __ldg(a.pl_ver + o);
+    it.u[0] = __ldg(a.pl_valid + o) != 0;
+    return it;
+  }
+  j -= a.P;
+  if (j < kPoseItems) {
+    it.kind = kPose;
+    it.idx = j;
+    if (j < 9) it.f[0] = __ldg(a.R_cm + 9 * b + j);
+    it.u[0] = __ldg(a.manh_success + b) != 0;
+    it.u[1] = __ldg(a.use_manh + b) != 0;
+    it.n1 = __ldg(a.n_in1 + b);
+  }
+  return it;
+}
+
+// se3.transform_points then se3.project at the pose T (rows 0-2), and the
+// frustum gates
 __device__ bool in_view(const float* T, float x, float y, float z,
                         const TailArgs& a) {
   float pc[3];
@@ -434,131 +540,180 @@ __device__ bool in_view(const float* T, float x, float y, float z,
          v < a.height;
 }
 
-__global__ void finish_step_kernel(TailArgs a) {
-  const int b = blockIdx.y;
+// An item's outputs at the step's pose T and previous pose T_last (the
+// block's shared copies); returns the keyframe counts a feature adds to
+// (tracked close, non-tracked close, with depth, tracked) as the bits of
+// one int.
+__device__ __forceinline__ int tail_finish(const TailArgs& a, int b,
+                                           const Item& it, const float* T,
+                                           const float* T_last, float n2) {
   float* bundle = a.bundle + static_cast<size_t>(b) * a.total;
   int* bundle_i = reinterpret_cast<int*>(bundle);
-  const bool ok2 = a.n_in2[b] >= a.min_inliers;
-  const float* T = (ok2 ? a.T_cand : a.T1) + 16 * b;
-
-  if (blockIdx.x > 0) {  // one window point or line per thread
-    const int j = (blockIdx.x - 1) * blockDim.x + threadIdx.x;
-    if (j < a.Wp) {
-      const size_t o = static_cast<size_t>(b) * a.Wp + j;
-      const float* q = a.win_xyz + 3 * o;
-      const bool vis = a.win_valid[o] != 0 && in_view(T, q[0], q[1], q[2], a);
-      bundle_i[a.off[kWinFound] + j] = a.win_idx[o] >= 0 ? 1 : 0;
+  const int j = it.idx;
+  switch (it.kind) {
+    case kFeature: {
+      const size_t o = static_cast<size_t>(b) * a.K + j;
+      const bool inl = it.u[0], obs2 = it.u[1], valid = it.u[2];
+      const int slot = it.i[1];
+      const float z = it.f[2];
+      bundle_i[a.off[kFfIdx] + j] = it.i[0];
+      bundle_i[a.off[kWinIdx] + j] = (inl || slot < 0) ? slot : -1;
+      bundle_i[a.off[kPtInlier] + j] = inl ? 1 : 0;
+      // _state_from at T_out: the feature's camera point to the world
+      float tw[3];
+      t_inv_translation(T, tw);
+      const bool has = z > 0.0f && valid;
+      const float pc[3] = {
+          __fmul_rn(__fmul_rn(__fsub_rn(it.f[0], a.cx), a.inv_fx), z),
+          __fmul_rn(__fmul_rn(__fsub_rn(it.f[1], a.cy), a.inv_fy), z),
+          clamp_min(z, 0.0f)};
+      for (int i = 0; i < 3; ++i) {
+        const float w = __fadd_rn(
+            dot3(T[i], T[4 + i], T[8 + i], pc[0], pc[1], pc[2]), tw[i]);
+        a.pt3d_w[3 * o + i] = has ? w : 0.0f;
+      }
+      a.valid3d[o] = has ? 1 : 0;
+      const bool close = z > 0.0f && z < a.depth_threshold;
+      const bool tracked = obs2 && inl;
+      return (close && tracked ? 1 : 0) |
+             (close && !tracked && valid ? 2 : 0) | (z > 0.0f ? 4 : 0) |
+             (tracked ? 8 : 0);
+    }
+    case kWinPoint: {
+      const bool vis = it.u[0] && in_view(T, it.f[0], it.f[1], it.f[2], a);
+      bundle_i[a.off[kWinFound] + j] = it.i[0] >= 0 ? 1 : 0;
       bundle_i[a.off[kWinVisible] + j] = vis ? 1 : 0;
-    } else if (j < a.Wp + a.Wl) {
-      const int l = j - a.Wp;
-      const size_t o = static_cast<size_t>(b) * a.Wl + l;
-      const float* s = a.ln_sw + 3 * o;
-      const float* e = a.ln_ew + 3 * o;
-      const bool vis =
-          a.ln_valid[o] != 0 &&
-          in_view(T, __fmul_rn(0.5f, __fadd_rn(s[0], e[0])),
-                  __fmul_rn(0.5f, __fadd_rn(s[1], e[1])),
-                  __fmul_rn(0.5f, __fadd_rn(s[2], e[2])), a);
-      bundle_i[a.off[kLnWinFound] + l] = a.lm_idx[o] >= 0 ? 1 : 0;
-      bundle_i[a.off[kLnWinVisible] + l] = vis ? 1 : 0;
+      return 0;
     }
-    return;
+    case kWinLine: {
+      const bool vis =
+          it.u[0] && in_view(T, __fmul_rn(0.5f, __fadd_rn(it.f[0], it.f[3])),
+                             __fmul_rn(0.5f, __fadd_rn(it.f[1], it.f[4])),
+                             __fmul_rn(0.5f, __fadd_rn(it.f[2], it.f[5])),
+                             a);
+      bundle_i[a.off[kLnWinFound] + j] = it.i[0] >= 0 ? 1 : 0;
+      bundle_i[a.off[kLnWinVisible] + j] = vis ? 1 : 0;
+      return 0;
+    }
+    case kLnSlot:
+      bundle_i[a.off[kLnWinIdx] + j] = it.i[0];
+      return 0;
+    case kPlane: {
+      bundle_i[a.off[kPlDirect] + j] = it.i[0];
+      bundle_i[a.off[kPlPar] + j] = it.i[1];
+      bundle_i[a.off[kPlVer] + j] = it.i[2];
+      bundle_i[a.off[kPlValid] + j] = it.u[0] ? 1 : 0;
+      float pw[4];
+      plane_to_world(T, it.f, pw);
+      for (int q = 0; q < 4; ++q) bundle[a.off[kPlCoeffsW] + 4 * j + q] = pw[q];
+      return 0;
+    }
+    case kPose: {
+      bundle[a.off[kTOut] + j] = T[j];
+      a.T_out[16 * b + j] = T[j];
+      // new velocity: T_out T_inv(T_last), each entry a 4-term dot in order
+      float tl[3];
+      t_inv_translation(T_last, tl);
+      const int r = j / 4, col = j % 4;
+      // column col of T_inv(T_last): R^T's column (row col of R) and t'
+      float inv[4];
+      if (col < 3) {
+        inv[0] = T_last[4 * col];
+        inv[1] = T_last[4 * col + 1];
+        inv[2] = T_last[4 * col + 2];
+        inv[3] = 0.0f;
+      } else {
+        inv[0] = tl[0];
+        inv[1] = tl[1];
+        inv[2] = tl[2];
+        inv[3] = 1.0f;
+      }
+      const float* row = T + 4 * r;
+      a.velocity[16 * b + j] = __fadd_rn(
+          dot3(row[0], row[1], row[2], inv[0], inv[1], inv[2]),
+          __fmul_rn(row[3], inv[3]));
+      if (j < 9) bundle[a.off[kRcm] + j] = it.f[0];
+      if (j == 0) bundle[a.off[kFlags]] = it.u[0] ? 1.0f : 0.0f;
+      if (j == 1) bundle[a.off[kFlags] + 1] = it.u[1] ? 1.0f : 0.0f;
+      if (j == 2) bundle[a.off[kFlags] + 2] = __ll2float_rn(it.n1);
+      if (j == 3) bundle[a.off[kFlags] + 3] = n2;
+      return 0;
+    }
+    default:
+      return 0;
+  }
+}
+
+// One step per grid row (blockIdx.y). Block 0 takes the step's features,
+// one a thread, and reduces the keyframe counts alone: by
+// __reduce_add_sync per warp, then warp 0 over the warps' sums (integer
+// sums, the same bits in any order), so no block waits on another. The
+// other blocks take the rest, one item a thread. Every block stages the
+// step's pose: warp 0 loads T_cand, T1, n_in2 and T_last together and
+// selects afterwards, while every thread's item loads are in flight.
+__global__ void __launch_bounds__(kTailThreads) finish_step_kernel(
+    TailArgs a) {
+  __shared__ __align__(16) float pose[16];       // T_out
+  __shared__ __align__(16) float pose_last[16];  // T_last
+  __shared__ float n2_s;                         // float(n_in2)
+  __shared__ int partial[kTailWarps][4];         // block 0: per warp
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y;
+  const bool feats = blockIdx.x == 0;
+  const int stride =
+      feats ? kTailThreads : (gridDim.x - 1) * kTailThreads;
+  const int first =
+      feats ? tid : a.K + (blockIdx.x - 1) * kTailThreads + tid;
+  const int end = feats ? a.K : a.items;
+
+  // the load round: this thread's first item, and in warp 0 both
+  // candidate poses, n_in2 and T_last
+  const Item it = first < end ? tail_load(a, b, first) : Item{kNone};
+  if (warp == 0) {
+    const long long n2 = __ldg(a.n_in2 + b);
+    const float tc = lane < 16 ? __ldg(a.T_cand + 16 * b + lane) : 0.0f;
+    const float t1 = lane < 16 ? __ldg(a.T1 + 16 * b + lane) : 0.0f;
+    const float tl = lane < 16 ? __ldg(a.T_last + 16 * b + lane) : 0.0f;
+    if (lane < 16) {
+      pose[lane] = n2 >= a.min_inliers ? tc : t1;
+      pose_last[lane] = tl;
+    }
+    if (lane == 0) n2_s = __ll2float_rn(n2);
+  }
+  __syncthreads();
+  const float n2 = n2_s;
+
+  // the items
+  int c[4] = {0, 0, 0, 0};
+  const auto count = [&](int bits) {
+    for (int k = 0; k < 4; ++k) c[k] += (bits >> k) & 1;
+  };
+  count(tail_finish(a, b, it, pose, pose_last, n2));
+  for (int j = first + stride; j < end; j += stride) {
+    count(tail_finish(a, b, tail_load(a, b, j), pose, pose_last, n2));
   }
 
-  // block 0: the features, the planes and the pose fields
-  __shared__ int counts[4];
-  if (threadIdx.x < 4) counts[threadIdx.x] = 0;
-  __syncthreads();
-  float tw[3];
-  t_inv_translation(T, tw);
-  int c0 = 0, c1 = 0, c2 = 0, c3 = 0;
-  for (int k = threadIdx.x; k < a.K; k += blockDim.x) {
-    const size_t o = static_cast<size_t>(b) * a.K + k;
-    const bool inl = a.inl[o] != 0;
-    const int slot = a.feat_slot[o];
-    const float z = a.pt_depth[o];
-    const bool valid = a.pt_valid[o] != 0;
-    bundle_i[a.off[kFfIdx] + k] = a.ff_idx[o];
-    bundle_i[a.off[kWinIdx] + k] = (inl || slot < 0) ? slot : -1;
-    bundle_i[a.off[kPtInlier] + k] = inl ? 1 : 0;
-    const bool close = z > 0.0f && z < a.depth_threshold;
-    const bool tracked = a.obs2_valid[o] != 0 && inl;
-    c0 += close && tracked;
-    c1 += close && !tracked && valid;
-    c2 += z > 0.0f;
-    c3 += tracked;
-    // _state_from at T_out: the feature's camera point to the world
-    const bool has = z > 0.0f && valid;
-    const float pc[3] = {
-        __fmul_rn(__fmul_rn(__fsub_rn(a.pt_uv[2 * o], a.cx), a.inv_fx), z),
-        __fmul_rn(__fmul_rn(__fsub_rn(a.pt_uv[2 * o + 1], a.cy), a.inv_fy),
-                  z),
-        clamp_min(z, 0.0f)};
-    for (int i = 0; i < 3; ++i) {
-      const float w = __fadd_rn(
-          dot3(T[i], T[4 + i], T[8 + i], pc[0], pc[1], pc[2]), tw[i]);
-      a.pt3d_w[3 * o + i] = has ? w : 0.0f;
-    }
-    a.valid3d[o] = has ? 1 : 0;
-  }
-  if (c0) atomicAdd(&counts[0], c0);
-  if (c1) atomicAdd(&counts[1], c1);
-  if (c2) atomicAdd(&counts[2], c2);
-  if (c3) atomicAdd(&counts[3], c3);
-  for (int l = threadIdx.x; l < a.L; l += blockDim.x) {
-    bundle_i[a.off[kLnWinIdx] + l] = a.ln_slot[static_cast<size_t>(b) * a.L +
-                                               l];
-  }
-  for (int p = threadIdx.x; p < a.P; p += blockDim.x) {
-    const size_t o = static_cast<size_t>(b) * a.P + p;
-    bundle_i[a.off[kPlDirect] + p] = a.pl_direct[o];
-    bundle_i[a.off[kPlPar] + p] = a.pl_par[o];
-    bundle_i[a.off[kPlVer] + p] = a.pl_ver[o];
-    bundle_i[a.off[kPlValid] + p] = a.pl_valid[o] != 0 ? 1 : 0;
-    float pw[4];
-    plane_to_world(T, a.pl_coeffs + 4 * o, pw);
-    for (int j = 0; j < 4; ++j) bundle[a.off[kPlCoeffsW] + 4 * p + j] = pw[j];
-  }
-  if (threadIdx.x < 16) {
-    const int i = threadIdx.x;
-    bundle[a.off[kTOut] + i] = T[i];
-    a.T_out[16 * b + i] = T[i];
-    // new velocity: T_out T_inv(T_last), each entry a 4-term dot in order
-    const float* Tl = a.T_last + 16 * b;
-    float tl[3];
-    t_inv_translation(Tl, tl);
-    const int r = i / 4, col = i % 4;
-    // column col of T_inv(T_last): R^T's column (row col of R) and t'
-    float inv[4];
-    if (col < 3) {
-      inv[0] = Tl[4 * col];
-      inv[1] = Tl[4 * col + 1];
-      inv[2] = Tl[4 * col + 2];
-      inv[3] = 0.0f;
-    } else {
-      inv[0] = tl[0];
-      inv[1] = tl[1];
-      inv[2] = tl[2];
-      inv[3] = 1.0f;
-    }
-    const float* row = T + 4 * r;
-    a.velocity[16 * b + i] = __fadd_rn(
-        dot3(row[0], row[1], row[2], inv[0], inv[1], inv[2]),
-        __fmul_rn(row[3], inv[3]));
-  }
-  if (threadIdx.x < 9) {
-    bundle[a.off[kRcm] + threadIdx.x] = a.R_cm[9 * b + threadIdx.x];
-  }
-  if (threadIdx.x == 0) {
-    bundle[a.off[kFlags]] = a.manh_success[b] != 0 ? 1.0f : 0.0f;
-    bundle[a.off[kFlags] + 1] = a.use_manh[b] != 0 ? 1.0f : 0.0f;
-    bundle[a.off[kFlags] + 2] = __ll2float_rn(a.n_in1[b]);
-    bundle[a.off[kFlags] + 3] = __ll2float_rn(a.n_in2[b]);
+  // the counts: block 0's alone (the other blocks are done), per warp,
+  // then over the warps
+  if (!feats) return;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int s = __reduce_add_sync(kFull, c[k]);
+    if (lane == 0) partial[warp][k] = s;
   }
   __syncthreads();
-  if (threadIdx.x < 4) {
-    bundle[a.off[kKfStats] + threadIdx.x] =
-        static_cast<float>(counts[threadIdx.x]);
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      c[k] = __reduce_add_sync(kFull,
+                               lane < kTailWarps ? partial[lane][k] : 0);
+    }
+  }
+  // the stores: block 0's keyframe counts, lane k the k-th
+  if (tid < 4) {
+    const int n = tid == 0 ? c[0] : tid == 1 ? c[1] : tid == 2 ? c[2] : c[3];
+    a.bundle[static_cast<size_t>(b) * a.total + a.off[kKfStats] + tid] =
+        static_cast<float>(n);
   }
 }
 
@@ -633,8 +788,9 @@ PSL_API int psl_finish_step(
     a.velocity = velocity;
     a.pt3d_w = pt3d_w;
     a.valid3d = valid3d;
-    const int n_items = Wp + Wl;
-    const dim3 grid(1 + (n_items + kTailThreads - 1) / kTailThreads, batch);
+    a.items = K + Wp + Wl + L + P + kPoseItems;
+    const dim3 grid(1 + (a.items - K + kTailThreads - 1) / kTailThreads,
+                    batch);
     finish_step_kernel<<<grid, kTailThreads, 0, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());

@@ -467,21 +467,27 @@ def rotation_histogram_filter(angle_src: torch.Tensor,
                               valid: torch.Tensor) -> torch.Tensor:
     """Rotation-histogram consistency of M matches: angle_src and the
     matched targets' angles (M,) float32, valid (M,) bool; returns the kept
-    (M,) bool. K26 in filter mode on the card, the plain version on the
-    CPU."""
-    if kernels.on_cpu(angle_src, angle_tgt_matched, valid):
-        return rotation_histogram_filter_plain(angle_src, angle_tgt_matched,
-                                               valid)
-    angle_src, angle_tgt_matched, valid = [
-        t.contiguous() for t in (angle_src, angle_tgt_matched, valid)]
-    m = valid.shape[0]
-    kernels.check(angle_src, "angle_src", torch.float32, (m,))
+    (M,) bool. Or B problems, each tensor with a leading B, in one launch.
+    K26 in filter mode on the card, the plain version on the CPU."""
+    tensors = [angle_src, angle_tgt_matched, valid]
+    if kernels.on_cpu(*tensors):
+        if valid.dim() == 1:
+            return rotation_histogram_filter_plain(*tensors)
+        return kernels.per_problem(
+            lambda *t: (rotation_histogram_filter_plain(*t),), tensors)[0]
+    angle_src, angle_tgt_matched, valid = [t.contiguous() for t in tensors]
+    lead = tuple(valid.shape[:-1])
+    if len(lead) > 1:
+        raise ValueError(f"valid: expected (M,) or (B, M), got "
+                         f"{tuple(valid.shape)}")
+    b, m = (lead[0] if lead else 1), valid.shape[-1]
+    kernels.check(angle_src, "angle_src", torch.float32, (*lead, m))
     kernels.check(angle_tgt_matched, "angle_tgt_matched", torch.float32,
-                  (m,))
-    kernels.check(valid, "valid", torch.bool, (m,))
-    keep = _out((m,), torch.bool, valid.device)
+                  (*lead, m))
+    kernels.check(valid, "valid", torch.bool, (*lead, m))
+    keep = _out((*lead, m), torch.bool, valid.device)
     with torch.cuda.device(valid.device):
-        _frame_match_launch(m, m, 1, angle_src, angle_tgt_matched,
+        _frame_match_launch(m, m, b, angle_src, angle_tgt_matched,
                             valid=valid, outs=(None,) * 5 + (keep,))
     return keep
 

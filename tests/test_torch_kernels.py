@@ -964,6 +964,64 @@ def test_match_select_planted(dev, case, batch):
                 _same_bits([x[b] for x in got], [x[0] for x in one])
 
 
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("case", chip_smoke.FRAME_PLANTED)
+def test_frame_match_select_planted(dev, case, batch):
+    """K26 on every problem of chip_smoke.py's planted cases
+    (FRAME_PLANTED) at B = 1 and 4: one launch a call, two launches equal
+    bits, every output written (a launch into outputs filled with NaN
+    gives the same bits), bit-equal to the plain version lane by lane,
+    and each lane of B = 4 bit-equal to its B = 1 launch."""
+    cfg = SystemConfig()
+    table = matching.level_inv_sigma2(cfg.orb.scale_factor,
+                                      cfg.orb.n_levels, dev)
+    for p in chip_smoke.planted_frame_lanes(case, batch):
+        fn, plain = chip_smoke.frame_call(p, dev, table)
+        got, n = _launched("frame_match_select", fn)
+        assert n == 1
+        assert chip_smoke.same_bits(got, fn())
+        with chip_smoke.poisoned_outputs(matching, "_out"):
+            assert chip_smoke.same_bits(got, fn())
+        for b, want in enumerate(plain()):
+            assert chip_smoke.same_bits([x[b] for x in got], want)
+            if batch > 1:
+                lane = {k: v[b:b + 1] if isinstance(v, np.ndarray) else v
+                        for k, v in p.items()}
+                one = chip_smoke.frame_call(lane, dev, table)[0]()
+                assert chip_smoke.same_bits([x[b] for x in got],
+                                            [x[0] for x in one])
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("case", chip_smoke.TAIL_PLANTED)
+def test_finish_step_planted(dev, case, batch):
+    """K31 on every problem of chip_smoke.py's planted cases
+    (TAIL_PLANTED) at B = 1 and 4: one launch a call, two launches equal
+    bits, every output written (a launch into outputs filled with NaN
+    gives the same bits), bit-equal to the plain version lane by lane (the
+    bundle as int32), and each lane of B = 4 bit-equal to its B = 1
+    launch."""
+    for c, t, _ in chip_smoke.planted_tail_lanes(case, SystemConfig(),
+                                                 batch):
+        tail = chip_smoke._tail_of(t, dev)
+        got, n = _launched("finish_step", device_tracker.finish_step, tail,
+                           c)
+        assert n == 1
+        assert chip_smoke.same_bits(got, device_tracker.finish_step(tail, c))
+        with chip_smoke.poisoned_outputs(device_tracker, "_empty"):
+            assert chip_smoke.same_bits(got,
+                                        device_tracker.finish_step(tail, c))
+        for b in range(batch):
+            lane = device_tracker.StepTail(*[x[b:b + 1] for x in tail])
+            want = device_tracker.finish_step_plain(
+                device_tracker.StepTail(*[x[0] for x in lane]), c)
+            _same_bits([x[b] for x in got], want)
+            if batch > 1:
+                one = device_tracker.finish_step(lane, c)
+                assert chip_smoke.same_bits([x[b] for x in got],
+                                            [x[0] for x in one])
+
+
 def test_matching_kernels(dev):
     """K24-K27 on frames 0 -> 1 of the 640x480 room at the default
     configuration's widths (chip_smoke.py's matching_kernel_parity states

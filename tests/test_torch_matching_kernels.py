@@ -22,7 +22,11 @@ from scipy.spatial.transform import Rotation
 from planarslam_tpu import config as jconfig
 from planarslam_tpu.geometry import se3 as jse3
 from planarslam_tpu.ops import matching as jmatch
-from chip_smoke import SELECT_PLANTED, planted_select_lanes
+from chip_smoke import (FILTER_KEYS, FRAME_KEYS, FRAME_PLANTED,
+                        SELECT_PLANTED, card_rotation_bins,
+                        planted_frame_lanes, planted_select_lanes,
+                        rotation_bin_edges)
+from planarslam_tpu_torch.ops import lax_compat
 from planarslam_tpu_torch.ops import matching as tmatch
 
 torch.set_num_threads(2)
@@ -376,11 +380,78 @@ def _frame_problem(rng, n, case):
             level.astype(np.int32))
 
 
-@pytest.mark.parametrize("n", [256, 1024])
-@pytest.mark.parametrize("case", ["projection", "brute_force", "tied_bins"])
+@jax.jit
+def _jax_bins(angle_src, angle_tgt):
+    """The rotation bins of planarslam_tpu/ops/matching.py:76-78."""
+    two_pi = 2.0 * jnp.pi
+    rot = jnp.mod(angle_src - angle_tgt, two_pi)
+    return jnp.clip((rot * 30 / two_pi).astype(jnp.int32), 0, 29)
+
+
+def _plain_bins(angle_src, angle_tgt):
+    """The rotation bins of the plain version (rotation_histogram_filter_
+    plain's two lines) on the CPU."""
+    two_pi = 2.0 * math.pi
+    rot = lax_compat.mod(_t(angle_src) - _t(angle_tgt), two_pi)
+    return torch.clamp((rot * 30 / two_pi).to(torch.int64), 0, 29).numpy()
+
+
+def _edge_rows(angle_src, angle_tgt, matched):
+    """Matched rows whose rotation JAX (its product with float32(30 / 2
+    pi) under jit) and the plain version on the CPU (PyTorch's division)
+    bin differently; each lies within 1e-4 of a bin of a bin edge."""
+    jb = np.asarray(_jax_bins(jnp.asarray(angle_src), jnp.asarray(angle_tgt)))
+    rows = matched & (jb != _plain_bins(angle_src, angle_tgt))
+    rot = np.mod(angle_src.astype(np.float64) - angle_tgt, 2 * math.pi)
+    scaled = rot * 30 / (2 * math.pi)
+    near = np.abs(scaled - np.round(scaled)) < 1e-4
+    assert not (rows & ~near).any()
+    return rows
+
+
+def _planted_frame_vs_jax(case):
+    """Every problem of a planted K26 case, four seeds: the plain version
+    equal to the jit of device_tracker.py:314-338 lane by lane, rows at a
+    bin edge where the two float forms bin differently (_edge_rows) left
+    out, and the wrapper's B = 4 equal to it; the kept matches as the case
+    plants them."""
+    sf = CONFIGS["full"].orb.scale_factor
+    table = tmatch.level_inv_sigma2(sf, 8, "cpu")
+    for p in planted_frame_lanes(case, 4):
+        got4 = tmatch.frame_match_select(*[_t(p[k]) for k in FRAME_KEYS],
+                                         table)
+        for b in range(4):
+            lane = [p[k][b] for k in FRAME_KEYS]
+            want = [np.asarray(a) for a in _jax_frame_select(
+                *[jnp.asarray(a) for a in lane], jnp.float32(sf))]
+            got = tmatch.frame_match_select_plain(*[_t(a) for a in lane],
+                                                  table)
+            for g4, g in zip(got4, got):
+                assert torch.equal(g4[b], g)
+            proj, bf, a_src, a_tgt = lane[:4]
+            ff = bf if (proj >= 0).sum() < 20 else proj
+            keep = ~_edge_rows(a_src, a_tgt[np.clip(ff, 0, len(a_tgt) - 1)],
+                               ff >= 0)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.numpy()[keep], w[keep])
+            if p["expect"] is not None:
+                assert (want[0] >= 0).sum() == p["expect"]
+                assert keep.all()
+
+
+@pytest.mark.parametrize(
+    "case,n", [(c, n) for c in ("projection", "brute_force", "tied_bins")
+               for n in (256, 1024)]
+    + [(c, None) for c in FRAME_PLANTED if c != "filter"])
 def test_frame_match_select_plain_vs_jax(case, n):
     """K26's plain version against a jit of device_tracker.py:314-338:
-    matches exact, the gathered uv, u_right and 1/sigma^2 bit-equal."""
+    matches exact, the gathered uv, u_right and 1/sigma^2 bit-equal; also
+    on chip_smoke.py's planted cases (FRAME_PLANTED, frame mode: rotations
+    of +0 and -0, just below 0, at the bin edges, ties, the 10% edge, few
+    bins, 19 and 20 projection matches, M = 1 and 33, N = 600)."""
+    if case in FRAME_PLANTED:
+        _planted_frame_vs_jax(case)
+        return
     sf = CONFIGS["full"].orb.scale_factor
     prob = _frame_problem(np.random.default_rng(n), n, case)
     want = [np.asarray(a) for a in _jax_frame_select(
@@ -395,6 +466,54 @@ def test_frame_match_select_plain_vs_jax(case, n):
     ff_in = prob[1] if case == "brute_force" else prob[0]
     kept, had = (want[0] >= 0).sum(), (ff_in >= 0).sum()
     assert 0.5 * had < kept < had  # the histogram dropped some, not most
+
+
+@pytest.mark.parametrize("k", range(4))
+def test_rotation_histogram_filter_plain_vs_jax(k):
+    """K26's filter mode, the plain version against planarslam_tpu/ops/
+    matching.py::rotation_histogram_filter under jit on chip_smoke.py's
+    planted filter problems (M = 1, 1024 with the bin edges, 4096 with
+    rotations just below 0, 5000), four seeds: the kept mask exact (rows
+    at a bin edge where the float forms differ left out, _edge_rows), the
+    wrapper's B = 4 equal lane by lane, the kept matches as planted."""
+    p = planted_frame_lanes("filter", 4)[k]
+    got4 = tmatch.rotation_histogram_filter(*[_t(p[key])
+                                              for key in FILTER_KEYS])
+    jfilter = jax.jit(jmatch.rotation_histogram_filter)
+    for b in range(4):
+        lane = [p[key][b] for key in FILTER_KEYS]
+        want = np.asarray(jfilter(*[jnp.asarray(a) for a in lane]))
+        got = tmatch.rotation_histogram_filter_plain(*[_t(a) for a in lane])
+        assert torch.equal(got4[b], got)
+        keep = ~_edge_rows(lane[0], lane[1], lane[2])
+        np.testing.assert_array_equal(got.numpy()[keep], want[keep])
+        if p["expect"] is not None:
+            assert want.sum() == p["expect"] and keep.all()
+        else:
+            assert 0 < want.sum() < lane[2].sum()
+
+
+def test_rotation_bin_float_forms():
+    """The bins of three float forms of rot * 30 / 2 pi: JAX under jit,
+    the plain version on the CPU and the card's (K26 and the plain version
+    there, chip_smoke.card_rotation_bins). Equal on 10^5 rotations at least
+    1e-4 of a bin from an edge; at every float32 k 2 pi / 30 and the float
+    either side (rotation_bin_edges) at most one bin apart."""
+    rng = np.random.default_rng(26)
+    rot = rng.uniform(0, 2 * math.pi, 100000).astype(np.float32)
+    scaled = rot.astype(np.float64) * 30 / (2 * math.pi)
+    rot = rot[np.abs(scaled - np.round(scaled)) > 1e-4]
+    zero = np.zeros_like(rot)
+    jb = np.asarray(_jax_bins(jnp.asarray(rot), jnp.asarray(zero)))
+    np.testing.assert_array_equal(_plain_bins(rot, zero), jb)
+    np.testing.assert_array_equal(card_rotation_bins(rot), jb)
+    edges = rotation_bin_edges()
+    zero = np.zeros_like(edges)
+    forms = [np.asarray(_jax_bins(jnp.asarray(edges), jnp.asarray(zero))),
+             _plain_bins(edges, zero), card_rotation_bins(edges)]
+    for x in forms:
+        for y in forms:
+            assert np.abs(x.astype(int) - y.astype(int)).max() <= 1
 
 
 # ---------------------------------------------------------------------------

@@ -356,14 +356,22 @@ INT_FIELDS = ("ff_idx", "win_idx", "pt_inlier", "win_found", "ln_win_idx",
               "ln_win_found", "pl_direct", "pl_par", "pl_ver", "pl_valid")
 
 
-@pytest.mark.parametrize("final_ok", [True, False])
-def test_finish_step_plain_vs_jax(final_ok):
-    """K31's plain version against the JAX tail: integer fields exact (the
-    visible flags away from MARGIN of the frustum's edges), the keyframe
-    counts and flags exact, floats atol 1e-5; the carried world points
-    atol 1e-5 m, their mask exact; the velocity atol 1e-5."""
-    jc, tc = jconfig.SystemConfig(), tconfig.SystemConfig()
-    t = _tail_problem(np.random.default_rng(31), tc, final_ok)
+def _small_jax_config(jc):
+    """The JAX configuration of chip_smoke._small_tail_config."""
+    return dataclasses.replace(
+        jc, orb=dataclasses.replace(jc.orb, max_keypoints=1000),
+        lines=dataclasses.replace(jc.lines, max_lines=60),
+        planes=dataclasses.replace(jc.planes, max_planes=13))
+
+
+def _tail_vs_jax(t, tc, jc):
+    """K31's plain version on one tail (a StepTail of numpy arrays) against
+    the JAX tail: integer fields exact (the visible flags away from MARGIN
+    of the frustum's edges), the keyframe counts and flags exact, floats
+    atol 1e-5, the final pose the one n_in2 picks, the carried world
+    points atol 1e-5 m and their mask exact, the velocity atol 1e-5.
+    Returns the plain version's outputs, its unpacked bundle, the JAX
+    bundle and, per visible flag, the rows compared."""
     want, pt3d_w, valid3d, vel, pc_w, uv_w, pc_l, uv_l = _jax_tail(t, jc)
     out = tdt.finish_step_plain(tdt.StepTail(*[_t(np.asarray(x))
                                                for x in t]), tc)
@@ -371,21 +379,82 @@ def test_finish_step_plain_vs_jax(final_ok):
     for name in INT_FIELDS + ("kf_stats", "flags"):
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
     w, h = tc.camera.width, tc.camera.height
+    kept = {}
     for name, pc, uv in (("win_visible", pc_w, uv_w),
                          ("ln_win_visible", pc_l, uv_l)):
-        keep = ~_near_view_edge(pc, uv, w, h)
-        assert keep.mean() > 0.99
-        np.testing.assert_array_equal(got[name][keep], want[name][keep])
-        assert 0.2 < want[name].mean() < 0.8, name
+        kept[name] = ~_near_view_edge(pc, uv, w, h)
+        np.testing.assert_array_equal(got[name][kept[name]],
+                                      want[name][kept[name]])
     for name in ("T_out", "R_cm", "pl_coeffs_w"):
         np.testing.assert_allclose(got[name], want[name], atol=1e-5,
                                    err_msg=name)
-    np.testing.assert_array_equal(got["T_out"], t.T_cand if final_ok
-                                  else t.T1)
+    final = t.n_in2 >= tc.tracking.min_matches_local_map // 2
+    np.testing.assert_array_equal(got["T_out"], t.T_cand if final else t.T1)
     np.testing.assert_array_equal(out.T_out.numpy(), got["T_out"])
     np.testing.assert_allclose(out.pt3d_w.numpy(), pt3d_w, atol=1e-5)
     np.testing.assert_array_equal(out.valid3d.numpy(), valid3d)
     np.testing.assert_allclose(out.velocity.numpy(), vel, atol=1e-5)
+    return out, got, want, kept
+
+
+def _small_jax_config(jc):
+    """The JAX configuration of chip_smoke._small_tail_config."""
+    return dataclasses.replace(
+        jc, orb=dataclasses.replace(jc.orb, max_keypoints=1000),
+        lines=dataclasses.replace(jc.lines, max_lines=60),
+        planes=dataclasses.replace(jc.planes, max_planes=13))
+
+
+def _planted_tail_vs_jax(case):
+    """Every problem of a planted K31 case, four seeds: _tail_vs_jax lane
+    by lane, the planted window rows' and line midpoints' flags exactly
+    chip_smoke.view_f32's (the float order of the plain version at the
+    frustum's edges), and the wrapper's B = 4 equal to it."""
+    jc, tc = jconfig.SystemConfig(), tconfig.SystemConfig()
+    for c, t, lane_plants in chip_smoke.planted_tail_lanes(case, tc, 4):
+        got4 = tdt.finish_step(tdt.StepTail(*[
+            _t(t[f]) for f in tdt.StepTail._fields]), c)
+        for b, plants in enumerate(lane_plants):
+            lane = tdt.StepTail(*[np.asarray(t[f][b])
+                                  for f in tdt.StepTail._fields])
+            out, got, _, _ = _tail_vs_jax(
+                lane, c, jc if c is tc else _small_jax_config(jc))
+            assert torch.equal(got4.packed[b].view(torch.int32),
+                               out.packed.view(torch.int32))
+            for f in out._fields[1:]:
+                assert torch.equal(getattr(got4, f)[b], getattr(out, f)), f
+            if "visible" in plants:
+                vis = chip_smoke.view_f32(lane.T_cand, lane.win_xyz[
+                    plants["rows"]], c.camera)[0]
+                np.testing.assert_array_equal(
+                    got["win_visible"][plants["rows"]], vis)
+                np.testing.assert_array_equal(
+                    got["ln_win_visible"][plants["lines"]], vis)
+            if "final" in plants:
+                assert bool(np.array_equal(got["T_out"], lane.T_cand)) \
+                    == plants["final"]
+
+
+@pytest.mark.parametrize("final_ok", [True, False,
+                                      *chip_smoke.TAIL_PLANTED])
+def test_finish_step_plain_vs_jax(final_ok):
+    """K31's plain version against the JAX tail (_tail_vs_jax states the
+    tolerances) on a random tail, the final pose kept and not; most rows
+    away from the frustum's edges, a share of each visible flag set, the
+    keyframe counts ordered. Also on chip_smoke.py's planted cases
+    (TAIL_PLANTED: the frustum's edges, NaN and infinite window
+    coordinates, planted depths, every feature tracked, none valid, n_in2
+    at min_inliers - 1 and min_inliers, K = 1000 with L = 60 and P =
+    13)."""
+    if not isinstance(final_ok, bool):
+        _planted_tail_vs_jax(final_ok)
+        return
+    jc, tc = jconfig.SystemConfig(), tconfig.SystemConfig()
+    t = _tail_problem(np.random.default_rng(31), tc, final_ok)
+    _, got, want, kept = _tail_vs_jax(t, tc, jc)
+    for name in ("win_visible", "ln_win_visible"):
+        assert kept[name].mean() > 0.99
+        assert 0.2 < want[name].mean() < 0.8, name
     assert 0 < got["kf_stats"][0] < got["kf_stats"][2]
 
 

@@ -2,8 +2,9 @@
 """Time the phases inside K1 (fast_score), K3 (gated_hamming_top2), K12
 (plane_components), K13 (plane_assign_refit), K15 (manhattan_mean_shift),
 K16 (pyramid_resize), K17 (gaussian_blur), K18 (select_keypoints), K22
-(lift_lines_3d), K23 (search_lines_by_projection), K25 (match_select), K28
-(noise_alpha), K29 (frame_normals) and K30 (associate_planes) on a GPU.
+(lift_lines_3d), K23 (search_lines_by_projection), K25 (match_select), K26
+(frame_match_select), K28 (noise_alpha), K29 (frame_normals), K30
+(associate_planes) and K31 (finish_step) on a GPU.
 
     python3 tools/kernel_phases.py
 
@@ -11,7 +12,8 @@ Copies csrc/fast_score.cu, csrc/hamming_top2.cu, csrc/plane_segment.cu
 (twice: K12, K13), csrc/manhattan.cu, csrc/line_lift_search.cu,
 csrc/pyramid.cu (twice: K16, K17), csrc/select_keypoints.cu,
 csrc/step_tail.cu, csrc/depth_normals.cu (twice: K28, K29), the K22 part
-of csrc/line_lift_search.cu and csrc/matching.cu (K25) into
+of csrc/line_lift_search.cu, csrc/matching.cu (K25, K26) and
+csrc/step_tail.cu (K31) into
 build/kernel_phases/, inserts clock64 (and, in
 K1, K3, K13, K17, K18, K23, K28 and K29, %globaltimer) reads at the
 phase comments the sources carry,
@@ -77,7 +79,17 @@ of the built ones:
 - K25 on chip_smoke.py's `match_select_problems` (one tracking step's
   frame search, window search and match_descriptors, the window search
   at B = 4): per block, a problem, the cycles of the row loads' issue, the
-  tests, the resolution pass and the stores.
+  tests, the resolution pass and the stores;
+- K26 on chip_smoke.py's `frame_match_problems` (one tracking step's
+  launch, the brute-force fallback, B = 4, the first planted bin-edge
+  problem): per block, a problem, the cycles of the load round's issue,
+  the count, the brute-force gathers, the histogram, the pick and the
+  stores;
+- K31 on chip_smoke.py's `finish_step_problems` (path 1's 48th step,
+  steps 45-48 at B = 4, a random tail): per block the cycles of the load
+  round with the pose's staging, the items, the counts and their stores
+  in block 0 (the features' block; the others return after their items),
+  the blocks' start skew and the launch's span.
 Prints one JSON object with the card's name and power limit. The marks
 move where the code between them runs, not what it computes.
 """
@@ -283,6 +295,40 @@ K25_ANCHORS = (
     ("  // the stores: each row once", 3, True),
     ("      a.dist_out[base + i] = d[r];\n    }\n  }\n}\n", 4, "end"))
 K25_PHASES = ("row_loads", "tests", "resolution", "stores")
+# K26: marks 0-6 per block, a problem (thread 0's): the load round's issue,
+# the count (the projection matches' wait and its barriers), the
+# brute-force gathers where they are taken, the histogram (the gathers'
+# wait, the bins and the warp-aggregated atomics, with its barrier), the
+# pick (each warp's), the stores; frame mode only
+K26_ANCHORS = (
+    ("  // the load round: row 0's gathers (a dropped match's) and the "
+     "per-level", 0, True),
+    ("  // the count: use_bf = count(proj_idx >= 0) < kMinProj, the same in",
+     1, True),
+    ("    // the gathers: the brute-force matches' where they are taken", 2,
+     True),
+    ("  // the histogram: each row's bin computed once, warp-aggregated", 3,
+     True),
+    ("  // the pick: every warp alike (no barrier after it), three "
+     "reductions of", 4, True),
+    ("  // the stores, from registers", 5, True),
+    ("      frame_store(a, table, bm + i, x, keep, u0, v0, level0);\n    }\n"
+     "  }\n}\n", 6, "end"))
+K26_PHASES = ("loads", "count", "gathers", "histogram", "pick", "stores")
+# K31: marks 0-4 per block (thread 0's): the load round's issue with the
+# pose's staging and its barrier, the items (their wait, outputs and
+# stores), the counts (warp reductions, a barrier, warp 0 over the warps'
+# sums) and their stores; the last two in block 0 alone, the one whose
+# marks all move (the others return after their items)
+K31_ANCHORS = (
+    ("  // the load round: this thread's first item, and in warp 0 both", 0,
+     True),
+    ("  // the items\n", 1, True),
+    ("  // the counts: block 0's alone (the other blocks are done), per "
+     "warp,", 2, True),
+    ("  // the stores: block 0's keyframe counts, lane k the k-th", 3, True),
+    ("        static_cast<float>(n);\n  }\n}\n", 4, "end"))
+K31_PHASES = ("loads", "items", "counts", "stores")
 READ = ('\nextern "C" int psl_phase_read(void* out, int bytes) {\n'
         '  return static_cast<int>(cudaMemcpyFromSymbol(out, psl_phase, '
         'bytes));\n}\n')
@@ -463,6 +509,26 @@ def _k25_source(kernels) -> str:
     src = src.replace("namespace {\n", f"__device__ long long psl_phase"
                       f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
     for anchor, k, where in K25_ANCHORS:
+        src = _mark(src, anchor, BLOCK_MARK.format(k=k), where)
+    return src + READ
+
+
+def _k26_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "matching.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", f"__device__ long long psl_phase"
+                      f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
+    for anchor, k, where in K26_ANCHORS:
+        src = _mark(src, anchor, BLOCK_MARK.format(k=k), where)
+    return src + READ
+
+
+def _k31_source(kernels) -> str:
+    with open(os.path.join(kernels.CSRC, "step_tail.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {\n", f"__device__ long long psl_phase"
+                      f"[{BLOCK_ROWS}][16];\nnamespace {{\n", 1)
+    for anchor, k, where in K31_ANCHORS:
         src = _mark(src, anchor, BLOCK_MARK.format(k=k), where)
     return src + READ
 
@@ -676,6 +742,10 @@ def main() -> int:
                  kernels.SOURCE_FLAGS["line_lift_search.cu"])
     k25 = _build(kernels, "matching", _k25_source(kernels),
                  kernels.SOURCE_FLAGS["matching.cu"])
+    k26 = _build(kernels, "matching_k26", _k26_source(kernels),
+                 kernels.SOURCE_FLAGS["matching.cu"])
+    k31 = _build(kernels, "step_tail_k31", _k31_source(kernels),
+                 kernels.SOURCE_FLAGS["step_tail.cu"])
     entries = {"psl_gated_hamming_top2": k3, "psl_mutual_hamming_top2": k3,
                "psl_plane_components": k12, "psl_manhattan_mean_shift": k15,
                "psl_frame_normals": k29, "psl_noise_alpha": k28,
@@ -683,7 +753,8 @@ def main() -> int:
                "psl_search_lines": k23, "psl_gaussian_blur": k17,
                "psl_select_keypoints": k18, "psl_pyramid_build": k16,
                "psl_associate_planes": k30, "psl_lift_lines_3d": k22,
-               "psl_match_select": k25}
+               "psl_match_select": k25, "psl_frame_match_select": k26,
+               "psl_finish_step": k31}
     for name, lib in entries.items():
         getattr(lib, name).argtypes = kernels._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
@@ -691,7 +762,7 @@ def main() -> int:
         "psl_search_lines_scratch_words"]
     k23.psl_search_lines_scratch_words.restype = ctypes.c_longlong
     for lib in (k3, k12, k15, k29, k28, k13, k1, k23, k17, k18, k16, k30,
-                k22, k25):
+                k22, k25, k26, k31):
         lib.psl_phase_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     cfg = SystemConfig()
     seq = synthetic.make_sequence(smoke.TRACKING_FRAMES,
@@ -800,6 +871,16 @@ def main() -> int:
         name: _block_marks(k25, fn, K25_PHASES)
         for name, fn in smoke.match_select_problems(seq, cfg, dev).items()
         if name in ("frame", "window", "descriptors", "window_b4")}
+    kernels._lib = _Swap(real, k26, {"psl_frame_match_select"})
+    out["frame_match_select"] = {
+        name: _block_marks(k26, fn, K26_PHASES)
+        for name, fn in smoke.frame_match_problems(seq, cfg, dev).items()
+        if name in ("projection", "brute_force", "b4", "bin_edges_0")}
+    kernels._lib = _Swap(real, k31, {"psl_finish_step"})
+    out["finish_step"] = {
+        name: _block_marks(k31, fn, K31_PHASES)
+        for name, fn in smoke.finish_step_problems(seq, cfg, dev).items()
+        if name in (f"step{smoke.ASSOC_STEP}", "b4", "random_final_True")}
     kernels._lib = real
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
                              "--format=csv,noheader"], capture_output=True,

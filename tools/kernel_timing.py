@@ -3,8 +3,9 @@
 K12 (plane_components), K13 (plane_assign_refit), K15
 (manhattan_mean_shift), K16 (pyramid_resize), K17 (gaussian_blur), K18
 (select_keypoints), K20 (detect_lines), K22 (lift_lines_3d), K23
-(search_lines_by_projection), K25 (match_select), K28 (noise_alpha), K29
-(frame_normals) and K30 (associate_planes) of one tree of the port on a
+(search_lines_by_projection), K25 (match_select), K26
+(frame_match_select), K28 (noise_alpha), K29 (frame_normals), K30
+(associate_planes) and K31 (finish_step) of one tree of the port on a
 GPU, so that two trees can be compared in one run.
 
     python3 tools/kernel_timing.py [--root DIR] [--only NAME,...]
@@ -49,8 +50,16 @@ frames (`lift_stats`); K25 on the three launches of one tracking step on
 `hamming_step_problems`' K3 outputs (the frame search, the window search,
 match_descriptors), the window search at B = 4 and every planted
 SELECT_PLANTED problem alone and at B = 4 (`match_select_problems`), with
-its device time per tracking step. K1, K3, K12, K13, K15, K16, K17, K18,
-K22, K23, K25, K28, K29 and K30 are timed by `kernel_timing_entry`.
+its device time per tracking step; K26 on one tracking step's launch (the
+frame search's matches through K25, match_descriptors' as the brute-force
+ones), the same with the projection matches cut to 10, the filter mode,
+the step's problem four times in one launch and every planted
+FRAME_PLANTED problem alone and (frame mode) at B = 4
+(`frame_match_problems`); K31 on path 1's 48th tracking step, steps 45-48
+in one launch, the two random tails and every planted TAIL_PLANTED problem
+alone and at B = 4 (`finish_step_problems`). K1, K3, K12, K13, K15, K16,
+K17, K18, K22, K23, K25, K26, K28, K29, K30 and K31 are timed by
+`kernel_timing_entry`.
 --only times the named kernels alone (their keys in the output, e.g.
 `lift_lines_3d,match_select`). Prints one JSON
 object with the card's name and power limit, those times and a hash of
@@ -165,7 +174,10 @@ def main(argv=None) -> int:
             ("search_lines_by_projection", smoke.line_search_problems,
              "lines_search"),
             ("pyramid_resize", smoke.pyramid_problems, "pyramid_"),
-            ("lift_lines_3d", smoke.lift_problems, "lines_lift")):
+            ("lift_lines_3d", smoke.lift_problems, "lines_lift"),
+            ("frame_match_select", smoke.frame_match_problems,
+             "frame_matches"),
+            ("finish_step", smoke.finish_step_problems, "finish_step")):
         if wanted(key):
             out[key] = {name: {"hash": _digest(fn()),
                                **smoke.kernel_timing_entry(fn, match)}
