@@ -76,7 +76,22 @@ Phases, each fatal on failure:
      P = 13; B = 1 and 4 lane by lane, outputs filled with NaN), and both
      again on the inputs of path 1's 48th tracking step;
      K36 (the step's prelude) bit-equal to its plain version on the
-     inputs of path 1's 48th tracking step and on four planted lanes; the
+     inputs of path 1's 48th tracking step and on four planted lanes;
+     K37 (the step's sensor decode and window casts) bit-equal to its
+     plain version on path 1's frame 0, a frame holding every depth value,
+     643x481, 1280x960 and 64x48 frames, frames 0-3 at B = 4 lane by lane,
+     planted windows (flags 0, 0.5, the float above 0.5, 1 and NaN, cloud
+     counts 0, 1 and 128), the unpacked entry and float frames, into
+     outputs filled with NaN; K38 (the carried-state lift) on path 1's
+     48th step against its plain version and K31's new_state at B = 1 and
+     4; K39 (the Manhattan seed) on path 1's first frame and planted
+     direction sets (no valid plane, ties, no perpendicular candidate, a
+     lone line; B = 4), R_seed within 1e-6, ok, the picks and the
+     direction set exact; K26's bins of the 270 edge values and of
+     denormal rotations equal to JAX's (JAX_EDGE_BINS); the packed fuse
+     set against the per-target loop on path 2's map (0-5 targets, a set
+     above capacity) and path 2's mapping steps bit-equal to the same
+     steps run per target; the
      batch of K1, K3, K4, K11, K12-K14, K15 (with its initial-pose
      epilogue), K16, K23 and K28 on four lanes in one launch each, every lane
      bit-equal to its own B = 1 launch and held to its plain version as
@@ -121,8 +136,9 @@ Phases, each fatal on failure:
  11. host-to-device copies: a tracking-only System warms up, then 32 tracked
      frames run under one torch.profiler session, each in a span of its
      own, and their "Memcpy HtoD" events are counted per span: one per
-     frame (the packed sensor frame) and one per refresh of the local-map
-     window, no constant among them; then 24 batched steps of four
+     frame (the packed sensor frame), one per refresh of the local-map
+     window and one per keyframe's packed fuse set, no constant among
+     them, every frame held; then 24 batched steps of four
      tracking-only lanes: two per step (the stacked frames, the small
      parameters) plus one per lane window upload.
 Each path runs with the launch counts set to 0 just before it and read just
@@ -142,13 +158,17 @@ directions in one launch), one K25 per
 either call, one K26 per tracking step and per rotation_histogram_filter
 call and two K27 per tracking step (inside each tracking step K24 2, K3
 3, K25 3, K26 1, K27 2, K30 1, K31 1, K11 2, K15 1, K36 1, whatever the
-step's batch of lanes), one K28 and one K29 per extract_frame call, one K32 per refine_relative_se3 call, per LM step of
+step's batch of lanes), one K37 per tracking step, one K38 per
+_state_from call, one K39 per initialization, inside each fuse set one
+K24, K3 and K25 and inside each mapping step one K24, two K3, two K25
+and one K5 (whatever the targets), one K28 and one K29 per extract_frame
+call, one K32 per refine_relative_se3 call, per LM step of
 ba_solve and ba_solve_pcg one K33 launch (the mu_p pass) and one more
 with plane tables and one K34, per dense step one K35, one K34 per solve
-(its tables mode); no plain line, matching, noise, normal, plane
-association, step-tail, prelude, plane, Manhattan, pose, refinement,
-plane-block, cost-test or reduced-system function may see a tensor on the
-card. The line before the
+(its tables mode); no plain decode, line, matching, noise, normal, plane
+association, step-tail, prelude, lift, seed, plane, Manhattan, pose,
+refinement, plane-block, cost-test or reduced-system function may see a
+tensor on the card. The line before the
 last is a JSON object with one entry per kernel (its time and its plain
 version's, the least time the card could take for the same bytes and
 operations, and a PyTorch call's time where one computes the same
@@ -2811,17 +2831,68 @@ def rotation_bin_edges() -> np.ndarray:
     return r[(r >= 0) & (r < f(TWO_PI))]
 
 
+def rotation_edge_values() -> np.ndarray:
+    """The 270 float32 rotations of rotation_bin_edges() as they are, less
+    float32 2 pi (through jnp.mod's shift of a negative remainder) and
+    plus it (through its remainder)."""
+    f = np.float32
+    e = rotation_bin_edges()
+    return np.concatenate([e, (e - f(TWO_PI)).astype(f),
+                           (e + f(TWO_PI)).astype(f)])
+
+
+# JAX's jitted bins of rotation_edge_values() (planarslam_tpu/ops/
+# matching.py::rotation_histogram_filter on the CPU), recorded and held by
+# tests/test_torch_matching_kernels.py::test_rotation_bin_float_forms
+JAX_EDGE_BINS = tuple(int(x) for x in (
+    "0,0,0,1,1,1,2,2,2,3,3,3,4,4,4,5,5,5,6,6,6,7,7,7,8,8,8,9,9,9,10,10,10,"
+    "11,11,11,12,12,12,13,13,13,14,14,14,15,15,15,16,16,16,17,17,17,18,18,"
+    "18,19,19,19,20,20,20,20,21,21,22,22,22,22,23,23,24,24,24,24,25,25,26,"
+    "26,26,26,27,27,28,28,28,28,29,29,0,0,0,1,1,2,2,2,2,2,3,4,4,4,4,5,5,6,"
+    "6,6,6,6,7,8,8,8,8,9,9,10,10,10,10,11,11,11,12,12,12,13,13,13,14,14,14,"
+    "15,15,15,16,16,16,17,17,17,18,18,18,19,19,19,20,20,20,20,21,21,22,22,"
+    "22,22,23,23,24,24,24,24,25,25,26,26,26,26,27,27,28,28,28,28,29,29,0,0,"
+    "0,1,1,2,2,2,2,2,3,4,4,4,4,5,5,6,6,6,6,6,7,8,8,8,9,9,9,10,10,10,10,10,"
+    "11,11,11,12,13,13,13,14,14,14,14,14,14,15,16,16,16,17,17,18,18,18,18,"
+    "18,19,19,19,20,20,21,21,21,22,22,22,22,22,23,24,24,24,24,25,26,26,26,"
+    "26,26,27,27,27,28,28,29,29,29").split(","))
+# denormal rotations: JAX on the CPU flushes them to 0, bin 0
+DENORMAL_ROTATIONS = np.array([-1e-40, 1e-40, -1e-45], np.float32)
+
+
 def card_rotation_bins(rot) -> np.ndarray:
-    """The bins K26 and its plain version on the card give float32
-    rotations in [0, 2 pi) (or just below 0): jnp.mod, then rot * 30 times
-    float32(1 / 2 pi), clamped (numpy float32, one rounding an
-    operation)."""
+    """The bins K26 and its plain version give float32 rotations (numpy
+    float32, one rounding an operation): a denormal taken as 0, jnp.mod,
+    then one product with float32(30) / float32(2 pi), the form of JAX's
+    jitted rot * 30 / 2 pi, truncated and clamped."""
     f = np.float32
     rot = np.asarray(rot, f)
+    rot = np.where(np.abs(rot) < np.finfo(f).tiny, f(0), rot)
     r = np.fmod(rot, f(TWO_PI))
     r = np.where((r != 0) & (r < 0), (r + f(TWO_PI)).astype(f), r)
-    scaled = (r.astype(f) * f(30)).astype(f) * (f(1) / f(TWO_PI))
+    scaled = r.astype(f) * (f(30) / f(TWO_PI))
     return np.clip(scaled.astype(np.int64), 0, 29)
+
+
+def edge_bin_probe(values, bins) -> dict:
+    """K26 filter-mode problems that read the bin of each rotation in
+    `values` and hold it to `bins`: per value two lanes of 31 rows, the
+    value's row and 10 rows at the centre of each of three bins, (e, e + 1,
+    e + 2) and (e, e - 1, e - 2) modulo 30 for the expected bin e. The
+    value's row is kept in both lanes exactly when its bin is e. Returns
+    the stacked filter inputs (2 V lanes) and which lanes hold e + 1."""
+    f = np.float32
+    values = np.asarray(values, f)
+    n = len(values)
+    a_src = np.zeros((2 * n, 31), f)
+    for i, (v, e) in enumerate(zip(values, bins)):
+        for side, sign in ((0, 1), (1, -1)):
+            lane = a_src[2 * i + side]
+            lane[0] = v
+            fill = [(e + sign * k) % 30 for k in range(3)]
+            lane[1:] = np.repeat([(k + 0.5) * TWO_PI / 30 for k in fill], 10)
+    return {"angle_src": a_src, "angle_tgt": np.zeros_like(a_src),
+            "valid": np.ones(a_src.shape, bool)}
 
 
 def card_keep_reference(angle_src, angle_tgt, valid) -> np.ndarray:
@@ -2931,6 +3002,11 @@ def planted_frame_problem(case: str, seed: int = 26) -> list:
                ("exact", np.repeat(edges, 2))], rand)
         frame([("bin", 14, 300), ("bin", 15, 100), ("bin", 16, 40),
                ("exact", np.repeat(edges, 3))], rand[:1])
+        # the 270 edge values (through jnp.mod's shift and remainder) and
+        # the denormal rotations
+        frame([("bin", 3, 450), ("bin", 19, 60), ("bin", 26, 50),
+               ("exact", np.concatenate([rotation_edge_values(),
+                                         DENORMAL_ROTATIONS]))], rand[:1])
     elif case == "ties":
         frame([("bin", 7, 80), ("bin", 3, 80), ("bin", 12, 30),
                ("bin", 25, 30), ("bin", 28, 30)], rand, expect=190)
@@ -2974,6 +3050,10 @@ def planted_frame_problem(case: str, seed: int = 26) -> list:
               ("exact", np.repeat(-BELOW_ZERO, 10))], 4096, expect=2500)
         filt([("bin", 10, 3000), ("bin", 11, 300), ("bin", 12, 299),
               ("bin", 13, 299)], 5000, expect=3300)
+        # the 270 edge values and the denormal rotations
+        filt([("bin", 3, 450), ("bin", 19, 60), ("bin", 26, 50),
+              ("exact", np.concatenate([rotation_edge_values(),
+                                        DENORMAL_ROTATIONS]))], 1024)
     return out
 
 
@@ -3087,6 +3167,44 @@ def frame_planted_parity(dev, table) -> dict:
            and all(min(r["kept"]) > 400 for r in out["bin_edges"]),
            f"frame_match_select: the planted cases do not exercise it: {out}")
     return out
+
+
+def edge_bin_parity(dev) -> dict:
+    """The bins of the 270 edge values (rotation_edge_values) and the
+    denormal rotations on the card equal JAX's (JAX_EDGE_BINS, 0 for a
+    denormal): the plain version's (matching.rotation_bins) directly, K26's
+    through its filter mode (edge_bin_probe: every value's row kept in both
+    of its lanes, one launch for all of them), which also holds K26's kept
+    rows to its plain version's."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.ops import matching as mt
+
+    values = np.concatenate([rotation_edge_values(), DENORMAL_ROTATIONS])
+    want = np.array(JAX_EDGE_BINS + (0,) * len(DENORMAL_ROTATIONS))
+    v = torch.from_numpy(values).to(dev)
+    plain = mt.rotation_bins(v, torch.zeros_like(v)).cpu().numpy()
+    _check(np.array_equal(plain, want), f"rotation_bins on the card differ "
+           f"from JAX's at {np.flatnonzero(plain != want).tolist()}")
+    _check(np.array_equal(card_rotation_bins(values), want),
+           "card_rotation_bins differs from JAX's bins")
+    probe = edge_bin_probe(values, want)
+    args = [torch.from_numpy(probe[k]).to(dev) for k in FILTER_KEYS]
+    n0 = kernels.LAUNCHES["frame_match_select"]
+    keep = mt.rotation_histogram_filter(*args)
+    _check(kernels.LAUNCHES["frame_match_select"] == n0 + 1,
+           "rotation bins: the probe was not one K26 launch")
+    lanes = [mt.rotation_histogram_filter_plain(*[a[b] for a in args])
+             for b in range(args[0].shape[0])]
+    _check(same_bits([keep], [torch.stack(lanes)]),
+           "rotation bins: K26's probe differs from its plain version")
+    row0 = keep[:, 0].view(-1, 2).all(dim=1).cpu().numpy()
+    _check(bool(row0.all()), f"rotation bins: K26 bins values "
+           f"{values[~row0].tolist()} off JAX's bins")
+    return {"values": int(len(values)), "lanes": int(args[0].shape[0]),
+            "k26_equal_jax": int(row0.sum()),
+            "plain_equal_jax": int((plain == want).sum())}
 
 
 def match_select_problems(seq, cfg, dev) -> dict:
@@ -3368,6 +3486,8 @@ def matching_kernel_parity(seq, cfg, dev) -> list:
     fplanted = frame_planted_parity(dev, table)
     print(f"matching_kernel_parity frame_match_select planted: "
           f"{json.dumps(fplanted)}", flush=True)
+    print(f"matching_kernel_parity rotation bins: "
+          f"{json.dumps(edge_bin_parity(dev))}", flush=True)
     args = fm["projection"]["args"]
     got = fm["projection"]["out"]
     ff = got.ff_idx[0]
@@ -5565,7 +5685,14 @@ PLAIN_MATCHING_FUNCTIONS = ("gated_hamming_top2_plain",
                             "frame_match_select_plain",
                             "assemble_point_obs_plain",
                             "assemble_line_obs_plain")
-PLAIN_TAIL_FUNCTIONS = (("planes", "noise_alpha_plain"),
+PLAIN_TAIL_FUNCTIONS = (("device_tracker", "decode_step_inputs_plain"),
+                        ("device_tracker", "unpack_frame"),
+                        ("device_tracker", "to_gray_depth"),
+                        ("device_tracker", "unpack_window"),
+                        ("device_tracker", "lift_state_plain"),
+                        ("manhattan", "seed_manhattan_plain"),
+                        ("manhattan", "seed_from_plane_normals"),
+                        ("planes", "noise_alpha_plain"),
                         ("planes", "frame_normals_plain"),
                         ("device_tracker", "_associate_planes_plain"),
                         ("device_tracker", "finish_step_plain"),
@@ -5611,7 +5738,16 @@ COUNTED_CALLS = (
     ("ba_core", "ba_cost_test", "cost_test_calls"),
     ("ba_pcg", "ba_cost_test", "cost_test_calls"),
     ("ba_core", "ba_chi2_tables", "chi2_table_calls"),
-    ("ba_core", "ba_reduced_system", "reduced_system_calls"))
+    ("ba_core", "ba_reduced_system", "reduced_system_calls"),
+    ("device_tracker", "_state_from", "state_from_calls"),
+    ("manhattan", "seed_manhattan", "seed_calls"),
+    ("device_mapper", "run_fuse_set", "fuse_set_calls"),
+    ("device_mapper", "_mapping_step_impl", "mapping_step_calls"))
+# the launches inside each call of a counted function (per call)
+FUSE_SET_LAUNCHES = {"project_landmarks": 1, "gated_hamming_top2": 1,
+                     "match_select": 1}
+MAPPING_STEP_LAUNCHES = {"project_landmarks": 1, "gated_hamming_top2": 2,
+                         "match_select": 2, "triangulate_two_view": 1}
 
 
 def _on_card(obj) -> bool:
@@ -5649,7 +5785,8 @@ def _pose_calls(capture=()):
 
     from planarslam_tpu_torch import kernels
     from planarslam_tpu_torch.ops import lines, manhattan, matching, planes
-    from planarslam_tpu_torch.slam import device_tracker, frame, tracking
+    from planarslam_tpu_torch.slam import (device_mapper, device_tracker,
+                                           frame, tracking)
     from planarslam_tpu_torch.solvers import (ba_core, ba_pcg, global_ba,
                                               pose_opt, sim3_solver)
 
@@ -5657,11 +5794,16 @@ def _pose_calls(capture=()):
                "manhattan": manhattan, "frame": frame, "lines": lines,
                "device_tracker": device_tracker, "matching": matching,
                "tracking": tracking, "sim3_solver": sim3_solver,
-               "ba_core": ba_core, "ba_pcg": ba_pcg, "global_ba": global_ba}
+               "ba_core": ba_core, "ba_pcg": ba_pcg, "global_ba": global_ba,
+               "device_mapper": device_mapper}
     rec = {key: 0 for _, _, key in COUNTED_CALLS}
+    inner = {"track_core_calls": ("step_launches", STEP_LAUNCHES),
+             "fuse_set_calls": ("fuse_set_launches", FUSE_SET_LAUNCHES),
+             "mapping_step_calls": ("mapping_step_launches",
+                                    MAPPING_STEP_LAUNCHES)}
     rec.update(inputs={}, plain_calls_on_card=0, plane_block_with_planes=0,
                search_launches=0,
-               step_launches=dict.fromkeys(STEP_LAUNCHES, 0))
+               **{k: dict.fromkeys(kern, 0) for k, kern in inner.values()})
     orig = [(modules[mod], attr, getattr(modules[mod], attr))
             for mod, attr, _ in COUNTED_CALLS]
     plain = [(mod, name, getattr(mod, name))
@@ -5679,12 +5821,13 @@ def _pose_calls(capture=()):
             if key == "search_calls":  # K23's launches at this call's M
                 rec["search_launches"] += lines.search_launches(
                     args[0].shape[-2])
-            if key != "track_core_calls":
+            if key not in inner:
                 return fn(*args, **kw)
+            field, kern = inner[key]
             before = dict(kernels.LAUNCHES)
             out = fn(*args, **kw)
-            for k in STEP_LAUNCHES:
-                rec["step_launches"][k] += kernels.LAUNCHES[k] - before[k]
+            for k in kern:
+                rec[field][k] += kernels.LAUNCHES[k] - before[k]
             return out
         return counted
 
@@ -5787,7 +5930,9 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
             "noise_alpha": rec["frame_calls"],
             "frame_normals": rec["frame_calls"],
             "associate_planes": steps, "finish_step": steps,
-            "step_prelude": steps,
+            "step_prelude": steps, "decode_step_inputs": steps,
+            "lift_state": rec["state_from_calls"],
+            "seed_manhattan": rec["seed_calls"],
             "refine_relative": rec["refine_calls"],
             "ba_plane_blocks": rec["plane_block_calls"]
                                + rec["plane_block_with_planes"],
@@ -5805,10 +5950,16 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
     for kernel, n in want.items():
         _check(launches[kernel] == n, f"{name}: {launches[kernel]} {kernel} "
                f"launches, expected {n} ({_call_counts(rec)})")
-    per_step = {k: n * steps for k, n in STEP_LAUNCHES.items()}
-    _check(rec["step_launches"] == per_step,
-           f"{name}: {rec['step_launches']} counted launches in {steps} "
-           f"tracking steps, expected {per_step}")
+    for field, key, kern, what in (
+            ("step_launches", "track_core_calls", STEP_LAUNCHES,
+             "tracking steps"),
+            ("fuse_set_launches", "fuse_set_calls", FUSE_SET_LAUNCHES,
+             "fuse sets"),
+            ("mapping_step_launches", "mapping_step_calls",
+             MAPPING_STEP_LAUNCHES, "mapping steps")):
+        per = {k: n * rec[key] for k, n in kern.items()}
+        _check(rec[field] == per, f"{name}: {rec[field]} counted launches "
+               f"in {rec[key]} {what}, expected {per}")
     _check(rec["plain_calls_on_card"] == 0,
            f"{name}: {rec['plain_calls_on_card']} plain line, matching, "
            f"noise, normal, association, tail, refinement, plane-block, "
@@ -5827,6 +5978,8 @@ def _call_counts(rec: dict) -> dict:
            for _, attr, key in COUNTED_CALLS}
     out["ba_plane_blocks_with_planes"] = rec["plane_block_with_planes"]
     out["launches_in_tracking_steps"] = rec["step_launches"]
+    out["launches_in_fuse_sets"] = rec["fuse_set_launches"]
+    out["launches_in_mapping_steps"] = rec["mapping_step_launches"]
     return out
 
 
@@ -6739,7 +6892,11 @@ def run_ba_scale_path(dev) -> dict:
            "path4c: the dense solve launched no K35")
     _check_pose_launches("path4c (BA alone)", res["launches"],
                          dict(calls, step_launches=dict.fromkeys(
-                             STEP_LAUNCHES, 0)))
+                             STEP_LAUNCHES, 0),
+                             fuse_set_launches=dict.fromkeys(
+                                 FUSE_SET_LAUNCHES, 0),
+                             mapping_step_launches=dict.fromkeys(
+                                 MAPPING_STEP_LAUNCHES, 0)))
     return res
 
 
@@ -6801,6 +6958,7 @@ def run_tracking_path(name, seq, frames, cfg, dev, local_mapping: bool,
     print(f"{name} " + json.dumps(res), flush=True)
     _check_pose_launches(name, launches, pc, cfg, n_frames)
     res["captured"] = pc["inputs"]
+    res["map"] = m
     _check(ate < ATE_LIMIT_M, f"{name}: ATE {ate:.5f} m >= {ATE_LIMIT_M} m")
     _check(res["lost"] == 0, f"{name}: {res['lost']} lost frames")
     if slam.local_mapper is not None:
@@ -6981,16 +7139,17 @@ def run_h2d_copies(seq, frames, cfg, dev) -> dict:
     allowed
     copies of a tracked frame, each named: the packed sensor frame (gray and
     depth in one pinned upload) and, in a frame that follows a change of the
-    map, the packed local-map window. No constant is among them: level
-    tables travel as launch arguments, and every table or number a stage
-    needs is cached on the card at its first use. A frame in which a
-    keyframe is decided or materialized also uploads that keyframe's fuse
-    set: it is reported with the host ops that asked for its copies and is
-    not held; at least half of the frames must be held, and one of them
-    must refresh the window."""
+    map, the packed local-map window, and in a frame that makes a
+    keyframe its packed fuse set (one pinned upload, run_fuse_set). No
+    constant is among them: level tables travel as launch arguments, and
+    every table or number a stage needs is cached on the card at its first
+    use. Every frame is held to 1 + its refreshes + its fuse sets; a
+    keyframe's frame is also reported with the host ops that asked for its
+    copies; one frame must refresh the window and one make a fuse set."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from planarslam_tpu_torch.slam import device_mapper as dm
     from planarslam_tpu_torch.slam.system import System
 
     slam = System(config=cfg, enable_local_mapping=False,
@@ -6998,12 +7157,12 @@ def run_h2d_copies(seq, frames, cfg, dev) -> dict:
     for i in range(H2D_WARMUP_FRAMES):
         slam.track_rgbd(*frames[i], seq.timestamps[i])
     tr = slam.tracker
-    seen = {"refresh": 0, "keyframe": 0}
+    seen = {"refresh": 0, "keyframe": 0, "fuse_set": 0}
 
     def counting(name, fn):
         def wrapped(*a, **kw):
             out = fn(*a, **kw)
-            if name == "refresh" or out is not False:
+            if name != "keyframe" or out is not False:
                 seen[name] += 1
             return out
         return wrapped
@@ -7011,20 +7170,26 @@ def run_h2d_copies(seq, frames, cfg, dev) -> dict:
     tr._refresh_window = counting("refresh", tr._refresh_window)
     tr._begin_keyframe = counting("keyframe", tr._begin_keyframe)
     tr._apply_pending_kf = counting("keyframe", tr._apply_pending_kf)
+    real_fuse_set = dm.run_fuse_set
+    dm.run_fuse_set = counting("fuse_set", real_fuse_set)
     first = H2D_WARMUP_FRAMES
     per_frame = []
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(first, first + 1 + H2D_FRAMES):
-            seen.update(refresh=0, keyframe=0)
-            time.sleep(H2D_GAP_S)
-            with record_function(f"h2d_frame_{i}"):
-                slam.track_rgbd(*frames[i], seq.timestamps[i])
-                torch.cuda.synchronize()
-            per_frame.append({"frame": i, "h2d_copies": 0,
-                              "window_refreshes": seen["refresh"],
-                              "keyframe_events": seen["keyframe"]})
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(first, first + 1 + H2D_FRAMES):
+                seen.update(refresh=0, keyframe=0, fuse_set=0)
+                time.sleep(H2D_GAP_S)
+                with record_function(f"h2d_frame_{i}"):
+                    slam.track_rgbd(*frames[i], seq.timestamps[i])
+                    torch.cuda.synchronize()
+                per_frame.append({"frame": i, "h2d_copies": 0,
+                                  "window_refreshes": seen["refresh"],
+                                  "keyframe_events": seen["keyframe"],
+                                  "fuse_sets": seen["fuse_set"]})
+    finally:
+        dm.run_fuse_set = real_fuse_set
     slam.shutdown()
     got = _h2d_by_span(prof.profiler.kineto_results.events(),
                        prof.events(), "h2d_frame_", "h2d")
@@ -7037,37 +7202,37 @@ def run_h2d_copies(seq, frames, cfg, dev) -> dict:
             rec["asked_by"] = got["asked_by"][rec["frame"]]
     n_events = sum(got["copies"].values())
     per_frame = per_frame[1:]  # the frame that absorbed the profiler's start
-    held = 0
     for rec in per_frame:
-        limit = 1 + rec["window_refreshes"]
-        if rec["h2d_copies"] <= limit:
+        limit = 1 + rec["window_refreshes"] + rec["fuse_sets"]
+        if rec["h2d_copies"] == limit and rec["fuse_sets"] == 0:
             rec.pop("asked_by", None)
-        if rec["keyframe_events"] == 0:
-            held += 1
-            _check(rec["h2d_copies"] <= limit,
-                   f"h2d: frame {rec['frame']} made {rec['h2d_copies']} "
-                   f"host-to-device copies, allowed {limit}: the packed "
-                   f"frame and {rec['window_refreshes']} window refreshes "
-                   f"({rec})")
-            _check(rec["h2d_copies"] >= 1, f"h2d: the profiler saw no copy "
-                   f"in frame {rec['frame']} ({n_events} in all)")
+        _check(rec["h2d_copies"] <= limit,
+               f"h2d: frame {rec['frame']} made {rec['h2d_copies']} "
+               f"host-to-device copies, allowed {limit}: the packed frame, "
+               f"{rec['window_refreshes']} window refreshes and "
+               f"{rec['fuse_sets']} packed fuse sets ({rec})")
+        _check(rec["h2d_copies"] >= 1, f"h2d: the profiler saw no copy in "
+               f"frame {rec['frame']} ({n_events} in all)")
     refreshes = sum(r["window_refreshes"] for r in per_frame)
-    res = {"frames": H2D_FRAMES, "frames_held": held,
+    keyframes = [r for r in per_frame if r["keyframe_events"]]
+    res = {"frames": H2D_FRAMES, "frames_held": len(per_frame),
+           "keyframe_frames": len(keyframes),
+           "fuse_sets": sum(r["fuse_sets"] for r in per_frame),
            "window_refreshes": refreshes,
-           "limit_per_frame": "1 packed frame + 1 per window refresh",
-           "copies_per_held_frame": float(np.mean(
-               [r["h2d_copies"] for r in per_frame
-                if r["keyframe_events"] == 0])),
+           "limit_per_frame": "1 packed frame + 1 per window refresh + 1 "
+                              "per packed fuse set",
            "copies_per_frame": float(np.mean(
                [r["h2d_copies"] for r in per_frame])),
+           "copies_per_keyframe_frame": float(np.mean(
+               [r["h2d_copies"] for r in keyframes])) if keyframes else None,
            "copies_without_host_op": got["unlinked"],
            "device_minus_issue_us": got["device_minus_issue_us"],
            "per_frame": per_frame}
     print("h2d_copies " + json.dumps(res), flush=True)
-    _check(held >= H2D_FRAMES // 2, f"h2d: only {held} frames without a "
-           f"keyframe event in {H2D_FRAMES}")
     _check(refreshes >= 1, f"h2d: no window refresh in {H2D_FRAMES} frames: "
            f"the window's allowance was not exercised")
+    _check(res["fuse_sets"] >= 1, f"h2d: no keyframe's fuse set in "
+           f"{H2D_FRAMES} frames: its allowance was not exercised")
     return res
 
 
@@ -7838,6 +8003,516 @@ def run_h2d_batched(cfg, dev, lane_frames: list, B: int = 4) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# K37 (the step's decode), K38 (the carried-state lift), K39 (the Manhattan
+# seed) and the packed fuse set
+
+# a window's flag values (0, 0.5, the float above it, 1, NaN) and cloud
+# counts (0, 1, 128), planted in turn
+WINDOW_FLAGS = (0.0, 0.5, float(np.nextafter(np.float32(0.5), np.float32(1))),
+                1.0, math.nan)
+WINDOW_CLOUD_COUNTS = (0.0, 1.0, 128.0)
+# planted decode frames: (h, w); "odd" is not a multiple of 4 pixels
+DECODE_SHAPES = {"odd": (481, 643), "wide": (960, 1280), "small": (48, 64)}
+
+
+def planted_window(cfg, seed: int = 37) -> np.ndarray:
+    """A packed window (S,) float32: seeded values, the flags cycling
+    through WINDOW_FLAGS, the cloud counts through WINDOW_CLOUD_COUNTS."""
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    rng = np.random.default_rng(seed)
+    fields = dt._window_fields(cfg.map.max_planes, cfg.lines.desc_dim)
+    flat = rng.normal(size=fields[-1][2] + fields[-1][3]).astype(np.float32)
+    for name, _, off, n in fields:
+        if name in ("pt_valid", "ln_valid", "pl_valid"):
+            vals = WINDOW_FLAGS
+        elif name == "pl_cloud_n":
+            vals = WINDOW_CLOUD_COUNTS
+        else:
+            continue
+        k = rng.integers(0, len(vals))
+        flat[off:off + n] = np.resize(np.roll(np.asarray(vals, np.float32),
+                                              k), n)
+    return flat
+
+
+def all_depths_frame(seed: int = 38) -> np.ndarray:
+    """A packed (3, 256, 256) uint8 frame whose depth holds every uint16
+    value once (both bytes of each), a seeded grey."""
+    rng = np.random.default_rng(seed)
+    v = np.arange(65536, dtype=np.uint16).reshape(256, 256)
+    return np.stack([rng.integers(0, 256, (256, 256), dtype=np.uint8),
+                     (v & 0xFF).astype(np.uint8), (v >> 8).astype(np.uint8)])
+
+
+def _packed(gray: np.ndarray, depth: np.ndarray) -> np.ndarray:
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    return dt.pack_frame(gray, depth)
+
+
+def _decoded(out) -> list:
+    """K37's or its plain version's outputs as a flat list: grey, depth
+    and every DeviceWindow field."""
+    gray, depth, win = out
+    return [gray, depth, *win]
+
+
+def _decode_held(name: str, got, want) -> None:
+    """Every output of a K37 launch bit-equal to the plain version's (the
+    window's float views compared as int32 bits: a NaN matches only its own
+    bits)."""
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    names = ["gray", "depth", *dt.DeviceWindow._fields]
+    bad = {n: _bit_diff(x, y, as_int=True)
+           for n, x, y in zip(names, _decoded(got), _decoded(want))}
+    _check(not any(bad.values()),
+           f"decode_step_inputs ({name}): entries differ from the plain "
+           f"version: {bad}")
+
+
+def _decode_once(name: str, fn, want) -> list:
+    """One K37 call of fn: one launch, two launches and one into outputs
+    filled with NaN equal in bits, and bit-equal to `want`."""
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    n0 = kernels.LAUNCHES["decode_step_inputs"]
+    got = fn()
+    _check(kernels.LAUNCHES["decode_step_inputs"] == n0 + 1,
+           f"decode_step_inputs ({name}): not one launch a call")
+    again = fn()
+    with poisoned_outputs(dt, "_empty"):
+        filled = fn()
+    _check(same_bits(_decoded(got), _decoded(again))
+           and same_bits(_decoded(got), _decoded(filled)),
+           f"decode_step_inputs ({name}): two launches differ, or an output "
+           f"was left unwritten")
+    _decode_held(name, got, want)
+    return _decoded(got)
+
+
+def decode_kernel_parity(seq, cfg, dev) -> list:
+    """K37 against its plain version, every output bit-equal, two launches
+    equal bits, each call also into outputs filled with NaN: path 1's frame
+    0; a 256x256 frame holding every depth value; a 643x481 frame (the
+    scalar path), 1280x960 and 64x48; frames 0-3 at B = 4 lane by lane,
+    each lane bit-equal to its B = 1 launch; each with a planted window
+    (flags 0, 0.5, the float above 0.5, 1 and NaN, cloud counts 0, 1 and
+    128); the unpacked entry (grey uint8, depth int32 and uint16, the
+    uint16 depth equal to the int32 one) and float frames, which pass
+    through (a launch of the window's casts alone)."""
+    import torch
+
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    rng = np.random.default_rng(37)
+    win1 = torch.from_numpy(planted_window(cfg)[None]).to(dev)
+    q0 = quantize_frame(*seq.render(0), cfg.camera.depth_map_factor)
+    frames = {"path1_frame0": _packed(*q0), "all_depths": all_depths_frame()}
+    for name, (h, w) in DECODE_SHAPES.items():
+        frames[name] = _packed(
+            rng.integers(0, 256, (h, w), dtype=np.uint8),
+            rng.integers(0, 65536, (h, w), dtype=np.uint16))
+    shapes = {}
+    for name, fr in frames.items():
+        f = torch.from_numpy(fr[None]).to(dev)
+        _decode_once(name, lambda: dt._decode(win1, cfg, frame=f),
+                     dt.decode_step_inputs_plain(f, win1, cfg))
+        shapes[name] = list(fr.shape[1:])
+    # B = 4: frames 0-3 and four windows, lane by lane
+    packed4 = np.stack([_packed(*quantize_frame(
+        *seq.render(i), cfg.camera.depth_map_factor)) for i in range(4)])
+    f4 = torch.from_numpy(packed4).to(dev)
+    w4 = torch.from_numpy(np.stack([planted_window(cfg, 37 + b)
+                                    for b in range(4)])).to(dev)
+    got4 = _decode_once("B = 4", lambda: dt._decode(w4, cfg, frame=f4),
+                        dt.decode_step_inputs_plain(f4, w4, cfg))
+    for b in range(4):
+        one = dt._decode(w4[b:b + 1], cfg, frame=f4[b:b + 1])
+        _check(same_bits([x[b:b + 1] for x in got4], _decoded(one)),
+               f"decode_step_inputs: lane {b} of B = 4 differs from its "
+               f"B = 1 launch")
+    # the unpacked entry: grey uint8 with int32 and uint16 depth
+    g8 = torch.from_numpy(q0[0][None]).to(dev)
+    d32 = torch.from_numpy(q0[1][None].astype(np.int32)).to(dev)
+    d16 = torch.from_numpy(q0[1][None].view(np.int16).copy()).to(dev).view(
+        torch.uint16)
+    got32 = _decode_once("int32 depth",
+                         lambda: dt._decode(win1, cfg, gray=g8, depth=d32),
+                         (*dt.to_gray_depth(g8, d32, cfg),
+                          dt.unpack_window(win1, cfg)))
+    got16 = dt._decode(win1, cfg, gray=g8, depth=d16)
+    _check(same_bits(_decoded(got16), got32),
+           "decode_step_inputs: uint16 depth differs from its int32 values")
+    # float frames pass through: the window's casts alone
+    gf = g8.to(torch.float32)
+    df = d32.to(torch.float32) * dt.depth_scale(cfg)
+    got_f = _decode_once("float frames",
+                         lambda: dt._decode(win1, cfg, gray=gf, depth=df),
+                         (gf, df, dt.unpack_window(win1, cfg)))
+    _check(got_f[0].data_ptr() == gf.data_ptr()
+           and got_f[1].data_ptr() == df.data_ptr(),
+           "decode_step_inputs: float frames were copied")
+    f1 = torch.from_numpy(frames["path1_frame0"][None]).to(dev)
+    out = dt._decode(win1, cfg, frame=f1)
+    h, w = f1.shape[2:]
+    items = sum(t.shape[-1] for t in (out[2].pt_valid, out[2].ln_valid,
+                                      out[2].pl_valid))
+    n_pl = out[2].pl_valid.shape[-1]
+
+    def moved(b):  # frame read, grey and depth written, flags read and cast
+        return b * (3 * h * w + 8 * h * w + 4 * (items + n_pl) + items
+                    + 8 * n_pl)
+
+    entry = {"name": "decode_step_inputs", "route": "cuda",
+             "library_ms": None,
+             # a pixel: the depth's or and shift, two conversions, one
+             # product; a window item one compare or conversion
+             **_bound(moved(1), 5 * h * w + items + n_pl),
+             "source": "planarslam_tpu_torch/csrc/step_decode.cu",
+             "replaces": "planarslam_tpu/slam/device_tracker.py:145",
+             "max_abs_err": 0.0, "tolerance": "bit-equal",
+             "shapes": {"frames": shapes, "B4": list(packed4.shape)},
+             "ms": _time_ms(lambda: dt._decode(win1, cfg, frame=f1)),
+             "plain_ms": _time_ms(
+                 lambda: dt.decode_step_inputs_plain(f1, win1, cfg)),
+             "ms_b4": _time_ms(lambda: dt._decode(w4, cfg, frame=f4)),
+             "bound_ms_b4": moved(4) / HBM_BYTES_PER_S * 1e3,
+             "device_ms": _launch_split(
+                 lambda: dt._decode(win1, cfg, frame=f1), match="decode"),
+             "device_ms_b4": _launch_split(
+                 lambda: dt._decode(w4, cfg, frame=f4), match="decode")}
+    _print_kernels([entry])
+    return [entry]
+
+
+# K39's planted direction sets (one frame each): no valid plane, ties in
+# weight (the first index wins both picks), no perpendicular candidate (ok
+# false), a lone valid line (ok false)
+SEED_PLANTED = ("no_plane", "ties", "no_perpendicular", "lone_line")
+SEED_TOLERANCE = 1e-6
+
+
+def planted_seed_problem(case: str, cfg, seed: int = 39) -> list:
+    """K39's inputs of a SEED_PLANTED case at the main path's widths, numpy:
+    coeffs (P, 4), count (P,) int32, pl_valid (P,), p3d_s, p3d_e (L, 3),
+    has_3d, ln_valid (L,), response (L,), normals (Nn, 3), normals_valid
+    (Nn,)."""
+    rng = np.random.default_rng(seed)
+    P, L = cfg.planes.max_planes, cfg.lines.max_lines
+    Nn = cfg.manhattan.max_normals
+    f32 = np.float32
+
+    def unit(v):
+        v = np.asarray(v, np.float64)
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    R = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    axes = R.T  # rows: three perpendicular unit axes
+    coeffs = np.zeros((P, 4))
+    coeffs[:, :3] = unit(rng.normal(size=(P, 3)))
+    coeffs[:, 3] = rng.uniform(-3, 3, P)
+    count = rng.integers(100, 5000, P)
+    pl_valid = rng.random(P) < 0.5
+    p3d_s = rng.normal(size=(L, 3))
+    d = unit(rng.normal(size=(L, 3)))
+    length = rng.uniform(0.2, 1.5, L)
+    has_3d = rng.random(L) < 0.8
+    ln_valid = rng.random(L) < 0.8
+    response = rng.uniform(10, 900, L)
+    if case == "no_plane":
+        pl_valid[:] = False
+        d[: L // 2] = axes[0] + rng.normal(scale=0.01, size=(L // 2, 3))
+        d[L // 2:] = axes[1] + rng.normal(scale=0.01, size=(L - L // 2, 3))
+    elif case == "ties":
+        pl_valid[:] = False
+        pl_valid[[1, 3, 5, 6]] = True
+        coeffs[[1, 3], :3] = axes[0]
+        coeffs[[5, 6], :3] = axes[1]
+        count[[1, 3, 5, 6]] = 6000
+        ln_valid[:] = False
+    elif case == "no_perpendicular":
+        coeffs[:, :3] = unit(axes[2] + rng.normal(scale=0.05, size=(P, 3)))
+        d[:] = unit(axes[2] + rng.normal(scale=0.05, size=(L, 3)))
+    elif case == "lone_line":
+        pl_valid[:] = False
+        ln_valid[:] = False
+        ln_valid[5] = has_3d[5] = True
+        length[:4] = 0.05  # short lines: their gate
+    p3d_e = p3d_s + unit(d) * length[:, None]
+    normals = unit(rng.normal(size=(Nn, 3)))
+    return [coeffs.astype(f32), count.astype(np.int32), pl_valid,
+            p3d_s.astype(f32), p3d_e.astype(f32), has_3d, ln_valid,
+            response.astype(f32), normals.astype(f32),
+            rng.random(Nn) < 0.6]
+
+
+def _seed_held(name: str, got, want) -> float:
+    """K39's outputs against the plain version's, lane by lane: R_seed
+    within SEED_TOLERANCE, ok and the picks exact, the direction set
+    bit-equal. Returns the largest R_seed difference."""
+    err = float((got.R_seed - want.R_seed).abs().max())
+    bad = {f: _bit_diff(getattr(got, f), getattr(want, f))
+           for f in ("ok", "picks", "dirs", "dirs_valid")}
+    _check(err <= SEED_TOLERANCE and not any(bad.values()),
+           f"seed_manhattan ({name}): R_seed {err:.3g} from the plain "
+           f"version (limit {SEED_TOLERANCE}), entries differ: {bad}")
+    return err
+
+
+def _seed_lanes_plain(args):
+    import torch
+
+    from planarslam_tpu_torch.ops import manhattan as M
+
+    lanes = [M.seed_manhattan_plain(*[a[b] for a in args])
+             for b in range(args[0].shape[0])]
+    return M.ManhattanSeed(*[torch.stack(f) for f in zip(*lanes)])
+
+
+def seed_lift_parity(seq, frames, cfg, dev, captured: dict) -> list:
+    """K38 on path 1's 48th tracking step against its plain version and
+    against K31's new_state (which lifts the same features at the step's
+    pose), at B = 1 and at B = 4 (the step's features at four of its
+    poses), bit-equal, two launches equal bits, into outputs filled with
+    NaN; K39 on path 1's first frame (as the initializer extracts it) and
+    on SEED_PLANTED, each alone and all four at B = 4 in one launch, each
+    lane within SEED_TOLERANCE of the plain version with ok, the picks and
+    the direction set exact, and equal in bits to its B = 1 launch."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.ops import manhattan as M
+    from planarslam_tpu_torch.slam import device_tracker as dt
+    from planarslam_tpu_torch.slam.frame import extract_frame
+
+    _, tail = _tail_inputs(captured, 48)
+    new = dt.finish_step(tail, cfg)
+    poses = torch.cat([new.T_out, tail.T1, tail.T_last, tail.T_cand])
+    lifts = {"B1": [t.contiguous() for t in (
+        tail.pt_uv, tail.pt_depth, tail.pt_valid, new.T_out)],
+        "B4": [t.expand(4, *t.shape[1:]).contiguous() for t in (
+            tail.pt_uv, tail.pt_depth, tail.pt_valid)] + [poses]}
+    for name, args in lifts.items():
+        n0 = kernels.LAUNCHES["lift_state"]
+        got = _twice(lambda *a: dt.lift_state(*a, cfg), *args)
+        _check(kernels.LAUNCHES["lift_state"] == n0 + 2,
+               f"lift_state ({name}): not one launch a call")
+        with poisoned_outputs(dt, "_empty"):
+            filled = dt.lift_state(*args, cfg)
+        want = kernels.per_problem(dt.lift_state_plain, args, cfg)
+        _check(same_bits(got, filled), f"lift_state ({name}): an output "
+               f"was left unwritten")
+        _tail_held(f"lift_state ({name})", got, want)
+        if name == "B1":
+            _tail_held("lift_state (K31's new_state)", got,
+                       (new.pt3d_w, new.valid3d))
+        else:
+            for b in range(4):
+                one = dt.lift_state(*[a[b:b + 1] for a in args], cfg)
+                _check(same_bits([x[b:b + 1] for x in got], one),
+                       f"lift_state: lane {b} of B = 4 differs from its "
+                       f"B = 1 launch")
+    args = lifts["B1"]
+    k = args[1].shape[1]
+    lift = {"name": "lift_state", "route": "cuda", "library_ms": None,
+            # per feature two differences, six products, three dots and
+            # sums; uv, depth, valid, the pose in; the points and mask out
+            **_bound(_nbytes(args) + 13 * k, 30 * k),
+            "source": "planarslam_tpu_torch/csrc/step_tail.cu",
+            "replaces": "planarslam_tpu/slam/device_tracker.py:171",
+            "max_abs_err": 0.0, "tolerance": "bit-equal",
+            "shapes": {"K": int(k)},
+            "ms": _time_ms(lambda: dt.lift_state(*args, cfg)),
+            "plain_ms": _time_ms(lambda: dt.lift_state_plain(
+                *[a[0] for a in args], cfg)),
+            "ms_b4": _time_ms(lambda: dt.lift_state(*lifts["B4"], cfg)),
+            "device_ms": _launch_split(lambda: dt.lift_state(*args, cfg),
+                                       match="lift_state")}
+
+    # K39: path 1's first frame as the initializer extracts it, then the
+    # planted sets
+    g, d = frames[0]
+    feats = extract_frame(
+        torch.from_numpy(np.asarray(g, np.float32)).to(dev),
+        torch.from_numpy(d.astype(np.float32)
+                         / cfg.camera.depth_map_factor).to(dev), cfg)
+    ln, pl = feats.lines, feats.planes
+    frame0 = [t[None].contiguous() for t in (
+        pl.coeffs, pl.count, pl.valid, ln.p3d_s, ln.p3d_e, ln.has_3d,
+        ln.valid, ln.response, feats.normals, feats.normals_valid)]
+    cases = {"path1_frame0": frame0}
+    for case in SEED_PLANTED:
+        cases[case] = [torch.from_numpy(np.ascontiguousarray(a))[None].to(dev)
+                       for a in planted_seed_problem(case, cfg)]
+    cases["B4"] = [torch.cat(t) for t in zip(
+        *[cases[c] for c in SEED_PLANTED])]
+    errs, oks, picks = {}, {}, {}
+    for name, args in cases.items():
+        n0 = kernels.LAUNCHES["seed_manhattan"]
+        got = _twice(M.seed_manhattan, *args)
+        _check(kernels.LAUNCHES["seed_manhattan"] == n0 + 2,
+               f"seed_manhattan ({name}): not one launch a call")
+        got = M.ManhattanSeed(*got)
+        with poisoned_outputs(M, "_empty"):
+            filled = M.seed_manhattan(*args)
+        _check(same_bits(got, filled), f"seed_manhattan ({name}): an output "
+               f"was left unwritten")
+        errs[name] = _seed_held(name, got, _seed_lanes_plain(args))
+        oks[name] = got.ok.tolist()
+        picks[name] = got.picks.tolist()
+    for b, case in enumerate(SEED_PLANTED):
+        _check(same_bits([x[b:b + 1] for x in M.seed_manhattan(
+            *cases["B4"])], M.seed_manhattan(*cases[case])),
+            f"seed_manhattan: lane {b} of B = 4 differs from its B = 1 "
+            f"launch")
+    want_ok = {"path1_frame0": [True], "no_plane": [True], "ties": [True],
+               "no_perpendicular": [False], "lone_line": [False]}
+    _check(all(oks[c] == v for c, v in want_ok.items())
+           and picks["ties"] == [[1, 5]]
+           and picks["lone_line"] == [[cfg.planes.max_planes + 5, 0]],
+           f"seed_manhattan: the planted cases do not exercise it: ok "
+           f"{oks}, picks {picks}")
+    args = frame0
+    out = M.seed_manhattan(*args)
+    n_dirs = out.dirs_valid.shape[1]
+    seed = {"name": "seed_manhattan", "route": "cuda", "library_ms": None,
+            # per candidate a direction (~15) and two picks (~10); the
+            # polar factor ~600; the normals copied
+            **_bound(_nbytes(args, out), 25 * (args[0].shape[1]
+                                               + args[3].shape[1]) + 600),
+            "source": "planarslam_tpu_torch/csrc/manhattan.cu",
+            "replaces": "planarslam_tpu/ops/manhattan.py:123",
+            "max_abs_err": max(errs.values()),
+            "tolerance": f"R_seed {SEED_TOLERANCE}; ok, picks, directions "
+                         f"exact",
+            "shapes": {"candidates": int(args[0].shape[1] + args[3].shape[1]),
+                       "directions": int(n_dirs)},
+            "ok": oks, "picks": picks, "errors": errs,
+            "ms": _time_ms(lambda: M.seed_manhattan(*args)),
+            "plain_ms": _time_ms(lambda: M.seed_manhattan_plain(
+                *[a[0] for a in args])),
+            "device_ms": _launch_split(lambda: M.seed_manhattan(*args),
+                                       match="seed_manhattan")}
+    _print_kernels([lift, seed])
+    return [lift, seed]
+
+
+def _per_target(fn):
+    """fn (a search or a match with a leading batch in its positional
+    tensors; its keywords are numbers) run lane by lane, one call a lane,
+    as the mapping step and the fuse set ran it over their targets before
+    they took the targets as the batch."""
+    import torch
+
+    from planarslam_tpu_torch.ops.matching import MatchResult
+
+    def run(*args, **kw):
+        rows = [fn(*[a[i] for a in args], **kw)
+                for i in range(args[0].shape[0])]
+        return MatchResult(torch.stack([r.idx for r in rows]),
+                           torch.stack([r.dist for r in rows]))
+    return run
+
+
+@contextlib.contextmanager
+def per_target_matching():
+    """device_mapper's searches and matches over the targets one call a
+    target (the parent's loops), inside the block."""
+    import types
+
+    from planarslam_tpu_torch.ops import matching
+    from planarslam_tpu_torch.slam import device_mapper as dm
+
+    real = dm.matching
+    dm.matching = types.SimpleNamespace(
+        search_by_projection=_per_target(matching.search_by_projection),
+        match_descriptors=_per_target(matching.match_descriptors))
+    try:
+        yield
+    finally:
+        dm.matching = real
+
+
+MAPPING_CAPTURE = tuple(("device_mapper", "_mapping_step_impl", n)
+                        for n in (1, 3, -1))
+
+
+def fuse_set_parity(slam_map, cfg, dev, captured: dict) -> dict:
+    """The packed fuse set (fuse_set_step_packed: one K24, K3 and K25
+    launch over the targets padded to N_NEIGHBORS) against the per-target
+    loop it replaces, indices equal, on path 2's map: keyframes' landmark
+    sets (fewer than C) into 0-5 targets, and every map point (more than
+    C, cut to C) into 5; and path 2's captured mapping steps
+    (MAPPING_CAPTURE) bit-equal, the bundle as int32 bits, to the same
+    steps with the fuse and the triangulation matches run per target."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.slam import device_mapper as dm
+
+    m = slam_map
+    C = cfg.orb.max_keypoints
+    kfs = [int(k) for k in m.valid_kf_ids()]
+    _check(len(kfs) >= 6, f"fuse set: path 2 made {len(kfs)} keyframes")
+    every = np.flatnonzero(m.pt_valid)
+    big = np.resize(every, max(len(every), C + 100))
+    cases = {}
+    for n_t in range(6):
+        kf = kfs[n_t]
+        row = m.kf_pt_idx[kf]
+        cov = [int(c) for c in m.covisible_kfs(kf)]
+        near = cov + [k for k in kfs if k != kf and k not in cov]
+        cases[f"targets_{n_t}"] = (np.unique(row[row >= 0]), near[:n_t])
+    cases["over_capacity"] = (big, kfs[-5:])
+    rec = {}
+    for name, (ids, targets) in cases.items():
+        flat, meta = dm.fuse_set_inputs(m, ids, targets, cfg)
+        ft = torch.from_numpy(flat).to(dev)
+        before = dict(kernels.LAUNCHES)
+        got = dm.fuse_set_step_packed(ft, cfg, radius=4.0)
+        launched = {k: kernels.LAUNCHES[k] - before[k]
+                    for k in FUSE_SET_LAUNCHES}
+        _check(launched == FUSE_SET_LAUNCHES, f"fuse set ({name}): "
+               f"launches {launched}, expected {FUSE_SET_LAUNCHES}")
+        with per_target_matching():
+            want = dm.fuse_set_step_packed(ft, cfg, radius=4.0)
+        absent = ~torch.from_numpy(meta["nb_ok"]).to(dev)
+        _check(torch.equal(got, want) and bool((got[absent] == -1).all()),
+               f"fuse set ({name}): indices differ from the per-target "
+               f"loop in {int((got != want).sum())}, or an absent target's "
+               f"row is not all -1")
+        rec[name] = {"landmarks": int(len(ids)), "targets": len(targets),
+                     "matched": int((got >= 0).sum())}
+    _check(rec["over_capacity"]["landmarks"] > C
+           and sum(r["matched"] for r in rec.values()) > 100,
+           f"fuse set: the cases do not exercise it: {rec}")
+    flat, _ = dm.fuse_set_inputs(m, big, kfs[-5:], cfg)
+    ft = torch.from_numpy(flat).to(dev)
+    rec["ms_packed"] = _time_ms(lambda: dm.fuse_set_step_packed(ft, cfg))
+    with per_target_matching():
+        rec["ms_per_target"] = _time_ms(
+            lambda: dm.fuse_set_step_packed(ft, cfg))
+    steps = [captured[c] for c in MAPPING_CAPTURE if c in captured]
+    _check(len(steps) == len(MAPPING_CAPTURE),
+           f"fuse set: {len(steps)} of path 2's mapping steps captured")
+    for (args, kw), key in zip(steps, MAPPING_CAPTURE):
+        got = dm._mapping_step_impl(*args, **kw)
+        with per_target_matching():
+            want = dm._mapping_step_impl(*args, **kw)
+        _check(_bit_diff(got, want, as_int=True) == 0,
+               f"mapping step {key[2]}: the bundle differs from the "
+               f"per-target one in {_bit_diff(got, want, as_int=True)} "
+               f"words")
+    rec["mapping_steps_equal"] = len(steps)
+    print("fuse_set_parity " + json.dumps(rec), flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=96,
@@ -7882,7 +8557,8 @@ def main(argv=None) -> int:
               + frontend_kernel_parity(seq, cfg, dev)
               + line_kernel_parity(seq, cfg, dev)
               + matching_kernel_parity(seq, cfg, dev)
-              + tail_kernel_parity(seq, cfg, dev))
+              + tail_kernel_parity(seq, cfg, dev)
+              + decode_kernel_parity(seq, cfg, dev))
     select_stage_parity(dev, next(k for k in report
                                   if k["name"] == "detect_lines"))
     batched_kernel_parity(seq, cfg, dev, report)
@@ -7901,10 +8577,13 @@ def main(argv=None) -> int:
     pose_frame_parity(k11[0], [captured[c] for c in POSE_CAPTURE])
     tail_frame_parity(report, *_tail_inputs(captured, 48))
     report += prelude_kernel_parity(cfg, dev, captured)
+    report += seed_lift_parity(seq, frames, cfg, dev, captured)
+    path2 = run_tracking_path("path2_mapping", seq, frames[:args.frames],
+                              cfg, dev, True, capture=MAPPING_CAPTURE)
+    fuse_set_parity(path2.pop("map"), cfg, dev, path2.pop("captured"))
     paths = [
         path1,
-        run_tracking_path("path2_mapping", seq, frames[:args.frames], cfg,
-                          dev, True),
+        path2,
         run_reloc_path(seq, cfg, dev),
         run_loop_path(synthetic.make_sequence(
             LOOP_FRAMES, kind="loop", width=cfg.camera.width,

@@ -149,8 +149,36 @@ __device__ __forceinline__ float psl_det3_cols(const float* Q) {
   return psl_dot3(a0, c);
 }
 
+// se3.py::_orthonormal_basis: V's columns (row-major V) made orthonormal
+// where the eigensolver's are more than 1e-4 from it (R^T R near a multiple
+// of I): the high column kept, the middle one the unit axis least aligned
+// with it (the first among equals) made orthogonal to it, the low one
+// their cross product.
+__device__ __forceinline__ void psl_orthonormal_basis(float* V) {
+  const float lo[3] = {V[0], V[3], V[6]};
+  const float mid[3] = {V[1], V[4], V[7]};
+  const float hi[3] = {V[2], V[5], V[8]};
+  const float off = fmaxf(fmaxf(fabsf(psl_dot3(lo, mid)),
+                                fabsf(psl_dot3(lo, hi))),
+                          fabsf(psl_dot3(mid, hi)));
+  if (!(off > 1e-4f)) return;
+  const float a0 = fabsf(hi[0]), a1 = fabsf(hi[1]), a2 = fabsf(hi[2]);
+  const int k = (a0 <= a1 && a0 <= a2) ? 0 : (a1 <= a2 ? 1 : 2);
+  float m[3];
+  for (int i = 0; i < 3; ++i) m[i] = (i == k ? 1.0f : 0.0f) - hi[k] * hi[i];
+  const float nrm = fmaxf(sqrtf(psl_dot3(m, m)), 1e-30f);
+  for (int i = 0; i < 3; ++i) m[i] = m[i] / nrm;
+  float c[3];
+  psl_cross3(m, hi, c);
+  for (int i = 0; i < 3; ++i) {
+    V[3 * i] = c[i];
+    V[3 * i + 1] = m[i];
+  }
+}
+
 // se3.py::orthonormalize: the polar factor R (R^T R)^-1/2 through the
-// closed-form eigensolver, one Newton step, the smallest singular
+// closed-form eigensolver (its eigenvectors made orthonormal,
+// psl_orthonormal_basis), one Newton step, the smallest singular
 // direction flipped when det R < 0. R, out: row-major 3 x 3.
 __device__ __forceinline__ void psl_orthonormalize(const float* R,
                                                    float* out) {
@@ -162,6 +190,7 @@ __device__ __forceinline__ void psl_orthonormalize(const float* R,
   }
   float evals[3], V[9];
   psl_eigh_sym3x3(M, evals, V);
+  psl_orthonormal_basis(V);
   float inv_sqrt[3];
   for (int k = 0; k < 3; ++k) {
     inv_sqrt[k] = 1.0f / sqrtf(fmaxf(evals[k], 1e-30f));

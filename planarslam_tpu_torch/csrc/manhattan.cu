@@ -37,6 +37,29 @@
 // T_init = T_pred with its rotation replaced by R_cm R_wm^T where use_manh
 // holds. Each entry of the product is ((a0 b0 + a1 b1) + a2 b2), the
 // order of the plain version, ops/manhattan.py::init_select_plain.
+//
+// K39 seed_manhattan — the initializer's Manhattan seed, one block per frame
+// of a batch. Replaces planarslam_tpu/ops/manhattan.py::
+// seed_from_plane_normals (:123-148, jitted) with the direction glue of the
+// initializer around it (planarslam_tpu/slam/tracking.py:421-432): the 3D
+// line directions and their mask (lifted, valid and longer than 0.1 m),
+// their concatenation after the plane normals with the weights (plane
+// pixel counts, line responses truncated to int), the weighted arg-max
+// (the first index among equals, as torch.argmax), the perpendicular gate
+// |n . a0| < 0.2 and its arg-max, the Gram-Schmidt step, the cross product
+// and se3.orthonormalize (psl_orthonormalize, eig3.cuh, the polar factor
+// K15 runs); it also writes the direction set K15 reads next (the frame's
+// normals, then the line directions, as K36 writes it). The plain version
+// is ops/manhattan.py::seed_manhattan_plain. The line directions repeat
+// K36's float form (|v| = sqrt((v0^2 + v2^2) + v1^2), IEEE division), so
+// they equal the plain version's bits; the seed's dot products and norm
+// are spelled in a fixed order where the plain version's library calls
+// (a matrix-vector product, a sum, the polar factor's products) keep
+// theirs, so R_seed is held within 1e-6 of it and the picks and ok
+// exactly. Bound: launch latency (~26 KB moved, ~1k operations). Design:
+// all threads stage the candidates and copy the normals; warp 0 takes the
+// two arg-maxes by warp reductions of (weight, -index) and lane 0 the
+// serial tail.
 #include <math.h>
 
 #include "common.cuh"
@@ -344,7 +367,159 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------- K39 ---
+
+constexpr int kSeedThreads = 256;
+
+// the better of two (weight, index) picks: the larger weight, the first
+// index among equals
+__device__ __forceinline__ void seed_pick_merge(float& w, int& i, float w2,
+                                                int i2) {
+  if (w2 > w || (w2 == w && i2 < i)) {
+    w = w2;
+    i = i2;
+  }
+}
+
+// warp 0's arg-max of vals[0..n) (first index among equals); every lane
+// returns it
+__device__ __forceinline__ int seed_argmax(const float* vals, int n,
+                                           int lane) {
+  float w = -INFINITY;
+  int i = INT_MAX;
+  for (int j = lane; j < n; j += 32) seed_pick_merge(w, i, vals[j], j);
+  for (int off = 16; off > 0; off >>= 1) {
+    const float w2 = __shfl_xor_sync(kFull, w, off);
+    const int i2 = __shfl_xor_sync(kFull, i, off);
+    seed_pick_merge(w, i, w2, i2);
+  }
+  return i;
+}
+
+__global__ void __launch_bounds__(kSeedThreads) seed_manhattan_kernel(
+    const float* __restrict__ coeffs, const int* __restrict__ count,
+    const unsigned char* __restrict__ pl_valid, int P,
+    const float* __restrict__ p3d_s, const float* __restrict__ p3d_e,
+    const unsigned char* __restrict__ has_3d,
+    const unsigned char* __restrict__ ln_valid,
+    const float* __restrict__ response, int L,
+    const float* __restrict__ normals,
+    const unsigned char* __restrict__ normals_valid, int Nn,
+    float* __restrict__ R_seed, unsigned char* __restrict__ seed_ok,
+    int* __restrict__ picks, float* __restrict__ dirs,
+    unsigned char* __restrict__ dirs_valid) {
+  extern __shared__ float seed_smem[];
+  const int N = P + L;
+  float* cand = seed_smem;       // (N, 3) the candidate directions
+  float* wgt = cand + 3 * N;     // (N,) weights (0 where invalid)
+  float* score = wgt + N;        // (N,) the perpendicular pick's
+  unsigned char* ok = reinterpret_cast<unsigned char*>(score + N);  // (N,)
+  const int tid = threadIdx.x, lane = tid & 31;
+  const size_t f = blockIdx.x;
+  const int D = Nn + L;
+  float* d_out = dirs + 3 * f * D;
+  unsigned char* ok_out = dirs_valid + f * D;
+  for (int r = tid; r < D; r += kSeedThreads) {
+    if (r < Nn) {
+      const float* n = normals + 3 * (f * Nn + r);
+      d_out[3 * r] = n[0];
+      d_out[3 * r + 1] = n[1];
+      d_out[3 * r + 2] = n[2];
+      ok_out[r] = normals_valid[f * Nn + r];
+    }
+  }
+  for (int c = tid; c < N; c += kSeedThreads) {
+    if (c < P) {
+      const size_t q = f * P + c;
+      for (int k = 0; k < 3; ++k) cand[3 * c + k] = coeffs[4 * q + k];
+      ok[c] = pl_valid[q];
+      wgt[c] = pl_valid[q] != 0 ? __int2float_rn(count[q]) : 0.0f;
+    } else {
+      // K36's line direction: |v| = sqrt((v0^2 + v2^2) + v1^2), IEEE
+      // division by max(|v|, 1e-9)
+      const int l = c - P;
+      const size_t q = f * L + l;
+      const float* s = p3d_s + 3 * q;
+      const float* e = p3d_e + 3 * q;
+      const float v0 = e[0] - s[0], v1 = e[1] - s[1], v2 = e[2] - s[2];
+      const float len = __fsqrt_rn((v0 * v0 + v2 * v2) + v1 * v1);
+      const float den = len < 1e-9f ? 1e-9f : len;
+      const float d[3] = {__fdiv_rn(v0, den), __fdiv_rn(v1, den),
+                          __fdiv_rn(v2, den)};
+      const bool good = has_3d[q] != 0 && ln_valid[q] != 0 && len > 0.1f;
+      for (int k = 0; k < 3; ++k) {
+        cand[3 * c + k] = d[k];
+        d_out[3 * (Nn + l) + k] = d[k];
+      }
+      ok_out[Nn + l] = good ? 1 : 0;
+      ok[c] = good ? 1 : 0;
+      // response.to(int32) (truncated), then to float32
+      wgt[c] = good ? __int2float_rn(__float2int_rz(response[q])) : 0.0f;
+    }
+  }
+  __syncthreads();
+  if (tid >= 32) return;
+  const int i0 = seed_argmax(wgt, N, lane);
+  const float a0[3] = {cand[3 * i0], cand[3 * i0 + 1], cand[3 * i0 + 2]};
+  for (int c = lane; c < N; c += 32) {
+    const float* n = cand + 3 * c;
+    const float perp = fabsf((n[0] * a0[0] + n[1] * a0[1]) + n[2] * a0[2]);
+    score[c] = (ok[c] != 0 && perp < 0.2f) ? wgt[c] : -1.0f;
+  }
+  __syncwarp();
+  const int i1 = seed_argmax(score, N, lane);
+  if (lane != 0) return;
+  const float s1 = score[i1];
+  float a1[3] = {cand[3 * i1], cand[3 * i1 + 1], cand[3 * i1 + 2]};
+  const float proj = (a1[0] * a0[0] + a1[1] * a0[1]) + a1[2] * a0[2];
+  for (int k = 0; k < 3; ++k) a1[k] = a1[k] - proj * a0[k];
+  const float nrm =
+      __fsqrt_rn((a1[0] * a1[0] + a1[2] * a1[2]) + a1[1] * a1[1]);
+  const float den = nrm < 1e-9f ? 1e-9f : nrm;
+  for (int k = 0; k < 3; ++k) a1[k] = __fdiv_rn(a1[k], den);
+  float a2[3];
+  psl_cross3(a0, a1, a2);
+  float R[9];
+  for (int r = 0; r < 3; ++r) {
+    R[3 * r] = a0[r];
+    R[3 * r + 1] = a1[r];
+    R[3 * r + 2] = a2[r];
+  }
+  psl_orthonormalize(R, R_seed + 9 * f);
+  seed_ok[f] = s1 > 0.0f ? 1 : 0;
+  picks[2 * f] = i0;
+  picks[2 * f + 1] = i1;
+}
+
 }  // namespace
+
+// coeffs (B, P, 4), count (B, P) int32, pl_valid (B, P), P; p3d_s, p3d_e
+// (B, L, 3), has_3d, ln_valid (B, L), response (B, L) float32, L; normals
+// (B, Nn, 3), normals_valid (B, Nn), Nn; batch; R_seed (B, 3, 3), seed_ok
+// (B,), picks (B, 2) int32, dirs (B, Nn + L, 3), dirs_valid (B, Nn + L)
+PSL_API int psl_seed_manhattan(
+    const float* coeffs, const int* count, const unsigned char* pl_valid,
+    int P, const float* p3d_s, const float* p3d_e,
+    const unsigned char* has_3d, const unsigned char* ln_valid,
+    const float* response, int L, const float* normals,
+    const unsigned char* normals_valid, int Nn, int batch, float* R_seed,
+    unsigned char* seed_ok, int* picks, float* dirs,
+    unsigned char* dirs_valid, cudaStream_t stream) {
+  if (P < 0 || L < 0 || Nn < 0 || P + L < 1 || batch < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = static_cast<size_t>(P + L) * (5 * sizeof(float) + 1);
+  if (batch > 0) {
+    const int rc = psl_opt_in_smem(
+        reinterpret_cast<const void*>(seed_manhattan_kernel), smem);
+    if (rc != 0) return rc;
+    seed_manhattan_kernel<<<batch, kSeedThreads, smem, stream>>>(
+        coeffs, count, pl_valid, P, p3d_s, p3d_e, has_3d, ln_valid, response,
+        L, normals, normals_valid, Nn, R_seed, seed_ok, picks, dirs,
+        dirs_valid);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 PSL_API int psl_manhattan_mean_shift(
     const float* R_init, const float* normals, const unsigned char* valid,

@@ -49,9 +49,10 @@
 // The count of projection matches (__syncthreads_count) decides the
 // brute-force fallback on the device (count < kMinProj; its gathers then
 // go out again). The angle
-// difference is jnp.mod'ed into [0, 2 pi) (fmod, then shifted) and binned
-// once, as the card computes rot * 30 / two_pi (a product with the float32
-// reciprocal); the 30 bins are counted warp by warp (__match_any_sync, the
+// difference (a denormal one taken as 0, as JAX on the CPU flushes it) is
+// jnp.mod'ed into [0, 2 pi) (fmod, then shifted) and binned once, in the
+// float form of JAX's jitted rot * 30 / two_pi: one product with
+// float32(30) / float32(two_pi), the constant XLA folds it to; the 30 bins are counted warp by warp (__match_any_sync, the
 // leader adding the popcount: integer sums, the same bits in any order);
 // every warp takes the three largest by three __reduce_max_sync of count
 // << 5 | (31 - bin) (ties to the lower bin, as lax.top_k; the same pick in
@@ -73,6 +74,8 @@
 // gathers: the window row or the temporal landmark, u_right or -1, the
 // level's 1/sigma^2 and the validity (points); both window endpoints, 1 and
 // the validity (lines). Bound: latency (~50 bytes per target).
+#include <cfloat>
+
 #include "common.cuh"
 
 namespace {
@@ -375,15 +378,19 @@ __global__ void __launch_bounds__(kBlockThreads) match_select_kernel(
   }
 }
 
-// mod(a_src - a_tgt, two_pi), then the bin the card computes for
-// clamp(int(rot * kHisto / two_pi), 0, kHisto - 1)
+// mod(a_src - a_tgt, two_pi), then clamp(int(rot * kHisto / two_pi), 0,
+// kHisto - 1) as JAX's jitted rotation_histogram_filter bins it: one
+// product with bin_scale = float32(kHisto) / float32(two_pi). A denormal
+// difference counts as 0 (bin 0), as JAX on the CPU flushes it; the card
+// keeps denormals, so the flush is explicit here and in the plain version.
 __device__ __forceinline__ int rotation_bin(float a_src, float a_tgt,
-                                            float two_pi, float inv_two_pi) {
-  float rot = fmodf(__fsub_rn(a_src, a_tgt), two_pi);
+                                            float two_pi, float bin_scale) {
+  float d = __fsub_rn(a_src, a_tgt);
+  if (fabsf(d) < FLT_MIN) d = 0.0f;
+  float rot = fmodf(d, two_pi);
   if (rot != 0.0f && rot < 0.0f) rot = __fadd_rn(rot, two_pi);
-  const float scaled =
-      __fmul_rn(__fmul_rn(rot, static_cast<float>(kHisto)), inv_two_pi);
-  return psl_clamp(static_cast<int>(scaled), 0, kHisto - 1);
+  return psl_clamp(static_cast<int>(__fmul_rn(rot, bin_scale)), 0,
+                   kHisto - 1);
 }
 
 // K26's rows a thread keeps in registers: rows tid, tid + 1024, ...,
@@ -405,7 +412,7 @@ struct FrameArgs {
   const int* level_tgt;    // (B, N)
   const float* inv_s2_table;  // (n_levels,)
   int n_levels;
-  float two_pi, inv_two_pi;
+  float two_pi, bin_scale;
   int* ff_out;
   float* obs_uv;
   float* obs_ur;
@@ -441,7 +448,7 @@ __device__ __forceinline__ FrameRow frame_gather(const FrameArgs& a,
 // A frame-mode row's bin, computed once.
 __device__ __forceinline__ void frame_bin(const FrameArgs& a, FrameRow& r,
                                           float a_src) {
-  r.bin = r.ff >= 0 ? rotation_bin(a_src, r.at, a.two_pi, a.inv_two_pi) : -1;
+  r.bin = r.ff >= 0 ? rotation_bin(a_src, r.at, a.two_pi, a.bin_scale) : -1;
 }
 
 // One histogram entry per warp and bin: the lanes of a bin found by
@@ -554,7 +561,7 @@ __global__ void __launch_bounds__(kBlockThreads) frame_matches_kernel(
   for (int r = 0; r < R; ++r) {
     if (kFilter) {
       row[r].bin = ok[r] ? rotation_bin(a_src[r], a_tgt[r], a.two_pi,
-                                        a.inv_two_pi)
+                                        a.bin_scale)
                          : -1;
     } else {
       frame_bin(a, row[r], a_src[r]);
@@ -569,7 +576,7 @@ __global__ void __launch_bounds__(kBlockThreads) frame_matches_kernel(
         if (__ldg(a.valid_in + bm + i) != 0) {
           bin = rotation_bin(__ldg(a.angle_src + bm + i),
                              __ldg(a.angle_tgt + bm + i), a.two_pi,
-                             a.inv_two_pi);
+                             a.bin_scale);
         }
       } else {
         FrameRow x = frame_gather(a, bn, __ldg(ff_in + bm + i));
@@ -618,7 +625,7 @@ __global__ void __launch_bounds__(kBlockThreads) frame_matches_kernel(
       const int bin =
           v ? rotation_bin(__ldg(a.angle_src + bm + i),
                            __ldg(a.angle_tgt + bm + i), a.two_pi,
-                           a.inv_two_pi)
+                           a.bin_scale)
             : -1;
       a.keep_out[bm + i] = bin >= 0 && ((keep >> bin) & 1u) ? 1 : 0;
     } else {
@@ -787,11 +794,11 @@ PSL_API int psl_frame_match_select(
     if (m >= kFrameMaxRows || (!filter && (n < 1 || n_levels < 1))) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    // the reciprocal PyTorch's division by a number multiplies with
-    const float inv_two_pi = 1.0f / two_pi;
+    // JAX's bin scale: float32(30) / float32(two_pi), one rounding
+    const float bin_scale = static_cast<float>(kHisto) / two_pi;
     const FrameArgs a{proj_idx,  bf_idx, valid_in,  angle_src, angle_tgt,
                       m,         n,      uv_tgt,    ur_tgt,    level_tgt,
-                      inv_s2_table, n_levels, two_pi, inv_two_pi, ff_out,
+                      inv_s2_table, n_levels, two_pi, bin_scale, ff_out,
                       obs_uv,    obs_ur, obs_inv_s2, obs_valid, keep_out};
     return filter ? frame_matches_launch<true>(a, batch, stream)
                   : frame_matches_launch<false>(a, batch, stream);

@@ -62,6 +62,14 @@
 // atomics, and one block a step with six items a thread, were slower on
 // the card.) Bound: latency (about 140 KB in and 63 KB out per step).
 //
+// K38 lift_state replaces _state_from as planarslam_tpu/slam/
+// device_tracker.py::make_last_state runs it (:163-183): the world points
+// of a frame's features at T_cw and their mask, the carried state a lane
+// starts from (at initialization, after a relocalization or a modular
+// frame). It runs K31's lift alone (lift_feature), a feature a thread, so
+// its bits are K31's new_state's and the plain _state_from's on the card.
+// Bound: latency (about 24 KB in and 13 KB out per lane).
+//
 // The plain versions spell every 3 x 3 product, dot and norm in a fixed
 // order and this file is built with -fmad=false, so every float equals the
 // plain version's bit for bit: a division by a Python number is PyTorch's
@@ -94,6 +102,28 @@ __device__ __forceinline__ void t_inv_translation(const float* T,
   for (int i = 0; i < 3; ++i) {
     tw[i] = -dot3(T[i], T[4 + i], T[8 + i], T[3], T[7], T[11]);
   }
+}
+
+// _state_from's lift (device_tracker.py::_lift_features) of one feature at
+// the pose T: its camera point ((u - cx) inv_fx z, (v - cy) inv_fy z,
+// max(z, 0)) moved to the world by T_inv(T), written to w (0 where it has
+// no depth or is invalid); returns that it has. K31 and K38 share it.
+__device__ __forceinline__ bool lift_feature(const float* T, float u, float v,
+                                             float z, bool valid, float cx,
+                                             float cy, float inv_fx,
+                                             float inv_fy, float* w) {
+  float tw[3];
+  t_inv_translation(T, tw);
+  const bool has = z > 0.0f && valid;
+  const float pc[3] = {__fmul_rn(__fmul_rn(__fsub_rn(u, cx), inv_fx), z),
+                       __fmul_rn(__fmul_rn(__fsub_rn(v, cy), inv_fy), z),
+                       clamp_min(z, 0.0f)};
+  for (int i = 0; i < 3; ++i) {
+    const float x =
+        __fadd_rn(dot3(T[i], T[4 + i], T[8 + i], pc[0], pc[1], pc[2]), tw[i]);
+    w[i] = has ? x : 0.0f;
+  }
+  return has;
 }
 
 // plane_geo.transform(T_inv(T), c): n' = R^T n, d' = d - n' . t'
@@ -560,18 +590,9 @@ __device__ __forceinline__ int tail_finish(const TailArgs& a, int b,
       bundle_i[a.off[kWinIdx] + j] = (inl || slot < 0) ? slot : -1;
       bundle_i[a.off[kPtInlier] + j] = inl ? 1 : 0;
       // _state_from at T_out: the feature's camera point to the world
-      float tw[3];
-      t_inv_translation(T, tw);
-      const bool has = z > 0.0f && valid;
-      const float pc[3] = {
-          __fmul_rn(__fmul_rn(__fsub_rn(it.f[0], a.cx), a.inv_fx), z),
-          __fmul_rn(__fmul_rn(__fsub_rn(it.f[1], a.cy), a.inv_fy), z),
-          clamp_min(z, 0.0f)};
-      for (int i = 0; i < 3; ++i) {
-        const float w = __fadd_rn(
-            dot3(T[i], T[4 + i], T[8 + i], pc[0], pc[1], pc[2]), tw[i]);
-        a.pt3d_w[3 * o + i] = has ? w : 0.0f;
-      }
+      const bool has = lift_feature(T, it.f[0], it.f[1], z, valid, a.cx,
+                                    a.cy, a.inv_fx, a.inv_fy,
+                                    a.pt3d_w + 3 * o);
       a.valid3d[o] = has ? 1 : 0;
       const bool close = z > 0.0f && z < a.depth_threshold;
       const bool tracked = obs2 && inl;
@@ -717,7 +738,59 @@ __global__ void __launch_bounds__(kTailThreads) finish_step_kernel(
   }
 }
 
+// ---------------------------------------------------------------- K38 ---
+
+constexpr int kLiftThreads = 256;
+
+// A feature a thread, lane blockIdx.y; the lane's pose staged in shared
+// memory by its first 16 threads while every thread's loads are in flight.
+__global__ void __launch_bounds__(kLiftThreads) lift_state_kernel(
+    const float* __restrict__ pt_uv, const float* __restrict__ pt_depth,
+    const unsigned char* __restrict__ pt_valid,
+    const float* __restrict__ T_cw, int K, float cx, float cy, float inv_fx,
+    float inv_fy, float* __restrict__ pt3d_w,
+    unsigned char* __restrict__ valid3d) {
+  __shared__ float T[16];
+  const int b = blockIdx.y;
+  const int j = blockIdx.x * kLiftThreads + threadIdx.x;
+  const size_t o = static_cast<size_t>(b) * K + j;
+  float u = 0.0f, v = 0.0f, z = 0.0f;
+  bool valid = false;
+  if (j < K) {
+    u = __ldg(pt_uv + 2 * o);
+    v = __ldg(pt_uv + 2 * o + 1);
+    z = __ldg(pt_depth + o);
+    valid = __ldg(pt_valid + o) != 0;
+  }
+  if (threadIdx.x < 16) T[threadIdx.x] = __ldg(T_cw + 16 * b + threadIdx.x);
+  __syncthreads();
+  if (j < K) {
+    valid3d[o] = lift_feature(T, u, v, z, valid, cx, cy, inv_fx, inv_fy,
+                              pt3d_w + 3 * o)
+                     ? 1
+                     : 0;
+  }
+}
+
 }  // namespace
+
+// pt_uv (B, K, 2), pt_depth (B, K), pt_valid (B, K), T_cw (B, 4, 4), K,
+// batch, cx, cy, inv_fx, inv_fy (the reciprocals PyTorch's division by
+// fx and fy multiplies with), pt3d_w (B, K, 3), valid3d (B, K)
+PSL_API int psl_lift_state(const float* pt_uv, const float* pt_depth,
+                           const unsigned char* pt_valid, const float* T_cw,
+                           int K, int batch, float cx, float cy, float inv_fx,
+                           float inv_fy, float* pt3d_w, unsigned char* valid3d,
+                           cudaStream_t stream) {
+  if (K < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (K > 0 && batch > 0) {
+    const dim3 grid((K + kLiftThreads - 1) / kLiftThreads, batch);
+    lift_state_kernel<<<grid, kLiftThreads, 0, stream>>>(
+        pt_uv, pt_depth, pt_valid, T_cw, K, cx, cy, inv_fx, inv_fy, pt3d_w,
+        valid3d);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 PSL_API int psl_associate_planes(
     const float* coeffs, const unsigned char* valid, const float* T_cw,

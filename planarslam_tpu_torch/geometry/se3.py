@@ -253,6 +253,38 @@ def _det3(A):
     return torch.sum(a0 * torch.linalg.cross(a1, a2), dim=-1)
 
 
+def _dot3_cols(a, b):
+    """(a0 b0 + a1 b1) + a2 b2 over the last axis (csrc/eig3.cuh's order)."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+
+def _orthonormal_basis(V):
+    """The eigenvectors V (columns) of R^T R as orthonormal columns. Where R
+    is near a rotation, the three eigenvalues of R^T R coincide and the
+    cross products the closed-form solver takes its eigenvectors from lose
+    their direction (columns a percent or two from orthogonal were seen);
+    any orthonormal basis then serves, since the polar factor is R times
+    about the identity. There, with a column pair more than 1e-4 from
+    orthogonal, the high column stays, the middle one becomes the unit axis
+    least aligned with it made orthogonal to it (the first such axis among
+    equals), the low one their cross product; elsewhere V is kept as it
+    is."""
+    lo, mid, hi = V[..., :, 0], V[..., :, 1], V[..., :, 2]
+    off = torch.maximum(torch.maximum(torch.abs(_dot3_cols(lo, mid)),
+                                      torch.abs(_dot3_cols(lo, hi))),
+                        torch.abs(_dot3_cols(mid, hi)))
+    k = torch.argmin(torch.abs(hi), dim=-1, keepdim=True)
+    e = torch.zeros_like(hi).scatter_(-1, k, 1.0)
+    m = e - torch.gather(hi, -1, k) * hi
+    m = m / torch.clamp(torch.sqrt(_dot3_cols(m, m)), min=1e-30)[..., None]
+    cross = torch.stack([m[..., 1] * hi[..., 2] - m[..., 2] * hi[..., 1],
+                         m[..., 2] * hi[..., 0] - m[..., 0] * hi[..., 2],
+                         m[..., 0] * hi[..., 1] - m[..., 1] * hi[..., 0]],
+                        dim=-1)
+    fixed = torch.stack([cross, m, hi], dim=-1)
+    return torch.where((off > 1e-4)[..., None, None], fixed, V)
+
+
 def orthonormalize(R):
     """Project a near-rotation onto SO(3) (reference `Tracking.cc:1123-1128`).
 
@@ -266,6 +298,7 @@ def orthonormalize(R):
 
     M = R.transpose(-1, -2) @ R
     evals, V = eigh_sym3x3(M)
+    V = _orthonormal_basis(V)
     inv_sqrt = 1.0 / torch.sqrt(torch.clamp(evals, min=1e-30))
     Q = R @ (V * inv_sqrt[..., None, :]) @ V.transpose(-1, -2)
     q0, q1, q2 = Q[..., :, 0], Q[..., :, 1], Q[..., :, 2]

@@ -42,7 +42,8 @@ KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
                 "assemble_observations", "noise_alpha", "frame_normals",
                 "associate_planes", "finish_step", "refine_relative",
                 "ba_plane_blocks", "ba_cost_test", "ba_reduced_system",
-                "step_prelude")
+                "step_prelude", "decode_step_inputs", "lift_state",
+                "seed_manhattan")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -55,7 +56,7 @@ CUDA_SOURCES = ("fast_score.cu", "orb_describe.cu", "hamming_top2.cu",
                 "pyramid.cu", "select_keypoints.cu", "lines.cu",
                 "line_lift_search.cu", "matching.cu", "depth_normals.cu",
                 "step_tail.cu", "refine_relative.cu", "ba_step.cu",
-                "step_prelude.cu")
+                "step_prelude.cu", "step_decode.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # Sources whose float32 gates must round as the plain version's separate
@@ -70,7 +71,8 @@ SOURCE_FLAGS = {"plane_segment.cu": ("-fmad=false",),
                 "depth_normals.cu": ("-fmad=false",),
                 "step_tail.cu": ("-fmad=false",),
                 "ba_step.cu": ("-fmad=false",),
-                "step_prelude.cu": ("-fmad=false",)}
+                "step_prelude.cu": ("-fmad=false",),
+                "step_decode.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -155,6 +157,20 @@ _SIGNATURES = {
     # ln_valid, L, normals, normals_valid, Nn, R_wm, batch, T_last, T_pred,
     # dirs, dirs_valid, R_init, stream
     "psl_step_prelude": [_P] * 8 + [_I, _P, _P, _I, _P, _I] + [_P] * 6,
+    # gray (or NULL), gray_stride, depth (or NULL), depth_hi (or NULL),
+    # depth_stride, depth_kind, hw, batch, scale, gray_out, depth_out (or
+    # NULL), win, win_stride, off_pt, n_pt, off_ln, n_ln, off_pl, off_cn,
+    # n_pl, pt_valid, ln_valid, pl_valid, pl_cloud_n, stream
+    "psl_decode_step_inputs": [_P, _L, _P, _P, _L] + [_I] * 3 + [_F]
+                              + [_P] * 3 + [_L] + [_I] * 7 + [_P] * 5,
+    # pt_uv, pt_depth, pt_valid, T_cw, K, batch, cx, cy, inv_fx, inv_fy,
+    # pt3d_w, valid3d, stream
+    "psl_lift_state": [_P] * 4 + [_I] * 2 + [_F] * 4 + [_P] * 3,
+    # coeffs, count, pl_valid, P, p3d_s, p3d_e, has_3d, ln_valid, response,
+    # L, normals, normals_valid, Nn, batch, R_seed, seed_ok, picks, dirs,
+    # dirs_valid, stream
+    "psl_seed_manhattan": [_P] * 3 + [_I] + [_P] * 5 + [_I] + [_P] * 2
+                          + [_I] * 2 + [_P] * 6,
     # The all-levels entry points take the host's level table (`rows`, the
     # int32 array of ops/levels.py) and a leading batch count.
     # buf, out, rows, n_levels, batch, stream

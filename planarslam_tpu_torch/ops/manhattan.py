@@ -13,6 +13,10 @@ frame of a leading batch); its plain PyTorch version
 ``track_manhattan_frame_plain`` runs for CPU tensors only. With
 ``init=InitSelect(...)`` the kernel's epilogue also forms the tracking
 step's initial pose (``init_select_plain`` is its plain version).
+``seed_manhattan`` is the wrapper of K39 (the same source): the
+initializer's seed rotation from plane normals and line directions
+(``seed_from_plane_normals``), with the direction set of the mean shift
+after it; ``seed_manhattan_plain`` is its plain version.
 """
 
 from __future__ import annotations
@@ -214,13 +218,8 @@ def track_manhattan_frame(R_cm_init: torch.Tensor, normals: torch.Tensor,
     return res if init is None else ManhattanInit(*res, T_init, use_manh)
 
 
-def seed_from_plane_normals(normals: torch.Tensor, counts: torch.Tensor,
-                            valid: torch.Tensor
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Initial Manhattan frame from detected plane (and line) directions:
-    the best-supported direction is axis 1, the most-perpendicular
-    well-supported one axis 2, their cross product axis 3.
-    Returns (R_cm (3,3), ok ())."""
+def _seed(normals: torch.Tensor, counts: torch.Tensor, valid: torch.Tensor):
+    """seed_from_plane_normals with its two picks: (R_cm, ok, i0, i1)."""
     w = torch.where(valid, counts.to(torch.float32), 0.0)
     i0 = torch.argmax(w)
     a0 = normals[i0]
@@ -233,4 +232,91 @@ def seed_from_plane_normals(normals: torch.Tensor, counts: torch.Tensor,
     a1 = a1 / torch.clamp(torch.linalg.norm(a1), min=1e-9)
     a2 = torch.linalg.cross(a0, a1)
     R = torch.stack([a0, a1, a2], dim=-1)
-    return se3.orthonormalize(R), ok
+    return se3.orthonormalize(R), ok, i0, i1
+
+
+def seed_from_plane_normals(normals: torch.Tensor, counts: torch.Tensor,
+                            valid: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Initial Manhattan frame from detected plane (and line) directions:
+    the best-supported direction is axis 1, the most-perpendicular
+    well-supported one axis 2, their cross product axis 3.
+    Returns (R_cm (3,3), ok ())."""
+    return _seed(normals, counts, valid)[:2]
+
+
+def _empty(shape, dtype, dev) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=dev)
+
+
+class ManhattanSeed(NamedTuple):
+    """K39's outputs (every field with the frames' leading B)."""
+
+    R_seed: torch.Tensor      # (3, 3) float32 the seed rotation
+    ok: torch.Tensor          # () bool a perpendicular axis was found
+    picks: torch.Tensor       # (2,) int32 the two arg-maxes (i0, i1)
+    dirs: torch.Tensor        # (Nn + L, 3) normals, then line directions
+    dirs_valid: torch.Tensor  # (Nn + L,) bool
+
+
+def seed_manhattan_plain(coeffs, count, pl_valid, p3d_s, p3d_e, has_3d,
+                         ln_valid, response, normals, normals_valid
+                         ) -> ManhattanSeed:
+    """Plain version of K39 for one frame: the line directions (valid when
+    lifted, valid and longer than 0.1 m; |v| = sqrt((v0^2 + v2^2) + v1^2),
+    the card's vector norm, as K36), seed_from_plane_normals over the plane
+    normals (weights: pixel counts) and the line directions (weights: the
+    responses truncated to int), and the direction set of the mean shift
+    that follows (the normals, then the line directions)."""
+    v = (p3d_e - p3d_s).unbind(-1)
+    ln_len = torch.sqrt((v[0] * v[0] + v[2] * v[2]) + v[1] * v[1])
+    den = torch.clamp(ln_len, min=1e-9)
+    ln_dir = torch.stack([c / den for c in v], dim=-1)
+    ln_ok = has_3d & ln_valid & (ln_len > 0.1)
+    R, ok, i0, i1 = _seed(torch.cat([coeffs[:, :3], ln_dir]),
+                          torch.cat([count, response.to(torch.int32)]),
+                          torch.cat([pl_valid, ln_ok]))
+    return ManhattanSeed(R, ok, torch.stack([i0, i1]).to(torch.int32),
+                         torch.cat([normals, ln_dir]),
+                         torch.cat([normals_valid, ln_ok]))
+
+
+@record_function("manhattan.seed_manhattan")
+def seed_manhattan(coeffs, count, pl_valid, p3d_s, p3d_e, has_3d, ln_valid,
+                   response, normals, normals_valid) -> ManhattanSeed:
+    """K39 wrapper: B frames' planes, coeffs (B, P, 4) float32, count (B,
+    P) int32, pl_valid (B, P) bool; lines, p3d_s, p3d_e (B, L, 3) float32,
+    has_3d, ln_valid (B, L) bool, response (B, L) float32; surface normals
+    (B, Nn, 3) float32 and normals_valid (B, Nn) bool. Returns
+    ManhattanSeed with the leading B; one launch."""
+    tensors = [coeffs, count, pl_valid, p3d_s, p3d_e, has_3d, ln_valid,
+               response, normals, normals_valid]
+    if kernels.on_cpu(*tensors):
+        return kernels.per_problem(seed_manhattan_plain, tensors)
+    tensors = [t.contiguous() for t in tensors]
+    b, p = pl_valid.shape
+    n_l, nn = ln_valid.shape[1], normals_valid.shape[1]
+    for t, name, dtype, shape in zip(
+            tensors, ("coeffs", "count", "pl_valid", "p3d_s", "p3d_e",
+                      "has_3d", "ln_valid", "response", "normals",
+                      "normals_valid"),
+            (torch.float32, torch.int32, torch.bool, torch.float32,
+             torch.float32, torch.bool, torch.bool, torch.float32,
+             torch.float32, torch.bool),
+            ((p, 4), (p,), (p,), (n_l, 3), (n_l, 3), (n_l,), (n_l,),
+             (n_l,), (nn, 3), (nn,))):
+        kernels.check(t, name, dtype, (b, *shape))
+    if p + n_l < 1:
+        raise ValueError("seed_manhattan: no candidate direction")
+    dev = coeffs.device
+    out = ManhattanSeed(R_seed=_empty((b, 3, 3), torch.float32, dev),
+                        ok=_empty((b,), torch.bool, dev),
+                        picks=_empty((b, 2), torch.int32, dev),
+                        dirs=_empty((b, nn + n_l, 3), torch.float32, dev),
+                        dirs_valid=_empty((b, nn + n_l), torch.bool, dev))
+    ptrs = [kernels.ptr(t) for t in tensors]
+    with torch.cuda.device(dev):
+        kernels.launch("psl_seed_manhattan", *ptrs[:3], p, *ptrs[3:8], n_l,
+                       *ptrs[8:], nn, b, *[kernels.ptr(t) for t in out])
+    kernels.LAUNCHES["seed_manhattan"] += 1
+    return out

@@ -27,6 +27,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -40,6 +41,11 @@ INF_DIST = 10_000
 # K26 holds these two as constants (kHisto, kMinProj in csrc/matching.cu)
 HISTO_LENGTH = 30     # rotation histogram bins (the reference's HISTO_LENGTH)
 MIN_PROJ_MATCHES = 20  # fewer projection matches: the brute-force fallback
+# JAX's jitted rot * HISTO_LENGTH / two_pi is one product with this
+# constant, float32(30) / float32(2 pi) (XLA folds the two constants);
+# K26 takes the same product
+BIN_SCALE = float(np.float32(HISTO_LENGTH) / np.float32(2.0 * math.pi))
+FLT_MIN = float(np.finfo(np.float32).tiny)  # the least normal float32
 # K27 keeps two int32 slots per target in shared memory and K25 one key of
 # at most 64 bits, within the 48 KB a block has without opting in: 6x the
 # largest N of any caller (the frame's or a keyframe's max_keypoints, 1024
@@ -423,16 +429,26 @@ def _per_level(table: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
     return table[torch.clamp(level, 0, table.shape[0] - 1).to(torch.int64)]
 
 
+def rotation_bins(angle_src: torch.Tensor, angle_tgt: torch.Tensor
+                  ) -> torch.Tensor:
+    """The rotation-histogram bin (int64) of each angle difference, as JAX's
+    jitted rotation_histogram_filter gives it: jnp.mod into [0, 2 pi), then
+    one product with BIN_SCALE, truncated and clamped. A denormal
+    difference counts as 0 (bin 0): JAX on the CPU flushes it."""
+    d = angle_src - angle_tgt
+    d = torch.where(torch.abs(d) < FLT_MIN, 0.0, d)
+    rot = mod(d, 2.0 * math.pi)
+    return torch.clamp((rot * BIN_SCALE).to(torch.int64), 0,
+                       HISTO_LENGTH - 1)
+
+
 def rotation_histogram_filter_plain(angle_src: torch.Tensor,
                                     angle_tgt_matched: torch.Tensor,
                                     valid: torch.Tensor) -> torch.Tensor:
     """Plain version of K26's filter: keep matches whose angle difference
     falls in the 3 most common bins; bins 2 and 3 only when they hold >= 10%
     of the best bin's count."""
-    two_pi = 2.0 * math.pi
-    rot = mod(angle_src - angle_tgt_matched, two_pi)
-    bins = torch.clamp((rot * HISTO_LENGTH / two_pi).to(torch.int64), 0,
-                       HISTO_LENGTH - 1)
+    bins = rotation_bins(angle_src, angle_tgt_matched)
     counts = torch.zeros(HISTO_LENGTH, dtype=torch.int32,
                          device=valid.device)
     counts = counts.index_add(0, bins, valid.to(torch.int32))

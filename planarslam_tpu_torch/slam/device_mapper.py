@@ -7,24 +7,28 @@ Port of ``planarslam_tpu/slam/device_mapper.py``. Per keyframe,
 CUDA stream:
 
   - fuse search: the new keyframe's landmarks projected into each neighbour
-    and matched within a window (``matching.search_by_projection``, one K3
-    launch per neighbour);
+    and matched within a window (``matching.search_by_projection`` with the
+    neighbours as its leading dimension: one K24, K3 and K25 launch);
   - point triangulation: brute-force matching of the new keyframe's free
     (unassociated, depthless) features against each neighbour's free
-    features (``matching.match_descriptors``, K3), then the two-view DLT and
-    chi2 gates for all neighbours at once (K5, ``solvers/triangulation``);
+    features (``matching.match_descriptors``, one K3 and one K25 launch for
+    all neighbours), then the two-view DLT and chi2 gates for all
+    neighbours at once (K5, ``solvers/triangulation``);
   - line triangulation: cosine matching of free segments and the cut of the
     own endpoint rays with the neighbour's back-projection plane (plain
     PyTorch; 5 x 64 x 64 similarities are too small for a kernel yet).
 
-The JAX module vmaps over the neighbours; here the searches loop over them
-and the DLT takes them as a batch dimension. The result is one packed
+The JAX module vmaps over the neighbours; here they are the leading batch
+dimension of every kernel. The result is one packed
 bundle (``MappingLayout``) pulled through a pinned buffer behind a CUDA
 event (``tracking._HostPull``); ``join_mapping_step`` waits for it and
 unpacks it into the dict the host code reads.
 
-``run_fuse_set`` / ``_fuse_set_impl`` project a landmark set into up to
-``N_NEIGHBORS`` target keyframes (keyframe creation).
+``run_fuse_set`` / ``fuse_set_step_packed`` project a landmark set into up
+to ``N_NEIGHBORS`` target keyframes (keyframe creation, the mapping step,
+loop closing's fuse): one packed pinned upload (``FuseSetInputLayout``),
+one launch each of K24, K3 and K25 over the targets padded to
+``N_NEIGHBORS``, one pull.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from torch.profiler import record_function
 from planarslam_tpu_torch.config import SystemConfig
 from planarslam_tpu_torch.device import resolve_device
 from planarslam_tpu_torch.ops import matching
-from planarslam_tpu_torch.slam.device_tracker import _f32_bits, _tensor_from
+from planarslam_tpu_torch.slam.device_tracker import _f32_bits
 from planarslam_tpu_torch.slam.tracking import _HostPull, _upload
 from planarslam_tpu_torch.solvers.triangulation import triangulate_two_view
 
@@ -220,10 +224,13 @@ def _mapping_step_impl(
     fuse_idx = _fuse_set_impl(lm_xyz, lm_desc, lm_valid, nb_T, nb_uv, nb_desc,
                               nb_level, nb_valid, nb_ur, nb_ok, cfg,
                               radius=3.0)
-    # triangulation candidates: free features matched to each neighbour
-    tri_idx = torch.stack([matching.match_descriptors(
-        own_desc, nb_desc[i], own_free & nb_ok[i], nb_free[i],
-        max_dist=cfg.matcher.th_low, ratio=0.8).idx for i in range(NB)])
+    # triangulation candidates: free features matched to each neighbour,
+    # the neighbours as the leading dimension of one match (one K3 and one
+    # K25 launch)
+    tri_idx = matching.match_descriptors(
+        own_desc.expand(NB, *own_desc.shape).contiguous(), nb_desc,
+        own_free[None] & nb_ok[:, None], nb_free,
+        max_dist=cfg.matcher.th_low, ratio=0.8).idx
     j = torch.clamp(tri_idx, 0, Kp - 1).to(torch.int64)
     uv2 = torch.gather(nb_uv, 1, j[..., None].expand(-1, -1, 2))
     level2 = torch.gather(nb_level, 1, j)
@@ -251,32 +258,58 @@ def mapping_step_packed(flat: torch.Tensor, cfg: SystemConfig
                               cfg)
 
 
+class FuseSetInputLayout(PackedInputLayout):
+    """_fuse_set_impl inputs (10 fields) as one packed upload."""
+
+    def __init__(self, cfg: SystemConfig):
+        K = cfg.orb.max_keypoints
+        C = cfg.orb.max_keypoints  # landmark set capacity (== K)
+        NB = N_NEIGHBORS
+        super().__init__([
+            ("lm_xyz", (C, 3), "f"), ("lm_desc", (C, 8), "u"),
+            ("lm_valid", (C,), "b"), ("nb_T", (NB, 4, 4), "f"),
+            ("nb_uv", (NB, K, 2), "f"), ("nb_desc", (NB, K, 8), "u"),
+            ("nb_level", (NB, K), "i"), ("nb_valid", (NB, K), "b"),
+            ("nb_ur", (NB, K), "f"), ("nb_ok", (NB,), "b"),
+        ])
+
+
 def _fuse_set_impl(lm_xyz, lm_desc, lm_valid, nb_T, nb_uv, nb_desc, nb_level,
                    nb_valid, nb_ur, nb_ok, cfg: SystemConfig,
                    radius: float = 4.0) -> torch.Tensor:
-    """Project the landmark set into each target keyframe and match.
-    Returns (NB, C) int32 feature index or -1 (all -1 for targets with
-    nb_ok False)."""
+    """Project the landmark set into each of the NB target keyframes and
+    match: one search_by_projection over the targets as its leading
+    dimension (one launch each of K24, K3 and K25, whatever NB). Returns
+    (NB, C) int32 feature index or -1 (all -1 for targets with nb_ok
+    False)."""
     cam = cfg.camera
-    K = (cam.fx, cam.fy, cam.cx, cam.cy)
-    rows = []
-    for i in range(nb_T.shape[0]):
-        res = matching.search_by_projection(
-            lm_xyz, lm_desc, lm_valid & nb_ok[i], nb_T[i], nb_uv[i],
-            nb_desc[i], nb_level[i], nb_valid[i], nb_ur[i],
-            K=K, image_wh=(float(cam.width), float(cam.height)), bf=cam.bf,
-            scale_factor=cfg.orb.scale_factor, radius=radius,
-            max_dist=cfg.matcher.th_low, level_window=1)
-        rows.append(res.idx)
-    return torch.stack(rows)
+    NB = nb_T.shape[0]
+    res = matching.search_by_projection(
+        lm_xyz.expand(NB, *lm_xyz.shape), lm_desc.expand(NB, *lm_desc.shape),
+        lm_valid[None] & nb_ok[:, None], nb_T, nb_uv, nb_desc, nb_level,
+        nb_valid, nb_ur, K=(cam.fx, cam.fy, cam.cx, cam.cy),
+        image_wh=(float(cam.width), float(cam.height)), bf=cam.bf,
+        scale_factor=cfg.orb.scale_factor, radius=radius,
+        max_dist=cfg.matcher.th_low, level_window=1)
+    return res.idx
 
 
-def run_fuse_set(slam_map, lm_ids: np.ndarray, target_kfs, cfg: SystemConfig,
-                 radius: float = 4.0, device="cuda") -> dict:
-    """Host wrapper: gather the landmark set and the target keyframes
-    (the real targets only; at most N_NEIGHBORS), run the fuse search on
-    `device`, pull the result."""
-    device = resolve_device(device)
+@record_function("device_mapper.fuse_set")
+def fuse_set_step_packed(flat, cfg: SystemConfig, radius: float = 4.0,
+                         device="cuda") -> torch.Tensor:
+    """_fuse_set_impl over one packed input buffer (FuseSetInputLayout; a
+    tensor, or a numpy array uploaded to `device`). Returns (NB, C) int32."""
+    if not isinstance(flat, torch.Tensor):
+        flat = _upload(np.asarray(flat, np.float32), resolve_device(device))
+    return _fuse_set_impl(*FuseSetInputLayout(cfg).unpack_device(flat), cfg,
+                          radius=radius)
+
+
+def fuse_set_inputs(slam_map, lm_ids: np.ndarray, target_kfs,
+                    cfg: SystemConfig):
+    """The packed input buffer (numpy) of a fuse set, the landmark set cut
+    to C = max_keypoints and the targets padded to N_NEIGHBORS with nb_ok
+    False, as the JAX package packs it, and its host-side selections."""
     m = slam_map
     C = cfg.orb.max_keypoints
     ids = np.full(C, 0, np.int64)
@@ -285,27 +318,31 @@ def run_fuse_set(slam_map, lm_ids: np.ndarray, target_kfs, cfg: SystemConfig,
     valid = np.zeros(C, bool)
     valid[:n] = m.pt_valid[ids[:n]]
     NB = N_NEIGHBORS
-    tg = np.asarray(list(target_kfs)[:NB], np.int64)
-
-    def put(a):
-        return _tensor_from(a, device)
-
-    idx = _fuse_set_impl(
-        put(m.pt_xyz[ids].astype(np.float32)), put(m.pt_desc[ids]),
-        put(valid), put(m.kf_pose[tg].astype(np.float32)),
-        put(m.kf_uv[tg].astype(np.float32)), put(m.kf_desc[tg]),
-        put(m.kf_level[tg].astype(np.int32)), put(m.kf_feat_valid[tg]),
-        put(m.kf_ur[tg].astype(np.float32)),
-        torch.ones(len(tg), dtype=torch.bool, device=device), cfg,
-        radius=radius)
-    out = np.full((NB, C), -1, np.int32)
-    out[:len(tg)] = idx.cpu().numpy()
+    tg = [int(t) for t in list(target_kfs)[:NB]]
+    nb_arr = np.asarray((tg + [0] * NB)[:NB], np.int64)
     nb_ok = np.zeros(NB, bool)
     nb_ok[:len(tg)] = True
-    nb_ids = np.zeros(NB, np.int64)
-    nb_ids[:len(tg)] = tg
-    return {"idx": out, "lm_ids": ids, "lm_valid": valid, "nb_ids": nb_ids,
-            "nb_ok": nb_ok}
+    flat = FuseSetInputLayout(cfg).pack({
+        "lm_xyz": m.pt_xyz[ids], "lm_desc": m.pt_desc[ids],
+        "lm_valid": valid, "nb_T": m.kf_pose[nb_arr],
+        "nb_uv": m.kf_uv[nb_arr], "nb_desc": m.kf_desc[nb_arr],
+        "nb_level": m.kf_level[nb_arr], "nb_valid": m.kf_feat_valid[nb_arr],
+        "nb_ur": m.kf_ur[nb_arr], "nb_ok": nb_ok})
+    return flat, {"lm_ids": ids, "lm_valid": valid, "nb_ids": nb_arr,
+                  "nb_ok": nb_ok}
+
+
+def run_fuse_set(slam_map, lm_ids: np.ndarray, target_kfs, cfg: SystemConfig,
+                 radius: float = 4.0, device="cuda") -> dict:
+    """Host wrapper of the fuse set over up to N_NEIGHBORS target
+    keyframes: one pinned packed upload, one fuse_set_step_packed (K24, K3
+    and K25 once each), one pull. Returns JAX's run_fuse_set dict (the
+    rows of absent targets all -1)."""
+    device = resolve_device(device)
+    flat, out = fuse_set_inputs(slam_map, lm_ids, target_kfs, cfg)
+    idx = fuse_set_step_packed(_upload(flat, device), cfg, radius=radius)
+    out["idx"] = _HostPull(idx).result()
+    return out
 
 
 def run_mapping_step(slam_map, kf: int, cfg: SystemConfig,

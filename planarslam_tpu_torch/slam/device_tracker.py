@@ -44,7 +44,8 @@ versions spell every 3 x 3 product, dot and norm in a fixed order
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -169,14 +170,22 @@ def _pack(layout: BundleLayout, **arrays) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def depth_scale(cfg: SystemConfig) -> float:
+    """float32(1) / float32(depth_map_factor). JAX's jitted division of the
+    raw depth by float32(depth_map_factor) is one product with this
+    reciprocal (XLA rewrites the division by a constant); the plain decode
+    and K37 take the same product, which PyTorch also takes on the card."""
+    return float(np.float32(1) / np.float32(cfg.camera.depth_map_factor))
+
+
 def to_gray_depth(gray_raw: torch.Tensor, depth_raw: torch.Tensor,
                   cfg: SystemConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Native sensor formats (uint8 gray, uint16 depth) -> float32 gray in
-    [0, 255] and depth in metres. Float inputs pass through as float32."""
+    [0, 255] and depth in metres (raw times depth_scale(cfg)). Float inputs
+    pass through as float32."""
     gray = gray_raw.to(torch.float32)
     if depth_raw.dtype in (torch.uint16, torch.int32):
-        depth = depth_raw.to(torch.float32) / float(
-            np.float32(cfg.camera.depth_map_factor))
+        depth = depth_raw.to(torch.float32) * depth_scale(cfg)
     else:
         depth = depth_raw.to(torch.float32)
     return gray, depth
@@ -201,6 +210,117 @@ def pack_frame(gray: np.ndarray, depth: np.ndarray):
     out[1] = (depth & 0xFF).astype(np.uint8)
     out[2] = (depth >> 8).astype(np.uint8)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K37: the step's sensor decode and window casts
+
+
+def decode_step_inputs_plain(frame_u8: torch.Tensor, win_flat: torch.Tensor,
+                             cfg: SystemConfig
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        "DeviceWindow"]:
+    """Plain version of K37: the packed (B, 3, H, W) uint8 frames unpacked
+    and decoded (float32 grey and depth in metres, (B, H, W) each) and the
+    windows (B, S) unpacked with their casts."""
+    gray, depth = to_gray_depth(*unpack_frame(frame_u8), cfg)
+    return gray, depth, unpack_window(win_flat, cfg)
+
+
+# how K37 reads a lane's depth (csrc/step_decode.cu's DepthKind)
+_DEPTH_KIND = {torch.int32: 2, torch.uint16: 3}
+
+
+@record_function("device_tracker.decode_step_inputs")
+def _decode(win_flat: torch.Tensor, cfg: SystemConfig,
+            frame: Optional[torch.Tensor] = None,
+            gray: Optional[torch.Tensor] = None,
+            depth: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, "DeviceWindow"]:
+    """K37 wrapper: the windows win_flat (B, S) float32 and either the
+    packed frames `frame` (B, 3, H, W) uint8 or the frames `gray`, `depth`
+    (B, H, W), each uint8 / int32 or uint16 sensor values or float (which
+    pass through undecoded). One launch for all of it on the card; the
+    plain version on the CPU. Returns (gray, depth, DeviceWindow), the
+    window's float fields views of win_flat."""
+    tensors = [t for t in (frame, gray, depth) if t is not None]
+    if kernels.on_cpu(win_flat, *tensors):
+        if frame is not None:
+            return decode_step_inputs_plain(frame, win_flat, cfg)
+        return (*to_gray_depth(gray, depth, cfg), unpack_window(win_flat, cfg))
+    win_flat = win_flat.contiguous()
+    if win_flat.dim() != 2:
+        raise ValueError(f"win_flat: expected (B, S), got "
+                         f"{tuple(win_flat.shape)}")
+    b, S = win_flat.shape
+    layout = _window_fields(cfg.map.max_planes, cfg.lines.desc_dim)
+    kernels.check(win_flat, "win_flat", torch.float32, (b, layout[-1][2]
+                                                        + layout[-1][3]))
+    dev = win_flat.device
+    gray_src = depth_src = depth_hi = None
+    g_stride = d_stride = 0
+    kind = 0
+    if frame is not None:
+        frame = frame.contiguous()
+        kernels.check(frame, "frame", torch.uint8, (b, 3, *frame.shape[2:]))
+        h, w = frame.shape[2:]
+        hw = h * w
+        gray_src = depth_src = kernels.ptr(frame)
+        depth_src += hw
+        depth_hi = depth_src + hw
+        g_stride = d_stride = 3 * hw
+        kind = 1
+    else:
+        h, w = gray.shape[1:]
+        hw = h * w
+        if gray.dtype == torch.uint8:
+            gray = gray.contiguous()
+            kernels.check(gray, "gray", torch.uint8, (b, h, w))
+            gray_src, g_stride = kernels.ptr(gray), hw
+        if depth.dtype in _DEPTH_KIND:
+            depth = depth.contiguous()
+            kernels.check(depth, "depth", depth.dtype, (b, h, w))
+            depth_src, d_stride = kernels.ptr(depth), hw
+            kind = _DEPTH_KIND[depth.dtype]
+    gray_out = (_empty((b, h, w), torch.float32, dev) if gray_src is not None
+                else gray.to(torch.float32))
+    depth_out = (_empty((b, h, w), torch.float32, dev) if kind
+                 else depth.to(torch.float32))
+    views = window_views(win_flat, cfg)
+    off = {name: o for name, _, o, _ in layout}
+    n_pt, n_ln, n_pl = (views[k].shape[-1] for k in
+                        ("pt_valid", "ln_valid", "pl_valid"))
+    flags = {k: _empty((b, views[k].shape[-1]), torch.bool, dev)
+             for k in ("pt_valid", "ln_valid", "pl_valid")}
+    cloud_n = _empty((b, n_pl), torch.int64, dev)
+    with torch.cuda.device(dev):
+        kernels.launch(
+            "psl_decode_step_inputs", gray_src, g_stride, depth_src,
+            depth_hi, d_stride, kind, hw, b, depth_scale(cfg),
+            kernels.ptr(gray_out) if gray_src is not None else None,
+            kernels.ptr(depth_out) if kind else None, kernels.ptr(win_flat),
+            S, off["pt_valid"], n_pt, off["ln_valid"], n_ln,
+            off["pl_valid"], off["pl_cloud_n"], n_pl,
+            *[kernels.ptr(flags[k]) for k in ("pt_valid", "ln_valid",
+                                               "pl_valid")],
+            kernels.ptr(cloud_n))
+    kernels.LAUNCHES["decode_step_inputs"] += 1
+    views.update(flags, pl_cloud_n=cloud_n,
+                 pt_desc=views["pt_desc"].view(torch.int32))
+    return gray_out, depth_out, DeviceWindow(**views)
+
+
+def decode_step_inputs(frame_u8, win_flat, cfg: SystemConfig,
+                       device="cuda"
+                       ) -> Tuple[torch.Tensor, torch.Tensor, "DeviceWindow"]:
+    """The tracking step's inputs from the packed (B, 3, H, W) uint8 sensor
+    frames (gray, depth_lo, depth_hi) and the packed (B, S) float32 local-
+    map windows (tensors or numpy arrays, moved to `device`): float32 grey
+    and depth in metres (B, H, W) and the DeviceWindow. K37 on the card,
+    decode_step_inputs_plain on the CPU."""
+    dev = resolve_device(device)
+    return _decode(torch.as_tensor(win_flat).to(dev), cfg,
+                   frame=torch.as_tensor(frame_u8).to(dev))
 
 
 def _t_inv(T: torch.Tensor):
@@ -235,10 +355,63 @@ def _lift_features(pts: PointFeatures, T_cw: torch.Tensor, cam
     return torch.where(has[:, None], pw, 0.0), has
 
 
+def lift_state_plain(uv: torch.Tensor, depth: torch.Tensor,
+                     valid: torch.Tensor, T_cw: torch.Tensor,
+                     cfg: SystemConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K38's lift for one lane: the world points (K, 3) of
+    the features uv (K, 2), depth (K,), valid (K,) at T_cw (4, 4), 0 where
+    a feature has no depth, and that mask."""
+    return _lift_features(PointFeatures(
+        uv=uv, uv_raw=None, response=None, level=None, angle=None,
+        desc=None, depth=depth, u_right=None, valid=valid), T_cw, cfg.camera)
+
+
+def lift_state(uv: torch.Tensor, depth: torch.Tensor, valid: torch.Tensor,
+               T_cw: torch.Tensor, cfg: SystemConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K38 wrapper: B lanes' features, uv (B, K, 2) float32, depth (B, K)
+    float32, valid (B, K) bool, at their poses T_cw (B, 4, 4) float32 (read
+    on the device). Returns the world points (B, K, 3), 0 where a feature
+    has no depth, and that mask (B, K) bool. One launch."""
+    cam = cfg.camera
+    if kernels.on_cpu(uv, depth, valid, T_cw):
+        return kernels.per_problem(lift_state_plain, [uv, depth, valid, T_cw],
+                                   cfg)
+    uv, depth, valid, T_cw = [t.contiguous() for t in (uv, depth, valid,
+                                                        T_cw)]
+    b, k = valid.shape
+    kernels.check(uv, "uv", torch.float32, (b, k, 2))
+    kernels.check(depth, "depth", torch.float32, (b, k))
+    kernels.check(valid, "valid", torch.bool, (b, k))
+    kernels.check(T_cw, "T_cw", torch.float32, (b, 4, 4))
+    dev = uv.device
+    pt3d_w = _empty((b, k, 3), torch.float32, dev)
+    valid3d = _empty((b, k), torch.bool, dev)
+    with torch.cuda.device(dev):
+        kernels.launch("psl_lift_state", kernels.ptr(uv), kernels.ptr(depth),
+                       kernels.ptr(valid), kernels.ptr(T_cw), k, b,
+                       float(cam.cx), float(cam.cy),
+                       kernels.scalar_reciprocal(cam.fx),
+                       kernels.scalar_reciprocal(cam.fy),
+                       kernels.ptr(pt3d_w), kernels.ptr(valid3d))
+    kernels.LAUNCHES["lift_state"] += 1
+    return pt3d_w, valid3d
+
+
 @record_function("device_tracker._state_from")
 def _state_from(feats: FrameFeatures, T_cw, velocity,
                 cfg: SystemConfig) -> LastState:
-    pt3d_w, has = _lift_features(feats.points, T_cw, cfg.camera)
+    """The carried state of a frame tracked at T_cw: its features, their
+    world points and mask (lift_state: K38 on the card, its plain version
+    on the CPU), T_cw and the velocity. feats, T_cw (4, 4) and velocity of
+    one lane, or each with a leading B."""
+    pts = feats.points
+    one = T_cw.dim() == 2
+    lead = (lambda t: t[None]) if one else (lambda t: t)
+    pt3d_w, has = lift_state(lead(pts.uv), lead(pts.depth), lead(pts.valid),
+                             lead(T_cw), cfg)
+    if one:
+        pt3d_w, has = pt3d_w[0], has[0]
     return LastState(feats=feats, pt3d_w=pt3d_w, valid3d=has, T_cw=T_cw,
                      velocity=velocity)
 
@@ -365,20 +538,22 @@ def fused_track_step(gray: torch.Tensor, depth: torch.Tensor,
     """B lanes' tracking step: gray, depth (B, H, W) (uint8 / uint16-as-
     int32 sensor values or float32), T_override (B, 4, 4), use_override
     (B,) bool, R_wm (B, 3, 3), manh_enabled (B,) bool, the carried state
-    and the packed windows (B, S), each with the leading B."""
-    gray, depth = to_gray_depth(gray, depth, cfg)
+    and the packed windows (B, S), each with the leading B. The frames'
+    decode and the windows' casts are one K37 launch."""
+    gray, depth, win = _decode(win_flat, cfg, gray=gray, depth=depth)
     feats = extract_frame(gray, depth, cfg)
     return _track_core(feats, T_override, use_override, R_wm, manh_enabled,
-                       last, win_flat, weights, cfg)
+                       last, win, weights, cfg)
 
 
 def fused_track_step_packed(frame_u8: torch.Tensor, T_override, use_override,
                             R_wm, manh_enabled, last: LastState, win_flat,
                             weights, cfg: SystemConfig) -> StepResult:
     """fused_track_step over packed (B, 3, H, W) uint8 sensor frames."""
-    gray, depth16 = unpack_frame(frame_u8)
-    return fused_track_step(gray, depth16, T_override, use_override, R_wm,
-                            manh_enabled, last, win_flat, weights, cfg)
+    gray, depth, win = _decode(win_flat, cfg, frame=frame_u8)
+    feats = extract_frame(gray, depth, cfg)
+    return _track_core(feats, T_override, use_override, R_wm, manh_enabled,
+                       last, win, weights, cfg)
 
 
 def _in_view(T, pts, K, cam) -> torch.Tensor:
@@ -661,15 +836,14 @@ def step_prelude(T_override, use_override, T_cw, velocity, p3d_s, p3d_e,
 
 
 def _track_core(feats: FrameFeatures, T_override, use_override, R_wm,
-                manh_enabled, last: LastState, win_flat: torch.Tensor,
+                manh_enabled, last: LastState, win: DeviceWindow,
                 weights: pose_opt.PoseOptWeights,
                 cfg: SystemConfig) -> StepResult:
     """Everything after extraction, for B lanes (every input with a
-    leading B): Manhattan tracking, matching, plane association, pose
-    optimization, bundle packing. One launch of each kernel serves all
-    lanes."""
-    win = unpack_window(win_flat, cfg)
-    dev = win_flat.device
+    leading B, the windows decoded by K37): Manhattan tracking, matching,
+    plane association, pose optimization, bundle packing. One launch of
+    each kernel serves all lanes."""
+    dev = win.pt_xyz.device
     cam = cfg.camera
     K = (cam.fx, cam.fy, cam.cx, cam.cy)
     wh = (float(cam.width), float(cam.height))
@@ -962,38 +1136,43 @@ def build_window_host(slam_map, kf_ids: np.ndarray, cfg: SystemConfig):
     return flat, pt_pad, ln_pad
 
 
+@functools.lru_cache(maxsize=None)
+def _window_fields(max_planes: int, desc_dim: int) -> tuple:
+    """(name, shape, offset, size) of each field of build_window's packed
+    buffer, in DeviceWindow's order: the offset table, built once per
+    configuration."""
+    W, Wl, Mp = WIN_PTS, WIN_LNS, max_planes
+    shapes = [(W, 3), (W, 8), (W, 3), (W,), (W,), (W,),
+              (Wl, 3), (Wl, 3), (Wl, desc_dim), (Wl,),
+              (Mp, 4), (Mp, ASSOC_CLOUD, 3), (Mp,), (Mp,)]
+    out, off = [], 0
+    for name, shp in zip(DeviceWindow._fields, shapes):
+        n = int(np.prod(shp))
+        out.append((name, shp, off, n))
+        off += n
+    return tuple(out)
+
+
+def window_views(flat: torch.Tensor, cfg: SystemConfig) -> dict:
+    """Each field of build_window's packed buffer (S,), or of B lanes'
+    windows (B, S), as a float32 view (with the leading B)."""
+    lead = flat.shape[:-1]
+    return {name: flat[..., off:off + n].reshape(*lead, *shp)
+            for name, shp, off, n in _window_fields(cfg.map.max_planes,
+                                                    cfg.lines.desc_dim)}
+
+
 @record_function("device_tracker.unpack_window")
 def unpack_window(flat: torch.Tensor, cfg: SystemConfig) -> DeviceWindow:
     """Views into build_window's packed buffer (S,), or into B lanes'
-    windows (B, S), every field then with the leading B."""
-    W, Wl = WIN_PTS, WIN_LNS
-    Mp = cfg.map.max_planes
-    ld = cfg.lines.desc_dim
-    shapes = [
-        (W, 3), (W, 8), (W, 3), (W,), (W,), (W,),
-        (Wl, 3), (Wl, 3), (Wl, ld), (Wl,),
-        (Mp, 4), (Mp, ASSOC_CLOUD, 3), (Mp,), (Mp,),
-    ]
-    fields = []
-    off = 0
-    lead = flat.shape[:-1]
-    for shp in shapes:
-        n = int(np.prod(shp))
-        fields.append(flat[..., off:off + n].reshape(*lead, *shp))
-        off += n
-    (pt_xyz, pt_desc_f, pt_normal, pt_min_d, pt_max_d, pt_valid_f,
-     ln_sw, ln_ew, ln_desc, ln_valid_f,
-     pl_coeffs, pl_cloud, pl_cloud_n_f, pl_valid_f) = fields
-    return DeviceWindow(
-        pt_xyz=pt_xyz, pt_desc=pt_desc_f.view(torch.int32),
-        pt_normal=pt_normal, pt_min_d=pt_min_d, pt_max_d=pt_max_d,
-        pt_valid=pt_valid_f > 0.5,
-        ln_sw=ln_sw, ln_ew=ln_ew, ln_desc=ln_desc,
-        ln_valid=ln_valid_f > 0.5,
-        pl_coeffs=pl_coeffs, pl_cloud=pl_cloud,
-        pl_cloud_n=pl_cloud_n_f.to(torch.int64),
-        pl_valid=pl_valid_f > 0.5,
-    )
+    windows (B, S), every field then with the leading B; the flags compared
+    > 0.5 and the cloud counts cast to int64 (K37's casts, plain)."""
+    v = window_views(flat, cfg)
+    v.update(pt_desc=v["pt_desc"].view(torch.int32),
+             pt_valid=v["pt_valid"] > 0.5, ln_valid=v["ln_valid"] > 0.5,
+             pl_cloud_n=v["pl_cloud_n"].to(torch.int64),
+             pl_valid=v["pl_valid"] > 0.5)
+    return DeviceWindow(**v)
 
 
 def _subsample_clouds_fixed(m) -> np.ndarray:

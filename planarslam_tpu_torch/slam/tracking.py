@@ -259,24 +259,20 @@ class Tracking:
             np.full(self.cfg.lines.max_lines, -1, np.int32),
             plane_matches=None)
         self.ref_kf = kf
-        ln = feats_dev.lines
-        ln_vec = ln.p3d_e - ln.p3d_s
-        ln_len = torch.linalg.norm(ln_vec, dim=-1, keepdim=True)
-        ln_dirs = ln_vec / torch.clamp(ln_len, min=1e-9)
-        ln_ok = ln.has_3d & ln.valid & (ln_len[:, 0] > 0.1)
-        pl = feats_dev.planes
-        R_seed, seed_ok = manhattan_ops.seed_from_plane_normals(
-            torch.cat([pl.coeffs[:, :3], ln_dirs], dim=0),
-            torch.cat([pl.count, ln.response.to(torch.int32)], dim=0),
-            torch.cat([pl.valid, ln_ok], dim=0))
+        # the Manhattan seed from the plane normals and line directions, and
+        # the direction set of the mean shift after it (K39, B = 1)
+        ln, pl = feats_dev.lines, feats_dev.planes
+        seed = manhattan_ops.seed_manhattan(*[t[None] for t in (
+            pl.coeffs, pl.count, pl.valid, ln.p3d_s, ln.p3d_e, ln.has_3d,
+            ln.valid, ln.response, feats_dev.normals,
+            feats_dev.normals_valid)])
         res = manhattan_ops.track_manhattan_frame(
-            R_seed, torch.cat([feats_dev.normals, ln_dirs], dim=0),
-            torch.cat([feats_dev.normals_valid, ln_ok], dim=0),
+            seed.R_seed, seed.dirs, seed.dirs_valid,
             cone_sin=self.cfg.manhattan.cone_sin_project,
             kernel=self.cfg.manhattan.mean_shift_kernel,
             min_support=self.cfg.manhattan.min_axis_support)
-        if bool(seed_ok) and bool(res.success):
-            self.R_wm = res.R_cm.cpu().numpy()
+        if bool(seed.ok[0]) and bool(res.success[0]):
+            self.R_wm = res.R_cm[0].cpu().numpy()
         self._set_last(feats_dev, feats)
         self.state = TrackingState.OK
         self.records.append(FrameRecord(timestamp,

@@ -1682,3 +1682,150 @@ def test_step_prelude_kernel(dev):
     want = device_tracker.step_prelude_plain(*args)
     _same_bits(got, want)
     _same_bits(got, again)
+
+
+def _decoded(out):
+    gray, depth, win = out
+    return [gray, depth, *win]
+
+
+@pytest.mark.parametrize("shape", [(480, 640), (481, 643), (48, 64)])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_decode_step_inputs(dev, shape, batch):
+    """K37 on packed frames (seeded grey and uint16 depth; 481 x 643 takes
+    the scalar path) and chip_smoke.py's planted windows (flags 0, 0.5,
+    the float above, 1 and NaN; cloud counts 0, 1 and 128): one launch a
+    call, bit-equal to decode_step_inputs_plain in every output (NaN
+    window entries by their bits), each lane of a batch equal to its own
+    launch, two launches equal bits."""
+    cfg = SystemConfig()
+    rng = np.random.default_rng(37 + batch)
+    h, w = shape
+    frames = np.stack([device_tracker.pack_frame(
+        rng.integers(0, 256, (h, w), dtype=np.uint8),
+        rng.integers(0, 65536, (h, w), dtype=np.uint16))
+        for _ in range(batch)])
+    wins = np.stack([chip_smoke.planted_window(cfg, 40 + b)
+                     for b in range(batch)])
+    f = torch.from_numpy(frames).to(dev)
+    win = torch.from_numpy(wins).to(dev)
+    got, n = _launched("decode_step_inputs", device_tracker.decode_step_inputs,
+                       f, win, cfg)
+    assert n == 1
+    got = _decoded(got)
+    _same_bits(got, _decoded(device_tracker.decode_step_inputs_plain(
+        f, win, cfg)))
+    _same_bits(got, _decoded(device_tracker.decode_step_inputs(f, win, cfg)))
+    for b in range(batch):
+        one = _decoded(device_tracker.decode_step_inputs(f[b:b + 1],
+                                                         win[b:b + 1], cfg))
+        _same_bits([x[b:b + 1] for x in got], one)
+
+
+def test_decode_step_inputs_all_depths(dev):
+    """K37's depth on a frame holding every uint16 value: raw times
+    float32(1) / float32(5000) in one rounding, bit for bit, and the same
+    through the unpacked int32 entry."""
+    cfg = SystemConfig()
+    fr = torch.from_numpy(chip_smoke.all_depths_frame()[None]).to(dev)
+    win = torch.from_numpy(chip_smoke.planted_window(cfg)[None]).to(dev)
+    gray, depth, _ = device_tracker.decode_step_inputs(fr, win, cfg)
+    raw = np.arange(65536, dtype=np.float32).reshape(1, 256, 256)
+    want = raw * (np.float32(1) / np.float32(cfg.camera.depth_map_factor))
+    np.testing.assert_array_equal(depth.cpu().numpy().view(np.int32),
+                                  want.view(np.int32))
+    d32 = torch.from_numpy(np.arange(65536, dtype=np.int32).reshape(
+        1, 256, 256)).to(dev)
+    _, d2, _ = device_tracker._decode(win, cfg, gray=gray, depth=d32)
+    _same_bits([d2], [depth])
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_lift_state(dev, batch):
+    """K38 on seeded features (some without depth, some invalid) at B
+    poses: bit-equal to lift_state_plain lane by lane; one launch."""
+    cfg = SystemConfig()
+    rng = np.random.default_rng(38)
+    K = 1024
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    uv = t(rng.uniform(0, [640, 480], (batch, K, 2)).astype(np.float32))
+    depth = t(np.where(rng.random((batch, K)) < 0.8,
+                       rng.uniform(0.3, 6, (batch, K)), 0).astype(
+                           np.float32))
+    valid = t(rng.random((batch, K)) < 0.9)
+    T = t(np.stack([_pose(rng) for _ in range(batch)]))
+    got, n = _launched("lift_state", device_tracker.lift_state, uv, depth,
+                       valid, T, cfg)
+    assert n == 1
+    for b in range(batch):
+        want = device_tracker.lift_state_plain(uv[b], depth[b], valid[b],
+                                               T[b], cfg)
+        _same_bits([x[b] for x in got], want)
+
+
+@pytest.mark.parametrize("case", chip_smoke.SEED_PLANTED)
+def test_seed_manhattan_planted(dev, case):
+    """K39 on chip_smoke.py's planted direction sets: R_seed within 1e-6
+    of seed_manhattan_plain, ok, the picks and the direction set exact;
+    one launch."""
+    from planarslam_tpu_torch.ops import manhattan
+
+    args = [torch.from_numpy(np.ascontiguousarray(a))[None].to(dev)
+            for a in chip_smoke.planted_seed_problem(case, SystemConfig())]
+    got, n = _launched("seed_manhattan", manhattan.seed_manhattan, *args)
+    assert n == 1
+    want = manhattan.seed_manhattan_plain(*[a[0] for a in args])
+    torch.testing.assert_close(got.R_seed[0], want.R_seed, rtol=0,
+                               atol=chip_smoke.SEED_TOLERANCE)
+    _same_bits([got.ok[0], got.picks[0], got.dirs[0], got.dirs_valid[0]],
+               [want.ok, want.picks, want.dirs, want.dirs_valid])
+
+
+def test_rotation_bins_at_edges(dev):
+    """The 270 edge rotations and the denormal ones binned as JAX bins
+    them (chip_smoke.JAX_EDGE_BINS): the plain bins on the card and K26's
+    through its filter mode (chip_smoke.edge_bin_parity)."""
+    got = chip_smoke.edge_bin_parity(dev)
+    assert got["k26_equal_jax"] == got["plain_equal_jax"] == got["values"]
+
+
+def test_fuse_search_over_targets(dev):
+    """The fuse set's search with the five targets as the leading batch
+    (one launch each of K24, K3 and K25) equals five searches, one a
+    target, on a seeded landmark set; a target with nb_ok False matches
+    nothing."""
+    from planarslam_tpu_torch.slam import device_mapper
+
+    cfg = SystemConfig()
+    rng = np.random.default_rng(21)
+    K, NB = cfg.orb.max_keypoints, device_mapper.N_NEIGHBORS
+    layout = device_mapper.FuseSetInputLayout(cfg)
+    T = np.stack([_pose(rng, trans=0.05) for _ in range(NB)])
+    xyz = rng.uniform([-2, -1.5, 2], [2, 1.5, 5], (K, 3)).astype(np.float32)
+    pc = np.einsum("bij,kj->bki", T[:, :3, :3], xyz) + T[:, None, :3, 3]
+    cam = cfg.camera
+    uv = np.stack([cam.fx * pc[..., 0] / pc[..., 2] + cam.cx,
+                   cam.fy * pc[..., 1] / pc[..., 2] + cam.cy], -1)
+    uv += rng.normal(scale=1.0, size=uv.shape)
+    desc = rng.integers(0, 2 ** 32, (K, 8), dtype=np.uint32)
+    nb_desc = np.repeat(desc[None], NB, 0) ^ (
+        rng.random((NB, K, 8)) < 0.01).astype(np.uint32)
+    flat = layout.pack({
+        "lm_xyz": xyz, "lm_desc": desc, "lm_valid": rng.random(K) < 0.9,
+        "nb_T": T, "nb_uv": uv.astype(np.float32), "nb_desc": nb_desc,
+        "nb_level": rng.integers(0, 3, (NB, K)),
+        "nb_valid": rng.random((NB, K)) < 0.95,
+        "nb_ur": np.full((NB, K), -1, np.float32),
+        "nb_ok": np.array([True, True, False, True, True])})
+    ft = torch.from_numpy(flat).to(dev)
+    before = dict(kernels.LAUNCHES)
+    got = device_mapper.fuse_set_step_packed(ft, cfg)
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in chip_smoke.
+            FUSE_SET_LAUNCHES} == chip_smoke.FUSE_SET_LAUNCHES
+    with chip_smoke.per_target_matching():
+        want = device_mapper.fuse_set_step_packed(ft, cfg)
+    assert torch.equal(got, want)
+    assert bool((got[2] == -1).all()) and int((got >= 0).sum()) > 1000

@@ -22,10 +22,11 @@ from scipy.spatial.transform import Rotation
 from planarslam_tpu import config as jconfig
 from planarslam_tpu.geometry import se3 as jse3
 from planarslam_tpu.ops import matching as jmatch
-from chip_smoke import (FILTER_KEYS, FRAME_KEYS, FRAME_PLANTED,
-                        SELECT_PLANTED, card_rotation_bins,
+from chip_smoke import (DENORMAL_ROTATIONS, FILTER_KEYS, FRAME_KEYS,
+                        FRAME_PLANTED, JAX_EDGE_BINS, SELECT_PLANTED,
+                        card_rotation_bins, edge_bin_probe,
                         planted_frame_lanes, planted_select_lanes,
-                        rotation_bin_edges)
+                        rotation_edge_values)
 from planarslam_tpu_torch.ops import lax_compat
 from planarslam_tpu_torch.ops import matching as tmatch
 
@@ -389,32 +390,17 @@ def _jax_bins(angle_src, angle_tgt):
 
 
 def _plain_bins(angle_src, angle_tgt):
-    """The rotation bins of the plain version (rotation_histogram_filter_
-    plain's two lines) on the CPU."""
-    two_pi = 2.0 * math.pi
-    rot = lax_compat.mod(_t(angle_src) - _t(angle_tgt), two_pi)
-    return torch.clamp((rot * 30 / two_pi).to(torch.int64), 0, 29).numpy()
-
-
-def _edge_rows(angle_src, angle_tgt, matched):
-    """Matched rows whose rotation JAX (its product with float32(30 / 2
-    pi) under jit) and the plain version on the CPU (PyTorch's division)
-    bin differently; each lies within 1e-4 of a bin of a bin edge."""
-    jb = np.asarray(_jax_bins(jnp.asarray(angle_src), jnp.asarray(angle_tgt)))
-    rows = matched & (jb != _plain_bins(angle_src, angle_tgt))
-    rot = np.mod(angle_src.astype(np.float64) - angle_tgt, 2 * math.pi)
-    scaled = rot * 30 / (2 * math.pi)
-    near = np.abs(scaled - np.round(scaled)) < 1e-4
-    assert not (rows & ~near).any()
-    return rows
+    """The rotation bins of the plain version on the CPU
+    (matching.rotation_bins, which rotation_histogram_filter_plain and
+    frame_match_select_plain take)."""
+    return tmatch.rotation_bins(_t(angle_src), _t(angle_tgt)).numpy()
 
 
 def _planted_frame_vs_jax(case):
     """Every problem of a planted K26 case, four seeds: the plain version
-    equal to the jit of device_tracker.py:314-338 lane by lane, rows at a
-    bin edge where the two float forms bin differently (_edge_rows) left
-    out, and the wrapper's B = 4 equal to it; the kept matches as the case
-    plants them."""
+    equal to the jit of device_tracker.py:314-338 lane by lane in every
+    row (the bin edges included), and the wrapper's B = 4 equal to it; the
+    kept matches as the case plants them."""
     sf = CONFIGS["full"].orb.scale_factor
     table = tmatch.level_inv_sigma2(sf, 8, "cpu")
     for p in planted_frame_lanes(case, 4):
@@ -428,15 +414,10 @@ def _planted_frame_vs_jax(case):
                                                   table)
             for g4, g in zip(got4, got):
                 assert torch.equal(g4[b], g)
-            proj, bf, a_src, a_tgt = lane[:4]
-            ff = bf if (proj >= 0).sum() < 20 else proj
-            keep = ~_edge_rows(a_src, a_tgt[np.clip(ff, 0, len(a_tgt) - 1)],
-                               ff >= 0)
             for g, w in zip(got, want):
-                np.testing.assert_array_equal(g.numpy()[keep], w[keep])
+                np.testing.assert_array_equal(g.numpy(), w)
             if p["expect"] is not None:
                 assert (want[0] >= 0).sum() == p["expect"]
-                assert keep.all()
 
 
 @pytest.mark.parametrize(
@@ -468,15 +449,15 @@ def test_frame_match_select_plain_vs_jax(case, n):
     assert 0.5 * had < kept < had  # the histogram dropped some, not most
 
 
-@pytest.mark.parametrize("k", range(4))
+@pytest.mark.parametrize("k", range(5))
 def test_rotation_histogram_filter_plain_vs_jax(k):
     """K26's filter mode, the plain version against planarslam_tpu/ops/
     matching.py::rotation_histogram_filter under jit on chip_smoke.py's
     planted filter problems (M = 1, 1024 with the bin edges, 4096 with
-    rotations just below 0, 5000), four seeds: the kept mask exact (rows
-    at a bin edge where the float forms differ left out, _edge_rows), the
+    rotations just below 0, 5000, 1024 with the 270 edge values and the
+    denormal rotations), four seeds: the kept mask exact in every row, the
     wrapper's B = 4 equal lane by lane, the kept matches as planted."""
-    p = planted_frame_lanes("filter", 4)[k]
+    p = planted_frame_lanes("filter", 5)[k]
     got4 = tmatch.rotation_histogram_filter(*[_t(p[key])
                                               for key in FILTER_KEYS])
     jfilter = jax.jit(jmatch.rotation_histogram_filter)
@@ -485,35 +466,62 @@ def test_rotation_histogram_filter_plain_vs_jax(k):
         want = np.asarray(jfilter(*[jnp.asarray(a) for a in lane]))
         got = tmatch.rotation_histogram_filter_plain(*[_t(a) for a in lane])
         assert torch.equal(got4[b], got)
-        keep = ~_edge_rows(lane[0], lane[1], lane[2])
-        np.testing.assert_array_equal(got.numpy()[keep], want[keep])
+        np.testing.assert_array_equal(got.numpy(), want)
         if p["expect"] is not None:
-            assert want.sum() == p["expect"] and keep.all()
+            assert want.sum() == p["expect"]
         else:
             assert 0 < want.sum() < lane[2].sum()
 
 
 def test_rotation_bin_float_forms():
-    """The bins of three float forms of rot * 30 / 2 pi: JAX under jit,
-    the plain version on the CPU and the card's (K26 and the plain version
-    there, chip_smoke.card_rotation_bins). Equal on 10^5 rotations at least
-    1e-4 of a bin from an edge; at every float32 k 2 pi / 30 and the float
-    either side (rotation_bin_edges) at most one bin apart."""
+    """The bins of rot * 30 / 2 pi in JAX under jit, in the plain version
+    (matching.rotation_bins) and in the card's form (K26 and the plain
+    version there, chip_smoke.card_rotation_bins) are equal: on 10^5
+    seeded rotations and differences of seeded angles, on the 270 edge
+    values (rotation_edge_values: every float32 k 2 pi / 30, the float
+    either side, each as it is, less and plus float32 2 pi) and on
+    denormal rotations (0 in JAX on the CPU, which flushes them); and
+    chip_smoke.JAX_EDGE_BINS, which the card is held to, are JAX's bins of
+    the 270."""
     rng = np.random.default_rng(26)
-    rot = rng.uniform(0, 2 * math.pi, 100000).astype(np.float32)
-    scaled = rot.astype(np.float64) * 30 / (2 * math.pi)
-    rot = rot[np.abs(scaled - np.round(scaled)) > 1e-4]
-    zero = np.zeros_like(rot)
-    jb = np.asarray(_jax_bins(jnp.asarray(rot), jnp.asarray(zero)))
-    np.testing.assert_array_equal(_plain_bins(rot, zero), jb)
-    np.testing.assert_array_equal(card_rotation_bins(rot), jb)
-    edges = rotation_bin_edges()
-    zero = np.zeros_like(edges)
-    forms = [np.asarray(_jax_bins(jnp.asarray(edges), jnp.asarray(zero))),
-             _plain_bins(edges, zero), card_rotation_bins(edges)]
-    for x in forms:
-        for y in forms:
-            assert np.abs(x.astype(int) - y.astype(int)).max() <= 1
+    f32 = np.float32
+    rot = rng.uniform(0, 2 * math.pi, 100000).astype(f32)
+    a = rng.uniform(-math.pi, 3 * math.pi, (2, 100000)).astype(f32)
+    edges = rotation_edge_values()
+    assert len(edges) == 270
+    for src, tgt in ((rot, np.zeros_like(rot)), (a[0], a[1]),
+                     (edges, np.zeros_like(edges)),
+                     (DENORMAL_ROTATIONS, np.zeros_like(DENORMAL_ROTATIONS))):
+        jb = np.asarray(_jax_bins(jnp.asarray(src), jnp.asarray(tgt)))
+        np.testing.assert_array_equal(_plain_bins(src, tgt), jb)
+        np.testing.assert_array_equal(
+            card_rotation_bins((src - tgt).astype(f32)), jb)
+    np.testing.assert_array_equal(
+        np.asarray(_jax_bins(jnp.asarray(edges), jnp.zeros(270, f32))),
+        np.array(JAX_EDGE_BINS))
+    np.testing.assert_array_equal(
+        np.asarray(_jax_bins(jnp.asarray(DENORMAL_ROTATIONS),
+                             jnp.zeros(len(DENORMAL_ROTATIONS), f32))), 0)
+
+
+def test_edge_bin_probe_reads_the_bins():
+    """chip_smoke.edge_bin_probe, which reads K26's bins of the 270 edge
+    values and the denormal rotations through its filter mode: with the
+    expected bins, JAX's jitted rotation_histogram_filter keeps every
+    value's row in both of its lanes, the plain version keeps the same
+    rows as JAX in every lane, and with a bin one off a lane drops it."""
+    values = np.concatenate([rotation_edge_values(), DENORMAL_ROTATIONS])
+    bins = np.array(JAX_EDGE_BINS + (0,) * len(DENORMAL_ROTATIONS))
+    jfilter = jax.jit(jax.vmap(jmatch.rotation_histogram_filter))
+    for shift in (0, 1):
+        probe = edge_bin_probe(values, (bins + shift) % 30)
+        want = np.asarray(jfilter(*[jnp.asarray(probe[k])
+                                    for k in FILTER_KEYS]))
+        got = tmatch.rotation_histogram_filter(*[_t(probe[k])
+                                                 for k in FILTER_KEYS])
+        np.testing.assert_array_equal(got.numpy(), want)
+        both = want[:, 0].reshape(-1, 2).all(axis=1)
+        assert both.all() if shift == 0 else not both.any()
 
 
 # ---------------------------------------------------------------------------

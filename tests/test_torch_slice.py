@@ -186,6 +186,14 @@ def _entry_points():
         "pnp_ransac": lambda **kw: pnp.pnp_ransac(p3, p2, ok, K, **kw),
         "run_fuse_set": lambda **kw:
             tdm.run_fuse_set(m(), np.zeros(0, np.int64), [], cfg, **kw),
+        "fuse_set_step_packed": lambda **kw: tdm.fuse_set_step_packed(
+            np.zeros(tdm.FuseSetInputLayout(cfg).total, np.float32), cfg,
+            **kw),
+        "decode_step_inputs": lambda **kw: tdt.decode_step_inputs(
+            np.zeros((1, 3, 120, 160), np.uint8),
+            np.zeros((1, tdt._window_fields(cfg.map.max_planes,
+                                            cfg.lines.desc_dim)[-1][2]),
+                     np.float32), cfg, **kw),
         "run_mapping_step": lambda **kw:
             tdm.run_mapping_step(m(), 0, cfg, **kw),
         "dispatch_mapping_step": lambda **kw:

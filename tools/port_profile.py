@@ -33,15 +33,16 @@ record_function names of the port's stage functions, among them
 device_mapper.mapping_step, local_mapping.finish_keyframe,
 tracking.relocalize, loop_closing.process_keyframe, pose_graph.optimize,
 global_ba.global_bundle_adjustment and local_ba.local_bundle_adjustment,
-the fused step's device_tracker.unpack_window and
-device_tracker.step_prelude (K36), and the spans of K28-K31's wrappers:
+the fused step's device_tracker.decode_step_inputs (K37; unpack_window
+before) and device_tracker.step_prelude (K36), and the spans of K28-K31's
+wrappers:
 planes.extract_planes (K28 in it), planes.frame_normals (K29; box_smooth_depth, backproject_depth and
 surface_normals before), device_tracker._associate_planes_device (K30;
 with plane_observations before) and device_tracker.finish_step (K31;
 keyframe_stats, _pack and _state_from before)),
 the host time and the device time of its kernels, the busy share of the
 device over the window, the device time and launches of each
-hand-written kernel per frame (K1-K36, `port_kernels_ms_per_frame`; their
+hand-written kernel per frame (K1-K39, `port_kernels_ms_per_frame`; their
 share of the busy time, and every other device event by name), the
 host-to-device copies per frame, the device time of each launch of K17
 and K18 apart (`port_launches_per_frame`: by kernel name and grid, so
@@ -132,6 +133,9 @@ PORT_KERNELS = {
                          "cost_select_kernel"),
     "K35 ba_reduced_system": ("reduced_system_kernel",),
     "K36 step_prelude": ("step_prelude_kernel",),
+    "K37 decode_step_inputs": ("decode_step_kernel",),
+    "K38 lift_state": ("lift_state_kernel",),
+    "K39 seed_manhattan": ("seed_manhattan_kernel",),
 }
 
 
