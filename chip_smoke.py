@@ -123,7 +123,14 @@ Phases, each fatal on failure:
      clones; then the loop kernels' parity (loop_kernel_parity): K32-K35
      against their plain versions on the inputs path 4b's correction gave
      them (its two loop-edge refinements, one LM step of its first global
-     BA solve), two launches equal bits;
+     BA solve), two launches equal bits; then schur_pose_graph_parity:
+     K40 (the Schur complement over shared landmarks) against the dense
+     product on that LM step, path 4c's dense orbit, SCHUR_PLANTED
+     problems and four lanes at B = 4, each entry within 2 (n - 1) 2^-24
+     of the sum of its |terms|, blocks of pairs sharing no landmark
+     exactly 0, the same Cholesky info; K10 with the gauge diagonal and
+     K41 (the pose update) along path 4b's 10 Gauss-Newton steps, K10 on
+     the 96-keyframe graph, K41 on UPDATE_PLANTED steps and at B = 4;
   9. path 4c, BA at scale: ba_solve on a 96-keyframe perturbed orbit and
      ba_solve_pcg on a 256-keyframe one, to the convergence limits of
      tests/test_ba_full.py;
@@ -164,11 +171,13 @@ K24, K3 and K25 and inside each mapping step one K24, two K3, two K25
 and one K5 (whatever the targets), one K28 and one K29 per extract_frame
 call, one K32 per refine_relative_se3 call, per LM step of
 ba_solve and ba_solve_pcg one K33 launch (the mu_p pass) and one more
-with plane tables and one K34, per dense step one K35, one K34 per solve
-(its tables mode); no plain decode, line, matching, noise, normal, plane
-association, step-tail, prelude, lift, seed, plane, Manhattan, pose,
-refinement, plane-block, cost-test or reduced-system function may see a
-tensor on the card. The line before the
+with plane tables and one K34, per dense step one K35 and one K40 (none
+in the PCG solve), one K34 per solve (its tables mode), per pose graph
+one K10 and one K41 per Gauss-Newton step (10); no plain decode, line,
+matching, noise, normal, plane association, step-tail, prelude, lift,
+seed, plane, Manhattan, pose, refinement, plane-block, cost-test,
+reduced-system, Schur-complement or pose-graph function may see a tensor
+on the card. The line before the
 last is a JSON object with one entry per kernel (its time and its plain
 version's, the least time the card could take for the same bytes and
 operations, and a PyTorch call's time where one computes the same
@@ -5708,12 +5717,17 @@ PLAIN_LOOP_FUNCTIONS = (("sim3_solver", "_refine_relative_plain"),
                         ("ba_core", "plane_blocks_plain"),
                         ("ba_core", "cost_test_plain"),
                         ("ba_core", "_chi2"),
-                        ("ba_core", "reduced_system_plain"))
-# the inputs of path 4b's two loop-edge refinements and its first global
-# BA solve (loop_kernel_parity's)
+                        ("ba_core", "reduced_system_plain"),
+                        ("ba_core", "ba_schur_complement_plain"),
+                        ("pose_graph", "pose_graph_normal_eqs_plain"),
+                        ("pose_graph", "pose_graph_update_plain"))
+# the inputs of path 4b's two loop-edge refinements, its first global BA
+# solve (loop_kernel_parity's, schur_pose_graph_parity's) and its pose
+# graph (schur_pose_graph_parity's)
 LOOP_CAPTURE = (("sim3_solver", "refine_relative_se3", 1),
                 ("sim3_solver", "refine_relative_se3", 2),
-                ("global_ba", "ba_solve", 1))
+                ("global_ba", "ba_solve", 1),
+                ("pose_graph", "_optimize", 1))
 # the two pose_optimize calls (obs1, obs2) of path 1's 21st fused frame
 POSE_CAPTURE = (("pose_opt", "pose_optimize", 41),
                 ("pose_opt", "pose_optimize", 42))
@@ -5739,6 +5753,7 @@ COUNTED_CALLS = (
     ("ba_pcg", "ba_cost_test", "cost_test_calls"),
     ("ba_core", "ba_chi2_tables", "chi2_table_calls"),
     ("ba_core", "ba_reduced_system", "reduced_system_calls"),
+    ("pose_graph", "_optimize", "pose_graph_calls"),
     ("device_tracker", "_state_from", "state_from_calls"),
     ("manhattan", "seed_manhattan", "seed_calls"),
     ("device_mapper", "run_fuse_set", "fuse_set_calls"),
@@ -5774,11 +5789,14 @@ def _pose_calls(capture=()):
     of one frame, whose counted launches are counted apart, and
     device_tracker.py and tracking.py import extract_frame by name;
     loop_closing.py imports refine_relative_se3 from sim3_solver at the
-    call, ba_solve looks K33-K35's wrappers up in ba_core and ba_pcg imports
-    K33's and K34's by name; a K33 call with plane tables is counted apart),
+    call, ba_solve looks K33-K35's and K40's wrappers up in ba_core and
+    ba_pcg imports K33's and K34's by name; a K33 call with plane tables is
+    counted apart; optimize_pose_graph calls pose_graph._optimize, whose
+    Gauss-Newton steps are counted),
     count the calls of a plain line, matching, noise, normal, plane
-    association, step-tail, refinement, plane-block, cost-test or
-    reduced-system function with a tensor on the card, and keep under
+    association, step-tail, refinement, plane-block, cost-test,
+    reduced-system, Schur-complement, pose-graph normal-equation or
+    pose-graph update function with a tensor on the card, and keep under
     "inputs", keyed by the triple, the inputs of each call named in
     `capture` by (module, attribute, call number from 1; -1: the last)."""
     import torch
@@ -5788,21 +5806,22 @@ def _pose_calls(capture=()):
     from planarslam_tpu_torch.slam import (device_mapper, device_tracker,
                                            frame, tracking)
     from planarslam_tpu_torch.solvers import (ba_core, ba_pcg, global_ba,
-                                              pose_opt, sim3_solver)
+                                              pose_graph, pose_opt,
+                                              sim3_solver)
 
     modules = {"pose_opt": pose_opt, "planes": planes,
                "manhattan": manhattan, "frame": frame, "lines": lines,
                "device_tracker": device_tracker, "matching": matching,
                "tracking": tracking, "sim3_solver": sim3_solver,
                "ba_core": ba_core, "ba_pcg": ba_pcg, "global_ba": global_ba,
-               "device_mapper": device_mapper}
+               "device_mapper": device_mapper, "pose_graph": pose_graph}
     rec = {key: 0 for _, _, key in COUNTED_CALLS}
     inner = {"track_core_calls": ("step_launches", STEP_LAUNCHES),
              "fuse_set_calls": ("fuse_set_launches", FUSE_SET_LAUNCHES),
              "mapping_step_calls": ("mapping_step_launches",
                                     MAPPING_STEP_LAUNCHES)}
     rec.update(inputs={}, plain_calls_on_card=0, plane_block_with_planes=0,
-               search_launches=0,
+               search_launches=0, gn_steps=0,
                **{k: dict.fromkeys(kern, 0) for k, kern in inner.values()})
     orig = [(modules[mod], attr, getattr(modules[mod], attr))
             for mod, attr, _ in COUNTED_CALLS]
@@ -5821,6 +5840,9 @@ def _pose_calls(capture=()):
             if key == "search_calls":  # K23's launches at this call's M
                 rec["search_launches"] += lines.search_launches(
                     args[0].shape[-2])
+            if key == "pose_graph_calls":  # the Gauss-Newton steps it runs
+                rec["gn_steps"] += kw.get("n_iters", args[5] if len(args)
+                                          > 5 else 10)
             if key not in inner:
                 return fn(*args, **kw)
             field, kern = inner[key]
@@ -5889,9 +5911,11 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
     refine_relative_se3 call; per LM step of ba_solve or ba_solve_pcg (one
     K8 launch) one ba_plane_blocks call of one K33 launch (its mu_p pass)
     and one more with plane tables, and one ba_cost_test call (K34); per
-    dense step (two K9 launches) one K35; one K34 per solve in its tables
-    mode; no plain line, matching, noise, normal, plane association,
-    step-tail, refinement, plane-block, cost-test or reduced-system
+    dense step (two K9 launches) one K35 and one K40, none in the PCG
+    solve; one K34 per solve in its tables mode; per pose_graph._optimize
+    call one K10 and one K41 per Gauss-Newton step (10); no plain line,
+    matching, noise, normal, plane association, step-tail, refinement,
+    plane-block, cost-test, reduced-system, Schur-complement or pose-graph
     function called with a tensor on the card; with `frames`, one
     extract_frame, extract_planes, extract_point_features and
     extract_line_features call per frame, and a tracking step on all frames
@@ -5937,7 +5961,13 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
             "ba_plane_blocks": rec["plane_block_calls"]
                                + rec["plane_block_with_planes"],
             "ba_cost_test": rec["cost_test_calls"] + rec["chi2_table_calls"],
-            "ba_reduced_system": rec["reduced_system_calls"]}
+            "ba_reduced_system": rec["reduced_system_calls"],
+            "ba_schur_complement": rec["reduced_system_calls"],
+            "pose_graph_normal_eqs": rec["gn_steps"],
+            "pose_graph_update": rec["gn_steps"]}
+    _check(rec["gn_steps"] == 10 * rec["pose_graph_calls"],
+           f"{name}: {rec['gn_steps']} Gauss-Newton steps in "
+           f"{rec['pose_graph_calls']} pose graphs, expected 10 each")
     # every LM step (one K8 launch) adds its plane blocks and ends in a
     # cost test, every dense step (two K9 launches) reduces its system
     _check(rec["plane_block_calls"] == launches["ba_normal_eqs"]
@@ -5963,7 +5993,8 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
     _check(rec["plain_calls_on_card"] == 0,
            f"{name}: {rec['plain_calls_on_card']} plain line, matching, "
            f"noise, normal, association, tail, refinement, plane-block, "
-           f"cost-test or reduced-system calls with tensors on the card")
+           f"cost-test, reduced-system, Schur-complement or pose-graph calls "
+           f"with tensors on the card")
     if frames is not None:
         _check(rec["plane_calls"] == frames and rec["frame_calls"] == frames
                and rec["manhattan_calls"] > 0
@@ -5977,6 +6008,7 @@ def _call_counts(rec: dict) -> dict:
     out = {f"{attr.lstrip('_')}_calls": rec[key]
            for _, attr, key in COUNTED_CALLS}
     out["ba_plane_blocks_with_planes"] = rec["plane_block_with_planes"]
+    out["pose_graph_gn_steps"] = rec["gn_steps"]
     out["launches_in_tracking_steps"] = rec["step_launches"]
     out["launches_in_fuse_sets"] = rec["fuse_set_launches"]
     out["launches_in_mapping_steps"] = rec["mapping_step_launches"]
@@ -6113,7 +6145,57 @@ def ba_kernel_parity(dev) -> list:
                          M * Kt * 6 * 3 * (5 + 2 + 2)),
                 "ms": _time_ms(k9), "plain_ms": _time_ms(p9)})
 
-    # K10: a 96-keyframe chain with covisibility and loop edges
+    # K10: a 96-keyframe chain with covisibility and loop edges, keyframe
+    # 0 fixed (the gauge diagonal in K10's epilogue)
+    args10, fixed = ba_kernel_graph(dev)
+    N, E = args10[0].shape[0], args10[1].shape[0]
+    H_k, g_k = pose_graph.pose_graph_normal_eqs(*args10, fixed_mask=fixed)
+    H_p, g_p = pose_graph.pose_graph_normal_eqs_plain(*args10,
+                                                      fixed_mask=fixed)
+    H_0, _ = pose_graph.pose_graph_normal_eqs_plain(*args10)
+    torch.cuda.synchronize()
+    # the 1e8 of the fixed rows is left out of the scale; those diagonal
+    # entries are held within one ulp
+    gauge = torch.diag((torch.repeat_interleave(fixed, 6) > 0).float()) > 0
+    ulp = torch.nextafter(H_p.abs(), torch.full_like(H_p, float("inf"))) \
+        - H_p.abs()
+    err10 = max(float((H_k - H_p).abs()[~gauge].max())
+                / float(H_0.abs().max()), _rel_err(g_k, g_p))
+    _check(err10 <= 1e-5 and bool(((H_k - H_p).abs()[gauge]
+                                   <= ulp[gauge]).all()),
+           f"pose_graph_normal_eqs relative error {err10}, or a gauge "
+           f"diagonal entry beyond one ulp")
+    out.append({"name": "pose_graph_normal_eqs", "route": "cuda",
+                "source": "planarslam_tpu_torch/csrc/pose_graph.cu",
+                "replaces": "planarslam_tpu/solvers/pose_graph.py:44",
+                "max_abs_err": err10,
+                "tolerance": "relative 1e-5 of H's (without the gauge "
+                             "diagonal) and g's largest value; the fixed "
+                             "rows' diagonal within one ulp",
+                "shapes": {"N": N, "E": E, "fixed": int(fixed.sum())},
+                "library_ms": None,
+                # per edge: log, Jr^-1, Ad, two 6x6 products, four 6x6
+                # blocks; H and g written whole
+                **_bound(_nbytes(args10[:4], fixed, H_k, g_k),
+                         24000.0 * E),
+                "ms": _time_ms(lambda: pose_graph.pose_graph_normal_eqs(
+                    *args10, fixed_mask=fixed)),
+                "plain_ms": _time_ms(
+                    lambda: pose_graph.pose_graph_normal_eqs_plain(
+                        *args10, fixed_mask=fixed))})
+    _print_kernels(out)
+    return out
+
+
+def ba_kernel_graph(dev) -> tuple:
+    """K10's seeded 96-keyframe pose graph: a chain with covisibility edges
+    (gaps 2, 3, 5) and three loop edges, one repeated, measurements 0.01
+    rad / m off; returns K10's arguments (poses, edges, meas_inv, w, plan)
+    and the fixed mask (keyframe 0)."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import pose_graph
+
     rng = np.random.default_rng(10)
     N = 96
     Tw = [np.eye(4, dtype=np.float32)]
@@ -6130,32 +6212,14 @@ def ba_kernel_parity(dev) -> list:
                      for i, j in ij]).astype(np.float32)
     w = np.where(np.arange(len(ij)) >= len(ij) - 3, 5.0, 1.0).astype(
         np.float32)
+    fixed = np.zeros(N, np.float32)
+    fixed[0] = 1.0
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    args10 = (t(Tw), t(ij), t(np.linalg.inv(meas).astype(np.float32)), t(w),
-              pose_graph.edge_plan(ij, N, device=dev))
-    H_k, g_k = pose_graph.pose_graph_normal_eqs(*args10)
-    H_p, g_p = pose_graph.pose_graph_normal_eqs_plain(*args10)
-    torch.cuda.synchronize()
-    err10 = max(_rel_err(H_k, H_p), _rel_err(g_k, g_p))
-    _check(err10 <= 1e-5, f"pose_graph_normal_eqs relative error {err10}")
-    out.append({"name": "pose_graph_normal_eqs", "route": "cuda",
-                "source": "planarslam_tpu_torch/csrc/pose_graph.cu",
-                "replaces": "planarslam_tpu/solvers/pose_graph.py:44",
-                "max_abs_err": err10,
-                "tolerance": "relative 1e-5 of H's and g's largest value",
-                "shapes": {"N": N, "E": int(len(ij))},
-                "library_ms": None,
-                # per edge: log, Jr^-1, Ad, two 6x6 products, four 6x6 blocks
-                **_bound(_nbytes(args10[:4], H_k, g_k), 24000.0 * len(ij)),
-                "ms": _time_ms(lambda: pose_graph.pose_graph_normal_eqs(
-                    *args10)),
-                "plain_ms": _time_ms(
-                    lambda: pose_graph.pose_graph_normal_eqs_plain(*args10))})
-    _print_kernels(out)
-    return out
+    return ((t(Tw), t(ij), t(np.linalg.inv(meas).astype(np.float32)), t(w),
+             pose_graph.edge_plan(ij, N, device=dev)), t(fixed))
 
 
 def _refine_problem(rng, N: int, case: str = "outliers") -> tuple:
@@ -6289,6 +6353,152 @@ def _rho_terms(pb, chis) -> tuple:
     terms = [ba_core._rho_fn(c, g, m, True)
              for c, g, m in zip(chis, pb.gates, pb.masks)]
     return terms, sum(int(t.numel()) for t in terms)
+
+
+# K40's planted problems (schur_pose_graph_parity, tests): the K8 inputs of
+# _ba_problem and the plane tables of _plane_problem at 16 keyframes, M =
+# 1024 but in "odd_m", each case planting one structure
+SCHUR_PLANTED = ("empty_keyframe", "single_view", "seen_twice",
+                 "planes_everywhere", "all_fixed", "odd_m")
+SCHUR_LANES = 4  # K40's batch, lane by lane
+
+
+def planted_schur_problem(case: str, dev, seed: int = 40, Kt: int = 16
+                          ) -> tuple:
+    """The arguments of ba_core.ba_solve for one planted problem: "random"
+    (_ba_problem's points, mono and stereo, line endpoints, one landmark
+    observed twice by keyframe 0; _plane_problem's three tables with 20%
+    empty slots; keyframe 0 fixed), "empty_keyframe" (keyframe 3 has no
+    live observation in any table), "single_view" (landmark 5 is seen by
+    keyframe 2 only), "seen_twice" (keyframe 1 sees landmark 7 at two
+    slots), "planes_everywhere" (the direct plane table has every plane in
+    every keyframe), "all_fixed" (every keyframe fixed), "odd_m" (M = 1010,
+    no multiple of K40's 32-landmark words)."""
+    import torch
+
+    from planarslam_tpu_torch.config import PlaneConfig
+    from planarslam_tpu_torch.solvers import ba_core
+
+    P, Q = (1001, 9) if case == "odd_m" else (1015, 9)
+    poses, pts, pt, ln, K = _ba_problem(dev, Kt, 64, 16, P, seed)
+    rng = np.random.default_rng(seed + 1)
+    prob = _plane_problem(rng, Kt, 4, Q, poses=poses.cpu().numpy())
+    pl, par, ver = _plane_tables(prob, dev)
+    pt = ba_core.PointTables(*[x.clone() for x in pt])
+    ln = ba_core.LineTables(*[x.clone() for x in ln])
+    fixed = torch.zeros(Kt, device=dev)
+    fixed[0] = 1.0
+    if case == "empty_keyframe":
+        for t in (pt, ln, pl, par, ver):
+            t.mask[3] = 0.0
+    elif case == "single_view":
+        pt.mask[pt.slot == 5] = 0.0
+        pt.slot[2, 0], pt.mask[2, 0] = 5, 1.0
+    elif case == "seen_twice":
+        pt.slot[1, :2] = 7
+        pt.mask[1, :2] = 1.0
+    elif case == "planes_everywhere":
+        T = prob["poses"].astype(np.float64)
+        base = prob["base"].astype(np.float64)
+        n_c = np.einsum("kij,qj->kqi", T[:, :3, :3], base[:, :3])
+        d_c = base[None, :, 3] - np.einsum("kqi,ki->kq", n_c, T[:, :3, 3])
+        pi = np.concatenate([n_c, d_c[..., None]], -1)
+        pi += rng.normal(0, 0.01, pi.shape)
+        pl = ba_core.PlaneTables(
+            torch.arange(Q, dtype=torch.int32, device=dev).repeat(Kt, 1),
+            torch.from_numpy(pi.astype(np.float32)).to(dev),
+            torch.ones((Kt, Q), device=dev))
+    elif case == "all_fixed":
+        fixed[:] = 1.0
+    base = torch.from_numpy(prob["base"]).to(dev)
+    return (poses, fixed, pts, base, pt, ln, pl, par, ver, K, 40.0,
+            ba_core.BAWeights.from_config(PlaneConfig()))
+
+
+def schur_step(args) -> dict:
+    """The first LM step of ba_solve on `args` (its arguments), up to K40's
+    inputs: K8, K33 and K9 through their wrappers (their plain versions on
+    the CPU). Returns the problem, HcpHinv, Hcp, Hcc, rhs, lam and the
+    fixed mask."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import ba_core
+
+    poses, fixed, lm_xyz, plane_base, pt, ln, pl, par, ver, K, bf, w = args
+    pb = ba_core._problem(lm_xyz, plane_base, pt, ln, pl, par, ver, w)
+    P, Q, M = pb.P, pb.Q, pb.M
+    dev = poses.device
+    lm = torch.cat([lm_xyz, torch.zeros((Q, 3), device=dev)]).contiguous()
+    Hcc, bc, Hpp, bp, Hcp, _, _ = ba_core.ba_normal_eqs(
+        poses, lm[:P], pb.pt, pb.ln, M, K, bf, True, True, pb.plan)
+    Hcc, bc, Hpp, bp, Hcp, _, mu_p = ba_core.ba_plane_blocks(
+        pb, poses, plane_base, lm[P:], Hcc, bc, Hpp, bp, Hcp, True)
+    lam = torch.tensor(1e-4, device=dev)
+    _, HcpHinv, rhs = ba_core.ba_schur_eliminate(Hpp, bp, Hcp, bc, lam,
+                                                 mu_p)
+    return {"pb": pb, "HcpHinv": HcpHinv, "Hcp": Hcp, "Hcc": Hcc,
+            "rhs": rhs, "lam": lam, "fixed": fixed.contiguous()}
+
+
+def schur_plan(pbs: list):
+    """K40's plan of one problem or, from several of one shape, of their
+    batch (ba_core.pair_plan on the stacked tables)."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import ba_core
+
+    def stack(get):
+        xs = [get(pb) for pb in pbs]
+        return xs[0] if len(xs) == 1 else torch.stack(xs)
+
+    pb = pbs[0]
+    return ba_core.pair_plan(
+        stack(lambda p: p.pt.slot), stack(lambda p: p.pt.mask),
+        stack(lambda p: p.ln.slot), stack(lambda p: p.ln.mask),
+        [stack(lambda p, i=i: p.pl_slots[i]) for i in range(3)],
+        [stack(lambda p, i=i: p.masks[2 + i]) for i in range(3)],
+        pb.P, pb.M)
+
+
+def complement_emulation(HcpHinv: np.ndarray, Hcp: np.ndarray,
+                         inc: np.ndarray) -> np.ndarray:
+    """K40's sum in numpy, in its order: for every entry of every pair, the
+    shared landmarks ascending, per landmark the products l = 0, 1, 2 each
+    fused into the float32 entry in turn; then negated. The fused
+    multiply-add is emulated in float64 (the product exact, the sum rounded
+    to float64 and then to float32, which can differ from one rounding
+    only at a float32 halfway point). HcpHinv and Hcp (Kt, 6, M, 3)
+    float32, inc (Kt, M) bool (ba_core.plan_incidence)."""
+    Kt, _, M, _ = Hcp.shape
+    acc = np.zeros((Kt, 6, Kt, 6), np.float32)
+    a64, b64 = HcpHinv.astype(np.float64), Hcp.astype(np.float64)
+    for p in range(M):
+        if not inc[:, p].any():
+            continue
+        both = (inc[:, p][:, None, None, None]
+                & inc[:, p][None, None, :, None])
+        for l in range(3):
+            fused = (a64[:, :, p, l][:, :, None, None]
+                     * b64[:, :, p, l][None, None] + acc).astype(np.float32)
+            acc = np.where(both, fused, acc)
+    return -acc.reshape(Kt * 6, Kt * 6)
+
+
+def complement_bound(HcpHinv, Hcp, inc):
+    """K40's limit per entry of S: 2 (n - 1) 2^-24 times the sum of the
+    |terms|, n the entry's terms (3 per landmark its pair shares), the
+    bound two float32 summation orders keep; also the shared landmark
+    count per keyframe pair. Torch tensors (Kt, 6, M, 3) and (Kt, M),
+    float64 sums."""
+    import torch
+
+    Kt, _, M, _ = Hcp.shape
+    a = HcpHinv.abs().double().reshape(Kt * 6, M * 3)
+    b = Hcp.abs().double().reshape(Kt * 6, M * 3)
+    shared = inc.double() @ inc.double().T
+    n = torch.repeat_interleave(torch.repeat_interleave(3 * shared, 6, 0),
+                                6, 1)
+    return 2 * torch.clamp(n - 1, min=0) * 2.0 ** -24 * (a @ b.T), shared
 
 
 def loop_kernel_parity(dev, captured: dict) -> list:
@@ -6437,7 +6647,7 @@ def loop_kernel_parity(dev, captured: dict) -> list:
     Hcc, bc, Hpp, bp, Hcp = want_f[:5]
     Hinv, HcpHinv, rhs = ba_core.ba_schur_eliminate(Hpp, bp, Hcp, bc, lam,
                                                     want_f[6])
-    S = -(HcpHinv.view(Kt * 6, M * 3) @ Hcp.view(Kt * 6, M * 3).T)
+    S = ba_core.ba_schur_complement_plain(HcpHinv, Hcp)
     del HcpHinv, scratch, got_f, zero
     args35 = (S, Hcc, rhs, lam, fixed)
     got35 = ba_core.ba_reduced_system(*args35)
@@ -6558,6 +6768,272 @@ def loop_kernel_parity(dev, captured: dict) -> list:
     return out
 
 
+# K41's planted steps (schur_pose_graph_parity): theta^2 of the rotation
+# part just below and just above se3.so3_exp's small-angle threshold
+SMALL_ANGLE = 1e-8
+UPDATE_PLANTED = ("zero", "below_threshold", "above_threshold", "near_pi",
+                  "nonfinite")
+
+
+def planted_update_steps(case: str, N: int, seed: int = 41) -> np.ndarray:
+    """(N, 6) float32 steps of K41 (the solve's, negated inside): "zero";
+    rotations with theta^2 at 0.99 and 1.01 of SMALL_ANGLE (the Taylor
+    branch and the closed form), translations 1e-3; "near_pi", rotations
+    of pi - 1e-4 about random axes; "nonfinite", a NaN in one pose's
+    translation, a NaN and an infinity in others' rotations, the rest
+    random."""
+    rng = np.random.default_rng(seed)
+    step = np.zeros((N, 6), np.float64)
+    if case == "zero":
+        return step.astype(np.float32)
+    axis = rng.normal(0, 1, (N, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    step[:, :3] = rng.normal(0, 1e-3, (N, 3))
+    if case in ("below_threshold", "above_threshold"):
+        th2 = SMALL_ANGLE * (0.99 if case == "below_threshold" else 1.01)
+        step[:, 3:] = axis * np.sqrt(th2)
+    elif case == "near_pi":
+        step[:, 3:] = axis * (np.pi - 1e-4)
+    else:
+        step[:, 3:] = rng.normal(0, 0.05, (N, 3))
+        step[0, 1] = np.nan
+        step[1, 4] = np.nan
+        step[2, 5] = np.inf
+    return step.astype(np.float32)
+
+
+def _update_held(name: str, got, want) -> float:
+    """K41's limit: entries within 1e-6 of max(1, |entry|), NaN exactly
+    where the plain version has NaN; returns the largest difference."""
+    import torch
+
+    nan_k, nan_p = torch.isnan(got), torch.isnan(want)
+    _check(torch.equal(nan_k, nan_p), f"pose_graph_update ({name}): NaN at "
+           f"{int((nan_k != nan_p).sum())} entries where the plain version "
+           f"has none, or the reverse")
+    ok = ~nan_p
+    diff = (got[ok] - want[ok]).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    _check(bool((diff <= 1e-6 * torch.clamp(want[ok].abs(), min=1.0)).all()),
+           f"pose_graph_update ({name}): entries off by {err}")
+    return err
+
+
+def schur_pose_graph_parity(dev, captured: dict) -> list:
+    """K40 (ba_schur_complement) against its plain version, the dense
+    product, on path 4b's captured first LM step (Kt = 128, M = 12864),
+    path 4c's dense orbit (Kt = 96) at its start, the SCHUR_PLANTED
+    problems and four lanes at B = 4 (each lane bit-equal to its own B = 1
+    launch): every entry within complement_bound of the plain one, the
+    blocks of pairs that share no landmark exactly 0 in both, two launches
+    equal bits, and K35 then the Cholesky of both S giving the same info;
+    K10 with the gauge diagonal against its plain version on path 4b's pose
+    graph (its 10 GN steps) and on ba_kernel_parity's 96-keyframe graph;
+    K41 (pose_graph_update) against its plain version along path 4b's 10
+    GN steps, on UPDATE_PLANTED steps and at B = 4."""
+    import torch
+
+    from planarslam_tpu_torch.geometry import se3
+    from planarslam_tpu_torch.solvers import ba_core, pose_graph
+
+    out = []
+
+    def hold_complement(name, st, plan):
+        """K40 on one step's inputs: bits of two launches, the bound, zero
+        blocks, the Cholesky info; returns (error, shared counts)."""
+        a, b, M = st["HcpHinv"], st["Hcp"], st["Hcp"].shape[-2]
+        got = ba_core.ba_schur_complement(a, b, plan)
+        again = ba_core.ba_schur_complement(a, b, plan)
+        want = ba_core.ba_schur_complement_plain(a, b)
+        torch.cuda.synchronize()
+        _check(torch.equal(got, again) and bool(
+            torch.equal(got.view(torch.int32), again.view(torch.int32))),
+            f"ba_schur_complement ({name}): two launches differ")
+        inc = ba_core.plan_incidence(plan, M)
+        bound, shared = complement_bound(a, b, inc)
+        err = (got.double() - want.double()).abs()
+        over = err > bound
+        _check(not bool(over.any()), f"ba_schur_complement ({name}): "
+               f"{int(over.sum())} entries beyond 2 (n - 1) 2^-24 sum|t|, "
+               f"largest {float(err.max())}")
+        alone = torch.repeat_interleave(torch.repeat_interleave(
+            shared == 0, 6, 0), 6, 1)
+        _check(bool((got[alone] == 0).all()) and bool(
+            (want[alone] == 0).all()), f"ba_schur_complement ({name}): a "
+            f"block of a pair that shares no landmark is not 0")
+        infos = []
+        for S in (got, want):
+            S_r, _ = ba_core.ba_reduced_system(S, st["Hcc"], st["rhs"],
+                                               st["lam"], st["fixed"])
+            infos.append(int(torch.linalg.cholesky_ex(S_r)[1]))
+        _check(infos[0] == infos[1], f"ba_schur_complement ({name}): "
+               f"Cholesky info {infos[0]} against the plain S's {infos[1]}")
+        Kt = b.shape[0]
+        triplets = float((shared.sum() + shared.diagonal().sum()) / 2)
+        res = {"max_abs_err": float(err.max()),
+               "max_err_over_bound": float((err / torch.clamp(
+                   bound, min=1e-300)).max()),
+               "pairs": int(((shared > 0).sum() + (
+                   shared.diagonal() > 0).sum()) // 2),
+               "pairs_of": Kt * (Kt + 1) // 2,
+               "triplets": triplets, "cholesky_info": infos[0],
+               "incidences": int(inc.sum())}
+        print(f"ba_schur_complement ({name}): {json.dumps(res)}", flush=True)
+        return res
+
+    # path 4b's first global BA step, path 4c's dense orbit at its start
+    steps = {"path4b": schur_step(captured["global_ba", "ba_solve", 1][0])}
+    _, _, orbit, _ = _orbit_problem(np.random.default_rng(42), 96, 1024, 48,
+                                    dev)
+    steps["path4c_dense"] = schur_step(orbit)
+    cases = {}
+    for name, st in steps.items():
+        cases[name] = hold_complement(name, st, st["pb"].pairs)
+    for case in SCHUR_PLANTED:
+        st = schur_step(planted_schur_problem(case, dev))
+        cases[case] = hold_complement(case, st, st["pb"].pairs)
+        del st
+    lanes = [schur_step(planted_schur_problem("random", dev, seed=40 + b))
+             for b in range(SCHUR_LANES)]
+    plan_b = schur_plan([st["pb"] for st in lanes])
+    a_b = torch.stack([st["HcpHinv"] for st in lanes])
+    b_b = torch.stack([st["Hcp"] for st in lanes])
+    S_b = ba_core.ba_schur_complement(a_b, b_b, plan_b)
+    for i, st in enumerate(lanes):
+        _check(torch.equal(plan_b.bits[i], st["pb"].pairs.bits)
+               and torch.equal(plan_b.counts[i], st["pb"].pairs.counts),
+               f"pair_plan: lane {i} of the batch differs from its own plan")
+        cases[f"lane{i}"] = hold_complement(f"lane {i}", st, st["pb"].pairs)
+        _check(torch.equal(S_b[i].view(torch.int32), ba_core.
+                           ba_schur_complement(st["HcpHinv"], st["Hcp"],
+                                               st["pb"].pairs)
+                           .view(torch.int32)),
+               f"ba_schur_complement: lane {i} of B = {SCHUR_LANES} differs "
+               f"from its B = 1 launch")
+    st = steps["path4b"]
+    a, b, plan = st["HcpHinv"], st["Hcp"], st["pb"].pairs
+    Kt, M = b.shape[0], b.shape[2]
+    rec = cases["path4b"]
+    # the nonzero 6 x 3 blocks of both operands read once, S written
+    n_bytes = 2 * rec["incidences"] * 18 * 4 + (6 * Kt) ** 2 * 4
+    a2, b2 = a.view(Kt * 6, M * 3), b.view(Kt * 6, M * 3)
+    st4c = steps["path4c_dense"]
+    out.append({"name": "ba_schur_complement", "route": "cuda",
+                "source": "planarslam_tpu_torch/csrc/ba_complement.cu",
+                "replaces": "planarslam_tpu/solvers/ba_core.py:470",
+                "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+                "tolerance": "each entry within 2 (n - 1) 2^-24 of the sum "
+                             "of its |terms| (n its terms, 3 per shared "
+                             "landmark); blocks of pairs sharing no landmark "
+                             "exactly 0; two launches equal bits; the same "
+                             "Cholesky info",
+                "cases": cases,
+                "shapes": {"Kt": Kt, "M": M, "lanes": SCHUR_LANES},
+                **_bound(n_bytes, 2 * 216.0 * rec["triplets"]),
+                "ms": _time_ms(lambda: ba_core.ba_schur_complement(
+                    a, b, plan)),
+                "ms_path4c_dense": _time_ms(
+                    lambda: ba_core.ba_schur_complement(
+                        st4c["HcpHinv"], st4c["Hcp"], st4c["pb"].pairs)),
+                "plain_ms": _time_ms(
+                    lambda: ba_core.ba_schur_complement_plain(a, b)),
+                "library_ms": _time_ms(lambda: torch.matmul(a2, b2.T)),
+                "library_ms_path4c_dense": _time_ms(lambda: torch.matmul(
+                    st4c["HcpHinv"].view(96 * 6, -1),
+                    st4c["Hcp"].view(96 * 6, -1).T)),
+                "batch_ms": _time_ms(lambda: ba_core.ba_schur_complement(
+                    a_b, b_b, plan_b))})
+    del steps, lanes, a_b, b_b, st, st4c
+
+    # K10 with the gauge diagonal and K41 along path 4b's 10 GN steps
+    (poses0, ij, meas, w, fixed), kw = captured["pose_graph", "_optimize",
+                                               1]
+    plan10 = kw["plan"]
+    meas_inv = se3.T_inv(meas).contiguous()
+    n = poses0.shape[0]
+
+    def hold_normal_eqs(name, args, fx):
+        got = pose_graph.pose_graph_normal_eqs(*args, fixed_mask=fx)
+        want = pose_graph.pose_graph_normal_eqs_plain(*args, fixed_mask=fx)
+        bare = pose_graph.pose_graph_normal_eqs_plain(*args)
+        torch.cuda.synchronize()
+        gauge = torch.diag((torch.repeat_interleave(fx, 6) > 0).float()) > 0
+        scale = float(bare[0].abs().max())
+        dH = (got[0] - want[0]).abs()
+        ulp = torch.nextafter(want[0].abs(), torch.full_like(
+            want[0], float("inf"))) - want[0].abs()
+        err = max(float(dH[~gauge].max()) / scale,
+                  float((got[1] - want[1]).abs().max())
+                  / max(float(want[1].abs().max()), 1e-30))
+        _check(err <= 1e-5 and bool((dH[gauge] <= ulp[gauge]).all()),
+               f"pose_graph_normal_eqs ({name}): relative error {err}, or a "
+               f"gauge diagonal entry beyond one ulp")
+        return err
+
+    poses_k = poses0.contiguous()
+    errs10, errs41 = [], []
+    for it in range(10):
+        args = (poses_k, ij, meas_inv, w, plan10)
+        errs10.append(hold_normal_eqs(f"path 4b step {it}", args, fixed))
+        H, g = pose_graph.pose_graph_normal_eqs(*args, fixed_mask=fixed)
+        step = torch.linalg.solve_ex(H, g, check_errors=False)[0].view(n, 6)
+        got = pose_graph.pose_graph_update(poses_k, step)
+        again = pose_graph.pose_graph_update(poses_k, step)
+        want = pose_graph.pose_graph_update_plain(poses_k, step)
+        torch.cuda.synchronize()
+        _check(torch.equal(got, again), "pose_graph_update: two launches "
+               "differ")
+        errs41.append(_update_held(f"path 4b step {it}", got, want))
+        poses_k = got
+    gn_args, gn_step = (poses0.contiguous(), ij, meas_inv, w, plan10), step
+    # ba_kernel_parity's 96-keyframe graph with keyframe 0 fixed
+    args96, fx96 = ba_kernel_graph(dev)
+    errs10.append(hold_normal_eqs("96 keyframes", args96, fx96))
+    planted = {}
+    for case in UPDATE_PLANTED:
+        st6 = torch.from_numpy(planted_update_steps(case, n)).to(dev)
+        got = pose_graph.pose_graph_update(poses0, st6)
+        planted[case] = _update_held(case, got,
+                                     pose_graph.pose_graph_update_plain(
+                                         poses0, st6))
+    lanes = torch.stack([poses0] * 4), torch.from_numpy(np.stack(
+        [planted_update_steps(c, n) for c in UPDATE_PLANTED[:4]])).to(dev)
+    got_b = pose_graph.pose_graph_update(*lanes)
+    for i in range(4):
+        _check(torch.equal(got_b[i], pose_graph.pose_graph_update(
+            lanes[0][i], lanes[1][i])), f"pose_graph_update: lane {i} of B "
+            f"= 4 differs from its B = 1 launch")
+    planted["batch4"] = _update_held("B = 4", got_b,
+                                     pose_graph.pose_graph_update_plain(
+                                         *lanes))
+    out.append({"name": "pose_graph_update", "route": "cuda",
+                "source": "planarslam_tpu_torch/csrc/pose_graph.cu",
+                "replaces": "planarslam_tpu/solvers/pose_graph.py:75",
+                "max_abs_err": max(errs41 + list(planted.values())),
+                "max_abs_err_planted": planted,
+                "tolerance": "pose entries within 1e-6 of max(1, |entry|), "
+                             "NaN where the plain version's; two launches "
+                             "equal bits, B = 4 lanes equal their B = 1 "
+                             "launches",
+                "shapes": {"N": n, "gn_steps": 10}, "library_ms": None,
+                # per pose: se3_exp's Rodrigues and left Jacobian, a 4 x 4
+                # product
+                **_bound(_nbytes(poses0, gn_step) * 2 - _nbytes(gn_step),
+                         300.0 * n),
+                "ms": _time_ms(lambda: pose_graph.pose_graph_update(
+                    poses0, gn_step)),
+                "plain_ms": _time_ms(lambda: pose_graph.
+                                     pose_graph_update_plain(poses0,
+                                                             gn_step))})
+    ms10 = _time_ms(lambda: pose_graph.pose_graph_normal_eqs(
+        *gn_args, fixed_mask=fixed))
+    print(f"pose_graph_normal_eqs with the gauge diagonal: relative errors "
+          f"{errs10}, {ms10} ms at path 4b's N = {n}, E = {ij.shape[0]}",
+          flush=True)
+    _print_kernels(out)
+    return out
+
+
 def construct_loop(m, src: int = 0):
     """The constructed loop of tests/test_reloc_loop.py::
     test_loop_verify_and_correct_constructed on a port map: a new keyframe
@@ -6588,6 +7064,103 @@ def construct_loop(m, src: int = 0):
     m.kf_pt_idx[kf, sel] = clones
     m.update_covisibility(kf)
     return kf, len(clones), m.kf_pose[kf].copy()
+
+
+def loop_capture(seq, cfg, dev) -> dict:
+    """The inputs path 4b's correction gives its first global BA solve and
+    its pose graph, keyed as LOOP_CAPTURE's, from a System tracked over the
+    sequence's first CONSTRUCTED_FRAMES frames and the constructed loop,
+    with no check (the timing tools' problems, on any tree of the port)."""
+    import torch
+
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.slam.system import System
+    from planarslam_tpu_torch.solvers import global_ba, pose_graph
+
+    slam = System(config=cfg, device=dev)
+    for i in range(CONSTRUCTED_FRAMES):
+        slam.track_rgbd(*quantize_frame(*seq.render(i),
+                                        cfg.camera.depth_map_factor),
+                        seq.timestamps[i])
+    slam.shutdown()
+    kf, _, _ = construct_loop(slam.map)
+    slam.loop_closer.run_gba = True
+    captured = {}
+    kept = [(global_ba, "ba_solve"), (pose_graph, "_optimize")]
+    orig = [getattr(mod, attr) for mod, attr in kept]
+
+    def capturing(fn, key):
+        def captured_call(*args, **kw):
+            captured.setdefault(key, _clone((args, kw)))
+            return fn(*args, **kw)
+        return captured_call
+
+    for (mod, attr), fn in zip(kept, orig):
+        setattr(mod, attr, capturing(fn, (mod.__name__.split(".")[-1],
+                                          attr, 1)))
+    try:
+        slam.loop_closer._verify_and_correct(kf, 0)
+    finally:
+        for (mod, attr), fn in zip(kept, orig):
+            setattr(mod, attr, fn)
+    torch.cuda.synchronize()
+    return captured
+
+
+def schur_problems(captured: dict, dev) -> dict:
+    """K40 on path 4b's first LM step, path 4c's dense orbit at its start
+    and four planted lanes at B = 4, and the dense torch.matmul of each
+    step (the library call; on a tree without K40, the matmuls alone)."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import ba_core
+
+    steps = {"path4b": schur_step(captured["global_ba", "ba_solve", 1][0]),
+             "path4c_dense": schur_step(_orbit_problem(
+                 np.random.default_rng(42), 96, 1024, 48, dev)[2])}
+    probs = {}
+    for name, st in steps.items():
+        Kt = st["Hcp"].shape[0]
+        a, b = st["HcpHinv"].view(Kt * 6, -1), st["Hcp"].view(Kt * 6, -1)
+        probs[f"{name}_matmul"] = (lambda a=a, b=b: torch.matmul(a, b.T))
+        if hasattr(ba_core, "ba_schur_complement"):
+            probs[name] = (lambda st=st: ba_core.ba_schur_complement(
+                st["HcpHinv"], st["Hcp"], st["pb"].pairs))
+    if hasattr(ba_core, "ba_schur_complement"):
+        lanes = [schur_step(planted_schur_problem("random", dev,
+                                                  seed=40 + b))
+                 for b in range(SCHUR_LANES)]
+        args = (torch.stack([st["HcpHinv"] for st in lanes]),
+                torch.stack([st["Hcp"] for st in lanes]),
+                schur_plan([st["pb"] for st in lanes]))
+        probs["planted_b4"] = lambda: ba_core.ba_schur_complement(*args)
+    return probs
+
+
+def pose_graph_problems(captured: dict, dev) -> dict:
+    """Path 4b's pose graph: _optimize with one and with two Gauss-Newton
+    steps (`gn_steps_1`, `gn_steps_2`: every device launch; their
+    difference is one step's), K10 at its start without the
+    gauge diagonal (any tree) and with it, and K41 on its first step (a
+    tree with K41)."""
+    import torch
+
+    from planarslam_tpu_torch.geometry import se3
+    from planarslam_tpu_torch.solvers import pose_graph
+
+    (poses, ij, meas, w, fixed), kw = captured["pose_graph", "_optimize", 1]
+    plan = kw["plan"]
+    args = (poses.contiguous(), ij, se3.T_inv(meas).contiguous(), w, plan)
+    probs = {f"gn_steps_{n}": (lambda n=n: pose_graph._optimize(
+        poses, ij, meas, w, fixed, n_iters=n, plan=plan)) for n in (1, 2)}
+    probs["normal_eqs"] = lambda: pose_graph.pose_graph_normal_eqs(*args)
+    if hasattr(pose_graph, "pose_graph_update"):
+        H, g = pose_graph.pose_graph_normal_eqs(*args, fixed_mask=fixed)
+        step = torch.linalg.solve_ex(H, g)[0].view(-1, 6)
+        probs["normal_eqs_gauge"] = lambda: pose_graph.pose_graph_normal_eqs(
+            *args, fixed_mask=fixed)
+        probs["update"] = lambda: pose_graph.pose_graph_update(poses, step)
+    return probs
 
 
 def _count_verifications(lc) -> dict:
@@ -6777,10 +7350,12 @@ def run_constructed_loop_path(seq, cfg, dev) -> dict:
     for name in ("ba_normal_eqs", "ba_schur_eliminate",
                  "pose_graph_normal_eqs", "gated_hamming_top2",
                  "horn_align_batch", "refine_relative", "ba_plane_blocks",
-                 "ba_cost_test", "ba_reduced_system"):
+                 "ba_cost_test", "ba_reduced_system", "ba_schur_complement",
+                 "pose_graph_update"):
         _check(launches[name] > 0, f"path4b: {name} not launched")
     _check(all(c in pc["inputs"] for c in LOOP_CAPTURE),
-           "path4b: the refinement and global BA inputs were not captured")
+           "path4b: the refinement, global BA and pose-graph inputs were not "
+           "captured")
     res["captured"] = pc["inputs"]
     return res
 
@@ -6888,8 +7463,11 @@ def run_ba_scale_path(dev) -> dict:
                f"path4c: {name} orbit did not converge: {res[name]}")
     res["launches"] = dict(kernels.LAUNCHES)
     print("path4c_ba_scale " + json.dumps(res), flush=True)
-    _check(res["launches"]["ba_reduced_system"] > 0,
-           "path4c: the dense solve launched no K35")
+    _check(res["launches"]["ba_reduced_system"] > 0
+           and res["launches"]["ba_schur_complement"]
+           == res["launches"]["ba_reduced_system"],
+           "path4c: the dense solve launched no K35, or not one K40 per "
+           "dense LM step")
     _check_pose_launches("path4c (BA alone)", res["launches"],
                          dict(calls, step_launches=dict.fromkeys(
                              STEP_LAUNCHES, 0),
@@ -8590,7 +9168,10 @@ def main(argv=None) -> int:
             height=cfg.camera.height), cfg, dev),
     ]
     path4b = run_constructed_loop_path(seq, cfg, dev)
-    report += loop_kernel_parity(dev, path4b.pop("captured"))
+    captured4b = path4b.pop("captured")
+    report += loop_kernel_parity(dev, captured4b)
+    report += schur_pose_graph_parity(dev, captured4b)
+    del captured4b
     paths += [path4b, run_ba_scale_path(dev)]
     lane_frames = _lane_frames(max(BATCH_SIZES), BATCH_FRAMES)
     path5 = [run_batched_path(cfg, dev, lane_frames, B,

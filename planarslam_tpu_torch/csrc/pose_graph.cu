@@ -1,24 +1,36 @@
 // K10 pose_graph_normal_eqs — edge residuals, Jacobians and the dense
-// normal equations of one pose-graph Gauss-Newton step.
+// normal equations of one pose-graph Gauss-Newton step; K41
+// pose_graph_update — the step's SE(3) update of every keyframe.
 //
-// Replaces planarslam_tpu/solvers/pose_graph.py::_optimize.step :44-70
-// (jax.jacfwd of edge_res, vmapped over the edges, and the block scatter
-// into H (6N, 6N) and g (6N)). Per edge e = (i, j), in float64:
+// K10 replaces planarslam_tpu/solvers/pose_graph.py::_optimize.step :44-72
+// (jax.jacfwd of edge_res, vmapped over the edges, the block scatter into
+// H (6N, 6N) and g (6N) and the gauge diagonal). Per edge e = (i, j), in
+// float64:
 //   A = T_i T_j^-1,  r0 = log(m_inv A),  r = w r0,
 //   J_i = w Jr^-1(r0) Ad(A^-1),  J_j = -w Jr^-1(r0)
 // (analytic form of the jacfwd at xi = 0; se3_log and Jr^-1 follow
 // planarslam_tpu_torch/geometry/se3.py line by line).
 // pose_graph_edge_kernel writes r, J_i, J_j to scratch;
-// pose_graph_block_kernel gives every distinct (row node, column node)
-// block of H one thread block, which adds its terms in the
-// order of the host-built plan (an edge's four blocks (i, i), (j, j),
-// (i, j), (j, i), stably sorted): no atomics, and a repeated pair adds.
-// Diagonal blocks also sum g = J^T r. H and g arrive zeroed.
+// pose_graph_block_kernel gives every (row node, column node) block of H
+// one thread block, which finds its terms in the host-built plan (an
+// edge's four blocks (i, i), (j, j), (i, j), (j, i), stably sorted) by a
+// binary search of the block's key and adds them in the plan's order: no
+// atomics, and a repeated pair adds. Diagonal blocks also sum g = J^T r.
+// Every entry of H and g is written, a block without terms as 0; with a
+// fixed mask the epilogue adds the gauge diagonal as the port adds it:
+// float32(sum) + (fixed * 1e8f + 1e-6f), each operation rounded.
 // What bounds it on an H100: launch; the work is E x 24 KFLOP in fp64
-// and the writes are the nonzero blocks of H.
+// and the writes are H (4 (6N)^2 bytes).
+//
+// K41 replaces pose_graph.py:75 (vmap(se3_exp)(dx) @ poses): a thread a
+// keyframe computes se3_exp(-step) T in float32 (lie.cuh::se3_exp_mul,
+// the port's se3.se3_exp spelled in its order, with its small-angle
+// branch below theta^2 = 1e-8); the sign of the port's dx = -solve(H, g)
+// is folded in. Built with -fmad=false. A leading batch is more threads.
 #include <math.h>
 
 #include "common.cuh"
+#include "lie.cuh"
 
 namespace {
 
@@ -202,9 +214,17 @@ __global__ void pose_graph_edge_kernel(const float* __restrict__ poses,
   const double mphi[3] = {-phi[0], -phi[1], -phi[2]};
   double Jr[36];
   se3_jl_inv(mrho, mphi, Jr);
-  // Ad(A^-1) with A^-1 = T_j T_i^-1
+  // Ad(A^-1) with A^-1 = se3.T_inv(A) = (RA^T, -RA^T tA), as the plain
+  // version forms it (T_j T_i^-1 differs from it where the float32
+  // rotations are not exactly orthonormal)
   double RB[9], tB[3], th[9], tR[9];
-  mul_inv(Rj, tj, Ri, ti, RB, tB);
+  for (int a = 0; a < 3; ++a) {
+    for (int b = 0; b < 3; ++b) RB[3 * a + b] = RA[3 * b + a];
+  }
+  for (int a = 0; a < 3; ++a) {
+    tB[a] = -(RB[3 * a] * tA[0] + RB[3 * a + 1] * tA[1] +
+              RB[3 * a + 2] * tA[2]);
+  }
   hat3(tB, th);
   mat3_mul(th, RB, tR);
   double Ad[36];
@@ -226,20 +246,32 @@ __global__ void pose_graph_edge_kernel(const float* __restrict__ poses,
   }
 }
 
-// one block per distinct (row node, column node) block of H
+// one block per (row node, column node) block of H, blockIdx (column, row)
 __global__ void pose_graph_block_kernel(const double* __restrict__ scratch,
                                         const int* __restrict__ order,
                                         const int* __restrict__ seg_start,
-                                        const int* __restrict__ seg_key, int N,
+                                        const int* __restrict__ seg_key,
+                                        int n_seg, int N,
+                                        const float* __restrict__ fixed,
                                         float* __restrict__ H,
                                         float* __restrict__ g) {
-  const int s = blockIdx.x, t = threadIdx.x;
-  const int key = seg_key[s];
-  const int a = key / N, b = key % N;
+  const int a = blockIdx.y, b = blockIdx.x, t = threadIdx.x;
   const bool diag = a == b;
   if (t >= 42 || (t >= 36 && !diag)) return;
+  const int key = a * N + b;
+  int lo = 0, hi = n_seg;  // the first segment whose key is not below
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (seg_key[mid] < key) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const bool found = lo < n_seg && seg_key[lo] == key;
   double acc = 0.0;
-  for (int c = seg_start[s]; c < seg_start[s + 1]; ++c) {
+  const int c0 = found ? seg_start[lo] : 0, c1 = found ? seg_start[lo + 1] : 0;
+  for (int c = c0; c < c1; ++c) {
     const int id = order[c];
     const int kind = id & 3;
     const double* row = scratch + static_cast<size_t>(id >> 2) * kScr;
@@ -258,11 +290,27 @@ __global__ void pose_graph_block_kernel(const double* __restrict__ scratch,
     }
   }
   if (t < 36) {
-    H[static_cast<size_t>(6 * a + t / 6) * (6 * N) + 6 * b + t % 6] =
-        static_cast<float>(acc);
+    float h = static_cast<float>(acc);
+    if (diag && t % 7 == 0 && fixed != nullptr) {
+      h = __fadd_rn(h, __fadd_rn(__fmul_rn(fixed[a], 1e8f), 1e-6f));
+    }
+    H[static_cast<size_t>(6 * a + t / 6) * (6 * N) + 6 * b + t % 6] = h;
   } else {
     g[6 * a + (t - 36)] = static_cast<float>(acc);
   }
+}
+
+// K41: out[n] = se3_exp(-step[n]) poses[n], n over every pose of the batch
+__global__ void pose_update_kernel(const float* __restrict__ poses,
+                                   const float* __restrict__ step, int n,
+                                   float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float xi[6], T[16], T_new[16];
+  for (int c = 0; c < 6; ++c) xi[c] = -step[6 * static_cast<size_t>(i) + c];
+  for (int c = 0; c < 16; ++c) T[c] = poses[16 * static_cast<size_t>(i) + c];
+  psl::se3_exp_mul(xi, T, T_new);
+  for (int c = 0; c < 16; ++c) out[16 * static_cast<size_t>(i) + c] = T_new[c];
 }
 
 }  // namespace
@@ -272,7 +320,8 @@ PSL_API int psl_pose_graph_normal_eqs(const float* poses, const int* edges,
                                       int E, int N, const int* order,
                                       const int* seg_start,
                                       const int* seg_key, int n_seg,
-                                      double* scratch, float* H, float* g,
+                                      const float* fixed, double* scratch,
+                                      float* H, float* g,
                                       cudaStream_t stream) {
   if (E > 0) {
     pose_graph_edge_kernel<<<(E + kEdgeThreads - 1) / kEdgeThreads,
@@ -280,9 +329,18 @@ PSL_API int psl_pose_graph_normal_eqs(const float* poses, const int* edges,
                                                         meas_inv, w, E,
                                                         scratch);
   }
-  if (n_seg > 0) {
-    pose_graph_block_kernel<<<n_seg, 64, 0, stream>>>(
-        scratch, order, seg_start, seg_key, N, H, g);
+  if (N > 0) {
+    pose_graph_block_kernel<<<dim3(N, N), 64, 0, stream>>>(
+        scratch, order, seg_start, seg_key, n_seg, N, fixed, H, g);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+PSL_API int psl_pose_graph_update(const float* poses, const float* step,
+                                  int n, float* out, cudaStream_t stream) {
+  if (n > 0) {
+    pose_update_kernel<<<(n + 127) / 128, 128, 0, stream>>>(poses, step, n,
+                                                            out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,7 +43,7 @@ KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
                 "associate_planes", "finish_step", "refine_relative",
                 "ba_plane_blocks", "ba_cost_test", "ba_reduced_system",
                 "step_prelude", "decode_step_inputs", "lift_state",
-                "seed_manhattan")
+                "seed_manhattan", "ba_schur_complement", "pose_graph_update")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -56,7 +56,7 @@ CUDA_SOURCES = ("fast_score.cu", "orb_describe.cu", "hamming_top2.cu",
                 "pyramid.cu", "select_keypoints.cu", "lines.cu",
                 "line_lift_search.cu", "matching.cu", "depth_normals.cu",
                 "step_tail.cu", "refine_relative.cu", "ba_step.cu",
-                "step_prelude.cu", "step_decode.cu")
+                "step_prelude.cu", "step_decode.cu", "ba_complement.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # Sources whose float32 gates must round as the plain version's separate
@@ -72,7 +72,8 @@ SOURCE_FLAGS = {"plane_segment.cu": ("-fmad=false",),
                 "step_tail.cu": ("-fmad=false",),
                 "ba_step.cu": ("-fmad=false",),
                 "step_prelude.cu": ("-fmad=false",),
-                "step_decode.cu": ("-fmad=false",)}
+                "step_decode.cu": ("-fmad=false",),
+                "pose_graph.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -119,9 +120,14 @@ _SIGNATURES = {
     # Hpp_inv, bp, Hcp, dxc, Kt, M, ks, partial, dxp, stream
     "psl_ba_schur_backsub": [_P] * 4 + [_I] * 3 + [_P] * 3,
     # poses, edges_ij, meas_inv, w, E, N, order, seg_start, seg_key, S,
-    # scratch, H, g, stream
+    # fixed_mask (or NULL), scratch, H, g, stream
     "psl_pose_graph_normal_eqs": [_P] * 4 + [_I, _I] + [_P] * 3 + [_I]
-                                 + [_P] * 4,
+                                 + [_P] * 5,
+    # poses, step, n (poses of the whole batch), poses_out, stream
+    "psl_pose_graph_update": [_P, _P, _I, _P, _P],
+    # HcpHinv, Hcp, pair_plan bits and counts, batch, Kt, M, words per
+    # row, S, stream
+    "psl_ba_schur_complement": [_P] * 4 + [_I] * 4 + [_P] * 2,
     # T_init; points xw, uv, u_right, inv_sigma2, valid, N; lines xw_s,
     # xw_e, line2d, inv_sigma2, valid, L; planes, parallel and vertical
     # planes pi_w, pi_obs, valid, P; rotation flag (device) or NULL and the

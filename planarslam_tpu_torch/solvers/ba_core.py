@@ -23,14 +23,18 @@ Hand-written kernels take the work of each LM step:
   - K34 ``ba_cost_test`` (``csrc/ba_step.cu``): the chi2 of the five tables
     at both states, the robust decrease, the accept test and the selected
     state; its tables mode gives the final chi2 tables.
-Hcp is laid out (Kt, 6, M, 3), so ``Hcp.view(Kt * 6, M * 3)`` is the
-operand of the reduced camera system S = Hcc - (Hcp Hpp^-1) Hcp^T, which
-stays one ``torch.matmul`` as it stays one XLA product in JAX; the
-Cholesky factorization and its two solves stay PyTorch's, as JAX leaves
-them to its library.
+  - K40 ``ba_schur_complement`` (``csrc/ba_complement.cu``): the landmark
+    product -(Hcp Hpp^-1) Hcp^T of the reduced camera system S = Hcc -
+    (Hcp Hpp^-1) Hcp^T over the keyframe pairs that share a landmark only
+    (``pair_plan``), where JAX makes one dense XLA product; its plain
+    version is that dense product, ``Hcp.view(Kt * 6, M * 3)`` the
+    operand.
+The Cholesky factorization and its two solves stay PyTorch's, as JAX
+leaves them to its library.
 
 No float atomics: the kernels sum in an order fixed for the whole solve by
-``obs_plan`` (stable sorts of the observation slots), and the plain
+``obs_plan`` (stable sorts of the observation slots) and ``pair_plan``
+(landmarks ascending), and the plain
 segment sums use ``index_put_(accumulate=True)``, which PyTorch computes by
 sorting on a card. The LM state (poses, landmarks, lam, the accept flag)
 stays on the device: the loop has no host sync.
@@ -656,12 +660,106 @@ def ba_schur_backsub(Hpp_inv, bp, Hcp, dxc):
 
 
 # ---------------------------------------------------------------------------
+# K40: the landmark product of the reduced camera system
+
+
+class PairPlan(NamedTuple):
+    """K40's plan, fixed for one solve: bits (Kt, W) int32 (a leading batch
+    as the tables'), W = ceil(M / 32); bit p % 32 of word p // 32 of row k
+    is set when keyframe k has a live observation (mask > 0) of landmark p:
+    a point or line endpoint at its slot, a plane at P + its slot. A
+    keyframe that sees a landmark twice sets its bit once (Hcp has summed
+    both), and keyframes k and q share exactly the landmarks of row k &
+    row q. counts (Kt,) int32: the set bits of each row."""
+
+    bits: torch.Tensor
+    counts: torch.Tensor
+
+
+def pair_plan(pt_slot, pt_mask, ln_slot, ln_mask, plane_slots, plane_masks,
+              P: int, M: int) -> PairPlan:
+    """Build K40's plan on the tables' device, from every table that adds
+    to Hcp (clipped slots; plane_slots and plane_masks the three plane
+    tables', left out when there is no plane block, M == P). Slots (...,
+    Kt, n) with an optional leading batch. No host sync: one scatter of the
+    live flags by maximum, then the flags packed 32 to a word."""
+    lead, Kt = tuple(pt_slot.shape[:-2]), pt_slot.shape[-2]
+    Bn = int(np.prod(lead)) if lead else 1
+    W = (M + 31) // 32
+    dev = pt_slot.device
+    live = torch.zeros((Bn, Kt, W * 32), dtype=torch.int32, device=dev)
+    tables = [(pt_slot, pt_mask, 0), (ln_slot, ln_mask, 0)]
+    if M > P:
+        tables += [(s, m, P) for s, m in zip(plane_slots, plane_masks)]
+    for slot, mask, off in tables:
+        if slot.shape[-1] == 0:
+            continue
+        live.scatter_reduce_(
+            2, (slot.long() + off).reshape(Bn, Kt, -1),
+            (mask > 0).to(torch.int32).reshape(Bn, Kt, -1), reduce="amax")
+    weight = torch.bitwise_left_shift(
+        torch.ones(32, dtype=torch.int64, device=dev),
+        torch.arange(32, dtype=torch.int64, device=dev))
+    words = torch.sum(live.view(Bn, Kt, W, 32).long() * weight, dim=-1)
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    counts = torch.sum(live, dim=-1, dtype=torch.int32)
+    return PairPlan(words.to(torch.int32).reshape(lead + (Kt, W))
+                    .contiguous(), counts.reshape(lead + (Kt,)).contiguous())
+
+
+def plan_incidence(plan: PairPlan, M: int) -> torch.Tensor:
+    """The plan's (..., Kt, M) bool incidence: keyframe k sees landmark p."""
+    bits = plan.bits.long() & 0xFFFFFFFF
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    flags = (bits[..., None] >> shifts) & 1
+    return flags.reshape(bits.shape[:-1] + (-1,))[..., :M] > 0
+
+
+def ba_schur_complement_plain(HcpHinv, Hcp):
+    """Plain version of K40: S (6 Kt, 6 Kt) = -(HcpHinv Hcp^T) over the
+    flattened (6 Kt, 3 M) operands, one dense float32 product (the
+    kernel's plan only tells it which blocks are not zero). HcpHinv and Hcp
+    (Kt, 6, M, 3), each with an optional leading batch dimension (one
+    product per problem)."""
+    if Hcp.dim() == 5:
+        return torch.stack([ba_schur_complement_plain(a, b)
+                            for a, b in zip(HcpHinv, Hcp)])
+    Kt, M = Hcp.shape[0], Hcp.shape[2]
+    return -(HcpHinv.reshape(Kt * 6, M * 3) @ Hcp.reshape(Kt * 6, M * 3).T)
+
+
+def ba_schur_complement(HcpHinv, Hcp, plan: Optional[PairPlan]):
+    """K40 wrapper; the arguments and results of
+    ``ba_schur_complement_plain`` (`plan` from ``pair_plan`` on the solve's
+    tables, with the same leading batch). One launch."""
+    if kernels.on_cpu(HcpHinv, Hcp, *(plan or ())):
+        return ba_schur_complement_plain(HcpHinv, Hcp)
+    lead = tuple(Hcp.shape[:-4])
+    B = int(np.prod(lead)) if lead else 1
+    Kt, M = Hcp.shape[-4], Hcp.shape[-2]
+    W = (M + 31) // 32
+    f32 = torch.float32
+    kernels.check(HcpHinv, "HcpHinv", f32, lead + (Kt, 6, M, 3))
+    kernels.check(Hcp, "Hcp", f32, lead + (Kt, 6, M, 3))
+    kernels.check(plan.bits, "plan.bits", torch.int32, lead + (Kt, W))
+    kernels.check(plan.counts, "plan.counts", torch.int32, lead + (Kt,))
+    S = torch.empty(lead + (6 * Kt, 6 * Kt), dtype=f32, device=Hcp.device)
+    with torch.cuda.device(Hcp.device):
+        kernels.launch("psl_ba_schur_complement", kernels.ptr(HcpHinv),
+                       kernels.ptr(Hcp), kernels.ptr(plan.bits),
+                       kernels.ptr(plan.counts), B, Kt, M, W,
+                       kernels.ptr(S))
+    kernels.LAUNCHES["ba_schur_complement"] += 1
+    return S
+
+
+# ---------------------------------------------------------------------------
 # the problem of one solve
 
 
 class _Problem(NamedTuple):
     """What stays fixed for one solve: clipped slots, gates, masks, the
-    plane tables and K8's plan."""
+    plane tables, K8's plan and K40's."""
 
     P: int
     Q: int
@@ -675,12 +773,16 @@ class _Problem(NamedTuple):
     masks: tuple
     plan: ObsPlan
     w: BAWeights
+    pairs: Optional[PairPlan] = None
 
 
-def _problem(lm_xyz, plane_base, pt, ln, pl, par, ver, w) -> _Problem:
+def _problem(lm_xyz, plane_base, pt, ln, pl, par, ver, w,
+             want_pairs: bool = True) -> _Problem:
     """The problem of one solve; with a leading batch on every table (and
-    lm_xyz (B, P, 3), plane_base (B, Q, 4)) the batch of K33's and K34's
-    wrappers, without K8's plan."""
+    lm_xyz (B, P, 3), plane_base (B, Q, 4)) the batch of K33's, K34's and
+    K40's wrappers, without K8's plan. The plans are built on a card only
+    (the plain versions take no order), K40's unless want_pairs is False
+    (the matrix-free PCG solve makes no S)."""
     P = lm_xyz.shape[-2]
     Q = plane_base.shape[-2]
     M = P + Q
@@ -698,13 +800,19 @@ def _problem(lm_xyz, plane_base, pt, ln, pl, par, ver, w) -> _Problem:
     planes = ((pl, pl_slot, 0, w_pl, w.plane_chi),
               (par, par_slot, 1, w_par, w.vp_chi),
               (ver, ver_slot, 2, w_ver, w.vp_chi))
-    plan = None
-    if lm_xyz.dim() == 2 and not kernels.on_cpu(pt.slot):
-        plan = obs_plan(pt.slot, pt.mask, ln.slot, ln.mask, M)
+    plan = pairs = None
+    if not kernels.on_cpu(pt.slot):
+        if lm_xyz.dim() == 2:
+            plan = obs_plan(pt.slot, pt.mask, ln.slot, ln.mask, M)
+        if want_pairs:
+            pairs = pair_plan(pt.slot, pt.mask, ln.slot, ln.mask,
+                              (pl_slot, par_slot, ver_slot),
+                              (pl.mask, par.mask, ver.mask), P, M)
     return _Problem(P, Q, M, pt, ln, planes, (pl_slot, par_slot, ver_slot),
                     is_stereo,
                     (gate_pt, CHI2_MONO, w.plane_chi, w.vp_chi, w.vp_chi),
-                    (pt.mask, ln.mask, pl.mask, par.mask, ver.mask), plan, w)
+                    (pt.mask, ln.mask, pl.mask, par.mask, ver.mask), plan, w,
+                    pairs)
 
 
 def _chi2(pb: _Problem, poses_c, lm_c, plane_base, K, bf, w):
@@ -1108,7 +1216,8 @@ def ba_solve(poses: torch.Tensor, fixed_mask: torch.Tensor,
                 pb, poses_c, plane_base, lm_c[P:], Hcc, bc, Hpp, bp, Hcp,
                 huber)
         Hinv, HcpHinv, rhs = ba_schur_eliminate(Hpp, bp, Hcp, bc, lam, mu_p)
-        S = -(HcpHinv.view(Kt * 6, M * 3) @ Hcp.view(Kt * 6, M * 3).T)
+        with record_function("ba_core.schur_complement"):
+            S = ba_schur_complement(HcpHinv, Hcp, pb.pairs)
         with record_function("ba_core.reduced_system"):
             S, rhs_vec = ba_reduced_system(S, Hcc, rhs, lam, fixed_mask)
         # one step of iterative refinement; a matrix that is not positive

@@ -37,7 +37,8 @@ def ba_solve_pcg(poses: torch.Tensor, fixed_mask: torch.Tensor,
                  huber: bool = True):
     """Drop-in for ba_core.ba_solve at window sizes the dense Schur cannot
     hold. Returns (poses, lm_xyz, plane_coeffs, chi2 dict per table)."""
-    pb = _problem(lm_xyz, plane_base, pt, ln, pl, par, ver, w)
+    pb = _problem(lm_xyz, plane_base, pt, ln, pl, par, ver, w,
+                  want_pairs=False)
     P, M = pb.P, pb.M
     pt, ln = pb.pt, pb.ln
     dev, dt = poses.device, poses.dtype

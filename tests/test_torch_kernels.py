@@ -1,4 +1,4 @@
-"""The hand-written Hopper kernels (K1-K36) against their plain PyTorch
+"""The hand-written Hopper kernels (K1-K41) against their plain PyTorch
 versions on the card. These need a GPU: without one every test skips.
 
     python -m pytest tests/test_torch_kernels.py -q     # on the GPU machine
@@ -1829,3 +1829,108 @@ def test_fuse_search_over_targets(dev):
         want = device_mapper.fuse_set_step_packed(ft, cfg)
     assert torch.equal(got, want)
     assert bool((got[2] == -1).all()) and int((got >= 0).sum()) > 1000
+
+
+@pytest.mark.parametrize("case", ("random",) + chip_smoke.SCHUR_PLANTED)
+def test_schur_complement_planted(dev, case):
+    """K40 on chip_smoke's planted problems (first LM step, 16 keyframes):
+    one launch, each entry within 2 (n - 1) 2^-24 of the sum of its |terms|
+    of the dense product, within one ulp of the emulation of its order
+    (chip_smoke.complement_emulation, whose fused multiply-add rounds
+    twice), blocks of pairs that share nothing exactly 0, two launches
+    equal bits."""
+    from planarslam_tpu_torch.solvers import ba_core
+
+    st = chip_smoke.schur_step(chip_smoke.planted_schur_problem(case, dev))
+    plan = st["pb"].pairs
+    n0 = kernels.LAUNCHES["ba_schur_complement"]
+    got = ba_core.ba_schur_complement(st["HcpHinv"], st["Hcp"], plan)
+    assert kernels.LAUNCHES["ba_schur_complement"] == n0 + 1
+    again = ba_core.ba_schur_complement(st["HcpHinv"], st["Hcp"], plan)
+    want = ba_core.ba_schur_complement_plain(st["HcpHinv"], st["Hcp"])
+    inc = ba_core.plan_incidence(plan, st["Hcp"].shape[2])
+    bound, shared = chip_smoke.complement_bound(st["HcpHinv"], st["Hcp"],
+                                                inc)
+    assert torch.equal(got, again)
+    assert bool(((got.double() - want.double()).abs() <= bound).all())
+    emu = chip_smoke.complement_emulation(
+        st["HcpHinv"].cpu().numpy(), st["Hcp"].cpu().numpy(),
+        inc.cpu().numpy())
+    g = got.cpu().numpy()
+    ulp = np.spacing(np.abs(emu).astype(np.float32))
+    assert np.all(np.abs(g.astype(np.float64) - emu) <= ulp)
+    alone = torch.repeat_interleave(torch.repeat_interleave(
+        shared == 0, 6, 0), 6, 1)
+    assert bool((got[alone] == 0).all())
+    if case == "empty_keyframe":
+        assert bool(alone[18:24].all())
+
+
+def test_schur_complement_batched(dev):
+    """K40 over four planted problems in one launch: each lane bit-equal
+    to its own B = 1 launch; the batched plan's lanes equal the lanes'
+    plans."""
+    from planarslam_tpu_torch.solvers import ba_core
+
+    sts = [chip_smoke.schur_step(chip_smoke.planted_schur_problem(
+        "random", dev, seed=40 + b)) for b in range(4)]
+    plan = chip_smoke.schur_plan([st["pb"] for st in sts])
+    got = ba_core.ba_schur_complement(
+        torch.stack([st["HcpHinv"] for st in sts]),
+        torch.stack([st["Hcp"] for st in sts]), plan)
+    for b, st in enumerate(sts):
+        assert torch.equal(plan.bits[b], st["pb"].pairs.bits)
+        assert torch.equal(plan.counts[b], st["pb"].pairs.counts)
+        one = ba_core.ba_schur_complement(st["HcpHinv"], st["Hcp"],
+                                          st["pb"].pairs)
+        assert torch.equal(got[b].view(torch.int32), one.view(torch.int32))
+
+
+def test_pose_graph_normal_eqs_gauge(dev):
+    """K10 with the gauge diagonal on chip_smoke's 96-keyframe graph
+    (keyframe 0 fixed): H and g within 1e-5 of the largest values of the
+    plain ones (H without the gauge diagonal), the fixed rows' diagonal
+    within one ulp, every entry of H and g written (outputs taken from
+    torch.empty)."""
+    from planarslam_tpu_torch.solvers import pose_graph
+
+    args, fixed = chip_smoke.ba_kernel_graph(dev)
+    for _ in range(2):  # a second call into reused, unzeroed memory
+        H, g = pose_graph.pose_graph_normal_eqs(*args, fixed_mask=fixed)
+    Hp, gp = pose_graph.pose_graph_normal_eqs_plain(*args, fixed_mask=fixed)
+    H0, _ = pose_graph.pose_graph_normal_eqs_plain(*args)
+    gauge = torch.diag((torch.repeat_interleave(fixed, 6) > 0).float()) > 0
+    ulp = torch.nextafter(Hp.abs(), torch.full_like(Hp, float("inf"))) \
+        - Hp.abs()
+    assert float((H - Hp).abs()[~gauge].max()) <= 1e-5 * float(
+        H0.abs().max())
+    assert bool(((H - Hp).abs()[gauge] <= ulp[gauge]).all())
+    assert _rel(g, gp) <= 1e-5
+    assert bool(torch.isfinite(H).all() and torch.isfinite(g).all())
+
+
+@pytest.mark.parametrize("case", chip_smoke.UPDATE_PLANTED)
+def test_pose_graph_update_planted(dev, case):
+    """K41 on chip_smoke's planted steps over 96 keyframes, at B = 1 and
+    in one launch at B = 4: entries within 1e-6 of max(1, |entry|) of the
+    plain version, NaN where the plain version's; each lane equal to its
+    own launch."""
+    from planarslam_tpu_torch.solvers import pose_graph
+
+    args, _ = chip_smoke.ba_kernel_graph(dev)
+    poses = args[0]
+    step = torch.from_numpy(chip_smoke.planted_update_steps(
+        case, poses.shape[0])).to(dev)
+    n0 = kernels.LAUNCHES["pose_graph_update"]
+    got = pose_graph.pose_graph_update(poses, step)
+    assert kernels.LAUNCHES["pose_graph_update"] == n0 + 1
+    want = pose_graph.pose_graph_update_plain(poses, step)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert bool(((got[ok] - want[ok]).abs() <= 1e-6 * torch.clamp(
+        want[ok].abs(), min=1.0)).all())
+    lanes = pose_graph.pose_graph_update(torch.stack([poses] * 4),
+                                         torch.stack([step] * 4))
+    for b in range(4):
+        assert torch.equal(torch.nan_to_num(lanes[b]),
+                           torch.nan_to_num(got))

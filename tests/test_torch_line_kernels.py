@@ -333,25 +333,55 @@ def test_edge_slots_exact(gray, case):
         blurred, 40.0, E)
     jgx, jgy, jscore, jt, jr = map(_n, _jax_edge_slots(
         jnp.asarray(blurred.numpy())))
-    np.testing.assert_array_equal(gx.numpy(), jgx)
-    np.testing.assert_array_equal(gy.numpy(), jgy)
+    # every message below carries the counts and values its check reads,
+    # with the float paths in use, so that a failure names its cause
+    where = (f"{case}: torch {torch.__version__} "
+             f"{torch.backends.cpu.get_cpu_capability()}, jax "
+             f"{jax.__version__}")
+    for name, got, want in (("gx", gx.numpy(), jgx), ("gy", gy.numpy(), jgy)):
+        np.testing.assert_array_equal(got, want, err_msg=(
+            f"{where}: {name} differs at {int(np.sum(got != want))} "
+            f"pixels"))
     # the port's score map: all pixels ranked
     _, _, all_mag, all_pix, _, _ = tlines._edge_slots(blurred, 40.0, H * W)
     score = np.zeros(H * W, f32)
     score[all_pix.numpy()] = all_mag.numpy()
     both = (score > 0) & (jscore > 0)
-    np.testing.assert_allclose(score[both], jscore[both], rtol=2.4e-7)
-    assert np.mean((score > 0) != (jscore > 0)) < (
-        1e-3 if case == "frame" else 0.02)
+    rel = np.abs(score[both] - jscore[both]) / np.abs(jscore[both])
+    np.testing.assert_allclose(score[both], jscore[both], rtol=2.4e-7,
+                               err_msg=(f"{where}: magnitudes off by up to "
+                                        f"{rel.max():.3e} relative"))
+    limit = 1e-3 if case == "frame" else 0.02
+    flips = np.flatnonzero((score > 0) != (jscore > 0))
+    assert len(flips) / score.size < limit, (
+        f"{where}: the edge masks differ at {len(flips)} of {score.size} "
+        f"pixels (limit {limit * score.size:.1f}), first {flips[:8]}: port "
+        f"{score[flips[:8]]}, JAX {jscore[flips[:8]]}")
     pix = top_pix.numpy()
-    np.testing.assert_array_equal(flat_t.numpy(), jt[pix])
-    np.testing.assert_allclose(flat_r.numpy(), jr[pix], atol=1e-4)
+    t_off = np.flatnonzero(flat_t.numpy() != jt[pix])
+    np.testing.assert_array_equal(flat_t.numpy(), jt[pix], err_msg=(
+        f"{where}: theta bins differ at {len(t_off)} slots, first "
+        f"{t_off[:8]} (pixels {pix[t_off[:8]]}): port "
+        f"{flat_t.numpy()[t_off[:8]]}, JAX {jt[pix][t_off[:8]]}"))
+    d_rho = np.abs(flat_r.numpy() - jr[pix])
+    worst = int(np.argmax(d_rho))
+    np.testing.assert_allclose(flat_r.numpy(), jr[pix], atol=1e-4, err_msg=(
+        f"{where}: rho off by up to {d_rho[worst]:.3e} px at slot {worst} "
+        f"(pixel {pix[worst]}, magnitude {top_mag.numpy()[worst]}), "
+        f"{int(np.sum(d_rho > 1e-4))} slots beyond 1e-4"))
     ref_val, ref_pix = top_e_reference(score, E)
     j_val, j_pix = jax.lax.approx_max_k(jnp.asarray(score), E,
                                         recall_target=0.95)
-    for want_pix, want_val in ((ref_pix, ref_val), (_n(j_pix), _n(j_val))):
-        np.testing.assert_array_equal(pix, want_pix)
-        np.testing.assert_array_equal(top_mag.numpy(), want_val)
+    for what, want_pix, want_val in (("reference", ref_pix, ref_val),
+                                     ("approx_max_k", _n(j_pix), _n(j_val))):
+        off = np.flatnonzero((pix != want_pix)
+                             | (top_mag.numpy() != want_val))
+        msg = (f"{where}: the top-E differs from the {what} at {len(off)} "
+               f"slots, first {off[:4]}: port pixels {pix[off[:4]]} values "
+               f"{top_mag.numpy()[off[:4]]}, {what} pixels "
+               f"{want_pix[off[:4]]} values {want_val[off[:4]]}")
+        np.testing.assert_array_equal(pix, want_pix, err_msg=msg)
+        np.testing.assert_array_equal(top_mag.numpy(), want_val, err_msg=msg)
     if case == "stripes":
         tie = score[ref_pix[-1]]
         assert tie > 0 and np.sum(score == tie) > np.sum(ref_val == tie) > 1

@@ -5,8 +5,9 @@ K12 (plane_components), K13 (plane_assign_refit), K15
 (select_keypoints), K20 (detect_lines), K22 (lift_lines_3d), K23
 (search_lines_by_projection), K25 (match_select), K26
 (frame_match_select), K28 (noise_alpha), K29 (frame_normals), K30
-(associate_planes) and K31 (finish_step) of one tree of the port on a
-GPU, so that two trees can be compared in one run.
+(associate_planes), K31 (finish_step), K40 (ba_schur_complement) and the
+pose graph's step (K10, K41) of one tree of the port on a GPU, so that
+two trees can be compared in one run.
 
     python3 tools/kernel_timing.py [--root DIR] [--only NAME,...]
 
@@ -57,9 +58,16 @@ the step's problem four times in one launch and every planted
 FRAME_PLANTED problem alone and (frame mode) at B = 4
 (`frame_match_problems`); K31 on path 1's 48th tracking step, steps 45-48
 in one launch, the two random tails and every planted TAIL_PLANTED problem
-alone and at B = 4 (`finish_step_problems`). K1, K3, K12, K13, K15, K16,
-K17, K18, K22, K23, K25, K26, K28, K29, K30 and K31 are timed by
-`kernel_timing_entry`.
+alone and at B = 4 (`finish_step_problems`); K40 (ba_schur_complement)
+on path 4b's first global BA step (`loop_capture`: path 4b's tracking and
+correction), path 4c's dense orbit at its start and four planted lanes at
+B = 4, beside the dense torch.matmul of each step, every device launch of
+it (`schur_problems`; a tree without K40 times the matmuls alone); under
+`pose_graph`, path 4b's pose graph: _optimize with one and two
+Gauss-Newton steps (every device launch), K10 without and with the gauge
+diagonal and K41 on its first step (`pose_graph_problems`). K1, K3, K12,
+K13, K15, K16, K17, K18, K22, K23, K25, K26, K28, K29, K30, K31, K40, K10
+and K41 are timed by `kernel_timing_entry`.
 --only times the named kernels alone (their keys in the output, e.g.
 `lift_lines_3d,match_select`). Prints one JSON
 object with the card's name and power limit, those times and a hash of
@@ -198,6 +206,21 @@ def main(argv=None) -> int:
                 "median": float(np.median([s[k] for s in steps])),
                 "max": max(s[k] for s in steps), f"step{smoke.ASSOC_STEP}":
                 steps[-1][k]} for k in steps[0]}
+    if wanted("ba_schur_complement") or wanted("pose_graph"):
+        captured = smoke.loop_capture(seq, cfg, dev)
+    if wanted("ba_schur_complement"):
+        out["ba_schur_complement"] = {
+            name: {"hash": _digest(fn()), **smoke.kernel_timing_entry(
+                fn, "" if name.endswith("_matmul") else "camera_complement")}
+            for name, fn in smoke.schur_problems(captured, dev).items()}
+    if wanted("pose_graph"):
+        match = {"normal_eqs": "pose_graph_", "normal_eqs_gauge":
+                 "pose_graph_", "update": "pose_update"}
+        out["pose_graph"] = {
+            name: {"hash": _digest(fn()),
+                   **smoke.kernel_timing_entry(fn, match.get(name, ""))}
+            for name, fn in smoke.pose_graph_problems(captured,
+                                                      dev).items()}
     if wanted("detect_lines"):
         g8, _ = quantize_frame(*seq.render(0), cam.depth_map_factor)
         gray = torch.from_numpy(g8.astype(np.float32)).to(dev)

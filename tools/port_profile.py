@@ -23,12 +23,16 @@ each under a profiler session of its own (the first pays the first-call
 costs, the later ones do not), and prints one result per correction. The
 loop-correction spans split the stall: loop_closing.verify (with
 verify_match, verify_ransac, verify_refine, verify_guided_search),
-loop_closing.correct (pose_graph.optimize, loop_closing.reanchor,
-loop_closing.search_and_fuse with its device call fuse_search and host
-merge fuse_merge, global_ba.global_bundle_adjustment with
-global_ba.build_tables and each global_ba.ba_solve, and inside each LM
-step ba_core.plane_blocks, ba_core.reduced_system, ba_core.cholesky and
-ba_core.cost_test). Prints, for each stage span (the
+loop_closing.correct (pose_graph.optimize_pose_graph's host spans
+pose_graph.build_edges, pose_graph.edge_plan, pose_graph.upload,
+pose_graph.gn_steps (pose_graph.optimize inside it) and pose_graph.pull,
+loop_closing.reanchor, loop_closing.search_and_fuse with its device call
+fuse_search and host merge fuse_merge, global_ba.global_bundle_adjustment
+with global_ba.build_tables and each global_ba.ba_solve, and inside each
+LM step ba_core.plane_blocks, ba_core.schur_complement (K40),
+ba_core.reduced_system, ba_core.cholesky and ba_core.cost_test); the
+kernel table keys K40 and K41 give their device ms per correction).
+Prints, for each stage span (the
 record_function names of the port's stage functions, among them
 device_mapper.mapping_step, local_mapping.finish_keyframe,
 tracking.relocalize, loop_closing.process_keyframe, pose_graph.optimize,
@@ -42,7 +46,7 @@ with plane_observations before) and device_tracker.finish_step (K31;
 keyframe_stats, _pack and _state_from before)),
 the host time and the device time of its kernels, the busy share of the
 device over the window, the device time and launches of each
-hand-written kernel per frame (K1-K39, `port_kernels_ms_per_frame`; their
+hand-written kernel per frame (K1-K41, `port_kernels_ms_per_frame`; their
 share of the busy time, and every other device event by name), the
 host-to-device copies per frame, the device time of each launch of K17
 and K18 apart (`port_launches_per_frame`: by kernel name and grid, so
@@ -136,6 +140,8 @@ PORT_KERNELS = {
     "K37 decode_step_inputs": ("decode_step_kernel",),
     "K38 lift_state": ("lift_state_kernel",),
     "K39 seed_manhattan": ("seed_manhattan_kernel",),
+    "K40 ba_schur_complement": ("camera_complement_kernel",),
+    "K41 pose_graph_update": ("pose_update_kernel",),
 }
 
 
