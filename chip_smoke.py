@@ -106,7 +106,12 @@ Phases, each fatal on failure:
      ground truth, 0 lost frames;
   5. path 2, local mapping: System(SystemConfig(), enable_loop_closing=
      False) on the same frames; ATE, 0 lost, a mapping step per keyframe
-     after the first;
+     after the first; then line_triangulation_parity: K42 (the mapping
+     step's line triangulation) bit-equal to its plain version on path
+     2's captured mapping steps and LINE_TRI_PLANTED problems (no free
+     line, ties, NaN descriptors, nb_ok False, a ray parallel to its
+     plane, parallaxes at the 0.998 edge), into outputs filled with NaN,
+     at B = 1 and 4 lane by lane;
   6. path 3, relocalization: the same System with a keyframe every 4
      frames tracks until the map holds more than 5 keyframes, loses
      tracking on noise frames, relocalizes on a revisited frame (Horn
@@ -133,7 +138,16 @@ Phases, each fatal on failure:
      the 96-keyframe graph, K41 on UPDATE_PLANTED steps and at B = 4;
   9. path 4c, BA at scale: ba_solve on a 96-keyframe perturbed orbit and
      ba_solve_pcg on a 256-keyframe one, to the convergence limits of
-     tests/test_ba_full.py;
+     tests/test_ba_full.py, and ba_solve_pcg on a 512-keyframe one
+     (MAX_GBA_KF_PCG; finite, reported), each PCG solve with one K43 a
+     LM step and K44's and K45's launches of pcg_launches; then
+     pcg_parity: K43-K45 (the PCG system, S p and the back-substitution,
+     the CG update) against their plain versions on the line-and-plane
+     recipe and the 256- and 512-keyframe orbits at their first LM step
+     and on four recipes at B = 4 lane by lane, and ba_solve_pcg through
+     them against the same solve through the plain versions on the card
+     (poses within 1e-4 after one LM step, the cost within 1% after a
+     full solve);
  10. path 5, batched replay: BatchedSLAM(SystemConfig(), B) at B = 4 and 8
      over 48 quantized frames per lane (bench.py::_run_batched's
      sequences); every lane's ATE, 0 lost, the fused lane frames, and per
@@ -167,13 +181,16 @@ call and two K27 per tracking step (inside each tracking step K24 2, K3
 3, K25 3, K26 1, K27 2, K30 1, K31 1, K11 2, K15 1, K36 1, whatever the
 step's batch of lanes), one K37 per tracking step, one K38 per
 _state_from call, one K39 per initialization, inside each fuse set one
-K24, K3 and K25 and inside each mapping step one K24, two K3, two K25
-and one K5 (whatever the targets), one K28 and one K29 per extract_frame
+K24, K3 and K25 and inside each mapping step one K24, two K3, two K25,
+one K5 and one K42 (whatever the targets), one K28 and one K29 per
+extract_frame
 call, one K32 per refine_relative_se3 call, per LM step of
 ba_solve and ba_solve_pcg one K33 launch (the mu_p pass) and one more
 with plane tables and one K34, per dense step one K35 and one K40 (none
-in the PCG solve), one K34 per solve (its tables mode), per pose graph
-one K10 and one K41 per Gauss-Newton step (10); no plain decode, line,
+in the PCG solve), per PCG step one K43, K45's init, per CG step K44's
+two launches and one K45, and K44's back-substitution, one K34 per solve
+(its tables mode), per pose graph one K10 and one K41 per Gauss-Newton
+step (10); no plain decode, line triangulation, PCG, line,
 matching, noise, normal, plane association, step-tail, prelude, lift,
 seed, plane, Manhattan, pose, refinement, plane-block, cost-test,
 reduced-system, Schur-complement or pose-graph function may see a tensor
@@ -5720,7 +5737,12 @@ PLAIN_LOOP_FUNCTIONS = (("sim3_solver", "_refine_relative_plain"),
                         ("ba_core", "reduced_system_plain"),
                         ("ba_core", "ba_schur_complement_plain"),
                         ("pose_graph", "pose_graph_normal_eqs_plain"),
-                        ("pose_graph", "pose_graph_update_plain"))
+                        ("pose_graph", "pose_graph_update_plain"),
+                        ("device_mapper", "triangulate_lines_plain"),
+                        ("ba_pcg", "pcg_prepare_plain"),
+                        ("ba_pcg", "pcg_schur_matvec_plain"),
+                        ("ba_pcg", "pcg_backsub_plain"),
+                        ("ba_pcg", "pcg_cg_update_plain"))
 # the inputs of path 4b's two loop-edge refinements, its first global BA
 # solve (loop_kernel_parity's, schur_pose_graph_parity's) and its pose
 # graph (schur_pose_graph_parity's)
@@ -5754,6 +5776,10 @@ COUNTED_CALLS = (
     ("ba_core", "ba_chi2_tables", "chi2_table_calls"),
     ("ba_core", "ba_reduced_system", "reduced_system_calls"),
     ("pose_graph", "_optimize", "pose_graph_calls"),
+    ("ba_pcg", "pcg_prepare", "pcg_prepare_calls"),
+    ("ba_pcg", "pcg_schur_matvec", "pcg_matvec_calls"),
+    ("ba_pcg", "pcg_backsub", "pcg_backsub_calls"),
+    ("ba_pcg", "pcg_cg_update", "pcg_cg_update_calls"),
     ("device_tracker", "_state_from", "state_from_calls"),
     ("manhattan", "seed_manhattan", "seed_calls"),
     ("device_mapper", "run_fuse_set", "fuse_set_calls"),
@@ -5762,7 +5788,8 @@ COUNTED_CALLS = (
 FUSE_SET_LAUNCHES = {"project_landmarks": 1, "gated_hamming_top2": 1,
                      "match_select": 1}
 MAPPING_STEP_LAUNCHES = {"project_landmarks": 1, "gated_hamming_top2": 2,
-                         "match_select": 2, "triangulate_two_view": 1}
+                         "match_select": 2, "triangulate_two_view": 1,
+                         "triangulate_lines": 1}
 
 
 def _on_card(obj) -> bool:
@@ -5922,6 +5949,7 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
     but the first."""
     from planarslam_tpu_torch.ops import fast, image, lines
     from planarslam_tpu_torch.ops.frontend import orb_level_table
+    from planarslam_tpu_torch.solvers import ba_pcg
 
     rounds = 1 + (cfg.planes.refine_rounds if cfg is not None else 0)
     # K16's and K18's launches per call, as their C entries report them
@@ -5964,7 +5992,13 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
             "ba_reduced_system": rec["reduced_system_calls"],
             "ba_schur_complement": rec["reduced_system_calls"],
             "pose_graph_normal_eqs": rec["gn_steps"],
-            "pose_graph_update": rec["gn_steps"]}
+            "pose_graph_update": rec["gn_steps"],
+            "pcg_prepare": rec["pcg_prepare_calls"],
+            "pcg_schur_matvec": ba_pcg.MATVEC_LAUNCHES
+                                * rec["pcg_matvec_calls"]
+                                + ba_pcg.BACKSUB_LAUNCHES
+                                * rec["pcg_backsub_calls"],
+            "pcg_cg_update": rec["pcg_cg_update_calls"]}
     _check(rec["gn_steps"] == 10 * rec["pose_graph_calls"],
            f"{name}: {rec['gn_steps']} Gauss-Newton steps in "
            f"{rec['pose_graph_calls']} pose graphs, expected 10 each")
@@ -5972,11 +6006,19 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
     # cost test, every dense step (two K9 launches) reduces its system
     _check(rec["plane_block_calls"] == launches["ba_normal_eqs"]
            == rec["cost_test_calls"]
+           == rec["reduced_system_calls"] + rec["pcg_prepare_calls"]
            and 2 * rec["reduced_system_calls"]
            == launches["ba_schur_eliminate"],
            f"{name}: {launches['ba_normal_eqs']} K8 and "
            f"{launches['ba_schur_eliminate']} K9 launches for "
            f"{_call_counts(rec)}")
+    # every PCG LM step (one K43) starts its CG with K45's init mode, runs
+    # a K44 product and a K45 update a CG step, and ends in one
+    # back-substitution
+    _check(rec["pcg_backsub_calls"] == rec["pcg_prepare_calls"]
+           and rec["pcg_cg_update_calls"]
+           == rec["pcg_prepare_calls"] + rec["pcg_matvec_calls"],
+           f"{name}: PCG calls out of step: {_call_counts(rec)}")
     for kernel, n in want.items():
         _check(launches[kernel] == n, f"{name}: {launches[kernel]} {kernel} "
                f"launches, expected {n} ({_call_counts(rec)})")
@@ -5993,8 +6035,8 @@ def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
     _check(rec["plain_calls_on_card"] == 0,
            f"{name}: {rec['plain_calls_on_card']} plain line, matching, "
            f"noise, normal, association, tail, refinement, plane-block, "
-           f"cost-test, reduced-system, Schur-complement or pose-graph calls "
-           f"with tensors on the card")
+           f"cost-test, reduced-system, Schur-complement, pose-graph, line "
+           f"triangulation or PCG calls with tensors on the card")
     if frames is not None:
         _check(rec["plane_calls"] == frames and rec["frame_calls"] == frames
                and rec["manhattan_calls"] > 0
@@ -7420,9 +7462,30 @@ def _orbit_problem(rng, Kt: int, P: int, F: int, dev):
     return poses_gt, poses0, args, slot
 
 
+PCG_N_ITERS, PCG_N_CG = 12, 48  # path 4c's LM steps, ba_solve_pcg's CG steps
+PCG_KF_LARGE = 512  # solvers/global_ba.py MAX_GBA_KF_PCG
+
+
+def pcg_launches(n_iters: int = PCG_N_ITERS, n_cg: int = PCG_N_CG) -> dict:
+    """K43-K45's launches in one ba_solve_pcg call: per LM step one K43,
+    K44's C calls (two launches a CG step, as its entry reports them, and
+    one for the back-substitution) and K45 once a CG step and once in its
+    init mode."""
+    from planarslam_tpu_torch.solvers import ba_pcg
+
+    return {"pcg_prepare": n_iters,
+            "pcg_schur_matvec": n_iters * (ba_pcg.MATVEC_LAUNCHES * n_cg
+                                           + ba_pcg.BACKSUB_LAUNCHES),
+            "pcg_cg_update": n_iters * (n_cg + 1)}
+
+
 def run_ba_scale_path(dev) -> dict:
     """Path 4c: ba_solve on the 96-keyframe orbit and ba_solve_pcg on the
-    256-keyframe one, held to tests/test_ba_full.py's limits."""
+    256-keyframe one, held to tests/test_ba_full.py's limits, and
+    ba_solve_pcg on a 512-keyframe orbit (MAX_GBA_KF_PCG; reported, held
+    finite: its convergence limits are not verified); each PCG solve
+    through K43-K45 as pcg_launches says. Under "problems" the PCG orbits'
+    arguments, for pcg_parity."""
     import torch
 
     from planarslam_tpu_torch import kernels
@@ -7430,18 +7493,21 @@ def run_ba_scale_path(dev) -> dict:
     from planarslam_tpu_torch.solvers.ba_pcg import ba_solve_pcg
 
     rng = np.random.default_rng(42)
-    res = {}
+    res, problems = {}, {}
     kernels.reset_launches()
     calls = {}
     for name, solver, Kt, F, lim_mean, lim_max in (
             ("dense", ba_solve, 96, 48, 0.15, 0.3),
-            ("pcg", ba_solve_pcg, 256, 24, 0.2, 0.4)):
+            ("pcg", ba_solve_pcg, 256, 24, 0.2, 0.4),
+            ("pcg512", ba_solve_pcg, PCG_KF_LARGE, 24, None, None)):
         poses_gt, poses0, args, slot = _orbit_problem(rng, Kt, 1024, F, dev)
+        if solver is ba_solve_pcg:
+            problems[name] = (poses_gt, args)
         torch.cuda.synchronize()
         before = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
         with _pose_calls() as pc:
-            poses1, _, _, chis = solver(*args, n_iters=12)
+            poses1, _, _, chis = solver(*args, n_iters=PCG_N_ITERS)
             poses1 = poses1.cpu().numpy()
         wall = time.perf_counter() - t0
         for key, n in pc.items():
@@ -7452,15 +7518,26 @@ def run_ba_scale_path(dev) -> dict:
                f"path4c: the {name} solve launched no K33 or K34")
         err0 = np.linalg.norm(poses0[:, :3, 3] - poses_gt[:, :3, 3], axis=1)
         err1 = np.linalg.norm(poses1[:, :3, 3] - poses_gt[:, :3, 3], axis=1)
-        med_chi = float(np.median(chis["pt"].cpu().numpy()[slot >= 0]))
+        chi = chis["pt"].cpu().numpy()[slot >= 0]
+        med_chi = float(np.median(chi))
         res[name] = {"keyframes": Kt, "err0_mean": float(err0.mean()),
                      "err1_mean": float(err1.mean()),
                      "err0_max": float(err0.max()),
                      "err1_max": float(err1.max()),
                      "median_chi2": med_chi, "wall_s": wall}
-        _check(err1.mean() < lim_mean * err0.mean()
-               and err1.max() < lim_max * err0.max() and med_chi < 0.5,
-               f"path4c: {name} orbit did not converge: {res[name]}")
+        if solver is ba_solve_pcg:
+            launched = {k: kernels.LAUNCHES[k] - before[k]
+                        for k in pcg_launches()}
+            res[name]["pcg_launches_per_solve"] = launched
+            _check(launched == pcg_launches(), f"path4c: the {name} solve "
+                   f"made {launched} PCG launches, expected "
+                   f"{pcg_launches()}")
+        _check(bool(np.isfinite(poses1).all() and np.isfinite(chi).all()),
+               f"path4c: the {name} solve is not finite: {res[name]}")
+        if lim_mean is not None:
+            _check(err1.mean() < lim_mean * err0.mean()
+                   and err1.max() < lim_max * err0.max() and med_chi < 0.5,
+                   f"path4c: {name} orbit did not converge: {res[name]}")
     res["launches"] = dict(kernels.LAUNCHES)
     print("path4c_ba_scale " + json.dumps(res), flush=True)
     _check(res["launches"]["ba_reduced_system"] > 0
@@ -7475,7 +7552,559 @@ def run_ba_scale_path(dev) -> dict:
                                  FUSE_SET_LAUNCHES, 0),
                              mapping_step_launches=dict.fromkeys(
                                  MAPPING_STEP_LAUNCHES, 0)))
+    res["problems"] = problems
     return res
+
+
+# K43-K45's lanes in pcg_parity (four recipes, seeds 42 + b)
+PCG_LANES = 4
+
+
+def ba_recipe(dev, seed: int = 42):
+    """tests/test_torch_ba.py::_recipe with the port's geometry: Kt = 4, 96
+    points, 6 lines (12 endpoints), 3 planes, perfect observations, a
+    perturbed start, keyframe 0 fixed. Returns (poses_gt, ba_solve_pcg's
+    positional arguments on dev)."""
+    import torch
+
+    from planarslam_tpu_torch.config import PlaneConfig
+    from planarslam_tpu_torch.geometry import plane as plane_geo
+    from planarslam_tpu_torch.geometry import se3
+    from planarslam_tpu_torch.solvers import ba_core
+
+    K, bf = (300.0, 310.0, 160.0, 120.0), 24.0
+    rng = np.random.default_rng(seed)
+    Kt, P_pts, NL, NP, F = 4, 96, 6, 3, 96
+
+    def exp(xi):
+        return se3.se3_exp(torch.from_numpy(np.asarray(xi, np.float32))
+                           ).numpy()
+
+    def project(T, x):
+        pc = T[:3, :3] @ x + T[:3, 3]
+        return np.array([K[0] * pc[0] / pc[2] + K[2],
+                         K[1] * pc[1] / pc[2] + K[3]]), pc[2]
+
+    pts_gt = rng.uniform(-2, 2, (P_pts, 3)).astype(np.float32)
+    pts_gt[:, 2] = rng.uniform(3, 6, P_pts)
+    poses_gt = np.stack([exp(np.r_[rng.normal(0, 0.15, 3) * 0.3,
+                                   rng.normal(0, 0.15, 3)])
+                         for _ in range(Kt)])
+    ln_s = rng.uniform(-2, 2, (NL, 3)).astype(np.float32)
+    ln_s[:, 2] = rng.uniform(3, 5, NL)
+    d = rng.normal(0, 1, (NL, 3)).astype(np.float32)
+    ln_e = ln_s + d / np.linalg.norm(d, axis=1, keepdims=True)
+    pl_gt = plane_geo.normalize(torch.from_numpy(
+        rng.normal(0, 1, (NP, 4)).astype(np.float32)
+        + np.array([0, 0, 0, 5.0], np.float32))).numpy()
+    slot = np.full((Kt, F), -1, np.int32)
+    uv = np.zeros((Kt, F, 2), np.float32)
+    ur = np.full((Kt, F), -1.0, np.float32)
+    for k in range(Kt):
+        for f, p in enumerate(rng.choice(P_pts, F - 16, replace=False)):
+            u, z = project(poses_gt[k], pts_gt[p])
+            if z < 0.5:
+                continue
+            slot[k, f], uv[k, f], ur[k, f] = p, u, u[0] - bf / z
+    L2 = 2 * NL
+    ln_slot = np.full((Kt, L2), -1, np.int32)
+    l2d = np.zeros((Kt, L2, 3), np.float32)
+    for k in range(Kt):
+        for i in range(NL):
+            us, zs = project(poses_gt[k], ln_s[i])
+            ue, ze = project(poses_gt[k], ln_e[i])
+            if zs < 0.5 or ze < 0.5:
+                continue
+            eq = np.cross(np.r_[us, 1.0], np.r_[ue, 1.0])
+            eq /= np.linalg.norm(eq[:2])
+            ln_slot[k, 2 * i:2 * i + 2] = (P_pts + 2 * i, P_pts + 2 * i + 1)
+            l2d[k, 2 * i] = l2d[k, 2 * i + 1] = eq
+    pl_obs = np.stack([plane_geo.normalize(plane_geo.transform(
+        torch.from_numpy(poses_gt[k]), torch.from_numpy(pl_gt))).numpy()
+        for k in range(Kt)]).astype(np.float32)
+    poses0 = poses_gt.copy()
+    for k in range(1, Kt):
+        poses0[k] = exp(np.r_[rng.normal(0, 0.004, 3),
+                              rng.normal(0, 0.015, 3)]) @ poses0[k]
+    lm0 = np.concatenate([
+        pts_gt + rng.normal(0, 0.03, (P_pts, 3)).astype(np.float32),
+        np.stack([ln_s, ln_e], axis=1).reshape(-1, 3)
+        + rng.normal(0, 0.05, (L2, 3)).astype(np.float32)])
+    pl0 = pl_gt.copy()
+    pl0[:, 3] += rng.normal(0, 0.05, NP).astype(np.float32)
+    nrm = pl0[:, :3] + rng.normal(0, 0.02, (NP, 3)).astype(np.float32)
+    pl0[:, :3] = nrm / np.linalg.norm(nrm, axis=1, keepdims=True)
+    fixed = np.zeros(Kt, np.float32)
+    fixed[0] = 1.0
+
+    def t(a, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    ones = np.ones
+    pt = ba_core.PointTables(t(slot, np.int32), t(uv), t(ur),
+                             t(ones((Kt, F))), t(slot >= 0))
+    ln = ba_core.LineTables(t(ln_slot, np.int32), t(l2d),
+                            t(ones((Kt, L2))), t(ln_slot >= 0))
+    pl = ba_core.PlaneTables(t(np.tile(np.arange(NP, dtype=np.int32),
+                                       (Kt, 1)), np.int32), t(pl_obs),
+                             t(ones((Kt, NP))))
+    empty = ba_core.empty_plane_tables(Kt, dev)
+    return poses_gt, (t(poses0), t(fixed), t(lm0), t(pl0), pt, ln, pl, empty,
+                      empty, K, bf,
+                      ba_core.BAWeights.from_config(PlaneConfig()))
+
+
+def pcg_step_inputs(args, lam: float = 1e-4) -> dict:
+    """K43's inputs at the start of ba_solve_pcg's first LM step on args:
+    the plan, K8's sums and cross blocks, K33's plane terms and mu_p (the
+    kernels'), lam, free."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import ba_core, ba_pcg
+
+    poses, fixed, lm_xyz, base, pt, ln, pl, par, ver, K, bf, w = args
+    pb = ba_core._problem(lm_xyz, base, pt, ln, pl, par, ver, w,
+                          want_pairs=False)
+    plan = ba_pcg.pcg_plan(pb)
+    lm = torch.cat([lm_xyz, torch.zeros((pb.Q, 3), device=poses.device)])
+    Hcc, bc, Hpp, bp, _, _, _, cross = ba_core.ba_normal_eqs(
+        poses, lm[:pb.P], pb.pt, pb.ln, pb.M, K, bf, True, False, pb.plan,
+        want_cross=True)
+    Hcc, bc, Hpp, bp, _, terms, mu_p = ba_core.ba_plane_blocks(
+        pb, poses, base, lm[pb.P:].contiguous(), Hcc, bc, Hpp, bp, None,
+        True)
+    return {"plan": plan, "cross": cross, "terms": terms, "Hcc": Hcc,
+            "bc": bc, "Hpp": Hpp, "bp": bp, "mu_p": mu_p,
+            "lam": torch.tensor(lam, device=poses.device),
+            "free": (1.0 - fixed).contiguous(), "fixed": fixed}
+
+
+PREPARE_KEYS = ("plan", "cross", "terms", "Hcc", "bc", "Hpp", "bp", "mu_p",
+                "lam", "free")
+
+
+@contextlib.contextmanager
+def plain_pcg():
+    """ba_solve_pcg with K43-K45's plain versions in the place of their
+    wrappers (on the card too): the plain solve the kernels' is held to."""
+    from planarslam_tpu_torch.solvers import ba_pcg
+
+    names = ("pcg_prepare", "pcg_schur_matvec", "pcg_backsub",
+             "pcg_cg_update")
+    saved = [getattr(ba_pcg, n) for n in names]
+    ba_pcg.pcg_prepare = ba_pcg.pcg_prepare_plain
+    ba_pcg.pcg_schur_matvec = ba_pcg.pcg_schur_matvec_plain
+    ba_pcg.pcg_backsub = ba_pcg.pcg_backsub_plain
+    ba_pcg.pcg_cg_update = ba_pcg.pcg_cg_update_plain
+    try:
+        yield
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(ba_pcg, n, fn)
+
+
+def _abs_terms_matvec(sys, plan, free, p):
+    """Each entry's sum of |terms| for S p (float64): |Hcc_d| |xm| plus
+    sum_o |C_o| |Hpp_inv| sum_o' |C_o'|^T |xm|."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import ba_pcg
+
+    a = ba_pcg.PcgSystem(*(x.double().abs() for x in sys))
+    xm = (p * free[:, None]).double().abs()
+    Kt, M = p.shape[0], sys.Hpp_inv.shape[0]
+    v = torch.einsum("pij,pj->pi", a.Hpp_inv,
+                     ba_pcg._landmark_sum(a, plan, xm, M))
+    s = torch.where(plan.live[:, None], torch.einsum(
+        "oij,oj->oi", a.C, v[plan.obs_slot.long()]), 0.0)
+    return (torch.einsum("kij,kj->ki", a.Hcc_d, xm)
+            + ba_pcg.segment_sum(s, plan.obs_kf, Kt))
+
+
+def _chain_terms(plan, M: int, Kt: int) -> int:
+    """The longest chain of terms of one S p entry: 6 of Hcc_d, per
+    observation of the keyframe 3 products and a sum, 3 of the inverse and
+    per observation of the landmark 6 products and a sum."""
+    live = plan.live
+    n_kf = int(_bincount(plan.obs_kf[live], Kt).max())
+    n_lm = int(_bincount(plan.obs_slot[live], M).max())
+    return 6 + 4 * n_kf + 3 + 7 * n_lm
+
+
+def _bincount(x, n: int):
+    """bincount of x (int tensor) with n bins."""
+    import torch
+
+    return torch.bincount(x.long(), minlength=n) if x.numel() else \
+        torch.zeros(n, dtype=torch.int64)
+
+
+def _held_bound(name: str, got, want, bound, fixed=None) -> float:
+    """Every entry within its bound (float64); fixed rows exactly 0 in
+    both; returns the largest error over its bound."""
+    err = (got.double() - want.double()).abs()
+    _check(bool((err <= bound).all()), f"{name}: {int((err > bound).sum())} "
+           f"entries beyond 2 (n - 1) 2^-24 of their sum of |terms|, "
+           f"largest error {float(err.max())}")
+    if fixed is not None:
+        rows = fixed > 0
+        _check(bool((got[rows] == 0).all() and (want[rows] == 0).all()),
+               f"{name}: a fixed pose's entry is not 0")
+    return float((err / bound.clamp(min=1e-300)).max())
+
+
+def _held_rel(name: str, got, want, rel: float = 1e-5) -> float:
+    """max |got - want| within rel of the largest |want|; returns it
+    relative."""
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((got.double() - want.double()).abs().max()) / scale
+    _check(err <= rel, f"{name}: {err} of the largest value, limit {rel}")
+    return err
+
+
+def pcg_kernel_check(name: str, st: dict) -> dict:
+    """K43-K45 against their plain versions on one LM step's inputs (st,
+    pcg_step_inputs'): two launches equal bits each; K43's Hpp_inv, Hcc_d,
+    rhs and C within 1e-5 of each output's largest value, its Minv through
+    its float64 inverse within 1e-5 of the largest |Hcc_d| of the plain
+    Pm (Pm's terms nearly cancel), rhs exactly 0 at fixed poses; K44's S p
+    and back-substitution on the same system each entry within 2 (n - 1)
+    2^-24 of its sum of |terms|, S p's fixed rows exactly 0; K45's init
+    and one update on the same inputs: pAp within that bound (n = 6 Kt),
+    rz of the init too (n = 6 Kt + 6); x, r and p within 1e-6 of max(1,
+    |v|), or where larger the rounding of pAp carried through alpha (and
+    of rz_new through beta, and of the update's rz likewise), exactly 0 at
+    fixed poses. Returns errors and the outputs."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import ba_pcg
+
+    args = [st[k] for k in PREPARE_KEYS]
+    plan, free, fixed = st["plan"], st["free"], st["fixed"]
+    got = ba_pcg.pcg_prepare(*args)
+    again = ba_pcg.pcg_prepare(*args)
+    want = ba_pcg.pcg_prepare_plain(*args)
+    torch.cuda.synchronize()
+    _check(same_bits(got, again), f"pcg_prepare ({name}): two launches "
+           f"differ")
+    live = plan.live
+    err = {}
+    for f in ("Hpp_inv", "Hcc_d", "rhs"):
+        err[f] = _held_rel(f"pcg_prepare ({name}) {f}", getattr(got, f),
+                           getattr(want, f))
+    err["C"] = _held_rel(f"pcg_prepare ({name}) C", got.C[live], want.C[live])
+    Pm_g = torch.linalg.inv(got.Minv.double())
+    Pm_w = torch.linalg.inv(want.Minv.double())
+    err["Minv_via_Pm"] = float((Pm_g - Pm_w).abs().max()) / float(
+        want.Hcc_d.abs().max())
+    _check(err["Minv_via_Pm"] <= 1e-5 and bool(torch.isfinite(got.Minv)
+                                                .all()),
+           f"pcg_prepare ({name}): inv(Minv) {err['Minv_via_Pm']} of the "
+           f"largest |Hcc_d| off the plain one's, limit 1e-5")
+    _check(bool((got.rhs[fixed > 0] == 0).all()),
+           f"pcg_prepare ({name}): rhs of a fixed pose is not 0")
+    sys = want
+    Kt, M = sys.rhs.shape[0], sys.Hpp_inv.shape[0]
+    n = _chain_terms(plan, M, Kt)
+    u24 = 2.0 ** -24
+    # K45's init on the plain system, then S p of its p
+    st0 = ba_pcg.pcg_cg_update(sys.Minv, free, sys.rhs)
+    st0b = ba_pcg.pcg_cg_update(sys.Minv, free, sys.rhs)
+    st0p = ba_pcg.pcg_cg_update_plain(sys.Minv, free, sys.rhs)
+    _check(same_bits(st0, st0b), f"pcg_cg_update ({name}): two init "
+           f"launches differ")
+    p = st0p.p
+    Ap = ba_pcg.pcg_schur_matvec(sys, plan, free, p)
+    Ap_b = ba_pcg.pcg_schur_matvec(sys, plan, free, p)
+    Ap_p = ba_pcg.pcg_schur_matvec_plain(sys, plan, free, p)
+    _check(same_bits((Ap,), (Ap_b,)), f"pcg_schur_matvec ({name}): two "
+           f"launches differ")
+    terms = _abs_terms_matvec(sys, plan, free, p)
+    err["matvec_over_bound"] = _held_bound(
+        f"pcg_schur_matvec ({name})", Ap, Ap_p,
+        2 * (n - 1) * u24 * terms, fixed)
+    dxc = -st0p.p.contiguous()
+    bp = st["bp"]
+    dxp = ba_pcg.pcg_backsub(sys, plan, bp, dxc)
+    dxp_b = ba_pcg.pcg_backsub(sys, plan, bp, dxc)
+    dxp_p = ba_pcg.pcg_backsub_plain(sys, plan, bp, dxc)
+    _check(same_bits((dxp,), (dxp_b,)), f"pcg_backsub ({name}): two "
+           f"launches differ")
+    a = ba_pcg.PcgSystem(*(x.double().abs() for x in sys))
+    bterms = torch.einsum("pij,pj->pi", a.Hpp_inv, bp.double().abs()
+                          + ba_pcg._landmark_sum(a, plan, dxc.double().abs(),
+                                                 M))
+    n_lm = int(_bincount(plan.obs_slot[live], M).max())
+    err["backsub_over_bound"] = _held_bound(
+        f"pcg_backsub ({name})", dxp, dxp_p,
+        2 * (3 + 1 + 7 * n_lm - 1) * u24 * bterms)
+    # K45: init against plain, then one update on identical inputs
+    f6 = free[:, None].double()
+    Mi = sys.Minv.double().abs()
+
+    def rz_terms(r):
+        ra = (r.double() * f6).abs()
+        return float((ra * torch.einsum("kij,kj->ki", Mi, ra)).sum())
+
+    err["init_rz_over_bound"] = _held_bound(
+        f"pcg_cg_update ({name}) init rz", st0.scal[:1], st0p.scal[:1],
+        torch.tensor([2 * (6 * Kt + 6 - 1) * u24 * rz_terms(sys.rhs)],
+                     device=p.device, dtype=torch.float64))
+    for f in ("x", "r", "p"):
+        g, w = getattr(st0, f), getattr(st0p, f)
+        _held_bound(f"pcg_cg_update ({name}) init {f}", g, w,
+                    1e-6 * w.double().abs().clamp(min=1.0), fixed)
+    upd = (st0p.r, st0p.x, st0p.p, Ap_p, st0p.scal)
+    st1 = ba_pcg.pcg_cg_update(sys.Minv, free, *upd)
+    st1b = ba_pcg.pcg_cg_update(sys.Minv, free, *upd)
+    st1p = ba_pcg.pcg_cg_update_plain(sys.Minv, free, *upd)
+    _check(same_bits(st1, st1b), f"pcg_cg_update ({name}): two launches "
+           f"differ")
+    pap_terms = float((st0p.p.double() * Ap_p.double()).abs().sum())
+    err["pAp_over_bound"] = _held_bound(
+        f"pcg_cg_update ({name}) pAp", st1.scal[1:], st1p.scal[1:],
+        torch.tensor([2 * (6 * Kt - 1) * u24 * pap_terms], device=p.device,
+                     dtype=torch.float64))
+    # the update's alpha = rz / pAp and beta = rz_new / rz carry their
+    # sums' rounding into x, r and p: each entry's bound is the larger of
+    # 1e-6 max(1, |v|) and that rounding carried through (float64)
+    dd = {f: getattr(st0p, f).double() for f in ("x", "r", "p")}
+    Ap0 = Ap_p.double()
+    pAp_w, rz0 = float(st1p.scal[1]), float(st0p.scal[0])
+    alpha = rz0 / pAp_w if pAp_w > 0 else 0.0
+    dalpha = abs(alpha) * 2 * (6 * Kt - 1) * u24 * pap_terms / max(
+        abs(pAp_w), 1e-300)
+    rb = dalpha * Ap0.abs() + 2 * u24 * (dd["r"].abs()
+                                         + abs(alpha) * Ap0.abs())
+    xb = dalpha * dd["p"].abs() + 2 * u24 * (dd["x"].abs()
+                                             + abs(alpha) * dd["p"].abs())
+    r1 = st1p.r.double()
+    z1 = torch.einsum("kij,kj->ki", sys.Minv.double(), r1 * f6) * f6
+    zb = torch.einsum("kij,kj->ki", Mi, (rb + 12 * u24 * r1.abs()) * f6) * f6
+    rz_b = (2 * (6 * Kt - 1) * u24 * float((r1.abs() * z1.abs()).sum())
+            + float((rb * z1.abs() + r1.abs() * zb).sum()))
+    err["rz_over_bound"] = _held_bound(
+        f"pcg_cg_update ({name}) rz", st1.scal[:1], st1p.scal[:1],
+        torch.tensor([rz_b], device=p.device, dtype=torch.float64))
+    rz1 = float(st1p.scal[0])
+    beta = rz1 / rz0 if rz0 > 0 else 0.0
+    dbeta = abs(beta) * rz_b / max(abs(rz1), 1e-300)
+    pb = zb + dbeta * dd["p"].abs() + 2 * u24 * (z1.abs() + abs(beta)
+                                                  * dd["p"].abs())
+    xrp = 0.0
+    for f, b in (("x", xb), ("r", rb), ("p", pb)):
+        g, w = getattr(st1, f), getattr(st1p, f)
+        xrp = max(xrp, _held_bound(
+            f"pcg_cg_update ({name}) {f}", g, w,
+            torch.maximum(b, 1e-6 * w.double().abs().clamp(min=1.0)),
+            fixed))
+    err["xrp_over_bound"] = xrp
+    print(f"pcg ({name}): {json.dumps(err)}", flush=True)
+    return {"err": err, "sys": got, "p": p, "dxc": dxc, "upd": upd,
+            "n_obs": int(live.sum())}
+
+
+def _pcg_solve_pair(args, n_iters: int):
+    """ba_solve_pcg with the kernels and with their plain versions, both on
+    the card: (poses, cost) each, cost the sum of the chi2 tables."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import ba_pcg
+
+    out = []
+    for plain in (False, True):
+        with plain_pcg() if plain else contextlib.nullcontext():
+            poses, _, _, chis = ba_pcg.ba_solve_pcg(*args, n_iters=n_iters)
+        cost = float(sum(float(v.double().sum()) for v in chis.values()))
+        out.append((poses, cost))
+    torch.cuda.synchronize()
+    return out
+
+
+def pcg_parity(dev, problems: dict) -> list:
+    """K43-K45 (pcg_prepare, pcg_schur_matvec, pcg_cg_update) against their
+    plain versions on the card (pcg_kernel_check) on the line-and-plane
+    recipe and on path 4c's 256- and 512-keyframe orbits at their first LM
+    step; at B = 4 (four recipes) lane by lane, each lane bit-equal to its
+    B = 1 launch; and ba_solve_pcg through the kernels against the same
+    solve through the plain versions on the card: after one LM step poses
+    within 1e-4 (the recipe, both orbits), after a full solve (15 LM steps
+    on the recipe, 12 on the 256 orbit) the cost within 1%."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import ba_pcg
+
+    _, recipe = ba_recipe(dev)
+    probs = {"recipe": recipe, "orbit256": problems["pcg"][1],
+             "orbit512": problems["pcg512"][1]}
+    checks, solves = {}, {}
+    for name, args in probs.items():
+        checks[name] = pcg_kernel_check(name, pcg_step_inputs(args))
+        (pk, _), (pp, _) = _pcg_solve_pair(args, 1)
+        d1 = float((pk - pp).abs().max())
+        _check(d1 <= 1e-4 and bool(torch.isfinite(pk).all()),
+               f"ba_solve_pcg ({name}): poses after one LM step {d1} off "
+               f"the plain solve's, limit 1e-4")
+        solves[name] = {"one_step_pose_err": d1}
+        if name != "orbit512":
+            full = 15 if name == "recipe" else PCG_N_ITERS
+            (pk, ck), (pp, cp) = _pcg_solve_pair(args, full)
+            rel = abs(ck - cp) / max(abs(cp), 1e-30)
+            _check(rel <= 0.01, f"ba_solve_pcg ({name}): cost {ck} after "
+                   f"{full} LM steps against the plain solve's {cp}")
+            solves[name].update(cost=ck, plain_cost=cp, cost_rel=rel,
+                                full_pose_err=float((pk - pp).abs().max()))
+    print("pcg_solves " + json.dumps(solves), flush=True)
+    # four recipes in one launch each, lane by lane
+    lanes = [pcg_step_inputs(ba_recipe(dev, 42 + b)[1])
+             for b in range(PCG_LANES)]
+    singles = [pcg_kernel_check(f"lane {b}", st) for b, st in
+               enumerate(lanes)]
+
+    def stack(key):
+        xs = [st[key] for st in lanes]
+        if key == "terms":
+            return [ba_core_terms(list(t)) for t in zip(*xs)]
+        if key == "plan":
+            return ba_pcg.PcgPlan(*(torch.stack(list(f)) for f in zip(*xs)))
+        return torch.stack(xs)
+
+    bargs = [stack(k) for k in PREPARE_KEYS]
+    sys_b = ba_pcg.pcg_prepare(*bargs)
+    plan_b, free_b = bargs[0], bargs[-1]
+    p_b = torch.stack([s["p"] for s in singles])
+    sys_p = ba_pcg.PcgSystem(*(torch.stack(list(f)) for f in zip(
+        *[s["sys"] for s in singles])))
+    Ap_b = ba_pcg.pcg_schur_matvec(sys_p, plan_b, free_b, p_b)
+    dxp_b = ba_pcg.pcg_backsub(sys_p, plan_b, stack("bp"), torch.stack(
+        [s["dxc"] for s in singles]))
+    upd_b = [torch.stack([s["upd"][i] for s in singles]) for i in range(5)]
+    cg_b = ba_pcg.pcg_cg_update(sys_p.Minv, free_b, *upd_b)
+    for b, (st, s) in enumerate(zip(lanes, singles)):
+        one = s["sys"]
+        _check(same_bits([x[b] for x in sys_b], one),
+               f"pcg_prepare: lane {b} of B = {PCG_LANES} differs from its "
+               f"B = 1 launch")
+        Ap1 = ba_pcg.pcg_schur_matvec(one, st["plan"], st["free"], s["p"])
+        dxp1 = ba_pcg.pcg_backsub(one, st["plan"], st["bp"], s["dxc"])
+        cg1 = ba_pcg.pcg_cg_update(one.Minv, st["free"], *s["upd"])
+        _check(same_bits((Ap_b[b], dxp_b[b]), (Ap1, dxp1))
+               and same_bits([x[b] for x in cg_b], cg1),
+               f"pcg_schur_matvec / pcg_cg_update: lane {b} of B = "
+               f"{PCG_LANES} differs from its B = 1 launch")
+    # timings at path 4c's 256-keyframe step
+    st = pcg_step_inputs(probs["orbit256"])
+    args = [st[k] for k in PREPARE_KEYS]
+    c = checks["orbit256"]
+    sys, plan, free, p = c["sys"], st["plan"], st["free"], c["p"]
+    Kt, M = sys.rhs.shape[0], sys.Hpp_inv.shape[0]
+    n_obs, n_all = c["n_obs"], sys.C.shape[0]
+    f4 = 4
+    upd = c["upd"]
+    out = [
+        {"name": "pcg_prepare", "route": "cuda",
+         "source": "planarslam_tpu_torch/csrc/ba_pcg.cu",
+         "replaces": "planarslam_tpu/solvers/ba_pcg.py:162",
+         "max_abs_err": max(v["err"]["Hpp_inv"] for v in checks.values()),
+         "errors": {k: v["err"] for k, v in checks.items()},
+         "tolerance": "Hpp_inv, Hcc_d, rhs, C within 1e-5 of each output's "
+                      "largest value; inv(Minv) within 1e-5 of the largest "
+                      "|Hcc_d| of the plain one's; fixed rows of rhs 0; two "
+                      "launches and B = 4 lanes equal bits",
+         "shapes": {"Kt": Kt, "M": M, "n_obs": n_all, "live": n_obs},
+         "library_ms": None,
+         # Hcc, bc, Hpp, bp, the cross rows and plan read; Hpp_inv, Hcc_d,
+         # Minv, rhs and C written; per observation a 3 x 3 inverse in
+         # float64 (~60), its product and the 6 x 6 correction (~400)
+         **_bound(f4 * (Kt * 42 * 2 + M * 12 * 2 + n_all * 18 * 2
+                        + n_obs * 3 + Kt * 6),
+                  460.0 * n_obs + 60.0 * M + 700.0 * Kt),
+         "ms": _time_ms(lambda: ba_pcg.pcg_prepare(*args)),
+         "plain_ms": _time_ms(lambda: ba_pcg.pcg_prepare_plain(*args))},
+        {"name": "pcg_schur_matvec", "route": "cuda",
+         "source": "planarslam_tpu_torch/csrc/ba_pcg.cu",
+         "replaces": "planarslam_tpu/solvers/ba_pcg.py:208",
+         "max_abs_err": max(v["err"]["matvec_over_bound"]
+                            for v in checks.values()),
+         "tolerance": "each entry of S p and of the back-substitution "
+                      "within 2 (n - 1) 2^-24 of its sum of |terms| "
+                      "(max_abs_err: the largest error over its bound); "
+                      "fixed rows 0; two launches and B = 4 lanes equal "
+                      "bits",
+         "shapes": {"Kt": Kt, "M": M, "live": n_obs}, "library_ms": None,
+         # C (18) and the plan (3 ints) of each live observation read
+         # twice, p, Hcc_d, Hpp_inv, the landmark pass's v written and
+         # read, Ap written; 2 x 36 flops an observation, 72 a keyframe,
+         # 18 a landmark
+         **_bound(f4 * (2 * n_obs * 21 + Kt * (6 + 36 + 6) + M * (9 + 6)),
+                  72.0 * n_obs + 72.0 * Kt + 18.0 * M),
+         "ms": _time_ms(lambda: ba_pcg.pcg_schur_matvec(sys, plan, free, p)),
+         "plain_ms": _time_ms(lambda: ba_pcg.pcg_schur_matvec_plain(
+             sys, plan, free, p))},
+        {"name": "pcg_cg_update", "route": "cuda",
+         "source": "planarslam_tpu_torch/csrc/ba_pcg.cu",
+         "replaces": "planarslam_tpu/solvers/ba_pcg.py:244",
+         "max_abs_err": max(max(v["err"]["pAp_over_bound"],
+                                v["err"]["rz_over_bound"])
+                            for v in checks.values()),
+         "tolerance": "pAp and rz within 2 (n - 1) 2^-24 of their sum of "
+                      "|terms| (max_abs_err: the larger error over its "
+                      "bound; the update's rz with alpha's rounding "
+                      "carried); x, r, p within 1e-6 of max(1, |v|) or "
+                      "alpha's and beta's rounding carried where larger, "
+                      "fixed entries 0; two launches and B = 4 lanes equal "
+                      "bits",
+         "shapes": {"Kt": Kt}, "library_ms": None,
+         # x, r, p, Ap, Minv read, x, r, p written; 36 + 30 flops a
+         # keyframe's z and 4 x 12 its updates and products
+         **_bound(f4 * Kt * (4 * 6 + 36 + 3 * 6), 130.0 * Kt),
+         "ms": _time_ms(lambda: ba_pcg.pcg_cg_update(sys.Minv, free, *upd)),
+         "plain_ms": _time_ms(lambda: ba_pcg.pcg_cg_update_plain(
+             sys.Minv, free, *upd))}]
+    _print_kernels(out)
+    return out
+
+
+def pcg_problems(dev) -> dict:
+    """K43-K45's timing problems (tools/kernel_timing.py) on path 4c's
+    256-keyframe orbit at its first LM step, keyed by kernel: K43; K44's
+    product (of K45's first p) and back-substitution; K45's init and
+    update. {} on a tree without them."""
+    from planarslam_tpu_torch.solvers import ba_pcg
+
+    if not hasattr(ba_pcg, "pcg_prepare"):
+        return {}
+    rng = np.random.default_rng(42)
+    _orbit_problem(rng, 96, 1024, 48, dev)  # path 4c's dense orbit first
+    _, _, args, _ = _orbit_problem(rng, 256, 1024, 24, dev)
+    st = pcg_step_inputs(args)
+    pargs = [st[k] for k in PREPARE_KEYS]
+    plan, free = st["plan"], st["free"]
+    sys = ba_pcg.pcg_prepare(*pargs)
+    st0 = ba_pcg.pcg_cg_update(sys.Minv, free, sys.rhs)
+    Ap = ba_pcg.pcg_schur_matvec(sys, plan, free, st0.p)
+    dxc = -st0.p
+    upd = (st0.r, st0.x, st0.p, Ap, st0.scal)
+    return {"pcg_prepare": {"orbit256": lambda: ba_pcg.pcg_prepare(*pargs)},
+            "pcg_schur_matvec": {
+                "orbit256": lambda: ba_pcg.pcg_schur_matvec(sys, plan, free,
+                                                            st0.p),
+                "backsub": lambda: ba_pcg.pcg_backsub(sys, plan, st["bp"],
+                                                      dxc)},
+            "pcg_cg_update": {
+                "init": lambda: ba_pcg.pcg_cg_update(sys.Minv, free,
+                                                     sys.rhs),
+                "update": lambda: ba_pcg.pcg_cg_update(sys.Minv, free,
+                                                       *upd)}}
+
+
+def ba_core_terms(ts: list):
+    """Lanes' PlaneTerms of one table stacked into a batch."""
+    import torch
+
+    from planarslam_tpu_torch.solvers.ba_core import PlaneTerms
+
+    return PlaneTerms(*(torch.stack(list(f)) for f in zip(*ts)))
 
 
 def _drive(slam, frames, timestamps) -> list:
@@ -9020,6 +9649,311 @@ MAPPING_CAPTURE = tuple(("device_mapper", "_mapping_step_impl", n)
                         for n in (1, 3, -1))
 
 
+# K42's planted mapping steps (planted_line_tri_problem): seeded lines seen
+# from the own keyframe and five neighbours (some segments not free), no
+# own line free, tied similarities (a neighbour's matched row copied to
+# another slot, below and above it), NaN descriptors (an own entry, a whole
+# own row, a neighbour row that every own row sees), neighbours with nb_ok
+# False, a ray parallel to the matched plane (its denominator exactly 0)
+# and parallaxes at the 0.998 edge (rows whose float32 cosp lie on the
+# last floats either side of it)
+LINE_TRI_PLANTED = ("random", "no_free", "ties", "nan_desc", "nb_not_ok",
+                    "parallel_ray", "parallax_edge")
+# _mapping_step_impl's positional inputs that K42 takes, in its order
+LINE_TRI_ARGS = (0, 16, 17, 18, 19, 21, 8, 22, 23, 25, 15)
+LINE_TRI_KEYS = ("own_T", "own_ln_uvs", "own_ln_uve", "own_ln_l2d",
+                 "own_ln_desc", "own_ln_free", "nb_T", "nb_ln_l2d",
+                 "nb_ln_desc", "nb_ln_free", "nb_ok")
+LINE_TRI_NB = 5  # slam/device_mapper.py N_NEIGHBORS
+
+
+def _f32_dot3(a, b):
+    """K42's 3-term dot product in numpy float32: (a0 b0 + a1 b1) + a2 b2."""
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _f32_backproject(T, l, K, n: int) -> list:
+    """K42's back-projection plane (K [R | t])^T l in numpy float32."""
+    fx, fy, cx, cy = (np.float32(v) for v in K)
+    return [(fx * T[0, c] + cx * T[2, c]) * l[0]
+            + (fy * T[1, c] + cy * T[2, c]) * l[1] + T[2, c] * l[2]
+            for c in range(n)]
+
+
+def line_tri_cosp(T1, l1, T2, l2, K) -> np.float32:
+    """K42's parallax cosine of two image lines' planes in numpy float32,
+    each operation rounded as the kernel and its plain version round it."""
+    p1 = _f32_backproject(T1, l1, K, 3)
+    p2 = _f32_backproject(T2, l2, K, 3)
+    return np.float32(np.abs(_f32_dot3(p1, p2)) / (
+        np.sqrt(_f32_dot3(p1, p1)) * np.sqrt(_f32_dot3(p2, p2))
+        + np.float32(1e-12)))
+
+
+def _image_line(s, e) -> np.ndarray:
+    """The line through pixels s and e, (a, b) of unit norm (float32)."""
+    ln = np.cross([s[0], s[1], 1.0], [e[0], e[1], 1.0])
+    return (ln / np.linalg.norm(ln[:2])).astype(np.float32)
+
+
+def _project_px(T, X, K) -> np.ndarray:
+    pc = T[:3, :3].astype(np.float64) @ X + T[:3, 3]
+    return np.array([K[0] * pc[0] / pc[2] + K[2], K[1] * pc[1] / pc[2] + K[3]])
+
+
+def _zero_ray_pixel(c: float, f: float) -> np.float32:
+    """A float32 pixel u near c whose K42 ray term u (1 / f) + (-c / f) is
+    exactly 0 in float32."""
+    inv, neg = np.float32(1) / np.float32(f), -(np.float32(c) / np.float32(f))
+    u = np.float32(c)
+    for step in range(256):
+        for cand in (u, np.nextafter(u, np.float32(np.inf))):
+            if np.float32(cand * inv) + neg == 0:
+                return cand
+        u = np.nextafter(u, np.float32(-np.inf)) if step % 2 else \
+            np.nextafter(u, np.float32(np.inf))
+    _fail(f"no float32 pixel near {c} zeroes the ray term")
+
+
+def planted_line_tri_problem(case: str, cfg, seed: int = 42) -> dict:
+    """One planted K42 problem (LINE_TRI_PLANTED) at cfg's line slots L and
+    descriptor width D, NB = 5 neighbours, as numpy arrays keyed as
+    LINE_TRI_KEYS (bools as bool), plus "K". Seeded lines 1.5-4 m in front
+    of the own camera, each neighbour 0.1-0.3 m away seeing them in
+    another slot order with descriptor noise of 0.03."""
+    rng = np.random.default_rng(seed)
+    cam = cfg.camera
+    K = (cam.fx, cam.fy, cam.cx, cam.cy)
+    L, D, NB = cfg.lines.max_lines, cfg.lines.desc_dim, LINE_TRI_NB
+    W, H = cam.width, cam.height
+    flat = case in ("parallel_ray", "parallax_edge")
+    own_T = (np.eye(4, dtype=np.float32) if flat else
+             _rotvec_pose(rng.normal(0, 0.05, 3), rng.normal(0, 0.2, 3)))
+    nb_T = np.stack([_rotvec_pose(rng.normal(0, 0.03, 3),
+                                  rng.uniform(-0.3, 0.3, 3)) @ own_T
+                     for _ in range(NB)]).astype(np.float32)
+    desc = rng.normal(0, 1, (L, D))
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    uvs = np.stack([rng.uniform(0.1 * W, 0.9 * W, L),
+                    rng.uniform(0.1 * H, 0.9 * H, L)], -1)
+    uve = np.clip(uvs + rng.normal(0, 0.15 * W, (L, 2)), 1, [W - 2, H - 2])
+    T_wc = np.linalg.inv(own_T.astype(np.float64))
+
+    def world(uv, z):
+        pc = np.array([(uv[0] - K[2]) / K[0] * z, (uv[1] - K[3]) / K[1] * z,
+                       z])
+        return T_wc[:3, :3] @ pc + T_wc[:3, 3]
+
+    Xs = [world(uvs[i], rng.uniform(1.5, 4)) for i in range(L)]
+    Xe = [world(uve[i], rng.uniform(1.5, 4)) for i in range(L)]
+    nb_l2d = np.zeros((NB, L, 3), np.float32)
+    nb_desc = np.zeros((NB, L, D), np.float32)
+    perms = [rng.permutation(L) for _ in range(NB)]
+    for n in range(NB):
+        for i in range(L):
+            nb_l2d[n, perms[n][i]] = _image_line(_project_px(nb_T[n], Xs[i], K),
+                                                 _project_px(nb_T[n], Xe[i], K))
+            d = desc[i] + rng.normal(0, 0.03, D)
+            nb_desc[n, perms[n][i]] = d / np.linalg.norm(d)
+    p = {"own_T": own_T, "own_ln_uvs": uvs.astype(np.float32),
+         "own_ln_uve": uve.astype(np.float32),
+         "own_ln_l2d": np.stack([_image_line(uvs[i], uve[i])
+                                 for i in range(L)]),
+         "own_ln_desc": desc.astype(np.float32),
+         "own_ln_free": rng.random(L) > 0.1, "nb_T": nb_T,
+         "nb_ln_l2d": nb_l2d, "nb_ln_desc": nb_desc,
+         "nb_ln_free": rng.random((NB, L)) > 0.1,
+         "nb_ok": np.ones(NB, bool), "K": K}
+    if case == "no_free":
+        p["own_ln_free"][:] = False
+    elif case == "ties":
+        for n in range(NB):
+            for i in range(0, L - 1, 4):
+                j, j2 = perms[n][i], perms[n][i + 1]
+                nb_desc[n, j2], nb_l2d[n, j2] = nb_desc[n, j], nb_l2d[n, j]
+                p["nb_ln_free"][n, [j, j2]] = True
+                p["own_ln_free"][i] = True
+    elif case == "nan_desc":
+        p["own_ln_desc"][1, 5] = np.nan
+        p["own_ln_desc"][2] = np.nan
+        nb_desc[2, 3, 0] = np.nan
+        p["nb_ln_free"][2, 3] = True
+        p["own_ln_free"][:] = True
+    elif case == "nb_not_ok":
+        p["nb_ok"][[1, 3]] = False
+    elif case == "parallel_ray":
+        # own line 0's start ray is the optical axis, and neighbour 0 (no
+        # rotation, 0.3 m along x) matches it to the line u = cx, whose
+        # plane holds the axis: the ray's denominator is exactly 0
+        nb_T[0] = np.eye(4, dtype=np.float32)
+        nb_T[0, 0, 3] = 0.3
+        u0 = _zero_ray_pixel(cam.cx, cam.fx)
+        v0 = _zero_ray_pixel(cam.cy, cam.fy)
+        p["own_ln_uvs"][0] = (u0, v0)
+        p["own_ln_uve"][0] = (u0 + 40, v0 + 30)
+        p["own_ln_l2d"][0] = _image_line(p["own_ln_uvs"][0],
+                                         p["own_ln_uve"][0])
+        nb_l2d[0, 0] = np.array([1.0, 0.0, -np.float32(cam.cx)], np.float32)
+        nb_desc[0, 0] = p["own_ln_desc"][0]
+        p["own_ln_free"][0] = p["nb_ln_free"][0, 0] = True
+    elif case == "parallax_edge":
+        # vertical segments at x = 0.3 m seen from the own camera and from
+        # neighbour 0, 0.2 m along x: their planes' cosp crosses 0.998 near
+        # 3.15 m; row i takes a depth whose float32 cosp lies on the last
+        # floats below or at and above 0.998 (idx i: equal descriptors)
+        nb_T[0] = np.eye(4, dtype=np.float32)
+        nb_T[0, 0, 3] = -0.2
+        edge = np.float32(0.998)
+
+        def row(z):
+            a, b = np.array([0.3, -0.3, z]), np.array([0.3, 0.3, z])
+            s1, e1 = _project_px(own_T, a, K), _project_px(own_T, b, K)
+            l1 = _image_line(s1, e1)
+            l2 = _image_line(_project_px(nb_T[0], a, K),
+                             _project_px(nb_T[0], b, K))
+            return line_tri_cosp(own_T, l1, nb_T[0], l2, K), s1, e1, l1, l2
+
+        rows = {}
+        for z in np.linspace(3.0, 3.3, 6001):
+            r = row(z)
+            rows.setdefault(float(r[0]), r)
+        vals = np.array(sorted(rows))
+        below = vals[vals < edge][-(L // 2):]
+        above = vals[vals >= edge][:L - len(below)]
+        picks = list(below) + list(above)
+        _check(len(picks) == L and len(below) and len(above),
+               f"parallax_edge: {len(picks)} rows about the edge")
+        for i, c in enumerate(picks):
+            _, s1, e1, l1, l2 = rows[c]
+            p["own_ln_uvs"][i], p["own_ln_uve"][i] = s1, e1
+            p["own_ln_l2d"][i], nb_l2d[0, i] = l1, l2
+            nb_desc[0, i] = p["own_ln_desc"][i]
+        p["own_ln_free"][:] = True
+        p["nb_ln_free"][0] = True
+        p["edge_below"] = len(below)  # rows 0 .. below - 1 pass the edge
+    return p
+
+
+def line_tri_args(p: dict, dev) -> tuple:
+    """A planted problem's K42 inputs as tensors on dev, and its K."""
+    import torch
+
+    return tuple(torch.from_numpy(np.ascontiguousarray(p[k])).to(dev)
+                 for k in LINE_TRI_KEYS), p["K"]
+
+
+def captured_line_tri(captured: dict, cfg) -> list:
+    """K42's inputs (tensors, K) of path 2's captured mapping steps."""
+    cam = cfg.camera
+    steps = [captured[c] for c in MAPPING_CAPTURE if c in captured]
+    return [(tuple(args[i].contiguous() for i in LINE_TRI_ARGS),
+             (cam.fx, cam.fy, cam.cx, cam.cy)) for args, _ in steps]
+
+
+def line_tri_problems(cfg, dev) -> dict:
+    """K42's timing problems (tools/kernel_timing.py): the planted random,
+    tied, NaN and parallax-edge mapping steps alone and the four in one
+    launch; a tree without K42 times its plain line triangulation
+    (`_line_triangulation`) on the four alone."""
+    import torch
+
+    from planarslam_tpu_torch.slam import device_mapper as dm
+
+    names = ("random", "ties", "nan_desc", "parallax_edge")
+    probs = {c: line_tri_args(planted_line_tri_problem(c, cfg), dev)
+             for c in names}
+    if not hasattr(dm, "triangulate_lines"):
+        cam = cfg.camera
+        Kmat = torch.tensor([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy],
+                             [0, 0, 1]], dtype=torch.float32, device=dev)
+        return {n: (lambda a=a: dm._line_triangulation(*a[0], Kmat))
+                for n, a in probs.items()}
+    out = {n: (lambda a=a: dm.triangulate_lines(*a[0], a[1])) for n, a in
+           probs.items()}
+    batch = [torch.stack([probs[n][0][i] for n in names])
+             for i in range(len(LINE_TRI_KEYS))]
+    out["batch4"] = lambda: dm.triangulate_lines(*batch, probs["random"][1])
+    return out
+
+
+def line_triangulation_parity(cfg, dev, captured: dict) -> list:
+    """K42 (triangulate_lines) against its plain version on the card, on
+    path 2's captured mapping steps (MAPPING_CAPTURE) and every
+    LINE_TRI_PLANTED problem at B = 1, each launch into outputs filled with
+    NaN (bools and ints 0x7f), idx, Xs, Xe and good bit-equal, two launches
+    equal bits; then at B = 4 lane by lane (the planted problems four at a
+    time), each lane bit-equal to its B = 1 launch."""
+    import torch
+
+    from planarslam_tpu_torch.slam import device_mapper as dm
+
+    probs = {f"path2_step{k[2]}": a for k, a in zip(
+        MAPPING_CAPTURE, captured_line_tri(captured, cfg))}
+    _check(len(probs) == len(MAPPING_CAPTURE),
+           f"line triangulation: {len(probs)} of path 2's mapping steps "
+           f"captured")
+    planted = {c: planted_line_tri_problem(c, cfg) for c in LINE_TRI_PLANTED}
+    for case, p in planted.items():
+        probs[case] = line_tri_args(p, dev)
+    stats, singles = {}, {}
+    for name, (args, K) in probs.items():
+        with poisoned_outputs(dm, "_empty"):
+            got = dm.triangulate_lines(*args, K)
+            again = dm.triangulate_lines(*args, K)
+        want = dm.triangulate_lines_plain(*args, K)
+        torch.cuda.synchronize()
+        _check(same_bits(got, again), f"triangulate_lines ({name}): two "
+               f"launches differ")
+        bad = [_bit_diff(x, y, as_int=True) for x, y in zip(got, want)]
+        _check(not any(bad), f"triangulate_lines ({name}): idx, Xs, Xe, "
+               f"good differ from the plain version in {bad} entries")
+        singles[name] = got
+        stats[name] = {"good": int(got[3].sum()),
+                       "matched": int((got[0] >= 0).sum()),
+                       "rows": int(got[0].numel())}
+    _check(stats["path2_step1"]["good"] + stats["random"]["good"] > 0,
+           f"triangulate_lines: nothing triangulated: {stats}")
+    names = list(LINE_TRI_PLANTED)
+    lanes = 0
+    for g in range(0, len(names) - 3, 4):
+        group = names[g:g + 4]
+        batch = [torch.stack([probs[n][0][i] for n in group])
+                 for i in range(len(LINE_TRI_KEYS))]
+        with poisoned_outputs(dm, "_empty"):
+            out = dm.triangulate_lines(*batch, probs[group[0]][1])
+        for b, n in enumerate(group):
+            _check(same_bits([x[b] for x in out], singles[n]),
+                   f"triangulate_lines: lane {b} ({n}) of B = 4 differs "
+                   f"from its B = 1 launch")
+            lanes += 1
+    below = planted["parallax_edge"]["edge_below"]
+    g0 = singles["parallax_edge"][3][0].cpu().numpy()
+    _check(bool(g0[:below].all()) and not g0[below:].any(),
+           f"triangulate_lines: neighbour 0's parallax edge rows give good "
+           f"{g0.astype(int).tolist()}, expected the first {below}")
+    args, K = probs["path2_step1"]
+    NB, L = args[8].shape[0], args[8].shape[1]
+    D = args[8].shape[2]
+    n_bytes = _nbytes(args) + NB * L * (4 + 24 + 1)
+    ops = 2.0 * NB * L * L * D + 250.0 * NB * L
+    out = [{"name": "triangulate_lines", "route": "cuda",
+            "source": "planarslam_tpu_torch/csrc/line_triangulate.cu",
+            "replaces": "planarslam_tpu/slam/device_mapper.py:187",
+            "max_abs_err": 0.0,
+            "tolerance": "idx, Xs, Xe and good bit-equal (the plain version "
+                         "spells each dot product in the kernel's order); "
+                         "two launches and B = 4 lanes equal bits",
+            "cases": stats, "lanes_checked": lanes,
+            "shapes": {"NB": NB, "L": L, "D": D}, "library_ms": None,
+            **_bound(n_bytes, ops),
+            "ms": _time_ms(lambda: dm.triangulate_lines(*args, K)),
+            "plain_ms": _time_ms(lambda: dm.triangulate_lines_plain(*args,
+                                                                     K))}]
+    _print_kernels(out)
+    print("line_triangulation_parity " + json.dumps(stats), flush=True)
+    return out
+
+
 def fuse_set_parity(slam_map, cfg, dev, captured: dict) -> dict:
     """The packed fuse set (fuse_set_step_packed: one K24, K3 and K25
     launch over the targets padded to N_NEIGHBORS) against the per-target
@@ -9158,7 +10092,9 @@ def main(argv=None) -> int:
     report += seed_lift_parity(seq, frames, cfg, dev, captured)
     path2 = run_tracking_path("path2_mapping", seq, frames[:args.frames],
                               cfg, dev, True, capture=MAPPING_CAPTURE)
-    fuse_set_parity(path2.pop("map"), cfg, dev, path2.pop("captured"))
+    captured2 = path2.pop("captured")
+    report += line_triangulation_parity(cfg, dev, captured2)
+    fuse_set_parity(path2.pop("map"), cfg, dev, captured2)
     paths = [
         path1,
         path2,
@@ -9172,7 +10108,9 @@ def main(argv=None) -> int:
     report += loop_kernel_parity(dev, captured4b)
     report += schur_pose_graph_parity(dev, captured4b)
     del captured4b
-    paths += [path4b, run_ba_scale_path(dev)]
+    path4c = run_ba_scale_path(dev)
+    report += pcg_parity(dev, path4c.pop("problems"))
+    paths += [path4b, path4c]
     lane_frames = _lane_frames(max(BATCH_SIZES), BATCH_FRAMES)
     path5 = [run_batched_path(cfg, dev, lane_frames, B,
                               capture=12 if B == BATCH_PARITY else 0)

@@ -43,7 +43,9 @@ KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
                 "associate_planes", "finish_step", "refine_relative",
                 "ba_plane_blocks", "ba_cost_test", "ba_reduced_system",
                 "step_prelude", "decode_step_inputs", "lift_state",
-                "seed_manhattan", "ba_schur_complement", "pose_graph_update")
+                "seed_manhattan", "ba_schur_complement", "pose_graph_update",
+                "triangulate_lines", "pcg_prepare", "pcg_schur_matvec",
+                "pcg_cg_update")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -56,7 +58,8 @@ CUDA_SOURCES = ("fast_score.cu", "orb_describe.cu", "hamming_top2.cu",
                 "pyramid.cu", "select_keypoints.cu", "lines.cu",
                 "line_lift_search.cu", "matching.cu", "depth_normals.cu",
                 "step_tail.cu", "refine_relative.cu", "ba_step.cu",
-                "step_prelude.cu", "step_decode.cu", "ba_complement.cu")
+                "step_prelude.cu", "step_decode.cu", "ba_complement.cu",
+                "line_triangulate.cu", "ba_pcg.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # Sources whose float32 gates must round as the plain version's separate
@@ -73,7 +76,9 @@ SOURCE_FLAGS = {"plane_segment.cu": ("-fmad=false",),
                 "ba_step.cu": ("-fmad=false",),
                 "step_prelude.cu": ("-fmad=false",),
                 "step_decode.cu": ("-fmad=false",),
-                "pose_graph.cu": ("-fmad=false",)}
+                "pose_graph.cu": ("-fmad=false",),
+                "line_triangulate.cu": ("-fmad=false",),
+                "ba_pcg.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -278,6 +283,23 @@ _SIGNATURES = {
                         + [_P] * 15,
     # S, Hcc, rhs, lam, fixed_mask, batch, Kt, S_out, rhs_vec, stream
     "psl_ba_reduced_system": [_P] * 5 + [_I] * 2 + [_P] * 3,
+    # own_T, own_uvs, own_uve, own_l2d, own_desc, own_free, nb_T, nb_l2d,
+    # nb_desc, nb_free, nb_ok, batch, NB, L, D, fx, fy, cx, cy, 1 / fx,
+    # 1 / fy, -cx / fx, -cy / fy, idx, Xs, Xe, good, stream
+    "psl_triangulate_lines": [_P] * 11 + [_I] * 4 + [_F] * 8 + [_P] * 5,
+    # Hcc, bc, Hpp, bp, lam, mu_p, free, cross, its row and lane strides,
+    # n_ptln, per plane table (records, D, Pp), obs_slot, kf_order,
+    # kf_start, batch, Kt, M, n_obs, Hpp_inv, Hcc_d, Minv, rhs, C, stream
+    "psl_pcg_prepare": [_P] * 8 + [_L, _L, _I] + [_P, _I, _I] * 3
+                       + [_P] * 3 + [_I] * 4 + [_P] * 6,
+    # C, Hpp_inv, Hcc_d, free, obs_kf, obs_slot, lm_order, lm_start,
+    # kf_order, kf_start, batch, Kt, M, n_obs, x (p or dxc), bp (or NULL),
+    # v (the landmark pass's scratch, or dxp), Ap (or NULL), launches (the
+    # int the entry sets to the launches it made), stream
+    "psl_pcg_schur_matvec": [_P] * 10 + [_I] * 4 + [_P] * 6,
+    # Minv, free, batch, Kt, x, r, p, Ap (NULL: the init mode), scal,
+    # x_out, r_out, p_out, scal_out, stream
+    "psl_pcg_cg_update": [_P] * 2 + [_I] * 2 + [_P] * 10,
 }
 # Host-side helpers: plain C functions that launch nothing.
 _HELPERS = {

@@ -14,9 +14,10 @@ CUDA stream:
     features (``matching.match_descriptors``, one K3 and one K25 launch for
     all neighbours), then the two-view DLT and chi2 gates for all
     neighbours at once (K5, ``solvers/triangulation``);
-  - line triangulation: cosine matching of free segments and the cut of the
-    own endpoint rays with the neighbour's back-projection plane (plain
-    PyTorch; 5 x 64 x 64 similarities are too small for a kernel yet).
+  - line triangulation: descriptor matching of free segments and the cut
+    of the own endpoint rays with the neighbour's back-projection plane,
+    for all neighbours in one K42 launch (``triangulate_lines``,
+    ``csrc/line_triangulate.cu``).
 
 The JAX module vmaps over the neighbours; here they are the leading batch
 dimension of every kernel. The result is one packed
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from planarslam_tpu_torch import kernels
 from planarslam_tpu_torch.config import SystemConfig
 from planarslam_tpu_torch.device import resolve_device
 from planarslam_tpu_torch.ops import matching
@@ -147,58 +149,145 @@ class MappingInputLayout(PackedInputLayout):
         ])
 
 
-def _line_triangulation(own_T, own_ln_uvs, own_ln_uve, own_ln_l2d,
-                        own_ln_desc, own_ln_free, nb_T, nb_ln_l2d,
-                        nb_ln_desc, nb_ln_free, nb_ok, Kmat):
-    """CreateNewMapLines2 for all neighbours at once: each 2D segment
-    back-projects to a plane through its camera centre (pi = P^T l); the own
-    segment's endpoint rays cut the matched neighbour segment's plane."""
-    Rw1 = own_T[:3, :3]
-    C1 = -Rw1.T @ own_T[:3, 3]
-    Kinv = torch.linalg.inv(Kmat)
+def line_constants(K) -> tuple:
+    """(fx, fy, cx, cy) and the entries of K^-1 in float32, in closed form:
+    1 / fx, 1 / fy, -cx / fx, -cy / fy (K42's arguments, as Python
+    floats)."""
+    f = np.float32
+    fx, fy, cx, cy = (f(v) for v in K)
+    return tuple(float(v) for v in (fx, fy, cx, cy, f(1) / fx, f(1) / fy,
+                                    -(cx / fx), -(cy / fy)))
 
-    def ray_dir(uv):  # world-frame ray directions R1^T K^-1 u, (L, 3)
-        h = torch.cat([uv, torch.ones_like(uv[:, :1])], dim=-1)
-        return (Kinv @ h.T).T @ Rw1
 
-    d_s = ray_dir(own_ln_uvs)
-    d_e = ray_dir(own_ln_uve)
-    sim = own_ln_desc[None] @ nb_ln_desc.transpose(1, 2)  # (NB, L, L)
+def _dot3(a, b):
+    """a . b over the last dimension, (a0 b0 + a1 b1) + a2 b2."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])
+
+
+def triangulate_lines_plain(own_T, own_ln_uvs, own_ln_uve, own_ln_l2d,
+                            own_ln_desc, own_ln_free, nb_T, nb_ln_l2d,
+                            nb_ln_desc, nb_ln_free, nb_ok, K):
+    """Plain version of K42 (``triangulate_lines``) for one mapping step:
+    CreateNewMapLines2 for all NB neighbours at once. Each 2D segment
+    back-projects to a plane through its camera centre (pi = P^T l); the
+    own segment's endpoint rays cut the matched neighbour segment's plane.
+    own_T (4, 4), own_ln_* (L, ...), nb_T (NB, 4, 4), nb_ln_* (NB, L,
+    ...), nb_ok (NB,), K = (fx, fy, cx, cy). Every dot product is spelled
+    in one order, the order K42 repeats: the D-term similarities d = 0 ..
+    D - 1, 3-term ones (x + y) + z. The arg-max takes NaN above every
+    number and the first index among equals, as torch.max and jnp.argmax.
+    Returns idx (NB, L) int32, Xs, Xe (NB, L, 3) float32, good (NB, L)
+    bool."""
+    fx, fy, cx, cy, ifx, ify, ncx, ncy = line_constants(K)
+    L = nb_ln_desc.shape[1]
+    D = own_ln_desc.shape[-1]
+    R, t = own_T[:3, :3], own_T[:3, 3]
+    C1 = -(R[0] * t[0] + R[1] * t[1] + R[2] * t[2])
+
+    def ray(uv):  # world-frame ray directions R1^T K^-1 (u, v, 1), (L, 3)
+        kx = (uv[:, 0] * ifx + ncx)[:, None]
+        ky = (uv[:, 1] * ify + ncy)[:, None]
+        return kx * R[0] + ky * R[1] + R[2]
+
+    def backproject(T, l, n):  # (K [R | t])^T l, its first n entries
+        return torch.stack([
+            (fx * T[..., 0, c] + cx * T[..., 2, c]) * l[..., 0]
+            + (fy * T[..., 1, c] + cy * T[..., 2, c]) * l[..., 1]
+            + T[..., 2, c] * l[..., 2] for c in range(n)], dim=-1)
+
+    a = own_ln_desc[None, :, None, :]
+    c = nb_ln_desc[:, None, :, :]
+    sim = a[..., 0] * c[..., 0]  # (NB, L, L)
+    for d in range(1, D):
+        sim = sim + a[..., d] * c[..., d]
     gate = (own_ln_free[None, :, None] & nb_ln_free[:, None, :]
             & nb_ok[:, None, None])
     sim = torch.where(gate, sim, -1.0)
-    best, idx = sim.max(dim=2)  # ties: the first index, as jnp.argmax
+    best = torch.amax(sim, dim=2)
+    hit = (sim == best[..., None]) | (torch.isnan(sim)
+                                      & torch.isnan(best)[..., None])
+    cols = torch.arange(L, dtype=torch.int32, device=sim.device)
+    idx = torch.amin(torch.where(hit, cols, L), dim=2).to(torch.int32)
     has = best > 0.75
-    L = nb_ln_l2d.shape[1]
-    j = torch.clamp(idx, 0, L - 1)
+    j = torch.clamp(idx, 0, L - 1).long()
     l2 = torch.gather(nb_ln_l2d, 1, j[..., None].expand(-1, -1, 3))
-    P2 = Kmat @ nb_T[:, :3]  # (NB, 3, 4)
-    pi2 = (P2.transpose(1, 2)[:, None] @ l2[..., None])[..., 0]  # (NB, L, 4)
-    n2 = pi2[..., :3]
-    P1w = Kmat @ own_T[:3]
-    pi1 = (P1w.T @ own_ln_l2d[..., None])[..., 0]  # (L, 4)
-    cosp = torch.abs(torch.sum(pi1[None, :, :3] * n2, dim=-1)) / (
-        torch.linalg.norm(pi1[:, :3], dim=-1)[None]
-        * torch.linalg.norm(n2, dim=-1) + 1e-12)
+    pi2 = backproject(nb_T[:, None], l2, 4)  # (NB, L, 4)
+    pi1 = backproject(own_T, own_ln_l2d, 3)  # (L, 3)
+    cosp = torch.abs(_dot3(pi1[None], pi2)) / (
+        torch.sqrt(_dot3(pi1, pi1))[None] * torch.sqrt(_dot3(pi2, pi2))
+        + 1e-12)
 
     def cut(dirs):
-        denom = torch.sum(n2 * dirs[None], dim=-1)
-        t = -(n2 @ C1 + pi2[..., 3]) / torch.where(
-            torch.abs(denom) < 1e-9, 1e-9, denom)
-        return C1 + t[..., None] * dirs[None], t
+        denom = _dot3(pi2, dirs[None])
+        num = _dot3(pi2, C1) + pi2[..., 3]
+        s = -num / torch.where(torch.abs(denom) < 1e-9, 1e-9, denom)
+        return C1 + s[..., None] * dirs[None], s
 
-    Xs, ts = cut(d_s)
-    Xe, te = cut(d_e)
+    Xs, ts = cut(ray(own_ln_uvs))
+    Xe, te = cut(ray(own_ln_uve))
     # depth in the own camera and a sane segment length
-    zs = (Xs @ Rw1.T)[..., 2] + own_T[2, 3]
-    ze = (Xe @ Rw1.T)[..., 2] + own_T[2, 3]
-    seg = torch.linalg.norm(Xe - Xs, dim=-1)
+    zs = _dot3(R[2], Xs) + t[2]
+    ze = _dot3(R[2], Xe) + t[2]
+    dx = Xe - Xs
+    seg = torch.sqrt(_dot3(dx, dx))
     good = (has & (cosp < 0.998)             # parallax >= ~3.6 deg
             & (ts > 0) & (te > 0)
             & (zs > 0.1) & (zs < 40.0) & (ze > 0.1) & (ze < 40.0)
             & (seg > 0.05) & (seg < 20.0)
             & torch.all(torch.isfinite(Xs), dim=-1)
             & torch.all(torch.isfinite(Xe), dim=-1))
+    return idx, Xs, Xe, good
+
+
+def _empty(shape, dtype, dev) -> torch.Tensor:
+    """K42's output allocator."""
+    return torch.empty(shape, dtype=dtype, device=dev)
+
+
+def triangulate_lines(own_T, own_ln_uvs, own_ln_uve, own_ln_l2d, own_ln_desc,
+                      own_ln_free, nb_T, nb_ln_l2d, nb_ln_desc, nb_ln_free,
+                      nb_ok, K):
+    """K42 wrapper; the arguments and results of ``triangulate_lines_plain``,
+    each with an optional leading batch dimension (B mapping steps: own_T
+    (B, 4, 4), nb_T (B, NB, 4, 4), ...). One launch over every neighbour of
+    every step."""
+    args = (own_T, own_ln_uvs, own_ln_uve, own_ln_l2d, own_ln_desc,
+            own_ln_free, nb_T, nb_ln_l2d, nb_ln_desc, nb_ln_free, nb_ok)
+    batched = own_T.dim() == 3
+    if kernels.on_cpu(*args):
+        if not batched:
+            return triangulate_lines_plain(*args, K)
+        return kernels.per_problem(triangulate_lines_plain, args, K)
+    lead = own_T.shape[:1] if batched else ()
+    B = own_T.shape[0] if batched else 1
+    NB, L = nb_ln_desc.shape[-3], nb_ln_desc.shape[-2]
+    D = own_ln_desc.shape[-1]
+    f32, b8 = torch.float32, torch.bool
+    for name, x, dtype, shape in (
+            ("own_T", own_T, f32, (4, 4)), ("own_ln_uvs", own_ln_uvs, f32,
+                                            (L, 2)),
+            ("own_ln_uve", own_ln_uve, f32, (L, 2)),
+            ("own_ln_l2d", own_ln_l2d, f32, (L, 3)),
+            ("own_ln_desc", own_ln_desc, f32, (L, D)),
+            ("own_ln_free", own_ln_free, b8, (L,)),
+            ("nb_T", nb_T, f32, (NB, 4, 4)),
+            ("nb_ln_l2d", nb_ln_l2d, f32, (NB, L, 3)),
+            ("nb_ln_desc", nb_ln_desc, f32, (NB, L, D)),
+            ("nb_ln_free", nb_ln_free, b8, (NB, L)),
+            ("nb_ok", nb_ok, b8, (NB,))):
+        kernels.check(x, name, dtype, lead + shape)
+    dev = own_T.device
+    idx = _empty(lead + (NB, L), torch.int32, dev)
+    Xs = _empty(lead + (NB, L, 3), f32, dev)
+    Xe = _empty(lead + (NB, L, 3), f32, dev)
+    good = _empty(lead + (NB, L), b8, dev)
+    with torch.cuda.device(dev):
+        kernels.launch("psl_triangulate_lines",
+                       *(kernels.ptr(x) for x in args), B, NB, L, D,
+                       *line_constants(K), kernels.ptr(idx), kernels.ptr(Xs),
+                       kernels.ptr(Xe), kernels.ptr(good))
+    kernels.LAUNCHES["triangulate_lines"] += 1
     return idx, Xs, Xe, good
 
 
@@ -215,9 +304,6 @@ def _mapping_step_impl(
     cam = cfg.camera
     K = (cam.fx, cam.fy, cam.cx, cam.cy)
     Kp = cfg.orb.max_keypoints
-    dev = own_T.device
-    Kmat = torch.tensor([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]],
-                        dtype=torch.float32, device=dev)
     NB = nb_T.shape[0]
 
     # fuse: own landmarks projected into each neighbour
@@ -239,9 +325,11 @@ def _mapping_step_impl(
         level2.contiguous(), (tri_idx >= 0).contiguous(), own_T.contiguous(),
         nb_T.contiguous(), K, cfg.orb.scale_factor)
 
-    ln_tri_idx, ln_tri_s, ln_tri_e, ln_tri_good = _line_triangulation(
-        own_T, own_ln_uvs, own_ln_uve, own_ln_l2d, own_ln_desc, own_ln_free,
-        nb_T, nb_ln_l2d, nb_ln_desc, nb_ln_free, nb_ok, Kmat)
+    ln_tri_idx, ln_tri_s, ln_tri_e, ln_tri_good = triangulate_lines(
+        *(x.contiguous() for x in (
+            own_T, own_ln_uvs, own_ln_uve, own_ln_l2d, own_ln_desc,
+            own_ln_free, nb_T, nb_ln_l2d, nb_ln_desc, nb_ln_free, nb_ok)),
+        K)
 
     return torch.cat([
         _f32_bits(fuse_idx.to(torch.int32)), _f32_bits(tri_idx.to(torch.int32)),

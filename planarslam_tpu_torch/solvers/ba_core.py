@@ -469,14 +469,21 @@ def obs_plan(pt_slot, pt_mask, ln_slot, ln_mask, M: int) -> ObsPlan:
                    i32(starts(k, Kt)), i32(s[kf_perm]))
 
 
+# K8's scratch row per observation (csrc/ba_normal_eqs.cu kStride) and the
+# column of its 18 cross terms (kHcp), row-major 6 x 3
+NORMAL_EQS_STRIDE, NORMAL_EQS_CROSS = 54, 36
+
+
 def ba_normal_eqs_plain(poses, pts, pt: PointTables, ln: LineTables, M: int,
                         K, bf: float, huber: bool = True,
-                        want_hcp: bool = True):
+                        want_hcp: bool = True, want_cross: bool = False):
     """Plain version of K8 (the kernel's `plan` only orders its sums).
     poses (Kt, 4, 4), pts (P, 3) float32; tables with slots clipped to
     [0, P). Returns Hcc (Kt, 6, 6), bc (Kt, 6),
     Hpp (M, 3, 3), bp (M, 3), Hcp (Kt, 6, M, 3) or None, chi_pt (Kt, F),
-    chi_ln (Kt, L2)."""
+    chi_ln (Kt, L2) and, with want_cross, each observation's cross block
+    J_pose^T W J_lm as a row of 18 (Kt (F + L2), 18): points o = k F + f,
+    then line endpoints Kt F + k L2 + l."""
     Kt = poses.shape[0]
     is_stereo = pt.ur >= 0
     r_pt, Jpose, Jpt = _point_jacs(poses, pts, pt.slot, pt.uv, pt.ur,
@@ -497,10 +504,11 @@ def ba_normal_eqs_plain(poses, pts, pt: PointTables, ln: LineTables, M: int,
                      flat, M)
     kf_ids = torch.arange(Kt, device=poses.device)[:, None]
     Hcp = None
+    cross = [torch.einsum("kfai,kfa,kfaj->kfij", Jpose, Wp, Jpt
+                          ).reshape(-1, 6, 3)]
     if want_hcp:
-        Hcp = segment_sum(torch.einsum("kfai,kfa,kfaj->kfij", Jpose, Wp, Jpt
-                                       ).reshape(-1, 6, 3),
-                          (kf_ids * M + pt.slot).reshape(-1), Kt * M)
+        Hcp = segment_sum(cross[0], (kf_ids * M + pt.slot).reshape(-1),
+                          Kt * M)
     chi_ln = torch.zeros(ln.slot.shape, dtype=pts.dtype, device=pts.device)
     if ln.slot.shape[1] > 0:
         r_ln, Jp, Jl = _line_jacs(poses, pts, ln.slot, ln.line2d, K)
@@ -514,23 +522,30 @@ def ba_normal_eqs_plain(poses, pts, pt: PointTables, ln: LineTables, M: int,
             "kli,kl,klj->klij", Jl, w_ln, Jl).reshape(-1, 3, 3), flat_l, M)
         bp = bp + segment_sum((Jl * rwl[..., None]).reshape(-1, 3), flat_l,
                               M)
+        cross.append(torch.einsum("kli,kl,klj->klij", Jp, w_ln, Jl
+                                  ).reshape(-1, 6, 3))
         if want_hcp:
-            Hcp = Hcp + segment_sum(torch.einsum(
-                "kli,kl,klj->klij", Jp, w_ln, Jl).reshape(-1, 6, 3),
-                (kf_ids * M + ln.slot).reshape(-1), Kt * M)
+            Hcp = Hcp + segment_sum(cross[1],
+                                    (kf_ids * M + ln.slot).reshape(-1),
+                                    Kt * M)
     if want_hcp:
         Hcp = Hcp.view(Kt, M, 6, 3).permute(0, 2, 1, 3).contiguous()
+    if want_cross:
+        return (Hcc, bc, Hpp, bp, Hcp, chi_pt, chi_ln,
+                torch.cat(cross).reshape(-1, 18))
     return Hcc, bc, Hpp, bp, Hcp, chi_pt, chi_ln
 
 
 def ba_normal_eqs(poses, pts, pt: PointTables, ln: LineTables, M: int, K,
                   bf: float, huber: bool = True, want_hcp: bool = True,
-                  plan: Optional[ObsPlan] = None):
+                  plan: Optional[ObsPlan] = None, want_cross: bool = False):
     """K8 wrapper; the arguments and results of ``ba_normal_eqs_plain``
-    (`plan` from ``obs_plan`` on the same tables)."""
+    (`plan` from ``obs_plan`` on the same tables). The cross blocks are a
+    view of the kernel's scratch (rows 54 floats apart), which the PCG
+    solve's K43 reads."""
     if kernels.on_cpu(poses, pts, *pt, *ln):
         return ba_normal_eqs_plain(poses, pts, pt, ln, M, K, bf, huber,
-                                   want_hcp)
+                                   want_hcp, want_cross)
     Kt, F = pt.slot.shape
     L2 = ln.slot.shape[1]
     P = pts.shape[0]
@@ -559,7 +574,8 @@ def ba_normal_eqs(poses, pts, pt: PointTables, ln: LineTables, M: int, K,
            else None)
     chi_pt = torch.empty((Kt, F), dtype=f32, device=dev)
     chi_ln = torch.empty((Kt, L2), dtype=f32, device=dev)
-    scratch = torch.empty((Kt * (F + L2), 54), dtype=f32, device=dev)
+    scratch = torch.empty((Kt * (F + L2), NORMAL_EQS_STRIDE), dtype=f32,
+                          device=dev)
     fx, fy, cx, cy = (float(np.float32(v)) for v in K)
     with torch.cuda.device(dev):
         kernels.launch(
@@ -576,6 +592,9 @@ def ba_normal_eqs(poses, pts, pt: PointTables, ln: LineTables, M: int, K,
             kernels.ptr(bp), kernels.ptr(Hcp) if want_hcp else None,
             kernels.ptr(chi_pt), kernels.ptr(chi_ln))
     kernels.LAUNCHES["ba_normal_eqs"] += 1
+    if want_cross:
+        return (Hcc, bc, Hpp, bp, Hcp, chi_pt, chi_ln,
+                scratch[:, NORMAL_EQS_CROSS:NORMAL_EQS_CROSS + 18])
     return Hcc, bc, Hpp, bp, Hcp, chi_pt, chi_ln
 
 

@@ -1,4 +1,4 @@
-"""The hand-written Hopper kernels (K1-K41) against their plain PyTorch
+"""The hand-written Hopper kernels (K1-K45) against their plain PyTorch
 versions on the card. These need a GPU: without one every test skips.
 
     python -m pytest tests/test_torch_kernels.py -q     # on the GPU machine
@@ -1934,3 +1934,57 @@ def test_pose_graph_update_planted(dev, case):
     for b in range(4):
         assert torch.equal(torch.nan_to_num(lanes[b]),
                            torch.nan_to_num(got))
+
+
+@pytest.mark.parametrize("case", chip_smoke.LINE_TRI_PLANTED)
+def test_triangulate_lines_planted(dev, case):
+    """K42 on chip_smoke's planted mapping steps: one launch, idx, Xs, Xe
+    and good bit-equal to the plain version, into outputs filled with NaN;
+    the four in one launch at B = 4 equal to their B = 1 launches."""
+    from planarslam_tpu_torch.slam import device_mapper
+
+    cfg = SystemConfig()
+    args, K = chip_smoke.line_tri_args(
+        chip_smoke.planted_line_tri_problem(case, cfg), dev)
+    n0 = kernels.LAUNCHES["triangulate_lines"]
+    with chip_smoke.poisoned_outputs(device_mapper, "_empty"):
+        got = device_mapper.triangulate_lines(*args, K)
+    assert kernels.LAUNCHES["triangulate_lines"] == n0 + 1
+    want = device_mapper.triangulate_lines_plain(*args, K)
+    assert chip_smoke.same_bits(got, want)
+    lanes = [torch.stack([x] * 4) for x in args]
+    out = device_mapper.triangulate_lines(*lanes, K)
+    for b in range(4):
+        assert chip_smoke.same_bits([x[b] for x in out], got)
+
+
+@pytest.mark.parametrize("problem", ["recipe", "orbit"])
+def test_pcg_kernels(dev, problem):
+    """K43-K45 against their plain versions at a first LM step
+    (chip_smoke.pcg_kernel_check's limits: K43 1e-5 of each output's
+    largest value, inv(Minv) 1e-5 of the largest |Hcc_d|; K44 and K45's
+    sums within 2 (n - 1) 2^-24 of their |terms|; two launches equal
+    bits; fixed rows 0) on the line-and-plane recipe and a 64-keyframe
+    orbit."""
+    if problem == "recipe":
+        args = chip_smoke.ba_recipe(dev)[1]
+    else:
+        args = chip_smoke._orbit_problem(np.random.default_rng(5), 64, 512,
+                                         24, dev)[2]
+    chip_smoke.pcg_kernel_check(problem, chip_smoke.pcg_step_inputs(args))
+
+
+def test_pcg_solve_matches_plain(dev):
+    """ba_solve_pcg through K43-K45 against the same solve through their
+    plain versions on the card, on the recipe: poses within 1e-4 after one
+    LM step, the cost within 1% after 15; K43 once a LM step, K44 and K45
+    as chip_smoke.pcg_launches says."""
+    _, args = chip_smoke.ba_recipe(dev)
+    (pk, _), (pp, _) = chip_smoke._pcg_solve_pair(args, 1)
+    assert float((pk - pp).abs().max()) <= 1e-4
+    before = dict(kernels.LAUNCHES)
+    (pk, ck), (pp, cp) = chip_smoke._pcg_solve_pair(args, 15)
+    assert abs(ck - cp) <= 0.01 * abs(cp)
+    launched = {k: kernels.LAUNCHES[k] - before[k]
+                for k in chip_smoke.pcg_launches(15)}
+    assert launched == chip_smoke.pcg_launches(15)

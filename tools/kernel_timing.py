@@ -5,9 +5,10 @@ K12 (plane_components), K13 (plane_assign_refit), K15
 (select_keypoints), K20 (detect_lines), K22 (lift_lines_3d), K23
 (search_lines_by_projection), K25 (match_select), K26
 (frame_match_select), K28 (noise_alpha), K29 (frame_normals), K30
-(associate_planes), K31 (finish_step), K40 (ba_schur_complement) and the
-pose graph's step (K10, K41) of one tree of the port on a GPU, so that
-two trees can be compared in one run.
+(associate_planes), K31 (finish_step), K40 (ba_schur_complement), the
+pose graph's step (K10, K41), K42 (triangulate_lines) and K43-K45
+(pcg_prepare, pcg_schur_matvec, pcg_cg_update) of one tree of the port on
+a GPU, so that two trees can be compared in one run.
 
     python3 tools/kernel_timing.py [--root DIR] [--only NAME,...]
 
@@ -65,9 +66,15 @@ B = 4, beside the dense torch.matmul of each step, every device launch of
 it (`schur_problems`; a tree without K40 times the matmuls alone); under
 `pose_graph`, path 4b's pose graph: _optimize with one and two
 Gauss-Newton steps (every device launch), K10 without and with the gauge
-diagonal and K41 on its first step (`pose_graph_problems`). K1, K3, K12,
-K13, K15, K16, K17, K18, K22, K23, K25, K26, K28, K29, K30, K31, K40, K10
-and K41 are timed by `kernel_timing_entry`.
+diagonal and K41 on its first step (`pose_graph_problems`); K42
+(triangulate_lines) on the planted random, tied, NaN and parallax-edge
+mapping steps alone and the four in one launch (`line_tri_problems`; a
+tree without K42 times its plain line triangulation); K43-K45 on path
+4c's 256-keyframe orbit at its first LM step: K43, K44's product and
+back-substitution, K45's init and update (`pcg_problems`; a tree without
+them has none). K1, K3, K12, K13, K15, K16, K17, K18, K22, K23, K25, K26,
+K28, K29, K30, K31, K40, K10, K41 and K42-K45 are timed by
+`kernel_timing_entry`.
 --only times the named kernels alone (their keys in the output, e.g.
 `lift_lines_3d,match_select`). Prints one JSON
 object with the card's name and power limit, those times and a hash of
@@ -221,6 +228,24 @@ def main(argv=None) -> int:
                    **smoke.kernel_timing_entry(fn, match.get(name, ""))}
             for name, fn in smoke.pose_graph_problems(captured,
                                                       dev).items()}
+    if wanted("triangulate_lines"):
+        from planarslam_tpu_torch.slam import device_mapper
+
+        # a tree without K42: every device launch of its plain version
+        match = ("triangulate_lines" if hasattr(device_mapper,
+                                                "triangulate_lines") else "")
+        out["triangulate_lines"] = {
+            name: {"hash": _digest(fn()),
+                   **smoke.kernel_timing_entry(fn, match)}
+            for name, fn in smoke.line_tri_problems(cfg, dev).items()}
+    for key, match in (("pcg_prepare", "pcg_prepare"),
+                       ("pcg_schur_matvec", "pcg_"),
+                       ("pcg_cg_update", "pcg_cg")):
+        if wanted(key):
+            out[key] = {name: {"hash": _digest(fn()),
+                               **smoke.kernel_timing_entry(fn, match)}
+                        for name, fn in smoke.pcg_problems(dev).get(
+                            key, {}).items()}
     if wanted("detect_lines"):
         g8, _ = quantize_frame(*seq.render(0), cam.depth_map_factor)
         gray = torch.from_numpy(g8.astype(np.float32)).to(dev)

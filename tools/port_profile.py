@@ -3,7 +3,8 @@
 
     python3 tools/port_profile.py [--frames 40] [--warmup 20]
                                   [--tracking-only | --loop-correction
-                                   [--repeat N] | --batched B] [--out DIR]
+                                   [--repeat N] | --batched B |
+                                   --ba-scale [--repeat N]] [--out DIR]
                                   [--root DIR]
 
 --root profiles another checkout's planarslam_tpu_torch (built into its
@@ -46,7 +47,7 @@ with plane_observations before) and device_tracker.finish_step (K31;
 keyframe_stats, _pack and _state_from before)),
 the host time and the device time of its kernels, the busy share of the
 device over the window, the device time and launches of each
-hand-written kernel per frame (K1-K41, `port_kernels_ms_per_frame`; their
+hand-written kernel per frame (K1-K45, `port_kernels_ms_per_frame`; their
 share of the busy time, and every other device event by name), the
 host-to-device copies per frame, the device time of each launch of K17
 and K18 apart (`port_launches_per_frame`: by kernel name and grid, so
@@ -55,6 +56,15 @@ time of each of K25's launches by call site (`port_sites_per_frame`: the
 frame search, match_descriptors, the window search, other), and the top
 kernels by device time.
 Writes the chrome trace to DIR/port_trace.json when --out is given.
+
+With --ba-scale, path 4c's PCG solve (chip_smoke.py's 256-keyframe orbit,
+ba_solve_pcg with 12 LM steps of 48 CG steps) runs once to warm up, three
+times unprofiled (their walls), then --repeat N times, each under a
+profiler session of its own: per solve its
+wall, and per LM step its host ms (the span ba_pcg.lm_step where the tree
+has it, else the wall over the steps), device busy ms and device events,
+the device ms and launches of each hand-written kernel, and the top
+kernels.
 
 With --batched B, BatchedSLAM(SystemConfig(), B) replays chip_smoke.py's
 path 5 sequences (one per lane, quantized) and the window is batched steps
@@ -87,7 +97,7 @@ sys.path.insert(0, ROOT)
 SPAN_MODULES = ("frontend", "lines", "planes", "manhattan", "matching",
                 "pose_opt", "device_tracker", "device_mapper",
                 "local_mapping", "tracking", "loop_closing", "pose_graph",
-                "global_ba", "local_ba", "ba_core")
+                "global_ba", "local_ba", "ba_core", "ba_pcg")
 # the hand-written kernels by number and name, each with the entry names
 # (substrings of the trace's kernel names) of its launches; a trace kernel
 # counts for the first kernel whose entry name it holds
@@ -142,6 +152,10 @@ PORT_KERNELS = {
     "K39 seed_manhattan": ("seed_manhattan_kernel",),
     "K40 ba_schur_complement": ("camera_complement_kernel",),
     "K41 pose_graph_update": ("pose_update_kernel",),
+    "K42 triangulate_lines": ("triangulate_lines_kernel",),
+    "K43 pcg_prepare": ("pcg_prepare_kernel",),
+    "K44 pcg_schur_matvec": ("pcg_landmark_kernel", "pcg_keyframe_kernel"),
+    "K45 pcg_cg_update": ("pcg_cg_kernel",),
 }
 
 
@@ -254,6 +268,8 @@ def main(argv=None) -> int:
                     "constructed loop, each on a fresh copy of the map")
     ap.add_argument("--batched", type=int, default=0, metavar="B",
                     help="profile batched steps of B lanes (path 5)")
+    ap.add_argument("--ba-scale", action="store_true",
+                    help="profile path 4c's 256-keyframe PCG solve")
     ap.add_argument("--out", default=None)
     ap.add_argument("--root", default=ROOT,
                     help="the checkout whose planarslam_tpu_torch is "
@@ -280,6 +296,9 @@ def main(argv=None) -> int:
     print(f"device {smi.stdout.strip()}", flush=True)
     kernels.build()
     cfg = SystemConfig()
+    if args.ba_scale:
+        _profile_ba_scale(args)
+        return 0
     if args.batched:
         _profile_batched(args, cfg)
         return 0
@@ -347,6 +366,87 @@ def _profile_batched(args, cfg) -> None:
                              for k, v in bs.prof.items()},
         **{k: v for k, v in bs.stats.items()}}
     print(json.dumps(out["batched"], indent=1), flush=True)
+
+
+def _profile_ba_scale(args) -> None:
+    """Profile path 4c's PCG solve on the 256-keyframe orbit (after one
+    warm-up solve), --repeat times."""
+    import importlib.util
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from planarslam_tpu_torch.solvers.ba_pcg import ba_solve_pcg
+
+    # this checkout's chip_smoke.py (path 4c's orbit), whatever the root
+    spec = importlib.util.spec_from_file_location(
+        "port_profile_chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    PCG_N_CG, PCG_N_ITERS = smoke.PCG_N_CG, smoke.PCG_N_ITERS
+    _orbit_problem = smoke._orbit_problem
+    rng = np.random.default_rng(42)
+    _orbit_problem(rng, 96, 1024, 48, "cuda")  # path 4c's dense orbit first
+    _, _, pargs, _ = _orbit_problem(rng, 256, 1024, 24, "cuda")
+
+    def solve():
+        poses = ba_solve_pcg(*pargs, n_iters=PCG_N_ITERS, n_cg=PCG_N_CG)[0]
+        torch.cuda.synchronize()
+        return poses
+
+    solve()
+    walls = []
+    for _ in range(3):  # unprofiled, host clock around solve and sync
+        t0 = time.perf_counter()
+        solve()
+        walls.append(time.perf_counter() - t0)
+    print(json.dumps({"ba_scale_wall_s_unprofiled": walls}), flush=True)
+    n = PCG_N_ITERS
+    for run in range(args.repeat):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            poses = solve()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total", None) or getattr(
+                e, "self_cuda_time_total", 0.0)
+
+        kern = sorted(((dev_us(e), e.key, e.count) for e in events
+                       if "CUDA" in str(e.device_type) and dev_us(e) > 0
+                       and e.key.split(".")[0] not in SPAN_MODULES),
+                      reverse=True)
+        busy_ms = sum(k[0] for k in kern) / 1e3
+        launches = sum(k[2] for k in kern)
+        steps = [e for e in events if e.key == "ba_pcg.lm_step"
+                 and "CUDA" not in str(e.device_type)]
+        host_ms = (steps[0].cpu_time_total / 1e3 / n if steps
+                   else wall * 1e3 / n)
+        port = {}
+        for us, name, count in kern:
+            key = port_kernel(name)
+            if key is not None:
+                rec = port.setdefault(key, {"ms_per_lm_step": 0.0,
+                                            "launches_per_lm_step": 0.0})
+                rec["ms_per_lm_step"] += us / n / 1e3
+                rec["launches_per_lm_step"] += count / n
+        out = {"ba_scale": "path4c pcg, 256 keyframes", "run": run,
+               "lm_steps": n, "cg_steps": PCG_N_CG, "wall_s": wall,
+               "host_ms_per_lm_step": host_ms,
+               "host_ms_from": "span ba_pcg.lm_step" if steps else "wall",
+               "device_busy_ms_per_lm_step": busy_ms / n,
+               "device_busy_share": busy_ms / (wall * 1e3),
+               "device_events_per_lm_step": launches / n,
+               "device_events_per_solve": launches,
+               "finite": bool(torch.isfinite(poses).all()),
+               "port_kernels_per_lm_step": port,
+               "top_kernels": [{"name": k[1][:80],
+                                "ms_per_lm_step": k[0] / n / 1e3,
+                                "calls_per_lm_step": k[2] / n}
+                               for k in kern[:20]]}
+        print(json.dumps(out, indent=1), flush=True)
 
 
 def _profile_window(args, slam, frames, seq, run: int, loop_kf,
