@@ -26,6 +26,14 @@ Phases, each fatal on failure:
      same depth with Kinect noise, also against the plain version run in
      float64; K12 also on eight lanes' frame 0 in one launch (each lane
      bit-equal to its own launch), captured in a CUDA graph and replayed;
+     K6 (Horn alignment) in its weights mode, its triplet mode bit-equal
+     to a weights launch on the plain version's rows, its refit to the
+     plain pick and a weights launch, its scale mode within 1e-5 of its
+     plain version; K7 (the DLT hypotheses, a warp's Jacobi solve each)
+     within 1e-5 of its float64 plain version where the picks are
+     distinct, K46 (the PnP selection) bit-equal at B = 1 and 4; K47
+     (match_lines) bit-equal on path 1's consecutive frames' line features
+     and MATCH_PLANTED at B = 1 and 4;
      K15 (Manhattan mean shift) on frame 0's normals and line directions,
      also on them twice over (N = 4224) and on none; K16-K19 (pyramid, blur, keypoint selection, point
      epilogue) and the all-levels launches of K1 and K2 on frame 0's
@@ -116,7 +124,9 @@ Phases, each fatal on failure:
      frames tracks until the map holds more than 5 keyframes, loses
      tracking on noise frames, relocalizes on a revisited frame (Horn
      branch), then loses again and revisits a frame without depth (PnP
-     branch);
+     branch); then path 6, the public entry points no path of the System
+     calls: horn_ransac_sim3 on a planted similarity and match_lines on
+     path 1's consecutive frames;
   7. path 4a, loop closing: the default System(cfg) (loop closing on, with
      loop.min_kf_gap=3 and loop.consistency_threshold=2) over the 96-frame
      640x480 loop sequence; ATE, 0 lost, loops closed, and K3 and K6
@@ -194,7 +204,10 @@ step (10); no plain decode, line triangulation, PCG, line,
 matching, noise, normal, plane association, step-tail, prelude, lift,
 seed, plane, Manhattan, pose, refinement, plane-block, cost-test,
 reduced-system, Schur-complement or pose-graph function may see a tensor
-on the card. The line before the
+on the card; on paths 3, 4a, 4b and 6 each PnP RANSAC makes one upload,
+one K7 and one K46 launch and one pull, each Horn RANSAC one upload, two
+K6 launches and one pull, and no PyTorch function but a metadata read
+touches a card tensor between its upload and its pull. The line before the
 last is a JSON object with one entry per kernel (its time and its plain
 version's, the least time the card could take for the same bytes and
 operations, and a PyTorch call's time where one computes the same
@@ -224,10 +237,13 @@ LOOP_FRAMES = 96      # path 4a
 CONSTRUCTED_FRAMES = 48  # path 4b, the first frames of a sequence of
 CONSTRUCTED_SEQUENCE = 96  # frames (the trajectory spans them all)
 # one NVIDIA H100 SXM at its 700 W limit (NVIDIA data sheet): HBM
-# bytes/s, and float32 operations/s outside the tensor cores, the rate used
-# for every kernel's operations (integer and float64 work included)
+# bytes/s, float32 operations/s outside the tensor cores (the rate used for
+# a kernel's operations, integer work included), and float64 operations/s
+# outside the tensor cores (half the float32 rate; the rate of the kernels
+# whose solves run in float64: K5-K7)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
 
 
 def _fail(msg: str) -> None:
@@ -271,14 +287,21 @@ def _nbytes(*objs) -> int:
     return total
 
 
-def _bound(n_bytes: float, n_ops: float) -> dict:
+def _bound(n_bytes: float, n_ops: float,
+           ops_per_s: float = FP32_OPS_PER_S, n_ops_fp64: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    HBM rate and the operations over the float32 rate."""
+    HBM rate and the operations over their peak rate (float32 unless
+    given). A kernel that mixes types gives its float64 operations apart as
+    n_ops_fp64; their time at FP64_OPS_PER_S adds to that of n_ops."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": int(n_bytes), "operations": float(n_ops)}
+    t_ops = (n_ops / ops_per_s + n_ops_fp64 / FP64_OPS_PER_S) * 1e3
+    row = {"bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": int(n_bytes), "operations": float(n_ops + n_ops_fp64),
+           "ops_per_s": ops_per_s}
+    if n_ops_fp64:
+        row["operations_fp64"] = float(n_ops_fp64)
+    return row
 
 
 def _launch_split(fn, reps: int = TIMING_REPS, match: str = "") -> dict:
@@ -2310,6 +2333,130 @@ def line_kernel_parity(seq, cfg, dev) -> list:
             gray, depth, cam, lc), reps=5))
     print(f"line_kernel_parity extract_line_features: {json.dumps(whole)}",
           flush=True)
+    _print_kernels(out)
+    return out
+
+
+# K47's planted problems: the MAD-shifted pair of tests/test_lines.py
+# (true pairs at similarity ~0.6), ties (a repeated row and two repeated
+# columns), NaN descriptors (one entry, one whole row), no valid line, and
+# angles at the 0.26 gate (one float below, at it, one above, some across
+# the pi wrap)
+MATCH_PLANTED = ("mad_shift", "tie", "nan_desc", "no_valid", "angle_gate")
+MATCH_PAIRS = 4  # path 1's consecutive frame pairs K47 is held on
+
+
+def _unit_rows(rng, n: int, D: int = 72) -> np.ndarray:
+    x = rng.normal(size=(n, D))
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def planted_match_problem(case: str, n: int = 64, seed: int = 5) -> tuple:
+    """match_lines' inputs (numpy): desc_a, desc_b, valid_a, valid_b,
+    angle_a, angle_b for the MATCH_PLANTED case at n lines a frame."""
+    rng = np.random.default_rng(seed)
+    base = _unit_rows(rng, n)
+    noise = rng.normal(size=(n, 72))
+    noise -= (noise * base).sum(1, keepdims=True) * base
+    noise /= np.linalg.norm(noise, axis=1, keepdims=True)
+    target = 0.60 + rng.uniform(-0.02, 0.02, n)
+    shifted = (target[:, None] * base
+               + np.sqrt(1 - target[:, None] ** 2) * noise).astype(np.float32)
+    angles = rng.uniform(0, np.pi, n).astype(np.float32)
+    valid = np.ones(n, bool)
+    if case == "mad_shift":
+        return base, shifted, valid, valid.copy(), angles, angles.copy()
+    if case == "tie":
+        a = _unit_rows(rng, n)
+        b = a.copy()
+        a[7] = a[3]
+        b[11] = b[2]
+        b[12] = b[2]
+        return a, b, valid, valid.copy(), angles, angles.copy()
+    if case == "nan_desc":
+        a, b = base.copy(), base.copy()
+        a[4, 9] = np.nan
+        b[6, :] = np.nan
+        return a, b, valid, valid.copy(), angles, angles.copy()
+    if case == "no_valid":
+        return base, base.copy(), np.zeros(n, bool), valid, angles, angles
+    if case != "angle_gate":
+        raise ValueError(f"case: {case!r}")
+    gate = np.float32(0.26)
+    k = np.arange(n) % 3
+    off = np.where(k == 0, np.nextafter(gate, np.float32(0)),
+                   np.where(k == 1, gate, np.nextafter(gate, np.float32(1))))
+    ang_b = (angles + off).astype(np.float32)
+    ang_b[::5] = np.float32(np.pi) - ang_b[::5]
+    return base, base.copy(), valid, valid.copy(), angles, ang_b
+
+
+def match_feats(seq, cfg, dev) -> list:
+    """The card's line features of path 1's first MATCH_PAIRS + 1 quantized
+    frames (K47's consecutive pairs)."""
+    import torch
+
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import lines as ln
+
+    cam, factor = cfg.camera, cfg.camera.depth_map_factor
+    feats = []
+    for i in range(MATCH_PAIRS + 1):
+        g8, d16 = quantize_frame(*seq.render(i), factor)
+        feats.append(ln.extract_line_features(
+            torch.from_numpy(g8.astype(np.float32)).to(dev),
+            torch.from_numpy(d16.astype(np.float32)
+                             / np.float32(factor)).to(dev), cam, cfg.lines))
+    return feats
+
+
+def match_lines_parity(seq, cfg, dev) -> list:
+    """K47 (match_lines) bit-equal to its plain version on the card: on
+    the line features of path 1's consecutive quantized frames (MATCH_PAIRS
+    pairs) and every MATCH_PLANTED problem at B = 1 (twice) and the four of
+    each set at B = 4 in one launch, lane by lane; its kernels row."""
+    import torch
+
+    from planarslam_tpu_torch.ops import lines as ln
+
+    feats = match_feats(seq, cfg, dev)
+    sets = {"frames": [tuple(x.contiguous() for x in (
+        feats[i].desc, feats[i + 1].desc, feats[i].valid, feats[i + 1].valid,
+        feats[i].angle, feats[i + 1].angle)) for i in range(MATCH_PAIRS)],
+            "planted": [tuple(torch.from_numpy(np.ascontiguousarray(x)).to(
+                dev) for x in planted_match_problem(c))
+                for c in MATCH_PLANTED]}
+    matched = []
+    for name, probs in sets.items():
+        for k, args in enumerate(probs):
+            got = _twice(ln.match_lines, *args)
+            want = ln.match_lines_plain(*args)
+            _check(same_bits(got, want), f"match_lines: {name} {k} differs "
+                   f"from the plain version")
+            if name == "frames":
+                matched.append(int((got[0] >= 0).sum()))
+        lanes = probs[:4]
+        b4 = ln.match_lines(*[torch.stack(f) for f in zip(*lanes)])
+        for b, args in enumerate(lanes):
+            _check(same_bits([x[b] for x in b4], ln.match_lines(*args)),
+                   f"match_lines: {name} lane {b} of B = 4 differs from its "
+                   f"own launch")
+    _check(min(matched) >= 3, f"match_lines: consecutive frames matched "
+           f"{matched} lines")
+    args = sets["frames"][0]
+    A, D = args[0].shape
+    B = args[1].shape[0]
+    row = {"name": "match_lines", "route": "cuda", "library_ms": None,
+           # the A x B similarities of D products and sums, the gates, the
+           # two sorts of the adaptive gate
+           **_bound(_nbytes(args) + 8 * A, 2.0 * A * B * D + 20.0 * A * B),
+           "source": "planarslam_tpu_torch/csrc/line_lift_search.cu",
+           "replaces": "planarslam_tpu/ops/lines.py:381",
+           "max_abs_err": 0.0, "tolerance": "bit-equal",
+           "frames_matched": matched,
+           "ms": _time_ms(lambda: ln.match_lines(*args)),
+           "plain_ms": _time_ms(lambda: ln.match_lines_plain(*args))}
+    out = [row]
     _print_kernels(out)
     return out
 
@@ -4642,6 +4789,45 @@ def _pose_problem(K, bf, seed=0, n=120, n_lines=8, n_planes=4,
     return T_init.astype(np.float32), points, lines, planes, par, ver
 
 
+def horn_problem(seed: int = 6, scale: float = 1.0, n: int = 1024) -> tuple:
+    """K6's seeded problem (numpy): n correspondences, 60% inliers of a
+    planted similarity (scale, 1 cm noise), padded with the default_rng(7)
+    triplets by sim3_solver._pad_pair: (src, dst, valid, triplets)."""
+    from planarslam_tpu_torch.solvers import sim3_solver
+
+    rng = np.random.default_rng(seed)
+    src = rng.uniform([-3, -2, 1], [3, 2, 7], (n, 3)).astype(np.float32)
+    Tg = _planted_se3(rng)
+    dst = scale * (src @ Tg[:3, :3].T) + Tg[:3, 3] + rng.normal(0, 0.01,
+                                                                (n, 3))
+    bad = rng.random(n) >= 0.6
+    dst[bad] = rng.uniform([-3, -2, 1], [3, 2, 7], (int(bad.sum()), 3))
+    return sim3_solver._pad_pair(src, dst.astype(np.float32), 64)
+
+
+def pnp_problem(cam, n: int = 256, seed: int = 7,
+                picks_seed: int = 11) -> tuple:
+    """K7's seeded problem (numpy): n points 2-6 m in front of a planted
+    pose, 0.5 px noise, 20% outliers moved 20-60 px, the 128
+    default_rng(picks_seed) picks: (xw, uv_n, inv_sigma2, valid, picks)."""
+    rng = np.random.default_rng(seed)
+    xw = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                   rng.uniform(2, 6, n)], -1).astype(np.float32)
+    Tg = _planted_se3(rng, 0.1)
+    pc = xw @ Tg[:3, :3].T + Tg[:3, 3]
+    uv = np.stack([cam.fx * pc[:, 0] / pc[:, 2] + cam.cx,
+                   cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], -1)
+    uv = uv + rng.normal(0, 0.5, (n, 2))
+    bad = rng.random(n) >= 0.8
+    uv[bad] += rng.uniform(20, 60, (int(bad.sum()), 2))
+    uv_n = np.stack([(uv[:, 0] - cam.cx) / cam.fx,
+                     (uv[:, 1] - cam.cy) / cam.fy], -1).astype(np.float32)
+    picks = np.random.default_rng(picks_seed).integers(0, n, (128, 6)).astype(
+        np.int32)
+    return (xw, uv_n, np.full(n, np.float32(cam.fx * cam.fy), np.float32),
+            np.ones(n, bool), picks)
+
+
 def backend_kernel_parity(cfg, dev) -> list:
     """K5-K7 against their plain versions on the card, on numpy-seeded
     inputs with planted structure, at the shapes of the 640x480 paths."""
@@ -4699,7 +4885,8 @@ def backend_kernel_parity(cfg, dev) -> list:
     out.append({"name": "triangulate_two_view", "route": "cuda",
                 "library_ms": None,
                 # per pair: the 4 x 4 DLT and its Jacobi SVD (float64), gates
-                **_bound(_nbytes(args5[:7], Xk, gk), 3000.0 * NB * Kp),
+                **_bound(_nbytes(args5[:7], Xk, gk), 3000.0 * NB * Kp,
+                         FP64_OPS_PER_S),
                 "source": "planarslam_tpu_torch/csrc/triangulate.cu",
                 "replaces": "planarslam_tpu/slam/device_mapper.py:125",
                 "max_abs_err": float((Xk - Xp)[both].abs().max()),
@@ -4712,14 +4899,8 @@ def backend_kernel_parity(cfg, dev) -> list:
 
     # K6: 1024 correspondences, 60% inliers of a known SE3 (1 cm noise),
     # the 64 one-hot hypothesis rows of the RANSAC (default_rng(7) picks)
-    rng = np.random.default_rng(6)
     n = 1024
-    src = rng.uniform([-3, -2, 1], [3, 2, 7], (n, 3)).astype(np.float32)
-    Tg = _planted_se3(rng)
-    dst = src @ Tg[:3, :3].T + Tg[:3, 3] + rng.normal(0, 0.01, (n, 3))
-    bad = rng.random(n) >= 0.6
-    dst[bad] = rng.uniform([-3, -2, 1], [3, 2, 7], (int(bad.sum()), 3))
-    s_p, d_p, v_p, picks = sim3_solver._pad_pair(src, dst, 64)
+    s_p, d_p, v_p, picks = horn_problem(6)
     w = np.zeros((64, len(s_p)), np.float32)
     np.put_along_axis(w, picks.astype(np.int64), 1.0, axis=1)
     w = w * v_p[None] + np.float32(1e-9)
@@ -4735,34 +4916,36 @@ def backend_kernel_parity(cfg, dev) -> list:
     best = int(p6[2].max())
     _check(best > 0.5 * n, f"horn_align_batch: best hypothesis has {best} "
            f"inliers of {n} (planted 60%)")
+    modes = horn_mode_parity(t, s_p, d_p, v_p, picks, args6)
+    args6s = modes.pop("scale_args")
     out.append({"name": "horn_align_batch", "route": "cuda",
                 "library_ms": None,
-                # per row and point: weighted sums, covariance, inlier test
-                **_bound(_nbytes(args6[:4], k6), 40.0 * w.size),
+                # per row and point: weighted sums, covariance (float64),
+                # inlier test
+                **_bound(_nbytes(args6[:4], k6), 40.0 * w.size,
+                         FP64_OPS_PER_S),
                 "source": "planarslam_tpu_torch/csrc/horn_align.cu",
                 "replaces": "planarslam_tpu/solvers/sim3_solver.py:23",
-                "max_abs_err": err6, "tolerance": "n_inl equal, R t 1e-4",
-                "best_inliers": best,
+                "modes": "weights, triplets, refit; each with the scale",
+                "max_abs_err": max(err6, modes["scale_err"]),
+                "tolerance": "n_inl equal, R t 1e-4; triplets and refit "
+                             "bit-equal to weights launches; scale 1e-5",
+                "best_inliers": best, **modes,
                 "ms": _time_ms(lambda: sim3_solver.horn_align_batch(*args6)),
                 "plain_ms": _time_ms(
-                    lambda: sim3_solver.horn_align_batch_plain(*args6))})
+                    lambda: sim3_solver.horn_align_batch_plain(*args6)),
+                "ransac_ms": _time_ms(
+                    lambda: sim3_solver._ransac_align(*args6s)),
+                "ransac_plain_ms": _time_ms(
+                    lambda: sim3_solver._ransac_align_plain(
+                        *[a[0] for a in args6s[:4]], *args6s[4:]))})
 
     # K7: 256 correspondences, 80% inliers (0.5 px), the 128 DLT hypotheses
     # of the RANSAC (default_rng(11) picks)
-    rng = np.random.default_rng(7)
     n = 256
-    xw = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
-                   rng.uniform(2, 6, n)], -1).astype(np.float32)
-    Tg = _planted_se3(rng, 0.1)
-    uv = project(Tg, xw) + rng.normal(0, 0.5, (n, 2))
-    bad = rng.random(n) >= 0.8
-    uv[bad] += rng.uniform(20, 60, (int(bad.sum()), 2))
-    uv_n = np.stack([(uv[:, 0] - cam.cx) / cam.fx,
-                     (uv[:, 1] - cam.cy) / cam.fy], -1).astype(np.float32)
-    picks = np.random.default_rng(11).integers(0, n, (128, 6)).astype(
-        np.int32)
-    inv_s2 = np.full(n, np.float32(cam.fx * cam.fy), np.float32)
-    args7 = (t(xw), t(uv_n), t(inv_s2), t(np.ones(n, bool)), t(picks), 5.991)
+    prob7 = pnp_problem(cam, n)
+    picks = prob7[4]
+    args7 = (*[t(a) for a in prob7], 5.991)
     sk, Tk = pnp.pnp_dlt_hypotheses(*args7)
     sp, Tp = pnp.pnp_dlt_hypotheses_plain(*args7)
     torch.cuda.synchronize()
@@ -4776,23 +4959,166 @@ def backend_kernel_parity(cfg, dev) -> list:
            f"pnp_dlt_hypotheses: best T differs by {err_R} (R), {err_t} (t)")
     _check(int(sp.max()) > 0.6 * n, f"pnp_dlt_hypotheses: best hypothesis "
            f"has {int(sp.max())} inliers of {n} (planted 80%)")
+    held = pnp_distinct_picks(picks, sk, Tk, Tp, n)
+    k46 = pnp_select_parity(args7, sk, Tk)
     out.append({"name": "pnp_dlt_hypotheses", "route": "cuda",
                 "library_ms": None,
-                # per hypothesis: the 12 x 12 Jacobi SVD (float64, ~10
-                # sweeps) and the reprojection score of every point
-                **_bound(_nbytes(args7[:5], sk, Tk),
-                         128 * (95000.0 + 30.0 * n)),
+                # per hypothesis: the 12 x 12 Jacobi SVD (float64, ~6
+                # sweeps of 66 rotations of 2 x 12 + 2 x 12 columns) and the
+                # reprojection score of every point (float32)
+                **_bound(_nbytes(args7[:5], sk, Tk), 128 * 30.0 * n,
+                         n_ops_fp64=128 * 95000.0),
                 "source": "planarslam_tpu_torch/csrc/pnp_dlt.cu",
                 "replaces": "planarslam_tpu/solvers/pnp.py:25",
                 "max_abs_err": max(err_R, err_t),
-                "tolerance": "scores +-2 on >= 95%, best T 0.01 / 0.05",
+                "tolerance": "scores +-2 on >= 95%, best T 0.01 / 0.05; "
+                             "T 1e-5 of max(1, |T|) where the picks are "
+                             "distinct",
                 "scores_within_2": close,
-                "max_score_diff": int((sk - sp).abs().max()),
+                "max_score_diff": int((sk - sp).abs().max()), **held,
                 "ms": _time_ms(lambda: pnp.pnp_dlt_hypotheses(*args7)),
                 "plain_ms": _time_ms(
                     lambda: pnp.pnp_dlt_hypotheses_plain(*args7))})
+    out.append(k46)
     _print_kernels(out)
     return out
+
+
+def horn_mode_parity(t, s_p, d_p, v_p, picks, args6) -> dict:
+    """K6's triplet, refit and scale modes on the card: the triplet launch
+    bit-equal to the weights launch on the rows the plain version builds
+    (sim3_solver.triplet_weights), the refit bit-equal to the plain pick of
+    the best row (torch.argmax) and a weights launch on its inliers, each
+    twice; the scale mode (a planted similarity, scale 1.3) within 1e-5 of
+    its plain version (R, t of max(1, |t|), s relative) on the rows whose
+    triplet is distinct and on the refit, with equal counts and masks.
+    Returns the figures and the scale RANSAC's arguments."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import sim3_solver
+
+    dev = args6[0].device
+    one = [t(a[None]) for a in (s_p, d_p, v_p, picks)]
+    trip = _twice(sim3_solver.horn_triplets, *one, 0.08)
+    rows = sim3_solver.triplet_weights(torch.from_numpy(v_p),
+                                       torch.from_numpy(picks)).to(dev)
+    by_w = sim3_solver.horn_align_batch(*args6[:3], rows, 0.08)
+    _check(same_bits([x[0] for x in (trip[0], trip[1], trip[3], trip[4])],
+                     by_w), "horn_triplets: differs from the weights launch "
+           "on the plain version's rows")
+    refit = _twice(sim3_solver.horn_refit, *one[:3], trip[3], trip[4],
+                   0.08)[0]
+    best = int(torch.argmax(trip[3][0]))
+    w_best = (trip[4][0, best].to(torch.float32) + 1e-9)[None].contiguous()
+    R, tt, n_inl, inl = sim3_solver.horn_align_batch(*args6[:3], w_best, 0.08)
+    want = torch.cat([R.reshape(9), tt.reshape(3),
+                      torch.ones(1, device=dev), n_inl.view(torch.float32),
+                      inl[0].to(torch.float32)])
+    _check(same_bits([refit[0]], [want]), "horn_refit: differs from the "
+           "plain pick and a weights launch")
+    # the scale mode on a planted similarity
+    prob = horn_problem(46, 1.3)
+    pk = prob[3]
+    sc = [t(a[None]) for a in prob]
+    got = _twice(sim3_solver.horn_triplets, *sc, 0.08, True)
+    want = sim3_solver.horn_triplets_plain(*[a[0] for a in sc], 0.08, True)
+    distinct = torch.from_numpy(np.array([len(set(p)) == 3 for p in pk]))
+    rows = distinct.to(dev)
+
+    def rel(a, b, scale):
+        return float(((a - b).abs() / scale).max())
+
+    err = max(rel(got[0][0][rows], want[0][rows], 1.0),
+              rel(got[1][0][rows], want[1][rows],
+                  want[1][rows].abs().clamp(min=1.0)),
+              rel(got[2][0][rows], want[2][rows], want[2][rows].abs()))
+    _check(err <= 1e-5, f"horn_triplets (scale): {err} from the plain "
+           f"version")
+    _check(bool((got[3][0] == want[3]).all()) and bool(
+        (got[4][0] == want[4]).all()),
+           "horn_triplets (scale): counts or masks differ from the plain "
+           "version")
+    row = _twice(sim3_solver.horn_refit, *sc[:3], got[3], got[4], 0.08,
+                 True)[0][0]
+    prow = sim3_solver.horn_refit_plain(*[a[0] for a in sc[:3]], want[3],
+                                        want[4], 0.08, True)
+    r_err = max(rel(row[:9], prow[:9], 1.0),
+                rel(row[9:12], prow[9:12], prow[9:12].abs().clamp(min=1.0)),
+                rel(row[12:13], prow[12:13], prow[12:13].abs()))
+    _check(r_err <= 1e-5 and same_bits([row[13:]], [prow[13:]]),
+           f"horn_refit (scale): {r_err} from the plain version, or its "
+           f"count or mask differs")
+    s_est = float(row[12])
+    _check(abs(s_est - 1.3) < 0.01, f"horn_refit (scale): s = {s_est}, "
+           f"planted 1.3")
+    return {"triplets_bit_equal": True, "refit_bit_equal": True,
+            "scale_err": max(err, r_err), "scale": s_est,
+            "scale_repeated_triplets": int((~distinct).sum()),
+            "scale_args": (*sc, 0.08, True)}
+
+
+def pnp_distinct_picks(picks, sk, Tk, Tp, n: int) -> dict:
+    """K7 against the float64 plain version per hypothesis: T within 1e-5
+    of max(1, |T|) where the 6 picks are distinct; a hypothesis that
+    repeats a point (its DLT null space has dimension 2 or more) held to
+    nothing but a score in [-1, n]."""
+    import torch
+
+    distinct = torch.from_numpy(np.array([len(set(p)) == 6 for p in picks]))
+    rows = distinct.to(Tk.device)
+    scale = Tp.abs().clamp(min=1.0)
+    err = float(((Tk - Tp).abs() / scale)[rows].max())
+    _check(err <= 1e-5, f"pnp_dlt_hypotheses: T {err} from the plain "
+           f"version on distinct picks")
+    _check(bool(((sk >= -1) & (sk <= n)).all()),
+           "pnp_dlt_hypotheses: a score outside [-1, n]")
+    return {"distinct_T_err": err, "repeated_picks": int((~distinct).sum())}
+
+
+def pnp_select_parity(args7, sk, Tk) -> dict:
+    """K46 bit-equal to its plain version on K7's outputs, twice, at B = 1
+    and four lanes at B = 4 (the problem with its scores rolled), its count
+    K7's best score; its kernels row."""
+    import torch
+
+    from planarslam_tpu_torch.solvers import pnp
+
+    ins = [a[None] for a in args7[:4]]
+    got = _twice(pnp.pnp_select, *ins, sk[None], Tk[None], 5.991)[0]
+    want = pnp.pnp_select_plain(*args7[:4], sk, Tk, 5.991)
+    _check(same_bits([got[0]], [want]), "pnp_select: differs from the plain "
+           "version")
+    count = int(got[0, 16:17].view(torch.int32))
+    _check(count == int(sk.max()), f"pnp_select: count {count}, K7's best "
+           f"score {int(sk.max())}")
+    lanes = [torch.roll(sk, 7 * b) for b in range(4)]
+    lane_T = [torch.roll(Tk, 7 * b, 0) for b in range(4)]
+    b4 = pnp.pnp_select(*[a.expand(4, *a.shape[1:]).contiguous()
+                          for a in ins], torch.stack(lanes),
+                        torch.stack(lane_T), 5.991)
+    for b in range(4):
+        _check(same_bits([b4[b]], [pnp.pnp_select(
+            *ins, lanes[b][None], lane_T[b][None], 5.991)[0]]),
+               f"pnp_select: lane {b} of B = 4 differs from its own launch")
+    n, h = args7[0].shape[0], sk.shape[0]
+    return {"name": "pnp_select", "route": "cuda", "library_ms": None,
+            # the scores' arg-max, then per point 9 multiply-adds, two
+            # divisions and the chi2 in float32; of the Ts it reads only the
+            # winner's 16 floats
+            **_bound(_nbytes(args7[:4], sk, got) + 4 * 16,
+                     4.0 * h + 25.0 * n),
+            "source": "planarslam_tpu_torch/csrc/pnp_dlt.cu",
+            "replaces": "planarslam_tpu/solvers/pnp.py:63",
+            "max_abs_err": 0.0, "tolerance": "bit-equal",
+            "count": count,
+            "ms": _time_ms(lambda: pnp.pnp_select(*ins, sk[None], Tk[None],
+                                                  5.991)),
+            "plain_ms": _time_ms(lambda: pnp.pnp_select_plain(
+                *args7[:4], sk, Tk, 5.991)),
+            "ransac_ms": _time_ms(lambda: pnp._pnp_ransac(
+                ins[0], ins[1], ins[3], ins[2], args7[4][None], 5.991)),
+            "ransac_plain_ms": _time_ms(lambda: pnp.pnp_select_plain(
+                *args7[:4], *pnp.pnp_dlt_hypotheses_plain(*args7), 5.991))}
 
 
 POSE_BLOCKS = ("points", "lines", "planes", "par_planes", "ver_planes")
@@ -5704,7 +6030,8 @@ def _clone(obj):
 
 PLAIN_LINE_FUNCTIONS = ("detect_lines_plain", "line_descriptors_plain",
                         "lift_lines_3d_plain", "extract_line_features_plain",
-                        "search_lines_by_projection_plain")
+                        "search_lines_by_projection_plain",
+                        "match_lines_plain")
 PLAIN_MATCHING_FUNCTIONS = ("gated_hamming_top2_plain",
                             "project_landmarks_plain", "match_select_plain",
                             "rotation_histogram_filter_plain",
@@ -5742,7 +6069,15 @@ PLAIN_LOOP_FUNCTIONS = (("sim3_solver", "_refine_relative_plain"),
                         ("ba_pcg", "pcg_prepare_plain"),
                         ("ba_pcg", "pcg_schur_matvec_plain"),
                         ("ba_pcg", "pcg_backsub_plain"),
-                        ("ba_pcg", "pcg_cg_update_plain"))
+                        ("ba_pcg", "pcg_cg_update_plain"),
+                        ("pnp", "_inliers"),
+                        ("pnp", "pnp_dlt_hypotheses_plain"),
+                        ("pnp", "pnp_select_plain"),
+                        ("sim3_solver", "triplet_weights"),
+                        ("sim3_solver", "_horn_rows_plain"),
+                        ("sim3_solver", "horn_triplets_plain"),
+                        ("sim3_solver", "horn_refit_plain"),
+                        ("sim3_solver", "_ransac_align_plain"))
 # the inputs of path 4b's two loop-edge refinements, its first global BA
 # solve (loop_kernel_parity's, schur_pose_graph_parity's) and its pose
 # graph (schur_pose_graph_parity's)
@@ -5833,10 +6168,10 @@ def _pose_calls(capture=()):
     from planarslam_tpu_torch.slam import (device_mapper, device_tracker,
                                            frame, tracking)
     from planarslam_tpu_torch.solvers import (ba_core, ba_pcg, global_ba,
-                                              pose_graph, pose_opt,
+                                              pnp, pose_graph, pose_opt,
                                               sim3_solver)
 
-    modules = {"pose_opt": pose_opt, "planes": planes,
+    modules = {"pose_opt": pose_opt, "planes": planes, "pnp": pnp,
                "manhattan": manhattan, "frame": frame, "lines": lines,
                "device_tracker": device_tracker, "matching": matching,
                "tracking": tracking, "sim3_solver": sim3_solver,
@@ -5911,6 +6246,115 @@ def _pose_calls(capture=()):
     finally:
         for mod, attr, fn in kept[::-1] + orig + plain:
             setattr(mod, attr, fn)
+
+
+# the launches inside each RANSAC: K7 and K46 in a PnP RANSAC, K6's
+# triplet and refit launches in a Horn RANSAC
+RANSAC_LAUNCHES = {"pnp": {"pnp_dlt_hypotheses": 1, "pnp_select": 1},
+                   "horn": {"horn_align_batch": 2}}
+# what a RANSAC may do to a card tensor between its upload and its pull,
+# besides launching its kernels: read the tensor's metadata
+RANSAC_META = ("torch.Tensor.device.__get__", "torch.Tensor.dim",
+               "torch.Tensor.dtype.__get__", "torch.Tensor.is_contiguous",
+               "torch.Tensor.shape.__get__", "torch.Tensor.data_ptr")
+# PyTorch functions that bring a card tensor's values to the host
+PULLS = ("torch.Tensor.cpu", "torch.Tensor.item", "torch.Tensor.tolist",
+         "torch.Tensor.numpy", "torch.Tensor.__int__", "torch.Tensor.__bool__",
+         "torch.Tensor.__float__")
+
+
+@contextlib.contextmanager
+def _ransac_calls():
+    """Count the RANSACs run inside the block and what each does on the
+    card. The entry points (pnp.pnp_ransac, sim3_solver.horn_ransac_se3 and
+    horn_ransac_sim3, each where its caller looks it up at the call) count
+    their uploads (a Tensor.to onto the card) and pulls (PULLS); the device
+    parts (pnp._pnp_ransac, sim3_solver._ransac_align) the kernel launches
+    inside them and every PyTorch function they apply to a card tensor
+    (a TorchFunctionMode), by name."""
+    from torch.overrides import TorchFunctionMode, resolve_name
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.solvers import pnp, sim3_solver
+
+    rec = {"pnp": 0, "horn": 0, "entries": 0, "uploads": 0, "pulls": 0,
+           "launches": {k: dict.fromkeys(v, 0)
+                        for k, v in RANSAC_LAUNCHES.items()},
+           "card_ops": {}}
+
+    class Seen(TorchFunctionMode):
+        def __init__(self, ops=None):
+            super().__init__()
+            self.ops = ops
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            name = resolve_name(func) or repr(func)
+            card = _on_card((args, kwargs))
+            if self.ops is not None:
+                if card:
+                    self.ops[name] = self.ops.get(name, 0) + 1
+            elif card and name in PULLS:
+                rec["pulls"] += 1
+            elif name == "torch.Tensor.to" and not card and _on_card(out):
+                rec["uploads"] += 1
+            return out
+
+    def entry(fn):
+        def counted(*args, **kw):
+            rec["entries"] += 1
+            with Seen():
+                return fn(*args, **kw)
+        return counted
+
+    def device_part(fn, kind):
+        def counted(*args, **kw):
+            before = dict(kernels.LAUNCHES)
+            with Seen(rec["card_ops"]):
+                out = fn(*args, **kw)
+            rec[kind] += 1
+            for k in RANSAC_LAUNCHES[kind]:
+                rec["launches"][kind][k] += kernels.LAUNCHES[k] - before[k]
+            return out
+        return counted
+
+    swaps = [(pnp, "pnp_ransac", entry(pnp.pnp_ransac)),
+             (sim3_solver, "horn_ransac_se3",
+              entry(sim3_solver.horn_ransac_se3)),
+             (sim3_solver, "horn_ransac_sim3",
+              entry(sim3_solver.horn_ransac_sim3)),
+             (pnp, "_pnp_ransac", device_part(pnp._pnp_ransac, "pnp")),
+             (sim3_solver, "_ransac_align",
+              device_part(sim3_solver._ransac_align, "horn"))]
+    kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
+    for mod, attr, fn in swaps:
+        setattr(mod, attr, fn)
+    try:
+        yield rec
+    finally:
+        for mod, attr, fn in kept:
+            setattr(mod, attr, fn)
+
+
+def _check_ransacs(name: str, rec: dict) -> dict:
+    """Per PnP RANSAC one K7 and one K46 launch, per Horn RANSAC two K6
+    launches; no PyTorch function but RANSAC_META on a card tensor inside
+    either (no scatter_, argmax or plain _inliers); one upload and one pull
+    per RANSAC entry point. Returns the counts."""
+    for kind, per in RANSAC_LAUNCHES.items():
+        want = {k: n * rec[kind] for k, n in per.items()}
+        got = rec["launches"][kind]
+        _check(got == want, f"{name}: {got} launches in {rec[kind]} {kind} "
+               f"RANSACs, expected {want}")
+    other = {k: v for k, v in rec["card_ops"].items() if k not in RANSAC_META}
+    _check(not other, f"{name}: PyTorch ops on card tensors inside the "
+           f"RANSACs: {other}")
+    _check(rec["uploads"] == rec["pulls"] == rec["entries"],
+           f"{name}: {rec['uploads']} uploads and {rec['pulls']} pulls in "
+           f"{rec['entries']} RANSAC calls")
+    return {k: rec[k] for k in ("pnp", "horn", "entries", "uploads",
+                                "pulls", "launches", "card_ops")}
 
 
 def _check_pose_launches(name: str, launches: dict, rec: dict, cfg=None,
@@ -7269,7 +7713,7 @@ def run_loop_path(seq, cfg, dev) -> dict:
     torch.cuda.synchronize()
     kernels.reset_launches()
     t_all = time.perf_counter()
-    with _pose_calls() as pc:
+    with _pose_calls() as pc, _ransac_calls() as rc:
         times = _drive(slam, frames, seq.timestamps)
     poses = slam.frame_poses_wc()
     torch.cuda.synchronize()
@@ -7292,7 +7736,8 @@ def run_loop_path(seq, cfg, dev) -> dict:
            "gba_calls": lc.stats["gba_calls"],
            "median_ms_per_frame": float(np.median(t_ms)),
            "p95_ms_per_frame": float(np.percentile(t_ms, 95)),
-           **_call_counts(pc), "wall_s": wall, "launches": launches}
+           **_call_counts(pc), "wall_s": wall, "launches": launches,
+           "ransacs": _check_ransacs("path4a", rc)}
     print("path4a_loop " + json.dumps(res), flush=True)
     _check_pose_launches("path4a", launches, pc, cfg, len(seq))
     _check(ate < ATE_LIMIT_M, f"path4a: ATE {ate:.5f} m >= {ATE_LIMIT_M} m")
@@ -7355,7 +7800,7 @@ def run_constructed_loop_path(seq, cfg, dev) -> dict:
     kernels.reset_launches()
     t0 = time.perf_counter()
     try:
-        with _pose_calls(LOOP_CAPTURE) as pc:
+        with _pose_calls(LOOP_CAPTURE) as pc, _ransac_calls() as rc:
             ok = lc._verify_and_correct(kf, 0)
     finally:
         global_ba.global_bundle_adjustment = orig_gba
@@ -7379,8 +7824,10 @@ def run_constructed_loop_path(seq, cfg, dev) -> dict:
            "gba_s": after_pg.get("gba_s"), "wall_s": wall,
            **_call_counts(pc), "launches": launches,
            "tracking_calls": _call_counts(pc_track),
-           "tracking_launches": tracking_launches}
+           "tracking_launches": tracking_launches,
+           "ransacs": _check_ransacs("path4b", rc)}
     print("path4b_constructed_loop " + json.dumps(res), flush=True)
+    _check(rc["horn"] >= 1, "path4b: verification ran no Horn RANSAC")
     _check_pose_launches("path4b", launches, pc, cfg)
     _check(ok, "path4b: the constructed loop was not verified")
     _check("pose" in after_pg, "path4b: global BA did not run")
@@ -8196,13 +8643,86 @@ def run_reloc_path(seq, cfg, dev) -> dict:
     torch.cuda.synchronize()
     kernels.reset_launches()
     t_all = time.perf_counter()
-    with _pose_calls() as pc:
+    with _pose_calls() as pc, _ransac_calls() as rc:
         res = _reloc_run(slam, seq, cfg)
     torch.cuda.synchronize()
     res.update(wall_s=time.perf_counter() - t_all, **_call_counts(pc),
                launches=dict(kernels.LAUNCHES))
+    res["ransacs"] = _check_ransacs("path3", rc)
     print("path3_reloc " + json.dumps(res), flush=True)
     _check_pose_launches("path3", res["launches"], pc, cfg)
+    _check(rc["pnp"] >= 1 and rc["horn"] >= 1,
+           f"path3: {rc['horn']} Horn and {rc['pnp']} PnP RANSACs")
+    return res
+
+
+def run_unpathed_entries(seq, cfg, dev) -> dict:
+    """Path 6: the public entry points that no path of the System calls,
+    as a user calls them, with the launch counts set to 0 just before and
+    read just after: horn_ransac_sim3 on a planted similarity (300
+    correspondences, scale 0.8, 1 cm noise, 40% outliers; one upload, K6's
+    triplet and refit launches with the scale, one pull), and match_lines
+    (K47) on the line features of path 1's consecutive quantized frames,
+    one call a pair (the features made before the counts are reset; the
+    median distance of the matched segments' midpoints is reported, not
+    held: segments of one line differ in extent from frame to frame)."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.ops import lines as ln
+    from planarslam_tpu_torch.solvers import sim3_solver
+
+    rng = np.random.default_rng(61)
+    n = 300
+    src = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    Tg = _planted_se3(rng)
+    dst = 0.8 * (src @ Tg[:3, :3].T) + Tg[:3, 3] + rng.normal(0, 0.01, (n, 3))
+    bad = rng.random(n) < 0.4
+    dst[bad] = rng.uniform(-3, 3, (int(bad.sum()), 3))
+    dst = dst.astype(np.float32)
+    feats = match_feats(seq, cfg, dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _pose_calls() as pc, _ransac_calls() as rc:
+        T, s, n_inl, inl = sim3_solver.horn_ransac_sim3(src, dst,
+                                                        threshold=0.08,
+                                                        device=dev)
+        sim3_ms = (time.perf_counter() - t0) * 1e3
+        pairs = []
+        for i in range(MATCH_PAIRS):
+            a, b = feats[i], feats[i + 1]
+            idx, best = ln.match_lines(a.desc, b.desc, a.valid, b.valid,
+                                       a.angle, b.angle)
+            idx = idx.cpu().numpy()
+            hit = idx >= 0
+            m0 = 0.5 * (a.uv_s + a.uv_e).cpu().numpy()
+            m1 = 0.5 * (b.uv_s + b.uv_e).cpu().numpy()
+            d = np.linalg.norm(m0[hit] - m1[idx[hit]], axis=1)
+            pairs.append({"matched": int(hit.sum()),
+                          "median_px": float(np.median(d)) if hit.any()
+                          else None})
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    res = {"sim3": {"scale": s, "n_inliers": n_inl, "ms": sim3_ms,
+                    "rotation_err": float(np.abs(T[:3, :3]
+                                                 - Tg[:3, :3]).max())},
+           "match_lines": pairs, "wall_s": time.perf_counter() - t0,
+           "ransacs": _check_ransacs("path6", rc), "launches": launches}
+    print("path6_unpathed " + json.dumps(res), flush=True)
+    _check(rc["horn"] == 1 and launches["horn_align_batch"] == 2,
+           f"path6: {launches['horn_align_batch']} K6 launches in "
+           f"{rc['horn']} similarity RANSACs")
+    _check(abs(s - 0.8) < 0.01 and n_inl > 0.5 * n
+           and res["sim3"]["rotation_err"] < 0.01,
+           f"path6: horn_ransac_sim3 gave s = {s}, {n_inl} inliers")
+    _check(launches["match_lines"] == MATCH_PAIRS,
+           f"path6: {launches['match_lines']} K47 launches in "
+           f"{MATCH_PAIRS} match_lines calls")
+    _check(all(p["matched"] >= 3 for p in pairs),
+           f"path6: consecutive frames' line matches {pairs}")
+    _check(pc["plain_calls_on_card"] == 0,
+           f"path6: {pc['plain_calls_on_card']} plain calls on the card")
     return res
 
 
@@ -10070,7 +10590,8 @@ def main(argv=None) -> int:
               + line_kernel_parity(seq, cfg, dev)
               + matching_kernel_parity(seq, cfg, dev)
               + tail_kernel_parity(seq, cfg, dev)
-              + decode_kernel_parity(seq, cfg, dev))
+              + decode_kernel_parity(seq, cfg, dev)
+              + match_lines_parity(seq, cfg, dev))
     select_stage_parity(dev, next(k for k in report
                                   if k["name"] == "detect_lines"))
     batched_kernel_parity(seq, cfg, dev, report)
@@ -10099,6 +10620,7 @@ def main(argv=None) -> int:
         path1,
         path2,
         run_reloc_path(seq, cfg, dev),
+        run_unpathed_entries(seq, cfg, dev),
         run_loop_path(synthetic.make_sequence(
             LOOP_FRAMES, kind="loop", width=cfg.camera.width,
             height=cfg.camera.height), cfg, dev),

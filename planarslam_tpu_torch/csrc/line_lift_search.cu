@@ -622,15 +622,17 @@ __device__ __forceinline__ unsigned deviation_key(unsigned key, float med) {
 
 // The MAD-adaptive gate and the mutual check of one problem, by the whole
 // block: bs, bi its M rows' best similarities and segments, back the L
-// columns' best rows; counts four shared words; keys max(kThreadSort,
-// pow2_at_least(M)) words of shared memory. Writes idx (M); needs
+// columns' best rows, row_ok (or NULL) a test each row must also pass;
+// counts four shared words; keys max(kThreadSort, pow2_at_least(M)) words
+// of shared memory. Writes idx (M); needs
 // blockDim >= kThreadSort. The candidates' keys are gathered (in any
 // order: a sort's result does not depend on it), then sorted one a thread
 // up to kThreadSort of them (thread_bitonic), else in shared memory
 // (bitonic_sort).
 __device__ void gate_tail(const float* bs, const int* bi, const int* back,
                           int M, unsigned* keys, int* counts,
-                          const GateParams& g, int* __restrict__ idx) {
+                          const GateParams& g, int* __restrict__ idx,
+                          const int* row_ok = nullptr) {
   const int tid = threadIdx.x, lane = tid & 31;
   if (tid < 3) counts[tid] = 0;
   __syncthreads();
@@ -699,9 +701,11 @@ __device__ void gate_tail(const float* bs, const int* bi, const int* back,
   __syncthreads();
   const float th = *th_s;
   // the mutual check: a row's best segment must have it as its best row
+  // (and, where given, the row's own test passed)
   for (int m = tid; m < M; m += blockDim.x) {
     const int b = bi[m];
-    idx[m] = (bs[m] > th && back[b] == m) ? b : -1;
+    const bool own = row_ok == nullptr || row_ok[m] != 0;
+    idx[m] = (bs[m] > th && back[b] == m && own) ? b : -1;
   }
 }
 
@@ -1016,6 +1020,153 @@ __global__ void __launch_bounds__(kGateThreads) lines_search_gate_kernel(
 
 int search_blocks(int M) { return (M + kRows - 1) / kRows; }
 
+// K47: a block of eight warps a problem. Shared memory (words): the two
+// descriptor sets at an odd stride, the gated similarities, the rows' bests,
+// best segments and ratio tests, the columns' best rows, the gate's keys.
+constexpr int kMatchThreads = 256;
+constexpr int kMatchChains = 4;  // independent products a thread forms at once
+
+__host__ __device__ __forceinline__ int match_stride(int D) { return D | 1; }
+
+__host__ __device__ __forceinline__ size_t match_smem_words(int A, int B,
+                                                            int D, int n2) {
+  return static_cast<size_t>(A + B) * match_stride(D) +
+         static_cast<size_t>(A) * B + 3 * static_cast<size_t>(A) + B + n2;
+}
+
+struct MatchParams {
+  float max_angle, ratio, pi;
+};
+
+// K47, one problem a block: the A x B similarities (each the plain
+// version's chain d = 0 .. D - 1 of rounded products and sums), the angle
+// gate, each row's top two in lax.top_k's order, the ratio test, each
+// column's best row, then the adaptive gate and the mutual check of
+// gate_tail.
+__global__ void __launch_bounds__(kMatchThreads) match_lines_kernel(
+    const float* __restrict__ desc_a, const float* __restrict__ desc_b,
+    const unsigned char* __restrict__ valid_a,
+    const unsigned char* __restrict__ valid_b,
+    const float* __restrict__ angle_a, const float* __restrict__ angle_b,
+    int A, int B, int D, int n2, const MatchParams p, const GateParams g,
+    int* __restrict__ idx, float* __restrict__ best) {
+  extern __shared__ __align__(16) float match_smem[];
+  __shared__ int counts[4];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int prob = blockIdx.x, S = match_stride(D);
+  float* da = match_smem;
+  float* db = da + static_cast<size_t>(A) * S;
+  float* sim = db + static_cast<size_t>(B) * S;
+  float* bs = sim + static_cast<size_t>(A) * B;
+  int* bi = reinterpret_cast<int*>(bs + A);
+  int* rok = bi + A;
+  int* back = rok + A;
+  unsigned* keys = reinterpret_cast<unsigned*>(back + B);
+  desc_a += static_cast<size_t>(prob) * A * D;
+  desc_b += static_cast<size_t>(prob) * B * D;
+  valid_a += static_cast<size_t>(prob) * A;
+  valid_b += static_cast<size_t>(prob) * B;
+  angle_a += static_cast<size_t>(prob) * A;
+  angle_b += static_cast<size_t>(prob) * B;
+  for (int i = tid; i < A * D; i += kMatchThreads) {
+    da[(i / D) * S + i % D] = desc_a[i];
+  }
+  for (int i = tid; i < B * D; i += kMatchThreads) {
+    db[(i / D) * S + i % D] = desc_b[i];
+  }
+  __syncthreads();
+  // the similarities, kMatchChains pairs a thread at once, and the gate
+  const int pairs = A * B;
+  for (int base = 0; base < pairs; base += kMatchChains * kMatchThreads) {
+    int pa[kMatchChains], pb[kMatchChains];
+    float acc[kMatchChains];
+#pragma unroll
+    for (int c = 0; c < kMatchChains; ++c) {
+      const int q = min(base + c * kMatchThreads + tid, pairs - 1);
+      pa[c] = q / B;
+      pb[c] = q % B;
+      acc[c] = __fmul_rn(da[pa[c] * S], db[pb[c] * S]);
+    }
+    for (int d = 1; d < D; ++d) {
+#pragma unroll
+      for (int c = 0; c < kMatchChains; ++c) {
+        acc[c] = __fadd_rn(acc[c],
+                           __fmul_rn(da[pa[c] * S + d], db[pb[c] * S + d]));
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kMatchChains; ++c) {
+      const int q = base + c * kMatchThreads + tid;
+      if (q >= pairs) continue;
+      const float d0 = fabsf(__fsub_rn(angle_a[pa[c]], angle_b[pb[c]]));
+      const float dang = min_nan(d0, __fsub_rn(p.pi, d0));
+      const bool gate = valid_a[pa[c]] != 0 && valid_b[pb[c]] != 0 &&
+                        dang < p.max_angle;
+      sim[q] = gate ? acc[c] : -1.0f;
+    }
+  }
+  __syncthreads();
+  // each row's top two (a warp a row) and its ratio test
+  for (int a = warp; a < A; a += kMatchThreads / 32) {
+    float v1 = -INFINITY, v2 = -INFINITY;
+    int i1 = INT_MAX, i2 = INT_MAX;
+    for (int b = lane; b < B; b += 32) {
+      const float v = sim[a * B + b];
+      if (wins(v, b, v1, i1)) {
+        v2 = v1;
+        i2 = i1;
+        v1 = v;
+        i1 = b;
+      } else if (wins(v, b, v2, i2)) {
+        v2 = v;
+        i2 = b;
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const float o1 = __shfl_xor_sync(0xffffffffu, v1, off);
+      const float o2 = __shfl_xor_sync(0xffffffffu, v2, off);
+      const int j1 = __shfl_xor_sync(0xffffffffu, i1, off);
+      const int j2 = __shfl_xor_sync(0xffffffffu, i2, off);
+      if (wins(o1, j1, v1, i1)) {  // the other's first leads
+        if (wins(v1, i1, o2, j2)) {
+          v2 = v1;
+          i2 = i1;
+        } else {
+          v2 = o2;
+          i2 = j2;
+        }
+        v1 = o1;
+        i1 = j1;
+      } else if (wins(o1, j1, v2, i2)) {
+        v2 = o1;
+        i2 = j1;
+      }
+    }
+    if (lane == 0) {
+      bs[a] = v1;
+      bi[a] = i1;
+      rok[a] = __fsub_rn(1.0f, v1) <
+               __fadd_rn(__fmul_rn(p.ratio, __fsub_rn(1.0f, v2)), 1e-9f);
+      best[static_cast<size_t>(prob) * A + a] = v1;
+    }
+  }
+  // each column's best row
+  for (int b = tid; b < B; b += kMatchThreads) {
+    float v = sim[b];
+    int r = 0;
+    for (int a = 1; a < A; ++a) {
+      if (wins(sim[a * B + b], a, v, r)) {
+        v = sim[a * B + b];
+        r = a;
+      }
+    }
+    back[b] = r;
+  }
+  __syncthreads();
+  gate_tail(bs, bi, back, A, keys, counts, g,
+            idx + static_cast<size_t>(prob) * A, rok);
+}
+
 
 }  // namespace
 
@@ -1155,4 +1306,40 @@ PSL_API int psl_search_lines(const float* sw, const float* ew,
   rc = static_cast<int>(cudaGetLastError());
   if (rc == 0) *launches = 2;
   return rc;
+}
+
+// K47 for `batch` problems: desc_a (batch, A, D), desc_b (batch, B, D),
+// valid_a (batch, A), valid_b (batch, B), angle_a (batch, A), angle_b
+// (batch, B); quality_bar = float(0.5 (sim_floor + min_sim)); outputs idx
+// (batch, A) int32 (the matched column or -1) and best (batch, A), each
+// row's best similarity.
+PSL_API int psl_match_lines(const float* desc_a, const float* desc_b,
+                            const unsigned char* valid_a,
+                            const unsigned char* valid_b,
+                            const float* angle_a, const float* angle_b,
+                            int A, int B, int D, int batch, float max_angle,
+                            float ratio, float min_sim, float sim_floor,
+                            float quality_bar, int* idx, float* best,
+                            cudaStream_t stream) {
+  if (batch < 1 || A < 1 || B < 1 || D < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n2 = pow2_at_least(A) > kThreadSort ? pow2_at_least(A)
+                                                : kThreadSort;
+  const size_t smem = 4 * match_smem_words(A, B, D, n2);
+  const int rc = psl_opt_in_smem(
+      reinterpret_cast<const void*>(match_lines_kernel), smem);
+  if (rc != 0) return rc;
+  MatchParams p;
+  p.max_angle = max_angle;
+  p.ratio = ratio;
+  p.pi = static_cast<float>(3.14159265358979323846);
+  GateParams g;
+  g.min_sim = min_sim;
+  g.sim_floor = sim_floor;
+  g.quality_bar = quality_bar;
+  match_lines_kernel<<<batch, kMatchThreads, smem, stream>>>(
+      desc_a, desc_b, valid_a, valid_b, angle_a, angle_b, A, B, D, n2, p, g,
+      idx, best);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -45,7 +45,7 @@ KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
                 "step_prelude", "decode_step_inputs", "lift_state",
                 "seed_manhattan", "ba_schur_complement", "pose_graph_update",
                 "triangulate_lines", "pcg_prepare", "pcg_schur_matvec",
-                "pcg_cg_update")
+                "pcg_cg_update", "pnp_select", "match_lines")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -110,9 +110,21 @@ _SIGNATURES = {
                                  _F, _F, _F, _P, _P, _P],
     # src, dst, valid, weights, h, n, threshold, R, t, n_inl, inl, stream
     "psl_horn_align_batch": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
-    # xw, uv_n, inv_sigma2, valid, picks, n, n_hyp, chi2_gate, scores, T,
-    # stream
-    "psl_pnp_dlt_hypotheses": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P],
+    # src, dst, valid, triplets, n, h, batch, threshold, with_scale, R, t,
+    # s, n_inl, inl, stream
+    "psl_horn_triplets": [_P] * 4 + [_I] * 3 + [_F, _I] + [_P] * 6,
+    # src, dst, valid, n_inl, inl (the triplet launch's), n, h, batch,
+    # threshold, with_scale, out (packed rows), stream
+    "psl_horn_refit": [_P] * 5 + [_I] * 3 + [_F, _I] + [_P] * 2,
+    # xw, uv_n, inv_sigma2, valid, picks, n, n_hyp, batch, chi2_gate,
+    # scores, T, stream
+    "psl_pnp_dlt_hypotheses": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 3,
+    # xw, uv_n, inv_sigma2, valid, scores, Ts, n, n_hyp, batch, chi2_gate,
+    # out (packed rows), stream
+    "psl_pnp_select": [_P] * 6 + [_I] * 3 + [_F] + [_P] * 2,
+    # desc_a, desc_b, valid_a, valid_b, angle_a, angle_b, A, B, D, batch,
+    # max_angle, ratio, min_sim, sim_floor, quality_bar, idx, best, stream
+    "psl_match_lines": [_P] * 6 + [_I] * 4 + [_F] * 5 + [_P] * 3,
     # poses, pts, pt_slot, pt_uv, pt_ur, pt_inv_s2, pt_mask, ln_slot,
     # ln_line2d, ln_inv_s2, ln_mask, Kt, F, L2, M, fx, fy, cx, cy, bf,
     # huber, lm_order, lm_start, kf_order, kf_start, kf_slot, scratch, Hcc,
@@ -472,6 +484,28 @@ def per_problem(fn, tensors, *args, **kw):
     fields = [torch.stack(f) for f in zip(*outs)]
     return type(outs[0])(*fields) if hasattr(outs[0], "_fields") \
         else tuple(fields)
+
+
+def upload(arrays, device) -> list:
+    """numpy arrays on `device` in one host-to-device copy: packed into
+    one byte buffer (each at a 16-byte boundary) and returned as views of
+    their dtypes and shapes."""
+    offsets, size = [], 0
+    for a in arrays:
+        offsets.append(size)
+        size += (a.nbytes + 15) // 16 * 16
+    buf = np.zeros(max(size, 1), np.uint8)
+    for a, o in zip(arrays, offsets):
+        buf[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
+            np.uint8)
+    dev = torch.from_numpy(buf).to(device)
+    return [dev[o:o + a.nbytes].view(_TORCH_DTYPES[a.dtype]).reshape(a.shape)
+            for a, o in zip(arrays, offsets)]
+
+
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.int32): torch.int32,
+                 np.dtype(np.bool_): torch.bool}
 
 
 def ptr(t: torch.Tensor) -> int:

@@ -1,8 +1,7 @@
 """Line-segment detection, band descriptors, 3D line lifting and guided
 line matching.
 
-Port of ``planarslam_tpu/ops/lines.py`` (the tracking path's part: the
-relocalization-only ``match_lines`` is not ported). Detection is a
+Port of ``planarslam_tpu/ops/lines.py``. Detection is a
 gradient-aligned Hough transform restricted to the strongest edge pixels
 (an exact top-k here where the JAX module asks for ``approx_max_k``, which
 is exact on the CPU), descriptors are LBD-style band statistics, and 3D
@@ -11,8 +10,10 @@ lifting is a fixed-table 2-point RANSAC with a PCA refit.
 On the card each stage is a hand-written kernel on a leading batch of
 frames (B = 1 on the streaming path): the 5-tap blur is K17, detection K20
 and descriptors K21 (``csrc/lines.cu``), lifting K22 and the guided search
-K23 (``csrc/line_lift_search.cu``). Each wrapper sits beside its plain
-version (``*_plain``), which is what the CPU runs.
+K23 (``csrc/line_lift_search.cu``), and the mutual descriptor matching of
+two frames' segments, ``match_lines`` (no caller on the tracking path), K47
+beside them. Each wrapper sits beside its plain version (``*_plain``),
+which is what the CPU runs.
 """
 
 from __future__ import annotations
@@ -594,6 +595,96 @@ def _adaptive_sim_gate(best: torch.Tensor, cand: torch.Tensor,
     th = torch.where(earned & torch.isfinite(th_adapt), th_adapt,
                      torch.full_like(th_adapt, min_sim))
     return best > th
+
+
+def _first_max(x: torch.Tensor, dim: int):
+    """(value, index) of the largest entry along dim in jnp.argmax's and
+    lax.top_k's order: NaN above every number, the first index among
+    equals."""
+    best = torch.amax(x, dim=dim, keepdim=True)
+    hit = (x == best) | (torch.isnan(x) & torch.isnan(best))
+    n = x.shape[dim]
+    pos = torch.arange(n, dtype=torch.int64, device=x.device)
+    pos = pos.reshape([-1 if d == dim % x.dim() else 1
+                       for d in range(x.dim())])
+    idx = torch.amin(torch.where(hit, pos, n), dim=dim)
+    return best.squeeze(dim), idx
+
+
+def match_lines_plain(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                      valid_a: torch.Tensor, valid_b: torch.Tensor,
+                      angle_a: torch.Tensor, angle_b: torch.Tensor,
+                      max_angle: float = 0.26, ratio: float = 0.85,
+                      min_sim: float = 0.75, sim_floor: float = 0.45):
+    """Plain version of K47: mutual nearest-neighbour line matching on band
+    descriptors with an orientation gate, the MAD-adaptive similarity gate
+    and the ratio test. desc_a (A, D), desc_b (B, D), valid (A,), (B,)
+    bool, angle (A,), (B,). Each similarity is the chain d = 0 .. D - 1 of
+    rounded products and sums that K47 repeats; the top two of a row and a
+    column's best row take NaN above every number and the first index
+    among equals (lax.top_k's and jnp.argmax's order). Returns idx (A,)
+    int32 (the matched segment of B, or -1) and best (A,), each row's best
+    gated similarity."""
+    a, b = desc_a[:, None, :], desc_b[None, :, :]
+    sim = a[..., 0] * b[..., 0]
+    for d in range(1, desc_a.shape[-1]):
+        sim = sim + a[..., d] * b[..., d]
+    da = torch.abs(angle_a[:, None] - angle_b[None, :])
+    da = torch.minimum(da, PI - da)
+    gate = valid_a[:, None] & valid_b[None, :] & (da < max_angle)
+    sim = torch.where(gate, sim, -1.0)
+    best, best_idx = _first_max(sim, 1)
+    cols = torch.arange(sim.shape[1], device=sim.device)
+    second = torch.amax(torch.where(cols[None] == best_idx[:, None],
+                                    -math.inf, sim), dim=1)
+    ok = (_adaptive_sim_gate(best, best > -0.5, min_sim, sim_floor)
+          & ((1 - best) < ratio * (1 - second) + 1e-9))
+    _, back = _first_max(sim, 0)
+    rows = torch.arange(sim.shape[0], device=sim.device)
+    ok = ok & (back[best_idx] == rows)
+    return torch.where(ok, best_idx, -1).to(torch.int32), best
+
+
+def match_lines(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                valid_a: torch.Tensor, valid_b: torch.Tensor,
+                angle_a: torch.Tensor, angle_b: torch.Tensor,
+                max_angle: float = 0.26, ratio: float = 0.85,
+                min_sim: float = 0.75, sim_floor: float = 0.45):
+    """Mutual line matching of two frames' segments: K47 on the card, the
+    plain version on the CPU. Returns (idx (A,), best (A,)); with every
+    tensor given a leading B, B problems in one launch (one block a
+    problem), (idx (B, A), best (B, A))."""
+    args = (desc_a, desc_b, valid_a, valid_b, angle_a, angle_b)
+    kw = dict(max_angle=max_angle, ratio=ratio, min_sim=min_sim,
+              sim_floor=sim_floor)
+    if desc_a.dim() == 2:
+        if kernels.on_cpu(*args):
+            return match_lines_plain(*args, **kw)
+        idx, best = match_lines(*[t[None] for t in args], **kw)
+        return idx[0], best[0]
+    if kernels.on_cpu(*args):
+        return kernels.per_problem(match_lines_plain, args, **kw)
+    b, A, D = desc_a.shape
+    B = desc_b.shape[1]
+    for t, name, shape in ((desc_a, "desc_a", (b, A, D)),
+                           (desc_b, "desc_b", (b, B, D)),
+                           (angle_a, "angle_a", (b, A)),
+                           (angle_b, "angle_b", (b, B))):
+        kernels.check(t, name, torch.float32, shape)
+    kernels.check(valid_a, "valid_a", torch.bool, (b, A))
+    kernels.check(valid_b, "valid_b", torch.bool, (b, B))
+    dev = desc_a.device
+    idx = torch.empty((b, A), dtype=torch.int32, device=dev)
+    best = torch.empty((b, A), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch("psl_match_lines", kernels.ptr(desc_a),
+                       kernels.ptr(desc_b), kernels.ptr(valid_a),
+                       kernels.ptr(valid_b), kernels.ptr(angle_a),
+                       kernels.ptr(angle_b), A, B, D, b, max_angle, ratio,
+                       min_sim, sim_floor, 0.5 * (sim_floor + min_sim),
+                       kernels.ptr(idx), kernels.ptr(best))
+    kernels.LAUNCHES["match_lines"] += 1
+    return idx, best
 
 
 def search_lines_by_projection_plain(

@@ -8,9 +8,12 @@ draw the same picks), and inliers are counted by scale-aware reprojection
 chi2.
 
 Kernel K7 ``pnp_dlt_hypotheses`` (``csrc/pnp_dlt.cu``) solves and scores
-every hypothesis; ``pnp_dlt_hypotheses_plain`` is its plain PyTorch
-version. Both take the DLT nullspace in float64 and score in float32. The
-argmax over hypotheses and the final inlier mask stay plain.
+every hypothesis, a warp's parallel Jacobi SVD each; ``pnp_dlt_hypotheses_plain``
+is its plain PyTorch version. Both take the DLT nullspace in float64 and score
+in float32. Kernel K46 ``pnp_select`` (the same source) takes the first best
+hypothesis and its final inlier mask and count into one packed row;
+``pnp_select_plain`` is its plain version. On the card a RANSAC is K7, K46
+and one pull of the packed row, with no PyTorch op between them.
 """
 
 from __future__ import annotations
@@ -55,12 +58,22 @@ def _dlt_pose(xw: torch.Tensor, xn: torch.Tensor) -> torch.Tensor:
 
 
 def _inliers(T, xw, uv_n, inv_sigma2, valid, chi2_gate: float):
-    """(H, N) reprojection inliers of each pose, in float32."""
-    pc = torch.einsum("nj,hij->hni", xw, T[:, :3, :3]) + T[:, None, :3, 3]
-    z = pc[..., 2]
-    pred = pc[..., :2] / torch.clamp(z, min=1e-6)[..., None]
-    chi2 = torch.sum((pred - uv_n[None]) ** 2, dim=-1) * inv_sigma2[None]
-    return (chi2 < chi2_gate) & (z > 0.05) & valid[None]
+    """(H, N) reprojection inliers of each pose, in float32. Every product
+    and sum is its own rounded op in the order K7 and K46 repeat: a camera
+    coordinate ((x R0 + y R1) + z R2) + t, chi2 (du du + dv dv) / sigma^2."""
+    R, t = T[:, :3, :3], T[:, :3, 3]
+    x, y, z = (xw[None, :, k] for k in range(3))
+
+    def cam(a):
+        return ((x * R[:, a, 0:1] + y * R[:, a, 1:2]) + z * R[:, a, 2:3]) \
+            + t[:, a:a + 1]
+
+    pcx, pcy, pcz = cam(0), cam(1), cam(2)
+    zc = torch.clamp(pcz, min=1e-6)
+    du = pcx / zc - uv_n[None, :, 0]
+    dv = pcy / zc - uv_n[None, :, 1]
+    chi2 = (du * du + dv * dv) * inv_sigma2[None]
+    return (chi2 < chi2_gate) & (pcz > 0.05) & valid[None]
 
 
 def pnp_dlt_hypotheses_plain(xw, uv_n, inv_sigma2, valid, picks,
@@ -79,38 +92,100 @@ def pnp_dlt_hypotheses(xw: torch.Tensor, uv_n: torch.Tensor,
                        inv_sigma2: torch.Tensor, valid: torch.Tensor,
                        picks: torch.Tensor, chi2_gate: float):
     """K7 wrapper; the arguments and results of
-    ``pnp_dlt_hypotheses_plain``."""
-    if kernels.on_cpu(xw, uv_n, inv_sigma2, valid, picks):
-        return pnp_dlt_hypotheses_plain(xw, uv_n, inv_sigma2, valid, picks,
-                                        chi2_gate)
-    n = xw.shape[0]
-    h = picks.shape[0]
-    kernels.check(xw, "xw", torch.float32, (n, 3))
-    kernels.check(uv_n, "uv_n", torch.float32, (n, 2))
-    kernels.check(inv_sigma2, "inv_sigma2", torch.float32, (n,))
-    kernels.check(valid, "valid", torch.bool, (n,))
-    kernels.check(picks, "picks", torch.int32, (h, 6))
-    scores = torch.empty((h,), dtype=torch.int32, device=xw.device)
-    T = torch.empty((h, 4, 4), dtype=torch.float32, device=xw.device)
+    ``pnp_dlt_hypotheses_plain``, or of B problems with every tensor given
+    a leading B (one launch)."""
+    args = (xw, uv_n, inv_sigma2, valid, picks)
+    if xw.dim() == 2:
+        if kernels.on_cpu(*args):
+            return pnp_dlt_hypotheses_plain(*args, chi2_gate)
+        scores, T = pnp_dlt_hypotheses(*[a[None] for a in args], chi2_gate)
+        return scores[0], T[0]
+    if kernels.on_cpu(*args):
+        return kernels.per_problem(pnp_dlt_hypotheses_plain, args, chi2_gate)
+    b, n = xw.shape[:2]
+    h = picks.shape[1]
+    kernels.check(xw, "xw", torch.float32, (b, n, 3))
+    kernels.check(uv_n, "uv_n", torch.float32, (b, n, 2))
+    kernels.check(inv_sigma2, "inv_sigma2", torch.float32, (b, n))
+    kernels.check(valid, "valid", torch.bool, (b, n))
+    kernels.check(picks, "picks", torch.int32, (b, h, 6))
+    scores = torch.empty((b, h), dtype=torch.int32, device=xw.device)
+    T = torch.empty((b, h, 4, 4), dtype=torch.float32, device=xw.device)
     with torch.cuda.device(xw.device):
         kernels.launch("psl_pnp_dlt_hypotheses", kernels.ptr(xw),
                        kernels.ptr(uv_n), kernels.ptr(inv_sigma2),
-                       kernels.ptr(valid), kernels.ptr(picks), n, h,
+                       kernels.ptr(valid), kernels.ptr(picks), n, h, b,
                        float(np.float32(chi2_gate)), kernels.ptr(scores),
                        kernels.ptr(T))
     kernels.LAUNCHES["pnp_dlt_hypotheses"] += 1
     return scores, T
 
 
+# floats of a packed RANSAC row before its inlier mask: T (16) and the
+# count's int32 bits
+PNP_PACKED = 17
+
+
+def pnp_select_plain(xw, uv_n, inv_sigma2, valid, scores, Ts,
+                     chi2_gate: float):
+    """Plain version of K46: the first hypothesis of the largest score (as
+    jnp.argmax), and its inlier mask at that T. Inputs of K7 for one
+    problem, scores (H,) and Ts (H, 4, 4) its outputs. Returns the packed
+    row (17 + N,) float32: T, the inlier count's int32 bits, the mask as 0
+    / 1."""
+    T = Ts[torch.argmax(scores)]
+    inl = _inliers(T[None], xw, uv_n, inv_sigma2, valid, chi2_gate)[0]
+    count = inl.sum(dtype=torch.int32).reshape(1).view(torch.float32)
+    return torch.cat([T.reshape(16), count, inl.to(torch.float32)])
+
+
+def pnp_select(xw, uv_n, inv_sigma2, valid, scores, Ts, chi2_gate: float):
+    """K46 wrapper; the arguments and result of ``pnp_select_plain``, or of
+    B problems with every tensor given a leading B (one launch, one block a
+    problem)."""
+    args = (xw, uv_n, inv_sigma2, valid, scores, Ts)
+    if xw.dim() == 2:
+        if kernels.on_cpu(*args):
+            return pnp_select_plain(*args, chi2_gate)
+        return pnp_select(*[a[None] for a in args], chi2_gate)[0]
+    if kernels.on_cpu(*args):
+        return torch.stack([pnp_select_plain(*[a[i] for a in args], chi2_gate)
+                            for i in range(xw.shape[0])])
+    b, n = xw.shape[:2]
+    h = scores.shape[1]
+    kernels.check(xw, "xw", torch.float32, (b, n, 3))
+    kernels.check(uv_n, "uv_n", torch.float32, (b, n, 2))
+    kernels.check(inv_sigma2, "inv_sigma2", torch.float32, (b, n))
+    kernels.check(valid, "valid", torch.bool, (b, n))
+    kernels.check(scores, "scores", torch.int32, (b, h))
+    kernels.check(Ts, "Ts", torch.float32, (b, h, 4, 4))
+    out = torch.empty((b, PNP_PACKED + n), dtype=torch.float32,
+                      device=xw.device)
+    with torch.cuda.device(xw.device):
+        kernels.launch("psl_pnp_select", kernels.ptr(xw), kernels.ptr(uv_n),
+                       kernels.ptr(inv_sigma2), kernels.ptr(valid),
+                       kernels.ptr(scores), kernels.ptr(Ts), n, h, b,
+                       float(np.float32(chi2_gate)), kernels.ptr(out))
+    kernels.LAUNCHES["pnp_select"] += 1
+    return out
+
+
+def unpack_pnp(row: np.ndarray, n: int):
+    """A packed row of K46 on the host -> (T (4, 4), inlier mask (n,),
+    count)."""
+    T = row[:16].reshape(4, 4).copy()
+    count = int(row[16:17].view(np.int32)[0])
+    return T, row[PNP_PACKED:PNP_PACKED + n] > 0, count
+
+
 def _pnp_ransac(xw, uv_n, valid, inv_sigma2, picks, chi2_gate: float):
-    """Best hypothesis (ties: the first index, as jnp.argmax) and its
-    inlier mask. Returns (T (4, 4), inl (N,), score)."""
+    """K7 then K46 (their plain versions on the CPU): the packed row (17 +
+    N,) of the best hypothesis (ties: the first index, as jnp.argmax), or
+    (B, 17 + N) for tensors with a leading B. With a leading B nothing runs
+    between the launches."""
     scores, Ts = pnp_dlt_hypotheses(xw, uv_n, inv_sigma2, valid, picks,
                                     chi2_gate)
-    best = torch.argmax(scores)
-    T = Ts[best]
-    inl = _inliers(T[None], xw, uv_n, inv_sigma2, valid, chi2_gate)[0]
-    return T, inl, scores[best]
+    return pnp_select(xw, uv_n, inv_sigma2, valid, scores, Ts, chi2_gate)
 
 
 def pnp_ransac(
@@ -123,7 +198,8 @@ def pnp_ransac(
     n_hyp: int = 128,
     device="cuda",
 ) -> Tuple[np.ndarray, np.ndarray, int]:
-    """RANSAC PnP on `device`. Returns (T_cw, inlier mask, n_inliers).
+    """RANSAC PnP on `device`: one upload, K7 and K46, one pull. Returns
+    (T_cw, inlier mask, n_inliers).
 
     chi2 is evaluated in normalized coordinates scaled back to pixels by
     fx * fy inside inv_sigma2 (pass per-level 1/sigma^2)."""
@@ -147,12 +223,9 @@ def pnp_ransac(
     rng = np.random.default_rng(11)
     picks = rng.integers(0, max(n, 1), (n_hyp, 6)).astype(np.int32)
     f2 = np.float32(fx * fy)
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    T, inl, _ = _pnp_ransac(put(xw_p), put(uv_p), put(v_p),
-                            put((is2_p * f2).astype(np.float32)), put(picks),
-                            chi2_gate)
-    inl = inl.cpu().numpy()[:n]
-    return T.cpu().numpy(), inl, int(inl.sum())
+    xw_t, uv_t, v_t, is2_t, picks_t = kernels.upload(
+        [a[None] for a in (xw_p, uv_p, v_p, (is2_p * f2).astype(np.float32),
+                           picks)], device)
+    row = _pnp_ransac(xw_t, uv_t, v_t, is2_t, picks_t, chi2_gate)
+    T, inl, _ = unpack_pnp(row.cpu().numpy()[0], n)
+    return T, inl, int(inl.sum())

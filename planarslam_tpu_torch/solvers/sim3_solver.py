@@ -1,17 +1,22 @@
-"""Closed-form rigid alignment (Horn) inside a fixed-hypothesis RANSAC.
+"""Closed-form rigid or similarity alignment (Horn) inside a
+fixed-hypothesis RANSAC.
 
-Port of the RGB-D half of ``planarslam_tpu/solvers/sim3_solver.py``
-(``horn_align``, ``_ransac_align``, ``_pad_bucket``, ``_pad_pair``,
-``horn_ransac_se3``, ``_refine_relative``, ``refine_relative_se3``).
-Scale is fixed to 1, as the RGB-D paths of the JAX module use it; the
-similarity variant ``horn_ransac_sim3`` is on no path and is not ported.
+Port of ``planarslam_tpu/solvers/sim3_solver.py`` (``horn_align``,
+``_ransac_align``, ``_pad_bucket``, ``_pad_pair``, ``horn_ransac_se3``,
+``horn_ransac_sim3``, ``_refine_relative``, ``refine_relative_se3``). The
+RGB-D paths fix the scale to 1 (``horn_ransac_se3``); ``horn_ransac_sim3``
+frees it, as the JAX module's similarity variant does.
 
 Kernel K6 ``horn_align_batch`` (``csrc/horn_align.cu``) aligns one weight
-row per block and counts that row's inliers; ``horn_align_batch_plain`` is
-its plain PyTorch version. A RANSAC launches it twice: the 64 one-hot
-hypothesis rows, then the single row of the inlier refit. Hypotheses come
-from ``np.random.default_rng(7)``, as in the JAX module, so both packages
-draw the same triplets.
+row per block and counts that row's inliers, in three modes: given weight
+rows (``horn_align_batch``), the 64 hypothesis triplets whose one-hot rows
+it forms as it reads them (``horn_triplets``), and the refit on the best
+triplet's inliers (``horn_refit``), which writes one packed row. A RANSAC
+is one upload, a triplet launch, a refit launch and one pull, with no
+PyTorch op between the launches. Each wrapper sits beside its plain version
+(``*_plain``), which the CPU runs. Hypotheses come from
+``np.random.default_rng(7)``, as in the JAX module, so both packages draw
+the same triplets.
 
 Kernel K32 ``refine_relative`` (``csrc/refine_relative.cu``) runs the
 loop-edge refinement, all eight Gauss-Newton steps of one problem in one
@@ -31,14 +36,16 @@ from planarslam_tpu_torch.device import resolve_device
 from planarslam_tpu_torch.geometry import se3
 
 
-def horn_align(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Weighted closed-form alignment dst ~ R src + t for each weight row.
+def horn_align(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor,
+               with_scale: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Weighted closed-form alignment dst ~ s R src + t for each weight row.
 
-    src, dst: (N, 3); weights: (H, N) nonnegative. Returns R (H, 3, 3) and
-    t (H, 3), float32, computed in float64: R = U diag(1, 1, det(U V^T)) V^T
-    of the SVD of the centred cross-covariance (the JAX function's SVD form
-    of Horn's method)."""
+    src, dst: (N, 3); weights: (H, N) nonnegative. Returns R (H, 3, 3), t
+    (H, 3) and s (H,), float32, computed in float64: R = U diag(1, 1,
+    det(U V^T)) V^T of the SVD of the centred cross-covariance (the JAX
+    function's SVD form of Horn's method), s = sum(S diag(D)) / max(var,
+    1e-12) with the scale, else 1."""
     s = src.to(torch.float64)
     d = dst.to(torch.float64)
     w = weights.to(torch.float64)
@@ -48,31 +55,53 @@ def horn_align(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor
     xs = s[None] - mu_s[:, None]
     xd = d[None] - mu_d[:, None]
     C = torch.einsum("hn,hni,hnj->hij", w, xd, xs)
-    U, _, Vt = torch.linalg.svd(C)
+    U, S, Vt = torch.linalg.svd(C)
     sign = torch.sign(torch.linalg.det(U @ Vt))
     D = torch.ones((C.shape[0], 3), dtype=torch.float64, device=C.device)
     D[:, 2] = sign
     R = U @ (D[:, :, None] * Vt)
-    t = mu_d - torch.einsum("hij,hj->hi", R, mu_s)
-    return R.to(torch.float32), t.to(torch.float32)
+    Rmu = torch.einsum("hij,hj->hi", R, mu_s)
+    if with_scale:
+        var = torch.sum(w * torch.sum(xs * xs, dim=-1), dim=1)
+        scale = torch.sum(S * D, dim=1) / torch.clamp(var, min=1e-12)
+        t = mu_d - scale[:, None] * Rmu
+    else:
+        scale = torch.ones(C.shape[0], dtype=torch.float64, device=C.device)
+        t = mu_d - Rmu
+    return R.to(torch.float32), t.to(torch.float32), scale.to(torch.float32)
 
 
-def horn_align_batch_plain(src, dst, valid, weights, threshold: float):
-    """Plain version of K6. src, dst (N, 3) float32; valid (N,) float32;
-    weights (H, N) float32. Returns R (H, 3, 3), t (H, 3), n_inl (H,)
-    int32 and inl (H, N) bool at |R src + t - dst|^2 < threshold^2."""
-    R, t = horn_align(src, dst, weights)
-    pred = torch.einsum("nj,hij->hni", src, R) + t[:, None]
+def _horn_rows_plain(src, dst, valid, weights, threshold: float,
+                     with_scale: bool = False):
+    """Each weight row's alignment and inliers: R (H, 3, 3), t (H, 3), s
+    (H,), n_inl (H,) int32 and inl (H, N) bool at |s R src + t - dst|^2 <
+    threshold^2 on valid points."""
+    R, t, s = horn_align(src, dst, weights, with_scale)
+    pred = torch.einsum("nj,hij->hni", src, R)
+    if with_scale:
+        pred = s[:, None, None] * pred
+    pred = pred + t[:, None]
     err = torch.sum((pred - dst[None]) ** 2, dim=-1)
     thr = torch.tensor(threshold, dtype=torch.float32, device=src.device)
     inl = (err < thr * thr) & (valid[None] > 0)
-    return R, t, inl.sum(dim=1).to(torch.int32), inl
+    return R, t, s, inl.sum(dim=1).to(torch.int32), inl
+
+
+def horn_align_batch_plain(src, dst, valid, weights, threshold: float):
+    """Plain version of K6's weights mode. src, dst (N, 3) float32; valid
+    (N,) float32; weights (H, N) float32. Returns R (H, 3, 3), t (H, 3),
+    n_inl (H,) int32 and inl (H, N) bool at |R src + t - dst|^2 <
+    threshold^2."""
+    R, t, _, n_inl, inl = _horn_rows_plain(src, dst, valid, weights,
+                                           threshold)
+    return R, t, n_inl, inl
 
 
 def horn_align_batch(src: torch.Tensor, dst: torch.Tensor,
                      valid: torch.Tensor, weights: torch.Tensor,
                      threshold: float):
-    """K6 wrapper; the arguments and results of ``horn_align_batch_plain``."""
+    """K6 wrapper, weights mode; the arguments and results of
+    ``horn_align_batch_plain``."""
     if kernels.on_cpu(src, dst, valid, weights):
         return horn_align_batch_plain(src, dst, valid, weights, threshold)
     h, n = weights.shape
@@ -95,21 +124,142 @@ def horn_align_batch(src: torch.Tensor, dst: torch.Tensor,
     return R, t, n_inl, inl
 
 
-def _ransac_align(src, dst, valid, triplets, threshold: float):
-    """Score every triplet hypothesis, refit on the best one's inliers.
-    Returns R (3, 3), t (3,), the refit's inlier count (0-d int32) and
-    inlier mask (N,)."""
-    n = src.shape[0]
-    w = torch.zeros((triplets.shape[0], n), dtype=torch.float32,
-                    device=src.device)
+def triplet_weights(valid: torch.Tensor, triplets: torch.Tensor
+                    ) -> torch.Tensor:
+    """The (H, N) one-hot rows of H hypothesis triplets, as the JAX module
+    forms them: zeros.at[tri].set(1) * valid + 1e-9 (a repeated index
+    weighs 1). K6's triplet mode forms the same bits as it reads them."""
+    w = torch.zeros((triplets.shape[0], valid.shape[0]), dtype=torch.float32,
+                    device=valid.device)
     w.scatter_(1, triplets.to(torch.int64), 1.0)
-    w = w * valid[None] + 1e-9
-    _, _, n_inl, inl = horn_align_batch(src, dst, valid, w, threshold)
-    best = torch.argmax(n_inl)  # ties: the first index, as jnp.argmax
-    w_refit = (inl[best].to(torch.float32) + 1e-9)[None]
-    R, t, n_inl, inl = horn_align_batch(src, dst, valid,
-                                        w_refit.contiguous(), threshold)
-    return R[0], t[0], n_inl[0], inl[0]
+    return w * valid[None] + 1e-9
+
+
+def horn_triplets_plain(src, dst, valid, triplets, threshold: float,
+                        with_scale: bool = False):
+    """Plain version of K6's triplet mode for one problem: src, dst (N, 3),
+    valid (N,) float32, triplets (H, 3) int32. Returns R (H, 3, 3), t (H,
+    3), s (H,), n_inl (H,) int32 and inl (H, N) bool."""
+    return _horn_rows_plain(src, dst, valid, triplet_weights(valid, triplets),
+                            threshold, with_scale)
+
+
+def horn_triplets(src, dst, valid, triplets, threshold: float,
+                  with_scale: bool = False):
+    """K6 wrapper, triplet mode; the arguments and results of
+    ``horn_triplets_plain``, or of B problems with every tensor given a
+    leading B (one launch, a block per problem and triplet)."""
+    args = (src, dst, valid, triplets)
+    if src.dim() == 2:
+        if kernels.on_cpu(*args):
+            return horn_triplets_plain(*args, threshold, with_scale)
+        return tuple(x[0] for x in horn_triplets(
+            *[a[None] for a in args], threshold, with_scale))
+    if kernels.on_cpu(*args):
+        return kernels.per_problem(horn_triplets_plain, args, threshold,
+                                   with_scale)
+    b, n = valid.shape
+    h = triplets.shape[1]
+    kernels.check(src, "src", torch.float32, (b, n, 3))
+    kernels.check(dst, "dst", torch.float32, (b, n, 3))
+    kernels.check(valid, "valid", torch.float32, (b, n))
+    kernels.check(triplets, "triplets", torch.int32, (b, h, 3))
+    dev = src.device
+    R = torch.empty((b, h, 3, 3), dtype=torch.float32, device=dev)
+    t = torch.empty((b, h, 3), dtype=torch.float32, device=dev)
+    s = torch.empty((b, h), dtype=torch.float32, device=dev)
+    n_inl = torch.empty((b, h), dtype=torch.int32, device=dev)
+    inl = torch.empty((b, h, n), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch("psl_horn_triplets", kernels.ptr(src),
+                       kernels.ptr(dst), kernels.ptr(valid),
+                       kernels.ptr(triplets), n, h, b,
+                       float(np.float32(threshold)), int(with_scale),
+                       kernels.ptr(R), kernels.ptr(t), kernels.ptr(s),
+                       kernels.ptr(n_inl), kernels.ptr(inl))
+    kernels.LAUNCHES["horn_align_batch"] += 1
+    return R, t, s, n_inl, inl
+
+
+# floats of a packed Horn RANSAC row before its inlier mask: R (9), t (3),
+# s and the count's int32 bits
+HORN_PACKED = 14
+
+
+def horn_refit_plain(src, dst, valid, n_inl, inl, threshold: float,
+                     with_scale: bool = False):
+    """Plain version of K6's refit mode for one problem: the first row of
+    the largest count in n_inl (H,) (as jnp.argmax), realigned on its
+    inliers inl (H, N) with weights inl + 1e-9. Returns the packed row (14
+    + N,) float32: R, t, s, the refit's inlier count's int32 bits, its mask
+    as 0 / 1."""
+    w = (inl[torch.argmax(n_inl)].to(torch.float32) + 1e-9)[None]
+    R, t, s, count, mask = _horn_rows_plain(src, dst, valid, w, threshold,
+                                            with_scale)
+    return torch.cat([R.reshape(9), t.reshape(3), s, count.view(torch.float32),
+                      mask[0].to(torch.float32)])
+
+
+def horn_refit(src, dst, valid, n_inl, inl, threshold: float,
+               with_scale: bool = False):
+    """K6 wrapper, refit mode; the arguments and result of
+    ``horn_refit_plain``, or of B problems with every tensor given a leading
+    B (one launch, a block per problem)."""
+    args = (src, dst, valid, n_inl, inl)
+    if src.dim() == 2:
+        if kernels.on_cpu(*args):
+            return horn_refit_plain(*args, threshold, with_scale)
+        return horn_refit(*[a[None] for a in args], threshold, with_scale)[0]
+    if kernels.on_cpu(*args):
+        return torch.stack([horn_refit_plain(*[a[i] for a in args], threshold,
+                                             with_scale)
+                            for i in range(src.shape[0])])
+    b, n = valid.shape
+    h = n_inl.shape[1]
+    kernels.check(src, "src", torch.float32, (b, n, 3))
+    kernels.check(dst, "dst", torch.float32, (b, n, 3))
+    kernels.check(valid, "valid", torch.float32, (b, n))
+    kernels.check(n_inl, "n_inl", torch.int32, (b, h))
+    kernels.check(inl, "inl", torch.bool, (b, h, n))
+    out = torch.empty((b, HORN_PACKED + n), dtype=torch.float32,
+                      device=src.device)
+    with torch.cuda.device(src.device):
+        kernels.launch("psl_horn_refit", kernels.ptr(src), kernels.ptr(dst),
+                       kernels.ptr(valid), kernels.ptr(n_inl),
+                       kernels.ptr(inl), n, h, b,
+                       float(np.float32(threshold)), int(with_scale),
+                       kernels.ptr(out))
+    kernels.LAUNCHES["horn_align_batch"] += 1
+    return out
+
+
+def unpack_horn(row: np.ndarray, n: int):
+    """A packed refit row on the host -> (R (3, 3), t (3,), s, n_inl,
+    inlier mask (n,))."""
+    return (row[:9].reshape(3, 3).copy(), row[9:12].copy(), float(row[12]),
+            int(row[13:14].view(np.int32)[0]),
+            row[HORN_PACKED:HORN_PACKED + n] > 0)
+
+
+def _ransac_align_plain(src, dst, valid, triplets, threshold: float,
+                        with_scale: bool = False):
+    """Plain version of the RANSAC: every triplet hypothesis scored, the
+    refit on the first best one's inliers. Returns the packed row (14 +
+    N,)."""
+    _, _, _, n_inl, inl = horn_triplets_plain(src, dst, valid, triplets,
+                                              threshold, with_scale)
+    return horn_refit_plain(src, dst, valid, n_inl, inl, threshold,
+                            with_scale)
+
+
+def _ransac_align(src, dst, valid, triplets, threshold: float,
+                  with_scale: bool = False):
+    """K6's triplet launch, then its refit launch (their plain versions on
+    the CPU): the packed row (14 + N,), or (B, 14 + N) for tensors with a
+    leading B. With a leading B nothing runs between the launches."""
+    _, _, _, n_inl, inl = horn_triplets(src, dst, valid, triplets, threshold,
+                                        with_scale)
+    return horn_refit(src, dst, valid, n_inl, inl, threshold, with_scale)
 
 
 def _pad_bucket(n: int) -> int:
@@ -135,6 +285,15 @@ def _pad_pair(src, dst, n_hyp, seed=7):
     return s, d, v, picks
 
 
+def _horn_ransac(src, dst, threshold: float, n_hyp: int, device,
+                 with_scale: bool):
+    """One upload, _ransac_align, one pull: (R, t, s, n_inl, inl (n,))."""
+    s, d, v, picks = _pad_pair(src, dst, n_hyp)
+    row = _ransac_align(*kernels.upload([a[None] for a in (s, d, v, picks)],
+                                        device), threshold, with_scale)
+    return unpack_horn(row.cpu().numpy()[0], len(src))
+
+
 def horn_ransac_se3(src: np.ndarray, dst: np.ndarray,
                     threshold: float = 0.10, n_hyp: int = 64,
                     device="cuda") -> Tuple[np.ndarray, int, np.ndarray]:
@@ -144,17 +303,30 @@ def horn_ransac_se3(src: np.ndarray, dst: np.ndarray,
     n = len(src)
     if n < 3:
         return np.eye(4, dtype=np.float32), 0, np.zeros(n, bool)
-    s, d, v, picks = _pad_pair(src, dst, n_hyp)
-
-    def put(a):
-        return torch.from_numpy(a).to(device)
-
-    R, t, n_inl, inl = _ransac_align(put(s), put(d), put(v), put(picks),
-                                     threshold)
+    R, t, _, n_inl, inl = _horn_ransac(src, dst, threshold, n_hyp, device,
+                                       False)
     T = np.eye(4, dtype=np.float32)
-    T[:3, :3] = R.cpu().numpy()
-    T[:3, 3] = t.cpu().numpy()
-    return T, int(n_inl), inl.cpu().numpy()[:n]
+    T[:3, :3] = R
+    T[:3, 3] = t
+    return T, n_inl, inl
+
+
+def horn_ransac_sim3(src: np.ndarray, dst: np.ndarray,
+                     threshold: float = 0.10, n_hyp: int = 64,
+                     device="cuda"):
+    """RANSAC similarity alignment dst ~ s R src + t on `device` (the
+    scale free, as for monocular loops). Returns (T (4, 4) of (R, t), s,
+    n_inliers, inlier mask)."""
+    device = resolve_device(device)
+    n = len(src)
+    if n < 3:
+        return np.eye(4, dtype=np.float32), 1.0, 0, np.zeros(n, bool)
+    R, t, s, n_inl, inl = _horn_ransac(src, dst, threshold, n_hyp, device,
+                                       True)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = R
+    T[:3, 3] = t
+    return T, s, n_inl, inl
 
 
 def _proj_jac(p, K):

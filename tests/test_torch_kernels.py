@@ -1,4 +1,4 @@
-"""The hand-written Hopper kernels (K1-K45) against their plain PyTorch
+"""The hand-written Hopper kernels (K1-K47) against their plain PyTorch
 versions on the card. These need a GPU: without one every test skips.
 
     python -m pytest tests/test_torch_kernels.py -q     # on the GPU machine
@@ -1988,3 +1988,189 @@ def test_pcg_solve_matches_plain(dev):
     launched = {k: kernels.LAUNCHES[k] - before[k]
                 for k in chip_smoke.pcg_launches(15)}
     assert launched == chip_smoke.pcg_launches(15)
+
+
+def _k7_lanes(dev, B=4):
+    """chip_smoke's K7 recipe for B lanes (seeds 7 + b, picks 11 + b),
+    stacked with a leading B."""
+    from planarslam_tpu_torch.solvers import pnp
+
+    cam = SystemConfig().camera
+    lanes = [chip_smoke.pnp_problem(cam, 256, 7 + b, 11 + b) for b in range(B)]
+    return [torch.from_numpy(np.stack(f)).to(dev) for f in zip(*lanes)], pnp
+
+
+def test_pnp_dlt_hypotheses_warp_solve(dev):
+    """K7 (a warp's parallel Jacobi) at B = 4: T within 1e-5 of max(1, |T|)
+    of the float64 plain version where the 6 picks are distinct (a repeated
+    pick held to a score in [-1, n]); two launches equal bits; each lane
+    bit-equal to its own B = 1 launch; scores the plain _inliers count of
+    the kernel's own T."""
+    (xw, uv_n, is2, valid, picks), pnp = _k7_lanes(dev)
+    sk, Tk = pnp.pnp_dlt_hypotheses(xw, uv_n, is2, valid, picks, 5.991)
+    s2, T2 = pnp.pnp_dlt_hypotheses(xw, uv_n, is2, valid, picks, 5.991)
+    assert torch.equal(sk, s2) and torch.equal(Tk.view(torch.int32),
+                                               T2.view(torch.int32))
+    for b in range(4):
+        args = (xw[b], uv_n[b], is2[b], valid[b], picks[b])
+        s1, T1 = pnp.pnp_dlt_hypotheses(*args, 5.991)
+        assert torch.equal(s1, sk[b]) and torch.equal(T1, Tk[b])
+        _, Tp = pnp.pnp_dlt_hypotheses_plain(*args, 5.991)
+        p = picks[b].cpu().numpy()
+        distinct = torch.from_numpy(np.array([len(set(r)) == 6 for r in p]))
+        err = ((Tk[b] - Tp).abs() / Tp.abs().clamp(min=1.0))[distinct.to(dev)]
+        assert float(err.max()) <= 1e-5
+        assert bool(((sk[b] >= -1) & (sk[b] <= 256)).all())
+        own = pnp._inliers(Tk[b], *args[:4], 5.991).sum(dim=1)
+        fin = torch.isfinite(Tk[b]).reshape(128, -1).all(dim=1)
+        assert torch.equal(torch.where(fin, own, -1).to(torch.int32), sk[b])
+
+
+def test_pnp_select(dev):
+    """K46 at B = 4 on K7's outputs: every lane bit-equal to the plain
+    version (packed T, count, mask) and to its own B = 1 launch; the count
+    the lane's best score; the RANSAC (K7, K46) one launch each."""
+    (xw, uv_n, is2, valid, picks), pnp = _k7_lanes(dev)
+    sk, Tk = pnp.pnp_dlt_hypotheses(xw, uv_n, is2, valid, picks, 5.991)
+    rows = pnp.pnp_select(xw, uv_n, is2, valid, sk, Tk, 5.991)
+    for b in range(4):
+        args = (xw[b], uv_n[b], is2[b], valid[b])
+        want = pnp.pnp_select_plain(*args, sk[b], Tk[b], 5.991)
+        assert torch.equal(rows[b].view(torch.int32), want.view(torch.int32))
+        assert torch.equal(pnp.pnp_select(*args, sk[b], Tk[b], 5.991), rows[b])
+        assert int(rows[b, 16:17].view(torch.int32)) == int(sk[b].max())
+    before = dict(kernels.LAUNCHES)
+    again = pnp._pnp_ransac(xw, uv_n, valid, is2, picks, 5.991)
+    assert torch.equal(again, rows)
+    assert kernels.LAUNCHES["pnp_dlt_hypotheses"] == \
+        before["pnp_dlt_hypotheses"] + 1
+    assert kernels.LAUNCHES["pnp_select"] == before["pnp_select"] + 1
+
+
+def _horn_lanes(dev, scale, B=4):
+    """chip_smoke's K6 recipe (1024 correspondences, 60% inliers of a
+    planted similarity) for B lanes (seeds 60 + b), stacked."""
+    lanes = [chip_smoke.horn_problem(60 + b, scale) for b in range(B)]
+    return [torch.from_numpy(np.stack(f)).to(dev) for f in zip(*lanes)]
+
+
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_horn_triplets_refit(dev, with_scale):
+    """K6's triplet and refit modes at B = 4: two launches equal bits; each
+    lane bit-equal to its own B = 1 launch; without the scale, the triplet
+    rows bit-equal to a weights launch on the plain version's rows and the
+    refit to the plain pick and a weights launch; with it (scale 1.3), R,
+    t (of max(1, |t|)) and s within 1e-5 of the plain version on distinct
+    triplets and on the refit, counts and masks equal."""
+    from planarslam_tpu_torch.solvers import sim3_solver as ss
+
+    src, dst, valid, tri = _horn_lanes(dev, 1.3 if with_scale else 1.0)
+    trip = ss.horn_triplets(src, dst, valid, tri, 0.08, with_scale)
+    again = ss.horn_triplets(src, dst, valid, tri, 0.08, with_scale)
+    assert all(torch.equal(x, y) for x, y in zip(trip, again))
+    rows = ss.horn_refit(src, dst, valid, trip[3], trip[4], 0.08, with_scale)
+    assert torch.equal(rows, ss.horn_refit(src, dst, valid, trip[3], trip[4],
+                                           0.08, with_scale))
+    for b in range(4):
+        one = (src[b], dst[b], valid[b])
+        t1 = ss.horn_triplets(*one, tri[b], 0.08, with_scale)
+        assert all(torch.equal(x, y[b]) for x, y in zip(t1, trip))
+        r1 = ss.horn_refit(*one, trip[3][b], trip[4][b], 0.08, with_scale)
+        assert torch.equal(r1, rows[b])
+        if not with_scale:
+            w = ss.triplet_weights(valid[b].cpu(), tri[b].cpu()).to(dev)
+            by_w = ss.horn_align_batch(*one, w, 0.08)
+            for x, y in zip((trip[0][b], trip[1][b], trip[3][b], trip[4][b]),
+                            by_w):
+                assert torch.equal(x, y)
+            best = int(torch.argmax(trip[3][b]))
+            wb = (trip[4][b, best].float() + 1e-9)[None].contiguous()
+            R, t, n_inl, inl = ss.horn_align_batch(*one, wb, 0.08)
+            want = torch.cat([R.reshape(9), t.reshape(3),
+                              torch.ones(1, device=dev),
+                              n_inl.view(torch.float32), inl[0].float()])
+            assert torch.equal(rows[b].view(torch.int32),
+                               want.view(torch.int32))
+            continue
+        want = ss.horn_triplets_plain(*one, tri[b], 0.08, True)
+        p = tri[b].cpu().numpy()
+        ok = torch.from_numpy(np.array([len(set(r)) == 3 for r in p])).to(dev)
+        assert float((trip[0][b] - want[0]).abs()[ok].max()) <= 1e-5
+        assert float(((trip[1][b] - want[1]).abs()
+                      / want[1].abs().clamp(min=1.0))[ok].max()) <= 1e-5
+        assert float(((trip[2][b] - want[2]).abs()
+                      / want[2].abs())[ok].max()) <= 1e-5
+        assert torch.equal(trip[3][b], want[3])
+        assert torch.equal(trip[4][b], want[4])
+        prow = ss.horn_refit_plain(*one, want[3], want[4], 0.08, True)
+        assert float((rows[b, :9] - prow[:9]).abs().max()) <= 1e-5
+        assert float(((rows[b, 9:12] - prow[9:12]).abs()
+                      / prow[9:12].abs().clamp(min=1.0)).max()) <= 1e-5
+        assert abs(float(rows[b, 12]) - float(prow[12])) <= 1e-5 * float(
+            prow[12])
+        assert torch.equal(rows[b, 13:].view(torch.int32),
+                           prow[13:].view(torch.int32))
+        assert abs(float(rows[b, 12]) - 1.3) < 0.01
+
+
+@pytest.mark.parametrize("case", chip_smoke.MATCH_PLANTED)
+def test_match_lines(dev, case):
+    """K47 on chip_smoke's planted problem: bit-equal to its plain version
+    (idx and best), two launches equal bits, and at B = 4 (the problem and
+    three reseeded ones) each lane bit-equal to its own launch."""
+    lanes = [[torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
+              chip_smoke.planted_match_problem(case, seed=5 + b)]
+             for b in range(4)]
+    n0 = kernels.LAUNCHES["match_lines"]
+    got = lines.match_lines(*lanes[0])
+    assert kernels.LAUNCHES["match_lines"] == n0 + 1
+    want = lines.match_lines_plain(*lanes[0])
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    again = lines.match_lines(*lanes[0])
+    assert all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(got, again))
+    b4 = lines.match_lines(*[torch.stack(f) for f in zip(*lanes)])
+    for b in range(4):
+        one = lines.match_lines(*lanes[b])
+        assert torch.equal(b4[0][b], one[0])
+        assert torch.equal(b4[1][b].view(torch.int32),
+                           one[1].view(torch.int32))
+
+
+def test_ransac_entry_points_match_cpu(dev):
+    """pnp_ransac, horn_ransac_se3 and horn_ransac_sim3 on the card against
+    the same calls on the CPU (plain versions): inlier masks and counts
+    equal, T within 1e-4 (PnP: 0.01 R, 0.05 t, counts within 2, its
+    float64 SVDs differ in their last bits), s within 1e-5 relative."""
+    from planarslam_tpu_torch.solvers import pnp, sim3_solver
+
+    rng = np.random.default_rng(3)
+    n = 300
+    src = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    T = _pose(rng, 0.3, 0.5)
+    dst = (0.9 * (src @ T[:3, :3].T) + T[:3, 3]
+           + rng.normal(0, 0.01, (n, 3))).astype(np.float32)
+    for fn, out_s in ((sim3_solver.horn_ransac_se3, False),
+                      (sim3_solver.horn_ransac_sim3, True)):
+        d = dst if out_s else (src @ T[:3, :3].T + T[:3, 3]).astype(
+            np.float32)
+        got, want = fn(src, d, 0.08, device=dev), fn(src, d, 0.08,
+                                                     device="cpu")
+        np.testing.assert_allclose(got[0], want[0], atol=1e-4)
+        assert got[-2] == want[-2]
+        np.testing.assert_array_equal(got[-1], want[-1])
+        if out_s:
+            assert abs(got[1] - want[1]) <= 1e-5 * abs(want[1])
+    (xw, uv_n, is2, valid, picks), _ = _k7_lanes(dev, 1)
+    cam = SystemConfig().camera
+    K = (cam.fx, cam.fy, cam.cx, cam.cy)
+    uv = uv_n[0].cpu().numpy() * np.array(K[:2]) + np.array(K[2:])
+    pts = xw[0].cpu().numpy()
+    Tg, ig, ng = pnp.pnp_ransac(pts, uv, np.ones(256, bool), K, device=dev)
+    Tc, ic, nc = pnp.pnp_ransac(pts, uv, np.ones(256, bool), K,
+                                device="cpu")
+    assert abs(ng - nc) <= 2 and ng == int(ig.sum())
+    np.testing.assert_allclose(Tg[:3, :3], Tc[:3, :3], atol=0.01)
+    np.testing.assert_allclose(Tg[:3, 3], Tc[:3, 3], atol=0.05)
+
