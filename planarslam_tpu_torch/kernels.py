@@ -45,7 +45,8 @@ KERNEL_NAMES = ("fast_score", "orb_describe", "gated_hamming_top2",
                 "step_prelude", "decode_step_inputs", "lift_state",
                 "seed_manhattan", "ba_schur_complement", "pose_graph_update",
                 "triangulate_lines", "pcg_prepare", "pcg_schur_matvec",
-                "pcg_cg_update", "pnp_select", "match_lines")
+                "pcg_cg_update", "pnp_select", "match_lines",
+                "two_view_hypotheses", "two_view_select", "triangulate_dlt")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -59,7 +60,7 @@ CUDA_SOURCES = ("fast_score.cu", "orb_describe.cu", "hamming_top2.cu",
                 "line_lift_search.cu", "matching.cu", "depth_normals.cu",
                 "step_tail.cu", "refine_relative.cu", "ba_step.cu",
                 "step_prelude.cu", "step_decode.cu", "ba_complement.cu",
-                "line_triangulate.cu", "ba_pcg.cu")
+                "line_triangulate.cu", "ba_pcg.cu", "two_view.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # Sources whose float32 gates must round as the plain version's separate
@@ -78,7 +79,8 @@ SOURCE_FLAGS = {"plane_segment.cu": ("-fmad=false",),
                 "step_decode.cu": ("-fmad=false",),
                 "pose_graph.cu": ("-fmad=false",),
                 "line_triangulate.cu": ("-fmad=false",),
-                "ba_pcg.cu": ("-fmad=false",)}
+                "ba_pcg.cu": ("-fmad=false",),
+                "two_view.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -122,6 +124,18 @@ _SIGNATURES = {
     # xw, uv_n, inv_sigma2, valid, scores, Ts, n, n_hyp, batch, chi2_gate,
     # out (packed rows), stream
     "psl_pnp_select": [_P] * 6 + [_I] * 3 + [_F] + [_P] * 2,
+    # uv1, uv2, valid, sigma2, picks, n, n_hyp, batch, sf, sh, Fs, Hs,
+    # stream
+    "psl_two_view_hypotheses": [_P] * 5 + [_I] * 3 + [_P] * 5,
+    # uv1, uv2, valid, sigma2, sf, sh, Fs, Hs, n, n_hyp, batch, out (packed
+    # rows), stream
+    "psl_two_view_select": [_P] * 8 + [_I] * 3 + [_P] * 2,
+    # P1, P2, uv1, uv2, n, batch, X, ok, stream
+    "psl_triangulate_dlt": [_P] * 4 + [_I] * 2 + [_P] * 3,
+    # X, T1, T2, uv1, uv2, inv_sigma2_1, inv_sigma2_2 (or NULL), s1, s2, n,
+    # batch, fx, fy, cx, cy, gate, mask, stream
+    "psl_reprojection_checks": [_P] * 7 + [_F] * 2 + [_I] * 2 + [_F] * 5
+                               + [_P] * 2,
     # desc_a, desc_b, valid_a, valid_b, angle_a, angle_b, A, B, D, batch,
     # max_angle, ratio, min_sim, sim_floor, quality_bar, idx, best, stream
     "psl_match_lines": [_P] * 6 + [_I] * 4 + [_F] * 5 + [_P] * 3,
@@ -488,17 +502,20 @@ def per_problem(fn, tensors, *args, **kw):
 
 def upload(arrays, device) -> list:
     """numpy arrays on `device` in one host-to-device copy: packed into
-    one byte buffer (each at a 16-byte boundary) and returned as views of
-    their dtypes and shapes."""
+    one byte buffer (each at a 16-byte boundary; page-locked for a card,
+    so the copy needs no staging copy) and returned as views of their
+    dtypes and shapes."""
     offsets, size = [], 0
     for a in arrays:
         offsets.append(size)
         size += (a.nbytes + 15) // 16 * 16
-    buf = np.zeros(max(size, 1), np.uint8)
+    pinned = torch.device(device).type == "cuda"
+    host = torch.zeros(max(size, 1), dtype=torch.uint8, pin_memory=pinned)
+    buf = host.numpy()
     for a, o in zip(arrays, offsets):
         buf[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
             np.uint8)
-    dev = torch.from_numpy(buf).to(device)
+    dev = host.to(device, non_blocking=pinned)
     return [dev[o:o + a.nbytes].view(_TORCH_DTYPES[a.dtype]).reshape(a.shape)
             for a, o in zip(arrays, offsets)]
 
@@ -506,6 +523,27 @@ def upload(arrays, device) -> list:
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.int32): torch.int32,
                  np.dtype(np.bool_): torch.bool}
+_NUMPY_DTYPES = {v: k for k, v in _TORCH_DTYPES.items()}
+
+
+def pull(*views) -> list:
+    """numpy copies of contiguous tensors on the card that share one
+    storage (a wrapper's packed outputs), in one device-to-host copy of
+    that storage; tensors on the CPU as numpy views of themselves."""
+    if not views[0].is_cuda:
+        return [v.numpy() for v in views]
+    storage = views[0].untyped_storage()
+    start = storage.data_ptr()
+    if any(v.untyped_storage().data_ptr() != start for v in views):
+        raise ValueError("pull: the tensors do not share one storage")
+    whole = torch.empty(0, dtype=torch.uint8, device=views[0].device)
+    host = whole.set_(storage).cpu().numpy()
+    out = []
+    for v in views:
+        o = v.data_ptr() - start
+        out.append(host[o:o + v.nbytes].view(_NUMPY_DTYPES[v.dtype])
+                   .reshape(v.shape))
+    return out
 
 
 def ptr(t: torch.Tensor) -> int:

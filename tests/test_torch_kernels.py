@@ -1,4 +1,4 @@
-"""The hand-written Hopper kernels (K1-K47) against their plain PyTorch
+"""The hand-written Hopper kernels (K1-K50) against their plain PyTorch
 versions on the card. These need a GPU: without one every test skips.
 
     python -m pytest tests/test_torch_kernels.py -q     # on the GPU machine
@@ -2174,3 +2174,49 @@ def test_ransac_entry_points_match_cpu(dev):
     np.testing.assert_allclose(Tg[:3, :3], Tc[:3, :3], atol=0.01)
     np.testing.assert_allclose(Tg[:3, 3], Tc[:3, 3], atol=0.05)
 
+
+
+@pytest.mark.parametrize("case", chip_smoke.TWO_VIEW_PLANTED)
+def test_two_view_kernels(dev, case):
+    """On chip_smoke's planted two-view problem: K48 against its plain
+    version (F and H up to sign 1e-5 of max |entry| on well-posed distinct
+    picks, scores within 2 (n - 1) 2^-24 of the plain scoring of the
+    kernel's models, other picks a score in [-1, 2 N 5.991], two launches
+    equal bits); K49 bit-equal to its plain version on K48's outputs, into
+    outputs filled with NaN; K50 on the four candidates (X 1e-5 of max(1,
+    |X|), ok exact, lanes equal to their B = 1 launches) and its gates mode
+    bit-equal."""
+    p = chip_smoke.planted_two_view(case)
+    ins = chip_smoke._two_view_inputs(p, dev)
+    mp = chip_smoke.two_view_model_parity(case, p, ins)
+    row = chip_smoke.two_view_select_parity(case, ins, mp["outputs"])
+    chip_smoke.two_view_dlt_parity(case, p, row[0].cpu().numpy(), dev)
+
+
+def test_two_view_lanes(dev):
+    """K48 and K49 at B = 4 (chip_smoke.TWO_VIEW_LANES, padded with valid
+    False): every lane bit-equal to its own B = 1 launch."""
+    probs = {c: chip_smoke.planted_two_view(c)
+             for c in chip_smoke.TWO_VIEW_LANES}
+    chip_smoke.two_view_lanes(dev, {"problems": probs})
+
+
+def test_initialize_two_view_on_card(dev):
+    """initialize_two_view on the card: one K48, one K49 and one K50 launch
+    a call; on the JAX test's problem the result of the CPU run (success,
+    the model, the inliers; T within 1e-4)."""
+    from planarslam_tpu_torch.solvers import initializer
+
+    p = chip_smoke.planted_two_view("jax_test")
+    before = dict(kernels.LAUNCHES)
+    got = initializer.initialize_two_view(p["uv1"], p["uv2"], p["valid"],
+                                          p["K"], device=dev)
+    for name in ("two_view_hypotheses", "two_view_select",
+                 "triangulate_dlt"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    want = initializer.initialize_two_view(p["uv1"], p["uv2"], p["valid"],
+                                           p["K"], device="cpu")
+    assert got.success and want.success
+    assert got.used_homography == want.used_homography
+    np.testing.assert_array_equal(got.inliers, want.inliers)
+    np.testing.assert_allclose(got.T_21, want.T_21, atol=1e-4)

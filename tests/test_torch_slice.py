@@ -157,8 +157,9 @@ def _entry_points():
     from planarslam_tpu_torch.slam.loop_closing import LoopClosing
     from planarslam_tpu_torch.slam.map import SlamMap
     from planarslam_tpu_torch.slam.tracking import Tracking
-    from planarslam_tpu_torch.solvers import (global_ba, local_ba, pnp,
-                                              pose_graph, sim3_solver)
+    from planarslam_tpu_torch.solvers import (global_ba, initializer,
+                                              local_ba, pnp, pose_graph,
+                                              sim3_solver)
 
     cfg = tconfig.SystemConfig.tiny()
     K = (cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy)
@@ -184,6 +185,8 @@ def _entry_points():
             sim3_solver.refine_relative_se3(eye, p3, p3, p2, p2, ok, K,
                                             **kw),
         "pnp_ransac": lambda **kw: pnp.pnp_ransac(p3, p2, ok, K, **kw),
+        "initialize_two_view": lambda **kw:
+            initializer.initialize_two_view(p2, p2, ok, K, **kw),
         "run_fuse_set": lambda **kw:
             tdm.run_fuse_set(m(), np.zeros(0, np.int64), [], cfg, **kw),
         "fuse_set_step_packed": lambda **kw: tdm.fuse_set_step_packed(

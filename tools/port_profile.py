@@ -47,7 +47,7 @@ with plane_observations before) and device_tracker.finish_step (K31;
 keyframe_stats, _pack and _state_from before)),
 the host time and the device time of its kernels, the busy share of the
 device over the window, the device time and launches of each
-hand-written kernel per frame (K1-K47, `port_kernels_ms_per_frame`; their
+hand-written kernel per frame (K1-K50, `port_kernels_ms_per_frame`; their
 share of the busy time, and every other device event by name), the
 host-to-device copies per frame, the device time of each launch of K17
 and K18 apart (`port_launches_per_frame`: by kernel name and grid, so
@@ -158,6 +158,10 @@ PORT_KERNELS = {
     "K45 pcg_cg_update": ("pcg_cg_kernel",),
     "K46 pnp_select": ("pnp_select_kernel",),
     "K47 match_lines": ("match_lines_kernel",),
+    "K48 two_view_hypotheses": ("two_view_hypotheses_kernel",),
+    "K49 two_view_select": ("two_view_select_kernel",),
+    "K50 triangulate_dlt": ("triangulate_dlt_kernel",
+                            "reprojection_checks_kernel"),
 }
 
 
