@@ -119,7 +119,20 @@ Phases, each fatal on failure:
      2's captured mapping steps and LINE_TRI_PLANTED problems (no free
      line, ties, NaN descriptors, nb_ok False, a ray parallel to its
      plane, parallaxes at the 0.998 edge), into outputs filled with NaN,
-     at B = 1 and 4 lane by lane;
+     at B = 1 and 4 lane by lane; then chunk_parity: from path 2's
+     carried state and window at its 40th step, the eager chunk
+     (fused_track_chunk_packed, C = 8) bit-equal to 8 chained streaming
+     steps and free of host syncs (set_sync_debug_mode("error")), a
+     CapturedChunk's replays over two rounds of its ring bit-equal to the
+     eager chain with every slot kept until its next replay, a replay's
+     launches (chunk_launches), K37's shared-window mode against its
+     plain version and the repeated window; then path 8, the default
+     System in chunked mode (chunk_size 8, chunk_pipeline_depth 2, as
+     bench.py's first CHUNK_SWEEP entry) on path 2's 96 frames: ATE, 0
+     lost, a mapping step per keyframe, one replay a chunk, ms per call
+     and frames/s beside the same System and frames in streaming mode
+     (chunk_size 1); and path 8b, its first 45 frames (a partial chunk
+     of 4 at the flush);
   6. path 3, relocalization: the same System with a keyframe every 4
      frames tracks until the map holds more than 5 keyframes, loses
      tracking on noise frames, relocalizes on a revisited frame (Horn
@@ -180,8 +193,9 @@ Phases, each fatal on failure:
      own, and their "Memcpy HtoD" events are counted per span: one per
      frame (the packed sensor frame), one per refresh of the local-map
      window and one per keyframe's packed fuse set, no constant among
-     them, every frame held; then 24 batched steps of four
-     tracking-only lanes: two per step (the stacked frames, the small
+     them, every frame held; then 4 chunks of a chunked tracking-only
+     System, one upload a chunk plus one per window refresh and fuse set;
+     then 24 batched steps of four tracking-only lanes: two per step (the stacked frames, the small
      parameters) plus one per lane window upload.
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel must have launched on the paths, and on every path K11
@@ -11127,6 +11141,478 @@ def fuse_set_parity(slam_map, cfg, dev, captured: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Path 8: chunked throughput mode, a chunk one captured CUDA graph replay
+
+CHUNK_SIZE = 8         # bench.py CHUNK_SWEEP's first entry: C = 8,
+CHUNK_DEPTH = 2        # chunk_pipeline_depth = 2
+CHUNK_PARTIAL_FRAMES = 45  # path 8b: frame 0 initializes, five chunks of 8
+                           # and a partial one of 4 at the flush
+CHUNK_PARITY_CALL = 40  # path 2's streaming step (frame 40) whose carried
+                        # state and window start chunk_parity
+CHUNK_PARITY_CHUNKS = 3  # chunks chunk_parity replays (frames 40-63)
+H2D_CHUNKS = 4         # chunks under the profiler in run_h2d_chunks
+L2_FLUSH_BYTES = 100 << 20  # twice the H100's 50 MB L2: read before a
+                            # launch timed with L2 cold
+
+
+# path 2's streaming step whose inputs chunk_parity starts from
+CHUNK_CAPTURE = (("device_tracker", "fused_track_step_packed",
+                  CHUNK_PARITY_CALL),)
+
+
+def chunk_config(cfg):
+    """cfg with chunked throughput mode at CHUNK_SIZE, CHUNK_DEPTH."""
+    import dataclasses
+
+    return cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, chunk_size=CHUNK_SIZE,
+        chunk_pipeline_depth=CHUNK_DEPTH))
+
+
+def chunk_launches(cfg, C: int = CHUNK_SIZE) -> dict:
+    """The launches of one chunk: one K37 (its C frames and the shared
+    window), the extraction kernels once (one extract_frame call at B = C,
+    each as its C entry reports them) and C times a streaming step's
+    launches (STEP_LAUNCHES and K23's one launch over the 256-line
+    window)."""
+    from planarslam_tpu_torch.ops import fast, image, lines
+    from planarslam_tpu_torch.ops.frontend import orb_level_table
+
+    table = orb_level_table(cfg.camera.height, cfg.camera.width, cfg.orb)
+    out = {k: C * n for k, n in STEP_LAUNCHES.items()}
+    out["search_lines_by_projection"] = C * lines.search_launches(LINE_WINDOW)
+    out.update({"decode_step_inputs": 1, "fast_score": 1, "orb_describe": 1,
+                "point_epilogue": 1, "pyramid_resize": image.PYRAMID_LAUNCHES,
+                "select_keypoints": fast.select_launches(table),
+                "gaussian_blur": 2, "detect_lines": lines.DETECT_LAUNCHES,
+                "line_descriptors": 1, "lift_lines_3d": 1,
+                "plane_block_moments": 1, "plane_components": 1,
+                "plane_assign_refit": 1 + cfg.planes.refine_rounds,
+                "plane_label_pixels": 1, "noise_alpha": 1,
+                "frame_normals": 1})
+    return out
+
+
+def _chunk_leaves(res) -> list:
+    """A ChunkResult's tensors: the bundles, every per-frame state leaf,
+    every final state leaf."""
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    return ([res.packed] + dt.state_leaves(res.states)
+            + dt.state_leaves(res.final_state))
+
+
+def _chunk_same(name: str, got, want) -> None:
+    bad = [i for i, (x, y) in enumerate(zip(_chunk_leaves(got),
+                                            _chunk_leaves(want)))
+           if x.shape != y.shape or _bit_diff(x, y, as_int=True)]
+    _check(not bad, f"chunk_parity: {name}: leaves {bad} differ (0 the "
+           f"bundles, then the per-frame and the final state leaves)")
+
+
+def _replay_device(graph, packs: list, reps: int = 6) -> dict:
+    """Device ms and kernel events of one replay (torch.profiler over
+    `reps` replays after one, events per replay and their summed device
+    time), and CUDA events around the replay alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    graph.replay(packs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for k in range(reps):
+            graph.replay(packs[k % len(packs)])
+        torch.cuda.synchronize()
+    n, us = 0, 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+        if t > 0 and "Memcpy" not in e.key:
+            n += e.count
+            us += t
+    times = []
+    for k in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        graph.frames.copy_(torch.from_numpy(packs[k % len(packs)]))
+        start.record()
+        graph.graphs[graph.next_slot].replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"device_ms_per_chunk": us / reps / 1e3 if n else None,
+            "device_events_per_chunk": n / reps if n else None,
+            "replay_ms_events": float(np.median(times))}
+
+
+def chunk_parity(frames, cfg, dev, captured, report: list) -> dict:
+    """Chunked mode against the streaming step, from path 2's carried
+    state and window at its CHUNK_PARITY_CALL-th step (frame
+    CHUNK_PARITY_CALL), on the next CHUNK_SIZE frames: the eager
+    fused_track_chunk_packed bit-equal to CHUNK_SIZE chained B = 1
+    fused_track_step_packed steps over the frozen window (the bundles as
+    int32 bits, every per-frame and final state leaf); a CapturedChunk's
+    replays bit-equal to the eager chunks chained from that state, two
+    rounds of the ring of CHUNK_DEPTH + 1 slots (CHUNK_PARITY_CHUNKS
+    frame sets in turn), each slot's bundles and per-frame states unchanged
+    by the other slots' replays; the
+    launches a replay adds (its capture's) equal to the eager chunk's and
+    to chunk_launches; K37's shared-window mode (C frames, one window)
+    bit-equal to its plain version and to K37 on the window repeated C
+    times, two launches equal bits, with its time and bound beside K37's
+    kernel row; an eager chunk under torch.cuda.set_sync_debug_mode
+    ("error"), which raises at a host sync; a replay's device ms and
+    kernel events."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    args, _ = captured
+    frame1, _, _, R_wm, manh, state, win, weights = args[:8]
+    C = CHUNK_SIZE
+    i0 = CHUNK_PARITY_CALL
+    packs = [np.stack([_packed(*frames[i]) for i in range(i0 + k * C,
+                                                          i0 + (k + 1) * C)])
+             for k in range(CHUNK_PARITY_CHUNKS)]
+    _check(np.array_equal(frame1[0].cpu().numpy(), packs[0][0]),
+           f"chunk_parity: path 2's step {i0} is not frame {i0}")
+    fr = [torch.from_numpy(p).to(dev) for p in packs]
+    eye = torch.eye(4, device=dev)[None]
+    no = torch.zeros(1, dtype=torch.bool, device=dev)
+
+    # the eager chunk against chained streaming steps
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    eager = dt.fused_track_chunk_packed(fr[0], R_wm, manh, state, win,
+                                        weights, cfg)
+    capture_s = None
+    eager_counts = {k: kernels.LAUNCHES[k] - n for k, n in before.items()
+                    if kernels.LAUNCHES[k] != n}
+    st = state
+    for i in range(C):
+        one = dt.fused_track_step_packed(fr[0][i:i + 1], eye, no, R_wm, manh,
+                                         st, win, weights, cfg)
+        _check(_bit_diff(eager.packed[i], one.packed[0], as_int=True) == 0,
+               f"chunk_parity: frame {i}'s bundle differs from the "
+               f"streaming step's")
+        bad = [j for j, (x, y) in enumerate(zip(
+            dt.state_leaves(eager.states), dt.state_leaves(one.new_state)))
+            if _bit_diff(x[i], y[0], as_int=True)]
+        _check(not bad, f"chunk_parity: frame {i}'s state leaves {bad} "
+               f"differ from the streaming step's")
+        st = one.new_state
+    bad = [j for j, (x, y) in enumerate(zip(dt.state_leaves(st),
+                                            dt.state_leaves(eager.final_state)))
+           if _bit_diff(x, y, as_int=True)]
+    _check(not bad, f"chunk_parity: final state leaves {bad} differ from "
+           f"the last streaming step's")
+    # no host sync inside the chunk (what a capture could not hold)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dt.fused_track_chunk_packed(fr[0], R_wm, manh, state, win, weights,
+                                    cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    chained = [eager]
+    for k in range(1, CHUNK_PARITY_CHUNKS):
+        chained.append(dt.fused_track_chunk_packed(
+            fr[k], R_wm, manh, chained[-1].final_state, win, weights, cfg))
+
+    # the captured chunk: two rounds of the ring, each replay against the
+    # eager chain, and every other slot's bundles and per-frame states
+    # (its final_state is the graphs' carry, which every replay rewrites)
+    # as that slot's own replay left them
+    graph = dt.CapturedChunk(C, cfg, weights, dev, slots=CHUNK_DEPTH + 1)
+    graph.set_state(state)
+    graph.set_inputs(win, R_wm, manh)
+    n_slot = 1 + len(dt.state_leaves(eager.states))
+    kept = {}
+    t0 = time.perf_counter()
+    for k in range(2 * graph.slots):
+        if k >= len(chained):
+            chained.append(dt.fused_track_chunk_packed(
+                fr[k % len(fr)], R_wm, manh, chained[-1].final_state, win,
+                weights, cfg))
+        slot = graph.next_slot
+        out = graph.replay(packs[k % len(packs)])
+        torch.cuda.synchronize()
+        if k == 0:
+            capture_s = time.perf_counter() - t0
+        _chunk_same(f"replay {k + 1} against the eager chain", out,
+                    chained[k])
+        kept[slot] = [x.clone() for x in _chunk_leaves(out)[:n_slot]]
+        for other, leaves in kept.items():
+            _check(all(_bit_diff(x, y, as_int=True) == 0 for x, y in zip(
+                _chunk_leaves(graph.outs[other])[:n_slot], leaves)),
+                f"chunk_parity: slot {other}'s bundles or per-frame states "
+                f"changed under replay {k + 1} (slot {slot})")
+    want = chunk_launches(cfg, C)
+    _check(graph.per_replay == eager_counts == want,
+           f"chunk_parity: launches a replay {graph.per_replay}, an eager "
+           f"chunk {eager_counts}, expected {want}")
+    n0 = dict(kernels.LAUNCHES)
+    graph.replay(packs[0])
+    _check(all(kernels.LAUNCHES[k] - n0[k] == want.get(k, 0)
+               for k in n0), "chunk_parity: a replay did not add its "
+           "capture's launches")
+    device = _replay_device(graph, packs)
+    # the same chunk issued eagerly, each wrapper from Python (CUDA events
+    # around the call: the host's issue time bounds it)
+    device["eager_chunk_ms"] = _time_ms(
+        lambda: dt.fused_track_chunk_packed(fr[0], R_wm, manh, state, win,
+                                            weights, cfg), reps=5)
+
+    # K37's shared-window mode
+    wide = win.expand(C, -1).contiguous()
+    shared = _decode_once("shared window, C = 8",
+                          lambda: dt._decode(win, cfg, frame=fr[0]),
+                          dt.decode_step_inputs_plain(fr[0], win, cfg))
+    rep = _decoded(dt._decode(wide, cfg, frame=fr[0]))
+    _check(same_bits(shared[:2], rep[:2]) and all(
+        _bit_diff(x[0], y[b], as_int=True) == 0
+        for x, y in zip(shared[2:], rep[2:]) for b in range(C)),
+           "chunk_parity: K37's shared window differs from K37 on the "
+           "window repeated C times")
+    h, w = fr[0].shape[2:]
+    items = sum(t.shape[-1] for t in (rep[2 + 5], rep[2 + 9], rep[2 + 13]))
+    n_pl = rep[2 + 13].shape[-1]
+    moved = C * 11 * h * w + 4 * (items + n_pl) + items + 8 * n_pl
+    k37 = next(k for k in report if k["name"] == "decode_step_inputs")
+    # the bound counts every byte from HBM; the chunk's 27 MB fit in L2,
+    # so the cold time reads a buffer twice L2's size before each launch
+    # (a read leaves clean lines: evicting them costs the launch nothing)
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def cold_shared():
+        flush.sum()
+        dt._decode(win, cfg, frame=fr[0])
+
+    k37.update(
+        ms_shared_c8=_time_ms(lambda: dt._decode(win, cfg, frame=fr[0])),
+        ms_repeated_c8=_time_ms(lambda: dt._decode(wide, cfg, frame=fr[0])),
+        device_ms_shared_c8_cold_l2=_launch_split(cold_shared,
+                                                  match="decode"),
+        device_ms_shared_c8_warm_l2=_launch_split(
+            lambda: dt._decode(win, cfg, frame=fr[0]), match="decode"),
+        bound_ms_shared_c8=_bound(moved, 5 * C * h * w + items + n_pl))
+    del flush
+    res = {"chunk": C, "slots": graph.slots, "frames": [i0, i0 + C * len(
+        packs) - 1], "capture_s": capture_s,
+        "launches_per_chunk": graph.per_replay,
+        "replays": 2 * graph.slots,
+        "bit_equal": ["eager chunk = 8 streaming steps",
+                      "replays = eager chain", "every slot kept until its "
+                      "next replay", "K37 shared window"],
+        **device}
+    print("chunk_parity " + json.dumps(res), flush=True)
+    return res
+
+
+def _drive_system(name, seq, frames, cfg, dev):
+    """The default System (local mapping and loop closing on, as
+    bench.py::_run_slam builds it) of cfg over the frames under
+    _pose_calls() (no capture): (slam, its common metrics, the call
+    counts), with ATE < ATE_LIMIT_M, 0 lost and every frame's pose held.
+    Reports ms per track_rgbd call (median, p95) and sustained
+    frames/s."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.evaluation.ate import ate_rmse
+    from planarslam_tpu_torch.slam.system import System
+
+    n_frames = len(frames)
+    slam = System(config=cfg, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t_all = time.perf_counter()
+    with _pose_calls() as pc:
+        times = _drive(slam, frames, seq.timestamps)
+        slam.shutdown()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    poses = slam.frame_poses_wc()
+    _check(poses.shape == (n_frames, 4, 4),
+           f"{name}: trajectory shape {poses.shape} != ({n_frames}, 4, 4)")
+    _check(bool(np.all(np.isfinite(poses))), f"{name}: non-finite poses")
+    ate = ate_rmse(poses[:, :3, 3], seq.poses_wc[:n_frames, :3, 3])
+    t_ms = np.asarray(times[1:])
+    res = {"ate_rmse_m": ate, "frames": n_frames,
+           "keyframes": int(slam.map.n_kf),
+           "lost": int(slam.tracker.stats["lost"]),
+           "map_points": int(slam.map.pt_valid.sum()),
+           "median_ms_per_call": float(np.median(t_ms)),
+           "p95_ms_per_call": float(np.percentile(t_ms, 95)),
+           "fps_sustained": n_frames / wall,
+           "mapping": dict(slam.local_mapper.stats),
+           "loops_closed": int(slam.loop_closer.loops_closed),
+           "wall_s": wall, "times": times,
+           "launches": dict(kernels.LAUNCHES)}
+    _check(ate < ATE_LIMIT_M, f"{name}: ATE {ate:.5f} m >= {ATE_LIMIT_M} m")
+    _check(res["lost"] == 0, f"{name}: {res['lost']} lost frames")
+    return slam, res, pc
+
+
+def run_streaming_beside(seq, frames, cfg, dev) -> dict:
+    """Path 8's System in streaming mode (chunk_size 1, everything else
+    as path 8: loop closing on, no captured inputs), over the same
+    frames in the same run: what path 8's frame rates are set beside."""
+    _, res, _ = _drive_system("path8_streaming", seq, frames, cfg, dev)
+    res.pop("times")
+    print("path8_streaming " + json.dumps(res), flush=True)
+    return res
+
+
+def run_chunk_path(name, seq, frames, cfg, dev) -> dict:
+    """Path 8 (96 frames) or 8b (45): _drive_system in chunked mode
+    (chunk_config) over path 2's quantized room frames: a mapping step per
+    keyframe after the first; every full chunk and the flush's partial
+    one one replay of the captured chunk, which adds chunk_launches a
+    replay; K37, K31 and K36 launched only in chunks (the warm-up's eager
+    chunk and the replays); no plain function on a card tensor. Reports
+    host ms per chunk (its C calls) besides _drive_system's metrics."""
+    ccfg = chunk_config(cfg)
+    n_frames = len(frames)
+    slam, res, pc = _drive_system(name, seq, frames, ccfg, dev)
+    times, launches = res.pop("times"), res["launches"]
+    graph = slam.tracker._chunk_graph
+    _check(graph is not None, f"{name}: no chunk was captured")
+    C = CHUNK_SIZE
+    # calls 1 .. n - 1 in chunks of C (call 0 initializes)
+    per_chunk = [float(np.sum(times[1 + k * C:1 + (k + 1) * C]))
+                 for k in range((n_frames - 1) // C)]
+    m = slam.map
+    res.update(chunk=C, chunk_pipeline_depth=CHUNK_DEPTH,
+               replays=graph.replays,
+               host_ms_per_chunk_median=float(np.median(per_chunk))
+               if per_chunk else None,
+               host_ms_per_chunk=per_chunk, **_call_counts(pc))
+    print(f"{name} " + json.dumps(res), flush=True)
+    steps = res["mapping"]["mapping_steps"]
+    _check(steps >= m.n_kf - 1, f"{name}: {steps} mapping steps for "
+           f"{m.n_kf} keyframes")
+    chunks = -(-(n_frames - 1) // C)
+    _check(graph.replays == chunks, f"{name}: {graph.replays} replays for "
+           f"{chunks} chunks")
+    want = chunk_launches(cfg, C)
+    _check(graph.per_replay == want, f"{name}: a replay's launches "
+           f"{graph.per_replay}, expected {want}")
+    for k in ("decode_step_inputs", "finish_step", "step_prelude"):
+        n = (graph.replays + 1) * want[k]
+        _check(launches[k] == n, f"{name}: {launches[k]} {k} launches, "
+               f"expected {n} ((replays + the warm-up) x {want[k]})")
+    for k, n in want.items():
+        _check(launches[k] >= (graph.replays + 1) * n,
+               f"{name}: {launches[k]} {k} launches, fewer than "
+               f"{graph.replays + 1} chunks of {n}")
+    _check(pc["plain_calls_on_card"] == 0,
+           f"{name}: {pc['plain_calls_on_card']} plain calls with tensors "
+           f"on the card")
+    return res
+
+
+def run_h2d_chunks(seq, frames, cfg, dev) -> dict:
+    """Host-to-device copies of chunked tracking, counted as run_h2d_copies
+    counts a frame's: a tracking-only System in chunked mode warms up over
+    H2D_WARMUP_FRAMES frames and the first chunks (the capture), then one
+    more chunk and H2D_CHUNKS chunks run under one torch.profiler session,
+    each chunk's CHUNK_SIZE calls in a span of its own. Every chunk is
+    held to 1 (its frames' packed upload into the replay) + 1 per window
+    refresh + 1 per keyframe's packed fuse set."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from planarslam_tpu_torch.slam import device_mapper as dm
+    from planarslam_tpu_torch.slam.system import System
+
+    C = CHUNK_SIZE
+    slam = System(config=chunk_config(cfg), enable_local_mapping=False,
+                  enable_loop_closing=False, device=dev)
+    first = 1 + C * (H2D_WARMUP_FRAMES // C + CHUNK_DEPTH + 1)
+    for i in range(first):
+        slam.track_rgbd(*frames[i], seq.timestamps[i])
+    _check(slam.tracker._chunk_graph is not None
+           and slam.tracker._chunk_graph.replays > 0,
+           "h2d_chunks: no replay during the warm-up")
+    tr = slam.tracker
+    seen = {"refresh": 0, "fuse_set": 0}
+
+    def counting(key, fn):
+        def wrapped(*a, **kw):
+            seen[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    tr._refresh_window = counting("refresh", tr._refresh_window)
+    real_fuse_set = dm.run_fuse_set
+    dm.run_fuse_set = counting("fuse_set", real_fuse_set)
+    per_chunk = []
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for k in range(1 + H2D_CHUNKS):
+                seen.update(refresh=0, fuse_set=0)
+                time.sleep(H2D_GAP_S)
+                i0 = first + k * C
+                with record_function(f"h2d_chunk_{k}"):
+                    for i in range(i0, i0 + C):
+                        slam.track_rgbd(*frames[i], seq.timestamps[i])
+                    torch.cuda.synchronize()
+                per_chunk.append({"chunk": k, "frames": [i0, i0 + C - 1],
+                                  "h2d_copies": 0,
+                                  "window_refreshes": seen["refresh"],
+                                  "fuse_sets": seen["fuse_set"]})
+    finally:
+        dm.run_fuse_set = real_fuse_set
+    slam.shutdown()
+    got = _h2d_by_span(prof.profiler.kineto_results.events(),
+                       prof.events(), "h2d_chunk_", "h2d_chunks")
+    _check(got["frames"] == [r["chunk"] for r in per_chunk],
+           f"h2d_chunks: the profiler kept {len(got['frames'])} of "
+           f"{len(per_chunk)} chunk spans")
+    for rec in per_chunk:
+        rec["h2d_copies"] = got["copies"].get(rec["chunk"], 0)
+        rec["asked_by"] = got["asked_by"].get(rec["chunk"], {})
+    per_chunk = per_chunk[1:]  # the chunk that absorbed the profiler's start
+    for rec in per_chunk:
+        limit = 1 + rec["window_refreshes"] + rec["fuse_sets"]
+        _check(1 <= rec["h2d_copies"] <= limit,
+               f"h2d_chunks: chunk {rec['frames']} made {rec['h2d_copies']} "
+               f"host-to-device copies, allowed {limit}: the packed frames, "
+               f"{rec['window_refreshes']} window refreshes and "
+               f"{rec['fuse_sets']} packed fuse sets ({rec})")
+    res = {"chunks": H2D_CHUNKS, "chunk": C,
+           "window_refreshes": sum(r["window_refreshes"] for r in per_chunk),
+           "fuse_sets": sum(r["fuse_sets"] for r in per_chunk),
+           "limit_per_chunk": "1 packed upload + 1 per window refresh + 1 "
+                              "per packed fuse set",
+           "copies_without_host_op": got["unlinked"],
+           "per_chunk": per_chunk}
+    print("h2d_chunks " + json.dumps(res), flush=True)
+    _check(res["window_refreshes"] >= 1 and res["fuse_sets"] >= 1,
+           f"h2d_chunks: the window's or the fuse set's allowance was not "
+           f"exercised in {H2D_CHUNKS} chunks")
+    return res
+
+
+def chunk_beside(stream: dict, path8: dict) -> dict:
+    """Path 8's frame rates beside run_streaming_beside's (the same
+    System and frames with chunk_size 1, in the same run): ms per
+    track_rgbd call (median, p95; path 8's calls alternate between
+    buffering and a dispatch with its drain) and sustained frames/s."""
+    keys = ("median_ms_per_call", "p95_ms_per_call", "fps_sustained")
+    out = {"streaming": {k: stream[k] for k in keys},
+           "path8_chunked": {k: path8[k] for k in keys
+                             + ("host_ms_per_chunk_median",)},
+           "fps_ratio": path8["fps_sustained"] / stream["fps_sustained"]}
+    print("chunk_beside_streaming " + json.dumps(out), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=96,
@@ -11194,13 +11680,23 @@ def main(argv=None) -> int:
     report += prelude_kernel_parity(cfg, dev, captured)
     report += seed_lift_parity(seq, frames, cfg, dev, captured)
     path2 = run_tracking_path("path2_mapping", seq, frames[:args.frames],
-                              cfg, dev, True, capture=MAPPING_CAPTURE)
+                              cfg, dev, True,
+                              capture=MAPPING_CAPTURE + CHUNK_CAPTURE)
     captured2 = path2.pop("captured")
     report += line_triangulation_parity(cfg, dev, captured2)
     fuse_set_parity(path2.pop("map"), cfg, dev, captured2)
+    chunk_parity(frames, cfg, dev, captured2[CHUNK_CAPTURE[0]], report)
+    path8 = run_chunk_path("path8_chunked", seq, frames[:TRACKING_FRAMES],
+                           cfg, dev)
+    path8b = run_chunk_path("path8b_chunked_partial", seq,
+                            frames[:CHUNK_PARTIAL_FRAMES], cfg, dev)
+    chunk_beside(run_streaming_beside(seq, frames[:TRACKING_FRAMES], cfg,
+                                      dev), path8)
     paths = [
         path1,
         path2,
+        path8,
+        path8b,
         run_reloc_path(seq, cfg, dev),
         run_unpathed_entries(seq, cfg, dev),
     ]
@@ -11225,6 +11721,7 @@ def main(argv=None) -> int:
     paths += path5
     run_batched_vo_step(cfg, dev, B=max(BATCH_SIZES))
     run_h2d_copies(seq, frames, cfg, dev)
+    run_h2d_chunks(seq, frames, cfg, dev)
     run_h2d_batched(cfg, dev, lane_frames, B=BATCH_PARITY)
     for k in report:
         k["launches"] = sum(p["launches"][k["name"]] for p in paths)

@@ -18,7 +18,10 @@
 // to bool as f > 0.5f (NaN false, as PyTorch's compare), and its cloud
 // counts pl_cloud_n (Mp) to int64, truncated toward zero
 // (cvt.rzi.s64.f32, PyTorch's .to(torch.int64)); the window's float fields
-// stay views of the packed buffer in the wrapper.
+// stay views of the packed buffer in the wrapper. The windows number
+// `win_lanes`, 1 or `batch`: a chunk of C frames tracked against one
+// frozen window (fused_track_chunk, shared-window mode) casts that window
+// once, in the same launch as its C frames' decode.
 //
 // Bound: bytes. At 640x480 and B = 1 it reads 921,600 bytes of frame and
 // writes 2,457,600 (about 22 KB of window besides): ~1.0 us at 3.35 TB/s.
@@ -60,13 +63,14 @@ struct DecodeArgs {
   long long pixel_items;      // B * hw / 4 (vec) or B * hw
   int pixel_blocks;           // blocks of the grid that take pixels
   // the window
-  const float* win;           // (B, win_stride), or NULL
+  const float* win;           // (win_lanes, win_stride), or NULL
   long long win_stride;
+  int win_lanes;              // windows: 1 (shared) or B
   int off_pt, n_pt, off_ln, n_ln, off_pl, off_cn, n_pl;
-  unsigned char* pt_valid;    // (B, n_pt)
-  unsigned char* ln_valid;    // (B, n_ln)
-  unsigned char* pl_valid;    // (B, n_pl)
-  long long* pl_cloud_n;      // (B, n_pl)
+  unsigned char* pt_valid;    // (win_lanes, n_pt)
+  unsigned char* ln_valid;    // (win_lanes, n_ln)
+  unsigned char* pl_valid;    // (win_lanes, n_pl)
+  long long* pl_cloud_n;      // (win_lanes, n_pl)
 };
 
 __device__ __forceinline__ float depth_value(unsigned v, float scale) {
@@ -145,7 +149,7 @@ __device__ __forceinline__ void decode_pixel(const DecodeArgs& a, int b,
   }
 }
 
-// item j of lane b's window: its flags, then its cloud counts
+// item j of window b: its flags, then its cloud counts
 __device__ __forceinline__ void decode_window_item(const DecodeArgs& a, int b,
                                                    int j) {
   const float* w = a.win + b * a.win_stride;
@@ -195,7 +199,7 @@ __global__ void __launch_bounds__(kDecodeThreads)
   const long long i =
       static_cast<long long>(blockIdx.x - a.pixel_blocks) * kDecodeThreads +
       threadIdx.x;
-  if (i < static_cast<long long>(items) * a.batch) {
+  if (i < static_cast<long long>(items) * a.win_lanes) {
     const int b = static_cast<int>(i / items);
     decode_window_item(a, b, static_cast<int>(i - b * items));
   }
@@ -224,13 +228,14 @@ bool aligned(const void* p, size_t bytes) {
 // gray (uint8, or NULL), gray_stride; depth (lo plane, int32 or uint16
 // values, or NULL), depth_hi (the hi plane, or NULL), depth_stride,
 // depth_kind (DepthKind); hw, batch, scale; gray_out, depth_out (or NULL);
-// win (or NULL), win_stride, the window's offsets and counts; the four
-// window outputs
+// win (or NULL), win_stride, win_lanes (1 or batch), the window's offsets
+// and counts; the four window outputs
 PSL_API int psl_decode_step_inputs(
     const unsigned char* gray, long long gray_stride, const void* depth,
     const unsigned char* depth_hi, long long depth_stride, int depth_kind,
     int hw, int batch, float scale, float* gray_out, float* depth_out,
-    const float* win, long long win_stride, int off_pt, int n_pt, int off_ln,
+    const float* win, long long win_stride, int win_lanes, int off_pt,
+    int n_pt, int off_ln,
     int n_ln, int off_pl, int off_cn, int n_pl, unsigned char* pt_valid,
     unsigned char* ln_valid, unsigned char* pl_valid, long long* pl_cloud_n,
     cudaStream_t stream) {
@@ -241,7 +246,8 @@ PSL_API int psl_decode_step_inputs(
       (depth_kind != kDepthNone) != (depth_out != nullptr) ||
       (depth_kind != kDepthNone && depth == nullptr) ||
       (depth_kind == kDepthBytes && depth_hi == nullptr) ||
-      (win != nullptr && (n_pt < 0 || n_ln < 0 || n_pl < 0))) {
+      (win != nullptr && (n_pt < 0 || n_ln < 0 || n_pl < 0 ||
+                          (win_lanes != 1 && win_lanes != batch)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DecodeArgs a{};
@@ -271,6 +277,7 @@ PSL_API int psl_decode_step_inputs(
   a.pixel_blocks = static_cast<int>(need < wave ? need : wave);
   a.win = win;
   a.win_stride = win_stride;
+  a.win_lanes = win != nullptr ? win_lanes : 0;
   a.off_pt = off_pt;
   a.n_pt = win != nullptr ? n_pt : 0;
   a.off_ln = off_ln;
@@ -283,7 +290,7 @@ PSL_API int psl_decode_step_inputs(
   a.pl_valid = pl_valid;
   a.pl_cloud_n = pl_cloud_n;
   const long long win_items =
-      static_cast<long long>(a.n_pt + a.n_ln + 2 * a.n_pl) * batch;
+      static_cast<long long>(a.n_pt + a.n_ln + 2 * a.n_pl) * a.win_lanes;
   const long long win_blocks =
       (win_items + kDecodeThreads - 1) / kDecodeThreads;
   const long long blocks = a.pixel_blocks + win_blocks;

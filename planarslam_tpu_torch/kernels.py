@@ -196,10 +196,11 @@ _SIGNATURES = {
     "psl_step_prelude": [_P] * 8 + [_I, _P, _P, _I, _P, _I] + [_P] * 6,
     # gray (or NULL), gray_stride, depth (or NULL), depth_hi (or NULL),
     # depth_stride, depth_kind, hw, batch, scale, gray_out, depth_out (or
-    # NULL), win, win_stride, off_pt, n_pt, off_ln, n_ln, off_pl, off_cn,
-    # n_pl, pt_valid, ln_valid, pl_valid, pl_cloud_n, stream
+    # NULL), win, win_stride, win_lanes (1 or batch), off_pt, n_pt, off_ln,
+    # n_ln, off_pl, off_cn, n_pl, pt_valid, ln_valid, pl_valid, pl_cloud_n,
+    # stream
     "psl_decode_step_inputs": [_P, _L, _P, _P, _L] + [_I] * 3 + [_F]
-                              + [_P] * 3 + [_L] + [_I] * 7 + [_P] * 5,
+                              + [_P] * 3 + [_L] + [_I] * 8 + [_P] * 5,
     # pt_uv, pt_depth, pt_valid, T_cw, K, batch, cx, cy, inv_fx, inv_fy,
     # pt3d_w, valid3d, stream
     "psl_lift_state": [_P] * 4 + [_I] * 2 + [_F] * 4 + [_P] * 3,

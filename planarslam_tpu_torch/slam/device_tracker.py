@@ -60,7 +60,7 @@ from planarslam_tpu_torch.ops import matching
 from planarslam_tpu_torch.ops.frontend import PointFeatures
 from planarslam_tpu_torch.ops.lines import (LineFeatures,
                                             search_lines_by_projection)
-from planarslam_tpu_torch.ops.consts import literal
+from planarslam_tpu_torch.ops.consts import const, literal
 from planarslam_tpu_torch.ops.planes import PlaneFeatures, dot3
 from planarslam_tpu_torch.slam.frame import FrameFeatures, extract_frame
 from planarslam_tpu_torch.solvers import pose_opt
@@ -212,6 +212,23 @@ def pack_frame(gray: np.ndarray, depth: np.ndarray):
     return out
 
 
+def pack_chunk_frames(grays: list, depths: list):
+    """Host-side packing of C uint8 gray + uint16 depth frames into one
+    (C, 3, H, W) uint8 upload (fused_track_chunk_packed's); None when any
+    frame is not in those native dtypes."""
+    if not all(g.dtype == np.uint8 for g in grays) \
+            or not all(d.dtype == np.uint16 for d in depths):
+        return None
+    C = len(grays)
+    H, W = grays[0].shape
+    out = np.empty((C, 3, H, W), np.uint8)
+    for i, (g, d) in enumerate(zip(grays, depths)):
+        out[i, 0] = g
+        out[i, 1] = (d & 0xFF).astype(np.uint8)
+        out[i, 2] = (d >> 8).astype(np.uint8)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # K37: the step's sensor decode and window casts
 
@@ -222,7 +239,11 @@ def decode_step_inputs_plain(frame_u8: torch.Tensor, win_flat: torch.Tensor,
                                         "DeviceWindow"]:
     """Plain version of K37: the packed (B, 3, H, W) uint8 frames unpacked
     and decoded (float32 grey and depth in metres, (B, H, W) each) and the
-    windows (B, S) unpacked with their casts."""
+    windows (W, S) unpacked with their casts, W = B (a window a lane) or 1
+    (one window the B frames share: a chunk's frozen window)."""
+    if win_flat.shape[0] not in (1, frame_u8.shape[0]):
+        raise ValueError(f"win_flat: {win_flat.shape[0]} windows for "
+                         f"{frame_u8.shape[0]} frames (1 or as many)")
     gray, depth = to_gray_depth(*unpack_frame(frame_u8), cfg)
     return gray, depth, unpack_window(win_flat, cfg)
 
@@ -237,25 +258,28 @@ def _decode(win_flat: torch.Tensor, cfg: SystemConfig,
             gray: Optional[torch.Tensor] = None,
             depth: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, "DeviceWindow"]:
-    """K37 wrapper: the windows win_flat (B, S) float32 and either the
+    """K37 wrapper: the windows win_flat (W, S) float32 and either the
     packed frames `frame` (B, 3, H, W) uint8 or the frames `gray`, `depth`
     (B, H, W), each uint8 / int32 or uint16 sensor values or float (which
-    pass through undecoded). One launch for all of it on the card; the
-    plain version on the CPU. Returns (gray, depth, DeviceWindow), the
-    window's float fields views of win_flat."""
+    pass through undecoded). W is B (a window a lane) or 1 (shared-window
+    mode: the B frames of a chunk against one window, whose casts are made
+    once). One launch for all of it on the card; the plain version on the
+    CPU. Returns (gray, depth, DeviceWindow), the window's fields with the
+    leading W, its float fields views of win_flat."""
     tensors = [t for t in (frame, gray, depth) if t is not None]
+    b = (frame if frame is not None else gray).shape[0]
+    if win_flat.dim() != 2 or win_flat.shape[0] not in (1, b):
+        raise ValueError(f"win_flat: expected (1, S) or ({b}, S), got "
+                         f"{tuple(win_flat.shape)}")
     if kernels.on_cpu(win_flat, *tensors):
         if frame is not None:
             return decode_step_inputs_plain(frame, win_flat, cfg)
         return (*to_gray_depth(gray, depth, cfg), unpack_window(win_flat, cfg))
     win_flat = win_flat.contiguous()
-    if win_flat.dim() != 2:
-        raise ValueError(f"win_flat: expected (B, S), got "
-                         f"{tuple(win_flat.shape)}")
-    b, S = win_flat.shape
+    wb, S = win_flat.shape
     layout = _window_fields(cfg.map.max_planes, cfg.lines.desc_dim)
-    kernels.check(win_flat, "win_flat", torch.float32, (b, layout[-1][2]
-                                                        + layout[-1][3]))
+    kernels.check(win_flat, "win_flat", torch.float32, (wb, layout[-1][2]
+                                                         + layout[-1][3]))
     dev = win_flat.device
     gray_src = depth_src = depth_hi = None
     g_stride = d_stride = 0
@@ -290,16 +314,16 @@ def _decode(win_flat: torch.Tensor, cfg: SystemConfig,
     off = {name: o for name, _, o, _ in layout}
     n_pt, n_ln, n_pl = (views[k].shape[-1] for k in
                         ("pt_valid", "ln_valid", "pl_valid"))
-    flags = {k: _empty((b, views[k].shape[-1]), torch.bool, dev)
+    flags = {k: _empty((wb, views[k].shape[-1]), torch.bool, dev)
              for k in ("pt_valid", "ln_valid", "pl_valid")}
-    cloud_n = _empty((b, n_pl), torch.int64, dev)
+    cloud_n = _empty((wb, n_pl), torch.int64, dev)
     with torch.cuda.device(dev):
         kernels.launch(
             "psl_decode_step_inputs", gray_src, g_stride, depth_src,
             depth_hi, d_stride, kind, hw, b, depth_scale(cfg),
             kernels.ptr(gray_out) if gray_src is not None else None,
             kernels.ptr(depth_out) if kind else None, kernels.ptr(win_flat),
-            S, off["pt_valid"], n_pt, off["ln_valid"], n_ln,
+            S, wb, off["pt_valid"], n_pt, off["ln_valid"], n_ln,
             off["pl_valid"], off["pl_cloud_n"], n_pl,
             *[kernels.ptr(flags[k]) for k in ("pt_valid", "ln_valid",
                                                "pl_valid")],
@@ -314,10 +338,10 @@ def decode_step_inputs(frame_u8, win_flat, cfg: SystemConfig,
                        device="cuda"
                        ) -> Tuple[torch.Tensor, torch.Tensor, "DeviceWindow"]:
     """The tracking step's inputs from the packed (B, 3, H, W) uint8 sensor
-    frames (gray, depth_lo, depth_hi) and the packed (B, S) float32 local-
-    map windows (tensors or numpy arrays, moved to `device`): float32 grey
-    and depth in metres (B, H, W) and the DeviceWindow. K37 on the card,
-    decode_step_inputs_plain on the CPU."""
+    frames (gray, depth_lo, depth_hi) and the packed (B, S) or (1, S)
+    float32 local-map windows (tensors or numpy arrays, moved to `device`):
+    float32 grey and depth in metres (B, H, W) and the DeviceWindow. K37 on
+    the card, decode_step_inputs_plain on the CPU."""
     dev = resolve_device(device)
     return _decode(torch.as_tensor(win_flat).to(dev), cfg,
                    frame=torch.as_tensor(frame_u8).to(dev))
@@ -414,6 +438,18 @@ def _state_from(feats: FrameFeatures, T_cw, velocity,
         pt3d_w, has = pt3d_w[0], has[0]
     return LastState(feats=feats, pt3d_w=pt3d_w, valid3d=has, T_cw=T_cw,
                      velocity=velocity)
+
+
+def make_last_state(gray: torch.Tensor, depth: torch.Tensor,
+                    T_cw: torch.Tensor, velocity: torch.Tensor,
+                    cfg: SystemConfig) -> LastState:
+    """The carried state of a first frame: gray, depth (H, W) (uint8 /
+    uint16-as-int32 sensor values or float) decoded, extracted and lifted
+    at T_cw (4, 4) with `velocity` (K38's lift on the card). The tracker
+    builds the same state from features it already extracted
+    (Tracking._rebuild_fused_state)."""
+    gray, depth = to_gray_depth(gray, depth, cfg)
+    return _state_from(extract_frame(gray, depth, cfg), T_cw, velocity, cfg)
 
 
 def _empty(shape, dtype, dev) -> torch.Tensor:
@@ -554,6 +590,224 @@ def fused_track_step_packed(frame_u8: torch.Tensor, T_override, use_override,
     feats = extract_frame(gray, depth, cfg)
     return _track_core(feats, T_override, use_override, R_wm, manh_enabled,
                        last, win, weights, cfg)
+
+
+class ChunkResult(NamedTuple):
+    packed: torch.Tensor      # (C, total) per-frame packed bundles
+    states: LastState         # per-frame states with a leading C
+    final_state: LastState    # the last frame's state, a B = 1 stack
+
+
+def _lane_feats(feats: FrameFeatures, i: int) -> FrameFeatures:
+    """Lane i of stacked features as a B = 1 stack (views)."""
+    return _unflatten([x[i:i + 1] for x in _flatten(feats)])
+
+
+def _chunk_core(gray: torch.Tensor, depth: torch.Tensor, R_wm, manh_enabled,
+                last: LastState, win: DeviceWindow,
+                weights: pose_opt.PoseOptWeights,
+                cfg: SystemConfig) -> ChunkResult:
+    """The chunk after K37: the C decoded frames (C, H, W) extracted at
+    B = C in one launch of each front-end kernel, then C chained B = 1
+    _track_core steps against the one window, each from the previous
+    step's state with no pose override."""
+    feats = extract_frame(gray, depth, cfg)
+    dev = gray.device
+    eye4 = const("device_tracker.eye4", np.eye(4, dtype=np.float32)[None],
+                 dev)
+    no = const("device_tracker.false1", np.zeros(1, bool), dev)
+    state, packed, states = last, [], []
+    for i in range(gray.shape[0]):
+        res = _track_core(_lane_feats(feats, i), eye4, no, R_wm,
+                          manh_enabled, state, win, weights, cfg)
+        state = res.new_state
+        packed.append(res.packed)
+        states.append(state)
+    stacked = LastState(feats=feats, pt3d_w=torch.cat([s.pt3d_w for s in states]),
+                        valid3d=torch.cat([s.valid3d for s in states]),
+                        T_cw=torch.cat([s.T_cw for s in states]),
+                        velocity=torch.cat([s.velocity for s in states]))
+    return ChunkResult(torch.cat(packed), stacked, state)
+
+
+def fused_track_chunk(grays: torch.Tensor, depths: torch.Tensor,
+                      R_wm: torch.Tensor, manh_enabled: torch.Tensor,
+                      last: LastState, win_flat: torch.Tensor,
+                      weights: pose_opt.PoseOptWeights,
+                      cfg: SystemConfig) -> ChunkResult:
+    """C sequential tracking frames against one frozen local-map window
+    (the JAX package's fused_track_chunk, a scan of the step over C
+    frames): grays, depths (C, H, W) (uint8 / uint16-as-int32 sensor
+    values or float), R_wm (1, 3, 3), manh_enabled (1,), the carried state
+    `last` and the window win_flat (1, S) of one lane (B = 1 stacks). Pose
+    overrides are applied to `last` before the call, so every in-chunk
+    step runs with the identity override switched off, as JAX's does.
+
+    One K37 launch decodes the C frames and casts the window once
+    (shared-window mode); extract_frame runs once at B = C, so each
+    front-end kernel launches once for the chunk; then C chained B = 1
+    _track_core calls on lane views of the features, each from the
+    previous step's state. The JAX package extracts the frames serially
+    inside its scan because vmapped extraction lowered badly on the TPU
+    (its docstring); on the card a lane of a batched launch is bit-equal
+    to the same frame at B = 1 (chip_smoke.py::batched_step_lane_equality),
+    so the batched extraction keeps the chained steps' bits. `states`
+    holds the per-frame states with a leading C, their features the
+    batched extraction's."""
+    gray, depth, win = _decode(win_flat, cfg, gray=grays, depth=depths)
+    return _chunk_core(gray, depth, R_wm, manh_enabled, last, win, weights,
+                       cfg)
+
+
+def fused_track_chunk_packed(frames_u8: torch.Tensor, R_wm, manh_enabled,
+                             last: LastState, win_flat, weights,
+                             cfg: SystemConfig) -> ChunkResult:
+    """fused_track_chunk over one packed (C, 3, H, W) uint8 upload ([gray,
+    depth_lo, depth_hi] per frame)."""
+    gray, depth, win = _decode(win_flat, cfg, frame=frames_u8)
+    return _chunk_core(gray, depth, R_wm, manh_enabled, last, win, weights,
+                       cfg)
+
+
+class CapturedChunk:
+    """fused_track_chunk_packed for one (C, cfg, card) captured as CUDA
+    graphs, replayed once per chunk: a chunk is one pinned upload of its
+    packed frames and one graph replay, with no wrapper called from
+    Python.
+
+    The graphs read static inputs that the caller writes on the same
+    stream before a replay: the frames (C, 3, H, W) uint8 (`replay`
+    uploads them), the window `win` (1, S), `R_wm` (1, 3, 3), `manh`
+    (1,) and the carried state `carry` (a B = 1 stack). Each graph ends by
+    copying its last frame's state into `carry`, so consecutive replays
+    chain with no copy from the host; `set_state` writes a state built
+    elsewhere (the first frame's, a rebuild after a loss, a pose
+    override).
+
+    There are `slots` graphs, one per slot of a ring, each with a memory
+    pool of its own: slot k's outputs (the (C, total) bundles and the
+    per-frame states) stay as they were until slot k is replayed again,
+    `slots` chunks later, so a chunk's bundles and keyframe features can
+    be read while the next chunks run. (Graphs that shared a pool would
+    hand a later capture's outputs memory that an earlier graph uses for
+    its intermediates, which that graph's next replay overwrites.) Each
+    slot has its own pinned host buffer for the frames, which `replay`
+    reuses only after that slot's last upload has finished.
+
+    Capture needs every one-time resource to exist first: K13's flag words
+    are per (device, stream) and are made at a stream's first K13 call,
+    which may not lie inside a capture (ops/planes.py), and the shared-
+    memory opt-ins, the constant tensors (ops/consts.py) and Triton's
+    compiled K4 are made at their first use. So the graphs are captured on
+    a side stream after one eager warm-up chunk on it. The wrappers count
+    their launches in Python (kernels.LAUNCHES), which a replay does not
+    run: the counts a capture records are taken back, kept as
+    `per_replay`, and added on every replay."""
+
+    def __init__(self, C: int, cfg: SystemConfig,
+                 weights: pose_opt.PoseOptWeights, device="cuda",
+                 slots: int = 1):
+        self.cfg, self.weights = cfg, weights
+        self.device = resolve_device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"CapturedChunk captures CUDA graphs: device "
+                             f"{self.device} is not a card")
+        H, W = cfg.camera.height, cfg.camera.width
+        layout = _window_fields(cfg.map.max_planes, cfg.lines.desc_dim)
+        S = layout[-1][2] + layout[-1][3]
+        dev = self.device
+        self.frames = torch.zeros((C, 3, H, W), dtype=torch.uint8, device=dev)
+        self.win = torch.zeros((1, S), dtype=torch.float32, device=dev)
+        self.R_wm = torch.zeros((1, 3, 3), dtype=torch.float32, device=dev)
+        self.manh = torch.zeros((1,), dtype=torch.bool, device=dev)
+        self.carry: Optional[LastState] = None
+        self.slots = slots
+        self.pinned = [torch.empty((C, 3, H, W), dtype=torch.uint8,
+                                   pin_memory=True) for _ in range(slots)]
+        self.uploaded = [None] * slots   # each slot's last upload (event)
+        self.graphs: list = []
+        self.outs: list = []
+        self.stream = None
+        self.per_replay: dict = {}
+        self.replays = 0
+        self.next_slot = 0
+
+    def set_state(self, state: LastState) -> None:
+        """Write a B = 1 carried state into `carry` (allocated at the first
+        call with the state's shapes)."""
+        if self.carry is None:
+            self.carry = state_of_leaves([torch.empty_like(t)
+                                          for t in state_leaves(state)])
+        for d, src in zip(state_leaves(self.carry), state_leaves(state)):
+            d.copy_(src)
+
+    def set_inputs(self, win: torch.Tensor, R_wm: torch.Tensor,
+                   manh: torch.Tensor) -> None:
+        """Copy the window (1, S), R_wm (1, 3, 3) and manh_enabled (1,)
+        into the static inputs (before every replay)."""
+        self.win.copy_(win)
+        self.R_wm.copy_(R_wm)
+        self.manh.copy_(manh)
+
+    def _step(self) -> ChunkResult:
+        return fused_track_chunk_packed(self.frames, self.R_wm, self.manh,
+                                        self.carry, self.win, self.weights,
+                                        self.cfg)
+
+    def _body(self) -> ChunkResult:
+        res = self._step()
+        for d, src in zip(state_leaves(self.carry),
+                          state_leaves(res.final_state)):
+            d.copy_(src)
+        return ChunkResult(res.packed, res.states, self.carry)
+
+    def _capture(self) -> None:
+        cur = torch.cuda.current_stream(self.device)
+        s = torch.cuda.Stream(self.device)
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            self._step()   # the warm-up: an eager chunk, carry untouched
+        cur.wait_stream(s)
+        for _ in range(self.slots):
+            g = torch.cuda.CUDAGraph()
+            before = dict(kernels.LAUNCHES)
+            with torch.cuda.graph(g, stream=s):
+                out = self._body()
+            counts = {k: kernels.LAUNCHES[k] - n for k, n in before.items()
+                      if kernels.LAUNCHES[k] != n}
+            kernels.LAUNCHES.update(before)
+            if self.graphs and counts != self.per_replay:
+                raise RuntimeError(f"CapturedChunk: a slot's capture counted "
+                                   f"{counts}, another {self.per_replay}")
+            self.per_replay = counts
+            self.graphs.append(g)
+            self.outs.append(out)
+        self.stream = s
+
+    def replay(self, frames_u8: np.ndarray) -> ChunkResult:
+        """Upload the packed (C, 3, H, W) uint8 frames (one pinned copy)
+        and replay the next slot's graph on the current stream; the
+        graphs are captured at the first call. Returns that slot's
+        outputs, its final_state `carry`."""
+        if self.carry is None:
+            raise RuntimeError("CapturedChunk: set_state before a replay")
+        k = self.next_slot
+        self.next_slot = (k + 1) % self.slots
+        if self.uploaded[k] is not None:
+            self.uploaded[k].synchronize()
+        host = self.pinned[k]
+        host.numpy()[...] = frames_u8
+        self.frames.copy_(host, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self.uploaded[k] = ev
+        if not self.graphs:
+            self._capture()
+        self.graphs[k].replay()
+        for name, n in self.per_replay.items():
+            kernels.LAUNCHES[name] += n
+        self.replays += 1
+        return self.outs[k]
 
 
 def _in_view(T, pts, K, cam) -> torch.Tensor:
@@ -1070,13 +1324,26 @@ class FeatsHostLayout:
         return feats._replace(planes=feats.planes._replace(pixel_label=lbl))
 
 
+def _shrink_feats(feats: FrameFeatures) -> FrameFeatures:
+    """The features with the dense plane label downsampled by _label_ds
+    (the keyframe pull's form)."""
+    pl = feats.planes
+    ds = _label_ds(pl.pixel_label.shape[0])
+    return feats._replace(planes=pl._replace(
+        pixel_label=pl.pixel_label[::ds, ::ds]))
+
+
+def _pack_leaf_f32(a: torch.Tensor) -> torch.Tensor:
+    """One leaf flattened to float32: int32 bits kept, bools and floats
+    converted by value."""
+    return _f32_bits(a)
+
+
 def pack_feats(feats: FrameFeatures) -> torch.Tensor:
     """Flatten a FrameFeatures to one (total,) float32 device tensor
     (FeatsHostLayout order, plane label downsampled)."""
-    ds = _label_ds(feats.planes.pixel_label.shape[0])
-    feats = feats._replace(planes=feats.planes._replace(
-        pixel_label=feats.planes.pixel_label[::ds, ::ds]))
-    return torch.cat([_f32_bits(a) for a in _flatten(feats)])
+    return torch.cat([_pack_leaf_f32(a)
+                      for a in _flatten(_shrink_feats(feats))])
 
 
 def pack_feats_slice(feats_stack: FrameFeatures, lane: int) -> torch.Tensor:

@@ -19,8 +19,15 @@ After a loss the modular path takes over (``_track_frame``): with more
 than 5 keyframes it relocalizes against retrieval candidates (descriptor
 seeds, Horn RANSAC with depth or PnP RANSAC without, guided rematches,
 local-map tracking) and rebuilds the device state; with a younger map it
-flags a reset, as the JAX tracker does. The chunked throughput mode is not
-ported.
+flags a reset, as the JAX tracker does.
+
+Chunked throughput mode (``tracking.chunk_size`` C > 1) buffers C frames
+and tracks them as one chunk against the frozen local-map window
+(``device_tracker.fused_track_chunk_packed``), keeping
+``chunk_pipeline_depth`` chunks in flight before the oldest is applied
+frame by frame. On the card a chunk is one pinned upload and one replay of
+a captured CUDA graph (``device_tracker.CapturedChunk``); on the CPU it
+runs eagerly on the plain versions.
 """
 
 from __future__ import annotations
@@ -162,10 +169,13 @@ class Tracking:
         self.stats = {"manhattan_success": 0, "translation_only": 0,
                       "full_pose": 0, "frames": 0, "kfs": 0, "lost": 0}
         self._last_depth = np.zeros((1, 1), np.float32)
-        if cfg.tracking.chunk_size > 1:
-            raise NotImplementedError(
-                "chunked tracking (tracking.chunk_size > 1) is not ported "
-                "yet (ROADMAP.md, queue A: chunked mode)")
+        # chunked throughput mode (cfg.tracking.chunk_size > 1): the frames
+        # buffered for the next chunk, the chunks in flight, and on the
+        # card the captured chunk (made at the first chunk)
+        self._chunk_buf: list = []
+        self._pending_chunks: list = []
+        self.chunk_pipeline_depth = cfg.tracking.chunk_pipeline_depth
+        self._chunk_graph: Optional[dt.CapturedChunk] = None
 
     # ------------------------------------------------------- main entry point
     def track(self, gray: np.ndarray, depth: np.ndarray,
@@ -234,7 +244,27 @@ class Tracking:
 
     def flush_pending(self) -> None:
         """Drain in-flight frames (end of sequence) and materialize a
-        pending keyframe."""
+        pending keyframe. A partial chunk is padded to C by repeating its
+        last frame and dispatched; only its real frames are applied, and
+        the padded steps leave a carried state that is dropped."""
+        if self._chunk_buf:
+            C = self.cfg.tracking.chunk_size
+            buf = self._chunk_buf
+            self._chunk_buf = []
+            n_real = len(buf)
+            buf = buf + [buf[-1]] * (C - n_real)
+            self._dispatch_chunk(buf, n_real, override=False)
+            self._fused_state = None
+        while self._pending_chunks:
+            entry = self._pending_chunks.pop(0)
+            if not self._process_chunk(entry):
+                self.state = TrackingState.LOST
+                self._fused_state = None
+                for e2 in self._pending_chunks:
+                    for ts, _, _ in e2["frames"]:
+                        self._append_record(ts, lost=True)
+                self._pending_chunks.clear()
+                break
         while self._pending:
             prev = self._pending.pop(0)
             if not self._process_bundle(prev):
@@ -283,6 +313,8 @@ class Tracking:
             self.cfg))
         self._window_dirty = True
         self._pending = []
+        self._chunk_buf = []
+        self._pending_chunks = []
         self._pose_override = None
         self._bundle_correction = None
 
@@ -330,16 +362,7 @@ class Tracking:
         frame, and the tuple fits fused_track_step_packed."""
         if self._window_dirty or self._window is None:
             self._refresh_window()
-        if self._dev_consts is None:
-            # R_wm is fixed at initialization
-            manh = self.R_wm is not None
-            R = self.R_wm if manh else np.eye(3, dtype=np.float32)
-            self._dev_consts = (
-                self._dev(np.eye(4, dtype=np.float32)[None]),
-                torch.tensor([False], device=self.device),
-                self._dev(R.astype(np.float32)[None]),
-                torch.tensor([manh], device=self.device))
-        head = self._dev_consts[:2]
+        head = self._step_consts()[:2]
         if self._pose_override is not None:
             # the first step after a map correction starts from the
             # re-based pose with zero velocity
@@ -352,6 +375,19 @@ class Tracking:
             return (_upload(gray[None], self.device),) + tail
         return (_upload(gray[None], self.device),
                 _upload(depth[None], self.device)) + tail
+
+    def _step_consts(self) -> tuple:
+        """(eye4 (1, 4, 4), False (1,), R_wm (1, 3, 3), manh_enabled (1,))
+        on the device, made once: R_wm is fixed at initialization."""
+        if self._dev_consts is None:
+            manh = self.R_wm is not None
+            R = self.R_wm if manh else np.eye(3, dtype=np.float32)
+            self._dev_consts = (
+                self._dev(np.eye(4, dtype=np.float32)[None]),
+                torch.tensor([False], device=self.device),
+                self._dev(R.astype(np.float32)[None]),
+                torch.tensor([manh], device=self.device))
+        return self._dev_consts
 
     def submit_fused_result(self, result: dt.StepResult, timestamp: float,
                             state_stack: Optional[dt.LastState] = None,
@@ -387,6 +423,8 @@ class Tracking:
         return True
 
     def _track_frame_fused(self, gray, depth, timestamp: float) -> bool:
+        if self.cfg.tracking.chunk_size > 1:
+            return self._track_frame_chunked(gray, depth, timestamp)
         packed = dt.pack_frame(np.asarray(gray), np.asarray(depth))
         if packed is not None:
             # native sensor dtypes: one upload per frame
@@ -398,6 +436,97 @@ class Tracking:
                                         np.asarray(depth, np.float32)),
                 self.cfg)
         return self.submit_fused_result(result, timestamp)
+
+    # ------------------------------------------------- chunked throughput
+    def _track_frame_chunked(self, gray, depth, timestamp: float) -> bool:
+        """Buffer C frames, then track them as one chunk; keep
+        chunk_pipeline_depth chunks in flight and apply the oldest."""
+        C = self.cfg.tracking.chunk_size
+        self._chunk_buf.append((np.asarray(gray), np.asarray(depth),
+                                timestamp, self.frame_id, self._last_depth))
+        if len(self._chunk_buf) < C:
+            return True
+        buf = self._chunk_buf
+        self._chunk_buf = []
+        self._dispatch_chunk(buf, C)
+        while len(self._pending_chunks) > self.chunk_pipeline_depth:
+            if not self._process_chunk(self._pending_chunks.pop(0)):
+                for entry in self._pending_chunks:
+                    for ts, _, _ in entry["frames"]:
+                        self._append_record(ts, lost=True)
+                self._pending_chunks.clear()
+                self._chunk_buf = []
+                self._fused_state = None
+                return False
+        return True
+
+    def _captured_chunk(self) -> dt.CapturedChunk:
+        if self._chunk_graph is None:
+            self._chunk_graph = dt.CapturedChunk(
+                self.cfg.tracking.chunk_size, self.cfg, self._pose_weights,
+                self.device, slots=self.chunk_pipeline_depth + 1)
+        return self._chunk_graph
+
+    @record_function("tracking.dispatch_chunk")
+    def _dispatch_chunk(self, buf: list, n_real: int,
+                        override: bool = True) -> None:
+        """Track the C buffered frames as one chunk and queue it with the
+        first n_real frames' records. A pending pose override (a loop
+        correction) re-bases the carried state first: T_cw becomes the
+        override and the velocity the identity, so the in-chunk steps need
+        none. Native uint8 / uint16 frames travel as one packed upload: on
+        the card into the captured chunk's replay, on the CPU into the
+        eager fused_track_chunk_packed; other dtypes take the eager
+        fused_track_chunk."""
+        if self._window_dirty or self._window is None:
+            self._refresh_window()
+        if override and self._pose_override is not None:
+            self._fused_state = self._fused_state._replace(
+                T_cw=self._dev(self._pose_override.astype(np.float32)[None]),
+                velocity=self._dev(np.eye(4, dtype=np.float32)[None]))
+            self._pose_override = None
+        R_wm, manh = self._step_consts()[2:]
+        packed = dt.pack_chunk_frames([b[0] for b in buf],
+                                      [b[1] for b in buf])
+        if packed is not None and self.device.type == "cuda":
+            graph = self._captured_chunk()
+            if self._fused_state is not graph.carry:
+                graph.set_state(self._fused_state)
+            graph.set_inputs(self._window, R_wm, manh)
+            res = graph.replay(packed)
+        elif packed is not None:
+            res = dt.fused_track_chunk_packed(
+                _upload(packed, self.device), R_wm, manh, self._fused_state,
+                self._window, self._pose_weights, self.cfg)
+        else:
+            res = dt.fused_track_chunk(
+                _upload(np.stack([b[0] for b in buf]).astype(np.float32),
+                        self.device),
+                _upload(np.stack([b[1] for b in buf]).astype(np.float32),
+                        self.device),
+                R_wm, manh, self._fused_state, self._window,
+                self._pose_weights, self.cfg)
+        self._pending_chunks.append({
+            "pull": _HostPull(res.packed), "states": res.states,
+            "frames": [(b[2], b[3], b[4]) for b in buf[:n_real]]})
+        self._fused_state = res.final_state
+
+    def _process_chunk(self, entry: dict) -> bool:
+        """Apply a chunk's frames in order (one pull of its (C, total)
+        bundles); a keyframe decided during the previous chunk
+        materializes first, at this chunk boundary."""
+        self._apply_pending_kf(block=True)
+        packed_all = entry["pull"].result()
+        for i, (ts, fid, raw_depth) in enumerate(entry["frames"]):
+            prev = {"pull": _Pulled(packed_all[i]), "timestamp": ts,
+                    "frame_id": fid, "depth": raw_depth,
+                    "state_stack": entry["states"], "lane": i}
+            if not self._process_bundle(prev):
+                self.stats["lost"] += 1
+                for ts2, _, _ in entry["frames"][i + 1:]:
+                    self._append_record(ts2, lost=True)
+                return False
+        return True
 
     def _process_bundle(self, prev: dict) -> bool:
         """Apply the (lagged) step results to the host map and state."""
@@ -661,6 +790,8 @@ class Tracking:
             feats, self._dev(self.T_cw), self._dev(self.velocity), self.cfg))
         self._window_dirty = True
         self._pending = []
+        self._chunk_buf = []
+        self._pending_chunks = []
         self._pose_override = None
         self._bundle_correction = None
 

@@ -402,3 +402,64 @@ def test_normalize_pts_matches_jax():
     want, Tj = jinit._normalize_pts(jnp.asarray(p["uv1"]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
     np.testing.assert_allclose(T.numpy(), np.asarray(Tj), rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def room_pair():
+    """chip_smoke.ROOM_PAIR's matches at 640x480 (frames 0 and 8 of the
+    synthetic room, quantized), from the port's front end on the CPU (its
+    plain versions) and match_descriptors, as path 7 forms them on the
+    card."""
+    from planarslam_tpu_torch.config import SystemConfig
+    from planarslam_tpu_torch.io import synthetic
+
+    cfg = SystemConfig()
+    # chip_smoke's sequence: its trajectory spans all of its frames
+    seq = synthetic.make_sequence(
+        max(chip_smoke.TRACKING_FRAMES, chip_smoke.CONSTRUCTED_SEQUENCE),
+        width=cfg.camera.width, height=cfg.camera.height)
+    return chip_smoke.room_two_view(seq, cfg, torch.device("cpu"))
+
+
+def test_room_pair_matches_jax(room_pair):
+    """Path 7's room pair (ROADMAP C.7(a); 294 matches) through both
+    packages' initialize_two_view on the CPU, with
+    test_initialize_two_view_matches_jax's limits: success and the model
+    equal (H), the inlier count within 2%, and T_21 within 1e-3 where the
+    winner is decided. The pose comes from F's essential matrix whatever
+    the model (a fault of the reference, ROADMAP), so T_21 is held only
+    where F's winner is decided as well as H's. It is not on this pair:
+    JAX's best F is pick 56, which repeats a point (the picks are drawn
+    with replacement, another fault of the reference), the port's the
+    distinct pick 99. Both packages' translation direction is far from
+    the true one (JAX 87.2 degrees, the port 88.3): path 7's 87-degree t
+    is the reference's doing, not the port's."""
+    p = room_pair
+    n = len(p["uv1"])
+    assert n > 200
+    got = tinit.initialize_two_view(p["uv1"], p["uv2"], p["valid"], p["K"],
+                                    device="cpu")
+    want = jinit.initialize_two_view(p["uv1"], p["uv2"], p["valid"], p["K"])
+    assert got.success and want.success
+    assert got.used_homography and want.used_homography
+    assert abs(int(got.inliers.sum()) - int(want.inliers.sum())) <= 0.02 * n
+    ins = _torch_ins(p)
+    picks = ins[4].numpy()
+    sf, sh, _, _ = tinit.two_view_hypotheses_plain(*ins)
+    j = _jax_hypotheses(p, picks)
+
+    def decided(tag, width):
+        s_t = (sh if tag == "H" else sf).numpy()
+        s_j = j["s" + tag.lower()]
+        distinct = np.array([len(set(r[:width])) == width for r in picks])
+        tol = float(np.abs(s_t - s_j)[distinct].max())
+        bt, mt = _winner_margin(s_t, distinct)
+        bj, mj = _winner_margin(s_j, distinct)
+        return (distinct[bt] and distinct[bj] and min(mt, mj) > tol
+                and bt == bj)
+
+    assert decided("H", 4)
+    if decided("F", 8):
+        np.testing.assert_allclose(got.T_21, want.T_21, atol=1e-3)
+    for res in (got, want):
+        assert chip_smoke._pose_errors(res, p)["t_err_deg"] > 45.0

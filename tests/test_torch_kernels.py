@@ -1722,6 +1722,95 @@ def test_decode_step_inputs(dev, shape, batch):
         _same_bits([x[b:b + 1] for x in got], one)
 
 
+@pytest.mark.parametrize("shape", [(480, 640), (481, 643)])
+def test_decode_step_inputs_shared_window(dev, shape):
+    """K37's shared-window mode: C = 8 frames against one (1, S) window in
+    one launch, bit-equal to decode_step_inputs_plain and to K37 on the
+    window repeated C times (every lane's window fields equal the shared
+    row), two launches equal bits."""
+    cfg = SystemConfig()
+    rng = np.random.default_rng(47)
+    h, w = shape
+    f = torch.from_numpy(np.stack([device_tracker.pack_frame(
+        rng.integers(0, 256, (h, w), dtype=np.uint8),
+        rng.integers(0, 65536, (h, w), dtype=np.uint16))
+        for _ in range(8)])).to(dev)
+    win = torch.from_numpy(chip_smoke.planted_window(cfg, 48)[None]).to(dev)
+    got, n = _launched("decode_step_inputs", device_tracker._decode, win,
+                       cfg, frame=f)
+    assert n == 1
+    got = _decoded(got)
+    assert all(x.shape[0] == 1 for x in got[2:])
+    _same_bits(got, _decoded(device_tracker.decode_step_inputs_plain(
+        f, win, cfg)))
+    _same_bits(got, _decoded(device_tracker._decode(win, cfg, frame=f)))
+    rep = _decoded(device_tracker._decode(win.expand(8, -1).contiguous(),
+                                          cfg, frame=f))
+    _same_bits(got[:2], rep[:2])
+    for x, y in zip(got[2:], rep[2:]):
+        for b in range(8):
+            _same_bits([x[0]], [y[b]])
+
+
+def test_captured_chunk_replay_equals_eager(dev):
+    """A CapturedChunk (C = 4, two slots) at the tiny config: a System's
+    carried state and window after 5 streamed frames, then three replays
+    on the next frames (the ring twice round the first slot) bit-equal to
+    the eager fused_track_chunk_packed chained from the same state
+    (bundles, per-frame and final state leaves); a replay adds the
+    launches its capture recorded (the first also its warm-up chunk's),
+    and each slot's bundles and per-frame states keep their bits under the
+    other slot's replays."""
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.slam.system import System
+
+    cfg = SystemConfig.tiny()
+    seq = synthetic.make_sequence(17, width=160, height=120)
+    frames = [quantize_frame(*seq.render(i), cfg.camera.depth_map_factor)
+              for i in range(17)]
+    slam = System(config=cfg, enable_local_mapping=False,
+                  enable_loop_closing=False, device=dev)
+    for i in range(5):
+        slam.track_rgbd(*frames[i], seq.timestamps[i])
+    slam.shutdown()
+    tr = slam.tracker
+    tr._refresh_window()
+    _, _, R_wm, manh = tr._step_consts()
+    state, win, weights = tr._fused_state, tr._window, tr._pose_weights
+    packs = [np.stack([device_tracker.pack_frame(*frames[i])
+                       for i in range(k, k + 4)]) for k in (5, 9, 13)]
+    eager = []
+    st = state
+    for p in packs:
+        eager.append(device_tracker.fused_track_chunk_packed(
+            torch.from_numpy(p).to(dev), R_wm, manh, st, win, weights, cfg))
+        st = eager[-1].final_state
+    graph = device_tracker.CapturedChunk(4, cfg, weights, dev, slots=2)
+    graph.set_state(state)
+    graph.set_inputs(win, R_wm, manh)
+    # a slot holds its bundles and per-frame states; its final_state is
+    # the graphs' shared carry, which every replay rewrites
+    n_slot = 1 + len(device_tracker.state_leaves(eager[0].states))
+    kept = {}
+    for k, p in enumerate(packs):
+        slot = graph.next_slot
+        n0 = dict(kernels.LAUNCHES)
+        out = graph.replay(p)
+        torch.cuda.synchronize()
+        # the first replay captures the ring after an eager warm-up chunk
+        assert {name: kernels.LAUNCHES[name] - n for name, n in n0.items()
+                if kernels.LAUNCHES[name] != n} == {
+            name: (2 if k == 0 else 1) * n
+            for name, n in graph.per_replay.items()}
+        leaves = chip_smoke._chunk_leaves
+        _same_bits(leaves(out), leaves(eager[k]))
+        kept[slot] = [x.clone() for x in leaves(out)[:n_slot]]
+        for other, held in kept.items():
+            _same_bits(leaves(graph.outs[other])[:n_slot], held)
+    assert graph.per_replay["decode_step_inputs"] == 1
+    assert graph.per_replay["finish_step"] == 4
+
+
 def test_decode_step_inputs_all_depths(dev):
     """K37's depth on a frame holding every uint16 value: raw times
     float32(1) / float32(5000) in one rounding, bit for bit, and the same

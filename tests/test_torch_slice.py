@@ -197,6 +197,8 @@ def _entry_points():
             np.zeros((1, tdt._window_fields(cfg.map.max_planes,
                                             cfg.lines.desc_dim)[-1][2]),
                      np.float32), cfg, **kw),
+        "CapturedChunk": lambda **kw: tdt.CapturedChunk(
+            4, cfg, tpo.PoseOptWeights.from_config(cfg.planes), **kw),
         "run_mapping_step": lambda **kw:
             tdm.run_mapping_step(m(), 0, cfg, **kw),
         "dispatch_mapping_step": lambda **kw:
