@@ -2999,6 +2999,188 @@ def select_planted_parity(dev) -> dict:
     return summary
 
 
+# K27's planted cases: several window rows on one target, temporal
+# clashes, a target taken by the window and a temporal source (the window
+# wins), targets of -7, n, n + 1 and far above n (window rows clamped to
+# n - 1, over a row on n - 1 itself; temporal sources dropped, the one on
+# n - 1 itself kept), no match at all, W = 1 / N = 1,
+# W = 256 onto 64 (the line search's shape), N = MAX_TARGETS (6143) and
+# W = 5000, M = 2000, N = 1500 (items and targets beyond a thread's
+# registers)
+ASSEMBLE_PLANTED = ("stacked", "clamp", "drop", "no_match", "one_row",
+                    "lines_window", "max_targets", "beyond_registers")
+BIG_TARGET = np.iinfo(np.int32).max
+ASSEMBLE_SHAPES = {"stacked": (4096, 1024, 1024), "clamp": (4096, 1024, 1024),
+                   "drop": (4096, 1024, 1024),
+                   "no_match": (256, 64, 64), "one_row": (1, 1, 1),
+                   "lines_window": (256, 64, 64),
+                   "max_targets": (4096, 6143, 1024),
+                   "beyond_registers": (5000, 1500, 2000)}
+ASSEMBLE_LEVELS = 8
+# the point problem's arrays (assemble_point_obs' order, the table apart)
+# and the line problem's (assemble_line_obs')
+ASSEMBLE_POINT_KEYS = ("win_idx", "ff_idx", "last_xw", "win_xyz",
+                       "feat_valid", "feat_ur", "feat_level")
+ASSEMBLE_LINE_KEYS = ("win_idx", "ln_sw", "ln_ew", "line_valid")
+
+
+def planted_assemble_problem(case: str, seed: int = 27) -> dict:
+    """A K27 problem of ASSEMBLE_PLANTED as numpy arrays (W window rows, M
+    temporal sources, N targets): the window search's win_idx (W,), the
+    frame-to-frame ff_idx (M,) with their landmarks last_xw (M, 3), the
+    window points win_xyz (W, 3), the features' valid, u_right and level
+    (N,), and for line mode the same win_idx over window lines ln_sw,
+    ln_ew (W, 3) onto N frame lines with line_valid (N,)."""
+    rng = np.random.default_rng(seed)
+    w, n, m = ASSEMBLE_SHAPES[case]
+    f = np.float32
+
+    def matches(rows, frac):
+        idx = np.full(rows, -1, np.int64)
+        on = rng.random(rows) < frac
+        idx[on] = rng.integers(0, n, int(on.sum()))
+        return idx
+
+    win_idx, ff_idx = matches(w, 0.3), matches(m, 0.5)
+    # the planted targets take no random row
+    for t in (3, 7, 11, 12, 20, 21, n - 1):
+        win_idx[win_idx == t] = -1
+        ff_idx[ff_idx == t] = -1
+    if case == "stacked":
+        win_idx[:6] = 3                      # six rows on target 3
+        win_idx[[100, 2047, 4095]] = 7       # rows in three registers
+        ff_idx[[0, 1, 2]] = 11               # a temporal clash
+        ff_idx[[3, 700]] = 12
+        win_idx[50], ff_idx[5] = 20, 20      # window and temporal: window
+        ff_idx[6] = 21                       # temporal only
+    elif case == "clamp":
+        # n - 1 itself, then three rows clamped onto it: the last wins
+        win_idx[[10, 11, 12, 13, 14]] = [n - 1, n, n + 1, BIG_TARGET, -7]
+    elif case == "drop":
+        # n - 1 itself first: a clamp would hand the target to source 14
+        ff_idx[[10, 11, 12, 13, 14, 15]] = [n - 1, -7, n, n + 1, BIG_TARGET,
+                                            -1]
+    elif case == "no_match":
+        win_idx[:], ff_idx[:] = -1, -1
+    elif case == "one_row":
+        win_idx[0] = 0 if seed % 2 == 0 else -1
+        ff_idx[0] = 0
+    return dict(
+        win_idx=win_idx.astype(np.int32), ff_idx=ff_idx.astype(np.int32),
+        last_xw=rng.normal(0, 2, (m, 3)).astype(f),
+        win_xyz=rng.normal(0, 2, (w, 3)).astype(f),
+        feat_valid=rng.random(n) < 0.9,
+        feat_ur=np.where(rng.random(n) < 0.7, rng.uniform(0, 600, n),
+                         -1.0).astype(f),
+        feat_level=rng.integers(0, ASSEMBLE_LEVELS, n).astype(np.int32),
+        ln_sw=rng.normal(0, 2, (w, 3)).astype(f),
+        ln_ew=rng.normal(0, 2, (w, 3)).astype(f),
+        line_valid=rng.random(n) < 0.9)
+
+
+def planted_assemble_lanes(case: str, batch: int, seed: int = 27) -> dict:
+    """planted_assemble_problem of seeds seed .. seed + batch - 1 stacked
+    on a leading lane dimension."""
+    lanes = [planted_assemble_problem(case, seed + b) for b in range(batch)]
+    return {k: np.stack([q[k] for q in lanes]) for k in lanes[0]}
+
+
+def assemble_planted_parity(dev) -> dict:
+    """K27 on every ASSEMBLE_PLANTED problem, both modes: each of four
+    lanes alone (B = 1) into outputs filled with NaN or 0x7f bytes
+    (poisoned_outputs), bit-equal to the plain version and to a second
+    launch, one launch a call; the four in one launch (B = 4), each lane
+    bit-equal to its B = 1 launch. Checks what the cases plant (the
+    largest window row on a target, the window before a temporal source,
+    the clamp and the drop) and returns per case the slots taken."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.ops import matching as mt
+
+    table = mt.level_inv_sigma2(1.2, ASSEMBLE_LEVELS, dev)
+    modes = (("points", mt.assemble_point_obs, ASSEMBLE_POINT_KEYS,
+              lambda *a: mt.assemble_point_obs_plain(*a, table), (table,)),
+             ("lines", mt.assemble_line_obs, ASSEMBLE_LINE_KEYS,
+              mt.assemble_line_obs_plain, ()))
+    out = {}
+    for case in ASSEMBLE_PLANTED:
+        lanes = planted_assemble_lanes(case, 4)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in lanes.items()}
+        rec = {"W, N, M": ASSEMBLE_SHAPES[case]}
+        for mode, fn, keys, plain, extra in modes:
+            ones = []
+            for b in range(4):
+                args = [t[k][b:b + 1].contiguous() for k in keys]
+                with poisoned_outputs(mt, "_out"):
+                    n0 = kernels.LAUNCHES["assemble_observations"]
+                    got = fn(*args, *extra)
+                    _check(kernels.LAUNCHES["assemble_observations"]
+                           == n0 + 1, f"assemble_observations ({case}, "
+                           f"{mode}): not one launch a call")
+                    again = fn(*args, *extra)
+                want = plain(*[a[0] for a in args])
+                torch.cuda.synchronize()
+                _check(same_bits(got, again),
+                       f"assemble_observations ({case}, {mode}): two "
+                       f"launches differ")
+                _check(same_bits([g[0] for g in got], want),
+                       f"assemble_observations ({case}, {mode}, lane {b}): "
+                       f"differs from the plain version in " + str(
+                           [_bit_diff(g[0], w, as_int=True)
+                            for g, w in zip(got, want)]))
+                ones.append(got)
+            with poisoned_outputs(mt, "_out"):
+                got4 = fn(*[t[k] for k in keys], *extra)
+            torch.cuda.synchronize()
+            for b, one in enumerate(ones):
+                _check(same_bits([g[b] for g in got4], [o[0] for o in one]),
+                       f"assemble_observations ({case}, {mode}): lane {b} "
+                       f"of B = 4 differs from its B = 1 launch")
+            slot = ones[0][0][0]
+            rec[mode] = {"slots": int((slot >= 0).sum()),
+                         "valid": int(ones[0].valid.sum()),
+                         "unmatched_valid": int(((slot < 0)
+                                                 & ones[0].valid[0]).sum())}
+            if mode == "points":
+                pts0 = ones[0]
+        out[case] = rec
+        p = planted_assemble_problem(case)
+        slot = pts0.feat_slot[0].cpu().numpy()
+        xw = pts0.xw[0].cpu().numpy()
+        n = ASSEMBLE_SHAPES[case][1]
+        if case == "stacked":
+            _check(slot[3] == 5 and slot[7] == 4095 and slot[20] == 50
+                   and slot[11] < 0 and slot[21] < 0
+                   and np.array_equal(xw[11], p["last_xw"][2])
+                   and np.array_equal(xw[12], p["last_xw"][700])
+                   and np.array_equal(xw[20], p["win_xyz"][50])
+                   and np.array_equal(xw[21], p["last_xw"][6]),
+                   f"assemble_observations (stacked): not as planted: "
+                   f"{slot[[3, 7, 11, 12, 20, 21]].tolist()}")
+        elif case == "clamp":
+            _check(slot[n - 1] == 13
+                   and xw[n - 1].tolist() == p["win_xyz"][13].tolist(),
+                   f"assemble_observations (clamp): slot[n - 1] "
+                   f"{slot[n - 1]}, not row 13")
+        elif case == "drop":
+            fi = p["ff_idx"]
+            ff_in = np.zeros(n, bool)
+            ff_in[fi[(fi >= 0) & (fi < n)]] = True
+            _check(slot[n - 1] < 0
+                   and xw[n - 1].tolist() == p["last_xw"][10].tolist()
+                   and np.array_equal(pts0.valid[0].cpu().numpy(),
+                                      ((slot >= 0) | ff_in)
+                                      & p["feat_valid"]),
+                   f"assemble_observations (drop): target n - 1 not "
+                   f"source 10's")
+        elif case == "no_match":
+            _check(rec["points"]["slots"] == 0 and rec["lines"]["slots"] == 0
+                   and rec["points"]["valid"] == 0 and not xw.any(),
+                   f"assemble_observations (no_match): {rec}")
+    return out
+
+
 @contextlib.contextmanager
 def poisoned_outputs(module, name: str):
     """module.name, an output allocator (shape, dtype, device) of a kernel
@@ -3518,7 +3700,7 @@ def frame_match_problems(seq, cfg, dev) -> dict:
     return out
 
 
-def matching_kernel_parity(seq, cfg, dev) -> list:
+def matching_kernel_parity(seq, cfg, dev, report: list = ()) -> list:
     """K24-K27 against their plain versions on the card, on the problems of
     _matching_problems (frames 0 -> 1 of the 640x480 room at the default
     configuration's widths: 1024 landmarks or 4096 window points against
@@ -3533,7 +3715,10 @@ def matching_kernel_parity(seq, cfg, dev) -> list:
     because kernel and plain version take the same operations in the same
     order), and two launches give the same bits. Targets matched by more
     than one row (clashes, which K25's duplicate resolution and mutual
-    check rule out) are counted."""
+    check rule out) are counted. Each of K3-K27's rows (K3's where
+    `report` holds it) gets step_bounds_ms: the bound of each of its launches in one tracking
+    step, each at its own problem's shapes (STEP_LAUNCHES' order: frame
+    search, window search, match_descriptors; points, lines)."""
     import torch
 
     from planarslam_tpu_torch.ops import lines as ln
@@ -3590,12 +3775,17 @@ def matching_kernel_parity(seq, cfg, dev) -> list:
            f"project_landmarks: the cases do not exercise it: {cases}")
     got, args, kw = proj["window"]
     c = probs["window"]
+    # per landmark: the transform and projection (~25), the camera centre,
+    # distance and cosine (~30), log, ceil, pow (~60)
+    k24 = _bound(_nbytes(args, c["view_normals"], c["dist_range"], got),
+                 MATCH_WINDOW * 120.0)
+    fgot, fargs, _ = proj["frame"]
+    step_bounds = {"project_landmarks": [
+        _bound(_nbytes(fargs, fgot), cases["frame"]["M"] * 120.0)["bound_ms"],
+        k24["bound_ms"]]}
     out.append({
         "name": "project_landmarks", "route": "cuda", "library_ms": None,
-        # per landmark: the transform and projection (~25), the camera
-        # centre, distance and cosine (~30), log, ceil, pow (~60)
-        **_bound(_nbytes(args, c["view_normals"], c["dist_range"], got),
-                 MATCH_WINDOW * 120.0),
+        **k24, "step_bounds_ms": step_bounds["project_landmarks"],
         "source": src, "replaces": "planarslam_tpu/ops/matching.py:142",
         "max_abs_err": 0.0, "tolerance": "every output bit-equal",
         "cases": cases,
@@ -3627,6 +3817,7 @@ def matching_kernel_parity(seq, cfg, dev) -> list:
                                      back=back))
     plain_back = mt.gated_hamming_top2_plain(
         p1.desc, last.feats.points.desc, p1.valid, last.valid3d)[2]
+    k3_bounds, k25_bounds = [], []
     for case, (t3, kw) in top2.items():
         a, b, ao, bo, gate = (
             (probs[case]["descs"], p1.desc, proj[case][0].gate_pt[0],
@@ -3637,6 +3828,19 @@ def matching_kernel_parity(seq, cfg, dev) -> list:
             (last.feats.points.desc, p1.desc, last.valid3d, p1.valid, None))
         held(f"gated_hamming_top2 ({case})", t3,
              mt.gated_hamming_top2_plain(a, b, ao, bo, gate))
+        m = a.shape[0]
+        # K3's row's formula; match_descriptors' one launch also writes
+        # the transposed problem's best (back)
+        k3_bounds.append(_bound(_nbytes(a, b, ao, bo, gate, t3,
+                                        kw.get("back")),
+                                34.0 * m * b.shape[0])["bound_ms"])
+        # K25's row's formula (best, best_idx, the outputs); with the
+        # ratio test on also the second best and back
+        k25_bounds.append(_bound(
+            _nbytes(t3[0], t3[2], t3[1] if "ratio" in kw else None,
+                    kw.get("back")) + 8 * m, m * 20.0)["bound_ms"])
+    step_bounds["gated_hamming_top2"] = k3_bounds
+    step_bounds["match_select"] = k25_bounds
     held("mutual_hamming_top2 (back)", [back], [plain_back])
     sel = {}
     for case, (t3, kw) in top2.items():
@@ -3668,6 +3872,7 @@ def matching_kernel_parity(seq, cfg, dev) -> list:
         # with the ratio test off the kernel reads best and best_idx only
         **_bound(_nbytes(bat[0], bat[2]) + 8 * MATCH_WINDOW,
                  MATCH_WINDOW * 20.0),
+        "step_bounds_ms": step_bounds["match_select"],
         "source": src, "replaces": "planarslam_tpu/ops/matching.py:184",
         "max_abs_err": 0.0, "tolerance": "indices and distances exact",
         "cases": sel, "planted": planted,
@@ -3777,21 +3982,36 @@ def matching_kernel_parity(seq, cfg, dev) -> list:
            f"assemble_observations: the cases do not exercise it: {asm}")
     print(f"matching_kernel_parity clashes (expected 0): {json.dumps(asm)}",
           flush=True)
+    aplanted = assemble_planted_parity(dev)
+    print(f"matching_kernel_parity assemble_observations planted: "
+          f"{json.dumps(aplanted)}", flush=True)
+    # per window row and source: one shared-memory maximum; per target the
+    # selections and gathers (~10). Bytes: the indices, the per-target
+    # inputs, the table and the outputs, and the rows gathered: 12 per
+    # point (the matched window rows and the temporal landmarks of the
+    # features without one), 24 per line (the matched window lines, and
+    # row 0 for the targets without one)
+    k27 = _bound(_nbytes(pargs[:2], pargs[4:], got)
+                 + 12 * (asm["window_slots"] + asm["temporal_rows"]),
+                 2.0 * MATCH_WINDOW + 10.0 * n)
+    n_ln = lgot.ln_slot.shape[1]
+    line_rows = _distinct(lgot.ln_slot) + int(bool(
+        (lgot.ln_slot < 0).any()) and not bool((lgot.ln_slot == 0).any()))
+    step_bounds["assemble_observations"] = [
+        k27["bound_ms"],
+        _bound(_nbytes(largs[0], largs[3], lgot) + 24 * line_rows,
+               2.0 * LINE_WINDOW + 10.0 * n_ln)["bound_ms"]]
+    for k in report:
+        if k["name"] == "gated_hamming_top2":
+            k["step_bounds_ms"] = step_bounds["gated_hamming_top2"]
     out.append({
         "name": "assemble_observations", "route": "cuda",
-        "library_ms": None,
-        # per window row and source: one shared-memory maximum; per target
-        # the selections and gathers (~10). Bytes: win_idx, ff_idx, the
-        # per-feature inputs, the table and the outputs, and 12 per point
-        # gathered: the matched window rows and the temporal landmarks of
-        # the features without one
-        **_bound(_nbytes(pargs[:2], pargs[4:], got)
-                 + 12 * (asm["window_slots"] + asm["temporal_rows"]),
-                 2.0 * MATCH_WINDOW + 10.0 * n),
+        "library_ms": None, **k27,
+        "step_bounds_ms": step_bounds["assemble_observations"],
         "source": src,
         "replaces": "planarslam_tpu/slam/device_tracker.py:406",
         "max_abs_err": 0.0, "tolerance": "every output bit-equal",
-        "cases": asm,
+        "cases": asm, "planted": aplanted,
         "ms": _time_ms(lambda: mt.assemble_point_obs(*pargs)),
         "plain_ms": _time_ms(lambda: mt.assemble_point_obs_plain(
             *[a[0] for a in pargs[:-1]], table)),
@@ -4473,6 +4693,135 @@ def tail_step_inputs(seq, cfg, dev, step: int = ASSOC_STEP,
     _check(all(c in rec["inputs"] for c in capture),
            f"tail_step_inputs: not {step} tracking steps")
     return [rec["inputs"][c][0][0] for c in capture]
+
+
+def _clone_arg(a):
+    """A tensor or a NamedTuple of tensors cloned; anything else as is."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a)(*[_clone_arg(x) for x in a])
+    return a
+
+
+def _stack_calls(calls: list, lead: bool) -> tuple:
+    """Positional calls of one wrapper as one call over all their lanes:
+    each tensor (also inside a NamedTuple) concatenated on its leading
+    batch (`lead`) or stacked on a new one; other arguments the first
+    call's."""
+    import torch
+
+    def join(xs):
+        x0 = xs[0]
+        if isinstance(x0, torch.Tensor):
+            return (torch.cat if lead else torch.stack)(xs).contiguous()
+        if isinstance(x0, tuple) and hasattr(x0, "_fields"):
+            return type(x0)(*[join(list(f)) for f in zip(*xs)])
+        return x0
+
+    return tuple(join(list(a)) for a in zip(*calls))
+
+
+def step_kernel_inputs(seq, cfg, dev, step: int = ASSOC_STEP,
+                       lanes: int = 4) -> dict:
+    """The inputs of K27's two launches and of K14 at path 1's tracking
+    steps step - lanes + 1 .. step (a tracking-only System over seq's
+    clean quantized frames; K14's of the frames those steps track), each
+    call's tensors cloned: {"points": [args, ...], "lines": [...],
+    "labels": [...]}, the last the step-th's."""
+    from planarslam_tpu_torch.io.frames import quantize_frame
+    from planarslam_tpu_torch.ops import matching, planes
+    from planarslam_tpu_torch.slam.system import System
+
+    names = {"points": (matching, "assemble_point_obs"),
+             "lines": (matching, "assemble_line_obs"),
+             "labels": (planes, "plane_label_pixels")}
+    rec = {k: [] for k in names}
+    orig = {k: getattr(m, a) for k, (m, a) in names.items()}
+
+    def keeping(key):
+        def kept(*args):
+            rec[key].append(tuple(_clone_arg(a) for a in args))
+            return orig[key](*args)
+        return kept
+
+    for k, (m, a) in names.items():
+        setattr(m, a, keeping(k))
+    try:
+        slam = System(config=cfg, enable_local_mapping=False,
+                      enable_loop_closing=False, device=dev)
+        for i in range(step + 1):
+            g, d16 = quantize_frame(*seq.render(i),
+                                    cfg.camera.depth_map_factor)
+            slam.track_rgbd(g, d16, float(i) / 30.0)
+        slam.shutdown()
+    finally:
+        for k, (m, a) in names.items():
+            setattr(m, a, orig[k])
+    _check(len(rec["points"]) == step and len(rec["lines"]) == step
+           and len(rec["labels"]) == step + 1,
+           f"step_kernel_inputs: {[len(v) for v in rec.values()]} calls "
+           f"over {step + 1} frames")
+    return {k: v[-lanes:] for k, v in rec.items()}
+
+
+def assemble_problems(seq, cfg, dev, inputs=None) -> dict:
+    """K27 at the main path's shapes: both launches of path 1's
+    ASSOC_STEP-th tracking step (step_kernel_inputs), steps ASSOC_STEP - 3
+    .. ASSOC_STEP in one launch of each mode ("b4"), and every
+    ASSEMBLE_PLANTED problem's lane 0 alone and four lanes at B = 4, both
+    modes. Returns {name: fn}, fn() launching it."""
+    import torch
+
+    from planarslam_tpu_torch.ops import matching as mt
+
+    inputs = inputs or step_kernel_inputs(seq, cfg, dev)
+    fns = {"points": mt.assemble_point_obs, "lines": mt.assemble_line_obs}
+    probs = {}
+    for mode in fns:
+        calls = inputs[mode]
+        probs[f"step{ASSOC_STEP}_{mode}"] = (mode, calls[-1])
+        # the points' level table, the last argument, is every step's
+        n = len(calls[-1]) - (mode == "points")
+        probs[f"b4_{mode}"] = (mode, _stack_calls([c[:n] for c in calls],
+                                                  True) + calls[-1][n:])
+    table = mt.level_inv_sigma2(1.2, ASSEMBLE_LEVELS, dev)
+    for case in ASSEMBLE_PLANTED:
+        lanes = planted_assemble_lanes(case, 4)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in lanes.items()}
+        for mode, keys, extra in (("points", ASSEMBLE_POINT_KEYS, (table,)),
+                                  ("lines", ASSEMBLE_LINE_KEYS, ())):
+            probs[f"{case}_{mode}"] = (mode, tuple(
+                t[k][:1].contiguous() for k in keys) + extra)
+            probs[f"{case}_b4_{mode}"] = (mode, tuple(t[k] for k in keys)
+                                          + extra)
+    return {k: (lambda m=m, a=a: fns[m](*a)) for k, (m, a) in probs.items()}
+
+
+def label_problems(seq, cfg, dev, inputs=None) -> dict:
+    """K14 at the main path's shapes: path 1's ASSOC_STEP-th frame
+    (step_kernel_inputs: the last refine round's fit of extract_planes),
+    frames ASSOC_STEP - 3 .. ASSOC_STEP in one launch ("b4"), and every
+    LABEL_PLANTED problem (among them 1280x960 and 643x481) at
+    refine_stride 2 and 1, lane 0 alone and four lanes at B = 4. Returns
+    {name: fn}, fn() launching it."""
+    from planarslam_tpu_torch.ops import planes as P
+
+    inputs = inputs or step_kernel_inputs(seq, cfg, dev)
+    calls = inputs["labels"]
+    probs = {f"step{ASSOC_STEP}": calls[-1],
+             "b4": _stack_calls(calls, calls[-1][0].dim() == 3)}
+    for case in LABEL_PLANTED:
+        lanes = planted_label_lanes(case, 4)
+        for stride in (2, 1):
+            probs[f"{case}_s{stride}"] = label_args(lanes, cfg, stride, dev,
+                                                    0)
+            probs[f"{case}_s{stride}_b4"] = label_args(lanes, cfg, stride,
+                                                       dev)
+    return {k: (lambda a=a: P.plane_label_pixels(*a))
+            for k, a in probs.items()}
 
 
 def finish_step_problems(seq, cfg, dev, inputs=None) -> dict:
@@ -5370,13 +5719,20 @@ def _lane0(obj):
 def pose_frame_parity(entry: dict, captured: list) -> None:
     """K11 against its plain version on the inputs of the two calls of one
     tracked frame of path 1 (obs1 and obs2, captured at the call, the
-    step's one lane); the results join K11's report entry."""
-    frame = {}
-    for name, (args, kw) in zip(("obs1", "obs2"), captured):
-        frame[name] = _pose_compare(*_lane0((args, kw)), False)
-        frame[name]["rows"] = _pose_rows(_lane0(kw))
+    step's one lane); the results, and each call's bound (_pose_bound, as
+    step_bounds_ms), join K11's report entry."""
+    from planarslam_tpu_torch.solvers import pose_opt
+
+    frame, bounds = {}, []
+    for name, call in zip(("obs1", "obs2"), captured):
+        args, kw = _lane0(call)
+        frame[name] = _pose_compare(args, kw, False)
+        frame[name]["rows"] = _pose_rows(kw)
+        bounds.append(_pose_bound(args, kw, pose_opt.pose_optimize(
+            *args, **kw))["bound_ms"])
     print(f"pose_optimize tracked frame: {json.dumps(frame)}", flush=True)
     entry["tracked_frame"] = frame
+    entry["step_bounds_ms"] = bounds
     entry["max_abs_err"] = max(entry["max_abs_err"],
                                *(c["pose_err"] for c in frame.values()))
 
@@ -5588,8 +5944,7 @@ def plane_segment_compare(depth, cfg, exact: bool) -> dict:
     candidates whose covariance has an eigen-gap under MIN_EIGEN_GAP are
     reported and not held.
     K13: plane_refit_compare. K14:
-    validity and counts equal, coefficients within 1e-5, pixel labels
-    equal on >= 99.9% of the pixels."""
+    every output bit-equal to the plain version."""
     import torch
 
     from planarslam_tpu_torch.ops import planes as P
@@ -5622,17 +5977,15 @@ def plane_segment_compare(depth, cfg, exact: bool) -> dict:
     torch.cuda.synchronize()
     _check(all(torch.equal(a, b) for a, b in zip(out, out2)),
            "plane_label_pixels: two launches on equal inputs differ")
-    k14 = {"valid_differ": int((out.valid != ref.valid).sum()),
-           "count_differ": int((out.count != ref.count).sum()),
-           "planes": int(ref.valid.sum()),
+    k14 = {"planes": int(ref.valid.sum()),
            "max_abs_err": _max_err(out.coeffs, ref.coeffs),
-           "labels_equal": float((out.pixel_label == ref.pixel_label)
-                                 .float().mean()),
+           "entries_differ": {f: _bit_diff(getattr(out, f), getattr(ref, f),
+                                           as_int=True)
+                              for f in out._fields},
            "labeled": float((ref.pixel_label >= 0).float().mean())}
     res["plane_label_pixels"] = k14
     _check(k14["planes"] > 0, "plane_label_pixels: no valid plane")
-    _check(k14["valid_differ"] == 0 and k14["count_differ"] == 0
-           and k14["max_abs_err"] <= 1e-5 and k14["labels_equal"] >= 0.999,
+    _check(not any(k14["entries_differ"].values()),
            f"plane_label_pixels differs from plain: {k14}")
     res["inputs"] = (stats, hb, wb, got, fit, args)
     return res
@@ -5648,6 +6001,202 @@ def noisy_depth(depth_m: np.ndarray, factor: float, seed: int = 0):
     noisy = depth_m + rng.normal(0.0, 1.0, depth_m.shape) * sigma
     noisy = np.where(depth_m > 0, np.clip(noisy, 0.0, None), 0.0)
     return (np.round(noisy * factor) / factor).astype(np.float32)
+
+
+# K14's planted cases: 0, 1 and 16 planes through the final gate (the
+# others failing it by their alive flag, by a count one below min_size
+# and by an mse at the gate), two identical planes and a plane beside its
+# negation (equal distances: the first index wins), depth holes, jumps
+# and depths past max_distance scattered and at the right and bottom
+# edges and the columns about a warp's last quad, at 64x48, 643x481 (the
+# scalar path), 640x480 and 1280x960; each with a planted label_sub for
+# refine_stride 1 (-1, the planes, P and 99)
+LABEL_PLANTED = ("alive0", "alive1", "alive16", "ties", "edges")
+LABEL_SHAPES = {"alive0": (48, 64), "alive1": (481, 643),
+                "alive16": (960, 1280), "ties": (480, 640),
+                "edges": (480, 640)}
+LABEL_ALPHA = 5e-4  # the noise scale: the jump gate stays the geometric one
+LABEL_MIN_SIZE = 2000  # PlaneConfig.min_size
+# the final gate's mse bound where its floor, distance_threshold, rules:
+# float32(0.05) squared in float32
+GATE_MSE = np.float32(0.05) * np.float32(0.05)
+# the fit's arrays in PlaneRefit's order
+LABEL_FIT_KEYS = ("label_sub", "normal", "d", "mse", "mean", "n", "alive")
+
+
+def label_camera(h: int, w: int) -> tuple:
+    """(fx, fy, cx, cy) of the default camera scaled to a w x h frame."""
+    sx, sy = w / 640.0, h / 480.0
+    return 535.4 * sx, 539.2 * sy, 320.1 * sx, 247.6 * sy
+
+
+def planted_label_problem(case: str, seed: int = 14) -> dict:
+    """A K14 problem of LABEL_PLANTED as numpy arrays: a depth map (H, W)
+    of 16 slightly tilted planes in a 4 x 4 grid of tiles (plane k at
+    1.2 + 0.35 k m at its tile's centre, quantized at 1/5000 m, with the
+    case's holes, jumps and far depths), alpha (), the fit of the 16
+    planes (PlaneRefit's fields: normal, d, mse, mean, n, alive; label_sub
+    (H W,) for refine_stride 1) and the camera (fx, fy, cx, cy)."""
+    rng = np.random.default_rng(seed)
+    h, w = LABEL_SHAPES[case]
+    fx, fy, cx, cy = label_camera(h, w)
+    p = 16
+    tilt = rng.uniform(-0.02, 0.02, (p, 2))
+    normal = np.concatenate([tilt, -np.ones((p, 1))], 1)
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    zc = 1.2 + 0.35 * np.arange(p)
+    ty, tx = np.arange(p) // 4, np.arange(p) % 4
+    uc, vc = (tx + 0.5) * w / 4, (ty + 0.5) * h / 4
+    rc = np.stack([(uc - cx) / fx, (vc - cy) / fy, np.ones(p)], 1)
+    d = -zc * (normal * rc).sum(1)
+    mean = rc * zc[:, None]
+    if case == "ties":  # plane 1 = plane 0, plane 3 = -plane 2
+        normal[1], d[1], mean[1] = normal[0], d[0], mean[0]
+        normal[3], d[3], mean[3] = -normal[2], -d[2], mean[2]
+    vv, uu = np.mgrid[0:h, 0:w]
+    k = np.minimum(vv * 4 // h, 3) * 4 + np.minimum(uu * 4 // w, 3)
+    ray = np.stack([(uu - cx) / fx, (vv - cy) / fy, np.ones_like(uu, float)],
+                   -1)
+    z = -d[k] / (normal[k] * ray).sum(-1)
+    z = np.round(z * 5000.0) / 5000.0
+    pick = rng.random((h, w))
+    z[pick < 0.005] = 0.0                       # holes
+    z[(pick >= 0.005) & (pick < 0.01)] += 1.0   # jumps
+    z[(pick >= 0.01) & (pick < 0.012)] = 12.0   # past max_distance
+    if case == "edges":
+        rows, cols = np.arange(h), np.arange(w)
+        z[rows % 3 == 0, w - 1] = 0.0
+        z[rows % 3 == 1, w - 1] += 0.5
+        z[rows % 5 == 2, w - 2] = 0.0
+        z[h - 1, cols % 3 == 0] = 0.0
+        z[h - 1, cols % 3 == 1] += 0.5
+        z[h - 2, cols % 7 == 3] = 0.0
+        for c0 in (123, 251, 379, 507):  # about a warp's last quads
+            band = z[:, c0:c0 + 10]
+            hit = rng.random(band.shape) < 0.2
+            band[hit] = np.where(rng.random(int(hit.sum())) < 0.5, 0.0,
+                                 band[hit] + 0.7)
+    mse = np.full(p, 1e-6)
+    n = np.full(p, 5000.0)
+    alive = np.ones(p, bool)
+    if case == "alive0":
+        alive[:6] = False
+        n[6:11] = LABEL_MIN_SIZE - 1
+        mse[11:] = GATE_MSE  # at the gate, which mse must stay under
+    elif case == "alive1":
+        alive[:5] = False
+        n[6:11] = LABEL_MIN_SIZE - 1
+        mse[11:] = GATE_MSE
+        n[5] = LABEL_MIN_SIZE  # the one plane, at min_size
+    elif case == "ties":
+        alive[4] = False
+    label_sub = rng.integers(-1, p + 1, h * w)
+    label_sub[rng.random(h * w) < 0.01] = 99
+    f = np.float32
+    return dict(depth=z.astype(f), alpha=np.asarray(LABEL_ALPHA, f),
+                label_sub=label_sub.astype(np.int32), normal=normal.astype(f),
+                d=d.astype(f), mse=mse.astype(f), mean=mean.astype(f),
+                n=n.astype(f), alive=alive, cam=(fx, fy, cx, cy))
+
+
+def planted_label_lanes(case: str, batch: int, seed: int = 14) -> dict:
+    """planted_label_problem of seeds seed .. seed + batch - 1, the arrays
+    stacked on a leading lane dimension (the camera is the case's)."""
+    lanes = [planted_label_problem(case, seed + b) for b in range(batch)]
+    out = {k: np.stack([q[k] for q in lanes]) for k in lanes[0]
+           if k != "cam"}
+    out["cam"] = lanes[0]["cam"]
+    return out
+
+
+def label_args(lanes: dict, cfg, stride: int, dev, b=None) -> tuple:
+    """plane_label_pixels' (depth, alpha, cam, cfg, fit) for a
+    planted_label_lanes problem at refine_stride `stride`: lane b alone (2-D
+    depth, as one frame) or, with b None, every lane in one call."""
+    import dataclasses
+
+    import torch
+
+    from planarslam_tpu_torch.ops import planes as P
+
+    h, w = lanes["depth"].shape[-2:]
+    fx, fy, cx, cy = lanes["cam"]
+    cam = dataclasses.replace(cfg.camera, fx=fx, fy=fy, cx=cx, cy=cy,
+                              width=w, height=h)
+    pc = dataclasses.replace(cfg.planes, refine_stride=stride,
+                             min_size=LABEL_MIN_SIZE)
+
+    def get(k):
+        a = lanes[k] if b is None else lanes[k][b]
+        return torch.from_numpy(np.array(a)).to(dev)  # a 0-d alpha stays
+
+    return (get("depth"), get("alpha"), cam, pc,
+            P.PlaneRefit(*[get(k) for k in LABEL_FIT_KEYS]))
+
+
+def label_planted_parity(cfg, dev) -> dict:
+    """K14 on every LABEL_PLANTED problem at refine_stride 2 and 1: each of
+    four lanes alone into outputs filled with NaN or 0x7f bytes
+    (poisoned_outputs: an unwritten pixel shows), against the plain
+    version and a second launch, one launch a call; the four in one launch
+    (B = 4), each lane bit-equal to its B = 1 launch. Every output
+    bit-equal to the plain version. Checks what the cases plant (the planes through the
+    gate, the first index on ties) and returns per case and stride the
+    labeled pixels."""
+    import torch
+
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.ops import planes as P
+
+    out = {}
+    for case in LABEL_PLANTED:
+        lanes = planted_label_lanes(case, 4)
+        for stride in (2, 1):
+            ones, rec = [], {}
+            for b in range(4):
+                args = label_args(lanes, cfg, stride, dev, b)
+                with poisoned_outputs(P, "_out"):
+                    n0 = kernels.LAUNCHES["plane_label_pixels"]
+                    got = P.plane_label_pixels(*args)
+                    _check(kernels.LAUNCHES["plane_label_pixels"] == n0 + 1,
+                           f"plane_label_pixels ({case}): not one launch")
+                    again = P.plane_label_pixels(*args)
+                want = P.plane_label_pixels_plain(*args)
+                torch.cuda.synchronize()
+                _check(same_bits(got, again), f"plane_label_pixels ({case},"
+                       f" stride {stride}): two launches differ")
+                diff = {f: _bit_diff(getattr(got, f), getattr(want, f),
+                                     as_int=True) for f in got._fields}
+                _check(not any(diff.values()),
+                       f"plane_label_pixels ({case}, stride {stride}, lane "
+                       f"{b}): differs from the plain version: {diff}")
+                ones.append(got)
+            with poisoned_outputs(P, "_out"):
+                got4 = P.plane_label_pixels(*label_args(lanes, cfg, stride,
+                                                        dev))
+            torch.cuda.synchronize()
+            for b, one in enumerate(ones):
+                _check(same_bits([g[b] for g in got4], one),
+                       f"plane_label_pixels ({case}, stride {stride}): lane "
+                       f"{b} of B = 4 differs from its B = 1 launch")
+            lbl = ones[0].pixel_label
+            rec.update(planes=int(ones[0].valid.sum()),
+                       labeled=int((lbl >= 0).sum()),
+                       labels=sorted(set(torch.unique(lbl).tolist())))
+            out[f"{case}_stride{stride}"] = rec
+    n_valid = {c: out[f"{c}_stride2"]["planes"] for c in LABEL_PLANTED}
+    ties = out["ties_stride2"]["labels"]
+    _check(n_valid == {"alive0": 0, "alive1": 1, "alive16": 16, "ties": 15,
+                       "edges": 16}
+           and out["alive0_stride2"]["labeled"] == 0
+           and out["alive1_stride2"]["labels"] == [-1, 5]
+           and 0 in ties and 1 not in ties and 2 in ties and 3 not in ties
+           and 4 not in ties and 5 in ties
+           and all(out[f"{c}_stride2"]["labeled"] > 1000
+                   for c in ("alive16", "ties", "edges")),
+           f"plane_label_pixels: the planted cases do not exercise it: "
+           f"{n_valid}, {ties}")
+    return out
 
 
 def plane_kernel_parity(seq, cfg, dev) -> list:
@@ -5670,6 +6219,8 @@ def plane_kernel_parity(seq, cfg, dev) -> list:
     stats, hb, wb, cand, fit, args = cases["clean"].pop("inputs")
     cases["noisy"].pop("inputs")
     print(f"plane kernels: {json.dumps(cases)}", flush=True)
+    lplanted = label_planted_parity(cfg, dev)
+    print(f"plane_label_pixels planted: {json.dumps(lplanted)}", flush=True)
     depth, alpha, cam, pc = args
     nb, p_cap = hb * wb, pc.max_planes
     n_sub = fit.label_sub.numel()
@@ -5740,9 +6291,9 @@ def plane_kernel_parity(seq, cfg, dev) -> list:
                   depth.numel() * (30.0 + 8 * n_valid)),
          "source": src, "replaces": "planarslam_tpu/ops/planes.py:439",
          "max_abs_err": worst("plane_label_pixels"),
-         "tolerance": "validity and counts exact, coefficients 1e-5, "
-                      "labels >= 99.9%",
+         "tolerance": "every output bit-equal",
          "cases": {k: c["plane_label_pixels"] for k, c in cases.items()},
+         "planted": lplanted,
          "ms": _time_ms(lambda: P.plane_label_pixels(*args, fit)),
          "plain_ms": _time_ms(
              lambda: P.plane_label_pixels_plain(*args, fit))},
@@ -11194,6 +11745,43 @@ def chunk_launches(cfg, C: int = CHUNK_SIZE) -> dict:
     return out
 
 
+def chunk_bound(report: list, cfg, C: int = CHUNK_SIZE) -> dict:
+    """B.8's bound: the least time of one chunk's launches (chunk_launches),
+    each launch at its own bound on the main path's shapes. A step
+    kernel's C x the sum of its step_bounds_ms (one bound a launch of a
+    step: K3, K11, K24, K25 and K27, whose launches work on problems of
+    different sizes) or C x its launches a step x its row's bound (one
+    problem a step); an extraction kernel's C x its wrapper calls a frame
+    x its row's bound (one call at B = C does C frames' work; K13 a call a
+    round, the same problem each), K17's two calls apart (the 7-tap
+    pyramid's bound and the 5-tap frame's, line_stage_bound); K37 its
+    shared-window bound at C frames. Returns the total and each wrapper's
+    share, in ms."""
+    rows = {k["name"]: k for k in report}
+    launches = chunk_launches(cfg, C)
+    per_call = {"pyramid_resize": launches["pyramid_resize"],
+                "select_keypoints": launches["select_keypoints"],
+                "detect_lines": launches["detect_lines"]}
+    share = {}
+    for name, n in launches.items():
+        row = rows[name]
+        if name == "decode_step_inputs":
+            share[name] = row["bound_ms_shared_c8"]["bound_ms"]
+        elif name == "gaussian_blur":
+            share[name] = C * (row["bound_ms"]
+                               + row["line_stage_bound"]["bound_ms"])
+        elif "step_bounds_ms" in row:
+            _check(len(row["step_bounds_ms"]) * C == n,
+                   f"chunk_bound: {name} has {len(row['step_bounds_ms'])} "
+                   f"launch bounds a step, the chunk {n} launches")
+            share[name] = C * sum(row["step_bounds_ms"])
+        elif name in STEP_LAUNCHES or name == "search_lines_by_projection":
+            share[name] = n * row["bound_ms"]
+        else:
+            share[name] = C * n / per_call.get(name, 1) * row["bound_ms"]
+    return {"C": C, "bound_ms": sum(share.values()), "by_wrapper": share}
+
+
 def _chunk_leaves(res) -> list:
     """A ChunkResult's tensors: the bundles, every per-frame state leaf,
     every final state leaf."""
@@ -11655,11 +12243,11 @@ def main(argv=None) -> int:
               + plane_kernel_parity(seq, cfg, dev)
               + manhattan_kernel_parity(seq, cfg, dev)
               + frontend_kernel_parity(seq, cfg, dev)
-              + line_kernel_parity(seq, cfg, dev)
-              + matching_kernel_parity(seq, cfg, dev)
-              + tail_kernel_parity(seq, cfg, dev)
-              + decode_kernel_parity(seq, cfg, dev)
-              + match_lines_parity(seq, cfg, dev))
+              + line_kernel_parity(seq, cfg, dev))
+    report += (matching_kernel_parity(seq, cfg, dev, report)
+               + tail_kernel_parity(seq, cfg, dev)
+               + decode_kernel_parity(seq, cfg, dev)
+               + match_lines_parity(seq, cfg, dev))
     select_stage_parity(dev, next(k for k in report
                                   if k["name"] == "detect_lines"))
     batched_kernel_parity(seq, cfg, dev, report)
@@ -11727,6 +12315,8 @@ def main(argv=None) -> int:
         k["launches"] = sum(p["launches"][k["name"]] for p in paths)
         _check(k["launches"] > 0,
                f"kernel {k['name']} was not launched by the paths")
+    print(f"chunk_bound {json.dumps(chunk_bound(report, cfg))}",
+          flush=True)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(json.dumps({"kernels": report}), flush=True)

@@ -66,14 +66,25 @@
 //
 // K27 replaces the observation assembly of planarslam_tpu/slam/
 // device_tracker.py (:352-362, the lines; :406-428, the points). One
-// 1024-thread block per problem: the window-to-target slot inversion by
-// integer atomicMax in shared memory (.at[].max), in point mode also the
-// temporal landmarks scattered by ff_idx (.at[].set; a clash, which the
-// duplicate resolution and the mutual check rule out, keeps the largest
-// source id, so the bits never depend on order), then per target the
-// gathers: the window row or the temporal landmark, u_right or -1, the
-// level's 1/sigma^2 and the validity (points); both window endpoints, 1 and
-// the validity (lines). Bound: latency (~50 bytes per target).
+// block per problem: the window-to-target slot inversion by
+// integer atomicMax in shared memory (.at[].max; a target of -1 takes no
+// row, one at n or above is clamped to n - 1), in point mode also the
+// temporal landmarks scattered by ff_idx (.at[].set, mode="drop": a target
+// outside [0, n) is dropped; a clash, which the duplicate resolution and
+// the mutual check rule out, keeps the largest source id, so the bits
+// never depend on order), then per target the window row or the temporal
+// landmark, u_right or -1, the level's 1/sigma^2 and the validity
+// (points); both window endpoints, 1 and the validity (lines).
+// Bound: latency (~40 KB a problem, 19 ns at the HBM rate): the
+// assembly's loads form a chain (the targets' indices; the rows, u_right
+// and levels; the level table's entry), so every load that does not need
+// the inversion, the level's table entry among them, goes out before the
+// first barrier, and the rows follow it in one more round trip. The
+// block has a thread a window row up to 1024 (256 a line problem, 1024 a
+// point problem: the widths measured fastest, PERF.md). Loading every
+// window row before the barrier instead, so that the winning row stores
+// itself, took longer on the card: one block moves every row through one
+// SM (PERF.md, the K27 row).
 #include <cfloat>
 
 #include "common.cuh"
@@ -665,66 +676,129 @@ int frame_matches_launch(const FrameArgs& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void assemble_observations_kernel(
-    const int* __restrict__ win_idx, int n_win, const float* __restrict__ win_a,
-    const float* __restrict__ win_b, const int* __restrict__ ff_idx,
-    int m_src, const float* __restrict__ src_xw,
-    const unsigned char* __restrict__ tgt_valid,
-    const float* __restrict__ tgt_ur, const int* __restrict__ tgt_level,
-    const float* __restrict__ inv_s2_table, int n_levels, int n,
-    int* __restrict__ slot_out, float* __restrict__ out_a,
-    float* __restrict__ out_b, float* __restrict__ out_ur,
-    float* __restrict__ out_inv_s2, unsigned char* __restrict__ out_valid) {
-  extern __shared__ int slots[];  // slot[n], temporal source[n]
+// K27's inputs and outputs of one launch (points: win_b == nullptr and
+// ff_idx != nullptr; lines: ff_idx == nullptr).
+struct AssembleArgs {
+  const int* win_idx;  // (B, W) target of each window row, or -1
+  const float* win_a;  // (B, W, 3) window points or line starts
+  const float* win_b;  // (B, W, 3) line ends
+  const int* ff_idx;   // (B, M) target of each temporal source, or -1
+  const float* src_xw;  // (B, M, 3)
+  const unsigned char* tgt_valid;  // (B, N)
+  const float* tgt_ur;             // (B, N)
+  const int* tgt_level;            // (B, N)
+  const float* inv_s2_table;       // (n_levels,)
+  int n_win, m_src, n, n_levels;
+  int* slot_out;
+  float* out_a;
+  float* out_b;
+  float* out_ur;
+  float* out_inv_s2;
+  unsigned char* out_valid;
+};
+
+constexpr int kAssembleItems = 4;  // window rows a thread keeps in registers
+
+// 1 / sigma^2 of target t's level (clamped to the table)
+__device__ __forceinline__ float level_inv_s2(const AssembleArgs& a,
+                                              long long t) {
+  return __ldg(a.inv_s2_table +
+               psl_clamp(__ldg(a.tgt_level + t), 0, a.n_levels - 1));
+}
+
+// One block a problem, of a warp or more: a thread a window row, a
+// temporal source and a target up to kBlockThreads threads, past that up
+// to kAssembleItems window rows' targets a thread in registers. Before the
+// first barrier every load of the inputs the inversion and the scalars
+// need is in flight at once: the rows' and the sources' targets, the
+// targets' valid and u_right, and the level's table entry (a load that
+// waits for the level's). After the atomics and the second barrier a
+// target's thread gathers its row (the window row, the temporal landmark,
+// zeros; for lines both window endpoints, row 0 where no row took it) and
+// stores every output of its target. Rows, sources and targets beyond a
+// block's registers go through memory.
+template <bool kLines>
+__global__ void __launch_bounds__(kBlockThreads)
+    assemble_observations_kernel(const AssembleArgs a) {
+  extern __shared__ int slots[];  // slot[n], for points source[n]
   int* slot = slots;
-  int* src = slots + n;
-  const int b = blockIdx.x;
-  const long long bw = static_cast<long long>(b) * n_win;
-  const long long bs = static_cast<long long>(b) * m_src;
-  const long long bn = static_cast<long long>(b) * n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+  int* src = slots + a.n;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const long long bw = static_cast<long long>(blockIdx.x) * a.n_win;
+  const long long bs = static_cast<long long>(blockIdx.x) * a.m_src;
+  const long long bn = static_cast<long long>(blockIdx.x) * a.n;
+  for (int j = tid; j < a.n; j += T) {
     slot[j] = -1;
-    src[j] = -1;
+    if (!kLines) src[j] = -1;
   }
-  __syncthreads();
-  for (int w = threadIdx.x; w < n_win; w += blockDim.x) {
-    const int t = win_idx[bw + w];
-    if (t >= 0) atomicMax(&slot[psl_clamp(t, 0, n - 1)], w);
+  int wt[kAssembleItems];
+#pragma unroll
+  for (int r = 0; r < kAssembleItems; ++r) {
+    const int w = tid + r * T;
+    wt[r] = w < a.n_win ? __ldg(a.win_idx + bw + w) : -1;
   }
-  if (ff_idx != nullptr) {
-    for (int i = threadIdx.x; i < m_src; i += blockDim.x) {
-      const int t = ff_idx[bs + i];
-      if (t >= 0 && t < n) atomicMax(&src[t], i);
+  const int ft = !kLines && tid < a.m_src ? __ldg(a.ff_idx + bs + tid) : -1;
+  bool tv = false;
+  float tur = 0.0f, tis2 = 0.0f;
+  if (tid < a.n) {
+    tv = __ldg(a.tgt_valid + bn + tid) != 0;
+    if (!kLines) {
+      tur = __ldg(a.tgt_ur + bn + tid);
+      tis2 = level_inv_s2(a, bn + tid);
     }
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+#pragma unroll
+  for (int r = 0; r < kAssembleItems; ++r) {
+    if (wt[r] >= 0) {
+      atomicMax(&slot[psl_clamp(wt[r], 0, a.n - 1)], tid + r * T);
+    }
+  }
+  for (int w = kAssembleItems * T + tid; w < a.n_win; w += T) {
+    const int t = __ldg(a.win_idx + bw + w);
+    if (t >= 0) atomicMax(&slot[psl_clamp(t, 0, a.n - 1)], w);
+  }
+  if (!kLines) {
+    if (ft >= 0 && ft < a.n) atomicMax(&src[ft], tid);
+    for (int i = T + tid; i < a.m_src; i += T) {
+      const int t = __ldg(a.ff_idx + bs + i);
+      if (t >= 0 && t < a.n) atomicMax(&src[t], i);
+    }
+  }
+  __syncthreads();
+  for (int j = tid; j < a.n; j += T) {
+    if (j != tid) {
+      tv = __ldg(a.tgt_valid + bn + j) != 0;
+      if (!kLines) {
+        tur = __ldg(a.tgt_ur + bn + j);
+        tis2 = level_inv_s2(a, bn + j);
+      }
+    }
     const int s = slot[j];
-    const bool has_slot = s >= 0;
-    const long long ws = bw + psl_clamp(s, 0, n_win - 1);
-    const bool tv = tgt_valid[bn + j] != 0;
-    slot_out[bn + j] = s;
-    if (ff_idx != nullptr) {  // points
+    a.slot_out[bn + j] = s;
+    if (kLines) {
+      const float* ra = a.win_a + 3 * (bw + (s < 0 ? 0 : s));
+      const float* rb = a.win_b + 3 * (bw + (s < 0 ? 0 : s));
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        a.out_a[3 * (bn + j) + q] = __ldg(ra + q);
+        a.out_b[3 * (bn + j) + q] = __ldg(rb + q);
+      }
+      a.out_inv_s2[bn + j] = 1.0f;
+      a.out_valid[bn + j] = (s >= 0 && tv) ? 1 : 0;
+    } else {
       const int f = src[j];
-      const bool valid = (has_slot || f >= 0) && tv;
+      const bool any = s >= 0 || f >= 0;
+      const float* row = s >= 0 ? a.win_a + 3 * (bw + s)
+                                : a.src_xw + 3 * (bs + (f < 0 ? 0 : f));
 #pragma unroll
       for (int q = 0; q < 3; ++q) {
-        out_a[3 * (bn + j) + q] = has_slot ? win_a[3 * ws + q]
-                                  : f >= 0 ? src_xw[3 * (bs + f) + q]
-                                           : 0.0f;
+        a.out_a[3 * (bn + j) + q] = any ? __ldg(row + q) : 0.0f;
       }
-      out_ur[bn + j] = valid ? tgt_ur[bn + j] : -1.0f;
-      out_inv_s2[bn + j] =
-          inv_s2_table[psl_clamp(tgt_level[bn + j], 0, n_levels - 1)];
-      out_valid[bn + j] = valid ? 1 : 0;
-    } else {  // lines
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        out_a[3 * (bn + j) + q] = win_a[3 * ws + q];
-        out_b[3 * (bn + j) + q] = win_b[3 * ws + q];
-      }
-      out_inv_s2[bn + j] = 1.0f;
-      out_valid[bn + j] = (has_slot && tv) ? 1 : 0;
+      const bool valid = any && tv;
+      a.out_ur[bn + j] = valid ? tur : -1.0f;
+      a.out_inv_s2[bn + j] = tis2;
+      a.out_valid[bn + j] = valid ? 1 : 0;
     }
   }
 }
@@ -814,11 +888,31 @@ PSL_API int psl_assemble_observations(
     float* out_a, float* out_b, float* out_ur, float* out_inv_s2,
     unsigned char* out_valid, cudaStream_t stream) {
   if (n > 0 && batch > 0) {
-    const size_t smem = 2 * static_cast<size_t>(n) * sizeof(int);
-    assemble_observations_kernel<<<batch, kBlockThreads, smem, stream>>>(
-        win_idx, n_win, win_a, win_b, ff_idx, m_src, src_xw, tgt_valid,
-        tgt_ur, tgt_level, inv_s2_table, n_levels, n, slot_out, out_a, out_b,
-        out_ur, out_inv_s2, out_valid);
+    const bool lines = ff_idx == nullptr;
+    if (n_win < 1 ||
+        (lines ? win_b == nullptr : m_src < 0 || n_levels < 1)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const AssembleArgs a{win_idx,   win_a,  win_b,      ff_idx,
+                         src_xw,    tgt_valid, tgt_ur,  tgt_level,
+                         inv_s2_table, n_win, lines ? 0 : m_src, n,
+                         lines ? 0 : n_levels, slot_out, out_a, out_b,
+                         out_ur,    out_inv_s2, out_valid};
+    // a warp or more: a window row, a source and a target a thread, up to
+    // kBlockThreads (then up to kAssembleItems window rows a thread)
+    int need = n_win > n ? n_win : n;
+    if (!lines) need = need > m_src ? need : m_src;
+    const int threads =
+        need >= kBlockThreads ? kBlockThreads : (need + 31) / 32 * 32;
+    // slot[n], and for points source[n]: under 48 KB up to MAX_TARGETS
+    const size_t smem = (lines ? 1 : 2) * static_cast<size_t>(n) * sizeof(int);
+    if (lines) {
+      assemble_observations_kernel<true>
+          <<<batch, threads, smem, stream>>>(a);
+    } else {
+      assemble_observations_kernel<false>
+          <<<batch, threads, smem, stream>>>(a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

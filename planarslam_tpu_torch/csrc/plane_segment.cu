@@ -43,7 +43,12 @@
 // publication, the last block's terms (none loaded for a block whose
 // plane mask lacks the plane), the 150 in-order additions of a sum and
 // the fit, by a half-warp that spreads every step's divisions over its
-// lanes (a one-thread fit is ~40 dependent divisions).
+// lanes (a one-thread fit is ~40 dependent divisions). K14's cost is its
+// per-block prologue (the planes' gate and a barrier) and its per-pixel
+// instructions: a block takes a tile of 4 x 128 pixels (600 a 640x480
+// frame), four a thread from vector loads, against the alive planes only,
+// with the back-projection's divisions once a column and once a row
+// (plane_label_kernel).
 //
 // Batches. Every input and output may carry a leading B of independent
 // frames, all served by one launch of each kernel (K13: one launch for up
@@ -62,6 +67,7 @@
 // inputs give equal bits, and the bits of K13's first version (one thread
 // a fit, a tree a value, every partial added).
 #include <math.h>
+#include <stdint.h>
 
 #include "common.cuh"
 #include "eig3.cuh"
@@ -776,25 +782,62 @@ __device__ __forceinline__ PixDepth load_pixel(const PixParams& p, int v,
   return d;
 }
 
+// A pixel's depth-range and jump gate against its right and lower
+// neighbours (a jump of 0 where the neighbour lies past the image's edge)
+// and its band. K13's assign pass and K14 share it, and the helpers
+// below, so that their labels agree to the bit.
+struct PixGate {
+  bool ok;
+  float band;
+};
+
+__device__ __forceinline__ PixGate pixel_gate(const PixParams& p,
+                                              float alpha, float z,
+                                              float right, float down,
+                                              bool has_r, bool has_d) {
+  const float zc = fmaxf(z, 1.0f);
+  const float z2 = zc * zc;
+  const float tol = fmaxf(p.geo_tol * zc, p.jump_coef * alpha * z2);
+  const float jump_r = has_r ? fabsf(z - right) : 0.0f;
+  const float jump_d = has_d ? fabsf(z - down) : 0.0f;
+  PixGate g;
+  g.ok = z > 1e-6f && z < p.max_distance && jump_r < tol && jump_d < tol;
+  g.band = fmaxf(3.0f * alpha * z2, p.dist_thr);
+  return g;
+}
+
+// A back-projection's column term (u - cx) / fx or row term (v - cy) / fy.
+__device__ __forceinline__ float grid_term(int i, float c, float f) {
+  return (static_cast<float>(i) - c) / f;
+}
+
+// A back-projected point's distance to the plane (n, d), in the plain
+// version's order.
+__device__ __forceinline__ float plane_dist(float x, float y, float z,
+                                            float n0, float n1, float n2,
+                                            float d) {
+  return fabsf(x * n0 + y * n1 + z * n2 + d);
+}
+
+// Whether a pixel keeps its nearest plane: within the plane's tau and the
+// pixel's band, and through the gate.
+__device__ __forceinline__ bool pixel_keep(const PixGate& g, float best_d,
+                                           float tau) {
+  return best_d < fminf(tau, g.band) && g.ok;
+}
+
 // One pixel (v, u) of the full-resolution grid from its depths:
-// back-projection, the depth-range and jump gate, the band, the nearest
-// alive plane (first index on ties) and the band / tau gate. Returns the
-// plane or -1.
+// back-projection, the gate, the nearest alive plane (first index on
+// ties) and the band / tau gate. Returns the plane or -1.
 __device__ __forceinline__ int assign_pixel(const PixParams& p,
                                             const PlaneSet& ps, float alpha,
                                             int v, int u, const PixDepth& dp,
                                             float* pt) {
   const float z = dp.z;
-  const float zc = fmaxf(z, 1.0f);
-  const float z2 = zc * zc;
-  const float tol = fmaxf(p.geo_tol * zc, p.jump_coef * alpha * z2);
-  const float jump_r = u + 1 < p.w ? fabsf(z - dp.right) : 0.0f;
-  const float jump_d = v + 1 < p.h ? fabsf(z - dp.down) : 0.0f;
-  const bool ok = z > 1e-6f && z < p.max_distance && jump_r < tol &&
-                  jump_d < tol;
-  const float band = fmaxf(3.0f * alpha * z2, p.dist_thr);
-  const float x = (static_cast<float>(u) - p.cx) / p.fx * z;
-  const float y = (static_cast<float>(v) - p.cy) / p.fy * z;
+  const PixGate g =
+      pixel_gate(p, alpha, z, dp.right, dp.down, u + 1 < p.w, v + 1 < p.h);
+  const float x = grid_term(u, p.cx, p.fx) * z;
+  const float y = grid_term(v, p.cy, p.fy) * z;
   pt[0] = x;
   pt[1] = y;
   pt[2] = z;
@@ -802,21 +845,14 @@ __device__ __forceinline__ int assign_pixel(const PixParams& p,
   float best_d = INFINITY;
   for (int j = 0; j < p.P; ++j) {
     if (!ps.alive[j]) continue;
-    const float dist = fabsf(x * ps.normal[j][0] + y * ps.normal[j][1] +
-                             z * ps.normal[j][2] + ps.d[j]);
+    const float dist = plane_dist(x, y, z, ps.normal[j][0], ps.normal[j][1],
+                                  ps.normal[j][2], ps.d[j]);
     if (dist < best_d) {
       best_d = dist;
       best = j;
     }
   }
-  const bool keep = best_d < fminf(ps.tau[best], band) && ok;
-  return keep ? best : -1;
-}
-
-__device__ __forceinline__ int assign_pixel(const PixParams& p,
-                                            const PlaneSet& ps, float alpha,
-                                            int v, int u, float* pt) {
-  return assign_pixel(p, ps, alpha, v, u, load_pixel(p, v, u), pt);
+  return pixel_keep(g, best_d, ps.tau[best]) ? best : -1;
 }
 
 // K13's collector of plane j of a frame (P collectors a frame): the
@@ -1012,65 +1048,212 @@ __global__ void __launch_bounds__(kPixThreads, 4)
   if (tid == 0) store_release(flags + blockIdx.x, touched | kPublished);
 }
 
-// K14: the final gate per plane (every block computes it; block 0 writes
-// it) and the label of every pixel against the planes that pass. With
-// label_in (refine stride 1) the labels of the last round are kept and
-// only gated by the planes' validity.
-__global__ void __launch_bounds__(kPixThreads)
-    plane_label_kernel(const PixParams p_batch, int min_size,
+// K14's planes of a frame after the final gate: the alive ones, packed
+// in ascending order of their index (the first index wins a tie, as in
+// the plain version's argmin), with that index.
+struct LabelPlanes {
+  float normal[kMaxPlanes][3];
+  float d[kMaxPlanes];
+  float tau[kMaxPlanes];
+  int index[kMaxPlanes];
+  int n_alive;
+  unsigned char alive[kMaxPlanes];  // by plane index (the label_in mode)
+};
+
+// The final gate of the P <= 32 planes by warp 0 (planes.py:439-446):
+// the count and mse gate, tau, the alive planes packed by a ballot; the
+// writer block also stores plane.py::normalize's coefficients (zeros
+// where invalid), the validity and the counts.
+__device__ __forceinline__ void gate_planes(const PixParams& p, float alpha,
+                                            int min_size, bool writer,
+                                            LabelPlanes& ps, float* coeffs,
+                                            unsigned char* valid_out,
+                                            int* count_out) {
+  const int lane = threadIdx.x;
+  bool ok = false;
+  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f}, tau = 0.0f;
+  if (lane < p.P) {
+    const int count = static_cast<int>(p.n_p[lane]);
+    const float mz = p.mean[3 * lane + 2];
+    const float g = fmaxf(2.0f * alpha * (mz * mz), p.dist_thr);
+    ok = p.valid[lane] != 0 && count >= min_size && p.mse[lane] < g * g;
+    for (int q = 0; q < 3; ++q) c[q] = p.normal[3 * lane + q];
+    c[3] = p.d[lane];
+    tau = fmaxf(2.5f * sqrtf(fmaxf(p.mse[lane], 0.0f)), 1e-3f);
+    ps.alive[lane] = ok ? 1 : 0;
+    if (writer) {
+      float e[4];
+      const float nrm =
+          sqrtf(c[0] * c[0] + c[1] * c[1] + c[2] * c[2] + 1e-9f);
+      for (int q = 0; q < 4; ++q) e[q] = c[q] / nrm;
+      const float sgn = e[3] < 0.0f ? -1.0f : 1.0f;
+      for (int q = 0; q < 4; ++q) {
+        coeffs[4 * lane + q] = ok ? e[q] * sgn : 0.0f;
+      }
+      valid_out[lane] = ok ? 1 : 0;
+      count_out[lane] = count;
+    }
+  }
+  const unsigned alive = __ballot_sync(0xffffffffu, ok);
+  if (ok) {
+    const int k = __popc(alive & ((1u << lane) - 1u));
+    for (int q = 0; q < 3; ++q) ps.normal[k][q] = c[q];
+    ps.d[k] = c[3];
+    ps.tau[k] = tau;
+    ps.index[k] = lane;
+  }
+  if (lane == 0) ps.n_alive = __popc(alive);
+}
+
+// Four pixels of a row from their depths, their right and lower
+// neighbours' (has_r: inside the image; has_d: the row below is), their
+// column terms and the row's: assign_pixel's gate, back-projection and
+// keep per pixel, the loop over the alive planes shared by the four. out:
+// the plane or -1.
+__device__ __forceinline__ void label_four(
+    const PixParams& p, const LabelPlanes& ps, float alpha,
+    const float (&z)[4], const float (&right)[4], const float (&down)[4],
+    const bool (&has_r)[4], bool has_d, const float* xt, float yt,
+    int (&out)[4]) {
+  PixGate g[4];
+  float x[4], y[4], best_d[4];
+  int best[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    g[i] = pixel_gate(p, alpha, z[i], right[i], down[i], has_r[i], has_d);
+    x[i] = xt[i] * z[i];
+    y[i] = yt * z[i];
+    best_d[i] = INFINITY;
+    best[i] = 0;
+  }
+  for (int k = 0; k < ps.n_alive; ++k) {
+    const float n0 = ps.normal[k][0], n1 = ps.normal[k][1],
+                n2 = ps.normal[k][2], d = ps.d[k];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float dist = plane_dist(x[i], y[i], z[i], n0, n1, n2, d);
+      if (dist < best_d[i]) {
+        best_d[i] = dist;
+        best[i] = k;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[i] = pixel_keep(g[i], best_d[i], ps.tau[best[i]]) ? ps.index[best[i]]
+                                                           : -1;
+  }
+}
+
+// K14: the final gate per plane and the label of every pixel against the
+// planes that pass. A block a tile of kLabelRows rows by kLabelCols
+// columns, a warp a row, a thread four pixels of it; the frame in
+// blockIdx.y. Each thread first issues its loads, then warp 0 gates the
+// planes (block 0 of a frame writes the gate's outputs) and the block
+// computes the tile's column terms into shared memory and each thread its
+// row's term (the same float32 divisions as per pixel, so the same
+// bits). kMode kLabelVec (W a multiple of 4, the buffers 16-byte
+// aligned): float4 loads of the row and of the row below, the fourth
+// pixel's right neighbour from the next lane by a shuffle (a scalar load
+// at the warp's edge), one int4 store. kLabelScalar: scalar loads and
+// stores, any width. kLabelGather (refine stride 1): the last round's
+// labels gated by the planes' validity.
+constexpr int kLabelVec = 0, kLabelScalar = 1, kLabelGather = 2;
+constexpr int kLabelRows = 4;
+constexpr int kLabelCols = 128;  // 32 lanes x 4 pixels
+
+template <int kMode>
+__global__ void __launch_bounds__(32 * kLabelRows)
+    plane_label_kernel(const PixParams p_batch, int min_size, int tiles_x,
                        const int* label_in, float* coeffs,
                        unsigned char* valid_out, int* count_out,
                        int* pixel_label) {
-  __shared__ PlaneSet ps;
-  const int tid = threadIdx.x;
+  __shared__ LabelPlanes ps;
+  __shared__ float col[kLabelCols];
+  const int tid = threadIdx.x, lane = tid & 31;
   const PixParams p = pix_at(p_batch, blockIdx.y);
+  const long long n_pix = static_cast<long long>(p.h) * p.w;
   {  // this block's frame
     const size_t f = blockIdx.y;
-    if (label_in != nullptr) label_in += f * p.h * p.w;
+    if (kMode == kLabelGather) label_in += f * n_pix;
     coeffs += 4 * f * p.P;
     valid_out += f * p.P;
     count_out += f * p.P;
-    pixel_label += f * p.h * p.w;
+    pixel_label += f * n_pix;
   }
-  const float alpha = *p.alpha;
-  if (tid < p.P) {
-    const int count = static_cast<int>(p.n_p[tid]);
-    const float mz = p.mean[3 * tid + 2];
-    const float g = fmaxf(2.0f * alpha * (mz * mz), p.dist_thr);
-    const bool ok = p.valid[tid] != 0 && count >= min_size &&
-                    p.mse[tid] < g * g;
-    float c[4] = {p.normal[3 * tid], p.normal[3 * tid + 1],
-                  p.normal[3 * tid + 2], p.d[tid]};
-    for (int q = 0; q < 3; ++q) ps.normal[tid][q] = c[q];
-    ps.d[tid] = c[3];
-    ps.alive[tid] = ok ? 1 : 0;
-    ps.tau[tid] = fmaxf(2.5f * sqrtf(fmaxf(p.mse[tid], 0.0f)), 1e-3f);
-    if (blockIdx.x == 0) {
-      // plane.py::normalize, zeros where invalid
-      const float nrm =
-          sqrtf(c[0] * c[0] + c[1] * c[1] + c[2] * c[2] + 1e-9f);
-      for (int q = 0; q < 4; ++q) c[q] = c[q] / nrm;
-      const float sgn = c[3] < 0.0f ? -1.0f : 1.0f;
-      for (int q = 0; q < 4; ++q) {
-        coeffs[4 * tid + q] = ok ? c[q] * sgn : 0.0f;
+  const int ty = blockIdx.x / tiles_x;
+  const int u0 = (blockIdx.x - ty * tiles_x) * kLabelCols;
+  const int v = ty * kLabelRows + (tid >> 5);
+  const int u = u0 + 4 * lane;
+  const bool has_d = v + 1 < p.h;
+  const long long s0 = static_cast<long long>(v) * p.w + u;
+  bool in[4], has_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    in[i] = v < p.h && u + i < p.w;
+    has_r[i] = u + i + 1 < p.w;
+  }
+  float z[4] = {}, right[4] = {}, down[4] = {};
+  int lbl[4] = {-1, -1, -1, -1};
+  if (kMode == kLabelVec) {
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4* depth4 = reinterpret_cast<const float4*>(p.depth);
+    const float4 c = in[0] ? __ldg(depth4 + s0 / 4) : zero;
+    const float4 dn =
+        in[0] && has_d ? __ldg(depth4 + (s0 + p.w) / 4) : zero;
+    float next = __shfl_down_sync(0xffffffffu, c.x, 1);
+    if (lane == 31 && in[0] && has_r[3]) next = __ldg(p.depth + s0 + 4);
+    z[0] = c.x, z[1] = c.y, z[2] = c.z, z[3] = c.w;
+    down[0] = dn.x, down[1] = dn.y, down[2] = dn.z, down[3] = dn.w;
+    right[3] = next;
+  } else if (kMode == kLabelScalar) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (in[i]) {
+        z[i] = __ldg(p.depth + s0 + i);
+        if (has_d) down[i] = __ldg(p.depth + s0 + p.w + i);
       }
-      valid_out[tid] = ok ? 1 : 0;
-      count_out[tid] = count;
     }
+    if (in[3] && has_r[3]) right[3] = __ldg(p.depth + s0 + 4);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (in[i]) lbl[i] = label_in[s0 + i];
+    }
+  }
+  right[0] = z[1], right[1] = z[2], right[2] = z[3];
+  const float alpha = *p.alpha;
+  if (tid < 32) {
+    gate_planes(p, alpha, min_size, blockIdx.x == 0, ps, coeffs, valid_out,
+                count_out);
+  }
+  float yt = 0.0f;
+  if (kMode != kLabelGather) {
+    for (int i = tid; i < kLabelCols && u0 + i < p.w; i += 32 * kLabelRows) {
+      col[i] = grid_term(u0 + i, p.cx, p.fx);
+    }
+    yt = grid_term(v, p.cy, p.fy);
   }
   __syncthreads();
-  const int n_pix = p.h * p.w;
-  for (int s = blockIdx.x * kPixThreads + tid; s < n_pix;
-       s += gridDim.x * kPixThreads) {
-    int label;
-    if (label_in != nullptr) {
-      const int l = label_in[s];
-      label = (l < p.P && ps.alive[l]) ? l : -1;
-    } else {
-      float pt[3];
-      label = assign_pixel(p, ps, alpha, s / p.w, s % p.w, pt);
+  if (!in[0]) return;
+  int out[4];
+  if (kMode == kLabelGather) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[i] = lbl[i] >= 0 && lbl[i] < p.P && ps.alive[lbl[i]] ? lbl[i] : -1;
     }
-    pixel_label[s] = label;
+  } else {
+    label_four(p, ps, alpha, z, right, down, has_r, has_d, col + 4 * lane,
+               yt, out);
+  }
+  if (kMode == kLabelVec) {
+    reinterpret_cast<int4*>(pixel_label)[s0 / 4] =
+        make_int4(out[0], out[1], out[2], out[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (in[i]) pixel_label[s0 + i] = out[i];
+    }
   }
 }
 
@@ -1236,16 +1419,27 @@ PSL_API int psl_plane_label_pixels(
     const float* n_p, int min_size, int batch,
     const int* label_in, float* coeffs, unsigned char* valid_out,
     int* count_out, int* pixel_label, cudaStream_t stream) {
-  if (P > kMaxPlanes || batch < 1 || batch > 65535) {
+  if (P > kMaxPlanes || batch < 1 || batch > 65535 || h < 1 || w < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const PixParams p =
       pix_params(depth, alpha, h, w, 1, fx, fy, cx, cy, geo_tol,
                  max_distance, dist_thr, jump_coef, P, normal, d, valid, mse, mean,
                  n_p);
-  const int blocks = (h * w + kPixThreads - 1) / kPixThreads;
-  plane_label_kernel<<<dim3(blocks < 1 ? 1 : blocks, batch), kPixThreads, 0,
-                       stream>>>(
-      p, min_size, label_in, coeffs, valid_out, count_out, pixel_label);
+  const int tiles_x = (w + kLabelCols - 1) / kLabelCols;
+  const long long tiles =
+      static_cast<long long>(tiles_x) * ((h + kLabelRows - 1) / kLabelRows);
+  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(tiles), batch);
+  // every frame's first pixel keeps the base's alignment when w % 4 == 0
+  const bool vec = w % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(depth) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(pixel_label) % 16 == 0;
+  const auto fn = label_in != nullptr ? plane_label_kernel<kLabelGather>
+                  : vec               ? plane_label_kernel<kLabelVec>
+                                      : plane_label_kernel<kLabelScalar>;
+  fn<<<grid, 32 * kLabelRows, 0, stream>>>(p, min_size, tiles_x, label_in,
+                                           coeffs, valid_out, count_out,
+                                           pixel_label);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from planarslam_tpu_torch.device import resolve_device
 from planarslam_tpu_torch.geometry import se3
 
 _EPS = 1e-8
@@ -21,7 +22,9 @@ def make(R, t, s):
     return {"R": R, "t": t, "s": s}
 
 
-def identity(dtype=torch.float32, device="cpu"):
+def identity(dtype=torch.float32, device="cuda"):
+    """The identity Sim3 on `device` (the card unless asked for the CPU)."""
+    device = resolve_device(device)
     return make(torch.eye(3, dtype=dtype, device=device),
                 torch.zeros(3, dtype=dtype, device=device),
                 torch.ones((), dtype=dtype, device=device))

@@ -627,13 +627,13 @@ def assemble_point_obs_plain(win_idx: torch.Tensor, ff_idx: torch.Tensor,
     """Plain version of K27's point mode for one problem: the window
     search's idx (W,) inverted onto the N features, the frame-to-frame
     matches ff_idx (M,) carrying their landmarks src_xw (M, 3) onto theirs
-    (a clash keeps the largest source), the window points win_xyz (W, 3)
-    first."""
+    (a clash keeps the largest source; a target outside [0, N) is dropped,
+    as JAX's mode="drop"), the window points win_xyz (W, 3) first."""
     n = feat_valid.shape[0]
     feat_slot = _invert(win_idx, n)
     has_slot = feat_slot >= 0
     slot = torch.clamp(feat_slot, 0, win_xyz.shape[0] - 1).to(torch.int64)
-    src = _invert(ff_idx, n)
+    src = _invert(torch.where(ff_idx < n, ff_idx, -1), n)
     ff_valid = src >= 0
     ff_xw = torch.where(ff_valid[:, None], src_xw[
         torch.clamp(src, 0, src_xw.shape[0] - 1).to(torch.int64)], 0.0)

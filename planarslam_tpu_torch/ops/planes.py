@@ -749,6 +749,15 @@ def plane_assign_refit(depth: torch.Tensor, alpha: torch.Tensor,
     return out
 
 
+def _normalize_in_order(coeffs: torch.Tensor) -> torch.Tensor:
+    """plane.normalize of (P, 4) coefficients with the norm's squares
+    summed as K14 sums them, ((a^2 + b^2) + c^2) + eps: PyTorch's sum over
+    the last axis takes another order on the card."""
+    a, b, c = coeffs[:, 0], coeffs[:, 1], coeffs[:, 2]
+    e = coeffs / torch.sqrt(a * a + b * b + c * c + plane_geo._EPS)[:, None]
+    return e * torch.where(e[:, 3:4] < 0, -1.0, 1.0)
+
+
 def plane_label_pixels_plain(depth: torch.Tensor, alpha: torch.Tensor,
                              cam: CameraConfig, cfg: PlaneConfig,
                              fit: PlaneRefit) -> PlaneFeatures:
@@ -763,8 +772,8 @@ def plane_label_pixels_plain(depth: torch.Tensor, alpha: torch.Tensor,
     mse_gate = torch.clamp(2.0 * alpha * fit.mean[:, 2] ** 2,
                            min=cfg.distance_threshold) ** 2
     valid = fit.alive & (count >= cfg.min_size) & (fit.mse < mse_gate)
-    coeffs = torch.cat([fit.normal, fit.d[:, None]], dim=-1)
-    coeffs = plane_geo.normalize(coeffs)
+    coeffs = _normalize_in_order(torch.cat([fit.normal, fit.d[:, None]],
+                                           dim=-1))
     coeffs = torch.where(valid[:, None], coeffs, 0.0)
     if max(1, int(cfg.refine_stride)) == 1:
         label_pix = fit.label_sub.to(torch.int64)
@@ -781,6 +790,11 @@ def plane_label_pixels_plain(depth: torch.Tensor, alpha: torch.Tensor,
     pixel_label = torch.where(lbl_ok, label_pix, -1).to(torch.int32)
     return PlaneFeatures(coeffs=coeffs, centroid=fit.mean, count=count,
                          valid=valid, pixel_label=pixel_label.reshape(h, w))
+
+
+def _out(shape, dtype, dev) -> torch.Tensor:
+    """K14's output allocator (a check may hand out filled buffers)."""
+    return torch.empty(shape, dtype=dtype, device=dev)
 
 
 def plane_label_pixels(depth: torch.Tensor, alpha: torch.Tensor,
@@ -807,10 +821,10 @@ def plane_label_pixels(depth: torch.Tensor, alpha: torch.Tensor,
         kernels.check(fit.label_sub, "label_sub", torch.int32,
                       (*lead, h * w))
         label_in = kernels.ptr(fit.label_sub)
-    coeffs = torch.empty((*lead, p_cap, 4), dtype=torch.float32, device=dev)
-    valid = torch.empty((*lead, p_cap), dtype=torch.bool, device=dev)
-    count = torch.empty((*lead, p_cap), dtype=torch.int32, device=dev)
-    pixel_label = torch.empty((*lead, h, w), dtype=torch.int32, device=dev)
+    coeffs = _out((*lead, p_cap, 4), torch.float32, dev)
+    valid = _out((*lead, p_cap), torch.bool, dev)
+    count = _out((*lead, p_cap), torch.int32, dev)
+    pixel_label = _out((*lead, h, w), torch.int32, dev)
     with torch.cuda.device(dev):
         kernels.launch(
             "psl_plane_label_pixels", kernels.ptr(depth), kernels.ptr(alpha),

@@ -22,11 +22,12 @@ from scipy.spatial.transform import Rotation
 from planarslam_tpu import config as jconfig
 from planarslam_tpu.geometry import se3 as jse3
 from planarslam_tpu.ops import matching as jmatch
-from chip_smoke import (DENORMAL_ROTATIONS, FILTER_KEYS, FRAME_KEYS,
+from chip_smoke import (ASSEMBLE_LEVELS, ASSEMBLE_PLANTED,
+                        DENORMAL_ROTATIONS, FILTER_KEYS, FRAME_KEYS,
                         FRAME_PLANTED, JAX_EDGE_BINS, SELECT_PLANTED,
                         card_rotation_bins, edge_bin_probe,
-                        planted_frame_lanes, planted_select_lanes,
-                        rotation_edge_values)
+                        planted_assemble_problem, planted_frame_lanes,
+                        planted_select_lanes, rotation_edge_values)
 from planarslam_tpu_torch.ops import lax_compat
 from planarslam_tpu_torch.ops import matching as tmatch
 
@@ -587,24 +588,36 @@ def _assembly_problem(rng, n, n_lines, n_levels):
         line_valid=rng.random(n_lines) < 0.9)
 
 
-@pytest.mark.parametrize("width", ["tiny", "full"])
+@pytest.mark.parametrize("width", ["tiny", "full"] + [
+    f"planted_{c}" for c in ASSEMBLE_PLANTED])
 def test_assemble_observations_plain_vs_jax(width):
     """K27's plain versions against device_tracker.py:352-362 and
     :406-428: slots, gathers and validity exact, a planted clash included
     (the window's .at[].max takes the largest point or line, the temporal
-    .at[].set the last source, which K27 makes the largest)."""
-    cfg = CONFIGS[width]
-    n, n_lines = cfg.orb.max_keypoints, cfg.lines.max_lines
-    sf = cfg.orb.scale_factor
-    p = _assembly_problem(np.random.default_rng(n), n, n_lines,
-                          cfg.orb.n_levels)
+    .at[].set the last source, which K27 makes the largest); also on
+    chip_smoke's ASSEMBLE_PLANTED problems (several window rows on a
+    target, temporal clashes, window and temporal on one target, targets
+    of -1, -7, n, n + 1 and far above n, clamped by the window's .at[].max
+    and dropped by the temporal mode="drop", no match, W = 1 and N = 1, W
+    = 256 onto 64, N = MAX_TARGETS, W = 5000 with M = 2000 and N = 1500),
+    the line mode on the same window indices."""
+    if width.startswith("planted_"):
+        p = planted_assemble_problem(width[len("planted_"):])
+        p["lm_idx"] = p["win_idx"]
+        n_levels, sf = ASSEMBLE_LEVELS, 1.2
+    else:
+        cfg = CONFIGS[width]
+        n, n_lines = cfg.orb.max_keypoints, cfg.lines.max_lines
+        n_levels, sf = cfg.orb.n_levels, cfg.orb.scale_factor
+        p = _assembly_problem(np.random.default_rng(n), n, n_lines,
+                              n_levels)
     want_pts, want_lns = _jax_assemble(
         *[jnp.asarray(p[k]) for k in (
             "win_idx", "ff_idx", "last_xw", "win_xyz", "feat_valid",
             "feat_ur", "feat_level")], jnp.float32(sf),
         *[jnp.asarray(p[k]) for k in ("lm_idx", "ln_sw", "ln_ew",
                                       "line_valid")])
-    table = tmatch.level_inv_sigma2(sf, cfg.orb.n_levels, "cpu")
+    table = tmatch.level_inv_sigma2(sf, n_levels, "cpu")
     pts = tmatch.assemble_point_obs_plain(
         *[_t(p[k]) for k in ("win_idx", "ff_idx", "last_xw", "win_xyz",
                              "feat_valid", "feat_ur", "feat_level")], table)
@@ -615,6 +628,8 @@ def test_assemble_observations_plain_vs_jax(width):
         *[_t(p[k]) for k in ("lm_idx", "ln_sw", "ln_ew", "line_valid")])
     for g, w in zip(lns, want_lns):
         np.testing.assert_array_equal(g.numpy(), w)
+    if width.startswith("planted_"):
+        return
     # the clashes took effect: the largest window point and line won, and
     # the clashing sources' target carries the larger source's landmark
     assert pts.feat_slot[7] == np.flatnonzero(p["win_idx"] == 7).max()

@@ -13,7 +13,10 @@ import torch
 from scipy.spatial.transform import Rotation
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from chip_smoke import (LABEL_FIT_KEYS, LABEL_PLANTED, label_args,
+                        planted_label_lanes)
 from planarslam_tpu import config as jconfig
+from planarslam_tpu.geometry import plane as jplane_geo
 from planarslam_tpu.io import synthetic
 from planarslam_tpu.ops import manhattan as jmanh
 from planarslam_tpu.ops import planes as jplanes
@@ -163,6 +166,118 @@ def test_plane_rounds_and_labels_stride2(which, depths):
                                atol=tol)
     np.testing.assert_allclose(pt.centroid.numpy(), np.asarray(pj.centroid),
                                atol=tol)
+
+
+def _jax_label_pixels(depth, alpha, cam, cfg, fit):
+    """planarslam_tpu/ops/planes.py::extract_planes' depth gate (:223-262,
+    alpha given) and its final gate and full-resolution labeling
+    (:439-473) over a given last refit, in JAX."""
+    h, w = depth.shape
+    label_sub, normal_f, d_f, mse_f, mean_f, n_p, cand_valid = fit
+    p_cap = normal_f.shape[0]
+    points = jplanes.backproject_depth(depth, cam)
+    depth_ok = (depth > 1e-6) & (depth < cfg.max_distance)
+    z2 = jnp.maximum(depth, 1.0) ** 2
+    tol = jnp.maximum(0.02 * (640.0 / w) * jnp.maximum(depth, 1.0),
+                      3.0 * jnp.sqrt(2.0) * alpha * z2)
+    jump_r = jnp.abs(depth - jnp.roll(depth, -1, axis=1))
+    jump_d = jnp.abs(depth - jnp.roll(depth, -1, axis=0))
+    jump_r = jump_r.at[:, -1].set(0.0)
+    jump_d = jump_d.at[-1, :].set(0.0)
+    depth_ok = depth_ok & (jump_r < tol) & (jump_d < tol)
+    count = n_p.astype(jnp.int32)
+    mse_gate = jnp.maximum(cfg.distance_threshold,
+                           2.0 * alpha * mean_f[:, 2] ** 2) ** 2
+    valid = cand_valid & (count >= cfg.min_size) & (mse_f < mse_gate)
+    coeffs = jplane_geo.normalize(jnp.concatenate([normal_f, d_f[:, None]],
+                                                  axis=-1))
+    coeffs = jnp.where(valid[:, None], coeffs, 0.0)
+    if max(1, int(cfg.refine_stride)) == 1:
+        label_pix = label_sub
+    else:
+        pts_flat = points.reshape(-1, 3)
+        band_pix = jnp.maximum(cfg.distance_threshold,
+                               3.0 * alpha * z2).reshape(-1)
+        dist_full = jnp.abs(pts_flat @ normal_f.T + d_f[None, :])
+        dist_full = jnp.where(valid[None, :], dist_full, jnp.inf)
+        best_f = jnp.argmin(dist_full, axis=-1)
+        best_fd = jnp.min(dist_full, axis=-1)
+        tau_f = jnp.maximum(2.5 * jnp.sqrt(jnp.maximum(mse_f, 0.0)), 1e-3)
+        keep_f = (best_fd < jnp.minimum(tau_f[best_f], band_pix)) \
+            & depth_ok.reshape(-1)
+        label_pix = jnp.where(keep_f, best_f, p_cap).astype(jnp.int32)
+    pixel_label = jnp.where(
+        (label_pix < p_cap) & valid[jnp.clip(label_pix, 0, p_cap - 1)],
+        label_pix, -1).reshape(h, w)
+    return coeffs, mean_f, count, valid, pixel_label
+
+
+@pytest.mark.parametrize("stride", [2, 1])
+@pytest.mark.parametrize("case", LABEL_PLANTED)
+def test_plane_label_pixels_planted(case, stride):
+    """K14's plain version against the JAX lines it replaces on
+    chip_smoke's LABEL_PLANTED problems (0, 1 and 16 planes through the
+    final gate, identical and negated planes, depth holes, jumps and far
+    depths at the right and bottom edges, 64x48, 643x481, 640x480 and
+    1280x960) at refine_stride 2 and 1: validity, counts, centroids and
+    labels exact, coefficients atol 1e-6 (the unit normal's norm, summed
+    in each framework's order)."""
+    lanes = planted_label_lanes(case, 1)
+    cfg = tconfig.SystemConfig()
+    depth, alpha, cam, pc, fit = label_args(lanes, cfg, stride, "cpu", 0)
+    got = tplanes.plane_label_pixels(depth, alpha, cam, pc, fit)
+    jcam = dataclasses.replace(JC.camera, **{
+        k: getattr(cam, k) for k in ("fx", "fy", "cx", "cy", "width",
+                                     "height")})
+    jpc = dataclasses.replace(jconfig.SystemConfig().planes,
+                              refine_stride=stride, min_size=pc.min_size)
+    want = [np.asarray(x) for x in _jax_label_pixels(
+        jnp.asarray(lanes["depth"][0]), jnp.float32(lanes["alpha"][0]),
+        jcam, jpc, [jnp.asarray(lanes[k][0]) for k in LABEL_FIT_KEYS])]
+    np.testing.assert_allclose(got.coeffs.numpy(), want[0], atol=1e-6)
+    for name, g, w in zip(("centroid", "count", "valid", "pixel_label"),
+                          got[1:], want[1:]):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    n_valid = {"alive0": 0, "alive1": 1, "alive16": 16, "ties": 15,
+               "edges": 16}[case]
+    assert int(got.valid.sum()) == n_valid
+    if stride == 2 and case == "ties":  # the first of equal distances
+        labels = set(np.unique(want[4]).tolist())
+        assert {0, 2} <= labels and not {1, 3} & labels
+
+
+@pytest.mark.parametrize("case", ["alive1", "ties", "edges"])
+def test_extract_planes_planted_depths(case):
+    """The plain versions' extract_planes (K4, K12, the rounds of K13,
+    K14) against JAX's on LABEL_PLANTED's depth maps at the default
+    configuration (refine_stride 2): validity and labels exact; counts
+    rtol 2e-3, coefficients and centroids atol 2e-3, the limits
+    test_plane_rounds_and_labels_stride2 holds noisy depth to, where a
+    pixel of the refine rounds sits at a gate (the planted planes are
+    quantized at 0.2 mm, so a far plane's float32 mse is a cancellation
+    residual of either sign, its tau 1 or 3.6 mm: the two frameworks'
+    rounds, which sum in other orders, may give it a few subsampled pixels
+    more or fewer, "edges"' plane 12 two, which move its centroid 1e-3)."""
+    lanes = planted_label_lanes(case, 1)
+    cfg = tconfig.SystemConfig()
+    depth, _, cam, _, _ = label_args(lanes, cfg, 2, "cpu", 0)
+    jcam = dataclasses.replace(JC.camera, **{
+        k: getattr(cam, k) for k in ("fx", "fy", "cx", "cy", "width",
+                                     "height")})
+    pj = jplanes.extract_planes(jnp.asarray(lanes["depth"][0]), jcam,
+                                jconfig.SystemConfig().planes)
+    pt = tplanes.extract_planes(depth, cam, cfg.planes)
+    assert int(np.asarray(pj.valid).sum()) > 0
+    for name in ("valid", "pixel_label"):
+        np.testing.assert_array_equal(getattr(pt, name).numpy(),
+                                      np.asarray(getattr(pj, name)),
+                                      err_msg=name)
+    np.testing.assert_allclose(pt.count.numpy(), np.asarray(pj.count),
+                               rtol=2e-3)
+    for name in ("coeffs", "centroid"):
+        np.testing.assert_allclose(getattr(pt, name).numpy(),
+                                   np.asarray(getattr(pj, name)), atol=2e-3,
+                                   err_msg=name)
 
 
 def _manhattan_scene(case: str):

@@ -58,7 +58,7 @@ def test_sim3_functions_match_jax(batch):
     S_j, S2_j = jsim3.make(R, t, s), jsim3.make(R2, t2, s2)
     S_t, S2_t = tsim3.make(_t(R), _t(t), _t(s)), tsim3.make(
         _t(R2), _t(t2), _t(s2))
-    _close(tsim3.identity(), jsim3.identity())
+    _close(tsim3.identity(device="cpu"), jsim3.identity())
     pts = rng.normal(0, 1, batch + (20, 3)).astype(np.float32)
     np.testing.assert_allclose(tsim3.apply(S_t, _t(pts)).numpy(),
                                np.asarray(jsim3.apply(S_j, pts)), atol=1e-5)

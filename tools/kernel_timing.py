@@ -7,8 +7,9 @@ K12 (plane_components), K13 (plane_assign_refit), K15
 (frame_match_select), K28 (noise_alpha), K29 (frame_normals), K30
 (associate_planes), K31 (finish_step), K40 (ba_schur_complement), the
 pose graph's step (K10, K41), K42 (triangulate_lines) and K43-K45
-(pcg_prepare, pcg_schur_matvec, pcg_cg_update) of one tree of the port on
-a GPU, so that two trees can be compared in one run.
+(pcg_prepare, pcg_schur_matvec, pcg_cg_update), K14 (plane_label_pixels)
+and K27 (assemble_observations) of one tree of the port on a GPU, so that
+two trees can be compared in one run.
 
     python3 tools/kernel_timing.py [--root DIR] [--only NAME,...]
 
@@ -72,9 +73,14 @@ mapping steps alone and the four in one launch (`line_tri_problems`; a
 tree without K42 times its plain line triangulation); K43-K45 on path
 4c's 256-keyframe orbit at its first LM step: K43, K44's product and
 back-substitution, K45's init and update (`pcg_problems`; a tree without
-them has none). K1, K3, K12, K13, K15, K16, K17, K18, K22, K23, K25, K26,
-K28, K29, K30, K31, K40, K10, K41 and K42-K45 are timed by
-`kernel_timing_entry`.
+them has none); K27 on both launches of path 1's 48th tracking step,
+steps 45-48 at B = 4 and every ASSEMBLE_PLANTED problem alone and at B =
+4 (`assemble_problems`), K14 on path 1's 48th frame, frames 45-48 at B =
+4 and every LABEL_PLANTED problem (1280x960 and 643x481 among them) at
+refine_stride 2 and 1, alone and at B = 4 (`label_problems`), both on the
+inputs `step_kernel_inputs` captures once. K1, K3, K12, K13, K14, K15,
+K16, K17, K18, K22, K23, K25, K26, K27, K28, K29, K30, K31, K40, K10, K41
+and K42-K45 are timed by `kernel_timing_entry`.
 --only times the named kernels alone (their keys in the output, e.g.
 `lift_lines_3d,match_select`). Prints one JSON
 object with the card's name and power limit, those times and a hash of
@@ -178,6 +184,17 @@ def main(argv=None) -> int:
                    **smoke.kernel_timing_entry(fn, "plane_")}
             for name, fn in smoke.components_problems(seq, cfg, dev).items()}
 
+    if wanted("assemble_observations") or wanted("plane_label_pixels"):
+        step_inputs = smoke.step_kernel_inputs(seq, cfg, dev)
+    for key, problems, match in (
+            ("assemble_observations", smoke.assemble_problems,
+             "assemble_observations"),
+            ("plane_label_pixels", smoke.label_problems, "plane_label")):
+        if wanted(key):
+            out[key] = {name: {"hash": _digest(fn()),
+                               **smoke.kernel_timing_entry(fn, match)}
+                        for name, fn in problems(seq, cfg, dev,
+                                                 step_inputs).items()}
     for key, problems, match in (
             ("manhattan_mean_shift", smoke.manhattan_problems, "manhattan"),
             ("frame_normals", smoke.normals_problems, "frame_normals"),
