@@ -7,9 +7,10 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the hand-written kernels from planarslam_tpu_torch/csrc
      (one nvcc per source, in parallel), and print ptxas's registers,
-     spills and stack frame for each kernel of pose_opt.cu, lines.cu,
-     hamming_top2.cu, plane_segment.cu, manhattan.cu, depth_normals.cu,
-     fast_score.cu and line_lift_search.cu;
+     spills and stack frame for each kernel of PTXAS_SOURCES (pose_opt.cu,
+     lines.cu, hamming_top2.cu, plane_segment.cu, manhattan.cu,
+     depth_normals.cu, fast_score.cu, line_lift_search.cu, pyramid.cu,
+     select_keypoints.cu, matching.cu, orb_describe.cu, step_prelude.cu);
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the 640x480 paths give it (inputs from frame 0 of the
      synthetic sequence, or from a numpy seed with planted structure), with
@@ -37,7 +38,12 @@ Phases, each fatal on failure:
      K15 (Manhattan mean shift) on frame 0's normals and line directions,
      also on them twice over (N = 4224) and on none; K16-K19 (pyramid, blur, keypoint selection, point
      epilogue) and the all-levels launches of K1 and K2 on frame 0's
-     8-level pyramid and 1000 keypoints, K16 also on a 1280x960 frame, a
+     8-level pyramid and 1000 keypoints (K2 also into outputs filled with
+     NaN, two launches equal bits, and on ORB_PLANTED: clamped windows,
+     x.5 coordinates, NaN in invalid slots, quota-0 levels, no valid
+     slot, a long tail, flat and mirror-symmetric levels, the 1280x960
+     pyramid; angles 1e-4, >= 99% of the descriptors, the ORB_EXACT cases
+     bit-equal, every empty slot 0), K16 also on a 1280x960 frame, a
      64x48 one and frames 0-3 at B = 4 lane by lane, into a buffer
      filled with NaN (pyramid_protocol) and captured and replayed, K1
      also on planted levels
@@ -84,7 +90,10 @@ Phases, each fatal on failure:
      P = 13; B = 1 and 4 lane by lane, outputs filled with NaN), and both
      again on the inputs of path 1's 48th tracking step;
      K36 (the step's prelude) bit-equal to its plain version on the
-     inputs of path 1's 48th tracking step and on four planted lanes;
+     inputs of path 1's 48th tracking step and on planted lanes at every
+     PRELUDE_WIDTHS (the main path's, 2047 normals on its scalar path, no
+     line and one; NaN, zero-length and 0.1 m edge lines) at B = 1 and 4
+     lane by lane, into outputs filled with NaN;
      K37 (the step's sensor decode and window casts) bit-equal to its
      plain version on path 1's frame 0, a frame holding every depth value,
      643x481, 1280x960 and 64x48 frames, frames 0-3 at B = 4 lane by lane,
@@ -100,8 +109,9 @@ Phases, each fatal on failure:
      set against the per-target loop on path 2's map (0-5 targets, a set
      above capacity) and path 2's mapping steps bit-equal to the same
      steps run per target; the
-     batch of K1, K3, K4, K11, K12-K14, K15 (with its initial-pose
-     epilogue), K16, K23 and K28 on four lanes in one launch each, every lane
+     batch of K1-K4, K11, K12-K14, K15 (with its initial-pose
+     epilogue), K16, K23 and K28 on four lanes in one launch each (K2
+     also on ORB_PLANTED), every lane
      bit-equal to its own B = 1 launch and held to its plain version as
      one problem is,
      timed at B = 1 and B = 4; one K13 launch per round and one K28
@@ -391,7 +401,8 @@ def _launch_split(fn, reps: int = TIMING_REPS, match: str = "") -> dict:
 PTXAS_SOURCES = ("pose_opt.cu", "lines.cu", "hamming_top2.cu",
                  "plane_segment.cu", "manhattan.cu", "depth_normals.cu",
                  "fast_score.cu", "line_lift_search.cu", "pyramid.cu",
-                 "select_keypoints.cu", "matching.cu")
+                 "select_keypoints.cu", "matching.cu", "orb_describe.cu",
+                 "step_prelude.cu")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -577,6 +588,257 @@ def planted_fast_levels(case: str, seed: int = 1):
     return table, np.concatenate(maps)[None]
 
 
+# K2's planted problems (planted_orb_lanes): "borders", keypoints within 15
+# px of every border and corner of three levels, the last exactly the
+# patch's size (the windows and the samples clamp); "half_pixel",
+# coordinates at x.5 on levels whose grey rises with x alone (the angle is
+# +0, so the samples land on x.5 too and rintf ties to even);
+# "nan_invalid", invalid slots whose u, v or both are NaN; "quota0",
+# quota-0 levels (one smaller than the patch) between and after levels
+# with keypoints; "all_invalid", no valid slot; "tail", 100 slots in a
+# capacity of 1023 (the last block's last warp past it); "flat", a level
+# of 7s and one of 0s (both moments +0); "symmetric", keypoints on the
+# mirror axis of a level (m10 cancels exactly) and on the axes of a level
+# mirrored in both (m10 or m01 cancels: angles of +0, pi and +-pi/2);
+# "pyramid1280", the ORB level table of a 1280x960 frame, 1000 keypoints
+# on smooth random levels. Every case but "pyramid1280" has slots past
+# n_slots.
+ORB_PLANTED = ("borders", "half_pixel", "nan_invalid", "quota0",
+               "all_invalid", "tail", "flat", "symmetric", "pyramid1280")
+# level shapes and quotas of the cases but pyramid1280
+ORB_PLANTED_LEVELS = {
+    "borders": (((96, 128), (40, 48), (31, 31)), (40, 24, 9)),
+    "half_pixel": (((64, 96), (48, 64)), (32, 20)),
+    "nan_invalid": (((64, 80),), (48,)),
+    "quota0": (((60, 70), (16, 16), (45, 50), (20, 24)), (20, 0, 12, 0)),
+    "all_invalid": (((64, 80), (40, 50)), (30, 20)),
+    "tail": (((64, 80),), (100,)),
+    "flat": (((50, 60), (40, 40)), (20, 12)),
+    "symmetric": (((72, 90), (61, 61)), (16, 8))}
+# the cases whose moments are exact integer sums that vanish or cancel: the
+# angle, and with it every sample, is the plain version's bit for bit
+ORB_EXACT = ("half_pixel", "flat", "symmetric")
+
+
+def _orb_level_planted(case: str, l: int, h: int, w: int, q: int, rng):
+    """Level l of a planted_orb_lanes lane: (img, blur (h, w) float32, uv
+    (q, 2) float32, valid (q,) bool)."""
+    img = rng.integers(0, 256, (h, w)).astype(np.float32)
+    blur = rng.uniform(0.0, 255.0, (h, w)).astype(np.float32)
+    uv = rng.integers(0, [w, h], (q, 2)).astype(np.float32)
+    valid = rng.random(q) > 0.1
+    if case == "borders":
+        def near(n):
+            return np.array([0.0, 1.0, 7.0, 14.6, 15.0, 0.5 * n, n - 15.4,
+                             n - 16.0, n - 8.0, n - 2.0, n - 1.0])
+        uv = np.stack([rng.choice(near(w), q), rng.choice(near(h), q)],
+                      1).astype(np.float32)
+        uv[:4] = [[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1]]
+        valid[:4] = True
+    elif case == "half_pixel":
+        img = np.broadcast_to(np.arange(w, dtype=np.float32), (h, w)).copy()
+        uv[:, 0] = np.minimum(uv[:, 0], w - 2) + 0.5
+        uv[:, 1] = np.minimum(uv[:, 1], h - 2) + rng.choice([0.0, 0.5], q)
+        valid[:] = True
+    elif case == "nan_invalid":
+        valid = np.arange(q) % 3 != 0
+        k = np.arange(q) % 9
+        uv[k == 0, 0] = np.nan
+        uv[k == 3, 1] = np.nan
+        uv[k == 6] = np.nan
+    elif case == "all_invalid":
+        valid[:] = False
+    elif case == "flat":
+        img = np.full((h, w), 7.0 if l == 0 else 0.0, np.float32)
+        blur = img.copy()
+        valid[:] = True
+    elif case == "symmetric":
+        c, cy = (w - 1) // 2, (h - 1) // 2
+        if l == 0:  # mirrored about column c, keypoints on it
+            half = rng.integers(0, 256, (h, c + 1)).astype(np.float32)
+            rest = rng.integers(0, 256, (h, w - 2 * c - 1)).astype(np.float32)
+            img = np.concatenate([half, half[:, -2::-1], rest], axis=1)
+            uv = np.stack([np.full(q, c), rng.integers(15, h - 15, q)], 1)
+        else:  # mirrored about row cy and column c, keypoints on both axes
+            quarter = rng.integers(0, 256, (h - cy, w - c)).astype(np.float32)
+            yy, xx = np.mgrid[0:h, 0:w]
+            img = quarter[np.abs(yy - cy), np.abs(xx - c)]
+            off = rng.integers(-15, 16, q)
+            on_col = (np.arange(q) % 2 == 0)[:, None]
+            uv = np.where(on_col, np.stack([c + 0 * off, cy + off], 1),
+                          np.stack([c + off, cy + 0 * off], 1))
+            uv[0] = [c, cy]
+        uv = uv.astype(np.float32)
+        valid[:] = True
+    elif case == "pyramid1280":
+        coarse = rng.uniform(0.0, 200.0, (h // 8 + 2, w // 8 + 2))
+        img = np.floor(np.kron(coarse, np.ones((8, 8)))[:h, :w]
+                       + rng.integers(0, 56, (h, w))).astype(np.float32)
+        blur = img + rng.uniform(-0.5, 0.5, (h, w)).astype(np.float32)
+    return img, blur, uv, valid
+
+
+def planted_orb_lanes(case: str, batch: int = 1, seed: int = 2):
+    """K2's planted problem `case` of ORB_PLANTED for `batch` lanes, each
+    drawing its own pixels and keypoints: (its level table, {"buf",
+    "blur": (batch, n_pixels) float32, "uv": (batch, n_slots, 2) float32,
+    "valid": (batch, n_slots) bool, "capacity": the output slots}), numpy."""
+    from planarslam_tpu_torch.ops import levels
+
+    if case == "pyramid1280":
+        from planarslam_tpu_torch.config import ORBConfig
+        from planarslam_tpu_torch.ops.frontend import orb_level_table
+
+        table = orb_level_table(960, 1280, ORBConfig())
+        capacity = ORBConfig().max_keypoints
+    else:
+        shapes, quotas = ORB_PLANTED_LEVELS[case]
+        n = len(shapes)
+        table = levels.table_from_levels(shapes, quotas, [8] * n, [1.0] * n)
+        capacity = 1023 if case == "tail" else table.n_slots + 7
+    quotas = [int(q) for q in table.column("quota")]
+    rng = np.random.default_rng(seed + ORB_PLANTED.index(case))
+    lanes = {k: [] for k in ("buf", "blur", "uv", "valid")}
+    for _ in range(batch):
+        parts = [_orb_level_planted(case, l, h, w, q, rng)
+                 for l, ((h, w), q) in enumerate(zip(table.shapes, quotas))]
+        for i, k in enumerate(lanes):
+            lanes[k].append(np.concatenate([p[i].reshape(-1) if i < 2
+                                            else p[i] for p in parts]))
+    out = {k: np.stack(v) for k, v in lanes.items()}
+    out["capacity"] = capacity
+    return table, out
+
+
+def orb_planted_args(case: str, dev, lane=None, batch: int = 4) -> tuple:
+    """orb_describe_levels' arguments (buf, blur, uv, valid, table,
+    capacity) of planted_orb_lanes(case, batch) on the card; `lane` keeps
+    that lane alone."""
+    import torch
+
+    table, arrs = planted_orb_lanes(case, batch)
+    rows = slice(None) if lane is None else slice(lane, lane + 1)
+    t = [torch.from_numpy(np.ascontiguousarray(arrs[k][rows])).to(dev)
+         for k in ("buf", "blur", "uv", "valid")]
+    return (*t, table, arrs["capacity"])
+
+
+def orb_read_bytes(kps, angles, capacity: int) -> int:
+    """The bytes K2 must move on these levels' keypoints (kps: (image,
+    blur, uv, valid) a level; angles: its outputs a level): each image
+    pixel under a valid slot's circular patch and each blur pixel its 512
+    steered samples read, once however many slots share it; every slot's
+    uv and valid; the 4 KB pattern; `capacity` angles and descriptors."""
+    import torch
+
+    from planarslam_tpu_torch.ops import orb
+
+    r = orb.HALF_PATCH
+    dy, dx = torch.meshgrid(torch.arange(-r, r + 1), torch.arange(-r, r + 1),
+                            indexing="ij")
+    ring = dx * dx + dy * dy <= r * r
+    total = orb._PATTERN.nbytes + capacity * (4 + 8 * 4)
+    for (img, _, uv, valid), ang in zip(kps, angles):
+        h, w = img.shape
+        total += uv.numel() * 4 + valid.numel()
+        p, a = uv[valid].cpu(), ang[valid].cpu()
+        x0 = torch.clamp(torch.round(p[:, :1]).long() - r, 0, w - 2 * r - 1)
+        y0 = torch.clamp(torch.round(p[:, 1:]).long() - r, 0, h - 2 * r - 1)
+        patch = (y0 + dy[ring]) * w + x0 + dx[ring]
+        pat = torch.from_numpy(orb._PATTERN_F)
+        ca, sa = torch.cos(a)[:, None], torch.sin(a)[:, None]
+        samples = []
+        for ox, oy in ((pat[:, 0], pat[:, 1]), (pat[:, 2], pat[:, 3])):
+            u = torch.round(p[:, :1] + (ca * ox - sa * oy)).long()
+            v = torch.round(p[:, 1:] + (sa * ox + ca * oy)).long()
+            samples.append(v.clamp(0, h - 1) * w + u.clamp(0, w - 1))
+        total += 4 * (torch.unique(patch).numel()
+                      + torch.unique(torch.cat(samples)).numel())
+    return total
+
+
+def orb_held(name: str, got, want, valid, exact: bool = False) -> dict:
+    """K2's outputs (angle (B, capacity), desc (B, capacity, 8)) held to
+    its plain version's: angles within 1e-4, the descriptors of >= 99% of
+    the valid slots equal (all outputs bit-equal where `exact`), every
+    other slot (invalid, or past n_slots) angle +0 and a zero descriptor.
+    Returns the largest angle error, the descriptor mismatches among the
+    valid slots and whether every output was bit-equal."""
+    import torch
+
+    (a_k, d_k), (a_p, d_p) = got, want
+    n = valid.shape[-1]
+    err = _max_err(a_k, a_p)
+    bad = int(((d_k[:, :n] != d_p[:, :n]).any(-1) & valid).sum())
+    n_valid = int(valid.sum())
+    empty = torch.ones(a_k.shape, dtype=torch.bool, device=a_k.device)
+    empty[:, :n] = ~valid
+    zero = not (bool(a_k.view(torch.int32)[empty].any())
+                or bool(d_k[empty].any()))
+    same = _bit_diff(a_k, a_p, as_int=True) == 0 and bool(
+        torch.equal(d_k, d_p))
+    _check(err <= 1e-4 and bad <= 0.01 * n_valid and zero
+           and (same or not exact),
+           f"orb_describe ({name}): angle error {err}, {bad} of {n_valid} "
+           f"valid descriptors differ, other slots zero: {zero}, "
+           f"bit-equal: {same} (required: {exact})")
+    return {"max_abs_err": err, "desc_mismatch": bad, "n_valid": n_valid,
+            "bit_equal": same}
+
+
+def _orb_planted_angles(case: str, angle, valid) -> None:
+    """The planted cases exercise what they claim: half_pixel's and flat's
+    valid angles +0, symmetric's among +0, pi and +-pi/2 with each of pi / 2
+    or -pi / 2 and +0 or pi present."""
+    import torch
+
+    a = angle[:, :valid.shape[-1]][valid]
+    if case in ("half_pixel", "flat"):
+        _check(not bool(a.view(torch.int32).any()),
+               f"orb_describe ({case}): a valid angle is not +0")
+    elif case == "symmetric":
+        half, pi = np.float32(math.pi / 2), np.float32(math.pi)
+        got = set(a.cpu().numpy().tolist())
+        _check(got <= {0.0, float(pi), float(half), -float(half)}
+               and bool(got & {float(half), -float(half)})
+               and bool(got & {0.0, float(pi)}),
+               f"orb_describe (symmetric): angles {sorted(got)}")
+
+
+def orb_planted_parity(dev, batch: int) -> dict:
+    """K2 on every ORB_PLANTED problem, held by orb_held (ORB_EXACT cases
+    bit for bit): at batch 1 (lane 0) into outputs filled with NaN, two
+    launches equal bits; at batch > 1 in one launch, each lane bit-equal
+    to its own B = 1 launch."""
+    from planarslam_tpu_torch import kernels
+    from planarslam_tpu_torch.ops import orb
+
+    out = {}
+    for case in ORB_PLANTED:
+        args = orb_planted_args(case, dev, 0 if batch == 1 else None,
+                                BATCH_PARITY if batch == 1 else batch)
+        n0 = kernels.LAUNCHES["orb_describe"]
+        if batch == 1:
+            with poisoned_outputs(orb, "_out"):
+                got = _twice(orb.orb_describe_levels, *args)
+            launches = 2
+        else:
+            got = orb.orb_describe_levels(*args)
+            launches = 1
+        _check(kernels.LAUNCHES["orb_describe"] == n0 + launches,
+               f"orb_describe ({case}): not one launch a call")
+        if batch > 1:
+            _same_lanes(f"orb_describe ({case})", got, [
+                orb.orb_describe_levels(*[
+                    x[b:b + 1].contiguous() if hasattr(x, "device") else x
+                    for x in args]) for b in range(batch)])
+        want = orb.orb_describe_levels_plain(*args)
+        _orb_planted_angles(case, want[0], args[3])
+        out[case] = orb_held(f"{case}, B = {batch}", got, want, args[3],
+                             case in ORB_EXACT)
+    return out
+
+
 def kernel_parity(seq, cfg, dev) -> list:
     """K1-K4 against their plain versions on the card."""
     import torch
@@ -675,8 +937,9 @@ def kernel_parity(seq, cfg, dev) -> list:
            "orb_describe_levels differs from the per-level launches")
     out.append({"name": "orb_describe", "route": "cuda", "library_ms": None,
                 # per keypoint: the 31 x 31 intensity moments, 256 rotated
-                # pair comparisons
-                **_bound(_nbytes(kps, k2_out), 5000 * n_valid),
+                # pair comparisons; the pixels the keypoints read
+                **_bound(orb_read_bytes(kps, [a for a, _ in k2_out], cap),
+                         5000 * n_valid),
                 "source": "planarslam_tpu_torch/csrc/orb_describe.cu",
                 "replaces": "planarslam_tpu/ops/orb.py:57",
                 "max_abs_err": ang_err, "tolerance": 1e-4,
@@ -1168,7 +1431,7 @@ def _keypoint_set(uv, level, valid) -> set:
             for l, (x, y), v in zip(level, uv, valid) if v}
 
 
-def frontend_kernel_parity(seq, cfg, dev) -> list:
+def frontend_kernel_parity(seq, cfg, dev, report=None) -> list:
     """K16-K19 against their plain versions on the card on frame 0 of the
     quantized sequence at the default configuration's full width (8 levels,
     1000 features in 1024 slots), and the whole extract_point_features on
@@ -1182,7 +1445,10 @@ def frontend_kernel_parity(seq, cfg, dev) -> list:
     launches its C entry reports. Both with their device times (*_timing,
     blur_problems and select_problems). K19: depth,
     validity, level, response and uv_raw exact, uv and u_right within 1e-4,
-    with and without distortion."""
+    with and without distortion. K2: on frame 0's pyramid and K18's
+    keypoints and on ORB_PLANTED (lane 0), each into outputs filled with
+    NaN, two launches equal bits, held by orb_held (the results on its
+    entry of `report`, where given)."""
     import dataclasses
 
     import torch
@@ -1390,6 +1656,18 @@ def frontend_kernel_parity(seq, cfg, dev) -> list:
                 "plain_ms": _time_ms(
                     lambda: fast.select_keypoints_levels_plain(
                         scores, table, min_score, fe.EDGE_BORDER))})
+
+    # K2 at B = 1 on frame 0's pyramid, blur and keypoints, then on
+    # ORB_PLANTED (B = 4 in batched_kernel_parity)
+    k2_args = (buf, blur_k, k18[0], k18[2], table, cap)
+    with poisoned_outputs(orb, "_out"):
+        got2 = _twice(orb.orb_describe_levels, *k2_args)
+    held2 = {"frame0_b1": orb_held("frame 0", got2,
+                                   orb.orb_describe_levels_plain(*k2_args),
+                                   k18[2]),
+             "planted": orb_planted_parity(dev, 1)}
+    if report is not None:
+        next(k for k in report if k["name"] == "orb_describe").update(held2)
 
     # K19: the synthetic camera (no distortion) and one with all five
     # coefficients set
@@ -4726,18 +5004,22 @@ def _stack_calls(calls: list, lead: bool) -> tuple:
 
 def step_kernel_inputs(seq, cfg, dev, step: int = ASSOC_STEP,
                        lanes: int = 4) -> dict:
-    """The inputs of K27's two launches and of K14 at path 1's tracking
-    steps step - lanes + 1 .. step (a tracking-only System over seq's
-    clean quantized frames; K14's of the frames those steps track), each
-    call's tensors cloned: {"points": [args, ...], "lines": [...],
-    "labels": [...]}, the last the step-th's."""
+    """The inputs of K27's two launches, of K14, of K2 and of K36 at path
+    1's tracking steps step - lanes + 1 .. step (a tracking-only System
+    over seq's clean quantized frames; K14's and K2's of the frames those
+    steps track, K2's of the last CHUNK_SIZE frames), each call's tensors
+    cloned: {"points": [args, ...], "lines": [...], "labels": [...],
+    "orb": [...], "prelude": [...]}, the last the step-th's."""
     from planarslam_tpu_torch.io.frames import quantize_frame
-    from planarslam_tpu_torch.ops import matching, planes
+    from planarslam_tpu_torch.ops import matching, orb, planes
+    from planarslam_tpu_torch.slam import device_tracker
     from planarslam_tpu_torch.slam.system import System
 
     names = {"points": (matching, "assemble_point_obs"),
              "lines": (matching, "assemble_line_obs"),
-             "labels": (planes, "plane_label_pixels")}
+             "labels": (planes, "plane_label_pixels"),
+             "orb": (orb, "orb_describe_levels"),
+             "prelude": (device_tracker, "step_prelude")}
     rec = {k: [] for k in names}
     orig = {k: getattr(m, a) for k, (m, a) in names.items()}
 
@@ -4760,11 +5042,13 @@ def step_kernel_inputs(seq, cfg, dev, step: int = ASSOC_STEP,
     finally:
         for k, (m, a) in names.items():
             setattr(m, a, orig[k])
-    _check(len(rec["points"]) == step and len(rec["lines"]) == step
-           and len(rec["labels"]) == step + 1,
+    _check(len(rec["points"]) == len(rec["lines"]) == step
+           and len(rec["prelude"]) == step
+           and len(rec["labels"]) == len(rec["orb"]) == step + 1,
            f"step_kernel_inputs: {[len(v) for v in rec.values()]} calls "
            f"over {step + 1} frames")
-    return {k: v[-lanes:] for k, v in rec.items()}
+    return {k: v[-(max(lanes, CHUNK_SIZE) if k == "orb" else lanes):]
+            for k, v in rec.items()}
 
 
 def assemble_problems(seq, cfg, dev, inputs=None) -> dict:
@@ -4821,6 +5105,27 @@ def label_problems(seq, cfg, dev, inputs=None) -> dict:
             probs[f"{case}_s{stride}_b4"] = label_args(lanes, cfg, stride,
                                                        dev)
     return {k: (lambda a=a: P.plane_label_pixels(*a))
+            for k, a in probs.items()}
+
+
+def orb_problems(seq, cfg, dev, inputs=None) -> dict:
+    """K2 at the main path's shapes: path 1's ASSOC_STEP-th frame
+    (step_kernel_inputs: its all-levels launch), frames ASSOC_STEP - 3 ..
+    ASSOC_STEP in one launch ("b4"), the last CHUNK_SIZE frames in one, as
+    chunked mode's front end launches them ("c8"), and every ORB_PLANTED
+    problem, lane 0 alone and BATCH_PARITY lanes. Returns {name: fn}, fn()
+    launching it."""
+    from planarslam_tpu_torch.ops import orb
+
+    calls = (inputs or step_kernel_inputs(seq, cfg, dev))["orb"]
+    probs = {f"frame{ASSOC_STEP}": calls[-1],
+             "b4": _stack_calls(calls[-4:], True),
+             f"c{CHUNK_SIZE}": _stack_calls(calls[-CHUNK_SIZE:], True)}
+    for case in ORB_PLANTED:
+        probs[case] = orb_planted_args(case, dev, 0, BATCH_PARITY)
+        probs[f"{case}_b4"] = orb_planted_args(case, dev, None,
+                                               BATCH_PARITY)
+    return {k: (lambda a=a: orb.orb_describe_levels(*a))
             for k, a in probs.items()}
 
 
@@ -10125,15 +10430,20 @@ H2D_BATCH_STEPS = 24   # batched steps under the profiler (B = 4)
 PRELUDE_CAPTURE = (("device_tracker", "step_prelude", 48),)
 
 
-def _planted_prelude(dev, B: int, L: int, Nn: int, seed: int = 36) -> tuple:
-    """K36's inputs for B seeded lanes at the main path's widths: the
-    override on and off, a zero-length, a short and a NaN line."""
-    import torch
+# K36's planted widths (n_normals, n_lines): the main path's, 2047 normals
+# (the scalar path), no line and one
+PRELUDE_WIDTHS = ((2048, 64), (2047, 64), (2048, 0), (2048, 1), (2047, 0),
+                  (2047, 1))
 
+
+def planted_prelude_arrays(B: int, L: int, Nn: int, seed: int = 36) -> list:
+    """K36's inputs for B seeded lanes, numpy, in step_prelude's argument
+    order: the override on and off, random poses, lines, normals and
+    flags, and from line 0 of every lane (as many as it has) a line of
+    zero length, one of 0.05 m, one with a NaN coordinate, and lifted,
+    valid lines whose length is the float32 below 0.1, 0.1 and the one
+    above (e - s exactly (length, 0, 0))."""
     rng = np.random.default_rng(seed)
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def poses(n):
         return np.stack([_planted_se3(rng) for _ in range(n)]).astype(
@@ -10142,33 +10452,86 @@ def _planted_prelude(dev, B: int, L: int, Nn: int, seed: int = 36) -> tuple:
     p3d_s = rng.normal(size=(B, L, 3)).astype(np.float32)
     p3d_e = (p3d_s + rng.normal(scale=0.3, size=(B, L, 3))).astype(
         np.float32)
-    p3d_e[:, 0] = p3d_s[:, 0]
-    p3d_e[:, 1] = p3d_s[:, 1] + 0.05
-    p3d_e[0, 2, 0] = np.nan
+    has_3d = rng.random((B, L)) > 0.2
+    ln_valid = rng.random((B, L)) > 0.2
+    tenth = np.float32(0.1)
+    edge = (np.nextafter(tenth, np.float32(0)), tenth,
+            np.nextafter(tenth, np.float32(1)))
+    for k in range(min(L, 6)):
+        if k == 0:
+            p3d_e[:, 0] = p3d_s[:, 0]
+        elif k == 1:
+            p3d_e[:, 1] = p3d_s[:, 1] + np.float32(0.05)
+        elif k == 2:
+            p3d_e[np.arange(B), 2, np.arange(B) % 3] = np.nan
+        else:
+            p3d_s[:, k] = (0.0, 1.0, 2.0)
+            p3d_e[:, k] = (edge[k - 3], 1.0, 2.0)
+            has_3d[:, k] = ln_valid[:, k] = True
     normals = rng.normal(size=(B, Nn, 3))
     normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
-    return (t(poses(B)), t(np.arange(B) % 2 == 0), t(poses(B)), t(poses(B)),
-            t(p3d_s), t(p3d_e), t(rng.random((B, L)) > 0.2),
-            t(rng.random((B, L)) > 0.2), t(normals.astype(np.float32)),
-            t(rng.random((B, Nn)) > 0.3), t(poses(B)[:, :3, :3].copy()))
+    return [poses(B), np.arange(B) % 2 == 0, poses(B), poses(B), p3d_s,
+            p3d_e, has_3d, ln_valid, normals.astype(np.float32),
+            rng.random((B, Nn)) > 0.3, poses(B)[:, :3, :3].copy()]
+
+
+def _planted_prelude(dev, B: int, L: int, Nn: int, seed: int = 36) -> tuple:
+    """planted_prelude_arrays on the card."""
+    import torch
+
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in planted_prelude_arrays(B, L, Nn, seed))
+
+
+def prelude_problems(seq, cfg, dev, inputs=None) -> dict:
+    """K36 at the main path's shapes: path 1's ASSOC_STEP-th tracking step
+    (step_kernel_inputs), steps ASSOC_STEP - 3 .. ASSOC_STEP in one launch
+    ("b4"), and planted lanes at every PRELUDE_WIDTHS, lane 0 alone and
+    BATCH_PARITY lanes. Returns {name: fn}, fn() launching it."""
+    from planarslam_tpu_torch.slam import device_tracker as dt
+
+    calls = (inputs or step_kernel_inputs(seq, cfg, dev))["prelude"]
+    probs = {f"step{ASSOC_STEP}": calls[-1],
+             "b4": _stack_calls(calls[-4:], True)}
+    for nn, n_l in PRELUDE_WIDTHS:
+        lanes = _planted_prelude(dev, BATCH_PARITY, n_l, nn)
+        probs[f"planted_{nn}_{n_l}"] = tuple(x[:1].contiguous()
+                                             for x in lanes)
+        probs[f"planted_{nn}_{n_l}_b4"] = lanes
+    return {k: (lambda a=a: dt.step_prelude(*a)) for k, a in probs.items()}
 
 
 def prelude_kernel_parity(cfg, dev, captured: dict) -> list:
     """K36 against its plain version, every output bit-equal, two
-    launches equal bits: on the inputs of path 1's 48th tracking step and
-    on four planted lanes at the main path's widths."""
+    launches equal bits, into outputs filled with NaN: on the inputs of
+    path 1's 48th tracking step and on planted lanes at every
+    PRELUDE_WIDTHS (planted_prelude_arrays: NaN, zero-length and 0.1 m
+    edge lines), lane 0 alone and BATCH_PARITY lanes in one launch, each
+    lane bit-equal to its own launch."""
     from planarslam_tpu_torch.slam import device_tracker as dt
 
     key = PRELUDE_CAPTURE[0]
     _check(key in captured, "prelude: path 1's step prelude was not "
            "captured")
-    cases = {"path1_step48": captured[key][0],
-             "planted": _planted_prelude(dev, BATCH_PARITY,
-                                         cfg.lines.max_lines,
-                                         cfg.manhattan.max_normals)}
+    cases = {"path1_step48": captured[key][0]}
+    for nn, n_l in PRELUDE_WIDTHS:
+        lanes = _planted_prelude(dev, BATCH_PARITY, n_l, nn)
+        cases[f"planted_{nn}_{n_l}"] = tuple(x[:1].contiguous()
+                                             for x in lanes)
+        cases[f"planted_{nn}_{n_l}_b4"] = lanes
     for name, args in cases.items():
-        got = _twice(dt.step_prelude, *args)
+        with poisoned_outputs(dt, "_empty"):
+            got = _twice(dt.step_prelude, *args)
         _tail_held(f"step_prelude ({name})", got, dt.step_prelude_plain(*args))
+        if name.endswith("_b4"):
+            _same_lanes(f"step_prelude ({name})", got, [
+                dt.step_prelude(*[x[b:b + 1].contiguous() for x in args])
+                for b in range(BATCH_PARITY)])
+        if name.startswith("planted_") and args[4].shape[1] >= 6:
+            edge = got.dirs_valid[:, -args[4].shape[1]:][:, 3:6]
+            _check(edge.tolist() == [[False, False, True]] * len(edge),
+                   f"step_prelude ({name}): the 0.1 m edge lines gate as "
+                   f"{edge.tolist()}")
     args = cases["path1_step48"]
     out = dt.step_prelude(*args)
     n = out.dirs_valid.shape[1]
@@ -10181,6 +10544,7 @@ def prelude_kernel_parity(cfg, dev, captured: dict) -> list:
              "replaces": "planarslam_tpu/slam/device_tracker.py:274",
              "max_abs_err": 0.0, "tolerance": "bit-equal",
              "shapes": {"lanes": int(out.T_pred.shape[0]), "N": int(n)},
+             "planted": [c for c in cases if c.startswith("planted_")],
              "ms": _time_ms(lambda: dt.step_prelude(*args)),
              "plain_ms": _time_ms(lambda: dt.step_prelude_plain(*args))}
     _print_kernels([entry])
@@ -10212,11 +10576,12 @@ def _batch_entry(report: list, name: str, ms_b1: float, ms_b: float,
 
 
 def batched_kernel_parity(seq, cfg, dev, report: list) -> None:
-    """K1, K3, K4, K11, K12-K18, K23 and K28 on BATCH_PARITY lanes in one
+    """K1-K4, K11, K12-K18, K23 and K28 on BATCH_PARITY lanes in one
     launch each (K16 on the lanes' frames, K1 and K17 on the lanes'
     pyramids, K17 also
     on their frames at 5 taps and on planted levels, K18 on the lanes'
-    scores and on PLANTED_SELECT, K23 on the window seen from
+    scores and on PLANTED_SELECT, K2 on the lanes' pyramids and keypoints
+    and on ORB_PLANTED, held by orb_held, K23 on the window seen from
     LINE_LANE_VIEWS): every lane bit-equal to its own B = 1 launch, and
     held to its plain version as the single problem is; one launch per
     call whatever B; times at B = 1 and B = BATCH_PARITY beside the bound."""
@@ -10224,7 +10589,7 @@ def batched_kernel_parity(seq, cfg, dev, report: list) -> None:
 
     from planarslam_tpu_torch import kernels
     from planarslam_tpu_torch.io.frames import quantize_frame
-    from planarslam_tpu_torch.ops import fast, image
+    from planarslam_tpu_torch.ops import fast, image, orb
     from planarslam_tpu_torch.ops import lines as ln
     from planarslam_tpu_torch.ops import manhattan, matching, planes
     from planarslam_tpu_torch.ops.frontend import EDGE_BORDER, orb_level_table
@@ -10547,6 +10912,31 @@ def batched_kernel_parity(seq, cfg, dev, report: list) -> None:
         lambda: fast.select_keypoints_levels(s_one, table, min_score,
                                              EDGE_BORDER)), B,
         {"max_abs_err_plain": 0.0})
+
+    # K2 on the lanes' pyramids, 7-tap blurs and keypoints in one launch,
+    # each lane bit-equal to its B = 1 launch, then ORB_PLANTED at B = 4
+    uv_b, _, valid_b = fast.select_keypoints_levels(scores, table, min_score,
+                                                    EDGE_BORDER)
+    blur_b = image.gaussian_blur_levels(buf, table, 7, 2.0)
+    k2 = (buf, blur_b, uv_b, valid_b, table, oc.max_keypoints)
+
+    def lane2(b):
+        return [x[b:b + 1].contiguous() if isinstance(x, torch.Tensor) else x
+                for x in k2]
+
+    got = launches("orb_describe", orb.orb_describe_levels, *k2)
+    _same_lanes("orb_describe", got,
+                [orb.orb_describe_levels(*lane2(b)) for b in range(B)])
+    held2 = orb_held(f"the lanes' frames, B = {B}", got,
+                     orb.orb_describe_levels_plain(*k2), valid_b)
+    one2 = lane2(0)
+    _batch_entry(report, "orb_describe", *timed(
+        lambda: orb.orb_describe_levels(*k2),
+        lambda: orb.orb_describe_levels(*one2)), B,
+        {"max_abs_err_plain": held2["max_abs_err"],
+         "desc_mismatch": held2["desc_mismatch"],
+         "n_valid": held2["n_valid"],
+         "planted": orb_planted_parity(dev, B)})
 
     # K23 on the window seen from LINE_LANE_VIEWS, one lane each
     cam = cfg.camera
@@ -12241,9 +12631,9 @@ def main(argv=None) -> int:
     report = (kernel_parity(seq, cfg, dev) + backend_kernel_parity(cfg, dev)
               + ba_kernel_parity(dev) + k11
               + plane_kernel_parity(seq, cfg, dev)
-              + manhattan_kernel_parity(seq, cfg, dev)
-              + frontend_kernel_parity(seq, cfg, dev)
-              + line_kernel_parity(seq, cfg, dev))
+              + manhattan_kernel_parity(seq, cfg, dev))
+    report += (frontend_kernel_parity(seq, cfg, dev, report)
+               + line_kernel_parity(seq, cfg, dev))
     report += (matching_kernel_parity(seq, cfg, dev, report)
                + tail_kernel_parity(seq, cfg, dev)
                + decode_kernel_parity(seq, cfg, dev)

@@ -95,8 +95,6 @@ _D = ctypes.c_double
 _SIGNATURES = {
     # img, out, h, w, stream
     "psl_fast_score": [_P, _P, _I, _I, _P],
-    # img, blur, h, w, uv, valid, n, pattern, angle, desc, stream
-    "psl_orb_describe": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P],
     # a_desc, b_desc, M, N, batch, a_ok, b_ok, gated, a_uv, a_r, a_level,
     # a_ur_pred, b_uv, b_level, b_ur, level_window, best, second,
     # best_idx, stream

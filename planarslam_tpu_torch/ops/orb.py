@@ -1,11 +1,10 @@
 """Oriented BRIEF descriptors: intensity-centroid orientation + steered BRIEF.
 
-Port of ``planarslam_tpu/ops/orb.py``. ``orb_describe`` is kernel K2
-(``csrc/orb_describe.cu``): orientation and descriptor of every keypoint of
-one level in one launch, and ``orb_describe_levels`` the same kernel on the
-keypoints of every level of a frame in one launch;
-``orb_describe_plain`` is their plain PyTorch version (``orientations``
-then ``descriptors``). Descriptors are (N, 8) int32 bit
+Port of ``planarslam_tpu/ops/orb.py``. ``orb_describe_levels`` is kernel
+K2 (``csrc/orb_describe.cu``): orientation and descriptor of the keypoints
+of every level of a frame in one launch, and ``orb_describe`` the same
+kernel on one level, as a one-level table; ``orb_describe_plain`` is their
+plain PyTorch version (``orientations`` then ``descriptors``). Descriptors are (N, 8) int32 bit
 patterns (torch's uint32 lacks bitwise ops); they become uint32 only at the
 numpy boundary, with ``.view(np.uint32)``. The comparison pattern is the
 JAX package's, rebuilt from the same numpy seed.
@@ -13,6 +12,7 @@ JAX package's, rebuilt from the same numpy seed.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
@@ -20,7 +20,7 @@ import torch
 
 from planarslam_tpu_torch import kernels
 from planarslam_tpu_torch.ops.consts import const as _const
-from planarslam_tpu_torch.ops.levels import LevelTable
+from planarslam_tpu_torch.ops.levels import FIELDS, LevelTable
 
 HALF_PATCH = 15  # orientation patch radius (reference HALF_PATCH_SIZE)
 N_BITS = 256
@@ -117,6 +117,11 @@ def orb_describe_plain(img: torch.Tensor, img_blur: torch.Tensor,
     return angle, descriptors(img_blur, uv, angle, valid)
 
 
+def _out(shape, dtype, dev) -> torch.Tensor:
+    """K2's output allocator (a check may hand out filled buffers)."""
+    return torch.empty(shape, dtype=dtype, device=dev)
+
+
 def orb_describe(img: torch.Tensor, img_blur: torch.Tensor, uv: torch.Tensor,
                  valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 wrapper: orientation + steered BRIEF for one pyramid level.
@@ -133,16 +138,23 @@ def orb_describe(img: torch.Tensor, img_blur: torch.Tensor, uv: torch.Tensor,
     kernels.check(valid, "valid", torch.bool, (n,))
     if h < 2 * HALF_PATCH + 1 or w < 2 * HALF_PATCH + 1:
         raise ValueError(f"level {h}x{w} is smaller than the ORB patch")
-    pattern = _const("orb.pattern_i", _PATTERN, img.device)
-    angle = torch.empty(n, dtype=torch.float32, device=img.device)
-    desc = torch.empty((n, 8), dtype=torch.int32, device=img.device)
-    with torch.cuda.device(img.device):
-        kernels.launch("psl_orb_describe", kernels.ptr(img),
-                       kernels.ptr(img_blur), h, w, kernels.ptr(uv),
-                       kernels.ptr(valid), n, kernels.ptr(pattern),
-                       kernels.ptr(angle), kernels.ptr(desc))
-    kernels.LAUNCHES["orb_describe"] += 1
-    return angle, desc
+    angle, desc = orb_describe_levels(
+        img.reshape(1, -1), img_blur.reshape(1, -1), uv[None], valid[None],
+        _one_level(h, w, n), n)
+    return angle[0], desc[0]
+
+
+@lru_cache(maxsize=64)
+def _one_level(h: int, w: int, n: int) -> LevelTable:
+    """The table of a lone (h, w) level holding n keypoint slots (only its
+    shape and quota matter to K2)."""
+    rows = np.zeros((1, len(FIELDS)), np.int32)
+    rows[0, [FIELDS.index("h"), FIELDS.index("w"),
+             FIELDS.index("quota")]] = h, w, n
+    rows.setflags(write=False)
+    return LevelTable(ints=rows, scale=np.ones(1, np.float32),
+                      shapes=((h, w),), n_pixels=h * w, n_slots=n,
+                      n_tiles=0, n_candidates=0, max_tile=0)
 
 
 def orb_describe_levels_plain(buf: torch.Tensor, blur: torch.Tensor,
@@ -198,9 +210,8 @@ def orb_describe_levels(buf: torch.Tensor, blur: torch.Tensor,
         if q > 0 and (h < size or w < size):
             raise ValueError(f"level {h}x{w} is smaller than the ORB patch")
     pattern = _const("orb.pattern_i", _PATTERN, buf.device)
-    angle = torch.empty((b, capacity), dtype=torch.float32, device=buf.device)
-    desc = torch.empty((b, capacity, 8), dtype=torch.int32,
-                       device=buf.device)
+    angle = _out((b, capacity), torch.float32, buf.device)
+    desc = _out((b, capacity, 8), torch.int32, buf.device)
     with torch.cuda.device(buf.device):
         kernels.launch("psl_orb_describe_levels", kernels.ptr(buf),
                        kernels.ptr(blur), kernels.host_ptr(table.ints),

@@ -12,15 +12,17 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (PLANTED_BLUR_TAPS, PLANTED_FAST_CASES,
-                        PLANTED_SELECT, planted_blur_levels,
-                        planted_fast_levels, planted_scores,
+from chip_smoke import (ORB_EXACT, ORB_PLANTED, PLANTED_BLUR_TAPS,
+                        PLANTED_FAST_CASES, PLANTED_SELECT,
+                        planted_blur_levels, planted_fast_levels,
+                        planted_orb_lanes, planted_scores,
                         planted_select_levels)
 from planarslam_tpu import config as jconfig
 from planarslam_tpu.io import synthetic
 from planarslam_tpu.ops import fast as jfast
 from planarslam_tpu.ops import frontend as jfrontend
 from planarslam_tpu.ops import image as jimage
+from planarslam_tpu.ops import orb as jorb
 from planarslam_tpu_torch import config as tconfig
 from planarslam_tpu_torch.ops import consts as tconsts
 from planarslam_tpu_torch.ops import fast as tfast
@@ -546,6 +548,54 @@ def test_levels_route_equals_per_level_route():
     assert int(want.valid.sum()) > 50
     for name in want._fields:
         assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("case", ORB_PLANTED)
+def test_orb_describe_levels_planted(case):
+    """K2's plain all-levels version on chip_smoke.py's ORB_PLANTED
+    problems (lane 0: clamped windows and samples, x.5 coordinates, NaN
+    in invalid slots, quota-0 levels, no valid slot, a long tail, flat and
+    mirror-symmetric levels, the 1280x960 pyramid) against JAX's
+    orientations and descriptors level by level, at
+    test_fast_orb_per_level's limits: angles atol 1e-4, descriptors equal
+    for >= 99% of the valid slots. Invalid slots and those past n_slots
+    are exactly 0; the ORB_EXACT cases (flat, symmetric, half_pixel) are
+    bit-equal."""
+    table, arrs = planted_orb_lanes(case, 1)
+    n, cap = table.n_slots, arrs["capacity"]
+    angle, desc = torb.orb_describe_levels_plain(
+        *[torch.from_numpy(arrs[k]) for k in ("buf", "blur", "uv", "valid")],
+        table, cap)
+    a_t, d_t = angle[0].numpy(), desc[0].numpy().view(np.uint32)
+    assert a_t.shape == (cap,) and d_t.shape == (cap, 8)
+    a_j = np.zeros(n, np.float32)
+    d_j = np.zeros((n, 8), np.uint32)
+    s0 = 0
+    for l, ((h, w), q) in enumerate(zip(table.shapes,
+                                        table.column("quota"))):
+        if q == 0:
+            continue
+        sl = table.level_slice(l)
+        uv = jnp.asarray(arrs["uv"][0, s0:s0 + q])
+        ok = jnp.asarray(arrs["valid"][0, s0:s0 + q])
+        a = jorb.orientations(jnp.asarray(arrs["buf"][0, sl].reshape(h, w)),
+                              uv, ok)
+        a_j[s0:s0 + q] = np.asarray(a)
+        d_j[s0:s0 + q] = np.asarray(jorb.descriptors(
+            jnp.asarray(arrs["blur"][0, sl].reshape(h, w)), uv, a, ok))
+        s0 += q
+    valid = arrs["valid"][0]
+    empty = np.ones(cap, bool)
+    empty[:n] = ~valid
+    assert not a_t[empty].view(np.int32).any() and not d_t[empty].any()
+    np.testing.assert_allclose(a_t[:n], a_j, atol=1e-4)
+    same = np.all(d_t[:n] == d_j, axis=1)
+    assert (same & valid).sum() >= 0.99 * valid.sum()
+    if case in ORB_EXACT:
+        assert valid.sum() > 0
+        np.testing.assert_array_equal(a_t[:n].view(np.int32),
+                                      a_j.view(np.int32))
+        np.testing.assert_array_equal(d_t[:n], d_j)
 
 
 def test_device_constant_is_cached():

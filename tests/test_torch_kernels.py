@@ -1684,6 +1684,36 @@ def test_step_prelude_kernel(dev):
     _same_bits(got, again)
 
 
+@pytest.mark.parametrize("widths", chip_smoke.PRELUDE_WIDTHS)
+def test_step_prelude_planted_widths(dev, widths):
+    """K36 on chip_smoke.py's planted lanes at each PRELUDE_WIDTHS (the
+    main path's, 2047 normals on its scalar path, no line and one; NaN,
+    zero-length and 0.1 m edge lines): one launch a call, bit-equal to
+    step_prelude_plain in every output at B = 4, each lane equal to its own
+    launch."""
+    nn, n_l = widths
+    args = chip_smoke._planted_prelude(dev, 4, n_l, nn)
+    got, n = _launched("step_prelude", device_tracker.step_prelude, *args)
+    assert n == 1
+    _same_bits(got, device_tracker.step_prelude_plain(*args))
+    for b in range(4):
+        one = device_tracker.step_prelude(*[x[b:b + 1].contiguous()
+                                            for x in args])
+        _same_bits([x[b:b + 1] for x in got], one)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_orb_describe_planted(dev, batch):
+    """K2 on every chip_smoke.ORB_PLANTED problem (chip_smoke.py's
+    orb_planted_parity states the limits: angles 1e-4, >= 99% of the
+    valid descriptors, the ORB_EXACT cases bit-equal, empty slots 0; at
+    B = 1 into outputs filled with NaN, at B = 4 each lane equal to its
+    own launch)."""
+    out = _held(chip_smoke.orb_planted_parity, dev, batch)
+    assert set(out) == set(chip_smoke.ORB_PLANTED)
+    assert all(out[c]["bit_equal"] for c in chip_smoke.ORB_EXACT)
+
+
 def _decoded(out):
     gray, depth, win = out
     return [gray, depth, *win]

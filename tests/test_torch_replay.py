@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import planted_prelude_arrays
 from planarslam_tpu import config as jconfig
 from planarslam_tpu.io import synthetic
 from planarslam_tpu.parallel import replay as jreplay
@@ -326,13 +327,10 @@ def _jax_prelude(T_override, use_override, T_cw, velocity, p3d_s, p3d_e,
             T_pred[:3, :3] @ R_wm)
 
 
-def test_step_prelude_plain_matches_jax():
-    """(g) K36's plain version on four seeded lanes (the override on and
-    off, zero-length and short lines) against the JAX prelude: the
-    selections exact, T_pred and R_init atol 1e-6, directions atol 1e-6,
-    validity exact."""
+def _seeded_prelude(B: int, L: int, Nn: int) -> list:
+    """Four seeded lanes: the override on and off, zero-length and short
+    lines."""
     rng = np.random.default_rng(7)
-    B, L, Nn = 4, 16, 32
 
     def pose():
         q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
@@ -347,7 +345,7 @@ def test_step_prelude_plain_matches_jax():
     p3d_e[:, 0] = p3d_s[:, 0]            # zero length
     p3d_e[:, 1] = p3d_s[:, 1] + 0.05     # shorter than 0.1 m
     normals = rng.normal(size=(B, Nn, 3)).astype(np.float32)
-    args = [np.stack([pose() for _ in range(B)]),
+    return [np.stack([pose() for _ in range(B)]),
             np.array([True, False, True, False]),
             np.stack([pose() for _ in range(B)]),
             np.stack([pose() for _ in range(B)]), p3d_s, p3d_e,
@@ -355,6 +353,25 @@ def test_step_prelude_plain_matches_jax():
             normals / np.linalg.norm(normals, axis=-1, keepdims=True),
             rng.random((B, Nn)) > 0.3,
             np.stack([pose()[:3, :3] for _ in range(B)])]
+
+
+@pytest.mark.parametrize("case,Nn,L", [("seeded", 32, 16),
+                                       ("planted", 2048, 64),
+                                       ("planted", 2047, 64),
+                                       ("planted", 2047, 0),
+                                       ("planted", 2048, 1)])
+def test_step_prelude_plain_matches_jax(case, Nn, L):
+    """(g) K36's plain version on four lanes against the JAX prelude: the
+    seeded lanes (the override on and off, zero-length and short lines),
+    and chip_smoke.py's planted lanes at the main path's widths (Nn 2048,
+    L 64), at Nn 2047 (K36's scalar path) and with no line and one (lines
+    of zero length, of 0.05 m, with a NaN coordinate and at the float32
+    either side of 0.1 m and on it): the selections exact, T_pred and
+    R_init atol 1e-6, directions atol 1e-6 (NaN where JAX's), validity
+    exact."""
+    B = 4
+    args = (_seeded_prelude(B, L, Nn) if case == "seeded"
+            else planted_prelude_arrays(B, L, Nn))
     got = tdt.step_prelude_plain(*[torch.from_numpy(np.ascontiguousarray(a))
                                    for a in args])
     want = jax.vmap(_jax_prelude)(*[jnp.asarray(a) for a in args])
@@ -366,6 +383,10 @@ def test_step_prelude_plain_matches_jax():
     np.testing.assert_array_equal(got.dirs_valid.numpy(),
                                   np.asarray(want[3]))
     assert not got.dirs_valid[:, Nn:Nn + 2].any()
+    if case == "planted" and L >= 6:
+        assert np.isnan(got.dirs[:, Nn + 2].numpy()).all(axis=1).all()
+        assert got.dirs_valid[:, Nn + 3:Nn + 6].tolist() == [
+            [False, False, True]] * B
     np.testing.assert_allclose(got.R_init.numpy(), np.asarray(want[4]),
                                atol=1e-6)
 

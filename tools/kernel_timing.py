@@ -7,9 +7,10 @@ K12 (plane_components), K13 (plane_assign_refit), K15
 (frame_match_select), K28 (noise_alpha), K29 (frame_normals), K30
 (associate_planes), K31 (finish_step), K40 (ba_schur_complement), the
 pose graph's step (K10, K41), K42 (triangulate_lines) and K43-K45
-(pcg_prepare, pcg_schur_matvec, pcg_cg_update), K14 (plane_label_pixels)
-and K27 (assemble_observations) of one tree of the port on a GPU, so that
-two trees can be compared in one run.
+(pcg_prepare, pcg_schur_matvec, pcg_cg_update), K14 (plane_label_pixels),
+K27 (assemble_observations), K2 (orb_describe) and K36 (step_prelude) of
+one tree of the port on a GPU, so that two trees can be compared in one
+run.
 
     python3 tools/kernel_timing.py [--root DIR] [--only NAME,...]
 
@@ -77,10 +78,15 @@ them has none); K27 on both launches of path 1's 48th tracking step,
 steps 45-48 at B = 4 and every ASSEMBLE_PLANTED problem alone and at B =
 4 (`assemble_problems`), K14 on path 1's 48th frame, frames 45-48 at B =
 4 and every LABEL_PLANTED problem (1280x960 and 643x481 among them) at
-refine_stride 2 and 1, alone and at B = 4 (`label_problems`), both on the
-inputs `step_kernel_inputs` captures once. K1, K3, K12, K13, K14, K15,
-K16, K17, K18, K22, K23, K25, K26, K27, K28, K29, K30, K31, K40, K10, K41
-and K42-K45 are timed by `kernel_timing_entry`.
+refine_stride 2 and 1, alone and at B = 4 (`label_problems`), K2 on path
+1's 48th frame, frames 45-48 at B = 4, frames 41-48 in one launch as
+chunked mode's front end makes it (C = 8) and every ORB_PLANTED problem
+alone and at B = 4 (`orb_problems`), K36 on path 1's 48th step, steps
+45-48 at B = 4 and planted lanes at every PRELUDE_WIDTHS alone and at B =
+4 (`prelude_problems`), all four on the inputs `step_kernel_inputs`
+captures once. K1, K2, K3, K12, K13, K14, K15, K16, K17, K18, K22, K23,
+K25, K26, K27, K28, K29, K30, K31, K36, K40, K10, K41 and K42-K45 are
+timed by `kernel_timing_entry`.
 --only times the named kernels alone (their keys in the output, e.g.
 `lift_lines_3d,match_select`). Prints one JSON
 object with the card's name and power limit, those times and a hash of
@@ -184,12 +190,16 @@ def main(argv=None) -> int:
                    **smoke.kernel_timing_entry(fn, "plane_")}
             for name, fn in smoke.components_problems(seq, cfg, dev).items()}
 
-    if wanted("assemble_observations") or wanted("plane_label_pixels"):
+    step_keys = ("assemble_observations", "plane_label_pixels",
+                 "orb_describe", "step_prelude")
+    if any(wanted(k) for k in step_keys):
         step_inputs = smoke.step_kernel_inputs(seq, cfg, dev)
     for key, problems, match in (
             ("assemble_observations", smoke.assemble_problems,
              "assemble_observations"),
-            ("plane_label_pixels", smoke.label_problems, "plane_label")):
+            ("plane_label_pixels", smoke.label_problems, "plane_label"),
+            ("orb_describe", smoke.orb_problems, "orb_describe"),
+            ("step_prelude", smoke.prelude_problems, "step_prelude")):
         if wanted(key):
             out[key] = {name: {"hash": _digest(fn()),
                                **smoke.kernel_timing_entry(fn, match)}

@@ -103,7 +103,7 @@ SPAN_MODULES = ("frontend", "lines", "planes", "manhattan", "matching",
 # counts for the first kernel whose entry name it holds
 PORT_KERNELS = {
     "K1 fast_score": ("fast_score_levels_kernel",),
-    "K2 orb_describe": ("orb_describe_kernel", "orb_describe_levels_kernel"),
+    "K2 orb_describe": ("orb_describe_levels_kernel",),
     "K3 gated_hamming_top2": ("hamming_top2_kernel",),
     "K4 plane_block_moments": ("_plane_block_moments_kernel",),
     "K5 triangulate_two_view": ("triangulate_kernel",),
